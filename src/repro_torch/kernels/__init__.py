@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the compression hot path, their plain
-PyTorch versions, and the pytree wrappers that dispatch between them."""
+"""Hand-written CUDA kernels (the compression hot path, K1–K3, and flash
+attention, K4), their plain PyTorch versions, and the wrappers that
+dispatch between them by device."""
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention, ops, ref
 
-__all__ = ["ops", "ref"]
+__all__ = ["flash_attention", "ops", "ref"]

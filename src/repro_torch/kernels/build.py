@@ -1,0 +1,51 @@
+"""Build of the port's CUDA sources into shared libraries bound by ctypes.
+
+Each source under ``csrc/`` has a plain C interface. At first use it is
+compiled with ``nvcc`` into ``build/torch_kernels/<hash>/lib<name>.so`` at
+the repository root, keyed by a hash of the source and its flags (an edit
+rebuilds), and the compiler's report (registers, spills) is kept beside
+it as ``build.log``. Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+# Target and output of every kernel library; each source adds its own flags.
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("the CUDA kernels need nvcc, and no CUDA toolkit was found "
+                           "(set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build_library(source: Path, flags: tuple[str, ...]) -> Path:
+    """Compile ``source`` with ``flags`` unless that pair was built already;
+    returns the shared library's path."""
+    src = source.read_bytes()
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / key
+    lib = out_dir / f"lib{source.stem}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{source.stem}.{os.getpid()}.so"
+    proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True, check=False)
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

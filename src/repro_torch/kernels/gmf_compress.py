@@ -1,10 +1,8 @@
 """Build, binding and launch of the CUDA compression kernels.
 
-The kernels live in ``csrc/gmf_compress.cu`` behind a plain C interface.
-At first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under ``build/torch_kernels/<hash>/`` at the repository
-root (keyed by a hash of the source and the flags, so an edit rebuilds),
-and loaded with ctypes. Nothing is built when this module is imported.
+The kernels live in ``csrc/gmf_compress.cu`` behind a plain C interface,
+built at first use by ``kernels/build.py`` (nvcc for ``sm_90a``, loaded
+with ctypes). Nothing is built when this module is imported.
 
 Each ``*_flat`` wrapper takes ``[k, ...]`` float32 CUDA tensors (one row
 per client), checks device, dtype, shape and contiguity, allocates its
@@ -17,17 +15,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import BASE_FLAGS, build_library
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmf_compress.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# -fmad=false: K1's z must be bitwise the z its threshold was taken from.
+NVCC_FLAGS = (*BASE_FLAGS, "-fmad=false")
 
 # Launches per kernel since the last reset_launches(): the evidence that a
 # run went through the kernels.
@@ -39,34 +35,9 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("the CUDA kernels need nvcc, and no CUDA toolkit was found "
-                           "(set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build() -> Path:
-    """Compile the kernels if this source and these flags were not built
-    yet; returns the shared library's path. The compiler's report
-    (registers, spills) is kept beside it as ``build.log``."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / key
-    lib = out_dir / "libgmf_compress.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libgmf_compress.{os.getpid()}.so"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    """The shared library's path, compiled first if need be."""
+    return build_library(SOURCE, NVCC_FLAGS)
 
 
 @functools.cache

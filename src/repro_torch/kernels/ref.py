@@ -1,13 +1,20 @@
-"""Plain PyTorch versions of the three compression kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
-Each is the same function as its CUDA kernel in ``csrc/gmf_compress.cu``
-and the reference's ``kernels/ref.py`` oracle. The kernel wrappers take
-these for tensors on the CPU, and ``chip_smoke.py`` holds each kernel to
-its plain version on the card. Leaves are ``[k, ...]`` client stacks;
-per-client scalars are ``[k]`` tensors (or 0-dim for one shared value).
+The kernel wrappers take these for tensors on the CPU, and
+``chip_smoke.py`` holds each kernel to its plain version on the card.
+
+The three compression kernels (``csrc/gmf_compress.cu``) are the same
+functions as the reference's ``kernels/ref.py`` oracles. Leaves are
+``[k, ...]`` client stacks; per-client scalars are ``[k]`` tensors (or
+0-dim for one shared value).
+
+K4, flash attention (``csrc/flash_attention.cu``): the Pallas kernel's
+arithmetic over k/v tiles, in the same online softmax.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.fusion import rows
 from repro_torch.utils import tree_multimap
@@ -54,3 +61,56 @@ def momentum_correction(u_tree, v_tree, g_tree, alpha):
 
 def apply_mask_update(u_tree, v_tree, mask_tree):
     return tree_multimap(apply_mask_update_leaf, 3, u_tree, v_tree, mask_tree)
+
+
+NEG_INF = -1e30
+# Keys per k/v tile: ``BK`` of csrc/flash_attention.cu, whose summation
+# order the plain version follows.
+BK = 64
+
+
+def flash_attention_bhsd(q, k, v, *, causal=True):
+    """q: (BH, T, D); k/v: (BKV, S, D), query head i reading kv head i // G.
+
+    The Pallas ``_flash_kernel``'s arithmetic over ``BK``-key tiles:
+    q and k in float32 with q scaled by D^-0.5 first; causal keys with
+    kpos > qpos (both from 0) at -1e30; running max m and sum l in float32;
+    p rounded to v's dtype before the PV product, which is accumulated in
+    float32; out = acc / max(l, 1e-30) in q's dtype. Tiles wholly above the
+    diagonal are skipped, as the kernels skip them."""
+    bh, t, d = q.shape
+    bkv, s, _ = k.shape
+    g = bh // bkv
+    qf = (q.float() * d**-0.5).reshape(bkv, g, t, d)
+    m = torch.full((bkv, g, t), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bkv, g, t), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bkv, g, t, d), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(t, device=q.device)[:, None]
+    for k0 in range(0, s, BK):
+        if causal and k0 > t - 1:
+            break
+        kj, vj = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
+        sc = torch.einsum("bgtd,bcd->bgtc", qf, kj.float())
+        if causal:
+            kpos = torch.arange(k0, k0 + kj.shape[1], device=q.device)[None, :]
+            sc = sc.masked_fill(kpos > qpos, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgtc,bcd->bgtd", p.to(v.dtype).float(), vj.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.to(q.dtype).reshape(bh, t, d)
+
+
+def flash_attention(q, k, v, *, causal=True):
+    """q: (B, T, H, D); k/v: (B, S, KV, D) -> (B, T, H, D)."""
+    b, t, h, d = q.shape
+    _, s, kv, _ = k.shape
+    qf = q.transpose(1, 2).reshape(b * h, t, d)
+    kf = k.transpose(1, 2).reshape(b * kv, s, d)
+    vf = v.transpose(1, 2).reshape(b * kv, s, d)
+    out = flash_attention_bhsd(qf, kf, vf, causal=causal)
+    return out.reshape(b, h, t, d).transpose(1, 2)

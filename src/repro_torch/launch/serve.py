@@ -1,0 +1,159 @@
+"""Serving entry point: the port of the reference's ``launch/serve.py``,
+fixed-batch mode (prompts, a prefill that builds the ring KV cache, greedy
+decode steps, one JSON summary line).
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 \
+        --prompt-len 2048 --gen 32                      # on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --smoke --device cpu --batch 2 --prompt-len 32 --gen 8
+
+The model is randomly initialised from ``--seed``, as the reference's is;
+the prompts come from the same seed through another stream. On the GPU
+the prefill's attention runs the K4 CUDA kernel (``models/attention.py``).
+
+The last stdout line is the JSON summary with the reference's keys. The
+timed prefill and the timed decode loop each hold no host sync and end in
+one ``torch.cuda.synchronize()``: the position advances on the device and
+the tokens stack there until the clock has stopped.
+
+Not ported yet: ``--mode engine`` (the paged continuous-batching engine,
+ROADMAP Queue 1 item 12) and ``--obs`` (telemetry, item 10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.dist import step as dstep
+from repro_torch.models import transformer
+from repro_torch.utils import resolve_device
+
+
+class FixedRun(NamedTuple):
+    summary: dict               # the reference's JSON summary
+    tokens: torch.Tensor        # (B, gen) greedy tokens, on the CPU
+    last_logits: torch.Tensor   # (B, V) float32 prefill logits, on the device
+
+
+def seeds(seed: int) -> tuple[int, int]:
+    """Independent (init, prompt) seeds from ``seed``."""
+    init, prompt = np.random.SeedSequence(seed).generate_state(2)
+    return int(init), int(prompt)
+
+
+def init_params(cfg, seed: int, device):
+    gen = torch.Generator(device=device).manual_seed(seeds(seed)[0])
+    return transformer.init_params(cfg, gen)
+
+
+def prompt_batch(cfg, seed: int, b: int, prompt_len: int, device) -> dict:
+    """(B, prompt_len) token ids, drawn on the CPU so every device serves
+    the same prompts."""
+    gen = torch.Generator().manual_seed(seeds(seed)[1])
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen)
+    return {"tokens": tokens.to(device)}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def decode(serve, params, cache, tok, pos, steps: int):
+    """``steps`` greedy decode steps after token ``tok`` (B,) at the device
+    scalar position ``pos``, with no host sync: the position advances on the
+    device and the tokens stay there. Returns the tokens, ``tok`` first, and
+    the cache."""
+    generated = [tok]
+    for _ in range(steps):
+        tok, _, cache = serve(params, cache, tok, pos)
+        pos = pos + 1
+        generated.append(tok)
+    return generated, cache
+
+
+def run_fixed(cfg, params, args, device) -> FixedRun:
+    """Fixed-batch prefill + decode on ``device`` (where ``params`` lie)."""
+    b = args.batch
+    cache_len = args.cache_len or (args.prompt_len + args.gen)
+    batch = prompt_batch(cfg, args.seed, b, args.prompt_len, device)
+    prefill = dstep.make_prefill_step(cfg, cache_len=cache_len)
+    serve = dstep.make_serve_step(cfg)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    last_logits, cache = prefill(params, batch)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    tok = torch.argmax(last_logits, dim=-1)
+
+    pos = torch.full((), args.prompt_len, dtype=torch.int64, device=device)
+    t0 = time.perf_counter()
+    generated, cache = decode(serve, params, cache, tok, pos, args.gen - 1)
+    _sync(device)  # the decode loop's one synchronize
+    t_decode = time.perf_counter() - t0
+
+    gen = torch.stack(generated, dim=-1).cpu()
+    steps = max(args.gen - 1, 1)
+    print(f"prefill: {b}x{args.prompt_len} tokens in {t_prefill*1e3:.1f} ms")
+    print(f"decode:  {args.gen-1} steps x {b} seqs in {t_decode*1e3:.1f} ms "
+          f"({t_decode/steps*1e3:.1f} ms/step)")
+    print(f"sample continuations (token ids), first sequence: {gen[0][:16].tolist()} ...")
+    if not bool(torch.isfinite(last_logits).all()):
+        raise RuntimeError("prefill logits are not finite")
+    summary = {
+        "mode": "fixed",
+        "arch": args.arch,
+        "batch": b,
+        "prompt_len": args.prompt_len,
+        "gen": args.gen,
+        "prefill_ms": t_prefill * 1e3,
+        "decode_ms": t_decode * 1e3,
+        "ms_per_step": t_decode / steps * 1e3,
+        "tokens_per_s": (args.gen - 1) * b / t_decode if t_decode > 0 else 0.0,
+    }
+    return FixedRun(summary, gen, last_logits)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--mode", choices=("fixed", "engine"), default="fixed")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--cache-len", type=int, default=0, help="0 -> prompt+gen")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--obs", action="store_true",
+                    help="the telemetry spine (not ported yet)")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.mode == "engine":
+        raise NotImplementedError("--mode engine (the paged continuous-batching engine) "
+                                  "is not ported yet: ROADMAP Queue 1 item 12")
+    if args.obs:
+        raise NotImplementedError("--obs (telemetry) is not ported yet: "
+                                  "ROADMAP Queue 1 item 10")
+    device = resolve_device(args.device)
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+    params = init_params(cfg, args.seed, device)
+    summary = run_fixed(cfg, params, args, device).summary
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,5 +1,6 @@
-"""The paper's task models (the ResNet of Task 1 so far)."""
+"""The models: the paper's ResNet (Task 1) and the dense transformer of
+the serving path."""
 
-from repro_torch.models import resnet
+from repro_torch.models import attention, layers, resnet, transformer
 
-__all__ = ["resnet"]
+__all__ = ["attention", "layers", "resnet", "transformer"]

@@ -1,0 +1,246 @@
+"""GQA attention: the port of the reference's ``models/attention.py``.
+
+Shapes: q (B, T, H, D); k/v (B, S, KV, D); query head h reads kv head
+h // (H/KV), and k/v are never repeated to H heads.
+
+Full-sequence attention (training / prefill) has three implementations:
+
+  * ``naive``: full scores with grouped-query einsums, as the reference;
+  * ``chunked``: the reference's memory-bounded online-softmax loop;
+  * ``flash``: K4, the hand-written CUDA kernel
+    (``kernels/flash_attention.py``); it computes causal self-attention
+    with S == T and no window. On a CPU tensor its wrapper runs the
+    kernel's plain version.
+
+``impl="auto"`` picks by what the call computes and where its tensors lie:
+a CUDA tensor with window 0 and S == T, from which no gradient is asked,
+goes to ``flash`` (the function K4 computes, on the device it runs on);
+anything else follows the reference's rule, ``naive`` if
+T <= max(2048, attn_chunk) else ``chunked``. That is dispatch by function,
+not a fallback: windowed attention has no TPU kernel either and runs plain
+in the reference too, and K4, like the Pallas kernel, has no backward, so
+training takes ``naive``/``chunked`` (``flash`` raises if asked for a
+gradient).
+
+Numbers differ by design between ``naive`` and ``flash`` in bfloat16: the
+naive path rounds the QK^T einsum to bfloat16 before its float32 cast (as
+the reference does), K4 computes its scores in float32.
+
+The decode step keeps the reference's ring cache and writes the new
+token's K/V into it in place (``index_copy_`` at a device-side slot), so a
+step moves no cache and reads no position back to the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as k4
+from repro_torch.models import layers
+from repro_torch.utils import scalar
+
+NEG_INF = -1e30
+
+
+def init_attention(gen, cfg, d_model=None):
+    d_model = d_model or cfg.d_model
+    dtype = layers.dtype_of(cfg.param_dtype)
+    p = {
+        "wq": layers.dense_init(gen, d_model, cfg.q_dim, dtype),
+        "wk": layers.dense_init(gen, d_model, cfg.kv_dim, dtype),
+        "wv": layers.dense_init(gen, d_model, cfg.kv_dim, dtype),
+        "wo": layers.dense_init(gen, cfg.q_dim, d_model, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _project_qkv(params, cfg, x):
+    b, t, _ = x.shape
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _positions(cfg, b, t, positions, device):
+    if positions is None:
+        positions = torch.arange(t, device=device).expand(b, t)
+    return positions
+
+
+def _rope_q_k(cfg, q, k, positions):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE (the vlm family) is not ported yet: "
+                                  "ROADMAP Queue 1 item 6")
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def naive_causal_attention(q, k, v, *, window: int = 0):
+    """Reference full-scores attention with grouped-query einsums; queries
+    are right-aligned against the keys (position s - t + i)."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = d**-0.5
+    qg = q.reshape(b, t, kv, g, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k).float() * scale
+    qpos = torch.arange(t, device=q.device)[:, None] + (s - t)
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, t, h, d)
+
+
+def chunked_causal_attention(q, k, v, *, chunk: int, window: int = 0):
+    """Memory-bounded causal self-attention (S == T) with an online softmax
+    over ``chunk``-sized kv blocks; query chunk i visits only the kv chunks
+    in its causal (and window) footprint, as the reference's scan does."""
+    b, t, h, d = q.shape
+    if k.shape[1] != t:
+        raise ValueError("chunked path assumes self-attention (S == T)")
+    if t % chunk != 0:
+        raise ValueError(f"seq_len {t} must be a multiple of attn_chunk {chunk}")
+    n = t // chunk
+    kv = k.shape[2]
+    g = h // kv
+    scale = d**-0.5
+    qc = q.reshape(b, n, chunk, kv, g, d)
+    kc = k.reshape(b, n, chunk, kv, d)
+    vc = v.reshape(b, n, chunk, kv, d)
+    win_chunks = -(-window // chunk) if window > 0 else n
+    ar = torch.arange(chunk, device=q.device)
+
+    outs = []
+    for i in range(n):
+        qi = qc[:, i] * scale  # (B, C, KV, G, D)
+        j_lo = max(0, i - win_chunks) if window > 0 else 0
+        qpos = i * chunk + ar[:, None]
+        acc = torch.zeros((b, kv, g, chunk, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, kv, g, chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kv, g, chunk), dtype=torch.float32, device=q.device)
+        for j in range(j_lo, i + 1):
+            kj, vj = kc[:, j], vc[:, j]
+            s_ij = torch.einsum("bqkgd,bckd->bkgqc", qi, kj).float()
+            kpos = j * chunk + ar[None, :]
+            mask = kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
+            s_ij = s_ij.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, s_ij.amax(dim=-1))
+            p = torch.exp(s_ij - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bckd->bkgqd", p.to(vj.dtype), vj).float()
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        # (B, KV, G, C, D) -> (B, C, KV, G, D) -> (B, C, H, D)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, chunk, h, d).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def resolve_impl(impl: str, cfg, q, k, v, window: int) -> str:
+    """The implementation ``impl="auto"`` stands for (module docstring)."""
+    if impl != "auto":
+        return impl
+    t = q.shape[1]
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if q.is_cuda and window == 0 and k.shape[1] == t and not grad:
+        return "flash"
+    return "naive" if t <= max(2048, cfg.attn_chunk) else "chunked"
+
+
+def attention(params, cfg, x, *, positions=None, window: int | None = None,
+              impl: str = "auto"):
+    """Full-sequence self-attention (training / prefill). Returns (out, (k, v))."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x)
+    positions = _positions(cfg, b, t, positions, x.device)
+    q, k = _rope_q_k(cfg, q, k, positions)
+    window = cfg.sliding_window if window is None else window
+    impl = resolve_impl(impl, cfg, q, k, v, window)
+    if impl == "naive":
+        out = naive_causal_attention(q, k, v, window=window)
+    elif impl == "chunked":
+        out = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, window=window)
+    elif impl == "flash":
+        if window > 0:
+            raise ValueError("impl='flash' computes unwindowed attention; window "
+                             f"{window} needs 'naive' or 'chunked'")
+        out = k4.flash_attention(q, k, v, causal=True)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    out = out.reshape(b, t, cfg.q_dim) @ params["wo"]
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg, batch, cache_len, dtype, device):
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_decode_attention(*args, **kwargs):
+    raise NotImplementedError("the paged KV cache of the serving engine is not ported "
+                              "yet: ROADMAP Queue 1 item 12")
+
+
+def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None):
+    """One-token decode. x_t: (B, d_model); pos: the new token's absolute
+    position, a Python int or a 0-dim integer tensor (on x_t's device, so
+    no host sync). The cache is a ring buffer of length ``cache_len``; the
+    new K/V are written into ``cache`` in place. Returns (out (B, d_model),
+    cache)."""
+    b = x_t.shape[0]
+    window = cfg.sliding_window if window is None else window
+    q, k, v = _project_qkv(params, cfg, x_t[:, None, :])
+    pos = scalar(pos, x_t.device, torch.int64)
+    if pos.dim() != 0:
+        raise ValueError(f"decode position must be a scalar, got shape {tuple(pos.shape)}")
+    q, k = _rope_q_k(cfg, q, k, pos.expand(b)[:, None])
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    cache_len = k_cache.shape[1]
+    slot = pos % cache_len
+    k_cache.index_copy_(1, slot.reshape(1), k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot.reshape(1), v.to(v_cache.dtype))
+
+    kv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, 1, kv, g, cfg.head_dim)
+    scale = cfg.head_dim**-0.5
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k_cache).float() * scale
+
+    # Valid slots: the ring has wrapped pos // cache_len times, so slot s
+    # holds logical position wrapped·L + s if s <= slot, else one lap less;
+    # a slot is valid iff that position is in (pos - window, pos].
+    slots = torch.arange(cache_len, device=x_t.device)
+    wrapped = pos // cache_len
+    logical = torch.where(slots <= slot, wrapped * cache_len + slots,
+                          (wrapped - 1) * cache_len + slots)
+    valid = (logical >= 0) & (logical <= pos)
+    if window > 0:
+        valid &= logical > pos - window
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v_cache)
+    out = out.reshape(b, cfg.q_dim) @ params["wo"]
+    return out, cache

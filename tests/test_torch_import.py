@@ -21,7 +21,9 @@ def _port_sources():
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.fl, repro_torch.kernels, "
-            "repro_torch.models, repro_torch.data, repro_torch.utils.convert\n"
+            "repro_torch.models, repro_torch.data, repro_torch.utils.convert, "
+            "repro_torch.configs, repro_torch.dist, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, repro_torch.models.transformer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -64,6 +66,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="cuda"):
         FLSimulator(FLConfig(num_clients=2, rounds=1), CompressionConfig(scheme="dgc"),
                     task.init_fn, task.loss_fn)
+
+
+def test_serve_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    from repro_torch.launch import serve
+
+    assert serve.parser().parse_args(["--arch", "llama3.2-1b"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "llama3.2-1b", "--smoke"])
+
+
+def test_k4_wrapper_takes_plain_only_on_cpu_and_launches_nothing():
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
+    k4.reset_launches()
+    assert torch.equal(k4.flash_attention(q, k, k), ref.flash_attention(q, k, k))
+    assert k4.LAUNCHES == {"flash_attention": 0}
+    with pytest.raises(ValueError, match="cuda"):
+        k4._launch_bthd(q, k, k, torch.empty_like(q), True)
+    with pytest.raises(ValueError, match="meta"):
+        k4.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back():

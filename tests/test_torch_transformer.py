@@ -1,0 +1,151 @@
+"""The port's dense transformer and serving steps against the JAX
+package's, at ``llama3_2_1b.smoke()`` (2 layers, d_model 256, GQA 8/2),
+on JAX-initialised params converted leaf for leaf.
+
+Tolerances: per tensor, max |port − JAX| ≤ REL × max |JAX|, with REL
+1e-5 in float32 (the two frameworks sum matrix products in other orders)
+and 3e-2 in bfloat16 (each rounds its bf16 products and elementwise ops
+itself). Greedy tokens must be equal in float32. In bfloat16 both sides
+are fed JAX's tokens, so that a near-tie argmax cannot fork the runs.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from repro.configs import llama3_2_1b as jllama
+from repro.dist import step as jstep
+from repro.models import transformer as jtr
+from repro_torch.configs import llama3_2_1b as tllama
+from repro_torch.dist import step as tstep
+from repro_torch.models import transformer as ttr
+from repro_torch.utils import tree_leaves
+from repro_torch.utils.convert import from_jax_params
+
+REL = {"float32": 1e-5, "bfloat16": 3e-2}
+B, PROMPT, GEN = 2, 24, 8
+
+
+def _rel_err(got, want):
+    got = got.float().numpy().astype(np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def _configs(dtype):
+    jcfg, tcfg = jllama.smoke(), tllama.smoke()
+    if dtype != "float32":
+        jcfg = dataclasses.replace(jcfg, dtype=dtype, param_dtype=dtype)
+        tcfg = dataclasses.replace(tcfg, dtype=dtype, param_dtype=dtype)
+    return jcfg, tcfg
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def model(request):
+    dtype = request.param
+    jcfg, tcfg = _configs(dtype)
+    jp = jtr.init_params(jcfg, jax.random.PRNGKey(7))
+    tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), layout="transformer")
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    return dtype, jcfg, tcfg, jp, tp, tokens
+
+
+def test_config_copy_matches_reference():
+    assert dataclasses.asdict(tllama.CONFIG) == dataclasses.asdict(jllama.CONFIG)
+    assert dataclasses.asdict(tllama.smoke()) == dataclasses.asdict(jllama.smoke())
+    assert (dataclasses.asdict(tllama.LONG_CONTEXT_VARIANT)
+            == dataclasses.asdict(jllama.LONG_CONTEXT_VARIANT))
+    assert tllama.CONFIG.param_count() == jllama.CONFIG.param_count() == 1_498_482_688
+
+
+def test_params_tree_matches_reference_layout(model):
+    _, jcfg, tcfg, jp, tp, _ = model
+    own = ttr.init_params(tcfg, torch.Generator().manual_seed(0))
+    jleaves = jax.tree_util.tree_leaves(jp)
+    assert len(tree_leaves(own)) == len(tree_leaves(tp)) == len(jleaves)
+    assert isinstance(own["layers"], tuple) and isinstance(own["tail"], tuple)
+    for a, b, j in zip(tree_leaves(own), tree_leaves(tp), jleaves, strict=True):
+        assert tuple(a.shape) == tuple(b.shape) == j.shape
+        assert a.dtype == b.dtype
+    assert sum(x.numel() for x in tree_leaves(own)) == tcfg.param_count()
+
+
+def test_forward_logits_match(model):
+    dtype, jcfg, tcfg, jp, tp, tokens = model
+    want, _, _ = jtr.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        got, aux, cache = ttr.forward(tcfg, tp, {"tokens": torch.from_numpy(tokens).long()})
+    assert cache is None and float(aux) == 0.0
+    assert _rel_err(got, want) <= REL[dtype]
+
+
+def test_forward_last_index_picks_each_row(model):
+    dtype, jcfg, tcfg, jp, tp, tokens = model
+    ctx = {"last_only": True, "last_index": np.array([5, PROMPT - 1])}
+    want, _, _ = jtr.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)},
+                             ctx={**ctx, "last_index": jnp.asarray(ctx["last_index"])})
+    with torch.no_grad():
+        got, _, _ = ttr.forward(tcfg, tp, {"tokens": torch.from_numpy(tokens).long()},
+                                ctx={**ctx, "last_index": torch.tensor([5, PROMPT - 1])})
+    assert got.shape == (B, 1, tcfg.vocab_size)
+    assert _rel_err(got, want) <= REL[dtype]
+
+
+@pytest.mark.parametrize("cache_len", [PROMPT + GEN, 16], ids=["t<cache_len", "t>=cache_len"])
+def test_prefill_and_greedy_decode_match(model, cache_len):
+    dtype, jcfg, tcfg, jp, tp, tokens = model
+    jprefill = jax.jit(jstep.make_prefill_step(jcfg, cache_len=cache_len))
+    jserve = jax.jit(jstep.make_serve_step(jcfg))
+    tprefill = tstep.make_prefill_step(tcfg, cache_len=cache_len)
+    tserve = tstep.make_serve_step(tcfg)
+
+    jlast, jcache = jprefill(jp, {"tokens": jnp.asarray(tokens)})
+    tlast, tcache = tprefill(tp, {"tokens": torch.from_numpy(tokens).long()})
+    assert tlast.dtype == torch.float32
+    assert _rel_err(tlast, jlast) <= REL[dtype]
+    jleaves = jax.tree_util.tree_leaves(jcache)
+    assert len(jleaves) == len(tree_leaves(tcache)) == 2
+    for got, want in zip(tree_leaves(tcache), jleaves, strict=True):
+        assert got.shape[2] == cache_len
+        assert _rel_err(got, want) <= REL[dtype]
+
+    jtok = jnp.argmax(jlast, axis=-1).astype(jnp.int32)
+    ttok = torch.argmax(tlast, dim=-1)
+    for i in range(GEN):
+        pos = PROMPT + i
+        if dtype == "float32":
+            assert ttok.tolist() == np.asarray(jtok).tolist(), f"step {i}"
+        else:
+            ttok = torch.from_numpy(np.array(jtok)).long()
+        jtok, jlogits, jcache = jserve(jp, jcache, jtok, jnp.asarray(pos, jnp.int32))
+        ttok, tlogits, tcache = tserve(tp, tcache, ttok, torch.tensor(pos))
+        assert _rel_err(tlogits, jlogits) <= REL[dtype], f"step {i}"
+    for got, want in zip(tree_leaves(tcache), jax.tree_util.tree_leaves(jcache), strict=True):
+        assert _rel_err(got, want) <= REL[dtype]
+
+
+def test_init_cache_matches_reference():
+    jcfg, tcfg = _configs("float32")
+    jc = jtr.init_cache(jcfg, 3, 10)
+    tc = ttr.init_cache(tcfg, 3, 10, device="cpu")
+    for got, want in zip(tree_leaves(tc), jax.tree_util.tree_leaves(jc), strict=True):
+        assert tuple(got.shape) == want.shape and not got.any()
+
+
+@pytest.mark.parametrize("family, kw", [
+    ("moe", dict(num_experts=4, experts_per_token=2)),
+    ("ssm", dict(ssm_state=16)),
+    ("hybrid", dict(block_pattern=("rec", "attn"))),
+    ("audio", dict(num_codebooks=4)),
+    ("vlm", dict(mrope=True, num_patches=4)),
+])
+def test_unported_families_raise(family, kw):
+    cfg = dataclasses.replace(tllama.smoke(), family=family, **kw)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ttr.init_params(cfg, torch.Generator().manual_seed(0))
