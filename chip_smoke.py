@@ -6,9 +6,10 @@
 
 Phases, in order; any failure exits nonzero:
 
-1. **Build.** ``nvcc`` compiles ``src/repro_torch/kernels/csrc/gmf_compress.cu``
-   and ``csrc/flash_attention.cu`` for ``sm_90a`` into ``build/torch_kernels/``,
-   both at once (the compiler's register reports are printed).
+1. **Build.** ``nvcc`` compiles ``src/repro_torch/kernels/csrc/gmf_compress.cu``,
+   ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu`` for
+   ``sm_90a`` into ``build/torch_kernels/``, all three at once (the
+   compiler's register reports and the build time are printed).
 2. **Kernels.** Each CUDA kernel (K1 gmf_compress, K2 momentum_correction,
    K3 apply_mask) runs against its plain PyTorch version (``kernels/ref.py``)
    on the card, on numpy-seeded inputs of 1, 5, 1000, 65,537, 3×1001,
@@ -16,19 +17,27 @@ Phases, in order; any failure exits nonzero:
    with inputs rounded to 1/16 so many elements tie exactly at the top-k
    threshold. Masks must be equal and G, U, V bitwise equal: both sides do
    the same float32 operations in the same order with no fused multiply-add.
-   K4 flash_attention runs against its plain version in float32 and
+   K2, one multi-tensor launch per tree, is held bitwise over the 169
+   ResNet-56 leaves for 20 clients in one launch, over the same tree with a
+   misaligned leaf, and over a tree of more leaves than its table holds
+   (one launch per table). K4 runs against its plain version in float32 and
    bfloat16, causal and not, G ∈ {1, 4, 8} query heads per kv head (8 is
    MQA at H 8), head dim 16, 32, 64, 128, and T ∈ {1, 64, 1000, 2048} (1000
-   is no tile multiple), within atol 3e-5 / rtol 1e-4 in float32 and 3e-2
-   in bfloat16 (``tests/test_flash_attention.py``'s tolerances: the two sum
-   in other orders), and each output within 1e-5 (float32) or 5e-4
-   (bfloat16) relative L2 of the plain version's; the timing phase holds
-   K4 to both bounds again at the serving shape.
+   is no tile multiple): bf16 at D 64/128 on the tensor-core kernel
+   (``flash_attention_tc``), the rest on the CUDA-core kernel
+   (``flash_attention_cc``), each case's launch checked against
+   ``kernel_for``; plus the (BH, T, D) interface on the tensor-core kernel,
+   and a misaligned bf16 input, which must raise. Tolerances: atol 3e-5 /
+   rtol 1e-4 in float32 and 3e-2 in bfloat16 (``tests/test_flash_attention.py``'s:
+   the two sum in other orders), and each output within 1e-5 (float32) or
+   5e-4 (bfloat16) relative L2 of the plain version's; the timing phase
+   holds both K4 kernels to both bounds again at the serving shape.
 3. **Path.** ``FLSimulator`` + ``CifarTask(depth=56)`` with 20 clients,
    batch 64, lr 0.1, ``SynthCIFAR(num_train=20000)``: 3 rounds of
    ``dgcwgmf`` (τ 0.6, ``use_kernels=True``) and 3 of ``dgc``. Launch counts
    are reset before each run and read after it: ``dgcwgmf`` must launch K1
-   and K2 169 times per round, ``dgc`` K2 and K3. Every client's upload nnz
+   169 times per round and K2 once (one table holds the 169 leaves),
+   ``dgc`` K2 once and K3 169 times. Every client's upload nnz
    must be at least the exact-k sum 85,654; params must stay finite.
 4. **Card vs CPU.** Round 0 of ``dgcwgmf`` at depth 8 through the same port
    on the card and with ``device="cpu"``: per-client upload nnz equal, and
@@ -42,13 +51,24 @@ Phases, in order; any failure exits nonzero:
    one untimed warm-up run, then the measured one. Counts are reset before
    each run: K4 must launch exactly 16 times (one per layer) and K1–K3
    never; the prefill logits must be finite and every sequence must get 32
-   tokens. Then the prefill alone and ``run_fixed``'s decode loop
-   (``serve.decode``) alone must launch K4 16 and 0 times.
+   tokens; all 16 K4 launches must be the tensor-core kernel's. Then the
+   prefill alone and ``run_fixed``'s decode loop (``serve.decode``) alone
+   must launch K4 16 and 0 times.
 6. **Serving, card vs CPU.** llama3.2-1b width at depth 2 in float32,
    batch 2, prompt 256, the same params on both devices (K4 on the card,
    naive attention on the CPU): the prefill's last logits and 4 decode
    steps, both sides fed the CPU's greedy tokens, within 1e-4 relative L2
-   per step.
+   per step. The float32 prefill runs on the CUDA-core K4 (2 launches).
+
+Timing: K1 and K3 over one round's launches (one per ResNet-56 leaf, 20
+clients), K2 as one tree call over the same leaves, each beside its plain
+version and bytes bound, with K2's device time alone and its host time
+split into tree walks, table (checks, allocations, output views,
+pointers) and launch; K4 at the serving shape on the tensor-core kernel,
+the CUDA-core kernel (a bf16 comparison), the plain version and SDPA (a
+yardstick only: the port never calls it), beside the operations bound;
+the tensor-core kernel at D 128; and the CUDA-core kernel at the float32
+shape phase 6 gives it, which is its row's time.
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -62,6 +82,7 @@ line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import statistics
@@ -96,6 +117,7 @@ KERNELS = [
 PORT_SOURCE = "src/repro_torch/kernels/csrc/gmf_compress.cu"
 RESNET56_LEAVES, RESNET56_PARAMS, RESNET56_KEEP = 169, 855_578, 85_654
 K4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+K4_TC_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 K4_REPLACES = "src/repro/kernels/flash_attention.py:81"
 K4_TOL = {torch.float32: dict(atol=3e-5, rtol=1e-4), torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 # Relative L2 of K4 against its plain version over a whole output. The
@@ -219,9 +241,101 @@ def hold_kernels(gk, ref, fusion, sparsify, dev):
     return worst
 
 
-def time_kernels(gk, ref, leaf_shapes, clients, bw, peak, dev):
-    """Each kernel over one round's launches (every ResNet-56 leaf, all
-    clients), its plain version over the same inputs, and the bound."""
+def k2_tree(rng, leaf_shapes, clients, dev, misalign=None):
+    """u, v, g trees (dicts of ``[clients, *shape]`` leaves, rounded to 1/16);
+    leaf ``misalign`` of each is a view one float past a 16-byte boundary."""
+    trees = ({}, {}, {})
+    for i, shape in enumerate(leaf_shapes):
+        n = math.prod(shape)
+        for tree, x in zip(trees, kernel_inputs(rng, clients, n, dev, i == misalign),
+                           strict=True):
+            tree[f"leaf{i:03d}"] = x.reshape(clients, *shape)
+    return trees
+
+
+def hold_k2_trees(gk, ops, ref, leaf_shapes, dev):
+    """K2 as the path calls it, one tree at a time: bitwise against its
+    plain version, with its launch count; returns the largest absolute
+    difference (0 when bitwise)."""
+    rng = np.random.default_rng(2)
+    capacity, chunk = gk.momentum_limits()
+    small = [(3,)] * (capacity + 3) + [(0,), (5, 0)]  # past one table, and empty leaves
+    cases = [("ResNet-56, 20 clients", leaf_shapes, 20, None),
+             ("ResNet-56, 20 clients, leaf 7 misaligned", leaf_shapes, 20, 7),
+             (f"{len(small)} leaves (2 empty, leaf 1 misaligned)", small, 2, 1)]
+    worst = 0.0
+    for label, shapes, clients, mis in cases:
+        u, v, g = k2_tree(rng, shapes, clients, dev, mis)
+        want_launches = -(-sum(1 for sh in shapes if math.prod(sh)) // capacity)
+        for alpha in (0.0, 0.9):
+            gk.reset_launches()
+            got = ops.momentum_correction(u, v, g, alpha)
+            launches = gk.LAUNCHES["momentum_correction"]
+            want = ref.momentum_correction(u, v, g, alpha)
+            check(launches == want_launches, f"K2 over {label}: {launches} launches, "
+                  f"expected {want_launches}")
+            for what, gt, wt in zip(("U", "V"), got, want, strict=True):
+                for key in wt:
+                    a, b = gt[key], wt[key]
+                    check(a.shape == b.shape and torch.equal(a, b),
+                          f"K2 over {label}: {what} of {key} differs from the plain version "
+                          f"(max abs {(a - b).abs().max().item() if a.numel() else 0:.3e})")
+                    if a.numel():
+                        worst = max(worst, (a - b).abs().max().item())
+        print(f"  held K2 over {label}: {launches} launch(es) a tree call, bitwise "
+              f"(table capacity {capacity} leaves, {chunk} elements a block)", flush=True)
+    gk.reset_launches()
+    torch.cuda.synchronize()
+    return worst
+
+
+def k2_device_ms(gk, us, vs, gs, reps=20):
+    """K2's device time per tree call over these leaves: the table is built
+    once, then ``reps`` calls' launches go back to back, so the host's
+    per-call work is out of the measure (the tree-call time has it in)."""
+    table = gk.momentum_table(us, vs, gs, *gk.momentum_limits())  # the launches write there
+    dev = us[0].device
+    return timed_ms(lambda: [gk.launch_momentum(table, 0.9, dev) for _ in range(reps)],
+                    reps=5) / reps
+
+
+def host_us(fn, reps=50):
+    """Median µs of ``fn()`` on the host's clock (no sync: launches are
+    asynchronous, so this is the host's own work)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def k2_host_split(gk, ops, utils, trees):
+    """Where a K2 tree call's host time goes, in µs (host-clock medians of
+    each piece alone): the tree walks of ``ops.momentum_correction``, the
+    table (checks, two allocations, output views, pointers), the output
+    views alone, and the launch."""
+    us, vs, gs = (utils.tree_leaves(t) for t in trees)
+    limits = gk.momentum_limits()
+    table = gk.momentum_table(us, vs, gs, *limits)
+    flat = torch.empty(sum(u.numel() for u in us), dtype=torch.float32, device=us[0].device)
+    split = {
+        "tree call": host_us(lambda: ops.momentum_correction(*trees, 0.9)),
+        "tree walks": host_us(lambda: ([utils.tree_leaves(t) for t in trees],
+                                       [utils.tree_unflatten(trees[0], us) for _ in range(2)])),
+        "table": host_us(lambda: gk.momentum_table(us, vs, gs, *limits)),
+        "output views": host_us(lambda: [gk._unflatten(flat, us) for _ in range(2)]),
+        "launch": host_us(lambda: gk.launch_momentum(table, 0.9, us[0].device)),
+    }
+    return split
+
+
+def time_kernels(gk, ops, ref, utils, leaf_shapes, clients, bw, peak, dev):
+    """Each kernel over one round's work (every ResNet-56 leaf, all
+    clients: K1 and K3 one launch a leaf, K2 one tree call, as the path
+    calls them), its plain version over the same inputs, and the bound."""
     rng = np.random.default_rng(1)
     sets = []
     for shape in leaf_shapes:
@@ -234,29 +348,39 @@ def time_kernels(gk, ref, leaf_shapes, clients, bw, peak, dev):
         sets.append((u, v, m, mask, dict(inv_norm_v=inv, inv_norm_m=inv, tau=tau,
                                          threshold=thr)))
     elems = clients * sum(math.prod(s) for s in leaf_shapes)
+    trees = tuple({f"leaf{i:03d}": x[j] for i, x in enumerate(sets)} for j in range(3))
     runs = {
         "gmf_compress": (lambda: [gk.gmf_compress_flat(u, v, m, **kw) for u, v, m, _, kw in sets],
                          lambda: [ref.gmf_compress_leaf(u, v, m, **kw)
                                   for u, v, m, _, kw in sets]),
-        "momentum_correction": (
-            lambda: [gk.momentum_correction_flat(u, v, m, 0.9) for u, v, m, _, _ in sets],
-            lambda: [ref.momentum_correction_leaf(u, v, m, 0.9) for u, v, m, _, _ in sets]),
+        "momentum_correction": (lambda: ops.momentum_correction(*trees, 0.9),
+                                lambda: ref.momentum_correction(*trees, 0.9)),
         "apply_mask": (lambda: [gk.apply_mask_flat(u, v, mk) for u, v, _, mk, _ in sets],
                        lambda: [ref.apply_mask_update_leaf(u, v, mk) for u, v, _, mk, _ in sets]),
     }
     out = {}
-    for kid, name, _, bpe, ops in KERNELS:
+    for kid, name, _, bpe, flops in KERNELS:
         kern, plain = runs[name]
+        gk.reset_launches()
+        kern()
+        launched = gk.LAUNCHES[name]
         ms = timed_ms(kern)
         plain_ms = timed_ms(plain)
         nbytes = bpe * elems
         bound_bytes = nbytes / bw * 1e3
-        bound_ops = ops * elems / peak * 1e3
+        bound_ops = flops * elems / peak * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations")
-        print(f"  {kid} {name}: {len(sets)} launches, {nbytes / 1e6:.1f} MB, kernel "
+        print(f"  {kid} {name}: {launched} launches, {nbytes / 1e6:.1f} MB, kernel "
               f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
               f"bound {out[name]['bound_ms']:.4f} ms", flush=True)
+    k2_dev = k2_device_ms(gk, *(list(t.values()) for t in trees))
+    print(f"  K2 momentum_correction device time per tree call (launches back to back): "
+          f"{k2_dev:.4f} ms ({20 * elems / k2_dev / 1e6:.1f} GB/s); the rest of the "
+          f"{out['momentum_correction']['ms']:.4f} ms tree call is host time", flush=True)
+    split = k2_host_split(gk, ops, utils, trees)
+    print("  K2 tree call on the host's clock, median µs of each piece alone: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items()), flush=True)
     # One large launch per kernel: the bandwidth the kernel reaches when the
     # launch overhead is amortised.
     n = 2**24 + 3
@@ -278,6 +402,9 @@ def time_kernels(gk, ref, leaf_shapes, clients, bw, peak, dev):
         print(f"  {kid} {name} at {n} elements: {bpe * n / 1e6:.1f} MB, kernel {ms:.4f} ms "
               f"({bpe * n / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
               f"{bpe * n / bw * 1e3:.4f} ms", flush=True)
+    k2_dev = k2_device_ms(gk, [u], [v], [m])
+    print(f"  K2 momentum_correction at {n} elements, device time (launches back to back): "
+          f"{k2_dev:.4f} ms ({20 * n / k2_dev / 1e6:.1f} GB/s)", flush=True)
     return out
 
 
@@ -305,12 +432,27 @@ def check_k4(got, want, what):
 
 
 def hold_k4(k4, ref, dev):
-    """K4 against its plain version on the card at every listed dtype,
-    mask, grouping, head dim and length; returns the largest absolute
-    difference seen."""
+    """Both K4 kernels against their plain version on the card at every
+    listed dtype, mask, grouping, head dim and length, each case on the
+    kernel ``kernel_for`` names; returns the largest absolute difference
+    seen per kernel ({"tc": ..., "cc": ...})."""
     rng = np.random.default_rng(4)
-    worst, cases = 0.0, 0
-    worst_rel = {dtype: 0.0 for dtype in K4_TOL}
+    worst = {"tc": 0.0, "cc": 0.0}
+    cases = {"tc": 0, "cc": 0}
+    worst_rel = {}
+
+    def hold(run, want, kern, what):
+        k4.reset_launches()
+        got = run()
+        check(k4.LAUNCHES[f"flash_attention_{kern}"] == 1 and k4.LAUNCHES["flash_attention"] == 1,
+              f"K4 at {what}: launches {k4.LAUNCHES}, expected one of the {kern} kernel")
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"K4: {got.dtype} {tuple(got.shape)} at {what}")
+        err, rel = check_k4(got, want, f"{what} ({kern} kernel)")
+        worst[kern] = max(worst[kern], err)
+        worst_rel[kern, want.dtype] = max(worst_rel.get((kern, want.dtype), 0.0), rel)
+        cases[kern] += 1
+
     for t in (1, 64, 1000, 2048):
         for d in (16, 32, 64, 128):
             b = 1 if t == 2048 else 2
@@ -322,56 +464,141 @@ def hold_k4(k4, ref, dev):
                 for dtype in K4_TOL:
                     qq = q.to(dtype)
                     k, v = kf[:, :, :kv].to(dtype), vf[:, :, :kv].to(dtype)
+                    kern = k4.kernel_for(dtype, d)
                     for causal in (True, False):
-                        got = k4.flash_attention(qq, k, v, causal=causal)
-                        want = ref.flash_attention(qq, k, v, causal=causal)
-                        check(got.dtype == dtype and got.shape == qq.shape,
-                              f"K4: {got.dtype} {tuple(got.shape)}")
-                        err, rel = check_k4(got, want, f"B {b} T {t} H 8 KV {kv} D {d} "
-                                            f"{dtype} causal={causal}")
-                        worst = max(worst, err)
-                        worst_rel[dtype] = max(worst_rel[dtype], rel)
-                        cases += 1
+                        hold(lambda: k4.flash_attention(qq, k, v, causal=causal),
+                             ref.flash_attention(qq, k, v, causal=causal), kern,
+                             f"B {b} T {t} H 8 KV {kv} D {d} {dtype} causal={causal}")
         print(f"  held K4 at T {t}: D 16/32/64/128 x G 1/4/8 x f32/bf16 x causal/not, "
-              f"max abs so far {worst:.3e}", flush=True)
+              f"max abs so far tc {worst['tc']:.3e}, cc {worst['cc']:.3e}", flush=True)
+    # The (BH, T, D) interface: strides that are not ordered by size.
+    for d in (64, 128):
+        q, k, v = (torch.tensor(rng.normal(size=(n, 1000, d)).astype(np.float32),
+                                device=dev).to(torch.bfloat16) for n in (16, 4, 4))
+        for causal in (True, False):
+            hold(lambda: k4.flash_attention_bhsd(q, k, v, causal=causal),
+                 ref.flash_attention_bhsd(q, k, v, causal=causal), "tc",
+                 f"(BH, T, D) = (16, 1000, {d}), BKV 4, bf16, causal={causal}")
+    # No fallback: a bf16 D 64 input the tensor maps cannot take raises.
+    buf = torch.zeros(2 * 64 * 4 * 68, dtype=torch.bfloat16, device=dev)
+    bad = buf.view(2, 64, 4, 68)[..., :64]  # head stride 68 elements: 136 bytes
+    k4.reset_launches()
+    try:
+        k4.flash_attention(bad, bad, bad)
+        fail("K4 took a bf16 input whose strides TMA cannot take")
+    except ValueError as exc:
+        check("tensor-core" in str(exc) and k4.LAUNCHES["flash_attention"] == 0,
+              f"K4 on a misaligned bf16 input: {exc}; launches {k4.LAUNCHES}")
     torch.cuda.synchronize()
-    print(f"  K4: {cases} cases within tolerance; largest relative L2 "
-          + ", ".join(f"{str(dt).split('.')[-1]} {worst_rel[dt]:.3e} (bound {K4_REL_L2[dt]})"
-                      for dt in K4_TOL), flush=True)
+    name = lambda dt: str(dt).split(".")[-1]
+    rels = ", ".join(f"{kern} {name(dt)} {rel:.3e}" for (kern, dt), rel in worst_rel.items())
+    bounds = ", ".join(f"{name(dt)} {bound}" for dt, bound in K4_REL_L2.items())
+    print(f"  K4: {cases['tc']} cases on the tensor-core kernel, {cases['cc']} on the "
+          f"CUDA-core kernel, within tolerance; a misaligned bf16 input raised; largest "
+          f"relative L2 {rels} (bounds {bounds})", flush=True)
     return worst
 
 
-def time_k4(k4, ref, bw, bf16_peak, dev):
+def time_k4(k4, ref, bw, peak, bf16_peak, dev):
     """K4 at the serving shape (B 4, T 2048, H 32, KV 8, D 64, bf16,
-    causal): kernel, plain version, SDPA (timed only), and the bounds."""
+    causal): the tensor-core kernel, the CUDA-core kernel (a bf16
+    comparison: ``kernel_for`` never sends it this input), the plain
+    version and SDPA (timed only), and the bounds; then the tensor-core
+    kernel at D 128 (B 4, T 2048, H 16, KV 2). Returns the numbers of the
+    two kernels' rows, each at the shape its launches on the path have."""
     b, t, h, kv, d = 4, 2048, 32, 8, 64
     rng = np.random.default_rng(5)
     q, k, v = (torch.tensor(rng.normal(size=(b, t, n, d)).astype(np.float32),
                             device=dev).to(torch.bfloat16) for n in (h, kv, kv))
-    got = k4.flash_attention(q, k, v)
+
+    def old():  # the CUDA-core kernel on the same inputs, called past kernel_for
+        o = torch.empty_like(q)
+        strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *o.stride()[:3])
+        err = k4.library().flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, d, b, h, kv, t, t,
+            strides, d**-0.5, 1, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"CUDA-core K4 launch failed with cudaError_t {err}")
+        return o
+
     want = ref.flash_attention(q, k, v)
-    err, rel = check_k4(got, want, "the serving shape")
+    err, rel = check_k4(k4.flash_attention(q, k, v), want, "the serving shape (tc kernel)")
+    err_cc, rel_cc = check_k4(old(), want, "the serving shape (cc kernel)")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
-    ms = timed_ms(lambda: k4.flash_attention(q, k, v))
-    plain_ms = timed_ms(lambda: ref.flash_attention(q, k, v))
-    library_ms = timed_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    # in turns: tc, cc, plain, SDPA, then again in reverse
+    ms, cc_ms, plain_ms, library_ms = [], [], [], []
+    for order in (0, 1):
+        runs = [(ms, lambda: k4.flash_attention(q, k, v)), (cc_ms, old),
+                (plain_ms, lambda: ref.flash_attention(q, k, v)),
+                (library_ms, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))]
+        for out, fn in (runs if order == 0 else runs[::-1]):
+            out.append(timed_ms(fn))
+    ms, cc_ms, plain_ms, library_ms = (min(x) for x in (ms, cc_ms, plain_ms, library_ms))
     pairs = t * (t + 1) // 2  # (query, key) pairs the causal mask keeps
     flops = 4 * b * h * d * pairs  # QK^T and PV, 2 FLOP per multiply-add
     nbytes = 2 * (2 * b * t * h * d + 2 * b * t * kv * d)  # q, o, k, v in bf16
     bound_ops, bound_bytes = flops / bf16_peak * 1e3, nbytes / bw * 1e3
-    print(f"  K4 at B {b} T {t} H {h} KV {kv} D {d} bf16 causal: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
-          f"ms; {flops / 1e9:.2f} GFLOP -> {bound_ops:.4f} ms at {bf16_peak / 1e12:.0f} "
-          f"TFLOP/s, {nbytes / 1e6:.1f} MB -> {bound_bytes:.4f} ms; max abs vs plain "
-          f"{err:.3e}, relative L2 {rel:.3e} (bound {K4_REL_L2[torch.bfloat16]}), SDPA vs plain "
-          f"{lib_err:.3e}; 16 launches per prefill: kernel "
-          f"{16 * ms:.3f} ms, bound {16 * max(bound_ops, bound_bytes):.3f} ms", flush=True)
+    bound = max(bound_ops, bound_bytes)
+    print(f"  K4 at B {b} T {t} H {h} KV {kv} D {d} bf16 causal: tensor-core kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), CUDA-core kernel {cc_ms:.4f} ms "
+          f"({flops / cc_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s); "
+          f"{flops / 1e9:.2f} GFLOP -> {bound_ops:.4f} ms at {bf16_peak / 1e12:.0f} TFLOP/s, "
+          f"{nbytes / 1e6:.1f} MB -> {bound_bytes:.4f} ms; vs plain: tc max abs {err:.3e} "
+          f"relative L2 {rel:.3e}, cc max abs {err_cc:.3e} relative L2 {rel_cc:.3e} (bound "
+          f"{K4_REL_L2[torch.bfloat16]}), SDPA max abs {lib_err:.3e}; 16 launches per "
+          f"prefill: tc {16 * ms:.3f} ms, cc {16 * cc_ms:.3f} ms, bound {16 * bound:.3f} ms "
+          f"(the better of 2 medians each, in turns)", flush=True)
+    # D 128 (the head dim of the dense configs queued next)
+    h2, kv2, d2 = 16, 2, 128
+    q2, k2, v2 = (torch.tensor(rng.normal(size=(b, t, n, d2)).astype(np.float32),
+                               device=dev).to(torch.bfloat16) for n in (h2, kv2, kv2))
+    err2, rel2 = check_k4(k4.flash_attention(q2, k2, v2), ref.flash_attention(q2, k2, v2),
+                          "B 4 T 2048 H 16 KV 2 D 128 (tc kernel)")
+    ms2 = timed_ms(lambda: k4.flash_attention(q2, k2, v2))
+    q2t, k2t, v2t = (x.transpose(1, 2) for x in (q2, k2, v2))
+    lib2 = timed_ms(lambda: sdpa(q2t, k2t, v2t, is_causal=True, enable_gqa=True))
+    flops2 = 4 * b * h2 * d2 * pairs
+    print(f"  K4 at B {b} T {t} H {h2} KV {kv2} D {d2} bf16 causal: tensor-core kernel "
+          f"{ms2:.4f} ms ({flops2 / ms2 / 1e9:.1f} TFLOP/s), SDPA {lib2:.4f} ms, bound "
+          f"{flops2 / bf16_peak * 1e3:.4f} ms; vs plain max abs {err2:.3e}, relative L2 "
+          f"{rel2:.3e}", flush=True)
+    tc = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+              bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+              library_ms=library_ms, at=f"B {b} T {t} H {h} KV {kv} D {d} bf16 causal")
+    return {"tc": tc, "cc": time_k4_cc(k4, ref, bw, peak, dev)}
+
+
+def time_k4_cc(k4, ref, bw, peak, dev):
+    """The CUDA-core K4 at the shape phase 6's float32 prefill gives it (B 2,
+    T 256, H 32, KV 8, D 64, float32, causal), beside its plain version,
+    SDPA (a yardstick) and its bound at the float32 CUDA-core peak."""
+    b, t, h, kv, d = 2, 256, 32, 8, 64
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.tensor(rng.normal(size=(b, t, n, d)).astype(np.float32), device=dev)
+               for n in (h, kv, kv))
+    check(k4.kernel_for(q.dtype, d) == "cc", "float32 K4 is not on the CUDA-core kernel")
+    err, rel = check_k4(k4.flash_attention(q, k, v), ref.flash_attention(q, k, v),
+                        "phase 6's float32 shape (cc kernel)")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = timed_ms(lambda: k4.flash_attention(q, k, v))
+    plain_ms = timed_ms(lambda: ref.flash_attention(q, k, v))
+    library_ms = timed_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    flops = 4 * b * h * d * (t * (t + 1) // 2)
+    nbytes = 4 * (2 * b * t * h * d + 2 * b * t * kv * d)
+    bound_ops, bound_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+    print(f"  K4 at B {b} T {t} H {h} KV {kv} D {d} float32 causal (phase 6's prefill): "
+          f"CUDA-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; {flops / 1e9:.3f} GFLOP -> "
+          f"{bound_ops:.4f} ms at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB -> "
+          f"{bound_bytes:.4f} ms; vs plain max abs {err:.3e}, relative L2 {rel:.3e}",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_ops, bound_bytes),
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes",
-                library_ms=library_ms)
+                library_ms=library_ms, at=f"B {b} T {t} H {h} KV {kv} D {d} float32 causal")
 
 
 # ---------------------------------------------------------------------------
@@ -398,11 +625,14 @@ def path_phase(rt, dev):
     data = rt.synthetic.SynthCIFAR(num_train=20000)
     task = rt.fl.CifarTask(num_clients=20, depth=56, data=data, device=dev)
     launches = {"gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
+    # Launches per round: K1 and K3 one a leaf; K2 one per table of leaves.
+    k2 = -(-RESNET56_LEAVES // rt.gk.momentum_limits()[0])
     expect = {
         "dgcwgmf": ({"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True},
-                    {"gmf_compress": 3, "momentum_correction": 3, "apply_mask": 0}),
+                    {"gmf_compress": RESNET56_LEAVES, "momentum_correction": k2,
+                     "apply_mask": 0}),
         "dgc": ({"scheme": "dgc"},
-                {"gmf_compress": 0, "momentum_correction": 3, "apply_mask": 3}),
+                {"gmf_compress": 0, "momentum_correction": k2, "apply_mask": RESNET56_LEAVES}),
     }
     leaf_shapes = None
     for label, (kw, per_round) in expect.items():
@@ -419,7 +649,7 @@ def path_phase(rt, dev):
             check(len(nnz) == 20 and min(nnz) >= keep,
                   f"{label} round {rec['round']}: upload nnz {nnz} below {keep}")
         check(all(bool(torch.isfinite(x).all()) for x in leaves), f"{label}: params not finite")
-        want = {k: v * RESNET56_LEAVES for k, v in per_round.items()}
+        want = {k: 3 * v for k, v in per_round.items()}
         check(counts == want, f"{label}: launches {counts}, expected {want}")
         ms = [round(r["round_ms"], 3) for r in hist[1:]]
         print(f"  {label}: launches {counts}; upload nnz per client (round 0) "
@@ -523,7 +753,9 @@ def serve_phase(rt, dev, profile=False):
         torch.cuda.synchronize()
         counts = {**rt.gk.LAUNCHES, **rt.k4.LAUNCHES}
         check(counts == {"gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0,
-                         "flash_attention": cfg.num_layers}, f"{label}: launches {counts}")
+                         "flash_attention": cfg.num_layers,
+                         "flash_attention_tc": cfg.num_layers, "flash_attention_cc": 0},
+              f"{label}: launches {counts}")
         check(bool(torch.isfinite(run.last_logits).all()), f"{label}: logits not finite")
         check(tuple(run.tokens.shape) == (SERVE["batch"], SERVE["gen"]),
               f"{label}: tokens {tuple(run.tokens.shape)}")
@@ -538,6 +770,8 @@ def serve_phase(rt, dev, profile=False):
         rt.k4.reset_launches()
         fn()
         split.append(rt.k4.LAUNCHES["flash_attention"])
+        check(rt.k4.LAUNCHES["flash_attention_tc"] == split[-1],
+              f"K4 launches {rt.k4.LAUNCHES}: not all on the tensor-core kernel")
     torch.cuda.synchronize()
     check(split == [cfg.num_layers, 0], f"K4 launches: prefill alone {split[0]}, decode "
           f"loop alone {split[1]}; expected {cfg.num_layers} and 0")
@@ -589,7 +823,8 @@ def profile_serving(parts, args):
 
 def serve_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4):
     """llama3.2-1b width at depth 2, float32, the same params on the card
-    (K4 prefill) and the CPU (naive prefill)."""
+    (K4 prefill, on the CUDA-core kernel) and the CPU (naive prefill);
+    returns the card prefill's K4 launches."""
     import dataclasses
 
     cfg = dataclasses.replace(rt.configs.get_config("llama3.2-1b"), num_layers=2,
@@ -603,8 +838,10 @@ def serve_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4):
         batch = rt.serve.prompt_batch(cfg, 1, b, prompt, device)
         prefill = rt.dstep.make_prefill_step(cfg, cache_len=prompt + steps)
         out[name] = prefill(params[name], batch)
-    check(rt.k4.LAUNCHES["flash_attention"] == cfg.num_layers,
-          f"card prefill launched K4 {rt.k4.LAUNCHES['flash_attention']} times")
+    cc_launches = rt.k4.LAUNCHES["flash_attention_cc"]
+    check(rt.k4.LAUNCHES["flash_attention"] == cc_launches == cfg.num_layers,
+          f"card prefill (float32) launched K4 {rt.k4.LAUNCHES}; expected "
+          f"{cfg.num_layers} launches of the CUDA-core kernel")
     serve = rt.dstep.make_serve_step(cfg)
     (lg, cache_g), (lc, cache_c) = out["cuda"], out["cpu"]
     errs = []
@@ -623,6 +860,7 @@ def serve_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4):
     print(f"  card (K4) vs CPU (naive), llama3.2-1b width, 2 layers, float32, batch {b}, "
           f"prompt {prompt}: logits relative L2 prefill {errs[0]:.3e}, decode steps "
           f"{', '.join(f'{e:.3e}' for e in errs[1:])} (tolerance {tol})", flush=True)
+    return cc_launches
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +875,7 @@ def main() -> None:
                          "run's time goes (torch.profiler)")
     args = ap.parse_args()
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
-               for f in ("gmf_compress.cu", "flash_attention.cu")):
+               for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
         fail(f"{SRC / 'repro_torch'} is missing: run this script from a checkout of the repo")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -651,7 +889,7 @@ def main() -> None:
     from repro_torch.dist import step as dstep
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import gmf_compress as gk
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
 
     rt = argparse.Namespace(core=core, fl=fl, utils=utils, gk=gk, k4=k4, synthetic=synthetic,
@@ -672,26 +910,31 @@ def main() -> None:
 
     print("phase 1: build", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, at once
-        libs = list(pool.map(lambda m: m.build(), (gk, k4)))
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source, at once
+        libs = list(pool.map(lambda build: build(), (gk.build, k4.build, k4.build_tc)))
     gk.library()
     k4.library()
+    k4.library_tc()
     for lib in libs:
         log = (lib.parent / "build.log").read_text()
         print(f"  {lib.relative_to(ROOT)}:\n  " + "\n  ".join(
-            ln for ln in log.splitlines() if "ptxas" in ln or "error" in ln))
-    print(f"  built both in {time.perf_counter() - t0:.1f} s", flush=True)
+            ln for ln in log.splitlines() if "ptxas" in ln or "error" in ln or "warning" in ln))
+    print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 2: kernels vs plain versions", flush=True)
+    leaf_shapes = [tuple(s) for s in _resnet56_leaf_shapes()]
     worst = hold_kernels(gk, ref, fusion, sparsify, dev)
-    worst["flash_attention"] = hold_k4(k4, ref, dev)
-    print(json.dumps({"kernels_held": ["K1", "K2", "K3", "K4"]}), flush=True)
+    worst["momentum_correction"] = max(worst["momentum_correction"],
+                                       hold_k2_trees(gk, ops, ref, leaf_shapes, dev))
+    k4_worst = hold_k4(k4, ref, dev)
+    print(json.dumps({"kernels_held": [
+        "K1 gmf_compress", "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
+        "K4 flash_attention_tc (tensor cores)", "K4 flash_attention_cc (CUDA cores)"]}),
+        flush=True)
 
     launches = {name: 0 for _, name, _, _, _ in KERNELS}
-    launches["flash_attention"] = 0
-    if args.only == "kernels":
-        leaf_shapes = [tuple(s) for s in _resnet56_leaf_shapes()]
-    else:
+    launches.update(flash_attention_tc=0, flash_attention_cc=0)
+    if args.only != "kernels":
         print("phase 3: ResNet-56 FL path, 20 clients, batch 64", flush=True)
         launches, leaf_shapes, task = path_phase(rt, dev)
         print("phase 4: card vs CPU, round 0 at depth 8", flush=True)
@@ -702,14 +945,14 @@ def main() -> None:
         del task
         print("phase 5: serving llama3.2-1b, batch 4, prompt 2048, 32 tokens", flush=True)
         _, counts = serve_phase(rt, dev, args.profile)
-        launches["flash_attention"] = counts["flash_attention"]
+        launches["flash_attention_tc"] = counts["flash_attention_tc"]
         print("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2", flush=True)
-        serve_card_vs_cpu_phase(rt, dev)
+        launches["flash_attention_cc"] = serve_card_vs_cpu_phase(rt, dev)
 
     print("timing: one round of launches at the ResNet-56 leaf shapes, 20 clients", flush=True)
-    times = time_kernels(gk, ref, leaf_shapes, 20, bw, peak, dev)
+    times = time_kernels(gk, ops, ref, utils, leaf_shapes, 20, bw, peak, dev)
     print("timing: K4 at the serving shape", flush=True)
-    k4_times = time_k4(k4, ref, bw, bf16_peak, dev)
+    k4_times = time_k4(k4, ref, bw, peak, bf16_peak, dev)
     torch.cuda.synchronize()
 
     rows = []
@@ -717,9 +960,15 @@ def main() -> None:
         rows.append({"name": name, "id": kid, "route": "cuda", "source": PORT_SOURCE,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": worst[name], **times[name], "library_ms": None})
-    rows.append({"name": "flash_attention", "id": "K4", "route": "cuda", "source": K4_SOURCE,
-                 "replaces": K4_REPLACES, "launches": launches["flash_attention"],
-                 "max_abs_err": worst["flash_attention"], **k4_times})
+    # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
+    # CUDA-core kernel serves float32 and D 16/32, and its launches and times
+    # are those of phase 6's float32 prefill.
+    for kern, source, run in (("tc", K4_TC_SOURCE, "phase 5: bf16 serving, run_fixed"),
+                              ("cc", K4_SOURCE, "phase 6: float32 prefill")):
+        rows.append({"name": f"flash_attention_{kern}", "id": "K4", "route": "cuda",
+                     "source": source, "replaces": K4_REPLACES,
+                     "launches": launches[f"flash_attention_{kern}"], "launches_in": run,
+                     "max_abs_err": k4_worst[kern], **k4_times[kern]})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

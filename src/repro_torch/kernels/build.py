@@ -9,6 +9,7 @@ it as ``build.log``. Nothing is built when a module is imported.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import subprocess
@@ -48,4 +49,14 @@ def build_library(source: Path, flags: tuple[str, ...]) -> Path:
         raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
+    return lib
+
+
+def bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    """Set each function's argtypes and restype from ``signatures``
+    (name -> (argtypes, restype)). A pointer or a 64-bit integer left to
+    ctypes' default would be cut to 32 bits."""
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib

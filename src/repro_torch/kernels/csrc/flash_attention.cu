@@ -1,7 +1,12 @@
-// K4: forward flash attention (online softmax) for sm_90a.
+// K4 on the CUDA cores: forward flash attention (online softmax) for sm_90a.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` (`_flash_kernel`,
-// src/repro/kernels/flash_attention.py). Same function: q and k in float32,
+// src/repro/kernels/flash_attention.py) for float32 at every head dim and
+// bf16 at head dims 16 and 32; bf16 at 64 and 128 goes to the tensor-core
+// kernel in flash_attention_sm90.cu (kernels/flash_attention.py:kernel_for
+// chooses). A float32 product on tensor cores would be TF32, which the
+// float32 tolerances and the float32 card-vs-CPU serving check exclude, so
+// float32 stays here. Same function: q and k in float32,
 // q scaled by D^-0.5 before QK^T, causal keys kpos > qpos masked (positions
 // start at 0 for both), a running max m and sum l in float32, p rounded to
 // v's type before the PV product, acc / max(l, 1e-30) cast to q's type. GQA
@@ -10,10 +15,10 @@
 // What bounds it on the H100: at the serving shape (B 4, T 2048, H 32, KV 8,
 // D 64, bf16, causal) one launch is 68.7 GFLOP against 83.9 MB, about 800
 // FLOP per byte: far above the card's ~295 FLOP/byte balance, so it is
-// bound by operations. The tensor cores (wgmma) would make that 0.07 ms;
-// this first kernel runs its products on the CUDA cores in float32, whose
-// rate (67 TFLOP/s) puts its floor near 1 ms. Tensor cores and TMA are the
-// next kernel PR's work.
+// bound by operations. The tensor cores (wgmma) make that 0.07 ms, and
+// flash_attention_sm90.cu runs bf16 there; this kernel runs its products
+// on the CUDA cores in float32, whose rate (67 TFLOP/s) puts its floor near
+// 1 ms.
 //
 // What the design does about it, for the card rather than tile for tile
 // after the Pallas grid (whose kv axis is sequential and carries VMEM

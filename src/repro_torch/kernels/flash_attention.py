@@ -1,16 +1,29 @@
 """K4: forward flash attention, the port of the Pallas kernel
 ``repro/kernels/flash_attention.py`` (``flash_attention_bhsd``).
 
-The kernel is CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``
-(one thread block per head and 64-row query tile, an online softmax in
-float32 registers over 64-key tiles staged in shared memory, tiles above
-the causal diagonal skipped, ragged edges masked), built at first use by
-``kernels/build.py`` and bound by ctypes. Its plain PyTorch version is
-``kernels/ref.py:flash_attention_bhsd``.
+Two CUDA C++ kernels for ``sm_90a``, chosen by dtype and head dim alone
+(``kernel_for``):
 
-Both wrappers go by the device of ``q``: a CUDA tensor launches the kernel
+- ``"tc"``, ``csrc/flash_attention_sm90.cu``: bf16 at head dims 64 and 128
+  on the tensor cores (``wgmma`` for QKᵀ and PV, TMA loads into an
+  ``mbarrier``-guarded ring of K/V stages, 128-row q tiles). Its tensor
+  maps need 16-byte aligned storage and strides that are multiples of 8
+  elements; a bf16 input at D 64/128 that breaks this raises, it never
+  goes to the other kernel.
+- ``"cc"``, ``csrc/flash_attention.cu``: float32 at every head dim and
+  bf16 at 16 and 32, on the CUDA cores in float32 (a float32 product on
+  tensor cores would be TF32). One block per head and 64-row q tile, an
+  online softmax in float32 registers over 64-key tiles staged in shared
+  memory.
+
+Both skip tiles above the causal diagonal and mask ragged edges; both are
+built at first use by ``kernels/build.py`` and bound by ctypes. Their
+plain PyTorch version is ``kernels/ref.py:flash_attention_bhsd``.
+
+Both wrappers go by the device of ``q``: a CUDA tensor launches a kernel
 (or raises: no fallback), a CPU tensor takes the plain version. Each launch
-adds one to ``LAUNCHES["flash_attention"]``.
+adds one to ``LAUNCHES["flash_attention"]`` and to its kernel's own count,
+``LAUNCHES["flash_attention_tc"]`` or ``LAUNCHES["flash_attention_cc"]``.
 
 K4 is forward-only, as the Pallas kernel is (no backward kernel): both
 wrappers raise, on either device, when autograd would need a gradient
@@ -26,40 +39,82 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import BASE_FLAGS, build_library
+from repro_torch.kernels.build import BASE_FLAGS, bind, build_library
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
+TC_SOURCE = CSRC / "flash_attention_sm90.cu"
 NVCC_FLAGS = BASE_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LOG2E = 1.4426950408889634
 
-# Launches since the last reset_launches(): the evidence that a run went
-# through the kernel.
-LAUNCHES = {"flash_attention": 0}
+# Launches since the last reset_launches(), in all and per kernel: the
+# evidence that a run went through the kernels.
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_cc": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K4 kernel takes inputs of ``dtype`` at ``head_dim``: "tc" (the
+    tensor-core kernel) for bf16 at D 64 and 128, else "cc" (CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "cc"
+
+
+def tma_layout_error(x: torch.Tensor) -> str | None:
+    """Why the tensor-core kernel's TMA maps cannot take ``x`` (a 4-D view
+    whose last dim is contiguous), or None: its storage must start 16-byte
+    aligned, and every stride of a dim longer than 1 be a multiple of 16
+    bytes."""
+    if x.data_ptr() % 16:
+        return f"storage at {x.data_ptr():#x} is not 16-byte aligned"
+    for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
+        if size > 1 and (stride * x.element_size()) % 16:
+            return f"stride {stride} ({tuple(x.stride())}) is not a multiple of 16 bytes"
+    return None
 
 
 def build() -> Path:
-    """The shared library's path, compiled first if need be."""
+    """The CUDA-core kernel's shared library, compiled first if need be."""
     return build_library(SOURCE, NVCC_FLAGS)
+
+
+def build_tc() -> Path:
+    """The tensor-core kernel's shared library, compiled first if need be."""
+    return build_library(TC_SOURCE, NVCC_FLAGS)
+
+
+_P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (argtypes, restype) of the extern "C" functions of csrc/flash_attention.cu
+# and csrc/flash_attention_sm90.cu.
+SIGNATURES = {
+    "flash_attention_fwd": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P,
+                             _F32, _I32, _P], _I32),
+}
+TC_SIGNATURES = {
+    "flash_attention_sm90_fwd": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P,
+                                  _F32, _I32, _P], _I32),
+}
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, i32, i32, p,
-                                        ctypes.c_float, i32, p]
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
+    return bind(ctypes.CDLL(str(build())), SIGNATURES)
+
+
+@functools.cache
+def library_tc() -> ctypes.CDLL:
+    return bind(ctypes.CDLL(str(build_tc())), TC_SIGNATURES)
 
 
 def _launch_bthd(q, k, v, o, causal: bool) -> None:
-    """Launch over (B, T, H, D) views: q and o (B, T, H, D), k and v
-    (B, S, KV, D), any strides whose last one is 1."""
+    """Launch the kernel ``kernel_for`` names over (B, T, H, D) views: q and
+    o (B, T, H, D), k and v (B, S, KV, D), any strides whose last one is 1."""
     name = "flash_attention"
     for x in (q, k, v, o):
         if not x.is_cuda or x.device != q.device:
@@ -87,17 +142,31 @@ def _launch_bthd(q, k, v, o, causal: bool) -> None:
         raise ValueError(f"{name}: B*H = {b * h} exceeds the grid's 65535")
     if t == 0:
         return
+    kernel = kernel_for(q.dtype, d)
+    if kernel == "tc":
+        for what, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+            why = tma_layout_error(x)
+            if why is not None:
+                raise ValueError(f"{name}: the tensor-core kernel (bf16, D {d}) cannot take "
+                                 f"{what}: {why}")
     strides = (ctypes.c_longlong * 9)(q.stride(0), q.stride(1), q.stride(2),
                                       k.stride(0), k.stride(1), k.stride(2),
                                       o.stride(0), o.stride(1), o.stride(2))
     with torch.cuda.device(q.device):
-        err = library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], d,
-            b, h, kv, t, s, strides, d**-0.5, int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kernel == "tc":
+            err = library_tc().flash_attention_sm90_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d, b, h, kv, t, s,
+                strides, d**-0.5 * _LOG2E, int(causal), stream)
+        else:
+            err = library().flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], d,
+                b, h, kv, t, s, strides, d**-0.5, int(causal), stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+        raise RuntimeError(f"{name}: CUDA launch of the {kernel} kernel failed with "
+                           f"cudaError_t {err}")
     LAUNCHES[name] += 1
+    LAUNCHES[f"{name}_{kernel}"] += 1
 
 
 def _forward_only(q, k, v) -> None:

@@ -9,6 +9,12 @@ per client), checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if
 the launch failed, and adds one to its count in ``LAUNCHES``. There is no
 fallback: a tensor the kernel does not take raises.
+
+K2 (``momentum_correction_tree``) is one multi-tensor launch over every
+leaf of a tree: ``plan_momentum`` cuts the leaves into launches of at most
+the table's capacity and gives each leaf its first block,
+``momentum_table`` packs each launch's table, and
+``momentum_correction_flat`` is the same call over a one-leaf tree.
 """
 
 from __future__ import annotations
@@ -16,10 +22,12 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.build import BASE_FLAGS, build_library
+from repro_torch.kernels.build import BASE_FLAGS, bind, build_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmf_compress.cu"
 # -fmad=false: K1's z must be bitwise the z its threshold was taken from.
@@ -40,16 +48,52 @@ def build() -> Path:
     return build_library(SOURCE, NVCC_FLAGS)
 
 
+_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+# (argtypes, restype) of every extern "C" function of csrc/gmf_compress.cu.
+SIGNATURES = {
+    "gmf_momentum_limits": ([_P, _P], None),
+    "gmf_momentum_multi": ([_P, _I32, _I32, _F32, _P], _I32),
+    "gmf_apply_mask": ([_P, _P, _P, _P, _P, _P, _I64, _I32, _P], _I32),
+    "gmf_compress": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P], _I32),
+}
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.gmf_momentum.argtypes = [p, p, p, p, p, i64, ctypes.c_float, i32, p]
-    lib.gmf_apply_mask.argtypes = [p, p, p, p, p, p, i64, i32, p]
-    lib.gmf_compress.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, p]
-    for fn in (lib.gmf_momentum, lib.gmf_apply_mask, lib.gmf_compress):
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(ctypes.CDLL(str(build())), SIGNATURES)
+
+
+@functools.cache
+def momentum_limits() -> tuple[int, int]:
+    """(leaves a K2 launch's table holds, elements a block takes), as built."""
+    cap, chunk = ctypes.c_int(), ctypes.c_int()
+    library().gmf_momentum_limits(ctypes.byref(cap), ctypes.byref(chunk))
+    return cap.value, chunk.value
+
+
+class MomentumLaunch(NamedTuple):
+    leaves: tuple[int, ...]  # indices into the tree's leaves
+    block0: tuple[int, ...]  # each leaf's first block
+    blocks: int              # the grid
+
+
+def plan_momentum(sizes, capacity: int, chunk: int) -> list[MomentumLaunch]:
+    """K2's launches over leaves of ``sizes`` elements: leaves of 0
+    elements are left out, the rest go in order into launches of at most
+    ``capacity`` leaves, and each leaf takes ``ceil(size / chunk)`` blocks
+    from its launch's running prefix."""
+    if capacity < 1 or chunk < 1:
+        raise ValueError(f"capacity {capacity} and chunk {chunk} must be positive")
+    live = [i for i, n in enumerate(sizes) if n]
+    plan = []
+    for lo in range(0, len(live), capacity):
+        idx = tuple(live[lo:lo + capacity])
+        block0, total = [], 0
+        for i in idx:
+            block0.append(total)
+            total += -(-sizes[i] // chunk)
+        plan.append(MomentumLaunch(idx, tuple(block0), total))
+    return plan
 
 
 def _check_stack(name: str, *xs: torch.Tensor) -> None:
@@ -89,14 +133,82 @@ def _launch(name: str, fn, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+class MomentumTable(NamedTuple):
+    uo: list        # u' leaves: views into one flat buffer, leaf after leaf
+    vo: list        # v' leaves, likewise
+    launches: list  # (table, leaves, blocks) per launch; the table is [leaves, 8]
+    #                 int64: u, v, g, u', v', n, first block, aligned
+
+
+def momentum_table(us, vs, gs, capacity: int, chunk: int) -> MomentumTable:
+    """The host half of K2 over lists of leaves, on any device: checks one
+    device, float32, contiguity and matching shapes; allocates u' and v' as
+    views into one flat buffer each; and packs each launch of
+    ``plan_momentum`` into the int64 table the C entry point reads. The
+    alignment flag is 1 where all five pointers of a leaf are 16-byte
+    aligned. The host work is a pass over the leaves per step and numpy
+    columns, with no allocation per leaf but the output views."""
+    name = "momentum_correction"
+    if not (len(us) == len(vs) == len(gs)):
+        raise ValueError(f"{name}: {len(us)}, {len(vs)}, {len(gs)} leaves")
+    device, f32 = us[0].device, torch.float32
+    if any(x.dtype is not f32 or not x.is_contiguous() or x.device != device
+           for xs in (us, vs, gs) for x in xs):
+        raise ValueError(f"{name}: the kernel takes contiguous float32 tensors on {device}")
+    shapes = [u.shape for u in us]
+    if shapes != [v.shape for v in vs] or shapes != [g.shape for g in gs]:
+        raise ValueError(f"{name}: u, v and g leaves differ in shape")
+    sizes = [u.numel() for u in us]
+    flat_u = torch.empty(sum(sizes), dtype=f32, device=device)
+    flat_v = torch.empty_like(flat_u)
+    uo, vo = _unflatten(flat_u, us), _unflatten(flat_v, us)
+    table = np.empty((len(us), 8), dtype=np.int64)
+    for col, xs in enumerate((us, vs, gs)):
+        table[:, col] = [x.data_ptr() for x in xs]
+    table[:, 5] = sizes
+    starts = 4 * (np.cumsum(table[:, 5]) - table[:, 5])
+    table[:, 3] = flat_u.data_ptr() + starts
+    table[:, 4] = flat_v.data_ptr() + starts
+    table[:, 7] = np.bitwise_or.reduce(table[:, :5], axis=1) % 16 == 0
+    launches = []
+    for launch in plan_momentum(sizes, capacity, chunk):
+        rows = table if len(launch.leaves) == len(us) else table[list(launch.leaves)]
+        rows[:, 6] = launch.block0
+        launches.append((rows, len(launch.leaves), launch.blocks))
+    return MomentumTable(uo, vo, launches)
+
+
+def _unflatten(flat, like):
+    """Views of ``flat`` shaped like the tensors ``like``, one after the
+    other (torch's own C++ split, as distributed data parallel uses)."""
+    return torch._C._nn.unflatten_dense_tensors(flat, like)
+
+
+def launch_momentum(table: MomentumTable, alpha: float, device) -> None:
+    """K2's launches of ``table`` on ``device``'s current stream."""
+    for leaves, count, blocks in table.launches:
+        _launch("momentum_correction", library().gmf_momentum_multi, device,
+                leaves.ctypes.data, count, blocks, float(alpha))
+
+
+def momentum_correction_tree(us, vs, gs, alpha: float):
+    """U <- alpha*U + g ; V <- V + U over lists of leaves on one cuda
+    device (``momentum_table`` says what it takes), one launch per table's
+    capacity of leaves. Returns (u' list, v' list)."""
+    if not us:
+        return [], []
+    device = us[0].device
+    if device.type != "cuda":
+        raise ValueError(f"momentum_correction: the kernel takes cuda tensors, got {device}")
+    table = momentum_table(us, vs, gs, *momentum_limits())
+    launch_momentum(table, alpha, device)
+    return table.uo, table.vo
+
+
 def momentum_correction_flat(u, v, g, alpha: float):
-    """U <- alpha*U + g ; V <- V + U over a [k, ...] stack. Returns (u', v')."""
-    _check_stack("momentum_correction", u, v, g)
-    uo, vo = torch.empty_like(u), torch.empty_like(v)
-    if u.numel():
-        _launch("momentum_correction", library().gmf_momentum, u.device,
-                u.data_ptr(), v.data_ptr(), g.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-                u.numel(), float(alpha), _vec(u, v, g, uo, vo))
+    """U <- alpha*U + g ; V <- V + U over a [k, ...] stack: K2 over a
+    one-leaf tree. Returns (u', v')."""
+    (uo,), (vo,) = momentum_correction_tree([u], [v], [g], alpha)
     return uo, vo
 
 

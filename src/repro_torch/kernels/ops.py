@@ -4,6 +4,9 @@ reference's ``kernels/ops.py``.
 Each leaf goes by the device it lies on: a CUDA tensor launches the CUDA
 kernel (``kernels/gmf_compress.py``) or raises, a CPU tensor takes the
 plain version (``kernels/ref.py``). Nothing falls back from the card.
+``momentum_correction`` goes by its first leaf and raises unless every
+leaf lies on that device: a tree on the card is one multi-tensor K2 launch
+(or one per table's capacity of leaves).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import torch
 
 from repro_torch.kernels import gmf_compress as _k
 from repro_torch.kernels import ref
-from repro_torch.utils import tree_multimap
+from repro_torch.utils import tree_leaves, tree_multimap, tree_unflatten
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -23,12 +26,6 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no compression kernel for tensors on {x.device}")
 
 
-def _momentum_leaf(u, v, g, alpha):
-    if _on_card(u):
-        return _k.momentum_correction_flat(u, v, g.contiguous(), alpha)
-    return ref.momentum_correction_leaf(u, v, g, alpha)
-
-
 def _mask_leaf(u, v, mask):
     if _on_card(u):
         return _k.apply_mask_flat(u, v, mask.to(v.dtype))
@@ -36,8 +33,21 @@ def _mask_leaf(u, v, mask):
 
 
 def momentum_correction(u_tree, v_tree, g_tree, alpha):
-    return tree_multimap(lambda u, v, g: _momentum_leaf(u, v, g, float(alpha)), 2,
-                         u_tree, v_tree, g_tree)
+    us = tree_leaves(u_tree)
+    if not us:
+        return ref.momentum_correction(u_tree, v_tree, g_tree, float(alpha))
+    vs, gs = tree_leaves(v_tree), tree_leaves(g_tree)
+    if not _on_card(us[0]):
+        # the whole tree goes by its first leaf: every other leaf must lie
+        # on the CPU too, or a leaf on the card would take the plain version
+        for x in (*us, *vs, *gs):
+            if x.device.type != "cpu":
+                raise ValueError(f"momentum_correction: a tree on the cpu holds a leaf "
+                                 f"on {x.device}")
+        return ref.momentum_correction(u_tree, v_tree, g_tree, float(alpha))
+    gs = [g if g.is_contiguous() else g.contiguous() for g in gs]
+    uo, vo = _k.momentum_correction_tree(us, vs, gs, float(alpha))
+    return tree_unflatten(u_tree, uo), tree_unflatten(u_tree, vo)
 
 
 def apply_mask_update(u_tree, v_tree, mask_tree):

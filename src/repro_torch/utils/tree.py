@@ -17,6 +17,8 @@ def _is_namedtuple(x) -> bool:
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over ``tree`` and same-structured ``rest``."""
+    if isinstance(tree, torch.Tensor):  # the common leaf, tested first
+        return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if _is_namedtuple(tree):
@@ -27,18 +29,44 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
+    """The leaves in ``tree_map`` order, without building a tree."""
     out = []
-    tree_map(out.append, tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(tree, out: list) -> None:
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _collect(tree[k], out)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _collect(x, out)
+    else:
+        out.append(tree)
 
 
 def tree_unflatten(like, leaves):
     """Rebuild ``leaves`` (in ``tree_leaves`` order) into ``like``'s structure."""
     it = iter(leaves)
-    out = tree_map(lambda _: next(it), like)
+    out = _rebuild(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has slots")
     return out
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_rebuild(x, it) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(x, it) for x in tree)
+    return next(it)
 
 
 def tree_multimap(fn, n_out: int, *trees):

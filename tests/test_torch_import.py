@@ -84,7 +84,7 @@ def test_k4_wrapper_takes_plain_only_on_cpu_and_launches_nothing():
     q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
     k4.reset_launches()
     assert torch.equal(k4.flash_attention(q, k, k), ref.flash_attention(q, k, k))
-    assert k4.LAUNCHES == {"flash_attention": 0}
+    assert k4.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_cc": 0}
     with pytest.raises(ValueError, match="cuda"):
         k4._launch_bthd(q, k, k, torch.empty_like(q), True)
     with pytest.raises(ValueError, match="meta"):

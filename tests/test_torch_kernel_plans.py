@@ -1,0 +1,316 @@
+"""What the port's kernel wrappers decide on the host, held on the CPU:
+K2's launch plan and leaf table, K4's choice between its two kernels and
+the layouts its tensor-core kernel refuses, and the ctypes signatures of
+every C entry point against the CUDA sources.
+
+K2's table is held by running the kernel's own walk over it in numpy: every
+block finds its leaf by the first-block prefix and reads and writes through
+the table's raw pointers, which on the CPU are host addresses. So the plan,
+the table, the alignment flags and the output views are checked end to end
+here; only the CUDA code itself needs the card (``chip_smoke.py``).
+"""
+
+import bisect
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as k4
+from repro_torch.kernels import gmf_compress as gk
+from repro_torch.kernels import ref
+
+CSRC = Path(gk.__file__).resolve().parent / "csrc"
+
+
+# ---------------------------------------------------------------------------
+# K2: plan and table
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("count, capacity, launches", [
+    (1, 1, 1), (4, 4, 1), (5, 4, 2), (8, 4, 2), (9, 4, 3), (169, 512, 1), (513, 512, 2),
+])
+def test_k2_plan_cuts_leaves_into_tables_of_capacity(count, capacity, launches):
+    plan = gk.plan_momentum([7] * count, capacity, 4)
+    assert len(plan) == launches
+    assert all(1 <= len(p.leaves) <= capacity for p in plan)
+    assert [i for p in plan for i in p.leaves] == list(range(count))
+
+
+def test_k2_plan_leaves_out_empty_leaves_and_prefixes_blocks():
+    sizes = [0, 8, 9, 0, 1, 16, 0]
+    (plan,) = gk.plan_momentum(sizes, 8, 8)
+    assert plan.leaves == (1, 2, 4, 5)
+    # ceil(size / chunk) blocks each: 1, 2, 1, 2
+    assert plan.block0 == (0, 1, 3, 4)
+    assert plan.blocks == 6
+    assert gk.plan_momentum([0, 0], 4, 8) == []
+    assert gk.plan_momentum([], 4, 8) == []
+
+
+def test_k2_plan_restarts_the_prefix_in_every_launch():
+    plan = gk.plan_momentum([5, 20, 3], 2, 8)
+    assert [(p.leaves, p.block0, p.blocks) for p in plan] == [((0, 1), (0, 1), 4),
+                                                             ((2,), (0,), 1)]
+
+
+@pytest.mark.parametrize("capacity, chunk", [(0, 8), (4, 0)])
+def test_k2_plan_refuses_a_nonpositive_limit(capacity, chunk):
+    with pytest.raises(ValueError):
+        gk.plan_momentum([4], capacity, chunk)
+
+
+def _floats(ptr, n):
+    return np.ctypeslib.as_array((ctypes.c_float * n).from_address(int(ptr))) if n else \
+        np.zeros(0, np.float32)
+
+
+def _rows(table):
+    """Each launch's table as the C entry point reads it: per leaf the
+    pointers u, v, g, u', v', the element count, the first block and the
+    alignment flag."""
+    out = []
+    for leaves, count, _ in table.launches:
+        assert leaves.dtype == np.int64 and leaves.shape == (count, 8)
+        assert leaves.flags.c_contiguous
+        out.append([tuple(int(x) for x in row) for row in leaves])
+    return out
+
+
+def _run_table(us, vs, gs, alpha, capacity, chunk):
+    """The kernel's walk in numpy: per launch, per block, the leaf by a
+    binary search of the table's first-block prefix, then chunk elements of
+    it read and written through the table's pointers (float4 or scalar path
+    alike: both compute U <- alpha*U + g ; V <- V + U per element). Returns
+    the outputs, the flags in leaf order and how often each output element
+    was written."""
+    table = gk.momentum_table(us, vs, gs, capacity, chunk)
+    hits = {}
+    flags = []
+    a = np.float32(alpha)
+    for rows, (_, count, blocks) in zip(_rows(table), table.launches, strict=True):
+        assert 1 <= count <= capacity
+        starts = [r[6] for r in rows]
+        for b in range(blocks):
+            u, v, g, u2, v2, n, block0, _ = rows[bisect.bisect_right(starts, b) - 1]
+            begin = (b - block0) * chunk
+            end = min(begin + chunk, n)
+            u, v, g, u2, v2 = (_floats(p, n) for p in (u, v, g, u2, v2))
+            un = a * u[begin:end] + g[begin:end]
+            u2[begin:end] = un
+            v2[begin:end] = v[begin:end] + un
+            hits.setdefault(u2.ctypes.data, np.zeros(n, np.int64))[begin:end] += 1
+        flags += [r[7] for r in rows]
+    return table.uo, table.vo, flags, hits
+
+
+def _leaves(rng, shapes, misalign=()):
+    out = []
+    for j, shape in enumerate(shapes):
+        n = int(np.prod(shape))
+        x = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        if j in misalign:
+            buf = torch.empty(n + 1)
+            buf[1:] = x
+            x = buf[1:]
+        out.append(x.reshape(shape))
+    return out
+
+
+@pytest.mark.parametrize("capacity, chunk", [(512, 4096), (3, 8), (1, 4)])
+def test_k2_table_walk_is_bitwise_the_plain_version(capacity, chunk):
+    """ResNet-like leaves for 3 clients, empty leaves, sizes off the float4
+    grid and one misaligned leaf, through small and real table limits."""
+    rng = np.random.default_rng(0)
+    shapes = [(3, 3, 3, 3, 16), (3, 16), (3, 0), (3, 7), (3, 1), (3, 3, 3, 16, 16),
+              (3, 64, 10), (3, 5)]
+    us, vs, gs = (_leaves(rng, shapes, misalign={3} if k == 1 else ()) for k in range(3))
+    uo, vo, aligned, hits = _run_table(us, vs, gs, 0.9, capacity, chunk)
+    want_u, want_v = ref.momentum_correction(us, vs, gs, 0.9)
+    for got, want in ((uo, want_u), (vo, want_v)):
+        for a, b in zip(got, want, strict=True):
+            assert a.shape == b.shape and torch.equal(a, b)
+    # every element of every non-empty u' leaf written exactly once
+    assert len(hits) == 7 and all((h == 1).all() for h in hits.values())
+    # The outputs lie leaf after leaf, at float offsets 0, 1296, 1344, 1344,
+    # 1365, 1368, 8280, 10200: leaf 4 starts off the 16-byte grid, and leaf 3's
+    # v input starts one float past it; both take the scalar path. (Leaf 2 is
+    # empty: it is not in the table and launches nothing.)
+    assert aligned == [1, 1, 0, 0, 1, 1, 1]
+
+
+def test_k2_outputs_are_views_of_one_buffer_each():
+    rng = np.random.default_rng(1)
+    shapes = [(2, 3), (2, 0), (2, 5, 2), (1,)]
+    us, vs, gs = (_leaves(rng, shapes) for _ in range(3))
+    table = gk.momentum_table(us, vs, gs, 8, 4)
+    (rows,) = _rows(table)
+    assert [r[5:7] for r in rows] == [(6, 0), (20, 2), (1, 7)]  # n, first block
+    assert table.launches[0][1:] == (3, 8)
+    for outs, col in ((table.uo, 3), (table.vo, 4)):
+        base = outs[0].untyped_storage().data_ptr()
+        assert all(o.untyped_storage().data_ptr() == base for o in outs if o.numel())
+        assert all(o.is_contiguous() for o in outs)
+        # leaf after leaf at float offsets 0, 6, 6, 26; an empty leaf has no
+        # storage of its own (and no row in the table)
+        assert [o.data_ptr() - base for o in outs if o.numel()] == [0, 24, 104]
+        assert [o.data_ptr() for o in outs if o.numel()] == [r[col] for r in rows]
+    assert [tuple(o.shape) for o in table.uo] == shapes
+    assert [r[7] for r in rows] == [1, 0, 0]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "strided"])
+def test_k2_table_refuses_what_the_kernel_cannot_take(bad):
+    x = torch.zeros(2, 4)
+    y = {"dtype": x.double(), "shape": torch.zeros(4, 2), "strided": torch.zeros(4, 2).t()}[bad]
+    with pytest.raises(ValueError):
+        gk.momentum_table([x, x], [x, y], [x, x], 8, 4)
+
+
+@pytest.mark.parametrize("odd", [0, 2])
+def test_k2_tree_on_the_cpu_refuses_a_leaf_elsewhere(odd):
+    """The tree path goes by its first leaf: a leaf on another device raises
+    rather than taking the plain version (or, first, the kernel)."""
+    from repro_torch.kernels import ops
+
+    x = torch.zeros(2, 4)
+    leaves = [x, x, x]
+    leaves[odd] = torch.zeros(2, 4, device="meta")
+    tree = {f"l{i}": t for i, t in enumerate(leaves)}
+    with pytest.raises(ValueError, match="meta"):
+        ops.momentum_correction(tree, tree, tree, 0.9)
+
+
+def test_k2_tree_launcher_refuses_cpu_tensors():
+    x = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="cuda"):
+        gk.momentum_correction_tree([x], [x], [x], 0.9)
+    assert gk.momentum_correction_tree([], [], [], 0.9) == ([], [])
+
+
+# ---------------------------------------------------------------------------
+# K4: which kernel, and what the tensor-core kernel refuses
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype, d, kernel", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "cc"), (torch.bfloat16, 32, "cc"),
+    (torch.float32, 16, "cc"), (torch.float32, 32, "cc"),
+    (torch.float32, 64, "cc"), (torch.float32, 128, "cc"),
+])
+def test_k4_kernel_choice_by_dtype_and_head_dim(dtype, d, kernel):
+    assert k4.kernel_for(dtype, d) == kernel
+
+
+def test_k4_tensor_core_layout_takes_the_model_and_pallas_views():
+    q = torch.zeros(2, 10, 4, 64, dtype=torch.bfloat16)
+    assert k4.tma_layout_error(q) is None
+    # (BH, T, D) seen as (1, T, BH, D): strides not ordered by size
+    bhsd = torch.zeros(8, 10, 128, dtype=torch.bfloat16)
+    assert k4.tma_layout_error(bhsd.unsqueeze(0).transpose(1, 2)) is None
+    # k/v of fewer kv heads, sliced out of a wider tensor
+    assert k4.tma_layout_error(torch.zeros(2, 10, 8, 64, dtype=torch.bfloat16)[:, :, :2]) is None
+    # a size-1 dim's stride is never stepped, so any value is fine
+    assert k4.tma_layout_error(torch.zeros(1, 10, 1, 64, dtype=torch.bfloat16)
+                               .as_strided((1, 10, 1, 64), (3, 64, 5, 1))) is None
+
+
+@pytest.mark.parametrize("view, why", [
+    (lambda b: b[1:1 + 2 * 10 * 4 * 64].view(2, 10, 4, 64), "16-byte aligned"),
+    (lambda b: b[:2 * 10 * 4 * 68].view(2, 10, 4, 68)[..., :64], "multiple of 16 bytes"),
+    (lambda b: b[4:4 + 2 * 10 * 4 * 64].view(2, 10, 4, 64), "16-byte aligned"),
+    (lambda b: b[:2 * 12 * 4 * 64].view(2, 12, 4, 64)[:, ::3], None),
+])
+def test_k4_misaligned_bf16_is_refused_not_rerouted(view, why):
+    buf = torch.zeros(2 * 12 * 4 * 68 + 8, dtype=torch.bfloat16)
+    x = view(buf)
+    got = k4.tma_layout_error(x)
+    if why is None:
+        assert got is None
+    else:
+        assert why in got
+        # the choice of kernel does not look at the layout: the input still
+        # belongs to the tensor-core kernel, whose wrapper raises
+        assert k4.kernel_for(x.dtype, x.shape[-1]) == "tc"
+
+
+def test_k4_launch_refuses_cpu_tensors_for_either_kernel():
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 32)):
+        q = torch.zeros(1, 4, 2, d, dtype=dtype)
+        with pytest.raises(ValueError, match="cuda"):
+            k4._launch_bthd(q, q, q, torch.empty_like(q), True)
+
+
+# ---------------------------------------------------------------------------
+# ctypes signatures against the C entry points
+# ---------------------------------------------------------------------------
+
+
+def _c_entry_points(text):
+    """name -> list of parameter types of every ``extern "C"`` function,
+    whether declared alone or inside an ``extern "C" { ... }`` block."""
+    text = re.sub(r"//[^\n]*", "", text)
+    bodies = [m.group(0) for m in re.finditer(r'extern "C"\s+\w[^;{]*\([^)]*\)', text)]
+    for block in re.finditer(r'extern "C"\s*\{', text):
+        depth, i = 1, block.end()
+        start = i
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        inner = text[start:i - 1]
+        # top-level declarations of the block: strip the function bodies
+        flat, depth = [], 0
+        for ch in inner:
+            if ch == "{":
+                depth += 1
+                flat.append(";")
+            elif ch == "}":
+                depth -= 1
+            elif depth == 0:
+                flat.append(ch)
+        bodies += re.findall(r"\w[\w\s\*]*\([^)]*\)", "".join(flat))
+    out = {}
+    for decl in bodies:
+        head, params = decl.split("(", 1)
+        name = head.split()[-1].lstrip("*")
+        params = [p.strip() for p in params.rstrip(")").split(",") if p.strip()]
+        out[name] = [] if params == ["void"] else params
+    return out
+
+
+def _ctype_of(param):
+    """The ctypes type a C parameter needs (the name is the last word)."""
+    words = param.replace("*", " * ").split()
+    if "*" in words:
+        return ctypes.c_void_p
+    kind = " ".join(w for w in words[:-1] if w not in ("const", "unsigned"))
+    return {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "float": ctypes.c_float}[kind]
+
+
+@pytest.mark.parametrize("source, signatures", [
+    ("gmf_compress.cu", gk.SIGNATURES),
+    ("flash_attention.cu", k4.SIGNATURES),
+    ("flash_attention_sm90.cu", k4.TC_SIGNATURES),
+])
+def test_every_c_entry_point_matches_its_ctypes_argtypes(source, signatures):
+    """A pointer or a long long bound as ctypes' default int is cut to 32
+    bits without a word; so every extern "C" function must be bound, with
+    as many argtypes as it has parameters, each of the matching width."""
+    entry = _c_entry_points((CSRC / source).read_text())
+    assert entry and set(entry) == set(signatures), (sorted(entry), sorted(signatures))
+    for name, params in entry.items():
+        argtypes, _ = signatures[name]
+        assert len(argtypes) == len(params), (name, params)
+        assert [_ctype_of(p) for p in params] == list(argtypes), (name, params)
+
+
+def test_every_csrc_source_is_bound():
+    assert {p.name for p in CSRC.glob("*.cu")} == {
+        "gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu"}
