@@ -10,17 +10,28 @@ Phases, in order; any failure exits nonzero:
    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu`` for
    ``sm_90a`` into ``build/torch_kernels/``, all three at once (the
    compiler's register reports and the build time are printed).
-2. **Kernels.** Each CUDA kernel (K1 gmf_compress, K2 momentum_correction,
-   K3 apply_mask) runs against its plain PyTorch version (``kernels/ref.py``)
-   on the card, on numpy-seeded inputs of 1, 5, 1000, 65,537, 3×1001,
-   20×36,864 and 2²⁴+3 elements (and one misaligned view), τ ∈ {0, 0.3, 1},
-   with inputs rounded to 1/16 so many elements tie exactly at the top-k
-   threshold. Masks must be equal and G, U, V bitwise equal: both sides do
-   the same float32 operations in the same order with no fused multiply-add.
-   K2, one multi-tensor launch per tree, is held bitwise over the 169
-   ResNet-56 leaves for 20 clients in one launch, over the same tree with a
-   misaligned leaf, and over a tree of more leaves than its table holds
-   (one launch per table). K4 runs against its plain version in float32 and
+2. **Kernels.** Each CUDA kernel runs against its plain PyTorch version
+   (``kernels/ref.py``) on the card, on numpy-seeded inputs rounded to
+   1/16 so many elements tie exactly at the top-k threshold. K1 is two
+   kernels over the flat ``[clients, N]`` stacks (``utils/flat.py``):
+   ``gmf_select`` (per (client, leaf) segment the inverse norms and the
+   exact top-k threshold; and its |z| mode, DGC's top-k mask) and the mask
+   pass ``gmf_compress``. They are held over the ResNet-56 layout for 20
+   clients, a layout of segments of 1, 3, 10, 16, 36,864 and 35 elements
+   (one all zeros and one all equal in every client; the mask pass also on
+   misaligned views) and single leaves of 1,000, 65,537 and 2²⁴+3, at
+   τ ∈ {0, 0.3, 1} and mixed per client: the inverse norms within 1e-6
+   relative of the plain version's (sums in another order), the thresholds
+   bitwise ``torch.topk``'s on the z of the kernel's own scalars, two runs
+   bitwise equal, the |z| mode's thresholds and mask bitwise, and the mask
+   pass's G, U, V and mask bitwise given the same scalars: both sides do
+   the same float32 operations in the same order with no fused
+   multiply-add. K2 and K3 are held bitwise on stacks of 1, 5, 1000,
+   65,537, 3×1001, 20×36,864 and 2²⁴+3 elements and one misaligned view;
+   K2, one multi-tensor launch per tree, also over the 169 ResNet-56 leaves
+   for 20 clients in one launch, over the same tree with a misaligned leaf,
+   and over a tree of more leaves than its table holds (one launch per
+   table). K4 runs against its plain version in float32 and
    bfloat16, causal and not, G ∈ {1, 4, 8} query heads per kv head (8 is
    MQA at H 8), head dim 16, 32, 64, 128, and T ∈ {1, 64, 1000, 2048} (1000
    is no tile multiple): bf16 at D 64/128 on the tensor-core kernel
@@ -35,16 +46,18 @@ Phases, in order; any failure exits nonzero:
 3. **Path.** ``FLSimulator`` + ``CifarTask(depth=56)`` with 20 clients,
    batch 64, lr 0.1, ``SynthCIFAR(num_train=20000)``: 3 rounds of
    ``dgcwgmf`` (τ 0.6, ``use_kernels=True``) and 3 of ``dgc``. Launch counts
-   are reset before each run and read after it: ``dgcwgmf`` must launch K1
-   169 times per round and K2 once (one table holds the 169 leaves),
-   ``dgc`` K2 once and K3 169 times. Every client's upload nnz
-   must be at least the exact-k sum 85,654; params must stay finite.
+   are reset before each run and read after it: a round of ``dgcwgmf`` must
+   launch ``gmf_select``, ``gmf_compress`` (K1) and ``momentum_correction``
+   (K2) once each, a round of ``dgc`` K2, ``gmf_select`` (|z| mode) and
+   ``apply_mask`` (K3) once each. Every client's upload nnz must be at
+   least the exact-k sum 85,654; params must stay finite.
 4. **Card vs CPU.** Round 0 of ``dgcwgmf`` at depth 8 through the same port
    on the card and with ``device="cpu"``: per-client upload nnz equal, and
    the broadcast within 1e-2 relative L2. Per-element gradients agree to
    ~1e-6 (convolution sums run in another order), so a few elements at a
    top-k boundary can flip; each flip moves the broadcast by one
-   threshold-sized entry.
+   threshold-sized entry. Then a ``torch.profiler`` trace of one steady
+   round of each preset: its device activities and the device's busy share.
 5. **Serving.** ``repro_torch.launch.serve.run_fixed`` on llama3.2-1b at
    full width and depth (16 layers, d_model 2048, bfloat16, random params
    from seed 0 on the card), batch 4, prompt 2048, 32 generated tokens:
@@ -60,11 +73,12 @@ Phases, in order; any failure exits nonzero:
    steps, both sides fed the CPU's greedy tokens, within 1e-4 relative L2
    per step. The float32 prefill runs on the CUDA-core K4 (2 launches).
 
-Timing: K1 and K3 over one round's launches (one per ResNet-56 leaf, 20
-clients), K2 as one tree call over the same leaves, each beside its plain
-version and bytes bound, with K2's device time alone and its host time
-split into tree walks, table (checks, allocations, output views,
-pointers) and launch; K4 at the serving shape on the tensor-core kernel,
+Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
+ResNet-56 stacks (20 clients), one launch each as the path makes them
+(CUDA events around the wrapper call, host time in), each beside its
+plain version and bytes bound; K1 as a round runs it (select + mask
+pass); K2's device time alone; one large launch of the mask pass, K2 and
+K3; K4 at the serving shape on the tensor-core kernel,
 the CUDA-core kernel (a bf16 comparison), the plain version and SDPA (a
 yardstick only: the port never calls it), beside the operations bound;
 the tensor-core kernel at D 128; and the CUDA-core kernel at the float32
@@ -107,13 +121,19 @@ CARDS = {
     "H200": (4.8e12, 67e12, 989e12),
 }
 
-# K-id, kernel name, port source, the Pallas function it replaces, bytes
-# per element, float operations per element.
+# K-id, kernel name, the Pallas function it replaces, bytes per element,
+# float operations per element. gmf_select is K1's glue (norms, score and
+# exact top-k threshold of every segment) as a kernel: it reads v and m once
+# (each radix pass reads them again, from L2), two squares and sums, then
+# the score (5 operations) in each of the three passes.
 KERNELS = [
+    ("K1", "gmf_select", "src/repro/kernels/gmf_compress.py:101", 8, 19),
     ("K1", "gmf_compress", "src/repro/kernels/gmf_compress.py:101", 28, 10),
     ("K2", "momentum_correction", "src/repro/kernels/gmf_compress.py:64", 20, 3),
     ("K3", "apply_mask", "src/repro/kernels/gmf_compress.py:146", 24, 4),
 ]
+RATE = 0.1
+EPS = 1e-16
 PORT_SOURCE = "src/repro_torch/kernels/csrc/gmf_compress.cu"
 RESNET56_LEAVES, RESNET56_PARAMS, RESNET56_KEEP = 169, 855_578, 85_654
 K4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -190,29 +210,22 @@ def kernel_inputs(rng, rows, n, dev, misalign=False):
     return one(), one(), one()
 
 
-def hold_kernels(gk, ref, fusion, sparsify, dev):
-    """Every kernel against its plain version on the card; returns the
-    largest absolute difference seen per kernel (0 when bitwise)."""
+def hold_kernels(gk, ref, dev):
+    """K2 and K3 against their plain versions on the card over single
+    stacks; returns the largest absolute difference seen per kernel (0 when
+    bitwise)."""
     rng = np.random.default_rng(0)
     cases = [(1, 1, False), (1, 5, False), (1, 1000, False), (1, 65_537, False),
              (3, 1001, False), (20, 36_864, False), (1, 2**24 + 3, False),
              (3, 1001, True)]
-    worst = {"gmf_compress": 0.0, "momentum_correction": 0.0, "apply_mask": 0.0}
-
-    def same(name, got, want, what):
-        check(got.shape == want.shape, f"{name}: {what} shape {tuple(got.shape)}")
-        err = (got - want).abs().max().item() if got.numel() else 0.0
-        worst[name] = max(worst[name], err)
-        check(torch.equal(got, want), f"{name}: {what} differs from the plain version "
-              f"(max abs {err:.3e}) at shape {tuple(got.shape)}")
-
+    worst = {"momentum_correction": 0.0, "apply_mask": 0.0}
     for rows, n, mis in cases:
         u, v, m = kernel_inputs(rng, rows, n, dev, mis)
         for alpha in (0.0, 0.9):
             got = gk.momentum_correction_flat(u, v, m, alpha)
             want = ref.momentum_correction_leaf(u, v, m, alpha)
             for what, a, b in zip(("U", "V"), got, want, strict=True):
-                same("momentum_correction", a, b, what)
+                same(worst, "momentum_correction", a, b, what)
         mask = (torch.tensor(rng.random((rows, n)) > 0.7, device=dev)).float()
         if mis:
             buf = torch.empty(rows * n + 1, dtype=torch.float32, device=dev)
@@ -221,22 +234,101 @@ def hold_kernels(gk, ref, fusion, sparsify, dev):
         got = gk.apply_mask_flat(u, v, mask)
         want = ref.apply_mask_update_leaf(u, v, mask)
         for what, a, b in zip(("G", "U", "V"), got, want, strict=True):
-            same("apply_mask", a, b, what)
-        inv_nv = 1.0 / (fusion.row_l2_norm(v) + 1e-16)
-        inv_nm = 1.0 / (fusion.row_l2_norm(m) + 1e-16)
-        for tau in (0.0, 0.3, 1.0):
-            tau_k = torch.full((rows,), tau, dtype=torch.float32, device=dev)
-            z = ref.gmf_fusion_score(v, m, inv_norm_v=inv_nv, inv_norm_m=inv_nm, tau=tau_k)
-            thr = sparsify.exact_threshold(z, sparsify.num_keep(n, 0.1)).contiguous()
-            ties = int((z == thr[:, None]).sum().item())
-            check(ties >= rows, f"gmf_compress: no element sits at the threshold ({rows}x{n})")
-            kw = dict(inv_norm_v=inv_nv, inv_norm_m=inv_nm, tau=tau_k, threshold=thr)
-            got = gk.gmf_compress_flat(u, v, m, **kw)
-            want = ref.gmf_compress_leaf(u, v, m, **kw)
+            same(worst, "apply_mask", a, b, what)
+        print(f"  held {rows}x{n}{' misaligned' if mis else ''}: K2, K3 bitwise", flush=True)
+    torch.cuda.synchronize()
+    return worst
+
+
+def same(worst, name, got, want, what):
+    """Fail unless ``got`` is bitwise ``want``; track the largest difference."""
+    check(got.shape == want.shape, f"{name}: {what} shape {tuple(got.shape)}")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    worst[name] = max(worst[name], err)
+    check(torch.equal(got, want), f"{name}: {what} differs from the plain version "
+          f"(max abs {err:.3e}) at shape {tuple(got.shape)}")
+
+
+def select_layouts(rt, resnet_params, dev):
+    """(label, layout, rows, toy) of every case ``hold_select`` runs: ResNet-56
+    for 20 clients (the path's), a layout of tiny and odd segments (1, 3,
+    10, 16 elements, none 16-byte aligned inside a row, beside a 36,864
+    one), and single leaves."""
+    flat = rt.flat.FlatLayout
+    toy = {"a": torch.empty(1), "b": torch.empty(3), "c": torch.empty(10),
+           "d": torch.empty(16), "e": torch.empty(64, 64, 3, 3), "f": torch.empty(5, 7)}
+    toy = {k: x.to(dev) for k, x in toy.items()}
+    return [("ResNet-56, 20 clients", flat.of(resnet_params), 20, False),
+            ("segments 1/3/10/16/36864/35, 5 clients", flat.of(toy), 5, True),
+            ("one leaf of 1000, 3 clients", flat.of(torch.empty(1000, device=dev)), 3, False),
+            ("one leaf of 65537, 1 client", flat.of(torch.empty(65_537, device=dev)), 1, False),
+            ("one leaf of 2^24+3, 1 client", flat.of(torch.empty(2**24 + 3, device=dev)), 1,
+             False)]
+
+
+def hold_select(rt, resnet_params, dev):
+    """gmf_select (both modes) and the flat K1 mask pass against their plain
+    versions on the card, on inputs rounded to 1/16 so that scores tie:
+    the inverse norms within 1e-6 relative (the kernel sums in another
+    order), the thresholds bitwise torch.topk's on the z of the kernel's own
+    scalars, two runs bitwise equal, and given the same scalars the mask
+    pass bitwise. The toy layout's 10-element segment is all zeros and its
+    16-element one all equal, in every client; its mask pass runs once more
+    on misaligned views. Returns the largest differences seen."""
+    gk, ref, sparsify = rt.gk, rt.ref, rt.sparsify
+    rng = np.random.default_rng(3)
+    worst = {"gmf_select": 0.0, "gmf_compress": 0.0, "norm_rel": 0.0}
+    for label, layout, rows, toy in select_layouts(rt, resnet_params, dev):
+        u, v, m = kernel_inputs(rng, rows, layout.total, dev)
+        if toy:
+            for x in (v, m):
+                x[:, layout.offsets[2]:layout.offsets[3]] = 0.0
+                x[:, layout.offsets[3]:layout.offsets[4]] = 0.5
+        keep_host, keep = layout.keep(RATE)
+        offs = layout.offsets_dev
+        w = torch.tensor(rng.uniform(0.5, 2.0, rows).astype(np.float32), device=dev)
+        for tau_vals in ((0.0,), (0.3,), (1.0,), (0.0, 0.3, 0.6, 1.0)):
+            tau = torch.tensor([tau_vals[i % len(tau_vals)] for i in range(rows)],
+                               dtype=torch.float32, device=dev)
+            kw = dict(offsets=offs, keep=keep, w=w, tau=tau, eps=EPS)
+            inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, **kw)
+            again = gk.gmf_select_flat(v, m, **kw)
+            for what, a, b in zip(("inv_nv", "inv_nm", "thr"), (inv_nv, inv_nm, thr), again,
+                                  strict=True):
+                check(torch.equal(a, b), f"gmf_select over {label}: two runs differ in {what}")
+            p_nv, p_nm, _ = ref.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS)
+            for a, b in ((inv_nv, p_nv), (inv_nm, p_nm)):
+                rel = ((a - b).abs() / b.abs()).max().item()
+                worst["norm_rel"] = max(worst["norm_rel"], rel)
+                check(rel <= 1e-6, f"gmf_select over {label}: inverse norms {rel:.3e} "
+                      f"relative from the plain version's")
+            z = ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
+                                     inv_norm_m=layout.expand(inv_nm), tau=tau)
+            same(worst, "gmf_select", thr, sparsify.segment_thresholds(z, layout, RATE),
+                 f"threshold over {label}")
+            scal = dict(inv_norm_v=inv_nv, inv_norm_m=inv_nm, tau=tau, threshold=thr)
+            got = gk.gmf_compress_flat(u, v, m, offsets=offs, **scal)
+            want = ref.gmf_compress_segments(u, v, m, layout=layout, **scal)
             for what, a, b in zip(("G", "U", "V", "mask"), got, want, strict=True):
-                same("gmf_compress", a, b, what)
-        print(f"  held {rows}x{n}{' misaligned' if mis else ''}: K1 (τ 0, 0.3, 1), "
-              f"K2, K3 bitwise", flush=True)
+                same(worst, "gmf_compress", a, b, f"{what} over {label}")
+            kept = torch.stack([s.sum(1) for s in layout.segments(got[3])], dim=1)
+            check(bool((kept >= torch.tensor(keep_host, device=dev)).all()),
+                  f"gmf_compress over {label}: a segment kept fewer than k_i")
+        thr_a, mask_a = gk.topk_abs_select_flat(v, offsets=offs, keep=keep)
+        p_thr, p_mask = sparsify.segment_topk_mask(v, layout, RATE)
+        same(worst, "gmf_select", thr_a, p_thr, f"|z| threshold over {label}")
+        same(worst, "gmf_select", mask_a, p_mask, f"|z| mask over {label}")
+        if toy:
+            mu, mv, mm = kernel_inputs(rng, rows, layout.total, dev, misalign=True)
+            mv.copy_(v)
+            mm.copy_(m)
+            got = gk.gmf_compress_flat(mu, mv, mm, offsets=offs, **scal)
+            want = ref.gmf_compress_segments(mu, mv, mm, layout=layout, **scal)
+            for what, a, b in zip(("G", "U", "V", "mask"), got, want, strict=True):
+                same(worst, "gmf_compress", a, b, f"{what} over {label}, misaligned")
+        print(f"  held gmf_select (τ 0, 0.3, 1, mixed; and |z|) and the K1 mask pass over "
+              f"{label} ({layout.num_leaves} leaves, {rows * layout.num_leaves} segments): "
+              f"bitwise, inverse norms within {worst['norm_rel']:.3e} relative", flush=True)
     torch.cuda.synchronize()
     return worst
 
@@ -299,64 +391,33 @@ def k2_device_ms(gk, us, vs, gs, reps=20):
                     reps=5) / reps
 
 
-def host_us(fn, reps=50):
-    """Median µs of ``fn()`` on the host's clock (no sync: launches are
-    asynchronous, so this is the host's own work)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    return statistics.median(times) * 1e6
-
-
-def k2_host_split(gk, ops, utils, trees):
-    """Where a K2 tree call's host time goes, in µs (host-clock medians of
-    each piece alone): the tree walks of ``ops.momentum_correction``, the
-    table (checks, two allocations, output views, pointers), the output
-    views alone, and the launch."""
-    us, vs, gs = (utils.tree_leaves(t) for t in trees)
-    limits = gk.momentum_limits()
-    table = gk.momentum_table(us, vs, gs, *limits)
-    flat = torch.empty(sum(u.numel() for u in us), dtype=torch.float32, device=us[0].device)
-    split = {
-        "tree call": host_us(lambda: ops.momentum_correction(*trees, 0.9)),
-        "tree walks": host_us(lambda: ([utils.tree_leaves(t) for t in trees],
-                                       [utils.tree_unflatten(trees[0], us) for _ in range(2)])),
-        "table": host_us(lambda: gk.momentum_table(us, vs, gs, *limits)),
-        "output views": host_us(lambda: [gk._unflatten(flat, us) for _ in range(2)]),
-        "launch": host_us(lambda: gk.launch_momentum(table, 0.9, us[0].device)),
-    }
-    return split
-
-
-def time_kernels(gk, ops, ref, utils, leaf_shapes, clients, bw, peak, dev):
-    """Each kernel over one round's work (every ResNet-56 leaf, all
-    clients: K1 and K3 one launch a leaf, K2 one tree call, as the path
-    calls them), its plain version over the same inputs, and the bound."""
+def time_kernels(rt, layout, clients, bw, peak, dev):
+    """Each kernel over one round's flat ResNet-56 stacks (``[clients, N]``,
+    one launch each, as the path calls them: K2 through
+    ``ops.momentum_correction``), its plain version over the same inputs,
+    and the bound; then K1 as the round runs it (select + mask pass), and
+    one large launch of the mask pass, K2 and K3."""
+    gk, ops, ref = rt.gk, rt.ops, rt.ref
     rng = np.random.default_rng(1)
-    sets = []
-    for shape in leaf_shapes:
-        n = math.prod(shape)
-        u, v, m = kernel_inputs(rng, clients, n, dev)
-        mask = (torch.tensor(rng.random((clients, n)) > 0.9, device=dev)).float()
-        thr = torch.full((clients,), 0.01, dtype=torch.float32, device=dev)
-        inv = torch.full((clients,), 1e-3, dtype=torch.float32, device=dev)
-        tau = torch.full((clients,), 0.6, dtype=torch.float32, device=dev)
-        sets.append((u, v, m, mask, dict(inv_norm_v=inv, inv_norm_m=inv, tau=tau,
-                                         threshold=thr)))
-    elems = clients * sum(math.prod(s) for s in leaf_shapes)
-    trees = tuple({f"leaf{i:03d}": x[j] for i, x in enumerate(sets)} for j in range(3))
+    n = layout.total
+    u, v, m = kernel_inputs(rng, clients, n, dev)
+    mask = (torch.tensor(rng.random((clients, n)) > 0.9, device=dev)).float()
+    w = torch.ones(clients, device=dev)
+    tau = torch.full((clients,), 0.6, device=dev)
+    offs, keep = layout.offsets_dev, layout.keep(RATE)[1]
+    select = lambda: gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau, eps=EPS)
+    inv_nv, inv_nm, thr = select()
+    scal = dict(inv_norm_v=inv_nv, inv_norm_m=inv_nm, tau=tau, threshold=thr)
+    elems = clients * n
     runs = {
-        "gmf_compress": (lambda: [gk.gmf_compress_flat(u, v, m, **kw) for u, v, m, _, kw in sets],
-                         lambda: [ref.gmf_compress_leaf(u, v, m, **kw)
-                                  for u, v, m, _, kw in sets]),
-        "momentum_correction": (lambda: ops.momentum_correction(*trees, 0.9),
-                                lambda: ref.momentum_correction(*trees, 0.9)),
-        "apply_mask": (lambda: [gk.apply_mask_flat(u, v, mk) for u, v, _, mk, _ in sets],
-                       lambda: [ref.apply_mask_update_leaf(u, v, mk) for u, v, _, mk, _ in sets]),
+        "gmf_select": (select, lambda: ref.gmf_select(v, m, layout, RATE, w=w, tau=tau,
+                                                      eps=EPS)),
+        "gmf_compress": (lambda: gk.gmf_compress_flat(u, v, m, offsets=offs, **scal),
+                         lambda: ref.gmf_compress_segments(u, v, m, layout=layout, **scal)),
+        "momentum_correction": (lambda: ops.momentum_correction(u, v, m, 0.9),
+                                lambda: ref.momentum_correction_leaf(u, v, m, 0.9)),
+        "apply_mask": (lambda: gk.apply_mask_flat(u, v, mask),
+                       lambda: ref.apply_mask_update_leaf(u, v, mask)),
     }
     out = {}
     for kid, name, _, bpe, flops in KERNELS:
@@ -371,40 +432,48 @@ def time_kernels(gk, ops, ref, utils, leaf_shapes, clients, bw, peak, dev):
         bound_ops = flops * elems / peak * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations")
-        print(f"  {kid} {name}: {launched} launches, {nbytes / 1e6:.1f} MB, kernel "
+        print(f"  {kid} {name}: {launched} launch(es), {nbytes / 1e6:.1f} MB, kernel "
               f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
               f"bound {out[name]['bound_ms']:.4f} ms", flush=True)
-    k2_dev = k2_device_ms(gk, *(list(t.values()) for t in trees))
-    print(f"  K2 momentum_correction device time per tree call (launches back to back): "
-          f"{k2_dev:.4f} ms ({20 * elems / k2_dev / 1e6:.1f} GB/s); the rest of the "
-          f"{out['momentum_correction']['ms']:.4f} ms tree call is host time", flush=True)
-    split = k2_host_split(gk, ops, utils, trees)
-    print("  K2 tree call on the host's clock, median µs of each piece alone: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in split.items()), flush=True)
-    # One large launch per kernel: the bandwidth the kernel reaches when the
-    # launch overhead is amortised.
-    n = 2**24 + 3
-    u, v, m = kernel_inputs(rng, 1, n, dev)
-    mask = (v.abs() > 1.0).float()
-    one = dict(inv_norm_v=torch.full((1,), 1e-3, device=dev),
-               inv_norm_m=torch.full((1,), 1e-3, device=dev),
-               tau=torch.full((1,), 0.6, device=dev),
-               threshold=torch.full((1,), 1e-3, device=dev))
-    big = {"gmf_compress": (lambda: gk.gmf_compress_flat(u, v, m, **one),
-                            lambda: ref.gmf_compress_leaf(u, v, m, **one)),
-           "momentum_correction": (lambda: gk.momentum_correction_flat(u, v, m, 0.9),
-                                   lambda: ref.momentum_correction_leaf(u, v, m, 0.9)),
-           "apply_mask": (lambda: gk.apply_mask_flat(u, v, mask),
-                          lambda: ref.apply_mask_update_leaf(u, v, mask))}
-    for kid, name, _, bpe, _ in KERNELS:
-        kern, plain = big[name]
-        ms, plain_ms = timed_ms(kern), timed_ms(plain)
-        print(f"  {kid} {name} at {n} elements: {bpe * n / 1e6:.1f} MB, kernel {ms:.4f} ms "
-              f"({bpe * n / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
-              f"{bpe * n / bw * 1e3:.4f} ms", flush=True)
+
+    def k1_round():
+        nv, nm, th = select()
+        return gk.gmf_compress_flat(u, v, m, offsets=offs, inv_norm_v=nv, inv_norm_m=nm,
+                                    tau=tau, threshold=th)
+
+    k1 = timed_ms(k1_round)
+    bound = 36 * elems / bw * 1e3
+    print(f"  K1 a round (gmf_select + gmf_compress, host-inclusive): {k1:.4f} ms, bound "
+          f"{bound:.4f} ms ({36 * elems / 1e6:.1f} MB)", flush=True)
     k2_dev = k2_device_ms(gk, [u], [v], [m])
-    print(f"  K2 momentum_correction at {n} elements, device time (launches back to back): "
-          f"{k2_dev:.4f} ms ({20 * n / k2_dev / 1e6:.1f} GB/s)", flush=True)
+    print(f"  K2 momentum_correction device time per call (launches back to back): "
+          f"{k2_dev:.4f} ms ({20 * elems / k2_dev / 1e6:.1f} GB/s); the call "
+          f"{out['momentum_correction']['ms']:.4f} ms", flush=True)
+    # One large launch per elementwise kernel: the bandwidth it reaches when
+    # the launch overhead is amortised.
+    big = rt.flat.FlatLayout.of(torch.empty(2**24 + 3, device=dev))
+    u, v, m = kernel_inputs(rng, 1, big.total, dev)
+    mask = (v.abs() > 1.0).float()
+    one = dict(inv_norm_v=torch.full((1, 1), 1e-3, device=dev),
+               inv_norm_m=torch.full((1, 1), 1e-3, device=dev),
+               tau=torch.full((1,), 0.6, device=dev),
+               threshold=torch.full((1, 1), 1e-3, device=dev))
+    large = {"gmf_compress": (lambda: gk.gmf_compress_flat(u, v, m, offsets=big.offsets_dev,
+                                                           **one),
+                              lambda: ref.gmf_compress_segments(u, v, m, layout=big, **one)),
+             "momentum_correction": (lambda: gk.momentum_correction_flat(u, v, m, 0.9),
+                                     lambda: ref.momentum_correction_leaf(u, v, m, 0.9)),
+             "apply_mask": (lambda: gk.apply_mask_flat(u, v, mask),
+                            lambda: ref.apply_mask_update_leaf(u, v, mask))}
+    for kid, name, _, bpe, _ in KERNELS:
+        if name not in large:
+            continue
+        kern, plain = large[name]
+        ms, plain_ms = timed_ms(kern), timed_ms(plain)
+        nb = bpe * big.total
+        print(f"  {kid} {name} at {big.total} elements: {nb / 1e6:.1f} MB, kernel {ms:.4f} ms "
+              f"({nb / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
+              f"{nb / bw * 1e3:.4f} ms", flush=True)
     return out
 
 
@@ -624,23 +693,24 @@ def run_path(rt, task, scheme_kw, rounds, clients, batch, launches):
 def path_phase(rt, dev):
     data = rt.synthetic.SynthCIFAR(num_train=20000)
     task = rt.fl.CifarTask(num_clients=20, depth=56, data=data, device=dev)
-    launches = {"gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
-    # Launches per round: K1 and K3 one a leaf; K2 one per table of leaves.
-    k2 = -(-RESNET56_LEAVES // rt.gk.momentum_limits()[0])
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    # Launches per round: one of each kernel of the preset's path, over the
+    # flat [20, N] stacks of all clients and leaves.
     expect = {
         "dgcwgmf": ({"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True},
-                    {"gmf_compress": RESNET56_LEAVES, "momentum_correction": k2,
+                    {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1,
                      "apply_mask": 0}),
         "dgc": ({"scheme": "dgc"},
-                {"gmf_compress": 0, "momentum_correction": k2, "apply_mask": RESNET56_LEAVES}),
+                {"gmf_select": 1, "gmf_compress": 0, "momentum_correction": 1,
+                 "apply_mask": 1}),
     }
-    leaf_shapes = None
     for label, (kw, per_round) in expect.items():
         t0 = time.perf_counter()
         sim, hist, counts = run_path(rt, task, kw, 3, 20, 64, launches)
         leaves = rt.utils.tree_leaves(sim.params)
         leaf_shapes = [tuple(x.shape) for x in leaves]
-        check(len(leaves) == RESNET56_LEAVES, f"{len(leaves)} leaves, expected 169")
+        check(len(leaves) == RESNET56_LEAVES == sim.layout.num_leaves,
+              f"{len(leaves)} leaves, expected 169")
         check(sim.total_params == RESNET56_PARAMS, f"{sim.total_params} params")
         keep = sum(rt.sparsify.num_keep(math.prod(s), 0.1) for s in leaf_shapes)
         check(keep == RESNET56_KEEP, f"exact-k sum {keep}, expected {RESNET56_KEEP}")
@@ -656,7 +726,7 @@ def path_phase(rt, dev):
               f"{hist[0]['upload_nnz']}; ms/round after round 0 {ms}; ledger "
               f"{json.dumps(sim.ledger.summary())}; accuracy {sim.final_accuracy()}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, leaf_shapes, task
+    return launches, task
 
 
 def profile_phase(rt, task):
@@ -717,8 +787,7 @@ def card_vs_cpu_phase(rt, dev, tol=1e-2):
         fl = rt.fl.FLConfig(num_clients=8, rounds=1, batch_size=32, learning_rate=0.1)
         sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, device=device)
         hist = sim.run(task.batch_provider(32))
-        bcast = torch.cat([x.reshape(-1).cpu() for x in rt.utils.tree_leaves(sim.gbar_prev)])
-        out[device if device == "cpu" else "cuda"] = (hist[0]["upload_nnz"], bcast)
+        out[device if device == "cpu" else "cuda"] = (hist[0]["upload_nnz"], sim.gbar_prev.cpu())
     (nnz_g, b_g), (nnz_c, b_c) = out["cuda"], out["cpu"]
     check(nnz_g == nnz_c, f"card vs CPU upload nnz differ: {nnz_g} vs {nnz_c}")
     rel = float((b_g - b_c).norm() / b_c.norm())
@@ -752,8 +821,8 @@ def serve_phase(rt, dev, profile=False):
         run = rt.serve.run_fixed(cfg, params, args, dev)
         torch.cuda.synchronize()
         counts = {**rt.gk.LAUNCHES, **rt.k4.LAUNCHES}
-        check(counts == {"gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0,
-                         "flash_attention": cfg.num_layers,
+        check(counts == {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0,
+                         "apply_mask": 0, "flash_attention": cfg.num_layers,
                          "flash_attention_tc": cfg.num_layers, "flash_attention_cc": 0},
               f"{label}: launches {counts}")
         check(bool(torch.isfinite(run.last_logits).all()), f"{label}: logits not finite")
@@ -871,8 +940,7 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels",), default=None,
                     help="run only the build and kernel phases")
     ap.add_argument("--profile", action="store_true",
-                    help="also break down where a ResNet-56 round's and a serving "
-                         "run's time goes (torch.profiler)")
+                    help="also break down where a serving run's time goes (torch.profiler)")
     args = ap.parse_args()
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -884,16 +952,18 @@ def main() -> None:
     import repro_torch.core as core
     import repro_torch.fl as fl
     import repro_torch.utils as utils
-    from repro_torch.core import fusion, sparsify
+    from repro_torch.core import sparsify
     from repro_torch.data import synthetic
     from repro_torch.dist import step as dstep
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import gmf_compress as gk
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
+    from repro_torch.utils import flat
 
     rt = argparse.Namespace(core=core, fl=fl, utils=utils, gk=gk, k4=k4, synthetic=synthetic,
-                            sparsify=sparsify, configs=configs, dstep=dstep, serve=serve)
+                            sparsify=sparsify, configs=configs, dstep=dstep, serve=serve,
+                            ops=ops, ref=ref, flat=flat)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=False)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
@@ -922,13 +992,15 @@ def main() -> None:
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 2: kernels vs plain versions", flush=True)
-    leaf_shapes = [tuple(s) for s in _resnet56_leaf_shapes()]
-    worst = hold_kernels(gk, ref, fusion, sparsify, dev)
+    resnet_params = _resnet56_params(dev)
+    leaf_shapes = [tuple(x.shape) for x in utils.tree_leaves(resnet_params)]
+    worst = {**hold_kernels(gk, ref, dev), **hold_select(rt, resnet_params, dev)}
     worst["momentum_correction"] = max(worst["momentum_correction"],
                                        hold_k2_trees(gk, ops, ref, leaf_shapes, dev))
     k4_worst = hold_k4(k4, ref, dev)
     print(json.dumps({"kernels_held": [
-        "K1 gmf_compress", "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
+        "K1 gmf_select (and its |z| mode)", "K1 gmf_compress (flat mask pass)",
+        "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
         "K4 flash_attention_tc (tensor cores)", "K4 flash_attention_cc (CUDA cores)"]}),
         flush=True)
 
@@ -936,12 +1008,11 @@ def main() -> None:
     launches.update(flash_attention_tc=0, flash_attention_cc=0)
     if args.only != "kernels":
         print("phase 3: ResNet-56 FL path, 20 clients, batch 64", flush=True)
-        launches, leaf_shapes, task = path_phase(rt, dev)
+        launches, task = path_phase(rt, dev)
         print("phase 4: card vs CPU, round 0 at depth 8", flush=True)
         card_vs_cpu_phase(rt, dev)
-        if args.profile:
-            print("profile: where a ResNet-56 round's time goes", flush=True)
-            profile_phase(rt, task)
+        print("profile: where a ResNet-56 round's time goes", flush=True)
+        profile_phase(rt, task)
         del task
         print("phase 5: serving llama3.2-1b, batch 4, prompt 2048, 32 tokens", flush=True)
         _, counts = serve_phase(rt, dev, args.profile)
@@ -949,8 +1020,8 @@ def main() -> None:
         print("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2", flush=True)
         launches["flash_attention_cc"] = serve_card_vs_cpu_phase(rt, dev)
 
-    print("timing: one round of launches at the ResNet-56 leaf shapes, 20 clients", flush=True)
-    times = time_kernels(gk, ops, ref, utils, leaf_shapes, 20, bw, peak, dev)
+    print("timing: one round's flat ResNet-56 stacks, 20 clients", flush=True)
+    times = time_kernels(rt, flat.FlatLayout.of(resnet_params), 20, bw, peak, dev)
     print("timing: K4 at the serving shape", flush=True)
     k4_times = time_k4(k4, ref, bw, peak, bf16_peak, dev)
     torch.cuda.synchronize()
@@ -975,12 +1046,10 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _resnet56_leaf_shapes():
+def _resnet56_params(dev):
     from repro_torch.models import resnet
-    from repro_torch.utils import tree_leaves
 
-    params = resnet.init_resnet(torch.Generator().manual_seed(0), depth=56)
-    return [x.shape for x in tree_leaves(params)]
+    return resnet.init_resnet(torch.Generator().manual_seed(0), depth=56, device=dev)
 
 
 if __name__ == "__main__":

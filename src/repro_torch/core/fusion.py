@@ -7,7 +7,10 @@ as plain DGC; ``tau > 0`` pulls the clients' masks towards the shared
 global momentum M, so the union of their uploads (the download) shrinks.
 
 The port writes the client axis out: every tensor here is a ``[k, ...]``
-stack and each client row is normalised on its own.
+stack and each client row is normalised on its own. The compression state
+is flat (``utils/flat.py``): a ``[k, N]`` stack whose (client, leaf)
+segments are normalised each on its own, as the JAX package normalises
+each leaf.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ from repro_torch.utils.device import scalar
 
 def rows(x, like: torch.Tensor) -> torch.Tensor:
     """A scalar or ``[k]`` tensor shaped to broadcast against the ``[k, ...]``
-    stack ``like`` (one value per client row)."""
+    stack ``like`` (one value per client row); a tensor of ``like``'s rank
+    (one value per element) passes as it is."""
     x = scalar(x, like.device)
-    if x.dim() == 0:
+    if x.dim() in (0, like.dim()):
         return x
     return x.reshape((x.shape[0],) + (1,) * (like.dim() - 1))
 
@@ -37,6 +41,19 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-16) -> torch.Tensor:
     the reference, not a multiplication by a reciprocal)."""
     xf = x.float()
     return xf / rows(row_l2_norm(xf) + eps, xf)
+
+
+def segment_norms(x: torch.Tensor, layout) -> torch.Tensor:
+    """Per-client L2 norm of every leaf segment of a flat ``[k, N]`` stack,
+    in float32 -> ``[k, L]``."""
+    return torch.stack([row_l2_norm(seg) for seg in layout.segments(x.float())], dim=1)
+
+
+def segment_l2_normalize(x: torch.Tensor, layout, eps: float = 1e-16) -> torch.Tensor:
+    """``l2_normalize`` of every (client, leaf) segment of a flat ``[k, N]``
+    stack: each element divided by its segment's norm + eps."""
+    xf = x.float()
+    return xf / layout.expand(segment_norms(xf, layout) + eps)
 
 
 def fednova_step_weight(local_steps, mean_steps, device=None) -> torch.Tensor:

@@ -7,9 +7,10 @@ family on the synchronous star round: ``none``, ``dgc``, ``gmc``,
 ``dgcwgm`` and ``dgcwgmf``. The reference's other presets raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
-The client axis is explicit: ``Scheme.client_compress`` takes the stacked
-``[k, ...]`` states and gradients of k clients and compresses them all at
-once (the reference compresses one client and is vmapped).
+The client axis is explicit and the state is flat: ``Scheme.client_compress``
+takes the ``[k, N]`` state and gradient stacks of k clients
+(``utils/flat.py``) with their layout and compresses them all at once (the
+reference compresses one client's tree and is vmapped).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.core.state import (
     init_client_state,
     init_server_state,
 )
-from repro_torch.utils import scalar, tree_leaves, tree_map, tree_nnz, tree_size
+from repro_torch.utils import scalar, tree_nnz
 
 OTHER_KINDS = stages.OTHER_KINDS
 ENGINES = stages.ENGINES
@@ -148,7 +149,8 @@ class Scheme:
         return self.downlink.uses_residual
 
     def init_states(self, params) -> tuple[ClientState, ServerState]:
-        """One client's zero state (no client axis) and the server state."""
+        """One client's zero state (flat ``[N]`` fields, no client axis) and
+        the server state."""
         client = init_client_state(
             params, use_u=self.uses_u, use_v=self.uses_v, use_m=self.uses_m)
         server = init_server_state(
@@ -160,19 +162,19 @@ class Scheme:
         return CostModel(value_bytes=self.wire.value_bytes)
 
     def client_compress(self, state: ClientState, grad, gbar_prev, round_idx,
-                        local_steps=1.0, mean_steps=1.0, tau_override=None):
+                        local_steps=1.0, mean_steps=1.0, tau_override=None, *, layout):
         """One compression step for a stack of k clients (paper Algorithm 1
-        lines 6-13). ``state`` and ``grad`` leaves are ``[k, ...]``;
-        ``gbar_prev`` is last round's broadcast (no client axis);
-        ``local_steps`` / ``mean_steps`` are scalars or ``[k]``. Returns the
-        ``[k, ...]`` payload stack, the new state stack and a
-        ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
+        lines 6-13). ``state`` fields and ``grad`` are flat ``[k, N]``
+        stacks of the params ``layout`` describes; ``gbar_prev`` is last
+        round's broadcast, ``[N]``; ``local_steps`` / ``mean_steps`` are
+        scalars or ``[k]``. Returns the ``[k, N]`` payload stack, the new
+        state stack and a ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
         cfg = self.cfg
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
                        local_steps=local_steps, mean_steps=mean_steps,
-                       tau_override=tau_override)
+                       tau_override=tau_override, layout=layout)
         ops = stages.elementwise_ops(cfg)
-        total = tree_size(gbar_prev)
+        total = layout.total
 
         m, extra = self.fusion.pre(cfg, state.m, gbar_prev)
         value, u, v = self.compensator.accumulate(cfg, ops, state.u, state.v, grad, extra)
@@ -187,14 +189,13 @@ class Scheme:
             nnz = tree_nnz(masks, client_axis=True)
         elif self.selector.dense:
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, None)
-            first = tree_leaves(grad)[0]
-            nnz = torch.full((first.shape[0],), total, dtype=torch.int64, device=first.device)
+            nnz = torch.full((grad.shape[0],), total, dtype=torch.int64, device=grad.device)
         else:
             if self.selector.needs_scores:
                 ref, m = self.fusion.scores(cfg, value, m, ctx)
             else:
                 ref = value
-            masks = self.selector.select(cfg, ref, round_idx)
+            masks = self.selector.select(cfg, ref, round_idx, layout)
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, masks)
             nnz = tree_nnz(masks, client_axis=True)
 
@@ -202,15 +203,14 @@ class Scheme:
         return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
 
     def server_aggregate(self, server_state: ServerState, g_sum, num_clients):
-        """Average the summed payloads, apply the fusion stage's server
-        transform and the downlink stage; returns the broadcast."""
+        """Average the summed ``[N]`` payloads, apply the fusion stage's
+        server transform and the downlink stage; returns the ``[N]``
+        broadcast."""
         cfg = self.cfg
-        # A divisor on the leaves' device: CUDA divides by a Python scalar
-        # as a multiplication by its reciprocal, one rounding off x / n.
-        first = tree_leaves(g_sum)[0]
-        n = scalar(num_clients, first.device, first.dtype)
-        gbar = tree_map(lambda x: x / n, g_sum)
-        total = tree_size(gbar)
+        # A divisor on the device: CUDA divides by a Python scalar as a
+        # multiplication by its reciprocal, one rounding off x / n.
+        gbar = g_sum / scalar(num_clients, g_sum.device, g_sum.dtype)
+        total = gbar.numel()
         if self.server_momentum:
             bcast, new_momentum = self.fusion.server(cfg, server_state.momentum, gbar)
         else:

@@ -8,8 +8,8 @@ dtype, an aggregator tier) raise ``NotImplementedError`` naming the
 ROADMAP item that ports it; nothing is silently ignored.
 
   init_states(cfg, params)                  -> (ClientState, ServerState)
-  client_compress(cfg, state, grad, gbar_prev, round_idx, ...)
-      -> (payload, new_state, CompressInfo)     # [k, ...] client stacks
+  client_compress(cfg, state, grad, gbar_prev, round_idx, ..., layout=...)
+      -> (payload, new_state, CompressInfo)     # flat [k, N] client stacks
   server_aggregate(cfg, server_state, g_sum, num_clients)
       -> (broadcast, new_server_state, AggregateInfo)
 """
@@ -120,11 +120,12 @@ def init_states(cfg: CompressionConfig, params) -> tuple[ClientState, ServerStat
 
 
 def client_compress(cfg: CompressionConfig, state: ClientState, grad, gbar_prev, round_idx,
-                    local_steps=1.0, mean_steps=1.0, tau_override=None):
-    """One client-side compression step for a ``[k, ...]`` stack of clients."""
+                    local_steps=1.0, mean_steps=1.0, tau_override=None, *, layout):
+    """One client-side compression step for a flat ``[k, N]`` stack of
+    clients of the params ``layout`` describes."""
     return resolve(cfg).client_compress(
         state, grad, gbar_prev, round_idx, local_steps=local_steps,
-        mean_steps=mean_steps, tau_override=tau_override)
+        mean_steps=mean_steps, tau_override=tau_override, layout=layout)
 
 
 def server_aggregate(cfg: CompressionConfig, server_state: ServerState, g_sum, num_clients):

@@ -13,6 +13,13 @@ shape. Two threshold estimators, as in the JAX package:
 The strided sample follows the tensor's shape; convolution kernels are
 OIHW here and HWIO in the JAX package, so for those leaves the two
 packages sample different (statistically equivalent) elements.
+
+The compression state is flat (``utils/flat.py``): ``segment_thresholds``
+and ``segment_topk_mask`` select per (client, leaf) segment of a
+``[k, N]`` stack, as the JAX package selects per leaf; a global top-k is
+``topk_mask`` over the whole rows. On the card the exact per-segment
+selection is a kernel (``kernels/ops.py: topk_abs_select``); these are its
+plain version and the sampled estimator's path.
 """
 
 from __future__ import annotations
@@ -70,11 +77,29 @@ def topk_mask(z: torch.Tensor, rate: float, selector: str = "exact") -> torch.Te
     return (za >= _bcast(thr, za)).float()
 
 
-def global_topk_masks(z_leaves: list[torch.Tensor], rate: float) -> list[torch.Tensor]:
-    """One top-k per client across all leaves (exact selector): the rows of
-    every leaf are concatenated, one threshold per client is selected, and
-    the mask is split back."""
-    flats = [torch.abs(x.reshape(x.shape[0], -1)).float() for x in z_leaves]
-    cat = torch.cat(flats, dim=1)
-    thr = exact_threshold(cat, num_keep(cat.shape[1], rate))[:, None]
-    return [(f >= thr).float().reshape(x.shape) for f, x in zip(flats, z_leaves, strict=True)]
+def segment_thresholds(za: torch.Tensor, layout, rate: float,
+                       selector: str = "exact") -> torch.Tensor:
+    """The threshold of every (client, leaf) segment of a flat ``[k, N]``
+    score stack -> ``[k, L]``: the exact k_i-th largest of the segment, or
+    the sampled estimate from a strided sample of the leaf in its shape."""
+    out = []
+    keep, _ = layout.keep(rate)
+    for seg, shape, k_i in zip(layout.segments(za), layout.shapes, keep, strict=True):
+        if selector == "exact":
+            out.append(exact_threshold(seg, k_i))
+        elif selector == "sampled":
+            sample = strided_sample_nd(seg.reshape(seg.shape[0], *shape))
+            out.append(exact_threshold(sample, num_keep(sample.shape[1], rate)))
+        else:
+            raise ValueError(f"unknown selector {selector!r}")
+    return torch.stack(out, dim=1)
+
+
+def segment_topk_mask(z: torch.Tensor, layout, rate: float, selector: str = "exact"):
+    """Every (client, leaf) segment's threshold of ``|z|`` and the {0,1}
+    float32 mask keeping ~``rate`` of its largest -> (thr ``[k, L]``, mask
+    ``[k, N]``). With the exact selector this is the plain version of
+    ``gmf_select``'s |z| mode."""
+    za = torch.abs(z).float()
+    thr = segment_thresholds(za, layout, rate, selector)
+    return thr, (za >= layout.expand(thr)).float()

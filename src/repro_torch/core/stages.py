@@ -14,10 +14,14 @@ star round:
                  their identity stages only (``float32``, ``none``,
                  ``none``, ``none``, ``fixed``).
 
-The client axis is explicit: every state, gradient and payload leaf is a
-``[k, ...]`` stack, and per-client scalars (norms, thresholds, τ) are
-``[k]`` device tensors, so one kernel launch per leaf covers all k clients.
-The broadcast ``gbar_prev`` has no client axis and is shared by all rows.
+The client axis is explicit and the state is flat (``utils/flat.py``):
+every state, gradient and payload is one client-major ``[k, N]`` stack of
+the params' leaves, the broadcast ``gbar_prev`` one ``[N]`` vector shared
+by all rows. Elementwise steps are one op over the stack; the per-leaf
+steps (norms, top-k) take the layout (``StageCtx.layout``) and work per
+(client, leaf) segment. Per-client scalars (τ, w) are ``[k]`` device
+tensors and per-segment ones (norms, thresholds) ``[k, L]``, so each
+compression kernel launches once a round for all clients and leaves.
 
 Stage names the reference registers but this package has not ported yet
 raise ``NotImplementedError`` naming their ROADMAP item.
@@ -32,7 +36,7 @@ import torch
 from repro_torch.core import fusion as fusion_math
 from repro_torch.core import sparsify
 from repro_torch.core.state import ClientState
-from repro_torch.utils import scalar, tree_leaves, tree_map, tree_multimap, tree_unflatten
+from repro_torch.utils import scalar, tree_map
 
 STAGE_KINDS = ("selector", "compensator", "fusion", "wire", "rotation",
                "downlink", "staleness", "rate_control")
@@ -105,6 +109,7 @@ class StageCtx(NamedTuple):
     local_steps: Any
     mean_steps: Any
     tau_override: Any
+    layout: Any  # the FlatLayout of the [k, N] stacks
 
 
 def elementwise_ops(cfg):
@@ -124,10 +129,6 @@ def effective_tau(cfg, round_idx, device) -> torch.Tensor:
     return scalar(cfg.tau, device)
 
 
-def _device(tree):
-    return tree_leaves(tree)[0].device
-
-
 # ---------------------------------------------------------------------------
 # Selectors
 # ---------------------------------------------------------------------------
@@ -138,7 +139,7 @@ class Selector:
     dense = False
     description = ""
 
-    def select(self, cfg, ref_tree, round_idx):
+    def select(self, cfg, ref, round_idx, layout):
         raise NotImplementedError
 
 
@@ -148,11 +149,14 @@ class TopKSelector(Selector):
                    "estimator from cfg.selector (exact | sampled), per-tensor "
                    "or global via cfg.per_tensor")
 
-    def select(self, cfg, scores, round_idx):
-        if cfg.per_tensor:
-            return tree_map(lambda z: sparsify.topk_mask(z, cfg.rate, cfg.selector), scores)
-        masks = sparsify.global_topk_masks(tree_leaves(scores), cfg.rate)
-        return tree_unflatten(scores, masks)
+    def select(self, cfg, scores, round_idx, layout):
+        if not cfg.per_tensor:  # one exact threshold per client over all leaves
+            return sparsify.topk_mask(scores, cfg.rate, "exact")
+        if cfg.selector == "exact":
+            from repro_torch.kernels import ops
+
+            return ops.topk_abs_select(scores, layout, cfg.rate)[1]
+        return sparsify.segment_topk_mask(scores, layout, cfg.rate, cfg.selector)[1]
 
 
 @register("selector", "dense")
@@ -161,7 +165,7 @@ class DenseSelector(Selector):
     dense = True
     description = "no sparsification — every entry is transmitted"
 
-    def select(self, cfg, value, round_idx):
+    def select(self, cfg, value, round_idx, layout):
         return None
 
 
@@ -301,48 +305,52 @@ class GlobalMomentumFusion(Fusion):
         return tau, w
 
     def scores(self, cfg, value, m, ctx: StageCtx):
-        m = tree_map(lambda mm, gb: cfg.beta * mm + gb, m, ctx.gbar_prev)
-        tau, w = self._tau_w(cfg, ctx, _device(value))
-
-        def score(vv, mm):
-            t = fusion_math.rows(tau, vv)
-            return torch.abs((1.0 - t) * fusion_math.rows(w, vv)
-                             * fusion_math.l2_normalize(vv, cfg.eps)
-                             + t * fusion_math.l2_normalize(mm, cfg.eps))
-
-        return tree_map(score, value, m), m
+        m = cfg.beta * m + ctx.gbar_prev
+        tau, w = self._tau_w(cfg, ctx, value.device)
+        t = fusion_math.rows(tau, value)
+        normalize = lambda x: fusion_math.segment_l2_normalize(x, ctx.layout, cfg.eps)
+        return torch.abs((1.0 - t) * fusion_math.rows(w, value) * normalize(value)
+                         + t * normalize(m)), m
 
     def fused_compress(self, cfg, u, v, m, ctx: StageCtx):
-        """Score + mask + extract through the fused kernel: the per-client
-        norms and top-k threshold of each leaf are computed here, then one
-        pass produces (G, U', V', mask). Returns (g, u, v, m, masks).
+        """Score + mask + extract through the fused kernel over the flat
+        ``[k, N]`` stacks: ``ops.gmf_select`` gives every (client, leaf)
+        segment's inverse norms and exact top-k threshold ``[k, L]`` (one
+        launch on the card), then one pass produces (G, U', V', mask).
+        Returns (g, u, v, m, masks).
 
         Equivalent to ``scores`` + top-k + ``extract`` up to reciprocal vs
         division rounding in the normalisation (boundary ties in the mask
-        can differ); selected only under ``use_kernels``."""
-        from repro_torch.kernels import ops, ref
+        can differ); selected only under ``use_kernels``. The sampled
+        selector replaces the thresholds by its per-leaf estimates."""
+        from repro_torch.kernels import ops
 
-        m = tree_map(lambda mm, gb: cfg.beta * mm + gb, m, ctx.gbar_prev)
-        tau, w = self._tau_w(cfg, ctx, _device(v))
-
-        def leaf(u_, v_, m_):
-            k = v_.shape[0]
-            tau_k = tau.expand(k).contiguous()
-            # w folds into V's inverse norm: (1−τ)·w·N(V) = (1−τ)·V·(w/‖V‖)
-            inv_nv = (w / (fusion_math.row_l2_norm(v_) + cfg.eps)).expand(k).contiguous()
-            inv_nm = 1.0 / (fusion_math.row_l2_norm(m_) + cfg.eps)
-            if cfg.selector == "exact":
-                vs, ms = v_.reshape(k, -1), m_.reshape(k, -1)
-            else:
-                vs, ms = sparsify.strided_sample_nd(v_), sparsify.strided_sample_nd(m_)
-            zs = ref.gmf_fusion_score(vs, ms, inv_norm_v=inv_nv, inv_norm_m=inv_nm,
-                                      tau=tau_k)
-            thr = sparsify.exact_threshold(zs, sparsify.num_keep(zs.shape[1], cfg.rate))
-            return ops.gmf_compress(u_, v_, m_, inv_norm_v=inv_nv, inv_norm_m=inv_nm,
-                                    tau=tau_k, threshold=thr.contiguous())
-
-        g, u, v, masks = tree_multimap(leaf, 4, u, v, m)
+        m = cfg.beta * m + ctx.gbar_prev
+        k = v.shape[0]
+        tau, w = (x.expand(k).contiguous() for x in self._tau_w(cfg, ctx, v.device))
+        # w folds into V's inverse norm: (1−τ)·w·N(V) = (1−τ)·V·(w/‖V‖)
+        inv_nv, inv_nm, thr = ops.gmf_select(v, m, ctx.layout, cfg.rate, w=w, tau=tau,
+                                             eps=cfg.eps)
+        if cfg.selector != "exact":
+            thr = self._sampled_thresholds(cfg, v, m, inv_nv, inv_nm, tau, ctx.layout)
+        g, u, v, masks = ops.gmf_compress(u, v, m, layout=ctx.layout, inv_norm_v=inv_nv,
+                                          inv_norm_m=inv_nm, tau=tau, threshold=thr)
         return g, u, v, m, masks
+
+    @staticmethod
+    def _sampled_thresholds(cfg, v, m, inv_nv, inv_nm, tau, layout):
+        """DGC's sampled estimate of every segment's threshold: the score of
+        a strided sample of the leaf (in its shape) -> ``[k, L]``."""
+        from repro_torch.kernels import ref
+
+        out = []
+        for i, (vs, ms, shape) in enumerate(zip(layout.segments(v), layout.segments(m),
+                                                layout.shapes, strict=True)):
+            sample = lambda x: sparsify.strided_sample_nd(x.reshape(x.shape[0], *shape))
+            zs = ref.gmf_fusion_score(sample(vs), sample(ms), inv_norm_v=inv_nv[:, i],
+                                      inv_norm_m=inv_nm[:, i], tau=tau)
+            out.append(sparsify.exact_threshold(zs, sparsify.num_keep(zs.shape[1], cfg.rate)))
+        return torch.stack(out, dim=1)
 
 
 # ---------------------------------------------------------------------------

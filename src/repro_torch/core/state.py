@@ -8,8 +8,11 @@ Fields (paper Algorithm 1):
 Schemes that don't use a field keep it as an empty dict, as in the JAX
 package, so the state structure is the same for every scheme.
 
-The round engine holds the states of ALL clients as one stack: every leaf
-has a leading client axis ``[K, ...]``.
+Each field is flat (``utils/flat.py``): one float32 ``[N]`` tensor for one
+client, the params tree's leaves one after the other in ``tree_leaves``
+order. The round engine holds the states of ALL clients as one
+client-major ``[K, N]`` stack, so each (client, leaf) segment is
+contiguous, and the sampled clients' rows move in one op per field.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.utils import tree_map, tree_zeros_like
+from repro_torch.utils import tree_leaves, tree_map, tree_size
 
 
 class ClientState(NamedTuple):
@@ -28,23 +31,29 @@ class ClientState(NamedTuple):
 
 
 class ServerState(NamedTuple):
-    momentum: Any        # server-side global momentum (DGCwGM only)
+    momentum: Any        # server-side global momentum, flat [N] (DGCwGM only)
     residual: Any        # downlink error-feedback accumulator (not ported: always {})
 
 
+def _flat_zeros(params):
+    """Float32 zeros of the params' flat size, on their device."""
+    device = tree_leaves(params)[0].device
+    return torch.zeros(tree_size(params), dtype=torch.float32, device=device)
+
+
 def init_client_state(params, *, use_u: bool, use_v: bool, use_m: bool) -> ClientState:
-    zeros = lambda flag: tree_zeros_like(params) if flag else {}
+    zeros = lambda flag: _flat_zeros(params) if flag else {}
     return ClientState(u=zeros(use_u), v=zeros(use_v), m=zeros(use_m))
 
 
 def init_server_state(params, *, use_momentum: bool,
                       use_residual: bool = False) -> ServerState:
-    zeros = lambda flag: tree_zeros_like(params) if flag else {}
+    zeros = lambda flag: _flat_zeros(params) if flag else {}
     return ServerState(momentum=zeros(use_momentum), residual=zeros(use_residual))
 
 
 def stack_client_states(state: ClientState, num_clients: int) -> ClientState:
-    """One client's state copied to a ``[K, ...]`` stack over all clients.
+    """One client's ``[N]`` state copied to a ``[K, N]`` stack over all clients.
 
     The JAX reference is a ``broadcast_to``; here that would be an expanded
     view whose rows share storage, and the in-place scatter below would
@@ -55,13 +64,15 @@ def stack_client_states(state: ClientState, num_clients: int) -> ClientState:
 
 
 def gather_client_states(cstates: ClientState, client_idx: torch.Tensor) -> ClientState:
-    """Select the sampled clients' rows (``[K, ...] -> [k, ...]``)."""
+    """Select the sampled clients' rows (``[K, N] -> [k, N]``): one
+    ``index_select`` per field."""
     return tree_map(lambda x: x.index_select(0, client_idx), cstates)
 
 
 def scatter_client_states(cstates: ClientState, client_idx: torch.Tensor,
                           updated: ClientState) -> ClientState:
-    """Write the sampled clients' updated rows back into the full stack.
+    """Write the sampled clients' updated rows back into the full stack, one
+    ``index_copy_`` per field.
 
     Unlike the JAX reference (a functional ``.at[].set``) this writes in
     place, so the round holds one copy of the ``[K, ...]`` stack; the

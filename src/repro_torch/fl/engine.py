@@ -15,10 +15,15 @@ Round function signature (the JAX package's, eager here):
           union_nnz)
 
 Client gradients are ``torch.func.vmap`` of ``torch.func.grad`` over the
-client axis. The compression then runs on the ``[k, ...]`` stacks with the
-client axis written out (``Scheme.client_compress``), so each compression
-kernel launches once per leaf for all k clients. Nothing in the round
-reads a device value on the host; the counts come back as device tensors.
+client axis; their tree is flattened with one ``torch.cat`` into a
+``[k, N]`` stack of the params' ``FlatLayout`` (``utils/flat.py``), the
+layout of the compression state. The compression then runs on the flat
+stacks with the client axis written out (``Scheme.client_compress``), so
+each compression kernel launches once a round for all k clients and all
+leaves; the sampled clients' states move with one op per field; the
+payloads are summed with one ``sum(0)`` into the ``[N]`` broadcast, which
+updates the params through views. Nothing in the round reads a device
+value on the host; the counts come back as device tensors.
 """
 
 from __future__ import annotations
@@ -45,12 +50,13 @@ class RoundEngine:
 
     name = "base"
 
-    def __init__(self, fl_cfg, comp_cfg, loss_fn: Callable, sampled_per_round: int):
+    def __init__(self, fl_cfg, comp_cfg, loss_fn: Callable, sampled_per_round: int, layout):
         self.fl = fl_cfg
         self.comp = comp_cfg
         self.scheme = resolve(comp_cfg)
         self.loss_fn = loss_fn
         self.sampled_per_round = sampled_per_round
+        self.layout = layout  # the params' FlatLayout
         self.round_fn = self._build()
 
     def _grads(self, params, batches):
@@ -59,18 +65,20 @@ class RoundEngine:
         return torch.func.vmap(grad_fn, in_dims=(None, 0))(params, batches)
 
     def _compress_stack(self, states, grads, gbar_prev, round_idx, tau_now):
-        """``client_compress`` over the whole ``[k, ...]`` stack at once."""
+        """``client_compress`` over the whole ``[k, N]`` stack at once."""
         tau_kw = {"tau_override": tau_now} if self.fl.adaptive_tau else {}
-        return self.scheme.client_compress(states, grads, gbar_prev, round_idx, **tau_kw)
+        return self.scheme.client_compress(states, grads, gbar_prev, round_idx,
+                                           layout=self.layout, **tau_kw)
 
     def _client_update(self, params, states, batches, gbar_prev, round_idx, tau_now):
-        grads = self._grads(params, batches)
+        grads = self.layout.flatten(self._grads(params, batches))
         return self._compress_stack(states, grads, gbar_prev, round_idx, tau_now)
 
     def _server_update(self, params, sstate, g_sum, lr):
         bcast, sstate, ainfo = self.scheme.server_aggregate(
             sstate, g_sum, float(self.sampled_per_round))
-        params = tree_map(lambda w, g: w - lr * g.to(w.dtype), params, bcast)
+        params = tree_map(lambda w, g: w - lr * g.to(w.dtype), params,
+                          self.layout.unflatten(bcast))
         return params, sstate, bcast, ainfo
 
     def _build(self):
@@ -90,7 +98,7 @@ class VmapEngine(RoundEngine):
             G, new_states, infos = self._client_update(
                 params, sampled, batches, gbar_prev, round_idx, tau_now)
             cstates = scatter_client_states(cstates, client_idx, new_states)
-            g_sum = tree_map(lambda x: torch.sum(x, dim=0), G)
+            g_sum = torch.sum(G, dim=0)
             params, sstate, bcast, ainfo = self._server_update(params, sstate, g_sum, lr)
             return (params, cstates, sstate, bcast, infos.upload_nnz,
                     ainfo.download_nnz, ainfo.union_nnz)
@@ -98,13 +106,14 @@ class VmapEngine(RoundEngine):
         return round_fn
 
 
-def make_engine(fl_cfg, comp_cfg, loss_fn, sampled_per_round) -> RoundEngine:
-    """Factory keyed on ``fl_cfg.backend`` and ``fl_cfg.topology``."""
+def make_engine(fl_cfg, comp_cfg, loss_fn, sampled_per_round, layout) -> RoundEngine:
+    """Factory keyed on ``fl_cfg.backend`` and ``fl_cfg.topology``;
+    ``layout`` is the params' ``FlatLayout``."""
     if fl_cfg.topology != "star" or fl_cfg.backend != "vmap":
         raise NotImplementedError(
             f"backend={fl_cfg.backend!r} topology={fl_cfg.topology!r} is not ported "
             f"yet (only vmap on a star): {ENGINES}")
-    return VmapEngine(fl_cfg, comp_cfg, loss_fn, sampled_per_round)
+    return VmapEngine(fl_cfg, comp_cfg, loss_fn, sampled_per_round, layout)
 
 
 __all__ = ["BACKENDS", "TOPOLOGIES", "RoundEngine", "VmapEngine", "make_engine"]

@@ -8,7 +8,10 @@ call), the ``CommLedger``, the learning-rate decay and the adaptive-τ
 controller. The per-round counts are read from the device once per round.
 
 Partial participation: sampled clients' states are gathered, compressed
-and scattered back; non-participants keep V/U/M untouched.
+and scattered back; non-participants keep V/U/M untouched. The states are
+flat ``[K, N]`` stacks and the last broadcast ``gbar_prev`` a flat ``[N]``
+vector, both of the params' ``FlatLayout`` (``utils/flat.py``); the params
+stay a tree.
 """
 
 from __future__ import annotations
@@ -24,14 +27,8 @@ from repro_torch.core import CommLedger, CompressionConfig, init_states
 from repro_torch.core import adaptive, stack_client_states
 from repro_torch.core.stages import ENGINES
 from repro_torch.fl.engine import BACKENDS, TOPOLOGIES, make_engine
-from repro_torch.utils import (
-    resolve_device,
-    scalar,
-    to_device,
-    tree_map,
-    tree_size,
-    tree_zeros_like,
-)
+from repro_torch.utils import resolve_device, scalar, to_device, tree_map
+from repro_torch.utils.flat import FlatLayout
 
 
 @dataclasses.dataclass
@@ -108,16 +105,17 @@ class FLSimulator:
         self.eval_fn = eval_fn
         gen = torch.Generator().manual_seed(fl_cfg.seed)
         self.params = tree_map(lambda x: x.to(self.device), init_fn(gen))
-        self.total_params = tree_size(self.params)
+        self.layout = FlatLayout.of(self.params)
+        self.total_params = self.layout.total
         k = fl_cfg.clients_per_round or fl_cfg.num_clients
         self.sampled_per_round = k
         # Per-client compression state, stacked over ALL clients.
         cstate1, self.sstate = init_states(comp_cfg, self.params)
         self.cstates = stack_client_states(cstate1, fl_cfg.num_clients)
-        self.gbar_prev = tree_zeros_like(self.params)
+        self.gbar_prev = self.layout.zeros()
         self.history: list[dict] = []
         self.tau_ctl = adaptive.init(comp_cfg.tau if not fl_cfg.adaptive_tau else 0.0)
-        self.engine = make_engine(fl_cfg, comp_cfg, loss_fn, k)
+        self.engine = make_engine(fl_cfg, comp_cfg, loss_fn, k, self.layout)
         self.ledger = CommLedger(self.engine.scheme.cost_model())
         self._round_fn = self.engine.round_fn
         self._rng = np.random.default_rng(fl_cfg.seed + 1)

@@ -1,58 +1,84 @@
 // Hand-written Hopper (sm_90a) kernels for the compression hot path.
 //
 // They replace the three Pallas TPU kernels of the JAX package's
-// src/repro/kernels/gmf_compress.py:
+// src/repro/kernels/gmf_compress.py, plus the glue that fed the first:
 //
 //   gmf_momentum_multi <- momentum_correction_flat / _momentum_kernel
 //                    U <- alpha*U + g ; V <- V + U, over every leaf of a tree
 //                    in one launch; reads u, v, g, writes u', v': 20 bytes
 //                    per element
-//   gmf_compress  <- gmf_compress_flat / _gmf_kernel
-//                    z = |((1-tau)*V)*inv_nv + (tau*M)*inv_nm| ; mask = z >= thr
+//   gmf_select     <- the per-leaf norms, fusion score and torch.topk that fed
+//                    gmf_compress_flat: per (client, leaf) segment, ||V||,
+//                    ||M||, z = |((1-tau)*V)*inv_nv + (tau*M)*inv_nm| and the
+//                    exact k-th largest z; reads v, m: 8 bytes per element
+//   gmf_select_abs <- the per-leaf torch.topk of |V| (DGC's top-k mask): the
+//                    exact k-th largest |z| of each segment and the mask;
+//                    reads z, writes the mask: 8 bytes per element
+//   gmf_compress   <- gmf_compress_flat / _gmf_kernel
+//                    z as above ; mask = z >= thr
 //                    G = V*mask ; U <- U*(1-mask) ; V <- V*(1-mask) ; emits mask
 //                    reads u, v, m, writes g, u', v', mask: 28 bytes per element
 //   gmf_apply_mask <- apply_mask_flat / _mask_kernel
 //                    G = V*mask ; U <- U*(1-mask) ; V <- V*(1-mask)
 //                    reads u, v, mask, writes g, u', v': 24 bytes per element
 //
-// Bound: each does a handful of float operations per element against 20 to
-// 28 bytes of traffic, far below the card's operations-per-byte balance, so
-// all three are bound by device-memory bandwidth. At ResNet-56 with 20
-// clients one round moves 342 MB (momentum), 479 MB (compress) and 411 MB
-// (apply_mask). The design streams every byte exactly once: each thread
-// moves one 16-byte float4 per operand with neighbouring threads on
-// neighbouring addresses, with a grid-stride loop. The TPU version padded
-// to (512, 128) blocks; here the ragged end is a scalar tail inside the
-// kernel and nothing is padded. Operands whose addresses are not 16-byte
-// aligned take the scalar loop for every element.
+// Layout: the compression state is flat. A params tree of L leaves becomes
+// N = sum(n_i) columns, leaf i at [o_i, o_i + n_i), with no padding, and
+// every operand is a client-major [rows, N] float32 stack, contiguous, so
+// each (client, leaf) segment is contiguous. Per-segment scalars (inverse
+// norms, thresholds) are [rows, L] arrays, row-major; tau and the FedNova
+// weight w are [rows]; the offsets o_0..o_L and the keep counts k_i are
+// int64 device arrays made once per layout. Every kernel takes a whole
+// round's stacks in one launch.
 //
-// K2 is one multi-tensor launch per tree. The Pallas kernel runs once per
-// leaf; on the card a launch per leaf costs tens of microseconds of host
-// time against about a microsecond of work (ResNet-56 has 169 leaves), so
-// gmf_momentum_multi takes a table of leaves -- five pointers, an element
-// count, the leaf's first block and whether all five pointers are 16-byte
-// aligned -- by value as a __grid_constant__ parameter: no host-to-device
-// copy, no sync, capturable by a CUDA graph. Each block takes kChunk
-// elements of one leaf and finds its leaf by a binary search over the
+// Bound: each does a handful of float operations per element against 8 to
+// 28 bytes of traffic, far below the card's operations-per-byte balance, so
+// all are bound by device-memory bandwidth. At ResNet-56 with 20 clients
+// (17.1 M elements) one round moves 342 MB (momentum), 137 MB (select),
+// 479 MB (compress) and 411 MB (apply_mask).
+//
+// The elementwise kernels stream every byte once: each thread moves one
+// 16-byte float4 per operand with neighbouring threads on neighbouring
+// addresses. The TPU version padded to (512, 128) blocks; here the ragged
+// end is a scalar tail and nothing is padded. Operands whose addresses are
+// not 16-byte aligned take the scalar loop for every element. gmf_compress
+// takes kChunk elements a block: each thread finds the (row, leaf) of its
+// first element by a binary search of the offsets (held in shared memory)
+// and walks forward from there; a quad that straddles a segment boundary
+// takes each element's own scalars.
+//
+// gmf_select runs one block per (client, leaf) segment. The block sums the
+// squares of V and M in a fixed order (strided per-thread partials in
+// float64, then a fixed shuffle tree; no atomics, so every run gives the
+// same bits),
+// forms inv_nv = w / (sqrt(||V||^2) + eps) and inv_nm = 1 / (sqrt(||M||^2)
+// + eps) correctly rounded, and finds the k_i-th largest z by a radix
+// select on the float's bits: z >= 0, so its bits order as its values.
+// Three passes of 11, 11 and 10 bits each count the candidates that match
+// the digits found so far in a 2,048-bin shared-memory histogram (the lanes
+// of a warp that hit one bin add once, __match_any_sync), and a block scan
+// from the top bin finds the bin that holds the k-th largest. z is
+// recomputed from V and M in each pass: the segment's reads after the
+// first come from L2. The k-th largest value of a multiset does not depend
+// on the algorithm, so the threshold is bitwise torch.topk's on the same z.
+//
+// K2 is one multi-tensor launch per tree (a tree of one [rows, N] leaf on
+// the path): gmf_momentum_multi takes a table of leaves -- five pointers,
+// an element count, the leaf's first block and whether all five pointers
+// are 16-byte aligned -- by value as a __grid_constant__ parameter: no
+// host-to-device copy, no sync, capturable by a CUDA graph. Each block takes
+// kChunk elements of one leaf and finds its leaf by a binary search over the
 // table's first-block prefix. The table holds kTableCap leaves (512 where
 // the toolkit allows 32 KB of kernel parameters, CUDA 12.1 on; 64, under
 // 4 KB, before); gmf_momentum_limits reports that capacity and kChunk so
-// the Python side plans one launch per kTableCap leaves. On an NVIDIA H100
-// 80GB HBM3 at 700 W a ResNet-56 round's tree (169 leaves, 20 clients,
-// 342 MB) takes 0.12 ms on the card, 2.8 TB/s; the rest of a tree call is
-// host time (PERF.md).
+// the Python side plans one launch per kTableCap leaves.
 //
-// Layout: every operand is a [rows, n] float32 stack (one row per client),
-// contiguous. gmf_compress takes its four scalars per row as device
-// pointers ([rows] each), so a tau that changes every round never needs a
-// host sync or a rebuild. A thread finds its row with one division and
-// walks forward from there.
-//
-// Arithmetic: the fused path computes its top-k threshold from a z built
-// outside the kernel, in this exact association, so z here must be that z
-// bitwise. Every product and sum is an explicit round-to-nearest intrinsic
-// (no fused multiply-add), and the file is built with -fmad=false too.
-// Each function returns the cudaError_t of its launch (0 on success).
+// Arithmetic: gmf_compress's z must be bitwise the z gmf_select took its
+// threshold from, and both must be the plain version's z (kernels/ref.py):
+// every product and sum is an explicit round-to-nearest intrinsic (no fused
+// multiply-add), in the JAX package's association, and the file is built
+// with -fmad=false too. Each entry point returns the cudaError_t of its
+// launch (0 on success).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,15 +103,22 @@ __device__ __forceinline__ void mask_one(float u, float v, float mask,
   vo = __fmul_rn(v, keep);
 }
 
-__device__ __forceinline__ float gmf_mask(float v, float m, float tau, float inv_nv,
-                                          float inv_nm, float thr) {
+// z = |((1-tau)*v)*inv_nv + (tau*m)*inv_nm|, in the JAX package's association.
+__device__ __forceinline__ float gmf_score(float v, float m, float tau, float inv_nv,
+                                          float inv_nm) {
   const float a = __fmul_rn(__fmul_rn(__fsub_rn(1.0f, tau), v), inv_nv);
   const float b = __fmul_rn(__fmul_rn(tau, m), inv_nm);
-  const float z = fabsf(__fadd_rn(a, b));
-  return z >= thr ? 1.0f : 0.0f;
+  return fabsf(__fadd_rn(a, b));
+}
+
+__device__ __forceinline__ float gmf_mask(float v, float m, float tau, float inv_nv,
+                                          float inv_nm, float thr) {
+  return gmf_score(v, m, tau, inv_nv, inv_nm) >= thr ? 1.0f : 0.0f;
 }
 
 constexpr int kChunk = kThreads * 4 * 4;  // elements per block: 4 float4 a thread
+// gmf_compress holds the offsets in the default 48 KB of shared memory.
+constexpr int kMaxLeaves = 48 * 1024 / 8 - 1;
 #if CUDART_VERSION >= 12010
 constexpr int kTableCap = 512;  // 8 + 512 * 56 bytes: under 32 KB of parameters
 #else
@@ -195,71 +228,291 @@ __global__ void apply_mask_kernel(const float* __restrict__ u, const float* __re
   }
 }
 
-// Per-row scalars of element i, with the row found once and walked forward.
-struct RowScalars {
+// Per-segment scalars of flat element e of a [rows, n] stack: the (row,
+// leaf) found once by a binary search of the offsets and walked forward.
+struct SegScalars {
+  const long long* off;  // o_0..o_L in shared memory
   const float* tau;
   const float* inv_nv;
   const float* inv_nm;
   const float* thr;
+  int leaves;
   int64_t n;
   int64_t row;
-  int64_t end;  // first element past the current row
+  int leaf;
+  int64_t end;  // first flat element past the current segment
   float t, a, b, c;
 
   __device__ __forceinline__ void load() {
+    const int64_t s = row * leaves + leaf;
     t = tau[row];
-    a = inv_nv[row];
-    b = inv_nm[row];
-    c = thr[row];
+    a = inv_nv[s];
+    b = inv_nm[s];
+    c = thr[s];
   }
-  __device__ __forceinline__ void seek(int64_t i) {
-    row = i / n;
-    end = (row + 1) * n;
+  __device__ __forceinline__ void seek(int64_t e) {
+    row = e / n;
+    const long long col = e - row * n;
+    int lo = 0, hi = leaves - 1;  // the last leaf whose offset is <= col
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= col) lo = mid; else hi = mid - 1;
+    }
+    leaf = lo;
+    end = row * n + off[leaf + 1];
     load();
   }
-  __device__ __forceinline__ float mask(int64_t i, float v, float m) {
-    if (i >= end) seek(i);
+  __device__ __forceinline__ float mask(int64_t e, float v, float m) {
+    if (e >= end) {
+      do {
+        if (++leaf == leaves) {
+          leaf = 0;
+          ++row;
+        }
+        end = row * n + off[leaf + 1];
+      } while (e >= end);
+      load();
+    }
     return gmf_mask(v, m, t, a, b, c);
   }
 };
 
-__global__ void gmf_compress_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                                    const float* __restrict__ m,
-                                    const float* __restrict__ inv_nv,
-                                    const float* __restrict__ inv_nm,
-                                    const float* __restrict__ thr,
-                                    const float* __restrict__ tau, float* __restrict__ go,
-                                    float* __restrict__ uo, float* __restrict__ vo,
-                                    float* __restrict__ mo, int64_t total, int64_t n,
-                                    int vec) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t nvec = vec ? total / 4 : 0;
-  RowScalars s{tau, inv_nv, inv_nm, thr, n, 0, 0};
-  for (int64_t q = tid; q < nvec; q += stride) {
-    const int64_t i = 4 * q;
-    const float4 a = reinterpret_cast<const float4*>(u)[q];
-    const float4 b = reinterpret_cast<const float4*>(v)[q];
-    const float4 c = reinterpret_cast<const float4*>(m)[q];
-    float4 mk;
-    mk.x = s.mask(i, b.x, c.x);
-    mk.y = s.mask(i + 1, b.y, c.y);
-    mk.z = s.mask(i + 2, b.z, c.z);
-    mk.w = s.mask(i + 3, b.w, c.w);
-    float4 x, y, z;
-    mask_one(a.x, b.x, mk.x, x.x, y.x, z.x);
-    mask_one(a.y, b.y, mk.y, x.y, y.y, z.y);
-    mask_one(a.z, b.z, mk.z, x.z, y.z, z.z);
-    mask_one(a.w, b.w, mk.w, x.w, y.w, z.w);
-    reinterpret_cast<float4*>(go)[q] = x;
-    reinterpret_cast<float4*>(uo)[q] = y;
-    reinterpret_cast<float4*>(vo)[q] = z;
-    reinterpret_cast<float4*>(mo)[q] = mk;
+__global__ void __launch_bounds__(kThreads)
+gmf_compress_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                    const float* __restrict__ m, const float* __restrict__ inv_nv,
+                    const float* __restrict__ inv_nm, const float* __restrict__ thr,
+                    const float* __restrict__ tau, const long long* __restrict__ offsets,
+                    int leaves, int64_t n, float* __restrict__ go, float* __restrict__ uo,
+                    float* __restrict__ vo, float* __restrict__ mo, int64_t total, int vec) {
+  extern __shared__ long long s_off[];
+  for (int i = threadIdx.x; i <= leaves; i += kThreads) s_off[i] = offsets[i];
+  __syncthreads();
+  const int64_t begin = (int64_t)blockIdx.x * kChunk;
+  const int64_t end = begin + kChunk < total ? begin + kChunk : total;
+  SegScalars s{s_off, tau, inv_nv, inv_nm, thr, leaves, n};
+  int64_t i = begin + threadIdx.x;
+  if (vec) {  // kChunk is a multiple of 4: the float4 quads of [begin, end)
+    const int64_t qend = end / 4;
+    int64_t q = begin / 4 + threadIdx.x;
+    if (q < qend) s.seek(4 * q);
+    for (; q < qend; q += kThreads) {
+      const int64_t e = 4 * q;
+      const float4 a = reinterpret_cast<const float4*>(u)[q];
+      const float4 b = reinterpret_cast<const float4*>(v)[q];
+      const float4 c = reinterpret_cast<const float4*>(m)[q];
+      float4 mk;
+      mk.x = s.mask(e, b.x, c.x);
+      mk.y = s.mask(e + 1, b.y, c.y);
+      mk.z = s.mask(e + 2, b.z, c.z);
+      mk.w = s.mask(e + 3, b.w, c.w);
+      float4 x, y, z;
+      mask_one(a.x, b.x, mk.x, x.x, y.x, z.x);
+      mask_one(a.y, b.y, mk.y, x.y, y.y, z.y);
+      mask_one(a.z, b.z, mk.z, x.z, y.z, z.z);
+      mask_one(a.w, b.w, mk.w, x.w, y.w, z.w);
+      reinterpret_cast<float4*>(go)[q] = x;
+      reinterpret_cast<float4*>(uo)[q] = y;
+      reinterpret_cast<float4*>(vo)[q] = z;
+      reinterpret_cast<float4*>(mo)[q] = mk;
+    }
+    i = qend * 4 + threadIdx.x;  // the ragged end of the last block
   }
-  for (int64_t i = nvec * 4 + tid; i < total; i += stride) {
+  if (i < end) s.seek(i);
+  for (; i < end; i += kThreads) {
     const float mk = s.mask(i, v[i], m[i]);
     mo[i] = mk;
     mask_one(u[i], v[i], mk, go[i], uo[i], vo[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gmf_select: norms and exact top-k thresholds, one block per segment
+// ---------------------------------------------------------------------------
+
+constexpr int kSelThreads = 256;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kBins = 2048;  // 11-bit digits
+constexpr int kBinsPerThread = kBins / kSelThreads;
+// Elements a thread loads before it counts them: a segment of 36,864 takes
+// 144 elements a thread, and a loop that waits for each load in turn is
+// bound by the latency of the largest segment's block, not by bytes.
+constexpr int kSelUnroll = 4;
+
+// The sum of x over the block, in a fixed order: a shuffle tree in each warp,
+// then one over the warps' sums. Every thread gets the result.
+__device__ __forceinline__ double block_sum(double x, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = __dadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    x = lane < kSelWarps ? red[lane] : 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = __dadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+    if (lane == 0) red[kSelWarps] = x;
+  }
+  __syncthreads();
+  return red[kSelWarps];
+}
+
+struct Select {
+  unsigned* hist;   // kBins
+  unsigned* warps;  // kSelWarps + 2: warp totals, then the bin and rank found
+};
+
+// One radix pass: counts the candidates (bits & pmask) == prefix by their
+// digit (bits >> shift) & dmask, and returns the digit of the bin holding
+// the rank-th largest candidate; rank becomes its rank inside that bin.
+template <class Bits>
+__device__ unsigned radix_pass(const Select& sel, int64_t n, Bits bits_of, unsigned prefix,
+                               unsigned pmask, int shift, unsigned dmask, unsigned& rank) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kBins; i += kSelThreads) sel.hist[i] = 0;
+  __syncthreads();
+  // j0 is the same in all lanes of a warp, so the warp stays whole for
+  // __match_any_sync; element j0 + q * kSelThreads + lane is counted once
+  for (int64_t j0 = (int64_t)warp * 32; j0 < n; j0 += kSelThreads * kSelUnroll) {
+    unsigned bits[kSelUnroll];
+#pragma unroll
+    for (int q = 0; q < kSelUnroll; ++q) {
+      const int64_t j = j0 + q * kSelThreads + lane;
+      bits[q] = j < n ? bits_of(j) : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < kSelUnroll; ++q) {
+      const bool hit = j0 + q * kSelThreads + lane < n && (bits[q] & pmask) == prefix;
+      const unsigned d = (bits[q] >> shift) & dmask;
+      const unsigned peers = __match_any_sync(0xffffffffu, hit ? d : 0xffffffffu);
+      if (hit && lane == __ffs(peers) - 1) atomicAdd(&sel.hist[d], (unsigned)__popc(peers));
+    }
+  }
+  __syncthreads();
+  // thread t owns kBinsPerThread bins, thread 0 the top ones
+  const int top = kBins - kBinsPerThread * threadIdx.x;
+  unsigned own = 0;
+#pragma unroll
+  for (int i = 1; i <= kBinsPerThread; ++i) own += sel.hist[top - i];
+  unsigned incl = own;  // inclusive scan over the threads, in order
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sel.warps[warp] = incl;
+  __syncthreads();
+  unsigned above = incl - own;
+  for (int w = 0; w < warp; ++w) above += sel.warps[w];
+  if (above < rank && rank <= above + own) {
+    unsigned acc = above;
+    for (int i = 1; i <= kBinsPerThread; ++i) {
+      const unsigned c = sel.hist[top - i];
+      if (acc + c >= rank) {
+        sel.warps[kSelWarps] = top - i;
+        sel.warps[kSelWarps + 1] = rank - acc;
+        break;
+      }
+      acc += c;
+    }
+  }
+  __syncthreads();
+  const unsigned digit = sel.warps[kSelWarps];
+  rank = sel.warps[kSelWarps + 1];
+  __syncthreads();  // the next pass clears hist and writes warps again
+  return digit;
+}
+
+// The bits of the rank-th largest of n scores (bits_of(j) is score j's
+// float bits, a non-negative float): three passes of 11, 11 and 10 bits.
+template <class Bits>
+__device__ unsigned radix_select(const Select& sel, int64_t n, Bits bits_of, unsigned rank) {
+  unsigned prefix = 0, pmask = 0;
+  const int shifts[3] = {21, 10, 0};
+  const unsigned widths[3] = {0x7ffu, 0x7ffu, 0x3ffu};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const unsigned d = radix_pass(sel, n, bits_of, prefix, pmask, shifts[p], widths[p], rank);
+    prefix |= d << shifts[p];
+    pmask |= widths[p] << shifts[p];
+  }
+  return prefix;
+}
+
+template <bool ABS>
+__global__ void __launch_bounds__(kSelThreads)
+select_kernel(const float* __restrict__ v, const float* __restrict__ m,
+              const long long* __restrict__ offsets, const long long* __restrict__ keep,
+              const float* __restrict__ w, const float* __restrict__ tau, float eps,
+              int leaves, int64_t n, float* __restrict__ inv_nv_out,
+              float* __restrict__ inv_nm_out, float* __restrict__ thr_out,
+              float* __restrict__ mask_out) {
+  __shared__ unsigned hist[kBins];
+  __shared__ unsigned warps[kSelWarps + 2];
+  __shared__ double red[kSelWarps + 1];
+  const int64_t seg = blockIdx.x;  // row * leaves + leaf
+  const int64_t row = seg / leaves;
+  const int leaf = (int)(seg - row * leaves);
+  const int64_t lo = offsets[leaf];
+  const int64_t len = offsets[leaf + 1] - lo;
+  const float* vs = v + row * n + lo;
+  const float* ms = ABS ? nullptr : m + row * n + lo;
+  float t = 0.0f, a = 0.0f, b = 0.0f;
+  if (!ABS) {
+    // float32 squares summed in float64: a segment of 2^24 elements would
+    // lose ~1e-6 of its sum in float32 partials of 65,536 terms a thread
+    double sv = 0.0, sm = 0.0;
+    for (int64_t j0 = threadIdx.x; j0 < len; j0 += kSelThreads * kSelUnroll) {
+      float x[kSelUnroll], y[kSelUnroll];
+#pragma unroll
+      for (int q = 0; q < kSelUnroll; ++q) {
+        const int64_t j = j0 + q * kSelThreads;
+        x[q] = j < len ? vs[j] : 0.0f;
+        y[q] = j < len ? ms[j] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kSelUnroll; ++q) {
+        sv = __dadd_rn(sv, (double)__fmul_rn(x[q], x[q]));
+        sm = __dadd_rn(sm, (double)__fmul_rn(y[q], y[q]));
+      }
+    }
+    sv = block_sum(sv, red);
+    __syncthreads();  // red is read by every thread before it is written again
+    sm = block_sum(sm, red);
+    t = tau[row];
+    a = __fdiv_rn(w[row], __fadd_rn(__fsqrt_rn(__double2float_rn(sv)), eps));
+    b = __fdiv_rn(1.0f, __fadd_rn(__fsqrt_rn(__double2float_rn(sm)), eps));
+  }
+  if (len == 0) {  // no element: nothing to select
+    if (threadIdx.x == 0) {
+      thr_out[seg] = 0.0f;
+      if (!ABS) {
+        inv_nv_out[seg] = a;
+        inv_nm_out[seg] = b;
+      }
+    }
+    return;
+  }
+  const Select sel{hist, warps};
+  unsigned bits;
+  if (ABS) {
+    bits = radix_select(sel, len, [=](int64_t j) { return __float_as_uint(fabsf(vs[j])); },
+                        (unsigned)keep[leaf]);
+  } else {
+    bits = radix_select(sel, len, [=](int64_t j) {
+      return __float_as_uint(gmf_score(vs[j], ms[j], t, a, b));
+    }, (unsigned)keep[leaf]);
+  }
+  const float thr = __uint_as_float(bits);
+  if (threadIdx.x == 0) {
+    thr_out[seg] = thr;
+    if (!ABS) {
+      inv_nv_out[seg] = a;
+      inv_nm_out[seg] = b;
+    }
+  }
+  if (ABS) {
+    float* mk = mask_out + row * n + lo;
+    for (int64_t j = threadIdx.x; j < len; j += kSelThreads) mk[j] = fabsf(vs[j]) >= thr ? 1.0f : 0.0f;
   }
 }
 
@@ -301,12 +554,39 @@ int gmf_apply_mask(const float* u, const float* v, const float* mask, float* go,
   return (int)cudaGetLastError();
 }
 
+// Norms and thresholds of every (row, leaf) segment of v and m ([rows, n]
+// stacks over `leaves` leaves): writes inv_nv, inv_nm and thr, [rows, leaves]
+// each. offsets holds leaves + 1 int64, keep (the k_i) leaves.
+int gmf_select(const float* v, const float* m, const long long* offsets, const long long* keep,
+               const float* w, const float* tau, float eps, int leaves, long long rows,
+               long long n, float* inv_nv, float* inv_nm, float* thr, void* stream) {
+  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  select_kernel<false><<<(unsigned)(rows * leaves), kSelThreads, 0, (cudaStream_t)stream>>>(
+      v, m, offsets, keep, w, tau, eps, leaves, n, inv_nv, inv_nm, thr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The k_i-th largest |z| of every segment into thr ([rows, leaves]) and the
+// mask |z| >= thr into mask ([rows, n]).
+int gmf_select_abs(const float* z, const long long* offsets, const long long* keep, int leaves,
+                   long long rows, long long n, float* thr, float* mask, void* stream) {
+  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  select_kernel<true><<<(unsigned)(rows * leaves), kSelThreads, 0, (cudaStream_t)stream>>>(
+      z, nullptr, offsets, keep, nullptr, nullptr, 0.0f, leaves, n, nullptr, nullptr, thr, mask);
+  return (int)cudaGetLastError();
+}
+
+// The fused mask pass over [rows, n] stacks of `leaves` leaves, with the
+// [rows, leaves] scalars of gmf_select and tau [rows]; total = rows * n.
 int gmf_compress(const float* u, const float* v, const float* m, const float* inv_nv,
-                 const float* inv_nm, const float* thr, const float* tau, float* go,
-                 float* uo, float* vo, float* mo, long long total, long long n, int vec,
-                 void* stream) {
-  gmf_compress_kernel<<<blocks_for(total, vec), kThreads, 0, (cudaStream_t)stream>>>(
-      u, v, m, inv_nv, inv_nm, thr, tau, go, uo, vo, mo, total, n, vec);
+                 const float* inv_nm, const float* thr, const float* tau,
+                 const long long* offsets, int leaves, long long n, float* go, float* uo,
+                 float* vo, float* mo, long long total, int vec, void* stream) {
+  if (leaves < 1 || leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  const long long blocks = (total + kChunk - 1) / kChunk;
+  gmf_compress_kernel<<<(unsigned)blocks, kThreads, (leaves + 1) * sizeof(long long),
+                        (cudaStream_t)stream>>>(u, v, m, inv_nv, inv_nm, thr, tau, offsets,
+                                                leaves, n, go, uo, vo, mo, total, vec);
   return (int)cudaGetLastError();
 }
 

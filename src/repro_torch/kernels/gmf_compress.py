@@ -10,6 +10,16 @@ outputs with ``torch.empty``, launches on the current stream, raises if
 the launch failed, and adds one to its count in ``LAUNCHES``. There is no
 fallback: a tensor the kernel does not take raises.
 
+K1 and its glue take the flat compression state (``utils/flat.py``): a
+``[k, N]`` stack of L leaf segments, described by the layout's int64
+offsets ``[L + 1]`` and keep counts ``[L]`` on the device.
+``gmf_select_flat`` (one block per segment) gives each segment's inverse
+norms and exact top-k threshold, ``[k, L]`` each, and ``gmf_compress_flat``
+is the fused mask pass over the whole stack; ``topk_abs_select_flat`` is
+the same select on ``|z|`` with the mask, for DGC's top-k. Both select
+modes count as ``gmf_select`` launches. K3 (``apply_mask_flat``) takes any
+stack, the flat one included.
+
 K2 (``momentum_correction_tree``) is one multi-tensor launch over every
 leaf of a tree: ``plan_momentum`` cuts the leaves into launches of at most
 the table's capacity and gives each leaf its first block,
@@ -35,7 +45,7 @@ NVCC_FLAGS = (*BASE_FLAGS, "-fmad=false")
 
 # Launches per kernel since the last reset_launches(): the evidence that a
 # run went through the kernels.
-LAUNCHES = {"gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
+LAUNCHES = {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
 
 
 def reset_launches() -> None:
@@ -54,7 +64,9 @@ SIGNATURES = {
     "gmf_momentum_limits": ([_P, _P], None),
     "gmf_momentum_multi": ([_P, _I32, _I32, _F32, _P], _I32),
     "gmf_apply_mask": ([_P, _P, _P, _P, _P, _P, _I64, _I32, _P], _I32),
-    "gmf_compress": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P], _I32),
+    "gmf_select": ([_P, _P, _P, _P, _P, _P, _F32, _I32, _I64, _I64, _P, _P, _P, _P], _I32),
+    "gmf_select_abs": ([_P, _P, _P, _I32, _I64, _I64, _P, _P, _P], _I32),
+    "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _P], _I32),
 }
 
 
@@ -112,13 +124,27 @@ def _check_stack(name: str, *xs: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _check_rows(name: str, rows: int, like: torch.Tensor, *scalars: torch.Tensor) -> None:
+def _check_rows(name: str, shape: tuple, like: torch.Tensor, *scalars: torch.Tensor,
+                dtype=torch.float32) -> None:
     for s in scalars:
-        if (not s.is_cuda or s.device != like.device or s.dtype != torch.float32
-                or s.shape != (rows,) or not s.is_contiguous()):
+        if (not s.is_cuda or s.device != like.device or s.dtype != dtype
+                or tuple(s.shape) != shape or not s.is_contiguous()):
             raise ValueError(
-                f"{name}: per-row scalars must be contiguous float32 [{rows}] tensors on "
+                f"{name}: scalars must be contiguous {dtype} {list(shape)} tensors on "
                 f"{like.device}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+
+
+def _segments(name: str, x: torch.Tensor, offsets: torch.Tensor) -> int:
+    """The leaf count of ``offsets`` (int64 ``[L + 1]`` on x's device) for
+    the ``[rows, N]`` stack ``x``."""
+    if x.dim() != 2:
+        raise ValueError(f"{name}: the kernel takes a flat [rows, N] stack, got "
+                         f"{tuple(x.shape)}")
+    leaves = offsets.numel() - 1
+    if leaves < 1:
+        raise ValueError(f"{name}: a layout of at least one leaf is needed")
+    _check_rows(name, (leaves + 1,), x, offsets, dtype=torch.int64)
+    return leaves
 
 
 def _vec(*xs: torch.Tensor) -> int:
@@ -223,17 +249,55 @@ def apply_mask_flat(u, v, mask):
     return go, uo, vo
 
 
-def gmf_compress_flat(u, v, m, *, inv_norm_v, inv_norm_m, tau, threshold):
-    """Fused GMF pass over a [k, ...] stack; the four scalars are [k]
-    float32 CUDA tensors, one per client row. Returns (g, u', v', mask)."""
+def gmf_select_flat(v, m, *, offsets, keep, w, tau, eps: float):
+    """Per (row, leaf) segment of the flat ``[rows, N]`` stacks v and m:
+    inv_nv = w / (‖V‖ + eps), inv_nm = 1 / (‖M‖ + eps), and the exact
+    k_i-th largest z = |((1-τ)·V)·inv_nv + (τ·M)·inv_nm| as the threshold.
+    ``offsets`` (int64 ``[L + 1]``) and ``keep`` (int64 ``[L]``) come from
+    the layout; ``w`` and ``tau`` are ``[rows]`` float32. Returns (inv_nv,
+    inv_nm, thr), ``[rows, L]`` float32 each."""
+    _check_stack("gmf_select", v, m)
+    leaves = _segments("gmf_select", v, offsets)
+    rows = v.shape[0]
+    _check_rows("gmf_select", (leaves,), v, keep, dtype=torch.int64)
+    _check_rows("gmf_select", (rows,), v, w, tau)
+    inv_nv, inv_nm, thr = (torch.empty(rows, leaves, dtype=torch.float32, device=v.device)
+                           for _ in range(3))
+    _launch("gmf_select", library().gmf_select, v.device, v.data_ptr(), m.data_ptr(),
+            offsets.data_ptr(), keep.data_ptr(), w.data_ptr(), tau.data_ptr(), float(eps),
+            leaves, rows, v.shape[1], inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr())
+    return inv_nv, inv_nm, thr
+
+
+def topk_abs_select_flat(z, *, offsets, keep):
+    """The exact k_i-th largest |z| of every (row, leaf) segment of the flat
+    ``[rows, N]`` stack z and the mask |z| >= thr: ``gmf_select``'s kernel
+    in its |z| mode. Returns (thr ``[rows, L]``, mask ``[rows, N]``)."""
+    _check_stack("gmf_select", z)
+    leaves = _segments("gmf_select", z, offsets)
+    _check_rows("gmf_select", (leaves,), z, keep, dtype=torch.int64)
+    thr = torch.empty(z.shape[0], leaves, dtype=torch.float32, device=z.device)
+    mask = torch.empty_like(z)
+    _launch("gmf_select", library().gmf_select_abs, z.device, z.data_ptr(), offsets.data_ptr(),
+            keep.data_ptr(), leaves, z.shape[0], z.shape[1], thr.data_ptr(), mask.data_ptr())
+    return thr, mask
+
+
+def gmf_compress_flat(u, v, m, *, offsets, inv_norm_v, inv_norm_m, tau, threshold):
+    """Fused GMF mask pass over flat ``[rows, N]`` stacks of the leaves
+    ``offsets`` describes (at most 6,143 leaves; the kernel holds the offsets
+    in 48 KB of shared memory): the three per-segment scalars are
+    ``[rows, L]`` float32, τ ``[rows]``. Returns (g, u', v', mask)."""
     _check_stack("gmf_compress", u, v, m)
+    leaves = _segments("gmf_compress", u, offsets)
     rows = u.shape[0]
-    _check_rows("gmf_compress", rows, u, inv_norm_v, inv_norm_m, threshold, tau)
+    _check_rows("gmf_compress", (rows, leaves), u, inv_norm_v, inv_norm_m, threshold)
+    _check_rows("gmf_compress", (rows,), u, tau)
     go, uo, vo, mo = (torch.empty_like(v) for _ in range(4))
     if u.numel():
         _launch("gmf_compress", library().gmf_compress, u.device,
                 u.data_ptr(), v.data_ptr(), m.data_ptr(), inv_norm_v.data_ptr(),
-                inv_norm_m.data_ptr(), threshold.data_ptr(), tau.data_ptr(),
-                go.data_ptr(), uo.data_ptr(), vo.data_ptr(), mo.data_ptr(),
-                u.numel(), u.numel() // rows, _vec(u, v, m, go, uo, vo, mo))
+                inv_norm_m.data_ptr(), threshold.data_ptr(), tau.data_ptr(), offsets.data_ptr(),
+                leaves, u.shape[1], go.data_ptr(), uo.data_ptr(), vo.data_ptr(), mo.data_ptr(),
+                u.numel(), _vec(u, v, m, go, uo, vo, mo))
     return go, uo, vo, mo

@@ -6,13 +6,20 @@ kernel (``kernels/gmf_compress.py``) or raises, a CPU tensor takes the
 plain version (``kernels/ref.py``). Nothing falls back from the card.
 ``momentum_correction`` goes by its first leaf and raises unless every
 leaf lies on that device: a tree on the card is one multi-tensor K2 launch
-(or one per table's capacity of leaves).
+(or one per table's capacity of leaves); the flat ``[k, N]`` state is a
+tree of one leaf.
+
+``gmf_select``, ``topk_abs_select`` and ``gmf_compress`` take the flat
+``[k, N]`` stacks and their ``FlatLayout`` (``utils/flat.py``): one launch
+each over all clients and leaves on the card, a loop over the leaves'
+views on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import sparsify
 from repro_torch.kernels import gmf_compress as _k
 from repro_torch.kernels import ref
 from repro_torch.utils import tree_leaves, tree_multimap, tree_unflatten
@@ -54,10 +61,28 @@ def apply_mask_update(u_tree, v_tree, mask_tree):
     return tree_multimap(_mask_leaf, 3, u_tree, v_tree, mask_tree)
 
 
-def gmf_compress(u, v, m, *, inv_norm_v, inv_norm_m, tau, threshold):
-    """Single-leaf fused GMF pass over a ``[k, ...]`` stack; the scalars are
-    ``[k]`` float32 tensors on the leaf's device."""
+def gmf_select(v, m, layout, rate, *, w, tau, eps):
+    """Per (client, leaf) segment: inverse norms and the exact top-k
+    threshold of the fusion score -> (inv_nv, inv_nm, thr), ``[k, L]`` each;
+    ``w`` and ``tau`` are ``[k]`` float32 on v's device."""
+    if _on_card(v):
+        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, keep=layout.keep(rate)[1],
+                                  w=w, tau=tau, eps=eps)
+    return ref.gmf_select(v, m, layout, rate, w=w, tau=tau, eps=eps)
+
+
+def topk_abs_select(z, layout, rate):
+    """The exact top-k threshold of every segment's ``|z|`` and the mask
+    -> (thr ``[k, L]``, mask ``[k, N]``)."""
+    if _on_card(z):
+        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, keep=layout.keep(rate)[1])
+    return sparsify.segment_topk_mask(z, layout, rate)
+
+
+def gmf_compress(u, v, m, *, layout, inv_norm_v, inv_norm_m, tau, threshold):
+    """The fused GMF mask pass over flat ``[k, N]`` stacks; the scalars are
+    ``[k, L]`` float32 (τ ``[k]``) on the stacks' device."""
     kw = dict(inv_norm_v=inv_norm_v, inv_norm_m=inv_norm_m, tau=tau, threshold=threshold)
     if _on_card(v):
-        return _k.gmf_compress_flat(u, v, m, **kw)
-    return ref.gmf_compress_leaf(u, v, m, **kw)
+        return _k.gmf_compress_flat(u, v, m, offsets=layout.offsets_dev, **kw)
+    return ref.gmf_compress_segments(u, v, m, layout=layout, **kw)

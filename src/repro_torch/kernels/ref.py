@@ -3,10 +3,14 @@
 The kernel wrappers take these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel to its plain version on the card.
 
-The three compression kernels (``csrc/gmf_compress.cu``) are the same
-functions as the reference's ``kernels/ref.py`` oracles. Leaves are
-``[k, ...]`` client stacks; per-client scalars are ``[k]`` tensors (or
-0-dim for one shared value).
+The compression kernels (``csrc/gmf_compress.cu``) are the same functions
+as the reference's ``kernels/ref.py`` oracles. Leaves are ``[k, ...]``
+client stacks; per-client scalars are ``[k]`` tensors (or 0-dim for one
+shared value). The state is flat (``utils/flat.py``): ``gmf_select`` and
+``gmf_compress_segments`` take ``[k, N]`` stacks and their layout, with
+per-segment scalars ``[k, L]``; they loop over the leaves on views, which
+is what the CPU runs. The plain version of ``gmf_select``'s |z| mode is
+``core.sparsify.segment_topk_mask``.
 
 K4, flash attention (``csrc/flash_attention.cu``): the Pallas kernel's
 arithmetic over k/v tiles, in the same online softmax.
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fusion, sparsify
 from repro_torch.core.fusion import rows
 from repro_torch.utils import tree_multimap
 
@@ -52,6 +57,27 @@ def gmf_compress_leaf(u, v, m, *, inv_norm_v, inv_norm_m, tau, threshold):
     g_out = v * mask
     keep = 1.0 - mask
     return g_out, u * keep, v * keep, mask
+
+
+def gmf_select(v, m, layout, rate, *, w, tau, eps):
+    """The glue that feeds K1, per (client, leaf) segment of the flat
+    ``[k, N]`` stacks v and m: inv_nv = w / (‖V‖ + eps), inv_nm =
+    1 / (‖M‖ + eps), and the exact k_i-th largest fusion score as the
+    threshold -> (inv_nv, inv_nm, thr), ``[k, L]`` each. ``w`` and ``tau``
+    are ``[k]``."""
+    inv_nv = rows(w, v) / (fusion.segment_norms(v, layout) + eps)
+    inv_nm = 1.0 / (fusion.segment_norms(m, layout) + eps)
+    z = gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
+                         inv_norm_m=layout.expand(inv_nm), tau=tau)
+    return inv_nv, inv_nm, sparsify.segment_thresholds(z, layout, rate)
+
+
+def gmf_compress_segments(u, v, m, *, layout, inv_norm_v, inv_norm_m, tau, threshold):
+    """``gmf_compress_leaf`` over flat ``[k, N]`` stacks with ``[k, L]``
+    per-segment scalars and ``[k]`` τ -> (G, U', V', mask)."""
+    ex = layout.expand
+    return gmf_compress_leaf(u, v, m, inv_norm_v=ex(inv_norm_v), inv_norm_m=ex(inv_norm_m),
+                             tau=tau, threshold=ex(threshold))
 
 
 def momentum_correction(u_tree, v_tree, g_tree, alpha):

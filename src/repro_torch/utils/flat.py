@@ -1,0 +1,113 @@
+"""The flat layout of a params tree: every leaf as one segment of a row.
+
+The compression state, the gradients, the payloads and the broadcast are
+kept flat: a tree of leaves becomes one ``[..., N]`` tensor whose last
+axis holds the leaves one after the other in ``tree_leaves`` order (the
+JAX package's order), ``N = sum(n_i)`` exactly, with no padding. Leaf i
+takes columns ``[o_i, o_i + n_i)``, so in a client-major ``[k, N]`` stack
+each (client, leaf) segment is contiguous. The per-segment steps (norms,
+top-k thresholds) and the kernels read the segment offsets; everything
+elementwise is one op over the whole stack.
+
+``FlatLayout.of(tree)`` builds a layout once per (structure, device) and
+caches it; it holds the offsets on the device and, per compression rate,
+the per-leaf keep counts on the host and on the device, each copied once.
+``flatten`` is one ``torch.cat``; ``unflatten`` makes views, for the edges
+(the model's params, tests, evaluation).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# One layout per (structure, device), built at first use.
+_LAYOUTS: dict = {}
+
+
+def _signature(tree):
+    """A hashable description of ``tree``'s structure and leaf shapes."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape)
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _signature(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_signature(x) for x in tree))
+    raise TypeError(f"a flat layout takes trees of tensors, got a {type(tree).__name__} leaf")
+
+
+class FlatLayout:
+    """Leaf shapes, sizes and offsets of one tree structure on one device."""
+
+    def __init__(self, tree, device):
+        self.device = torch.device(device)
+        self.skeleton = tree_map(lambda x: None, tree)
+        self.shapes = tuple(tuple(x.shape) for x in tree_leaves(tree))
+        self.sizes = tuple(math.prod(s) for s in self.shapes)
+        offsets = [0]
+        for n in self.sizes:
+            offsets.append(offsets[-1] + n)
+        self.offsets = tuple(offsets)  # L + 1 entries, the last is N
+        self.total = offsets[-1]
+        self.num_leaves = len(self.sizes)
+        self.offsets_dev = torch.tensor(offsets, dtype=torch.int64, device=self.device)
+        self.sizes_dev = torch.tensor(self.sizes, dtype=torch.int64, device=self.device)
+        self._keep: dict[float, tuple[tuple[int, ...], torch.Tensor]] = {}
+
+    @staticmethod
+    def of(tree) -> FlatLayout:
+        """The layout of ``tree`` (its leaves' device), built once per
+        (structure, device)."""
+        leaves = tree_leaves(tree)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        key = (_signature(tree), str(device))
+        if key not in _LAYOUTS:
+            _LAYOUTS[key] = FlatLayout(tree, device)
+        return _LAYOUTS[key]
+
+    def keep(self, rate: float) -> tuple[tuple[int, ...], torch.Tensor]:
+        """Per-leaf keep counts ``num_keep(n_i, rate)``: on the host and as an
+        int64 ``[L]`` device tensor, each made once per rate."""
+        from repro_torch.core.sparsify import num_keep
+
+        if rate not in self._keep:
+            host = tuple(num_keep(n, rate) for n in self.sizes)
+            self._keep[rate] = host, torch.tensor(host, dtype=torch.int64, device=self.device)
+        return self._keep[rate]
+
+    def flatten(self, tree) -> torch.Tensor:
+        """A tree of ``[*lead, *shape_i]`` leaves -> one ``[*lead, N]`` tensor."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != self.num_leaves:
+            raise ValueError(f"{len(leaves)} leaves for a layout of {self.num_leaves}")
+        flat = [x.reshape(*x.shape[:x.dim() - len(s)], -1)
+                for x, s in zip(leaves, self.shapes, strict=True)]
+        return torch.cat(flat, dim=-1)
+
+    def segments(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        """Views ``flat[..., o_i:o_i + n_i]``, one per leaf."""
+        self._check(flat)
+        return [flat[..., o:o + n] for o, n in zip(self.offsets, self.sizes)]
+
+    def unflatten(self, flat: torch.Tensor):
+        """``[*lead, N]`` -> a tree of ``[*lead, *shape_i]`` views of ``flat``."""
+        lead = tuple(flat.shape[:-1])
+        views = [seg.view(*lead, *s) for seg, s in zip(self.segments(flat), self.shapes)]
+        return tree_unflatten(self.skeleton, views)
+
+    def expand(self, per_leaf: torch.Tensor) -> torch.Tensor:
+        """``[..., L]`` per-leaf values -> ``[..., N]``, each value repeated
+        over its leaf's columns (no host sync)."""
+        return torch.repeat_interleave(per_leaf, self.sizes_dev.to(per_leaf.device), dim=-1,
+                                       output_size=self.total)
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros(self.total, dtype=torch.float32, device=self.device)
+
+    def _check(self, flat: torch.Tensor) -> None:
+        if flat.shape[-1] != self.total:
+            raise ValueError(f"last axis {flat.shape[-1]} != the layout's {self.total}")

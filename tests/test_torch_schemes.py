@@ -4,7 +4,10 @@ live JAX functions, for the ported presets, both selectors and
 numpy and handed to both.
 
 Each round both packages start from the JAX state (teacher forcing), so a
-difference shows in the round that makes it.
+difference shows in the round that makes it. The port's state, gradients,
+payloads and broadcast are flat stacks (``repro_torch.utils.flat``): the
+JAX trees go in through the layout's ``flatten`` and come back leaf by
+leaf through its ``unflatten``.
 
 * Non-GMF presets (``none``, ``dgc``, ``gmc``, ``dgcwgm``) are elementwise
   float32 maths: payload, U, V, M, nnz, broadcast and download nnz are
@@ -32,10 +35,12 @@ from repro.core import schemes as js
 from repro_torch.core import schemes as ts
 from repro_torch.core import sparsify as tsp
 from repro_torch.core import stages as tstages
+from repro_torch.utils.flat import FlatLayout
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SHAPES = {"b": (33,), "conv": (3, 3, 4, 8), "w": (16, 33)}
 K = 2
+LAYOUT = FlatLayout.of({k: torch.zeros(s) for k, s in SHAPES.items()})
 CASES = [("none", {}), ("dgc", {}), ("gmc", {}), ("dgcwgm", {}),
          ("dgcwgmf", {"tau": 0.6}), ("dgcwgmf", {"tau": 0.3, "tau_warmup_rounds": 4})]
 
@@ -54,6 +59,20 @@ def _leaves(tree):
     return jax.tree_util.tree_leaves(tree)
 
 
+def _flat(tree):
+    """A port tree (or ``{}``, an unused field) -> its flat stack (or ``{}``)."""
+    return LAYOUT.flatten(tree) if _leaves(tree) else tree
+
+
+def _flat_fields(state):
+    return type(state)(*(_flat(f) for f in state))
+
+
+def _tree(flat):
+    """A flat stack (or ``{}``) -> the port tree of its leaves' views."""
+    return LAYOUT.unflatten(flat) if torch.is_tensor(flat) else flat
+
+
 def _staged_scores(tcfg, tstate, tgrad, tgbar, t):
     """The port's GMF score and per-client threshold of every leaf, from
     the round's input state (the selection the boundary check refers to)."""
@@ -62,10 +81,10 @@ def _staged_scores(tcfg, tstate, tgrad, tgbar, t):
     m, extra = scheme.fusion.pre(tcfg, tstate.m, tgbar)
     value, _, _ = scheme.compensator.accumulate(tcfg, ops, tstate.u, tstate.v, tgrad, extra)
     ctx = tstages.StageCtx(round_idx=t, gbar_prev=tgbar, local_steps=1.0, mean_steps=1.0,
-                           tau_override=None)
+                           tau_override=None, layout=LAYOUT)
     scores, _ = scheme.fusion.scores(tcfg, value, m, ctx)
     out = []
-    for z in _leaves(scores):
+    for z in _leaves(_tree(scores)):
         za = z.abs().float()
         ref = (za.reshape(K, -1) if tcfg.selector == "exact" else tsp.strided_sample_nd(za))
         thr = tsp.exact_threshold(ref, tsp.num_keep(ref.shape[1], tcfg.rate))
@@ -121,15 +140,14 @@ def test_client_compress_and_server_aggregate(case, selector, use_kernels):
                                        *[o[0] for o in outs])
         jbcast, jsstate_new, jainfo = js.server_aggregate(jcfg, jsstate, g_sum, float(K))
         # -- port, the [K, ...] stack at once from the same state -------------
-        tstate = _port_stack(jstates)
-        tgrad = _port_stack(grads)
-        tgbar = _port_stack([jgbar])
-        tgbar = jax.tree_util.tree_map(lambda x: x[0], tgbar)
+        tstate = _flat_fields(_port_stack(jstates))
+        tgrad = _flat(_port_stack(grads))
+        tgbar = _flat(_port_stack([jgbar]))[0]
         tsstate = _port_stack([jsstate])
-        tsstate = jax.tree_util.tree_map(lambda x: x[0], tsstate)
-        tG, tnew, tinfo = ts.client_compress(tcfg, tstate, tgrad, tgbar, t)
-        tbcast, tsnew, tainfo = ts.server_aggregate(
-            tcfg, tsstate, jax.tree_util.tree_map(lambda x: x.sum(0), tG), float(K))
+        tsstate = _flat_fields(jax.tree_util.tree_map(lambda x: x[0], tsstate))
+        tG, tnew, tinfo = ts.client_compress(tcfg, tstate, tgrad, tgbar, t, layout=LAYOUT)
+        tbcast, tsnew, tainfo = ts.server_aggregate(tcfg, tsstate, tG.sum(0), float(K))
+        tG, tbcast = _tree(tG), _tree(tbcast)
 
         assert tinfo.upload_nnz.tolist() == [int(o[2].upload_nnz) for o in outs]
         jG = _port_stack([o[0] for o in outs])
@@ -148,14 +166,14 @@ def test_client_compress_and_server_aggregate(case, selector, use_kernels):
             _close(a, b.numpy(), exact, f)
         jnew = _port_stack([o[1] for o in outs])
         for field in ("u", "v", "m"):
-            tl, jl = _leaves(getattr(tnew, field)), _leaves(getattr(jnew, field))
+            tl, jl = _leaves(_tree(getattr(tnew, field))), _leaves(getattr(jnew, field))
             assert len(tl) == len(jl)
             for a, b, f in zip(tl, jl, flips, strict=False):
                 _close(a, b.numpy(), exact, f if field != "m" else None)
         any_flip = [f.any(axis=0) for f in flips]
         for a, b, f in zip(_leaves(tbcast), _leaves(_np(jbcast)), any_flip, strict=True):
             _close(a, b, exact, f)
-        for a, b in zip(_leaves(tsnew.momentum), _leaves(_np(jsstate_new.momentum)),
+        for a, b in zip(_leaves(_tree(tsnew.momentum)), _leaves(_np(jsstate_new.momentum)),
                         strict=True):
             _close(a, b, exact, None)
         if not any(f.any() for f in flips):
@@ -169,14 +187,15 @@ def test_tau_zero_gmf_equals_dgc():
     """The paper's degenerate case, as the JAX package tests it: dgcwgmf at
     τ = 0 selects exactly the dgc mask."""
     rng = np.random.default_rng(3)
-    grads = {k: torch.from_numpy(rng.normal(size=(K,) + s).astype(np.float32))
-             for k, s in SHAPES.items()}
+    grads = LAYOUT.flatten({k: torch.from_numpy(rng.normal(size=(K,) + s).astype(np.float32))
+                            for k, s in SHAPES.items()})
     zeros = {k: torch.zeros(s) for k, s in SHAPES.items()}
     outs = []
     for scheme in ("dgc", "dgcwgmf"):
         cfg = ts.CompressionConfig(scheme=scheme, rate=0.1, tau=0.0)
         state, _ = ts.init_states(cfg, zeros)
         state = jax.tree_util.tree_map(lambda x: x.expand((K,) + x.shape).clone(), state)
-        outs.append(ts.client_compress(cfg, state, grads, zeros, 0))
+        outs.append(ts.client_compress(cfg, state, grads, LAYOUT.flatten(zeros), 0,
+                                       layout=LAYOUT))
     for a, b in zip(_leaves(outs[0][0]), _leaves(outs[1][0]), strict=True):
         assert torch.equal(a, b)

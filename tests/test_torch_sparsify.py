@@ -71,11 +71,17 @@ def test_thresholds_bitwise(shape):
 
 
 def test_global_topk_masks_bitwise():
+    """The port's global top-k is ``topk_mask`` over the rows of the flat
+    ``[k, N]`` stack: one threshold per client across all leaves."""
+    from repro_torch.utils.flat import FlatLayout
+
     leaves = [_clients(s, seed=i) for i, s in enumerate([(9,), (4, 6), (2, 3, 5)])]
-    got = tsp.global_topk_masks([torch.from_numpy(x) for x in leaves], 0.2)
+    tree = {f"l{i}": torch.from_numpy(x) for i, x in enumerate(leaves)}
+    layout = FlatLayout.of({k: x[0] for k, x in tree.items()})
+    got = layout.unflatten(tsp.topk_mask(layout.flatten(tree), 0.2, "exact"))
     for i in range(3):
         want = jsp.global_topk_masks([jnp.asarray(x[i]) for x in leaves], 0.2)
-        for g, w in zip(got, want, strict=True):
+        for g, w in zip(jax.tree_util.tree_leaves(got), want, strict=True):
             assert np.array_equal(g[i].numpy(), np.asarray(w))
 
 
