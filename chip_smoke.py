@@ -26,7 +26,13 @@ Phases, in order; any failure exits nonzero:
    bitwise equal, the |z| mode's thresholds and mask bitwise, and the mask
    pass's G, U, V and mask bitwise given the same scalars: both sides do
    the same float32 operations in the same order with no fused
-   multiply-add. K2 and K3 are held bitwise on stacks of 1, 5, 1000,
+   multiply-add. ``gmf_select`` is held again, in both modes, with a
+   per-row keep table of distinct counts (row 0 keeps 1 of every segment,
+   row 1 all of it, the others at rates from 0.001 to 0.9) over the
+   char-LSTM's layout for 10 clients, the tiny-segment layout and ResNet-56
+   for 4 clients: thresholds bitwise ``torch.topk``'s per segment, the |z|
+   mask bitwise its plain version's, and the table as a stride-0 broadcast
+   bitwise the shared ``[L]`` counts. K2 and K3 are held bitwise on stacks of 1, 5, 1000,
    65,537, 3×1001, 20×36,864 and 2²⁴+3 elements and one misaligned view;
    K2, one multi-tensor launch per tree, also over the 169 ResNet-56 leaves
    for 20 clients in one launch, over the same tree with a misaligned leaf,
@@ -72,9 +78,37 @@ Phases, in order; any failure exits nonzero:
    naive attention on the CPU): the prefill's last logits and 4 decode
    steps, both sides fed the CPU's greedy tokens, within 1e-4 relative L2
    per step. The float32 prefill runs on the CUDA-core K4 (2 launches).
+7. **ResNet-56 under the other stage kinds.** Phase 3's task, 2 rounds
+   each of ``dgcwgmf`` (τ 0.6, fused) with the int8 and the bf16 wire,
+   ``dgcwgmf_dl`` (a top-k downlink: one more ``gmf_select`` launch a
+   round, on the ``[1, N]`` broadcast) and ``adaptive_dgcwgmf`` with
+   ``rate_wire_threshold`` 0.5 (per-client rates take the staged path: K2,
+   ``gmf_select`` in its |z| mode with a ``[20, L]`` keep table, K3). Launch
+   counts exact; every client's nnz at least its exact-k sum at its own
+   rate; the downlink's nnz at least 85,654; some client on the int8 wire
+   and the rates moving under the controller; the ledger's bytes equal to
+   the cost model's on the read-back counts.
+8. **Shakespeare**, the paper's Table 4 preset at full width:
+   ``SynthShakespeare`` (100 clients × 4,000 chars, sequences of 80),
+   ``ShakespeareTask`` on the card, the char-LSTM at hidden 256 (292,560
+   params in 6 leaves), 10 clients a round, batch 8, lr 0.5: 3 rounds each
+   of ``dgc``, ``gmc``, ``dgcwgm`` and ``dgcwgmf`` (τ 0.6, fused) over the
+   flat ``[100, 292,560]`` state. Each path kernel launches once a round;
+   every client's nnz is at least 29,258; the ledger equals the cost
+   model's; then round 0 runs twice more from the same initial state and
+   everything it leaves (params, client and server state, broadcast) must
+   be bitwise equal: the embedding's gradient and every reduction of the
+   round are deterministic.
+9. **Shakespeare, card vs CPU.** Round 0 of ``dgcwgmf`` at full width, 4
+   of 10 clients, on the card and the CPU: nnz equal, broadcast within
+   1e-2 relative L2 (phase 4's tolerance). Then a profile of one steady
+   Shakespeare round of ``dgcwgmf`` and ``dgc``, as phase 4's.
 
 Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
 ResNet-56 stacks (20 clients), one launch each as the path makes them
+(and ``gmf_select``'s |z| mode as the new paths call it: a Shakespeare
+round's stack with a per-row keep table and with shared counts, a ResNet
+round's with a per-row table, the ResNet broadcast of the downlink)
 (CUDA events around the wrapper call, host time in), each beside its
 plain version and bytes bound; K1 as a round runs it (select + mask
 pass); K2's device time alone; one large launch of the mask pass, K2 and
@@ -331,6 +365,107 @@ def hold_select(rt, resnet_params, dev):
               f"bitwise, inverse norms within {worst['norm_rel']:.3e} relative", flush=True)
     torch.cuda.synchronize()
     return worst
+
+
+def keep_rows(rt, layout, rows, dev):
+    """A per-row keep table ``[rows, L]`` of distinct counts: row 0 keeps 1
+    of every segment, row 1 all of it, the rest at rates spread over
+    (0.001, 0.9), each through ``num_keep_dynamic`` as the path makes it."""
+    rates = torch.tensor(np.geomspace(0.001, 0.9, max(rows - 2, 1))[:rows - 2],
+                         dtype=torch.float32, device=dev)
+    table = rt.sparsify.keep_table(layout, torch.cat([torch.zeros(min(rows, 2), device=dev),
+                                                      rates]))
+    table[0] = 1
+    if rows > 1:
+        table[1] = layout.sizes_dev
+    return table.contiguous()
+
+
+def topk_per_segment(z, layout, keep):
+    """The keep[r, i]-th largest of every (row, leaf) segment by torch.topk."""
+    keep = keep.cpu()
+    return torch.stack([torch.stack([torch.topk(seg[r], int(keep[r, i])).values[-1]
+                                     for r in range(z.shape[0])])
+                        for i, seg in enumerate(layout.segments(z))], dim=1)
+
+
+def hold_select_keep(rt, layouts, dev):
+    """``gmf_select`` in both modes with a per-row keep table of distinct
+    counts (k = 1 and k = n included), on the card against torch.topk per
+    segment (thresholds bitwise) and the plain versions (|z| mask bitwise,
+    inverse norms within 1e-6); the table as a stride-0 broadcast of one
+    row's counts is bitwise the shared ``[L]`` path. ``layouts`` are
+    (label, layout, rows). Returns the largest threshold difference (0
+    when bitwise)."""
+    gk, ref, sparsify = rt.gk, rt.ref, rt.sparsify
+    rng = np.random.default_rng(7)
+    worst = {"gmf_select": 0.0}
+    for label, layout, rows in layouts:
+        _, v, m = kernel_inputs(rng, rows, layout.total, dev)
+        keep = keep_rows(rt, layout, rows, dev)
+        offs = layout.offsets_dev
+        thr, mask = gk.topk_abs_select_flat(v, offsets=offs, keep=keep)
+        same(worst, "gmf_select", thr, topk_per_segment(v.abs(), layout, keep),
+             f"per-row keep |z| threshold vs torch.topk over {label}")
+        p_thr, p_mask = sparsify.segment_topk_mask_keep(v, layout, keep)
+        same(worst, "gmf_select", thr, p_thr, f"per-row keep |z| threshold over {label}")
+        same(worst, "gmf_select", mask, p_mask, f"per-row keep |z| mask over {label}")
+        w = torch.tensor(rng.uniform(0.5, 2.0, rows).astype(np.float32), device=dev)
+        tau = torch.tensor(rng.choice([0.0, 0.3, 0.6, 1.0], rows).astype(np.float32),
+                           device=dev)
+        inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau,
+                                                 eps=EPS)
+        z = ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
+                                 inv_norm_m=layout.expand(inv_nm), tau=tau)
+        same(worst, "gmf_select", thr, topk_per_segment(z, layout, keep),
+             f"per-row keep threshold vs torch.topk over {label}")
+        p_nv, p_nm, _ = ref.gmf_select(v, m, layout, keep=keep, w=w, tau=tau, eps=EPS)
+        for a, b in ((inv_nv, p_nv), (inv_nm, p_nm)):
+            rel = ((a - b).abs() / b.abs()).max().item()
+            check(rel <= 1e-6, f"per-row keep gmf_select over {label}: inverse norms {rel:.3e} "
+                  f"relative from the plain version's")
+        shared = layout.keep(RATE)[1]
+        a = gk.topk_abs_select_flat(v, offsets=offs, keep=shared)
+        b = gk.topk_abs_select_flat(v, offsets=offs, keep=shared.expand(rows, -1))
+        for x, y in zip(a, b, strict=True):
+            check(torch.equal(x, y), f"a stride-0 keep table differs from [L] over {label}")
+        print(f"  held gmf_select (|z| and fused) with a per-row keep table (k = 1, k = n, "
+              f"{rows - 2} rates in between) over {label} ({rows * layout.num_leaves} "
+              f"segments): thresholds bitwise torch.topk's, |z| mask bitwise", flush=True)
+    torch.cuda.synchronize()
+    return worst["gmf_select"]
+
+
+def time_select_paths(rt, layouts, bw, peak, dev):
+    """``gmf_select``'s |z| mode as the Shakespeare, downlink and adaptive
+    paths call it: each (label, layout, rows, per_row) case timed with a
+    per-row keep table or the shared ``[L]`` counts, beside its plain
+    version and its bound (z
+    read once, the mask written once: 8 bytes an element; the |z|, three
+    radix passes' compares and the mask compare, 5 operations)."""
+    gk, sparsify = rt.gk, rt.sparsify
+    rng = np.random.default_rng(8)
+    out = {}
+    for label, layout, rows, per_row in layouts:
+        _, z, _ = kernel_inputs(rng, rows, layout.total, dev)
+        if per_row:
+            keep = sparsify.keep_table(layout, torch.full((rows,), RATE, device=dev))
+        else:
+            keep = layout.keep(RATE)[1]
+        kern = lambda: gk.topk_abs_select_flat(z, offsets=layout.offsets_dev, keep=keep)
+        plain = ((lambda: sparsify.segment_topk_mask_keep(z, layout, keep)) if per_row
+                 else (lambda: sparsify.segment_topk_mask(z, layout, RATE)))
+        ms, plain_ms = timed_ms(kern), timed_ms(plain)
+        elems = rows * layout.total
+        bound_bytes, bound_ops = 8 * elems / bw * 1e3, 5 * elems / peak * 1e3
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+                          bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                          at=f"[{rows}, {layout.total}], {layout.num_leaves} leaves, "
+                             f"{'per-row keep table' if per_row else 'shared keep counts'}")
+        print(f"  gmf_select |z| mode, {label} ({out[label]['at']}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {out[label]['bound_ms']:.4f} ms "
+              f"({8 * elems / 1e6:.1f} MB)", flush=True)
+    return out
 
 
 def k2_tree(rng, leaf_shapes, clients, dev, misalign=None):
@@ -675,10 +810,12 @@ def time_k4_cc(k4, ref, bw, peak, dev):
 # ---------------------------------------------------------------------------
 
 
-def run_path(rt, task, scheme_kw, rounds, clients, batch, launches):
+def run_path(rt, task, scheme_kw, rounds, clients, batch, launches, lr=0.1, per_round=0):
+    """``rounds`` rounds of the FL path; the kernels' launch counts are
+    reset just before and read just after, and added into ``launches``."""
     comp = rt.core.CompressionConfig(rate=0.1, **scheme_kw)
-    fl = rt.fl.FLConfig(num_clients=clients, rounds=rounds, batch_size=batch,
-                        learning_rate=0.1, eval_every=rounds)
+    fl = rt.fl.FLConfig(num_clients=clients, clients_per_round=per_round, rounds=rounds,
+                        batch_size=batch, learning_rate=lr, eval_every=rounds)
     sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, task.eval_fn,
                             device=task.device)
     rt.gk.reset_launches()
@@ -688,6 +825,25 @@ def run_path(rt, task, scheme_kw, rounds, clients, batch, launches):
     for name, n in counts.items():
         launches[name] += n
     return sim, hist, counts
+
+
+def check_ledger(rt, sim, hist, label):
+    """The ledger's bytes against the CostModel's on the read-back counts:
+    per-client upload nnz (at 1 byte a value for a client the rate
+    controller dropped to int8), the broadcast's nnz unicast to each."""
+    cost = sim.engine.scheme.cost_model()
+    up = down = 0.0
+    for rec in hist:
+        nnz = np.asarray(rec["upload_nnz"], np.float64)
+        vb = None
+        if "wire_levels" in rec:
+            vb = np.where(np.asarray(rec["wire_levels"]) > 0, 1.0, float(cost.value_bytes))
+        u, d = cost.round_bytes(nnz, rec["download_nnz"], sim.total_params, len(nnz), vb)
+        up += float(u)
+        down += float(d)
+    check(up == sim.ledger.upload_bytes and down == sim.ledger.download_bytes,
+          f"{label}: ledger {sim.ledger.upload_bytes} / {sim.ledger.download_bytes} bytes, "
+          f"the cost model on the read-back nnz {up} / {down}")
 
 
 def path_phase(rt, dev):
@@ -729,32 +885,41 @@ def path_phase(rt, dev):
     return launches, task
 
 
-def profile_phase(rt, task):
-    """Where a ResNet-56 round's time goes: the client-gradient share
-    (host clock around ``engine._grads`` with a synchronise on each side),
-    and a ``torch.profiler`` trace of one steady round with the device's
-    busy share and its costliest kernels."""
+RESNET_PROFILE = (("dgcwgmf", {"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True}),
+                  ("dgc", {"scheme": "dgc"}))
+
+
+def profile_phase(rt, task, presets=RESNET_PROFILE, clients=20, per_round=0, batch=64,
+                  lr=0.1):
+    """Where a round's time goes: in 3 steady rounds, the client-gradient
+    share (host clock around ``engine._grads`` inside the round, with a
+    synchronise on each side), and a ``torch.profiler`` trace of one more
+    round with the device's busy share and its costliest kernels. Returns
+    {preset: numbers}."""
     from torch.profiler import ProfilerActivity, profile
 
-    for label, kw in (("dgcwgmf", {"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True}),
-                      ("dgc", {"scheme": "dgc"})):
+    out = {}
+    for label, kw in presets:
         comp = rt.core.CompressionConfig(rate=0.1, **kw)
-        fl = rt.fl.FLConfig(num_clients=20, rounds=2, batch_size=64, learning_rate=0.1)
+        fl = rt.fl.FLConfig(num_clients=clients, clients_per_round=per_round, rounds=2,
+                            batch_size=batch, learning_rate=lr)
         sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, device=task.device)
-        provide = task.batch_provider(64)
+        provide = task.batch_provider(batch)
         sim.run(provide)  # warm-up rounds
-        batches = provide(0, list(range(20)), np.random.default_rng(0))
-        grads_ms = []
-        for _ in range(5):
+        grads_ms, grads = [], sim.engine._grads
+
+        def timed_grads(params, batches):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with torch.no_grad():
-                sim.engine._grads(sim.params, batches)
+            out = grads(params, batches)
             torch.cuda.synchronize()
             grads_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        sim.engine._grads = timed_grads
         sim.fl.rounds = 3
-        t0 = time.perf_counter()
         hist = sim.run(provide)
+        sim.engine._grads = grads
         round_ms = statistics.median(r["round_ms"] for r in hist[-3:])
         sim.fl.rounds = 1
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -776,6 +941,9 @@ def profile_phase(rt, task):
               f"({100 * busy / wall:.1f} % of the profiled round)", flush=True)
         for e in top:
             print(f"    {device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+        out[label] = dict(round_ms=round_ms, grads_ms=grads, activities=launched,
+                          busy_share=busy / wall)
+    return out
 
 
 def card_vs_cpu_phase(rt, dev, tol=1e-2):
@@ -796,6 +964,191 @@ def card_vs_cpu_phase(rt, dev, tol=1e-2):
     flips = int(((b_g != 0) != (b_c != 0)).sum())
     print(f"  card vs CPU: upload nnz equal {nnz_g}; broadcast relative L2 {rel:.3e} "
           f"(tolerance {tol}); support flips {flips}", flush=True)
+
+
+# The paper's Shakespeare preset (benchmarks/common.py:run_shakespeare):
+# 100 clients of 4,000 chars, sequences of 80, 10 clients a round, batch 8,
+# lr 0.5, the char-LSTM at hidden 256 (292,560 params in 6 leaves).
+SHAKESPEARE = dict(clients=100, per_round=10, batch=8, lr=0.5)
+LSTM_LEAVES, LSTM_PARAMS, LSTM_KEEP = 6, 292_560, 29_258
+SHAKESPEARE_PRESETS = {
+    "dgc": ({"scheme": "dgc"},
+            {"gmf_select": 1, "gmf_compress": 0, "momentum_correction": 1, "apply_mask": 1}),
+    "gmc": ({"scheme": "gmc"},
+            {"gmf_select": 1, "gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}),
+    "dgcwgm": ({"scheme": "dgcwgm"},
+               {"gmf_select": 1, "gmf_compress": 0, "momentum_correction": 1, "apply_mask": 1}),
+    "dgcwgmf": ({"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True},
+                {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1, "apply_mask": 0}),
+}
+
+
+def state_tensors(rt, sim):
+    """Everything a round leaves behind, as named tensors."""
+    out = {f"params/{i}": x for i, x in enumerate(rt.utils.tree_leaves(sim.params))}
+    for name, x in zip(("u", "v", "m"), sim.cstates, strict=True):
+        if torch.is_tensor(x):
+            out[f"client/{name}"] = x
+    for name, x in zip(("momentum", "residual"), sim.sstate, strict=True):
+        if torch.is_tensor(x):
+            out[f"server/{name}"] = x
+    out["gbar_prev"] = sim.gbar_prev
+    return out
+
+
+def shakespeare_phase(rt, dev):
+    """The Shakespeare path at the paper's preset, full width: 3 rounds of
+    each preset with its launch counts and nnz, then round 0 twice from
+    the same state, bitwise equal. Returns (launches, task)."""
+    t0 = time.perf_counter()
+    data = rt.synthetic.SynthShakespeare(num_clients=SHAKESPEARE["clients"],
+                                         chars_per_client=4000, seq_len=80, seed=0)
+    task = rt.fl.ShakespeareTask(num_clients=SHAKESPEARE["clients"], data=data, device=dev)
+    print(f"  SynthShakespeare: {SHAKESPEARE['clients']} clients x 4000 chars, "
+          f"{int(task.counts.sum())} sequences of 80, measured EMD {task.measured_emd:.4f}; "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    run_kw = dict(clients=SHAKESPEARE["clients"], batch=SHAKESPEARE["batch"],
+                  lr=SHAKESPEARE["lr"], per_round=SHAKESPEARE["per_round"])
+    for label, (kw, per_round) in SHAKESPEARE_PRESETS.items():
+        t0 = time.perf_counter()
+        sim, hist, counts = run_path(rt, task, kw, 3, launches=launches, **run_kw)
+        sizes = sim.layout.sizes
+        check(sim.layout.num_leaves == LSTM_LEAVES and sim.total_params == LSTM_PARAMS,
+              f"LSTM layout: {sim.layout.num_leaves} leaves, {sim.total_params} params")
+        keep = sum(rt.sparsify.num_keep(n, 0.1) for n in sizes)
+        check(keep == LSTM_KEEP, f"LSTM exact-k sum {keep}, expected {LSTM_KEEP}")
+        for rec in hist:
+            nnz = rec["upload_nnz"]
+            check(len(nnz) == SHAKESPEARE["per_round"] and min(nnz) >= keep,
+                  f"Shakespeare {label} round {rec['round']}: upload nnz {nnz} below {keep}")
+        check(all(bool(torch.isfinite(x).all()) for x in rt.utils.tree_leaves(sim.params)),
+              f"Shakespeare {label}: params not finite")
+        want = {k: 3 * v for k, v in per_round.items()}
+        check(counts == want, f"Shakespeare {label}: launches {counts}, expected {want}")
+        check_ledger(rt, sim, hist, f"Shakespeare {label}")
+        state_mb = sum(x.numel() * 4 for x in sim.cstates if torch.is_tensor(x)) / 1e6
+        fields = ", ".join(n for n, x in zip("uvm", sim.cstates, strict=True)
+                           if torch.is_tensor(x))
+        ms = [round(r["round_ms"], 3) for r in hist]
+        del sim
+        # round 0 twice from the same state: the same bits (the embedding's
+        # gradient and every reduction of the round are deterministic)
+        runs = []
+        for _ in range(2):
+            again, h0, _ = run_path(rt, task, kw, 1, launches={n: 0 for n in launches},
+                                    **run_kw)
+            runs.append(({k: v.clone() for k, v in state_tensors(rt, again).items()},
+                         h0[0]["upload_nnz"], h0[0]["download_nnz"]))
+            del again
+        (a, nnz_a, down_a), (b, nnz_b, down_b) = runs
+        check(nnz_a == nnz_b == hist[0]["upload_nnz"] and down_a == down_b,
+              f"Shakespeare {label}: round 0 twice gave nnz {nnz_a} / {nnz_b}")
+        for key in a:
+            check(torch.equal(a[key], b[key]), f"Shakespeare {label}: round 0 twice differs "
+                  f"in {key} (max abs {(a[key] - b[key]).abs().max().item():.3e})")
+        print(f"  {label}: launches {counts}; upload nnz per client (round 0) "
+              f"{hist[0]['upload_nnz']}; ms/round {ms} (round 0 first); ledger "
+              f"{json.dumps(sim_summary(hist))}; flat client state ({fields}) {state_mb:.1f} MB; "
+              f"round 0 twice bitwise equal ({len(a)} tensors); "
+              f"{time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return launches, task
+
+
+def sim_summary(hist):
+    return {"rounds": len(hist), "comm_gb": hist[-1]["comm_gb"],
+            "accuracy": hist[-1].get("accuracy")}
+
+
+def shakespeare_card_vs_cpu_phase(rt, dev, clients=10, per_round=4, tol=1e-2):
+    """Round 0 of ``dgcwgmf`` (fused) on the char-LSTM at full width, 10
+    clients (4 a round), on the card and with ``device="cpu"`` from the same
+    params and batches: upload nnz equal, broadcast within ``tol``
+    relative L2 (the ResNet phase's)."""
+    data = rt.synthetic.SynthShakespeare(num_clients=clients, chars_per_client=4000, seed=0)
+    out = {}
+    for device in (dev, "cpu"):
+        task = rt.fl.ShakespeareTask(num_clients=clients, data=data, device=device)
+        comp = rt.core.CompressionConfig(scheme="dgcwgmf", rate=0.1, tau=0.6, use_kernels=True)
+        fl = rt.fl.FLConfig(num_clients=clients, clients_per_round=per_round, rounds=1,
+                            batch_size=SHAKESPEARE["batch"], learning_rate=SHAKESPEARE["lr"])
+        sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, device=device)
+        hist = sim.run(task.batch_provider(SHAKESPEARE["batch"]))
+        out[device if device == "cpu" else "cuda"] = (hist[0]["upload_nnz"], sim.gbar_prev.cpu())
+    (nnz_g, b_g), (nnz_c, b_c) = out["cuda"], out["cpu"]
+    check(nnz_g == nnz_c, f"Shakespeare card vs CPU upload nnz differ: {nnz_g} vs {nnz_c}")
+    rel = float((b_g - b_c).norm() / b_c.norm())
+    check(math.isfinite(rel) and rel <= tol,
+          f"Shakespeare card vs CPU broadcast relative L2 {rel:.3e} > {tol}")
+    flips = int(((b_g != 0) != (b_c != 0)).sum())
+    print(f"  card vs CPU (char-LSTM, hidden 256, {per_round} of {clients} clients): upload nnz "
+          f"equal {nnz_g}; broadcast relative L2 {rel:.3e} (tolerance {tol}); support flips "
+          f"{flips}", flush=True)
+
+
+# The ResNet-56 path under the other stage kinds: the int8 and bf16 wires,
+# the top-k downlink (one more gmf_select launch a round, on the [1, N]
+# broadcast) and per-client rates (the staged path: K2, gmf_select in its
+# |z| mode with a [k, L] keep table, K3).
+RESNET_PRESETS = {
+    "dgcwgmf, int8 wire": ({"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True,
+                            "wire_dtype": "int8"},
+                           {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1,
+                            "apply_mask": 0}),
+    "dgcwgmf, bf16 wire": ({"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True,
+                            "wire_dtype": "bfloat16"},
+                           {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1,
+                            "apply_mask": 0}),
+    "dgcwgmf_dl": ({"scheme": "dgcwgmf_dl", "tau": 0.6, "use_kernels": True},
+                   {"gmf_select": 2, "gmf_compress": 1, "momentum_correction": 1,
+                    "apply_mask": 0}),
+    "adaptive_dgcwgmf": ({"scheme": "adaptive_dgcwgmf", "tau": 0.6, "use_kernels": True,
+                          "rate_wire_threshold": 0.5},
+                         {"gmf_select": 1, "gmf_compress": 0, "momentum_correction": 1,
+                          "apply_mask": 1}),
+}
+
+
+def resnet_presets_phase(rt, task):
+    """2 rounds of each of ``RESNET_PRESETS`` on ResNet-56 (20 clients,
+    batch 64): launch counts, nnz against the exact-k sums (per client at
+    its own rate under the controller), the ledger against the cost model,
+    and for the controller some client on the int8 wire."""
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    for label, (kw, per_round) in RESNET_PRESETS.items():
+        t0 = time.perf_counter()
+        sim, hist, counts = run_path(rt, task, kw, 2, 20, 64, launches)
+        want = {k: 2 * v for k, v in per_round.items()}
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        sizes = np.asarray(sim.layout.sizes, np.float32)
+        for rec in hist:
+            # num_keep_dynamic in float32 at each client's rate, or num_keep
+            keep = ([int(np.clip(np.ceil(np.float32(r) * sizes), 1, sizes).sum())
+                     for r in rec["rates"]] if "rates" in rec else [RESNET56_KEEP] * 20)
+            check(all(n >= k for n, k in zip(rec["upload_nnz"], keep, strict=True)),
+                  f"{label} round {rec['round']}: upload nnz {rec['upload_nnz']} below the "
+                  f"exact-k sums {keep}")
+        if "dl" in label:
+            check(all(r["download_nnz"] >= RESNET56_KEEP for r in hist),
+                  f"{label}: download nnz {[r['download_nnz'] for r in hist]}")
+        if "adaptive" in label:
+            check(any(1 in r["wire_levels"] for r in hist), f"{label}: no client dropped to int8")
+            check(any(r["rate_mean"] != np.float32(0.1) for r in hist[1:]),
+                  f"{label}: rates never moved: {[r['rate_mean'] for r in hist]}")
+        check(all(bool(torch.isfinite(x).all()) for x in rt.utils.tree_leaves(sim.params)),
+              f"{label}: params not finite")
+        check_ledger(rt, sim, hist, label)
+        extra = ""
+        if "adaptive" in label:
+            extra = (f"; rates round 1 {[round(r, 4) for r in hist[1]['rates']]}; wire levels "
+                     f"{[r['wire_levels'] for r in hist]}")
+        print(f"  {label}: launches {counts}; upload nnz (round 1) {hist[1]['upload_nnz']}; "
+              f"download nnz {[r['download_nnz'] for r in hist]}; ledger "
+              f"{json.dumps(sim.ledger.summary())}{extra}; ms/round "
+              f"{[round(r['round_ms'], 3) for r in hist]}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return launches
 
 
 def serve_phase(rt, dev, profile=False):
@@ -993,44 +1346,79 @@ def main() -> None:
 
     print("phase 2: kernels vs plain versions", flush=True)
     resnet_params = _resnet56_params(dev)
+    lstm_layout = flat.FlatLayout.of(_lstm_params(dev))
+    resnet_layout = flat.FlatLayout.of(resnet_params)
     leaf_shapes = [tuple(x.shape) for x in utils.tree_leaves(resnet_params)]
     worst = {**hold_kernels(gk, ref, dev), **hold_select(rt, resnet_params, dev)}
+    toy = select_layouts(rt, resnet_params, dev)[1]
+    worst["gmf_select"] = max(worst["gmf_select"], hold_select_keep(rt, [
+        ("the char-LSTM, 10 clients", lstm_layout, 10), (toy[0], toy[1], toy[2]),
+        ("ResNet-56, 4 clients", resnet_layout, 4)], dev))
     worst["momentum_correction"] = max(worst["momentum_correction"],
                                        hold_k2_trees(gk, ops, ref, leaf_shapes, dev))
     k4_worst = hold_k4(k4, ref, dev)
     print(json.dumps({"kernels_held": [
-        "K1 gmf_select (and its |z| mode)", "K1 gmf_compress (flat mask pass)",
+        "K1 gmf_select (and its |z| mode)", "K1 gmf_select with a per-row keep table (both modes)",
+        "K1 gmf_compress (flat mask pass)",
         "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
         "K4 flash_attention_tc (tensor cores)", "K4 flash_attention_cc (CUDA cores)"]}),
         flush=True)
 
     launches = {name: 0 for _, name, _, _, _ in KERNELS}
     launches.update(flash_attention_tc=0, flash_attention_cc=0)
+    by_path = {}  # the compression kernels' launches in each path's run
     if args.only != "kernels":
         print("phase 3: ResNet-56 FL path, 20 clients, batch 64", flush=True)
-        launches, task = path_phase(rt, dev)
+        by_path["resnet56"], task = path_phase(rt, dev)
         print("phase 4: card vs CPU, round 0 at depth 8", flush=True)
         card_vs_cpu_phase(rt, dev)
         print("profile: where a ResNet-56 round's time goes", flush=True)
         profile_phase(rt, task)
-        del task
         print("phase 5: serving llama3.2-1b, batch 4, prompt 2048, 32 tokens", flush=True)
         _, counts = serve_phase(rt, dev, args.profile)
         launches["flash_attention_tc"] = counts["flash_attention_tc"]
         print("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2", flush=True)
         launches["flash_attention_cc"] = serve_card_vs_cpu_phase(rt, dev)
+        print("phase 7: ResNet-56 under the int8 and bf16 wires, the top-k downlink and "
+              "per-client rates, 2 rounds each", flush=True)
+        by_path["resnet56_stages"] = resnet_presets_phase(rt, task)
+        del task
+        print("phase 8: Shakespeare (char-LSTM, hidden 256), 100 clients, 10 a round, batch "
+              "8, lr 0.5, 3 rounds a preset", flush=True)
+        by_path["shakespeare"], task = shakespeare_phase(rt, dev)
+        print("phase 9: Shakespeare card vs CPU, round 0 at full width", flush=True)
+        shakespeare_card_vs_cpu_phase(rt, dev)
+        print("profile: where a Shakespeare round's time goes", flush=True)
+        profile_phase(rt, task, [(k, SHAKESPEARE_PRESETS[k][0]) for k in ("dgcwgmf", "dgc")],
+                      clients=SHAKESPEARE["clients"], per_round=SHAKESPEARE["per_round"],
+                      batch=SHAKESPEARE["batch"], lr=SHAKESPEARE["lr"])
+        del task
+        for counts in by_path.values():
+            for name, n in counts.items():
+                launches[name] += n
 
     print("timing: one round's flat ResNet-56 stacks, 20 clients", flush=True)
-    times = time_kernels(rt, flat.FlatLayout.of(resnet_params), 20, bw, peak, dev)
+    times = time_kernels(rt, resnet_layout, 20, bw, peak, dev)
+    print("timing: gmf_select's |z| mode on the Shakespeare, downlink and adaptive paths",
+          flush=True)
+    select_paths = time_select_paths(rt, [
+        ("Shakespeare round (10 clients), per-row keep table", lstm_layout, 10, True),
+        ("Shakespeare round (10 clients), shared counts (dgc)", lstm_layout, 10, False),
+        ("ResNet-56 round (20 clients), per-row keep table (adaptive)", resnet_layout, 20, True),
+        ("ResNet-56 broadcast (the top-k downlink)", resnet_layout, 1, False)], bw, peak, dev)
     print("timing: K4 at the serving shape", flush=True)
     k4_times = time_k4(k4, ref, bw, peak, bf16_peak, dev)
     torch.cuda.synchronize()
 
     rows = []
     for kid, name, replaces, _, _ in KERNELS:
-        rows.append({"name": name, "id": kid, "route": "cuda", "source": PORT_SOURCE,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": worst[name], **times[name], "library_ms": None})
+        row = {"name": name, "id": kid, "route": "cuda", "source": PORT_SOURCE,
+               "replaces": replaces, "launches": launches[name],
+               "launches_by_path": {path: c[name] for path, c in by_path.items()},
+               "max_abs_err": worst[name], **times[name], "library_ms": None}
+        if name == "gmf_select":
+            row["at_other_paths"] = select_paths
+        rows.append(row)
     # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.
@@ -1050,6 +1438,13 @@ def _resnet56_params(dev):
     from repro_torch.models import resnet
 
     return resnet.init_resnet(torch.Generator().manual_seed(0), depth=56, device=dev)
+
+
+def _lstm_params(dev):
+    from repro_torch.data.synthetic import VOCAB
+    from repro_torch.models import lstm
+
+    return lstm.init_lstm(torch.Generator().manual_seed(0), vocab=VOCAB, device=dev)
 
 
 if __name__ == "__main__":

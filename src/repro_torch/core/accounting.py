@@ -26,16 +26,21 @@ class CostModel:
     index_bytes: int = 4
     unicast_download: bool = True  # server sends aggregate to each of K clients
 
-    def payload_bytes(self, nnz, total):
-        """Cheaper of sparse (value+index per nnz) and dense (value per elem)."""
-        vb = np.float64(self.value_bytes)
+    def payload_bytes(self, nnz, total, value_bytes=None):
+        """Cheaper of sparse (value+index per nnz) and dense (value per elem).
+        ``value_bytes`` (a scalar or one per payload) overrides the model's
+        per-value cost: the adaptive rate controller charges a client it
+        dropped to the int8 wire 1 byte a value for that round."""
+        vb = np.asarray(self.value_bytes if value_bytes is None else value_bytes, np.float64)
         sparse = np.asarray(nnz, np.float64) * (vb + self.index_bytes)
         dense = np.float64(total) * vb
         return np.minimum(sparse, dense)
 
-    def round_bytes(self, upload_nnz_per_client, download_nnz, total, num_clients):
-        """(upload, download) bytes moved in one FL round."""
-        up = np.sum(self.payload_bytes(upload_nnz_per_client, total))
+    def round_bytes(self, upload_nnz_per_client, download_nnz, total, num_clients,
+                    value_bytes=None):
+        """(upload, download) bytes moved in one FL round; ``value_bytes``
+        overrides the upload payloads' per-value cost, one per client."""
+        up = np.sum(self.payload_bytes(upload_nnz_per_client, total, value_bytes))
         down = self.payload_bytes(download_nnz, total)
         if self.unicast_download:
             down = down * num_clients
@@ -51,10 +56,11 @@ class CommLedger:
         self.download_bytes = 0.0
         self.rounds = 0
 
-    def record_round(self, upload_nnz_per_client, download_nnz, total, num_clients):
+    def record_round(self, upload_nnz_per_client, download_nnz, total, num_clients,
+                     value_bytes=None):
         up, down = self.cost.round_bytes(
             np.asarray(upload_nnz_per_client, np.float64), download_nnz, total,
-            num_clients)
+            num_clients, value_bytes)
         self.upload_bytes += float(up)
         self.download_bytes += float(down)
         self.rounds += 1

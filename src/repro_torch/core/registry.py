@@ -3,9 +3,11 @@
 ``resolve(cfg)`` binds a preset's ``SchemeSpec`` (after any per-config
 stage overrides) to a ``CompressionConfig`` and returns a ``Scheme``, the
 object the round engine calls. The ported presets are the paper's scheme
-family on the synchronous star round: ``none``, ``dgc``, ``gmc``,
-``dgcwgm`` and ``dgcwgmf``. The reference's other presets raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+family on the synchronous star round (``none``, ``dgc``, ``gmc``,
+``dgcwgm``, ``dgcwgmf``), the ``topk`` ablation, ``dgcwgmf_dl`` (a top-k
+downlink with a server residual) and ``adaptive_dgcwgmf`` (per-client
+rates). The reference's other presets raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 
 The client axis is explicit and the state is flat: ``Scheme.client_compress``
 takes the ``[k, N]`` state and gradient stacks of k clients
@@ -20,8 +22,10 @@ import functools
 
 import torch
 
+from repro_torch.core import rate_control as _rate_control  # noqa: F401  registers its stages
 from repro_torch.core import stages
 from repro_torch.core.accounting import CostModel
+from repro_torch.core.fusion import rows
 from repro_torch.core.stages import AggregateInfo, CompressInfo, StageCtx
 from repro_torch.core.state import (
     ClientState,
@@ -30,15 +34,13 @@ from repro_torch.core.state import (
     init_server_state,
 )
 from repro_torch.utils import scalar, tree_nnz
+from repro_torch.utils.quant import roundtrip_q8_segments
 
 OTHER_KINDS = stages.OTHER_KINDS
 ENGINES = stages.ENGINES
 NOT_PORTED_PRESETS = {
-    "topk": OTHER_KINDS,
     "randomk": OTHER_KINDS,
     "fetchsgd": OTHER_KINDS,
-    "dgcwgmf_dl": OTHER_KINDS,
-    "adaptive_dgcwgmf": OTHER_KINDS,
     "async_dgcwgmf": ENGINES,
     "hier_dgcwgmf": ENGINES,
 }
@@ -101,6 +103,8 @@ def check_preset(name: str) -> None:
 
 # dense FedSGD (no compression; accounting baseline)
 register_preset("none", SchemeSpec(selector="dense"))
+# plain top-k sparsification, no compensation (ablation)
+register_preset("topk", SchemeSpec(selector="topk"))
 # Deep Gradient Compression (momentum correction + EF)
 register_preset("dgc", SchemeSpec(selector="topk", compensator="dgc"))
 # Global Momentum Compression (global momentum in the compensation)
@@ -109,6 +113,12 @@ register_preset("gmc", SchemeSpec(selector="topk", compensator="ef", fusion="gmc
 register_preset("dgcwgm", SchemeSpec(selector="topk", compensator="dgc", fusion="server_gm"))
 # DGC + Global Momentum Fusion in the selection (the paper)
 register_preset("dgcwgmf", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf"))
+# DGCwGMF plus a top-k downlink with server-side error feedback
+register_preset("dgcwgmf_dl", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf",
+                                         downlink="topk"))
+# DGCwGMF with the adaptive per-client rate controller (core/rate_control.py)
+register_preset("adaptive_dgcwgmf", SchemeSpec(selector="topk", compensator="dgc",
+                                               fusion="gmf", rate_control="adaptive"))
 
 
 class Scheme:
@@ -148,6 +158,12 @@ class Scheme:
     def downlink_residual(self) -> bool:
         return self.downlink.uses_residual
 
+    @property
+    def rate_adaptive(self) -> bool:
+        """True when the rate controller varies per-client rates: the engine
+        threads rates (and wire levels) into ``client_compress`` only then."""
+        return self.rate_control.name != "fixed"
+
     def init_states(self, params) -> tuple[ClientState, ServerState]:
         """One client's zero state (flat ``[N]`` fields, no client axis) and
         the server state."""
@@ -162,13 +178,18 @@ class Scheme:
         return CostModel(value_bytes=self.wire.value_bytes)
 
     def client_compress(self, state: ClientState, grad, gbar_prev, round_idx,
-                        local_steps=1.0, mean_steps=1.0, tau_override=None, *, layout):
+                        local_steps=1.0, mean_steps=1.0, tau_override=None, rates=None,
+                        wire_levels=None, *, layout):
         """One compression step for a stack of k clients (paper Algorithm 1
         lines 6-13). ``state`` fields and ``grad`` are flat ``[k, N]``
         stacks of the params ``layout`` describes; ``gbar_prev`` is last
         round's broadcast, ``[N]``; ``local_steps`` / ``mean_steps`` are
-        scalars or ``[k]``. Returns the ``[k, N]`` payload stack, the new
-        state stack and a ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
+        scalars or ``[k]``. ``rates`` (float32 ``[k]``) and ``wire_levels``
+        (int ``[k]``, 1 = drop to int8) are the adaptive rate controller's,
+        threaded only under it: per-client rates take the staged path with
+        per-client keep counts, as the reference sends a traced rate.
+        Returns the ``[k, N]`` payload stack, the new state stack and a
+        ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
         cfg = self.cfg
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
                        local_steps=local_steps, mean_steps=mean_steps,
@@ -182,7 +203,7 @@ class Scheme:
         # The fused kernel implements exactly the topk + dgc + gmf
         # composition; any other composition takes the staged path.
         fused = getattr(self.fusion, "fused_compress", None)
-        if (cfg.use_kernels and fused is not None and cfg.per_tensor
+        if (cfg.use_kernels and fused is not None and cfg.per_tensor and rates is None
                 and self.selector.name == "topk"
                 and self.compensator.uses_u and self.compensator.uses_v):
             g_out, u, v, m, masks = fused(cfg, u, v, m, ctx)
@@ -195,17 +216,32 @@ class Scheme:
                 ref, m = self.fusion.scores(cfg, value, m, ctx)
             else:
                 ref = value
-            masks = self.selector.select(cfg, ref, round_idx, layout)
+            masks = self.selector.select(cfg, ref, round_idx, layout, rates=rates)
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, masks)
             nnz = tree_nnz(masks, client_axis=True)
 
-        g_out, new_state = self.wire.encode(cfg, g_out, ClientState(u=u, v=v, m=m))
+        g_out, new_state = self._encode_payload(cfg, g_out, ClientState(u=u, v=v, m=m),
+                                                layout, wire_levels)
         return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
 
-    def server_aggregate(self, server_state: ServerState, g_sum, num_clients):
+    def _encode_payload(self, cfg, g_out, state: ClientState, layout, wire_levels):
+        """Wire-encode the payload stack. Without wire levels this is the
+        wire stage's own ``encode``; with them (the adaptive controller's
+        int8 drop) the clients at level 1 take the int8 round trip instead
+        of the scheme's codec, and every client's residual G − wire(G)
+        folds into V, as the reference's per-client ``_encode_payload``
+        does (rotation is the identity here)."""
+        if wire_levels is None:
+            return self.wire.encode(cfg, g_out, state, layout)
+        g_wire = torch.where(rows(wire_levels, g_out) > 0, roundtrip_q8_segments(g_out, layout),
+                             self.wire.roundtrip(g_out, layout))
+        return g_wire, ClientState(u=state.u, v=stages.fold_residual(state.v, g_out, g_wire),
+                                   m=state.m)
+
+    def server_aggregate(self, server_state: ServerState, g_sum, num_clients, *, layout=None):
         """Average the summed ``[N]`` payloads, apply the fusion stage's
         server transform and the downlink stage; returns the ``[N]``
-        broadcast."""
+        broadcast. The ``topk`` downlink selects per leaf of ``layout``."""
         cfg = self.cfg
         # A divisor on the device: CUDA divides by a Python scalar as a
         # multiplication by its reciprocal, one rounding off x / n.
@@ -216,8 +252,11 @@ class Scheme:
         else:
             bcast, new_momentum = gbar, server_state.momentum
         union_nnz = tree_nnz(bcast)
+        if self.downlink.uses_residual and layout is None:
+            raise ValueError(f"the {self.downlink.name} downlink needs the params' layout: "
+                             f"server_aggregate(..., layout=...)")
         bcast, residual, down_nnz = self.downlink.apply(
-            cfg, self.wire, server_state.residual, bcast, union_nnz)
+            cfg, self.wire, server_state.residual, bcast, union_nnz, layout)
         info = AggregateInfo(download_nnz=down_nnz, total_params=total, union_nnz=union_nnz)
         return bcast, ServerState(momentum=new_momentum, residual=residual), info
 

@@ -10,7 +10,7 @@ ROADMAP item that ports it; nothing is silently ignored.
   init_states(cfg, params)                  -> (ClientState, ServerState)
   client_compress(cfg, state, grad, gbar_prev, round_idx, ..., layout=...)
       -> (payload, new_state, CompressInfo)     # flat [k, N] client stacks
-  server_aggregate(cfg, server_state, g_sum, num_clients)
+  server_aggregate(cfg, server_state, g_sum, num_clients, layout=...)
       -> (broadcast, new_server_state, AggregateInfo)
 """
 
@@ -59,7 +59,7 @@ class CompressionConfig:
     tier_scheme: str | None = None
     tier_rate: float = 0.1
 
-    # Downlink compression rate (downlink=topk; not ported).
+    # Downlink compression rate (downlink=topk).
     downlink_rate: float = 0.1
 
     # Staleness weighting (async buffered engine; not ported).
@@ -67,7 +67,7 @@ class CompressionConfig:
     staleness_tau: float = 0.3
     staleness_horizon: int = 32
 
-    # Adaptive per-client rate control (rate_control=adaptive; not ported).
+    # Adaptive per-client rate control (rate_control=adaptive).
     rate_min: float = 0.01
     rate_max: float = 1.0
     rate_gain: float = 0.5
@@ -113,6 +113,17 @@ class CompressionConfig:
             raise ValueError(f"tier_rate must be in (0, 1], got {self.tier_rate}")
         if not 0.0 < self.downlink_rate <= 1.0:
             raise ValueError(f"downlink_rate must be in (0, 1], got {self.downlink_rate}")
+        if not 0.0 < self.rate_min <= self.rate_max <= 1.0:
+            raise ValueError(
+                f"rate clamp must satisfy 0 < rate_min <= rate_max <= 1, "
+                f"got [{self.rate_min}, {self.rate_max}]")
+        if self.rate_gain < 0.0:
+            raise ValueError(f"rate_gain must be >= 0, got {self.rate_gain}")
+        if not 0.0 <= self.rate_ema < 1.0:
+            raise ValueError(f"rate_ema must be in [0, 1), got {self.rate_ema}")
+        if self.rate_wire_threshold < 0.0:
+            raise ValueError(
+                f"rate_wire_threshold must be >= 0, got {self.rate_wire_threshold}")
 
 
 def init_states(cfg: CompressionConfig, params) -> tuple[ClientState, ServerState]:
@@ -120,17 +131,20 @@ def init_states(cfg: CompressionConfig, params) -> tuple[ClientState, ServerStat
 
 
 def client_compress(cfg: CompressionConfig, state: ClientState, grad, gbar_prev, round_idx,
-                    local_steps=1.0, mean_steps=1.0, tau_override=None, *, layout):
+                    local_steps=1.0, mean_steps=1.0, tau_override=None, rates=None,
+                    wire_levels=None, *, layout):
     """One client-side compression step for a flat ``[k, N]`` stack of
     clients of the params ``layout`` describes."""
     return resolve(cfg).client_compress(
         state, grad, gbar_prev, round_idx, local_steps=local_steps,
-        mean_steps=mean_steps, tau_override=tau_override, layout=layout)
+        mean_steps=mean_steps, tau_override=tau_override, rates=rates,
+        wire_levels=wire_levels, layout=layout)
 
 
-def server_aggregate(cfg: CompressionConfig, server_state: ServerState, g_sum, num_clients):
-    """Server step: average, fusion-stage server transform, broadcast."""
-    return resolve(cfg).server_aggregate(server_state, g_sum, num_clients)
+def server_aggregate(cfg: CompressionConfig, server_state: ServerState, g_sum, num_clients, *,
+                     layout=None):
+    """Server step: average, fusion-stage server transform, downlink."""
+    return resolve(cfg).server_aggregate(server_state, g_sum, num_clients, layout=layout)
 
 
 __all__ = [

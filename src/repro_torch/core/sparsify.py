@@ -20,6 +20,14 @@ and ``segment_topk_mask`` select per (client, leaf) segment of a
 ``topk_mask`` over the whole rows. On the card the exact per-segment
 selection is a kernel (``kernels/ops.py: topk_abs_select``); these are its
 plain version and the sampled estimator's path.
+
+Per-client rates (the adaptive rate controller, ``core/rate_control.py``)
+take the reference's dynamic-k path: ``num_keep_dynamic`` computes each
+client's keep count on the device in float32 (a ``[k, L]`` table over the
+layout's leaves, ``keep_table``), and ``dynamic_threshold`` is the k-th
+largest of each row by a descending sort, the plain version of the
+kernel's per-row keep table. The k-th largest value of a multiset is
+unique, so for equal k both are bitwise ``torch.topk``'s.
 """
 
 from __future__ import annotations
@@ -103,3 +111,69 @@ def segment_topk_mask(z: torch.Tensor, layout, rate: float, selector: str = "exa
     za = torch.abs(z).float()
     thr = segment_thresholds(za, layout, rate, selector)
     return thr, (za >= layout.expand(thr)).float()
+
+
+def num_keep_dynamic(n, rate) -> torch.Tensor:
+    """The reference's traced-rate ``num_keep``: ``ceil(float32(rate) · n)``
+    in float32, clipped to [1, n], as int64. ``rate`` and ``n`` are tensors
+    (or numbers) that broadcast; no host sync."""
+    rate = torch.as_tensor(rate, dtype=torch.float32)
+    n = torch.as_tensor(n, device=rate.device)
+    k = torch.ceil(rate * n.to(torch.float32)).to(torch.int64)
+    return torch.minimum(torch.clamp(k, min=1), n.to(torch.int64))
+
+
+def keep_table(layout, rates: torch.Tensor) -> torch.Tensor:
+    """Every (client, leaf) segment's keep count at the clients' rates
+    ``[k]`` -> int64 ``[k, L]`` on the rates' device."""
+    return num_keep_dynamic(layout.sizes_dev.to(rates.device)[None, :], rates[:, None])
+
+
+def dynamic_threshold(z_rows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The ``k[r]``-th largest value of each row of ``z_rows`` (``[rows, n]``,
+    ``k`` int64 ``[rows]``) -> ``[rows]``: one descending sort per row and a
+    gather, as the reference's ``dynamic_threshold``."""
+    ordered = torch.sort(z_rows, dim=1, descending=True).values
+    return torch.gather(ordered, 1, (k - 1).reshape(-1, 1))[:, 0]
+
+
+def segment_keep_thresholds(za: torch.Tensor, layout, keep: torch.Tensor) -> torch.Tensor:
+    """The ``keep[r, i]``-th largest of every (client, leaf) segment of a
+    flat ``[k, N]`` score stack -> ``[k, L]``: the plain version of the
+    kernel's per-row keep table."""
+    return torch.stack([dynamic_threshold(seg, keep[:, i])
+                        for i, seg in enumerate(layout.segments(za))], dim=1)
+
+
+def segment_topk_mask_keep(z: torch.Tensor, layout, keep: torch.Tensor):
+    """``segment_topk_mask`` at a per-row keep table ``[k, L]`` -> (thr
+    ``[k, L]``, mask ``[k, N]``)."""
+    za = torch.abs(z).float()
+    thr = segment_keep_thresholds(za, layout, keep)
+    return thr, (za >= layout.expand(thr)).float()
+
+
+def segment_topk_mask_dynamic(z: torch.Tensor, layout, rates: torch.Tensor,
+                              selector: str = "exact") -> torch.Tensor:
+    """Per (client, leaf) segment masks of ``|z|`` at per-client rates
+    ``[k]`` (the reference's ``topk_mask_dynamic`` on every leaf): exact,
+    or the sampled estimate at each client's rate over the leaf's strided
+    sample. Returns the mask ``[k, N]``."""
+    if selector == "exact":
+        return segment_topk_mask_keep(z, layout, keep_table(layout, rates))[1]
+    if selector != "sampled":
+        raise ValueError(f"unknown selector {selector!r}")
+    za = torch.abs(z).float()
+    thr = []
+    for seg, shape in zip(layout.segments(za), layout.shapes, strict=True):
+        sample = strided_sample_nd(seg.reshape(seg.shape[0], *shape))
+        thr.append(dynamic_threshold(sample, num_keep_dynamic(sample.shape[1], rates)))
+    return (za >= layout.expand(torch.stack(thr, dim=1))).float()
+
+
+def topk_mask_dynamic(z: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
+    """One exact threshold per client over its whole row at its own rate
+    (global top-k, ``per_tensor=False``) -> the {0,1} mask."""
+    za = torch.abs(z).float().reshape(z.shape[0], -1)
+    thr = dynamic_threshold(za, num_keep_dynamic(za.shape[1], rates))
+    return (za >= thr[:, None]).float().reshape(z.shape)

@@ -10,9 +10,15 @@ star round:
                  correction, then error feedback);
 ``fusion``       ``none``, ``gmc``, ``server_gm`` and ``gmf`` (the paper's
                  Global Momentum Fusion, with the fused kernel path);
-``wire``, ``rotation``, ``downlink``, ``staleness``, ``rate_control``
-                 their identity stages only (``float32``, ``none``,
-                 ``none``, ``none``, ``fixed``).
+``wire``         ``float32`` (identity), ``float16`` and ``bfloat16``
+                 (casts) and ``int8`` (per-leaf 256-entry blocks,
+                 ``utils/quant.py``), each non-identity wire folding its
+                 rounding residual into V;
+``downlink``     ``none`` and ``topk`` (top-k of the broadcast against a
+                 server-side residual, ``ServerState.residual``);
+``rate_control`` ``fixed`` and ``adaptive`` (``core/rate_control.py``);
+``rotation``, ``staleness``
+                 their identity stages only (``none``, ``none``).
 
 The client axis is explicit and the state is flat (``utils/flat.py``):
 every state, gradient and payload is one client-major ``[k, N]`` stack of
@@ -37,6 +43,7 @@ from repro_torch.core import fusion as fusion_math
 from repro_torch.core import sparsify
 from repro_torch.core.state import ClientState
 from repro_torch.utils import scalar, tree_map
+from repro_torch.utils.quant import roundtrip_q8_segments
 
 STAGE_KINDS = ("selector", "compensator", "fusion", "wire", "rotation",
                "downlink", "staleness", "rate_control")
@@ -52,15 +59,10 @@ ENGINES = "ROADMAP.md Queue 1 item 9 (the async, topology and shard engines)"
 NOT_PORTED = {
     ("selector", "randomk"): OTHER_KINDS,
     ("selector", "sketch"): OTHER_KINDS,
-    ("wire", "float16"): OTHER_KINDS,
-    ("wire", "bfloat16"): OTHER_KINDS,
-    ("wire", "int8"): OTHER_KINDS,
     ("wire", "probquant"): OTHER_KINDS,
     ("rotation", "hadamard"): OTHER_KINDS,
-    ("downlink", "topk"): OTHER_KINDS,
-    ("staleness", "poly"): OTHER_KINDS,
-    ("staleness", "gmf_damp"): OTHER_KINDS,
-    ("rate_control", "adaptive"): OTHER_KINDS,
+    ("staleness", "poly"): ENGINES,
+    ("staleness", "gmf_damp"): ENGINES,
 }
 
 
@@ -139,7 +141,9 @@ class Selector:
     dense = False
     description = ""
 
-    def select(self, cfg, ref, round_idx, layout):
+    def select(self, cfg, ref, round_idx, layout, rates=None):
+        """``rates=None`` selects at ``cfg.rate``; per-client rates ``[k]``
+        (the adaptive controller's) take the dynamic-k path."""
         raise NotImplementedError
 
 
@@ -149,7 +153,9 @@ class TopKSelector(Selector):
                    "estimator from cfg.selector (exact | sampled), per-tensor "
                    "or global via cfg.per_tensor")
 
-    def select(self, cfg, scores, round_idx, layout):
+    def select(self, cfg, scores, round_idx, layout, rates=None):
+        if rates is not None:
+            return self._select_dynamic(cfg, scores, layout, rates)
         if not cfg.per_tensor:  # one exact threshold per client over all leaves
             return sparsify.topk_mask(scores, cfg.rate, "exact")
         if cfg.selector == "exact":
@@ -158,6 +164,21 @@ class TopKSelector(Selector):
             return ops.topk_abs_select(scores, layout, cfg.rate)[1]
         return sparsify.segment_topk_mask(scores, layout, cfg.rate, cfg.selector)[1]
 
+    @staticmethod
+    def _select_dynamic(cfg, scores, layout, rates):
+        """Per-client rates: every segment's keep count from its client's
+        rate (``sparsify.keep_table``), one ``gmf_select`` launch in its
+        |z| mode with the per-row table on the card; global top-k and the
+        sampled selector sort per row, as the reference does."""
+        if not cfg.per_tensor:
+            return sparsify.topk_mask_dynamic(scores, rates)
+        if cfg.selector == "exact":
+            from repro_torch.kernels import ops
+
+            return ops.topk_abs_select(scores, layout,
+                                       keep=sparsify.keep_table(layout, rates))[1]
+        return sparsify.segment_topk_mask_dynamic(scores, layout, rates, cfg.selector)
+
 
 @register("selector", "dense")
 class DenseSelector(Selector):
@@ -165,7 +186,7 @@ class DenseSelector(Selector):
     dense = True
     description = "no sparsification — every entry is transmitted"
 
-    def select(self, cfg, value, round_idx, layout):
+    def select(self, cfg, value, round_idx, layout, rates=None):
         return None
 
 
@@ -354,22 +375,91 @@ class GlobalMomentumFusion(Fusion):
 
 
 # ---------------------------------------------------------------------------
-# Identity stages of the other kinds
+# Wire codecs
 # ---------------------------------------------------------------------------
 
 
 class WireCodec:
+    """What a payload looks like after crossing the wire. ``roundtrip``
+    takes a flat ``[..., N]`` stack of ``layout`` and is pure;
+    ``encode`` sends the ``[k, N]`` payload stack through it and owns the
+    error feedback."""
+
     value_bytes: float = 4
     dtype = "float32"
     description = ""
 
-    def encode(self, cfg, g_out, state: ClientState):
+    def roundtrip(self, x, layout):
+        return x
+
+    def encode(self, cfg, g_out, state: ClientState, layout):
         return g_out, state
 
 
 @register("wire", "float32")
 class Float32Wire(WireCodec):
     description = "full-precision payload (identity)"
+
+
+def fold_residual(v, g_out, g_wire):
+    """V ← V + (G − wire(G)): the encoding residual back into the
+    error-feedback state (one op over the stack); schemes without V keep
+    their empty field."""
+    return v + (g_out - g_wire) if isinstance(v, torch.Tensor) else v
+
+
+class _RoundtripFoldWire(WireCodec):
+    """Send the payload through ``roundtrip``; the encoding residual
+    (G − wire(G)) folds back into the error-feedback state V so nothing is
+    lost. Schemes without V transmit the plain round-tripped payload."""
+
+    def encode(self, cfg, g_out, state: ClientState, layout):
+        g_wire = self.roundtrip(g_out, layout)
+        return g_wire, ClientState(u=state.u, v=fold_residual(state.v, g_out, g_wire),
+                                   m=state.m)
+
+
+class _CastFoldWire(_RoundtripFoldWire):
+    value_bytes = 2
+    torch_dtype = torch.float32
+
+    def roundtrip(self, x, layout):
+        return x.to(self.torch_dtype).to(x.dtype)
+
+
+@register("wire", "float16")
+class Float16Wire(_CastFoldWire):
+    dtype = "float16"
+    torch_dtype = torch.float16
+    description = "fp16 payload; quantisation residual folds into V"
+
+
+@register("wire", "bfloat16")
+class BFloat16Wire(_CastFoldWire):
+    dtype = "bfloat16"
+    torch_dtype = torch.bfloat16
+    description = "bf16 payload; quantisation residual folds into V"
+
+
+@register("wire", "int8")
+class Int8Wire(_RoundtripFoldWire):
+    """Symmetric int8 with one fp32 scale per 256-entry block of each leaf
+    (``utils/quant.py``); 1 byte a value on the ledger (the per-block scale
+    adds 4/256 byte a value, under the 4-byte index). All-zero blocks decode
+    to exact zeros, so sparsity (and the nnz accounting) survives."""
+
+    dtype = "int8"
+    value_bytes = 1
+    description = ("int8 payload, per-256-block symmetric scales; "
+                   "quantisation residual folds into V")
+
+    def roundtrip(self, x, layout):
+        return roundtrip_q8_segments(x, layout)
+
+
+# ---------------------------------------------------------------------------
+# Identity stages of the other kinds, and the downlink
+# ---------------------------------------------------------------------------
 
 
 class Rotation:
@@ -382,9 +472,13 @@ class NoRotation(Rotation):
 
 
 class Downlink:
+    """Compression of the ``[N]`` broadcast: ``apply`` -> (broadcast out,
+    new residual, download nnz); ``nnz`` is the pre-downlink nnz, which the
+    identity reports unchanged."""
+
     uses_residual = False
 
-    def apply(self, cfg, wire, residual, bcast, nnz):
+    def apply(self, cfg, wire, residual, bcast, nnz, layout):
         return bcast, residual, nnz
 
 
@@ -393,12 +487,39 @@ class NoDownlink(Downlink):
     description = "broadcast the raw aggregate (hub-and-spoke baseline)"
 
 
+@register("downlink", "topk")
+class TopKDownlink(Downlink):
+    uses_residual = True
+    description = ("top-k of the broadcast against a server-side residual "
+                   "accumulator (error feedback on the downlink); rate from "
+                   "cfg.downlink_rate, threshold estimator and per-tensor vs "
+                   "global from the selector knobs, payload wire-encoded like "
+                   "the uplink")
+
+    def apply(self, cfg, wire, residual, bcast, nnz, layout):
+        # the residual holds everything the clients have not seen yet
+        r = residual + bcast
+        rows = r[None]
+        if not cfg.per_tensor:
+            masks = sparsify.topk_mask(rows, cfg.downlink_rate, "exact")
+        elif cfg.selector == "exact":  # one gmf_select launch in its |z| mode
+            from repro_torch.kernels import ops
+
+            masks = ops.topk_abs_select(rows, layout, cfg.downlink_rate)[1]
+        else:
+            masks = sparsify.segment_topk_mask(rows, layout, cfg.downlink_rate, cfg.selector)[1]
+        # the accumulated broadcast is mostly exact zeros; a zero threshold
+        # would select them all (|0| >= 0), so zeros never transmit
+        masks = masks[0] * (r != 0.0).float()
+        # the payload ships through the scheme's wire codec; with masks in
+        # {0, 1}, r·(1−mk) + (r·mk − wire(r·mk)) is r − wire(r·mk)
+        out_w = wire.roundtrip(r * masks, layout)
+        return out_w, r - out_w, torch.count_nonzero(masks)
+
+
 @register("staleness", "none")
 class NoStaleness:
     uses_momentum = False
     description = "every payload weighs 1 (synchronous semantics; the identity)"
 
 
-@register("rate_control", "fixed")
-class FixedRateController:
-    description = "every sampled client compresses at cfg.rate"

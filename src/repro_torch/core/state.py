@@ -32,7 +32,7 @@ class ClientState(NamedTuple):
 
 class ServerState(NamedTuple):
     momentum: Any        # server-side global momentum, flat [N] (DGCwGM only)
-    residual: Any        # downlink error-feedback accumulator (not ported: always {})
+    residual: Any        # downlink error-feedback accumulator, flat [N] (downlink=topk only)
 
 
 def _flat_zeros(params):

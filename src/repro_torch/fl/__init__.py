@@ -1,6 +1,6 @@
 from repro_torch.fl.engine import BACKENDS, TOPOLOGIES, RoundEngine, VmapEngine, make_engine
 from repro_torch.fl.simulator import FLConfig, FLSimulator
-from repro_torch.fl.tasks import CifarTask
+from repro_torch.fl.tasks import CifarTask, ShakespeareTask
 
 __all__ = [
     "BACKENDS",
@@ -11,4 +11,5 @@ __all__ = [
     "FLConfig",
     "FLSimulator",
     "CifarTask",
+    "ShakespeareTask",
 ]

@@ -10,9 +10,13 @@ non-star topologies raise ``NotImplementedError``.
 Round function signature (the JAX package's, eager here):
 
     round_fn(params, cstates, sstate, gbar_prev, client_idx, batches,
-             round_idx, lr, tau_now)
+             round_idx, lr, tau_now[, rates, wire_levels])
       -> (params, cstates, sstate, bcast, upload_nnz[k], download_nnz,
           union_nnz)
+
+The trailing ``rates`` (float32 ``[k]``) and ``wire_levels`` (int32
+``[k]``) are the adaptive rate controller's per-client outputs, passed
+only under it (``rate_adaptive``; levels only when ``use_levels``).
 
 Client gradients are ``torch.func.vmap`` of ``torch.func.grad`` over the
 client axis; their tree is flattened with one ``torch.cat`` into a
@@ -57,6 +61,9 @@ class RoundEngine:
         self.loss_fn = loss_fn
         self.sampled_per_round = sampled_per_round
         self.layout = layout  # the params' FlatLayout
+        # whether the simulator threads per-client rates, and wire levels
+        self.rate_adaptive = self.scheme.rate_adaptive
+        self.use_levels = self.rate_adaptive and float(comp_cfg.rate_wire_threshold) > 0.0
         self.round_fn = self._build()
 
     def _grads(self, params, batches):
@@ -64,19 +71,21 @@ class RoundEngine:
         grad_fn = torch.func.grad(self.loss_fn)
         return torch.func.vmap(grad_fn, in_dims=(None, 0))(params, batches)
 
-    def _compress_stack(self, states, grads, gbar_prev, round_idx, tau_now):
+    def _compress_stack(self, states, grads, gbar_prev, round_idx, tau_now, rates=None,
+                        levels=None):
         """``client_compress`` over the whole ``[k, N]`` stack at once."""
         tau_kw = {"tau_override": tau_now} if self.fl.adaptive_tau else {}
-        return self.scheme.client_compress(states, grads, gbar_prev, round_idx,
-                                           layout=self.layout, **tau_kw)
+        return self.scheme.client_compress(states, grads, gbar_prev, round_idx, rates=rates,
+                                           wire_levels=levels, layout=self.layout, **tau_kw)
 
-    def _client_update(self, params, states, batches, gbar_prev, round_idx, tau_now):
+    def _client_update(self, params, states, batches, gbar_prev, round_idx, tau_now,
+                       rates=None, levels=None):
         grads = self.layout.flatten(self._grads(params, batches))
-        return self._compress_stack(states, grads, gbar_prev, round_idx, tau_now)
+        return self._compress_stack(states, grads, gbar_prev, round_idx, tau_now, rates, levels)
 
     def _server_update(self, params, sstate, g_sum, lr):
         bcast, sstate, ainfo = self.scheme.server_aggregate(
-            sstate, g_sum, float(self.sampled_per_round))
+            sstate, g_sum, float(self.sampled_per_round), layout=self.layout)
         params = tree_map(lambda w, g: w - lr * g.to(w.dtype), params,
                           self.layout.unflatten(bcast))
         return params, sstate, bcast, ainfo
@@ -93,10 +102,10 @@ class VmapEngine(RoundEngine):
     def _build(self):
         @torch.no_grad()
         def round_fn(params, cstates, sstate, gbar_prev, client_idx, batches,
-                     round_idx, lr, tau_now):
+                     round_idx, lr, tau_now, rates=None, wire_levels=None):
             sampled = gather_client_states(cstates, client_idx)
             G, new_states, infos = self._client_update(
-                params, sampled, batches, gbar_prev, round_idx, tau_now)
+                params, sampled, batches, gbar_prev, round_idx, tau_now, rates, wire_levels)
             cstates = scatter_client_states(cstates, client_idx, new_states)
             g_sum = torch.sum(G, dim=0)
             params, sstate, bcast, ainfo = self._server_update(params, sstate, g_sum, lr)

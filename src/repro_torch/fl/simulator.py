@@ -4,8 +4,14 @@ One process simulates K clients + server on one device. The per-round
 compute lives in the ``RoundEngine`` (fl/engine.py); the simulator keeps
 the host-side bookkeeping: cohort sampling and batch draws from
 ``np.random.default_rng(seed + 1)`` (the JAX package's stream, call for
-call), the ``CommLedger``, the learning-rate decay and the adaptive-τ
-controller. The per-round counts are read from the device once per round.
+call), the ``CommLedger``, the learning-rate decay, the adaptive-τ
+controller and, under an adaptive rate controller, its per-round step:
+the signal ``‖V_k‖ / (‖Ĝ_prev‖ + eps)`` as one norm per row of the flat
+stacks, the bandwidth budget from ``np.random.default_rng(seed + 3)``
+(drawn only then, so the sampling and batch streams stay the
+reference's), and the controller update, all on the device. The
+per-round counts, and the rates and wire levels with them, are read from
+the device once per round.
 
 Partial participation: sampled clients' states are gathered, compressed
 and scattered back; non-participants keep V/U/M untouched. The states are
@@ -26,6 +32,7 @@ import torch
 from repro_torch.core import CommLedger, CompressionConfig, init_states
 from repro_torch.core import adaptive, stack_client_states
 from repro_torch.core.stages import ENGINES
+from repro_torch.fl import availability
 from repro_torch.fl.engine import BACKENDS, TOPOLOGIES, make_engine
 from repro_torch.utils import resolve_device, scalar, to_device, tree_map
 from repro_torch.utils.flat import FlatLayout
@@ -119,6 +126,34 @@ class FLSimulator:
         self.ledger = CommLedger(self.engine.scheme.cost_model())
         self._round_fn = self.engine.round_fn
         self._rng = np.random.default_rng(fl_cfg.seed + 1)
+        # adaptive per-client rate control: nothing is allocated or drawn
+        # under the fixed controller
+        self.rate_adaptive = self.engine.rate_adaptive
+        if self.rate_adaptive:
+            self.rate_state = self.engine.scheme.rate_control.init(
+                comp_cfg, fl_cfg.num_clients, self.device)
+            self._bw_rng = np.random.default_rng(fl_cfg.seed + 3)
+            self._avail = availability.from_fl_config(fl_cfg)
+
+    def _signal(self, ids: torch.Tensor) -> torch.Tensor:
+        """Each sampled client's EF-residual mass over the global delta
+        norm, ``‖V_k‖ / (‖Ĝ_prev‖ + eps)``, float32 ``[k]`` (zeros for
+        schemes without V: a flat signal)."""
+        v = self.cstates.v
+        if not isinstance(v, torch.Tensor):
+            return torch.zeros(ids.shape[0], dtype=torch.float32, device=self.device)
+        vsq = torch.sum(torch.square(v.index_select(0, ids)), dim=1)
+        gsq = torch.sum(torch.square(self.gbar_prev))
+        return torch.sqrt(vsq) / (torch.sqrt(gsq) + self.comp.eps)
+
+    def _rate_inputs(self, ids: torch.Tensor):
+        """One controller step: the signal, the bandwidth budget, the
+        update -> (rates [k], wire levels [k] or None), on the device."""
+        bw = self._avail.sample_bandwidth(self._bw_rng, ids.shape[0]).astype(np.float32)
+        self.rate_state, rates, levels = self.engine.scheme.rate_control.update(
+            self.comp, self.rate_state, ids, self._signal(ids), to_device(bw, self.device),
+            scalar(0.0, self.device))  # a synchronous round has no staleness gap
+        return rates, (levels if self.engine.use_levels else None)
 
     def _sample_ids(self, t: int) -> np.ndarray:
         fl = self.fl
@@ -138,8 +173,11 @@ class FLSimulator:
     def run(self, batch_provider, *, log_every: int = 0, on_round=None):
         """batch_provider(round, client_ids, rng) -> stacked batch with
         leading axis len(client_ids). Each history record carries the
-        JAX package's keys plus ``upload_nnz`` (per client) and
-        ``round_ms`` (host clock, round start to the counts' arrival)."""
+        JAX package's keys plus ``upload_nnz`` (per client),
+        ``download_nnz`` and ``round_ms`` (host clock, round start to the
+        counts' arrival);
+        under an adaptive rate controller also ``rates`` and, with wire
+        levels, ``wire_levels`` (per client)."""
         fl = self.fl
         for t in range(fl.rounds):
             t0 = time.perf_counter()
@@ -147,6 +185,10 @@ class FLSimulator:
             batches = batch_provider(t, ids, self._rng)
             lr = self._lr_at(t)
             tau_now = scalar(float(self.tau_ctl.tau), self.device) if fl.adaptive_tau else None
+            ids_dev = to_device(ids, self.device)
+            rates = levels = None
+            if self.rate_adaptive:
+                rates, levels = self._rate_inputs(ids_dev)
             (
                 self.params,
                 self.cstates,
@@ -160,19 +202,31 @@ class FLSimulator:
                 self.cstates,
                 self.sstate,
                 self.gbar_prev,
-                to_device(ids, self.device),
+                ids_dev,
                 batches,
                 t,
                 lr,
                 tau_now,
+                rates,
+                levels,
             )
             # The round's one device read: per-client upload nnz, download
-            # nnz and union nnz in one copy.
-            counts = torch.cat([up_nnz, down_nnz.reshape(1), union_nnz.reshape(1)]).cpu()
+            # nnz and union nnz (and the rates and levels) in one float64
+            # copy, exact for counts below 2**53.
+            parts = [up_nnz, down_nnz.reshape(1), union_nnz.reshape(1)]
+            parts += [x for x in (rates, levels) if x is not None]
+            host = torch.cat([x.double() for x in parts]).cpu()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            counts = counts.numpy()
-            up_host, down, union = counts[:-2], float(counts[-2]), float(counts[-1])
-            self.ledger.record_round(up_host, down, self.total_params, len(ids))
+            k = len(ids)
+            host = host.numpy()
+            up_host = host[:k].astype(np.int64)
+            down, union = float(host[k]), float(host[k + 1])
+            value_bytes = None
+            if levels is not None:
+                levels_host = host[-k:].astype(np.int32)
+                value_bytes = np.where(levels_host > 0, 1.0,
+                                       float(self.engine.scheme.wire.value_bytes))
+            self.ledger.record_round(up_host, down, self.total_params, k, value_bytes)
             if fl.adaptive_tau:
                 self.tau_ctl = adaptive.update(
                     self.tau_ctl,
@@ -184,7 +238,14 @@ class FLSimulator:
                 )
             rec = {"round": t, "comm_gb": self.ledger.total_gb,
                    "tau": float(self.tau_ctl.tau),
-                   "upload_nnz": [int(x) for x in up_host], "round_ms": wall_ms}
+                   "upload_nnz": [int(x) for x in up_host], "download_nnz": int(down),
+                   "round_ms": wall_ms}
+            if rates is not None:
+                rates_host = host[k + 2:2 * k + 2].astype(np.float32)
+                rec["rate_mean"] = float(rates_host.mean())
+                rec["rates"] = rates_host.tolist()
+                if levels is not None:
+                    rec["wire_levels"] = levels_host.tolist()
             if self.eval_fn and (t % fl.eval_every == 0 or t == fl.rounds - 1):
                 rec["accuracy"] = float(self.eval_fn(self.params))
             self.history.append(rec)

@@ -1,5 +1,6 @@
-"""Wiring of the paper's image task onto the simulator: model, loss, data
-partition, batch provider. The char-LSTM task comes in a later slice."""
+"""Wiring of the paper's two tasks onto the simulator: models, losses, data
+partitions, batch providers. Task 1 is image classification (SynthCIFAR,
+ResNet), Task 2 next-char prediction (SynthShakespeare, the char-LSTM)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.data import partition, synthetic
-from repro_torch.models import resnet
+from repro_torch.models import lstm, resnet
 from repro_torch.utils import resolve_device, to_device
 
 
@@ -74,6 +75,54 @@ class CifarTask:
                 idx = self.parts[k]
                 takes.append(rng.choice(idx, size=min(batch_size, len(idx)),
                                         replace=len(idx) < batch_size))
+            take = to_device(np.stack(takes), self.device)
+            return (self.x[take], self.y[take])
+
+        return provide
+
+
+class ShakespeareTask:
+    """SynthShakespeare + the char-LSTM. Every client's next-char pairs live
+    on ``device`` (default ``cuda``; ``device="cpu"`` must be asked for) as
+    int64, one ``[sum_k n_k, seq_len]`` tensor each for inputs and targets
+    with client k's sequences from row ``start[k]``; the held-out batch is
+    the last sequence of every client. The batch provider makes the JAX
+    package's ``rng.choice`` calls, one per client in order, and gathers
+    the round's batch with one device index."""
+
+    def __init__(self, *, num_clients: int = 100, seed: int = 0,
+                 data: synthetic.SynthShakespeare | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.data = data or synthetic.SynthShakespeare(num_clients=num_clients, seed=seed)
+        self.measured_emd = self.data.emd()
+        seqs = [self.data.client_sequences(k) for k in range(num_clients)]
+        self.counts = np.array([len(x) for x, _ in seqs], np.int64)
+        self.start = np.concatenate([[0], np.cumsum(self.counts)[:-1]]).astype(np.int64)
+        to_dev = lambda a: torch.as_tensor(a, dtype=torch.int64, device=self.device)
+        self.x = to_dev(np.concatenate([x for x, _ in seqs]))
+        self.y = to_dev(np.concatenate([y for _, y in seqs]))
+        last = to_dev(self.start + self.counts - 1)
+        self.x_test, self.y_test = self.x[last], self.y[last]
+
+    def init_fn(self, generator: torch.Generator):
+        return lstm.init_lstm(generator, vocab=synthetic.VOCAB, device=self.device)
+
+    def loss_fn(self, params, batch):
+        x, y = batch
+        return softmax_xent(lstm.lstm_forward(params, x), y)
+
+    def eval_fn(self, params):
+        with torch.no_grad():
+            logits = lstm.lstm_forward(params, self.x_test)
+            return float(torch.mean((torch.argmax(logits, -1) == self.y_test).float()))
+
+    def batch_provider(self, batch_size):
+        def provide(round_idx, client_ids, rng):
+            takes = []
+            for k in client_ids:
+                n = int(self.counts[k])
+                takes.append(self.start[k] + rng.choice(n, size=min(batch_size, n),
+                                                        replace=n < batch_size))
             take = to_device(np.stack(takes), self.device)
             return (self.x[take], self.y[take])
 

@@ -27,9 +27,11 @@
 // every operand is a client-major [rows, N] float32 stack, contiguous, so
 // each (client, leaf) segment is contiguous. Per-segment scalars (inverse
 // norms, thresholds) are [rows, L] arrays, row-major; tau and the FedNova
-// weight w are [rows]; the offsets o_0..o_L and the keep counts k_i are
-// int64 device arrays made once per layout. Every kernel takes a whole
-// round's stacks in one launch.
+// weight w are [rows]; the offsets o_0..o_L are an int64 device array made
+// once per layout, and the keep counts an int64 [rows, L] table read with a
+// row stride: L for per-client counts (adaptive rates), 0 for counts shared
+// by every row (one [L] array made once per layout and rate). Every kernel
+// takes a whole round's stacks in one launch.
 //
 // Bound: each does a handful of float operations per element against 8 to
 // 28 bytes of traffic, far below the card's operations-per-byte balance, so
@@ -442,7 +444,8 @@ template <bool ABS>
 __global__ void __launch_bounds__(kSelThreads)
 select_kernel(const float* __restrict__ v, const float* __restrict__ m,
               const long long* __restrict__ offsets, const long long* __restrict__ keep,
-              const float* __restrict__ w, const float* __restrict__ tau, float eps,
+              int keep_stride, const float* __restrict__ w, const float* __restrict__ tau,
+              float eps,
               int leaves, int64_t n, float* __restrict__ inv_nv_out,
               float* __restrict__ inv_nm_out, float* __restrict__ thr_out,
               float* __restrict__ mask_out) {
@@ -454,6 +457,7 @@ select_kernel(const float* __restrict__ v, const float* __restrict__ m,
   const int leaf = (int)(seg - row * leaves);
   const int64_t lo = offsets[leaf];
   const int64_t len = offsets[leaf + 1] - lo;
+  const unsigned rank = (unsigned)keep[row * keep_stride + leaf];
   const float* vs = v + row * n + lo;
   const float* ms = ABS ? nullptr : m + row * n + lo;
   float t = 0.0f, a = 0.0f, b = 0.0f;
@@ -496,11 +500,11 @@ select_kernel(const float* __restrict__ v, const float* __restrict__ m,
   unsigned bits;
   if (ABS) {
     bits = radix_select(sel, len, [=](int64_t j) { return __float_as_uint(fabsf(vs[j])); },
-                        (unsigned)keep[leaf]);
+                        rank);
   } else {
     bits = radix_select(sel, len, [=](int64_t j) {
       return __float_as_uint(gmf_score(vs[j], ms[j], t, a, b));
-    }, (unsigned)keep[leaf]);
+    }, rank);
   }
   const float thr = __uint_as_float(bits);
   if (threadIdx.x == 0) {
@@ -556,23 +560,31 @@ int gmf_apply_mask(const float* u, const float* v, const float* mask, float* go,
 
 // Norms and thresholds of every (row, leaf) segment of v and m ([rows, n]
 // stacks over `leaves` leaves): writes inv_nv, inv_nm and thr, [rows, leaves]
-// each. offsets holds leaves + 1 int64, keep (the k_i) leaves.
+// each. offsets holds leaves + 1 int64; keep (the k_i) is an int64 table
+// whose row r starts at keep + r * keep_stride (keep_stride leaves or 0).
 int gmf_select(const float* v, const float* m, const long long* offsets, const long long* keep,
-               const float* w, const float* tau, float eps, int leaves, long long rows,
-               long long n, float* inv_nv, float* inv_nm, float* thr, void* stream) {
-  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+               int keep_stride, const float* w, const float* tau, float eps, int leaves,
+               long long rows, long long n, float* inv_nv, float* inv_nm, float* thr,
+               void* stream) {
+  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL ||
+      (keep_stride != 0 && keep_stride != leaves))
+    return (int)cudaErrorInvalidValue;
   select_kernel<false><<<(unsigned)(rows * leaves), kSelThreads, 0, (cudaStream_t)stream>>>(
-      v, m, offsets, keep, w, tau, eps, leaves, n, inv_nv, inv_nm, thr, nullptr);
+      v, m, offsets, keep, keep_stride, w, tau, eps, leaves, n, inv_nv, inv_nm, thr, nullptr);
   return (int)cudaGetLastError();
 }
 
 // The k_i-th largest |z| of every segment into thr ([rows, leaves]) and the
-// mask |z| >= thr into mask ([rows, n]).
-int gmf_select_abs(const float* z, const long long* offsets, const long long* keep, int leaves,
-                   long long rows, long long n, float* thr, float* mask, void* stream) {
-  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+// mask |z| >= thr into mask ([rows, n]); keep as for gmf_select.
+int gmf_select_abs(const float* z, const long long* offsets, const long long* keep,
+                   int keep_stride, int leaves, long long rows, long long n, float* thr,
+                   float* mask, void* stream) {
+  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL ||
+      (keep_stride != 0 && keep_stride != leaves))
+    return (int)cudaErrorInvalidValue;
   select_kernel<true><<<(unsigned)(rows * leaves), kSelThreads, 0, (cudaStream_t)stream>>>(
-      z, nullptr, offsets, keep, nullptr, nullptr, 0.0f, leaves, n, nullptr, nullptr, thr, mask);
+      z, nullptr, offsets, keep, keep_stride, nullptr, nullptr, 0.0f, leaves, n, nullptr,
+      nullptr, thr, mask);
   return (int)cudaGetLastError();
 }
 

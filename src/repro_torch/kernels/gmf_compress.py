@@ -12,7 +12,9 @@ fallback: a tensor the kernel does not take raises.
 
 K1 and its glue take the flat compression state (``utils/flat.py``): a
 ``[k, N]`` stack of L leaf segments, described by the layout's int64
-offsets ``[L + 1]`` and keep counts ``[L]`` on the device.
+offsets ``[L + 1]`` on the device and a keep count per segment: an int64
+``[L]`` array shared by every row (a fixed rate) or a ``[k, L]`` table of
+per-client counts (adaptive rates), read with a row stride of 0 or L.
 ``gmf_select_flat`` (one block per segment) gives each segment's inverse
 norms and exact top-k threshold, ``[k, L]`` each, and ``gmf_compress_flat``
 is the fused mask pass over the whole stack; ``topk_abs_select_flat`` is
@@ -64,8 +66,9 @@ SIGNATURES = {
     "gmf_momentum_limits": ([_P, _P], None),
     "gmf_momentum_multi": ([_P, _I32, _I32, _F32, _P], _I32),
     "gmf_apply_mask": ([_P, _P, _P, _P, _P, _P, _I64, _I32, _P], _I32),
-    "gmf_select": ([_P, _P, _P, _P, _P, _P, _F32, _I32, _I64, _I64, _P, _P, _P, _P], _I32),
-    "gmf_select_abs": ([_P, _P, _P, _I32, _I64, _I64, _P, _P, _P], _I32),
+    "gmf_select": ([_P, _P, _P, _P, _I32, _P, _P, _F32, _I32, _I64, _I64, _P, _P, _P, _P],
+                   _I32),
+    "gmf_select_abs": ([_P, _P, _P, _I32, _I32, _I64, _I64, _P, _P, _P], _I32),
     "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _P], _I32),
 }
 
@@ -144,6 +147,21 @@ def _segments(name: str, x: torch.Tensor, offsets: torch.Tensor) -> int:
     if leaves < 1:
         raise ValueError(f"{name}: a layout of at least one leaf is needed")
     _check_rows(name, (leaves + 1,), x, offsets, dtype=torch.int64)
+    return leaves
+
+
+def _keep_stride(name: str, keep: torch.Tensor, like: torch.Tensor, leaves: int) -> int:
+    """The row stride of the keep table ``keep``: 0 for int64 ``[L]`` counts
+    shared by every row of ``like`` (or a ``[rows, L]`` view of them with
+    row stride 0), ``L`` for a contiguous ``[rows, L]`` table."""
+    rows = like.shape[0]
+    if keep.dim() == 1:
+        _check_rows(name, (leaves,), like, keep, dtype=torch.int64)
+        return 0
+    if keep.dim() == 2 and keep.stride() == (0, 1):
+        _check_rows(name, (leaves,), like, keep[0], dtype=torch.int64)
+        return 0
+    _check_rows(name, (rows, leaves), like, keep, dtype=torch.int64)
     return leaves
 
 
@@ -253,33 +271,37 @@ def gmf_select_flat(v, m, *, offsets, keep, w, tau, eps: float):
     """Per (row, leaf) segment of the flat ``[rows, N]`` stacks v and m:
     inv_nv = w / (‖V‖ + eps), inv_nm = 1 / (‖M‖ + eps), and the exact
     k_i-th largest z = |((1-τ)·V)·inv_nv + (τ·M)·inv_nm| as the threshold.
-    ``offsets`` (int64 ``[L + 1]``) and ``keep`` (int64 ``[L]``) come from
-    the layout; ``w`` and ``tau`` are ``[rows]`` float32. Returns (inv_nv,
-    inv_nm, thr), ``[rows, L]`` float32 each."""
+    ``offsets`` (int64 ``[L + 1]``) comes from the layout, ``keep`` is
+    int64 ``[L]`` (every row's k_i) or ``[rows, L]`` (each row's own);
+    ``w`` and ``tau`` are ``[rows]`` float32. Returns (inv_nv, inv_nm,
+    thr), ``[rows, L]`` float32 each."""
     _check_stack("gmf_select", v, m)
     leaves = _segments("gmf_select", v, offsets)
     rows = v.shape[0]
-    _check_rows("gmf_select", (leaves,), v, keep, dtype=torch.int64)
+    stride = _keep_stride("gmf_select", keep, v, leaves)
     _check_rows("gmf_select", (rows,), v, w, tau)
     inv_nv, inv_nm, thr = (torch.empty(rows, leaves, dtype=torch.float32, device=v.device)
                            for _ in range(3))
     _launch("gmf_select", library().gmf_select, v.device, v.data_ptr(), m.data_ptr(),
-            offsets.data_ptr(), keep.data_ptr(), w.data_ptr(), tau.data_ptr(), float(eps),
-            leaves, rows, v.shape[1], inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr())
+            offsets.data_ptr(), keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
+            float(eps), leaves, rows, v.shape[1], inv_nv.data_ptr(), inv_nm.data_ptr(),
+            thr.data_ptr())
     return inv_nv, inv_nm, thr
 
 
 def topk_abs_select_flat(z, *, offsets, keep):
     """The exact k_i-th largest |z| of every (row, leaf) segment of the flat
     ``[rows, N]`` stack z and the mask |z| >= thr: ``gmf_select``'s kernel
-    in its |z| mode. Returns (thr ``[rows, L]``, mask ``[rows, N]``)."""
+    in its |z| mode (``keep`` as there). Returns (thr ``[rows, L]``, mask
+    ``[rows, N]``)."""
     _check_stack("gmf_select", z)
     leaves = _segments("gmf_select", z, offsets)
-    _check_rows("gmf_select", (leaves,), z, keep, dtype=torch.int64)
+    stride = _keep_stride("gmf_select", keep, z, leaves)
     thr = torch.empty(z.shape[0], leaves, dtype=torch.float32, device=z.device)
     mask = torch.empty_like(z)
     _launch("gmf_select", library().gmf_select_abs, z.device, z.data_ptr(), offsets.data_ptr(),
-            keep.data_ptr(), leaves, z.shape[0], z.shape[1], thr.data_ptr(), mask.data_ptr())
+            keep.data_ptr(), stride, leaves, z.shape[0], z.shape[1], thr.data_ptr(),
+            mask.data_ptr())
     return thr, mask
 
 

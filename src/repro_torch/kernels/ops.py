@@ -61,22 +61,37 @@ def apply_mask_update(u_tree, v_tree, mask_tree):
     return tree_multimap(_mask_leaf, 3, u_tree, v_tree, mask_tree)
 
 
-def gmf_select(v, m, layout, rate, *, w, tau, eps):
+def gmf_select(v, m, layout, rate=None, *, keep=None, w, tau, eps):
     """Per (client, leaf) segment: inverse norms and the exact top-k
     threshold of the fusion score -> (inv_nv, inv_nm, thr), ``[k, L]`` each;
-    ``w`` and ``tau`` are ``[k]`` float32 on v's device."""
+    ``w`` and ``tau`` are ``[k]`` float32 on v's device. The keep counts
+    come from ``rate`` (shared by every client) or from ``keep``, a per-row
+    int64 ``[k, L]`` table (adaptive rates)."""
+    table = _keep(layout, rate, keep)
     if _on_card(v):
-        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, keep=layout.keep(rate)[1],
-                                  w=w, tau=tau, eps=eps)
-    return ref.gmf_select(v, m, layout, rate, w=w, tau=tau, eps=eps)
+        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, keep=table, w=w, tau=tau,
+                                  eps=eps)
+    return ref.gmf_select(v, m, layout, rate, keep=keep, w=w, tau=tau, eps=eps)
 
 
-def topk_abs_select(z, layout, rate):
+def topk_abs_select(z, layout, rate=None, *, keep=None):
     """The exact top-k threshold of every segment's ``|z|`` and the mask
-    -> (thr ``[k, L]``, mask ``[k, N]``)."""
+    -> (thr ``[k, L]``, mask ``[k, N]``); the keep counts as for
+    ``gmf_select``."""
+    table = _keep(layout, rate, keep)
     if _on_card(z):
-        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, keep=layout.keep(rate)[1])
-    return sparsify.segment_topk_mask(z, layout, rate)
+        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, keep=table)
+    if keep is None:
+        return sparsify.segment_topk_mask(z, layout, rate)
+    return sparsify.segment_topk_mask_keep(z, layout, keep)
+
+
+def _keep(layout, rate, keep):
+    """The keep counts the kernel reads: the layout's ``[L]`` at ``rate`` or
+    the per-row table ``keep``."""
+    if (rate is None) == (keep is None):
+        raise ValueError("pass exactly one of rate and keep")
+    return layout.keep(rate)[1] if keep is None else keep
 
 
 def gmf_compress(u, v, m, *, layout, inv_norm_v, inv_norm_m, tau, threshold):

@@ -10,7 +10,8 @@ shared value). The state is flat (``utils/flat.py``): ``gmf_select`` and
 ``gmf_compress_segments`` take ``[k, N]`` stacks and their layout, with
 per-segment scalars ``[k, L]``; they loop over the leaves on views, which
 is what the CPU runs. The plain version of ``gmf_select``'s |z| mode is
-``core.sparsify.segment_topk_mask``.
+``core.sparsify.segment_topk_mask`` (``segment_topk_mask_keep`` with a
+per-row keep table).
 
 K4, flash attention (``csrc/flash_attention.cu``): the Pallas kernel's
 arithmetic over k/v tiles, in the same online softmax.
@@ -59,17 +60,20 @@ def gmf_compress_leaf(u, v, m, *, inv_norm_v, inv_norm_m, tau, threshold):
     return g_out, u * keep, v * keep, mask
 
 
-def gmf_select(v, m, layout, rate, *, w, tau, eps):
+def gmf_select(v, m, layout, rate=None, *, keep=None, w, tau, eps):
     """The glue that feeds K1, per (client, leaf) segment of the flat
     ``[k, N]`` stacks v and m: inv_nv = w / (‖V‖ + eps), inv_nm =
     1 / (‖M‖ + eps), and the exact k_i-th largest fusion score as the
     threshold -> (inv_nv, inv_nm, thr), ``[k, L]`` each. ``w`` and ``tau``
-    are ``[k]``."""
+    are ``[k]``; k_i comes from ``rate`` or from a per-row keep table
+    ``keep`` (int64 ``[k, L]``)."""
     inv_nv = rows(w, v) / (fusion.segment_norms(v, layout) + eps)
     inv_nm = 1.0 / (fusion.segment_norms(m, layout) + eps)
     z = gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
                          inv_norm_m=layout.expand(inv_nm), tau=tau)
-    return inv_nv, inv_nm, sparsify.segment_thresholds(z, layout, rate)
+    if keep is None:
+        return inv_nv, inv_nm, sparsify.segment_thresholds(z, layout, rate)
+    return inv_nv, inv_nm, sparsify.segment_keep_thresholds(z, layout, keep)
 
 
 def gmf_compress_segments(u, v, m, *, layout, inv_norm_v, inv_norm_m, tau, threshold):

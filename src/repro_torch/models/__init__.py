@@ -1,6 +1,6 @@
-"""The models: the paper's ResNet (Task 1) and the dense transformer of
-the serving path."""
+"""The models: the paper's ResNet (Task 1), its char-LSTM (Task 2) and
+the dense transformer of the serving path."""
 
-from repro_torch.models import attention, layers, resnet, transformer
+from repro_torch.models import attention, layers, lstm, resnet, transformer
 
-__all__ = ["attention", "layers", "resnet", "transformer"]
+__all__ = ["attention", "layers", "lstm", "resnet", "transformer"]

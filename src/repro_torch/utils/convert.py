@@ -13,7 +13,9 @@ differs between the packages:
     keeps its layout (the head's ``kernel`` is ``(in, out)`` in both);
   * ``"transformer"``: every leaf keeps its layout (dense kernels are
     ``(d_in, d_out)`` in both packages, and 4-D leaves such as stacked
-    expert weights are not convolutions).
+    expert weights are not convolutions);
+  * ``"lstm"``: every leaf keeps its layout (``x @ wx`` and ``h @ wh``
+    read the same in both packages).
 
 bfloat16 crosses bit for bit: numpy holds it as ``ml_dtypes.bfloat16``,
 which torch does not read, so the 16 bits go through an int16 view.
@@ -26,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LAYOUTS = ("resnet", "transformer")
+LAYOUTS = ("resnet", "transformer", "lstm")
 
 
 def _check(layout: str) -> None:

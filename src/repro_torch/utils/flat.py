@@ -11,7 +11,9 @@ elementwise is one op over the whole stack.
 
 ``FlatLayout.of(tree)`` builds a layout once per (structure, device) and
 caches it; it holds the offsets on the device and, per compression rate,
-the per-leaf keep counts on the host and on the device, each copied once.
+the per-leaf keep counts on the host and on the device, each copied once;
+and, per block length, the block index of every element for codecs that
+work in fixed-length blocks of each leaf (the int8 wire).
 ``flatten`` is one ``torch.cat``; ``unflatten`` makes views, for the edges
 (the model's params, tests, evaluation).
 """
@@ -57,6 +59,7 @@ class FlatLayout:
         self.offsets_dev = torch.tensor(offsets, dtype=torch.int64, device=self.device)
         self.sizes_dev = torch.tensor(self.sizes, dtype=torch.int64, device=self.device)
         self._keep: dict[float, tuple[tuple[int, ...], torch.Tensor]] = {}
+        self._blocks: dict[int, tuple[int, torch.Tensor]] = {}
 
     @staticmethod
     def of(tree) -> FlatLayout:
@@ -78,6 +81,23 @@ class FlatLayout:
             host = tuple(num_keep(n, rate) for n in self.sizes)
             self._keep[rate] = host, torch.tensor(host, dtype=torch.int64, device=self.device)
         return self._keep[rate]
+
+    def blocks(self, block: int) -> tuple[int, torch.Tensor]:
+        """Each leaf cut into ``block``-element blocks from its own offset
+        (the last one short): (blocks a row, int64 ``[N]`` block index of
+        every column), made on the device once per block length. Leaf i's
+        blocks are numbered after those of leaves 0..i-1."""
+        if block not in self._blocks:
+            counts = [-(-n // block) for n in self.sizes]
+            starts = [0]
+            for c in counts:
+                starts.append(starts[-1] + c)
+            dev = self.device
+            first = torch.tensor(starts[:-1], dtype=torch.int64, device=dev)
+            pos = torch.arange(self.total, dtype=torch.int64, device=dev) - self.expand(
+                self.offsets_dev[:-1])
+            self._blocks[block] = starts[-1], pos // block + self.expand(first)
+        return self._blocks[block]
 
     def flatten(self, tree) -> torch.Tensor:
         """A tree of ``[*lead, *shape_i]`` leaves -> one ``[*lead, N]`` tensor."""

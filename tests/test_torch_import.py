@@ -23,7 +23,9 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.fl, repro_torch.kernels, "
             "repro_torch.models, repro_torch.data, repro_torch.utils.convert, "
             "repro_torch.configs, repro_torch.dist, repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention, repro_torch.models.transformer\n"
+            "repro_torch.kernels.flash_attention, repro_torch.models.transformer, "
+            "repro_torch.models.lstm, repro_torch.core.rate_control, repro_torch.utils.quant, "
+            "repro_torch.fl.availability\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -56,8 +58,8 @@ def _no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     _no_cuda()
     from repro_torch.core import CompressionConfig
-    from repro_torch.data.synthetic import SynthCIFAR
-    from repro_torch.fl import CifarTask, FLConfig, FLSimulator
+    from repro_torch.data.synthetic import SynthCIFAR, SynthShakespeare
+    from repro_torch.fl import CifarTask, FLConfig, FLSimulator, ShakespeareTask
 
     data = SynthCIFAR(num_train=40, num_test=10)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -66,6 +68,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="cuda"):
         FLSimulator(FLConfig(num_clients=2, rounds=1), CompressionConfig(scheme="dgc"),
                     task.init_fn, task.loss_fn)
+    text = SynthShakespeare(num_clients=2, chars_per_client=200)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShakespeareTask(num_clients=2, data=text)
+    task = ShakespeareTask(num_clients=2, data=text, device="cpu")
+    for scheme in ("dgcwgmf_dl", "adaptive_dgcwgmf"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            FLSimulator(FLConfig(num_clients=2, rounds=1), CompressionConfig(scheme=scheme),
+                        task.init_fn, task.loss_fn)
 
 
 def test_serve_defaults_to_cuda_and_raises_without_it():
@@ -110,20 +120,34 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(scheme="topk"), "item 8"),
+    (dict(scheme="randomk"), "item 8"),
     (dict(scheme="fetchsgd"), "item 8"),
     (dict(scheme="async_dgcwgmf"), "item 9"),
-    (dict(scheme="dgc", wire_dtype="int8"), "item 8"),
+    (dict(scheme="dgc", wire_dtype="probquant"), "item 8"),
     (dict(scheme="dgc", selector_stage="randomk"), "item 8"),
-    (dict(scheme="dgc", rate_control_stage="adaptive"), "item 8"),
-    (dict(scheme="dgc", downlink_stage="topk"), "item 8"),
+    (dict(scheme="dgc", rotation_stage="hadamard"), "item 8"),
+    (dict(scheme="dgc", selector_stage="sketch"), "item 8"),
     (dict(scheme="dgc", tier_scheme="dgc"), "item 9"),
+    (dict(scheme="dgc", staleness_stage="poly"), "item 9"),
+    (dict(scheme="dgc", staleness_stage="gmf_damp"), "item 9"),
 ])
 def test_unported_compression_options_raise(kw, match):
     from repro_torch.core import CompressionConfig
 
     with pytest.raises(NotImplementedError, match=match):
         CompressionConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheme="topk"), dict(scheme="dgcwgmf_dl"), dict(scheme="adaptive_dgcwgmf"),
+    dict(scheme="dgc", wire_dtype="float16"), dict(scheme="dgc", wire_dtype="bfloat16"),
+    dict(scheme="dgc", wire_dtype="int8"), dict(scheme="dgc", rate_control_stage="adaptive"),
+    dict(scheme="dgc", downlink_stage="topk"),
+])
+def test_ported_compression_options_construct(kw):
+    from repro_torch.core import CompressionConfig, resolve
+
+    resolve(CompressionConfig(**kw))
 
 
 @pytest.mark.parametrize("kw", [
