@@ -103,6 +103,31 @@ Phases, in order; any failure exits nonzero:
    of 10 clients, on the card and the CPU: nnz equal, broadcast within
    1e-2 relative L2 (phase 4's tolerance). Then a profile of one steady
    Shakespeare round of ``dgcwgmf`` and ``dgc``, as phase 4's.
+10. **ResNet-56 under the remaining stage kinds.** Phase 3's task (built
+   anew), 2 rounds each of ``randomk`` (rate 0.1), ``fetchsgd`` at
+   ``benchmarks/ablations.py:176``'s settings (a 5 × 20,000 sketch,
+   ``sketch_k_frac`` 0.02), ``dgcwgmf`` (τ 0.6, fused) with the probquant
+   wire and ``dgc`` with the Hadamard rotation ahead of the int8 wire.
+   randomk: every client's mask identical and its nnz equal each round,
+   the density within 5σ (σ ≈ 277) of 0.1·N, a new mask each round.
+   fetchsgd: 100,000 sketch values up a client (8,000,000 bytes a round,
+   value bytes only) and k = 17,111 heavy hitters down (136,888 bytes to
+   each of 20 clients: 2,737,760 a round); the client state empty, params
+   and ``s_mom``/``s_err`` finite; round 0 run twice from the same state
+   bitwise equal in params, sketch-space state and broadcast under cuDNN's
+   deterministic algorithms (its default fp32 weight gradient sums with
+   atomics; a pair under the default algorithms is reported). probquant: within each 256-block of each leaf every payload
+   value in {−s, 0, +s}; 0.25 byte a value; ``gmf_select``, K1's mask pass
+   and K2 once a round. Hadamard: 1,515,504 values up a client (the 169
+   leaves padded to powers of two), so the dense int8 charge (855,578
+   bytes a client); K2, ``gmf_select`` (|z| mode) and K3 once a round.
+   randomk and fetchsgd launch none of K1–K3. Every preset's ledger equals
+   the cost model's on the read-back counts, and its ms/round after round
+   0 is printed beside the card's name and power limit. Then round 0 of
+   each at depth 8 (8 clients, batch 32) on the card and the CPU: the
+   keyed draws (randomk's uniforms and masks, probquant's keep draws, the
+   Hadamard diagonal) bitwise equal on both, the fetchsgd and Hadamard
+   broadcasts within phase 4's 1e-2 relative L2.
 
 Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
 ResNet-56 stacks (20 clients), one launch each as the path makes them
@@ -130,6 +155,7 @@ line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -810,14 +836,18 @@ def time_k4_cc(k4, ref, bw, peak, dev):
 # ---------------------------------------------------------------------------
 
 
-def run_path(rt, task, scheme_kw, rounds, clients, batch, launches, lr=0.1, per_round=0):
+def run_path(rt, task, scheme_kw, rounds, clients, batch, launches, lr=0.1, per_round=0,
+             before=None):
     """``rounds`` rounds of the FL path; the kernels' launch counts are
-    reset just before and read just after, and added into ``launches``."""
+    reset just before and read just after, and added into ``launches``.
+    ``before(sim)``, if given, runs on the simulator before its rounds."""
     comp = rt.core.CompressionConfig(rate=0.1, **scheme_kw)
     fl = rt.fl.FLConfig(num_clients=clients, clients_per_round=per_round, rounds=rounds,
                         batch_size=batch, learning_rate=lr, eval_every=rounds)
     sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, task.eval_fn,
                             device=task.device)
+    if before is not None:
+        before(sim)
     rt.gk.reset_launches()
     hist = sim.run(task.batch_provider(batch))
     torch.cuda.synchronize()
@@ -992,6 +1022,8 @@ def state_tensors(rt, sim):
     for name, x in zip(("momentum", "residual"), sim.sstate, strict=True):
         if torch.is_tensor(x):
             out[f"server/{name}"] = x
+        elif isinstance(x, dict):  # the sketch's s_mom and s_err
+            out.update({f"server/{name}/{k}": v for k, v in x.items()})
     out["gbar_prev"] = sim.gbar_prev
     return out
 
@@ -1151,6 +1183,217 @@ def resnet_presets_phase(rt, task):
     return launches
 
 
+# The ResNet-56 path under the remaining stage kinds: random-k (its mask
+# shared by every client), FetchSGD at benchmarks/ablations.py:176's
+# settings (a 5 x 20,000 sketch, k_frac 0.02), the probquant wire on the
+# fused dgcwgmf path and the Hadamard rotation ahead of the int8 wire on
+# dgc's staged path. randomk (ef) and fetchsgd launch none of K1-K3.
+REMAINING = {
+    "randomk": ({"scheme": "randomk"},
+                {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0,
+                 "apply_mask": 0}),
+    "fetchsgd": ({"scheme": "fetchsgd", "sketch_rows": 5, "sketch_cols": 20_000,
+                  "sketch_k_frac": 0.02},
+                 {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0,
+                  "apply_mask": 0}),
+    "dgcwgmf, probquant wire": ({"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True,
+                                 "wire_dtype": "probquant"},
+                                {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1,
+                                 "apply_mask": 0}),
+    "dgc, hadamard + int8 wire": ({"scheme": "dgc", "rotation_stage": "hadamard",
+                                   "wire_dtype": "int8"},
+                                  {"gmf_select": 1, "gmf_compress": 0,
+                                   "momentum_correction": 1, "apply_mask": 1}),
+}
+# FetchSGD at ResNet-56: 5 x 20,000 sketch values up a client; k =
+# int(0.02 * 855,578) heavy hitters down, 8 bytes each, to 20 clients.
+# Hadamard: the 169 leaves padded to powers of two cross the wire dense.
+FETCHSGD_UPLOAD, FETCHSGD_K, HADAMARD_WIRE = 100_000, 17_111, 1_515_504
+RANDOMK_SIGMA = math.sqrt(RESNET56_PARAMS * 0.1 * 0.9)  # ~277: binomial(N, 0.1)
+
+
+@contextlib.contextmanager
+def recording(obj, method, sink):
+    """Append every result of ``obj.method`` to ``sink`` while inside."""
+    inner = getattr(obj, method)
+
+    def record(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        sink.append(out)
+        return out
+
+    setattr(obj, method, record)
+    try:
+        yield sink
+    finally:
+        delattr(obj, method)
+
+
+def capture_payloads(sink):
+    """A ``run_path`` hook: every round's ``[k, ·]`` payload stack into ``sink``."""
+    def before(sim):
+        inner = sim.engine._compress_stack
+
+        def capture(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            sink.append(out[0].clone())
+            return out
+
+        sim.engine._compress_stack = capture
+
+    return before
+
+
+def ternary_per_block(payload, layout, block=256):
+    """Is every value of each row's 256-blocks of each leaf in {-s, 0, +s},
+    s the block's largest magnitude?"""
+    nblocks, idx = layout.blocks(block)
+    mag = payload.abs()
+    amax = torch.zeros(payload.shape[0], nblocks, device=payload.device).scatter_reduce_(
+        1, idx.expand(payload.shape[0], -1), mag, "amax")
+    return bool(((payload == 0) | (mag == amax.index_select(1, idx))).all())
+
+
+def remaining_stages_phase(rt, task):
+    """2 rounds of each of ``REMAINING`` on ResNet-56 (20 clients, batch 64),
+    each preset's checks, then FetchSGD's round 0 twice bitwise. Returns
+    (launches, ms/round after round 0 per preset)."""
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    stages, ms_after = rt.stages, {}
+    for label, (kw, per_round) in REMAINING.items():
+        t0 = time.perf_counter()
+        masks, payloads = [], []
+        with recording(stages.get_stage("selector", "randomk"), "select", masks):
+            sim, hist, counts = run_path(rt, task, kw, 2, 20, 64, launches,
+                                         before=capture_payloads(payloads))
+        want = {k: 2 * v for k, v in per_round.items()}
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        check(all(bool(torch.isfinite(x).all()) for x in rt.utils.tree_leaves(sim.params)),
+              f"{label}: params not finite")
+        check_ledger(rt, sim, hist, label)
+        nnz = [r["upload_nnz"] for r in hist]
+        extra = ""
+        if label == "randomk":
+            check(len(masks) == 2, f"randomk: {len(masks)} selections in 2 rounds")
+            for t, (m, n) in enumerate(zip(masks, nnz, strict=True)):
+                check(bool((m == m[0:1]).all()), f"randomk round {t}: client masks differ")
+                check(len(set(n)) == 1 and n[0] == int(m[0].sum()),
+                      f"randomk round {t}: upload nnz {n} not each client's shared mask's")
+                check(abs(n[0] - 0.1 * RESNET56_PARAMS) <= 5 * RANDOMK_SIGMA,
+                      f"randomk round {t}: density {n[0]} outside 0.1 N +- 5 sigma")
+            check(not torch.equal(masks[0][0], masks[1][0]), "randomk: the same mask twice")
+            extra = f"; nnz/N {[round(n[0] / RESNET56_PARAMS, 5) for n in nnz]}"
+        elif label == "fetchsgd":
+            check(all(n == [FETCHSGD_UPLOAD] * 20 for n in nnz), f"fetchsgd: upload nnz {nnz}")
+            check(all(r["download_nnz"] == FETCHSGD_K for r in hist),
+                  f"fetchsgd: download nnz {[r['download_nnz'] for r in hist]}")
+            check(sim.ledger.upload_bytes == 2 * 8_000_000.0
+                  and sim.ledger.download_bytes == 2 * 2_737_760.0,
+                  f"fetchsgd: ledger {sim.ledger.upload_bytes} / {sim.ledger.download_bytes} "
+                  f"bytes in 2 rounds, expected 16,000,000 / 5,475,520")
+            check(all(p.shape == (20, FETCHSGD_UPLOAD) for p in payloads),
+                  f"fetchsgd: payload stacks {[tuple(p.shape) for p in payloads]}")
+            server = sim.sstate.momentum
+            check(all(bool(torch.isfinite(server[k]).all()) and server[k].shape == (5, 20_000)
+                      for k in ("s_mom", "s_err")), "fetchsgd: s_mom / s_err")
+            check(sim.cstates == rt.core.ClientState(u={}, v={}, m={}),
+                  "fetchsgd: the client state is not empty")
+            extra = "; " + fetchsgd_repeats(rt, task, kw)
+        elif label.startswith("dgcwgmf"):
+            check(sim.engine.scheme.cost_model().value_bytes == 0.25,
+                  "probquant: not charged 0.25 byte a value")
+            check(all(ternary_per_block(p, sim.layout) for p in payloads),
+                  "probquant: a payload value outside {-s, 0, +s} of its block")
+            check(all(min(n) >= RESNET56_KEEP for n in nnz),
+                  f"probquant: upload nnz {nnz} below {RESNET56_KEEP}")
+            sent = [float((p != 0).float().mean()) for p in payloads]
+            extra = f"; share of payload values sent (nonzero) {[round(x, 5) for x in sent]}"
+        else:
+            check(all(n == [HADAMARD_WIRE] * 20 for n in nnz), f"hadamard: upload nnz {nnz}")
+            dense = 2 * 20 * RESNET56_PARAMS * 1.0  # the int8 wire's dense charge
+            check(sim.ledger.upload_bytes == dense,
+                  f"hadamard: upload {sim.ledger.upload_bytes} bytes, the dense charge {dense}")
+        ms_after[label] = [r["round_ms"] for r in hist[1:]]
+        print(f"  {label}: launches {counts}; upload nnz (round 1) {nnz[1][:3]}...; download "
+              f"nnz {[r['download_nnz'] for r in hist]}; ledger "
+              f"{json.dumps(sim.ledger.summary())}{extra}; ms/round "
+              f"{[r['round_ms'] for r in hist]}; {time.perf_counter() - t0:.1f} s", flush=True)
+        del sim, payloads, masks
+    return launches, ms_after
+
+
+def fetchsgd_repeats(rt, task, kw):
+    """FetchSGD's round 0 twice from the same initial state: params, the
+    sketch-space state and the broadcast bitwise equal. cuDNN runs its
+    deterministic algorithms for the checked pair: its default fp32
+    weight-gradient kernel sums with atomics. A pair with cuDNN's default
+    algorithms is reported, not checked."""
+    def pair():
+        runs = []
+        for _ in range(2):
+            again, h0, _ = run_path(rt, task, kw, 1, 20, 64, {n: 0 for n in rt.gk.LAUNCHES})
+            runs.append(({k: v.clone() for k, v in state_tensors(rt, again).items()},
+                         h0[0]["download_nnz"]))
+            del again
+        return runs
+
+    (a, _), (b, _) = pair()
+    default_equal = sum(torch.equal(a[key], b[key]) for key in a)
+    torch.backends.cudnn.deterministic = True
+    (a, down_a), (b, down_b) = pair()
+    torch.backends.cudnn.deterministic = False
+    check(down_a == down_b == FETCHSGD_K, f"fetchsgd: round 0 twice gave {down_a} / {down_b}")
+    for key in a:
+        check(torch.equal(a[key], b[key]), f"fetchsgd: round 0 twice differs in {key} "
+              f"(max abs {(a[key] - b[key]).abs().max().item():.3e})")
+    return (f"round 0 twice bitwise equal ({len(a)} tensors, cuDNN deterministic; with "
+            f"cuDNN's default algorithms {default_equal} of {len(a)} equal)")
+
+
+def remaining_card_vs_cpu_phase(rt, dev, tol=1e-2):
+    """Round 0 of each of ``REMAINING`` at depth 8 (8 clients, batch 32) on
+    the card and the CPU: the keyed draws (randomk's uniforms, probquant's
+    keep draws, the Hadamard diagonal) and randomk's masks bitwise equal;
+    fetchsgd's and hadamard's broadcasts within ``tol`` relative L2
+    (phase 4's)."""
+    data = rt.synthetic.SynthCIFAR(num_train=2000, num_test=200)
+    stages = rt.stages
+    draw_of = {"randomk": (stages.get_stage("selector", "randomk"), "uniforms"),
+               "dgcwgmf, probquant wire": (stages.get_stage("wire", "probquant"), "uniforms"),
+               "dgc, hadamard + int8 wire": (stages.get_stage("rotation", "hadamard"),
+                                             "diagonal")}
+    for label, (kw, _) in REMAINING.items():
+        out = {}
+        for side, device in (("cuda", dev), ("cpu", "cpu")):
+            task = rt.fl.CifarTask(num_clients=8, depth=8, data=data, device=device)
+            comp = rt.core.CompressionConfig(rate=0.1, **kw)
+            fl = rt.fl.FLConfig(num_clients=8, rounds=1, batch_size=32, learning_rate=0.1)
+            sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, device=device)
+            drawn, masks = [], []
+            obj, method = draw_of.get(label, (None, None))
+            with contextlib.ExitStack() as stack:
+                if obj is not None:
+                    stack.enter_context(recording(obj, method, drawn))
+                stack.enter_context(recording(stages.get_stage("selector", "randomk"),
+                                              "select", masks))
+                hist = sim.run(task.batch_provider(32))
+            out[side] = (hist[0]["upload_nnz"], sim.gbar_prev.cpu(),
+                         [d.cpu() for d in drawn + masks])
+        (nnz_g, b_g, d_g), (nnz_c, b_c, d_c) = out["cuda"], out["cpu"]
+        rel = float((b_g - b_c).norm() / b_c.norm())
+        check(math.isfinite(rel), f"{label}: card vs CPU broadcast not finite")
+        if label in draw_of:
+            check(len(d_g) == len(d_c) > 0 and all(torch.equal(x, y) for x, y in
+                                                   zip(d_g, d_c, strict=True)),
+                  f"{label}: the draws differ between the card and the CPU")
+        if label in ("fetchsgd", "dgc, hadamard + int8 wire"):
+            check(rel <= tol, f"{label}: card vs CPU broadcast relative L2 {rel:.3e} > {tol}")
+        if label == "randomk":
+            check(nnz_g == nnz_c, f"randomk: card vs CPU nnz {nnz_g} vs {nnz_c}")
+        print(f"  {label}: card vs CPU upload nnz equal {nnz_g == nnz_c}; broadcast relative "
+              f"L2 {rel:.3e}; draws compared bitwise: {len(d_g)} tensors", flush=True)
+
+
 def serve_phase(rt, dev, profile=False):
     """The port's fixed-batch serving path at llama3.2-1b full size; with
     ``profile``, a ``torch.profiler`` trace of one more run: the device's
@@ -1305,7 +1548,7 @@ def main() -> None:
     import repro_torch.core as core
     import repro_torch.fl as fl
     import repro_torch.utils as utils
-    from repro_torch.core import sparsify
+    from repro_torch.core import sparsify, stages
     from repro_torch.data import synthetic
     from repro_torch.dist import step as dstep
     from repro_torch.kernels import flash_attention as k4
@@ -1315,8 +1558,8 @@ def main() -> None:
     from repro_torch.utils import flat
 
     rt = argparse.Namespace(core=core, fl=fl, utils=utils, gk=gk, k4=k4, synthetic=synthetic,
-                            sparsify=sparsify, configs=configs, dstep=dstep, serve=serve,
-                            ops=ops, ref=ref, flat=flat)
+                            sparsify=sparsify, stages=stages, configs=configs, dstep=dstep,
+                            serve=serve, ops=ops, ref=ref, flat=flat)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=False)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
@@ -1393,6 +1636,16 @@ def main() -> None:
                       clients=SHAKESPEARE["clients"], per_round=SHAKESPEARE["per_round"],
                       batch=SHAKESPEARE["batch"], lr=SHAKESPEARE["lr"])
         del task
+        print("phase 10: ResNet-56 under the remaining stage kinds (randomk, fetchsgd, the "
+              "probquant wire, the Hadamard rotation), 2 rounds each", flush=True)
+        task = rt.fl.CifarTask(num_clients=20, depth=56,
+                               data=rt.synthetic.SynthCIFAR(num_train=20000), device=dev)
+        by_path["resnet56_remaining"], remaining_ms = remaining_stages_phase(rt, task)
+        del task
+        print(f"  ms/round after round 0 ({card}): {json.dumps(remaining_ms)}", flush=True)
+        print("phase 10: the remaining stage kinds, card vs CPU, round 0 at depth 8",
+              flush=True)
+        remaining_card_vs_cpu_phase(rt, dev)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

@@ -1,6 +1,12 @@
 """Core: the paper's gradient compression schemes with Global Momentum
 Fusion, composed from registry-registered stages, plus accounting."""
 
+from repro_torch.core.rate_control import (
+    AdaptiveRateController,
+    FixedRateController,
+    RateController,
+    RateControlState,
+)
 from repro_torch.core.schemes import (
     SCHEMES,
     AggregateInfo,
@@ -48,4 +54,8 @@ __all__ = [
     "scatter_client_states",
     "CommLedger",
     "CostModel",
+    "AdaptiveRateController",
+    "FixedRateController",
+    "RateControlState",
+    "RateController",
 ]

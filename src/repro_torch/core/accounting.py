@@ -7,6 +7,10 @@
 * Per round: upload = Σ_k payload(G_k); download = K · payload(Ĝ) — the
   server unicasts the aggregate to each client (hub-and-spoke).
 
+* A **sketch upload** (FetchSGD) is a fixed-shape dense buffer: its nnz
+  values are charged value bytes only, never indices, never the dense
+  fallback (``CostModel.upload_dense_values``).
+
 All byte arithmetic happens on the host in float64, as in the JAX package:
 round byte counts exceed float32's exact-integer range at ≥1e9 params.
 The ported ledger is the synchronous star subset (no peer or staleness
@@ -22,9 +26,10 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class CostModel:
-    value_bytes: float = 4
+    value_bytes: float = 4  # a float: the probquant wire charges 0.25 byte a value
     index_bytes: int = 4
     unicast_download: bool = True  # server sends aggregate to each of K clients
+    upload_dense_values: bool = False  # sketch uploads: value bytes only
 
     def payload_bytes(self, nnz, total, value_bytes=None):
         """Cheaper of sparse (value+index per nnz) and dense (value per elem).
@@ -36,11 +41,19 @@ class CostModel:
         dense = np.float64(total) * vb
         return np.minimum(sparse, dense)
 
+    def upload_payload_bytes(self, nnz, total, value_bytes=None):
+        """Upload cost of the clients' payloads (sketches are value-only)."""
+        if self.upload_dense_values:
+            vb = np.asarray(self.value_bytes if value_bytes is None else value_bytes,
+                            np.float64)
+            return np.asarray(nnz, np.float64) * vb
+        return self.payload_bytes(nnz, total, value_bytes)
+
     def round_bytes(self, upload_nnz_per_client, download_nnz, total, num_clients,
                     value_bytes=None):
         """(upload, download) bytes moved in one FL round; ``value_bytes``
         overrides the upload payloads' per-value cost, one per client."""
-        up = np.sum(self.payload_bytes(upload_nnz_per_client, total, value_bytes))
+        up = np.sum(self.upload_payload_bytes(upload_nnz_per_client, total, value_bytes))
         down = self.payload_bytes(download_nnz, total)
         if self.unicast_download:
             down = down * num_clients
@@ -80,3 +93,10 @@ class CommLedger:
             "download_gb": self.download_bytes / 1e9,
             "total_gb": self.total_gb,
         }
+
+
+def dense_round_gb(total_params: int, num_clients: int, value_bytes: int = 4) -> float:
+    """Analytic cost of one uncompressed round (a sanity bound for tests)."""
+    up = num_clients * total_params * value_bytes
+    down = num_clients * total_params * value_bytes
+    return (up + down) / 1e9

@@ -43,6 +43,13 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-16) -> torch.Tensor:
     return xf / rows(row_l2_norm(xf) + eps, xf)
 
 
+def gmf_score(v: torch.Tensor, m: torch.Tensor, tau, eps: float = 1e-16) -> torch.Tensor:
+    """Fusion score Z (Eq. 2) of each client row: |(1−τ)·N(V) + τ·N(M)|;
+    ``tau`` a scalar or ``[k]``."""
+    t = rows(tau, v)
+    return torch.abs((1.0 - t) * l2_normalize(v, eps) + t * l2_normalize(m, eps))
+
+
 def segment_norms(x: torch.Tensor, layout) -> torch.Tensor:
     """Per-client L2 norm of every leaf segment of a flat ``[k, N]`` stack,
     in float32 -> ``[k, L]``."""

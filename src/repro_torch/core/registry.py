@@ -4,10 +4,18 @@
 stage overrides) to a ``CompressionConfig`` and returns a ``Scheme``, the
 object the round engine calls. The ported presets are the paper's scheme
 family on the synchronous star round (``none``, ``dgc``, ``gmc``,
-``dgcwgm``, ``dgcwgmf``), the ``topk`` ablation, ``dgcwgmf_dl`` (a top-k
+``dgcwgm``, ``dgcwgmf``), the ``topk`` and ``randomk`` ablations,
+``fetchsgd`` (a count-sketch upload with momentum and error feedback in
+sketch space at the server, ``core/sketch.py``), ``dgcwgmf_dl`` (a top-k
 downlink with a server residual) and ``adaptive_dgcwgmf`` (per-client
-rates). The reference's other presets raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+rates). The asynchronous and hierarchical presets raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Registering a scheme is one call, and ``python -m
+repro_torch.core.registry`` lists every stage and preset::
+
+    register_preset("topk_ef", SchemeSpec(selector="topk", compensator="ef"),
+                    doc="top-k with plain error feedback")
 
 The client axis is explicit and the state is flat: ``Scheme.client_compress``
 takes the ``[k, N]`` state and gradient stacks of k clients
@@ -23,6 +31,7 @@ import functools
 import torch
 
 from repro_torch.core import rate_control as _rate_control  # noqa: F401  registers its stages
+from repro_torch.core import sketch as count_sketch
 from repro_torch.core import stages
 from repro_torch.core.accounting import CostModel
 from repro_torch.core.fusion import rows
@@ -34,13 +43,11 @@ from repro_torch.core.state import (
     init_server_state,
 )
 from repro_torch.utils import scalar, tree_nnz
+from repro_torch.utils.flat import FlatLayout
 from repro_torch.utils.quant import roundtrip_q8_segments
 
-OTHER_KINDS = stages.OTHER_KINDS
 ENGINES = stages.ENGINES
 NOT_PORTED_PRESETS = {
-    "randomk": OTHER_KINDS,
-    "fetchsgd": OTHER_KINDS,
     "async_dgcwgmf": ENGINES,
     "hier_dgcwgmf": ENGINES,
 }
@@ -76,12 +83,18 @@ class SchemeSpec:
 
 
 PRESETS: dict[str, SchemeSpec] = {}
+PRESET_DOCS: dict[str, str] = {}
 
 
-def register_preset(name: str, spec: SchemeSpec) -> None:
-    if name in PRESETS:
-        raise ValueError(f"preset {name!r} is already registered ({PRESETS[name]})")
+def register_preset(name: str, spec: SchemeSpec, *, doc: str = "",
+                    override: bool = False) -> None:
+    if name in PRESETS and not override:
+        raise ValueError(f"preset {name!r} is already registered ({PRESETS[name]}); pass "
+                         f"register_preset(..., override=True) to replace it")
     PRESETS[name] = spec
+    PRESET_DOCS[name] = doc
+    # re-registering a name invalidates the Schemes resolved from it (the
+    # built-in registrations below run before ``resolve`` exists)
     cached_resolve = globals().get("resolve")
     if cached_resolve is not None:
         cached_resolve.cache_clear()
@@ -101,24 +114,31 @@ def check_preset(name: str) -> None:
     raise ValueError(f"unknown scheme {name!r}; registered presets: {available_presets()}")
 
 
-# dense FedSGD (no compression; accounting baseline)
-register_preset("none", SchemeSpec(selector="dense"))
-# plain top-k sparsification, no compensation (ablation)
-register_preset("topk", SchemeSpec(selector="topk"))
-# Deep Gradient Compression (momentum correction + EF)
-register_preset("dgc", SchemeSpec(selector="topk", compensator="dgc"))
-# Global Momentum Compression (global momentum in the compensation)
-register_preset("gmc", SchemeSpec(selector="topk", compensator="ef", fusion="gmc"))
-# DGC + server-side global momentum (paper problem 2.1)
-register_preset("dgcwgm", SchemeSpec(selector="topk", compensator="dgc", fusion="server_gm"))
-# DGC + Global Momentum Fusion in the selection (the paper)
-register_preset("dgcwgmf", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf"))
-# DGCwGMF plus a top-k downlink with server-side error feedback
+register_preset("none", SchemeSpec(selector="dense"),
+                doc="dense FedSGD (no compression; accounting baseline)")
+register_preset("topk", SchemeSpec(selector="topk"),
+                doc="plain top-k sparsification, no compensation (ablation)")
+register_preset("randomk", SchemeSpec(selector="randomk", compensator="ef"),
+                doc="random-k with error feedback (ablation: magnitude selection matters)")
+register_preset("dgc", SchemeSpec(selector="topk", compensator="dgc"),
+                doc="Deep Gradient Compression (momentum correction + EF)")
+register_preset("gmc", SchemeSpec(selector="topk", compensator="ef", fusion="gmc"),
+                doc="Global Momentum Compression (global momentum in the compensation)")
+register_preset("dgcwgm", SchemeSpec(selector="topk", compensator="dgc", fusion="server_gm"),
+                doc="DGC + server-side global momentum (paper problem 2.1)")
+register_preset("dgcwgmf", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf"),
+                doc="DGC + Global Momentum Fusion in the selection (the paper)")
+register_preset("fetchsgd", SchemeSpec(selector="sketch", fusion="server_gm"),
+                doc="FetchSGD (Rothchild et al. 2020): count-sketch upload; momentum + "
+                    "error feedback in sketch space at the server; k-sparse heavy-hitter "
+                    "download")
 register_preset("dgcwgmf_dl", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf",
-                                         downlink="topk"))
-# DGCwGMF with the adaptive per-client rate controller (core/rate_control.py)
+                                         downlink="topk"),
+                doc="DGCwGMF plus a top-k downlink with server-side error feedback")
 register_preset("adaptive_dgcwgmf", SchemeSpec(selector="topk", compensator="dgc",
-                                               fusion="gmf", rate_control="adaptive"))
+                                               fusion="gmf", rate_control="adaptive"),
+                doc="DGCwGMF with the adaptive per-client rate controller "
+                    "(core/rate_control.py)")
 
 
 class Scheme:
@@ -139,6 +159,10 @@ class Scheme:
         self.rate_control = stages.get_stage("rate_control", spec.rate_control)
 
     @property
+    def is_sketch(self) -> bool:
+        return self.selector.sketch
+
+    @property
     def uses_u(self) -> bool:
         return self.compensator.uses_u
 
@@ -152,11 +176,18 @@ class Scheme:
 
     @property
     def server_momentum(self) -> bool:
-        return self.fusion.server_momentum
+        return self.fusion.server_momentum and not self.is_sketch
 
     @property
     def downlink_residual(self) -> bool:
         return self.downlink.uses_residual
+
+    @property
+    def owns_lr(self) -> bool:
+        """True when the server step applies the learning rate itself and the
+        broadcast is the finished update (FetchSGD: lr enters the
+        sketch-space error feedback)."""
+        return self.is_sketch
 
     @property
     def rate_adaptive(self) -> bool:
@@ -166,7 +197,17 @@ class Scheme:
 
     def init_states(self, params) -> tuple[ClientState, ServerState]:
         """One client's zero state (flat ``[N]`` fields, no client axis) and
-        the server state."""
+        the server state. Under a sketch the client state is empty and the
+        server's momentum holds ``s_mom`` and ``s_err``, ``[rows, cols]``."""
+        if self.is_sketch:
+            residual = init_server_state(params, use_momentum=False,
+                                         use_residual=self.downlink_residual).residual
+            zeros = lambda: torch.zeros(self.cfg.sketch_rows, self.cfg.sketch_cols,
+                                        dtype=torch.float32,
+                                        device=FlatLayout.of(params).device)
+            return (ClientState(u={}, v={}, m={}),
+                    ServerState(momentum={"s_mom": zeros(), "s_err": zeros()},
+                                residual=residual))
         client = init_client_state(
             params, use_u=self.uses_u, use_v=self.uses_v, use_m=self.uses_m)
         server = init_server_state(
@@ -175,11 +216,14 @@ class Scheme:
         return client, server
 
     def cost_model(self) -> CostModel:
-        return CostModel(value_bytes=self.wire.value_bytes)
+        """Value bytes from the wire codec; sketch uploads are charged value
+        bytes only (the sketch's shape is fixed, so no indices)."""
+        return CostModel(value_bytes=self.wire.value_bytes,
+                         upload_dense_values=self.is_sketch)
 
     def client_compress(self, state: ClientState, grad, gbar_prev, round_idx,
                         local_steps=1.0, mean_steps=1.0, tau_override=None, rates=None,
-                        wire_levels=None, *, layout):
+                        wire_levels=None, client_ids=None, *, layout):
         """One compression step for a stack of k clients (paper Algorithm 1
         lines 6-13). ``state`` fields and ``grad`` are flat ``[k, N]``
         stacks of the params ``layout`` describes; ``gbar_prev`` is last
@@ -188,12 +232,16 @@ class Scheme:
         (int ``[k]``, 1 = drop to int8) are the adaptive rate controller's,
         threaded only under it: per-client rates take the staged path with
         per-client keep counts, as the reference sends a traced rate.
-        Returns the ``[k, N]`` payload stack, the new state stack and a
-        ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
+        ``client_ids`` (int ``[k]``, the clients' global ids) key a
+        stochastic wire's draws per client. Returns the payload stack
+        (``[k, N]``; ``[k, rows·cols]`` under a sketch), the new state stack
+        and a ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
         cfg = self.cfg
+        if self.is_sketch:
+            return self._sketch_client(state, grad, layout)
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
                        local_steps=local_steps, mean_steps=mean_steps,
-                       tau_override=tau_override, layout=layout)
+                       tau_override=tau_override, layout=layout, client_ids=client_ids)
         ops = stages.elementwise_ops(cfg)
         total = layout.total
 
@@ -220,38 +268,67 @@ class Scheme:
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, masks)
             nnz = tree_nnz(masks, client_axis=True)
 
+        if not self.rotation.identity:
+            # rotation densifies: the padded rotated leaves cross the wire
+            nnz = torch.full((grad.shape[0],), sum(self.rotation.wire_size(n)
+                                                   for n in layout.sizes),
+                             dtype=torch.int64, device=grad.device)
         g_out, new_state = self._encode_payload(cfg, g_out, ClientState(u=u, v=v, m=m),
-                                                layout, wire_levels)
+                                                layout, wire_levels, ctx)
         return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
 
-    def _encode_payload(self, cfg, g_out, state: ClientState, layout, wire_levels):
-        """Wire-encode the payload stack. Without wire levels this is the
-        wire stage's own ``encode``; with them (the adaptive controller's
-        int8 drop) the clients at level 1 take the int8 round trip instead
-        of the scheme's codec, and every client's residual G − wire(G)
-        folds into V, as the reference's per-client ``_encode_payload``
-        does (rotation is the identity here)."""
-        if wire_levels is None:
-            return self.wire.encode(cfg, g_out, state, layout)
-        g_wire = torch.where(rows(wire_levels, g_out) > 0, roundtrip_q8_segments(g_out, layout),
-                             self.wire.roundtrip(g_out, layout))
+    def _encode_payload(self, cfg, g_out, state: ClientState, layout, wire_levels, ctx):
+        """Wire-encode the payload stack: rotation forward, the wire round
+        trip (clients at wire level 1, the adaptive controller's int8 drop,
+        take the int8 round trip instead of the scheme's codec), rotation
+        inverse, then every client's residual G − wire(G) folds into V, as
+        the reference's per-client ``_encode_payload`` does. With the
+        identity rotation and no levels this is the wire stage's own
+        ``encode``."""
+        if self.rotation.identity and wire_levels is None:
+            return self.wire.encode(cfg, g_out, state, layout, ctx)
+        y, wire_layout = self.rotation.forward(cfg, g_out, ctx.round_idx, layout)
+        y_wire = self.wire.roundtrip_ctx(cfg, y, wire_layout, ctx)
+        if wire_levels is not None:
+            y_wire = torch.where(rows(wire_levels, y) > 0, roundtrip_q8_segments(y, wire_layout),
+                                 y_wire)
+        g_wire = self.rotation.inverse(cfg, y_wire, ctx.round_idx, layout)
         return g_wire, ClientState(u=state.u, v=stages.fold_residual(state.v, g_out, g_wire),
                                    m=state.m)
 
-    def server_aggregate(self, server_state: ServerState, g_sum, num_clients, *, layout=None):
-        """Average the summed ``[N]`` payloads, apply the fusion stage's
-        server transform and the downlink stage; returns the ``[N]``
-        broadcast. The ``topk`` downlink selects per leaf of ``layout``."""
+    def _sketch_client(self, state: ClientState, grad, layout):
+        """FetchSGD's upload: each client's count sketch of its whole
+        gradient, ``[k, rows·cols]``, through the wire; rows·cols values a
+        client."""
         cfg = self.cfg
-        # A divisor on the device: CUDA divides by a Python scalar as a
-        # multiplication by its reciprocal, one rounding off x / n.
-        gbar = g_sum / scalar(num_clients, g_sum.device, g_sum.dtype)
-        total = gbar.numel()
-        if self.server_momentum:
-            bcast, new_momentum = self.fusion.server(cfg, server_state.momentum, gbar)
+        size = cfg.sketch_rows * cfg.sketch_cols
+        payload = count_sketch.sketch(grad, cfg.sketch_rows, cfg.sketch_cols).reshape(-1, size)
+        payload, state = self.wire.encode(cfg, payload, state,
+                                          FlatLayout.of_sizes([size], grad.device))
+        nnz = torch.full((grad.shape[0],), size, dtype=torch.int64, device=grad.device)
+        return payload, state, CompressInfo(upload_nnz=nnz, total_params=layout.total)
+
+    def server_aggregate(self, server_state: ServerState, g_sum, num_clients, *, layout=None,
+                         lr=None):
+        """Average the summed payloads, apply the fusion stage's server
+        transform and the downlink stage; returns the ``[N]`` broadcast. The
+        ``topk`` downlink selects per leaf of ``layout``. A sketch scheme
+        (``owns_lr``) needs ``layout`` (for N) and ``lr``, which enters its
+        sketch-space error feedback."""
+        cfg = self.cfg
+        if self.is_sketch:
+            bcast, new_momentum, union_nnz = self._sketch_server(
+                server_state, g_sum, num_clients, layout=layout, lr=lr)
         else:
-            bcast, new_momentum = gbar, server_state.momentum
-        union_nnz = tree_nnz(bcast)
+            # A divisor on the device: CUDA divides by a Python scalar as a
+            # multiplication by its reciprocal, one rounding off x / n.
+            gbar = g_sum / scalar(num_clients, g_sum.device, g_sum.dtype)
+            if self.server_momentum:
+                bcast, new_momentum = self.fusion.server(cfg, server_state.momentum, gbar)
+            else:
+                bcast, new_momentum = gbar, server_state.momentum
+            union_nnz = tree_nnz(bcast)
+        total = bcast.numel()
         if self.downlink.uses_residual and layout is None:
             raise ValueError(f"the {self.downlink.name} downlink needs the params' layout: "
                              f"server_aggregate(..., layout=...)")
@@ -259,6 +336,28 @@ class Scheme:
             cfg, self.wire, server_state.residual, bcast, union_nnz, layout)
         info = AggregateInfo(download_nnz=down_nnz, total_params=total, union_nnz=union_nnz)
         return bcast, ServerState(momentum=new_momentum, residual=residual), info
+
+    def _sketch_server(self, server_state: ServerState, g_sum, num_clients, *, layout, lr):
+        """FetchSGD's server: the averaged sketch into the sketch-space
+        momentum, ``lr`` times that into the sketch-space error, the top
+        k = max(1, ⌊sketch_k_frac·N⌋) heavy hitters of the error out as the
+        ``[N]`` broadcast and their sketch taken back off the error."""
+        cfg = self.cfg
+        if lr is None or layout is None:
+            raise ValueError("the fetchsgd scheme folds lr into the server-side sketch error "
+                             "feedback and un-sketches into the params' layout: call "
+                             "server_aggregate(..., layout=..., lr=...) (the round engine "
+                             "does)")
+        n_rows, n_cols = cfg.sketch_rows, cfg.sketch_cols
+        n = layout.total
+        k = max(1, int(cfg.sketch_k_frac * n))
+        s_agg = g_sum.reshape(n_rows, n_cols) / scalar(num_clients, g_sum.device, g_sum.dtype)
+        s_mom = cfg.sketch_momentum * server_state.momentum["s_mom"] + s_agg
+        s_err = server_state.momentum["s_err"] + lr * s_mom
+        _, _, delta = count_sketch.heavy_hitters(s_err, n, k)
+        s_err = s_err - count_sketch.sketch(delta, n_rows, n_cols)
+        return (delta, {"s_mom": s_mom, "s_err": s_err},
+                torch.full((), k, dtype=torch.int64, device=g_sum.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,3 +373,49 @@ def resolve(cfg) -> Scheme:
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
     return Scheme(cfg, spec)
+
+
+# ---------------------------------------------------------------------------
+# Listing entry point: PYTHONPATH=src python -m repro_torch.core.registry
+# ---------------------------------------------------------------------------
+
+
+def describe() -> str:
+    lines = ["Compression-scheme registry", "", "Stages:"]
+    for kind in stages.STAGE_KINDS:
+        lines.append(f"  {kind}:")
+        for name, obj in stages.REGISTRY[kind].items():
+            desc = getattr(obj, "description", "") or ""
+            lines.append(f"    {name:12s} {desc}")
+    lines += ["", "Presets (scheme -> selector / compensator / fusion / "
+                  "wire / downlink / staleness):"]
+    for name, spec in PRESETS.items():
+        extras = ""
+        if spec.rotation != "none":
+            extras += f" / rot={spec.rotation}"
+        if spec.rate_control != "fixed":
+            extras += f" / rc={spec.rate_control}"
+        if spec.tier != "none":
+            extras += f" / tier={spec.tier}"
+        lines.append(
+            f"  {name:13s} {spec.selector:8s} / {spec.compensator:6s} / "
+            f"{spec.fusion:9s} / {spec.wire:7s} / {spec.downlink:6s} / "
+            f"{spec.staleness}{extras}")
+        if PRESET_DOCS.get(name):
+            lines.append(f"             {PRESET_DOCS[name]}")
+    lines += ["", f"Not ported yet: {', '.join(sorted(NOT_PORTED_PRESETS))} ({ENGINES})",
+              "",
+              "Override stages per run: CompressionConfig(scheme=<preset>, "
+              "selector_stage=..., compensator_stage=..., fusion_stage=..., "
+              "wire_stage=..., rotation_stage=..., downlink_stage=..., "
+              "staleness_stage=..., rate_control_stage=...)"]
+    return "\n".join(lines)
+
+
+def main() -> int:
+    print(describe())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,7 +10,7 @@ ROADMAP item that ports it; nothing is silently ignored.
   init_states(cfg, params)                  -> (ClientState, ServerState)
   client_compress(cfg, state, grad, gbar_prev, round_idx, ..., layout=...)
       -> (payload, new_state, CompressInfo)     # flat [k, N] client stacks
-  server_aggregate(cfg, server_state, g_sum, num_clients, layout=...)
+  server_aggregate(cfg, server_state, g_sum, num_clients, layout=..., lr=...)
       -> (broadcast, new_server_state, AggregateInfo)
 """
 
@@ -75,12 +75,11 @@ class CompressionConfig:
     rate_wire_threshold: float = 0.0
     rate_staleness_gamma: float = 0.5
 
-    # PRNG seeds for the keyed stages (hadamard rotation, probquant wire;
-    # not ported).
+    # Seeds of the keyed stages (hadamard rotation, probquant wire).
     rotation_seed: int = 23
     probquant_seed: int = 29
 
-    # FetchSGD (sketch selector; not ported).
+    # FetchSGD (sketch selector).
     sketch_rows: int = 5
     sketch_cols: int = 10_000
     sketch_k_frac: float = 0.01
@@ -132,19 +131,21 @@ def init_states(cfg: CompressionConfig, params) -> tuple[ClientState, ServerStat
 
 def client_compress(cfg: CompressionConfig, state: ClientState, grad, gbar_prev, round_idx,
                     local_steps=1.0, mean_steps=1.0, tau_override=None, rates=None,
-                    wire_levels=None, *, layout):
+                    wire_levels=None, client_ids=None, *, layout):
     """One client-side compression step for a flat ``[k, N]`` stack of
     clients of the params ``layout`` describes."""
     return resolve(cfg).client_compress(
         state, grad, gbar_prev, round_idx, local_steps=local_steps,
         mean_steps=mean_steps, tau_override=tau_override, rates=rates,
-        wire_levels=wire_levels, layout=layout)
+        wire_levels=wire_levels, client_ids=client_ids, layout=layout)
 
 
 def server_aggregate(cfg: CompressionConfig, server_state: ServerState, g_sum, num_clients, *,
-                     layout=None):
-    """Server step: average, fusion-stage server transform, downlink."""
-    return resolve(cfg).server_aggregate(server_state, g_sum, num_clients, layout=layout)
+                     layout=None, lr=None):
+    """Server step: average, fusion-stage server transform, downlink (a
+    sketch scheme needs ``layout`` and ``lr``)."""
+    return resolve(cfg).server_aggregate(server_state, g_sum, num_clients, layout=layout,
+                                         lr=lr)
 
 
 __all__ = [

@@ -1,0 +1,109 @@
+"""Count-sketch gradient compression (FetchSGD, Rothchild et al. 2020), a
+port of the JAX package's ``core/sketch.py``: the comparison baseline
+whose server keeps momentum and error feedback in sketch space.
+
+A count sketch S ∈ R^{rows×cols} summarises an n-vector: coordinate i
+goes to column h_r(i) of row r with sign s_r(i). Sketches are linear, so
+the server sums client sketches. ``_hash`` and ``_sign`` are the
+reference's uint32 multiplicative hashes, emulated in int64 (the product
+split into 16-bit halves, ``utils/draws.py: mul32``), so every column and
+sign is bitwise JAX's.
+
+The columns and signs depend only on (n, rows, cols), so they are made
+once per (n, rows, cols, device), with each row's coordinates stably
+sorted by column into a ``[rows, B, cols]`` table (B the fullest
+bucket's size, short buckets padded with a zero entry). ``sketch`` then
+sums each bucket one slot at a time, in ascending coordinate order: the
+order of JAX's scatter-add on the CPU, with no atomics, so a sketch is
+bitwise the same on every run and device (CUDA's atomic ``index_add_``
+would sum in a varying order).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils.draws import M32, mul32
+
+_PRIME = 2_654_435_761  # Knuth's multiplicative constant
+
+# (n, rows, cols, device) -> the layout's column, sign and bucket tables
+_TABLES: dict = {}
+
+
+def _hash(idx: torch.Tensor, seed: int, mod: int) -> torch.Tensor:
+    """Column of each index (int64 in [0, 2³²)) in row ``seed``: int64 in [0, mod)."""
+    salt = (seed * 0x9E3779B9 + 1) & M32
+    h = mul32((idx + salt) & M32, _PRIME)
+    h = h ^ (h >> 16)
+    return h % mod
+
+
+def _sign(idx: torch.Tensor, seed: int) -> torch.Tensor:
+    """±1 (float32) of each index in row ``seed``."""
+    salt = (seed * 0x85EBCA6B + 7) & M32
+    h = mul32((idx + salt) & M32, _PRIME)
+    return torch.where(((h >> 15) & 1) == 1, 1.0, -1.0).to(torch.float32)
+
+
+def _tables(n: int, rows: int, cols: int, device):
+    """(columns [rows, n], signs [rows, n], bucket index table [rows, B, cols]
+    (n marks an empty slot), the signs in the same table)."""
+    key = (n, rows, cols, str(device))
+    if key not in _TABLES:
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+        col = torch.stack([_hash(idx, r, cols) for r in range(rows)])
+        sgn = torch.stack([_sign(idx, r) for r in range(rows)])
+        order = torch.sort(col, dim=1, stable=True).indices  # each bucket in index order
+        col_sorted = torch.gather(col, 1, order)
+        counts = torch.zeros(rows, cols, dtype=torch.int64, device=device).scatter_add_(
+            1, col, torch.ones_like(col))
+        depth = int(counts.max())
+        starts = torch.cumsum(counts, dim=1) - counts
+        slot = idx[None, :] - torch.gather(starts, 1, col_sorted)
+        at = (torch.arange(rows, device=device)[:, None] * depth + slot) * cols + col_sorted
+        bucket_idx = torch.full((rows * depth * cols,), n, dtype=torch.int64, device=device)
+        bucket_sgn = torch.zeros(rows * depth * cols, dtype=torch.float32, device=device)
+        bucket_idx[at.reshape(-1)] = order.reshape(-1)
+        bucket_sgn[at.reshape(-1)] = torch.gather(sgn, 1, order).reshape(-1)
+        _TABLES[key] = (col, sgn, bucket_idx.view(rows, depth, cols),
+                        bucket_sgn.view(rows, depth, cols))
+    return _TABLES[key]
+
+
+def sketch(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Count-sketch each row of ``x`` (``[k, n]``, or one ``[n]`` vector):
+    S[r, c] = Σ_{i: h_r(i)=c} s_r(i)·x_i -> ``[k, rows, cols]`` (``[rows,
+    cols]``), each bucket summed in ascending i."""
+    one = x.dim() == 1
+    xs = x.reshape(1, -1) if one else x
+    n = xs.shape[1]
+    _, _, bucket_idx, bucket_sgn = _tables(n, rows, cols, x.device)
+    ext = torch.cat([xs.float(), xs.new_zeros(xs.shape[0], 1, dtype=torch.float32)], dim=1)
+    out = torch.zeros(xs.shape[0], rows, cols, dtype=torch.float32, device=x.device)
+    for b in range(bucket_idx.shape[1]):
+        out += ext[:, bucket_idx[:, b]] * bucket_sgn[:, b]
+    return out[0] if one else out
+
+
+def unsketch(s: torch.Tensor, n: int) -> torch.Tensor:
+    """Median-of-rows estimate of every coordinate -> ``[n]``. The median is
+    ``jnp.median``'s: the mean of the two middle values (``(lo + hi) · 0.5``)
+    when ``rows`` is even, where ``torch.median`` returns the lower one."""
+    rows, cols = s.shape
+    col, sgn, _, _ = _tables(n, rows, cols, s.device)
+    est = torch.gather(s.float(), 1, col) * sgn
+    ordered = torch.sort(est, dim=0).values
+    return (ordered[(rows - 1) // 2] + ordered[rows // 2]) * 0.5
+
+
+def heavy_hitters(s: torch.Tensor, n: int, k: int):
+    """The top-k coordinates of the sketch's estimate by magnitude -> (values
+    ``[k]``, indices ``[k]``, dense ``[n]``). Ties go to the lower index, as
+    ``lax.top_k``'s do (a stable descending sort; ``torch.topk`` promises
+    no order)."""
+    est = unsketch(s, n)
+    idxs = torch.sort(torch.abs(est), descending=True, stable=True).indices[:k]
+    vals = est[idxs]
+    dense = torch.zeros(n, dtype=torch.float32, device=s.device).index_copy_(0, idxs, vals)
+    return vals, idxs, dense

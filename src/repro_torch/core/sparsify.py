@@ -33,9 +33,11 @@ unique, so for equal k both are bitwise ``torch.topk``'s.
 from __future__ import annotations
 
 import math
+from typing import Literal
 
 import torch
 
+Selector = Literal["exact", "sampled"]  # the threshold estimators
 _SAMPLE_TARGET = 16384
 
 
@@ -50,6 +52,14 @@ def num_keep(n: int, rate: float) -> int:
 def exact_threshold(z_rows: torch.Tensor, k: int) -> torch.Tensor:
     """k-th largest value of each row of ``z_rows`` (``[rows, n]``) -> ``[rows]``."""
     return torch.topk(z_rows, k, dim=1).values[:, -1]
+
+
+def sampled_threshold(z_rows: torch.Tensor, rate: float) -> torch.Tensor:
+    """DGC's sampled threshold of each row of ``z_rows`` (``[rows, n]``): the
+    k-th largest of a strided sample of about 16k elements -> ``[rows]``."""
+    n = z_rows.shape[1]
+    sample = z_rows[:, ::max(1, n // _SAMPLE_TARGET)]
+    return exact_threshold(sample, num_keep(sample.shape[1], rate))
 
 
 def strided_sample_nd(z: torch.Tensor, target: int = _SAMPLE_TARGET) -> torch.Tensor:

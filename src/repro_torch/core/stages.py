@@ -1,36 +1,49 @@
-"""Composable compression-scheme stages (the ported subset).
+"""Composable compression-scheme stages.
 
 A scheme is a composition of eight stage kinds, as in the JAX package's
-``core/stages.py``. This module registers the stages of the synchronous
-star round:
+``core/stages.py``:
 
 ``selector``     ``topk`` (exact or sampled threshold, per tensor or
-                 global) and ``dense``;
+                 global), ``randomk`` (a rate-sized random coordinate set,
+                 one mask a round shared by every client), ``dense`` and
+                 ``sketch`` (FetchSGD's count-sketch upload, which replaces
+                 the mask pipeline; ``core/sketch.py``, ``Scheme``);
 ``compensator``  ``none``, ``ef`` (error feedback) and ``dgc`` (momentum
                  correction, then error feedback);
 ``fusion``       ``none``, ``gmc``, ``server_gm`` and ``gmf`` (the paper's
                  Global Momentum Fusion, with the fused kernel path);
 ``wire``         ``float32`` (identity), ``float16`` and ``bfloat16``
-                 (casts) and ``int8`` (per-leaf 256-entry blocks,
-                 ``utils/quant.py``), each non-identity wire folding its
-                 rounding residual into V;
+                 (casts), ``int8`` (per-leaf 256-entry blocks,
+                 ``utils/quant.py``) and ``probquant`` (the unbiased
+                 stochastic ternary codec in the same blocks), each
+                 non-identity wire folding its rounding residual into V;
+``rotation``     ``none`` and ``hadamard`` (a randomised Hadamard
+                 transform per leaf ahead of the wire, inverted before the
+                 fold);
 ``downlink``     ``none`` and ``topk`` (top-k of the broadcast against a
                  server-side residual, ``ServerState.residual``);
 ``rate_control`` ``fixed`` and ``adaptive`` (``core/rate_control.py``);
-``rotation``, ``staleness``
-                 their identity stages only (``none``, ``none``).
+``staleness``    its identity stage ``none``.
 
 The client axis is explicit and the state is flat (``utils/flat.py``):
 every state, gradient and payload is one client-major ``[k, N]`` stack of
 the params' leaves, the broadcast ``gbar_prev`` one ``[N]`` vector shared
 by all rows. Elementwise steps are one op over the stack; the per-leaf
-steps (norms, top-k) take the layout (``StageCtx.layout``) and work per
-(client, leaf) segment. Per-client scalars (τ, w) are ``[k]`` device
-tensors and per-segment ones (norms, thresholds) ``[k, L]``, so each
-compression kernel launches once a round for all clients and leaves.
+steps (norms, top-k, wire blocks, rotations) take the layout
+(``StageCtx.layout``) and work per (client, leaf) segment. Per-client
+scalars (τ, w) are ``[k]`` device tensors and per-segment ones (norms,
+thresholds) ``[k, L]``, so each compression kernel launches once a round
+for all clients and leaves.
 
-Stage names the reference registers but this package has not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+The keyed stages (``randomk``, ``probquant``, ``hadamard``) draw their
+bits from a counter-based hash of their key chain (``utils/draws.py``),
+not from ``jax.random``: each draw is a pure function of (seed, round,
+leaf, client, index), the same on the CPU and the card, and one set of
+ops over the stack a round. Each draw is a method of its stage, the seam
+the parity tests feed JAX's draws through.
+
+The staleness stages of the asynchronous engine raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,38 +55,38 @@ import torch
 from repro_torch.core import fusion as fusion_math
 from repro_torch.core import sparsify
 from repro_torch.core.state import ClientState
-from repro_torch.utils import scalar, tree_map
-from repro_torch.utils.quant import roundtrip_q8_segments
+from repro_torch.utils import draws, scalar, tree_map
+from repro_torch.utils.flat import FlatLayout
+from repro_torch.utils.quant import roundtrip_q8_segments, roundtrip_ternary_segments
 
 STAGE_KINDS = ("selector", "compensator", "fusion", "wire", "rotation",
                "downlink", "staleness", "rate_control")
 
 REGISTRY: dict[str, dict[str, Any]] = {kind: {} for kind in STAGE_KINDS}
 
-# The ROADMAP items that port what this package does not have yet; every
-# NotImplementedError of the port names one of them.
-OTHER_KINDS = "ROADMAP.md Queue 1 item 8 (the other stage kinds)"
+# The ROADMAP item that ports the staleness stages, with the engines they act under.
 ENGINES = "ROADMAP.md Queue 1 item 9 (the async, topology and shard engines)"
 
 # Stages of the reference not ported yet -> the ROADMAP item that ports them.
 NOT_PORTED = {
-    ("selector", "randomk"): OTHER_KINDS,
-    ("selector", "sketch"): OTHER_KINDS,
-    ("wire", "probquant"): OTHER_KINDS,
-    ("rotation", "hadamard"): OTHER_KINDS,
     ("staleness", "poly"): ENGINES,
     ("staleness", "gmf_damp"): ENGINES,
 }
 
 
-def register(kind: str, name: str):
-    """Class decorator: instantiate the stage and register the singleton."""
+def register(kind: str, name: str, *, override: bool = False):
+    """Class decorator: instantiate the stage and register the singleton.
+    A name already registered raises unless ``override=True``: Schemes
+    already resolved may be bound to the stage it would replace."""
     if kind not in REGISTRY:
         raise ValueError(f"unknown stage kind {kind!r}; choose from {STAGE_KINDS}")
 
     def deco(cls):
-        if name in REGISTRY[kind]:
-            raise ValueError(f"{kind} stage {name!r} is already registered")
+        if name in REGISTRY[kind] and not override:
+            raise ValueError(
+                f"{kind} stage {name!r} is already registered "
+                f"({type(REGISTRY[kind][name]).__name__}); pass "
+                f"register({kind!r}, {name!r}, override=True) to replace it")
         obj = cls()
         obj.name = name
         REGISTRY[kind][name] = obj
@@ -94,6 +107,10 @@ def get_stage(kind: str, name: str):
                          f"{tuple(REGISTRY[kind])}") from None
 
 
+def available(kind: str) -> tuple[str, ...]:
+    return tuple(REGISTRY[kind])
+
+
 class CompressInfo(NamedTuple):
     upload_nnz: torch.Tensor   # [k] int64: entries each client transmits
     total_params: int          # per-client element count
@@ -112,6 +129,7 @@ class StageCtx(NamedTuple):
     mean_steps: Any
     tau_override: Any
     layout: Any  # the FlatLayout of the [k, N] stacks
+    client_ids: Any = None  # int [k] global ids, threaded for a stochastic wire
 
 
 def elementwise_ops(cfg):
@@ -139,6 +157,7 @@ def effective_tau(cfg, round_idx, device) -> torch.Tensor:
 class Selector:
     needs_scores = True
     dense = False
+    sketch = False
     description = ""
 
     def select(self, cfg, ref, round_idx, layout, rates=None):
@@ -188,6 +207,39 @@ class DenseSelector(Selector):
 
     def select(self, cfg, value, round_idx, layout, rates=None):
         return None
+
+
+@register("selector", "randomk")
+class RandomKSelector(Selector):
+    needs_scores = False
+    description = ("rate-sized random coordinate set per round (no magnitude "
+                   "information — the ablation baseline)")
+
+    def uniforms(self, cfg, round_idx, layout) -> torch.Tensor:
+        """The round's float32 uniforms ``[N]``, keyed 17 → round → leaf →
+        index: with no client in the chain, every client of a round gets
+        the same mask, as the reference's vmapped ``PRNGKey(17)`` stream."""
+        return draws.uniform(draws.element_hashes(
+            layout, draws.leaf_keys(layout, 17, int(round_idx))))
+
+    def select(self, cfg, value, round_idx, layout, rates=None):
+        u = self.uniforms(cfg, round_idx, layout)
+        if rates is None:  # one mask, shared by every client row
+            return (u < cfg.rate).float().expand(value.shape[0], -1).contiguous()
+        return (u[None, :] < rates[:, None]).float()
+
+
+@register("selector", "sketch")
+class SketchSelector(Selector):
+    sketch = True
+    needs_scores = False
+    description = ("fixed-size count sketch of the whole gradient (FetchSGD "
+                   "upload); server keeps momentum + error feedback in sketch "
+                   "space and broadcasts k heavy hitters")
+
+    def select(self, cfg, value, round_idx, layout, rates=None):
+        raise RuntimeError("the sketch selector replaces the mask pipeline; "
+                           "Scheme handles it directly")
 
 
 # ---------------------------------------------------------------------------
@@ -382,17 +434,22 @@ class GlobalMomentumFusion(Fusion):
 class WireCodec:
     """What a payload looks like after crossing the wire. ``roundtrip``
     takes a flat ``[..., N]`` stack of ``layout`` and is pure;
-    ``encode`` sends the ``[k, N]`` payload stack through it and owns the
-    error feedback."""
+    ``roundtrip_ctx`` is the same with the round's context, which a
+    stochastic codec keys its draws from; ``encode`` sends the ``[k, N]``
+    payload stack through it and owns the error feedback."""
 
     value_bytes: float = 4
     dtype = "float32"
+    stochastic = False
     description = ""
 
     def roundtrip(self, x, layout):
         return x
 
-    def encode(self, cfg, g_out, state: ClientState, layout):
+    def roundtrip_ctx(self, cfg, x, layout, ctx: StageCtx | None):
+        return self.roundtrip(x, layout)
+
+    def encode(self, cfg, g_out, state: ClientState, layout, ctx: StageCtx | None = None):
         return g_out, state
 
 
@@ -413,8 +470,8 @@ class _RoundtripFoldWire(WireCodec):
     (G − wire(G)) folds back into the error-feedback state V so nothing is
     lost. Schemes without V transmit the plain round-tripped payload."""
 
-    def encode(self, cfg, g_out, state: ClientState, layout):
-        g_wire = self.roundtrip(g_out, layout)
+    def encode(self, cfg, g_out, state: ClientState, layout, ctx: StageCtx | None = None):
+        g_wire = self.roundtrip_ctx(cfg, g_out, layout, ctx)
         return g_wire, ClientState(u=state.u, v=fold_residual(state.v, g_out, g_wire),
                                    m=state.m)
 
@@ -457,18 +514,179 @@ class Int8Wire(_RoundtripFoldWire):
         return roundtrip_q8_segments(x, layout)
 
 
+@register("wire", "probquant")
+class ProbQuantWire(_RoundtripFoldWire):
+    """Probabilistic ternary codec (Konečný et al., arXiv:1610.05492 §3): per
+    256-entry block of each leaf, each value ships as ``sign(x)·s`` (``s``
+    the block's max magnitude) with probability ``|x|/s`` and as 0
+    otherwise, so the round trip is unbiased and its zero-mean noise folds
+    into V. About 2 bits a value: ``value_bytes = 0.25``.
+
+    The keep draws are keyed ``probquant_seed → round → leaf → client``
+    (the engine threads the sampled clients' ids, ``StageCtx.client_ids``),
+    so clients draw independent noise. Without a context (``roundtrip``,
+    which the downlink reuses) the draw is a fixed one, the reference's
+    ``PRNGKey(0)``: the same stream for every leaf."""
+
+    dtype = "ternary"
+    value_bytes = 0.25
+    stochastic = True
+    description = ("probabilistic ternary payload (unbiased stochastic "
+                   "keep, ~2 bits/value, per-256-block scales); draws keyed "
+                   "by round/leaf/client, rounding noise folds into V")
+
+    def uniforms(self, cfg, layout, ctx: StageCtx | None) -> torch.Tensor:
+        """The keep draws: float32 ``[N]``, or ``[k, N]`` with client ids."""
+        if cfg is None:
+            keys = torch.full((layout.num_leaves,), draws.key(0), dtype=torch.int64,
+                              device=layout.device)
+        elif ctx is None:
+            keys = draws.leaf_keys(layout, cfg.probquant_seed)
+        else:
+            keys = draws.leaf_keys(layout, cfg.probquant_seed, int(ctx.round_idx),
+                                   clients=ctx.client_ids)
+        return draws.uniform(draws.element_hashes(layout, keys))
+
+    def roundtrip(self, x, layout):
+        return roundtrip_ternary_segments(x, layout, self.uniforms(None, layout, None))
+
+    def roundtrip_ctx(self, cfg, x, layout, ctx: StageCtx | None):
+        return roundtrip_ternary_segments(x, layout, self.uniforms(cfg, layout, ctx))
+
+
 # ---------------------------------------------------------------------------
 # Identity stages of the other kinds, and the downlink
 # ---------------------------------------------------------------------------
 
 
 class Rotation:
+    """A linear, norm-preserving transform of each leaf ahead of the wire
+    codec, inverted before the error-feedback fold. ``forward`` takes the
+    ``[k, N]`` stack of ``layout`` and returns the rotated stack and its
+    layout (Hadamard pads each leaf to a power of two); ``inverse`` undoes
+    it. Both are keyed by the config and the round only, so client and
+    server agree on R. ``wire_size(n)`` is the count of values that cross
+    the wire for an n-element leaf (rotation densifies)."""
+
     identity = True
+
+    def forward(self, cfg, x, round_idx, layout):
+        return x, layout
+
+    def inverse(self, cfg, y, round_idx, layout):
+        return y
+
+    def wire_size(self, n: int) -> int:
+        return n
 
 
 @register("rotation", "none")
 class NoRotation(Rotation):
     description = "identity — payloads hit the wire codec untransformed"
+
+
+def _fwht(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalised fast Walsh–Hadamard transform over the last axis (a
+    power of two), in the reference's butterfly order: ``reshape(-1, 2,
+    h)``, then ``[a + b, a − b]``, so the result is bitwise JAX's."""
+    lead, m = x.shape[:-1], x.shape[-1]
+    h = 1
+    while h < m:
+        x = x.reshape(*lead, -1, 2, h)
+        a, b = x[..., 0, :], x[..., 1, :]
+        x = torch.cat([a + b, a - b], dim=-1)
+        h *= 2
+    return x.reshape(*lead, m)
+
+
+class _HadamardGroup(NamedTuple):
+    """The leaves of one padded length m: the columns of their padded
+    elements in the flat stack extended by one zero column (``src``) and
+    in the rotated stack (``dst``); which of those elements are real
+    (``real``) and their columns in the flat stack (``cols``); √m on the
+    device."""
+
+    m: int
+    src: torch.Tensor
+    dst: torch.Tensor
+    real: torch.Tensor
+    cols: torch.Tensor
+    sqrt_m: torch.Tensor
+
+
+@register("rotation", "hadamard")
+class HadamardRotation(Rotation):
+    """R = H·D/√m per leaf (``rotation_seed → round → leaf`` keys the ±1
+    diagonal D; leaves padded with zeros to m = 2^⌈log2 n⌉). The leaves are
+    grouped by m, so a round is one batched transform per distinct m (11
+    at ResNet-56's 169 leaves) over the ``[k, ·]`` stack, with the same
+    float32 operations in the same order as the reference: the transform
+    and its inverse are bitwise JAX's on the same diagonal."""
+
+    identity = False
+    description = ("randomised Hadamard transform R = H·D/√m per leaf "
+                   "(pad to power of two, ±1 diagonal keyed by "
+                   "rotation_seed/round/leaf); orthonormal, so R⁻¹ = "
+                   "D·H/√m and norms are preserved")
+
+    def __init__(self):
+        self._plans: dict = {}
+
+    @staticmethod
+    def _padded(n: int) -> int:
+        return 1 << max(0, (n - 1).bit_length())
+
+    def wire_size(self, n: int) -> int:
+        return self._padded(n)
+
+    def plan(self, layout):
+        """(the rotated layout, its groups by padded length), once per layout."""
+        if layout not in self._plans:
+            sizes = [self._padded(n) for n in layout.sizes]
+            rotated = FlatLayout.of_sizes(sizes, layout.device)
+            groups = []
+            for m in sorted(set(sizes)):
+                leaves = [i for i, s in enumerate(sizes) if s == m]
+                pos = torch.arange(m)[None, :]
+                n = torch.tensor([layout.sizes[i] for i in leaves])[:, None]
+                start = torch.tensor([layout.offsets[i] for i in leaves])[:, None]
+                src = torch.where(pos < n, start + pos, layout.total).reshape(-1)
+                dst = (torch.tensor([rotated.offsets[i] for i in leaves])[:, None]
+                       + pos).reshape(-1)
+                real = torch.nonzero(src < layout.total)[:, 0]
+                dev = layout.device
+                groups.append(_HadamardGroup(m, src.to(dev), dst.to(dev), real.to(dev),
+                                             src[real].to(dev),
+                                             torch.sqrt(scalar(float(m), dev))))
+            self._plans[layout] = rotated, tuple(groups)
+        return self._plans[layout]
+
+    def diagonal(self, cfg, round_idx, layout) -> torch.Tensor:
+        """D over the rotated layout: float32 ±1 ``[M]``."""
+        rotated, _ = self.plan(layout)
+        return draws.rademacher(draws.element_hashes(
+            rotated, draws.leaf_keys(rotated, cfg.rotation_seed, int(round_idx))))
+
+    def forward(self, cfg, x, round_idx, layout):
+        rotated, groups = self.plan(layout)
+        d = self.diagonal(cfg, round_idx, layout)
+        k = x.shape[0]
+        ext = torch.cat([x.float(), x.new_zeros(k, 1, dtype=torch.float32)], dim=1)
+        out = torch.empty(k, rotated.total, dtype=torch.float32, device=x.device)
+        for g in groups:
+            z = d[g.dst].view(-1, g.m) * ext[:, g.src].view(k, -1, g.m)
+            out.index_copy_(1, g.dst, (_fwht(z) / g.sqrt_m).view(k, -1))
+        return out, rotated
+
+    def inverse(self, cfg, y, round_idx, layout):
+        _, groups = self.plan(layout)
+        d = self.diagonal(cfg, round_idx, layout)
+        k = y.shape[0]
+        out = torch.empty(k, layout.total, dtype=torch.float32, device=y.device)
+        for g in groups:
+            z = d[g.dst].view(-1, g.m) * _fwht(y[:, g.dst].view(k, -1, g.m)) / g.sqrt_m
+            out.index_copy_(1, g.cols, z.view(k, -1)[:, g.real])
+        return out
 
 
 class Downlink:

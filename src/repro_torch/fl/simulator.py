@@ -4,8 +4,10 @@ One process simulates K clients + server on one device. The per-round
 compute lives in the ``RoundEngine`` (fl/engine.py); the simulator keeps
 the host-side bookkeeping: cohort sampling and batch draws from
 ``np.random.default_rng(seed + 1)`` (the JAX package's stream, call for
-call), the ``CommLedger``, the learning-rate decay, the adaptive-τ
-controller and, under an adaptive rate controller, its per-round step:
+call), the ``CommLedger`` (its upload term through
+``CostModel.upload_payload_bytes``: a sketch is value bytes only), the
+learning-rate decay, the adaptive-τ controller and, under an adaptive
+rate controller, its per-round step:
 the signal ``‖V_k‖ / (‖Ĝ_prev‖ + eps)`` as one norm per row of the flat
 stacks, the bandwidth budget from ``np.random.default_rng(seed + 3)``
 (drawn only then, so the sampling and batch streams stay the

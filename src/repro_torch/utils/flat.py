@@ -13,7 +13,10 @@ elementwise is one op over the whole stack.
 caches it; it holds the offsets on the device and, per compression rate,
 the per-leaf keep counts on the host and on the device, each copied once;
 and, per block length, the block index of every element for codecs that
-work in fixed-length blocks of each leaf (the int8 wire).
+work in fixed-length blocks of each leaf (the int8 and probquant wires);
+and each column's leaf and index within its leaf (the keyed draws,
+``utils/draws.py``). ``FlatLayout.of_sizes`` is the layout of a list of
+1-D leaves, such as the Hadamard rotation's padded leaves.
 ``flatten`` is one ``torch.cat``; ``unflatten`` makes views, for the edges
 (the model's params, tests, evaluation).
 """
@@ -60,6 +63,7 @@ class FlatLayout:
         self.sizes_dev = torch.tensor(self.sizes, dtype=torch.int64, device=self.device)
         self._keep: dict[float, tuple[tuple[int, ...], torch.Tensor]] = {}
         self._blocks: dict[int, tuple[int, torch.Tensor]] = {}
+        self._positions: tuple[torch.Tensor, torch.Tensor] | None = None
 
     @staticmethod
     def of(tree) -> FlatLayout:
@@ -71,6 +75,27 @@ class FlatLayout:
         if key not in _LAYOUTS:
             _LAYOUTS[key] = FlatLayout(tree, device)
         return _LAYOUTS[key]
+
+    @staticmethod
+    def of_sizes(sizes, device) -> FlatLayout:
+        """The layout of a list of 1-D leaves of ``sizes`` on ``device``,
+        built once per (sizes, device)."""
+        key = (("sizes", tuple(sizes)), str(torch.device(device)))
+        if key not in _LAYOUTS:
+            _LAYOUTS[key] = FlatLayout([torch.empty((n,), device="meta") for n in sizes],
+                                       device)
+        return _LAYOUTS[key]
+
+    def positions(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every column's leaf and its index within that leaf: two int64
+        ``[N]`` tensors on the device, made once."""
+        if self._positions is None:
+            leaf = self.expand(torch.arange(self.num_leaves, dtype=torch.int64,
+                                            device=self.device))
+            pos = torch.arange(self.total, dtype=torch.int64, device=self.device) - self.expand(
+                self.offsets_dev[:-1])
+            self._positions = leaf, pos
+        return self._positions
 
     def keep(self, rate: float) -> tuple[tuple[int, ...], torch.Tensor]:
         """Per-leaf keep counts ``num_keep(n_i, rate)``: on the host and as an
@@ -92,11 +117,8 @@ class FlatLayout:
             starts = [0]
             for c in counts:
                 starts.append(starts[-1] + c)
-            dev = self.device
-            first = torch.tensor(starts[:-1], dtype=torch.int64, device=dev)
-            pos = torch.arange(self.total, dtype=torch.int64, device=dev) - self.expand(
-                self.offsets_dev[:-1])
-            self._blocks[block] = starts[-1], pos // block + self.expand(first)
+            first = torch.tensor(starts[:-1], dtype=torch.int64, device=self.device)
+            self._blocks[block] = starts[-1], self.positions()[1] // block + self.expand(first)
         return self._blocks[block]
 
     def flatten(self, tree) -> torch.Tensor:

@@ -16,6 +16,14 @@ The JAX wire quantises each leaf of the payload tree on its own, in flat
 (``utils/flat.py``): blocks start at each leaf's offset in each row, and
 each block's max is one ``scatter_reduce("amax")``, which is
 order-free and so deterministic.
+
+``roundtrip_ternary_blocks`` / ``roundtrip_ternary_segments`` are the
+probabilistic sibling (the ``probquant`` wire): the same blocks, each
+entry sent as ``sign(x)·s`` (``s`` its block's max magnitude) with
+probability ``|x|/s`` and as 0 otherwise, so the round trip is unbiased.
+They take the uniforms as an argument (``u < |x|/s`` keeps an entry): the
+stage draws them from its key chain (``utils/draws.py``), a parity test
+passes JAX's.
 """
 
 from __future__ import annotations
@@ -62,16 +70,60 @@ def roundtrip_q8_blocks(x: torch.Tensor, block: int = WIRE_BLOCK) -> torch.Tenso
     return dequantize_q8(q, scale, axis=-1).reshape(-1)[:n].reshape(x.shape).to(x.dtype)
 
 
+def _segment_block_amax(xf: torch.Tensor, layout, block: int) -> torch.Tensor:
+    """Each element's block max magnitude, for ``[rows, N]`` rows of
+    ``layout`` cut into ``block``-entry blocks from each leaf's start."""
+    nblocks, idx = layout.blocks(block)
+    rows = xf.shape[0]
+    amax = torch.zeros(rows, nblocks, dtype=torch.float32, device=xf.device).scatter_reduce_(
+        1, idx.expand(rows, -1), torch.abs(xf), "amax")
+    return amax.index_select(1, idx)
+
+
 def roundtrip_q8_segments(x: torch.Tensor, layout, block: int = WIRE_BLOCK) -> torch.Tensor:
     """``roundtrip_q8_blocks`` of every leaf segment of a flat ``[..., N]``
     stack of ``layout``, each row on its own: the JAX wire's round trip of a
     payload tree, in a fixed number of ops whatever the leaf count."""
-    nblocks, idx = layout.blocks(block)
     xf = x.float().reshape(-1, layout.total)
-    rows = xf.shape[0]
-    amax = torch.zeros(rows, nblocks, dtype=torch.float32, device=xf.device).scatter_reduce_(
-        1, idx.expand(rows, -1), torch.abs(xf), "amax")
-    scale = amax / scalar(INT8_MAX, xf.device)
-    per_elem = scale.index_select(1, idx)
+    # the max's division by 127, per element: the same float32 value per block
+    per_elem = _segment_block_amax(xf, layout, block) / scalar(INT8_MAX, xf.device)
     out = _quantize(xf, per_elem).float() * per_elem
     return out.reshape(x.shape).to(x.dtype)
+
+
+def roundtrip_ternary_blocks(x: torch.Tensor, u: torch.Tensor,
+                             block: int = WIRE_BLOCK) -> torch.Tensor:
+    """Probabilistic ternary quantisation of one tensor over flat
+    ``block``-entry blocks (the reference's ``roundtrip_ternary_blocks``);
+    ``u`` holds one float32 uniform per element of ``x`` in flat order (its
+    first ``x.numel()`` entries are read). All-zero blocks decode to exact
+    zeros; an entry equal to its block's max is always kept."""
+    flat = x.float().reshape(-1)
+    n = flat.shape[0]
+    uf = u.float().reshape(-1)[:n]
+    pad = (-n) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+        uf = torch.cat([uf, uf.new_ones(pad)])
+    blocks = flat.reshape(-1, block)
+    amax = torch.amax(torch.abs(blocks), dim=-1, keepdim=True)
+    out = _ternary(blocks, amax, uf.reshape(-1, block))
+    return out.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+
+
+def roundtrip_ternary_segments(x: torch.Tensor, layout, u: torch.Tensor,
+                               block: int = WIRE_BLOCK) -> torch.Tensor:
+    """``roundtrip_ternary_blocks`` of every leaf segment of a flat ``[..., N]``
+    stack of ``layout``, each row on its own; ``u`` is ``[N]`` (shared by
+    every row) or of ``x``'s shape."""
+    xf = x.float().reshape(-1, layout.total)
+    out = _ternary(xf, _segment_block_amax(xf, layout, block),
+                   u.float().reshape(-1, layout.total))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _ternary(xf: torch.Tensor, amax: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """sign(x)·s where u < |x| / s (a true division by the block maxima,
+    1 where a block is all zeros), else 0."""
+    safe = torch.where(amax > 0.0, amax, torch.ones_like(amax))
+    return torch.where(u < torch.abs(xf) / safe, torch.sign(xf) * amax, 0.0)

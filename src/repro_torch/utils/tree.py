@@ -84,6 +84,19 @@ def tree_size(tree) -> int:
     return sum(int(x.numel()) for x in tree_leaves(tree))
 
 
+def tree_size_scalar(tree) -> torch.Tensor:
+    """``tree_size`` as a 0-dim int64 tensor on the leaves' device (the
+    reference's device scalar; int64 is exact at any size)."""
+    leaves = tree_leaves(tree)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    return torch.full((), tree_size(tree), dtype=torch.int64, device=device)
+
+
+def tree_bytes(tree) -> int:
+    """Total number of bytes across all leaves (Python int)."""
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+
+
 def tree_nnz(tree, *, client_axis: bool = False) -> torch.Tensor:
     """Exact int64 count of non-zero elements across all leaves.
 
@@ -99,6 +112,17 @@ def tree_nnz(tree, *, client_axis: bool = False) -> torch.Tensor:
 def tree_l2_norm(tree) -> torch.Tensor:
     """Global L2 norm over all leaves (float32 device scalar)."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+
+
+global_norm = tree_l2_norm
+
+
+def tree_any_nan(tree) -> torch.Tensor:
+    """Does any leaf hold a NaN or an infinity? (a 0-dim bool tensor)"""
+    bad = torch.zeros((), dtype=torch.bool)
+    for x in tree_leaves(tree):
+        bad = bad.to(x.device) | ~torch.isfinite(x.float()).all()
+    return bad
 
 
 def flatten_dotted(tree, prefix: str = "") -> dict:

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+REFERENCE = ROOT / "src" / "repro"
 
 
 def _port_sources():
@@ -25,7 +26,7 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.configs, repro_torch.dist, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, repro_torch.models.transformer, "
             "repro_torch.models.lstm, repro_torch.core.rate_control, repro_torch.utils.quant, "
-            "repro_torch.fl.availability\n"
+            "repro_torch.fl.availability, repro_torch.core.sketch, repro_torch.utils.draws\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -120,13 +121,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(scheme="randomk"), "item 8"),
-    (dict(scheme="fetchsgd"), "item 8"),
     (dict(scheme="async_dgcwgmf"), "item 9"),
-    (dict(scheme="dgc", wire_dtype="probquant"), "item 8"),
-    (dict(scheme="dgc", selector_stage="randomk"), "item 8"),
-    (dict(scheme="dgc", rotation_stage="hadamard"), "item 8"),
-    (dict(scheme="dgc", selector_stage="sketch"), "item 8"),
+    (dict(scheme="hier_dgcwgmf"), "item 9"),
     (dict(scheme="dgc", tier_scheme="dgc"), "item 9"),
     (dict(scheme="dgc", staleness_stage="poly"), "item 9"),
     (dict(scheme="dgc", staleness_stage="gmf_damp"), "item 9"),
@@ -143,6 +139,9 @@ def test_unported_compression_options_raise(kw, match):
     dict(scheme="dgc", wire_dtype="float16"), dict(scheme="dgc", wire_dtype="bfloat16"),
     dict(scheme="dgc", wire_dtype="int8"), dict(scheme="dgc", rate_control_stage="adaptive"),
     dict(scheme="dgc", downlink_stage="topk"),
+    dict(scheme="randomk"), dict(scheme="fetchsgd"), dict(scheme="dgc", wire_dtype="probquant"),
+    dict(scheme="dgc", selector_stage="randomk"), dict(scheme="dgc", rotation_stage="hadamard"),
+    dict(scheme="dgc", selector_stage="sketch"),
 ])
 def test_ported_compression_options_construct(kw):
     from repro_torch.core import CompressionConfig, resolve
@@ -159,3 +158,90 @@ def test_unported_fl_options_raise(kw):
 
     with pytest.raises(NotImplementedError, match="item 9"):
         FLConfig(num_clients=2, rounds=1, **kw)
+
+
+# Public names of a ported reference module that the port does not have:
+# (module path, name) -> why, with the ROADMAP item that ports it.
+ITEM6 = "ROADMAP Queue 1 item 6 (the transformer family and LMTask)"
+ITEM9 = "ROADMAP Queue 1 item 9 (the async, topology and shard engines)"
+ITEM11 = "ROADMAP Queue 1 item 11 (dist runtime and launchers)"
+ITEM12 = "ROADMAP Queue 1 item 12 (serving tier)"
+PALLAS = "a Pallas tiling constant: the CUDA kernels tile otherwise (ROADMAP Queue 2)"
+UNPORTED = {
+    "configs/__init__.py": {"INPUT_SHAPES": ITEM11, "InputShape": ITEM11, "TrainConfig": ITEM11,
+                            "default_grad_sync": ITEM11, "get_long_variant": ITEM6},
+    "configs/base.py": {"INPUT_SHAPES": ITEM11, "InputShape": ITEM11, "TrainConfig": ITEM11},
+    "core/__init__.py": {"resolve_tier": ITEM9, "group_sum": ITEM9,
+                         "interleave_position_stacks": ITEM9},
+    "core/registry.py": {"resolve_tier": ITEM9},
+    "core/sparsify.py": {
+        "global_topk_masks": "removed on purpose with the flat state: global top-k is "
+                             "topk_mask over a client's whole flat row",
+        "global_topk_masks_dynamic": "replaced by topk_mask_dynamic over the whole flat row"},
+    "core/stages.py": {"Staleness": ITEM9, "PolyStaleness": ITEM9, "GMFDampStaleness": ITEM9},
+    "core/state.py": {"group_sum": ITEM9, "interleave_position_stacks": ITEM9},
+    "dist/__init__.py": {n: ITEM11 for n in (
+        "sharding", "GRAD_SYNC_MODES", "TrainState", "init_train_state", "make_loss_fn",
+        "make_prefill_step", "make_serve_step", "make_train_step", "needs_fsdp",
+        "train_state_specs")},
+    "dist/step.py": {**{n: ITEM11 for n in (
+        "GRAD_SYNC_MODES", "needs_fsdp", "TrainState", "make_loss_fn", "init_train_state",
+        "train_state_specs", "make_train_step")},
+        "make_paged_prefill_step": ITEM12, "make_paged_serve_step": ITEM12},
+    "fl/__init__.py": {"DELAY_MODELS": ITEM9, "Availability": ITEM9, "ShardMapEngine": ITEM9,
+                       "AsyncBufferedEngine": ITEM9, "TopologyEngine": ITEM9, "LMTask": ITEM6},
+    "fl/engine.py": {"ShardMapEngine": ITEM9, "TopologyEngine": ITEM9, "AsyncApply": ITEM9,
+                     "AsyncBufferedEngine": ITEM9},
+    "fl/tasks.py": {"LMTask": ITEM6},
+    "kernels/flash_attention.py": {"NEG_INF": PALLAS},
+    "kernels/gmf_compress.py": {"BLOCK_ROWS": PALLAS, "LANES": PALLAS, "BLOCK": PALLAS},
+    "launch/serve.py": {"run_engine": ITEM12},
+    "models/__init__.py": {"moe": ITEM6, "rglru": ITEM6, "ssm": ITEM6},
+    "models/layers.py": {"apply_mrope": ITEM6, "init_conv1d": ITEM6, "causal_conv1d": ITEM6,
+                         "causal_conv1d_step": ITEM6},
+}
+
+
+def _public_names(path):
+    """A module's ``__all__``, else the names its top level defines (no
+    imports), without the private ones."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.append(node.target.id)
+    return [n for n in names if not n.startswith("_")]
+
+
+def _ported_modules():
+    return [p.relative_to(PORT).as_posix() for p in sorted(PORT.rglob("*.py"))
+            if (REFERENCE / p.relative_to(PORT)).is_file() and p.name != "__main__.py"]
+
+
+@pytest.mark.parametrize("rel", _ported_modules())
+def test_ported_module_has_every_public_name_of_its_reference(rel):
+    """Every public name of a reference module that has a port exists in the
+    port, or is listed in ``UNPORTED`` with the ROADMAP item that ports it
+    (and a listed name is really missing)."""
+    import importlib
+
+    parts = rel[:-3].split("/")
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    port = importlib.import_module(".".join(["repro_torch", *parts]))
+    listed = UNPORTED.get(rel, {})
+    missing = [n for n in _public_names(REFERENCE / rel) if not hasattr(port, n)]
+    assert sorted(set(missing) - set(listed)) == [], f"{rel}: names missing from the port"
+    assert sorted(n for n in listed if hasattr(port, n)) == [], f"{rel}: listed but ported"
+
+
+def test_unported_list_names_only_ported_modules():
+    assert set(UNPORTED) <= set(_ported_modules())
