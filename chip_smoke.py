@@ -128,6 +128,38 @@ Phases, in order; any failure exits nonzero:
    keyed draws (randomk's uniforms and masks, probquant's keep draws, the
    Hadamard diagonal) bitwise equal on both, the fetchsgd and Hadamard
    broadcasts within phase 4's 1e-2 relative L2.
+11. **ResNet-56 under the async, ring, hierarchical and shard engines.**
+   Phase 10's task (phase 3's settings), ``dgcwgmf`` family at τ 0.6 on the
+   fused path, which launches ``gmf_select``, K1's mask pass and K2 once
+   per compression call: an async dispatch, a ring hop, a hierarchical
+   tier. (1) ``async_dgcwgmf`` with no delay model and a cohort-sized
+   buffer, 2 ticks, bitwise 2 vmap rounds in params, client and server
+   state, broadcast and ledger. (2) Geometric delays (mean 1, max 4),
+   dropout 0.1, buffer 10, 6 ticks: each kernel once a tick; every tick's
+   arrivals, flush gaps, pending and in-flight counts equal a plain
+   schedule drawn from the engine's own availability stream; dispatched =
+   arrived + dropped + in flight, applied = 10 per flush, fewer than 10
+   pending; the staleness histogram counts 10 a flush, some gap > 0; upload
+   bytes the cost model's on the arrived nnz only, download its bytes × 10
+   a flush; every arrived nnz at least 85,654; params and the server
+   momentum M finite. (3) The ring, 3 hops (5 segments of 4), broadcast
+   every 2 rounds, 2 rounds: 4 launches of each kernel a round; 15 + 5
+   (peer + ingress) payloads a round, each nnz at least 85,654; round 0
+   charges no download and leaves ``gbar_prev`` zero, round 1 charges it
+   to 20 clients. (4) ``hier_dgcwgmf``, 4 groups, tier rate 0.1, 2 rounds:
+   2 launches of each kernel a round; 20 + 4 (leaf + tier) payloads a round,
+   each at least 85,654; the tier state a finite ``[4, N]`` stack with a
+   nonzero M; the leaf uploads and the relay to 20 leaves peer bytes. (5)
+   ``ring_hops=0`` with ``dgc`` and ``groups=1`` with ``dgcwgmf``, 2 rounds
+   each, bitwise the star. (6) A one-rank NCCL group (``file://`` store in
+   ``build/dist_store``), ``backend="shard"``, bitwise the vmap run, the
+   group destroyed after. (1), (5) and (6) run under cuDNN's deterministic
+   algorithms (ROADMAP R8), restored after. (7) Depth 8, 4 clients, card
+   vs CPU: round 0 of the ring (1 hop) and the hierarchy (2 groups), 3
+   async ticks with (2)'s stragglers and a buffer of 2: the same async
+   schedule on both, broadcasts within phase 4's 1e-2 relative L2. Each
+   engine's ms per round (tick) after round 0 is printed beside the card's
+   name and power limit.
 
 Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
 ResNet-56 stacks (20 clients), one launch each as the path makes them
@@ -837,13 +869,14 @@ def time_k4_cc(k4, ref, bw, peak, dev):
 
 
 def run_path(rt, task, scheme_kw, rounds, clients, batch, launches, lr=0.1, per_round=0,
-             before=None):
+             before=None, **fl_kw):
     """``rounds`` rounds of the FL path; the kernels' launch counts are
     reset just before and read just after, and added into ``launches``.
-    ``before(sim)``, if given, runs on the simulator before its rounds."""
+    ``before(sim)``, if given, runs on the simulator before its rounds;
+    ``fl_kw`` are more ``FLConfig`` fields (the backend, the topology)."""
     comp = rt.core.CompressionConfig(rate=0.1, **scheme_kw)
     fl = rt.fl.FLConfig(num_clients=clients, clients_per_round=per_round, rounds=rounds,
-                        batch_size=batch, learning_rate=lr, eval_every=rounds)
+                        batch_size=batch, learning_rate=lr, eval_every=rounds, **fl_kw)
     sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, task.eval_fn,
                             device=task.device)
     if before is not None:
@@ -1394,6 +1427,305 @@ def remaining_card_vs_cpu_phase(rt, dev, tol=1e-2):
               f"L2 {rel:.3e}; draws compared bitwise: {len(d_g)} tensors", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the async, ring, hierarchical and shard engines
+# ---------------------------------------------------------------------------
+
+# dgcwgmf's fused path (gmf_select + K1's mask pass + K2) and dgc's staged
+# one (K2 + gmf_select's |z| mode + K3), each launch once per compression
+# call: once an async dispatch, once a ring hop, once a hierarchical tier.
+ENGINE_DGCWGMF = {"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True}
+FUSED = {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1, "apply_mask": 0}
+STRAGGLERS = dict(delay_model="geometric", delay_mean=1.0, delay_max=4, dropout_rate=0.1)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside (its default fp32 weight
+    gradient sums with atomics, ROADMAP R8), its default restored after."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def capture(method, sink):
+    """A ``run_path`` hook: every result of ``sim.engine.<method>`` into ``sink``."""
+    def before(sim):
+        inner = getattr(sim.engine, method)
+
+        def record(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            sink.append(out)
+            return out
+
+        setattr(sim.engine, method, record)
+
+    return before
+
+
+def times(counts, n):
+    return {k: n * v for k, v in counts.items()}
+
+
+def same_state(rt, a, b, label):
+    """Every tensor two runs leave (params, client and server state,
+    broadcast) bitwise equal."""
+    sa, sb = state_tensors(rt, a), state_tensors(rt, b)
+    check(sa.keys() == sb.keys(), f"{label}: state {sorted(sa)} vs {sorted(sb)}")
+    for key in sa:
+        check(torch.equal(sa[key], sb[key]), f"{label}: differs in {key} (max abs "
+              f"{(sa[key] - sb[key]).abs().max().item():.3e})")
+    return len(sa)
+
+
+def plain_schedule(rt, fl_kw, seed, k, ticks, buffer):
+    """The async queue by hand, from the engine's own availability draws
+    (``np.random.default_rng(seed + 2)``, delays then dropouts each tick):
+    arrivals in (tick, dispatch) order, a flush per ``buffer`` waiting. Per
+    tick: (arrived, dropped, each flush's gaps, pending, in flight)."""
+    avail = rt.fl.Availability(model=fl_kw["delay_model"], mean=fl_kw["delay_mean"],
+                               max_delay=fl_kw["delay_max"], dropout=fl_kw["dropout_rate"])
+    rng = np.random.default_rng(seed + 2)
+    inflight, pending, out = [], [], []
+    for t in range(ticks):
+        delays, drops = avail.sample_delays(rng, k), avail.sample_dropout(rng, k)
+        inflight += [(t + int(delays[i]), t) for i in range(k) if not drops[i]]
+        landed = sorted((r for r in inflight if r[0] <= t), key=lambda r: r[0])
+        inflight = [r for r in inflight if r[0] > t]
+        pending += landed
+        flushes = []
+        while len(pending) >= buffer:
+            flushes.append([t - r[1] for r in pending[:buffer]])
+            pending = pending[buffer:]
+        out.append((len(landed), int(drops.sum()), flushes, len(pending), len(inflight)))
+    return out
+
+
+def async_phase(rt, task, launches, ms):
+    """11.1, the zero-delay identity, and 11.2, stragglers."""
+    # 11.1: no delay model and a cohort-sized buffer is the vmap round, bitwise
+    kw = {**ENGINE_DGCWGMF, "scheme": "async_dgcwgmf"}
+    with deterministic_cudnn():
+        sync, _, c_sync = run_path(rt, task, kw, 2, 20, 64, launches)
+        ticks, hist, c_async = run_path(rt, task, kw, 2, 20, 64, launches, backend="async")
+    n = same_state(rt, sync, ticks, "async zero delay vs vmap")
+    check(c_sync == c_async == times(FUSED, 2), f"async identity: launches {c_sync} / {c_async}")
+    check(ticks.ledger.upload_bytes == sync.ledger.upload_bytes
+          and ticks.ledger.download_bytes == sync.ledger.download_bytes
+          and ticks.ledger.rounds == sync.ledger.rounds == 2,
+          f"async identity: ledger {ticks.ledger.summary()} vs {sync.ledger.summary()}")
+    check(ticks.ledger.staleness_counts == {0: 40}, "async identity: staleness "
+          f"{ticks.ledger.staleness_counts}")
+    print(f"  async, zero delay, buffer 20: 2 ticks bitwise 2 vmap rounds ({n} tensors and "
+          f"the ledger, cuDNN deterministic); launches {c_async}", flush=True)
+    del sync, ticks
+
+    # 11.2: geometric stragglers, dropouts, a buffer of half the cohort
+    rounds, buffer = 6, 10
+    seen = []
+    sim, hist, counts = run_path(rt, task, kw, rounds, 20, 64, launches, backend="async",
+                                 buffer_size=buffer, before=capture("async_round", seen),
+                                 **STRAGGLERS)
+    check(counts == times(FUSED, rounds), f"async stragglers: launches {counts}, one of each "
+          f"a tick expected")
+    plain = plain_schedule(rt, STRAGGLERS, sim.fl.seed, 20, rounds, buffer)
+    arrived = [out[4] for out in seen]
+    applies = [out[5] for out in seen]
+    for t, ((n_in, _, gaps, pending, inflight), rec) in enumerate(zip(plain, hist, strict=True)):
+        got = ([list(map(int, a.gaps)) for a in applies[t]], rec["pending"], rec["in_flight"])
+        check(len(arrived[t]) == n_in and got == (gaps, pending, inflight),
+              f"async tick {t}: arrived {len(arrived[t])}, (flush gaps, pending, in flight) "
+              f"{got}; the plain schedule {n_in}, {(gaps, pending, inflight)}")
+    dropped = sum(p[1] for p in plain)
+    n_arrived = sum(len(a) for a in arrived)
+    flushes = sum(len(a) for a in applies)
+    check(20 * rounds == n_arrived + dropped + sim.engine.in_flight,
+          f"async: dispatched {20 * rounds} != arrived {n_arrived} + dropped {dropped} + in "
+          f"flight {sim.engine.in_flight}")
+    check(n_arrived == buffer * flushes + sim.engine.pending and sim.engine.pending < buffer,
+          f"async: {n_arrived} arrived, {flushes} flushes of {buffer}, {sim.engine.pending} "
+          f"pending")
+    counts_hist = sim.ledger.staleness_counts
+    check(sum(counts_hist.values()) == buffer * flushes > 0 and max(counts_hist) > 0,
+          f"async: staleness histogram {counts_hist} for {flushes} flushes")
+    cost = sim.engine.scheme.cost_model()
+    nnz = np.concatenate(arrived)
+    up = float(np.sum(cost.upload_payload_bytes(nnz, sim.total_params)))
+    down = sum(float(cost.payload_bytes(a.down_nnz, sim.total_params)) * buffer
+               for ap in applies for a in ap)
+    check(up == sim.ledger.upload_bytes and down == sim.ledger.download_bytes,
+          f"async: ledger {sim.ledger.upload_bytes} / {sim.ledger.download_bytes}, the cost "
+          f"model on the arrived nnz {up} / {down}")
+    check(nnz.min() >= RESNET56_KEEP, f"async: an arrived payload of nnz {nnz.min()} < "
+          f"{RESNET56_KEEP}")
+    check(all(bool(torch.isfinite(x).all()) for x in rt.utils.tree_leaves(sim.params))
+          and bool(torch.isfinite(sim.engine._gmom).all()) and bool(sim.engine._gmom.any()),
+          "async: params or the server momentum M not finite (or M zero)")
+    ms["async (ms/tick)"] = [r["round_ms"] for r in hist[1:]]
+    print(f"  async, geometric delays (mean 1, max 4), dropout 0.1, buffer {buffer}, {rounds} "
+          f"ticks: launches {counts}; dispatched {20 * rounds} = arrived {n_arrived} + dropped "
+          f"{dropped} + in flight {sim.engine.in_flight}; {flushes} flushes, {sim.engine.pending} "
+          f"pending; applies a tick {[r['applies'] for r in hist]}; staleness "
+          f"{json.dumps(sim.ledger.staleness_summary())}; arrived nnz min {int(nnz.min())}; "
+          f"ledger {json.dumps(sim.ledger.summary())}; ms/tick {ms['async (ms/tick)']}",
+          flush=True)
+
+
+def topology_phase(rt, task, launches, ms):
+    """11.3, the ring, and 11.4, the hierarchy."""
+    # 11.3: 5 segments of 4 clients, the broadcast every 2 rounds
+    infos, seen_zero, down_after = [], [], []
+
+    def watch(t, sim):
+        seen_zero.append(not bool(sim.gbar_prev.any()))
+        down_after.append(sim.ledger.download_bytes)
+
+    def before(sim):
+        capture("topo_round", infos)(sim)
+        sim.run = lambda provide, inner=sim.run: inner(provide, on_round=watch)
+
+    sim, hist, counts = run_path(rt, task, ENGINE_DGCWGMF, 2, 20, 64, launches,
+                                 topology="ring", ring_hops=3, sync_every=2, before=before)
+    check(counts == times(FUSED, 8), f"ring: launches {counts}, 4 of each a round expected")
+    cost = sim.engine.scheme.cost_model()
+    for t, out in enumerate(infos):
+        info = out[4]
+        check(info.peer_nnz.shape == (15,) and info.ingress_nnz.shape == (5,)
+              and min(info.peer_nnz.min(), info.ingress_nnz.min()) >= RESNET56_KEEP,
+              f"ring round {t}: peer nnz {info.peer_nnz}, ingress nnz {info.ingress_nnz}")
+    info1 = infos[1][4]
+    check(seen_zero[0] and down_after[0] == 0.0 and not hist[0]["synced"],
+          "ring: round 0 charged a download or moved gbar_prev")
+    want_down = float(cost.payload_bytes(info1.down_nnz, sim.total_params)) * 20
+    check(hist[1]["synced"] and not seen_zero[1] and sim.ledger.download_bytes == want_down,
+          f"ring round 1: download {sim.ledger.download_bytes} bytes, expected {want_down} "
+          f"(20 clients)")
+    peer = sum(float(np.sum(cost.upload_payload_bytes(o[4].peer_nnz, sim.total_params)))
+               for o in infos)
+    check(sim.ledger.peer_bytes == peer, f"ring: peer {sim.ledger.peer_bytes}, expected {peer}")
+    ms["ring (ms/round)"] = [r["round_ms"] for r in hist[1:]]
+    print(f"  ring, 3 hops (5 segments of 4), sync every 2: launches {counts}; peer nnz min "
+          f"{int(min(o[4].peer_nnz.min() for o in infos))}, ingress nnz "
+          f"{[o[4].ingress_nnz.astype(int).tolist() for o in infos]}; download nnz round 1 "
+          f"{int(info1.down_nnz)}; ledger {json.dumps(sim.ledger.summary())}; ms/round "
+          f"{[r['round_ms'] for r in hist]}", flush=True)
+    del sim, infos
+
+    # 11.4: 4 edge aggregators re-compress with their own DGCwGMF state
+    infos = []
+    kw = {**ENGINE_DGCWGMF, "scheme": "hier_dgcwgmf", "tier_rate": 0.1}
+    sim, hist, counts = run_path(rt, task, kw, 2, 20, 64, launches, topology="hierarchical",
+                                 groups=4, before=capture("topo_round", infos))
+    check(counts == times(FUSED, 4), f"hierarchical: launches {counts}, 2 of each a round "
+          f"expected")
+    for t, out in enumerate(infos):
+        info = out[4]
+        check(info.peer_nnz.shape == (20,) and info.ingress_nnz.shape == (4,)
+              and min(info.peer_nnz.min(), info.ingress_nnz.min()) >= RESNET56_KEEP,
+              f"hierarchical round {t}: leaf nnz {info.peer_nnz}, tier nnz {info.ingress_nnz}")
+    tier = sim.engine.tier_cstates
+    check(all(x.shape == (4, RESNET56_PARAMS) and bool(torch.isfinite(x).all())
+              for x in tier) and bool(tier.m.any()),
+          "hierarchical: the tier state is not a finite [4, N] stack with a nonzero M")
+    cost = sim.engine.scheme.cost_model()
+    down = [float(cost.payload_bytes(o[4].down_nnz, sim.total_params)) for o in infos]
+    peer = sum(float(np.sum(cost.upload_payload_bytes(o[4].peer_nnz, sim.total_params)))
+               for o in infos) + 20 * sum(down)
+    check(sim.ledger.peer_bytes == peer and sim.ledger.download_bytes == 4 * sum(down),
+          f"hierarchical: peer {sim.ledger.peer_bytes} / download {sim.ledger.download_bytes}, "
+          f"expected {peer} (leaf uploads and the relay to 20) / {4 * sum(down)}")
+    ms["hierarchical (ms/round)"] = [r["round_ms"] for r in hist[1:]]
+    print(f"  hierarchical, 4 groups, tier rate 0.1: launches {counts}; leaf nnz min "
+          f"{int(min(o[4].peer_nnz.min() for o in infos))}, tier nnz "
+          f"{[o[4].ingress_nnz.astype(int).tolist() for o in infos]}; ledger "
+          f"{json.dumps(sim.ledger.summary())}; ms/round {[r['round_ms'] for r in hist]}",
+          flush=True)
+
+
+def degenerate_and_shard_phase(rt, task, launches, ms):
+    """11.5, ring(0) and hierarchical(1) against the star, and 11.6, a one-rank
+    NCCL group against vmap, all under cuDNN's deterministic algorithms."""
+    store = ROOT / "build" / "dist_store"
+    with deterministic_cudnn():
+        star_dgc, _, _ = run_path(rt, task, {"scheme": "dgc"}, 2, 20, 64, launches)
+        ring0, _, c = run_path(rt, task, {"scheme": "dgc"}, 2, 20, 64, launches,
+                               topology="ring", ring_hops=0)
+        n = same_state(rt, star_dgc, ring0, "ring(0) vs the star (dgc)")
+        check(c == times({"gmf_select": 1, "gmf_compress": 0, "momentum_correction": 1,
+                          "apply_mask": 1}, 2), f"ring(0): launches {c}")
+        del star_dgc, ring0
+        star, _, _ = run_path(rt, task, ENGINE_DGCWGMF, 2, 20, 64, launches)
+        hier1, _, c = run_path(rt, task, ENGINE_DGCWGMF, 2, 20, 64, launches,
+                               topology="hierarchical", groups=1)
+        same_state(rt, star, hier1, "hierarchical(1) vs the star (dgcwgmf)")
+        check(c == times(FUSED, 2), f"hierarchical(1): launches {c}")
+        del hier1
+        print(f"  ring(0) with dgc and hierarchical(1) with dgcwgmf: 2 rounds each bitwise the "
+              f"star ({n} tensors each, cuDNN deterministic)", flush=True)
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        torch.distributed.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                                             world_size=1)
+        try:
+            shard, hist, c = run_path(rt, task, ENGINE_DGCWGMF, 2, 20, 64, launches,
+                                      backend="shard")
+        finally:
+            torch.distributed.destroy_process_group()
+            store.unlink(missing_ok=True)
+    check(c == times(FUSED, 2), f"shard: launches {c}")
+    n = same_state(rt, star, shard, "one-rank NCCL shard vs vmap (dgcwgmf)")
+    ms["shard, 1 rank (ms/round)"] = [r["round_ms"] for r in hist[1:]]
+    print(f"  shard, one-rank NCCL group: 2 rounds bitwise vmap ({n} tensors, cuDNN "
+          f"deterministic); group set up, run and torn down in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def engines_card_vs_cpu_phase(rt, dev, tol=1e-2):
+    """11.7: round 0 of the ring (1 hop) and of the hierarchy (2 groups), and
+    3 async ticks with 11.2's stragglers (buffer 2), at depth 8 with 4
+    clients on the card and the CPU: the same async schedule, broadcasts
+    within ``tol`` relative L2 (phase 4's)."""
+    data = rt.synthetic.SynthCIFAR(num_train=2000, num_test=200)
+    runs = {"ring, 1 hop": (ENGINE_DGCWGMF, 1, dict(topology="ring", ring_hops=1)),
+            "hierarchical, 2 groups": ({**ENGINE_DGCWGMF, "scheme": "hier_dgcwgmf"}, 1,
+                                       dict(topology="hierarchical", groups=2)),
+            "async, stragglers, buffer 2": ({**ENGINE_DGCWGMF, "scheme": "async_dgcwgmf"}, 3,
+                                            dict(backend="async", buffer_size=2, **STRAGGLERS))}
+    for label, (kw, rounds, fl_kw) in runs.items():
+        out = {}
+        for side, device in (("cuda", dev), ("cpu", "cpu")):
+            task = rt.fl.CifarTask(num_clients=4, depth=8, data=data, device=device)
+            sim, hist, _ = run_path(rt, task, kw, rounds, 4, 32, {n: 0 for n in rt.gk.LAUNCHES},
+                                    **fl_kw)
+            schedule = [(r.get("applies"), r.get("pending"), r.get("in_flight")) for r in hist]
+            out[side] = (schedule, sim.ledger.staleness_counts, sim.gbar_prev.cpu())
+        (s_g, h_g, b_g), (s_c, h_c, b_c) = out["cuda"], out["cpu"]
+        check(s_g == s_c and h_g == h_c, f"{label}: schedule card {s_g} {h_g} vs CPU {s_c} {h_c}")
+        rel = float((b_g - b_c).norm() / b_c.norm())
+        check(math.isfinite(rel) and rel <= tol,
+              f"{label}: card vs CPU broadcast relative L2 {rel:.3e} > {tol}")
+        print(f"  {label}: card vs CPU broadcast relative L2 {rel:.3e} (tolerance {tol}); "
+              f"schedule (applies, pending, in flight) {s_g}, staleness {h_g}: the same on both",
+              flush=True)
+
+
+def engines_phase(rt, task, dev):
+    """Phase 11 on ResNet-56 (phase 3's task). Returns (launches of its
+    counted runs, ms per round or tick after round 0 per engine)."""
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    ms = {}
+    t0 = time.perf_counter()
+    async_phase(rt, task, launches, ms)
+    topology_phase(rt, task, launches, ms)
+    degenerate_and_shard_phase(rt, task, launches, ms)
+    print(f"  ResNet-56 engines in {time.perf_counter() - t0:.1f} s", flush=True)
+    engines_card_vs_cpu_phase(rt, dev)
+    return launches, ms
+
+
 def serve_phase(rt, dev, profile=False):
     """The port's fixed-batch serving path at llama3.2-1b full size; with
     ``profile``, a ``torch.profiler`` trace of one more run: the device's
@@ -1641,11 +1973,16 @@ def main() -> None:
         task = rt.fl.CifarTask(num_clients=20, depth=56,
                                data=rt.synthetic.SynthCIFAR(num_train=20000), device=dev)
         by_path["resnet56_remaining"], remaining_ms = remaining_stages_phase(rt, task)
-        del task
         print(f"  ms/round after round 0 ({card}): {json.dumps(remaining_ms)}", flush=True)
         print("phase 10: the remaining stage kinds, card vs CPU, round 0 at depth 8",
               flush=True)
         remaining_card_vs_cpu_phase(rt, dev)
+        print("phase 11: ResNet-56 under the async, ring, hierarchical and shard engines",
+              flush=True)
+        by_path["resnet56_engines"], engine_ms = engines_phase(rt, task, dev)
+        del task
+        print(f"  ms/round (ms/tick) after round 0 ({card}): {json.dumps(engine_ms)}",
+              flush=True)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

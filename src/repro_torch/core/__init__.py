@@ -23,11 +23,14 @@ from repro_torch.core.registry import (
     SchemeSpec,
     available_presets,
     register_preset,
+    resolve_tier,
 )
 from repro_torch.core.state import (
     ClientState,
     ServerState,
     gather_client_states,
+    group_sum,
+    interleave_position_stacks,
     scatter_client_states,
     stack_client_states,
 )
@@ -47,11 +50,14 @@ __all__ = [
     "SchemeSpec",
     "available_presets",
     "register_preset",
+    "resolve_tier",
     "ClientState",
     "ServerState",
     "stack_client_states",
     "gather_client_states",
     "scatter_client_states",
+    "group_sum",
+    "interleave_position_stacks",
     "CommLedger",
     "CostModel",
     "AdaptiveRateController",

@@ -6,6 +6,10 @@
   whenever that is cheaper.
 * Per round: upload = Σ_k payload(G_k); download = K · payload(Ĝ) — the
   server unicasts the aggregate to each client (hub-and-spoke).
+* Non-star topologies also move **peer** traffic that never touches the
+  server: ring hop payloads (client→client) and the hierarchical
+  leaf→aggregator uploads and aggregator→leaf relays. The ledger keeps it
+  in ``peer_bytes``, so ``upload_bytes`` stays the server-ingress link.
 
 * A **sketch upload** (FetchSGD) is a fixed-shape dense buffer: its nnz
   values are charged value bytes only, never indices, never the dense
@@ -13,8 +17,6 @@
 
 All byte arithmetic happens on the host in float64, as in the JAX package:
 round byte counts exceed float32's exact-integer range at ≥1e9 params.
-The ported ledger is the synchronous star subset (no peer or staleness
-buckets, no telemetry hooks).
 """
 
 from __future__ import annotations
@@ -61,38 +63,99 @@ class CostModel:
 
 
 class CommLedger:
-    """Accumulates upload/download bytes across rounds (host-side)."""
+    """Accumulates upload, download and peer bytes across rounds (host-side).
+
+    Synchronous engines call ``record_round`` once a round. The async
+    buffered engine decomposes the same arithmetic: ``record_upload`` when
+    payloads hit the wire (on arrival), ``record_download`` per flush (the
+    fresh broadcast unicast to that flush's contributors),
+    ``record_staleness`` with the flush's per-payload gaps, and ``tick``.
+    The topology engines charge hop and leaf payloads with ``record_peer``
+    and the aggregators' relay with ``record_peer_download``."""
 
     def __init__(self, cost_model: CostModel | None = None):
         self.cost = cost_model or CostModel()
         self.upload_bytes = 0.0
         self.download_bytes = 0.0
+        self.peer_bytes = 0.0
         self.rounds = 0
+        self.staleness_counts: dict[int, int] = {}
 
     def record_round(self, upload_nnz_per_client, download_nnz, total, num_clients,
                      value_bytes=None):
-        up, down = self.cost.round_bytes(
-            np.asarray(upload_nnz_per_client, np.float64), download_nnz, total,
-            num_clients, value_bytes)
-        self.upload_bytes += float(up)
-        self.download_bytes += float(down)
+        self.record_upload(upload_nnz_per_client, total, value_bytes)
+        self.record_download(download_nnz, total, num_clients)
+        self.tick()
+
+    def _uploads(self, nnz, total, value_bytes=None) -> float:
+        return float(np.sum(self.cost.upload_payload_bytes(np.asarray(nnz, np.float64), total,
+                                                           value_bytes)))
+
+    def _unicasts(self, download_nnz, total, recipients) -> float:
+        down = self.cost.payload_bytes(download_nnz, total)
+        return float(down * recipients if self.cost.unicast_download else down)
+
+    def record_upload(self, upload_nnz_per_client, total, value_bytes=None):
+        """Charge client→server payloads that hit the wire; ``value_bytes``
+        overrides the per-value cost, a scalar or one per payload."""
+        self.upload_bytes += self._uploads(upload_nnz_per_client, total, value_bytes)
+
+    def record_download(self, download_nnz, total, num_clients):
+        """Charge one broadcast unicast to ``num_clients`` recipients."""
+        self.download_bytes += self._unicasts(download_nnz, total, num_clients)
+
+    def record_peer(self, nnz_per_payload, total):
+        """Charge payloads that never touch the server (ring hops,
+        hierarchical leaf→aggregator uploads), priced as uploads."""
+        self.peer_bytes += self._uploads(nnz_per_payload, total)
+
+    def record_peer_download(self, download_nnz, total, num_recipients):
+        """Charge the aggregators' relay of the broadcast to
+        ``num_recipients`` leaves as peer traffic."""
+        self.peer_bytes += self._unicasts(download_nnz, total, num_recipients)
+
+    def record_staleness(self, gaps):
+        """Count per-payload staleness gaps (whole ticks) into the histogram."""
+        for g in np.asarray(gaps).astype(np.int64).reshape(-1):
+            self.staleness_counts[int(g)] = self.staleness_counts.get(int(g), 0) + 1
+
+    def tick(self):
         self.rounds += 1
 
     @property
     def total_bytes(self) -> float:
-        return self.upload_bytes + self.download_bytes
+        return self.upload_bytes + self.download_bytes + self.peer_bytes
 
     @property
     def total_gb(self) -> float:
         return self.total_bytes / 1e9
 
-    def summary(self) -> dict:
+    def staleness_summary(self) -> dict:
+        """Histogram and moments of the recorded gaps ({} when none was
+        recorded: synchronous runs)."""
+        if not self.staleness_counts:
+            return {}
+        gaps = np.asarray(sorted(self.staleness_counts), np.int64)
+        counts = np.asarray([self.staleness_counts[int(g)] for g in gaps], np.int64)
+        n = int(counts.sum())
         return {
+            "staleness_hist": {int(g): int(c) for g, c in zip(gaps, counts, strict=True)},
+            "staleness_mean": float((gaps * counts).sum() / n),
+            "staleness_max": int(gaps[-1]),
+            "staleness_updates": n,
+        }
+
+    def summary(self) -> dict:
+        out = {
             "rounds": self.rounds,
             "upload_gb": self.upload_bytes / 1e9,
+            "server_ingress_gb": self.upload_bytes / 1e9,  # upload is the server-ingress link
             "download_gb": self.download_bytes / 1e9,
+            "peer_gb": self.peer_bytes / 1e9,
             "total_gb": self.total_gb,
         }
+        out.update(self.staleness_summary())
+        return out
 
 
 def dense_round_gb(total_params: int, num_clients: int, value_bytes: int = 4) -> float:

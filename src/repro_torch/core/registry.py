@@ -3,13 +3,14 @@
 ``resolve(cfg)`` binds a preset's ``SchemeSpec`` (after any per-config
 stage overrides) to a ``CompressionConfig`` and returns a ``Scheme``, the
 object the round engine calls. The ported presets are the paper's scheme
-family on the synchronous star round (``none``, ``dgc``, ``gmc``,
-``dgcwgm``, ``dgcwgmf``), the ``topk`` and ``randomk`` ablations,
-``fetchsgd`` (a count-sketch upload with momentum and error feedback in
-sketch space at the server, ``core/sketch.py``), ``dgcwgmf_dl`` (a top-k
-downlink with a server residual) and ``adaptive_dgcwgmf`` (per-client
-rates). The asynchronous and hierarchical presets raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+family (``none``, ``dgc``, ``gmc``, ``dgcwgm``, ``dgcwgmf``), the
+``topk`` and ``randomk`` ablations, ``fetchsgd`` (a count-sketch upload
+with momentum and error feedback in sketch space at the server,
+``core/sketch.py``), ``dgcwgmf_dl`` (a top-k downlink with a server
+residual), ``adaptive_dgcwgmf`` (per-client rates), ``async_dgcwgmf``
+(``gmf_damp`` staleness for the async buffered engine) and
+``hier_dgcwgmf`` (a DGCwGMF aggregator tier under the hierarchical
+topology, ``resolve_tier``).
 
 Registering a scheme is one call, and ``python -m
 repro_torch.core.registry`` lists every stage and preset::
@@ -46,17 +47,17 @@ from repro_torch.utils import scalar, tree_nnz
 from repro_torch.utils.flat import FlatLayout
 from repro_torch.utils.quant import roundtrip_q8_segments
 
-ENGINES = stages.ENGINES
-NOT_PORTED_PRESETS = {
-    "async_dgcwgmf": ENGINES,
-    "hier_dgcwgmf": ENGINES,
-}
+# Presets of the reference not ported yet -> the ROADMAP item that ports them.
+NOT_PORTED_PRESETS: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class SchemeSpec:
     """Eight stage names composing one scheme (``wire="auto"`` resolves to
-    the config's ``wire_dtype``), plus the reference's aggregator-tier slot."""
+    the config's ``wire_dtype``), plus ``tier``: the preset the aggregator
+    tier re-compresses with under ``topology="hierarchical"`` (checked by
+    ``resolve_tier``, since presets register through this class; ``none``,
+    the dense float32 passthrough, makes ``groups=1`` the star bitwise)."""
 
     selector: str = "topk"
     compensator: str = "none"
@@ -78,8 +79,6 @@ class SchemeSpec:
         stages.get_stage("downlink", self.downlink)
         stages.get_stage("staleness", self.staleness)
         stages.get_stage("rate_control", self.rate_control)
-        if self.tier != "none":
-            raise NotImplementedError(f"aggregator tiers are not ported yet: {ENGINES}")
 
 
 PRESETS: dict[str, SchemeSpec] = {}
@@ -135,6 +134,17 @@ register_preset("fetchsgd", SchemeSpec(selector="sketch", fusion="server_gm"),
 register_preset("dgcwgmf_dl", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf",
                                          downlink="topk"),
                 doc="DGCwGMF plus a top-k downlink with server-side error feedback")
+register_preset("async_dgcwgmf", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf",
+                                            staleness="gmf_damp"),
+                doc="DGCwGMF for the asynchronous buffered engine (FLConfig.backend='async'): "
+                    "late payloads are poly-damped and the server-held global momentum fills "
+                    "the gap (gmf_damp staleness). Identical to dgcwgmf under any synchronous "
+                    "backend and at zero delay")
+register_preset("hier_dgcwgmf", SchemeSpec(selector="topk", compensator="dgc", fusion="gmf",
+                                           tier="dgcwgmf"),
+                doc="DGCwGMF at the leaf tier plus a DGCwGMF re-compression at the aggregator "
+                    "tier (topology=hierarchical): GMF momentum and EF residuals are held per "
+                    "tier, so fusion compensates where the compression error is introduced")
 register_preset("adaptive_dgcwgmf", SchemeSpec(selector="topk", compensator="dgc",
                                                fusion="gmf", rate_control="adaptive"),
                 doc="DGCwGMF with the adaptive per-client rate controller "
@@ -194,6 +204,24 @@ class Scheme:
         """True when the rate controller varies per-client rates: the engine
         threads rates (and wire levels) into ``client_compress`` only then."""
         return self.rate_control.name != "fixed"
+
+    @property
+    def staleness_momentum(self) -> bool:
+        """True when the staleness policy reads the server-held global
+        momentum (the async engine then keeps the EMA of broadcasts)."""
+        return self.staleness.uses_momentum
+
+    def staleness_weight(self, gaps):
+        """The policy's float32 weights for payloads of ages ``gaps`` ([B])."""
+        return self.staleness.weight(self.cfg, gaps)
+
+    def apply_staleness(self, payloads, gaps, gmom=None):
+        """Weigh a ``[B, W]`` buffer of payloads (W is N, or rows·cols under
+        a sketch) by their ``[B]`` gaps, a device tensor; ``gmom`` is the
+        server-held global momentum, flat ``[N]``. The ``none`` policy
+        returns the buffer itself (bitwise), which pins the async engine
+        to the synchronous ones at zero delay."""
+        return self.staleness.combine(self.cfg, payloads, gaps, {} if gmom is None else gmom)
 
     def init_states(self, params) -> tuple[ClientState, ServerState]:
         """One client's zero state (flat ``[N]`` fields, no client axis) and
@@ -380,6 +408,24 @@ def resolve(cfg) -> Scheme:
 # ---------------------------------------------------------------------------
 
 
+def resolve_tier(cfg) -> Scheme:
+    """CompressionConfig -> the aggregator tier's Scheme under
+    ``topology="hierarchical"``: the preset ``cfg.tier_scheme``, else the
+    leaf preset's ``SchemeSpec.tier`` slot, bound to the leaf's
+    hyper-parameters with ``rate=cfg.tier_rate`` and no stage overrides
+    (those belong to the leaf composition)."""
+    spec = PRESETS.get(cfg.scheme)
+    name = cfg.tier_scheme
+    if name is None:
+        name = spec.tier if spec is not None else "none"
+    if name not in PRESETS:
+        raise ValueError(f"unknown tier scheme {name!r}; registered presets: "
+                         f"{available_presets()}")
+    overrides = {f"{kind}_stage": None for kind in stages.STAGE_KINDS}
+    return resolve(dataclasses.replace(cfg, scheme=name, rate=cfg.tier_rate, tier_scheme=None,
+                                       **overrides))
+
+
 def describe() -> str:
     lines = ["Compression-scheme registry", "", "Stages:"]
     for kind in stages.STAGE_KINDS:
@@ -403,8 +449,7 @@ def describe() -> str:
             f"{spec.staleness}{extras}")
         if PRESET_DOCS.get(name):
             lines.append(f"             {PRESET_DOCS[name]}")
-    lines += ["", f"Not ported yet: {', '.join(sorted(NOT_PORTED_PRESETS))} ({ENGINES})",
-              "",
+    lines += ["",
               "Override stages per run: CompressionConfig(scheme=<preset>, "
               "selector_stage=..., compensator_stage=..., fusion_stage=..., "
               "wire_stage=..., rotation_stage=..., downlink_stage=..., "

@@ -2,10 +2,7 @@
 and the functional delegations to the resolved ``Scheme``.
 
 ``CompressionConfig`` keeps every field name and default of the JAX
-package's, so one config reads the same in both packages. Values that
-select something this port has not ported yet (a preset, a stage, a wire
-dtype, an aggregator tier) raise ``NotImplementedError`` naming the
-ROADMAP item that ports it; nothing is silently ignored.
+package's, so one config reads the same in both packages.
 
   init_states(cfg, params)                  -> (ClientState, ServerState)
   client_compress(cfg, state, grad, gbar_prev, round_idx, ..., layout=...)
@@ -55,14 +52,16 @@ class CompressionConfig:
     staleness_stage: str | None = None
     rate_control_stage: str | None = None
 
-    # Aggregator-tier re-compression (topology=hierarchical; not ported).
+    # Aggregator-tier re-compression (topology=hierarchical): the preset the
+    # edge aggregators re-compress their group sums with (None = the leaf
+    # preset's SchemeSpec.tier slot) and its rate.
     tier_scheme: str | None = None
     tier_rate: float = 0.1
 
     # Downlink compression rate (downlink=topk).
     downlink_rate: float = 0.1
 
-    # Staleness weighting (async buffered engine; not ported).
+    # Staleness weighting (the async buffered engine).
     staleness_exponent: float = 0.5
     staleness_tau: float = 0.3
     staleness_horizon: int = 32
@@ -104,10 +103,9 @@ class CompressionConfig:
             name = getattr(self, f"{kind}_stage")
             if name is not None:
                 get_stage(kind, name)  # raises with the registered names
-        if self.tier_scheme is not None:
-            raise NotImplementedError(
-                f"aggregator-tier schemes run under topology=hierarchical, not "
-                f"ported yet: {_registry.ENGINES}")
+        if self.tier_scheme is not None and self.tier_scheme not in _registry.PRESETS:
+            raise ValueError(f"unknown tier_scheme {self.tier_scheme!r}; registered presets: "
+                             f"{_registry.available_presets()}")
         if not 0.0 < self.tier_rate <= 1.0:
             raise ValueError(f"tier_rate must be in (0, 1], got {self.tier_rate}")
         if not 0.0 < self.downlink_rate <= 1.0:

@@ -23,7 +23,10 @@ A scheme is a composition of eight stage kinds, as in the JAX package's
 ``downlink``     ``none`` and ``topk`` (top-k of the broadcast against a
                  server-side residual, ``ServerState.residual``);
 ``rate_control`` ``fixed`` and ``adaptive`` (``core/rate_control.py``);
-``staleness``    its identity stage ``none``.
+``staleness``    ``none`` (the identity), ``poly`` and ``gmf_damp``: how
+                 the async buffered engine weighs a payload that arrives
+                 ``gap`` ticks after the model it was computed on, over
+                 the ``[B, W]`` buffer with a ``[B]`` weight vector.
 
 The client axis is explicit and the state is flat (``utils/flat.py``):
 every state, gradient and payload is one client-major ``[k, N]`` stack of
@@ -41,9 +44,6 @@ not from ``jax.random``: each draw is a pure function of (seed, round,
 leaf, client, index), the same on the CPU and the card, and one set of
 ops over the stack a round. Each draw is a method of its stage, the seam
 the parity tests feed JAX's draws through.
-
-The staleness stages of the asynchronous engine raise
-``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,14 +64,8 @@ STAGE_KINDS = ("selector", "compensator", "fusion", "wire", "rotation",
 
 REGISTRY: dict[str, dict[str, Any]] = {kind: {} for kind in STAGE_KINDS}
 
-# The ROADMAP item that ports the staleness stages, with the engines they act under.
-ENGINES = "ROADMAP.md Queue 1 item 9 (the async, topology and shard engines)"
-
 # Stages of the reference not ported yet -> the ROADMAP item that ports them.
-NOT_PORTED = {
-    ("staleness", "poly"): ENGINES,
-    ("staleness", "gmf_damp"): ENGINES,
-}
+NOT_PORTED: dict[tuple[str, str], str] = {}
 
 
 def register(kind: str, name: str, *, override: bool = False):
@@ -735,9 +729,67 @@ class TopKDownlink(Downlink):
         return out_w, r - out_w, torch.count_nonzero(masks)
 
 
-@register("staleness", "none")
-class NoStaleness:
+# ---------------------------------------------------------------------------
+# Staleness (the async buffered engine's payload-age weighting)
+# ---------------------------------------------------------------------------
+
+
+class Staleness:
+    """How the server weighs a payload that arrives ``gap`` ticks after the
+    model it was computed against (``gap = t_apply − t_dispatch``).
+
+    ``weight(cfg, gaps)`` maps the ``[B]`` gaps of a buffer to a ``[B]``
+    float32 weight vector on their device; ``combine(cfg, buf, gaps,
+    gmom)`` turns the ``[B, W]`` buffer into what enters the aggregate,
+    ``gmom`` being the server-held global momentum (a flat ``[N]`` EMA of
+    broadcasts the async engine keeps; ``{}`` for policies without it).
+    Every policy is the identity at gap 0, which pins the async engine to
+    the synchronous one at zero delay. Gaps are clipped to
+    ``cfg.staleness_horizon`` first, so a weight never falls below
+    ``(1 + horizon)^(−staleness_exponent)``."""
+
     uses_momentum = False
+    description = ""
+
+    def _gap(self, cfg, gaps):
+        g = gaps.to(torch.float32)
+        return torch.minimum(g, scalar(float(cfg.staleness_horizon), g.device))
+
+    def weight(self, cfg, gaps):
+        return torch.ones_like(gaps, dtype=torch.float32)
+
+    def combine(self, cfg, buf, gaps, gmom):
+        return self.weight(cfg, gaps)[:, None] * buf
+
+
+@register("staleness", "none")
+class NoStaleness(Staleness):
     description = "every payload weighs 1 (synchronous semantics; the identity)"
 
+    def combine(self, cfg, buf, gaps, gmom):
+        return buf  # the identity, bitwise
 
+
+@register("staleness", "poly")
+class PolyStaleness(Staleness):
+    description = ("polynomial damping w(s) = (1+s)^(−staleness_exponent), gap clipped "
+                   "to staleness_horizon (FedBuff-style); exponent 0 == none")
+
+    def weight(self, cfg, gaps):
+        s = self._gap(cfg, gaps)
+        return (1.0 + s) ** (-scalar(cfg.staleness_exponent, s.device))
+
+
+@register("staleness", "gmf_damp")
+class GMFDampStaleness(PolyStaleness):
+    uses_momentum = True
+    description = ("GMF-native: the payload poly-damped by w(s) and the server-held "
+                   "global momentum filling the gap, w(s)·g + staleness_tau·(1−w(s))·M; "
+                   "the identity at s=0")
+
+    def combine(self, cfg, buf, gaps, gmom):
+        w = self.weight(cfg, gaps)
+        if not isinstance(gmom, torch.Tensor):
+            return w[:, None] * buf
+        lam = scalar(cfg.staleness_tau, w.device) * (1.0 - w)
+        return w[:, None] * buf + lam[:, None] * gmom

@@ -79,3 +79,36 @@ def scatter_client_states(cstates: ClientState, client_idx: torch.Tensor,
     returned tree is ``cstates`` itself."""
     return tree_map(lambda full, upd: full.index_copy_(0, client_idx, upd),
                     cstates, updated)
+
+
+# ---------------------------------------------------------------------------
+# Topology layouts (fl/engine.py TopologyEngine): both are reorderings of the
+# client axis of the flat stacks, chosen so the degenerate cases reduce in the
+# star engine's order.
+# ---------------------------------------------------------------------------
+
+
+def group_sum(stack, num_groups: int):
+    """Sum a ``[K, W]`` client stack (or a tree of them) within
+    ``num_groups`` contiguous groups -> ``[G, W]``. No division: the cloud
+    divides by the cohort size once. One group is the star's own call, a
+    ``sum(0)`` over the ``[K, W]`` stack, so ``groups=1`` reduces in the
+    star's order on either device."""
+    if num_groups == 1:
+        return tree_map(lambda x: torch.sum(x, dim=0).unsqueeze(0), stack)
+    return tree_map(
+        lambda x: torch.sum(x.reshape((num_groups, x.shape[0] // num_groups) + x.shape[1:]),
+                            dim=1),
+        stack)
+
+
+def interleave_position_stacks(stacks):
+    """Merge the ring positions' ``[S, W]`` stacks back into cohort order:
+    ``stacks[p]`` holds segment-major rows for position ``p`` (cohort index
+    ``j * len(stacks) + p`` for segment ``j``)."""
+    k1 = len(stacks)
+    if k1 == 1:
+        return stacks[0]
+    return tree_map(
+        lambda *xs: torch.stack(xs, dim=1).reshape((k1 * xs[0].shape[0],) + xs[0].shape[1:]),
+        *stacks)

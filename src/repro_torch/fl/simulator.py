@@ -1,7 +1,14 @@
-"""Hub-and-spoke federated-learning simulator (paper §4 experiments).
+"""Federated-learning simulator (paper §4 experiments).
 
-One process simulates K clients + server on one device. The per-round
-compute lives in the ``RoundEngine`` (fl/engine.py); the simulator keeps
+One process simulates K clients + server on one device (or, under the
+``shard`` backend, each rank of a process group runs one simulator over
+its slice of the cohort). The per-round compute lives in the
+``RoundEngine`` (fl/engine.py): the synchronous ``vmap`` and ``shard``
+rounds, the ``async`` engine's ticks (``_run_async``: uploads charged on
+arrival, downloads per flush, each flush's staleness gaps into the
+ledger's histogram) and the ``ring`` and ``hierarchical`` topologies'
+rounds (``_run_topo``: hops and leaf uploads charged as peer bytes, the
+broadcast only on sync rounds). The simulator keeps
 the host-side bookkeeping: cohort sampling and batch draws from
 ``np.random.default_rng(seed + 1)`` (the JAX package's stream, call for
 call), the ``CommLedger`` (its upload term through
@@ -33,18 +40,18 @@ import torch
 
 from repro_torch.core import CommLedger, CompressionConfig, init_states
 from repro_torch.core import adaptive, stack_client_states
-from repro_torch.core.stages import ENGINES
 from repro_torch.fl import availability
-from repro_torch.fl.engine import BACKENDS, TOPOLOGIES, make_engine
+from repro_torch.fl.engine import BACKENDS, make_engine
+from repro_torch.topo import validate_fl_topology
 from repro_torch.utils import resolve_device, scalar, to_device, tree_map
 from repro_torch.utils.flat import FlatLayout
 
 
 @dataclasses.dataclass
 class FLConfig:
-    """The JAX package's ``FLConfig`` fields; the ported slice is the
-    synchronous ``vmap`` backend on the ``star`` topology, and the other
-    backends, topologies and the availability model raise."""
+    """The JAX package's ``FLConfig``: the backend (``vmap``, ``shard`` or
+    ``async``), the async engine's buffer and availability model, the
+    adaptive-τ controller and the wire-graph topology."""
 
     num_clients: int
     rounds: int
@@ -74,20 +81,10 @@ class FLConfig:
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; choose from {BACKENDS}")
-        if self.topology not in TOPOLOGIES:
-            raise ValueError(f"unknown topology {self.topology!r}; choose from {TOPOLOGIES}")
         if self.buffer_size < 0:
             raise ValueError(f"buffer_size must be >= 0, got {self.buffer_size}")
-        ported = (self.backend == "vmap" and self.topology == "star"
-                  and self.delay_model == "none" and self.dropout_rate == 0.0
-                  and self.buffer_size == 0 and self.shards == 0)
-        if not ported:
-            raise NotImplementedError(
-                f"only backend='vmap' on topology='star' with no delay model, dropout, "
-                f"buffer or shards is ported; got backend={self.backend!r} "
-                f"topology={self.topology!r} delay_model={self.delay_model!r} "
-                f"dropout_rate={self.dropout_rate} buffer_size={self.buffer_size} "
-                f"shards={self.shards}: {ENGINES}")
+        validate_fl_topology(self)
+        availability.from_fl_config(self)  # the availability fields, checked now
 
 
 class FLSimulator:
@@ -95,7 +92,8 @@ class FLSimulator:
 
     ``init_fn(generator)`` returns the initial params; the generator is a
     CPU ``torch.Generator`` seeded with ``fl_cfg.seed``. Everything runs on
-    ``device`` (default ``cuda``, which must exist)."""
+    ``device`` (default ``cuda``, which must exist). ``group`` is the
+    shard backend's process group (default: the default group)."""
 
     def __init__(
         self,
@@ -106,6 +104,7 @@ class FLSimulator:
         eval_fn: Callable[[dict], float] | None = None,
         *,
         device="cuda",
+        group=None,
     ):
         self.device = resolve_device(device)
         self.fl = fl_cfg
@@ -124,7 +123,7 @@ class FLSimulator:
         self.gbar_prev = self.layout.zeros()
         self.history: list[dict] = []
         self.tau_ctl = adaptive.init(comp_cfg.tau if not fl_cfg.adaptive_tau else 0.0)
-        self.engine = make_engine(fl_cfg, comp_cfg, loss_fn, k, self.layout)
+        self.engine = make_engine(fl_cfg, comp_cfg, loss_fn, k, self.layout, group=group)
         self.ledger = CommLedger(self.engine.scheme.cost_model())
         self._round_fn = self.engine.round_fn
         self._rng = np.random.default_rng(fl_cfg.seed + 1)
@@ -136,6 +135,7 @@ class FLSimulator:
                 comp_cfg, fl_cfg.num_clients, self.device)
             self._bw_rng = np.random.default_rng(fl_cfg.seed + 3)
             self._avail = availability.from_fl_config(fl_cfg)
+            self._last_gap = 0.0  # async: the previous tick's mean applied gap
 
     def _signal(self, ids: torch.Tensor) -> torch.Tensor:
         """Each sampled client's EF-residual mass over the global delta
@@ -148,13 +148,14 @@ class FLSimulator:
         gsq = torch.sum(torch.square(self.gbar_prev))
         return torch.sqrt(vsq) / (torch.sqrt(gsq) + self.comp.eps)
 
-    def _rate_inputs(self, ids: torch.Tensor):
-        """One controller step: the signal, the bandwidth budget, the
-        update -> (rates [k], wire levels [k] or None), on the device."""
+    def _rate_inputs(self, ids: torch.Tensor, gap: float):
+        """One controller step at staleness ``gap`` (0.0 in a synchronous
+        round): the signal, the bandwidth budget, the update -> (rates [k],
+        wire levels [k] or None), on the device."""
         bw = self._avail.sample_bandwidth(self._bw_rng, ids.shape[0]).astype(np.float32)
         self.rate_state, rates, levels = self.engine.scheme.rate_control.update(
             self.comp, self.rate_state, ids, self._signal(ids), to_device(bw, self.device),
-            scalar(0.0, self.device))  # a synchronous round has no staleness gap
+            scalar(gap, self.device))
         return rates, (levels if self.engine.use_levels else None)
 
     def _sample_ids(self, t: int) -> np.ndarray:
@@ -179,7 +180,13 @@ class FLSimulator:
         ``download_nnz`` and ``round_ms`` (host clock, round start to the
         counts' arrival);
         under an adaptive rate controller also ``rates`` and, with wire
-        levels, ``wire_levels`` (per client)."""
+        levels, ``wire_levels`` (per client). The async and topology loops
+        (``_run_async``, ``_run_topo``) keep the JAX package's keys plus
+        ``round_ms``."""
+        if self.engine.name == "async":
+            return self._run_async(batch_provider, log_every=log_every, on_round=on_round)
+        if self.engine.name == "topo":
+            return self._run_topo(batch_provider, log_every=log_every, on_round=on_round)
         fl = self.fl
         for t in range(fl.rounds):
             t0 = time.perf_counter()
@@ -190,7 +197,7 @@ class FLSimulator:
             ids_dev = to_device(ids, self.device)
             rates = levels = None
             if self.rate_adaptive:
-                rates, levels = self._rate_inputs(ids_dev)
+                rates, levels = self._rate_inputs(ids_dev, 0.0)
             (
                 self.params,
                 self.cstates,
@@ -230,14 +237,7 @@ class FLSimulator:
                                        float(self.engine.scheme.wire.value_bytes))
             self.ledger.record_round(up_host, down, self.total_params, k, value_bytes)
             if fl.adaptive_tau:
-                self.tau_ctl = adaptive.update(
-                    self.tau_ctl,
-                    float(np.mean(up_host)),
-                    union,
-                    target_overlap=fl.tau_target_overlap,
-                    eta=fl.tau_eta,
-                    tau_max=fl.tau_max,
-                )
+                self._tau_update(float(np.mean(up_host)), union)
             rec = {"round": t, "comm_gb": self.ledger.total_gb,
                    "tau": float(self.tau_ctl.tau),
                    "upload_nnz": [int(x) for x in up_host], "download_nnz": int(down),
@@ -248,15 +248,124 @@ class FLSimulator:
                 rec["rates"] = rates_host.tolist()
                 if levels is not None:
                     rec["wire_levels"] = levels_host.tolist()
-            if self.eval_fn and (t % fl.eval_every == 0 or t == fl.rounds - 1):
-                rec["accuracy"] = float(self.eval_fn(self.params))
-            self.history.append(rec)
-            if log_every and t % log_every == 0:
-                acc = rec.get("accuracy")
-                acc_s = f" acc={acc:.4f}" if acc is not None else ""
-                print(f"[round {t:4d}] comm={self.ledger.total_gb:.4f} GB{acc_s}", flush=True)
-            if on_round:
-                on_round(t, self)
+            self._finish(t, rec, log_every, on_round,
+                         f"[round {t:4d}] comm={self.ledger.total_gb:.4f} GB")
+        return self.history
+
+    def _tau_update(self, up_nnz_mean: float, union_nnz: float) -> None:
+        fl = self.fl
+        self.tau_ctl = adaptive.update(self.tau_ctl, up_nnz_mean, union_nnz,
+                                       target_overlap=fl.tau_target_overlap, eta=fl.tau_eta,
+                                       tau_max=fl.tau_max)
+
+    def _finish(self, t, rec, log_every, on_round, log_line):
+        """Evaluation, history, log line and callback of round or tick ``t``."""
+        fl = self.fl
+        if self.eval_fn and (t % fl.eval_every == 0 or t == fl.rounds - 1):
+            rec["accuracy"] = float(self.eval_fn(self.params))
+        self.history.append(rec)
+        if log_every and t % log_every == 0:
+            acc = rec.get("accuracy")
+            acc_s = f" acc={acc:.4f}" if acc is not None else ""
+            print(f"{log_line}{acc_s}", flush=True)
+        if on_round:
+            on_round(t, self)
+
+    def _run_async(self, batch_provider, *, log_every: int = 0, on_round=None):
+        """The asynchronous buffered loop (``backend="async"``). One
+        iteration is one server tick: the cohort is dispatched against the
+        current model, in-flight payloads land and the engine flushes zero
+        or more buffers. The ledger charges uploads on arrival (a dropped
+        payload never hit the wire) and downloads per flush (the fresh
+        broadcast unicast to that flush's contributors), and takes each
+        flush's gaps into its histogram. With zero delays and a cohort-sized
+        buffer a tick charges what ``record_round`` would."""
+        fl = self.fl
+        for t in range(fl.rounds):
+            t0 = time.perf_counter()
+            ids = self._sample_ids(t)
+            batches = batch_provider(t, ids, self._rng)
+            lr = self._lr_at(t)
+            tau_now = scalar(float(self.tau_ctl.tau), self.device) if fl.adaptive_tau else None
+            ids_dev = to_device(ids, self.device)
+            rates = levels = None
+            if self.rate_adaptive:
+                # the staleness input: the previous tick's mean applied gap
+                # (0.0 at tick 0 and throughout a zero-delay run)
+                rates, levels = self._rate_inputs(ids_dev, self._last_gap)
+            (self.params, self.cstates, self.sstate, self.gbar_prev, arrived_nnz,
+             applies) = self.engine.async_round(
+                self.params, self.cstates, self.sstate, self.gbar_prev, ids_dev, batches, t,
+                lr, tau_now, rates, levels)
+            if arrived_nnz.size:
+                # each arrival at the wire level it was dispatched with
+                vb = self.engine.last_arrived_value_bytes if self.rate_adaptive else None
+                self.ledger.record_upload(arrived_nnz, self.total_params, vb)
+            for ap in applies:
+                self.ledger.record_download(ap.down_nnz, self.total_params, ap.num)
+                self.ledger.record_staleness(ap.gaps)
+                if fl.adaptive_tau:  # per flush: the buffer's mean upload vs its union
+                    self._tau_update(ap.up_nnz_mean, ap.union_nnz)
+            self.ledger.tick()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            rec = {"round": t, "comm_gb": self.ledger.total_gb, "tau": float(self.tau_ctl.tau),
+                   "applies": len(applies), "pending": self.engine.pending,
+                   "in_flight": self.engine.in_flight, "round_ms": wall_ms}
+            if self.rate_adaptive:
+                rec["rate_mean"] = float(rates.double().mean())
+            if applies:
+                gaps = np.concatenate([ap.gaps for ap in applies])
+                rec["staleness_mean"] = float(gaps.mean())
+                if self.rate_adaptive:
+                    self._last_gap = float(gaps.mean())
+            self._finish(t, rec, log_every, on_round,
+                         f"[tick {t:4d}] comm={self.ledger.total_gb:.4f} GB "
+                         f"applies={len(applies)} pending={self.engine.pending}")
+        return self.history
+
+    def _run_topo(self, batch_provider, *, log_every: int = 0, on_round=None):
+        """The non-star loop (``topology="ring" | "hierarchical"``). The
+        ledger splits the wire per link: ring hops and hierarchical
+        leaf→aggregator uploads are peer bytes, only what reaches the
+        server is upload (server-ingress) bytes, and the broadcast is
+        charged, server→clients on the ring, server→aggregators plus the
+        aggregators' peer relay to the leaves in the hierarchy, only on
+        sync rounds (``sync_every``), when the clients also see it
+        (``gbar_prev`` stays stale in between)."""
+        fl = self.fl
+        for t in range(fl.rounds):
+            t0 = time.perf_counter()
+            ids = self._sample_ids(t)
+            batches = batch_provider(t, ids, self._rng)
+            lr = self._lr_at(t)
+            tau_now = scalar(float(self.tau_ctl.tau), self.device) if fl.adaptive_tau else None
+            self.params, self.cstates, self.sstate, bcast, info = self.engine.topo_round(
+                self.params, self.cstates, self.sstate, self.gbar_prev,
+                to_device(ids, self.device), batches, t, lr, tau_now)
+            if info.synced:
+                self.gbar_prev = bcast
+            if info.peer_nnz.size:
+                self.ledger.record_peer(info.peer_nnz, self.total_params)
+            self.ledger.record_upload(info.ingress_nnz, self.total_params)
+            if info.synced:
+                self.ledger.record_download(info.down_nnz, self.total_params,
+                                            info.down_recipients)
+                if info.relay_recipients:
+                    self.ledger.record_peer_download(info.down_nnz, self.total_params,
+                                                     info.relay_recipients)
+            self.ledger.tick()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if fl.adaptive_tau:
+                self._tau_update(float(np.mean(info.ingress_nnz)), float(info.union_nnz))
+            rec = {"round": t, "comm_gb": self.ledger.total_gb, "tau": float(self.tau_ctl.tau),
+                   "topology": info.topology, "synced": info.synced,
+                   "server_ingress_gb": self.ledger.upload_bytes / 1e9,
+                   "peer_gb": self.ledger.peer_bytes / 1e9, "round_ms": wall_ms}
+            self._finish(t, rec, log_every, on_round,
+                         f"[round {t:4d}] {info.topology} "
+                         f"ingress={self.ledger.upload_bytes / 1e9:.4f} GB "
+                         f"total={self.ledger.total_gb:.4f} GB"
+                         f"{' sync' if info.synced else ''}")
         return self.history
 
     def final_accuracy(self) -> float | None:

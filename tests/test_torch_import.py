@@ -26,7 +26,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.configs, repro_torch.dist, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, repro_torch.models.transformer, "
             "repro_torch.models.lstm, repro_torch.core.rate_control, repro_torch.utils.quant, "
-            "repro_torch.fl.availability, repro_torch.core.sketch, repro_torch.utils.draws\n"
+            "repro_torch.fl.availability, repro_torch.core.sketch, repro_torch.utils.draws, "
+            "repro_torch.topo, repro_torch.fl.engine\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -120,20 +121,6 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back():
                                 0.9)
 
 
-@pytest.mark.parametrize("kw, match", [
-    (dict(scheme="async_dgcwgmf"), "item 9"),
-    (dict(scheme="hier_dgcwgmf"), "item 9"),
-    (dict(scheme="dgc", tier_scheme="dgc"), "item 9"),
-    (dict(scheme="dgc", staleness_stage="poly"), "item 9"),
-    (dict(scheme="dgc", staleness_stage="gmf_damp"), "item 9"),
-])
-def test_unported_compression_options_raise(kw, match):
-    from repro_torch.core import CompressionConfig
-
-    with pytest.raises(NotImplementedError, match=match):
-        CompressionConfig(**kw)
-
-
 @pytest.mark.parametrize("kw", [
     dict(scheme="topk"), dict(scheme="dgcwgmf_dl"), dict(scheme="adaptive_dgcwgmf"),
     dict(scheme="dgc", wire_dtype="float16"), dict(scheme="dgc", wire_dtype="bfloat16"),
@@ -142,28 +129,42 @@ def test_unported_compression_options_raise(kw, match):
     dict(scheme="randomk"), dict(scheme="fetchsgd"), dict(scheme="dgc", wire_dtype="probquant"),
     dict(scheme="dgc", selector_stage="randomk"), dict(scheme="dgc", rotation_stage="hadamard"),
     dict(scheme="dgc", selector_stage="sketch"),
+    dict(scheme="async_dgcwgmf"), dict(scheme="hier_dgcwgmf"),
+    dict(scheme="dgc", tier_scheme="dgc"), dict(scheme="dgc", staleness_stage="poly"),
+    dict(scheme="dgc", staleness_stage="gmf_damp"),
 ])
 def test_ported_compression_options_construct(kw):
-    from repro_torch.core import CompressionConfig, resolve
+    from repro_torch.core import CompressionConfig, resolve, resolve_tier
 
-    resolve(CompressionConfig(**kw))
+    cfg = CompressionConfig(**kw)
+    resolve(cfg)
+    resolve_tier(cfg)
 
 
 @pytest.mark.parametrize("kw", [
     dict(backend="shard"), dict(backend="async"), dict(topology="ring"),
     dict(topology="hierarchical"), dict(delay_model="geometric"), dict(dropout_rate=0.1),
 ])
-def test_unported_fl_options_raise(kw):
-    from repro_torch.fl import FLConfig
+def test_ported_fl_options_construct(kw):
+    """Each option builds its engine; the shard backend's needs a process
+    group, and says so."""
+    from repro_torch.core import CompressionConfig
+    from repro_torch.fl import FLConfig, make_engine
+    from repro_torch.utils.flat import FlatLayout
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FLConfig(num_clients=2, rounds=1, **kw)
+    fl = FLConfig(num_clients=2, rounds=1, **kw)
+    layout = FlatLayout.of({"w": torch.zeros(3)})
+    if fl.backend == "shard" and not torch.distributed.is_initialized():
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            make_engine(fl, CompressionConfig(scheme="dgc"), lambda p, b: 0.0, 2, layout)
+    else:
+        engine = make_engine(fl, CompressionConfig(scheme="dgc"), lambda p, b: 0.0, 2, layout)
+        assert engine.name == (fl.backend if fl.topology == "star" else "topo")
 
 
 # Public names of a ported reference module that the port does not have:
 # (module path, name) -> why, with the ROADMAP item that ports it.
 ITEM6 = "ROADMAP Queue 1 item 6 (the transformer family and LMTask)"
-ITEM9 = "ROADMAP Queue 1 item 9 (the async, topology and shard engines)"
 ITEM11 = "ROADMAP Queue 1 item 11 (dist runtime and launchers)"
 ITEM12 = "ROADMAP Queue 1 item 12 (serving tier)"
 PALLAS = "a Pallas tiling constant: the CUDA kernels tile otherwise (ROADMAP Queue 2)"
@@ -171,15 +172,10 @@ UNPORTED = {
     "configs/__init__.py": {"INPUT_SHAPES": ITEM11, "InputShape": ITEM11, "TrainConfig": ITEM11,
                             "default_grad_sync": ITEM11, "get_long_variant": ITEM6},
     "configs/base.py": {"INPUT_SHAPES": ITEM11, "InputShape": ITEM11, "TrainConfig": ITEM11},
-    "core/__init__.py": {"resolve_tier": ITEM9, "group_sum": ITEM9,
-                         "interleave_position_stacks": ITEM9},
-    "core/registry.py": {"resolve_tier": ITEM9},
     "core/sparsify.py": {
         "global_topk_masks": "removed on purpose with the flat state: global top-k is "
                              "topk_mask over a client's whole flat row",
         "global_topk_masks_dynamic": "replaced by topk_mask_dynamic over the whole flat row"},
-    "core/stages.py": {"Staleness": ITEM9, "PolyStaleness": ITEM9, "GMFDampStaleness": ITEM9},
-    "core/state.py": {"group_sum": ITEM9, "interleave_position_stacks": ITEM9},
     "dist/__init__.py": {n: ITEM11 for n in (
         "sharding", "GRAD_SYNC_MODES", "TrainState", "init_train_state", "make_loss_fn",
         "make_prefill_step", "make_serve_step", "make_train_step", "needs_fsdp",
@@ -188,10 +184,7 @@ UNPORTED = {
         "GRAD_SYNC_MODES", "needs_fsdp", "TrainState", "make_loss_fn", "init_train_state",
         "train_state_specs", "make_train_step")},
         "make_paged_prefill_step": ITEM12, "make_paged_serve_step": ITEM12},
-    "fl/__init__.py": {"DELAY_MODELS": ITEM9, "Availability": ITEM9, "ShardMapEngine": ITEM9,
-                       "AsyncBufferedEngine": ITEM9, "TopologyEngine": ITEM9, "LMTask": ITEM6},
-    "fl/engine.py": {"ShardMapEngine": ITEM9, "TopologyEngine": ITEM9, "AsyncApply": ITEM9,
-                     "AsyncBufferedEngine": ITEM9},
+    "fl/__init__.py": {"LMTask": ITEM6},
     "fl/tasks.py": {"LMTask": ITEM6},
     "kernels/flash_attention.py": {"NEG_INF": PALLAS},
     "kernels/gmf_compress.py": {"BLOCK_ROWS": PALLAS, "LANES": PALLAS, "BLOCK": PALLAS},
