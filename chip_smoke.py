@@ -63,7 +63,12 @@ Phases, in order; any failure exits nonzero:
    ~1e-6 (convolution sums run in another order), so a few elements at a
    top-k boundary can flip; each flip moves the broadcast by one
    threshold-sized entry. Then a ``torch.profiler`` trace of one steady
-   round of each preset: its device activities and the device's busy share.
+   round of each preset: its device activities, the device's busy share
+   (the union of the activities' intervals, so overlap is not counted
+   twice), and the device time under each of the engine's phase ranges
+   (``round.client_grads``, ``round.client_compress``,
+   ``round.server_aggregate``, ``round.apply_update``), beside the client
+   gradients' synchronised host-clock time.
 5. **Serving.** ``repro_torch.launch.serve.run_fixed`` on llama3.2-1b at
    full width and depth (16 layers, d_model 2048, bfloat16, random params
    from seed 0 on the card), batch 4, prompt 2048, 32 generated tokens:
@@ -160,6 +165,30 @@ Phases, in order; any failure exits nonzero:
    schedule on both, broadcasts within phase 4's 1e-2 relative L2. Each
    engine's ms per round (tick) after round 0 is printed beside the card's
    name and power limit.
+12. **Telemetry** (``repro_torch.obs``). Phase 10's task: (1) 3 rounds of
+   ``dgcwgmf`` (τ 0.6, fused) with telemetry off, then 3 with it on into
+   ``build/obs/resnet56``, from the same seed under cuDNN's deterministic
+   algorithms: params, client and server state, broadcast and ledger
+   bitwise equal, the kernels' launches equal (one of each a round), and
+   the off run writes or changes no file in the checkout. (2) The on run's
+   ``events.jsonl`` valid with 3 ``round`` and 3 ``health`` events,
+   ``python -m repro_torch.obs.report --strict`` exit 0, the ``comm.*``
+   counters equal to the ledger, each health norm within 1e-5 relative of
+   a float64 recomputation from the returned stacks, and a NaN in a copy
+   of the broadcast trips one ``anomaly`` event (``health.anomalies`` 1).
+   (3) 4 ``async_dgcwgmf`` ticks with phase 11's stragglers (buffer 10):
+   the ``flush`` events carry the ledger's gaps, and
+   ``global_momentum_norm`` is ``engine._gmom``'s within 1e-5; 2
+   ``hier_dgcwgmf`` rounds at 4 groups: an ``aggregator`` health block a
+   round, finite, with a nonzero tier M. (4) ms per round after round 0
+   with telemetry off and on, in turns (off, on, on, off), 4 rounds each,
+   under cuDNN's default algorithms. (5) A ``torch.profiler`` trace of one
+   round with telemetry on: the device time under each of the four
+   ``round.*`` ranges (all four must show) and the busy share (union).
+   (6) ``launch/serve.py --obs`` in fixed mode at llama3.2-1b, batch 4,
+   prompt 2048, 8 tokens: ``events.jsonl``, ``metrics.prom`` and
+   ``summary.json`` written, ``run_start`` and ``summary`` events,
+   ``--strict`` exit 0, and K4's 16 tensor-core launches (the prefill's).
 
 Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
 ResNet-56 stacks (20 clients), one launch each as the path makes them
@@ -191,6 +220,8 @@ import contextlib
 import ctypes
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -950,6 +981,91 @@ def path_phase(rt, dev):
 
 RESNET_PROFILE = (("dgcwgmf", {"scheme": "dgcwgmf", "tau": 0.6, "use_kernels": True}),
                   ("dgc", {"scheme": "dgc"}))
+# The engine's names for a round's phases (obs.trace.annotate_scope).
+ROUND_PHASES = ("round.client_grads", "round.client_compress", "round.server_aggregate",
+                "round.apply_update")
+
+
+def merged(intervals):
+    """The union of (start, end) intervals as sorted disjoint ones."""
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def overlap(a, b) -> float:
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def device_split(prof, ranges=ROUND_PHASES):
+    """The device side of a ``torch.profiler`` trace: (device activities,
+    the device's busy ms as the union of their intervals (no overlap
+    counted twice), {range: (ms of the kernels launched inside the host
+    range, busy ms in the range's device window)}) for each name in
+    ``ranges`` the trace holds.
+
+    A range's device window runs from the device start of the first kernel
+    launched inside it to that of the next range's (the last range's ends
+    with its own last kernel). On one stream the kernels run in launch
+    order, so the windows share out the device's time between the phases,
+    including kernels launched from other host threads: the autograd
+    engine launches a CUDA backward from its own device thread, outside
+    the caller's host range."""
+    acts, device_ranges, launched = [], {}, {}
+    for e in prof.events():
+        iv = (e.time_range.start, e.time_range.end)
+        if str(e.device_type).endswith("CUDA"):
+            if not getattr(e, "is_user_annotation", False):
+                acts.append(iv)
+            elif e.name in ranges:
+                device_ranges.setdefault(e.name, []).append(iv)
+        elif e.name in ranges:
+            launched[e.name] = launched.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = merged(acts)
+    starts = {name: min(lo for lo, _ in ivs) for name, ivs in device_ranges.items()}
+    order = sorted(starts, key=starts.get)
+    window = {}
+    for i, name in enumerate(order):
+        end = (starts[order[i + 1]] if i + 1 < len(order)
+               else max(hi for _, hi in device_ranges[name]))
+        window[name] = overlap(busy, [[starts[name], end]]) / 1e3
+    split = {name: (launched[name], window.get(name, float("nan")))
+             for name in ranges if name in launched}
+    return len(acts), sum(hi - lo for lo, hi in busy) / 1e3, split
+
+
+def profile_round(sim, provide):
+    """One more round of ``sim`` under ``torch.profiler``: (host ms of the
+    profiled round, the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sim.fl.rounds = 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(provide)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, prof
+
+
+def print_split(split):
+    for name, (inside, window) in split.items():
+        print(f"    {name}: device busy in its window {window:.3f} ms (kernels launched from "
+              f"inside its host range {inside:.3f} ms)", flush=True)
 
 
 def profile_phase(rt, task, presets=RESNET_PROFILE, clients=20, per_round=0, batch=64,
@@ -957,10 +1073,9 @@ def profile_phase(rt, task, presets=RESNET_PROFILE, clients=20, per_round=0, bat
     """Where a round's time goes: in 3 steady rounds, the client-gradient
     share (host clock around ``engine._grads`` inside the round, with a
     synchronise on each side), and a ``torch.profiler`` trace of one more
-    round with the device's busy share and its costliest kernels. Returns
-    {preset: numbers}."""
-    from torch.profiler import ProfilerActivity, profile
-
+    round: the device's busy share (the union of its activities'
+    intervals), the device time under each of the engine's phase ranges
+    and the costliest kernels. Returns {preset: numbers}."""
     out = {}
     for label, kw in presets:
         comp = rt.core.CompressionConfig(rate=0.1, **kw)
@@ -984,28 +1099,28 @@ def profile_phase(rt, task, presets=RESNET_PROFILE, clients=20, per_round=0, bat
         hist = sim.run(provide)
         sim.engine._grads = grads
         round_ms = statistics.median(r["round_ms"] for r in hist[-3:])
-        sim.fl.rounds = 1
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sim.run(provide)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device-side rows only (kernels, copies, fills): the operator rows
-        # carry their kernels' time too and would count it twice
-        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        busy = sum(device_us(e) for e in kernels) / 1e3
-        launched = sum(e.count for e in kernels)
+        wall, prof = profile_round(sim, provide)
+        launched, busy, split = device_split(prof)
+        # device-side rows only (kernels, copies, fills), not the ranges: the
+        # operator rows carry their kernels' time too and would count it twice
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)]
         top = sorted(kernels, key=device_us, reverse=True)[:12]
         grads = statistics.median(grads_ms)
+        grads_dev = split.get("round.client_grads", (float("nan"),) * 2)
         print(f"  {label}: round {round_ms:.3f} ms (median of 3), client grads "
-              f"{grads:.3f} ms, the rest (compression, aggregation, update) "
-              f"{round_ms - grads:.3f} ms; profiled round {wall:.3f} ms with {launched} "
-              f"device activities, device busy {busy:.3f} ms "
-              f"({100 * busy / wall:.1f} % of the profiled round)", flush=True)
+              f"{grads:.3f} ms (host clock, synchronised), the rest (compression, "
+              f"aggregation, update) {round_ms - grads:.3f} ms; profiled round {wall:.3f} ms "
+              f"with {launched} device activities, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f} % of the profiled round, the union of the "
+              f"activities' intervals); device time in round.client_grads's window "
+              f"{grads_dev[1]:.3f} ms ({grads_dev[0]:.3f} ms launched from inside its host "
+              f"range)", flush=True)
+        print_split(split)
         for e in top:
             print(f"    {device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
         out[label] = dict(round_ms=round_ms, grads_ms=grads, activities=launched,
-                          busy_share=busy / wall)
+                          busy_share=busy / wall, split=split)
     return out
 
 
@@ -1726,6 +1841,267 @@ def engines_phase(rt, task, dev):
     return launches, ms
 
 
+OBS_DIR = ROOT / "build" / "obs"  # phase 12's telemetry output (ignored by git)
+OBS_ROUNDS = 3
+HEALTH_NORMS = {"residual_u_norm": "u", "residual_v_norm": "v", "momentum_m_norm": "m",
+                "server_momentum_norm": "server", "broadcast_norm": "bcast"}
+
+
+def repo_files():
+    """Every file under the checkout (bar ``__pycache__``) with its size and
+    modification time: what a run that writes nothing leaves as it was."""
+    out = set()
+    for p in ROOT.rglob("*"):
+        if "__pycache__" not in p.parts and p.is_file():
+            st = p.stat()
+            out.add((str(p), st.st_size, st.st_mtime_ns))
+    return out
+
+
+def f64_norm(x) -> float:
+    """L2 norm of a state field in float64 (0.0 for an empty one)."""
+    leaves = [x] if torch.is_tensor(x) else list(x.values())
+    return math.sqrt(sum(float(t.double().square().sum()) for t in leaves))
+
+
+def read_obs(rt, out):
+    """The events a telemetry run wrote into ``out``, validated."""
+    path = out / "events.jsonl"
+    errors = rt.obs.events.validate_file(str(path))
+    check(errors == [], f"{path}: schema errors {errors[:3]}")
+    return rt.obs.events.read_events(str(path))
+
+
+@contextlib.contextmanager
+def telemetry(rt, out, run, backend):
+    """Telemetry on into ``out`` for the body, as a launcher turns it on: a
+    ``run_start`` event, the body, the exporters, then off again."""
+    shutil.rmtree(out, ignore_errors=True)
+    rec = rt.obs.configure(str(out))
+    rec.event("run_start", run=run, argv=[], backend=backend)
+    try:
+        yield rec
+        rt.obs.export.write_all(str(out))
+    finally:
+        rt.obs.shutdown()
+
+
+def obs_off_on_phase(rt, task, launches, bw):
+    """12.1 and 12.2: 3 rounds of dgcwgmf with telemetry off, then on, from
+    the same seed under cuDNN's deterministic algorithms; then what the on
+    run wrote."""
+    kw = ENGINE_DGCWGMF
+    out = OBS_DIR / "resnet56"
+    with deterministic_cudnn():
+        check(rt.obs.get() is rt.obs.metrics.NOOP, "telemetry is on before phase 12")
+        before = repo_files()
+        off, _, c_off = run_path(rt, task, kw, OBS_ROUNDS, 20, 64, launches)
+        check(repo_files() == before, "the run with telemetry off wrote or changed a file")
+        with telemetry(rt, out, "chip_smoke phase 12: ResNet-56 dgcwgmf", "vmap") as rec:
+            on, _, c_on = run_path(rt, task, kw, OBS_ROUNDS, 20, 64, launches)
+            rec.event("summary", **on.ledger.summary())
+            snap = rec.registry
+    n = same_state(rt, off, on, "telemetry off vs on")
+    check(off.ledger.summary() == on.ledger.summary(),
+          f"telemetry off vs on: ledger {off.ledger.summary()} vs {on.ledger.summary()}")
+    check(c_off == c_on == times(FUSED, OBS_ROUNDS), f"telemetry off vs on: launches {c_off} "
+          f"vs {c_on}")
+    print(f"  telemetry off vs on, 3 rounds each: bitwise in {n} tensors and the ledger (cuDNN "
+          f"deterministic); launches {c_on} both; the off run wrote no file", flush=True)
+    del off
+
+    evs = read_obs(rt, out)
+    kinds = [e["kind"] for e in evs]
+    check(kinds.count("round") == kinds.count("health") == OBS_ROUNDS,
+          f"events: {kinds.count('round')} round and {kinds.count('health')} health, expected "
+          f"{OBS_ROUNDS} each")
+    report = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                             str(out / "events.jsonl"), "--strict"], capture_output=True,
+                            text=True, env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120,
+                            check=False)
+    check(report.returncode == 0, f"obs.report --strict exited {report.returncode}: "
+          f"{report.stderr[-2000:]}")
+    led = on.ledger
+    comm = {name: snap.counter(f"comm.{name}").value()
+            for name in ("upload_bytes", "download_bytes", "peer_bytes", "rounds")}
+    want = {"upload_bytes": led.upload_bytes, "download_bytes": led.download_bytes,
+            "peer_bytes": led.peer_bytes, "rounds": float(led.rounds)}
+    check(comm == want, f"comm.* counters {comm}, the ledger {want}")
+    last = [e["data"] for e in evs if e["kind"] == "health"][-1]
+    fields = {"u": on.cstates.u, "v": on.cstates.v, "m": on.cstates.m,
+              "server": on.sstate.momentum, "bcast": on.gbar_prev}
+    worst = 0.0
+    for key, field in HEALTH_NORMS.items():
+        want_norm = f64_norm(fields[field])
+        rel = abs(last[key] - want_norm) / want_norm if want_norm else abs(last[key])
+        worst = max(worst, rel)
+        check(rel <= 1e-5, f"health {key} {last[key]!r} vs float64 {want_norm!r}: relative "
+              f"{rel:.3e} > 1e-5")
+    check(last["broadcast_finite"] is True and last["global_momentum_norm"] == 0.0,
+          f"health block {last}")
+    # the health block's cost alone: host clock around the call, which ends
+    # in its one device read; the bytes it must read, each field once
+    health_ms = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        rt.obs.health.compensation_norms(on.cstates, on.sstate, on.gbar_prev)
+        health_ms.append((time.perf_counter() - t0) * 1e3)
+    read = 4 * (3 * on.cstates.u.numel() + on.gbar_prev.numel())
+    # a NaN in a copy of the broadcast trips one anomaly
+    bad = on.gbar_prev.clone()
+    bad[0] = float("nan")
+    with telemetry(rt, OBS_DIR / "anomaly", "chip_smoke phase 12: anomaly", "vmap") as rec:
+        rt.obs.health.record_round_health(
+            rec, round_idx=OBS_ROUNDS, cstates=on.cstates, sstate=on.sstate, bcast=bad,
+            upload_nnz_mean=float(RESNET56_KEEP), total_params=on.total_params,
+            target_rate=on.comp.rate)
+        anomalies = rec.registry.counter("health.anomalies").value()
+    bad_kinds = [e["kind"] for e in read_obs(rt, OBS_DIR / "anomaly")]
+    check(anomalies == 1.0 and bad_kinds.count("anomaly") == 1,
+          f"a NaN broadcast: health.anomalies {anomalies}, events {bad_kinds}")
+    print(f"  events valid ({len(evs)}: {kinds.count('round')} round, {kinds.count('health')} "
+          f"health), obs.report --strict exit 0; comm.* counters equal the ledger {comm}; "
+          f"health norms within {worst:.3e} relative of float64 (tolerance 1e-5): "
+          f"{json.dumps({k: last[k] for k in HEALTH_NORMS})}; a NaN broadcast copy: 1 anomaly "
+          f"event, health.anomalies {anomalies}", flush=True)
+    print(f"  the health block alone (compensation_norms on the [20, N] stacks, to its device "
+          f"read): median {statistics.median(health_ms[1:]):.4f} ms of 20 after one warm-up "
+          f"(min {min(health_ms[1:]):.4f}); it must read {read / 1e6:.1f} MB, "
+          f"{read / bw * 1e3:.4f} ms at the card's "
+          f"memory rate", flush=True)
+
+
+def obs_engines_phase(rt, task, launches):
+    """12.3: the async engine's flush events and global momentum, and the
+    hierarchy's aggregator block, with telemetry on."""
+    kw = {**ENGINE_DGCWGMF, "scheme": "async_dgcwgmf"}
+    out = OBS_DIR / "async"
+    with telemetry(rt, out, "chip_smoke phase 12: async", "async"):
+        sim, _, counts = run_path(rt, task, kw, 4, 20, 64, launches, backend="async",
+                                  buffer_size=10, **STRAGGLERS)
+    check(counts == times(FUSED, 4), f"async with telemetry: launches {counts}")
+    evs = read_obs(rt, out)
+    flushes = [e["data"] for e in evs if e["kind"] == "flush"]
+    gaps = sorted(g for f in flushes for g in f["staleness_gaps"])
+    hist = sim.ledger.staleness_counts
+    check(flushes and gaps == sorted(g for g, c in hist.items() for _ in range(c)),
+          f"flush events' gaps {gaps} vs the ledger's histogram {hist}")
+    last = [e["data"] for e in evs if e["kind"] == "health"][-1]
+    gmom = f64_norm(sim.engine._gmom)
+    rel = abs(last["global_momentum_norm"] - gmom) / gmom
+    check(gmom > 0 and rel <= 1e-5, f"async global_momentum_norm "
+          f"{last['global_momentum_norm']!r} vs engine._gmom {gmom!r} (relative {rel:.3e})")
+    print(f"  async, stragglers, buffer 10, 4 ticks: {len(flushes)} flush events carrying "
+          f"{len(gaps)} gaps (the ledger's {hist}); global_momentum_norm within {rel:.3e} of "
+          f"engine._gmom; launches {counts}", flush=True)
+    del sim
+
+    kw = {**ENGINE_DGCWGMF, "scheme": "hier_dgcwgmf"}
+    out = OBS_DIR / "hierarchical"
+    with telemetry(rt, out, "chip_smoke phase 12: hierarchical", "vmap"):
+        sim, _, counts = run_path(rt, task, kw, 2, 20, 64, launches, topology="hierarchical",
+                                  groups=4)
+    check(counts == times(FUSED, 4), f"hierarchical with telemetry: launches {counts}")
+    evs = read_obs(rt, out)
+    tier = [e["data"] for e in evs if e["kind"] == "health" and e["data"].get("tier")]
+    check(len(tier) == 2 and all(b["tier"] == "aggregator" for b in tier),
+          f"aggregator health blocks {tier}")
+    norms = [b[k] for b in tier for k in HEALTH_NORMS]
+    check(all(math.isfinite(x) for x in norms) and all(b["broadcast_finite"] for b in tier)
+          and tier[-1]["momentum_m_norm"] > 0, f"aggregator health blocks {tier}")
+    print(f"  hierarchical, 4 groups, 2 rounds: {len(tier)} aggregator health blocks, finite, "
+          f"the tier's M norm {tier[-1]['momentum_m_norm']:.6g}; "
+          f"{[e['kind'] for e in evs].count('topo_round')} topo_round events; launches {counts}",
+          flush=True)
+
+
+def obs_cost_phase(rt, task, launches, card):
+    """12.4: ms per round after round 0 with telemetry off and on, in turns
+    (off, on, on, off), under cuDNN's default algorithms."""
+    ms = {"off": [], "on": []}
+    for turn in ("off", "on", "on", "off"):
+        if turn == "on":
+            with telemetry(rt, OBS_DIR / "cost", "chip_smoke phase 12: cost", "vmap"):
+                _, hist, _ = run_path(rt, task, ENGINE_DGCWGMF, 4, 20, 64, launches)
+        else:
+            _, hist, _ = run_path(rt, task, ENGINE_DGCWGMF, 4, 20, 64, launches)
+        ms[turn].append([r["round_ms"] for r in hist[1:]])
+    med = {k: statistics.median(x for run in v for x in run) for k, v in ms.items()}
+    print(f"  ms/round after round 0 ({card}), turns off, on, on, off: {json.dumps(ms)}; "
+          f"median off {med['off']:.3f}, on {med['on']:.3f}, on - off "
+          f"{med['on'] - med['off']:.3f} ms", flush=True)
+    return ms
+
+
+def obs_profile_phase(rt, task):
+    """12.5: a torch.profiler trace of one round with telemetry on: the
+    device time under each round phase and the busy share (union)."""
+    comp = rt.core.CompressionConfig(rate=0.1, **ENGINE_DGCWGMF)
+    fl = rt.fl.FLConfig(num_clients=20, rounds=2, batch_size=64, learning_rate=0.1)
+    sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, device=task.device)
+    provide = task.batch_provider(64)
+    rt.obs.configure()  # metrics in memory, no file
+    try:
+        sim.run(provide)
+        wall, prof = profile_round(sim, provide)
+    finally:
+        rt.obs.shutdown()
+    n, busy, split = device_split(prof)
+    check(set(split) == set(ROUND_PHASES) and all(math.isfinite(w) for _, w in split.values()),
+          f"the profile shows {split}, expected the four phases {ROUND_PHASES} on the device")
+    print(f"  profiled round with telemetry on: {wall:.3f} ms, {n} device activities, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f} %, the union of their intervals)",
+          flush=True)
+    print_split(split)
+    return split
+
+
+def obs_serve_phase(rt):
+    """12.6: ``launch/serve.py --obs`` in fixed mode at llama3.2-1b, batch 4,
+    prompt 2048: the three files, their events, K4's 16 tensor-core
+    launches in the prefill."""
+    import io
+
+    out, gen = OBS_DIR / "serve", 8
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--arch", "llama3.2-1b", "--batch", str(SERVE["batch"]), "--prompt-len",
+            str(SERVE["prompt_len"]), "--gen", str(gen), "--obs", "--obs-dir", str(out)]
+    rt.gk.reset_launches()
+    rt.k4.reset_launches()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = rt.serve.main(argv)
+    torch.cuda.synchronize()
+    counts = {**rt.gk.LAUNCHES, **rt.k4.LAUNCHES}
+    check(rc == 0 and counts["flash_attention_tc"] == counts["flash_attention"] == 16
+          and sum(rt.gk.LAUNCHES.values()) == 0, f"serve --obs: exit {rc}, launches {counts}")
+    files = sorted(p.name for p in out.iterdir())
+    check(files == ["events.jsonl", "metrics.prom", "summary.json"], f"serve --obs wrote {files}")
+    kinds = [e["kind"] for e in read_obs(rt, out)]
+    check(kinds[0] == "run_start" and "summary" in kinds, f"serve --obs events {kinds}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        strict = rt.obs_report.main([str(out / "events.jsonl"), "--strict"])
+    check(strict == 0, f"obs.report --strict on the serve events exited {strict}")
+    summary = printed.getvalue().strip().splitlines()[-1]
+    print(f"  serve --obs, llama3.2-1b, batch {SERVE['batch']}, prompt {SERVE['prompt_len']}, "
+          f"{gen} tokens: wrote {files}; events {kinds}; K4 launches {counts['flash_attention_tc']}"
+          f" (tensor cores); {summary}", flush=True)
+
+
+def obs_phase(rt, task, card, bw):
+    """Phase 12, telemetry on the card. Returns the launches of its counted
+    ResNet-56 runs."""
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    t0 = time.perf_counter()
+    obs_off_on_phase(rt, task, launches, bw)
+    obs_engines_phase(rt, task, launches)
+    obs_cost_phase(rt, task, launches, card)
+    obs_profile_phase(rt, task)
+    obs_serve_phase(rt)
+    print(f"  phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def serve_phase(rt, dev, profile=False):
     """The port's fixed-batch serving path at llama3.2-1b full size; with
     ``profile``, a ``torch.profiler`` trace of one more run: the device's
@@ -1809,10 +2185,11 @@ def profile_serving(parts, args):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        busy = sum(device_us(e) for e in kernels) / 1e3
-        print(f"  profiled {label}: {wall:.3f} ms wall, {sum(e.count for e in kernels)} "
-              f"device activities, device busy {busy:.3f} ms ({100 * busy / wall:.1f} %)",
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)]
+        n, busy, _ = device_split(prof, ())
+        print(f"  profiled {label}: {wall:.3f} ms wall, {n} device activities, device busy "
+              f"{busy:.3f} ms ({100 * busy / wall:.1f} %, the union of their intervals)",
               flush=True)
         for e in sorted(kernels, key=device_us, reverse=True)[:10]:
             print(f"    {device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
@@ -1879,6 +2256,7 @@ def main() -> None:
     import repro_torch.configs as configs
     import repro_torch.core as core
     import repro_torch.fl as fl
+    import repro_torch.obs as obs
     import repro_torch.utils as utils
     from repro_torch.core import sparsify, stages
     from repro_torch.data import synthetic
@@ -1887,11 +2265,13 @@ def main() -> None:
     from repro_torch.kernels import gmf_compress as gk
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
+    from repro_torch.obs import report as obs_report
     from repro_torch.utils import flat
 
     rt = argparse.Namespace(core=core, fl=fl, utils=utils, gk=gk, k4=k4, synthetic=synthetic,
                             sparsify=sparsify, stages=stages, configs=configs, dstep=dstep,
-                            serve=serve, ops=ops, ref=ref, flat=flat)
+                            serve=serve, ops=ops, ref=ref, flat=flat, obs=obs,
+                            obs_report=obs_report)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=False)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
@@ -1980,9 +2360,11 @@ def main() -> None:
         print("phase 11: ResNet-56 under the async, ring, hierarchical and shard engines",
               flush=True)
         by_path["resnet56_engines"], engine_ms = engines_phase(rt, task, dev)
-        del task
         print(f"  ms/round (ms/tick) after round 0 ({card}): {json.dumps(engine_ms)}",
               flush=True)
+        print("phase 12: telemetry (repro_torch.obs) on the card", flush=True)
+        by_path["resnet56_obs"] = obs_phase(rt, task, card, bw)
+        del task
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

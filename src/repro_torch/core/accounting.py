@@ -25,6 +25,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.obs import metrics as _obs
+
 
 @dataclasses.dataclass(frozen=True)
 class CostModel:
@@ -71,7 +73,15 @@ class CommLedger:
     fresh broadcast unicast to that flush's contributors),
     ``record_staleness`` with the flush's per-payload gaps, and ``tick``.
     The topology engines charge hop and leaf payloads with ``record_peer``
-    and the aggregators' relay with ``record_peer_download``."""
+    and the aggregators' relay with ``record_peer_download``.
+
+    Every ``record_*`` and ``tick`` also publishes through the
+    ``repro_torch.obs`` registry, as the JAX package's ledger does: the
+    ``comm.upload_bytes``, ``comm.download_bytes``, ``comm.peer_bytes``
+    and ``comm.rounds`` counters and one ``comm.staleness_gap``
+    observation per gap. That is the shared no-op recorder until
+    ``repro_torch.obs.configure()`` turns telemetry on, and it leaves the
+    ledger's own totals bitwise as they are either way."""
 
     def __init__(self, cost_model: CostModel | None = None):
         self.cost = cost_model or CostModel()
@@ -98,29 +108,41 @@ class CommLedger:
     def record_upload(self, upload_nnz_per_client, total, value_bytes=None):
         """Charge client→server payloads that hit the wire; ``value_bytes``
         overrides the per-value cost, a scalar or one per payload."""
-        self.upload_bytes += self._uploads(upload_nnz_per_client, total, value_bytes)
+        up = self._uploads(upload_nnz_per_client, total, value_bytes)
+        self.upload_bytes += up
+        _obs.get().counter_add("comm.upload_bytes", up)
 
     def record_download(self, download_nnz, total, num_clients):
         """Charge one broadcast unicast to ``num_clients`` recipients."""
-        self.download_bytes += self._unicasts(download_nnz, total, num_clients)
+        down = self._unicasts(download_nnz, total, num_clients)
+        self.download_bytes += down
+        _obs.get().counter_add("comm.download_bytes", down)
 
     def record_peer(self, nnz_per_payload, total):
         """Charge payloads that never touch the server (ring hops,
         hierarchical leaf→aggregator uploads), priced as uploads."""
-        self.peer_bytes += self._uploads(nnz_per_payload, total)
+        p = self._uploads(nnz_per_payload, total)
+        self.peer_bytes += p
+        _obs.get().counter_add("comm.peer_bytes", p)
 
     def record_peer_download(self, download_nnz, total, num_recipients):
         """Charge the aggregators' relay of the broadcast to
         ``num_recipients`` leaves as peer traffic."""
-        self.peer_bytes += self._unicasts(download_nnz, total, num_recipients)
+        down = self._unicasts(download_nnz, total, num_recipients)
+        self.peer_bytes += down
+        _obs.get().counter_add("comm.peer_bytes", down)
 
     def record_staleness(self, gaps):
         """Count per-payload staleness gaps (whole ticks) into the histogram."""
+        rec = _obs.get()
         for g in np.asarray(gaps).astype(np.int64).reshape(-1):
-            self.staleness_counts[int(g)] = self.staleness_counts.get(int(g), 0) + 1
+            g = int(g)
+            self.staleness_counts[g] = self.staleness_counts.get(g, 0) + 1
+            rec.observe("comm.staleness_gap", g)
 
     def tick(self):
         self.rounds += 1
+        _obs.get().counter_add("comm.rounds")
 
     @property
     def total_bytes(self) -> float:

@@ -54,6 +54,13 @@ or ``[k, rows·cols]`` sketches) are summed with one ``sum(0)`` and the
 server step turns the sum into the ``[N]`` broadcast, which updates the
 params through views. Nothing in a synchronous round reads a device
 value on the host; the counts come back as device tensors.
+
+The round's phases run inside ``obs.trace.annotate_scope`` ranges with
+the reference's names (``round.client_grads``, ``round.client_compress``,
+``round.server_aggregate``, ``round.apply_update``; ``topo.ring_hop{p}``
+and ``topo.tier_compress``), so a ``torch.profiler`` trace splits a round
+by phase whether or not telemetry is on; the async engine's dispatch and
+flushes are ``obs.trace.span``s (``tick/dispatch``, ``tick/flush``).
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from repro_torch.core import (
     stack_client_states,
 )
 from repro_torch.fl import availability
+from repro_torch.obs import trace
 from repro_torch.topo import (
     TOPOLOGIES,
     HierarchicalLayout,
@@ -110,16 +118,19 @@ class RoundEngine:
 
     def _grads(self, params, batches):
         """Local gradients for a stack of clients (leading axis)."""
-        grad_fn = torch.func.grad(self.loss_fn)
-        return torch.func.vmap(grad_fn, in_dims=(None, 0))(params, batches)
+        with trace.annotate_scope("round.client_grads"):
+            grad_fn = torch.func.grad(self.loss_fn)
+            return torch.func.vmap(grad_fn, in_dims=(None, 0))(params, batches)
 
     def _compress_stack(self, states, grads, gbar_prev, round_idx, tau_now, client_ids=None,
                         rates=None, levels=None):
         """``client_compress`` over the whole ``[k, N]`` stack at once."""
         tau_kw = {"tau_override": tau_now} if self.fl.adaptive_tau else {}
-        return self.scheme.client_compress(states, grads, gbar_prev, round_idx, rates=rates,
-                                           wire_levels=levels, client_ids=client_ids,
-                                           layout=self.layout, **tau_kw)
+        with trace.annotate_scope("round.client_compress"):
+            return self.scheme.client_compress(states, grads, gbar_prev, round_idx,
+                                               rates=rates, wire_levels=levels,
+                                               client_ids=client_ids, layout=self.layout,
+                                               **tau_kw)
 
     def _client_update(self, params, states, batches, gbar_prev, round_idx, tau_now,
                        client_ids=None, rates=None, levels=None):
@@ -129,12 +140,14 @@ class RoundEngine:
 
     def _server_update(self, params, sstate, g_sum, lr, num_contributors=None):
         n = float(self.sampled_per_round if num_contributors is None else num_contributors)
-        bcast, sstate, ainfo = self.scheme.server_aggregate(sstate, g_sum, n,
-                                                            layout=self.layout, lr=lr)
-        # a scheme that owns lr applied it in its server step (1.0 · g is g)
-        step = 1.0 if self.scheme.owns_lr else lr
-        params = tree_map(lambda w, g: w - step * g.to(w.dtype), params,
-                          self.layout.unflatten(bcast))
+        with trace.annotate_scope("round.server_aggregate"):
+            bcast, sstate, ainfo = self.scheme.server_aggregate(sstate, g_sum, n,
+                                                                layout=self.layout, lr=lr)
+        with trace.annotate_scope("round.apply_update"):
+            # a scheme that owns lr applied it in its server step (1.0 · g is g)
+            step = 1.0 if self.scheme.owns_lr else lr
+            params = tree_map(lambda w, g: w - step * g.to(w.dtype), params,
+                              self.layout.unflatten(bcast))
         return params, sstate, bcast, ainfo
 
     def _build(self):
@@ -346,9 +359,10 @@ class TopologyEngine(RoundEngine):
                 take = lambda x, p=p: x.index_select(0, self._positions[p])
                 st_p, g_p, ids_p = tree_map(take, sampled), take(grads), take(client_idx)
             st_p, g_p, add_after = inject_incoming(self.scheme, st_p, g_p, incoming)
-            G_p, new_p, infos_p = self._compress_stack(
-                st_p, g_p, gbar_prev, round_idx, tau_now,
-                ids_p if self.thread_client_ids else None)
+            with trace.annotate_scope(f"topo.ring_hop{p}"):
+                G_p, new_p, infos_p = self._compress_stack(
+                    st_p, g_p, gbar_prev, round_idx, tau_now,
+                    ids_p if self.thread_client_ids else None)
             incoming = G_p + incoming if add_after else G_p
             stacks.append(new_p)
             if p < hops:
@@ -378,11 +392,13 @@ class TopologyEngine(RoundEngine):
                 round_idx, tau_now, ids if thread else None)
             G, new_states, leaf_nnz = sh.gather((G, new_states, infos.upload_nnz))
         cstates = scatter_client_states(cstates, client_idx, new_states)
-        # the aggregator index is the tier's "client" id for a stochastic wire
-        T, self.tier_cstates, tier_infos = self.tier_scheme.client_compress(
-            self.tier_cstates, group_sum(G, self.topo.groups), gbar_prev, round_idx,
-            client_ids=self._tier_ids if self.tier_scheme.wire.stochastic else None,
-            layout=self.layout)
+        gsum = group_sum(G, self.topo.groups)
+        with trace.annotate_scope("topo.tier_compress"):
+            # the aggregator index is the tier's "client" id for a stochastic wire
+            T, self.tier_cstates, tier_infos = self.tier_scheme.client_compress(
+                self.tier_cstates, gsum, gbar_prev, round_idx,
+                client_ids=self._tier_ids if self.tier_scheme.wire.stochastic else None,
+                layout=self.layout)
         params, sstate, bcast, ainfo = self._server_update(params, sstate,
                                                            torch.sum(T, dim=0), lr)
         return (params, cstates, sstate, bcast, tier_infos.upload_nnz, leaf_nnz,
@@ -562,8 +578,9 @@ class AsyncBufferedEngine(RoundEngine):
         if self._gmom is None:
             self._gmom = self.layout.zeros() if self.scheme.staleness_momentum else {}
 
-        G, cstates, up_nnz = self.round_fn(params, cstates, gbar_prev, client_idx, batches, t,
-                                           tau_now, rates, wire_levels)
+        with trace.span("tick/dispatch"):
+            G, cstates, up_nnz = self.round_fn(params, cstates, gbar_prev, client_idx, batches,
+                                               t, tau_now, rates, wire_levels)
         delays = self.availability.sample_delays(self._rng, k)
         drops = self.availability.sample_dropout(self._rng, k)
         parts = [up_nnz, torch.count_nonzero(G, dim=1)]
@@ -598,13 +615,14 @@ class AsyncBufferedEngine(RoundEngine):
         while len(self._pending) >= self.buffer_size:
             chunk = self._pending[:self.buffer_size]
             self._pending = self._pending[self.buffer_size:]
-            buf = torch.zeros(self.buffer_size, G.shape[1], dtype=torch.float32,
-                              device=G.device)
-            for row, r in zip(buf, chunk, strict=True):
-                self._decode(r["payload"], row)
-            gaps = np.asarray([t - r["dispatch"] for r in chunk], np.float64)
-            params, sstate, bcast, ainfo = self._apply(
-                params, sstate, buf, to_device(gaps.astype(np.float32), G.device), lr)
+            with trace.span("tick/flush"):
+                buf = torch.zeros(self.buffer_size, G.shape[1], dtype=torch.float32,
+                                  device=G.device)
+                for row, r in zip(buf, chunk, strict=True):
+                    self._decode(r["payload"], row)
+                gaps = np.asarray([t - r["dispatch"] for r in chunk], np.float64)
+                params, sstate, bcast, ainfo = self._apply(
+                    params, sstate, buf, to_device(gaps.astype(np.float32), G.device), lr)
             gbar_prev = bcast
             flushes.append((ainfo, gaps, float(np.mean([r["nnz"] for r in chunk]))))
         applies = []

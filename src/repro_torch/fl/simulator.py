@@ -27,6 +27,17 @@ and scattered back; non-participants keep V/U/M untouched. The states are
 flat ``[K, N]`` stacks and the last broadcast ``gbar_prev`` a flat ``[N]``
 vector, both of the params' ``FlatLayout`` (``utils/flat.py``); the params
 stay a tree.
+
+Telemetry (``repro_torch.obs``) hooks in as in the JAX package: a
+``round`` (``tick``) span around each round's work, and, only when
+``obs.configure()`` has turned it on, a ``round`` event per round
+(``wall_ms`` is the record's ``round_ms``), the ``fl.round_ms`` series,
+the ``fl.tau`` gauge, the rate controller's series from the round's one
+read, the async loop's ``flush`` events and ``fl.pending`` /
+``fl.in_flight`` gauges, the topology loop's ``topo_round`` event, and the
+health block (``obs/health.py``), which adds one device read a round. With
+telemetry off the recorder is the shared no-op object: nothing is read,
+launched or written.
 """
 
 from __future__ import annotations
@@ -42,6 +53,9 @@ from repro_torch.core import CommLedger, CompressionConfig, init_states
 from repro_torch.core import adaptive, stack_client_states
 from repro_torch.fl import availability
 from repro_torch.fl.engine import BACKENDS, make_engine
+from repro_torch.obs import health as obs_health
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace
 from repro_torch.topo import validate_fl_topology
 from repro_torch.utils import resolve_device, scalar, to_device, tree_map
 from repro_torch.utils.flat import FlatLayout
@@ -188,8 +202,10 @@ class FLSimulator:
         if self.engine.name == "topo":
             return self._run_topo(batch_provider, log_every=log_every, on_round=on_round)
         fl = self.fl
+        obs = obs_metrics.get()
         for t in range(fl.rounds):
             t0 = time.perf_counter()
+            up_before, down_before = self.ledger.upload_bytes, self.ledger.download_bytes
             ids = self._sample_ids(t)
             batches = batch_provider(t, ids, self._rng)
             lr = self._lr_at(t)
@@ -198,39 +214,40 @@ class FLSimulator:
             rates = levels = None
             if self.rate_adaptive:
                 rates, levels = self._rate_inputs(ids_dev, 0.0)
-            (
-                self.params,
-                self.cstates,
-                self.sstate,
-                self.gbar_prev,
-                up_nnz,
-                down_nnz,
-                union_nnz,
-            ) = self._round_fn(
-                self.params,
-                self.cstates,
-                self.sstate,
-                self.gbar_prev,
-                ids_dev,
-                batches,
-                t,
-                lr,
-                tau_now,
-                rates,
-                levels,
-            )
-            # The round's one device read: per-client upload nnz, download
-            # nnz and union nnz (and the rates and levels) in one float64
-            # copy, exact for counts below 2**53.
-            parts = [up_nnz, down_nnz.reshape(1), union_nnz.reshape(1)]
-            parts += [x for x in (rates, levels) if x is not None]
-            host = torch.cat([x.double() for x in parts]).cpu()
+            with trace.span("round"):
+                (
+                    self.params,
+                    self.cstates,
+                    self.sstate,
+                    self.gbar_prev,
+                    up_nnz,
+                    down_nnz,
+                    union_nnz,
+                ) = self._round_fn(
+                    self.params,
+                    self.cstates,
+                    self.sstate,
+                    self.gbar_prev,
+                    ids_dev,
+                    batches,
+                    t,
+                    lr,
+                    tau_now,
+                    rates,
+                    levels,
+                )
+                # The round's one device read: per-client upload nnz, download
+                # nnz and union nnz (and the rates and levels) in one float64
+                # copy, exact for counts below 2**53.
+                parts = [up_nnz, down_nnz.reshape(1), union_nnz.reshape(1)]
+                parts += [x for x in (rates, levels) if x is not None]
+                host = torch.cat([x.double() for x in parts]).cpu()
             wall_ms = (time.perf_counter() - t0) * 1e3
             k = len(ids)
             host = host.numpy()
             up_host = host[:k].astype(np.int64)
             down, union = float(host[k]), float(host[k + 1])
-            value_bytes = None
+            value_bytes = rates_host = levels_host = None
             if levels is not None:
                 levels_host = host[-k:].astype(np.int32)
                 value_bytes = np.where(levels_host > 0, 1.0,
@@ -248,6 +265,12 @@ class FLSimulator:
                 rec["rates"] = rates_host.tolist()
                 if levels is not None:
                     rec["wire_levels"] = levels_host.tolist()
+            self._evaluate(t, rec)
+            if obs.enabled:
+                extra = (self._rate_obs(obs, rates_host, levels_host)
+                         if self.rate_adaptive else None)
+                self._record_round_obs(obs, t, rec, up_before, down_before,
+                                       float(np.mean(up_host)), down, union, extra=extra)
             self._finish(t, rec, log_every, on_round,
                          f"[round {t:4d}] comm={self.ledger.total_gb:.4f} GB")
         return self.history
@@ -258,18 +281,61 @@ class FLSimulator:
                                        target_overlap=fl.tau_target_overlap, eta=fl.tau_eta,
                                        tau_max=fl.tau_max)
 
-    def _finish(self, t, rec, log_every, on_round, log_line):
-        """Evaluation, history, log line and callback of round or tick ``t``."""
+    def _evaluate(self, t, rec):
+        """Evaluation (every ``eval_every`` rounds and the last) and history
+        of round or tick ``t``."""
         fl = self.fl
         if self.eval_fn and (t % fl.eval_every == 0 or t == fl.rounds - 1):
             rec["accuracy"] = float(self.eval_fn(self.params))
         self.history.append(rec)
+
+    def _finish(self, t, rec, log_every, on_round, log_line):
+        """Log line and callback of round or tick ``t``."""
         if log_every and t % log_every == 0:
             acc = rec.get("accuracy")
             acc_s = f" acc={acc:.4f}" if acc is not None else ""
             print(f"{log_line}{acc_s}", flush=True)
         if on_round:
             on_round(t, self)
+
+    def _rate_obs(self, obs, rates, levels):
+        """Publish the controller's decisions from the host copies of this
+        round's ``rates`` (and wire ``levels``, or None): the
+        ``rate.effective`` series (one observation per sampled client), the
+        ``fl.rate_mean`` gauge and the round event's extras."""
+        r = np.asarray(rates, np.float64)
+        for x in r:
+            obs.observe("rate.effective", float(x))
+        obs.gauge_set("fl.rate_mean", float(r.mean()))
+        extra = {"rate_mean": float(r.mean()), "rate_min": float(r.min()),
+                 "rate_max": float(r.max())}
+        if levels is not None:
+            extra["int8_drops"] = int(np.asarray(levels).sum())
+        return extra
+
+    def _record_round_obs(self, obs, t, rec, up_before, down_before, up_nnz_mean, down_nnz,
+                          union_nnz, extra=None):
+        """Telemetry for one finished round or tick, called only when
+        telemetry is enabled: the ``round`` event (``wall_ms`` is the
+        record's ``round_ms``, and this round's wire bytes), the
+        ``fl.round_ms`` series, the ``fl.tau`` gauge and the health block
+        (``obs/health.py``: one device read of the state's norms)."""
+        obs.observe("fl.round_ms", rec["round_ms"])
+        obs.gauge_set("fl.tau", rec["tau"])
+        ev = {"round": t, "wall_ms": rec["round_ms"],
+              "upload_bytes": self.ledger.upload_bytes - up_before,
+              "download_bytes": self.ledger.download_bytes - down_before,
+              "upload_nnz_mean": up_nnz_mean, "download_nnz": down_nnz,
+              "union_nnz": union_nnz, "tau": rec["tau"]}
+        if "accuracy" in rec:
+            ev["accuracy"] = rec["accuracy"]
+        if extra:
+            ev.update(extra)
+        obs.event("round", **ev)
+        obs_health.record_round_health(
+            obs, round_idx=t, cstates=self.cstates, sstate=self.sstate, bcast=self.gbar_prev,
+            gmom=getattr(self.engine, "_gmom", None), upload_nnz_mean=up_nnz_mean,
+            total_params=self.total_params, target_rate=self.comp.rate)
 
     def _run_async(self, batch_provider, *, log_every: int = 0, on_round=None):
         """The asynchronous buffered loop (``backend="async"``). One
@@ -281,8 +347,10 @@ class FLSimulator:
         flush's gaps into its histogram. With zero delays and a cohort-sized
         buffer a tick charges what ``record_round`` would."""
         fl = self.fl
+        obs = obs_metrics.get()
         for t in range(fl.rounds):
             t0 = time.perf_counter()
+            up_before, down_before = self.ledger.upload_bytes, self.ledger.download_bytes
             ids = self._sample_ids(t)
             batches = batch_provider(t, ids, self._rng)
             lr = self._lr_at(t)
@@ -293,31 +361,56 @@ class FLSimulator:
                 # the staleness input: the previous tick's mean applied gap
                 # (0.0 at tick 0 and throughout a zero-delay run)
                 rates, levels = self._rate_inputs(ids_dev, self._last_gap)
-            (self.params, self.cstates, self.sstate, self.gbar_prev, arrived_nnz,
-             applies) = self.engine.async_round(
-                self.params, self.cstates, self.sstate, self.gbar_prev, ids_dev, batches, t,
-                lr, tau_now, rates, levels)
-            if arrived_nnz.size:
-                # each arrival at the wire level it was dispatched with
-                vb = self.engine.last_arrived_value_bytes if self.rate_adaptive else None
-                self.ledger.record_upload(arrived_nnz, self.total_params, vb)
-            for ap in applies:
-                self.ledger.record_download(ap.down_nnz, self.total_params, ap.num)
-                self.ledger.record_staleness(ap.gaps)
-                if fl.adaptive_tau:  # per flush: the buffer's mean upload vs its union
-                    self._tau_update(ap.up_nnz_mean, ap.union_nnz)
-            self.ledger.tick()
+            with trace.span("tick"):
+                (self.params, self.cstates, self.sstate, self.gbar_prev, arrived_nnz,
+                 applies) = self.engine.async_round(
+                    self.params, self.cstates, self.sstate, self.gbar_prev, ids_dev, batches,
+                    t, lr, tau_now, rates, levels)
+                if arrived_nnz.size:
+                    # each arrival at the wire level it was dispatched with
+                    vb = self.engine.last_arrived_value_bytes if self.rate_adaptive else None
+                    self.ledger.record_upload(arrived_nnz, self.total_params, vb)
+                for ap in applies:
+                    self.ledger.record_download(ap.down_nnz, self.total_params, ap.num)
+                    self.ledger.record_staleness(ap.gaps)
+                    obs.event("flush", round=t, staleness_gaps=[int(g) for g in ap.gaps],
+                              down_nnz=ap.down_nnz, union_nnz=ap.union_nnz,
+                              up_nnz_mean=ap.up_nnz_mean, num=ap.num)
+                    if fl.adaptive_tau:  # per flush: the buffer's mean upload vs its union
+                        self._tau_update(ap.up_nnz_mean, ap.union_nnz)
+                self.ledger.tick()
             wall_ms = (time.perf_counter() - t0) * 1e3
             rec = {"round": t, "comm_gb": self.ledger.total_gb, "tau": float(self.tau_ctl.tau),
                    "applies": len(applies), "pending": self.engine.pending,
                    "in_flight": self.engine.in_flight, "round_ms": wall_ms}
+            rates_host = levels_host = None
             if self.rate_adaptive:
-                rec["rate_mean"] = float(rates.double().mean())
+                # the controller's outputs in one read (float32 rates exact in float64)
+                host = torch.cat([x.double() for x in (rates, levels) if x is not None])
+                host = host.cpu().numpy()
+                rates_host = host[:len(ids)].astype(np.float32)
+                if levels is not None:
+                    levels_host = host[len(ids):].astype(np.int32)
+                rec["rate_mean"] = float(rates_host.mean())
             if applies:
                 gaps = np.concatenate([ap.gaps for ap in applies])
                 rec["staleness_mean"] = float(gaps.mean())
                 if self.rate_adaptive:
                     self._last_gap = float(gaps.mean())
+            self._evaluate(t, rec)
+            if obs.enabled:
+                up_mean = (float(np.mean([ap.up_nnz_mean for ap in applies]))
+                           if applies else 0.0)
+                down_last = float(applies[-1].down_nnz) if applies else 0.0
+                union_last = float(applies[-1].union_nnz) if applies else 0.0
+                obs.gauge_set("fl.pending", self.engine.pending)
+                obs.gauge_set("fl.in_flight", self.engine.in_flight)
+                extra = {"applies": len(applies), "pending": self.engine.pending,
+                         "in_flight": self.engine.in_flight}
+                if self.rate_adaptive:
+                    extra.update(self._rate_obs(obs, rates_host, levels_host))
+                self._record_round_obs(obs, t, rec, up_before, down_before, up_mean,
+                                       down_last, union_last, extra=extra)
             self._finish(t, rec, log_every, on_round,
                          f"[tick {t:4d}] comm={self.ledger.total_gb:.4f} GB "
                          f"applies={len(applies)} pending={self.engine.pending}")
@@ -333,34 +426,59 @@ class FLSimulator:
         sync rounds (``sync_every``), when the clients also see it
         (``gbar_prev`` stays stale in between)."""
         fl = self.fl
+        eng = self.engine
+        obs = obs_metrics.get()
         for t in range(fl.rounds):
             t0 = time.perf_counter()
+            up_before, down_before = self.ledger.upload_bytes, self.ledger.download_bytes
+            peer_before = self.ledger.peer_bytes
             ids = self._sample_ids(t)
             batches = batch_provider(t, ids, self._rng)
             lr = self._lr_at(t)
             tau_now = scalar(float(self.tau_ctl.tau), self.device) if fl.adaptive_tau else None
-            self.params, self.cstates, self.sstate, bcast, info = self.engine.topo_round(
-                self.params, self.cstates, self.sstate, self.gbar_prev,
-                to_device(ids, self.device), batches, t, lr, tau_now)
-            if info.synced:
-                self.gbar_prev = bcast
-            if info.peer_nnz.size:
-                self.ledger.record_peer(info.peer_nnz, self.total_params)
-            self.ledger.record_upload(info.ingress_nnz, self.total_params)
-            if info.synced:
-                self.ledger.record_download(info.down_nnz, self.total_params,
-                                            info.down_recipients)
-                if info.relay_recipients:
-                    self.ledger.record_peer_download(info.down_nnz, self.total_params,
-                                                     info.relay_recipients)
-            self.ledger.tick()
+            with trace.span("round"):
+                self.params, self.cstates, self.sstate, bcast, info = eng.topo_round(
+                    self.params, self.cstates, self.sstate, self.gbar_prev,
+                    to_device(ids, self.device), batches, t, lr, tau_now)
+                if info.synced:
+                    self.gbar_prev = bcast
+                if info.peer_nnz.size:
+                    self.ledger.record_peer(info.peer_nnz, self.total_params)
+                self.ledger.record_upload(info.ingress_nnz, self.total_params)
+                if info.synced:
+                    self.ledger.record_download(info.down_nnz, self.total_params,
+                                                info.down_recipients)
+                    if info.relay_recipients:
+                        self.ledger.record_peer_download(info.down_nnz, self.total_params,
+                                                         info.relay_recipients)
+                self.ledger.tick()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            ingress_mean = float(np.mean(info.ingress_nnz))
             if fl.adaptive_tau:
-                self._tau_update(float(np.mean(info.ingress_nnz)), float(info.union_nnz))
+                self._tau_update(ingress_mean, float(info.union_nnz))
             rec = {"round": t, "comm_gb": self.ledger.total_gb, "tau": float(self.tau_ctl.tau),
                    "topology": info.topology, "synced": info.synced,
                    "server_ingress_gb": self.ledger.upload_bytes / 1e9,
                    "peer_gb": self.ledger.peer_bytes / 1e9, "round_ms": wall_ms}
+            self._evaluate(t, rec)
+            if obs.enabled:
+                peer = self.ledger.peer_bytes - peer_before
+                obs.event("topo_round", round=t, topology=info.topology,
+                          server_ingress_bytes=self.ledger.upload_bytes - up_before,
+                          peer_bytes=peer, synced=info.synced, down_nnz=info.down_nnz)
+                self._record_round_obs(
+                    obs, t, rec, up_before, down_before, ingress_mean, float(info.down_nnz),
+                    float(info.union_nnz),
+                    extra={"topology": info.topology, "synced": info.synced, "peer_bytes": peer})
+                if info.topology == "hierarchical":
+                    # the aggregator tier's block, under its own gauge prefix:
+                    # the tier scheme's state is where the hierarchy's
+                    # compression error lives
+                    obs_health.record_round_health(
+                        obs, round_idx=t, cstates=eng.tier_cstates, sstate=self.sstate,
+                        bcast=bcast, upload_nnz_mean=ingress_mean,
+                        total_params=self.total_params, target_rate=self.comp.tier_rate,
+                        tier="aggregator")
             self._finish(t, rec, log_every, on_round,
                          f"[round {t:4d}] {info.topology} "
                          f"ingress={self.ledger.upload_bytes / 1e9:.4f} GB "

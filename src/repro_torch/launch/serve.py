@@ -16,20 +16,29 @@ timed prefill and the timed decode loop each hold no host sync and end in
 one ``torch.cuda.synchronize()``: the position advances on the device and
 the tokens stack there until the clock has stopped.
 
+``--obs`` turns the telemetry spine on (``repro_torch.obs``): a
+``run_start`` event, the run's ``serve_summary`` (its batch as the
+requests, and tokens/s) and ``summary`` events in
+``<--obs-dir>/events.jsonl``, then ``metrics.prom`` and ``summary.json``
+beside it. The reference's fixed mode writes no ``serve_summary``, so its
+event file fails ``python -m repro.obs.report --strict``; this one passes.
+
 Not ported yet: ``--mode engine`` (the paged continuous-batching engine,
-ROADMAP Queue 1 item 12) and ``--obs`` (telemetry, item 10).
+ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch import configs
 from repro_torch.dist import step as dstep
 from repro_torch.models import transformer
@@ -135,22 +144,35 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--obs", action="store_true",
-                    help="the telemetry spine (not ported yet)")
+                    help="enable the repro_torch.obs telemetry spine (JSONL events "
+                         "+ metrics.prom/summary.json under --obs-dir)")
+    ap.add_argument("--obs-dir", default="runs/obs-serve",
+                    help="telemetry output directory (with --obs)")
     return ap
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
     if args.mode == "engine":
         raise NotImplementedError("--mode engine (the paged continuous-batching engine) "
                                   "is not ported yet: ROADMAP Queue 1 item 12")
-    if args.obs:
-        raise NotImplementedError("--obs (telemetry) is not ported yet: "
-                                  "ROADMAP Queue 1 item 10")
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     params = init_params(cfg, args.seed, device)
-    summary = run_fixed(cfg, params, args, device).summary
+    if args.obs:
+        obs.configure(args.obs_dir)
+        obs.get().event("run_start", run=f"serve-{args.arch}", argv=argv, backend="serve",
+                        mode=args.mode)
+    try:
+        summary = run_fixed(cfg, params, args, device).summary
+        obs.get().event("serve_summary", requests=args.batch,
+                        tokens_per_s=summary["tokens_per_s"])
+        obs.get().event("summary", **summary)
+    finally:
+        if args.obs:
+            obs.export.write_all(args.obs_dir)
+            obs.shutdown()
     print(json.dumps(summary))
     return 0
 

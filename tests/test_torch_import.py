@@ -27,7 +27,9 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.kernels.flash_attention, repro_torch.models.transformer, "
             "repro_torch.models.lstm, repro_torch.core.rate_control, repro_torch.utils.quant, "
             "repro_torch.fl.availability, repro_torch.core.sketch, repro_torch.utils.draws, "
-            "repro_torch.topo, repro_torch.fl.engine\n"
+            "repro_torch.topo, repro_torch.fl.engine, repro_torch.obs, repro_torch.obs.metrics, "
+            "repro_torch.obs.events, repro_torch.obs.export, repro_torch.obs.report, "
+            "repro_torch.obs.trace, repro_torch.obs.health\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -80,7 +80,7 @@ def test_decode_continues_the_prefill_as_run_fixed_does():
 
 @pytest.mark.parametrize("extra, match", [
     (["--mode", "engine"], "item 12"),
-    (["--obs"], "item 10"),
+    (["--obs", "--mode", "engine"], "item 12"),
 ])
 def test_unported_serving_options_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
