@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase (what CI on a GPU runs)
     python3 chip_smoke.py --only kernels   # build + hold the kernels only
+    python3 chip_smoke.py --profile        # + where each serving run's time goes
 
 Phases, in order; any failure exits nonzero:
 
@@ -38,12 +39,16 @@ Phases, in order; any failure exits nonzero:
    for 20 clients in one launch, over the same tree with a misaligned leaf,
    and over a tree of more leaves than its table holds (one launch per
    table). K4 runs against its plain version in float32 and
-   bfloat16, causal and not, G ∈ {1, 4, 8} query heads per kv head (8 is
+   bfloat16, causal and not, G ∈ {1, 2, 4, 8} query heads per kv head (8 is
    MQA at H 8), head dim 16, 32, 64, 128, and T ∈ {1, 64, 1000, 2048} (1000
    is no tile multiple): bf16 at D 64/128 on the tensor-core kernel
    (``flash_attention_tc``), the rest on the CUDA-core kernel
    (``flash_attention_cc``), each case's launch checked against
-   ``kernel_for``; plus the (BH, T, D) interface on the tensor-core kernel,
+   ``kernel_for``; kimi-k2's head dim 112 and recurrentgemma-9b's 256 on
+   the CUDA-core kernel, bf16 and float32, causal, G ∈ {1, 8, 16} at H 16,
+   T ∈ {1, 1000, 2048}; the tensor-core kernel at yi-34b's G 7 and
+   command-r-plus-104b's G 12 (D 128, T 1000 and 2048, causal and not);
+   plus the (BH, T, D) interface on the tensor-core kernel,
    and a misaligned bf16 input, which must raise. Tolerances: atol 3e-5 /
    rtol 1e-4 in float32 and 3e-2 in bfloat16 (``tests/test_flash_attention.py``'s:
    the two sum in other orders), and each output within 1e-5 (float32) or
@@ -83,6 +88,13 @@ Phases, in order; any failure exits nonzero:
    naive attention on the CPU): the prefill's last logits and 4 decode
    steps, both sides fed the CPU's greedy tokens, within 1e-4 relative L2
    per step. The float32 prefill runs on the CUDA-core K4 (2 launches).
+   Then the same check for the moe (granite-moe), ssm (mamba2), hybrid
+   (recurrentgemma, its smoke's 5 layers so that its attention block is
+   in), vlm (qwen2-vl) and audio (musicgen) families at their smoke widths,
+   2 layers, and kimi-k2's attention (H 64, KV 8, head dim 112) at d_model
+   1024 with 16 experts: batch 2, prompt 64, float32, K4 launched once per
+   attention block of the card's prefill (CUDA-core kernel); these
+   launches join llama's in the CUDA-core kernel's row.
 7. **ResNet-56 under the other stage kinds.** Phase 3's task, 2 rounds
    each of ``dgcwgmf`` (τ 0.6, fused) with the int8 and the bf16 wire,
    ``dgcwgmf_dl`` (a top-k downlink: one more ``gmf_select`` launch a
@@ -189,6 +201,26 @@ Phases, in order; any failure exits nonzero:
    prompt 2048, 8 tokens: ``events.jsonl``, ``metrics.prom`` and
    ``summary.json`` written, ``run_start`` and ``summary`` events,
    ``--strict`` exit 0, and K4's 16 tensor-core launches (the prefill's).
+13. **Serving every other architecture at its published widths.**
+   ``run_fixed`` in bfloat16 with random params from seed 0 drawn on the
+   card, a warm-up run and the measured one, on qwen2.5-3b (36 layers),
+   yi-34b (16 of 60), command-r-plus-104b (8 of 64), granite-moe-1b-a400m
+   (24), kimi-k2-1t-a32b (1 of 61; batch 1, prompt 256, 8 tokens),
+   mamba2-780m (48), recurrentgemma-9b (38), qwen2-vl-72b (16 of 80; 1024
+   patches + a 1024-token prompt) and musicgen-large (48; 4 codebooks),
+   batch 4, prompt 2048, 16 tokens unless stated (``SERVE_FAMILIES``).
+   Before each config's params are drawn, K4 is held against its plain
+   version on random bf16 q/k/v at the shapes that config's prefill gives
+   it (B, prompt + patches, H, KV, head dim; causal), on the kernel
+   ``kernel_for`` names, at phase 2's tolerances. Counts reset before each
+   run: K4 launches once per attention block on
+   the kernel ``kernel_for`` names (tensor cores at D 64/128, CUDA cores at
+   kimi's 112 and recurrentgemma's 256), K1–K3 never; then the prefill
+   alone launches K4 that many times and the decode loop alone none. The
+   prefill logits finite, every sequence (every codebook) complete, the
+   decode cache's shapes unchanged by the decode loop; ``prefill_ms``,
+   ``ms_per_step`` and ``tokens_per_s`` printed beside the card's name and
+   power limit. Each model is freed before the next.
 
 Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
 ResNet-56 stacks (20 clients), one launch each as the path makes them
@@ -201,8 +233,11 @@ pass); K2's device time alone; one large launch of the mask pass, K2 and
 K3; K4 at the serving shape on the tensor-core kernel,
 the CUDA-core kernel (a bf16 comparison), the plain version and SDPA (a
 yardstick only: the port never calls it), beside the operations bound;
-the tensor-core kernel at D 128; and the CUDA-core kernel at the float32
-shape phase 6 gives it, which is its row's time.
+the tensor-core kernel at D 128; the CUDA-core kernel at the float32
+shape phase 6 gives it, which is its row's time; and the CUDA-core kernel
+in bf16 at recurrentgemma-9b's (B 4, T 2048, H 16, KV 1, D 256) and
+kimi-k2-1t-a32b's (B 1, T 256, H 64, KV 8, D 112) prefill shapes beside
+its plain version, SDPA and its operations bound at the bf16 peak.
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -728,13 +763,14 @@ def hold_k4(k4, ref, dev):
     """Both K4 kernels against their plain version on the card at every
     listed dtype, mask, grouping, head dim and length, each case on the
     kernel ``kernel_for`` names; returns the largest absolute difference
-    seen per kernel ({"tc": ..., "cc": ...})."""
+    seen per kernel ({"tc": ..., "cc": ...}), the CUDA-core kernel's cases
+    at D 112 and 256 apart ("cc_d112", "cc_d256")."""
     rng = np.random.default_rng(4)
-    worst = {"tc": 0.0, "cc": 0.0}
+    worst = {"tc": 0.0, "cc": 0.0, "cc_d112": 0.0, "cc_d256": 0.0}
     cases = {"tc": 0, "cc": 0}
     worst_rel = {}
 
-    def hold(run, want, kern, what):
+    def hold(run, want, kern, what, key=None):
         k4.reset_launches()
         got = run()
         check(k4.LAUNCHES[f"flash_attention_{kern}"] == 1 and k4.LAUNCHES["flash_attention"] == 1,
@@ -742,8 +778,9 @@ def hold_k4(k4, ref, dev):
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"K4: {got.dtype} {tuple(got.shape)} at {what}")
         err, rel = check_k4(got, want, f"{what} ({kern} kernel)")
-        worst[kern] = max(worst[kern], err)
-        worst_rel[kern, want.dtype] = max(worst_rel.get((kern, want.dtype), 0.0), rel)
+        key = key or kern
+        worst[key] = max(worst[key], err)
+        worst_rel[key, want.dtype] = max(worst_rel.get((key, want.dtype), 0.0), rel)
         cases[kern] += 1
 
     for t in (1, 64, 1000, 2048):
@@ -752,7 +789,7 @@ def hold_k4(k4, ref, dev):
             q = torch.tensor(rng.normal(size=(b, t, 8, d)).astype(np.float32), device=dev)
             kf = torch.tensor(rng.normal(size=(b, t, 8, d)).astype(np.float32), device=dev)
             vf = torch.tensor(rng.normal(size=(b, t, 8, d)).astype(np.float32), device=dev)
-            for g in (1, 4, 8):
+            for g in (1, 2, 4, 8):
                 kv = 8 // g
                 for dtype in K4_TOL:
                     qq = q.to(dtype)
@@ -762,8 +799,38 @@ def hold_k4(k4, ref, dev):
                         hold(lambda: k4.flash_attention(qq, k, v, causal=causal),
                              ref.flash_attention(qq, k, v, causal=causal), kern,
                              f"B {b} T {t} H 8 KV {kv} D {d} {dtype} causal={causal}")
-        print(f"  held K4 at T {t}: D 16/32/64/128 x G 1/4/8 x f32/bf16 x causal/not, "
+        print(f"  held K4 at T {t}: D 16/32/64/128 x G 1/2/4/8 x f32/bf16 x causal/not, "
               f"max abs so far tc {worst['tc']:.3e}, cc {worst['cc']:.3e}", flush=True)
+    # kimi-k2's head dim 112 and recurrentgemma-9b's 256, on the CUDA-core
+    # kernel in both dtypes, causal, G 1/8/16 at H 16 (16 is MQA).
+    for t in (1, 1000, 2048):
+        for d in (112, 256):
+            b = 1 if t == 2048 else 2
+            q, kf, vf = (torch.tensor(rng.normal(size=(b, t, 16, d)).astype(np.float32),
+                                      device=dev) for _ in range(3))
+            for g in (1, 8, 16):
+                kv = 16 // g
+                for dtype in K4_TOL:
+                    qq = q.to(dtype)
+                    k, v = kf[:, :, :kv].to(dtype), vf[:, :, :kv].to(dtype)
+                    kern = k4.kernel_for(dtype, d)
+                    check(kern == "cc", f"K4 at D {d} {dtype} goes to the {kern} kernel")
+                    hold(lambda: k4.flash_attention(qq, k, v), ref.flash_attention(qq, k, v),
+                         kern, f"B {b} T {t} H 16 KV {kv} D {d} {dtype} causal", f"cc_d{d}")
+        print(f"  held K4 at T {t}: D 112/256 x G 1/8/16 x f32/bf16, causal, max abs so far "
+              f"D 112 {worst['cc_d112']:.3e}, D 256 {worst['cc_d256']:.3e}", flush=True)
+    # The tensor-core kernel at yi-34b's 7 and command-r-plus-104b's 12 query
+    # heads per kv head (D 128, bf16).
+    for t in (1000, 2048):
+        for h, kv in ((14, 2), (24, 2)):
+            q, k, v = (torch.tensor(rng.normal(size=(1, t, n, 128)).astype(np.float32),
+                                    device=dev).to(torch.bfloat16) for n in (h, kv, kv))
+            for causal in (True, False):
+                hold(lambda: k4.flash_attention(q, k, v, causal=causal),
+                     ref.flash_attention(q, k, v, causal=causal), "tc",
+                     f"B 1 T {t} H {h} KV {kv} (G {h // kv}) D 128 bf16 causal={causal}")
+    print(f"  held the tensor-core K4 at G 7 and 12, D 128, T 1000/2048: max abs so far "
+          f"{worst['tc']:.3e}", flush=True)
     # The (BH, T, D) interface: strides that are not ordered by size.
     for d in (64, 128):
         q, k, v = (torch.tensor(rng.normal(size=(n, 1000, d)).astype(np.float32),
@@ -784,7 +851,7 @@ def hold_k4(k4, ref, dev):
               f"K4 on a misaligned bf16 input: {exc}; launches {k4.LAUNCHES}")
     torch.cuda.synchronize()
     name = lambda dt: str(dt).split(".")[-1]
-    rels = ", ".join(f"{kern} {name(dt)} {rel:.3e}" for (kern, dt), rel in worst_rel.items())
+    rels = ", ".join(f"{key} {name(dt)} {rel:.3e}" for (key, dt), rel in worst_rel.items())
     bounds = ", ".join(f"{name(dt)} {bound}" for dt, bound in K4_REL_L2.items())
     print(f"  K4: {cases['tc']} cases on the tensor-core kernel, {cases['cc']} on the "
           f"CUDA-core kernel, within tolerance; a misaligned bf16 input raised; largest "
@@ -892,6 +959,48 @@ def time_k4_cc(k4, ref, bw, peak, dev):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_ops, bound_bytes),
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                 library_ms=library_ms, at=f"B {b} T {t} H {h} KV {kv} D {d} float32 causal")
+
+
+# K4's prefill shapes at the new head dims, bf16 causal (phase 13's runs).
+K4_NEW_DIMS = {"cc_d256": ("recurrentgemma-9b", 4, 2048, 16, 1, 256),
+               "cc_d112": ("kimi-k2-1t-a32b", 1, 256, 64, 8, 112)}
+
+
+def time_k4_new_dims(k4, ref, bw, bf16_peak, dev):
+    """The CUDA-core K4 at recurrentgemma-9b's and kimi-k2-1t-a32b's prefill
+    shapes (bf16, causal), beside its plain version and SDPA (a yardstick),
+    in turns, and its bound: the operations at the bf16 tensor-core peak
+    (the least time the card could take for bf16 inputs), or the bytes."""
+    rng = np.random.default_rng(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for key, (arch, b, t, h, kv, d) in K4_NEW_DIMS.items():
+        q, k, v = (torch.tensor(rng.normal(size=(b, t, n, d)).astype(np.float32),
+                                device=dev).to(torch.bfloat16) for n in (h, kv, kv))
+        check(k4.kernel_for(q.dtype, d) == "cc", f"K4 at D {d} is not on the CUDA-core kernel")
+        at = f"B {b} T {t} H {h} KV {kv} D {d} bf16 causal ({arch}'s prefill)"
+        err, rel = check_k4(k4.flash_attention(q, k, v), ref.flash_attention(q, k, v), at)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms, plain_ms, library_ms = [], [], []
+        runs = [(ms, lambda: k4.flash_attention(q, k, v)),
+                (plain_ms, lambda: ref.flash_attention(q, k, v)),
+                (library_ms, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))]
+        for order in (runs, runs[::-1]):  # in turns
+            for sink, fn in order:
+                sink.append(timed_ms(fn))
+        ms, plain_ms, library_ms = (min(x) for x in (ms, plain_ms, library_ms))
+        flops = 4 * b * h * d * (t * (t + 1) // 2)
+        nbytes = 2 * (2 * b * t * h * d + 2 * b * t * kv * d)
+        bound_ops, bound_bytes = flops / bf16_peak * 1e3, nbytes / bw * 1e3
+        print(f"  K4 at {at}: CUDA-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> "
+              f"{bound_ops:.4f} ms at {bf16_peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB -> "
+              f"{bound_bytes:.4f} ms; vs plain max abs {err:.3e}, relative L2 {rel:.3e} "
+              f"(the better of 2 medians each, in turns)", flush=True)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_ops, bound_bytes),
+                        bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                        library_ms=library_ms, at=at)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2137,7 +2246,7 @@ def serve_phase(rt, dev, profile=False):
         print(f"  {label}: {json.dumps(run.summary)}; launches {counts}; peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     # Which part launched K4: the prefill alone, then the decode loop alone.
-    parts = serve_parts(rt, cfg, params, args, dev)
+    parts, _ = serve_parts(rt, cfg, params, args, dev)
     split = []
     for fn in parts:
         rt.k4.reset_launches()
@@ -2156,8 +2265,9 @@ def serve_phase(rt, dev, profile=False):
 
 def serve_parts(rt, cfg, params, args, dev):
     """``run_fixed``'s two parts as separate calls, through its steps and
-    its decode loop (``serve.decode``): (prefill, decode), the second
-    continuing from the first's output."""
+    its decode loop (``serve.decode``): ((prefill, decode), state), the
+    second continuing from the first's output, which ``state`` holds
+    (``"logits"``, ``"cache"``)."""
     batch = rt.serve.prompt_batch(cfg, args.seed, args.batch, args.prompt_len, dev)
     cache_len = args.cache_len or (args.prompt_len + args.gen)  # as run_fixed sets it
     prefill_step = rt.dstep.make_prefill_step(cfg, cache_len=cache_len)
@@ -2169,10 +2279,11 @@ def serve_parts(rt, cfg, params, args, dev):
 
     def decode():
         tok = torch.argmax(state["logits"], dim=-1)
-        pos = torch.full((), args.prompt_len, dtype=torch.int64, device=dev)
+        pos = torch.full((), rt.serve.first_decode_pos(cfg, args.prompt_len),
+                         dtype=torch.int64, device=dev)
         rt.serve.decode(serve, params, state["cache"], tok, pos, args.gen - 1)
 
-    return prefill, decode
+    return (prefill, decode), state
 
 
 def profile_serving(parts, args):
@@ -2237,6 +2348,203 @@ def serve_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4):
     return cc_launches
 
 
+# Phase 6's other families: (label, arch, depth) at the smoke widths in
+# float32. The hybrid keeps its smoke's 5 layers (rec, rec, attn and a tail
+# of two rec), the shortest that holds its attention block.
+FAMILY_CASES = (("moe", "granite-moe-1b-a400m", 2), ("ssm", "mamba2-780m", 2),
+                ("hybrid", "recurrentgemma-9b", 5), ("vlm", "qwen2-vl-72b", 2),
+                ("audio", "musicgen-large", 2))
+
+
+def n_attn(cfg) -> int:
+    """Attention blocks of ``cfg``: K4's launches in one of its prefills."""
+    return sum(bt == "attn" for bt in cfg.layer_types)
+
+
+def family_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4, b=2, prompt=64):
+    """Each family at its smoke width (FAMILY_CASES) and kimi-k2-1t-a32b's
+    attention at reduced width (H 64, KV 8, head dim 112; d_model 1024, 16
+    experts of width 256, vocabulary 4096), 2 layers, float32: the same
+    params on the card (K4 prefill, CUDA-core kernel) and the CPU (naive),
+    the prefill's last logits and ``steps`` decode steps, both sides fed
+    the CPU's greedy tokens, within ``tol`` relative L2 per step. Returns
+    the card prefills' K4 launches."""
+    import dataclasses
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    cases = [(label, dataclasses.replace(rt.configs.get_smoke(arch), num_layers=depth, **f32))
+             for label, arch, depth in FAMILY_CASES]
+    cases.append(("kimi D 112", dataclasses.replace(
+        rt.configs.get_config("kimi-k2-1t-a32b"), num_layers=2, d_model=1024, d_ff=256,
+        num_experts=16, vocab_size=4096, **f32)))
+    launches = 0
+    for label, cfg in cases:
+        params = {"cuda": rt.serve.init_params(cfg, 1, dev)}
+        params["cpu"] = rt.utils.tree_map(lambda x: x.cpu(), params["cuda"])
+        out = {}
+        rt.k4.reset_launches()
+        for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            batch = rt.serve.prompt_batch(cfg, 1, b, prompt, device)
+            prefill = rt.dstep.make_prefill_step(cfg, cache_len=prompt + steps)
+            out[name] = prefill(params[name], batch)
+        want = n_attn(cfg)
+        check(rt.k4.LAUNCHES["flash_attention"] == rt.k4.LAUNCHES["flash_attention_cc"] == want,
+              f"{label}: card prefill (float32) launched K4 {rt.k4.LAUNCHES}; expected {want} "
+              f"launches of the CUDA-core kernel")
+        launches += want
+        serve = rt.dstep.make_serve_step(cfg)
+        (lg, cache_g), (lc, cache_c) = out["cuda"], out["cpu"]
+        pos0 = rt.serve.first_decode_pos(cfg, prompt)
+        errs = []
+        for i in range(steps + 1):
+            lg, lc = lg.float().cpu(), lc.float()
+            rel = float((lg - lc).norm() / lc.norm())
+            errs.append(rel)
+            check(math.isfinite(rel) and rel <= tol,
+                  f"{label} card vs CPU: step {i} logits relative L2 {rel:.3e} > {tol}")
+            if i == steps:
+                break
+            tok = torch.argmax(lc, dim=-1)  # the CPU's greedy tokens feed both sides
+            pos = torch.tensor(pos0 + i)
+            _, lg, cache_g = serve(params["cuda"], cache_g, tok.to(dev), pos.to(dev))
+            _, lc, cache_c = serve(params["cpu"], cache_c, tok, pos)
+        print(f"  {label} ({cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
+              f"{cfg.head_dim}): {want} K4 launches; logits relative L2 prefill {errs[0]:.3e}, "
+              f"decode {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerance {tol})", flush=True)
+        del params, out, lg, lc, cache_g, cache_c
+    return launches
+
+
+# Phase 13: (arch, depth run or None for the full depth, batch, prompt,
+# generated tokens). Each is served at its published widths in bfloat16.
+SERVE_FAMILIES = (
+    ("qwen2.5-3b", None, 4, 2048, 16),
+    ("yi-34b", 16, 4, 2048, 16),
+    ("command-r-plus-104b", 8, 4, 2048, 16),
+    ("granite-moe-1b-a400m", None, 4, 2048, 16),
+    ("kimi-k2-1t-a32b", 1, 1, 256, 8),
+    ("mamba2-780m", None, 4, 2048, 16),
+    ("recurrentgemma-9b", None, 4, 2048, 16),
+    ("qwen2-vl-72b", 16, 4, 1024, 16),
+    ("musicgen-large", None, 4, 2048, 16),
+)
+NO_COMPRESSION = {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
+
+
+def serve_families_phase(rt, dev, card, profile=False):
+    """Phase 13: every config of SERVE_FAMILIES at its published widths
+    (depths cut as listed), bfloat16, random params from seed 0 drawn on
+    the card (``serve_family``), each model freed before the next. Returns
+    ({arch: summary}, {arch: K4 launches by kernel in the measured run},
+    {``hold_k4`` key: max abs difference of K4 held at these prefills})."""
+    import gc
+
+    summaries, launches, worst = {}, {}, {}
+    for arch, depth, b, prompt, gen in SERVE_FAMILIES:
+        summaries[arch], launches[arch], held = serve_family(rt, dev, card, arch, depth, b,
+                                                             prompt, gen, profile)
+        if held:
+            worst[held[0]] = max(worst.get(held[0], 0.0), held[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return summaries, launches, worst
+
+
+def hold_family_k4(rt, dev, cfg, b, prompt):
+    """K4 against its plain version on random bf16 q/k/v at the shapes
+    ``cfg``'s served prefill gives it (B ``b``, T the prompt plus any
+    patches, H, KV, head dim; causal), on the kernel ``kernel_for`` names,
+    at phase 2's tolerances. Returns (the ``hold_k4`` key of that kernel,
+    max abs difference)."""
+    rng = np.random.default_rng(13)
+    t, h, kv, d = rt.serve.first_decode_pos(cfg, prompt), cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    q, k, v = (torch.tensor(rng.normal(size=(b, t, n, d)).astype(np.float32),
+                            device=dev).to(torch.bfloat16) for n in (h, kv, kv))
+    kern = rt.k4.kernel_for(torch.bfloat16, d)
+    at = f"B {b} T {t} H {h} KV {kv} (G {h // kv}) D {d} bf16 causal ({cfg.name}'s prefill)"
+    rt.k4.reset_launches()
+    got = rt.k4.flash_attention(q, k, v)
+    check(rt.k4.LAUNCHES[f"flash_attention_{kern}"] == 1 == rt.k4.LAUNCHES["flash_attention"],
+          f"K4 at {at}: launches {rt.k4.LAUNCHES}, expected one of the {kern} kernel")
+    want = rt.ref.flash_attention(q, k, v)
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"K4: {got.dtype} {tuple(got.shape)} at {at}")
+    err, rel = check_k4(got, want, f"{at} ({kern} kernel)")
+    print(f"  held K4 at {at} on the {kern} kernel: max abs {err:.3e}, relative L2 {rel:.3e}",
+          flush=True)
+    del q, k, v, got, want
+    return (f"cc_d{d}" if d in (112, 256) else kern), err
+
+
+def serve_family(rt, dev, card, arch, depth, b, prompt, gen, profile=False):
+    """``run_fixed`` on one config: K4 held against its plain version at
+    the config's prefill shapes (``hold_family_k4``), then a warm-up run and
+    the measured one, counts reset before each, then the prefill alone and
+    the decode loop alone (profiled with ``profile``). Returns (the measured
+    run's summary, its K4 launches by kernel, the held K4's (key, max abs
+    difference) or None without attention)."""
+    import dataclasses
+
+    cfg = rt.configs.get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    held = hold_family_k4(rt, dev, cfg, b, prompt) if n_attn(cfg) else None
+    args = rt.serve.parser().parse_args(["--arch", arch, "--batch", str(b), "--prompt-len",
+                                         str(prompt), "--gen", str(gen)])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = rt.serve.init_params(cfg, args.seed, dev)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in rt.utils.tree_leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in rt.utils.tree_leaves(params))
+    print(f"  {arch} ({cfg.family}, {cfg.num_layers} of {rt.configs.get_config(arch).num_layers} "
+          f"layers): {n} params, {nbytes / 1e9:.2f} GB, initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s (peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB)", flush=True)
+    want = n_attn(cfg)
+    kern = rt.k4.kernel_for(torch.bfloat16, cfg.head_dim) if want else "tc"
+    expect = {**NO_COMPRESSION, "flash_attention": want, f"flash_attention_{kern}": want,
+              "flash_attention_tc" if kern == "cc" else "flash_attention_cc": 0}
+    tokens_shape = (b, cfg.num_codebooks, gen) if cfg.family == "audio" else (b, gen)
+    for label in ("warm-up", "measured"):
+        rt.gk.reset_launches()
+        rt.k4.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = rt.serve.run_fixed(cfg, params, args, dev)
+        torch.cuda.synchronize()
+        counts = {**rt.gk.LAUNCHES, **rt.k4.LAUNCHES}
+        check(counts == expect, f"{arch} {label}: launches {counts}, expected {expect}")
+        check(bool(torch.isfinite(run.last_logits).all()),
+              f"{arch} {label}: prefill logits not finite")
+        check(tuple(run.tokens.shape) == tokens_shape,
+              f"{arch} {label}: tokens {tuple(run.tokens.shape)}, expected {tokens_shape}")
+        check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all()),
+              f"{arch} {label}: token ids out of range")
+    summary = dict(run.summary, depth=cfg.num_layers,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    # The prefill alone launches K4 once per attention block, the decode
+    # loop never; the recurrent caches keep their shapes across steps.
+    parts, state = serve_parts(rt, cfg, params, args, dev)
+    split = []
+    for i, part in enumerate(parts):
+        rt.k4.reset_launches()
+        if i == 1:
+            shapes = [tuple(x.shape) for x in rt.utils.tree_leaves(state["cache"])]
+        part()
+        split.append(rt.k4.LAUNCHES["flash_attention"])
+    torch.cuda.synchronize()
+    check(split == [want, 0], f"{arch}: K4 launches prefill alone {split[0]}, decode loop "
+          f"alone {split[1]}; expected {want} and 0")
+    check([tuple(x.shape) for x in rt.utils.tree_leaves(state["cache"])] == shapes,
+          f"{arch}: the decode cache changed shape")
+    print(f"  {arch} measured ({card}): {json.dumps(summary)}; K4 {want} launches per "
+          f"prefill ({kern if want else 'none'}), 0 per decode step", flush=True)
+    if profile:
+        profile_serving(parts, args)
+    return summary, {k: counts[k] for k in ("flash_attention_tc", "flash_attention_cc")}, held
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2245,7 +2553,8 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels",), default=None,
                     help="run only the build and kernel phases")
     ap.add_argument("--profile", action="store_true",
-                    help="also break down where a serving run's time goes (torch.profiler)")
+                    help="also break down where each serving run's time goes "
+                         "(torch.profiler; phases 5 and 13)")
     args = ap.parse_args()
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -2316,12 +2625,14 @@ def main() -> None:
         "K1 gmf_select (and its |z| mode)", "K1 gmf_select with a per-row keep table (both modes)",
         "K1 gmf_compress (flat mask pass)",
         "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
-        "K4 flash_attention_tc (tensor cores)", "K4 flash_attention_cc (CUDA cores)"]}),
+        "K4 flash_attention_tc (tensor cores; G 7 and 12 at D 128)",
+        "K4 flash_attention_cc (CUDA cores; D 112 and 256)"]}),
         flush=True)
 
     launches = {name: 0 for _, name, _, _, _ in KERNELS}
     launches.update(flash_attention_tc=0, flash_attention_cc=0)
     by_path = {}  # the compression kernels' launches in each path's run
+    served_k4 = {}  # phase 13's K4 launches by config
     if args.only != "kernels":
         print("phase 3: ResNet-56 FL path, 20 clients, batch 64", flush=True)
         by_path["resnet56"], task = path_phase(rt, dev)
@@ -2334,6 +2645,9 @@ def main() -> None:
         launches["flash_attention_tc"] = counts["flash_attention_tc"]
         print("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2", flush=True)
         launches["flash_attention_cc"] = serve_card_vs_cpu_phase(rt, dev)
+        print("phase 6: serving, card vs CPU, the moe, ssm, hybrid, vlm and audio families "
+              "and kimi-k2's head dim 112", flush=True)
+        launches["flash_attention_cc"] += family_card_vs_cpu_phase(rt, dev)
         print("phase 7: ResNet-56 under the int8 and bf16 wires, the top-k downlink and "
               "per-client rates, 2 rounds each", flush=True)
         by_path["resnet56_stages"] = resnet_presets_phase(rt, task)
@@ -2365,6 +2679,14 @@ def main() -> None:
         print("phase 12: telemetry (repro_torch.obs) on the card", flush=True)
         by_path["resnet56_obs"] = obs_phase(rt, task, card, bw)
         del task
+        print("phase 13: serving every remaining architecture at its published widths",
+              flush=True)
+        t13 = time.perf_counter()
+        served, served_k4, held = serve_families_phase(rt, dev, card, args.profile)
+        for key, err in held.items():
+            k4_worst[key] = max(k4_worst[key], err)
+        print(f"  phase 13 in {time.perf_counter() - t13:.1f} s ({card}): "
+              f"{json.dumps(served)}", flush=True)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n
@@ -2380,6 +2702,8 @@ def main() -> None:
         ("ResNet-56 broadcast (the top-k downlink)", resnet_layout, 1, False)], bw, peak, dev)
     print("timing: K4 at the serving shape", flush=True)
     k4_times = time_k4(k4, ref, bw, peak, bf16_peak, dev)
+    print("timing: K4 at recurrentgemma-9b's and kimi-k2-1t-a32b's prefill shapes", flush=True)
+    k4_times.update(time_k4_new_dims(k4, ref, bw, bf16_peak, dev))
     torch.cuda.synchronize()
 
     rows = []
@@ -2395,11 +2719,23 @@ def main() -> None:
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.
     for kern, source, run in (("tc", K4_TC_SOURCE, "phase 5: bf16 serving, run_fixed"),
-                              ("cc", K4_SOURCE, "phase 6: float32 prefill")):
+                              ("cc", K4_SOURCE, "phase 6: float32 prefills of llama3.2-1b, "
+                                                 "the families and kimi-k2's D 112")):
         rows.append({"name": f"flash_attention_{kern}", "id": "K4", "route": "cuda",
                      "source": source, "replaces": K4_REPLACES,
                      "launches": launches[f"flash_attention_{kern}"], "launches_in": run,
+                     "launches_in_phase13": {arch: c[f"flash_attention_{kern}"]
+                                             for arch, c in served_k4.items()
+                                             if c[f"flash_attention_{kern}"]},
                      "max_abs_err": k4_worst[kern], **k4_times[kern]})
+    # The CUDA-core kernel at the head dims this slice added: its launches in
+    # phase 13's measured run of the config that has that head dim.
+    for key, (arch, *_) in K4_NEW_DIMS.items():
+        rows.append({"name": f"flash_attention_{key}", "id": "K4", "route": "cuda",
+                     "source": K4_SOURCE, "replaces": K4_REPLACES,
+                     "launches": served_k4.get(arch, {}).get("flash_attention_cc", 0),
+                     "launches_in": f"phase 13: {arch}, run_fixed (bf16)",
+                     "max_abs_err": k4_worst[key], **k4_times[key]})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

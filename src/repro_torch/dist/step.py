@@ -16,12 +16,18 @@ from repro_torch.models import transformer
 
 
 def _model_ctx(cfg, mesh, **extra) -> dict:
-    """Forward-pass ctx. The reference's also carries the mesh plumbing
-    and the hybrid family's attention window, neither of which is ported."""
+    """Forward-pass ctx: the hybrid family's attention window, as the
+    reference sets it. The reference's also carries the mesh plumbing for
+    the expert-parallel MoE, which is not ported."""
     if mesh is not None:
         raise NotImplementedError("meshes need the dist runtime, which is not ported "
                                   "yet: ROADMAP Queue 1 item 11")
-    return dict(extra)
+    ctx = dict(extra)
+    if cfg.family == "hybrid":
+        # ring caches + masks sized to the local-attention window, matching
+        # transformer.init_block_cache
+        ctx["window"] = cfg.local_attn_window
+    return ctx
 
 
 def make_prefill_step(cfg, mesh=None, *, cache_len: int):
@@ -29,7 +35,9 @@ def make_prefill_step(cfg, mesh=None, *, cache_len: int):
 
     Runs the full-sequence forward with ``last_only`` (the (B, T, V) logits
     tensor is never built) and returns the last position's logits in
-    float32 beside the ring KV cache of ``cache_len`` slots.
+    float32 ((B, V); audio (B, K, V)) beside the decode cache: ring KV
+    caches of ``cache_len`` slots (the hybrid family's of at most its
+    local window) and the recurrent blocks' states.
     """
     ctx = _model_ctx(cfg, mesh, want_cache=True, cache_len=cache_len, last_only=True)
 
@@ -43,7 +51,8 @@ def make_prefill_step(cfg, mesh=None, *, cache_len: int):
 
 def make_serve_step(cfg, mesh=None):
     """``serve(params, cache, tokens, pos) -> (next_tokens, logits, cache)``
-    — one greedy decode step (the cache is updated in place)."""
+    — one greedy decode step, over every codebook for audio (the cache is
+    updated in place)."""
     ctx = _model_ctx(cfg, mesh)
 
     @torch.no_grad()

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` (`_flash_kernel`,
 // src/repro/kernels/flash_attention.py) for float32 at every head dim and
-// bf16 at head dims 16 and 32; bf16 at 64 and 128 goes to the tensor-core
+// bf16 at head dims 16, 32, 112 (kimi-k2) and 256 (recurrentgemma-9b);
+// bf16 at 64 and 128 goes to the tensor-core
 // kernel in flash_attention_sm90.cu (kernels/flash_attention.py:kernel_for
 // chooses). A float32 product on tensor cores would be TF32, which the
 // float32 tolerances and the float32 card-vs-CPU serving check exclude, so
@@ -91,12 +92,17 @@ template <int D>
 struct Dims {
   // Output columns of thread tx: NV chunks of VEC neighbours,
   // column = h * 16 * VEC + tx * VEC + e, so 16 lanes read 16*VEC
-  // contiguous floats of a V row.
-  static constexpr int VEC = D >= 64 ? 4 : D / 16;
+  // contiguous floats of a V row. VEC is the widest of 4, 2, 1 whose
+  // 16-lane chunk divides D: 4 at D 64, 128 and 256 (NV 1, 2, 4), 2 at 32,
+  // 1 at 16 and at 112 (7 chunks of 16 columns).
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static constexpr int VEC = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
   static constexpr int NV = D / (16 * VEC);
   static constexpr int PER_THREAD = NV * VEC;  // = D / 16
   static constexpr int KS = D + 4;             // row stride of the K tile
   static constexpr size_t SMEM = sizeof(float) * (BQ * D + BK * KS + BK * D + BQ * PS);
+  // 210 KiB at D 256, under the H100's 227 KiB of shared memory per block.
+  static_assert(SMEM <= 227 * 1024, "K/V/Q/P tiles exceed the shared memory of a block");
 };
 
 template <typename T, int D>
@@ -284,7 +290,9 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B,
     case 16: return launch<T, 16>(q, k, v, o, B, H, KV, Tq, S, st, scale, causal, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Tq, S, st, scale, causal, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Tq, S, st, scale, causal, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, H, KV, Tq, S, st, scale, causal, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Tq, S, st, scale, causal, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, KV, Tq, S, st, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

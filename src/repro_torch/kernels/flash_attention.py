@@ -11,7 +11,8 @@ Two CUDA C++ kernels for ``sm_90a``, chosen by dtype and head dim alone
   elements; a bf16 input at D 64/128 that breaks this raises, it never
   goes to the other kernel.
 - ``"cc"``, ``csrc/flash_attention.cu``: float32 at every head dim and
-  bf16 at 16 and 32, on the CUDA cores in float32 (a float32 product on
+  bf16 at 16, 32, 112 (kimi-k2) and 256 (recurrentgemma-9b), on the CUDA
+  cores in float32 (a float32 product on
   tensor cores would be TF32). One block per head and 64-row q tile, an
   online softmax in float32 registers over 64-key tiles staged in shared
   memory.
@@ -45,7 +46,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 TC_SOURCE = CSRC / "flash_attention_sm90.cu"
 NVCC_FLAGS = BASE_FLAGS
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = 1.4426950408889634
@@ -62,7 +63,10 @@ def reset_launches() -> None:
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which K4 kernel takes inputs of ``dtype`` at ``head_dim``: "tc" (the
-    tensor-core kernel) for bf16 at D 64 and 128, else "cc" (CUDA cores)."""
+    tensor-core kernel) for bf16 at D 64 and 128, "cc" (CUDA cores) at the
+    other head dims of ``HEAD_DIMS``; any other head dim raises."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {head_dim} not in {HEAD_DIMS}")
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "cc"
 
 

@@ -7,9 +7,15 @@ decode steps, one JSON summary line).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --device cpu --batch 2 --prompt-len 32 --gen 8
 
+Every architecture of ``configs.ARCH_IDS`` is served: the audio family
+greedily decodes every codebook (prompts and tokens (B, K, T)), the vlm
+family prepends ``num_patches`` patch embeddings to the prompt and
+decodes from position prompt_len + num_patches.
+
 The model is randomly initialised from ``--seed``, as the reference's is;
 the prompts come from the same seed through another stream. On the GPU
-the prefill's attention runs the K4 CUDA kernel (``models/attention.py``).
+the prefill's attention runs the K4 CUDA kernel (``models/attention.py``)
+in every family that has attention.
 
 The last stdout line is the JSON summary with the reference's keys. The
 timed prefill and the timed decode loop each hold no host sync and end in
@@ -47,8 +53,8 @@ from repro_torch.utils import resolve_device
 
 class FixedRun(NamedTuple):
     summary: dict               # the reference's JSON summary
-    tokens: torch.Tensor        # (B, gen) greedy tokens, on the CPU
-    last_logits: torch.Tensor   # (B, V) float32 prefill logits, on the device
+    tokens: torch.Tensor        # (B, gen) greedy tokens (audio (B, K, gen)), on the CPU
+    last_logits: torch.Tensor   # (B, V) float32 prefill logits (audio (B, K, V)), on the device
 
 
 def seeds(seed: int) -> tuple[int, int]:
@@ -63,11 +69,22 @@ def init_params(cfg, seed: int, device):
 
 
 def prompt_batch(cfg, seed: int, b: int, prompt_len: int, device) -> dict:
-    """(B, prompt_len) token ids, drawn on the CPU so every device serves
-    the same prompts."""
+    """The prompts, drawn on the CPU so every device serves the same ones:
+    (B, prompt_len) token ids; audio (B, K, prompt_len), one row per
+    codebook; vlm adds ``patch_embeds`` (B, num_patches, d_model), standard
+    normal draws from the same generator, which the prefill prepends."""
     gen = torch.Generator().manual_seed(seeds(seed)[1])
-    tokens = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen)
-    return {"tokens": tokens.to(device)}
+    shape = (b, cfg.num_codebooks, prompt_len) if cfg.family == "audio" else (b, prompt_len)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((b, cfg.num_patches, cfg.d_model), generator=gen)
+    return {k: x.to(device) for k, x in batch.items()}
+
+
+def first_decode_pos(cfg, prompt_len: int) -> int:
+    """Position of the first generated token: after the prompt, and for
+    vlm after the patches prepended to it."""
+    return prompt_len + (cfg.num_patches if cfg.family == "vlm" else 0)
 
 
 def _sync(device) -> None:
@@ -76,10 +93,10 @@ def _sync(device) -> None:
 
 
 def decode(serve, params, cache, tok, pos, steps: int):
-    """``steps`` greedy decode steps after token ``tok`` (B,) at the device
-    scalar position ``pos``, with no host sync: the position advances on the
-    device and the tokens stay there. Returns the tokens, ``tok`` first, and
-    the cache."""
+    """``steps`` greedy decode steps after token ``tok`` ((B,); audio
+    (B, K)) at the device scalar position ``pos``, with no host sync: the
+    position advances on the device and the tokens stay there. Returns the
+    tokens, ``tok`` first, and the cache."""
     generated = [tok]
     for _ in range(steps):
         tok, _, cache = serve(params, cache, tok, pos)
@@ -103,7 +120,8 @@ def run_fixed(cfg, params, args, device) -> FixedRun:
     t_prefill = time.perf_counter() - t0
     tok = torch.argmax(last_logits, dim=-1)
 
-    pos = torch.full((), args.prompt_len, dtype=torch.int64, device=device)
+    pos = torch.full((), first_decode_pos(cfg, args.prompt_len), dtype=torch.int64,
+                     device=device)
     t0 = time.perf_counter()
     generated, cache = decode(serve, params, cache, tok, pos, args.gen - 1)
     _sync(device)  # the decode loop's one synchronize
@@ -114,7 +132,8 @@ def run_fixed(cfg, params, args, device) -> FixedRun:
     print(f"prefill: {b}x{args.prompt_len} tokens in {t_prefill*1e3:.1f} ms")
     print(f"decode:  {args.gen-1} steps x {b} seqs in {t_decode*1e3:.1f} ms "
           f"({t_decode/steps*1e3:.1f} ms/step)")
-    print(f"sample continuations (token ids), first sequence: {gen[0][:16].tolist()} ...")
+    print(f"sample continuations (token ids), first sequence: "
+          f"{gen.reshape(b, -1)[0][:16].tolist()} ...")
     if not bool(torch.isfinite(last_logits).all()):
         raise RuntimeError("prefill logits are not finite")
     summary = {

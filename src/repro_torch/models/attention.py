@@ -1,4 +1,5 @@
-"""GQA attention: the port of the reference's ``models/attention.py``.
+"""GQA attention: the port of the reference's ``models/attention.py``
+(RoPE and M-RoPE, full-sequence attention, the ring-cache decode step).
 
 Shapes: q (B, T, H, D); k/v (B, S, KV, D); query head h reads kv head
 h // (H/KV), and k/v are never repeated to H heads.
@@ -13,7 +14,9 @@ Full-sequence attention (training / prefill) has three implementations:
     kernel's plain version.
 
 ``impl="auto"`` picks by what the call computes and where its tensors lie:
-a CUDA tensor with window 0 and S == T, from which no gradient is asked,
+a CUDA tensor with S == T and no window that masks a key (window 0, or a
+window of at least T, as the hybrid family's serving prefill has at a
+prompt no longer than its local window), from which no gradient is asked,
 goes to ``flash`` (the function K4 computes, on the device it runs on);
 anything else follows the reference's rule, ``naive`` if
 T <= max(2048, attn_chunk) else ``chunked``. That is dispatch by function,
@@ -76,12 +79,15 @@ def _positions(cfg, b, t, positions, device):
     return positions
 
 
-def _rope_q_k(cfg, q, k, positions):
+def _rope_q_k(cfg, q, k, positions, mrope_positions=None):
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (the vlm family) is not ported yet: "
-                                  "ROADMAP Queue 1 item 6")
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+        if mrope_positions is None:
+            raise ValueError("mrope requires (3, B, T) position ids")
+        q = layers.apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = layers.apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k
 
 
@@ -153,24 +159,31 @@ def chunked_causal_attention(q, k, v, *, chunk: int, window: int = 0):
     return torch.cat(outs, dim=1)
 
 
+def covers(window: int, t: int) -> bool:
+    """True when a causal window of ``window`` keys masks nothing in a
+    self-attention over ``t`` tokens (0 is no window): query i keeps keys
+    (i - window, i], which holds every key 0..i once window >= t."""
+    return window == 0 or window >= t
+
+
 def resolve_impl(impl: str, cfg, q, k, v, window: int) -> str:
     """The implementation ``impl="auto"`` stands for (module docstring)."""
     if impl != "auto":
         return impl
     t = q.shape[1]
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-    if q.is_cuda and window == 0 and k.shape[1] == t and not grad:
+    if q.is_cuda and covers(window, t) and k.shape[1] == t and not grad:
         return "flash"
     return "naive" if t <= max(2048, cfg.attn_chunk) else "chunked"
 
 
-def attention(params, cfg, x, *, positions=None, window: int | None = None,
-              impl: str = "auto"):
+def attention(params, cfg, x, *, positions=None, mrope_positions=None,
+              window: int | None = None, impl: str = "auto"):
     """Full-sequence self-attention (training / prefill). Returns (out, (k, v))."""
     b, t, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x)
     positions = _positions(cfg, b, t, positions, x.device)
-    q, k = _rope_q_k(cfg, q, k, positions)
+    q, k = _rope_q_k(cfg, q, k, positions, mrope_positions)
     window = cfg.sliding_window if window is None else window
     impl = resolve_impl(impl, cfg, q, k, v, window)
     if impl == "naive":
@@ -178,9 +191,9 @@ def attention(params, cfg, x, *, positions=None, window: int | None = None,
     elif impl == "chunked":
         out = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, window=window)
     elif impl == "flash":
-        if window > 0:
-            raise ValueError("impl='flash' computes unwindowed attention; window "
-                             f"{window} needs 'naive' or 'chunked'")
+        if not covers(window, t):
+            raise ValueError(f"impl='flash' computes unwindowed attention; window {window} "
+                             f"below the {t} tokens needs 'naive' or 'chunked'")
         out = k4.flash_attention(q, k, v, causal=True)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -204,19 +217,24 @@ def paged_decode_attention(*args, **kwargs):
                               "yet: ROADMAP Queue 1 item 12")
 
 
-def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None):
+def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None,
+                     mrope_positions=None):
     """One-token decode. x_t: (B, d_model); pos: the new token's absolute
     position, a Python int or a 0-dim integer tensor (on x_t's device, so
     no host sync). The cache is a ring buffer of length ``cache_len``; the
-    new K/V are written into ``cache`` in place. Returns (out (B, d_model),
-    cache)."""
+    new K/V are written into ``cache`` in place. M-RoPE (the vlm family)
+    takes ``mrope_positions`` (3, B, 1), by default ``pos`` on all three
+    axes. Returns (out (B, d_model), cache)."""
     b = x_t.shape[0]
     window = cfg.sliding_window if window is None else window
     q, k, v = _project_qkv(params, cfg, x_t[:, None, :])
     pos = scalar(pos, x_t.device, torch.int64)
     if pos.dim() != 0:
         raise ValueError(f"decode position must be a scalar, got shape {tuple(pos.shape)}")
-    q, k = _rope_q_k(cfg, q, k, pos.expand(b)[:, None])
+    pos_b = pos.expand(b)[:, None]  # (B, 1)
+    if cfg.mrope and mrope_positions is None:
+        mrope_positions = pos_b.expand(3, b, 1)
+    q, k = _rope_q_k(cfg, q, k, pos_b, mrope_positions)
 
     k_cache, v_cache = cache["k"], cache["v"]
     cache_len = k_cache.shape[1]

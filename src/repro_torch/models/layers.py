@@ -1,5 +1,5 @@
 """Shared neural-net building blocks: the port of the reference's
-``models/layers.py`` (the dense-transformer part).
+``models/layers.py``.
 
 Conventions, as in the reference:
   * every module is a pair ``init_<mod>(gen, ...) -> params`` and
@@ -99,7 +99,7 @@ def unembed(params, x):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -118,3 +118,60 @@ def apply_rope(x, positions, theta):
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x, positions_thw, theta, sections):
+    """Qwen2-VL multimodal RoPE.
+
+    ``positions_thw``: (3, ..., T) temporal/height/width position ids (equal
+    for text tokens). ``sections``: how many of the head_dim/2 frequency
+    channels each of (t, h, w) claims, in that order.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to head_dim/2 = {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
+    # Per frequency channel, the positional axis that drives it.
+    sec_ids = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                      torch.tensor(sections, device=x.device))
+    pos_sel = torch.movedim(positions_thw[sec_ids], 0, -1)  # (..., T, half)
+    angles = pos_sel.float() * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Causal 1-D convolution (Mamba-2 / RG-LRU input conv), cache-friendly
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen, channels, width, dtype):
+    """Depthwise causal conv params in the reference's layout: the kernel is
+    ``(W, C)`` (tap, channel), not ``F.conv1d``'s ``(C, 1, W)``."""
+    return {
+        "kernel": truncated_normal_init(gen, (width, channels), width**-0.5, dtype),
+        "bias": torch.zeros((channels,), dtype=dtype, device=gen.device),
+    }
+
+
+def causal_conv1d(params, x):
+    """x: (B, T, C) → depthwise causal conv, same length: the reference's sum
+    of shifted products, tap 0 first."""
+    w = params["kernel"]  # (W, C)
+    width, t = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + t, :] * w[i] for i in range(width))
+    return out + params["bias"]
+
+
+def causal_conv1d_step(params, conv_state, x_t):
+    """Single decode step. conv_state: (B, W-1, C) past inputs; x_t: (B, C).
+    Returns (new_state (B, W-1, C), out (B, C))."""
+    w = params["kernel"]
+    width = w.shape[0]
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B, W, C)
+    out = torch.einsum("bwc,wc->bc", window, w) + params["bias"]
+    return window[:, 1:width, :], out

@@ -1,0 +1,116 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin) [arXiv:2402.19427]:
+the port of the reference's ``models/rglru.py``.
+
+Block:  x → { linear→GeLU  ∥  linear→causal-conv→RG-LRU } → ⊙ → out linear
+
+RG-LRU recurrence (per channel):
+    r_t = σ(W_a x_t + b_a)            recurrence gate
+    i_t = σ(W_x x_t + b_x)            input gate
+    a_t = exp(-c · softplus(Λ) · r_t) (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 − a_t²) · (i_t ⊙ x_t)
+
+The GeLU is the tanh approximation, ``jax.nn.gelu``'s default.
+
+Prefill runs the linear recurrence as a log-depth doubling scan
+(``rglru_scan``: ⌈log2 T⌉ steps, each a few elementwise launches over the
+whole (B, T, W) block) where the reference uses
+``jax.lax.associative_scan``; the two associate the same products in other
+orders, so they agree to float32 rounding, not bitwise. Decode is the
+exact single-step update on a (B, width) state.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+_C = 8.0
+
+
+def init_rglru_block(gen, cfg, dtype=None):
+    dtype = dtype or layers.dtype_of(cfg.param_dtype)
+    w = cfg.lru_width or cfg.d_model
+    dev = gen.device
+    return {
+        "gate_proj": layers.dense_init(gen, cfg.d_model, w, dtype),
+        "rec_proj": layers.dense_init(gen, cfg.d_model, w, dtype),
+        "conv": layers.init_conv1d(gen, w, cfg.conv_width, dtype),
+        # Per-channel (diagonal) gate maps, as in the reference.
+        "w_a": layers.truncated_normal_init(gen, (w,), 1.0, torch.float32),
+        "b_a": torch.zeros((w,), dtype=torch.float32, device=dev),
+        "w_x": layers.truncated_normal_init(gen, (w,), 1.0, torch.float32),
+        "b_x": torch.zeros((w,), dtype=torch.float32, device=dev),
+        # Λ init so that a ∈ (0.9, 0.999) at r=1 (Griffin's init range).
+        "lam": torch.linspace(0.7, 5.0, w, dtype=torch.float32, device=dev),
+        "out_proj": layers.dense_init(gen, w, cfg.d_model, dtype),
+    }
+
+
+def _gates(params, u):
+    """u: (..., w) conv output. Returns (a, gated_input), both fp32."""
+    uf = u.float()
+    r = torch.sigmoid(uf * params["w_a"] + params["b_a"])
+    i = torch.sigmoid(uf * params["w_x"] + params["b_x"])
+    log_a = -_C * F.softplus(params["lam"]) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-12)) * (i * uf)
+    return a, gated
+
+
+def rglru_scan(a, b, h0=None):
+    """h_t = a_t h_{t-1} + b_t along dim 1 by a doubling scan.
+
+    a, b: (B, T, W) fp32. h0: optional (B, W) initial state. After the step
+    of shift s, position t holds the composition of steps (t-2s, t], so
+    ⌈log2 T⌉ steps leave the inclusive prefix at every t.
+    """
+    a, b = a.clone(), b.clone()  # updated in place below
+    if h0 is not None:
+        b[:, 0] += a[:, 0] * h0
+    t = a.shape[1]
+    s = 1
+    while s < t:
+        # (a1, b1) then (a2, b2) composes to (a2 a1, a2 b1 + b2). Each right
+        # side is materialised before the write, so reading the prefix that
+        # the write overlaps is safe.
+        b[:, s:] += a[:, s:] * b[:, :-s]
+        if 2 * s < t:  # the last step needs no products of a
+            a[:, s:] = a[:, s:] * a[:, :-s]
+        s *= 2
+    return b
+
+
+def rglru_block_forward(params, cfg, x, h0=None):
+    """x: (B, T, d_model) → (y (B, T, d_model), (h_T, conv_tail))."""
+    gate = F.gelu(x @ params["gate_proj"], approximate="tanh")
+    rec_in = x @ params["rec_proj"]
+    w = params["conv"]["kernel"].shape[0]
+    t = x.shape[1]
+    tail_src = F.pad(rec_in, (0, 0, max(0, w - 1 - t), 0))
+    conv_tail = tail_src[:, tail_src.shape[1] - (w - 1):, :] if w > 1 else rec_in[:, :0]
+    u = layers.causal_conv1d(params["conv"], rec_in)
+    a, b = _gates(params, u)
+    h = rglru_scan(a, b, h0)
+    y = (h.to(x.dtype) * gate) @ params["out_proj"]
+    return y, (h[:, -1], conv_tail)
+
+
+def init_rglru_cache(cfg, batch, dtype, device):
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "state": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype, device=device),
+    }
+
+
+def rglru_decode_step(params, cfg, cache, x_t):
+    """One-token step. x_t: (B, d_model). Returns (y (B, d_model), new cache)."""
+    gate = F.gelu(x_t @ params["gate_proj"], approximate="tanh")
+    new_conv, u = layers.causal_conv1d_step(params["conv"], cache["conv"],
+                                            x_t @ params["rec_proj"])
+    a, b = _gates(params, u)
+    h = a * cache["state"] + b
+    y = (h.to(x_t.dtype) * gate) @ params["out_proj"]
+    return y, {"state": h, "conv": new_conv}

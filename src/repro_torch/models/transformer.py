@@ -1,6 +1,16 @@
-"""Decoder-only backbone: the port of the reference's
-``models/transformer.py`` for the dense family ("attn" blocks with the
-SwiGLU FFN).
+"""Decoder-only backbone for every family: the port of the reference's
+``models/transformer.py``.
+
+Families map to per-layer block types (``cfg.layer_types``):
+  dense / moe / vlm / audio → "attn" blocks (FFN = SwiGLU or routed MoE)
+  hybrid                     → pattern of "rec" (RG-LRU) and "attn" blocks
+  ssm                        → "ssm" (Mamba-2) blocks, no separate FFN
+
+The audio family sums one embedding table per codebook and unembeds with
+a ``(K, d, V)`` kernel (logits ``(B, K, T, V)``, decode tokens ``(B, K)``);
+the vlm family prepends the batch's patch embeddings to the token
+embeddings and rotates with M-RoPE, by default at positions 0..T-1 on all
+three axes.
 
 Params keep the reference's tree, so JAX weights carry across leaf for
 leaf (``utils.convert``): per position in the layer pattern, a dict of
@@ -16,8 +26,8 @@ Three entry points used by the runtime:
   decode_step(cfg, params, cache, ...)   — one token against the cache,
                                            written into it in place
 
-The moe, vlm, audio, hybrid (RG-LRU) and ssm families raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 6.
+Not ported yet: the expert-parallel MoE over a mesh (ROADMAP Queue 1 item
+11) and the paged cache's decode (item 12).
 """
 
 from __future__ import annotations
@@ -25,17 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import attention, layers
-from repro_torch.utils import tree_map
-
-_UNPORTED = "ROADMAP Queue 1 item 6"
-
-
-def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet: {_UNPORTED}")
-
+from repro_torch.models import attention, layers, moe, rglru, ssm
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 # ---------------------------------------------------------------------------
 # Pattern bookkeeping
@@ -52,11 +53,6 @@ def pattern_info(cfg):
     return pattern, n_groups, tail
 
 
-def _attn_only(block_type) -> None:
-    if block_type != "attn":
-        raise NotImplementedError(f"{block_type!r} blocks are not ported yet: {_UNPORTED}")
-
-
 def _group(stacked, i):
     """Layer ``i`` of a stacked param (or cache) dict: views, no copy."""
     return tree_map(lambda a: a[i], stacked)
@@ -66,41 +62,113 @@ def _stack(dicts):
     return tree_map(lambda *xs: torch.stack(xs), *dicts)
 
 
+def _init_stacked(n, make):
+    """``n`` trees from ``make()`` stacked leafwise, built in place: the peak
+    is the stack plus one tree (``torch.stack`` of n trees would hold two
+    stacks' worth). One tree is stacked as views."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), first)
+    leaves = [torch.empty((n, *a.shape), dtype=a.dtype, device=a.device)
+              for a in tree_leaves(first)]
+    for i in range(n):
+        for out, a in zip(leaves, tree_leaves(first if i == 0 else make()), strict=True):
+            out[i].copy_(a)
+    return tree_unflatten(first, leaves)
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _write(cache, new):
+    """Write a block's new recurrent cache into ``cache`` in place (it may
+    be a view into the stacked group cache)."""
+    for key, val in new.items():
+        cache[key].copy_(val)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
+def _uses_moe(cfg):
+    return cfg.num_experts > 0
+
+
 def init_block(gen, cfg, block_type):
-    _attn_only(block_type)
-    _check_family(cfg)
     dtype = layers.dtype_of(cfg.param_dtype)
-    d = cfg.d_model
-    return {
-        "norm1": layers.init_rmsnorm(d, dtype, gen.device),
-        "attn": attention.init_attention(gen, cfg),
-        "norm2": layers.init_rmsnorm(d, dtype, gen.device),
-        "mlp": layers.init_mlp(gen, d, cfg.d_ff, dtype),
-    }
+    d, dev = cfg.d_model, gen.device
+    if block_type == "attn":
+        p = {
+            "norm1": layers.init_rmsnorm(d, dtype, dev),
+            "attn": attention.init_attention(gen, cfg),
+            "norm2": layers.init_rmsnorm(d, dtype, dev),
+        }
+        if _uses_moe(cfg):
+            p["moe"] = moe.init_moe(gen, cfg, dtype)
+        else:
+            p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, dtype)
+        return p
+    if block_type == "rec":
+        return {
+            "norm1": layers.init_rmsnorm(d, dtype, dev),
+            "rec": rglru.init_rglru_block(gen, cfg, dtype),
+            "norm2": layers.init_rmsnorm(d, dtype, dev),
+            "mlp": layers.init_mlp(gen, d, cfg.d_ff, dtype),
+        }
+    if block_type == "ssm":
+        return {
+            "norm1": layers.init_rmsnorm(d, dtype, dev),
+            "ssm": ssm.init_ssm(gen, cfg, dtype),
+        }
+    raise ValueError(block_type)
+
+
+def _ffn(params, cfg, x, ctx):
+    """FFN half of an attn block: SwiGLU or routed MoE. Returns (y, aux)."""
+    if _uses_moe(cfg):
+        if ctx.get("moe_impl", cfg.moe_impl) == "ep" and ctx.get("mesh") is not None:
+            raise NotImplementedError("the expert-parallel MoE over a mesh is not ported "
+                                      "yet: ROADMAP Queue 1 item 11")
+        return moe.moe_dense(params["moe"], cfg, x)
+    return layers.mlp(params["mlp"], x), _zero(x)
 
 
 def block_forward(params, cfg, block_type, x, ctx):
     """Returns (x, aux_loss, cache_entry|{}) for one block."""
-    _attn_only(block_type)
     eps = cfg.norm_eps
-    window = ctx.get("window", cfg.sliding_window)
-    h, (k, v) = attention.attention(
-        params["attn"],
-        cfg,
-        layers.rmsnorm(params["norm1"], x, eps),
-        positions=ctx.get("positions"),
-        window=window,
-        impl=ctx.get("attn_impl", "auto"),
-    )
-    x = x + h
-    x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x, eps))
-    cache = _kv_to_cache(cfg, k, v, ctx, window) if ctx.get("want_cache", False) else {}
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+    want_cache = ctx.get("want_cache", False)
+    if block_type == "attn":
+        window = ctx.get("window", cfg.sliding_window)
+        h, (k, v) = attention.attention(
+            params["attn"],
+            cfg,
+            layers.rmsnorm(params["norm1"], x, eps),
+            positions=ctx.get("positions"),
+            mrope_positions=ctx.get("mrope_positions"),
+            window=window,
+            impl=ctx.get("attn_impl", "auto"),
+        )
+        x = x + h
+        y, aux = _ffn(params, cfg, layers.rmsnorm(params["norm2"], x, eps), ctx)
+        x = x + y
+        cache = _kv_to_cache(cfg, k, v, ctx, window) if want_cache else {}
+        return x, aux, cache
+    if block_type == "rec":
+        y, (h_last, conv_tail) = rglru.rglru_block_forward(
+            params["rec"], cfg, layers.rmsnorm(params["norm1"], x, eps))
+        x = x + y
+        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x, eps))
+        cache = {"state": h_last, "conv": conv_tail} if want_cache else {}
+        return x, _zero(x), cache
+    if block_type == "ssm":
+        y, (final_state, conv_tail) = ssm.ssm_forward(
+            params["ssm"], cfg, layers.rmsnorm(params["norm1"], x, eps))
+        cache = {"state": final_state, "conv": conv_tail} if want_cache else {}
+        return x + y, _zero(x), cache
+    raise ValueError(block_type)
 
 
 def _kv_to_cache(cfg, k, v, ctx, window):
@@ -125,29 +193,49 @@ def _kv_to_cache(cfg, k, v, ctx, window):
 
 
 def block_decode(params, cfg, block_type, cache, x_t, pos, ctx):
-    """One-token decode through a block. x_t: (B, d). Returns (x, cache)."""
-    _attn_only(block_type)
-    if ctx.get("paged") is not None:
-        attention.paged_decode_attention()
+    """One-token decode through a block. x_t: (B, d). The cache is written
+    in place. Returns (x, cache)."""
     eps = cfg.norm_eps
-    h, cache = attention.decode_attention(
-        params["attn"],
-        cfg,
-        cache,
-        layers.rmsnorm(params["norm1"], x_t, eps),
-        pos,
-        window=ctx.get("window", cfg.sliding_window),
-    )
-    x_t = x_t + h
-    x_t = x_t + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x_t, eps))
-    return x_t, cache
+    if block_type == "attn":
+        if ctx.get("paged") is not None:
+            attention.paged_decode_attention()
+        h, cache = attention.decode_attention(
+            params["attn"],
+            cfg,
+            cache,
+            layers.rmsnorm(params["norm1"], x_t, eps),
+            pos,
+            window=ctx.get("window", cfg.sliding_window),
+            mrope_positions=ctx.get("mrope_positions"),
+        )
+        x_t = x_t + h
+        y, _ = _ffn(params, cfg, layers.rmsnorm(params["norm2"], x_t, eps)[:, None, :], ctx)
+        return x_t + y[:, 0, :], cache
+    if block_type == "rec":
+        y, new = rglru.rglru_decode_step(params["rec"], cfg, cache,
+                                         layers.rmsnorm(params["norm1"], x_t, eps))
+        _write(cache, new)
+        x_t = x_t + y
+        x_t = x_t + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x_t, eps))
+        return x_t, cache
+    if block_type == "ssm":
+        y, new = ssm.ssm_decode_step(params["ssm"], cfg, cache,
+                                     layers.rmsnorm(params["norm1"], x_t, eps))
+        _write(cache, new)
+        return x_t + y, cache
+    raise ValueError(block_type)
 
 
 def init_block_cache(cfg, block_type, batch, cache_len, dtype, device):
-    _attn_only(block_type)
-    window = cfg.sliding_window
-    length = min(cache_len, window) if window > 0 else cache_len
-    return attention.init_kv_cache(cfg, batch, length, dtype, device)
+    if block_type == "attn":
+        window = cfg.sliding_window or (cfg.local_attn_window if cfg.family == "hybrid" else 0)
+        length = min(cache_len, window) if window > 0 else cache_len
+        return attention.init_kv_cache(cfg, batch, length, dtype, device)
+    if block_type == "rec":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    if block_type == "ssm":
+        return ssm.init_ssm_cache(cfg, batch, dtype, device)
+    raise ValueError(block_type)
 
 
 # ---------------------------------------------------------------------------
@@ -157,31 +245,57 @@ def init_block_cache(cfg, block_type, batch, cache_len, dtype, device):
 
 def init_params(cfg, gen):
     """Random params from ``gen`` (a ``torch.Generator``), on its device."""
-    _check_family(cfg)
     dtype = layers.dtype_of(cfg.param_dtype)
     pattern, n_groups, tail = pattern_info(cfg)
-    embed_p = layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
-    unembed_p = ({} if cfg.tie_embeddings
-                 else layers.init_unembed(gen, cfg.d_model, cfg.vocab_size, dtype))
-    stacked = tuple(_stack([init_block(gen, cfg, bt) for _ in range(n_groups)])
+    d, v = cfg.d_model, cfg.vocab_size
+    if cfg.family == "audio":
+        k = cfg.num_codebooks
+        embed_p = {"table": _init_stacked(
+            k, lambda: layers.init_embedding(gen, v, d, dtype)["table"])}  # (K, V, d)
+        unembed_p = {"kernel": _init_stacked(
+            k, lambda: layers.init_unembed(gen, d, v, dtype)["kernel"])}  # (K, d, V)
+    else:
+        embed_p = layers.init_embedding(gen, v, d, dtype)
+        unembed_p = {} if cfg.tie_embeddings else layers.init_unembed(gen, d, v, dtype)
+    stacked = tuple(_init_stacked(n_groups, lambda bt=bt: init_block(gen, cfg, bt))
                     for bt in pattern) if n_groups > 0 else ()
     return {
         "embed": embed_p,
         "unembed": unembed_p,
         "layers": stacked,
         "tail": tuple(init_block(gen, cfg, bt) for bt in tail),
-        "final_norm": layers.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "final_norm": layers.init_rmsnorm(d, dtype, gen.device),
     }
+
+
+def _embed_codebooks(cfg, params, tokens):
+    """Audio: one table per codebook, summed. tokens: (B, K, ...)."""
+    table = params["embed"]["table"]  # (K, V, d)
+    return sum(table[k][tokens[:, k]] for k in range(cfg.num_codebooks))
 
 
 def embed_inputs(cfg, params, batch):
     """Returns (x (B,T,d), ctx-extras dict)."""
-    _check_family(cfg)
-    x = layers.embed(params["embed"], batch["tokens"])
-    return x.to(layers.dtype_of(cfg.dtype)), {}
+    dtype = layers.dtype_of(cfg.dtype)
+    extras = {}
+    if cfg.family == "audio":
+        return _embed_codebooks(cfg, params, batch["tokens"]).to(dtype), extras  # (B, K, T)
+    if cfg.family == "vlm":
+        tok_emb = layers.embed(params["embed"], batch["tokens"])  # (B, Tt, d)
+        patches = batch["patch_embeds"].to(tok_emb.dtype)  # (B, P, d)
+        x = torch.cat([patches, tok_emb], dim=1)
+        if "mrope_positions" in batch:
+            extras["mrope_positions"] = batch["mrope_positions"]
+        else:
+            b, t = x.shape[0], x.shape[1]
+            extras["mrope_positions"] = torch.arange(t, device=x.device).expand(3, b, t)
+        return x.to(dtype), extras
+    return layers.embed(params["embed"], batch["tokens"]).to(dtype), extras
 
 
 def unembed_logits(cfg, params, x):
+    if cfg.family == "audio":
+        return torch.einsum("btd,kdv->bktv", x, params["unembed"]["kernel"])
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T
     return layers.unembed(params["unembed"], x)
@@ -195,8 +309,8 @@ def unembed_logits(cfg, params, x):
 def forward(cfg, params, batch, *, ctx=None):
     """Full-sequence forward. Returns (logits, aux_loss, cache|None).
 
-    ctx keys: attn_impl, want_cache, cache_len, cache_dtype, positions,
-    window, last_only, last_index.
+    ctx keys: attn_impl, moe_impl, want_cache, cache_len, cache_dtype,
+    positions, window, last_only, last_index.
     """
     ctx = dict(ctx or {})
     x, extras = embed_inputs(cfg, params, batch)
@@ -204,7 +318,7 @@ def forward(cfg, params, batch, *, ctx=None):
     pattern, n_groups, tail = pattern_info(cfg)
     want_cache = ctx.get("want_cache", False)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     per_pos = [[] for _ in pattern]
     for i in range(n_groups):
         for p_idx, bt in enumerate(pattern):
@@ -242,7 +356,6 @@ def forward(cfg, params, batch, *, ctx=None):
 
 
 def init_cache(cfg, batch, cache_len, dtype=None, *, device):
-    _check_family(cfg)
     dtype = layers.dtype_of(dtype or cfg.dtype)
     pattern, n_groups, tail = pattern_info(cfg)
     groups = tuple(
@@ -256,12 +369,15 @@ def init_cache(cfg, batch, cache_len, dtype=None, *, device):
 
 
 def decode_step(cfg, params, cache, tokens, pos, *, ctx=None):
-    """One decode step. tokens: (B,) integer; pos: the absolute position
-    (int or 0-dim tensor). The cache is updated in place. Returns
-    (logits (B, V), cache)."""
+    """One decode step. tokens: (B,) integer (audio: (B, K)); pos: the
+    absolute position (int or 0-dim tensor). The cache is updated in place.
+    Returns (logits (B, V) or (B, K, V), cache)."""
     ctx = dict(ctx or {})
-    _check_family(cfg)
-    x = layers.embed(params["embed"], tokens).to(layers.dtype_of(cfg.dtype))
+    if cfg.family == "audio":
+        x = _embed_codebooks(cfg, params, tokens)
+    else:
+        x = layers.embed(params["embed"], tokens)
+    x = x.to(layers.dtype_of(cfg.dtype))
     pattern, n_groups, tail = pattern_info(cfg)
     for i in range(n_groups):
         for p_idx, bt in enumerate(pattern):
@@ -270,4 +386,6 @@ def decode_step(cfg, params, cache, tokens, pos, *, ctx=None):
     for tp, bt, tc in zip(params["tail"], tail, cache["tail"], strict=True):
         x, _ = block_decode(tp, cfg, bt, tc, x, pos, ctx)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.family == "audio":
+        return torch.einsum("bd,kdv->bkv", x, params["unembed"]["kernel"]), cache
     return unembed_logits(cfg, params, x), cache

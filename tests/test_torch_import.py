@@ -29,7 +29,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.fl.availability, repro_torch.core.sketch, repro_torch.utils.draws, "
             "repro_torch.topo, repro_torch.fl.engine, repro_torch.obs, repro_torch.obs.metrics, "
             "repro_torch.obs.events, repro_torch.obs.export, repro_torch.obs.report, "
-            "repro_torch.obs.trace, repro_torch.obs.health\n"
+            "repro_torch.obs.trace, repro_torch.obs.health, repro_torch.models.moe, "
+            "repro_torch.models.ssm, repro_torch.models.rglru\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -166,13 +167,13 @@ def test_ported_fl_options_construct(kw):
 
 # Public names of a ported reference module that the port does not have:
 # (module path, name) -> why, with the ROADMAP item that ports it.
-ITEM6 = "ROADMAP Queue 1 item 6 (the transformer family and LMTask)"
+ITEM6 = "ROADMAP Queue 1 item 6 part 5 (LMTask)"
 ITEM11 = "ROADMAP Queue 1 item 11 (dist runtime and launchers)"
 ITEM12 = "ROADMAP Queue 1 item 12 (serving tier)"
 PALLAS = "a Pallas tiling constant: the CUDA kernels tile otherwise (ROADMAP Queue 2)"
 UNPORTED = {
     "configs/__init__.py": {"INPUT_SHAPES": ITEM11, "InputShape": ITEM11, "TrainConfig": ITEM11,
-                            "default_grad_sync": ITEM11, "get_long_variant": ITEM6},
+                            "default_grad_sync": ITEM11},
     "configs/base.py": {"INPUT_SHAPES": ITEM11, "InputShape": ITEM11, "TrainConfig": ITEM11},
     "core/sparsify.py": {
         "global_topk_masks": "removed on purpose with the flat state: global top-k is "
@@ -191,9 +192,8 @@ UNPORTED = {
     "kernels/flash_attention.py": {"NEG_INF": PALLAS},
     "kernels/gmf_compress.py": {"BLOCK_ROWS": PALLAS, "LANES": PALLAS, "BLOCK": PALLAS},
     "launch/serve.py": {"run_engine": ITEM12},
-    "models/__init__.py": {"moe": ITEM6, "rglru": ITEM6, "ssm": ITEM6},
-    "models/layers.py": {"apply_mrope": ITEM6, "init_conv1d": ITEM6, "causal_conv1d": ITEM6,
-                         "causal_conv1d_step": ITEM6},
+    "models/moe.py": {n: ITEM11 for n in (
+        "dispatch_local", "combine_local", "moe_ep_a2a_body", "moe_ep_body", "moe_ep")},
 }
 
 

@@ -87,11 +87,16 @@ def test_unported_serving_options_raise(extra, match):
         tserve.main([*ARGS, "--device", "cpu", *extra])
 
 
-@pytest.mark.parametrize("arch, match", [("granite-moe-1b-a400m", "item 6"),
-                                         ("yi-34b", "item 6")])
+@pytest.mark.parametrize("arch, match", [("granite-moe-1b-a400m", "item 12"),
+                                         ("yi-34b", "item 12")])
 def test_unported_archs_raise(arch, match):
+    """Every arch serves in fixed mode now; what each still lacks, the paged
+    engine, raises naming the item that ports it. (The name is older than
+    the archs' port and kept, so the test's history stays one.)"""
+    assert tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "1",
+                        "--prompt-len", "8", "--gen", "2"]) == 0
     with pytest.raises(NotImplementedError, match=match):
-        tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--mode", "engine"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
