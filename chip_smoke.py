@@ -44,12 +44,14 @@ Phases, in order; any failure exits nonzero:
    is no tile multiple): bf16 at D 64/128 on the tensor-core kernel
    (``flash_attention_tc``), the rest on the CUDA-core kernel
    (``flash_attention_cc``), each case's launch checked against
-   ``kernel_for``; kimi-k2's head dim 112 and recurrentgemma-9b's 256 on
-   the CUDA-core kernel, bf16 and float32, causal, G ∈ {1, 8, 16} at H 16,
-   T ∈ {1, 1000, 2048}; the tensor-core kernel at yi-34b's G 7 and
-   command-r-plus-104b's G 12 (D 128, T 1000 and 2048, causal and not);
-   plus the (BH, T, D) interface on the tensor-core kernel,
-   and a misaligned bf16 input, which must raise. Tolerances: atol 3e-5 /
+   ``kernel_for``; kimi-k2's head dim 112 and recurrentgemma-9b's 256,
+   bf16 on the tensor-core kernel and float32 on the CUDA-core kernel,
+   causal and not, G ∈ {1, 8, 16} at H 16, T ∈ {1, 64, 1000, 2048}; the
+   tensor-core kernel at yi-34b's G 7 and command-r-plus-104b's G 12 (D
+   128, T 1000 and 2048, causal and not); plus the (BH, T, D) interface on
+   the tensor-core kernel at D 64, 112, 128 and 256, and misaligned bf16
+   inputs at D 64, 112 and 256, which must raise naming the tensor-core
+   kernel with no launch. Tolerances: atol 3e-5 /
    rtol 1e-4 in float32 and 3e-2 in bfloat16 (``tests/test_flash_attention.py``'s:
    the two sum in other orders), and each output within 1e-5 (float32) or
    5e-4 (bfloat16) relative L2 of the plain version's; the timing phase
@@ -213,9 +215,10 @@ Phases, in order; any failure exits nonzero:
    version on random bf16 q/k/v at the shapes that config's prefill gives
    it (B, prompt + patches, H, KV, head dim; causal), on the kernel
    ``kernel_for`` names, at phase 2's tolerances. Counts reset before each
-   run: K4 launches once per attention block on
-   the kernel ``kernel_for`` names (tensor cores at D 64/128, CUDA cores at
-   kimi's 112 and recurrentgemma's 256), K1–K3 never; then the prefill
+   run: K4 launches once per attention block on the kernel ``kernel_for``
+   names (the tensor cores at every served head dim: 64, 128, kimi's 112
+   and recurrentgemma's 256; 12 launches a recurrentgemma-9b prefill, 1 a
+   kimi-k2 one), the CUDA-core kernel and K1–K3 never; then the prefill
    alone launches K4 that many times and the decode loop alone none. The
    prefill logits finite, every sequence (every codebook) complete, the
    decode cache's shapes unchanged by the decode loop; ``prefill_ms``,
@@ -234,10 +237,13 @@ K3; K4 at the serving shape on the tensor-core kernel,
 the CUDA-core kernel (a bf16 comparison), the plain version and SDPA (a
 yardstick only: the port never calls it), beside the operations bound;
 the tensor-core kernel at D 128; the CUDA-core kernel at the float32
-shape phase 6 gives it, which is its row's time; and the CUDA-core kernel
-in bf16 at recurrentgemma-9b's (B 4, T 2048, H 16, KV 1, D 256) and
+shape phase 6 gives it, which is its row's time; and the tensor-core
+kernel at recurrentgemma-9b's (B 4, T 2048, H 16, KV 1, D 256) and
 kimi-k2-1t-a32b's (B 1, T 256, H 64, KV 8, D 112) prefill shapes beside
-its plain version, SDPA and its operations bound at the bf16 peak.
+the CUDA-core kernel on the same inputs (called past ``kernel_for``: where
+these inputs went before), the plain version, SDPA and the bound at the
+bf16 peak, in turns. Phase 1 prints each ``flash_fwd_sm90<D>`` instance's
+registers and spills from the compiler's report.
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -763,10 +769,10 @@ def hold_k4(k4, ref, dev):
     """Both K4 kernels against their plain version on the card at every
     listed dtype, mask, grouping, head dim and length, each case on the
     kernel ``kernel_for`` names; returns the largest absolute difference
-    seen per kernel ({"tc": ..., "cc": ...}), the CUDA-core kernel's cases
-    at D 112 and 256 apart ("cc_d112", "cc_d256")."""
+    seen per kernel ({"tc": ..., "cc": ...}), the tensor-core kernel's bf16
+    cases at D 112 and 256 apart ("tc_d112", "tc_d256")."""
     rng = np.random.default_rng(4)
-    worst = {"tc": 0.0, "cc": 0.0, "cc_d112": 0.0, "cc_d256": 0.0}
+    worst = {"tc": 0.0, "cc": 0.0, "tc_d112": 0.0, "tc_d256": 0.0}
     cases = {"tc": 0, "cc": 0}
     worst_rel = {}
 
@@ -801,9 +807,11 @@ def hold_k4(k4, ref, dev):
                              f"B {b} T {t} H 8 KV {kv} D {d} {dtype} causal={causal}")
         print(f"  held K4 at T {t}: D 16/32/64/128 x G 1/2/4/8 x f32/bf16 x causal/not, "
               f"max abs so far tc {worst['tc']:.3e}, cc {worst['cc']:.3e}", flush=True)
-    # kimi-k2's head dim 112 and recurrentgemma-9b's 256, on the CUDA-core
-    # kernel in both dtypes, causal, G 1/8/16 at H 16 (16 is MQA).
-    for t in (1, 1000, 2048):
+    # kimi-k2's head dim 112 and recurrentgemma-9b's 256: bf16 on the
+    # tensor-core kernel (D 112 as two 64-column boxes whose last 16 columns
+    # TMA fills with zeros), float32 on the CUDA-core kernel; G 1/8/16 at
+    # H 16 (16 is MQA), causal and not.
+    for t in (1, 64, 1000, 2048):
         for d in (112, 256):
             b = 1 if t == 2048 else 2
             q, kf, vf = (torch.tensor(rng.normal(size=(b, t, 16, d)).astype(np.float32),
@@ -814,11 +822,17 @@ def hold_k4(k4, ref, dev):
                     qq = q.to(dtype)
                     k, v = kf[:, :, :kv].to(dtype), vf[:, :, :kv].to(dtype)
                     kern = k4.kernel_for(dtype, d)
-                    check(kern == "cc", f"K4 at D {d} {dtype} goes to the {kern} kernel")
-                    hold(lambda: k4.flash_attention(qq, k, v), ref.flash_attention(qq, k, v),
-                         kern, f"B {b} T {t} H 16 KV {kv} D {d} {dtype} causal", f"cc_d{d}")
-        print(f"  held K4 at T {t}: D 112/256 x G 1/8/16 x f32/bf16, causal, max abs so far "
-              f"D 112 {worst['cc_d112']:.3e}, D 256 {worst['cc_d256']:.3e}", flush=True)
+                    expected = "tc" if dtype == torch.bfloat16 else "cc"
+                    check(kern == expected, f"K4 at D {d} {dtype} goes to the {kern} kernel, "
+                          f"not the {expected} kernel")
+                    for causal in (True, False):
+                        hold(lambda: k4.flash_attention(qq, k, v, causal=causal),
+                             ref.flash_attention(qq, k, v, causal=causal), kern,
+                             f"B {b} T {t} H 16 KV {kv} D {d} {dtype} causal={causal}",
+                             f"tc_d{d}" if kern == "tc" else "cc")
+        print(f"  held K4 at T {t}: D 112/256 x G 1/8/16 x f32/bf16 x causal/not, max abs so "
+              f"far tc D 112 {worst['tc_d112']:.3e}, tc D 256 {worst['tc_d256']:.3e}, cc "
+              f"{worst['cc']:.3e}", flush=True)
     # The tensor-core kernel at yi-34b's 7 and command-r-plus-104b's 12 query
     # heads per kv head (D 128, bf16).
     for t in (1000, 2048):
@@ -832,31 +846,51 @@ def hold_k4(k4, ref, dev):
     print(f"  held the tensor-core K4 at G 7 and 12, D 128, T 1000/2048: max abs so far "
           f"{worst['tc']:.3e}", flush=True)
     # The (BH, T, D) interface: strides that are not ordered by size.
-    for d in (64, 128):
+    for d in (64, 112, 128, 256):
         q, k, v = (torch.tensor(rng.normal(size=(n, 1000, d)).astype(np.float32),
                                 device=dev).to(torch.bfloat16) for n in (16, 4, 4))
         for causal in (True, False):
             hold(lambda: k4.flash_attention_bhsd(q, k, v, causal=causal),
                  ref.flash_attention_bhsd(q, k, v, causal=causal), "tc",
-                 f"(BH, T, D) = (16, 1000, {d}), BKV 4, bf16, causal={causal}")
-    # No fallback: a bf16 D 64 input the tensor maps cannot take raises.
-    buf = torch.zeros(2 * 64 * 4 * 68, dtype=torch.bfloat16, device=dev)
-    bad = buf.view(2, 64, 4, 68)[..., :64]  # head stride 68 elements: 136 bytes
-    k4.reset_launches()
-    try:
-        k4.flash_attention(bad, bad, bad)
-        fail("K4 took a bf16 input whose strides TMA cannot take")
-    except ValueError as exc:
-        check("tensor-core" in str(exc) and k4.LAUNCHES["flash_attention"] == 0,
-              f"K4 on a misaligned bf16 input: {exc}; launches {k4.LAUNCHES}")
+                 f"(BH, T, D) = (16, 1000, {d}), BKV 4, bf16, causal={causal}",
+                 f"tc_d{d}" if d in (112, 256) else "tc")
+    # No fallback: a bf16 input the tensor maps cannot take raises, at D 64
+    # and at the new head dims (head stride D + 4 elements: 136, 232 and
+    # 520 bytes, none a multiple of 16).
+    for d in (64, 112, 256):
+        buf = torch.zeros(2 * 64 * 4 * (d + 4), dtype=torch.bfloat16, device=dev)
+        bad = buf.view(2, 64, 4, d + 4)[..., :d]
+        k4.reset_launches()
+        try:
+            k4.flash_attention(bad, bad, bad)
+            fail(f"K4 took a bf16 D {d} input whose strides TMA cannot take")
+        except ValueError as exc:
+            check("tensor-core" in str(exc) and k4.LAUNCHES["flash_attention"] == 0,
+                  f"K4 on a misaligned bf16 D {d} input: {exc}; launches {k4.LAUNCHES}")
     torch.cuda.synchronize()
     name = lambda dt: str(dt).split(".")[-1]
     rels = ", ".join(f"{key} {name(dt)} {rel:.3e}" for (key, dt), rel in worst_rel.items())
     bounds = ", ".join(f"{name(dt)} {bound}" for dt, bound in K4_REL_L2.items())
     print(f"  K4: {cases['tc']} cases on the tensor-core kernel, {cases['cc']} on the "
-          f"CUDA-core kernel, within tolerance; a misaligned bf16 input raised; largest "
+          f"CUDA-core kernel, within tolerance; misaligned bf16 inputs at D 64/112/256 "
+          f"raised with no launch; largest "
           f"relative L2 {rels} (bounds {bounds})", flush=True)
     return worst
+
+
+def k4_cc_past_kernel_for(k4, q, k, v):
+    """The CUDA-core K4 on bf16 (B, T, H, D) q and (B, S, KV, D) k, v,
+    causal, called past ``kernel_for`` (which sends bf16 at these head dims
+    to the tensor-core kernel): a comparison only, counted nowhere."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *o.stride()[:3])
+    err = k4.library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, d, b, h, kv, t, s,
+        strides, d**-0.5, 1, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"CUDA-core K4 launch failed with cudaError_t {err}")
+    return o
 
 
 def time_k4(k4, ref, bw, peak, bf16_peak, dev):
@@ -872,13 +906,7 @@ def time_k4(k4, ref, bw, peak, bf16_peak, dev):
                             device=dev).to(torch.bfloat16) for n in (h, kv, kv))
 
     def old():  # the CUDA-core kernel on the same inputs, called past kernel_for
-        o = torch.empty_like(q)
-        strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *o.stride()[:3])
-        err = k4.library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, d, b, h, kv, t, t,
-            strides, d**-0.5, 1, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"CUDA-core K4 launch failed with cudaError_t {err}")
-        return o
+        return k4_cc_past_kernel_for(k4, q, k, v)
 
     want = ref.flash_attention(q, k, v)
     err, rel = check_k4(k4.flash_attention(q, k, v), want, "the serving shape (tc kernel)")
@@ -961,43 +989,51 @@ def time_k4_cc(k4, ref, bw, peak, dev):
                 library_ms=library_ms, at=f"B {b} T {t} H {h} KV {kv} D {d} float32 causal")
 
 
-# K4's prefill shapes at the new head dims, bf16 causal (phase 13's runs).
-K4_NEW_DIMS = {"cc_d256": ("recurrentgemma-9b", 4, 2048, 16, 1, 256),
-               "cc_d112": ("kimi-k2-1t-a32b", 1, 256, 64, 8, 112)}
+# K4's prefill shapes at head dims 256 and 112, bf16 causal (phase 13's
+# runs of recurrentgemma-9b and kimi-k2), on the tensor-core kernel.
+K4_NEW_DIMS = {"tc_d256": ("recurrentgemma-9b", 4, 2048, 16, 1, 256),
+               "tc_d112": ("kimi-k2-1t-a32b", 1, 256, 64, 8, 112)}
 
 
 def time_k4_new_dims(k4, ref, bw, bf16_peak, dev):
-    """The CUDA-core K4 at recurrentgemma-9b's and kimi-k2-1t-a32b's prefill
-    shapes (bf16, causal), beside its plain version and SDPA (a yardstick),
-    in turns, and its bound: the operations at the bf16 tensor-core peak
-    (the least time the card could take for bf16 inputs), or the bytes."""
+    """The tensor-core K4 at recurrentgemma-9b's and kimi-k2-1t-a32b's
+    prefill shapes (bf16, causal), beside the CUDA-core kernel on the same
+    inputs called past ``kernel_for`` (where these inputs went before), its
+    plain version and SDPA (a yardstick), in turns, and its bound: the
+    operations at the bf16 tensor-core peak, or the bytes."""
     rng = np.random.default_rng(7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     for key, (arch, b, t, h, kv, d) in K4_NEW_DIMS.items():
         q, k, v = (torch.tensor(rng.normal(size=(b, t, n, d)).astype(np.float32),
                                 device=dev).to(torch.bfloat16) for n in (h, kv, kv))
-        check(k4.kernel_for(q.dtype, d) == "cc", f"K4 at D {d} is not on the CUDA-core kernel")
+        check(k4.kernel_for(q.dtype, d) == "tc", f"K4 at D {d} is not on the tensor-core kernel")
         at = f"B {b} T {t} H {h} KV {kv} D {d} bf16 causal ({arch}'s prefill)"
-        err, rel = check_k4(k4.flash_attention(q, k, v), ref.flash_attention(q, k, v), at)
+        want = ref.flash_attention(q, k, v)
+        err, rel = check_k4(k4.flash_attention(q, k, v), want, f"{at} (tc kernel)")
+        err_cc, rel_cc = check_k4(k4_cc_past_kernel_for(k4, q, k, v), want, f"{at} (cc kernel)")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms, plain_ms, library_ms = [], [], []
+        ms, cc_ms, plain_ms, library_ms = [], [], [], []
         runs = [(ms, lambda: k4.flash_attention(q, k, v)),
+                (cc_ms, lambda: k4_cc_past_kernel_for(k4, q, k, v)),
                 (plain_ms, lambda: ref.flash_attention(q, k, v)),
                 (library_ms, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))]
         for order in (runs, runs[::-1]):  # in turns
             for sink, fn in order:
                 sink.append(timed_ms(fn))
-        ms, plain_ms, library_ms = (min(x) for x in (ms, plain_ms, library_ms))
+        ms, cc_ms, plain_ms, library_ms = (min(x) for x in (ms, cc_ms, plain_ms, library_ms))
         flops = 4 * b * h * d * (t * (t + 1) // 2)
         nbytes = 2 * (2 * b * t * h * d + 2 * b * t * kv * d)
         bound_ops, bound_bytes = flops / bf16_peak * 1e3, nbytes / bw * 1e3
-        print(f"  K4 at {at}: CUDA-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> "
-              f"{bound_ops:.4f} ms at {bf16_peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB -> "
-              f"{bound_bytes:.4f} ms; vs plain max abs {err:.3e}, relative L2 {rel:.3e} "
-              f"(the better of 2 medians each, in turns)", flush=True)
-        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_ops, bound_bytes),
+        bound = max(bound_ops, bound_bytes)
+        print(f"  K4 at {at}: tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"roofline share {bound / ms:.1%}), CUDA-core kernel {cc_ms:.4f} ms "
+              f"({flops / cc_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> {bound_ops:.4f} ms at "
+              f"{bf16_peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB -> {bound_bytes:.4f} ms; "
+              f"vs plain: tc max abs {err:.3e} relative L2 {rel:.3e}, cc max abs {err_cc:.3e} "
+              f"relative L2 {rel_cc:.3e} (the better of 2 medians each, in turns)", flush=True)
+        out[key] = dict(ms=ms, cc_ms=cc_ms, plain_ms=plain_ms, bound_ms=bound,
                         bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                         library_ms=library_ms, at=at)
     return out
@@ -2304,6 +2340,12 @@ def profile_serving(parts, args):
               flush=True)
         for e in sorted(kernels, key=device_us, reverse=True)[:10]:
             print(f"    {device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+        k4 = [e for e in kernels if "flash_fwd" in e.key]  # both K4 kernels' names
+        if k4:
+            k4_ms = sum(device_us(e) for e in k4) / 1e3
+            print(f"    K4: {k4_ms:.3f} ms in {sum(e.count for e in k4)} launches "
+                  f"({', '.join(e.key[e.key.find('flash_fwd'):].split('(')[0] for e in k4)}), "
+                  f"{100 * k4_ms / busy:.1f} % of the device's busy time", flush=True)
 
 
 def serve_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4):
@@ -2474,7 +2516,7 @@ def hold_family_k4(rt, dev, cfg, b, prompt):
     print(f"  held K4 at {at} on the {kern} kernel: max abs {err:.3e}, relative L2 {rel:.3e}",
           flush=True)
     del q, k, v, got, want
-    return (f"cc_d{d}" if d in (112, 256) else kern), err
+    return (f"tc_d{d}" if kern == "tc" and d in (112, 256) else kern), err
 
 
 def serve_family(rt, dev, card, arch, depth, b, prompt, gen, profile=False):
@@ -2570,6 +2612,7 @@ def main() -> None:
     from repro_torch.core import sparsify, stages
     from repro_torch.data import synthetic
     from repro_torch.dist import step as dstep
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import gmf_compress as gk
     from repro_torch.kernels import ops, ref
@@ -2598,14 +2641,17 @@ def main() -> None:
     print("phase 1: build", flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source, at once
-        libs = list(pool.map(lambda build: build(), (gk.build, k4.build, k4.build_tc)))
+        libs = list(pool.map(lambda make: make(), (gk.build, k4.build, k4.build_tc)))
     gk.library()
     k4.library()
     k4.library_tc()
     for lib in libs:
         log = (lib.parent / "build.log").read_text()
         print(f"  {lib.relative_to(ROOT)}:\n  " + "\n  ".join(
-            ln for ln in log.splitlines() if "ptxas" in ln or "error" in ln or "warning" in ln))
+            ln for ln in log.splitlines() if "ptxas" in ln or "error" in ln or "warning" in ln
+            or "spill" in ln))
+    tc_ptxas = build.ptxas_report((libs[2].parent / "build.log").read_text(), "flash_fwd_sm90")
+    print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 2: kernels vs plain versions", flush=True)
@@ -2625,8 +2671,8 @@ def main() -> None:
         "K1 gmf_select (and its |z| mode)", "K1 gmf_select with a per-row keep table (both modes)",
         "K1 gmf_compress (flat mask pass)",
         "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
-        "K4 flash_attention_tc (tensor cores; G 7 and 12 at D 128)",
-        "K4 flash_attention_cc (CUDA cores; D 112 and 256)"]}),
+        "K4 flash_attention_tc (tensor cores; G 7 and 12 at D 128; D 112 and 256)",
+        "K4 flash_attention_cc (CUDA cores; float32 at D 112 and 256)"]}),
         flush=True)
 
     launches = {name: 0 for _, name, _, _, _ in KERNELS}
@@ -2728,14 +2774,17 @@ def main() -> None:
                                              for arch, c in served_k4.items()
                                              if c[f"flash_attention_{kern}"]},
                      "max_abs_err": k4_worst[kern], **k4_times[kern]})
-    # The CUDA-core kernel at the head dims this slice added: its launches in
-    # phase 13's measured run of the config that has that head dim.
-    for key, (arch, *_) in K4_NEW_DIMS.items():
+    # The tensor-core kernel at D 256 and 112: its launches in phase 13's
+    # measured run of the config that has that head dim; "cc_ms" is the
+    # CUDA-core kernel (where these inputs went before) on the same inputs;
+    # "ptxas" the compiler's report of the instance.
+    for key, (arch, *_, d) in K4_NEW_DIMS.items():
         rows.append({"name": f"flash_attention_{key}", "id": "K4", "route": "cuda",
-                     "source": K4_SOURCE, "replaces": K4_REPLACES,
-                     "launches": served_k4.get(arch, {}).get("flash_attention_cc", 0),
+                     "source": K4_TC_SOURCE, "replaces": K4_REPLACES,
+                     "launches": served_k4.get(arch, {}).get("flash_attention_tc", 0),
                      "launches_in": f"phase 13: {arch}, run_fixed (bf16)",
-                     "max_abs_err": k4_worst[key], **k4_times[key]})
+                     "max_abs_err": k4_worst[key], **k4_times[key],
+                     "ptxas": tc_ptxas.get(d)})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -60,3 +61,22 @@ def bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """{template argument: {"registers", "spill_stores", "spill_loads"}} of
+    each instance ``kernel<N>`` of an integer template in a build.log
+    (``-Xptxas -v``). Under ``setmaxnreg`` the registers are the count at
+    launch, not what a warpgroup takes after."""
+    out, arg = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(kernel + r"ILi(\d+)E", line)
+            arg = int(found.group(1)) if found else None
+        elif arg is not None and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out.setdefault(arg, {}).update(spill_stores=int(stores), spill_loads=int(loads))
+        elif arg is not None and re.search(r"Used \d+ registers", line):
+            out.setdefault(arg, {})["registers"] = int(re.search(r"Used (\d+) registers",
+                                                                 line).group(1))
+    return out

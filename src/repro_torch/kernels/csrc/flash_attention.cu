@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` (`_flash_kernel`,
 // src/repro/kernels/flash_attention.py) for float32 at every head dim and
-// bf16 at head dims 16, 32, 112 (kimi-k2) and 256 (recurrentgemma-9b);
-// bf16 at 64 and 128 goes to the tensor-core
-// kernel in flash_attention_sm90.cu (kernels/flash_attention.py:kernel_for
-// chooses). A float32 product on tensor cores would be TF32, which the
+// bf16 at head dims 16 and 32; bf16 at 64, 112 (kimi-k2), 128 and 256
+// (recurrentgemma-9b) goes to the tensor-core kernel in
+// flash_attention_sm90.cu (kernels/flash_attention.py:kernel_for chooses).
+// This kernel keeps its bf16 code at 112 and 256, which no path sends here
+// any more (chip_smoke.py times it beside the tensor-core kernel). A float32 product on tensor cores would be TF32, which the
 // float32 tolerances and the float32 card-vs-CPU serving check exclude, so
 // float32 stays here. Same function: q and k in float32,
 // q scaled by D^-0.5 before QK^T, causal keys kpos > qpos masked (positions

@@ -1,34 +1,43 @@
 // K4 on Hopper's tensor cores: forward flash attention for bf16 at head
-// dims 64 and 128, for sm_90a.
+// dims 64, 112, 128 and 256, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` (`_flash_kernel`,
-// src/repro/kernels/flash_attention.py) for bf16 inputs at D 64 and 128;
-// float32 and D 16/32 stay on the CUDA-core kernel in flash_attention.cu,
-// since a float32 product on tensor cores would be TF32. Same function as
-// the plain version (kernels/ref.py): S = QK^T in float32, scaled by
-// D^-0.5, causal keys kpos > qpos masked (positions from 0 for both), a
-// running max and sum in float32, P rounded to bf16 before the PV product,
-// which accumulates in float32, out = acc / max(l, 1e-30) in bf16. GQA reads
-// kv head h / G and never repeats K/V.
+// src/repro/kernels/flash_attention.py) for bf16 inputs at D 64, 112, 128
+// and 256; float32 at every head dim and bf16 at D 16/32 stay on the
+// CUDA-core kernel in flash_attention.cu, since a float32 product on tensor
+// cores would be TF32. Same function as the plain version (kernels/ref.py):
+// S = QK^T in float32, scaled by D^-0.5 with the true D (112^-0.5 at D 112),
+// causal keys kpos > qpos masked (positions from 0 for both), a running max
+// and sum in float32, P rounded to bf16 before the PV product, which
+// accumulates in float32, out = acc / max(l, 1e-30) in bf16. GQA reads kv
+// head h / G and never repeats K/V.
 //
-// What bounds it on the H100: at the serving shape (B 4, T 2048, H 32, KV 8,
-// D 64, causal) one launch is 68.75 GFLOP against 83.9 MB, about 800 FLOP
-// per byte, above the card's ~295 FLOP/byte balance: it is bound by
-// operations, 0.0695 ms at the 989 TFLOP/s bf16 tensor-core rate. Only
-// `wgmma` reaches that rate, so both products run there:
+// What bounds it on the H100: at the serving shapes it is bound by
+// operations. llama3.2-1b (B 4, T 2048, H 32, KV 8, D 64, causal): 68.75
+// GFLOP against 83.9 MB, about 800 FLOP per byte, above the card's ~295
+// FLOP/byte balance: 0.0695 ms at the 989 TFLOP/s bf16 tensor-core rate.
+// recurrentgemma-9b (B 4, T 2048, H 16, KV 1, D 256): 137.4 GFLOP, 0.139
+// ms. kimi-k2 (B 1, T 256, H 64, KV 8, D 112): 0.94 GFLOP against 8.3 MB,
+// bound by its bytes (0.0025 ms). Only `wgmma` reaches the tensor-core rate,
+// so both products run there:
 //   * one block per (batch*head, 128-row q tile): two consumer warpgroups
-//     of 64 rows each and one producer warp (288 threads). Blocks run
-//     head-fastest and from the last q tile down, so the heaviest causal
-//     tiles of every head go first;
+//     of 64 rows each and a producer. Blocks run head-fastest and from the
+//     last q tile down, so the heaviest causal tiles of every head go first;
 //   * the producer's lane 0 loads the Q tile once by TMA, then the K and V
 //     tiles (64 keys) by TMA into a ring of STAGES shared-memory stages:
 //     full barriers carry the bytes (mbarrier complete_tx), an empty
 //     barrier per stage collects the 256 consumer threads' release. Tiles
 //     above the causal diagonal are never loaded;
-//   * S = QK^T is `wgmma.mma_async` m64n64k16, both operands read from
-//     shared memory through descriptors that match TMA's 128-byte swizzle
-//     (a 64-column bf16 row is one 128-byte swizzle atom; D 128 is two
-//     boxes of 64 columns, so each tile is two atoms side by side);
+//   * a row of D columns is HALVES = ceil(D / 64) boxes of 64 columns, each
+//     one 128-byte swizzle atom (64 bf16), side by side in shared memory.
+//     The tensor maps declare the true D, so at D 112 the second box's
+//     columns 112-127 lie outside the tensor: TMA fills them with zeros on
+//     load (and still counts the whole box's bytes on the barrier) and
+//     clips them on the store, as it does for rows at or past T. No copy
+//     pads anything;
+//   * S = QK^T is `wgmma.mma_async` m64n64k16, D / 16 steps (7 at D 112:
+//     the zero columns are never multiplied), both operands read from
+//     shared memory through descriptors that match TMA's 128-byte swizzle;
 //   * the online softmax stays in float32 registers in the accumulator's
 //     own fragment layout: a thread holds two rows, each spread over the 4
 //     lanes of a quad, so row max and sum take two shuffles. Keys at or
@@ -38,17 +47,37 @@
 //   * P, rounded to bf16, is the register A operand of the PV wgmma: the
 //     S accumulator's layout is the A fragment's, so P never touches
 //     shared memory. V is the shared-memory B operand read with the
-//     transpose bit (MN-major), so V is never copied transposed;
+//     transpose bit (MN-major), so V is never copied transposed. PV runs
+//     m64n64k16 per 64-column box (at D 112 the second box's last 16
+//     columns multiply V's zeros and are clipped on the store);
 //   * the output tile goes through the warpgroup's own (consumed) Q rows in
-//     shared memory and out by a TMA store, which clips rows at or past T.
-// Shared memory per block: Q 16 KB (D 64) / 32 KB (D 128), and per stage K
-// + V 16 KB / 32 KB; with 2 stages 48 KB / 96 KB (+1 KB for alignment), so
-// two blocks fit on an SM by shared memory at either head dim (the
-// CUDA-core kernel needs 116.7 KB at D 128). Registers allow two at D 64
-// (the launch bounds ask for it); at D 128 the two 64-column O
-// accumulators need more than two blocks' share, so it runs one an SM.
-// On an NVIDIA H100 80GB HBM3 at 700 W a launch at the serving shape takes
-// about 0.31 ms, 4.5x its bound (PERF.md).
+//     shared memory and out by a TMA store, which clips rows at or past T
+//     and columns at or past D.
+//
+// Budget per head dim (2 stages; + 1 KB alignment slack and the barriers):
+//   D 64:       Q 16 KB + 2 x (K 8 + V 8) KB = 48 KB; 288 threads (the
+//               producer one warp); two blocks an SM by both shared memory
+//               and registers (the launch bounds ask for it).
+//   D 112, 128: Q 32 KB + 2 x 32 KB = 96 KB; 288 threads; the two
+//               64-column O accumulators (64 floats a thread) make it one
+//               block an SM by registers.
+//   D 256:      Q 64 KB + 2 x 64 KB = 192 KB of the 227 KB a block may
+//               take, so a third stage does not fit and one block runs an
+//               SM. The O accumulator alone is 128 floats a consumer
+//               thread, plus S (32), P (16 bf16 pairs) and the softmax
+//               state. The SM's registers sit in four quarters of 16,384,
+//               one per scheduler, and 9 warps put 3 on one quarter, so 288
+//               threads get at most 168 registers each: that build spills
+//               (404 bytes) and runs 1.8x slower. So the producer is a
+//               whole warpgroup (384 threads, still 3 warps a quarter at
+//               168) that gives its registers back (`setmaxnreg.dec` to
+//               24) while the two consumer warpgroups take 240 each
+//               (`setmaxnreg.inc`): 32 x (24 + 2 x 240) = 16,128 of a
+//               quarter's 16,384, and no spill. `setmaxnreg` needs sm_90a,
+//               the build's target; tools/k4_producer_variants.py builds
+//               and times both designs.
+// The ptxas report of each instance is kept in the build's build.log;
+// chip_smoke.py prints it, and PERF.md has the measured times.
 //
 // Tensor maps are encoded on the host for each call (cuTensorMapEncodeTiled
 // of libcuda, found through the runtime's entry-point query, so nothing
@@ -69,17 +98,20 @@ constexpr int BQ = 128;               // query rows per block
 constexpr int BK = 64;                // keys per K/V tile
 constexpr int STAGES = 2;             // K/V ring depth
 constexpr int CONSUMERS = 256;        // warpgroups 0 and 1
-constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int ATOM = 128;             // bytes of a 64-column bf16 row: one swizzle atom
 
 template <int D>
 struct Smem {
-  static constexpr int HALVES = D / 64;                     // 64-column boxes a row takes
+  // D 256: a producer warpgroup that hands its registers to the consumers.
+  static constexpr bool WIDE_PRODUCER = D == 256;
+  static constexpr int THREADS = CONSUMERS + (WIDE_PRODUCER ? 128 : 32);
+  static constexpr int HALVES = (D + 63) / 64;              // 64-column boxes a row takes
   static constexpr int Q_BYTES = HALVES * BQ * ATOM;         // 16 KB at D 64
   static constexpr int KV_BYTES = HALVES * BK * ATOM;        // one K or V tile, 8 KB at D 64
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "a block may take at most 227 KB of shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -215,59 +247,16 @@ __device__ __forceinline__ int tiles_for(int row0, int Tq, int S, int causal) {
   return min(n_s, last / BK + 1);
 }
 
+// The consumer warpgroups' part of the block: QK^T, the online softmax and
+// PV over the K/V ring, then the output tile by TMA.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
-flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-               int H, int G, int Tq, int S, float scale_log2, int causal) {
+__device__ __forceinline__ void consume(uint8_t* smem, uint64_t* q_full, uint64_t* k_full,
+                                        uint64_t* v_full, uint64_t* empty, const CUtensorMap* to,
+                                        int warp, int lane, int q0, int n_blk, int h, int b,
+                                        int Tq, int S, float scale_log2, int causal) {
   using SM = Smem<D>;
   constexpr int HALVES = SM::HALVES;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* empty = v_full + STAGES;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / G;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q tiles first
-  const int n_blk = max(tiles_for(q0, Tq, S, causal), tiles_for(q0 + 64, Tq, S, causal));
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(k_full + s, 1);
-      mbar_init(v_full + s, 1);
-      mbar_init(empty + s, CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == CONSUMERS / 32) {
-    // Producer: lane 0 keeps the ring full; the other lanes have no work.
-    if (lane == 0) {
-      mbar_expect_tx(q_full, SM::Q_BYTES);
-      for (int hh = 0; hh < HALVES; ++hh)
-        tma_load(smem + hh * BQ * ATOM, &tq, q_full, 64 * hh, h, q0, b);
-      for (int kt = 0; kt < n_blk; ++kt) {
-        const int s = kt % STAGES, round = kt / STAGES;
-        if (round > 0) mbar_wait(empty + s, (round - 1) & 1);  // both warpgroups let go
-        uint8_t* ks = smem + SM::Q_BYTES + s * SM::STAGE_BYTES;
-        uint8_t* vs = ks + SM::KV_BYTES;
-        mbar_expect_tx(k_full + s, SM::KV_BYTES);
-        for (int hh = 0; hh < HALVES; ++hh)
-          tma_load(ks + hh * BK * ATOM, &tk, k_full + s, 64 * hh, kvh, kt * BK, b);
-        mbar_expect_tx(v_full + s, SM::KV_BYTES);
-        for (int hh = 0; hh < HALVES; ++hh)
-          tma_load(vs + hh * BK * ATOM, &tv, v_full + s, 64 * hh, kvh, kt * BK, b);
-      }
-    }
-    return;
-  }
-
-  // Consumers: warpgroup wg owns query rows row0 .. row0 + 63; this thread
+  // Warpgroup wg owns query rows row0 .. row0 + 63; this thread
   // owns rows r_lo and r_lo + 8 of them, at columns 8j + 2(lane%4) + {0, 1}
   // of every n8 block j of an accumulator.
   const int wg = warp / 4;
@@ -399,9 +388,67 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   if (threadIdx.x % 128 == 0) {
     for (int hh = 0; hh < HALVES; ++hh)
-      tma_store(&to, smem + hh * BQ * ATOM + 64 * wg * ATOM, 64 * hh, h, row0, b);
+      tma_store(to, smem + hh * BQ * ATOM + 64 * wg * ATOM, 64 * hh, h, row0, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Smem<D>::THREADS, D == 64 ? 2 : 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+               int H, int G, int Tq, int S, float scale_log2, int causal) {
+  using SM = Smem<D>;
+  constexpr int HALVES = SM::HALVES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q tiles first
+  const int n_blk = max(tiles_for(q0, Tq, S, causal), tiles_for(q0 + 64, Tq, S, causal));
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= CONSUMERS / 32) {
+    // Producer: lane 0 of its first warp keeps the ring full; the other
+    // lanes (and warps) have no work.
+    if constexpr (SM::WIDE_PRODUCER) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(q_full, SM::Q_BYTES);
+      for (int hh = 0; hh < HALVES; ++hh)
+        tma_load(smem + hh * BQ * ATOM, &tq, q_full, 64 * hh, h, q0, b);
+      for (int kt = 0; kt < n_blk; ++kt) {
+        const int s = kt % STAGES, round = kt / STAGES;
+        if (round > 0) mbar_wait(empty + s, (round - 1) & 1);  // both warpgroups let go
+        uint8_t* ks = smem + SM::Q_BYTES + s * SM::STAGE_BYTES;
+        uint8_t* vs = ks + SM::KV_BYTES;
+        mbar_expect_tx(k_full + s, SM::KV_BYTES);
+        for (int hh = 0; hh < HALVES; ++hh)
+          tma_load(ks + hh * BK * ATOM, &tk, k_full + s, 64 * hh, kvh, kt * BK, b);
+        mbar_expect_tx(v_full + s, SM::KV_BYTES);
+        for (int hh = 0; hh < HALVES; ++hh)
+          tma_load(vs + hh * BK * ATOM, &tv, v_full + s, 64 * hh, kvh, kt * BK, b);
+      }
+    }
+  } else {
+    if constexpr (SM::WIDE_PRODUCER) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume<D>(smem, q_full, k_full, v_full, empty, &to, warp, lane, q0, n_blk, h, b, Tq, S,
+               scale_log2, causal);
   }
 }
 
@@ -429,9 +476,10 @@ EncodeTiled encoder() {
 }
 
 // A map over the 4-D view (D, N, L, B) of a (B, L, N, D) bf16 tensor with
-// element strides sn, sl, sb; boxes of 64 columns x 1 x `rows` x 1. A
-// dimension of size 1 is never stepped, so it gets a stride past the
-// whole view.
+// element strides sn, sl, sb; boxes of 64 columns x 1 x `rows` x 1. D is
+// the true head dim, so a box that reaches past it (columns 112-127 at D
+// 112) is zero-filled on load and clipped on store. A dimension of size 1
+// is never stepped, so it gets a stride past the whole view.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int D, int N, int L, int B,
             long long sn, long long sl, long long sb, int rows) {
   const long long span = 2 * (sn * (N - 1) + sl * (L - 1) + sb * (B - 1) + D);
@@ -464,8 +512,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
       flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_sm90<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(mq, mk, mv, mo, H, H / KV, Tq, S,
-                                                               scale_log2, causal);
+  flash_fwd_sm90<D><<<grid, Smem<D>::THREADS, Smem<D>::BYTES, stream>>>(
+      mq, mk, mv, mo, H, H / KV, Tq, S, scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
@@ -473,8 +521,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 // q, o: (B, Tq, H, D) and k, v: (B, S, KV, D), bf16, through the element
 // strides `strides` = {q_b, q_t, q_h, kv_b, kv_t, kv_h, o_b, o_t, o_h}; the
-// last dimension is contiguous, D is 64 or 128, every base is 16-byte
-// aligned and every stride of a dimension longer than 1 a multiple of 8.
+// last dimension is contiguous, D is 64, 112, 128 or 256, every base is
+// 16-byte aligned and every stride of a dimension longer than 1 a multiple
+// of 8.
 // `scale_log2` is D^-0.5 * log2(e). Launches on `stream` and returns a
 // cudaError_t (cudaErrorInvalidValue when a tensor map cannot be encoded).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
@@ -485,6 +534,8 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, o, B, H, KV, Tq, S, strides, scale_log2, causal, s);
+  if (d == 112) return launch<112>(q, k, v, o, B, H, KV, Tq, S, strides, scale_log2, causal, s);
   if (d == 128) return launch<128>(q, k, v, o, B, H, KV, Tq, S, strides, scale_log2, causal, s);
+  if (d == 256) return launch<256>(q, k, v, o, B, H, KV, Tq, S, strides, scale_log2, causal, s);
   return (int)cudaErrorInvalidValue;
 }

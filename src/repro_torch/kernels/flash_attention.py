@@ -4,18 +4,21 @@
 Two CUDA C++ kernels for ``sm_90a``, chosen by dtype and head dim alone
 (``kernel_for``):
 
-- ``"tc"``, ``csrc/flash_attention_sm90.cu``: bf16 at head dims 64 and 128
-  on the tensor cores (``wgmma`` for QKᵀ and PV, TMA loads into an
-  ``mbarrier``-guarded ring of K/V stages, 128-row q tiles). Its tensor
-  maps need 16-byte aligned storage and strides that are multiples of 8
-  elements; a bf16 input at D 64/128 that breaks this raises, it never
-  goes to the other kernel.
+- ``"tc"``, ``csrc/flash_attention_sm90.cu``: bf16 at head dims 64, 112
+  (kimi-k2), 128 and 256 (recurrentgemma-9b) on the tensor cores
+  (``wgmma`` for QKᵀ and PV, TMA loads into an ``mbarrier``-guarded ring
+  of K/V stages, 128-row q tiles). A row is ceil(D/64) boxes of 64
+  columns; at D 112 the tensor maps declare the true D, so TMA zero-fills
+  columns 112–127 on load and clips them on store, with no copy. Its
+  tensor maps need 16-byte aligned storage and strides that are multiples
+  of 8 elements; a bf16 input at these head dims that breaks this raises,
+  it never goes to the other kernel.
 - ``"cc"``, ``csrc/flash_attention.cu``: float32 at every head dim and
-  bf16 at 16, 32, 112 (kimi-k2) and 256 (recurrentgemma-9b), on the CUDA
-  cores in float32 (a float32 product on
+  bf16 at 16 and 32, on the CUDA cores in float32 (a float32 product on
   tensor cores would be TF32). One block per head and 64-row q tile, an
   online softmax in float32 registers over 64-key tiles staged in shared
-  memory.
+  memory. It keeps its bf16 code at D 112 and 256, which ``kernel_for``
+  no longer sends it.
 
 Both skip tiles above the causal diagonal and mask ragged edges; both are
 built at first use by ``kernels/build.py`` and bound by ctypes. Their
@@ -47,7 +50,7 @@ SOURCE = CSRC / "flash_attention.cu"
 TC_SOURCE = CSRC / "flash_attention_sm90.cu"
 NVCC_FLAGS = BASE_FLAGS
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = 1.4426950408889634
 
@@ -63,8 +66,9 @@ def reset_launches() -> None:
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which K4 kernel takes inputs of ``dtype`` at ``head_dim``: "tc" (the
-    tensor-core kernel) for bf16 at D 64 and 128, "cc" (CUDA cores) at the
-    other head dims of ``HEAD_DIMS``; any other head dim raises."""
+    tensor-core kernel) for bf16 at the head dims of ``TC_HEAD_DIMS``, "cc"
+    (CUDA cores) for float32 and for bf16 at the other head dims of
+    ``HEAD_DIMS``; any other head dim raises."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {head_dim} not in {HEAD_DIMS}")
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "cc"

@@ -10,9 +10,11 @@ block sizes, against the Pallas kernel in interpret mode (as
 orders), bfloat16 within 3e-2 absolute and relative (the Pallas kernel
 rounds each tile's bf16 PV product, the port accumulates it in float32).
 
-The wrapper-level checks that run here: ``kernel_for`` sends bf16 and
-float32 at D 112 and 256 to the CUDA-core kernel, an unsupported head dim
-still raises, and ``attention(impl="auto")`` resolves a window that masks
+The wrapper-level checks that run here: ``kernel_for`` sends bf16 at D
+112 and 256 to the tensor-core kernel and float32 there to the CUDA-core
+kernel; zero-padding D 112 to 128 at the scale 112^-0.5 (the tensor-core
+kernel's premise) keeps the function; an unsupported head dim still
+raises; and ``attention(impl="auto")`` resolves a window that masks
 nothing to K4 (the hybrid family's serving prefill) but not one that
 masks keys.
 """
@@ -83,8 +85,33 @@ def test_k4_plain_matches_pallas_bf16_at_new_head_dims(d):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [112, 256])
 def test_k4_new_head_dims_go_to_the_cuda_core_kernel(dtype, d):
+    """float32 at D 112 and 256 stays on the CUDA-core kernel (a float32
+    product on tensor cores would be TF32); bf16 there goes to the
+    tensor-core kernel."""
     assert d in tk4.HEAD_DIMS
-    assert tk4.kernel_for(dtype, d) == "cc"
+    assert tk4.kernel_for(dtype, d) == ("tc" if dtype == torch.bfloat16 else "cc")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 64, 200])
+def test_k4_zero_padding_112_to_128_keeps_the_function(causal, t):
+    """The tensor-core kernel's premise at D 112: q, k and v zero-padded to
+    128 columns (what TMA's fill gives it), scored at 112^-0.5, give the
+    D 112 function in the first 112 output columns and exact zeros in the
+    last 16. Plain float32 arithmetic on the CPU (one softmax over all
+    keys) against the plain K4 (64-key tiles, an online softmax), within
+    1e-6 relative L2: the two sum in other orders (~6e-7 at T 200)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(t + causal, 2, t, 8, 2, 112))
+    want = ref.flash_attention(q, k, v, causal=causal)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, 16)) for x in (q, k, v))
+    kp, vp = (x.repeat_interleave(4, dim=2) for x in (kp, vp))  # G 4
+    sc = torch.einsum("bthd,bshd->bhts", qp, kp) * 112**-0.5
+    if causal:
+        sc = sc.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1), -torch.inf)
+    got = torch.einsum("bhts,bshd->bthd", torch.softmax(sc, dim=-1), vp)
+    assert got.shape == (2, t, 8, 128)
+    assert torch.equal(got[..., 112:], torch.zeros(2, t, 8, 16))
+    assert float((got[..., :112] - want).norm() / want.norm()) <= 1e-6
 
 
 @pytest.mark.parametrize("d", [8, 48, 96, 192, 512])

@@ -200,12 +200,44 @@ def test_k2_tree_launcher_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("dtype, d, kernel", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 112, "tc"), (torch.bfloat16, 256, "tc"),
     (torch.bfloat16, 16, "cc"), (torch.bfloat16, 32, "cc"),
     (torch.float32, 16, "cc"), (torch.float32, 32, "cc"),
     (torch.float32, 64, "cc"), (torch.float32, 128, "cc"),
+    (torch.float32, 112, "cc"), (torch.float32, 256, "cc"),
 ])
 def test_k4_kernel_choice_by_dtype_and_head_dim(dtype, d, kernel):
     assert k4.kernel_for(dtype, d) == kernel
+
+
+def test_k4_tensor_core_dispatch_covers_exactly_its_head_dims():
+    """The head dims ``flash_attention_sm90_fwd`` launches an instance for
+    are ``TC_HEAD_DIMS``, each on the instance of its own D: a head dim
+    ``kernel_for`` sends there but the dispatch lacks would fail on the
+    card only."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / "flash_attention_sm90.cu").read_text())
+    start = text.index("flash_attention_sm90_fwd(")
+    body = text[text.index("{", start):]
+    branches = re.findall(r"if \(d == (\d+)\) return launch<(\d+)>\(", body)
+    assert branches and all(d == inst for d, inst in branches)
+    assert tuple(sorted(int(d) for d, _ in branches)) == k4.TC_HEAD_DIMS
+    assert set(k4.TC_HEAD_DIMS) <= set(k4.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("d", [112, 256])
+def test_k4_tensor_core_layout_takes_the_new_head_dims(d):
+    """Contiguous (B, T, H, D) and (BH, T, D) views at D 112 and 256 meet
+    the tensor maps' rules (a D 112 row is 224 bytes); a D 112 slice of a
+    wider buffer whose head stride is 116 elements (232 bytes) does not."""
+    assert k4.tma_layout_error(torch.zeros(2, 10, 4, d, dtype=torch.bfloat16)) is None
+    kv = torch.zeros(2, 10, 8, d, dtype=torch.bfloat16)[:, :, :2]
+    assert k4.tma_layout_error(kv) is None
+    bhsd = torch.zeros(8, 10, d, dtype=torch.bfloat16)
+    assert k4.tma_layout_error(bhsd.unsqueeze(0).transpose(1, 2)) is None
+    if d == 112:
+        wide = torch.zeros(2, 10, 4, 116, dtype=torch.bfloat16)[..., :112]
+        assert "multiple of 16 bytes" in k4.tma_layout_error(wide)
+        assert k4.kernel_for(wide.dtype, wide.shape[-1]) == "tc"
 
 
 def test_k4_tensor_core_layout_takes_the_model_and_pallas_views():
@@ -238,6 +270,29 @@ def test_k4_misaligned_bf16_is_refused_not_rerouted(view, why):
         # the choice of kernel does not look at the layout: the input still
         # belongs to the tensor-core kernel, whose wrapper raises
         assert k4.kernel_for(x.dtype, x.shape[-1]) == "tc"
+
+
+def test_ptxas_report_reads_each_instance_of_a_template():
+    from repro_torch.kernels import build
+
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_sm90ILi256EEEv14"
+        "CUtensorMap_stS1_S1_S1_iiiifi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_114flash_fwd_sm90ILi256EEEv",
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19other_kernelEPf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_sm90ILi64EEEv14"
+        "CUtensorMap_st' for 'sm_90a'",
+        "ptxas info    : Used 93 registers, used 16 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    ])
+    assert build.ptxas_report(log, "flash_fwd_sm90") == {
+        256: {"registers": 168, "spill_stores": 12, "spill_loads": 16},
+        64: {"registers": 93, "spill_stores": 0, "spill_loads": 0}}
 
 
 def test_k4_launch_refuses_cpu_tensors_for_either_kernel():
