@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py                  # every phase (what CI on a GPU runs)
     python3 chip_smoke.py --only kernels   # build + hold the kernels only
-    python3 chip_smoke.py --profile        # + where each serving run's time goes
+    python3 chip_smoke.py --profile        # + where a ResNet-56 and a Shakespeare
+                                           #   round's, each serving run's and a dense
+                                           #   training step's time goes
 
 Phases, in order; any failure exits nonzero:
 
@@ -69,8 +71,8 @@ Phases, in order; any failure exits nonzero:
    the broadcast within 1e-2 relative L2. Per-element gradients agree to
    ~1e-6 (convolution sums run in another order), so a few elements at a
    top-k boundary can flip; each flip moves the broadcast by one
-   threshold-sized entry. Then a ``torch.profiler`` trace of one steady
-   round of each preset: its device activities, the device's busy share
+   threshold-sized entry. Then, under ``--profile``, a ``torch.profiler``
+   trace of one steady round of each preset: its device activities, the device's busy share
    (the union of the activities' intervals, so overlap is not counted
    twice), and the device time under each of the engine's phase ranges
    (``round.client_grads``, ``round.client_compress``,
@@ -120,8 +122,9 @@ Phases, in order; any failure exits nonzero:
    round are deterministic.
 9. **Shakespeare, card vs CPU.** Round 0 of ``dgcwgmf`` at full width, 4
    of 10 clients, on the card and the CPU: nnz equal, broadcast within
-   1e-2 relative L2 (phase 4's tolerance). Then a profile of one steady
-   Shakespeare round of ``dgcwgmf`` and ``dgc``, as phase 4's.
+   1e-2 relative L2 (phase 4's tolerance). Then, under ``--profile``, a
+   profile of one steady Shakespeare round of ``dgcwgmf`` and ``dgc``, as
+   phase 4's.
 10. **ResNet-56 under the remaining stage kinds.** Phase 3's task (built
    anew), 2 rounds each of ``randomk`` (rate 0.1), ``fetchsgd`` at
    ``benchmarks/ablations.py:176``'s settings (a 5 × 20,000 sketch,
@@ -205,11 +208,12 @@ Phases, in order; any failure exits nonzero:
    ``--strict`` exit 0, and K4's 16 tensor-core launches (the prefill's).
 13. **Serving every other architecture at its published widths.**
    ``run_fixed`` in bfloat16 with random params from seed 0 drawn on the
-   card, a warm-up run and the measured one, on qwen2.5-3b (36 layers),
-   yi-34b (16 of 60), command-r-plus-104b (8 of 64), granite-moe-1b-a400m
-   (24), kimi-k2-1t-a32b (1 of 61; batch 1, prompt 256, 8 tokens),
-   mamba2-780m (48), recurrentgemma-9b (38), qwen2-vl-72b (16 of 80; 1024
-   patches + a 1024-token prompt) and musicgen-large (48; 4 codebooks),
+   card, a warm-up run and the measured one, on qwen2.5-3b (18 of 36
+   layers), yi-34b (16 of 60), command-r-plus-104b (8 of 64),
+   granite-moe-1b-a400m (12 of 24), kimi-k2-1t-a32b (1 of 61; batch 1,
+   prompt 256, 8 tokens), mamba2-780m (24 of 48), recurrentgemma-9b (19
+   of 38), qwen2-vl-72b (16 of 80; 1024 patches + a 1024-token prompt) and
+   musicgen-large (24 of 48; 4 codebooks),
    batch 4, prompt 2048, 16 tokens unless stated (``SERVE_FAMILIES``).
    Before each config's params are drawn, K4 is held against its plain
    version on random bf16 q/k/v at the shapes that config's prefill gives
@@ -217,13 +221,55 @@ Phases, in order; any failure exits nonzero:
    ``kernel_for`` names, at phase 2's tolerances. Counts reset before each
    run: K4 launches once per attention block on the kernel ``kernel_for``
    names (the tensor cores at every served head dim: 64, 128, kimi's 112
-   and recurrentgemma's 256; 12 launches a recurrentgemma-9b prefill, 1 a
-   kimi-k2 one), the CUDA-core kernel and K1–K3 never; then the prefill
+   and recurrentgemma's 256; 6 launches a recurrentgemma-9b prefill at
+   19 layers, 1 a kimi-k2 one), the CUDA-core kernel and K1–K3 never; then the prefill
    alone launches K4 that many times and the decode loop alone none. The
    prefill logits finite, every sequence (every codebook) complete, the
    decode cache's shapes unchanged by the decode loop; ``prefill_ms``,
    ``ms_per_step`` and ``tokens_per_s`` printed beside the card's name and
    power limit. Each model is freed before the next.
+
+Phase 2 also holds K1–K3's bfloat16 and mixed instances against their
+plain versions, bitwise: K2 with (state, gradient) dtypes (bf16, bf16),
+(f32, bf16), (bf16, f32) and the last storing the state's dtype, and K3
+with a bf16 state and a float32 or bf16 mask (into the promotion or the
+state's dtype), on stacks of 1 to 2²⁴+3 elements and a misaligned view;
+``gmf_select`` (both modes) and K1's mask pass with v, u bf16 and m bf16
+or v, u float32 and m bf16, over ResNet-56 (4 clients), the toy layout
+and the char-LSTM (10 clients); all four bf16 instances over llama3.2-1b's
+whole one-client row (1,498,482,688 elements, 3.0 GB: byte offsets past
+2³¹), each then timed beside its plain version and its bytes bound (the
+bf16 rows of the kernels line); and ``client_compress`` (dgcwgmf, fused
+and staged) over granite-moe's mixed tree at 2 layers (a bf16 and a
+float32 group, 3 clients) against the same call on the plain versions,
+each kernel launching once per dtype group.
+
+14. **Training llama3.2-1b at its published size.** ``launch/train.py``'s
+    ``run_dist`` (mesh=None) on llama3.2-1b (16 layers, d_model 2048,
+    bf16, 1,498,482,688 params from seed 0, remat honoured): gmf_data (one
+    GMF client) with dgcwgmf at rate 0.1 on the fused kernel path, batch
+    8, sequence 256, 4 steps; then dense sync. Per step: the loss, the
+    step's ms, every upload count against the exact-k sum (≥), K1–K3's
+    launches by dtype instance (one K2, one ``gmf_select`` and one K1
+    mask pass a step, all bf16); then one more profiled step of gmf_data
+    (and, under ``--profile``, of dense) on a fresh state (the kernels and
+    the allocator warm from the run): the device busy share and the device time in each of the step's
+    ranges (``round.client_grads``, ``round.client_compress``,
+    ``round.server_aggregate``, ``round.apply_update``).
+15. **LMTask through the FL engines.** ``run_fl`` at llama3.2-1b's widths
+    cut to 2 layers (646,981,632 params), 4 clients, 2 a round, batch 2,
+    sequence 256, 3 rounds of dgcwgmf on the staged path (K2 in bf16,
+    ``gmf_select``'s |z| mode on the float32 scores, K3 from the bf16
+    state to float32): launches, ms a round, upload counts against the
+    exact-k sum; the params read at init and after each round must change
+    in every round, and the held-out loss taken in float32 must drop in
+    round 0 (the task's own, the reference's, is bf16: it moves in steps
+    of 0.0625 at 12 and cannot show a change that small). Then each of the ten architectures at ``smoke()``
+    through ``LMTask`` on the card and on the CPU from the same params, 2
+    rounds of fused dgcwgmf: params and broadcast within 1e-2 relative L2,
+    upload counts within 1e-4 of each other and at least the exact-k sum.
+    The client gradients are ``vmap(grad)``, so the RG-LRU scan's and the
+    MoE's gradient paths (F4, F5) run on the card.
 
 Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
 ResNet-56 stacks (20 clients), one launch each as the path makes them
@@ -259,6 +305,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -2459,16 +2506,18 @@ def family_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4, b=2, prompt=64):
 
 # Phase 13: (arch, depth run or None for the full depth, batch, prompt,
 # generated tokens). Each is served at its published widths in bfloat16.
+# Depths: cut where one card's memory forces it (yi, command-r, kimi,
+# qwen2-vl) and, to keep the script's time, to half elsewhere.
 SERVE_FAMILIES = (
-    ("qwen2.5-3b", None, 4, 2048, 16),
+    ("qwen2.5-3b", 18, 4, 2048, 16),
     ("yi-34b", 16, 4, 2048, 16),
     ("command-r-plus-104b", 8, 4, 2048, 16),
-    ("granite-moe-1b-a400m", None, 4, 2048, 16),
+    ("granite-moe-1b-a400m", 12, 4, 2048, 16),
     ("kimi-k2-1t-a32b", 1, 1, 256, 8),
-    ("mamba2-780m", None, 4, 2048, 16),
-    ("recurrentgemma-9b", None, 4, 2048, 16),
+    ("mamba2-780m", 24, 4, 2048, 16),
+    ("recurrentgemma-9b", 19, 4, 2048, 16),
     ("qwen2-vl-72b", 16, 4, 1024, 16),
-    ("musicgen-large", None, 4, 2048, 16),
+    ("musicgen-large", 24, 4, 2048, 16),
 )
 NO_COMPRESSION = {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
 
@@ -2590,13 +2639,571 @@ def serve_family(rt, dev, card, arch, depth, b, prompt, gen, profile=False):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# bfloat16 and mixed-dtype compression state: K1–K3's bf16 instances (phase 2)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# The bf16 instances the training paths launch (kernel, its instance in
+# gk.INSTANCES, bytes and float operations per element, row name): K1 and
+# K2 in bf16 on the trainer's fused path (every operand bf16), K2 in bf16
+# and K3 promoting bf16 state with a float32 mask to float32 on the LM-FL
+# phase's staged path. gmf_select reads v and m once (each radix pass
+# reads them again, from L2).
+BF16_KERNELS = [
+    ("K1", "gmf_select", "bf16,bf16", 4, 19, "gmf_select_bf16"),
+    ("K1", "gmf_compress", "bf16,bf16", 14, 10, "gmf_compress_bf16"),
+    ("K2", "momentum_correction", "bf16,bf16->bf16", 10, 3, "momentum_correction_bf16"),
+    ("K3", "apply_mask", "bf16,f32->f32", 20, 4, "apply_mask_bf16_to_f32"),
+]
+LLAMA = "llama3.2-1b"
+LLAMA_PARAMS = 1_498_482_688
+
+
+def as_dtype(x, dtype, misalign=False):
+    """``x`` in ``dtype`` (inputs rounded to 1/16 are exact in bf16), as a view
+    one element past an aligned address when ``misalign``."""
+    x = x.to(dtype)
+    if not misalign:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].reshape(x.shape)
+
+
+def hold_bf16_elementwise(rt, dev):
+    """K2 and K3's bf16 and mixed instances against their plain versions on
+    the card, bitwise, over stacks of 1, 5, 3×1001, 20×36,864 and 2²⁴+3
+    elements and a misaligned view: K2 with (state, gradient) dtypes
+    (bf16, bf16), (f32, bf16), (bf16, f32) and the last again storing the
+    state's dtype; K3 with a bf16 state and a float32 or bf16 mask, and
+    storing the state's dtype. Returns the largest differences (0 when
+    bitwise)."""
+    gk, ref = rt.gk, rt.ref
+    rng = np.random.default_rng(11)
+    worst = {"momentum_correction": 0.0, "apply_mask": 0.0}
+    cases = [(1, 1, False), (1, 5, False), (3, 1001, False), (20, 36_864, False),
+             (1, 2**24 + 3, False), (3, 1001, True)]
+    k2 = [(BF16, BF16, None), (torch.float32, BF16, None), (BF16, torch.float32, None),
+          (BF16, torch.float32, BF16)]
+    for rows, n, mis in cases:
+        u, v, g = kernel_inputs(rng, rows, n, dev)
+        for s, gd, out in k2:
+            us, vs, gs = as_dtype(u, s, mis), as_dtype(v, s, mis), as_dtype(g, gd, mis)
+            got = gk.momentum_correction_flat(us, vs, gs, 0.9, out)
+            want = ref.momentum_correction_leaf(us, vs, gs, 0.9, out)
+            for what, a, b in zip(("U", "V"), got, want, strict=True):
+                check(a.dtype == b.dtype, f"K2 {s}/{gd}: {what} dtype {a.dtype} vs {b.dtype}")
+                same(worst, "momentum_correction", a, b, f"{what} ({s}, {gd}, out {out})")
+        mask = (torch.tensor(rng.random((rows, n)) > 0.7, device=dev)).float()
+        ub, vb = as_dtype(u, BF16, mis), as_dtype(v, BF16, mis)
+        for mk, out in ((as_dtype(mask, torch.float32, mis), None),
+                        (as_dtype(mask, BF16, mis), None), (as_dtype(mask, torch.float32, mis),
+                                                            BF16)):
+            got = gk.apply_mask_flat(ub, vb, mk, out_dtype=out)
+            want = ref.apply_mask_update_leaf(ub, vb, mk if out is None else mk.to(out))
+            for what, a, b in zip(("G", "U", "V"), got, want, strict=True):
+                check(a.dtype == b.dtype, f"K3 mask {mk.dtype}: {what} dtype {a.dtype}")
+                same(worst, "apply_mask", a, b, f"{what} (mask {mk.dtype}, out {out})")
+        print(f"  held {rows}x{n}{' misaligned' if mis else ''}: K2 (bf16/bf16, f32/bf16, "
+              f"bf16/f32, bf16/f32 into bf16) and K3 (bf16 with a f32 or bf16 mask, into "
+              f"f32 or bf16) bitwise", flush=True)
+    torch.cuda.synchronize()
+    return worst
+
+
+def hold_bf16_select(rt, layout, u, v, m, label, dev):
+    """gmf_select (both modes) and K1's mask pass over the ``[rows, N]``
+    stacks u and v (of one dtype) and m: thresholds bitwise torch.topk's on
+    the z of the kernel's own scalars, inverse norms within 1e-6 relative
+    of the plain version's, the mask pass bitwise given the same scalars
+    with every segment keeping at least its k, and the |z| mode's threshold
+    and mask bitwise. Returns (largest differences, the fused mode's
+    scalars)."""
+    gk, ref, sparsify = rt.gk, rt.ref, rt.sparsify
+    worst = {"gmf_select": 0.0, "gmf_compress": 0.0}
+    rows = v.shape[0]
+    keep_host, keep = layout.keep(RATE)
+    offs = layout.offsets_dev
+    w = torch.ones(rows, device=dev)
+    tau = torch.tensor([(0.3, 0.0, 1.0)[i % 3] for i in range(rows)], device=dev)
+    inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau,
+                                             eps=EPS)
+    p_nv, p_nm, _ = ref.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS)
+    for a, b in ((inv_nv, p_nv), (inv_nm, p_nm)):
+        rel = ((a - b).abs() / b.abs()).max().item()
+        check(rel <= 1e-6, f"gmf_select over {label}: inverse norms {rel:.3e} from the plain "
+                           f"version's")
+    z = ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
+                             inv_norm_m=layout.expand(inv_nm), tau=tau)
+    same(worst, "gmf_select", thr, sparsify.segment_thresholds(z, layout, RATE),
+         f"threshold over {label}")
+    del z
+    scal = dict(inv_norm_v=inv_nv, inv_norm_m=inv_nm, tau=tau, threshold=thr)
+    got = gk.gmf_compress_flat(u, v, m, offsets=offs, **scal)
+    want = ref.gmf_compress_segments(u, v, m, layout=layout, **scal)
+    for what, a, b in zip(("G", "U", "V", "mask"), got, want, strict=True):
+        check(a.dtype == v.dtype, f"gmf_compress over {label}: {what} is {a.dtype}")
+        same(worst, "gmf_compress", a, b, f"{what} over {label}")
+    kept = torch.stack([(x != 0).sum(1) for x in layout.segments(got[3])], dim=1)
+    check(bool((kept >= torch.tensor(keep_host, device=dev)).all()),
+          f"gmf_compress over {label}: a segment kept fewer than k_i")
+    del got, want
+    thr_a, mask_a = gk.topk_abs_select_flat(v, offsets=offs, keep=keep)
+    p_thr, p_mask = sparsify.segment_topk_mask(v, layout, RATE)
+    same(worst, "gmf_select", thr_a, p_thr, f"|z| threshold over {label}")
+    same(worst, "gmf_select", mask_a, p_mask, f"|z| mask over {label}")
+    del mask_a, p_mask
+    torch.cuda.synchronize()
+    print(f"  held gmf_select (both modes) and the K1 mask pass, v {v.dtype}, m {m.dtype}, "
+          f"over {label}: bitwise", flush=True)
+    return worst, scal
+
+
+def f32_launches(instances):
+    """Launches per kernel of its all-float32 instances only (the rows the
+    float32 kernels report) from ``gk.INSTANCES``-style counts."""
+    out = {name: 0 for _, name, _, _, _ in KERNELS}
+    for (name, inst), n in instances.items():
+        if "bf16" not in inst:
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def llama_layout(rt, dev, num_layers=None):
+    """(the config, its bf16 params on the card from a seed, their layout)."""
+    from repro_torch.models import transformer
+
+    cfg = rt.configs.get_config(LLAMA)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    return cfg, params, rt.flat.FlatLayout.of(params)
+
+
+def hold_bf16_big_row(rt, layout, bw, peak, dev):
+    """The bf16 instances over llama3.2-1b's whole flat row at one client
+    (1,498,482,688 elements, 3.0 GB in bf16, so byte offsets pass 2^31 and
+    the embedding's segment alone is 262.7M elements): each held bitwise
+    against its plain version, then timed beside it with its bound. Returns
+    (largest differences, {row name: timings})."""
+    gk, ref = rt.gk, rt.ref
+    n = layout.total
+    check(n == LLAMA_PARAMS and 2 * n > 2**31, f"llama3.2-1b has {n} params")
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def draw():  # normal, rounded to 1/16 (exact in bf16), [1, N] bf16
+        x = torch.randn(n, generator=gen, device=dev)
+        return x.mul_(16).round_().div_(16).to(BF16).reshape(1, n)
+
+    worst = {"momentum_correction": 0.0, "apply_mask": 0.0}
+    times = {}
+
+    def timing(kid, name, inst, bpe, flops, row, kern, plain, reps=(5, 3)):
+        # one rep, and no warm-up, for a call of a second or more: the hold
+        # has just made the same call
+        ms, plain_ms = (timed_ms(fn, reps=r, warmup=int(r > 1)) for fn, r in zip((kern, plain),
+                                                                             reps, strict=True))
+        bound_bytes, bound_ops = bpe * n / bw * 1e3, flops * n / peak * 1e3
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+                          bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                          at=f"llama3.2-1b's row [1, {n}], {layout.num_leaves} leaves")
+        print(f"  {kid} {name} [{inst}] at [1, {n}]: kernel {ms:.4f} ms "
+              f"({bpe * n / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
+              f"{times[row]['bound_ms']:.4f} ms ({bpe * n / 1e9:.2f} GB)", flush=True)
+
+    u, v, g = draw(), draw(), draw()
+    got = gk.momentum_correction_flat(u, v, g, 0.9)
+    want = ref.momentum_correction_leaf(u, v, g, 0.9)
+    for what, a, b in zip(("U", "V"), got, want, strict=True):
+        same(worst, "momentum_correction", a, b, f"{what} over the llama3.2-1b row")
+    del got, want
+    timing("K2", "momentum_correction", "bf16,bf16->bf16", 10, 3, "momentum_correction_bf16",
+           lambda: gk.momentum_correction_flat(u, v, g, 0.9),
+           lambda: ref.momentum_correction_leaf(u, v, g, 0.9))
+    del g
+    mask = torch.rand(1, n, generator=gen, device=dev).gt_(0.9).float()
+    got = gk.apply_mask_flat(u, v, mask)
+    want = ref.apply_mask_update_leaf(u, v, mask)
+    for what, a, b in zip(("G", "U", "V"), got, want, strict=True):
+        check(a.dtype == torch.float32, f"K3 over the llama row: {what} is {a.dtype}")
+        same(worst, "apply_mask", a, b, f"{what} over the llama3.2-1b row")
+    del got, want
+    timing("K3", "apply_mask", "bf16,f32->f32", 20, 4, "apply_mask_bf16_to_f32",
+           lambda: gk.apply_mask_flat(u, v, mask), lambda: ref.apply_mask_update_leaf(u, v, mask))
+    del mask
+    torch.cuda.empty_cache()
+    m = draw()
+    sel, scal = hold_bf16_select(rt, layout, u, v, m, f"llama3.2-1b's row [1, {n}] (byte "
+                                 f"offsets past 2^31)", dev)
+    worst.update(sel)
+    offs, keep = layout.offsets_dev, layout.keep(RATE)[1]
+    w, tau = torch.ones(1, device=dev), scal["tau"]
+    timing("K1", "gmf_select", "bf16,bf16", 4, 19, "gmf_select_bf16",
+           lambda: gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau, eps=EPS),
+           lambda: ref.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS), reps=(1, 1))
+    timing("K1", "gmf_compress", "bf16,bf16", 14, 10, "gmf_compress_bf16",
+           lambda: gk.gmf_compress_flat(u, v, m, offsets=offs, **scal),
+           lambda: ref.gmf_compress_segments(u, v, m, layout=layout, **scal), reps=(5, 1))
+    seg = max(layout.sizes)
+    print(f"  gmf_select's largest segment here: {seg} elements on one block (S8)",
+          flush=True)
+    del u, v, m
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+def hold_mixed_tree(rt, dev):
+    """A tree of mixed dtypes through ``client_compress`` on the card:
+    granite-moe-1b-a400m at its published widths, cut to 2 layers, in bf16
+    with its float32 routers (two dtype groups), 3 clients, the fused and
+    the staged dgcwgmf paths. The kernels' run is held bitwise against the
+    same call on the plain versions (``kernels.ops`` told the tensors are
+    not on the card), payloads, state and counts; each kernel launches once
+    per group a call. Returns the largest differences."""
+    from repro_torch.models import transformer
+
+    core, flat, ops = rt.core, rt.flat, rt.ops
+    cfg = dataclasses.replace(rt.configs.get_config("granite-moe-1b-a400m"), num_layers=2)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    layout = flat.FlatLayout.of(params)
+    check(layout.groups is not None and len(layout.groups) == 2,
+          "granite-moe in bf16 should have a bf16 and a float32 group")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    k = 3
+    worst = {"gmf_select": 0.0, "gmf_compress": 0.0, "momentum_correction": 0.0,
+             "apply_mask": 0.0}
+
+    def stacks():  # normal, rounded to 1/16, [k, N_g] in each group's dtype
+        return tuple(torch.randn(k, g.total, generator=gen, device=dev).mul_(16).round_()
+                     .div_(16).to(g.dtype) for g in layout.groups)
+
+    grad = stacks()
+    for label, kw, want_counts in (
+            ("fused", {"use_kernels": True}, {"gmf_select": 2, "gmf_compress": 2,
+                                              "momentum_correction": 2, "apply_mask": 0}),
+            ("staged", {}, {"gmf_select": 2, "gmf_compress": 0, "momentum_correction": 2,
+                            "apply_mask": 2})):
+        scheme = core.resolve(core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3,
+                                                     **kw))
+        state = core.ClientState(u=stacks(), v=stacks(), m=stacks())
+        gbar = tuple(x[0].clone() for x in stacks())
+        rt.gk.reset_launches()
+        got = scheme.client_compress(state, grad, gbar, 1, layout=layout)
+        torch.cuda.synchronize()
+        counts = dict(rt.gk.LAUNCHES)
+        check(counts == want_counts, f"mixed tree, {label}: launches {counts}, expected "
+                                     f"{want_counts} (one per dtype group)")
+        saved = ops._on_card, ops.momentum_correction
+        ops._on_card = lambda x: False  # every wrapper takes its plain version
+        ops.momentum_correction = lambda u, v, g, alpha, state_dtype=False: \
+            rt.ref.momentum_correction(u, v, g, float(alpha), state_dtype)
+        try:
+            want = scheme.client_compress(state, grad, gbar, 1, layout=layout)
+        finally:
+            ops._on_card, ops.momentum_correction = saved
+        pairs = [(got[0], want[0], "payload")] + [
+            (getattr(got[1], f), getattr(want[1], f), f) for f in ("u", "v", "m")]
+        for a_t, b_t, what in pairs:
+            for i, (a, b) in enumerate(zip(a_t, b_t, strict=True)):
+                check(a.dtype == b.dtype, f"mixed tree {label}: {what} group {i} dtype")
+                same(worst, "gmf_compress", a, b, f"{what} group {i} ({label})")
+        check(torch.equal(got[2].upload_nnz, want[2].upload_nnz),
+              f"mixed tree {label}: upload nnz {got[2].upload_nnz} vs {want[2].upload_nnz}")
+        print(f"  held dgcwgmf ({label}) over granite-moe's mixed tree at 2 layers "
+              f"({[str(d) for d in layout.dtypes]}, {[g.total for g in layout.groups]} "
+              f"elements, {k} clients): bitwise, launches {counts}, nnz "
+              f"{got[2].upload_nnz.tolist()}", flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# training: the one-device trainer and LMTask through the FL engines
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=8, seq_len=256, steps=4)
+LMFL = dict(depth=2, clients=4, cohort=2, batch=2, seq_len=256, rounds=3)
+TRAIN_DIR = ROOT / "build" / "train"  # the runs' metrics files (ignored by git)
+
+
+def train_args(dev, extra):
+    from repro_torch.launch import train
+
+    return train, train.parser().parse_args(["--arch", LLAMA, "--log-every", "1",
+                                             "--device", str(dev), *extra])
+
+
+def exact_k(layout):
+    return sum(layout.keep(RATE)[0])
+
+
+def train_phase(rt, dev, card, k_sum, profile=False):
+    """``launch/train.py``'s ``run_dist`` at ``mesh=None`` on llama3.2-1b at
+    its published size (16 layers, d_model 2048, bf16, 1,498,482,688
+    params): gmf_data (one GMF client) with dgcwgmf at rate 0.1 on the fused
+    kernel path (the state stays bf16: K2, gmf_select and K1 in bf16), batch
+    8, sequence 256, 4 steps; then the same with dense sync. Checks each
+    upload count against the exact-k sum, the launches per step, finite
+    losses; then profiles one more step of gmf_data (device busy share,
+    the step's phases), and of dense too under ``profile``. ``k_sum`` is
+    the exact-k sum of llama3.2-1b's layout. Returns (launch counts, instance counts, numbers)."""
+    core = rt.core
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = rt.configs.get_config(LLAMA)
+    check(cfg.param_count() == LLAMA_PARAMS and cfg.param_dtype == "bfloat16",
+          f"{LLAMA}: {cfg.param_count()} params in {cfg.param_dtype}")
+    out = {}
+    launches = {name: 0 for name in rt.gk.LAUNCHES}
+    instances = {}
+    for sync in ("gmf_data", "dense"):
+        train, args = train_args(dev, ["--grad-sync", sync, "--steps", str(TRAIN["steps"]),
+                                      "--batch", str(TRAIN["batch"]),
+                                      "--seq-len", str(TRAIN["seq_len"]),
+                                      "--metrics-out", str(TRAIN_DIR / f"{sync}.json")])
+        ccfg = core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3, use_kernels=True)
+        torch.cuda.reset_peak_memory_stats()
+        rt.gk.reset_launches()
+        t0 = time.perf_counter()
+        code = train.run_dist(args, ccfg, cfg, core.resolve(ccfg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, inst = dict(rt.gk.LAUNCHES), dict(rt.gk.INSTANCES)
+        hist = json.loads((TRAIN_DIR / f"{sync}.json").read_text())
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == TRAIN["steps"] and all(math.isfinite(x) for x in losses),
+              f"train {sync}: losses {losses}")
+        steps = TRAIN["steps"]
+        if sync == "gmf_data":
+            want = {"gmf_select": steps, "gmf_compress": steps, "momentum_correction": steps,
+                    "apply_mask": 0}
+            check(counts == want, f"train gmf_data: launches {counts}, expected {want}")
+            for name, n in counts.items():
+                launches[name] += n
+            for key, n in inst.items():
+                instances[key] = instances.get(key, 0) + n
+            check(set(inst) == {("gmf_select", "bf16,bf16"), ("gmf_compress", "bf16,bf16"),
+                                ("momentum_correction", "bf16,bf16->bf16")},
+                  f"train gmf_data: instances {inst}")
+            for h in hist:
+                check(min(h["upload_nnz"]) >= k_sum,
+                      f"train step {h['step']}: upload nnz {h['upload_nnz']} < {k_sum}")
+        else:
+            check(sum(counts.values()) == 0, f"dense sync launched {counts}")
+        step_ms = [round(h["step_ms"], 3) for h in hist]
+        per_step = {f"{k[0]}[{k[1]}]": n / steps for k, n in inst.items()}
+        print(f"  {sync} ({card}): exit code {code}; loss per step {losses}; step ms "
+              f"{step_ms} (step 0 first use); upload nnz {[h.get('upload_nnz') for h in hist]} "
+              f"vs the exact-k sum {k_sum}; "
+              f"launches per step by instance {json.dumps(per_step)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; {wall:.1f} s", flush=True)
+        out[sync] = dict(step_ms=step_ms[1:], loss=losses, exit=code,
+                         upload_nnz=[h.get("upload_nnz") for h in hist],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches_per_step=per_step)
+        if sync == "gmf_data" or profile:
+            out[sync]["profile"] = profile_train_step(rt, cfg, sync, ccfg, dev)
+    return launches, instances, out
+
+
+def profile_train_step(rt, cfg, sync, ccfg, dev):
+    """One profiled step of ``make_train_step`` at the train phase's shape,
+    on a fresh state (the run before it warmed the kernels and the
+    allocator): the device busy share (the union of its
+    activities' intervals over the profiled step's wall time) and the
+    device time in each of the step's phase ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.models import transformer
+
+    t_all = time.perf_counter()
+    dstep = rt.dstep
+    tcfg = TrainConfig(learning_rate=3e-3, total_steps=10, grad_sync=sync,
+                       lr_schedule="cosine", warmup_steps=1)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = dstep.init_train_state(cfg, tcfg, ccfg, params)
+    del params
+    step_fn = dstep.make_train_step(cfg, tcfg, ccfg)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                               batch_size=TRAIN["batch"], seed=1)
+    batch = to_tensors(next(stream), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del state
+    torch.cuda.empty_cache()
+    n_acts, busy, split = device_split(prof)
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
+    top = sorted(kernels, key=device_us, reverse=True)[:10]
+    print(f"    profiled {sync} step: {wall:.3f} ms, {n_acts} device activities, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f} %); set-up, step and trace "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
+    print_split(split)
+    for e in top:
+        print(f"      {device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return dict(step_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                split={k: v[1] for k, v in split.items()})
+
+
+def lmfl_phase(rt, dev, card):
+    """``launch/train.py``'s ``run_fl``: ``LMTask`` through ``FLSimulator`` at
+    llama3.2-1b's published widths (d_model 2048, vocab 128,256, bf16) cut
+    to 2 layers, 4 clients, 2 a round, batch 2, sequence 256, 3 rounds of
+    dgcwgmf on the staged path (K2 in bf16, gmf_select's |z| mode on the
+    float32 scores, K3 from the bf16 state to float32), lr 0.1. Checks
+    each client's upload count against the exact-k sum, the launches, and
+    that the server step moved the params in every round and that round 0
+    lowered the held-out loss taken in float32. The task's own held-out loss is the
+    reference's, in bf16, whose steps of 0.0625 at 12 hide a change that
+    small; ``run_fl``'s exit code reads that one. Returns (launch counts,
+    instance counts, numbers)."""
+    core = rt.core
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = dataclasses.replace(rt.configs.get_config(LLAMA), num_layers=LMFL["depth"])
+    train, args = train_args(dev, ["--backend", "fl", "--clients", str(LMFL["clients"]),
+                                  "--cohort", str(LMFL["cohort"]), "--batch", str(LMFL["batch"]),
+                                  "--seq-len", str(LMFL["seq_len"]), "--steps",
+                                  str(LMFL["rounds"]), "--lr", "0.1",
+                                  "--metrics-out", str(TRAIN_DIR / "lmfl.json")])
+    ccfg = core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3)
+    loss32 = rt.dstep.make_loss_fn(cfg)  # float32 logits; llama has no aux and no -1 labels
+    watch = []  # (float32 held-out loss, params changed, norm of the change) per read
+
+    class WatchedLMTask(rt.fl.LMTask):
+        """LMTask that also reads the params at init and after each round."""
+
+        def _read(self, params):
+            leaves = [p.detach() for p in rt.utils.tree_leaves(params)]
+            before = getattr(self, "_before", None) or leaves
+            changed = sum(int((p != q).sum()) for p, q in zip(leaves, before, strict=True))
+            norm = math.sqrt(sum(float((p.float() - q.float()).square().sum())
+                                 for p, q in zip(leaves, before, strict=True)))
+            self._before = [p.clone() for p in leaves]
+            with torch.no_grad():
+                watch.append((float(loss32(params, self.held_out)[0]), changed, norm))
+
+        def init_fn(self, generator):
+            params = super().init_fn(generator)
+            self._read(params)
+            return params
+
+        def held_out_loss(self, params):
+            self._read(params)
+            return super().held_out_loss(params)
+
+    torch.cuda.reset_peak_memory_stats()
+    rt.gk.reset_launches()
+    saved, rt.fl.LMTask = rt.fl.LMTask, WatchedLMTask  # run_fl imports it at call time
+    t0 = time.perf_counter()
+    try:
+        code = train.run_fl(args, ccfg, cfg)
+    finally:
+        rt.fl.LMTask = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, inst = dict(rt.gk.LAUNCHES), dict(rt.gk.INSTANCES)
+    hist = json.loads((TRAIN_DIR / "lmfl.json").read_text())
+    r = LMFL["rounds"]
+    want = {"gmf_select": r, "gmf_compress": 0, "momentum_correction": r, "apply_mask": r}
+    check(counts == want, f"LM-FL: launches {counts}, expected {want}")
+    check(inst.get(("momentum_correction", "bf16,bf16->bf16")) == r
+          and inst.get(("apply_mask", "bf16,f32->f32")) == r,
+          f"LM-FL: instances {inst}")
+    k_sum = exact_k(llama_layout(rt, dev, LMFL["depth"])[2])
+    for h in hist:
+        check(len(h["upload_nnz"]) == LMFL["cohort"] and min(h["upload_nnz"]) >= k_sum,
+              f"LM-FL round {h['round']}: upload nnz {h['upload_nnz']} < {k_sum}")
+        check(math.isfinite(h["loss"]), f"LM-FL round {h['round']}: loss {h['loss']}")
+    losses32 = [x[0] for x in watch]
+    check(len(watch) == r + 1 and all(math.isfinite(x) for x in losses32),
+          f"LM-FL: float32 held-out losses {losses32}")
+    for t, (_, changed, norm) in enumerate(watch[1:]):
+        check(changed > 0 and norm > 0, f"LM-FL round {t}: the params did not move")
+    check(losses32[1] < losses32[0], f"LM-FL: round 0 did not lower the float32 held-out "
+                                     f"loss: {losses32}")
+    ms = [round(h["round_ms"], 3) for h in hist]
+    print(f"  LM-FL ({card}): exit code {code} (the bf16 held-out loss); {cfg.param_count()} "
+          f"params; held-out loss per round {[h['loss'] for h in hist]} (bf16), "
+          f"{losses32} (float32, at init then after each round); params changed per round "
+          f"{[x[1] for x in watch[1:]]}, norm of the change {[x[2] for x in watch[1:]]}; "
+          f"ms/round {ms} (round 0 first use); upload "
+          f"nnz {[h['upload_nnz'] for h in hist]} vs the exact-k sum {k_sum}; launches "
+          f"{counts}; instances {json.dumps({f'{k[0]}[{k[1]}]': n for k, n in inst.items()})}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; {wall:.1f} s",
+          flush=True)
+    return counts, inst, dict(round_ms=ms[1:], loss=[h["loss"] for h in hist], exit=code,
+                              loss_f32=losses32, changed=[x[1] for x in watch[1:]],
+                              params=cfg.param_count())
+
+
+def lmtask_card_vs_cpu_phase(rt, dev, tol=1e-2):
+    """Each of the ten architectures at ``smoke()``: ``LMTask`` through
+    ``FLSimulator`` on the card and on the CPU from the same params, 2
+    rounds of dgcwgmf (the fused kernels on the card), 4 clients, 2 a
+    round: the broadcast and the params within ``tol`` relative L2, every
+    upload count at least the exact-k sum and within 1e-4 relative of the
+    other device's (a score that ties a threshold on one device may not on
+    the other). The client gradients are ``vmap(grad)`` on both,
+    so the RG-LRU scan's and the MoE's gradient paths run on the card."""
+    from repro_torch.models import transformer
+
+    out = {}
+    for arch in rt.configs.ARCH_IDS:
+        cfg = rt.configs.get_smoke(arch)
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(3))
+        runs = {}
+        for device in ("cpu", dev):
+            task = rt.fl.LMTask(cfg, num_clients=4, batch_size=2, seq_len=32, device=device)
+            comp = rt.core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3,
+                                             use_kernels=True)
+            fl = rt.fl.FLConfig(num_clients=4, clients_per_round=2, rounds=2, batch_size=2,
+                                learning_rate=0.1)
+            sim = rt.fl.FLSimulator(
+                fl, comp, lambda gen, d=device: rt.utils.tree_map(lambda x: x.to(d), params),
+                task.loss_fn, device=device)
+            hist = sim.run(task.batch_provider)
+            runs[str(device)] = ([h["upload_nnz"] for h in hist],
+                                 sim.layout.flatten(sim.params).float().cpu(),
+                                 sim.gbar_prev.float().cpu())
+        (n_c, p_c, b_c), (n_g, p_g, b_g) = runs["cpu"], runs[str(dev)]
+        k_sum = exact_k(rt.flat.FlatLayout.of(params))
+        for a, b in zip(np.ravel(n_g), np.ravel(n_c), strict=True):
+            # each keeps at least the exact k; a score that ties the
+            # threshold on one device may not on the other
+            check(min(a, b) >= k_sum and abs(a - b) <= 1e-4 * b,
+                  f"{arch} card vs CPU: upload nnz {n_g} vs {n_c} (exact-k sum {k_sum})")
+        rel_p = float((p_g - p_c).norm() / p_c.norm())
+        rel_b = float((b_g - b_c).norm() / b_c.norm())
+        check(rel_p <= tol and rel_b <= tol,
+              f"{arch} card vs CPU: params {rel_p:.3e}, broadcast {rel_b:.3e} relative L2")
+        out[arch] = dict(params_rel_l2=rel_p, broadcast_rel_l2=rel_b)
+    print(f"  LMTask card vs CPU, 2 rounds each (tolerance {tol}): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+T_START = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - T_START:.1f} s]", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels",), default=None,
                     help="run only the build and kernel phases")
     ap.add_argument("--profile", action="store_true",
-                    help="also break down where each serving run's time goes "
-                         "(torch.profiler; phases 5 and 13)")
+                    help="also break down where a ResNet-56 and a Shakespeare round's, "
+                         "each serving run's and a dense training step's time goes "
+                         "(torch.profiler; phases 4, 5, 9, 13 and 14)")
     args = ap.parse_args()
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -2638,7 +3245,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("phase 1: build", flush=True)
+    phase("phase 1: build")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source, at once
         libs = list(pool.map(lambda make: make(), (gk.build, k4.build, k4.build_tc)))
@@ -2654,7 +3261,7 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("phase 2: kernels vs plain versions", flush=True)
+    phase("phase 2: kernels vs plain versions")
     resnet_params = _resnet56_params(dev)
     lstm_layout = flat.FlatLayout.of(_lstm_params(dev))
     resnet_layout = flat.FlatLayout.of(resnet_params)
@@ -2667,88 +3274,125 @@ def main() -> None:
     worst["momentum_correction"] = max(worst["momentum_correction"],
                                        hold_k2_trees(gk, ops, ref, leaf_shapes, dev))
     k4_worst = hold_k4(k4, ref, dev)
+    phase("phase 2: K1-K3 over bf16 and mixed-dtype state")
+    bf16_worst = hold_bf16_elementwise(rt, dev)
+    toy_label, toy_layout, _, _ = toy
+    rng = np.random.default_rng(12)
+    # bf16 state over the three layouts; float32 state with a bf16 m over the
+    # odd segments only
+    for label, layout, rows, s_dtype in (("ResNet-56, 4 clients", resnet_layout, 4, BF16),
+                                         (toy_label, toy_layout, 5, BF16),
+                                         (toy_label, toy_layout, 5, torch.float32),
+                                         ("the char-LSTM, 10 clients", lstm_layout, 10, BF16)):
+        u, v, m = kernel_inputs(rng, rows, layout.total, dev)
+        errs, _ = hold_bf16_select(rt, layout, u.to(s_dtype), v.to(s_dtype), m.to(BF16), label,
+                                   dev)
+        for key, err in errs.items():
+            bf16_worst[key] = max(bf16_worst.get(key, 0.0), err)
+    _, llama_params, llama_lay = llama_layout(rt, dev)
+    del llama_params
+    big_worst, bf16_times = hold_bf16_big_row(rt, llama_lay, bw, peak, dev)
+    for part in (big_worst, hold_mixed_tree(rt, dev)):
+        for key, err in part.items():
+            bf16_worst[key] = max(bf16_worst.get(key, 0.0), err)
     print(json.dumps({"kernels_held": [
         "K1 gmf_select (and its |z| mode)", "K1 gmf_select with a per-row keep table (both modes)",
         "K1 gmf_compress (flat mask pass)",
         "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
         "K4 flash_attention_tc (tensor cores; G 7 and 12 at D 128; D 112 and 256)",
-        "K4 flash_attention_cc (CUDA cores; float32 at D 112 and 256)"]}),
+        "K4 flash_attention_cc (CUDA cores; float32 at D 112 and 256)",
+        "K1 gmf_select and gmf_compress over bf16 and (f32 state, bf16 m) stacks and "
+        "llama3.2-1b's 3.0 GB bf16 row", "K2 bf16, (f32, bf16), (bf16, f32) and into bf16",
+        "K3 bf16 with a f32 or bf16 mask, into f32 or bf16",
+        "K1-K3 per dtype group over granite-moe's mixed tree"]}),
         flush=True)
 
     launches = {name: 0 for _, name, _, _, _ in KERNELS}
     launches.update(flash_attention_tc=0, flash_attention_cc=0)
     by_path = {}  # the compression kernels' launches in each path's run
+    bf16_by_path = {}  # the training paths' launches by kernel instance
     served_k4 = {}  # phase 13's K4 launches by config
     if args.only != "kernels":
-        print("phase 3: ResNet-56 FL path, 20 clients, batch 64", flush=True)
+        phase("phase 3: ResNet-56 FL path, 20 clients, batch 64")
         by_path["resnet56"], task = path_phase(rt, dev)
-        print("phase 4: card vs CPU, round 0 at depth 8", flush=True)
+        phase("phase 4: card vs CPU, round 0 at depth 8")
         card_vs_cpu_phase(rt, dev)
-        print("profile: where a ResNet-56 round's time goes", flush=True)
-        profile_phase(rt, task)
-        print("phase 5: serving llama3.2-1b, batch 4, prompt 2048, 32 tokens", flush=True)
+        if args.profile:
+            phase("profile: where a ResNet-56 round's time goes")
+            profile_phase(rt, task)
+        phase("phase 5: serving llama3.2-1b, batch 4, prompt 2048, 32 tokens")
         _, counts = serve_phase(rt, dev, args.profile)
         launches["flash_attention_tc"] = counts["flash_attention_tc"]
-        print("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2", flush=True)
+        phase("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2")
         launches["flash_attention_cc"] = serve_card_vs_cpu_phase(rt, dev)
-        print("phase 6: serving, card vs CPU, the moe, ssm, hybrid, vlm and audio families "
-              "and kimi-k2's head dim 112", flush=True)
+        phase("phase 6: serving, card vs CPU, the moe, ssm, hybrid, vlm and audio families "
+              "and kimi-k2's head dim 112")
         launches["flash_attention_cc"] += family_card_vs_cpu_phase(rt, dev)
-        print("phase 7: ResNet-56 under the int8 and bf16 wires, the top-k downlink and "
-              "per-client rates, 2 rounds each", flush=True)
+        phase("phase 7: ResNet-56 under the int8 and bf16 wires, the top-k downlink and "
+              "per-client rates, 2 rounds each")
         by_path["resnet56_stages"] = resnet_presets_phase(rt, task)
         del task
-        print("phase 8: Shakespeare (char-LSTM, hidden 256), 100 clients, 10 a round, batch "
-              "8, lr 0.5, 3 rounds a preset", flush=True)
+        phase("phase 8: Shakespeare (char-LSTM, hidden 256), 100 clients, 10 a round, batch "
+              "8, lr 0.5, 3 rounds a preset")
         by_path["shakespeare"], task = shakespeare_phase(rt, dev)
-        print("phase 9: Shakespeare card vs CPU, round 0 at full width", flush=True)
+        phase("phase 9: Shakespeare card vs CPU, round 0 at full width")
         shakespeare_card_vs_cpu_phase(rt, dev)
-        print("profile: where a Shakespeare round's time goes", flush=True)
-        profile_phase(rt, task, [(k, SHAKESPEARE_PRESETS[k][0]) for k in ("dgcwgmf", "dgc")],
-                      clients=SHAKESPEARE["clients"], per_round=SHAKESPEARE["per_round"],
-                      batch=SHAKESPEARE["batch"], lr=SHAKESPEARE["lr"])
+        if args.profile:
+            phase("profile: where a Shakespeare round's time goes")
+            profile_phase(rt, task, [(k, SHAKESPEARE_PRESETS[k][0]) for k in ("dgcwgmf", "dgc")],
+                          clients=SHAKESPEARE["clients"], per_round=SHAKESPEARE["per_round"],
+                          batch=SHAKESPEARE["batch"], lr=SHAKESPEARE["lr"])
         del task
-        print("phase 10: ResNet-56 under the remaining stage kinds (randomk, fetchsgd, the "
-              "probquant wire, the Hadamard rotation), 2 rounds each", flush=True)
+        phase("phase 10: ResNet-56 under the remaining stage kinds (randomk, fetchsgd, the "
+              "probquant wire, the Hadamard rotation), 2 rounds each")
         task = rt.fl.CifarTask(num_clients=20, depth=56,
                                data=rt.synthetic.SynthCIFAR(num_train=20000), device=dev)
         by_path["resnet56_remaining"], remaining_ms = remaining_stages_phase(rt, task)
         print(f"  ms/round after round 0 ({card}): {json.dumps(remaining_ms)}", flush=True)
-        print("phase 10: the remaining stage kinds, card vs CPU, round 0 at depth 8",
-              flush=True)
+        phase("phase 10: the remaining stage kinds, card vs CPU, round 0 at depth 8")
         remaining_card_vs_cpu_phase(rt, dev)
-        print("phase 11: ResNet-56 under the async, ring, hierarchical and shard engines",
-              flush=True)
+        phase("phase 11: ResNet-56 under the async, ring, hierarchical and shard engines")
         by_path["resnet56_engines"], engine_ms = engines_phase(rt, task, dev)
         print(f"  ms/round (ms/tick) after round 0 ({card}): {json.dumps(engine_ms)}",
               flush=True)
-        print("phase 12: telemetry (repro_torch.obs) on the card", flush=True)
+        phase("phase 12: telemetry (repro_torch.obs) on the card")
         by_path["resnet56_obs"] = obs_phase(rt, task, card, bw)
         del task
-        print("phase 13: serving every remaining architecture at its published widths",
-              flush=True)
+        phase("phase 13: serving every remaining architecture at its published widths")
         t13 = time.perf_counter()
         served, served_k4, held = serve_families_phase(rt, dev, card, args.profile)
         for key, err in held.items():
             k4_worst[key] = max(k4_worst[key], err)
         print(f"  phase 13 in {time.perf_counter() - t13:.1f} s ({card}): "
               f"{json.dumps(served)}", flush=True)
+        phase("phase 14: training llama3.2-1b at its published size on the one-device "
+              "trainer (gmf_data and dense), batch 8, sequence 256, 4 steps")
+        t14 = time.perf_counter()
+        _, train_inst, _ = train_phase(rt, dev, card, exact_k(llama_lay), args.profile)
+        phase("phase 15: LMTask through FLSimulator at llama3.2-1b's widths, 2 layers, 4 "
+              "clients, 2 a round, 3 rounds")
+        _, lmfl_inst, _ = lmfl_phase(rt, dev, card)
+        phase("phase 15: LMTask card vs CPU, the ten architectures at smoke()")
+        lmtask_card_vs_cpu_phase(rt, dev)
+        print(f"  phases 14-15 in {time.perf_counter() - t14:.1f} s", flush=True)
+        for path, inst in (("llama_train", train_inst), ("llama_lmfl", lmfl_inst)):
+            by_path[path] = f32_launches(inst)
+            bf16_by_path[path] = inst
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n
 
-    print("timing: one round's flat ResNet-56 stacks, 20 clients", flush=True)
+    phase("timing: one round's flat ResNet-56 stacks, 20 clients")
     times = time_kernels(rt, resnet_layout, 20, bw, peak, dev)
-    print("timing: gmf_select's |z| mode on the Shakespeare, downlink and adaptive paths",
-          flush=True)
+    phase("timing: gmf_select's |z| mode on the Shakespeare, downlink and adaptive paths")
     select_paths = time_select_paths(rt, [
         ("Shakespeare round (10 clients), per-row keep table", lstm_layout, 10, True),
         ("Shakespeare round (10 clients), shared counts (dgc)", lstm_layout, 10, False),
         ("ResNet-56 round (20 clients), per-row keep table (adaptive)", resnet_layout, 20, True),
         ("ResNet-56 broadcast (the top-k downlink)", resnet_layout, 1, False)], bw, peak, dev)
-    print("timing: K4 at the serving shape", flush=True)
+    phase("timing: K4 at the serving shape")
     k4_times = time_k4(k4, ref, bw, peak, bf16_peak, dev)
-    print("timing: K4 at recurrentgemma-9b's and kimi-k2-1t-a32b's prefill shapes", flush=True)
+    phase("timing: K4 at recurrentgemma-9b's and kimi-k2-1t-a32b's prefill shapes")
     k4_times.update(time_k4_new_dims(k4, ref, bw, bf16_peak, dev))
     torch.cuda.synchronize()
 
@@ -2761,6 +3405,16 @@ def main() -> None:
         if name == "gmf_select":
             row["at_other_paths"] = select_paths
         rows.append(row)
+    # K1-K3's bf16 instances: launches in the training paths' runs (phases 14
+    # and 15), held and timed over llama3.2-1b's bf16 row in phase 2.
+    replaces = {name: rep for _, name, rep, _, _ in KERNELS}
+    for kid, name, inst, _, _, row_name in BF16_KERNELS:
+        by = {path: c.get((name, inst), 0) for path, c in bf16_by_path.items()}
+        rows.append({"name": row_name, "id": kid, "route": "cuda", "source": PORT_SOURCE,
+                     "replaces": replaces[name], "instance": inst,
+                     "launches": sum(by.values()), "launches_by_path": by,
+                     "max_abs_err": bf16_worst[name], **bf16_times[row_name],
+                     "library_ms": None})
     # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.
@@ -2785,6 +3439,7 @@ def main() -> None:
                      "launches_in": f"phase 13: {arch}, run_fixed (bf16)",
                      "max_abs_err": k4_worst[key], **k4_times[key],
                      "ptxas": tc_ptxas.get(d)})
+    phase("results")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

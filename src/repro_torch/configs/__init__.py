@@ -23,7 +23,13 @@ from repro_torch.configs import (
     recurrentgemma_9b,
     yi_34b,
 )
-from repro_torch.configs.base import FAMILIES, ModelConfig
+from repro_torch.configs.base import (
+    FAMILIES,
+    INPUT_SHAPES,
+    InputShape,
+    ModelConfig,
+    TrainConfig,
+)
 
 _MODULES = (
     llama3_2_1b,
@@ -60,5 +66,17 @@ def get_smoke(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke()
 
 
-__all__ = ["ARCHS", "ARCH_IDS", "FAMILIES", "ModelConfig", "get_config", "get_long_variant",
-           "get_smoke"]
+def default_grad_sync(cfg: ModelConfig, *, multi_pod: bool) -> str:
+    """The reference's choice of grad-sync mode: compression over ``data``
+    on one pod when the params and the per-shard error-feedback state fit
+    (≤ 5e9 params), over ``pod`` across pods, dense otherwise; the archs
+    that need FSDP (> 40e9 params) sync densely across pods."""
+    from repro_torch.dist.step import needs_fsdp
+
+    if multi_pod:
+        return "dense" if needs_fsdp(cfg) else "gmf_pod"
+    return "dense" if cfg.param_count() > 5e9 else "gmf_data"
+
+
+__all__ = ["ARCHS", "ARCH_IDS", "FAMILIES", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "TrainConfig", "default_grad_sync", "get_config", "get_long_variant", "get_smoke"]

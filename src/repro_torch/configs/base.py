@@ -2,8 +2,8 @@
 ``configs/base.py`` ``ModelConfig`` (every field, default and derived
 quantity), so the port imports nothing of the JAX package.
 
-``InputShape`` and ``TrainConfig`` are not copied yet: the serving path
-does not read them (ROADMAP Queue 1 item 11 brings the launchers that do).
+``InputShape``, ``INPUT_SHAPES`` and ``TrainConfig`` are copies too, field
+for field.
 """
 
 from __future__ import annotations
@@ -172,3 +172,37 @@ class ModelConfig:
         active_p = self.experts_per_token * 3 * self.d_model * self.d_ff
         moe_layers = sum(1 for lt in self.layer_types if lt == "attn")
         return full - moe_layers * (expert_p - active_p)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned (seq_len, global_batch, mode) tuples."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimiser + compression wiring for a training run."""
+
+    learning_rate: float = 0.1
+    momentum: float = 0.0            # optimiser-level momentum (paper: 0, momentum
+                                     # lives in the correction term)
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    lr_schedule: str = "constant"    # constant | cosine | step
+    warmup_steps: int = 0
+    total_steps: int = 1000
+    grad_sync: str = "dense"         # dense | gmf_data | gmf_pod
+    seed: int = 0

@@ -21,7 +21,14 @@ repro_torch.core.registry`` lists every stage and preset::
 The client axis is explicit and the state is flat: ``Scheme.client_compress``
 takes the ``[k, N]`` state and gradient stacks of k clients
 (``utils/flat.py``) with their layout and compresses them all at once (the
-reference compresses one client's tree and is vmapped).
+reference compresses one client's tree and is vmapped). A tree of mixed
+dtypes (``GroupedLayout``) runs the same steps once per dtype group, with
+every flat quantity a tuple of one stack per group; the counts add up
+over the groups. Each group holds whole leaves, so this is the
+reference's per-leaf computation for every stage that works leaf by
+leaf; the stages that work across leaves or key draws by leaf index
+(global top-k, random-k, the sketch, the stochastic wire, the rotation,
+adaptive rates) raise on such a tree (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -44,8 +51,19 @@ from repro_torch.core.state import (
     init_server_state,
 )
 from repro_torch.utils import scalar, tree_nnz
-from repro_torch.utils.flat import FlatLayout
+from repro_torch.utils.flat import FlatLayout, GroupedLayout
 from repro_torch.utils.quant import roundtrip_q8_segments
+
+
+def _group(x, i):
+    """Group ``i``'s part of a flat quantity: ``x[i]`` of a tuple; an
+    unused ``{}`` (or None) field stays as it is."""
+    return x[i] if isinstance(x, tuple) else x
+
+
+def _gather(parts):
+    """Per-group results -> one tuple per field, unused fields kept ``{}``."""
+    return parts[0] if isinstance(parts[0], dict) and not parts[0] else tuple(parts)
 
 # Presets of the reference not ported yet -> the ROADMAP item that ports them.
 NOT_PORTED_PRESETS: dict[str, str] = {}
@@ -265,6 +283,10 @@ class Scheme:
         (``[k, N]``; ``[k, rows·cols]`` under a sketch), the new state stack
         and a ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
         cfg = self.cfg
+        if isinstance(layout, GroupedLayout):
+            return self._grouped_client(state, grad, gbar_prev, round_idx, local_steps,
+                                        mean_steps, tau_override, rates, wire_levels,
+                                        client_ids, layout)
         if self.is_sketch:
             return self._sketch_client(state, grad, layout)
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
@@ -305,6 +327,38 @@ class Scheme:
                                                 layout, wire_levels, ctx)
         return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
 
+    def check_grouped(self) -> None:
+        """Raise unless every stage works leaf by leaf (a tree of mixed
+        dtypes runs each dtype group on its own)."""
+        cfg = self.cfg
+        across = [name for name, bad in (
+            ("the sketch selector", self.is_sketch),
+            ("global top-k (per_tensor=False)", not cfg.per_tensor),
+            ("the randomk selector", self.selector.name == "randomk"),
+            (f"the stochastic {self.wire.name} wire", self.wire.stochastic),
+            (f"the {self.rotation.name} rotation", not self.rotation.identity),
+            ("adaptive rate control", self.rate_adaptive)) if bad]
+        if across:
+            raise NotImplementedError(
+                f"scheme {self.name!r}: {', '.join(across)} on a tree of mixed dtypes is not "
+                f"ported yet (it works across leaves or keys draws by leaf): ROADMAP "
+                f"Queue 1 item 15")
+
+    def _grouped_client(self, state, grad, gbar_prev, round_idx, local_steps, mean_steps,
+                        tau_override, rates, wire_levels, client_ids, layout):
+        """``client_compress`` once per dtype group of a ``GroupedLayout``:
+        payloads and state fields come back as tuples, the upload counts
+        summed over the groups."""
+        self.check_grouped()
+        outs = [self.client_compress(
+            ClientState(*(_group(f, i) for f in state)), grad[i], _group(gbar_prev, i),
+            round_idx, local_steps, mean_steps, tau_override, rates, wire_levels, client_ids,
+            layout=sub) for i, sub in enumerate(layout.groups)]
+        payload = tuple(o[0] for o in outs)
+        new_state = ClientState(*(_gather([o[1][f] for o in outs]) for f in range(3)))
+        nnz = sum(o[2].upload_nnz for o in outs)
+        return payload, new_state, CompressInfo(upload_nnz=nnz, total_params=layout.total)
+
     def _encode_payload(self, cfg, g_out, state: ClientState, layout, wire_levels, ctx):
         """Wire-encode the payload stack: rotation forward, the wire round
         trip (clients at wire level 1, the adaptive controller's int8 drop,
@@ -344,6 +398,16 @@ class Scheme:
         (``owns_lr``) needs ``layout`` (for N) and ``lr``, which enters its
         sketch-space error feedback."""
         cfg = self.cfg
+        if isinstance(layout, GroupedLayout):
+            self.check_grouped()
+            outs = [self.server_aggregate(ServerState(*(_group(f, i) for f in server_state)),
+                                          g_sum[i], num_clients, layout=sub, lr=lr)
+                    for i, sub in enumerate(layout.groups)]
+            info = AggregateInfo(download_nnz=sum(o[2].download_nnz for o in outs),
+                                 total_params=layout.total,
+                                 union_nnz=sum(o[2].union_nnz for o in outs))
+            return (tuple(o[0] for o in outs),
+                    ServerState(*(_gather([o[1][f] for o in outs]) for f in range(2))), info)
         if self.is_sketch:
             bcast, new_momentum, union_nnz = self._sketch_server(
                 server_state, g_sum, num_clients, layout=layout, lr=lr)

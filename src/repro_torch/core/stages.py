@@ -55,7 +55,7 @@ import torch
 from repro_torch.core import fusion as fusion_math
 from repro_torch.core import sparsify
 from repro_torch.core.state import ClientState
-from repro_torch.utils import draws, scalar, tree_map
+from repro_torch.utils import draws, scalar, tree_map, weak
 from repro_torch.utils.flat import FlatLayout
 from repro_torch.utils.quant import roundtrip_q8_segments, roundtrip_ternary_segments
 
@@ -295,14 +295,14 @@ class MomentumCorrection(Compensator):
 
     def accumulate(self, cfg, ops, u, v, grad, extra):
         g_eff = grad if extra is None else tree_map(torch.add, grad, extra)
-        u, v = ops.momentum_correction(u, v, g_eff, cfg.alpha)
+        u, v = ops.momentum_correction(u, v, g_eff, cfg.alpha, state_dtype=cfg.use_kernels)
         return v, u, v
 
     def extract(self, cfg, ops, u, v, value, masks):
         if masks is None:
             zeros = lambda t: tree_map(lambda x: x * 0.0, t)
             return v, zeros(u), zeros(v)
-        return ops.apply_mask_update(u, v, masks)
+        return ops.apply_mask_update(u, v, masks, state_dtype=cfg.use_kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -337,8 +337,8 @@ class GlobalMomentumCompensation(Fusion):
                    "and V accumulates g + µM; score stays |V|")
 
     def pre(self, cfg, m, gbar_prev):
-        m = tree_map(lambda mm, gb: cfg.mu * mm + gb, m, gbar_prev)
-        extra = tree_map(lambda mm: cfg.mu * mm, m)
+        m = tree_map(lambda mm, gb: weak(cfg.mu, mm.dtype) * mm + gb, m, gbar_prev)
+        extra = tree_map(lambda mm: weak(cfg.mu, mm.dtype) * mm, m)
         return m, extra
 
 
@@ -349,7 +349,7 @@ class ServerGlobalMomentum(Fusion):
                    "paper problem 2.1 — the download densifies)")
 
     def server(self, cfg, momentum, gbar):
-        mom = tree_map(lambda mm, g: cfg.beta_server * mm + g, momentum, gbar)
+        mom = tree_map(lambda mm, g: weak(cfg.beta_server, mm.dtype) * mm + g, momentum, gbar)
         return mom, mom
 
 
@@ -372,7 +372,7 @@ class GlobalMomentumFusion(Fusion):
         return tau, w
 
     def scores(self, cfg, value, m, ctx: StageCtx):
-        m = cfg.beta * m + ctx.gbar_prev
+        m = weak(cfg.beta, m.dtype) * m + ctx.gbar_prev
         tau, w = self._tau_w(cfg, ctx, value.device)
         t = fusion_math.rows(tau, value)
         normalize = lambda x: fusion_math.segment_l2_normalize(x, ctx.layout, cfg.eps)
@@ -392,7 +392,7 @@ class GlobalMomentumFusion(Fusion):
         selector replaces the thresholds by its per-leaf estimates."""
         from repro_torch.kernels import ops
 
-        m = cfg.beta * m + ctx.gbar_prev
+        m = weak(cfg.beta, m.dtype) * m + ctx.gbar_prev
         k = v.shape[0]
         tau, w = (x.expand(k).contiguous() for x in self._tau_w(cfg, ctx, v.device))
         # w folds into V's inverse norm: (1−τ)·w·N(V) = (1−τ)·V·(w/‖V‖)

@@ -8,11 +8,13 @@ Fields (paper Algorithm 1):
 Schemes that don't use a field keep it as an empty dict, as in the JAX
 package, so the state structure is the same for every scheme.
 
-Each field is flat (``utils/flat.py``): one float32 ``[N]`` tensor for one
+Each field is flat (``utils/flat.py``): one ``[N]`` tensor for one
 client, the params tree's leaves one after the other in ``tree_leaves``
-order. The round engine holds the states of ALL clients as one
-client-major ``[K, N]`` stack, so each (client, leaf) segment is
-contiguous, and the sampled clients' rows move in one op per field.
+order, in the leaves' dtype (float32 for an all-float32 tree); a tree of
+mixed dtypes has one such tensor per dtype group, as a tuple. The round
+engine holds the states of ALL clients as one client-major ``[K, N]``
+stack per group, so each (client, leaf) segment is contiguous, and the
+sampled clients' rows move in one op per field and group.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.utils import tree_leaves, tree_map, tree_size
+from repro_torch.utils import tree_map
+from repro_torch.utils.flat import FlatLayout
 
 
 class ClientState(NamedTuple):
@@ -36,9 +39,9 @@ class ServerState(NamedTuple):
 
 
 def _flat_zeros(params):
-    """Float32 zeros of the params' flat size, on their device."""
-    device = tree_leaves(params)[0].device
-    return torch.zeros(tree_size(params), dtype=torch.float32, device=device)
+    """Zeros of the params' flat layout in the leaves' dtypes, on their
+    device (a tuple of one stack per dtype group for a mixed tree)."""
+    return FlatLayout.of(params).zeros()
 
 
 def init_client_state(params, *, use_u: bool, use_v: bool, use_m: bool) -> ClientState:
@@ -76,8 +79,10 @@ def scatter_client_states(cstates: ClientState, client_idx: torch.Tensor,
 
     Unlike the JAX reference (a functional ``.at[].set``) this writes in
     place, so the round holds one copy of the ``[K, ...]`` stack; the
-    returned tree is ``cstates`` itself."""
-    return tree_map(lambda full, upd: full.index_copy_(0, client_idx, upd),
+    returned tree is ``cstates`` itself. Rows of another dtype (a bfloat16
+    state whose update promoted to float32) are cast to the stack's, as
+    the reference's scatter casts them."""
+    return tree_map(lambda full, upd: full.index_copy_(0, client_idx, upd.to(full.dtype)),
                     cstates, updated)
 
 

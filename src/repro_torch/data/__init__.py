@@ -1,3 +1,3 @@
-from repro_torch.data import partition, synthetic
+from repro_torch.data import partition, pipeline, synthetic
 
-__all__ = ["partition", "synthetic"]
+__all__ = ["partition", "pipeline", "synthetic"]

@@ -68,9 +68,12 @@ class SynthCIFAR:
 class SynthShakespeare:
     """Per-client Markov char streams (naturally non-IID).
 
-    The generator is a Python loop of ``rng.choice`` calls, one per
-    character, as in the JAX package (400,000 at 100 clients of 4,000
-    chars): a vectorised draw would consume the stream differently."""
+    The generator is a Python loop of one draw per character, as in the
+    JAX package (400,000 at 100 clients of 4,000 chars): a vectorised draw
+    would consume the stream differently. The JAX package draws with
+    ``rng.choice(VOCAB, p=trans[s])``, which is one ``rng.random()``
+    searched in the row's cdf, rebuilt on every call; the cdf of every row
+    is built once here, and the draws are the same bits."""
 
     num_clients: int = 100
     chars_per_client: int = 4_000
@@ -87,10 +90,12 @@ class SynthShakespeare:
             own = rng.dirichlet(np.ones(VOCAB) * 0.15, size=VOCAB)
             trans = (1 - self.client_mix) * base + self.client_mix * own
             trans /= trans.sum(axis=1, keepdims=True)
+            cdf = trans.cumsum(axis=1)
+            cdf /= cdf[:, -1:]
             toks = np.empty(self.chars_per_client, np.int32)
             s = int(rng.integers(VOCAB))
             for i in range(self.chars_per_client):
-                s = int(rng.choice(VOCAB, p=trans[s]))
+                s = int(cdf[s].searchsorted(rng.random(), side="right"))
                 toks[i] = s
             self.client_tokens.append(toks)
             hist = np.bincount(toks, minlength=VOCAB)

@@ -1,33 +1,244 @@
-"""Prefill and decode steps: the port of the serving half of the
-reference's ``dist/step.py``, on one device.
+"""Train, prefill and decode steps: the port of the reference's
+``dist/step.py`` on one device.
 
 The reference builds these for an SPMD mesh; the port runs them on the
-device the params lie on. A mesh raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 11 ports the dist runtime), as do the train step and the
-paged variants (item 12). Both steps run under ``torch.no_grad``; the
-decode step writes into the cache it is given.
+device the params lie on, as the reference runs them without one (its
+single-device path: ``_num_shards`` is 1 when there is no mesh). A mesh
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 11 part B ports it),
+as do the paged serving steps (item 12).
+
+Training (``make_train_step``): ``dense`` is plain SGD on the batch's
+gradient; ``gmf_data`` and ``gmf_pod`` make the whole device one GMF
+client (n = 1) whose gradient runs through ``Scheme.client_compress`` and
+``server_aggregate`` with its own flat compression state, as the FL
+engines do (``TrainState.cstate`` is a ``[1, N]`` stack per field, a
+tuple of them for a tree of mixed dtypes). With n = 1 there is nothing to
+``vmap`` over, so the gradient is plain autograd (``torch.autograd.grad``),
+which is what lets the model honour ``remat`` here. The state keeps the
+reference's dtypes: it starts in the params' dtype and promotes as jnp
+promotes it; the params step in float32 and keep their dtype.
+
+The step's phases run inside ``obs.trace.annotate_scope`` ranges with the
+FL engines' names (``round.client_grads``, ``round.client_compress``,
+``round.server_aggregate``, ``round.apply_update``), so a
+``torch.profiler`` trace splits a step as it splits a round.
+
+Serving: both steps run under ``torch.no_grad``; the decode step writes
+into the cache it is given.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Any, NamedTuple
 
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import resolve
+from repro_torch.core.state import ClientState, ServerState
 from repro_torch.models import transformer
+from repro_torch.obs import trace
+from repro_torch.optim import sgd
+from repro_torch.utils import tree_leaves, tree_map, tree_size, tree_unflatten
+from repro_torch.utils.flat import FlatLayout
+
+GRAD_SYNC_MODES = ("dense", "gmf_data", "gmf_pod")
+
+# Params sharded over data AND model (FSDP) in the reference above this
+# count: the >40 B archs (qwen2-vl-72b, command-r-plus-104b, kimi-k2-1t).
+_FSDP_PARAM_THRESHOLD = 40e9
+
+
+def needs_fsdp(cfg) -> bool:
+    return cfg.param_count() > _FSDP_PARAM_THRESHOLD
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: Any          # optimiser slots (SGDState)
+    cstate: Any       # compression state, [n, N] stacks (n = 1 without a mesh)
+    sstate: Any       # server-side state (momentum for dgcwgm, downlink residual)
+    gbar: Any         # last broadcast Ĝ, flat (feeds the global momentum M)
+    step: int
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("meshes need the dist runtime's sharded half, which is not "
+                                  "ported yet: ROADMAP Queue 1 item 11 part B")
+
+
+def _sync_axis(grad_sync: str) -> str | None:
+    if grad_sync == "gmf_data":
+        return "data"
+    if grad_sync == "gmf_pod":
+        return "pod"
+    if grad_sync == "dense":
+        return None
+    raise ValueError(f"unknown grad_sync {grad_sync!r}; choose from {GRAD_SYNC_MODES}")
+
+
+def _num_shards(grad_sync: str, mesh) -> int:
+    """GMF clients of a step: 1 without a mesh (the reference's
+    single-device path), and for dense sync."""
+    _sync_axis(grad_sync)
+    _no_mesh(mesh)
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def make_loss_fn(cfg, mesh=None):
+    """Masked-NLL LM loss, ``loss_fn(params, batch) -> (loss, aux)``.
+
+    Positions with label < 0 (VLM patch slots) are excluded from the mean,
+    in float32. ``aux`` is the router load-balance loss (0 outside MoE),
+    already folded into ``loss`` with ``cfg.router_aux_coef``. The forward
+    runs under ``_model_ctx`` (the hybrid's attention window, R10)."""
+    ctx = _model_ctx(cfg, mesh)
+
+    def loss_fn(params, batch):
+        logits, aux, _ = transformer.forward(cfg, params, batch, ctx=ctx)
+        labels = batch["labels"]
+        logp = F.log_softmax(logits.float(), dim=-1)
+        safe = torch.clamp(labels, min=0)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        valid = (labels >= 0).float()
+        loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+        return loss + cfg.router_aux_coef * aux, aux
+
+    return loss_fn
 
 
 def _model_ctx(cfg, mesh, **extra) -> dict:
     """Forward-pass ctx: the hybrid family's attention window, as the
     reference sets it. The reference's also carries the mesh plumbing for
     the expert-parallel MoE, which is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("meshes need the dist runtime, which is not ported "
-                                  "yet: ROADMAP Queue 1 item 11")
+    _no_mesh(mesh)
     ctx = dict(extra)
     if cfg.family == "hybrid":
         # ring caches + masks sized to the local-attention window, matching
         # transformer.init_block_cache
         ctx["window"] = cfg.local_attn_window
     return ctx
+
+
+# ---------------------------------------------------------------------------
+# Train state and step
+# ---------------------------------------------------------------------------
+
+
+def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
+    """The reference's initial state: SGD slots, and for the gmf modes the
+    scheme's zero client state as ``[n, N]`` stacks in the params' dtypes,
+    its server state and a zero ``gbar`` (``{}`` unless the scheme keeps
+    the global momentum)."""
+    n = _num_shards(tcfg.grad_sync, mesh)
+    opt = sgd.init(params, momentum=tcfg.momentum)
+    if tcfg.grad_sync == "dense":
+        cstate: Any = ClientState(u={}, v={}, m={})
+        sstate: Any = ServerState(momentum={}, residual={})
+        gbar: Any = {}
+    else:
+        scheme = resolve(ccfg)
+        client, sstate = scheme.init_states(params)
+        cstate = tree_map(lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape)).contiguous(),
+                          client)
+        gbar = FlatLayout.of(params).zeros() if scheme.uses_m else {}
+    return TrainState(params=params, opt=opt, cstate=cstate, sstate=sstate, gbar=gbar, step=0)
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """((loss, aux), grads) by plain autograd, the grads in the params'
+    tree and dtypes."""
+    live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, aux = loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    return (loss.detach(), aux.detach()), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg, tcfg, ccfg, mesh=None):
+    """Build ``step(state, batch) -> (state, metrics)`` for one grad-sync
+    mode. Metrics: loss, upload_nnz (exact int64 per-shard vector ``[n]``),
+    download_nnz (the post-downlink broadcast — the sparse union when the
+    scheme has no downlink stage), total_params — the exact wire accounting
+    the launcher turns into MB (``core.accounting.CostModel``)."""
+    sync = tcfg.grad_sync
+    n = _num_shards(sync, mesh)
+    loss_fn = make_loss_fn(cfg, mesh)
+
+    def _apply(params, opt, update, step):
+        lr = sgd.lr_at(step, tcfg)
+        return sgd.apply_updates(params, update, opt, lr=lr, momentum=tcfg.momentum,
+                                 weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+
+    if sync == "dense":
+
+        def step_fn(state: TrainState, batch):
+            with trace.annotate_scope("round.client_grads"):
+                (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
+            with torch.no_grad(), trace.annotate_scope("round.apply_update"):
+                params, opt = _apply(state.params, state.opt, grads, state.step)
+            total = torch.tensor(tree_size(state.params), dtype=torch.int64)
+            metrics = {"loss": loss, "upload_nnz": total, "download_nnz": total,
+                       "total_params": total}
+            return state._replace(params=params, opt=opt, step=state.step + 1), metrics
+
+        return step_fn
+
+    scheme = resolve(ccfg)
+    if scheme.owns_lr and (tcfg.weight_decay > 0.0 or tcfg.grad_clip > 0.0):
+        raise ValueError(
+            f"scheme {scheme.name!r} folds the learning rate into its server "
+            "update, so optimiser weight_decay/grad_clip would apply to the "
+            "lr-scaled update (1/lr times too strong) — set them to 0 for "
+            "this scheme")
+
+    def step_fn(state: TrainState, batch):
+        layout = FlatLayout.of(state.params)
+        with trace.annotate_scope("round.client_grads"):
+            (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
+        with torch.no_grad():
+            with trace.annotate_scope("round.client_compress"):
+                # the n = 1 client stack: [1, N] per dtype group
+                flat = layout.flatten(tree_map(lambda g: g.unsqueeze(0), grads))
+                del grads
+                G, cstate, infos = scheme.client_compress(state.cstate, flat, state.gbar,
+                                                          state.step, layout=layout)
+                del flat
+            with trace.annotate_scope("round.server_aggregate"):
+                g_sum = tree_map(lambda x: torch.sum(x, dim=0), G)
+                del G
+                lr = sgd.lr_at(state.step, tcfg)
+                gbar, sstate, ainfo = scheme.server_aggregate(state.sstate, g_sum, float(n),
+                                                              layout=layout, lr=lr)
+            update = layout.unflatten(gbar)
+            with trace.annotate_scope("round.apply_update"):
+                if scheme.owns_lr:
+                    # FetchSGD: lr already entered the sketch-space error
+                    # feedback — the broadcast is the finished update, applied
+                    # un-scaled
+                    params, opt = sgd.apply_updates(state.params, update, state.opt, lr=1.0,
+                                                    momentum=tcfg.momentum)
+                else:
+                    params, opt = _apply(state.params, state.opt, update, state.step)
+        new_gbar = gbar if scheme.uses_m else state.gbar
+        metrics = {"loss": loss, "upload_nnz": infos.upload_nnz,
+                   "download_nnz": ainfo.download_nnz,
+                   "total_params": torch.tensor(ainfo.total_params, dtype=torch.int64)}
+        return TrainState(params=params, opt=opt, cstate=cstate, sstate=sstate, gbar=new_gbar,
+                          step=state.step + 1), metrics
+
+    return step_fn
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg, mesh=None, *, cache_len: int):

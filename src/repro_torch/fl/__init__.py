@@ -9,7 +9,7 @@ from repro_torch.fl.engine import (
     make_engine,
 )
 from repro_torch.fl.simulator import FLConfig, FLSimulator
-from repro_torch.fl.tasks import CifarTask, ShakespeareTask
+from repro_torch.fl.tasks import CifarTask, LMTask, ShakespeareTask
 from repro_torch.topo import TOPOLOGIES
 
 __all__ = [
@@ -26,5 +26,6 @@ __all__ = [
     "FLConfig",
     "FLSimulator",
     "CifarTask",
+    "LMTask",
     "ShakespeareTask",
 ]

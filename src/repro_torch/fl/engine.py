@@ -96,6 +96,20 @@ BACKENDS = ("vmap", "shard", "async")
 GROUP_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
+def apply_update(w, g, lr, owns_lr: bool = False):
+    """The server's SGD step on one param leaf: ``w - lr * g.astype(w.dtype)``
+    taken in float32, as the reference takes it (its lr is a float32
+    array), and stored in ``w``'s dtype. The reference keeps the float32
+    result, so a bfloat16 model's params turn float32 after its first round
+    (ROADMAP R13); the port rounds them back to bfloat16, as both packages'
+    one-device trainers do (``optim.sgd.apply_updates``), and an
+    all-float32 tree steps exactly as before. A scheme that owns lr applied
+    it in its server step: the same step at lr 1."""
+    if owns_lr:
+        lr = 1.0
+    return (w.float() - lr * g.to(w.dtype).float()).to(w.dtype)
+
+
 class RoundEngine:
     """Owns the round step for one backend; consumes the compression
     scheme as a protocol object (``repro_torch.core.resolve(comp_cfg)``)."""
@@ -144,9 +158,7 @@ class RoundEngine:
             bcast, sstate, ainfo = self.scheme.server_aggregate(sstate, g_sum, n,
                                                                 layout=self.layout, lr=lr)
         with trace.annotate_scope("round.apply_update"):
-            # a scheme that owns lr applied it in its server step (1.0 · g is g)
-            step = 1.0 if self.scheme.owns_lr else lr
-            params = tree_map(lambda w, g: w - step * g.to(w.dtype), params,
+            params = tree_map(lambda w, g: apply_update(w, g, lr, self.scheme.owns_lr), params,
                               self.layout.unflatten(bcast))
         return params, sstate, bcast, ainfo
 
@@ -168,7 +180,7 @@ class VmapEngine(RoundEngine):
                 params, sampled, batches, gbar_prev, round_idx, tau_now,
                 client_idx if self.thread_client_ids else None, rates, wire_levels)
             cstates = scatter_client_states(cstates, client_idx, new_states)
-            g_sum = torch.sum(G, dim=0)
+            g_sum = tree_map(lambda x: torch.sum(x, dim=0), G)  # one sum per dtype group
             params, sstate, bcast, ainfo = self._server_update(params, sstate, g_sum, lr)
             return (params, cstates, sstate, bcast, infos.upload_nnz,
                     ainfo.download_nnz, ainfo.union_nnz)
@@ -654,6 +666,11 @@ def make_engine(fl_cfg, comp_cfg, loss_fn, sampled_per_round, layout, *,
     backend, topology = fl_cfg.backend, fl_cfg.topology
     if topology not in TOPOLOGIES:
         raise ValueError(f"unknown topology {topology!r}; choose from {TOPOLOGIES}")
+    if layout.groups is not None and (backend != "vmap" or topology != "star"):
+        raise NotImplementedError(
+            f"a model of mixed leaf dtypes ({', '.join(map(str, layout.dtypes))}) runs on "
+            f"the vmap star engine only; backend={backend!r}, topology={topology!r} is not "
+            f"ported for it yet: ROADMAP Queue 1 item 15")
     if topology != "star":
         if backend == "async":
             raise ValueError("the async buffered engine is star-only; use backend='vmap' "
@@ -679,6 +696,7 @@ __all__ = [
     "ShardMapEngine",
     "TopologyEngine",
     "VmapEngine",
+    "apply_update",
     "check_group_backend",
     "make_engine",
 ]

@@ -1,6 +1,8 @@
 """Wiring of the paper's two tasks onto the simulator: models, losses, data
 partitions, batch providers. Task 1 is image classification (SynthCIFAR,
-ResNet), Task 2 next-char prediction (SynthShakespeare, the char-LSTM)."""
+ResNet), Task 2 next-char prediction (SynthShakespeare, the char-LSTM);
+``LMTask`` is LM pretraining of any of the ten architectures through the
+same engines."""
 
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.data import partition, synthetic
-from repro_torch.models import lstm, resnet
+from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+from repro_torch.models import lstm, resnet, transformer
 from repro_torch.utils import resolve_device, to_device
 
 
@@ -127,3 +130,57 @@ class ShakespeareTask:
             return (self.x[take], self.y[take])
 
         return provide
+
+
+class LMTask:
+    """LM pretraining through the FL engines: one ``SyntheticLMStream``
+    shard per client (seeded 1000 + i) over a ``models.transformer``
+    architecture, plus a fixed held-out batch (seed 7) for loss/accuracy
+    gates: the reference's ``LMTask``, whose batches it draws bit for bit.
+
+    ``loss_fn`` is the reference's as written (ROADMAP R12): log-softmax in
+    the logits' dtype, the mean over every position (the VLM's ``-1``
+    label pad gathers vocab id V − 1, as ``jnp.take_along_axis`` wraps it;
+    ``torch.gather`` would raise, so the labels are wrapped explicitly),
+    the MoE aux loss added unscaled, and a bare ``forward`` (the hybrid
+    attends unwindowed, R10). Batches and the held-out batch live on
+    ``device`` (default ``cuda``); ``init_fn`` draws the params there from
+    the simulator's seed."""
+
+    def __init__(self, cfg, *, num_clients: int, batch_size: int, seq_len: int,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        kw = dict(vocab_size=cfg.vocab_size, seq_len=seq_len, batch_size=batch_size,
+                  num_codebooks=cfg.num_codebooks, num_patches=cfg.num_patches,
+                  d_model=cfg.d_model)
+        self.streams = [SyntheticLMStream(seed=1000 + i, **kw) for i in range(num_clients)]
+        self.held_out = to_tensors(next(SyntheticLMStream(seed=7, **kw)), self.device)
+
+    def init_fn(self, generator: torch.Generator):
+        if generator.device != self.device:
+            generator = torch.Generator(device=self.device).manual_seed(
+                generator.initial_seed())
+        return transformer.init_params(self.cfg, generator)
+
+    def loss_fn(self, params, batch):
+        logits, aux, _ = transformer.forward(self.cfg, params, batch)
+        logp = F.log_softmax(logits, dim=-1)
+        labels = torch.remainder(batch["labels"], logits.shape[-1])  # -1 -> V - 1
+        nll = -torch.gather(logp, -1, labels[..., None])
+        return torch.mean(nll) + aux
+
+    def held_out_loss(self, params) -> float:
+        with torch.no_grad():
+            return float(self.loss_fn(params, self.held_out))
+
+    def eval_fn(self, params) -> float:
+        with torch.no_grad():
+            logits, _, _ = transformer.forward(self.cfg, params, self.held_out)
+            hits = torch.argmax(logits, -1) == self.held_out["labels"]
+            return float(torch.mean(hits.float()))
+
+    def batch_provider(self, t, ids, rng):
+        per_client = [next(self.streams[int(i)]) for i in ids]
+        return to_tensors({k: np.stack([b[k] for b in per_client]) for k in per_client[0]},
+                          self.device)

@@ -4,11 +4,18 @@ The kernels live in ``csrc/gmf_compress.cu`` behind a plain C interface,
 built at first use by ``kernels/build.py`` (nvcc for ``sm_90a``, loaded
 with ctypes). Nothing is built when this module is imported.
 
-Each ``*_flat`` wrapper takes ``[k, ...]`` float32 CUDA tensors (one row
-per client), checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current stream, raises if
-the launch failed, and adds one to its count in ``LAUNCHES``. There is no
-fallback: a tensor the kernel does not take raises.
+Each ``*_flat`` wrapper takes ``[k, ...]`` CUDA tensors (one row per
+client) of float32 or bfloat16, checks device, dtype, shape and
+contiguity, allocates its outputs with ``torch.empty``, launches on the
+current stream, raises if the launch failed, and adds one to the count of
+its dtype instance in ``INSTANCES`` (``LAUNCHES`` sums them by kernel).
+There is no fallback: a tensor the kernel does not take raises.
+
+Dtypes follow the reference (``csrc/gmf_compress.cu`` says how each
+kernel rounds): the state (u, v) is of one type S, the gradient, the
+global momentum or the mask may be of another, and the outputs are of the
+type jnp's promotion gives (float32 unless both are bfloat16), or of S
+where the caller asks for the Pallas kernel's semantics (``out_dtype``).
 
 K1 and its glue take the flat compression state (``utils/flat.py``): a
 ``[k, N]`` stack of L leaf segments, described by the layout's int64
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Mapping
 from pathlib import Path
 from typing import NamedTuple
 
@@ -40,19 +48,50 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, bind, build_library
+from repro_torch.utils.device import weak
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmf_compress.cu"
 # -fmad=false: K1's z must be bitwise the z its threshold was taken from.
 NVCC_FLAGS = (*BASE_FLAGS, "-fmad=false")
 
-# Launches per kernel since the last reset_launches(): the evidence that a
-# run went through the kernels.
-LAUNCHES = {"gmf_select": 0, "gmf_compress": 0, "momentum_correction": 0, "apply_mask": 0}
+KERNEL_NAMES = ("gmf_select", "gmf_compress", "momentum_correction", "apply_mask")
+# Launches per (kernel, operand dtypes) instance since the last
+# reset_launches(), e.g. ("momentum_correction", "bf16,bf16->bf16"): the
+# evidence that a run went through the kernels, and which instances it took.
+INSTANCES: dict[tuple[str, str], int] = {}
+
+
+class _Launches(Mapping):
+    """Launches per kernel since the last reset: ``INSTANCES`` summed over
+    each kernel's instances (read-only)."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in KERNEL_NAMES:
+            raise KeyError(name)
+        return sum(n for (kernel, _), n in INSTANCES.items() if kernel == name)
+
+    def __iter__(self):
+        return iter(KERNEL_NAMES)
+
+    def __len__(self) -> int:
+        return len(KERNEL_NAMES)
+
+
+LAUNCHES = _Launches()
+
+# The dtype codes of the C interface.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    INSTANCES.clear()
+
+
+def instance(*dtypes, out=None) -> str:
+    """An instance's name from its operand dtypes: ``"bf16,f32->f32"``."""
+    name = ",".join(_SHORT[d] for d in dtypes)
+    return name if out is None else f"{name}->{_SHORT[out]}"
 
 
 def build() -> Path:
@@ -64,12 +103,12 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.
 # (argtypes, restype) of every extern "C" function of csrc/gmf_compress.cu.
 SIGNATURES = {
     "gmf_momentum_limits": ([_P, _P], None),
-    "gmf_momentum_multi": ([_P, _I32, _I32, _F32, _P], _I32),
-    "gmf_apply_mask": ([_P, _P, _P, _P, _P, _P, _I64, _I32, _P], _I32),
-    "gmf_select": ([_P, _P, _P, _P, _I32, _P, _P, _F32, _I32, _I64, _I64, _P, _P, _P, _P],
-                   _I32),
-    "gmf_select_abs": ([_P, _P, _P, _I32, _I32, _I64, _I64, _P, _P, _P], _I32),
-    "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _P], _I32),
+    "gmf_momentum_multi": ([_P, _I32, _I32, _F32, _I32, _I32, _I32, _P], _I32),
+    "gmf_apply_mask": ([_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P], _I32),
+    "gmf_select": ([_P, _P, _P, _P, _I32, _P, _P, _F32, _I32, _I64, _I64, _P, _P, _P, _I32,
+                    _I32, _P], _I32),
+    "gmf_select_abs": ([_P, _P, _P, _I32, _I32, _I64, _I64, _P, _P, _I32, _P], _I32),
+    "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _I32, _I32, _P], _I32),
 }
 
 
@@ -119,8 +158,8 @@ def _check_stack(name: str, *xs: torch.Tensor) -> None:
         if not x.is_cuda or x.device != ref.device:
             raise ValueError(f"{name}: the kernel takes tensors on one cuda device, got "
                              f"{x.device} beside {ref.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+        if x.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
         if x.shape != ref.shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(ref.shape)}")
         if not x.is_contiguous():
@@ -165,16 +204,33 @@ def _keep_stride(name: str, keep: torch.Tensor, like: torch.Tensor, leaves: int)
     return leaves
 
 
+def _same_dtype(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.dtype != b.dtype:
+        raise TypeError(f"{name}: u and v must share a dtype, got {a.dtype} and {b.dtype}")
+
+
+def _out_dtype(name: str, state, other, out_dtype):
+    """jnp's promotion of ``state`` with ``other`` (``out_dtype=None``), or
+    ``out_dtype``, which may only be that or ``state``."""
+    promoted = torch.promote_types(state, other)
+    if out_dtype is None:
+        return promoted
+    if out_dtype not in (promoted, state):
+        raise TypeError(f"{name}: outputs of {out_dtype} from {state} and {other}")
+    return out_dtype
+
+
 def _vec(*xs: torch.Tensor) -> int:
-    return int(all(x.data_ptr() % 16 == 0 for x in xs))
+    """1 where every pointer is aligned to a quad (4 elements) of its type."""
+    return int(all(x.data_ptr() % (4 * x.element_size()) == 0 for x in xs))
 
 
-def _launch(name: str, fn, device, *args) -> None:
+def _launch(name: str, fn, device, *args, inst: str = "") -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    LAUNCHES[name] += 1
+    INSTANCES[name, inst] = INSTANCES.get((name, inst), 0) + 1
 
 
 class MomentumTable(NamedTuple):
@@ -182,44 +238,54 @@ class MomentumTable(NamedTuple):
     vo: list        # v' leaves, likewise
     launches: list  # (table, leaves, blocks) per launch; the table is [leaves, 8]
     #                 int64: u, v, g, u', v', n, first block, aligned
+    dtypes: tuple = (torch.float32, torch.float32, torch.float32)  # S, G, O
 
 
-def momentum_table(us, vs, gs, capacity: int, chunk: int) -> MomentumTable:
+def momentum_table(us, vs, gs, capacity: int, chunk: int, out_dtype=None) -> MomentumTable:
     """The host half of K2 over lists of leaves, on any device: checks one
-    device, float32, contiguity and matching shapes; allocates u' and v' as
-    views into one flat buffer each; and packs each launch of
-    ``plan_momentum`` into the int64 table the C entry point reads. The
-    alignment flag is 1 where all five pointers of a leaf are 16-byte
-    aligned. The host work is a pass over the leaves per step and numpy
-    columns, with no allocation per leaf but the output views."""
+    device, contiguity, matching shapes and the dtypes (u and v of one
+    type S, g of one type G, each float32 or bfloat16); allocates u' and
+    v' of ``out_dtype`` (default jnp's promotion of S and G) as views into
+    one flat buffer each; and packs each launch of ``plan_momentum`` into
+    the int64 table the C entry point reads. The alignment flag is 1 where
+    all five pointers of a leaf are aligned to a quad of their type
+    (16 bytes for float32). The host work is a pass over the leaves per
+    step and numpy columns, with no allocation per leaf but the output
+    views."""
     name = "momentum_correction"
     if not (len(us) == len(vs) == len(gs)):
         raise ValueError(f"{name}: {len(us)}, {len(vs)}, {len(gs)} leaves")
-    device, f32 = us[0].device, torch.float32
-    if any(x.dtype is not f32 or not x.is_contiguous() or x.device != device
-           for xs in (us, vs, gs) for x in xs):
-        raise ValueError(f"{name}: the kernel takes contiguous float32 tensors on {device}")
+    device = us[0].device
+    s_dtype, g_dtype = us[0].dtype, gs[0].dtype
+    if any(not x.is_contiguous() or x.device != device or x.dtype != want
+           or want not in DTYPE_CODES
+           for xs, want in ((us, s_dtype), (vs, s_dtype), (gs, g_dtype)) for x in xs):
+        raise ValueError(f"{name}: the kernel takes contiguous float32 or bfloat16 tensors "
+                         f"on {device}, u and v of one dtype and g of one dtype")
     shapes = [u.shape for u in us]
     if shapes != [v.shape for v in vs] or shapes != [g.shape for g in gs]:
         raise ValueError(f"{name}: u, v and g leaves differ in shape")
+    o_dtype = _out_dtype(name, s_dtype, g_dtype, out_dtype)
     sizes = [u.numel() for u in us]
-    flat_u = torch.empty(sum(sizes), dtype=f32, device=device)
+    flat_u = torch.empty(sum(sizes), dtype=o_dtype, device=device)
     flat_v = torch.empty_like(flat_u)
     uo, vo = _unflatten(flat_u, us), _unflatten(flat_v, us)
     table = np.empty((len(us), 8), dtype=np.int64)
     for col, xs in enumerate((us, vs, gs)):
         table[:, col] = [x.data_ptr() for x in xs]
     table[:, 5] = sizes
-    starts = 4 * (np.cumsum(table[:, 5]) - table[:, 5])
+    starts = flat_u.element_size() * (np.cumsum(table[:, 5]) - table[:, 5])
     table[:, 3] = flat_u.data_ptr() + starts
     table[:, 4] = flat_v.data_ptr() + starts
-    table[:, 7] = np.bitwise_or.reduce(table[:, :5], axis=1) % 16 == 0
+    quad = [4 * torch.empty((), dtype=d).element_size()
+            for d in (s_dtype, s_dtype, g_dtype, o_dtype, o_dtype)]
+    table[:, 7] = np.all(table[:, :5] % np.array(quad, np.int64) == 0, axis=1)
     launches = []
     for launch in plan_momentum(sizes, capacity, chunk):
         rows = table if len(launch.leaves) == len(us) else table[list(launch.leaves)]
         rows[:, 6] = launch.block0
         launches.append((rows, len(launch.leaves), launch.blocks))
-    return MomentumTable(uo, vo, launches)
+    return MomentumTable(uo, vo, launches, (s_dtype, g_dtype, o_dtype))
 
 
 def _unflatten(flat, like):
@@ -229,13 +295,17 @@ def _unflatten(flat, like):
 
 
 def launch_momentum(table: MomentumTable, alpha: float, device) -> None:
-    """K2's launches of ``table`` on ``device``'s current stream."""
+    """K2's launches of ``table`` on ``device``'s current stream; alpha is
+    rounded to the state's dtype, as JAX rounds a weakly typed scalar."""
+    s, g, o = table.dtypes
+    codes = (DTYPE_CODES[s], DTYPE_CODES[g], DTYPE_CODES[o])
     for leaves, count, blocks in table.launches:
         _launch("momentum_correction", library().gmf_momentum_multi, device,
-                leaves.ctypes.data, count, blocks, float(alpha))
+                leaves.ctypes.data, count, blocks, weak(alpha, s), *codes,
+                inst=instance(s, g, out=o))
 
 
-def momentum_correction_tree(us, vs, gs, alpha: float):
+def momentum_correction_tree(us, vs, gs, alpha: float, out_dtype=None):
     """U <- alpha*U + g ; V <- V + U over lists of leaves on one cuda
     device (``momentum_table`` says what it takes), one launch per table's
     capacity of leaves. Returns (u' list, v' list)."""
@@ -244,32 +314,40 @@ def momentum_correction_tree(us, vs, gs, alpha: float):
     device = us[0].device
     if device.type != "cuda":
         raise ValueError(f"momentum_correction: the kernel takes cuda tensors, got {device}")
-    table = momentum_table(us, vs, gs, *momentum_limits())
+    table = momentum_table(us, vs, gs, *momentum_limits(), out_dtype=out_dtype)
     launch_momentum(table, alpha, device)
     return table.uo, table.vo
 
 
-def momentum_correction_flat(u, v, g, alpha: float):
+def momentum_correction_flat(u, v, g, alpha: float, out_dtype=None):
     """U <- alpha*U + g ; V <- V + U over a [k, ...] stack: K2 over a
     one-leaf tree. Returns (u', v')."""
-    (uo,), (vo,) = momentum_correction_tree([u], [v], [g], alpha)
+    (uo,), (vo,) = momentum_correction_tree([u], [v], [g], alpha, out_dtype)
     return uo, vo
 
 
-def apply_mask_flat(u, v, mask):
-    """G = V*mask ; U <- U*(1-mask) ; V <- V*(1-mask). Returns (g, u', v')."""
+def apply_mask_flat(u, v, mask, out_dtype=None):
+    """G = V*mask ; U <- U*(1-mask) ; V <- V*(1-mask), with u and v of one
+    dtype and the mask of its own; the outputs are of jnp's promotion of
+    the two, or of ``out_dtype`` (u's dtype: the Pallas kernel's).
+    Returns (g, u', v')."""
     _check_stack("apply_mask", u, v, mask)
-    go, uo, vo = torch.empty_like(v), torch.empty_like(u), torch.empty_like(v)
+    _same_dtype("apply_mask", u, v)
+    o = _out_dtype("apply_mask", v.dtype, mask.dtype, out_dtype)
+    go, uo, vo = (torch.empty(v.shape, dtype=o, device=v.device) for _ in range(3))
     if u.numel():
         _launch("apply_mask", library().gmf_apply_mask, u.device,
                 u.data_ptr(), v.data_ptr(), mask.data_ptr(), go.data_ptr(), uo.data_ptr(),
-                vo.data_ptr(), u.numel(), _vec(u, v, mask, go, uo, vo))
+                vo.data_ptr(), u.numel(), _vec(u, v, mask, go, uo, vo),
+                DTYPE_CODES[v.dtype], DTYPE_CODES[mask.dtype], DTYPE_CODES[o],
+                inst=instance(v.dtype, mask.dtype, out=o))
     return go, uo, vo
 
 
 def gmf_select_flat(v, m, *, offsets, keep, w, tau, eps: float):
-    """Per (row, leaf) segment of the flat ``[rows, N]`` stacks v and m:
-    inv_nv = w / (‖V‖ + eps), inv_nm = 1 / (‖M‖ + eps), and the exact
+    """Per (row, leaf) segment of the flat ``[rows, N]`` stacks v and m
+    (each float32 or bfloat16, read as float32): inv_nv = w / (‖V‖ + eps),
+    inv_nm = 1 / (‖M‖ + eps), and the exact
     k_i-th largest z = |((1-τ)·V)·inv_nv + (τ·M)·inv_nm| as the threshold.
     ``offsets`` (int64 ``[L + 1]``) comes from the layout, ``keep`` is
     int64 ``[L]`` (every row's k_i) or ``[rows, L]`` (each row's own);
@@ -285,7 +363,8 @@ def gmf_select_flat(v, m, *, offsets, keep, w, tau, eps: float):
     _launch("gmf_select", library().gmf_select, v.device, v.data_ptr(), m.data_ptr(),
             offsets.data_ptr(), keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
             float(eps), leaves, rows, v.shape[1], inv_nv.data_ptr(), inv_nm.data_ptr(),
-            thr.data_ptr())
+            thr.data_ptr(), DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype],
+            inst=instance(v.dtype, m.dtype))
     return inv_nv, inv_nm, thr
 
 
@@ -298,19 +377,21 @@ def topk_abs_select_flat(z, *, offsets, keep):
     leaves = _segments("gmf_select", z, offsets)
     stride = _keep_stride("gmf_select", keep, z, leaves)
     thr = torch.empty(z.shape[0], leaves, dtype=torch.float32, device=z.device)
-    mask = torch.empty_like(z)
+    mask = torch.empty(z.shape, dtype=torch.float32, device=z.device)
     _launch("gmf_select", library().gmf_select_abs, z.device, z.data_ptr(), offsets.data_ptr(),
             keep.data_ptr(), stride, leaves, z.shape[0], z.shape[1], thr.data_ptr(),
-            mask.data_ptr())
+            mask.data_ptr(), DTYPE_CODES[z.dtype], inst="abs:" + instance(z.dtype))
     return thr, mask
 
 
 def gmf_compress_flat(u, v, m, *, offsets, inv_norm_v, inv_norm_m, tau, threshold):
     """Fused GMF mask pass over flat ``[rows, N]`` stacks of the leaves
     ``offsets`` describes (at most 6,143 leaves; the kernel holds the offsets
-    in 48 KB of shared memory): the three per-segment scalars are
+    in 48 KB of shared memory): u and v of one dtype, which the outputs and
+    the mask take, m of its own; the three per-segment scalars are
     ``[rows, L]`` float32, τ ``[rows]``. Returns (g, u', v', mask)."""
     _check_stack("gmf_compress", u, v, m)
+    _same_dtype("gmf_compress", u, v)
     leaves = _segments("gmf_compress", u, offsets)
     rows = u.shape[0]
     _check_rows("gmf_compress", (rows, leaves), u, inv_norm_v, inv_norm_m, threshold)
@@ -321,5 +402,6 @@ def gmf_compress_flat(u, v, m, *, offsets, inv_norm_v, inv_norm_m, tau, threshol
                 u.data_ptr(), v.data_ptr(), m.data_ptr(), inv_norm_v.data_ptr(),
                 inv_norm_m.data_ptr(), threshold.data_ptr(), tau.data_ptr(), offsets.data_ptr(),
                 leaves, u.shape[1], go.data_ptr(), uo.data_ptr(), vo.data_ptr(), mo.data_ptr(),
-                u.numel(), _vec(u, v, m, go, uo, vo, mo))
+                u.numel(), _vec(u, v, m, go, uo, vo, mo), DTYPE_CODES[v.dtype],
+                DTYPE_CODES[m.dtype], inst=instance(v.dtype, m.dtype))
     return go, uo, vo, mo

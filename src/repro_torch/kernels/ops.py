@@ -33,16 +33,21 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no compression kernel for tensors on {x.device}")
 
 
-def _mask_leaf(u, v, mask):
+def _mask_leaf(u, v, mask, state_dtype):
+    if state_dtype:  # the Pallas kernel: the mask in v's dtype, outputs in v's
+        mask = mask.to(v.dtype)
     if _on_card(u):
-        return _k.apply_mask_flat(u, v, mask.to(v.dtype))
-    return ref.apply_mask_update_leaf(u, v, mask.to(v.dtype))
+        return _k.apply_mask_flat(u, v, mask)
+    return ref.apply_mask_update_leaf(u, v, mask)
 
 
-def momentum_correction(u_tree, v_tree, g_tree, alpha):
+def momentum_correction(u_tree, v_tree, g_tree, alpha, *, state_dtype=False):
+    """K2 over a tree. The outputs are of jnp's promotion of the state's
+    dtype and g's, or of the state's under ``state_dtype`` (the Pallas
+    kernel's semantics, which the reference takes under ``use_kernels``)."""
     us = tree_leaves(u_tree)
     if not us:
-        return ref.momentum_correction(u_tree, v_tree, g_tree, float(alpha))
+        return ref.momentum_correction(u_tree, v_tree, g_tree, float(alpha), state_dtype)
     vs, gs = tree_leaves(v_tree), tree_leaves(g_tree)
     if not _on_card(us[0]):
         # the whole tree goes by its first leaf: every other leaf must lie
@@ -51,14 +56,21 @@ def momentum_correction(u_tree, v_tree, g_tree, alpha):
             if x.device.type != "cpu":
                 raise ValueError(f"momentum_correction: a tree on the cpu holds a leaf "
                                  f"on {x.device}")
-        return ref.momentum_correction(u_tree, v_tree, g_tree, float(alpha))
+        return ref.momentum_correction(u_tree, v_tree, g_tree, float(alpha), state_dtype)
     gs = [g if g.is_contiguous() else g.contiguous() for g in gs]
-    uo, vo = _k.momentum_correction_tree(us, vs, gs, float(alpha))
+    s_dtype = us[0].dtype
+    # out_dtype only where the state's dtype is not jnp's promotion already
+    kw = ({"out_dtype": s_dtype}
+          if state_dtype and s_dtype != torch.promote_types(s_dtype, gs[0].dtype) else {})
+    uo, vo = _k.momentum_correction_tree(us, vs, gs, float(alpha), **kw)
     return tree_unflatten(u_tree, uo), tree_unflatten(u_tree, vo)
 
 
-def apply_mask_update(u_tree, v_tree, mask_tree):
-    return tree_multimap(_mask_leaf, 3, u_tree, v_tree, mask_tree)
+def apply_mask_update(u_tree, v_tree, mask_tree, *, state_dtype=False):
+    """K3 over a tree, in jnp's promotion of the state's dtype and the
+    mask's, or in the state's under ``state_dtype`` (the Pallas kernel's)."""
+    return tree_multimap(lambda u, v, mk: _mask_leaf(u, v, mk, state_dtype), 3,
+                         u_tree, v_tree, mask_tree)
 
 
 def gmf_select(v, m, layout, rate=None, *, keep=None, w, tau, eps):

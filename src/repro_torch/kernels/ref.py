@@ -4,7 +4,9 @@ The kernel wrappers take these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel to its plain version on the card.
 
 The compression kernels (``csrc/gmf_compress.cu``) are the same functions
-as the reference's ``kernels/ref.py`` oracles. Leaves are ``[k, ...]``
+as the reference's ``kernels/ref.py`` oracles, in its dtypes: float32 or
+bfloat16 operands, each op rounded to the dtype jnp gives it (a weakly
+typed scalar rounds to the array's dtype first). Leaves are ``[k, ...]``
 client stacks; per-client scalars are ``[k]`` tensors (or 0-dim for one
 shared value). The state is flat (``utils/flat.py``): ``gmf_select`` and
 ``gmf_compress_segments`` take ``[k, N]`` stacks and their layout, with
@@ -23,18 +25,25 @@ import torch
 
 from repro_torch.core import fusion, sparsify
 from repro_torch.core.fusion import rows
-from repro_torch.utils import tree_multimap
+from repro_torch.utils import tree_multimap, weak
 
 
-def momentum_correction_leaf(u, v, g, alpha):
-    """DGC momentum correction:  U <- alpha*U + g ;  V <- V + U."""
-    u_new = alpha * u + g
+def momentum_correction_leaf(u, v, g, alpha, out_dtype=None):
+    """DGC momentum correction:  U <- alpha*U + g ;  V <- V + U, each op
+    rounded as jnp rounds it: alpha to u's dtype (a weak scalar), alpha*U
+    to u's dtype, the sums to the promotion of u's and g's. ``out_dtype``
+    (u's dtype) casts both results at the end, as the Pallas kernel
+    stores them."""
+    u_new = weak(alpha, u.dtype) * u + g
     v_new = v + u_new
+    if out_dtype is not None:
+        u_new, v_new = u_new.to(out_dtype), v_new.to(out_dtype)
     return u_new, v_new
 
 
 def apply_mask_update_leaf(u, v, mask):
-    """G = V*mask ; U <- U*(1-mask) ; V <- V*(1-mask)."""
+    """G = V*mask ; U <- U*(1-mask) ; V <- V*(1-mask), in the promotion of
+    the state's dtype and the mask's."""
     g_out = v * mask
     keep = 1.0 - mask
     return g_out, u * keep, v * keep
@@ -84,9 +93,11 @@ def gmf_compress_segments(u, v, m, *, layout, inv_norm_v, inv_norm_m, tau, thres
                              tau=tau, threshold=ex(threshold))
 
 
-def momentum_correction(u_tree, v_tree, g_tree, alpha):
+def momentum_correction(u_tree, v_tree, g_tree, alpha, state_dtype=False):
     return tree_multimap(
-        lambda u, v, g: momentum_correction_leaf(u, v, g, alpha), 2, u_tree, v_tree, g_tree)
+        lambda u, v, g: momentum_correction_leaf(u, v, g, alpha,
+                                                 u.dtype if state_dtype else None),
+        2, u_tree, v_tree, g_tree)
 
 
 def apply_mask_update(u_tree, v_tree, mask_tree):

@@ -37,6 +37,7 @@ step moves no cache and reads no position back to the host.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.models import layers
@@ -111,10 +112,14 @@ def naive_causal_attention(q, k, v, *, window: int = 0):
     return out.reshape(b, t, h, d)
 
 
-def chunked_causal_attention(q, k, v, *, chunk: int, window: int = 0):
+def chunked_causal_attention(q, k, v, *, chunk: int, window: int = 0,
+                             inner_remat: bool = False):
     """Memory-bounded causal self-attention (S == T) with an online softmax
     over ``chunk``-sized kv blocks; query chunk i visits only the kv chunks
-    in its causal (and window) footprint, as the reference's scan does."""
+    in its causal (and window) footprint, as the reference's scan does.
+    ``inner_remat`` checkpoints each kv block's body, as the reference's
+    ``jax.checkpoint(kv_body)`` does (under plain autograd only,
+    ``layers.remat_active``)."""
     b, t, h, d = q.shape
     if k.shape[1] != t:
         raise ValueError("chunked path assumes self-attention (S == T)")
@@ -139,24 +144,31 @@ def chunked_causal_attention(q, k, v, *, chunk: int, window: int = 0):
         m = torch.full((b, kv, g, chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, kv, g, chunk), dtype=torch.float32, device=q.device)
         for j in range(j_lo, i + 1):
-            kj, vj = kc[:, j], vc[:, j]
-            s_ij = torch.einsum("bqkgd,bckd->bkgqc", qi, kj).float()
-            kpos = j * chunk + ar[None, :]
-            mask = kpos <= qpos
-            if window > 0:
-                mask &= kpos > qpos - window
-            s_ij = s_ij.masked_fill(~mask, NEG_INF)
-            m_new = torch.maximum(m, s_ij.amax(dim=-1))
-            p = torch.exp(s_ij - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqc,bckd->bkgqd", p.to(vj.dtype), vj).float()
-            m = m_new
+            args = (acc, m, l, qi, kc[:, j], vc[:, j], j * chunk + ar[None, :], qpos, window)
+            if inner_remat:
+                acc, m, l = checkpoint(_kv_body, *args, use_reentrant=False)
+            else:
+                acc, m, l = _kv_body(*args)
         out = acc / torch.clamp_min(l[..., None], 1e-30)
         # (B, KV, G, C, D) -> (B, C, KV, G, D) -> (B, C, H, D)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, chunk, h, d).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _kv_body(acc, m, l, qi, kj, vj, kpos, qpos, window):
+    """One kv block of the online softmax -> the new (acc, m, l)."""
+    s_ij = torch.einsum("bqkgd,bckd->bkgqc", qi, kj).float()
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s_ij = s_ij.masked_fill(~mask, NEG_INF)
+    m_new = torch.maximum(m, s_ij.amax(dim=-1))
+    p = torch.exp(s_ij - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bkgqc,bckd->bkgqd", p.to(vj.dtype), vj).float()
+    return acc, m_new, l
 
 
 def covers(window: int, t: int) -> bool:
@@ -189,7 +201,9 @@ def attention(params, cfg, x, *, positions=None, mrope_positions=None,
     if impl == "naive":
         out = naive_causal_attention(q, k, v, window=window)
     elif impl == "chunked":
-        out = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, window=window)
+        out = chunked_causal_attention(
+            q, k, v, chunk=cfg.attn_chunk, window=window,
+            inner_remat=cfg.attn_inner_remat and layers.remat_active(q))
     elif impl == "flash":
         if not covers(window, t):
             raise ValueError(f"impl='flash' computes unwindowed attention; window {window} "

@@ -175,3 +175,12 @@ def causal_conv1d_step(params, conv_state, x_t):
     window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B, W, C)
     out = torch.einsum("bwc,wc->bc", window, w) + params["bias"]
     return window[:, 1:width, :], out
+
+
+def remat_active(x: torch.Tensor) -> bool:
+    """Whether activation checkpointing can run where ``x`` is computed: a
+    gradient is being taken by plain autograd, not inside a ``torch.func``
+    transform (whose ``grad`` refuses the saved-tensor hooks that
+    ``torch.utils.checkpoint`` installs)."""
+    return (torch.is_grad_enabled() and x.requires_grad
+            and torch._C._functorch.maybe_current_level() is None)

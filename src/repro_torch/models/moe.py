@@ -9,14 +9,16 @@ experts in groups whose ``(group, BT, max(d, f))`` intermediates stay under
 ``GROUP_ELEMENTS`` and adds each group's gated output into a float32
 ``(BT, d)`` accumulator, so nothing of size E × BT × d is ever held. The
 walk has no host sync: which experts a token chose changes the gates, not
-the work.
+the work. The one-hot is a comparison with ``arange(E)`` and the combine
+table and the group sum are built out of place, so the function runs
+under ``torch.func.vmap`` (the engines take client gradients that way).
 
 The router stays float32; the gates are cast to x's dtype, as in the
 reference.
 
 Not ported yet: the expert-parallel path (``moe_ep``, ``dispatch_local``,
 ``combine_local`` and the all-to-all bodies), which needs the dist
-runtime (ROADMAP Queue 1 item 11).
+runtime's sharded half (ROADMAP Queue 1 item 11 part B).
 """
 
 from __future__ import annotations
@@ -61,10 +63,16 @@ def router_topk(params, cfg, x):
     # Switch-style load-balance aux loss: E * sum_e f_e * p_e
     e = cfg.num_experts
     lead = tuple(range(eids.dim() - 1))
-    density = F.one_hot(eids, e).float().sum(dim=-2).mean(dim=lead)  # tokens per expert (×k)
+    density = _one_hot(eids, e).float().sum(dim=-2).mean(dim=lead)  # tokens per expert (×k)
     mean_prob = probs.mean(dim=lead)
     aux = e * torch.sum(density / cfg.experts_per_token * mean_prob)
     return eids, gates.to(x.dtype), aux
+
+
+def _one_hot(ids, n):
+    """``F.one_hot`` as a comparison with ``arange(n)``: int64, with no read
+    of the ids' values on the host, so it runs under ``torch.func.vmap``."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
 
 
 def group_size(cfg, tokens: int) -> int:
@@ -80,16 +88,17 @@ def moe_dense(params, cfg, x):
     xf = x.reshape(b * t, d)
     eids, gates, aux = router_topk(params, cfg, xf)
     e = cfg.num_experts
-    # (BT, E): each token's gate on the experts it chose, 0 elsewhere.
-    combine = torch.zeros((b * t, e), dtype=x.dtype, device=x.device)
-    combine.scatter_add_(1, eids, gates)
-    y = torch.zeros((b * t, d), dtype=torch.float32, device=x.device)
+    # (BT, E): each token's gate on the experts it chose, 0 elsewhere. The
+    # chosen experts are distinct, so each entry sums one gate and zeros.
+    combine = (_one_hot(eids, e).to(gates.dtype) * gates[..., None]).sum(dim=-2)
+    y = None
     step = group_size(cfg, b * t)
     for e0 in range(0, e, step):
         sl = slice(e0, min(e0 + step, e))
         h = F.silu(xf @ params["w_gate"][sl]) * (xf @ params["w_up"][sl])  # (g, BT, f)
         out = h @ params["w_down"][sl]  # (g, BT, d)
-        y += torch.einsum("gbd,bg->bd", out, combine[:, sl]).float()
+        part = torch.einsum("gbd,bg->bd", out, combine[:, sl]).float()
+        y = part if y is None else y + part
     return y.to(x.dtype).reshape(b, t, d), aux
 
 

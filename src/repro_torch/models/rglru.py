@@ -15,8 +15,10 @@ Prefill runs the linear recurrence as a log-depth doubling scan
 (``rglru_scan``: ⌈log2 T⌉ steps, each a few elementwise launches over the
 whole (B, T, W) block) where the reference uses
 ``jax.lax.associative_scan``; the two associate the same products in other
-orders, so they agree to float32 rounding, not bitwise. Decode is the
-exact single-step update on a (B, width) state.
+orders, so they agree to float32 rounding, not bitwise. The scan is
+in place when no gradient is asked and out of place when one is, with
+the same bits either way. Decode is the exact single-step update on a
+(B, width) state.
 """
 
 from __future__ import annotations
@@ -65,7 +67,15 @@ def rglru_scan(a, b, h0=None):
     a, b: (B, T, W) fp32. h0: optional (B, W) initial state. After the step
     of shift s, position t holds the composition of steps (t-2s, t], so
     ⌈log2 T⌉ steps leave the inclusive prefix at every t.
+
+    Without a gradient to take, the steps update copies of a and b in
+    place (serving). When any input needs a gradient (autograd or
+    ``torch.func.grad``, under ``vmap`` too), each step builds new tensors
+    from the same products and sums instead, so autograd keeps what it
+    saved; both give the same bits.
     """
+    if _needs_grad(a, b, h0):
+        return _scan_out_of_place(a, b, h0)
     a, b = a.clone(), b.clone()  # updated in place below
     if h0 is not None:
         b[:, 0] += a[:, 0] * h0
@@ -78,6 +88,24 @@ def rglru_scan(a, b, h0=None):
         b[:, s:] += a[:, s:] * b[:, :-s]
         if 2 * s < t:  # the last step needs no products of a
             a[:, s:] = a[:, s:] * a[:, :-s]
+        s *= 2
+    return b
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs)
+
+
+def _scan_out_of_place(a, b, h0):
+    """``rglru_scan``'s steps, each as new tensors."""
+    if h0 is not None:
+        b = torch.cat([(b[:, 0] + a[:, 0] * h0)[:, None], b[:, 1:]], dim=1)
+    t = a.shape[1]
+    s = 1
+    while s < t:
+        b = torch.cat([b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]], dim=1)
+        if 2 * s < t:
+            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
         s *= 2
     return b
 

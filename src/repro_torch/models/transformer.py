@@ -26,14 +26,26 @@ Three entry points used by the runtime:
   decode_step(cfg, params, cache, ...)   — one token against the cache,
                                            written into it in place
 
+``cfg.remat`` checkpoints each layer group's forward as the reference's
+``jax.checkpoint`` around its scan body does (``remat_policy="dots"``
+keeps the matrix products), with ``torch.utils.checkpoint``: memory
+changes, values do not. ``torch.func.grad`` does not take the saved-tensor
+hooks that checkpointing needs, so remat is honoured under plain autograd
+(the one-device trainer, ``dist/step.py``) and skipped inside a
+``torch.func`` transform (the FL engines' ``vmap(grad)``), where it
+computes the same values without the memory saving.
+
 Not ported yet: the expert-parallel MoE over a mesh (ROADMAP Queue 1 item
-11) and the paged cache's decode (item 12).
+11 part B) and the paged cache's decode (item 12).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
@@ -131,7 +143,7 @@ def _ffn(params, cfg, x, ctx):
     if _uses_moe(cfg):
         if ctx.get("moe_impl", cfg.moe_impl) == "ep" and ctx.get("mesh") is not None:
             raise NotImplementedError("the expert-parallel MoE over a mesh is not ported "
-                                      "yet: ROADMAP Queue 1 item 11")
+                                      "yet: ROADMAP Queue 1 item 11 part B")
         return moe.moe_dense(params["moe"], cfg, x)
     return layers.mlp(params["mlp"], x), _zero(x)
 
@@ -306,6 +318,31 @@ def unembed_logits(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = _ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg):
+    """The checkpoint's policy: recompute everything (``"nothing"``), or
+    keep the matrix products (``"dots"``, ``checkpoint_dots``)."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return _ckpt.noop_context_fn
+
+
+def _group_body(params, cfg, pattern, i, x, ctx):
+    """Layer group ``i``'s blocks in pattern order -> (x, summed aux)."""
+    aux = _zero(x)
+    for p_idx, bt in enumerate(pattern):
+        x, a, _ = block_forward(_group(params["layers"][p_idx], i), cfg, bt, x, ctx)
+        aux = aux + a
+    return x, aux
+
+
 def forward(cfg, params, batch, *, ctx=None):
     """Full-sequence forward. Returns (logits, aux_loss, cache|None).
 
@@ -320,7 +357,13 @@ def forward(cfg, params, batch, *, ctx=None):
 
     aux = _zero(x)
     per_pos = [[] for _ in pattern]
+    remat = cfg.remat and not want_cache and layers.remat_active(x)
     for i in range(n_groups):
+        if remat:
+            x, a = _ckpt.checkpoint(_group_body, params, cfg, pattern, i, x, ctx,
+                                    use_reentrant=False, context_fn=_remat_context(cfg))
+            aux = aux + a
+            continue
         for p_idx, bt in enumerate(pattern):
             x, a, c = block_forward(_group(params["layers"][p_idx], i), cfg, bt, x, ctx)
             aux = aux + a

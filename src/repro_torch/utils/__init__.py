@@ -1,4 +1,4 @@
-from repro_torch.utils.device import resolve_device, scalar, to_device
+from repro_torch.utils.device import resolve_device, scalar, to_device, weak
 from repro_torch.utils.tree import (
     flatten_dotted,
     global_norm,
@@ -40,4 +40,5 @@ __all__ = [
     "tree_size_scalar",
     "tree_unflatten",
     "tree_zeros_like",
+    "weak",
 ]

@@ -33,3 +33,13 @@ def to_device(array, device) -> torch.Tensor:
     """A numpy array on ``device`` without waiting for the work queued on
     the stream (``torch.as_tensor(..., device=...)`` synchronises it)."""
     return torch.from_numpy(array).to(device, non_blocking=True)
+
+
+def weak(value: float, dtype) -> float:
+    """The Python number ``value`` rounded to ``dtype``, as JAX rounds a
+    weakly typed scalar to the array it multiplies: ``0.9 * u`` is
+    ``bfloat16(0.9) * u`` for a bfloat16 ``u``, where torch would multiply
+    by 0.9 in float32 and round once. The result is exactly representable
+    in ``dtype``, so torch's own cast of it changes nothing; for float32
+    it is the value torch casts to anyway."""
+    return float(torch.tensor(float(value), dtype=torch.float64).to(dtype))

@@ -19,6 +19,15 @@ and each column's leaf and index within its leaf (the keyed draws,
 1-D leaves, such as the Hadamard rotation's padded leaves.
 ``flatten`` is one ``torch.cat``; ``unflatten`` makes views, for the edges
 (the model's params, tests, evaluation).
+
+The state starts in the leaves' own dtype, as the reference's does
+(``tree_zeros_like``): ``zeros`` is of the layout's ``dtype``, so an
+all-float32 tree keeps its float32 stacks and a bfloat16 model gets
+bfloat16 ones. A tree whose leaves have more than one dtype (a bfloat16
+model with float32 routers or gates) has a ``GroupedLayout``: one
+``FlatLayout`` per dtype, each over that dtype's leaves in
+``tree_leaves`` order, and every flat quantity is a tuple of one stack per
+group. ``FlatLayout.of`` returns whichever the tree needs.
 """
 
 from __future__ import annotations
@@ -35,9 +44,9 @@ _LAYOUTS: dict = {}
 
 
 def _signature(tree):
-    """A hashable description of ``tree``'s structure and leaf shapes."""
+    """A hashable description of ``tree``'s structure, leaf shapes and dtypes."""
     if isinstance(tree, torch.Tensor):
-        return tuple(tree.shape)
+        return tuple(tree.shape), tree.dtype
     if isinstance(tree, dict):
         return ("dict", tuple((k, _signature(tree[k])) for k in sorted(tree)))
     if isinstance(tree, (tuple, list)):
@@ -48,10 +57,14 @@ def _signature(tree):
 class FlatLayout:
     """Leaf shapes, sizes and offsets of one tree structure on one device."""
 
+    groups = None  # one dtype: the stacks are tensors, not tuples
+
     def __init__(self, tree, device):
         self.device = torch.device(device)
         self.skeleton = tree_map(lambda x: None, tree)
-        self.shapes = tuple(tuple(x.shape) for x in tree_leaves(tree))
+        leaves = tree_leaves(tree)
+        self.dtype = leaves[0].dtype if leaves else torch.float32
+        self.shapes = tuple(tuple(x.shape) for x in leaves)
         self.sizes = tuple(math.prod(s) for s in self.shapes)
         offsets = [0]
         for n in self.sizes:
@@ -66,14 +79,16 @@ class FlatLayout:
         self._positions: tuple[torch.Tensor, torch.Tensor] | None = None
 
     @staticmethod
-    def of(tree) -> FlatLayout:
+    def of(tree) -> FlatLayout | GroupedLayout:
         """The layout of ``tree`` (its leaves' device), built once per
-        (structure, device)."""
+        (structure, dtypes, device): a ``GroupedLayout`` when the leaves
+        have more than one dtype."""
         leaves = tree_leaves(tree)
         device = leaves[0].device if leaves else torch.device("cpu")
         key = (_signature(tree), str(device))
         if key not in _LAYOUTS:
-            _LAYOUTS[key] = FlatLayout(tree, device)
+            mixed = len({x.dtype for x in leaves}) > 1
+            _LAYOUTS[key] = (GroupedLayout if mixed else FlatLayout)(tree, device)
         return _LAYOUTS[key]
 
     @staticmethod
@@ -148,8 +163,50 @@ class FlatLayout:
                                        output_size=self.total)
 
     def zeros(self) -> torch.Tensor:
-        return torch.zeros(self.total, dtype=torch.float32, device=self.device)
+        return torch.zeros(self.total, dtype=self.dtype, device=self.device)
 
     def _check(self, flat: torch.Tensor) -> None:
         if flat.shape[-1] != self.total:
             raise ValueError(f"last axis {flat.shape[-1]} != the layout's {self.total}")
+
+
+class GroupedLayout:
+    """The flat layout of a tree of mixed dtypes: one ``FlatLayout`` per
+    dtype (``groups``, in the order each dtype first appears among the
+    leaves), over that dtype's leaves in ``tree_leaves`` order. Every flat
+    quantity is a tuple with one ``[..., N_g]`` stack per group; the
+    groups' sizes add up to ``total``."""
+
+    def __init__(self, tree, device):
+        self.device = torch.device(device)
+        self.skeleton = tree_map(lambda x: None, tree)
+        leaves = tree_leaves(tree)
+        self.dtypes = tuple(dict.fromkeys(x.dtype for x in leaves))
+        self.index = tuple(tuple(i for i, x in enumerate(leaves) if x.dtype == d)
+                           for d in self.dtypes)
+        self.groups = tuple(FlatLayout([leaves[i] for i in idx], device)
+                            for idx in self.index)
+        self.shapes = tuple(tuple(x.shape) for x in leaves)
+        self.sizes = tuple(math.prod(s) for s in self.shapes)
+        self.total = sum(self.sizes)
+        self.num_leaves = len(leaves)
+
+    def flatten(self, tree) -> tuple:
+        """A tree of ``[*lead, *shape_i]`` leaves -> one ``[*lead, N_g]``
+        stack per group."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != self.num_leaves:
+            raise ValueError(f"{len(leaves)} leaves for a layout of {self.num_leaves}")
+        return tuple(g.flatten([leaves[i] for i in idx])
+                     for g, idx in zip(self.groups, self.index, strict=True))
+
+    def unflatten(self, flats) -> object:
+        """One ``[*lead, N_g]`` stack per group -> a tree of views."""
+        leaves = [None] * self.num_leaves
+        for g, idx, flat in zip(self.groups, self.index, flats, strict=True):
+            for i, view in zip(idx, g.unflatten(flat), strict=True):
+                leaves[i] = view
+        return tree_unflatten(self.skeleton, leaves)
+
+    def zeros(self) -> tuple:
+        return tuple(g.zeros() for g in self.groups)
