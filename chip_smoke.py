@@ -35,7 +35,14 @@ Phases, in order; any failure exits nonzero:
    char-LSTM's layout for 10 clients, the tiny-segment layout and ResNet-56
    for 4 clients: thresholds bitwise ``torch.topk``'s per segment, the |z|
    mask bitwise its plain version's, and the table as a stride-0 broadcast
-   bitwise the shared ``[L]`` counts. K2 and K3 are held bitwise on stacks of 1, 5, 1000,
+   bitwise the shared ``[L]`` counts. ``gmf_select`` splits a leaf longer
+   than its layout's tile over many blocks, so it is held, in both modes
+   and twice (two runs bitwise), where the tiles can go wrong: leaves of t −
+   1, t and t + 1 elements for t = 16,384 and 65,536, an all-equal leaf of
+   70,000 and one of 1,000,003 whose largest scores are runs of one tied
+   value across every tile border, each at tile t and at the layout's own
+   tile, 4 rows keeping 100 (inside the ties), 1, all and a tenth of each
+   leaf. K2 and K3 are held bitwise on stacks of 1, 5, 1000,
    65,537, 3×1001, 20×36,864 and 2²⁴+3 elements and one misaligned view;
    K2, one multi-tensor launch per tree, also over the 169 ResNet-56 leaves
    for 20 clients in one launch, over the same tree with a misaligned leaf,
@@ -239,7 +246,8 @@ or v, u float32 and m bf16, over ResNet-56 (4 clients), the toy layout
 and the char-LSTM (10 clients); all four bf16 instances over llama3.2-1b's
 whole one-client row (1,498,482,688 elements, 3.0 GB: byte offsets past
 2³¹), each then timed beside its plain version and its bytes bound (the
-bf16 rows of the kernels line); and ``client_compress`` (dgcwgmf, fused
+bf16 rows of the kernels line; ``gmf_select`` held twice in each mode, and
+its |z| mode over the row timed too, ``at_abs_mode``); and ``client_compress`` (dgcwgmf, fused
 and staged) over granite-moe's mixed tree at 2 layers (a bf16 and a
 float32 group, 3 clients) against the same call on the plain versions,
 each kernel launching once per dtype group.
@@ -271,9 +279,11 @@ each kernel launching once per dtype group.
     The client gradients are ``vmap(grad)``, so the RG-LRU scan's and the
     MoE's gradient paths (F4, F5) run on the card.
 
-Timing: ``gmf_select``, the K1 mask pass, K2 and K3 over one round's flat
-ResNet-56 stacks (20 clients), one launch each as the path makes them
-(and ``gmf_select``'s |z| mode as the new paths call it: a Shakespeare
+Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
+ran one block a segment; the ``kernels`` line holds only this run's
+times), the K1 mask pass, K2 and K3 over one round's flat ResNet-56
+stacks (20 clients), one launch each as the path makes them (and
+``gmf_select``'s |z| mode as the new paths call it: a Shakespeare
 round's stack with a per-row keep table and with shared counts, a ResNet
 round's with a per-row table, the ResNet broadcast of the downlink)
 (CUDA events around the wrapper call, host time in), each beside its
@@ -335,8 +345,8 @@ CARDS = {
 # K-id, kernel name, the Pallas function it replaces, bytes per element,
 # float operations per element. gmf_select is K1's glue (norms, score and
 # exact top-k threshold of every segment) as a kernel: it reads v and m once
-# (each radix pass reads them again, from L2), two squares and sums, then
-# the score (5 operations) in each of the three passes.
+# (each radix pass reads them again), two squares and sums, then the score
+# (5 operations) in each of the three passes.
 KERNELS = [
     ("K1", "gmf_select", "src/repro/kernels/gmf_compress.py:101", 8, 19),
     ("K1", "gmf_compress", "src/repro/kernels/gmf_compress.py:101", 28, 10),
@@ -345,6 +355,15 @@ KERNELS = [
 ]
 RATE = 0.1
 EPS = 1e-16
+# gmf_select's times before its split over tiles (one block a segment), on
+# an NVIDIA H100 80GB HBM3 at 700 W: PR 21's chip_smoke.py run (PERF.md).
+# Printed beside this run's times on the timing lines, never in the
+# ``kernels`` line.
+PR21_MS = {"gmf_select": 0.3827, "gmf_select_bf16": 1485.4166, "k1_round": 0.5706,
+           "Shakespeare round (10 clients), per-row keep table": 0.7685,
+           "Shakespeare round (10 clients), shared counts (dgc)": 0.8382,
+           "ResNet-56 round (20 clients), per-row keep table (adaptive)": 0.3157,
+           "ResNet-56 broadcast (the top-k downlink)": 0.1525}
 PORT_SOURCE = "src/repro_torch/kernels/csrc/gmf_compress.cu"
 RESNET56_LEAVES, RESNET56_PARAMS, RESNET56_KEEP = 169, 855_578, 85_654
 K4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -501,7 +520,7 @@ def hold_select(rt, resnet_params, dev):
         for tau_vals in ((0.0,), (0.3,), (1.0,), (0.0, 0.3, 0.6, 1.0)):
             tau = torch.tensor([tau_vals[i % len(tau_vals)] for i in range(rows)],
                                dtype=torch.float32, device=dev)
-            kw = dict(offsets=offs, keep=keep, w=w, tau=tau, eps=EPS)
+            kw = dict(offsets=offs, plan=layout.select_plan(), keep=keep, w=w, tau=tau, eps=EPS)
             inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, **kw)
             again = gk.gmf_select_flat(v, m, **kw)
             for what, a, b in zip(("inv_nv", "inv_nm", "thr"), (inv_nv, inv_nm, thr), again,
@@ -525,7 +544,8 @@ def hold_select(rt, resnet_params, dev):
             kept = torch.stack([s.sum(1) for s in layout.segments(got[3])], dim=1)
             check(bool((kept >= torch.tensor(keep_host, device=dev)).all()),
                   f"gmf_compress over {label}: a segment kept fewer than k_i")
-        thr_a, mask_a = gk.topk_abs_select_flat(v, offsets=offs, keep=keep)
+        thr_a, mask_a = gk.topk_abs_select_flat(v, offsets=offs, plan=layout.select_plan(),
+                                                keep=keep)
         p_thr, p_mask = sparsify.segment_topk_mask(v, layout, RATE)
         same(worst, "gmf_select", thr_a, p_thr, f"|z| threshold over {label}")
         same(worst, "gmf_select", mask_a, p_mask, f"|z| mask over {label}")
@@ -580,8 +600,8 @@ def hold_select_keep(rt, layouts, dev):
     for label, layout, rows in layouts:
         _, v, m = kernel_inputs(rng, rows, layout.total, dev)
         keep = keep_rows(rt, layout, rows, dev)
-        offs = layout.offsets_dev
-        thr, mask = gk.topk_abs_select_flat(v, offsets=offs, keep=keep)
+        offs, plan = layout.offsets_dev, layout.select_plan()
+        thr, mask = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=keep)
         same(worst, "gmf_select", thr, topk_per_segment(v.abs(), layout, keep),
              f"per-row keep |z| threshold vs torch.topk over {label}")
         p_thr, p_mask = sparsify.segment_topk_mask_keep(v, layout, keep)
@@ -590,8 +610,8 @@ def hold_select_keep(rt, layouts, dev):
         w = torch.tensor(rng.uniform(0.5, 2.0, rows).astype(np.float32), device=dev)
         tau = torch.tensor(rng.choice([0.0, 0.3, 0.6, 1.0], rows).astype(np.float32),
                            device=dev)
-        inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau,
-                                                 eps=EPS)
+        inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, offsets=offs, plan=plan, keep=keep, w=w,
+                                                 tau=tau, eps=EPS)
         z = ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
                                  inv_norm_m=layout.expand(inv_nm), tau=tau)
         same(worst, "gmf_select", thr, topk_per_segment(z, layout, keep),
@@ -602,8 +622,8 @@ def hold_select_keep(rt, layouts, dev):
             check(rel <= 1e-6, f"per-row keep gmf_select over {label}: inverse norms {rel:.3e} "
                   f"relative from the plain version's")
         shared = layout.keep(RATE)[1]
-        a = gk.topk_abs_select_flat(v, offsets=offs, keep=shared)
-        b = gk.topk_abs_select_flat(v, offsets=offs, keep=shared.expand(rows, -1))
+        a = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=shared)
+        b = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=shared.expand(rows, -1))
         for x, y in zip(a, b, strict=True):
             check(torch.equal(x, y), f"a stride-0 keep table differs from [L] over {label}")
         print(f"  held gmf_select (|z| and fused) with a per-row keep table (k = 1, k = n, "
@@ -611,6 +631,99 @@ def hold_select_keep(rt, layouts, dev):
               f"segments): thresholds bitwise torch.topk's, |z| mask bitwise", flush=True)
     torch.cuda.synchronize()
     return worst["gmf_select"]
+
+
+def tile_layouts(rt, dev):
+    """(label, layout, plan) of the cases ``hold_select_tiles`` runs: for a
+    tile t of 16,384 (the least ``select_tile`` gives) and of 65,536 (the
+    most), leaves of t - 1, t and t + 1 elements (whole, whole, split in
+    two), an all-equal one of 70,000 and one of 1,000,003 whose k-th largest
+    value is tied across tile borders, each held at tile t and at the
+    layout's own tile; and llama3.2-1b's smallest tile split in 4,096."""
+    flat, gk = rt.flat.FlatLayout, rt.gk
+    out = []
+    for t in (16_384, 65_536):
+        layout = flat.of_sizes([t - 1, t, t + 1, 70_000, 1_000_003], dev)
+        plans = (gk.select_table(gk.plan_select(layout.sizes, t), dev), layout.select_plan())
+        for plan in {id(p): p for p in plans}.values():
+            out.append((f"leaves of {t - 1}, {t}, {t + 1}, 70000 (all equal), 1000003 (ties "
+                        f"across borders) at tile {plan.plan.tile}", layout, plan))
+    return out
+
+
+def tied_across_borders(rt, layout, rows, dev):
+    """v and m ``[rows, N]`` (normal draws rounded to 1/16, from a seed), the
+    fourth leaf all 0.5 in both (every score equal), and the fifth within
+    [-1.5, 1.5] but for runs of 2.0 in both (the largest scores, tied) over
+    every multiple of 16,384 in it (every border of a tile of 16,384 or
+    65,536), 64 elements each side; with a per-row keep table: row 0 keeps
+    100 of every leaf (inside the runs of ties), row 1 one, row 2 all, row 3
+    a tenth."""
+    rng = np.random.default_rng(17)
+    v, m = (torch.tensor(np.round(rng.normal(size=(rows, layout.total)) * 16) / 16,
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    o = layout.offsets
+    for x in (v, m):
+        x[:, o[3]:o[4]] = 0.5
+        x[:, o[4]:o[5]].clamp_(-1.5, 1.5)
+        for b in range(16_384, layout.sizes[4], 16_384):
+            x[:, o[4] + b - 64:o[4] + b + 64] = 2.0
+    sizes = layout.sizes_dev
+    keep = torch.stack([torch.full_like(sizes, 100), torch.ones_like(sizes), sizes,
+                        rt.sparsify.keep_table(layout, torch.full((1,), RATE, device=dev))[0]])
+    return v, m, keep[:rows].contiguous()
+
+
+def hold_select_tiles(rt, dev, rows=4):
+    """``gmf_select`` in both modes where the tiles can go wrong
+    (``tile_layouts``): thresholds bitwise torch.topk's per segment (on the
+    z of the kernel's own scalars), the |z| threshold and mask bitwise the
+    plain version's, inverse norms within 1e-6 relative, two runs bitwise.
+    Returns the largest threshold difference (0 when bitwise)."""
+    gk, ref, sparsify = rt.gk, rt.ref, rt.sparsify
+    worst = {"gmf_select": 0.0}
+    for label, layout, plan in tile_layouts(rt, dev):
+        v, m, keep = tied_across_borders(rt, layout, rows, dev)
+        offs, o4 = layout.offsets_dev, layout.offsets[4]
+        w = torch.tensor([1.0, 0.5, 2.0, 1.0][:rows], device=dev)
+        tau = torch.tensor([0.0, 0.3, 1.0, 0.6][:rows], device=dev)
+        kw = dict(offsets=offs, plan=plan, keep=keep, w=w, tau=tau, eps=EPS)
+        got, again = gk.gmf_select_flat(v, m, **kw), gk.gmf_select_flat(v, m, **kw)
+        for what, a, b in zip(("inv_nv", "inv_nm", "thr"), got, again, strict=True):
+            check(torch.equal(a, b), f"gmf_select over {label}: two runs differ in {what}")
+        p_nv, p_nm, _ = ref.gmf_select(v, m, layout, keep=keep, w=w, tau=tau, eps=EPS)
+        for a, b in ((got[0], p_nv), (got[1], p_nm)):
+            rel = ((a - b).abs() / b.abs()).max().item()
+            check(rel <= 1e-6, f"gmf_select over {label}: inverse norms {rel:.3e} relative "
+                  f"from the plain version's")
+        z = ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(got[0]),
+                                 inv_norm_m=layout.expand(got[1]), tau=tau)
+        same(worst, "gmf_select", got[2], topk_per_segment(z, layout, keep),
+             f"threshold vs torch.topk over {label}")
+        thr, mask = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=keep)
+        thr2, mask2 = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=keep)
+        check(torch.equal(thr, thr2) and torch.equal(mask, mask2),
+              f"gmf_select's |z| mode over {label}: two runs differ")
+        same(worst, "gmf_select", thr, topk_per_segment(v.abs(), layout, keep),
+             f"|z| threshold vs torch.topk over {label}")
+        p_thr, p_mask = sparsify.segment_topk_mask_keep(v, layout, keep)
+        same(worst, "gmf_select", thr, p_thr, f"|z| threshold over {label}")
+        same(worst, "gmf_select", mask, p_mask, f"|z| mask over {label}")
+        check(float(thr[0, 4]) == 2.0 and float(got[2][0, 4]) == float(z[0, o4 + 16_384]),
+              f"over {label}: row 0's 100th largest score of the fifth leaf is not the tied "
+              f"value")
+        print(f"  held gmf_select (fused and |z|, two runs each; k = 100 in the ties, 1, n and "
+              f"a tenth) over {label}: {plan.n_split} leaves split over {plan.n_tiles} tiles, "
+              f"{plan.n_local} whole; bitwise, inverse norms within 1e-6", flush=True)
+    torch.cuda.synchronize()
+    return worst["gmf_select"]
+
+
+def plan_of(layout) -> str:
+    """A layout's gmf_select plan in words."""
+    plan = layout.select_plan()
+    return (f"tile {plan.plan.tile}: {plan.n_split} leaves split over {plan.n_tiles} tiles, "
+            f"{plan.n_local} whole")
 
 
 def time_select_paths(rt, layouts, bw, peak, dev):
@@ -629,19 +742,23 @@ def time_select_paths(rt, layouts, bw, peak, dev):
             keep = sparsify.keep_table(layout, torch.full((rows,), RATE, device=dev))
         else:
             keep = layout.keep(RATE)[1]
-        kern = lambda: gk.topk_abs_select_flat(z, offsets=layout.offsets_dev, keep=keep)
+        plan = layout.select_plan()
+        kern = lambda: gk.topk_abs_select_flat(z, offsets=layout.offsets_dev, plan=plan,
+                                               keep=keep)
         plain = ((lambda: sparsify.segment_topk_mask_keep(z, layout, keep)) if per_row
                  else (lambda: sparsify.segment_topk_mask(z, layout, RATE)))
         ms, plain_ms = timed_ms(kern), timed_ms(plain)
         elems = rows * layout.total
         bound_bytes, bound_ops = 8 * elems / bw * 1e3, 5 * elems / peak * 1e3
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+        out[label] = dict(ms=ms, plain_ms=plain_ms,
+                          bound_ms=max(bound_bytes, bound_ops),
                           bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                           at=f"[{rows}, {layout.total}], {layout.num_leaves} leaves, "
-                             f"{'per-row keep table' if per_row else 'shared keep counts'}")
-        print(f"  gmf_select |z| mode, {label} ({out[label]['at']}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {out[label]['bound_ms']:.4f} ms "
-              f"({8 * elems / 1e6:.1f} MB)", flush=True)
+                             f"{'per-row keep table' if per_row else 'shared keep counts'}",
+                          plan=plan_of(layout))
+        print(f"  gmf_select |z| mode, {label} ({out[label]['at']}; {out[label]['plan']}): "
+              f"kernel {ms:.4f} ms (PR 21: {PR21_MS[label]}), plain {plain_ms:.4f} ms, bound "
+              f"{out[label]['bound_ms']:.4f} ms ({8 * elems / 1e6:.1f} MB)", flush=True)
     return out
 
 
@@ -716,8 +833,9 @@ def time_kernels(rt, layout, clients, bw, peak, dev):
     mask = (torch.tensor(rng.random((clients, n)) > 0.9, device=dev)).float()
     w = torch.ones(clients, device=dev)
     tau = torch.full((clients,), 0.6, device=dev)
-    offs, keep = layout.offsets_dev, layout.keep(RATE)[1]
-    select = lambda: gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau, eps=EPS)
+    offs, keep, plan = layout.offsets_dev, layout.keep(RATE)[1], layout.select_plan()
+    select = lambda: gk.gmf_select_flat(v, m, offsets=offs, plan=plan, keep=keep, w=w, tau=tau,
+                                        eps=EPS)
     inv_nv, inv_nm, thr = select()
     scal = dict(inv_norm_v=inv_nv, inv_norm_m=inv_nm, tau=tau, threshold=thr)
     elems = clients * n
@@ -744,8 +862,9 @@ def time_kernels(rt, layout, clients, bw, peak, dev):
         bound_ops = flops * elems / peak * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+        pr21 = f" (PR 21: {PR21_MS[name]})" if name in PR21_MS else ""
         print(f"  {kid} {name}: {launched} launch(es), {nbytes / 1e6:.1f} MB, kernel "
-              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+              f"{ms:.4f} ms{pr21} ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
               f"bound {out[name]['bound_ms']:.4f} ms", flush=True)
 
     def k1_round():
@@ -755,8 +874,9 @@ def time_kernels(rt, layout, clients, bw, peak, dev):
 
     k1 = timed_ms(k1_round)
     bound = 36 * elems / bw * 1e3
-    print(f"  K1 a round (gmf_select + gmf_compress, host-inclusive): {k1:.4f} ms, bound "
-          f"{bound:.4f} ms ({36 * elems / 1e6:.1f} MB)", flush=True)
+    print(f"  K1 a round (gmf_select + gmf_compress, host-inclusive): {k1:.4f} ms (PR 21: "
+          f"{PR21_MS['k1_round']}), bound {bound:.4f} ms ({36 * elems / 1e6:.1f} MB)", flush=True)
+    out["k1_round_ms"] = k1
     k2_dev = k2_device_ms(gk, [u], [v], [m])
     print(f"  K2 momentum_correction device time per call (launches back to back): "
           f"{k2_dev:.4f} ms ({20 * elems / k2_dev / 1e6:.1f} GB/s); the call "
@@ -2649,7 +2769,7 @@ BF16 = torch.bfloat16
 # K2 in bf16 on the trainer's fused path (every operand bf16), K2 in bf16
 # and K3 promoting bf16 state with a float32 mask to float32 on the LM-FL
 # phase's staged path. gmf_select reads v and m once (each radix pass
-# reads them again, from L2).
+# reads them again).
 BF16_KERNELS = [
     ("K1", "gmf_select", "bf16,bf16", 4, 19, "gmf_select_bf16"),
     ("K1", "gmf_compress", "bf16,bf16", 14, 10, "gmf_compress_bf16"),
@@ -2727,8 +2847,13 @@ def hold_bf16_select(rt, layout, u, v, m, label, dev):
     offs = layout.offsets_dev
     w = torch.ones(rows, device=dev)
     tau = torch.tensor([(0.3, 0.0, 1.0)[i % 3] for i in range(rows)], device=dev)
-    inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau,
-                                             eps=EPS)
+    plan = layout.select_plan()
+    inv_nv, inv_nm, thr = gk.gmf_select_flat(v, m, offsets=offs, plan=plan, keep=keep, w=w,
+                                             tau=tau, eps=EPS)
+    again = gk.gmf_select_flat(v, m, offsets=offs, plan=plan, keep=keep, w=w, tau=tau, eps=EPS)
+    for what, a, b in zip(("inv_nv", "inv_nm", "thr"), (inv_nv, inv_nm, thr), again,
+                          strict=True):
+        check(torch.equal(a, b), f"gmf_select over {label}: two runs differ in {what}")
     p_nv, p_nm, _ = ref.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS)
     for a, b in ((inv_nv, p_nv), (inv_nm, p_nm)):
         rel = ((a - b).abs() / b.abs()).max().item()
@@ -2749,14 +2874,19 @@ def hold_bf16_select(rt, layout, u, v, m, label, dev):
     check(bool((kept >= torch.tensor(keep_host, device=dev)).all()),
           f"gmf_compress over {label}: a segment kept fewer than k_i")
     del got, want
-    thr_a, mask_a = gk.topk_abs_select_flat(v, offsets=offs, keep=keep)
+    thr_a, mask_a = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=keep)
     p_thr, p_mask = sparsify.segment_topk_mask(v, layout, RATE)
     same(worst, "gmf_select", thr_a, p_thr, f"|z| threshold over {label}")
     same(worst, "gmf_select", mask_a, p_mask, f"|z| mask over {label}")
-    del mask_a, p_mask
+    del p_mask
+    thr_b, mask_b = gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=keep)
+    check(torch.equal(thr_a, thr_b) and torch.equal(mask_a, mask_b),
+          f"gmf_select's |z| mode over {label}: two runs differ")
+    del mask_a, mask_b
     torch.cuda.synchronize()
-    print(f"  held gmf_select (both modes) and the K1 mask pass, v {v.dtype}, m {m.dtype}, "
-          f"over {label}: bitwise", flush=True)
+    print(f"  held gmf_select (both modes, two runs each) and the K1 mask pass, v {v.dtype}, "
+          f"m {m.dtype}, over {label} (tile {plan.plan.tile}: {plan.n_split} leaves split over "
+          f"{plan.n_tiles} tiles, {plan.n_local} whole): bitwise", flush=True)
     return worst, scal
 
 
@@ -2808,7 +2938,8 @@ def hold_bf16_big_row(rt, layout, bw, peak, dev):
         times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
                           bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                           at=f"llama3.2-1b's row [1, {n}], {layout.num_leaves} leaves")
-        print(f"  {kid} {name} [{inst}] at [1, {n}]: kernel {ms:.4f} ms "
+        pr21 = f" (PR 21: {PR21_MS[row]})" if row in PR21_MS else ""
+        print(f"  {kid} {name} [{inst}] at [1, {n}]: kernel {ms:.4f} ms{pr21} "
               f"({bpe * n / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
               f"{times[row]['bound_ms']:.4f} ms ({bpe * n / 1e9:.2f} GB)", flush=True)
 
@@ -2837,17 +2968,21 @@ def hold_bf16_big_row(rt, layout, bw, peak, dev):
     sel, scal = hold_bf16_select(rt, layout, u, v, m, f"llama3.2-1b's row [1, {n}] (byte "
                                  f"offsets past 2^31)", dev)
     worst.update(sel)
-    offs, keep = layout.offsets_dev, layout.keep(RATE)[1]
+    offs, keep, plan = layout.offsets_dev, layout.keep(RATE)[1], layout.select_plan()
     w, tau = torch.ones(1, device=dev), scal["tau"]
     timing("K1", "gmf_select", "bf16,bf16", 4, 19, "gmf_select_bf16",
-           lambda: gk.gmf_select_flat(v, m, offsets=offs, keep=keep, w=w, tau=tau, eps=EPS),
-           lambda: ref.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS), reps=(1, 1))
+           lambda: gk.gmf_select_flat(v, m, offsets=offs, plan=plan, keep=keep, w=w, tau=tau,
+                                      eps=EPS),
+           lambda: ref.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS), reps=(10, 1))
+    timing("K1", "gmf_select", "abs:bf16", 6, 5, "gmf_select_abs_bf16",
+           lambda: gk.topk_abs_select_flat(v, offsets=offs, plan=plan, keep=keep),
+           lambda: rt.sparsify.segment_topk_mask(v, layout, RATE), reps=(10, 1))
     timing("K1", "gmf_compress", "bf16,bf16", 14, 10, "gmf_compress_bf16",
            lambda: gk.gmf_compress_flat(u, v, m, offsets=offs, **scal),
            lambda: ref.gmf_compress_segments(u, v, m, layout=layout, **scal), reps=(5, 1))
-    seg = max(layout.sizes)
-    print(f"  gmf_select's largest segment here: {seg} elements on one block (S8)",
-          flush=True)
+    print(f"  gmf_select's plan here: tile {plan.plan.tile}, {plan.n_split} leaves split over "
+          f"{plan.n_tiles} tiles, {plan.n_local} whole (the largest segment, {max(layout.sizes)} "
+          f"elements, over {-(-max(layout.sizes) // plan.plan.tile)} blocks)", flush=True)
     del u, v, m
     torch.cuda.empty_cache()
     return worst, times
@@ -3271,6 +3406,7 @@ def main() -> None:
     worst["gmf_select"] = max(worst["gmf_select"], hold_select_keep(rt, [
         ("the char-LSTM, 10 clients", lstm_layout, 10), (toy[0], toy[1], toy[2]),
         ("ResNet-56, 4 clients", resnet_layout, 4)], dev))
+    worst["gmf_select"] = max(worst["gmf_select"], hold_select_tiles(rt, dev))
     worst["momentum_correction"] = max(worst["momentum_correction"],
                                        hold_k2_trees(gk, ops, ref, leaf_shapes, dev))
     k4_worst = hold_k4(k4, ref, dev)
@@ -3297,6 +3433,8 @@ def main() -> None:
             bf16_worst[key] = max(bf16_worst.get(key, 0.0), err)
     print(json.dumps({"kernels_held": [
         "K1 gmf_select (and its |z| mode)", "K1 gmf_select with a per-row keep table (both modes)",
+        "K1 gmf_select split over tiles (tile - 1, tile, tile + 1; all equal; ties across tile "
+        "borders; k = 1 and n; both modes)",
         "K1 gmf_compress (flat mask pass)",
         "K2 momentum_correction (multi-tensor)", "K3 apply_mask",
         "K4 flash_attention_tc (tensor cores; G 7 and 12 at D 128; D 112 and 256)",
@@ -3403,6 +3541,7 @@ def main() -> None:
                "launches_by_path": {path: c[name] for path, c in by_path.items()},
                "max_abs_err": worst[name], **times[name], "library_ms": None}
         if name == "gmf_select":
+            row.update(plan=plan_of(resnet_layout), k1_round_ms=times["k1_round_ms"])
             row["at_other_paths"] = select_paths
         rows.append(row)
     # K1-K3's bf16 instances: launches in the training paths' runs (phases 14
@@ -3415,6 +3554,9 @@ def main() -> None:
                      "launches": sum(by.values()), "launches_by_path": by,
                      "max_abs_err": bf16_worst[name], **bf16_times[row_name],
                      "library_ms": None})
+        if row_name == "gmf_select_bf16":
+            rows[-1].update(plan=plan_of(llama_lay),
+                            at_abs_mode=bf16_times["gmf_select_abs_bf16"])
     # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.

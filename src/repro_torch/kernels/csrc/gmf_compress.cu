@@ -8,7 +8,8 @@
 //                    in one launch; reads u, v, g, writes u', v': 20 bytes
 //                    per element
 //   gmf_select     <- the per-leaf norms, fusion score and torch.topk that fed
-//                    gmf_compress_flat: per (client, leaf) segment, ||V||,
+//                    gmf_compress_flat (src/repro/core/stages.py:476; no
+//                    Pallas kernel): per (client, leaf) segment, ||V||,
 //                    ||M||, z = |((1-tau)*V)*inv_nv + (tau*M)*inv_nm| and the
 //                    exact k-th largest z; reads v, m: 8 bytes per element
 //   gmf_select_abs <- the per-leaf torch.topk of |V| (DGC's top-k mask): the
@@ -65,20 +66,38 @@
 // and walks forward from there; a quad that straddles a segment boundary
 // takes each element's own scalars.
 //
-// gmf_select runs one block per (client, leaf) segment. The block sums the
-// squares of V and M in a fixed order (strided per-thread partials in
-// float64, then a fixed shuffle tree; no atomics, so every run gives the
-// same bits),
-// forms inv_nv = w / (sqrt(||V||^2) + eps) and inv_nm = 1 / (sqrt(||M||^2)
-// + eps) correctly rounded, and finds the k_i-th largest z by a radix
-// select on the float's bits: z >= 0, so its bits order as its values.
-// Three passes of 11, 11 and 10 bits each count the candidates that match
-// the digits found so far in a 2,048-bin shared-memory histogram (the lanes
-// of a warp that hit one bin add once, __match_any_sync), and a block scan
-// from the top bin finds the bin that holds the k-th largest. z is
-// recomputed from V and M in each pass: the segment's reads after the
-// first come from L2. The k-th largest value of a multiset does not depend
-// on the algorithm, so the threshold is bitwise torch.topk's on the same z.
+// gmf_select splits a segment over blocks. A host plan per layout
+// (kernels/gmf_compress.py:plan_select) cuts each leaf into tiles of one
+// length; a leaf of one tile is "local", a longer one "split". A local
+// segment is selected whole by one block: its squares of V and M summed in
+// a fixed order (strided per-thread partials in float64, then a fixed
+// shuffle tree), inv_nv = w / (sqrt(||V||^2) + eps) and inv_nm = 1 /
+// (sqrt(||M||^2) + eps) correctly rounded, then the k_i-th largest z by a
+// radix select on the float's bits (z >= 0, so its bits order as its
+// values): three passes of 11, 11 and 10 bits each count the candidates
+// that match the digits found so far in a 2,048-bin shared histogram, and
+// a block scan from the top bin finds the bin that holds the k-th largest.
+// A split segment takes one block a tile in each phase of the same
+// algorithm: the tiles' float64 partial sums, added in tile order by the
+// last tile to finish (so every run gives the same bits); then per radix
+// pass each tile's shared histogram added into the segment's global one
+// with integer atomics (exact in any order: no floating-point atomic
+// anywhere), and the last tile to finish scans it as the local block scans
+// its own. The k-th largest value of a multiset does not depend on the
+// algorithm, so every threshold is bitwise torch.topk's on the same z.
+//
+// The phases run in one launch: the blocks (as many as the card holds at
+// once, by a cooperative launch) take each phase's items in turn, and a
+// grid-wide barrier separates the phases. One launch rather than one per
+// phase because the paper's paths are small (a Shakespeare round's select
+// is 2.9M elements): there a launch per phase cost more in host time and
+// gaps between the kernels than the work itself. Each
+// phase rereads v and m (or z): four reads in all, 7.2 ms over
+// llama3.2-1b's 3.0 GB row at 3.35 TB/s, against the 1.8 ms bound of one.
+// A local leaf's block is the longest item, so the plan lists the local
+// leaves largest first and the blocks take them first. A layout with no
+// split leaf is one plain launch of one block a local segment. Candidates
+// are counted with a shared atomic each (count_one says why).
 //
 // K2 is one multi-tensor launch per tree (a tree of one [rows, N] leaf on
 // the path): gmf_momentum_multi takes a table of leaves -- five pointers,
@@ -441,17 +460,28 @@ gmf_compress_kernel(const void* __restrict__ u, const void* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// gmf_select: norms and exact top-k thresholds, one block per segment
+// gmf_select: norms and exact top-k thresholds, a segment split over tiles
 // ---------------------------------------------------------------------------
 
 constexpr int kSelThreads = 256;
 constexpr int kSelWarps = kSelThreads / 32;
 constexpr int kBins = 2048;  // 11-bit digits
 constexpr int kBinsPerThread = kBins / kSelThreads;
-// Elements a thread loads before it counts them: a segment of 36,864 takes
-// 144 elements a thread, and a loop that waits for each load in turn is
-// bound by the latency of the largest segment's block, not by bytes.
+// Quads a thread loads before it counts them: the loads of a tile are in
+// flight together rather than one after the other.
 constexpr int kSelUnroll = 4;
+// Blocks of select_kernel an SM holds at once (at most 64 registers a
+// thread): every block of a cooperative launch is resident, so this is the
+// grid's width over the split leaves' tiles.
+constexpr int kSelBlocksPerSM = 4;
+
+// The radix passes: pass p counts the digit at bits [shift, shift + width)
+// of the candidates whose bits above it match the digits found so far.
+__host__ __device__ constexpr int pass_shift(int p) { return p == 0 ? 21 : p == 1 ? 10 : 0; }
+__host__ __device__ constexpr unsigned pass_dmask(int p) { return p == 2 ? 0x3ffu : 0x7ffu; }
+__host__ __device__ constexpr unsigned pass_pmask(int p) {
+  return p == 0 ? 0u : p == 1 ? 0xffe00000u : 0xfffffc00u;
+}
 
 // The sum of x over the block, in a fixed order: a shuffle tree in each warp,
 // then one over the warps' sums. Every thread gets the result.
@@ -468,173 +498,517 @@ __device__ __forceinline__ double block_sum(double x, double* red) {
     if (lane == 0) red[kSelWarps] = x;
   }
   __syncthreads();
-  return red[kSelWarps];
+  const double out = red[kSelWarps];
+  __syncthreads();  // red may be written again by the caller's next sum
+  return out;
 }
 
-struct Select {
-  unsigned* hist;   // kBins
-  unsigned* warps;  // kSelWarps + 2: warp totals, then the bin and rank found
-};
+// w / (sqrt(sum) + eps), correctly rounded from the float64 sum of squares.
+__device__ __forceinline__ float inv_norm(float w, double sum, float eps) {
+  return __fdiv_rn(w, __fadd_rn(__fsqrt_rn(__double2float_rn(sum)), eps));
+}
 
-// One radix pass: counts the candidates (bits & pmask) == prefix by their
-// digit (bits >> shift) & dmask, and returns the digit of the bin holding
-// the rank-th largest candidate; rank becomes its rank inside that bin.
-template <class Bits>
-__device__ unsigned radix_pass(const Select& sel, int64_t n, Bits bits_of, unsigned prefix,
-                               unsigned pmask, int shift, unsigned dmask, unsigned& rank) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < kBins; i += kSelThreads) sel.hist[i] = 0;
-  __syncthreads();
-  // j0 is the same in all lanes of a warp, so the warp stays whole for
-  // __match_any_sync; element j0 + q * kSelThreads + lane is counted once
-  for (int64_t j0 = (int64_t)warp * 32; j0 < n; j0 += kSelThreads * kSelUnroll) {
-    unsigned bits[kSelUnroll];
-#pragma unroll
-    for (int q = 0; q < kSelUnroll; ++q) {
-      const int64_t j = j0 + q * kSelThreads + lane;
-      bits[q] = j < n ? bits_of(j) : 0u;
-    }
-#pragma unroll
-    for (int q = 0; q < kSelUnroll; ++q) {
-      const bool hit = j0 + q * kSelThreads + lane < n && (bits[q] & pmask) == prefix;
-      const unsigned d = (bits[q] >> shift) & dmask;
-      const unsigned peers = __match_any_sync(0xffffffffu, hit ? d : 0xffffffffu);
-      if (hit && lane == __ffs(peers) - 1) atomicAdd(&sel.hist[d], (unsigned)__popc(peers));
+// The elements [e0, e1) of a flat stack as aligned quads [qa, qb) between a
+// scalar head [e0, head) and tail [tail, e1); no quads unless vec.
+struct Span {
+  int64_t e0, e1, qa, qb, head, tail;
+  __device__ __forceinline__ Span(int64_t b, int64_t e, int vec)
+      : e0(b), e1(e), qa(0), qb(0), head(e), tail(e) {
+    const int64_t a = (b + 3) >> 2, z = e >> 2;
+    if (vec && a < z) {
+      qa = a;
+      qb = z;
+      head = 4 * a;
+      tail = 4 * z;
     }
   }
-  __syncthreads();
-  // thread t owns kBinsPerThread bins, thread 0 the top ones
-  const int top = kBins - kBinsPerThread * threadIdx.x;
+};
+
+// The float bits of the scores of a stack's elements: z, the fusion score of
+// v and m under one segment's scalars, or |z| of v alone. Both are
+// non-negative floats, whose bits order as their values.
+template <bool ABS, class S, class M>
+struct Scores {
+  const void* v;
+  const void* m;
+  float t, a, b;
+  __device__ __forceinline__ unsigned bits(float x, float y) const {
+    return __float_as_uint(ABS ? fabsf(x) : gmf_score(x, y, t, a, b));
+  }
+  __device__ __forceinline__ unsigned one(int64_t i) const {
+    return bits(Num<S>::get(v, i), ABS ? 0.0f : Num<M>::get(m, i));
+  }
+  __device__ __forceinline__ uint4 quad(int64_t q) const {
+    const float4 x = Num<S>::get4(v, q);
+    const float4 y = ABS ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : Num<M>::get4(m, q);
+    return make_uint4(bits(x.x, y.x), bits(x.y, y.y), bits(x.z, y.z), bits(x.w, y.w));
+  }
+};
+
+// Counts one score per lane into hist by its digit, if it is a candidate
+// (valid, and its bits match prefix under pmask): one shared atomic a
+// candidate. (Warp aggregation, one atomic per distinct digit in a warp by
+// __match_any_sync, measured slower on every path the port runs:
+// tools/torch_select_tiles.py --variants builds and times it.)
+__device__ __forceinline__ void count_one(unsigned* hist, bool valid, unsigned bits,
+                                          unsigned prefix, unsigned pmask, int shift,
+                                          unsigned dmask) {
+  const bool hit = valid && (bits & pmask) == prefix;
+  if (hit) atomicAdd(&hist[(bits >> shift) & dmask], 1u);
+}
+
+// Pass p's count of the candidates among the scores of [e0, e1) into the
+// shared histogram. The loops' trip counts are the same in every lane of a
+// warp, so a warp-wide count_one (the aggregated variant) finds it whole.
+template <class Sc>
+__device__ void count_span(unsigned* hist, const Sc& sc, const Span& sp, unsigned prefix,
+                           int p) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned pmask = pass_pmask(p), dmask = pass_dmask(p);
+  const int shift = pass_shift(p);
+  for (int64_t q0 = sp.qa + warp * 32; q0 < sp.qb; q0 += kSelThreads * kSelUnroll) {
+    uint4 r[kSelUnroll];
+    bool ok[kSelUnroll];
+#pragma unroll
+    for (int u = 0; u < kSelUnroll; ++u) {
+      const int64_t q = q0 + u * kSelThreads + lane;
+      ok[u] = q < sp.qb;
+      r[u] = ok[u] ? sc.quad(q) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kSelUnroll; ++u) {
+      count_one(hist, ok[u], r[u].x, prefix, pmask, shift, dmask);
+      count_one(hist, ok[u], r[u].y, prefix, pmask, shift, dmask);
+      count_one(hist, ok[u], r[u].z, prefix, pmask, shift, dmask);
+      count_one(hist, ok[u], r[u].w, prefix, pmask, shift, dmask);
+    }
+  }
+  for (int64_t j0 = sp.e0 + warp * 32; j0 < sp.head; j0 += kSelThreads) {
+    const int64_t j = j0 + lane;
+    count_one(hist, j < sp.head, j < sp.head ? sc.one(j) : 0u, prefix, pmask, shift, dmask);
+  }
+  for (int64_t j0 = sp.tail + warp * 32; j0 < sp.e1; j0 += kSelThreads) {
+    const int64_t j = j0 + lane;
+    count_one(hist, j < sp.e1, j < sp.e1 ? sc.one(j) : 0u, prefix, pmask, shift, dmask);
+  }
+}
+
+// This thread's float64 partial sums of v^2 and m^2 over [e0, e1), in a
+// fixed order (the float32 squares summed in float64: a segment of 2^24
+// elements would lose ~1e-6 of its sum in float32 partials).
+template <class S, class M>
+__device__ void sum_squares(const void* v, const void* m, const Span& sp, double& sv,
+                            double& sm) {
+  for (int64_t q0 = sp.qa + threadIdx.x; q0 < sp.qb; q0 += kSelThreads * kSelUnroll) {
+    float4 x[kSelUnroll], y[kSelUnroll];
+#pragma unroll
+    for (int u = 0; u < kSelUnroll; ++u) {
+      const int64_t q = q0 + u * kSelThreads;
+      const bool ok = q < sp.qb;
+      x[u] = ok ? Num<S>::get4(v, q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      y[u] = ok ? Num<M>::get4(m, q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kSelUnroll; ++u) {
+      sv = __dadd_rn(sv, (double)__fmul_rn(x[u].x, x[u].x));
+      sv = __dadd_rn(sv, (double)__fmul_rn(x[u].y, x[u].y));
+      sv = __dadd_rn(sv, (double)__fmul_rn(x[u].z, x[u].z));
+      sv = __dadd_rn(sv, (double)__fmul_rn(x[u].w, x[u].w));
+      sm = __dadd_rn(sm, (double)__fmul_rn(y[u].x, y[u].x));
+      sm = __dadd_rn(sm, (double)__fmul_rn(y[u].y, y[u].y));
+      sm = __dadd_rn(sm, (double)__fmul_rn(y[u].z, y[u].z));
+      sm = __dadd_rn(sm, (double)__fmul_rn(y[u].w, y[u].w));
+    }
+  }
+  for (int64_t j = sp.e0 + threadIdx.x; j < sp.head; j += kSelThreads) {
+    const float x = Num<S>::get(v, j), y = Num<M>::get(m, j);
+    sv = __dadd_rn(sv, (double)__fmul_rn(x, x));
+    sm = __dadd_rn(sm, (double)__fmul_rn(y, y));
+  }
+  for (int64_t j = sp.tail + threadIdx.x; j < sp.e1; j += kSelThreads) {
+    const float x = Num<S>::get(v, j), y = Num<M>::get(m, j);
+    sv = __dadd_rn(sv, (double)__fmul_rn(x, x));
+    sm = __dadd_rn(sm, (double)__fmul_rn(y, y));
+  }
+}
+
+// |z| mode's float32 mask |z| >= thr over [e0, e1), a float4 store a quad.
+template <class S>
+__device__ void write_mask(const void* z, float* mask, const Span& sp, float thr) {
+  for (int64_t q = sp.qa + threadIdx.x; q < sp.qb; q += kSelThreads) {
+    const float4 x = Num<S>::get4(z, q);
+    reinterpret_cast<float4*>(mask)[q] =
+        make_float4(fabsf(x.x) >= thr ? 1.0f : 0.0f, fabsf(x.y) >= thr ? 1.0f : 0.0f,
+                    fabsf(x.z) >= thr ? 1.0f : 0.0f, fabsf(x.w) >= thr ? 1.0f : 0.0f);
+  }
+  for (int64_t j = sp.e0 + threadIdx.x; j < sp.head; j += kSelThreads)
+    mask[j] = fabsf(Num<S>::get(z, j)) >= thr ? 1.0f : 0.0f;
+  for (int64_t j = sp.tail + threadIdx.x; j < sp.e1; j += kSelThreads)
+    mask[j] = fabsf(Num<S>::get(z, j)) >= thr ? 1.0f : 0.0f;
+}
+
+// Bin j of the kBinsPerThread bins this thread owns in a scan: thread t
+// owns bins kBins - 8t - 1 down to kBins - 8t - 8, thread 0 the top ones.
+__device__ __forceinline__ int own_bin(int j) {
+  return kBins - kBinsPerThread * (int)threadIdx.x - 1 - j;
+}
+
+// The bin that holds the rank-th largest candidate of a histogram, counted
+// from the top bin, given each thread's own bins c (own_bin order): returns
+// its digit and sets rank to the rank inside that bin. Every thread of the
+// block calls it; warps holds kSelWarps + 2 words of shared memory.
+__device__ unsigned scan_bins(const unsigned (&c)[kBinsPerThread], unsigned& rank,
+                              unsigned* warps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned own = 0;
 #pragma unroll
-  for (int i = 1; i <= kBinsPerThread; ++i) own += sel.hist[top - i];
+  for (int i = 0; i < kBinsPerThread; ++i) own += c[i];
   unsigned incl = own;  // inclusive scan over the threads, in order
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const unsigned y = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += y;
   }
-  if (lane == 31) sel.warps[warp] = incl;
+  if (lane == 31) warps[warp] = incl;
+  if (threadIdx.x == 0) {  // a rank past every count finds digit 0
+    warps[kSelWarps] = 0u;
+    warps[kSelWarps + 1] = 0u;
+  }
   __syncthreads();
   unsigned above = incl - own;
-  for (int w = 0; w < warp; ++w) above += sel.warps[w];
+  for (int w = 0; w < warp; ++w) above += warps[w];
   if (above < rank && rank <= above + own) {
     unsigned acc = above;
-    for (int i = 1; i <= kBinsPerThread; ++i) {
-      const unsigned c = sel.hist[top - i];
-      if (acc + c >= rank) {
-        sel.warps[kSelWarps] = top - i;
-        sel.warps[kSelWarps + 1] = rank - acc;
+#pragma unroll
+    for (int i = 0; i < kBinsPerThread; ++i) {
+      if (acc + c[i] >= rank) {
+        warps[kSelWarps] = own_bin(i);
+        warps[kSelWarps + 1] = rank - acc;
         break;
       }
-      acc += c;
+      acc += c[i];
     }
   }
   __syncthreads();
-  const unsigned digit = sel.warps[kSelWarps];
-  rank = sel.warps[kSelWarps + 1];
-  __syncthreads();  // the next pass clears hist and writes warps again
+  const unsigned digit = warps[kSelWarps];
+  rank = warps[kSelWarps + 1];
+  __syncthreads();  // warps is written again by the next scan
   return digit;
 }
 
-// The bits of the rank-th largest of n scores (bits_of(j) is score j's
-// float bits, a non-negative float): three passes of 11, 11 and 10 bits.
-template <class Bits>
-__device__ unsigned radix_select(const Select& sel, int64_t n, Bits bits_of, unsigned rank) {
-  unsigned prefix = 0, pmask = 0;
-  const int shifts[3] = {21, 10, 0};
-  const unsigned widths[3] = {0x7ffu, 0x7ffu, 0x3ffu};
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const unsigned d = radix_pass(sel, n, bits_of, prefix, pmask, shifts[p], widths[p], rank);
-    prefix |= d << shifts[p];
-    pmask |= widths[p] << shifts[p];
-  }
-  return prefix;
-}
+// The plan's tables (one int64 array, made once per layout): the local
+// leaves [n_local][3] = (leaf, first column, length), largest first; the
+// split leaves [n_split]; each split leaf's first tile [n_split + 1]; and
+// the tiles [n_tiles][5] = (split index, leaf, first column, length, tiles
+// of its leaf). The columns are a row's: a block finds its elements with
+// one load, not a chain of them.
+struct SelPlan {
+  const long long* local;
+  const long long* split;
+  const long long* first;
+  const long long* tiles;
+  int n_local, n_split, n_tiles;
+  __host__ SelPlan(const long long* p, int nl, int ns, int nt)
+      : local(p), split(p + 3 * nl), first(p + 3 * nl + ns), tiles(p + 3 * nl + 2 * ns + 1),
+        n_local(nl), n_split(ns), n_tiles(nt) {}
+};
 
-// v (or z) of type S, m of type M; the norms, thresholds and |z| mode's
-// mask are float32.
+// A select's operands and scratch. partials is float64 [rows][n_tiles][2]
+// (the tiles' sums of v^2 and m^2); hist is [rows][n_split][kBins] and
+// state [rows][n_split][4] = (prefix, rank, tiles done, unused), both zero
+// at the first launch: the last tile of a segment to finish a pass zeroes
+// its histogram and its count again.
+struct SelArgs {
+  const void* v;
+  const void* m;
+  const long long* keep;
+  const float* w;
+  const float* tau;
+  float* inv_nv;
+  float* inv_nm;
+  float* thr;
+  float* mask;
+  double* partials;
+  unsigned* hist;
+  unsigned* state;
+  int64_t n;
+  int64_t rows;
+  float eps;
+  int keep_stride, leaves, vec;
+};
+
+// The shared memory of a select block.
+struct SelShared {
+  unsigned hist[kBins];
+  unsigned warps[kSelWarps + 2];
+  double red[kSelWarps + 1];
+  int last;
+};
+
+// Local leaf i of the plan in row `row`: a segment of at most one tile,
+// selected whole by this block: its norms, three radix passes over its
+// scores in the shared histogram (the re-reads come from L2), then |z|
+// mode's mask.
 template <bool ABS, class S, class M>
-__global__ void __launch_bounds__(kSelThreads)
-select_kernel(const void* __restrict__ v, const void* __restrict__ m,
-              const long long* __restrict__ offsets, const long long* __restrict__ keep,
-              int keep_stride, const float* __restrict__ w, const float* __restrict__ tau,
-              float eps,
-              int leaves, int64_t n, float* __restrict__ inv_nv_out,
-              float* __restrict__ inv_nm_out, float* __restrict__ thr_out,
-              float* __restrict__ mask_out) {
-  __shared__ unsigned hist[kBins];
-  __shared__ unsigned warps[kSelWarps + 2];
-  __shared__ double red[kSelWarps + 1];
-  const int64_t seg = blockIdx.x;  // row * leaves + leaf
-  const int64_t row = seg / leaves;
-  const int leaf = (int)(seg - row * leaves);
-  const int64_t lo = offsets[leaf];
-  const int64_t len = offsets[leaf + 1] - lo;
-  const unsigned rank = (unsigned)keep[row * keep_stride + leaf];
-  const int64_t base = row * n + lo;
+__device__ void select_local(int64_t i, int64_t row, const SelArgs& g, const SelPlan& plan,
+                             SelShared& sh) {
+  const long long* e = plan.local + 3 * i;
+  const int leaf = (int)e[0];
+  const int64_t seg = row * g.leaves + leaf;
+  const Span sp(row * g.n + e[1], row * g.n + e[1] + e[2], g.vec);
   float t = 0.0f, a = 0.0f, b = 0.0f;
   if (!ABS) {
-    // float32 squares summed in float64: a segment of 2^24 elements would
-    // lose ~1e-6 of its sum in float32 partials of 65,536 terms a thread
     double sv = 0.0, sm = 0.0;
-    for (int64_t j0 = threadIdx.x; j0 < len; j0 += kSelThreads * kSelUnroll) {
-      float x[kSelUnroll], y[kSelUnroll];
+    sum_squares<S, M>(g.v, g.m, sp, sv, sm);
+    sv = block_sum(sv, sh.red);
+    sm = block_sum(sm, sh.red);
+    t = g.tau[row];
+    a = inv_norm(g.w[row], sv, g.eps);
+    b = inv_norm(1.0f, sm, g.eps);
+  }
+  float thr = 0.0f;  // no element: nothing to select
+  if (sp.e1 > sp.e0) {
+    const Scores<ABS, S, M> sc{g.v, g.m, t, a, b};
+    unsigned rank = (unsigned)g.keep[row * g.keep_stride + leaf], prefix = 0u;
+#pragma unroll 1
+    for (int p = 0; p < 3; ++p) {
+      for (int j = threadIdx.x; j < kBins; j += kSelThreads) sh.hist[j] = 0u;
+      __syncthreads();
+      count_span(sh.hist, sc, sp, prefix, p);
+      __syncthreads();
+      unsigned c[kBinsPerThread];
 #pragma unroll
-      for (int q = 0; q < kSelUnroll; ++q) {
-        const int64_t j = j0 + q * kSelThreads;
-        x[q] = j < len ? Num<S>::get(v, base + j) : 0.0f;
-        y[q] = j < len ? Num<M>::get(m, base + j) : 0.0f;
-      }
-#pragma unroll
-      for (int q = 0; q < kSelUnroll; ++q) {
-        sv = __dadd_rn(sv, (double)__fmul_rn(x[q], x[q]));
-        sm = __dadd_rn(sm, (double)__fmul_rn(y[q], y[q]));
-      }
+      for (int j = 0; j < kBinsPerThread; ++j) c[j] = sh.hist[own_bin(j)];
+      prefix |= scan_bins(c, rank, sh.warps) << pass_shift(p);
     }
-    sv = block_sum(sv, red);
-    __syncthreads();  // red is read by every thread before it is written again
-    sm = block_sum(sm, red);
-    t = tau[row];
-    a = __fdiv_rn(w[row], __fadd_rn(__fsqrt_rn(__double2float_rn(sv)), eps));
-    b = __fdiv_rn(1.0f, __fadd_rn(__fsqrt_rn(__double2float_rn(sm)), eps));
+    thr = __uint_as_float(prefix);
   }
-  if (len == 0) {  // no element: nothing to select
-    if (threadIdx.x == 0) {
-      thr_out[seg] = 0.0f;
-      if (!ABS) {
-        inv_nv_out[seg] = a;
-        inv_nm_out[seg] = b;
-      }
-    }
-    return;
-  }
-  const Select sel{hist, warps};
-  unsigned bits;
-  if (ABS) {
-    bits = radix_select(sel, len, [=](int64_t j) {
-      return __float_as_uint(fabsf(Num<S>::get(v, base + j)));
-    }, rank);
-  } else {
-    bits = radix_select(sel, len, [=](int64_t j) {
-      return __float_as_uint(gmf_score(Num<S>::get(v, base + j), Num<M>::get(m, base + j), t,
-                                       a, b));
-    }, rank);
-  }
-  const float thr = __uint_as_float(bits);
   if (threadIdx.x == 0) {
-    thr_out[seg] = thr;
+    g.thr[seg] = thr;
     if (!ABS) {
-      inv_nv_out[seg] = a;
-      inv_nm_out[seg] = b;
+      g.inv_nv[seg] = a;
+      g.inv_nm[seg] = b;
+    }
+  }
+  if (ABS) write_mask<S>(g.v, g.mask, sp, thr);
+}
+
+// A tile's place: its split leaf s, the leaf, its elements in the stack and
+// the tile count of its leaf.
+struct Tile {
+  int s, leaf;
+  unsigned count;
+  Span sp;
+  __device__ __forceinline__ Tile(const SelPlan& plan, int64_t tile, int64_t row, int64_t n,
+                                  int vec)
+      : s((int)plan.tiles[5 * tile]),
+        leaf((int)plan.tiles[5 * tile + 1]),
+        count((unsigned)plan.tiles[5 * tile + 4]),
+        sp(row * n + plan.tiles[5 * tile + 2],
+           row * n + plan.tiles[5 * tile + 2] + plan.tiles[5 * tile + 3], vec) {}
+};
+
+// Called by every thread of a tile block after its writes for a split leaf
+// of `tiles` tiles in this row (segment rs): true in the one block that finishes the leaf's tiles last in
+// this launch, which then sees every other tile's writes (each thread fences
+// before thread 0 takes a ticket; the ticket count is reset for the next
+// launch). The segment-wide step that follows runs in that block, so no
+// launch of its own is needed between the passes.
+__device__ bool last_tile(const SelArgs& g, int64_t rs, unsigned tiles, SelShared& sh) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* done = g.state + 4 * rs + 2;
+    sh.last = atomicAdd(done, 1u) == tiles - 1;
+    if (sh.last) *done = 0u;
+  }
+  __syncthreads();
+  const bool last = sh.last;
+  if (last) __threadfence();
+  return last;
+}
+
+// The norms of a split leaf's tile: its float64 sums of v^2 and m^2 into
+// partials; the last tile of the leaf sums the leaf's partials in tile order
+// (a fixed order: every run gives the same bits) into its inverse norms.
+template <class S, class M>
+__device__ void norm_tile(int64_t tile, int64_t row, const SelArgs& g, const SelPlan& plan,
+                          SelShared& sh) {
+  const Tile tl(plan, tile, row, g.n, g.vec);
+  double sv = 0.0, sm = 0.0;
+  sum_squares<S, M>(g.v, g.m, tl.sp, sv, sm);
+  sv = block_sum(sv, sh.red);
+  sm = block_sum(sm, sh.red);
+  if (threadIdx.x == 0) {
+    double* out = g.partials + 2 * (row * plan.n_tiles + tile);
+    out[0] = sv;
+    out[1] = sm;
+  }
+  const int64_t rs = row * plan.n_split + tl.s;
+  if (!last_tile(g, rs, tl.count, sh)) return;
+  const double* part = g.partials + 2 * row * plan.n_tiles;
+  sv = sm = 0.0;
+  for (long long i = plan.first[tl.s] + threadIdx.x; i < plan.first[tl.s + 1];
+       i += kSelThreads) {
+    sv = __dadd_rn(sv, __ldcg(part + 2 * i));
+    sm = __dadd_rn(sm, __ldcg(part + 2 * i + 1));
+  }
+  sv = block_sum(sv, sh.red);
+  sm = block_sum(sm, sh.red);
+  if (threadIdx.x == 0) {
+    const int64_t seg = row * g.leaves + tl.leaf;
+    g.inv_nv[seg] = inv_norm(g.w[row], sv, g.eps);
+    g.inv_nm[seg] = inv_norm(1.0f, sm, g.eps);
+  }
+}
+
+// Radix pass p over a split leaf's tile: its candidates counted in shared
+// memory, each nonzero bin added to the segment's global histogram
+// (integer atomics: exact in any order); the last tile of the segment scans
+// that histogram from the top bin, keeps the digit and the rank inside its
+// bin in the segment's state, zeroes the histogram, and after the last pass
+// writes the threshold.
+template <bool ABS, class S, class M>
+__device__ void count_tile(int p, int64_t tile, int64_t row, const SelArgs& g,
+                           const SelPlan& plan, SelShared& sh) {
+  const Tile tl(plan, tile, row, g.n, g.vec);
+  const int64_t seg = row * g.leaves + tl.leaf, rs = row * plan.n_split + tl.s;
+  Scores<ABS, S, M> sc{g.v, g.m, 0.0f, 0.0f, 0.0f};
+  if (!ABS) {
+    sc.t = g.tau[row];
+    sc.a = __ldcg(g.inv_nv + seg);
+    sc.b = __ldcg(g.inv_nm + seg);
+  }
+  unsigned* st = g.state + 4 * rs;
+  unsigned prefix = p == 0 ? 0u : __ldcg(st);
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads) sh.hist[j] = 0u;
+  __syncthreads();
+  count_span(sh.hist, sc, tl.sp, prefix, p);
+  __syncthreads();
+  unsigned* hist = g.hist + rs * kBins;
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads)
+    if (sh.hist[j]) atomicAdd(hist + j, sh.hist[j]);
+  if (!last_tile(g, rs, tl.count, sh)) return;
+  unsigned rank = p == 0 ? (unsigned)g.keep[row * g.keep_stride + tl.leaf] : __ldcg(st + 1);
+  unsigned c[kBinsPerThread];
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    c[j] = __ldcg(hist + own_bin(j));
+    hist[own_bin(j)] = 0u;
+  }
+  prefix |= scan_bins(c, rank, sh.warps) << pass_shift(p);
+  if (threadIdx.x == 0) {
+    st[0] = prefix;
+    st[1] = rank;
+    if (p == 2) g.thr[seg] = __uint_as_float(prefix);
+  }
+}
+
+// |z| mode's mask over a split leaf's tile.
+template <class S>
+__device__ void mask_tile(int64_t tile, int64_t row, const SelArgs& g, const SelPlan& plan) {
+  const Tile tl(plan, tile, row, g.n, g.vec);
+  write_mask<S>(g.v, g.mask, tl.sp, __ldcg(g.thr + row * g.leaves + tl.leaf));
+}
+
+// A barrier over the whole grid, for a grid whose blocks are all resident
+// at once (a cooperative launch guarantees it, or refuses the launch).
+// bar[0] counts the blocks that arrived and is reset by the last; bar[1]
+// is a generation the others wait on.
+__device__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g0 = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      bar[0] = 0u;
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g0) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The whole select in one launch. Its work comes in phases, each a list of
+// items over every row (row varying fastest) that the blocks take in turn:
+// phase 0 the local leaves, largest first, then the split leaves' tiles for
+// the norms (fused) or for radix pass 0 (|z|); then one phase per remaining
+// radix pass; then, in |z| mode, the mask. A segment-wide step (the norms'
+// sum, a pass's scan) runs in the last block to finish the segment's tiles
+// in a phase, and a grid-wide barrier separates the phases, so nothing is
+// read back to the host and nothing else is launched. A layout with no
+// split leaf has phase 0 only.
+template <bool ABS, class S, class M>
+__global__ void __launch_bounds__(kSelThreads, kSelBlocksPerSM)
+select_kernel(const SelArgs g, const SelPlan plan, unsigned* bar) {
+  __shared__ SelShared sh;
+  const int64_t rows = g.rows, locals = plan.n_local * rows, tiles = plan.n_tiles * rows;
+  for (int64_t it = blockIdx.x; it < locals + tiles; it += gridDim.x) {
+    if (it < locals) {
+      select_local<ABS, S, M>(it / rows, it % rows, g, plan, sh);
+    } else if (ABS) {
+      count_tile<ABS, S, M>(0, (it - locals) / rows, (it - locals) % rows, g, plan, sh);
+    } else {
+      norm_tile<S, M>((it - locals) / rows, (it - locals) % rows, g, plan, sh);
+    }
+    __syncthreads();  // the next item reuses the shared memory
+  }
+  if (!plan.n_split) return;
+#pragma unroll 1
+  for (int p = ABS ? 1 : 0; p < 3; ++p) {
+    grid_sync(bar);
+    for (int64_t it = blockIdx.x; it < tiles; it += gridDim.x) {
+      count_tile<ABS, S, M>(p, it / rows, it % rows, g, plan, sh);
+      __syncthreads();
     }
   }
   if (ABS) {
-    float* mk = mask_out + base;
-    for (int64_t j = threadIdx.x; j < len; j += kSelThreads)
-      mk[j] = fabsf(Num<S>::get(v, base + j)) >= thr ? 1.0f : 0.0f;
+    grid_sync(bar);
+    for (int64_t it = blockIdx.x; it < tiles; it += gridDim.x)
+      mask_tile<S>(it / rows, it % rows, g, plan);
   }
+}
+
+// One launch of select_kernel on the stream: a plain launch of a block per
+// item when there is no split leaf (no barrier), else a cooperative launch
+// of as many blocks as the card holds at once (at most one per phase 0
+// item). bar is two zeroed words of scratch. The plain launch lets the
+// hardware hand each free SM the next segment; the cooperative grid walks
+// the items in a fixed stride and balances ResNet-56's 3,380 whole
+// segments worse (tools/torch_select_tiles.py --variants times both).
+template <bool ABS, class S, class M>
+int launch_select(const SelArgs& g, const SelPlan& plan, unsigned* bar, cudaStream_t st) {
+  const long long items = ((long long)plan.n_tiles + plan.n_local) * g.rows;
+  auto kernel = select_kernel<ABS, S, M>;
+  if (!plan.n_split) {
+    kernel<<<(unsigned)items, kSelThreads, 0, st>>>(g, plan, bar);
+    return (int)cudaGetLastError();
+  }
+  // the blocks the card holds at once, asked once per device
+  static long long resident[64] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!resident[dev]) {
+    int sms, per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSelThreads, 0);
+    if (err) return (int)err;
+    resident[dev] = (long long)sms * per_sm;
+  }
+  const long long most = resident[dev];
+  const unsigned blocks = (unsigned)(items < most ? items : most);
+  SelArgs ga = g;
+  SelPlan pa = plan;
+  void* args[] = {&ga, &pa, &bar};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kSelThreads), args,
+                                    0, st);
+  return err ? (int)err : (int)cudaGetLastError();
 }
 
 int blocks_for(int64_t total, int vec) {
@@ -655,6 +1029,16 @@ template <class F>
 int with_type(int code, F f) {
   if (code == kBF16) return f(bf16{});
   return f(0.0f);
+}
+
+// A plan the select kernels take: every leaf local or split, a grid of at
+// most 2^31 - 1 blocks, keep counts shared or one row each.
+bool plan_ok(int leaves, long long rows, int n_local, int n_split, int n_tiles,
+             int keep_stride) {
+  return leaves >= 1 && rows >= 1 && n_local >= 0 && n_split >= 0 && n_tiles >= 0 &&
+         n_local + n_split == leaves && (n_split > 0) == (n_tiles > 0) &&
+         ((long long)n_tiles + n_local) * rows <= 0x7fffffffLL &&
+         (keep_stride == 0 || keep_stride == leaves);
 }
 
 template <class S, class M>
@@ -722,45 +1106,54 @@ int gmf_apply_mask(const void* u, const void* v, const void* mask, void* go, voi
 
 // Norms and thresholds of every (row, leaf) segment of v and m ([rows, n]
 // stacks over `leaves` leaves, of dtypes s and m_dtype): writes inv_nv,
-// inv_nm and thr, [rows, leaves] float32 each. offsets holds leaves + 1
-// int64; keep (the k_i) is an int64 table whose row r starts at
-// keep + r * keep_stride (keep_stride leaves or 0).
-int gmf_select(const void* v, const void* m, const long long* offsets, const long long* keep,
-               int keep_stride, const float* w, const float* tau, float eps, int leaves,
-               long long rows, long long n, float* inv_nv, float* inv_nm, float* thr, int s,
-               int m_dtype, void* stream) {
-  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL ||
-      (keep_stride != 0 && keep_stride != leaves) || !known(s) || !known(m_dtype))
+// inv_nm and thr, [rows, leaves] float32 each. keep (the k_i) is an int64
+// table whose row r starts at keep + r * keep_stride (keep_stride leaves or
+// 0). plan is the layout's
+// select plan (n_local local leaves, n_split split leaves over n_tiles
+// tiles; SelPlan says how it is laid out); partials (float64 [rows,
+// n_tiles, 2]), hist ([rows, n_split, 2048]) and state ([rows, n_split, 4]
+// and then 2 words for the grid barrier) are the caller's scratch, hist and
+// state zero, and left zero; vec is 1 where v and m are quad-aligned.
+int gmf_select(const void* v, const void* m, const long long* plan, int n_local, int n_split,
+               int n_tiles, const long long* keep, int keep_stride,
+               const float* w, const float* tau, float eps, int leaves, long long rows,
+               long long n, int vec, float* inv_nv, float* inv_nm, float* thr, double* partials,
+               unsigned* hist, unsigned* state, int s, int m_dtype, void* stream) {
+  if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(s) ||
+      !known(m_dtype))
     return (int)cudaErrorInvalidValue;
+  const SelPlan p(plan, n_local, n_split, n_tiles);
+  const SelArgs g{v,     m,     keep, w, tau,          inv_nv, inv_nm, thr, nullptr, partials,
+                  hist,  state, n,    rows, eps, keep_stride, leaves, vec};
+  unsigned* bar = state + 4 * rows * n_split;
   cudaStream_t st = (cudaStream_t)stream;
   return with_type(s, [&](auto sv) {
     using S = decltype(sv);
     return with_type(m_dtype, [&](auto mv) {
       using M = decltype(mv);
-      select_kernel<false, S, M><<<(unsigned)(rows * leaves), kSelThreads, 0, st>>>(
-          v, m, offsets, keep, keep_stride, w, tau, eps, leaves, n, inv_nv, inv_nm, thr,
-          nullptr);
-      return (int)cudaGetLastError();
+      return launch_select<false, S, M>(g, p, bar, st);
     });
   });
 }
 
 // The k_i-th largest |z| of every segment into thr ([rows, leaves]) and the
-// float32 mask |z| >= thr into mask ([rows, n]); z of dtype z_dtype; keep as
-// for gmf_select.
-int gmf_select_abs(const void* z, const long long* offsets, const long long* keep,
-                   int keep_stride, int leaves, long long rows, long long n, float* thr,
-                   float* mask, int z_dtype, void* stream) {
-  if (leaves < 1 || rows < 1 || rows * leaves > 0x7fffffffLL ||
-      (keep_stride != 0 && keep_stride != leaves) || !known(z_dtype))
+// float32 mask |z| >= thr into mask ([rows, n]); z of dtype z_dtype; keep,
+// plan, hist and state as for gmf_select; vec is 1 where z and the mask are
+// quad-aligned.
+int gmf_select_abs(const void* z, const long long* plan, int n_local, int n_split,
+                   int n_tiles, const long long* keep, int keep_stride, int leaves,
+                   long long rows, long long n, int vec, float* thr, float* mask,
+                   unsigned* hist, unsigned* state, int z_dtype, void* stream) {
+  if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(z_dtype))
     return (int)cudaErrorInvalidValue;
+  const SelPlan p(plan, n_local, n_split, n_tiles);
+  const SelArgs g{z,    nullptr, keep, nullptr, nullptr,     nullptr, nullptr, thr, mask, nullptr,
+                  hist, state,   n,    rows,    0.0f,        keep_stride, leaves, vec};
+  unsigned* bar = state + 4 * rows * n_split;
   cudaStream_t st = (cudaStream_t)stream;
   return with_type(z_dtype, [&](auto zv) {
     using Z = decltype(zv);
-    select_kernel<true, Z, Z><<<(unsigned)(rows * leaves), kSelThreads, 0, st>>>(
-        z, nullptr, offsets, keep, keep_stride, nullptr, nullptr, 0.0f, leaves, n, nullptr,
-        nullptr, thr, mask);
-    return (int)cudaGetLastError();
+    return launch_select<true, Z, Z>(g, p, bar, st);
   });
 }
 

@@ -22,11 +22,16 @@ K1 and its glue take the flat compression state (``utils/flat.py``): a
 offsets ``[L + 1]`` on the device and a keep count per segment: an int64
 ``[L]`` array shared by every row (a fixed rate) or a ``[k, L]`` table of
 per-client counts (adaptive rates), read with a row stride of 0 or L.
-``gmf_select_flat`` (one block per segment) gives each segment's inverse
-norms and exact top-k threshold, ``[k, L]`` each, and ``gmf_compress_flat``
-is the fused mask pass over the whole stack; ``topk_abs_select_flat`` is
-the same select on ``|z|`` with the mask, for DGC's top-k. Both select
-modes count as ``gmf_select`` launches. K3 (``apply_mask_flat``) takes any
+``gmf_select_flat`` gives each segment's inverse norms and exact top-k
+threshold, ``[k, L]`` each, and ``gmf_compress_flat`` is the fused mask
+pass over the whole stack; ``topk_abs_select_flat`` is the same select on
+``|z|`` with the mask, for DGC's top-k. The select takes the layout's plan
+(``plan_select``, made once per layout by ``FlatLayout.select_plan`` at
+the tile length ``select_tile`` gives it): a segment of at most one tile
+is one block, a larger one is split over many, in one launch whose phases
+are separated by grid-wide barriers (``csrc/gmf_compress.cu``). Each
+wrapper call counts as one ``gmf_select`` launch in ``INSTANCES``, in
+either mode, whatever the number of CUDA kernels it issues. K3 (``apply_mask_flat``) takes any
 stack, the flat one included.
 
 K2 (``momentum_correction_tree``) is one multi-tensor launch over every
@@ -105,9 +110,10 @@ SIGNATURES = {
     "gmf_momentum_limits": ([_P, _P], None),
     "gmf_momentum_multi": ([_P, _I32, _I32, _F32, _I32, _I32, _I32, _P], _I32),
     "gmf_apply_mask": ([_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P], _I32),
-    "gmf_select": ([_P, _P, _P, _P, _I32, _P, _P, _F32, _I32, _I64, _I64, _P, _P, _P, _I32,
-                    _I32, _P], _I32),
-    "gmf_select_abs": ([_P, _P, _P, _I32, _I32, _I64, _I64, _P, _P, _I32, _P], _I32),
+    "gmf_select": ([_P, _P, _P, _I32, _I32, _I32, _P, _I32, _P, _P, _F32, _I32, _I64, _I64, _I32,
+                    _P, _P, _P, _P, _P, _P, _I32, _I32, _P], _I32),
+    "gmf_select_abs": ([_P, _P, _I32, _I32, _I32, _P, _I32, _I32, _I64, _I64, _I32, _P, _P, _P,
+                        _P, _I32, _P], _I32),
     "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _I32, _I32, _P], _I32),
 }
 
@@ -148,6 +154,91 @@ def plan_momentum(sizes, capacity: int, chunk: int) -> list[MomentumLaunch]:
             total += -(-sizes[i] // chunk)
         plan.append(MomentumLaunch(idx, tuple(block0), total))
     return plan
+
+
+# The tile length of a layout's gmf_select plan (``select_tile``): a leaf of
+# at most one tile is selected whole by one block, a larger one is split over
+# ceil(n / tile) blocks. The length is a row's elements over SELECT_SHARE,
+# rounded down to a multiple of 4,096 and held within [SELECT_TILE_MIN,
+# SELECT_TILE_MAX]: no block selects more than about a sixteenth of a row,
+# and a layout of many leaves keeps them whole (tools/torch_select_tiles.py
+# times the choices).
+SELECT_SHARE = 16
+SELECT_TILE_MIN, SELECT_TILE_MAX = 16_384, 65_536
+# The rank and the histogram counts are 32-bit unsigned in the kernel.
+SELECT_MAX_SEGMENT = 2**32 - 1
+
+
+class SelectPlan(NamedTuple):
+    """``gmf_select``'s tiles of a layout's leaves (``plan_select``)."""
+    tile: int
+    first: np.ndarray   # int64 [L + 1]: leaf i's tiles are blocks[first[i]:first[i + 1]]
+    blocks: np.ndarray  # int64 [tiles, 3]: (leaf, start in the leaf, length) per tile
+    total: int          # elements of a row
+
+
+def select_tile(sizes) -> int:
+    """The tile length of the plan of a layout of leaves of ``sizes``."""
+    share = -(-sum(int(n) for n in sizes) // SELECT_SHARE)
+    return min(SELECT_TILE_MAX, max(SELECT_TILE_MIN, share // 4096 * 4096))
+
+
+def plan_select(sizes, tile: int) -> SelectPlan:
+    """Each leaf of ``sizes`` elements cut into ``tile``-element tiles from
+    its start, the last one short; a leaf of 0 elements takes one empty
+    tile, so every leaf has at least one. Refuses a leaf the kernel's
+    32-bit ranks and counts cannot hold."""
+    if tile < 1:
+        raise ValueError(f"tile {tile} must be positive")
+    sizes = np.asarray(sizes, dtype=np.int64).reshape(-1)
+    if sizes.size and int(sizes.max()) > SELECT_MAX_SEGMENT:
+        raise ValueError(f"gmf_select takes segments of at most {SELECT_MAX_SEGMENT} elements "
+                         f"(32-bit ranks and counts), got {int(sizes.max())}")
+    counts = np.maximum(1, -(-sizes // tile))
+    first = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    leaf = np.repeat(np.arange(sizes.size, dtype=np.int64), counts)
+    start = (np.arange(int(first[-1]), dtype=np.int64) - first[leaf]) * tile
+    length = np.minimum(tile, sizes[leaf] - start)
+    return SelectPlan(tile, first, np.stack([leaf, start, length], axis=1), int(sizes.sum()))
+
+
+class SelectTable(NamedTuple):
+    """A ``SelectPlan`` as the kernel reads it, on the device: one int64
+    array of the local leaves (one tile: one block selects each whole)
+    ``[n_local, 3]`` as (leaf, first column, length), largest first; the
+    split leaves; each split leaf's first tile (``n_split + 1``); and the
+    split leaves' tiles ``[n_tiles, 5]`` as (split index, leaf, first
+    column, length, tiles of the leaf), the columns a row's. ``scratch``
+    caches the split leaves' scratch per (rows, stream)."""
+    table: torch.Tensor
+    n_local: int
+    n_split: int
+    n_tiles: int
+    plan: SelectPlan
+    scratch: dict
+
+
+def select_table(plan: SelectPlan, device) -> SelectTable:
+    """``plan``'s device table, for ``FlatLayout.select_plan`` to make once."""
+    counts = np.diff(plan.first)
+    sizes = np.add.reduceat(plan.blocks[:, 2], plan.first[:-1]) if counts.size else counts
+    offsets = np.cumsum(sizes) - sizes
+    local = np.flatnonzero(counts == 1)
+    local = local[np.argsort(-sizes[local], kind="stable")]
+    split = np.flatnonzero(counts > 1)
+    tiles = np.zeros((int(counts[split].sum()), 5), np.int64)
+    if split.size:
+        blocks = np.concatenate([plan.blocks[plan.first[i]:plan.first[i + 1]] for i in split])
+        tiles[:, 0] = np.repeat(np.arange(split.size), counts[split])
+        tiles[:, 1] = blocks[:, 0]
+        tiles[:, 2] = offsets[blocks[:, 0]] + blocks[:, 1]
+        tiles[:, 3] = blocks[:, 2]
+        tiles[:, 4] = counts[blocks[:, 0]]
+    first = np.concatenate([[0], np.cumsum(counts[split])])
+    local = np.stack([local, offsets[local], sizes[local]], axis=1)
+    host = np.concatenate([local.reshape(-1), split, first, tiles.reshape(-1)]).astype(np.int64)
+    return SelectTable(torch.from_numpy(host).to(device), len(local), int(split.size),
+                       len(tiles), plan, {})
 
 
 def _check_stack(name: str, *xs: torch.Tensor) -> None:
@@ -225,9 +316,20 @@ def _vec(*xs: torch.Tensor) -> int:
     return int(all(x.data_ptr() % (4 * x.element_size()) == 0 for x in xs))
 
 
-def _launch(name: str, fn, device, *args, inst: str = "") -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+def _stream(device) -> int:
+    """The current stream of ``device`` as the raw handle the kernels take
+    (torch's own getter: a Stream object costs more host time than a short
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _launch(name: str, fn, device, *args, inst: str = "", stream: int | None = None) -> None:
+    stream = _stream(device) if stream is None else stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     INSTANCES[name, inst] = INSTANCES.get((name, inst), 0) + 1
@@ -344,43 +446,93 @@ def apply_mask_flat(u, v, mask, out_dtype=None):
     return go, uo, vo
 
 
-def gmf_select_flat(v, m, *, offsets, keep, w, tau, eps: float):
+def _select_plan(name: str, plan: SelectTable, x: torch.Tensor, leaves: int) -> None:
+    if not isinstance(plan, SelectTable):
+        raise TypeError(f"{name}: plan must be a layout's SelectTable (layout.select_plan())")
+    if (plan.n_local + plan.n_split != leaves or plan.plan.total != x.shape[1]
+            or plan.table.device != x.device or plan.table.dtype != torch.int64):
+        raise ValueError(f"{name}: the plan ({plan.n_local + plan.n_split} leaves, "
+                         f"{plan.plan.total} elements, on {plan.table.device}) is not that of "
+                         f"this stack ({leaves} leaves, {x.shape[1]} elements, on {x.device})")
+
+
+def _select_scratch(plan: SelectTable, rows: int, device, stream: int):
+    """The split leaves' scratch for ``rows`` rows on ``stream``, made once
+    and kept on the plan: the float64 tile partials (the norms) and one
+    int32 buffer of the ``[rows, n_split, 2048]`` histograms, the ``[rows,
+    n_split, 4]`` segment states and the grid barrier's two words, made
+    zero. Every select leaves the histograms and the counts zero again, so
+    calls on one stream can share them; a call whose launch failed drops
+    them."""
+    key = (rows, stream)
+    if key not in plan.scratch:
+        hist = rows * plan.n_split * 2048
+        part = torch.empty(rows * plan.n_tiles * 2, dtype=torch.float64, device=device)
+        buf = torch.zeros(hist + rows * plan.n_split * 4 + 2, dtype=torch.int32, device=device)
+        plan.scratch[key] = (part.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * hist,
+                             (part, buf))
+    return plan.scratch[key]
+
+
+def _launch_select(fn, plan: SelectTable, device, rows: int, make_args, *, inst: str) -> None:
+    """A select's launches, its arguments made by ``make_args(partials,
+    histograms, states)`` from the scratch's addresses."""
+    stream = _stream(device)
+    part, hist, state, _ = _select_scratch(plan, rows, device, stream)
+    try:
+        _launch("gmf_select", fn, device, *make_args(part, hist, state), inst=inst,
+                stream=stream)
+    except RuntimeError:
+        plan.scratch.pop((rows, stream), None)
+        raise
+
+
+def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float):
     """Per (row, leaf) segment of the flat ``[rows, N]`` stacks v and m
     (each float32 or bfloat16, read as float32): inv_nv = w / (‖V‖ + eps),
     inv_nm = 1 / (‖M‖ + eps), and the exact
     k_i-th largest z = |((1-τ)·V)·inv_nv + (τ·M)·inv_nm| as the threshold.
-    ``offsets`` (int64 ``[L + 1]``) comes from the layout, ``keep`` is
-    int64 ``[L]`` (every row's k_i) or ``[rows, L]`` (each row's own);
-    ``w`` and ``tau`` are ``[rows]`` float32. Returns (inv_nv, inv_nm,
-    thr), ``[rows, L]`` float32 each."""
+    ``offsets`` (int64 ``[L + 1]``) and ``plan`` (a ``SelectTable``) come
+    from the layout (``layout.select_plan()``), ``keep`` is int64 ``[L]``
+    (every row's k_i) or ``[rows, L]`` (each row's own); ``w`` and ``tau``
+    are ``[rows]`` float32. A segment of at most one tile is one block; a
+    larger one is split over its tiles, in one launch on the current stream
+    (no host read, no synchronisation), counted as one ``gmf_select``
+    launch. Returns
+    (inv_nv, inv_nm, thr), ``[rows, L]`` float32 each."""
     _check_stack("gmf_select", v, m)
     leaves = _segments("gmf_select", v, offsets)
+    _select_plan("gmf_select", plan, v, leaves)
     rows = v.shape[0]
     stride = _keep_stride("gmf_select", keep, v, leaves)
     _check_rows("gmf_select", (rows,), v, w, tau)
-    inv_nv, inv_nm, thr = (torch.empty(rows, leaves, dtype=torch.float32, device=v.device)
-                           for _ in range(3))
-    _launch("gmf_select", library().gmf_select, v.device, v.data_ptr(), m.data_ptr(),
-            offsets.data_ptr(), keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
-            float(eps), leaves, rows, v.shape[1], inv_nv.data_ptr(), inv_nm.data_ptr(),
-            thr.data_ptr(), DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype],
-            inst=instance(v.dtype, m.dtype))
+    inv_nv, inv_nm, thr = torch.empty(3, rows, leaves, dtype=torch.float32, device=v.device)
+    _launch_select(library().gmf_select, plan, v.device, rows, lambda p, h, s: (
+        v.data_ptr(), m.data_ptr(), plan.table.data_ptr(), plan.n_local,
+        plan.n_split, plan.n_tiles, keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
+        float(eps), leaves, rows, v.shape[1], _vec(v, m), inv_nv.data_ptr(), inv_nm.data_ptr(),
+        thr.data_ptr(), p, h, s, DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype]),
+        inst=instance(v.dtype, m.dtype))
     return inv_nv, inv_nm, thr
 
 
-def topk_abs_select_flat(z, *, offsets, keep):
+def topk_abs_select_flat(z, *, offsets, plan, keep):
     """The exact k_i-th largest |z| of every (row, leaf) segment of the flat
     ``[rows, N]`` stack z and the mask |z| >= thr: ``gmf_select``'s kernel
-    in its |z| mode (``keep`` as there). Returns (thr ``[rows, L]``, mask
-    ``[rows, N]``)."""
+    in its |z| mode (``plan`` and ``keep`` as there; one launch counted).
+    Returns (thr ``[rows, L]``, mask ``[rows, N]``)."""
     _check_stack("gmf_select", z)
     leaves = _segments("gmf_select", z, offsets)
+    _select_plan("gmf_select", plan, z, leaves)
     stride = _keep_stride("gmf_select", keep, z, leaves)
-    thr = torch.empty(z.shape[0], leaves, dtype=torch.float32, device=z.device)
-    mask = torch.empty(z.shape, dtype=torch.float32, device=z.device)
-    _launch("gmf_select", library().gmf_select_abs, z.device, z.data_ptr(), offsets.data_ptr(),
-            keep.data_ptr(), stride, leaves, z.shape[0], z.shape[1], thr.data_ptr(),
-            mask.data_ptr(), DTYPE_CODES[z.dtype], inst="abs:" + instance(z.dtype))
+    rows = z.shape[0]
+    out = torch.empty(z.numel() + rows * leaves, dtype=torch.float32, device=z.device)
+    mask, thr = out[:z.numel()].view(z.shape), out[z.numel():].view(rows, leaves)
+    _launch_select(library().gmf_select_abs, plan, z.device, rows, lambda p, h, s: (
+        z.data_ptr(), plan.table.data_ptr(), plan.n_local, plan.n_split,
+        plan.n_tiles, keep.data_ptr(), stride, leaves, rows, z.shape[1], _vec(z, mask),
+        thr.data_ptr(), mask.data_ptr(), h, s, DTYPE_CODES[z.dtype]),
+        inst="abs:" + instance(z.dtype))
     return thr, mask
 
 

@@ -81,8 +81,8 @@ def gmf_select(v, m, layout, rate=None, *, keep=None, w, tau, eps):
     int64 ``[k, L]`` table (adaptive rates)."""
     table = _keep(layout, rate, keep)
     if _on_card(v):
-        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, keep=table, w=w, tau=tau,
-                                  eps=eps)
+        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, plan=layout.select_plan(),
+                                  keep=table, w=w, tau=tau, eps=eps)
     return ref.gmf_select(v, m, layout, rate, keep=keep, w=w, tau=tau, eps=eps)
 
 
@@ -92,7 +92,8 @@ def topk_abs_select(z, layout, rate=None, *, keep=None):
     ``gmf_select``."""
     table = _keep(layout, rate, keep)
     if _on_card(z):
-        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, keep=table)
+        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, plan=layout.select_plan(),
+                                       keep=table)
     if keep is None:
         return sparsify.segment_topk_mask(z, layout, rate)
     return sparsify.segment_topk_mask_keep(z, layout, keep)

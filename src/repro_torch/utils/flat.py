@@ -15,7 +15,8 @@ the per-leaf keep counts on the host and on the device, each copied once;
 and, per block length, the block index of every element for codecs that
 work in fixed-length blocks of each leaf (the int8 and probquant wires);
 and each column's leaf and index within its leaf (the keyed draws,
-``utils/draws.py``). ``FlatLayout.of_sizes`` is the layout of a list of
+``utils/draws.py``); and ``gmf_select``'s plan of the leaves in tiles
+(``select_plan``). ``FlatLayout.of_sizes`` is the layout of a list of
 1-D leaves, such as the Hadamard rotation's padded leaves.
 ``flatten`` is one ``torch.cat``; ``unflatten`` makes views, for the edges
 (the model's params, tests, evaluation).
@@ -77,6 +78,7 @@ class FlatLayout:
         self._keep: dict[float, tuple[tuple[int, ...], torch.Tensor]] = {}
         self._blocks: dict[int, tuple[int, torch.Tensor]] = {}
         self._positions: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._select = None
 
     @staticmethod
     def of(tree) -> FlatLayout | GroupedLayout:
@@ -135,6 +137,17 @@ class FlatLayout:
             first = torch.tensor(starts[:-1], dtype=torch.int64, device=self.device)
             self._blocks[block] = starts[-1], self.positions()[1] // block + self.expand(first)
         return self._blocks[block]
+
+    def select_plan(self):
+        """``gmf_select``'s plan of this layout's leaves in tiles of
+        ``select_tile(sizes)`` elements, with its table on the device: made
+        and copied once (``kernels.gmf_compress.plan_select``)."""
+        from repro_torch.kernels import gmf_compress as gk
+
+        if self._select is None:
+            self._select = gk.select_table(gk.plan_select(self.sizes, gk.select_tile(self.sizes)),
+                                           self.device)
+        return self._select
 
     def flatten(self, tree) -> torch.Tensor:
         """A tree of ``[*lead, *shape_i]`` leaves -> one ``[*lead, N]`` tensor."""

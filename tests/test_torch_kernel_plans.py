@@ -1,5 +1,7 @@
 """What the port's kernel wrappers decide on the host, held on the CPU:
-K2's launch plan and leaf table, K4's choice between its two kernels and
+K2's launch plan and leaf table, ``gmf_select``'s plan of tiles (each leaf
+covered once, in order, the first-tile prefix, its device table, the cache
+per layout, the 32-bit limit), K4's choice between its two kernels and
 the layouts its tensor-core kernel refuses, and the ctypes signatures of
 every C entry point against the CUDA sources.
 
@@ -191,6 +193,143 @@ def test_k2_tree_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="cuda"):
         gk.momentum_correction_tree([x], [x], [x], 0.9)
     assert gk.momentum_correction_tree([], [], [], 0.9) == ([], [])
+
+
+# ---------------------------------------------------------------------------
+# gmf_select: the plan of tiles and its device table
+# ---------------------------------------------------------------------------
+
+TILE = 1024
+
+
+def _resnet56_sizes():
+    from repro_torch.models import resnet
+    from repro_torch.utils.flat import FlatLayout
+
+    params = resnet.init_resnet(torch.Generator().manual_seed(0), depth=56)
+    return list(FlatLayout.of(params).sizes)
+
+
+def _assert_tiles_cover(plan, sizes):
+    """Every leaf's tiles, in order: its first tile from the prefix, starts
+    0, tile, 2 tile, ..., lengths of at most one tile adding up to the
+    leaf, and an empty leaf one empty tile."""
+    tile = plan.tile
+    assert plan.first[0] == 0 and len(plan.first) == len(sizes) + 1
+    assert plan.blocks.dtype == np.int64 and plan.blocks.shape == (plan.first[-1], 3)
+    assert plan.total == sum(sizes)
+    for i, n in enumerate(sizes):
+        rows = plan.blocks[plan.first[i]:plan.first[i + 1]]
+        assert len(rows) == max(1, -(-n // tile)), (i, n)
+        assert (rows[:, 0] == i).all()
+        assert rows[:, 1].tolist() == [t * tile for t in range(len(rows))]
+        assert (rows[:, 2] <= tile).all() and (rows[:, 2] >= 0).all()
+        assert int(rows[:, 2].sum()) == n
+        assert (rows[:-1, 2] == tile).all()  # only the last one short
+
+
+@pytest.mark.parametrize("sizes", [
+    [0], [1], [TILE - 1], [TILE], [TILE + 1], [268_435_456],
+    [0, 1, TILE - 1, TILE, TILE + 1, 5 * TILE + 3, 0, 7],
+], ids=["0", "1", "tile-1", "tile", "tile+1", "2^28", "mixed"])
+def test_select_plan_tiles_cover_each_leaf_once_in_order(sizes):
+    _assert_tiles_cover(gk.plan_select(sizes, TILE), sizes)
+
+
+def test_select_plan_tiles_cover_resnet56():
+    sizes = _resnet56_sizes()
+    assert len(sizes) == 169 and sum(sizes) == 855_578
+    for tile in (TILE, 16_384, gk.select_tile(sizes)):
+        _assert_tiles_cover(gk.plan_select(sizes, tile), sizes)
+
+
+def test_select_plan_first_tile_prefix():
+    plan = gk.plan_select([5, 0, 3 * TILE, TILE + 1, TILE], TILE)
+    # 1 + 1 + 3 + 2 + 1 tiles
+    assert plan.first.tolist() == [0, 1, 2, 5, 7, 8]
+    assert plan.blocks[plan.first[3]].tolist() == [3, 0, TILE]
+    assert plan.blocks[plan.first[3] - 1].tolist() == [2, 2 * TILE, TILE]
+    assert plan.blocks[plan.first[4] - 1].tolist() == [3, TILE, 1]
+
+
+@pytest.mark.parametrize("n", [2**32, 2**32 + 5, 2**40])
+def test_select_plan_refuses_a_segment_past_32_bit_counts(n):
+    """The kernel's ranks and histogram counts are 32-bit unsigned."""
+    with pytest.raises(ValueError, match="32-bit"):
+        gk.plan_select([3, n], 65_536)
+
+
+def test_select_plan_takes_the_largest_32_bit_segment():
+    plan = gk.plan_select([2**32 - 1], 2**20)
+    assert plan.first.tolist() == [0, 4096] and int(plan.blocks[-1, 2]) == 2**20 - 1
+
+
+@pytest.mark.parametrize("tile", [0, -4])
+def test_select_plan_refuses_a_nonpositive_tile(tile):
+    with pytest.raises(ValueError):
+        gk.plan_select([4], tile)
+
+
+@pytest.mark.parametrize("sizes, tile", [
+    ([855_578], 53_248), ([292_560], 16_384), ([1_498_482_688], 65_536), ([0], 16_384),
+    ([16 * 40_000 + 15], 36_864),
+])
+def test_select_tile_is_a_sixteenth_of_a_row_within_bounds(sizes, tile):
+    """ResNet-56's row (its 36,864-element leaves whole), the char-LSTM's
+    (its 262,144-element leaf split), llama3.2-1b's and the bounds."""
+    assert gk.select_tile(sizes) == tile
+
+
+def test_select_table_lists_local_leaves_largest_first_and_split_tiles():
+    sizes = [5, 0, 3 * TILE, TILE + 1, TILE, 700]
+    table = gk.select_table(gk.plan_select(sizes, TILE), "cpu")
+    assert (table.n_local, table.n_split, table.n_tiles) == (4, 2, 5)
+    host = table.table.tolist()
+    local, split = np.array(host[:12]).reshape(4, 3), host[12:14]
+    first, tiles = host[14:17], np.array(host[17:]).reshape(-1, 5)
+    # (leaf, first column, length): sizes 1024, 700, 5, 0
+    o = np.cumsum([0] + sizes).tolist()
+    assert local.tolist() == [[4, o[4], TILE], [5, o[5], 700], [0, 0, 5], [1, 5, 0]]
+    assert split == [2, 3]
+    assert first == [0, 3, 5]
+    # (split index, leaf, first column, length, tiles of the leaf)
+    assert tiles.tolist() == [[0, 2, o[2], TILE, 3], [0, 2, o[2] + TILE, TILE, 3],
+                              [0, 2, o[2] + 2 * TILE, TILE, 3], [1, 3, o[3], TILE, 2],
+                              [1, 3, o[3] + TILE, 1, 2]]
+    assert table.scratch == {}
+
+
+def test_select_plan_is_cached_per_layout_and_tile():
+    from repro_torch.utils.flat import FlatLayout
+
+    layout = FlatLayout.of_sizes([3, 70_000, 0, 16_384], "cpu")
+    plan = layout.select_plan()
+    assert plan is layout.select_plan()
+    assert plan.plan.tile == gk.select_tile(layout.sizes) == 16_384
+    want = gk.plan_select(layout.sizes, 16_384)
+    assert np.array_equal(plan.plan.blocks, want.blocks)
+    # another tile length is a table of its own, made outside the layout
+    other = gk.select_table(gk.plan_select(layout.sizes, 4096), "cpu")
+    assert other.plan.tile == 4096 and (other.n_local, other.n_split) == (2, 2)
+    assert layout.select_plan() is plan
+    assert (plan.n_local, plan.n_split, plan.n_tiles) == (3, 1, 5)
+    assert plan.table.dtype == torch.int64 and plan.table.device.type == "cpu"
+    # another layout object of the same sizes is the same cached layout
+    assert FlatLayout.of_sizes([3, 70_000, 0, 16_384], "cpu").select_plan() is plan
+
+
+def test_select_wrappers_refuse_a_plan_of_another_layout():
+    from repro_torch.utils.flat import FlatLayout
+
+    layout = FlatLayout.of_sizes([3, 5], "cpu")
+    other = FlatLayout.of_sizes([4, 4], "cpu").select_plan()
+    plan = layout.select_plan()
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="plan"):
+        gk._select_plan("gmf_select", other, torch.zeros(2, 9), 2)
+    with pytest.raises(TypeError, match="SelectTable"):
+        gk._select_plan("gmf_select", plan.plan, x, 2)
+    gk._select_plan("gmf_select", plan, x, 2)
 
 
 # ---------------------------------------------------------------------------

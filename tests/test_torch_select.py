@@ -16,7 +16,12 @@ against ``torch.topk``.
   scores' float bits, a 2,048-bin count of the candidates that match the
   digits found so far, and the bin that holds the k-th largest counted from
   the top. It must give ``torch.topk(z, k).values[-1]`` bit for bit,
-  ties, zeros and single elements included.
+  ties, zeros and single elements included. The tiled emulation does it as
+  the kernel does for a leaf split over ``plan_select``'s tiles: per-tile
+  counts summed into the segment's histogram and the kernel's own scan
+  from the top bin; and the norms from the tiles' float64 partials summed
+  in tile order, within 1e-6 of ``fusion.segment_norms`` and bitwise on a
+  second run.
 """
 
 import math
@@ -189,6 +194,122 @@ def test_radix_select_emulation_matches_topk(n, kind):
         assert got.view(torch.int32) == want.view(torch.int32), (n, kind, k)
 
 
+def scan_from_top(hist: torch.Tensor, rank: int) -> tuple[int, int]:
+    """``scan_bins`` of ``csrc/gmf_compress.cu``: 256 threads own 8 bins
+    each from the top (thread t bins 2047 - 8t down to 2040 - 8t), an
+    inclusive scan of their counts in thread order, and the thread whose
+    range holds ``rank`` walks its bins -> (digit, rank inside its bin); a
+    rank past every count finds (0, 0)."""
+    c = hist.flip(0).reshape(256, 8).tolist()
+    above = 0
+    for t, bins in enumerate(c):
+        own = sum(bins)
+        if above < rank <= above + own:
+            acc = above
+            for j, n in enumerate(bins):
+                if acc + n >= rank:
+                    return 2047 - 8 * t - j, rank - acc
+                acc += n
+        above += own
+    return 0, 0
+
+
+def tiled_kth_largest(z: torch.Tensor, k: int, tile: int) -> torch.Tensor:
+    """The k-th largest of the non-negative float32 scores z of one leaf as
+    ``select_kernel`` finds it when the leaf is split over the tiles of
+    ``plan_select``: in each of the three passes every tile counts its own
+    candidates in a 2,048-bin histogram, the tiles' counts are added into
+    the segment's histogram (integers: the order does not matter), and the
+    last tile's scan takes the digit and the rank inside its bin."""
+    from repro_torch.kernels import gmf_compress as gk
+
+    plan = gk.plan_select([z.numel()], tile)
+    bits = z.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    prefix, pmask, rank = 0, 0, k
+    for shift, width in ((21, 11), (10, 11), (0, 10)):
+        dmask = (1 << width) - 1
+        hist = torch.zeros(2048, dtype=torch.int64)
+        for _, start, length in plan.blocks.tolist():
+            part = bits[start:start + length]
+            cand = part[(part & pmask) == prefix]
+            hist += torch.bincount((cand >> shift) & dmask, minlength=2048)
+        digit, rank = scan_from_top(hist, rank)
+        prefix |= digit << shift
+        pmask |= dmask << shift
+    return torch.tensor([prefix], dtype=torch.int64).to(torch.int32).view(torch.float32)[0]
+
+
+@pytest.mark.parametrize("tiles, tile", [("1", 36_864), ("2", 18_432), ("many", 1000)])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "equal", "tiny"])
+def test_tiled_radix_select_emulation_matches_topk(kind, tiles, tile):
+    """A 36,864-element leaf (ResNet-56's largest) whole, in two tiles and
+    in 37: ties, zeros and equal values straddle the tiles' borders."""
+    n = 36_864
+    z = _scores(n, kind, seed=7)
+    for k in sorted({1, math.ceil(0.1 * n), n // 2, n}):
+        got = tiled_kth_largest(z, k, tile)
+        want = torch.topk(z, k).values[-1]
+        assert got.view(torch.int32) == want.view(torch.int32), (kind, tiles, k)
+
+
+def test_tiled_radix_select_ties_across_tile_borders():
+    """The k-th largest value is one tied value whose copies lie in several
+    tiles on both sides of their borders, with k inside the run of ties."""
+    n, tile = 5 * 1000 + 3, 1000
+    z = torch.from_numpy((np.random.default_rng(9).random(n) * 0.5).astype(np.float32))
+    for lo, hi in ((900, 1100), (2950, 3050), (4990, 5003)):
+        z[lo:hi] = 0.75
+    for k in (1, 150, 200, 313, 314, 400):
+        got = tiled_kth_largest(z, k, tile)
+        assert got.view(torch.int32) == torch.topk(z, k).values[-1].view(torch.int32), k
+
+
+def tile_norms(x: torch.Tensor, layout, tile: int) -> torch.Tensor:
+    """Every (row, leaf) segment's L2 norm as the kernel forms it over the
+    leaf's tiles: each tile's float32 squares summed in float64 (the tile's
+    own partial), the partials summed in tile order, the square root of the
+    float32-rounded sum -> ``[rows, L]`` float32."""
+    from repro_torch.kernels import gmf_compress as gk
+
+    plan = gk.plan_select(layout.sizes, tile)
+    x = x.numpy()
+    out = np.zeros((x.shape[0], layout.num_leaves), np.float32)
+    for r in range(x.shape[0]):
+        for i, o in enumerate(layout.offsets[:-1]):
+            total = 0.0
+            for _, start, length in plan.blocks[plan.first[i]:plan.first[i + 1]].tolist():
+                seg = x[r, o + start:o + start + length]
+                total += float(np.sum((seg * seg).astype(np.float64)))
+            out[r, i] = np.sqrt(np.float32(total))
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("tile", [1000, 4096, 36_864])
+def test_tiled_norms_match_segment_norms_and_repeat_bitwise(tile):
+    """The tiles' float64 partials, summed in a fixed (tile) order, give the
+    norms within 1e-6 relative of ``fusion.segment_norms``; and that order
+    is the leaf cut at every multiple of the tile from its start, first
+    tile first, bit for bit, which is what ``plan_select``'s first-tile
+    prefix hands the kernel's last tile to add. The kernel's own two runs
+    are held bitwise equal on the card (``chip_smoke.py``)."""
+    from repro_torch.core import fusion
+
+    layout = FlatLayout.of_sizes([36_864, 5003, 3, 0, 1000], "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(3, layout.total))
+                         .astype(np.float32))
+    got = tile_norms(x, layout, tile)
+    want = fusion.segment_norms(x, layout)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+    ordered = np.zeros_like(got.numpy())
+    for r, row in enumerate(x.numpy()):
+        for i, (o, n) in enumerate(zip(layout.offsets[:-1], layout.sizes, strict=True)):
+            total = 0.0
+            for part in np.split(row[o:o + n], range(tile, n, tile)):
+                total += float(np.sum((part * part).astype(np.float64)))
+            ordered[r, i] = np.sqrt(np.float32(total))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ordered.view(np.int32))
+
+
 # ---------------------------------------------------------------------------
 # the card path's launches, with the kernels stood in for by their plain
 # versions
@@ -235,11 +356,11 @@ def test_card_path_is_one_call_per_kernel_and_no_loop_over_leaves(monkeypatch, s
     monkeypatch.setattr(FlatLayout, "segments", count_walks)
     monkeypatch.setattr(ops, "_on_card", lambda x: True)
     monkeypatch.setattr(gk, "gmf_select_flat", kernel(
-        "gmf_select", lambda v, m, *, offsets, keep, **kw:
+        "gmf_select", lambda v, m, *, offsets, plan, keep, **kw:
         ref.gmf_select(v, m, layout, rate_of(keep), **kw)))
     monkeypatch.setattr(gk, "topk_abs_select_flat", kernel(
-        "gmf_select", lambda z, *, offsets, keep: tsp.segment_topk_mask(z, layout,
-                                                                        rate_of(keep))))
+        "gmf_select", lambda z, *, offsets, plan, keep: tsp.segment_topk_mask(z, layout,
+                                                                              rate_of(keep))))
     monkeypatch.setattr(gk, "gmf_compress_flat", kernel(
         "gmf_compress", lambda u, v, m, *, offsets, **kw:
         ref.gmf_compress_segments(u, v, m, layout=layout, **kw)))
@@ -271,9 +392,10 @@ def test_select_and_mask_pass_wrappers_refuse_cpu_tensors(wrapper):
     s = torch.zeros(K, LAYOUT.num_leaves)
     call = {
         "gmf_select_flat": lambda: gk.gmf_select_flat(
-            x, x, offsets=LAYOUT.offsets_dev, keep=LAYOUT.keep(0.1)[1], w=k, tau=k, eps=1e-16),
+            x, x, offsets=LAYOUT.offsets_dev, plan=LAYOUT.select_plan(), keep=LAYOUT.keep(0.1)[1],
+            w=k, tau=k, eps=1e-16),
         "topk_abs_select_flat": lambda: gk.topk_abs_select_flat(
-            x, offsets=LAYOUT.offsets_dev, keep=LAYOUT.keep(0.1)[1]),
+            x, offsets=LAYOUT.offsets_dev, plan=LAYOUT.select_plan(), keep=LAYOUT.keep(0.1)[1]),
         "gmf_compress_flat": lambda: gk.gmf_compress_flat(
             x, x, x, offsets=LAYOUT.offsets_dev, inv_norm_v=s, inv_norm_m=s, tau=k,
             threshold=s),
