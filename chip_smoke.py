@@ -278,6 +278,37 @@ each kernel launching once per dtype group.
     upload counts within 1e-4 of each other and at least the exact-k sum.
     The client gradients are ``vmap(grad)``, so the RG-LRU scan's and the
     MoE's gradient paths (F4, F5) run on the card.
+16. **Serving llama3.2-1b through the continuous-batching engine**
+    (``repro_torch.serve``: the paged KV pool, its codecs, the paged steps)
+    at its published size (bf16, random params from seed 0), 4 slots, page
+    16, 130 pages a slot (2080 tokens: prompt_pad 2048 + 32 generated).
+    (a) 4 prompts of 2048 prefilled by the fixed ``make_prefill_step`` at
+    cache_len 2080, the same K/V bytes written into a float32 pool with
+    ``codec.write_pages`` over a scrambled page table, then 8 decode steps
+    each way at S = 4: logits and tokens bitwise equal at every step (the
+    same shapes on both sides, so cuBLAS runs the same products). (b) 8
+    requests of lengths 2048, 1999, 1537, 2048, 1024, 2047, 1800 and 2048,
+    32 tokens each, float32 codec, arriving 2 ticks apart and all at tick
+    0: every request's tokens equal between the two (both prefill at 1 x
+    2048 and decode at S = 4); 4 slots at the peak, a request that waited
+    for a slot, the allocator back to every page free; printed, not gated:
+    how many of the 2048-token requests' tokens equal a fixed batch's. (c)
+    The float32, float16, bfloat16 and int8 codecs, each a warm-up run of
+    (b)'s staggered requests (logits checked finite on the device, read
+    once) and the measured one: every request complete with in-range ids,
+    K4 16 launches a request on the tensor-core kernel, the CUDA-core
+    kernel and K1–K3 none; tokens/s, p50/p99 latency, decode ticks, peak
+    pages, pool bytes, bytes a page and the slots an 8 GiB pool holds,
+    beside the card's name and power limit, and each codec's tokens equal
+    to float32's (the float32 run's must all be). (d) ``launch/serve.py
+    --mode engine --requests 8 --prompt-len 2048 --gen 32 --stagger 2
+    --max-slots 4 --pages-per-slot 130 --warmup`` exits 0 with the
+    reference's summary keys. (e) Under ``--profile``, one more float32
+    run traced: the device's busy share in all and inside the decode
+    ticks' ``serve.decode`` host ranges, the costliest kernels, and the
+    ``cudaStreamSynchronize`` / ``cudaMemcpy*`` calls inside each of the
+    engine's ranges (``serve.admit``, ``serve.decode``, ``serve.finish``):
+    none inside ``serve.decode``.
 
 Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
 ran one block a segment; the ``kernels`` line holds only this run's
@@ -3323,6 +3354,307 @@ def lmtask_card_vs_cpu_phase(rt, dev, tol=1e-2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: llama3.2-1b through the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+# Page 16, 130 pages a slot (2080 tokens: prompt_pad 2048 + 32 generated), 4
+# slots; eight requests of these lengths, arriving 2 ticks apart.
+ENGINE = dict(max_slots=4, page_size=16, pages_per_slot=130, prompt_pad=2048, gen=32,
+              lengths=(2048, 1999, 1537, 2048, 1024, 2047, 1800, 2048), stagger=2)
+ENGINE_WIRES = ("float32", "float16", "bfloat16", "int8")
+# The keys of the reference's engine summary (src/repro/launch/serve.py:run_engine);
+# tests/test_torch_serve.py holds this set equal to the JAX package's.
+ENGINE_SUMMARY_KEYS = frozenset((
+    "mode", "arch", "wire", "requests", "prompt_len", "gen", "max_slots", "page_size",
+    "pages_per_slot", "decode_ticks", "generated_tokens", "wall_s", "tokens_per_s",
+    "latency_p50_s", "latency_p99_s", "admit_wait_ticks_mean", "admit_wait_ticks_p99",
+    "peak_active_slots", "peak_pages", "pool_pages", "page_pool_occupancy", "pool_bytes"))
+POOL_BUDGET = 8 * 2**30  # the capacity line: slots an 8 GiB pool holds
+ENGINE_RANGES = ("serve.admit", "serve.decode", "serve.finish")  # the engine's host ranges
+
+
+def engine_config(rt, wire):
+    return rt.serving.ServeConfig(
+        max_slots=ENGINE["max_slots"], page_size=ENGINE["page_size"],
+        pages_per_slot=ENGINE["pages_per_slot"], prompt_pad=ENGINE["prompt_pad"],
+        max_new_tokens=ENGINE["gen"], wire=wire)
+
+
+def engine_prompts(rt, cfg):
+    """The eight requests' prompts: rows of ``prompt_batch``'s draw (seed 0)
+    cut to their lengths."""
+    rows = rt.serve.prompt_batch(cfg, 0, len(ENGINE["lengths"]), ENGINE["prompt_pad"],
+                                 "cpu")["tokens"].numpy().astype(np.int32)
+    return [rows[i, :n] for i, n in enumerate(ENGINE["lengths"])]
+
+
+def watch_logits(eng):
+    """Wrap the engine's two steps so that every logits tensor's finiteness
+    is ANDed into one device flag, read after the run (no read a tick)."""
+    flag = torch.ones((), dtype=torch.bool, device=eng.device)
+    for name in ("_prefill", "_step"):
+        def watched(*args, fn=getattr(eng, name)):
+            out = fn(*args)
+            flag.logical_and_(torch.isfinite(out[1]).all())
+            return out
+
+        setattr(eng, name, watched)
+    return flag
+
+
+def engine_run(rt, cfg, params, wire, prompts, stagger, watch=False):
+    """One engine run of ``prompts`` arriving ``stagger`` ticks apart:
+    (engine, completions, metrics); with ``watch``, the logits are checked
+    finite."""
+    eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire))
+    for i, p in enumerate(prompts):
+        eng.submit(p, arrival_tick=i * stagger)
+    flag = watch_logits(eng) if watch else None
+    comps, metrics = eng.run()
+    label = f"engine {wire}, stagger {stagger}"
+    check(len(comps) == len(prompts) and [c.rid for c in comps] == list(range(len(prompts))),
+          f"{label}: {len(comps)} of {len(prompts)} requests completed")
+    for c in comps:
+        check(c.tokens.shape == (ENGINE["gen"],) and bool(
+            ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+              f"{label}: request {c.rid} tokens {c.tokens.shape} out of range or short")
+    check(eng.alloc.num_free == eng.scfg.num_pages - 1 and not eng.alloc.live,
+          f"{label}: the allocator holds {eng.alloc.num_live} pages after the drain")
+    if watch:
+        check(bool(flag), f"{label}: logits not finite")
+    return eng, comps, metrics
+
+
+def paged_equals_ring(rt, cfg, params, dev, steps=8):
+    """16(a): 4 prompts of 2048 prefilled by the fixed step into the ring
+    cache (cache_len 2080); the same K/V bytes written into a float32 pool
+    over a scrambled page table; then ``steps`` decode steps each way at
+    S = 4, logits and tokens bitwise equal at every step."""
+    b, plen, ps, pps = (ENGINE[k] for k in ("max_slots", "prompt_pad", "page_size",
+                                            "pages_per_slot"))
+    tokens = rt.serve.prompt_batch(cfg, 0, b, plen, dev)["tokens"]
+    last, cache = rt.dstep.make_prefill_step(cfg, cache_len=pps * ps)(params,
+                                                                     {"tokens": tokens})
+    codec = rt.serving.make_kv_codec("float32", cfg)
+    num_pages = 1 + b * pps
+    pool = rt.serving.init_pool(cfg, codec, num_pages, ps, device=dev)
+    order = np.random.default_rng(16).permutation(np.arange(1, num_pages)).reshape(b, pps)
+    tables = torch.from_numpy(order).to(dev)
+
+    def write(entry, ring):
+        for s in range(b):
+            codec.write_pages(entry, ring["k"][s].reshape(pps, ps, *ring["k"].shape[2:]),
+                              ring["v"][s].reshape(pps, ps, *ring["v"].shape[2:]), tables[s])
+
+    for pe, ce in zip(pool["groups"], cache["groups"], strict=True):
+        for layer in range(ce["k"].shape[0]):
+            write({key: a[layer] for key, a in pe.items()},
+                  {key: a[layer] for key, a in ce.items()})
+    for pe, ce in zip(pool["tail"], cache["tail"], strict=True):
+        write(pe, ce)
+    serve = rt.dstep.make_serve_step(cfg)
+    paged = rt.dstep.make_paged_serve_step(cfg, codec)
+    tok_r = tok_p = torch.argmax(last, dim=-1)
+    pos = torch.full((), plen, dtype=torch.int64, device=dev)
+    lengths = torch.full((b,), plen, dtype=torch.int64, device=dev)
+    for i in range(steps):
+        tok_r, lg_r, cache = serve(params, cache, tok_r, pos)
+        tok_p, lg_p, pool = paged(params, pool, tables, lengths, tok_p)
+        check(torch.equal(lg_r, lg_p) and torch.equal(tok_r, tok_p),
+              f"paged vs ring, step {i}: max |difference| "
+              f"{float((lg_r - lg_p).abs().max()):.3e}, tokens {tok_r.tolist()} vs "
+              f"{tok_p.tolist()}")
+        pos = pos + 1
+        lengths = lengths + 1
+    print(f"  (a) paged float32 pool (scrambled table) vs ring cache, {b} x {plen} prompts, "
+          f"{steps} decode steps at S = {b}: logits and tokens bitwise equal at every step",
+          flush=True)
+
+
+def engine_orders(rt, cfg, params, dev, prompts):
+    """16(b): the eight requests staggered and all at tick 0, float32:
+    every request's tokens equal; 4 slots at the peak, a later request
+    waited for one, the pool drained. Prints, ungated, how many tokens of
+    the 2048-token requests equal a fixed batch's of the same prompts.
+    Returns the staggered run's completions."""
+    runs = {}
+    for stagger in (ENGINE["stagger"], 0):
+        _, comps, metrics = engine_run(rt, cfg, params, "float32", prompts, stagger,
+                                       watch=True)
+        runs[stagger] = comps, metrics
+    staggered, metrics = runs[ENGINE["stagger"]]
+    together, _ = runs[0]
+    for a, b in zip(staggered, together, strict=True):
+        check(np.array_equal(a.tokens, b.tokens),
+              f"request {a.rid}: staggered tokens {a.tokens.tolist()} vs simultaneous "
+              f"{b.tokens.tolist()}")
+    waited = [c.rid for c in staggered if c.admit_tick > ENGINE["stagger"] * c.rid]
+    check(metrics["peak_active_slots"] == ENGINE["max_slots"] and waited,
+          f"staggered: peak {metrics['peak_active_slots']} slots, waited {waited}")
+    full = [i for i, n in enumerate(ENGINE["lengths"]) if n == ENGINE["prompt_pad"]]
+    tokens = torch.from_numpy(np.stack([prompts[i] for i in full])).long().to(dev)
+    prefill = rt.dstep.make_prefill_step(cfg, cache_len=ENGINE["prompt_pad"] + ENGINE["gen"])
+    last, cache = prefill(params, {"tokens": tokens})
+    pos = torch.full((), ENGINE["prompt_pad"], dtype=torch.int64, device=dev)
+    fixed, _ = rt.serve.decode(rt.dstep.make_serve_step(cfg), params, cache,
+                               torch.argmax(last, dim=-1), pos, ENGINE["gen"] - 1)
+    fixed = torch.stack(fixed, dim=-1).cpu().numpy()
+    same = sum(int((fixed[j] == staggered[i].tokens).sum()) for j, i in enumerate(full))
+    print(f"  (b) 8 requests (lengths {list(ENGINE['lengths'])}), float32: staggered "
+          f"({ENGINE['stagger']} ticks apart) and simultaneous tokens equal for every request;"
+          f" peak {metrics['peak_active_slots']} slots, requests {waited} waited for a slot, "
+          f"{metrics['decode_ticks']} decode ticks; the pool drained. Not gated: "
+          f"{same} of {len(full) * ENGINE['gen']} tokens of requests {full} equal a fixed "
+          f"batch's ({len(full)} x {ENGINE['prompt_pad']}, other GEMM shapes)", flush=True)
+    return staggered
+
+
+def engine_codecs(rt, cfg, params, prompts, card, f32_tokens):
+    """16(c): each codec's staggered run, a warm-up (logits checked finite;
+    float32's is 16(b)'s) then the measured one, K4's launches counted in
+    it. Returns ({wire: numbers}, the float32 run's K4 launches)."""
+    out, f32_k4 = {}, 0
+    pages = engine_config(rt, "float32").num_pages
+    for wire in ENGINE_WIRES:
+        if wire != "float32":
+            engine_run(rt, cfg, params, wire, prompts, ENGINE["stagger"], watch=True)
+        rt.gk.reset_launches()
+        rt.k4.reset_launches()
+        eng, comps, m = engine_run(rt, cfg, params, wire, prompts, ENGINE["stagger"])
+        counts = {**rt.gk.LAUNCHES, **rt.k4.LAUNCHES}
+        n = cfg.num_layers * len(prompts)
+        check(counts == {**NO_COMPRESSION, "flash_attention": n, "flash_attention_tc": n,
+                         "flash_attention_cc": 0}, f"engine {wire}: launches {counts}")
+        agree = sum(int((c.tokens == t).sum()) for c, t in zip(comps, f32_tokens, strict=True))
+        if wire == "float32":
+            check(agree == len(prompts) * ENGINE["gen"], "float32: the measured run's tokens "
+                  f"differ from 16(b)'s staggered run's ({agree} equal)")
+            f32_k4 = counts["flash_attention_tc"]
+        bpp = rt.serving.bytes_per_page(eng.pool, pages)
+        out[wire] = dict(tokens_per_s=m["tokens_per_s"], latency_p50_s=m["latency_p50_s"],
+                         latency_p99_s=m["latency_p99_s"], decode_ticks=m["decode_ticks"],
+                         peak_pages=m["peak_pages"], pool_bytes=m["pool_bytes"],
+                         bytes_per_page=bpp,
+                         slots_in_8gib=int(POOL_BUDGET // (bpp * ENGINE["pages_per_slot"])),
+                         tokens_equal_float32=f"{agree} of {len(prompts) * ENGINE['gen']}",
+                         k4_tc=counts["flash_attention_tc"])
+        print(f"  (c) {wire} ({card}): {json.dumps(out[wire])}", flush=True)
+        del eng
+    return out, f32_k4
+
+
+def engine_entry_point(rt):
+    """16(d): ``launch/serve.py --mode engine`` at llama3.2-1b, the eight
+    requests' shape (all of length 2048), with ``--warmup``: exit 0, and the
+    reference's summary keys."""
+    import io
+
+    argv = ["--arch", "llama3.2-1b", "--mode", "engine", "--requests", "8", "--prompt-len",
+            str(ENGINE["prompt_pad"]), "--gen", str(ENGINE["gen"]), "--stagger",
+            str(ENGINE["stagger"]), "--max-slots", str(ENGINE["max_slots"]),
+            "--pages-per-slot", str(ENGINE["pages_per_slot"]), "--warmup"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = rt.serve.main(argv)
+    summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and set(summary) == ENGINE_SUMMARY_KEYS,
+          f"serve --mode engine: exit {rc}, keys {sorted(summary)}")
+    check(summary["requests"] == 8 and summary["generated_tokens"] == 8 * ENGINE["gen"],
+          f"serve --mode engine: {summary}")
+    print(f"  (d) python -m repro_torch.launch.serve {' '.join(argv)}: exit 0; "
+          f"{json.dumps(summary)}", flush=True)
+
+
+def profile_engine(rt, cfg, params, prompts):
+    """16(e): a ``torch.profiler`` trace of one more float32 staggered run:
+    the device's busy share (the union of its activities) in all and inside
+    the decode ticks' host ranges, the costliest kernels, and the
+    synchronize and ``cudaMemcpy*`` calls inside each of the engine's ranges
+    by the op that made them and the copies' directions: no synchronize
+    call and no device-to-host copy inside ``serve.decode``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, "float32"))
+    for i, p in enumerate(prompts):
+        eng.submit(p, arrival_tick=i * ENGINE["stagger"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = eng.run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    acts, ranges, calls = [], {name: [] for name in ENGINE_RANGES}, []
+    launched = dict.fromkeys(ENGINE_RANGES, 0.0)
+    for e in prof.events():
+        iv = (e.time_range.start, e.time_range.end)
+        if str(e.device_type).endswith("CUDA"):
+            if not getattr(e, "is_user_annotation", False):
+                acts.append(iv)
+        elif e.name in ranges:
+            ranges[e.name].append(iv)
+            launched[e.name] += e.device_time_total / 1e3
+        elif e.name.startswith(("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                "cudaEventSynchronize", "cudaMemcpy")):
+            ops, up = [], e.cpu_parent
+            while up is not None and len(ops) < 3 and up.name not in ranges:
+                ops.append(up.name)
+                up = up.cpu_parent
+            kinds = sorted({k.name.split(" (")[0] for k in e.kernels}) or [
+                "sync" if "Synchronize" in e.name else "no device activity linked"]
+            calls.append((e.time_range.start, e.name, " < ".join(ops) or "-", "/".join(kinds)))
+    busy = merged(acts)
+    busy_ms = sum(hi - lo for lo, hi in busy) / 1e3
+    decode = merged(ranges["serve.decode"])
+    decode_ms = sum(hi - lo for lo, hi in decode) / 1e3
+    inside = {}
+    for at, call, ops, kind in calls:
+        where = next((name for name, ivs in ranges.items()
+                      if any(lo <= at <= hi for lo, hi in ivs)), "outside the ranges")
+        inside[(where, call, ops, kind)] = inside.get((where, call, ops, kind), 0) + 1
+    ticks = metrics["decode_ticks"]
+    busy_decode = overlap(busy, decode) / 1e3
+    print(f"  (e) profiled float32 run: {wall:.3f} ms wall, {len(acts)} device activities, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall:.1f} %); {ticks} decode ticks "
+          f"in {decode_ms:.3f} ms of serve.decode host ranges, device busy inside them "
+          f"{busy_decode:.3f} ms ({100 * busy_decode / decode_ms:.1f} %), kernels launched "
+          f"from them {launched['serve.decode']:.3f} ms "
+          f"({launched['serve.decode'] / ticks:.3f} ms a tick); admissions "
+          f"{launched['serve.admit']:.3f} ms of kernels; synchronize and memcpy calls:",
+          flush=True)
+    for (where, call, ops, kind), n in sorted(inside.items()):
+        print(f"    {where}: {n:5d}x {call} ({kind}) under {ops}", flush=True)
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
+    for e in sorted(kernels, key=device_us, reverse=True)[:10]:
+        print(f"    {device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    gathers = [e for e in kernels if "gather" in e.key]  # the page gathers (and the embedding's)
+    gather_ms = sum(device_us(e) for e in gathers) / 1e3
+    print(f"    gather kernels: {gather_ms:.3f} ms in {sum(e.count for e in gathers)} launches, "
+          f"{gather_ms / ticks:.3f} ms a decode tick", flush=True)
+    bad = {key: n for key, n in inside.items() if key[0] == "serve.decode"
+           and (key[3] == "sync" or "DtoH" in key[3])}
+    check(not bad, f"decode ticks: synchronize calls or device-to-host copies {bad}")
+
+
+def engine_phase(rt, dev, card, profile=False):
+    """Phase 16. Returns ({wire: numbers}, K4's launches in the measured
+    float32 run)."""
+    cfg = rt.configs.get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = rt.serve.init_params(cfg, 0, dev)
+    paged_equals_ring(rt, cfg, params, dev)
+    prompts = engine_prompts(rt, cfg)
+    f32 = engine_orders(rt, cfg, params, dev, prompts)
+    codecs, k4 = engine_codecs(rt, cfg, params, prompts, card, [c.tokens for c in f32])
+    engine_entry_point(rt)
+    if profile:
+        profile_engine(rt, cfg, params, prompts)
+    del params
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return codecs, k4
+
+
 T_START = time.perf_counter()
 
 
@@ -3337,8 +3669,8 @@ def main() -> None:
                     help="run only the build and kernel phases")
     ap.add_argument("--profile", action="store_true",
                     help="also break down where a ResNet-56 and a Shakespeare round's, "
-                         "each serving run's and a dense training step's time goes "
-                         "(torch.profiler; phases 4, 5, 9, 13 and 14)")
+                         "each serving run's, a dense training step's and the serving "
+                         "engine's time goes (torch.profiler; phases 4, 5, 9, 13, 14 and 16)")
     args = ap.parse_args()
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -3350,6 +3682,7 @@ def main() -> None:
     import repro_torch.core as core
     import repro_torch.fl as fl
     import repro_torch.obs as obs
+    import repro_torch.serve as serving
     import repro_torch.utils as utils
     from repro_torch.core import sparsify, stages
     from repro_torch.data import synthetic
@@ -3365,7 +3698,7 @@ def main() -> None:
     rt = argparse.Namespace(core=core, fl=fl, utils=utils, gk=gk, k4=k4, synthetic=synthetic,
                             sparsify=sparsify, stages=stages, configs=configs, dstep=dstep,
                             serve=serve, ops=ops, ref=ref, flat=flat, obs=obs,
-                            obs_report=obs_report)
+                            obs_report=obs_report, serving=serving)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=False)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
@@ -3450,6 +3783,7 @@ def main() -> None:
     by_path = {}  # the compression kernels' launches in each path's run
     bf16_by_path = {}  # the training paths' launches by kernel instance
     served_k4 = {}  # phase 13's K4 launches by config
+    k4_tc_by_path = {}  # the tensor-core K4's launches in phase 5's and phase 16's runs
     if args.only != "kernels":
         phase("phase 3: ResNet-56 FL path, 20 clients, batch 64")
         by_path["resnet56"], task = path_phase(rt, dev)
@@ -3460,7 +3794,7 @@ def main() -> None:
             profile_phase(rt, task)
         phase("phase 5: serving llama3.2-1b, batch 4, prompt 2048, 32 tokens")
         _, counts = serve_phase(rt, dev, args.profile)
-        launches["flash_attention_tc"] = counts["flash_attention_tc"]
+        k4_tc_by_path["serve_fixed"] = counts["flash_attention_tc"]
         phase("phase 6: serving, card vs CPU, llama3.2-1b width at depth 2")
         launches["flash_attention_cc"] = serve_card_vs_cpu_phase(rt, dev)
         phase("phase 6: serving, card vs CPU, the moe, ssm, hybrid, vlm and audio families "
@@ -3516,6 +3850,10 @@ def main() -> None:
         for path, inst in (("llama_train", train_inst), ("llama_lmfl", lmfl_inst)):
             by_path[path] = f32_launches(inst)
             bf16_by_path[path] = inst
+        phase("phase 16: serving llama3.2-1b through the continuous-batching engine (paged KV "
+              "pool, 4 slots, page 16, 130 pages a slot), 8 requests, the four codecs")
+        _, k4_tc_by_path["serve_engine"] = engine_phase(rt, dev, card, args.profile)
+        launches["flash_attention_tc"] = sum(k4_tc_by_path.values())
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n
@@ -3560,7 +3898,9 @@ def main() -> None:
     # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.
-    for kern, source, run in (("tc", K4_TC_SOURCE, "phase 5: bf16 serving, run_fixed"),
+    for kern, source, run in (("tc", K4_TC_SOURCE, "phase 5: bf16 serving, run_fixed; phase "
+                                                    "16: the engine's float32-codec run, a "
+                                                    "prefill per request"),
                               ("cc", K4_SOURCE, "phase 6: float32 prefills of llama3.2-1b, "
                                                  "the families and kimi-k2's D 112")):
         rows.append({"name": f"flash_attention_{kern}", "id": "K4", "route": "cuda",
@@ -3570,6 +3910,8 @@ def main() -> None:
                                              for arch, c in served_k4.items()
                                              if c[f"flash_attention_{kern}"]},
                      "max_abs_err": k4_worst[kern], **k4_times[kern]})
+        if kern == "tc":
+            rows[-1]["launches_by_path"] = dict(k4_tc_by_path)
     # The tensor-core kernel at D 256 and 112: its launches in phase 13's
     # measured run of the config that has that head dim; "cc_ms" is the
     # CUDA-core kernel (where these inputs went before) on the same inputs;

@@ -4,8 +4,7 @@
 The reference builds these for an SPMD mesh; the port runs them on the
 device the params lie on, as the reference runs them without one (its
 single-device path: ``_num_shards`` is 1 when there is no mesh). A mesh
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 11 part B ports it),
-as do the paged serving steps (item 12).
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 11 part B ports it).
 
 Training (``make_train_step``): ``dense`` is plain SGD on the batch's
 gradient; ``gmf_data`` and ``gmf_pod`` make the whole device one GMF
@@ -23,8 +22,10 @@ FL engines' names (``round.client_grads``, ``round.client_compress``,
 ``round.server_aggregate``, ``round.apply_update``), so a
 ``torch.profiler`` trace splits a step as it splits a round.
 
-Serving: both steps run under ``torch.no_grad``; the decode step writes
-into the cache it is given.
+Serving: the fixed-batch prefill and decode steps, and the paged ones of
+the continuous-batching engine (``serve/engine.py``), run under
+``torch.no_grad``; the decode steps and the paged prefill write into the
+cache or pool they are given.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from repro_torch.core.state import ClientState, ServerState
 from repro_torch.models import transformer
 from repro_torch.obs import trace
 from repro_torch.optim import sgd
-from repro_torch.utils import tree_leaves, tree_map, tree_size, tree_unflatten
+from repro_torch.utils import scalar, tree_leaves, tree_map, tree_size, tree_unflatten
 from repro_torch.utils.flat import FlatLayout
 
 GRAD_SYNC_MODES = ("dense", "gmf_data", "gmf_pod")
@@ -270,5 +271,74 @@ def make_serve_step(cfg, mesh=None):
     def serve(params, cache, tokens, pos):
         logits, cache = transformer.decode_step(cfg, params, cache, tokens, pos, ctx=ctx)
         return torch.argmax(logits, dim=-1), logits, cache
+
+    return serve
+
+
+# ---------------------------------------------------------------------------
+# Serving: paged (continuous-batching) variants
+# ---------------------------------------------------------------------------
+
+
+def make_paged_prefill_step(cfg, codec, mesh=None, *, prompt_pad: int):
+    """``prefill(params, tokens, pool, table_row, length) ->
+    (next_token, last_logits, pool)``: admit one request into a slot.
+
+    ``tokens`` is (1, prompt_pad), the prompt right-padded to the fixed
+    shape (``prompt_pad`` must be a page multiple); ``length`` is the true
+    prompt length (a Python int or a 0-dim tensor) and ``table_row``
+    (pages_per_slot,) the slot's physical pages on the pool's device. The
+    forward runs ``last_only`` with ``last_index`` = length − 1, so only the
+    true last token's logits are built (causal masking keeps the padding out
+    of them), and the prompt's K/V pages are written into the pool with
+    ``codec.write_pages`` (junk K/V beyond ``length`` lands in pages the slot
+    owns and stays masked until decode overwrites it). ``last_index`` is
+    made on the device by a fill, so the step copies nothing from the host.
+    """
+    ctx_base = _model_ctx(cfg, mesh, want_cache=True, cache_len=prompt_pad, last_only=True)
+
+    def write_one(pe, ke, ve, phys):
+        ps = pe["k"].shape[1]
+        n_pages = prompt_pad // ps
+        kp = ke[0].reshape(n_pages, ps, *ke.shape[2:])
+        vp = ve[0].reshape(n_pages, ps, *ve.shape[2:])
+        codec.write_pages(pe, kp, vp, phys[:n_pages])
+
+    @torch.no_grad()
+    def prefill(params, tokens, pool, table_row, length):
+        ctx = dict(ctx_base)
+        ctx["last_index"] = scalar(length, tokens.device, torch.int64).reshape(1) - 1
+        logits, _, kv = transformer.forward(cfg, params, {"tokens": tokens}, ctx=ctx)
+        last = logits[:, 0].float()  # (1, V)
+        for pe, ce in zip(pool["groups"], kv["groups"], strict=True):
+            for i in range(ce["k"].shape[0]):  # the stacked layers of the group
+                write_one({key: a[i] for key, a in pe.items()}, ce["k"][i], ce["v"][i],
+                          table_row)
+        for pe, ce in zip(pool["tail"], kv["tail"], strict=True):
+            write_one(pe, ce["k"], ce["v"], table_row)
+        return torch.argmax(last, dim=-1), last, pool
+
+    return prefill
+
+
+def make_paged_serve_step(cfg, codec, mesh=None):
+    """``serve(params, pool, tables, lengths, tokens) ->
+    (next_tokens, logits, pool)``: one greedy decode step over every serving
+    slot at once, the pool written in place.
+
+    ``lengths`` (S,) is each slot's current absolute position (prompt
+    length + tokens generated so far), on the pool's device: the step writes
+    slot i's token at position ``lengths[i]`` and attends over positions up
+    to it. Inactive slots (length 0, table row all scratch) compute garbage
+    that is never read back: completion is length bookkeeping on the host,
+    so the decode loop reads nothing back from the device.
+    """
+    ctx = _model_ctx(cfg, mesh)
+
+    @torch.no_grad()
+    def serve(params, pool, tables, lengths, tokens):
+        c = dict(ctx, paged={"tables": tables, "codec": codec})
+        logits, pool = transformer.decode_step(cfg, params, pool, tokens, lengths, ctx=c)
+        return torch.argmax(logits, dim=-1), logits, pool
 
     return serve

@@ -1,11 +1,15 @@
-"""Serving entry point: the port of the reference's ``launch/serve.py``,
-fixed-batch mode (prompts, a prefill that builds the ring KV cache, greedy
-decode steps, one JSON summary line).
+"""Serving entry point: the port of the reference's ``launch/serve.py``:
+fixed-batch decode (prompts, a prefill that builds the ring KV cache,
+greedy decode steps) or the continuous-batching engine over the paged KV
+pool (``--mode engine``, dense and moe families), one JSON summary line.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 \
         --prompt-len 2048 --gen 32                      # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --device cpu --batch 2 --prompt-len 32 --gen 8
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode engine \
+        --requests 8 --prompt-len 2048 --gen 32 --stagger 2 --max-slots 4 \
+        --pages-per-slot 130 --wire int8 --warmup       # on the GPU
 
 Every architecture of ``configs.ARCH_IDS`` is served: the audio family
 greedily decodes every codebook (prompts and tokens (B, K, T)), the vlm
@@ -20,17 +24,19 @@ in every family that has attention.
 The last stdout line is the JSON summary with the reference's keys. The
 timed prefill and the timed decode loop each hold no host sync and end in
 one ``torch.cuda.synchronize()``: the position advances on the device and
-the tokens stack there until the clock has stopped.
+the tokens stack there until the clock has stopped. In engine mode the
+engine (``serve/engine.py``) reads back only each finished request's
+tokens (``--stream`` adds a read per token by design: do not time with
+it); its prompts are ``--requests`` rows drawn as ``prompt_batch`` draws
+them, so they are fixed mode's prompts for a batch of that size.
 
 ``--obs`` turns the telemetry spine on (``repro_torch.obs``): a
-``run_start`` event, the run's ``serve_summary`` (its batch as the
-requests, and tokens/s) and ``summary`` events in
+``run_start`` event, the run's ``serve_summary`` (fixed mode: its batch as
+the requests, and tokens/s, then a ``summary`` event; engine mode: the
+reference's fields, after one ``serve_request`` event per request) in
 ``<--obs-dir>/events.jsonl``, then ``metrics.prom`` and ``summary.json``
 beside it. The reference's fixed mode writes no ``serve_summary``, so its
 event file fails ``python -m repro.obs.report --strict``; this one passes.
-
-Not ported yet: ``--mode engine`` (the paged continuous-batching engine,
-ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import repro_torch.obs as obs
 from repro_torch import configs
 from repro_torch.dist import step as dstep
 from repro_torch.models import transformer
+from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.utils import resolve_device
 
 
@@ -150,6 +157,64 @@ def run_fixed(cfg, params, args, device) -> FixedRun:
     return FixedRun(summary, gen, last_logits)
 
 
+def run_engine(cfg, params, args) -> dict:
+    """Continuous-batching engine over the paged cache, on the device of
+    ``params``; returns the reference's summary."""
+    scfg = ServeConfig(
+        max_slots=args.max_slots,
+        page_size=args.page_size,
+        pages_per_slot=args.pages_per_slot,
+        prompt_pad=args.prompt_pad or args.prompt_len,
+        max_new_tokens=args.gen,
+        wire=args.wire,
+    )
+    if args.warmup:
+        # One short run first (the prefill and decode shapes are the timed
+        # run's), so the timed run measures serving, not the kernels' build
+        # and the libraries' first calls.
+        warm = ServeEngine(cfg, params, scfg)
+        warm.submit(np.zeros((min(4, scfg.prompt_pad),), np.int32), max_new_tokens=2)
+        warm.run()
+        del warm
+
+    eng = ServeEngine(cfg, params, scfg)
+    prompts = prompt_batch(cfg, args.seed, args.requests, args.prompt_len, "cpu")["tokens"]
+    prompts = prompts.numpy().astype(np.int32)
+    for i in range(args.requests):
+        eng.submit(prompts[i], arrival_tick=i * args.stagger)
+
+    on_token = None
+    if args.stream:
+        # Streaming "detok": the models here are randomly initialised, so
+        # detokenisation is the identity over token ids.
+        def on_token(rid, token):
+            print(f"  [req {rid}] {token}")
+
+    completions, metrics = eng.run(on_token=on_token)
+    print(f"engine:  {metrics['requests']} requests, wire={args.wire}, "
+          f"{metrics['generated_tokens']} tokens in {metrics['wall_s']*1e3:.1f} ms "
+          f"({metrics['tokens_per_s']:.1f} tok/s, "
+          f"p50 {metrics['latency_p50_s']*1e3:.1f} ms, "
+          f"p99 {metrics['latency_p99_s']*1e3:.1f} ms, "
+          f"peak {metrics['peak_active_slots']} slots)")
+    for c in completions[: min(3, len(completions))]:
+        print(f"  req {c.rid}: admitted tick {c.admit_tick}, done tick "
+              f"{c.done_tick}, tokens {c.tokens[:8].tolist()} ...")
+    return {
+        "mode": "engine",
+        "arch": args.arch,
+        "wire": args.wire,
+        "requests": args.requests,
+        "prompt_len": args.prompt_len,
+        "gen": args.gen,
+        "max_slots": args.max_slots,
+        "page_size": args.page_size,
+        "pages_per_slot": args.pages_per_slot,
+        **{k: (float(v) if isinstance(v, float) else int(v))
+           for k, v in metrics.items()},
+    }
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, choices=list(configs.ARCH_IDS))
@@ -162,6 +227,21 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    # engine mode
+    ap.add_argument("--wire", default="float32",
+                    choices=("float32", "float16", "bfloat16", "int8"))
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--stagger", type=int, default=0,
+                    help="ticks between request arrivals")
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages-per-slot", type=int, default=8)
+    ap.add_argument("--prompt-pad", type=int, default=0,
+                    help="0 -> prompt-len (must be a page multiple)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as generated (adds a device read per token)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="engine mode: one short untimed run first")
     ap.add_argument("--obs", action="store_true",
                     help="enable the repro_torch.obs telemetry spine (JSONL events "
                          "+ metrics.prom/summary.json under --obs-dir)")
@@ -173,21 +253,27 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
-    if args.mode == "engine":
-        raise NotImplementedError("--mode engine (the paged continuous-batching engine) "
-                                  "is not ported yet: ROADMAP Queue 1 item 12")
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     params = init_params(cfg, args.seed, device)
     if args.obs:
         obs.configure(args.obs_dir)
         obs.get().event("run_start", run=f"serve-{args.arch}", argv=argv, backend="serve",
-                        mode=args.mode)
+                        mode=args.mode, wire=args.wire)
     try:
-        summary = run_fixed(cfg, params, args, device).summary
-        obs.get().event("serve_summary", requests=args.batch,
-                        tokens_per_s=summary["tokens_per_s"])
-        obs.get().event("summary", **summary)
+        if args.mode == "engine":
+            summary = run_engine(cfg, params, args)
+            obs.get().event("serve_summary",
+                            requests=summary["requests"],
+                            tokens_per_s=summary["tokens_per_s"],
+                            peak_active_slots=summary["peak_active_slots"],
+                            peak_pages=summary["peak_pages"],
+                            page_pool_occupancy=summary["page_pool_occupancy"])
+        else:
+            summary = run_fixed(cfg, params, args, device).summary
+            obs.get().event("serve_summary", requests=args.batch,
+                            tokens_per_s=summary["tokens_per_s"])
+            obs.get().event("summary", **summary)
     finally:
         if args.obs:
             obs.export.write_all(args.obs_dir)

@@ -31,7 +31,10 @@ the reference does), K4 computes its scores in float32.
 
 The decode step keeps the reference's ring cache and writes the new
 token's K/V into it in place (``index_copy_`` at a device-side slot), so a
-step moves no cache and reads no position back to the host.
+step moves no cache and reads no position back to the host. The serving
+engine's paged decode (``paged_decode_attention``) writes each slot's token
+into its page of the pool in place and gathers the slot's pages in logical
+order: plain torch, as the reference's is plain ``jnp`` (no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -226,9 +229,57 @@ def init_kv_cache(cfg, batch, cache_len, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def paged_decode_attention(*args, **kwargs):
-    raise NotImplementedError("the paged KV cache of the serving engine is not ported "
-                              "yet: ROADMAP Queue 1 item 12")
+def paged_decode_attention(params, cfg, entry, x_t, pos, *, tables, codec,
+                           window: int | None = None):
+    """One-token decode against a block-allocated paged KV pool.
+
+    ``entry`` is one layer's pool entry (``codec``-owned dict: ``k``/``v``
+    pages shaped (num_pages, page_size, KV, D) plus scales for quantised
+    codecs); ``pos`` is the per-slot write position (S,), an integer tensor
+    on x_t's device: token ``pos[i]`` of slot ``i`` lands at page
+    ``tables[i, pos[i] // page_size]``, offset ``pos[i] % page_size``.
+    ``tables`` (S, P) maps each slot's logical pages to physical pool pages;
+    pages beyond a slot's allocation point at the reserved scratch page 0,
+    whose (finite) content is always masked out.
+
+    The score, mask, softmax and weighted sum are ``decode_attention``'s
+    operations in the same order: under the ``float32`` codec the gathered
+    pages hold exactly the ring cache's bytes, masked positions are exact
+    zeros of the softmax, and the step is bitwise the fixed-batch one at the
+    same extent (P·page_size keys). The new token's K/V are written into
+    ``entry`` in place. Returns (out (S, d_model), entry).
+    """
+    b = x_t.shape[0]
+    window = cfg.sliding_window if window is None else window
+    q, k, v = _project_qkv(params, cfg, x_t[:, None, :])
+    pos = torch.as_tensor(pos, device=x_t.device)
+    pos_b = pos[:, None]  # (S, 1): per-slot absolute positions
+    q, k = _rope_q_k(cfg, q, k, pos_b)
+
+    page_size = entry["k"].shape[1]
+    page = pos // page_size
+    offset = pos % page_size
+    phys = torch.gather(tables, 1, page[:, None])[:, 0]
+    entry = codec.write_token(entry, k[:, 0], v[:, 0], phys, offset)
+    # (S, L, KV, D) with L = pages_per_slot · page_size, logical order
+    k_all, v_all = codec.gather(entry, tables)
+
+    kv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, 1, kv, g, cfg.head_dim)
+    scale = cfg.head_dim**-0.5
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k_all).float() * scale
+
+    # Paged slots are in logical order (no ring wrap): slot s of the
+    # gathered view holds position s, valid iff s is in (pos - window, pos].
+    logical = torch.arange(k_all.shape[1], device=x_t.device)[None, :]  # (1, L)
+    valid = logical <= pos_b
+    if window > 0:
+        valid &= logical > pos_b - window
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v_all)
+    out = out.reshape(b, cfg.q_dim) @ params["wo"]
+    return out, entry
 
 
 def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None,

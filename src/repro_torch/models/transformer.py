@@ -35,8 +35,13 @@ hooks that checkpointing needs, so remat is honoured under plain autograd
 ``torch.func`` transform (the FL engines' ``vmap(grad)``), where it
 computes the same values without the memory saving.
 
+``decode_step`` also runs against the serving engine's paged KV pool
+(``serve/cache.py:init_pool``, the same structure) when ``ctx["paged"]``
+holds the block ``tables`` and the ``codec``; ``pos`` is then the per-slot
+(S,) position.
+
 Not ported yet: the expert-parallel MoE over a mesh (ROADMAP Queue 1 item
-11 part B) and the paged cache's decode (item 12).
+11 part B).
 """
 
 from __future__ import annotations
@@ -209,17 +214,31 @@ def block_decode(params, cfg, block_type, cache, x_t, pos, ctx):
     in place. Returns (x, cache)."""
     eps = cfg.norm_eps
     if block_type == "attn":
-        if ctx.get("paged") is not None:
-            attention.paged_decode_attention()
-        h, cache = attention.decode_attention(
-            params["attn"],
-            cfg,
-            cache,
-            layers.rmsnorm(params["norm1"], x_t, eps),
-            pos,
-            window=ctx.get("window", cfg.sliding_window),
-            mrope_positions=ctx.get("mrope_positions"),
-        )
+        window = ctx.get("window", cfg.sliding_window)
+        paged = ctx.get("paged")
+        if paged is not None:
+            # Serving tier: ``cache`` is one layer's paged-pool entry and
+            # ``pos`` is the per-slot (S,) write position.
+            h, cache = attention.paged_decode_attention(
+                params["attn"],
+                cfg,
+                cache,
+                layers.rmsnorm(params["norm1"], x_t, eps),
+                pos,
+                tables=paged["tables"],
+                codec=paged["codec"],
+                window=window,
+            )
+        else:
+            h, cache = attention.decode_attention(
+                params["attn"],
+                cfg,
+                cache,
+                layers.rmsnorm(params["norm1"], x_t, eps),
+                pos,
+                window=window,
+                mrope_positions=ctx.get("mrope_positions"),
+            )
         x_t = x_t + h
         y, _ = _ffn(params, cfg, layers.rmsnorm(params["norm2"], x_t, eps)[:, None, :], ctx)
         return x_t + y[:, 0, :], cache
@@ -413,7 +432,8 @@ def init_cache(cfg, batch, cache_len, dtype=None, *, device):
 
 def decode_step(cfg, params, cache, tokens, pos, *, ctx=None):
     """One decode step. tokens: (B,) integer (audio: (B, K)); pos: the
-    absolute position (int or 0-dim tensor). The cache is updated in place.
+    absolute position (int or 0-dim tensor; with ``ctx["paged"]``, the
+    per-slot (B,) positions). The cache is updated in place.
     Returns (logits (B, V) or (B, K, V), cache)."""
     ctx = dict(ctx or {})
     if cfg.family == "audio":

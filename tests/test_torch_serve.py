@@ -3,13 +3,16 @@ transformer tree.
 
 ``repro_torch.launch.serve.main`` on the CPU prints, as its last line, a
 JSON summary with the keys the reference's ``repro.launch.serve`` prints
-(the same values where they are not times); the options the port does not
-run yet raise. ``from_jax_params`` / ``to_jax_params`` carry the
-transformer's tree (tuples, bfloat16 leaves) across bit for bit, and the
-ResNet's layout conversion is what it was.
+(the same values where they are not times), in fixed and engine mode.
+``from_jax_params`` / ``to_jax_params`` carry the transformer's tree
+(tuples, bfloat16 leaves) across bit for bit, and the ResNet's layout
+conversion is what it was.
 """
 
+import importlib.util
 import json
+import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.utils import tree_leaves
 from repro_torch.utils.convert import from_jax_params, to_jax_params
 
+ROOT = Path(__file__).resolve().parents[1]
 ARGS = ["--arch", "llama3.2-1b", "--smoke", "--batch", "2", "--prompt-len", "16",
         "--gen", "4"]
 TIMES = {"prefill_ms", "decode_ms", "ms_per_step", "tokens_per_s"}
@@ -78,25 +82,59 @@ def test_decode_continues_the_prefill_as_run_fixed_does():
     assert torch.equal(torch.stack(generated, dim=-1), run.tokens)
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--mode", "engine"], "item 12"),
-    (["--obs", "--mode", "engine"], "item 12"),
-])
-def test_unported_serving_options_raise(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tserve.main([*ARGS, "--device", "cpu", *extra])
+ENGINE_TIMES = {"wall_s", "tokens_per_s", "latency_p50_s", "latency_p99_s"}
 
 
-@pytest.mark.parametrize("arch, match", [("granite-moe-1b-a400m", "item 12"),
-                                         ("yi-34b", "item 12")])
-def test_unported_archs_raise(arch, match):
-    """Every arch serves in fixed mode now; what each still lacks, the paged
-    engine, raises naming the item that ports it. (The name is older than
-    the archs' port and kept, so the test's history stays one.)"""
+# The ids are the ones the test had when these options raised naming item 12.
+@pytest.mark.parametrize("extra", [["--mode", "engine"], ["--obs", "--mode", "engine"]],
+                         ids=["extra0-item 12", "extra1-item 12"])
+def test_unported_serving_options_raise(extra, tmp_path, capsys):
+    """``--mode engine`` (with and without ``--obs``) is ported: ``main``
+    returns 0 on the CPU and its last line has exactly the keys of the
+    reference's ``main`` with the same arguments (the keys
+    ``chip_smoke.py`` checks on the card), with equal values but the times;
+    with ``--obs`` the events file holds ``serve_summary`` and one
+    ``serve_request`` per request. (The name is older than the engine's
+    port and kept, so the test's history stays one.)"""
+    extra = [*extra, "--requests", "3", "--stagger", "1", "--max-slots", "2"]
+    obs_dir = tmp_path / "obs"
+    if "--obs" in extra:
+        extra += ["--obs-dir", str(obs_dir)]
+    assert tserve.main([*ARGS, "--device", "cpu", *extra]) == 0
+    got = _last_json(capsys.readouterr().out)
+    ref = [a for a in extra if a not in ("--obs", "--obs-dir", str(obs_dir))]
+    assert jserve.main([*ARGS, *ref]) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert set(got) == set(want)
+    assert {k: v for k, v in got.items() if k not in ENGINE_TIMES} == \
+        {k: v for k, v in want.items() if k not in ENGINE_TIMES}
+    assert got["mode"] == "engine" and got["requests"] == 3 and got["generated_tokens"] == 12
+    # chip_smoke.py's phase 16 holds the card's summary to this key set
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.ENGINE_SUMMARY_KEYS == set(want)
+    if "--obs" in extra:
+        from repro_torch.obs import events
+
+        assert sorted(os.listdir(obs_dir)) == ["events.jsonl", "metrics.prom", "summary.json"]
+        kinds = [e["kind"] for e in events.read_events(str(obs_dir / "events.jsonl"))]
+        assert kinds[0] == "run_start" and kinds[-1] == "serve_summary"
+        assert kinds.count("serve_request") == 3 and kinds.count("serve_summary") == 1
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "yi-34b"],
+                         ids=["granite-moe-1b-a400m-item 12", "yi-34b-item 12"])
+def test_unported_archs_raise(arch, capsys):
+    """Both archs serve at ``smoke()`` in fixed mode and in engine mode (the
+    moe and the dense family's paged pool). (The name is older than the
+    archs' port and kept, so the test's history stays one.)"""
     assert tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "1",
                         "--prompt-len", "8", "--gen", "2"]) == 0
-    with pytest.raises(NotImplementedError, match=match):
-        tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--mode", "engine"])
+    assert tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--mode", "engine",
+                        "--requests", "2", "--prompt-len", "16", "--gen", "3"]) == 0
+    got = _last_json(capsys.readouterr().out)
+    assert (got["mode"], got["requests"], got["generated_tokens"]) == ("engine", 2, 6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
