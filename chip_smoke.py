@@ -309,6 +309,31 @@ each kernel launching once per dtype group.
     ``cudaStreamSynchronize`` / ``cudaMemcpy*`` calls inside each of the
     engine's ranges (``serve.admit``, ``serve.decode``, ``serve.finish``):
     none inside ``serve.decode``.
+17. **The mesh's data axes** (``launch/mesh.py``, ``dist/sharding.py``,
+    the steps over a ``DeviceMesh``, ``moe.moe_ep``) at one rank. (d)
+    first, while this process holds least of the card's memory: ``python
+    -m repro_torch.launch.train --backend dist --mesh-shape 1,1
+    --grad-sync gmf_data --steps 4 --use-kernels`` on llama3.2-1b in a one-rank
+    ``torchrun``-style environment (``RANK`` 0, ``WORLD_SIZE`` 1,
+    ``MASTER_ADDR`` 127.0.0.1, a free ``MASTER_PORT``) exits 0 and prints
+    its mesh; ``--mesh-shape 2,1`` there exits nonzero with the reference's
+    message. Then one world of one rank from a ``file://`` store in
+    ``build/mesh`` (NCCL for the card's tensors, gloo for the CPU's), torn
+    down at the end: (a) gmf_data at mesh (1, 1) on llama3.2-1b at full
+    size with phase 14's settings (bf16, batch 8 × 256, lr 3e-3 cosine,
+    fused dgcwgmf at rate 0.1, seed 0), 4 steps, bitwise the mesh-less run
+    (params, opt, u/v/m, server state, ``gbar``, each step's loss and
+    counts), one ``gmf_select``, K1 mask pass and K2 a step, ms/step of both
+    runs; (b) dense at (1, 1) bitwise dense without a mesh, and gmf_pod at
+    (1, 1, 1) bitwise gmf_data at (1, 1), 2 steps each; (c)
+    granite-moe-1b-a400m at its widths, 12 of 24 layers, bf16, batch 4,
+    prompt 2048, 16 tokens through ``run_fixed`` over the (1, 1) mesh:
+    ``moe_ep`` once a layer of the prefill and of each decode step, K4 12
+    tensor-core launches a prefill, K1–K3 none, two runs bitwise, the
+    dropped (token, expert) assignments of a prefill counted, prefill_ms
+    and ms_per_step beside phase 13's dense dispatch (reported, not gated);
+    then phase 6's granite check (smoke widths, 2 layers, float32) through
+    ``moe_ep`` on both the card and the CPU, within 1e-4 relative L2.
 
 Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
 ran one block a segment; the ``kernels`` line holds only this run's
@@ -2617,42 +2642,48 @@ def family_card_vs_cpu_phase(rt, dev, tol=1e-4, steps=4, b=2, prompt=64):
     cases.append(("kimi D 112", dataclasses.replace(
         rt.configs.get_config("kimi-k2-1t-a32b"), num_layers=2, d_model=1024, d_ff=256,
         num_experts=16, vocab_size=4096, **f32)))
-    launches = 0
-    for label, cfg in cases:
-        params = {"cuda": rt.serve.init_params(cfg, 1, dev)}
-        params["cpu"] = rt.utils.tree_map(lambda x: x.cpu(), params["cuda"])
-        out = {}
-        rt.k4.reset_launches()
-        for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
-            batch = rt.serve.prompt_batch(cfg, 1, b, prompt, device)
-            prefill = rt.dstep.make_prefill_step(cfg, cache_len=prompt + steps)
-            out[name] = prefill(params[name], batch)
-        want = n_attn(cfg)
-        check(rt.k4.LAUNCHES["flash_attention"] == rt.k4.LAUNCHES["flash_attention_cc"] == want,
-              f"{label}: card prefill (float32) launched K4 {rt.k4.LAUNCHES}; expected {want} "
-              f"launches of the CUDA-core kernel")
-        launches += want
-        serve = rt.dstep.make_serve_step(cfg)
-        (lg, cache_g), (lc, cache_c) = out["cuda"], out["cpu"]
-        pos0 = rt.serve.first_decode_pos(cfg, prompt)
-        errs = []
-        for i in range(steps + 1):
-            lg, lc = lg.float().cpu(), lc.float()
-            rel = float((lg - lc).norm() / lc.norm())
-            errs.append(rel)
-            check(math.isfinite(rel) and rel <= tol,
-                  f"{label} card vs CPU: step {i} logits relative L2 {rel:.3e} > {tol}")
-            if i == steps:
-                break
-            tok = torch.argmax(lc, dim=-1)  # the CPU's greedy tokens feed both sides
-            pos = torch.tensor(pos0 + i)
-            _, lg, cache_g = serve(params["cuda"], cache_g, tok.to(dev), pos.to(dev))
-            _, lc, cache_c = serve(params["cpu"], cache_c, tok, pos)
-        print(f"  {label} ({cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
-              f"{cfg.head_dim}): {want} K4 launches; logits relative L2 prefill {errs[0]:.3e}, "
-              f"decode {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerance {tol})", flush=True)
-        del params, out, lg, lc, cache_g, cache_c
-    return launches
+    return sum(card_vs_cpu_case(rt, dev, label, cfg, tol, steps, b, prompt)
+               for label, cfg in cases)
+
+
+def card_vs_cpu_case(rt, dev, label, cfg, tol, steps, b, prompt, meshes=(None, None)):
+    """One config of ``family_card_vs_cpu_phase`` (the steps built over
+    ``meshes``, the card's and the CPU's, when given). Returns the card
+    prefill's K4 launches."""
+    params = {"cuda": rt.serve.init_params(cfg, 1, dev)}
+    params["cpu"] = rt.utils.tree_map(lambda x: x.cpu(), params["cuda"])
+    out = {}
+    rt.k4.reset_launches()
+    for (name, device), mesh in zip((("cuda", dev), ("cpu", torch.device("cpu"))), meshes,
+                                    strict=True):
+        batch = rt.serve.prompt_batch(cfg, 1, b, prompt, device)
+        prefill = rt.dstep.make_prefill_step(cfg, mesh, cache_len=prompt + steps)
+        out[name] = prefill(params[name], batch)
+    want = n_attn(cfg)
+    check(rt.k4.LAUNCHES["flash_attention"] == rt.k4.LAUNCHES["flash_attention_cc"] == want,
+          f"{label}: card prefill (float32) launched K4 {rt.k4.LAUNCHES}; expected {want} "
+          f"launches of the CUDA-core kernel")
+    serve = {name: rt.dstep.make_serve_step(cfg, mesh)
+             for name, mesh in zip(("cuda", "cpu"), meshes, strict=True)}
+    (lg, cache_g), (lc, cache_c) = out["cuda"], out["cpu"]
+    pos0 = rt.serve.first_decode_pos(cfg, prompt)
+    errs = []
+    for i in range(steps + 1):
+        lg, lc = lg.float().cpu(), lc.float()
+        rel = float((lg - lc).norm() / lc.norm())
+        errs.append(rel)
+        check(math.isfinite(rel) and rel <= tol,
+              f"{label} card vs CPU: step {i} logits relative L2 {rel:.3e} > {tol}")
+        if i == steps:
+            break
+        tok = torch.argmax(lc, dim=-1)  # the CPU's greedy tokens feed both sides
+        pos = torch.tensor(pos0 + i)
+        _, lg, cache_g = serve["cuda"](params["cuda"], cache_g, tok.to(dev), pos.to(dev))
+        _, lc, cache_c = serve["cpu"](params["cpu"], cache_c, tok, pos)
+    print(f"  {label} ({cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
+          f"{cfg.head_dim}): {want} K4 launches; logits relative L2 prefill {errs[0]:.3e}, "
+          f"decode {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerance {tol})", flush=True)
+    return want
 
 
 # Phase 13: (arch, depth run or None for the full depth, batch, prompt,
@@ -3655,6 +3686,293 @@ def engine_phase(rt, dev, card, profile=False):
     return codecs, k4
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the mesh's data axes over a one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+MESH_DIR = ROOT / "build" / "mesh"  # phase 17's store and metrics (ignored by git)
+MESH_STEPS = 4  # (a)'s steps; (b)'s runs take MESH_STEPS // 2
+GRANITE = "granite-moe-1b-a400m"
+
+
+def host_state(rt, state):
+    """A host copy of what a train step leaves (params, opt, compression
+    state, server state, broadcast), for a bitwise comparison."""
+    return [x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x
+            for x in rt.utils.tree_leaves((state.params, state.opt, state.cstate,
+                                           state.sstate, state.gbar))]
+
+
+def same_leaves(a, b, what):
+    check(len(a) == len(b), f"{what}: {len(a)} leaves vs {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        equal = torch.equal(x, y) if torch.is_tensor(x) else x == y
+        check(equal, f"{what}: leaf {i} differs")
+    return len(a)
+
+
+def mesh_train_run(rt, cfg, dev, sync, mesh, steps, snapshot_at=None):
+    """``make_train_step`` as ``launch/train.py:run_dist`` drives it:
+    llama3.2-1b's params from seed 0 on the card, the seeded stream (batch
+    8 × 256), lr 3e-3 cosine over 4 steps, dgcwgmf at rate 0.1 on the fused
+    path; over ``mesh`` each batch is cut to the rank's piece (the whole at
+    one rank). Launch counts reset before the run and read after it.
+    Returns (host state, per-step records, ms per step, launches by
+    instance, host state after step ``snapshot_at``)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.dist import sharding as shr
+    from repro_torch.models import transformer
+
+    tcfg = TrainConfig(learning_rate=3e-3, total_steps=MESH_STEPS, grad_sync=sync,
+                       lr_schedule="cosine", warmup_steps=max(1, MESH_STEPS // 20))
+    ccfg = rt.core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3, use_kernels=True)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = rt.dstep.init_train_state(cfg, tcfg, ccfg, params, mesh)
+    del params
+    step = rt.dstep.make_train_step(cfg, tcfg, ccfg, mesh)
+    b_sh = (shr.named_shardings(mesh, rt.dstep.step_batch_specs(cfg, tcfg, mesh))
+            if mesh is not None else None)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                               batch_size=TRAIN["batch"], seed=0,
+                               num_codebooks=cfg.num_codebooks, num_patches=cfg.num_patches,
+                               d_model=cfg.d_model)
+    rt.gk.reset_launches()
+    recs, ms, snap = [], [], None
+    for t, b in zip(range(steps), stream, strict=False):
+        batch = to_tensors(b, dev)
+        if b_sh is not None:
+            batch = shr.local_tree(batch, b_sh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        rec = {"loss": float(m["loss"])}
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if sync != "dense":
+            rec.update(upload_nnz=m["upload_nnz"].tolist(), download_nnz=int(m["download_nnz"]))
+        recs.append(rec)
+        if t == snapshot_at:
+            snap = host_state(rt, state)
+    torch.cuda.synchronize()
+    inst = dict(rt.gk.INSTANCES)
+    out = host_state(rt, state)
+    del state, step
+    torch.cuda.empty_cache()
+    return out, recs, ms, inst, snap
+
+
+def mesh_training(rt, dev, card, mesh2, mesh3):
+    """(a) gmf_data at (1, 1) bitwise the mesh-less run, 4 steps, ms/step of
+    both; (b) dense at (1, 1) bitwise dense without a mesh and gmf_pod at
+    (1, 1, 1) bitwise gmf_data at (1, 1), 2 steps each. Returns the mesh
+    runs' launches by instance."""
+    cfg = rt.configs.get_config(LLAMA)
+    fused = {("gmf_select", "bf16,bf16"): 1, ("gmf_compress", "bf16,bf16"): 1,
+             ("momentum_correction", "bf16,bf16->bf16"): 1}
+    less, less_recs, less_ms, less_inst, _ = mesh_train_run(rt, cfg, dev, "gmf_data", None,
+                                                            MESH_STEPS)
+    meshed, recs, ms, inst, two = mesh_train_run(rt, cfg, dev, "gmf_data", mesh2, MESH_STEPS,
+                                                 snapshot_at=MESH_STEPS // 2 - 1)
+    n = same_leaves(meshed, less, "(a) gmf_data at (1, 1) vs no mesh")
+    check(recs == less_recs, f"(a) records {recs} vs {less_recs}")
+    want = {k: MESH_STEPS * v for k, v in fused.items()}
+    check(inst == want == less_inst, f"(a) launches {inst} (no mesh {less_inst}), "
+                                     f"expected {want}")
+    print(f"  (a) gmf_data at mesh (1, 1) ({card}): {MESH_STEPS} steps bitwise the mesh-less "
+          f"run ({n} tensors; losses {[r['loss'] for r in recs]}, upload nnz "
+          f"{[r['upload_nnz'] for r in recs]}); ms/step after step 0: mesh "
+          f"{[round(x, 3) for x in ms[1:]]}, no mesh {[round(x, 3) for x in less_ms[1:]]}; "
+          f"launches {json.dumps({f'{k[0]}[{k[1]}]': v for k, v in inst.items()})}",
+          flush=True)
+    del less, meshed
+    half = MESH_STEPS // 2
+    d_less, d_recs_less, d_ms_less, d_inst, _ = mesh_train_run(rt, cfg, dev, "dense", None, half)
+    d_mesh, d_recs, d_ms, d_inst_mesh, _ = mesh_train_run(rt, cfg, dev, "dense", mesh2, half)
+    n = same_leaves(d_mesh, d_less, "(b) dense at (1, 1) vs no mesh")
+    check(d_recs == d_recs_less and not d_inst and not d_inst_mesh,
+          f"(b) dense: records {d_recs} vs {d_recs_less}; launches {d_inst_mesh}")
+    del d_less, d_mesh
+    pod, p_recs, p_ms, p_inst, _ = mesh_train_run(rt, cfg, dev, "gmf_pod", mesh3, half)
+    m = same_leaves(pod, two, "(b) gmf_pod at (1, 1, 1) vs gmf_data at (1, 1)")
+    check(p_recs == recs[:half], f"(b) gmf_pod records {p_recs} vs {recs[:half]}")
+    want = {k: half * v for k, v in fused.items()}
+    check(p_inst == want, f"(b) gmf_pod launches {p_inst}, expected {want}")
+    print(f"  (b) dense at (1, 1) ({card}): {half} steps bitwise dense without a mesh ({n} "
+          f"tensors), ms/step {[round(x, 3) for x in d_ms]} vs {[round(x, 3) for x in d_ms_less]}"
+          f"; gmf_pod at (1, 1, 1): {half} steps bitwise gmf_data at (1, 1) ({m} tensors), "
+          f"ms/step {[round(x, 3) for x in p_ms]}", flush=True)
+    del pod, two
+    torch.cuda.empty_cache()
+    return {k: inst.get(k, 0) + p_inst.get(k, 0) for k in set(inst) | set(p_inst)}
+
+
+def counting(module, name, sink, fn):
+    """``module.name`` wrapped to append ``fn(result)`` to ``sink``;
+    returns the original, to put back."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out = real(*a, **k)
+        sink.append(fn(out))
+        return out
+
+    setattr(module, name, wrapped)
+    return real
+
+
+def mesh_ep_serving(rt, dev, card, mesh2, cpu_mesh, served):
+    """(c) granite-moe-1b-a400m at its published widths, 12 of 24 layers
+    (phase 13's cut), bf16, batch 4, prompt 2048, 16 tokens, through
+    ``run_fixed`` over the (1, 1) mesh: every MoE layer of the prefill and
+    of each decode step runs ``moe_ep`` (its all-to-all body at one rank);
+    a warm-up run, the measured run and a second one bitwise equal to it;
+    K4 12 launches a prefill, K1–K3 none; the dropped (token, expert)
+    assignments counted in one more prefill; then card vs CPU at phase 6's
+    granite shape (smoke widths, 2 layers, float32) through EP on both
+    sides. Returns the measured run's tensor-core K4 launches."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(rt.configs.get_config(GRANITE), num_layers=12)
+    check(cfg.moe_impl == "ep", f"{GRANITE}: moe_impl {cfg.moe_impl}, expected ep")
+    args = rt.serve.parser().parse_args(["--arch", GRANITE, "--batch", "4", "--prompt-len",
+                                         "2048", "--gen", "16"])
+    params = rt.serve.init_params(cfg, args.seed, dev)
+    want = n_attn(cfg)
+    expect = {**NO_COMPRESSION, "flash_attention": want, "flash_attention_tc": want,
+              "flash_attention_cc": 0}
+    calls = []
+    real = counting(moe, "moe_ep", calls, lambda out: 1)
+    try:
+        runs = []
+        for label in ("warm-up", "measured", "again"):
+            rt.gk.reset_launches()
+            rt.k4.reset_launches()
+            calls.clear()
+            run = rt.serve.run_fixed(cfg, params, args, dev, mesh=mesh2)
+            torch.cuda.synchronize()
+            counts = {**rt.gk.LAUNCHES, **rt.k4.LAUNCHES}
+            check(counts == expect, f"(c) {label}: launches {counts}, expected {expect}")
+            ep = cfg.num_layers * args.gen  # the prefill's and 15 decode steps' layers
+            check(len(calls) == ep, f"(c) {label}: moe_ep ran {len(calls)} times, expected {ep}")
+            check(bool(torch.isfinite(run.last_logits).all()), f"(c) {label}: logits not finite")
+            runs.append(run)
+    finally:
+        moe.moe_ep = real
+    check(torch.equal(runs[1].tokens, runs[2].tokens)
+          and torch.equal(runs[1].last_logits, runs[2].last_logits),
+          "(c) two card runs through moe_ep differ")
+    dropped = []
+    real = counting(moe, "dispatch_local", dropped,
+                    lambda out: (out[3].numel(), out[3].numel() - out[3].sum()))
+    try:
+        prefill = rt.dstep.make_prefill_step(cfg, mesh2, cache_len=args.prompt_len + args.gen)
+        prefill(params, rt.serve.prompt_batch(cfg, args.seed, args.batch, args.prompt_len, dev))
+    finally:
+        moe.dispatch_local = real
+    total = sum(n for n, _ in dropped)
+    lost = int(sum(d for _, d in dropped))
+    summary = runs[1].summary
+    print(f"  (c) {GRANITE} through moe_ep at mesh (1, 1) ({card}, {cfg.num_layers} of 24 "
+          f"layers): prefill_ms {summary['prefill_ms']}, ms_per_step {summary['ms_per_step']}, "
+          f"tokens_per_s {summary['tokens_per_s']} (phase 13's dense dispatch: prefill_ms "
+          f"{served.get(GRANITE, {}).get('prefill_ms')}, ms_per_step "
+          f"{served.get(GRANITE, {}).get('ms_per_step')}); capacity "
+          f"{moe.capacity_per_expert(args.batch * args.prompt_len, cfg)} a layer; dropped "
+          f"{lost} of {total} (token, expert) assignments in a prefill; K4 {want} a prefill; two "
+          f"runs bitwise", flush=True)
+    del params, runs
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(rt.configs.get_smoke(GRANITE), num_layers=2, dtype="float32",
+                                param_dtype="float32", moe_impl="ep")
+    card_vs_cpu_case(rt, dev, "(c) granite-moe through moe_ep", small, 1e-4, 4, 2, 64,
+                     meshes=(mesh2, cpu_mesh))
+    return want
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_entry_point(card):
+    """(d) ``python -m repro_torch.launch.train`` in a one-rank ``torchrun``-
+    style environment: ``--mesh-shape 1,1`` gmf_data on llama3.2-1b (4
+    steps, ``--use-kernels``: phase 14's fused path; the staged path's
+    float32 state does not fit the card at this size) exits 0 and prints
+    its mesh; ``--mesh-shape 2,1`` exits nonzero with the reference's
+    message."""
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--backend", "dist", "--arch",
+            LLAMA, "--grad-sync", "gmf_data", "--steps", "4", "--log-every", "1",
+            "--use-kernels"]
+    out = {}
+    for shape, ok in (("1,1", True), ("2,1", False)):
+        env = dict(os.environ, PYTHONPATH=str(SRC), RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        extra = ["--metrics-out", str(MESH_DIR / "entry.json")] if ok else []
+        proc = subprocess.run([*base, "--mesh-shape", shape, *extra], env=env, cwd=ROOT,
+                              capture_output=True, text=True, timeout=300, check=False)
+        wall = time.perf_counter() - t0
+        if ok:
+            check(proc.returncode == 0 and "mesh={'data': 1, 'model': 1}" in proc.stdout,
+                  f"(d) --mesh-shape 1,1 exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                  f"{proc.stderr[-3000:]}")
+            hist = json.loads((MESH_DIR / "entry.json").read_text())
+            out[shape] = [round(h["step_ms"], 3) for h in hist]
+            print(f"  (d) launch.train --mesh-shape 1,1 ({card}): exit 0 in {wall:.1f} s; "
+                  f"{[ln for ln in proc.stdout.splitlines() if 'mesh=' in ln][0]}; step ms "
+                  f"{out[shape]} (step 0 first use)", flush=True)
+        else:
+            msg = "Number of devices 1 must be >= the product of mesh_shape (2, 1)"
+            check(proc.returncode != 0 and msg in proc.stderr,
+                  f"(d) --mesh-shape 2,1 on one rank exited {proc.returncode}:\n"
+                  f"{proc.stderr[-3000:]}")
+            print(f"  (d) --mesh-shape 2,1 on one rank: exit {proc.returncode} with the "
+                  f"reference's message ({msg!r}) in {wall:.1f} s", flush=True)
+    return out
+
+
+def mesh_phase(rt, dev, card, served):
+    """Phase 17: (d) first, while this process holds the least of the
+    card's memory (the entry point trains full llama3.2-1b in a process of
+    its own); then one world of one rank (NCCL for the card's tensors, gloo
+    for the CPU's, from a ``file://`` store in ``build/mesh``), (a)–(c)
+    over meshes of it, torn down at the end. Returns (the mesh training
+    runs' launches by instance, the EP serving run's tensor-core K4
+    launches)."""
+    import gc
+
+    from repro_torch.launch.mesh import make_mesh
+
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"  this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB; "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card", flush=True)
+    mesh_entry_point(card)
+    store = MESH_DIR / "store"
+    store.unlink(missing_ok=True)
+    torch.distributed.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                                         rank=0, world_size=1)
+    try:
+        mesh2 = make_mesh((1, 1), ("data", "model"))
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        cpu_mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        check(torch.distributed.get_backend(mesh2.get_group("data")) in ("nccl",
+                                                                         "cpu:gloo,cuda:nccl"),
+              f"the card's mesh runs {torch.distributed.get_backend(mesh2.get_group('data'))}")
+        inst = mesh_training(rt, dev, card, mesh2, mesh3)
+        k4 = mesh_ep_serving(rt, dev, card, mesh2, cpu_mesh, served)
+    finally:
+        torch.distributed.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return inst, k4
+
+
 T_START = time.perf_counter()
 
 
@@ -3853,6 +4171,14 @@ def main() -> None:
         phase("phase 16: serving llama3.2-1b through the continuous-batching engine (paged KV "
               "pool, 4 slots, page 16, 130 pages a slot), 8 requests, the four codecs")
         _, k4_tc_by_path["serve_engine"] = engine_phase(rt, dev, card, args.profile)
+        phase("phase 17: the mesh's data axes over a one-rank NCCL world: llama3.2-1b "
+              "gmf_data, dense and gmf_pod bitwise the mesh-less steps, granite-moe through "
+              "moe_ep, launch.train --mesh-shape")
+        t17 = time.perf_counter()
+        mesh_inst, k4_tc_by_path["mesh_ep_serve"] = mesh_phase(rt, dev, card, served)
+        by_path["llama_mesh"] = f32_launches(mesh_inst)
+        bf16_by_path["llama_mesh"] = mesh_inst
+        print(f"  phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
         launches["flash_attention_tc"] = sum(k4_tc_by_path.values())
         for counts in by_path.values():
             for name, n in counts.items():
@@ -3900,7 +4226,8 @@ def main() -> None:
     # are those of phase 6's float32 prefill.
     for kern, source, run in (("tc", K4_TC_SOURCE, "phase 5: bf16 serving, run_fixed; phase "
                                                     "16: the engine's float32-codec run, a "
-                                                    "prefill per request"),
+                                                    "prefill per request; phase 17: "
+                                                    "granite-moe's run_fixed through moe_ep"),
                               ("cc", K4_SOURCE, "phase 6: float32 prefills of llama3.2-1b, "
                                                  "the families and kimi-k2's D 112")):
         rows.append({"name": f"flash_attention_{kern}", "id": "K4", "route": "cuda",

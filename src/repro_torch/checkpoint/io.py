@@ -64,11 +64,12 @@ def save(path: str, tree, *, step: int = 0, meta: dict | None = None):
 
 
 def restore(path: str, like, *, shardings=None):
-    """Restore into the structure of ``like`` (a template tree), each leaf
-    in the template leaf's dtype, on its device."""
-    if shardings is not None:
-        raise NotImplementedError("sharded restores need the mesh: ROADMAP Queue 1 item 11 "
-                                  "part B")
+    """Restore into the structure of ``like`` (a template tree of the whole
+    leaves), each leaf in the template leaf's dtype, on its device. With
+    ``shardings`` (a tree of ``dist.sharding.NamedSharding`` mirroring
+    ``like``) each leaf comes back as this rank's local piece under its
+    placements, the counterpart of the reference's ``jax.device_put(tree,
+    shardings)``."""
     data = np.load(path + ".npz")
     leaves = []
     for p, leaf in _paths(like):
@@ -83,7 +84,12 @@ def restore(path: str, like, *, shardings=None):
         else:
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(leaf.dtype)
         leaves.append(t.to(leaf.device))
-    return tree_unflatten(like, leaves)
+    tree = tree_unflatten(like, leaves)
+    if shardings is not None:
+        from repro_torch.dist.sharding import local_tree
+
+        tree = local_tree(tree, shardings)
+    return tree
 
 
 def load_meta(path: str) -> dict:

@@ -1,9 +1,13 @@
-"""The reference's ``repro.dist`` on one device: the train step (dense and
-the GMF grad-sync modes at one shard) and the prefill/decode steps.
-The sharding half (``sharding``, ``train_state_specs``) needs the mesh:
-ROADMAP Queue 1 item 11 part B."""
+"""The reference's ``repro.dist``: the train step (dense and the GMF
+grad-sync modes), the prefill/decode steps and the train-state plumbing,
+on one device or over a mesh whose ``model`` axis is 1.
 
-from repro_torch.dist import step
+``sharding`` — partition specs (params, batches, caches, pools) and the
+               local pieces of a tree laid over a mesh.
+``step``     — train/prefill/serve step builders + train-state plumbing.
+"""
+
+from repro_torch.dist import sharding, step
 from repro_torch.dist.step import (
     GRAD_SYNC_MODES,
     TrainState,
@@ -13,9 +17,11 @@ from repro_torch.dist.step import (
     make_serve_step,
     make_train_step,
     needs_fsdp,
+    train_state_specs,
 )
 
 __all__ = [
+    "sharding",
     "step",
     "GRAD_SYNC_MODES",
     "TrainState",
@@ -25,4 +31,5 @@ __all__ = [
     "make_serve_step",
     "make_train_step",
     "needs_fsdp",
+    "train_state_specs",
 ]

@@ -1,19 +1,40 @@
 """Train, prefill and decode steps: the port of the reference's
-``dist/step.py`` on one device.
+``dist/step.py``, on one device or over a mesh (``launch/mesh.py``) whose
+``model`` axis is 1.
 
-The reference builds these for an SPMD mesh; the port runs them on the
-device the params lie on, as the reference runs them without one (its
-single-device path: ``_num_shards`` is 1 when there is no mesh). A mesh
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 11 part B ports it).
+Without a mesh the steps run on the device the params lie on, as the
+reference runs them without one (``_num_shards`` is 1). Over a mesh every
+rank runs the same step on plain local tensors, its pieces of the state
+and batch (``dist/sharding.py``), and the collectives are
+``torch.distributed`` calls over the mesh's axis groups:
 
-Training (``make_train_step``): ``dense`` is plain SGD on the batch's
-gradient; ``gmf_data`` and ``gmf_pod`` make the whole device one GMF
-client (n = 1) whose gradient runs through ``Scheme.client_compress`` and
-``server_aggregate`` with its own flat compression state, as the FL
-engines do (``TrainState.cstate`` is a ``[1, N]`` stack per field, a
-tuple of them for a tree of mixed dtypes). With n = 1 there is nothing to
-``vmap`` over, so the gradient is plain autograd (``torch.autograd.grad``),
-which is what lets the model honour ``remat`` here. The state keeps the
+- ``dense``: each rank takes the gradient of its share of the global
+  batch's loss (its NLL over the valid-label count all-reduced over the
+  data axes, its share of the router aux) and the gradients are summed
+  over ``data`` and ``pod``: the gradient of the global loss.
+- ``gmf_data``: each ``data`` rank is one GMF client (the reference's vmap
+  row): it runs ``Scheme.client_compress`` on its own ``[1, N]`` row, the
+  payloads are summed with one ``all_reduce`` over ``data``, and
+  ``server_aggregate`` and the update run replicated.
+- ``gmf_pod``: a pod's gradient is the sum over its ``data`` ranks of their
+  shares of the pod's loss; every data rank of the pod then runs the same
+  ``client_compress`` on the same row, and the payloads are summed over
+  ``pod``.
+
+The metrics follow the reference: ``loss`` is the mean over shards (the
+global loss under dense sync), ``upload_nnz`` the exact int64 ``[n]``
+vector gathered in shard order. As in the reference, the expert-parallel
+MoE (``moe_ep``) runs only under dense sync and in serving; the gmf modes
+run ``moe_dense``. A mesh whose ``model`` axis is larger than 1 raises
+``NotImplementedError`` (tensor parallelism, and FSDP over ``data`` for
+the >40 B archs: ROADMAP Queue 1 item 11 part C).
+
+Training: the gmf modes make each shard one GMF client whose gradient runs
+through ``Scheme.client_compress`` and ``server_aggregate`` with its own
+flat compression state, as the FL engines do (``TrainState.cstate`` is
+the rank's ``[1, N]`` row per field, a tuple of them for a tree of mixed
+dtypes). The gradient is plain autograd (``torch.autograd.grad``), which
+is what lets the model honour ``remat`` here. The state keeps the
 reference's dtypes: it starts in the params' dtype and promotes as jnp
 promotes it; the params step in float32 and keep their dtype.
 
@@ -25,7 +46,8 @@ FL engines' names (``round.client_grads``, ``round.client_compress``,
 Serving: the fixed-batch prefill and decode steps, and the paged ones of
 the continuous-batching engine (``serve/engine.py``), run under
 ``torch.no_grad``; the decode steps and the paged prefill write into the
-cache or pool they are given.
+cache or pool they are given. Over a mesh they take the rank's batch and
+cache (whole at model axis 1) and carry the EP keys in their ctx.
 """
 
 from __future__ import annotations
@@ -35,13 +57,18 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
 from repro_torch.core import resolve
 from repro_torch.core.state import ClientState, ServerState
+from repro_torch.dist import sharding as shr
+from repro_torch.launch.mesh import axis_size, mesh_axes
 from repro_torch.models import transformer
 from repro_torch.obs import trace
 from repro_torch.optim import sgd
+from repro_torch.utils import collectives as col
 from repro_torch.utils import scalar, tree_leaves, tree_map, tree_size, tree_unflatten
-from repro_torch.utils.flat import FlatLayout
+from repro_torch.utils.flat import FlatLayout, GroupedLayout
 
 GRAD_SYNC_MODES = ("dense", "gmf_data", "gmf_pod")
 
@@ -57,16 +84,26 @@ def needs_fsdp(cfg) -> bool:
 class TrainState(NamedTuple):
     params: Any
     opt: Any          # optimiser slots (SGDState)
-    cstate: Any       # compression state, [n, N] stacks (n = 1 without a mesh)
+    cstate: Any       # compression state: this rank's [1, N] row of each [n, N] stack
     sstate: Any       # server-side state (momentum for dgcwgm, downlink residual)
     gbar: Any         # last broadcast Ĝ, flat (feeds the global momentum M)
     step: int
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("meshes need the dist runtime's sharded half, which is not "
-                                  "ported yet: ROADMAP Queue 1 item 11 part B")
+def _check_mesh(cfg, mesh) -> None:
+    """Refuse what needs the model axis: a ``model`` axis > 1 (tensor
+    parallelism) and, for the >40 B archs, a ``data`` axis > 1 (FSDP)."""
+    if mesh is None:
+        return
+    m = axis_size(mesh, shr.MODEL_AXIS)
+    if m > 1:
+        raise NotImplementedError(
+            f"a mesh whose model axis is {m} needs tensor parallelism, which is not ported "
+            "yet: ROADMAP Queue 1 item 11 part C")
+    if cfg is not None and needs_fsdp(cfg) and axis_size(mesh, "data") > 1:
+        raise NotImplementedError(
+            f"{cfg.name} shards its params over data (FSDP) on a data axis of "
+            f"{axis_size(mesh, 'data')}, which is not ported yet: ROADMAP Queue 1 item 11 part C")
 
 
 def _sync_axis(grad_sync: str) -> str | None:
@@ -80,11 +117,59 @@ def _sync_axis(grad_sync: str) -> str | None:
 
 
 def _num_shards(grad_sync: str, mesh) -> int:
-    """GMF clients of a step: 1 without a mesh (the reference's
-    single-device path), and for dense sync."""
-    _sync_axis(grad_sync)
-    _no_mesh(mesh)
-    return 1
+    """GMF clients of a step: the sync axis's size; 1 without a mesh (the
+    reference's single-device path) and for dense sync."""
+    axis = _sync_axis(grad_sync)
+    if axis is None or mesh is None:
+        return 1
+    if axis not in mesh_axes(mesh):
+        raise ValueError(f"grad_sync={grad_sync!r} needs a {axis!r} mesh axis "
+                         f"(got axes {mesh_axes(mesh)})")
+    return axis_size(mesh, axis)
+
+
+def _groups(mesh, axes) -> list:
+    """The process groups of the mesh's ``axes`` that it has, in order."""
+    return [mesh.get_group(a) for a in axes if a in mesh_axes(mesh)]
+
+
+def _step_groups(sync: str, mesh):
+    """(loss groups, sync group): the groups whose ranks share one loss
+    (their batch rows make it), innermost first, and the group the
+    payloads are summed over."""
+    if mesh is None:
+        return [], None
+    if sync == "dense":
+        return _groups(mesh, ("data", "pod")), None
+    if sync == "gmf_data":
+        return [], mesh.get_group("data")
+    return _groups(mesh, ("data",)), mesh.get_group("pod")
+
+
+def sync_group(grad_sync: str, mesh):
+    """The process group a step sums its payloads over (``data`` for
+    ``gmf_data``, ``pod`` for ``gmf_pod``); None without a mesh or under
+    dense sync."""
+    return _step_groups(grad_sync, mesh)[1]
+
+
+def _psum_(x, groups):
+    """``x`` summed over the ranks of each group in place (no gradient)."""
+    x = x.contiguous()
+    for g in groups:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+    return x
+
+
+def step_batch_specs(cfg, tcfg, mesh) -> dict:
+    """How a train step's batch lies over ``mesh``: the reference's
+    ``train_batch_specs`` (rows over the data axes, pod outermost), but for
+    ``gmf_data``, whose shard c takes rows c·B/n..(c+1)·B/n over ``data``
+    alone (a pod axis, if any, repeats the step)."""
+    specs = shr.train_batch_specs(cfg, mesh)
+    if tcfg.grad_sync != "gmf_data":
+        return specs
+    return {k: shr.P("data", *tuple(s)[1:]) for k, s in specs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +183,23 @@ def make_loss_fn(cfg, mesh=None):
     Positions with label < 0 (VLM patch slots) are excluded from the mean,
     in float32. ``aux`` is the router load-balance loss (0 outside MoE),
     already folded into ``loss`` with ``cfg.router_aux_coef``. The forward
-    runs under ``_model_ctx`` (the hybrid's attention window, R10)."""
-    ctx = _model_ctx(cfg, mesh)
+    runs under ``_model_ctx`` (the hybrid's attention window, R10; the EP
+    keys over a mesh)."""
+    return _share_loss_fn(cfg, _model_ctx(cfg, mesh), [])
+
+
+def _share_loss_fn(cfg, ctx, groups):
+    """This rank's share of the loss of a batch laid over ``groups``: its
+    NLL over the valid-label count summed over the groups, and its share of
+    the router aux (the groups' density and this rank's mean probability
+    under dense dispatch; 1/n of the groups' mean under EP). The ranks'
+    shares add up to the reference's loss of the whole batch."""
+    n = 1
+    for g in groups:
+        n *= col.size(g)
+    if groups:
+        ctx = dict(ctx, token_groups=tuple(groups))
+    ep = ctx.get("moe_impl") == "ep"
 
     def loss_fn(params, batch):
         logits, aux, _ = transformer.forward(cfg, params, batch, ctx=ctx)
@@ -108,22 +208,30 @@ def make_loss_fn(cfg, mesh=None):
         safe = torch.clamp(labels, min=0)
         nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
         valid = (labels >= 0).float()
-        loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+        count = torch.sum(valid)
+        for g in groups:
+            count = col.sum_over(count, g)
+        loss = torch.sum(nll * valid) / torch.clamp(count, min=1.0)
+        if ep and n > 1:
+            aux = aux / n
         return loss + cfg.router_aux_coef * aux, aux
 
     return loss_fn
 
 
 def _model_ctx(cfg, mesh, **extra) -> dict:
-    """Forward-pass ctx: the hybrid family's attention window, as the
-    reference sets it. The reference's also carries the mesh plumbing for
-    the expert-parallel MoE, which is not ported."""
-    _no_mesh(mesh)
+    """Forward-pass ctx: the hybrid family's attention window, and over a
+    mesh the plumbing of the expert-parallel MoE, as the reference sets
+    them."""
+    _check_mesh(cfg, mesh)
     ctx = dict(extra)
     if cfg.family == "hybrid":
         # ring caches + masks sized to the local-attention window, matching
         # transformer.init_block_cache
         ctx["window"] = cfg.local_attn_window
+    if mesh is not None and cfg.num_experts > 0 and cfg.moe_impl == "ep":
+        ctx.update(mesh=mesh, data_axes=shr.dp_axes(mesh), model_axis=shr.MODEL_AXIS,
+                   moe_impl="ep", fsdp_moe=needs_fsdp(cfg))
     return ctx
 
 
@@ -133,11 +241,15 @@ def _model_ctx(cfg, mesh, **extra) -> dict:
 
 
 def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
-    """The reference's initial state: SGD slots, and for the gmf modes the
-    scheme's zero client state as ``[n, N]`` stacks in the params' dtypes,
-    its server state and a zero ``gbar`` (``{}`` unless the scheme keeps
-    the global momentum)."""
-    n = _num_shards(tcfg.grad_sync, mesh)
+    """The reference's initial state, as this rank's local piece: SGD
+    slots, and for the gmf modes the scheme's zero client state as the
+    rank's ``[1, N]`` row of each stack (its data-axis row under
+    ``gmf_data``, its pod's under ``gmf_pod``) in the params' dtypes, its
+    server state and a zero ``gbar`` (``{}`` unless the scheme keeps the
+    global momentum). Params, opt slots, ``gbar`` and the server state are
+    replicated: every rank passes the same params."""
+    _num_shards(tcfg.grad_sync, mesh)
+    _check_mesh(cfg, mesh)
     opt = sgd.init(params, momentum=tcfg.momentum)
     if tcfg.grad_sync == "dense":
         cstate: Any = ClientState(u={}, v={}, m={})
@@ -146,10 +258,47 @@ def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
     else:
         scheme = resolve(ccfg)
         client, sstate = scheme.init_states(params)
-        cstate = tree_map(lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape)).contiguous(),
-                          client)
+        cstate = tree_map(lambda x: x.unsqueeze(0).contiguous(), client)
         gbar = FlatLayout.of(params).zeros() if scheme.uses_m else {}
     return TrainState(params=params, opt=opt, cstate=cstate, sstate=sstate, gbar=gbar, step=0)
+
+
+def train_state_specs(cfg, tcfg, ccfg, params, mesh) -> TrainState:
+    """Spec tree mirroring ``init_train_state``: per-leaf specs for the
+    params, the opt slots, ``gbar`` and the server state, the reference's
+    (``gbar`` and the server state are held flat, replicated: at model axis
+    1 these specs name no axis of size > 1 but FSDP's); ``P(axis)`` for each
+    flat ``[n, N]`` compression stack (a tuple of them for a tree of mixed
+    dtypes)."""
+    pspec = shr.param_specs(params, fsdp=needs_fsdp(cfg), mesh=mesh)
+    axis = _sync_axis(tcfg.grad_sync)
+    if tcfg.grad_sync == "dense":
+        cstate: Any = ClientState(u={}, v={}, m={})
+        gbar: Any = {}
+        srv_spec: Any = {}
+        res_spec: Any = {}
+    else:
+        scheme = resolve(ccfg)
+        layout = FlatLayout.of(params)
+        stack = (tuple(shr.P(axis) for _ in layout.groups)
+                 if isinstance(layout, GroupedLayout) else shr.P(axis))
+        cstate = ClientState(u=stack if scheme.uses_u else {},
+                             v=stack if scheme.uses_v else {},
+                             m=stack if scheme.uses_m else {})
+        gbar = pspec if scheme.uses_m else {}
+        if scheme.is_sketch:
+            srv_spec = {"s_mom": shr.P(), "s_err": shr.P()}  # small, replicated
+        else:
+            srv_spec = pspec if scheme.server_momentum else {}
+        res_spec = pspec if scheme.downlink_residual else {}
+    return TrainState(
+        params=pspec,
+        opt=sgd.SGDState(momentum=pspec if tcfg.momentum > 0 else {}),
+        cstate=cstate,
+        sstate=ServerState(momentum=srv_spec, residual=res_spec),
+        gbar=gbar,
+        step=shr.P(),
+    )
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -164,13 +313,20 @@ def _value_and_grad(loss_fn, params, batch):
 
 def make_train_step(cfg, tcfg, ccfg, mesh=None):
     """Build ``step(state, batch) -> (state, metrics)`` for one grad-sync
-    mode. Metrics: loss, upload_nnz (exact int64 per-shard vector ``[n]``),
-    download_nnz (the post-downlink broadcast — the sparse union when the
-    scheme has no downlink stage), total_params — the exact wire accounting
-    the launcher turns into MB (``core.accounting.CostModel``)."""
+    mode; over ``mesh`` it takes this rank's local state and batch
+    (``step_batch_specs``) and every rank calls it. Metrics: loss,
+    upload_nnz (exact int64 per-shard vector ``[n]``), download_nnz (the
+    post-downlink broadcast — the sparse union when the scheme has no
+    downlink stage), total_params — the exact wire accounting the launcher
+    turns into MB (``core.accounting.CostModel``)."""
     sync = tcfg.grad_sync
     n = _num_shards(sync, mesh)
-    loss_fn = make_loss_fn(cfg, mesh)
+    _check_mesh(cfg, mesh)
+    loss_groups, sync_group = _step_groups(sync, mesh)
+    # the compressed modes run dense experts, as the reference's vmap over
+    # shards does; EP only under dense sync
+    loss_fn = _share_loss_fn(cfg, _model_ctx(cfg, mesh if sync == "dense" else None),
+                             loss_groups)
 
     def _apply(params, opt, update, step):
         lr = sgd.lr_at(step, tcfg)
@@ -182,6 +338,9 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
         def step_fn(state: TrainState, batch):
             with trace.annotate_scope("round.client_grads"):
                 (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
+                if loss_groups:  # the ranks' shares add up to the global loss
+                    grads = tree_map(lambda g: _psum_(g, loss_groups), grads)
+                    loss = _psum_(loss, loss_groups)
             with torch.no_grad(), trace.annotate_scope("round.apply_update"):
                 params, opt = _apply(state.params, state.opt, grads, state.step)
             total = torch.tensor(tree_size(state.params), dtype=torch.int64)
@@ -205,15 +364,20 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
             (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
         with torch.no_grad():
             with trace.annotate_scope("round.client_compress"):
-                # the n = 1 client stack: [1, N] per dtype group
+                # this shard's [1, N] row per dtype group
                 flat = layout.flatten(tree_map(lambda g: g.unsqueeze(0), grads))
                 del grads
+                if loss_groups:  # gmf_pod: the pod's gradient and loss
+                    flat = tree_map(lambda g: _psum_(g, loss_groups), flat)
+                    loss = _psum_(loss, loss_groups)
                 G, cstate, infos = scheme.client_compress(state.cstate, flat, state.gbar,
                                                           state.step, layout=layout)
                 del flat
             with trace.annotate_scope("round.server_aggregate"):
                 g_sum = tree_map(lambda x: torch.sum(x, dim=0), G)
                 del G
+                if sync_group is not None:  # the one cross-shard collective
+                    g_sum = tree_map(lambda x: _psum_(x, [sync_group]), g_sum)
                 lr = sgd.lr_at(state.step, tcfg)
                 gbar, sstate, ainfo = scheme.server_aggregate(state.sstate, g_sum, float(n),
                                                               layout=layout, lr=lr)
@@ -228,7 +392,11 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                 else:
                     params, opt = _apply(state.params, state.opt, update, state.step)
         new_gbar = gbar if scheme.uses_m else state.gbar
-        metrics = {"loss": loss, "upload_nnz": infos.upload_nnz,
+        upload_nnz = infos.upload_nnz
+        if sync_group is not None:  # the mean over shards; the counts in shard order
+            loss = _psum_(loss, [sync_group]) / n
+            upload_nnz = col.gather_cat(upload_nnz, sync_group, 0)
+        metrics = {"loss": loss, "upload_nnz": upload_nnz,
                    "download_nnz": ainfo.download_nnz,
                    "total_params": torch.tensor(ainfo.total_params, dtype=torch.int64)}
         return TrainState(params=params, opt=opt, cstate=cstate, sstate=sstate, gbar=new_gbar,

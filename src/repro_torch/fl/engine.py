@@ -208,15 +208,19 @@ def check_group_backend(backend: str, device_type: str) -> None:
 
 class ClientShards:
     """This rank's contiguous slice of the sampled cohort over a process
-    group (the default one unless ``group`` is given), and the collectives
-    that put the slices back together."""
+    group (the default one unless ``group`` is given; a 1-D client mesh
+    gives its group, as the reference's engine takes the mesh), and the
+    collectives that put the slices back together."""
 
     def __init__(self, fl_cfg, sampled_per_round: int, device, group=None):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(
                 "the shard backend needs an initialised torch.distributed process group: "
                 "call torch.distributed.init_process_group(...) on every rank first")
-        self.group = group if group is not None else dist.group.WORLD
+        group = group if group is not None else dist.group.WORLD
+        if hasattr(group, "get_group"):  # a client mesh (launch.mesh.make_client_mesh)
+            group = group.get_group()
+        self.group = group
         self.world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         shards = getattr(fl_cfg, "shards", 0)

@@ -107,7 +107,8 @@ class FLSimulator:
     ``init_fn(generator)`` returns the initial params; the generator is a
     CPU ``torch.Generator`` seeded with ``fl_cfg.seed``. Everything runs on
     ``device`` (default ``cuda``, which must exist). ``group`` is the
-    shard backend's process group (default: the default group)."""
+    shard backend's process group (default: the default group), or a
+    client mesh (``launch.mesh.make_client_mesh``) whose group it takes."""
 
     def __init__(
         self,

@@ -112,13 +112,15 @@ def decode(serve, params, cache, tok, pos, steps: int):
     return generated, cache
 
 
-def run_fixed(cfg, params, args, device) -> FixedRun:
-    """Fixed-batch prefill + decode on ``device`` (where ``params`` lie)."""
+def run_fixed(cfg, params, args, device, mesh=None) -> FixedRun:
+    """Fixed-batch prefill + decode on ``device`` (where ``params`` lie);
+    over ``mesh`` (a one-rank mesh whose model axis is 1) the steps carry
+    the mesh, so an MoE config runs the expert-parallel MoE."""
     b = args.batch
     cache_len = args.cache_len or (args.prompt_len + args.gen)
     batch = prompt_batch(cfg, args.seed, b, args.prompt_len, device)
-    prefill = dstep.make_prefill_step(cfg, cache_len=cache_len)
-    serve = dstep.make_serve_step(cfg)
+    prefill = dstep.make_prefill_step(cfg, mesh, cache_len=cache_len)
+    serve = dstep.make_serve_step(cfg, mesh)
 
     _sync(device)
     t0 = time.perf_counter()

@@ -1,11 +1,12 @@
-"""Training entry point: the port of the reference's ``launch/train.py`` on one
-device, with its flags and its exit code (0 if the loss improved, 2 if
-not).
+"""Training entry point: the port of the reference's ``launch/train.py``,
+with its flags and its exit code (0 if the loss improved, 2 if not).
 
     python -m repro_torch.launch.train --arch llama3.2-1b --steps 4 \
         --batch 8 --seq-len 256 --grad-sync gmf_data       # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --smoke --device cpu --steps 12 --batch 8 --seq-len 64
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train --arch llama3.2-1b \
+        --mesh-shape 1,1 --grad-sync gmf_data --steps 4    # over a mesh
 
 ``--backend dist`` (the default) runs ``dist.step.make_train_step``: dense
 data parallelism, or one GMF client (``--grad-sync gmf_data``) whose
@@ -19,10 +20,20 @@ buffered engine (``--buffer-size``, ``--delay-model``, ``--dropout``,
 
 Everything runs on ``--device`` (default ``cuda``; ``--device cpu`` must
 be asked for, as ``--smoke`` runs do on a machine without a card). The
-model is randomly initialised from ``--seed`` on that device. A mesh
-(``--mesh-shape``) raises: the sharded runtime is ROADMAP Queue 1 item 11
-part B. The per-step record (``--metrics-out``) keeps the reference's keys
-and adds the per-shard ``upload_nnz`` and the ``download_nnz``.
+model is randomly initialised from ``--seed`` on that device. The per-step
+record (``--metrics-out``) keeps the reference's keys and adds the
+per-shard ``upload_nnz`` and the ``download_nnz``.
+
+A process started by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in its environment) joins
+that world (NCCL on ``cuda``, gloo on ``cpu``; rank r takes ``cuda:r``)
+and ``--backend dist`` trains over a mesh: ``--mesh-shape`` with the
+reference's axes (``("pod", "data", "model")[-len(shape):]``), else (n, 1)
+for n ranks (the reference's (n // 2, 2) for an even n needs the model
+axis: ROADMAP Queue 1 item 11 part C, as does any model axis > 1). Rank 0
+prints, writes ``--metrics-out``, the checkpoint (the params gathered) and
+the telemetry; every rank returns the same exit code. A single process
+with no world trains on its one device, without a mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 import repro_torch.obs as obs
@@ -43,7 +55,9 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import SCHEMES, CompressionConfig, CostModel, resolve
 from repro_torch.core.stages import get_stage
 from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+from repro_torch.dist import sharding as shr
 from repro_torch.dist import step as dstep
+from repro_torch.launch.mesh import make_mesh, mesh_axes
 from repro_torch.models import transformer
 from repro_torch.topo import TOPOLOGIES
 from repro_torch.utils import resolve_device, tree_size
@@ -76,13 +90,41 @@ def parse_stage_overrides(spec: str) -> dict:
     return out
 
 
-def build_mesh(args):
-    """None: the one device. Any ``--mesh-shape`` raises (item 11 part B)."""
-    if args.mesh_shape:
-        raise NotImplementedError(f"--mesh-shape {args.mesh_shape} needs the sharded dist "
-                                  f"runtime, which is not ported yet: ROADMAP Queue 1 item 11 "
-                                  f"part B")
-    return None
+def build_mesh(args, device_type: str = "cuda"):
+    """None without a world (the one device). In a world of n ranks:
+    ``--mesh-shape``'s mesh, with the reference's axes, else (n, 1). A
+    model axis > 1 raises (ROADMAP Queue 1 item 11 part C)."""
+    shape = tuple(int(x) for x in args.mesh_shape.split(",")) if args.mesh_shape else None
+    if shape is not None and len(shape) >= 2 and shape[-1] > 1:
+        raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: a model axis of {shape[-1]} "
+                                  f"needs tensor parallelism, which is not ported yet: ROADMAP "
+                                  f"Queue 1 item 11 part C")
+    if not dist.is_initialized():
+        if shape is not None:
+            raise SystemExit("--mesh-shape needs a torch.distributed world: start one process "
+                             "per rank (torchrun --nproc-per-node N -m repro_torch.launch.train)")
+        return None
+    if shape is None:
+        return make_mesh((dist.get_world_size(), 1), ("data", "model"), device_type)
+    return make_mesh(shape, ("pod", "data", "model")[-len(shape):], device_type)
+
+
+def join_world(device: str):
+    """Join the world ``torchrun`` describes in the environment, if any:
+    NCCL for ``cuda`` (rank r on ``cuda:LOCAL_RANK``), gloo for ``cpu``.
+    Returns the device the rank runs on."""
+    dev = resolve_device(device)
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return dev
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+    return dev
+
+
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _sync(device) -> None:
@@ -103,14 +145,15 @@ def _finish_fl(args, sim, history, dt, unit, extra_summary):
 
 
 def _write_and_judge(args, history) -> int:
-    if args.metrics_out:
+    if args.metrics_out and _rank0():
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=2)
     first = np.mean([h["loss"] for h in history[:3]])
     last = np.mean([h["loss"] for h in history[-3:]])
-    print(f"loss {first:.4f} -> {last:.4f} "
-          f"({'improved' if last < first else 'NOT improved'})")
+    if _rank0():
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
     return 0 if last < first else 2
 
 
@@ -241,6 +284,11 @@ def parser() -> argparse.ArgumentParser:
                     help="fetchsgd: count-sketch columns (upload size = rows*cols)")
     ap.add_argument("--sketch-k-frac", type=float, default=0.01,
                     help="fetchsgd: heavy-hitter fraction per round")
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="the fused compression path (CompressionConfig.use_kernels: the "
+                         "state keeps the params' dtype, gmf_select, K1 and K2 fused), as "
+                         "chip_smoke.py's training phases run it; the default is the "
+                         "reference's staged path, which promotes bf16 state to float32")
     ap.add_argument("--wire-dtype", default="float32",
                     choices=["float32", "float16", "bfloat16"],
                     help="sync payload dtype (16-bit = quantisation-aware EF)")
@@ -278,7 +326,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=0,
                     help="fl: shard backend group size (0 = the whole group)")
     ap.add_argument("--mesh-shape", default=None,
-                    help="e.g. 2,16,16 (not ported: ROADMAP Queue 1 item 11 part B)")
+                    help="e.g. 2,4,1 (pod, data, model) or 4,1 (data, model) over a "
+                         "torchrun world; the model axis must be 1 (item 11 part C)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--checkpoint", default=None)
@@ -291,7 +340,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    resolve_device(args.device)
+    device = resolve_device(args.device)
     if args.topology != "star":
         if args.backend == "async":
             raise SystemExit("--topology ring/hierarchical needs the "
@@ -311,8 +360,21 @@ def main(argv=None):
                              sketch_k_frac=args.sketch_k_frac,
                              tier_scheme=args.tier_scheme,
                              tier_rate=args.tier_rate,
+                             use_kernels=args.use_kernels,
                              **overrides)
     scheme = resolve(ccfg)
+    if args.backend == "dist":
+        device = join_world(args.device)
+    try:
+        return _main(args, argv, ccfg, cfg, scheme, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, argv, ccfg, cfg, scheme, device):
+    if not _rank0():
+        return run_dist(args, ccfg, cfg, scheme, device)
     print(f"scheme={scheme.name}: selector={scheme.selector.name} "
           f"compensator={scheme.compensator.name} fusion={scheme.fusion.name} "
           f"wire={scheme.wire.name} rotation={scheme.rotation.name} "
@@ -330,7 +392,7 @@ def main(argv=None):
             return run_async(args, ccfg, cfg)
         if args.backend == "fl":
             return run_fl(args, ccfg, cfg)
-        return run_dist(args, ccfg, cfg, scheme)
+        return run_dist(args, ccfg, cfg, scheme, device)
     finally:
         if args.obs:
             obs.export.write_all(args.obs_dir)
@@ -338,15 +400,19 @@ def main(argv=None):
             print(f"obs -> {args.obs_dir}/events.jsonl")
 
 
-def run_dist(args, ccfg, cfg, scheme):
-    """The one-device trainer: ``make_train_step`` over ``--steps`` batches
-    of the seeded stream, the first step timed apart (it pays the kernels'
-    first use), the exact wire accounting per step."""
-    mesh = build_mesh(args)
-    if args.grad_sync == "gmf_pod":
+def run_dist(args, ccfg, cfg, scheme, device=None):
+    """The trainer: ``make_train_step`` over ``--steps`` batches of the
+    seeded stream, on the one device or over a mesh (each rank its piece of
+    every batch), the first step timed apart (it pays the kernels' first
+    use), the exact wire accounting per step."""
+    device = device or resolve_device(args.device)
+    mesh = build_mesh(args, device.type)
+    if args.grad_sync == "gmf_pod" and (mesh is None or "pod" not in mesh_axes(mesh)):
         raise SystemExit("--grad-sync gmf_pod needs a pod axis (--mesh-shape 2,x,y)")
-    device = resolve_device(args.device)
-    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M device={device}")
+    say = print if _rank0() else (lambda *a, **k: None)
+    where = (f"mesh={dict(zip(mesh_axes(mesh), mesh.shape, strict=True))}" if mesh is not None
+             else f"device={device}")
+    say(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M {where}")
 
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        grad_sync=args.grad_sync, lr_schedule="cosine",
@@ -360,6 +426,9 @@ def run_dist(args, ccfg, cfg, scheme):
         num_patches=cfg.num_patches, d_model=cfg.d_model,
     )
     step_fn = dstep.make_train_step(cfg, tcfg, ccfg, mesh)
+    b_sh = (shr.named_shardings(mesh, dstep.step_batch_specs(cfg, tcfg, mesh))
+            if mesh is not None else None)
+    health_group = dstep.sync_group(args.grad_sync, mesh)
     # wire accounting from the scheme's wire stage; dense sync ships fp32
     cost = CostModel() if args.grad_sync == "dense" else scheme.cost_model()
     history = []
@@ -370,6 +439,8 @@ def run_dist(args, ccfg, cfg, scheme):
     t_start = time.time()
     for step, batch in zip(range(args.steps), stream, strict=False):
         batch = to_tensors(batch, device)
+        if b_sh is not None:  # this rank's rows
+            batch = shr.local_tree(batch, {k: b_sh[k] for k in batch})
         _sync(device)
         t_step = time.perf_counter()
         state, metrics = step_fn(state, batch)
@@ -399,7 +470,7 @@ def run_dist(args, ccfg, cfg, scheme):
                        dense_mb=total * 4 / 1e6,
                        upload_nnz=[int(x) for x in shard_nnz], download_nnz=int(down_nnz))
         history.append(rec)
-        if rec_obs.enabled:
+        if args.obs:  # every rank: the health block's norms span the ranks' rows
             rec_obs.event("round", round=step, wall_ms=step_ms,
                           upload_bytes=up_bytes, download_bytes=down_bytes,
                           loss=rec["loss"])
@@ -407,22 +478,28 @@ def run_dist(args, ccfg, cfg, scheme):
                 rec_obs, round_idx=step, cstates=state.cstate,
                 sstate=state.sstate, bcast=state.gbar,
                 upload_nnz_mean=up_nnz, total_params=total_static,
-                target_rate=0.0 if args.grad_sync == "dense" else ccfg.rate)
+                target_rate=0.0 if args.grad_sync == "dense" else ccfg.rate,
+                group=health_group)
         if step % args.log_every == 0 or step == args.steps - 1:
             extra = (f" up/shard={rec['upload_mb_per_shard']:.2f}MB "
                      f"bcast={rec['broadcast_mb']:.2f}MB vs dense={rec['dense_mb']:.2f}MB"
                      if "upload_mb_per_shard" in rec else "")
-            print(f"[{step:5d}] loss={rec['loss']:.4f}{extra}", flush=True)
+            say(f"[{step:5d}] loss={rec['loss']:.4f}{extra}", flush=True)
 
     dt = time.time() - t_start
     steady = float(np.mean(steady_ms)) if steady_ms else 0.0
-    print(f"{args.steps} steps in {dt:.1f}s "
-          f"(first step {first_s:.1f}s + steady {steady:.0f} ms/step)")
+    say(f"{args.steps} steps in {dt:.1f}s "
+        f"(first step {first_s:.1f}s + steady {steady:.0f} ms/step)")
     rec_obs.event("summary", steps=args.steps, wall_s=dt,
                   compile_s=first_s, steady_step_ms_mean=steady)
     if args.checkpoint:
-        save_ckpt(args.checkpoint, state.params, step=args.steps)
-        print(f"checkpoint -> {args.checkpoint}.npz")
+        params = state.params
+        if mesh is not None:  # the whole params (a collective)
+            params = shr.full_tree(params, shr.named_shardings(mesh, shr.param_specs(
+                params, fsdp=dstep.needs_fsdp(cfg), mesh=mesh)))
+        if _rank0():
+            save_ckpt(args.checkpoint, params, step=args.steps)
+            print(f"checkpoint -> {args.checkpoint}.npz")
     return _write_and_judge(args, history)
 
 

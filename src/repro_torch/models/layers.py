@@ -32,6 +32,8 @@ def dtype_of(name: str) -> torch.dtype:
 def truncated_normal_init(gen, shape, scale, dtype):
     """scale · N(0, 1) truncated to [-2, 2], drawn in float32 by the inverse
     CDF (as ``jax.random.truncated_normal`` draws), cast to ``dtype``."""
+    if gen.device.type == "meta":  # a shape pass (transformer.abstract_params): no draw
+        return torch.empty(shape, dtype=dtype, device="meta")
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     x.uniform_(lo, hi, generator=gen).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)

@@ -14,11 +14,26 @@ table and the group sum are built out of place, so the function runs
 under ``torch.func.vmap`` (the engines take client gradients that way).
 
 The router stays float32; the gates are cast to x's dtype, as in the
-reference.
+reference. Over a group of ranks that share one loss (a pod's data ranks
+under ``gmf_pod``, the data ranks of a dense step), ``router_topk`` takes
+the group's expert density (one sum of an ``[E]`` vector a layer, no
+gradient) and this rank's share of the mean router probability, so the
+ranks' aux terms add up to the reference's aux over the group's tokens.
 
-Not ported yet: the expert-parallel path (``moe_ep``, ``dispatch_local``,
-``combine_local`` and the all-to-all bodies), which needs the dist
-runtime's sharded half (ROADMAP Queue 1 item 11 part B).
+``moe_ep`` is the expert-parallel path over a mesh (``launch/mesh.py``):
+capacity-limited routed dispatch (``dispatch_local``: sort, positions,
+a fixed ``(E_loc, capacity, d)`` buffer; assignments past an expert's
+capacity are dropped), grouped GEMMs, ``combine_local``. It computes on
+each rank's local pieces: x is the rank's tokens (laid over the data axes,
+whole over ``model``), the expert weights its experts (E over ``model``,
+and f over the last data axis when ``fsdp_weights``). The all-to-all body
+cuts the sequence over ``model``, routes its tokens to every expert and
+exchanges the buffers (``all_to_all_single``, twice); the other body keeps
+the tokens whole and sums the ranks' partial outputs (``all_reduce``).
+Both return x's shape, whole on every model rank. ``combine_local`` adds
+a token's k rows in the order the reference's scatter adds them (the
+sorted-expert order of ``dispatch_local``), with no atomics, so its bits
+do not depend on the schedule.
 """
 
 from __future__ import annotations
@@ -26,7 +41,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import axis_size
 from repro_torch.models import layers
+from repro_torch.utils import collectives as col
 
 # Bound on the elements of one expert group's intermediate (group × BT ×
 # max(d, f)): 2^28 is 512 MiB in bfloat16.
@@ -37,6 +54,8 @@ def _expert_weights(gen, e, d_in, d_out, dtype):
     """(e, d_in, d_out) expert kernels drawn one expert at a time, so the
     float32 draw is one expert's, never the whole stack's."""
     out = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    if out.device.type == "meta":  # a shape pass: nothing to draw
+        return out
     for i in range(e):
         out[i] = layers.truncated_normal_init(gen, (d_in, d_out), d_in**-0.5, dtype)
     return out
@@ -53,9 +72,11 @@ def init_moe(gen, cfg, dtype=None):
     }
 
 
-def router_topk(params, cfg, x):
+def router_topk(params, cfg, x, groups=()):
     """Route: returns (eids (..., k) int64, gates (..., k) in x's dtype,
-    aux_loss float32 scalar)."""
+    aux_loss float32 scalar). With ``groups`` (process groups whose ranks
+    hold equal shares of one batch) the density is the groups' and the
+    aux this rank's share: the ranks' auxes sum to the batch's."""
     logits = x.float() @ params["router"]  # (..., E)
     probs = torch.softmax(logits, dim=-1)
     gates, eids = torch.topk(probs, cfg.experts_per_token, dim=-1)
@@ -65,6 +86,12 @@ def router_topk(params, cfg, x):
     lead = tuple(range(eids.dim() - 1))
     density = _one_hot(eids, e).float().sum(dim=-2).mean(dim=lead)  # tokens per expert (×k)
     mean_prob = probs.mean(dim=lead)
+    if groups:
+        n = 1
+        for g in groups:
+            density = col.sum_over(density, g)
+            n *= col.size(g)
+        density, mean_prob = density / n, mean_prob / n
     aux = e * torch.sum(density / cfg.experts_per_token * mean_prob)
     return eids, gates.to(x.dtype), aux
 
@@ -81,12 +108,12 @@ def group_size(cfg, tokens: int) -> int:
     return max(1, min(cfg.num_experts, GROUP_ELEMENTS // max(per_expert, 1)))
 
 
-def moe_dense(params, cfg, x):
+def moe_dense(params, cfg, x, groups=()):
     """All experts on all tokens, combined by the gates. x: (B, T, d).
-    Returns (y (B, T, d), aux)."""
+    Returns (y (B, T, d), aux); ``groups`` as in ``router_topk``."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
-    eids, gates, aux = router_topk(params, cfg, xf)
+    eids, gates, aux = router_topk(params, cfg, xf, groups)
     e = cfg.num_experts
     # (BT, E): each token's gate on the experts it chose, 0 elsewhere. The
     # chosen experts are distinct, so each entry sums one gate and zeros.
@@ -106,3 +133,163 @@ def capacity_per_expert(tokens: int, cfg) -> int:
     """Fixed per-expert buffer length (local to one model rank's dispatch)."""
     mean = tokens * cfg.experts_per_token / cfg.num_experts
     return max(1, int(mean * cfg.capacity_factor + 0.999))
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel path
+# ---------------------------------------------------------------------------
+
+
+def dispatch_local(x, eids, gates, e_base, e_loc, capacity):
+    """Build the (e_loc, capacity, d) buffer for this rank's experts from
+    local tokens. Local (no collectives).
+
+    x: (Tl, d); eids/gates: (Tl, k). Returns (buf, tok_s, p_idx, keep,
+    e_idx, gate_s): the buffer and, per assignment in sorted order, its
+    token, buffer position, whether it was kept, its buffer row (``e_loc``
+    for a dropped one) and its gate.
+    """
+    tl, k = eids.shape
+    dev = x.device
+    flat_e = eids.reshape(-1)
+    flat_g = gates.reshape(-1)
+    flat_t = torch.arange(tl, device=dev).repeat_interleave(k)
+    le = flat_e - e_base
+    hit = (le >= 0) & (le < e_loc)
+    # Sort all TK assignments by (miss, local_expert) so this rank's tokens
+    # group into contiguous runs; misses sort to the back.
+    sort_key = torch.where(hit, le, e_loc)
+    order = torch.argsort(sort_key, stable=True)
+    le_s = sort_key[order]
+    tok_s = flat_t[order]
+    gate_s = flat_g[order]
+    hit_s = hit[order]
+    # Position of each assignment within its expert run.
+    seg_start = torch.searchsorted(le_s, torch.arange(e_loc + 1, device=dev), side="left")
+    pos = torch.arange(tl * k, device=dev) - seg_start[torch.clamp(le_s, 0, e_loc)]
+    keep = hit_s & (pos < capacity)
+    # Scatter into the buffer; dropped rows land in a sacrificial extra slot.
+    e_idx = torch.where(keep, le_s, e_loc)
+    p_idx = torch.where(keep, pos, 0)
+    rows = torch.where(keep[:, None], x[tok_s], 0)
+    buf = torch.zeros((e_loc + 1, capacity, x.shape[-1]), dtype=x.dtype, device=dev)
+    buf = buf.index_put((e_idx, p_idx), rows, accumulate=True)
+    return buf[:e_loc], tok_s, p_idx, keep, e_idx, gate_s
+
+
+def combine_local(y_buf, tok_s, p_idx, keep, e_idx, gate_s, tl):
+    """Gather expert outputs back to token order and gate-weight them: a
+    token's k rows are added one after another in sorted-assignment order,
+    from zeros, as the reference's scatter-add adds them."""
+    d = y_buf.shape[-1]
+    y_pad = torch.cat([y_buf, torch.zeros_like(y_buf[:1])], dim=0)
+    rows = y_pad[e_idx, p_idx]  # (TK, d)
+    rows = torch.where(keep[:, None], rows, 0) * gate_s[:, None].to(y_buf.dtype)
+    # each token's k sorted positions, ascending: (tl, k)
+    mine = torch.argsort(tok_s, stable=True).reshape(tl, -1)
+    out = torch.zeros((tl, d), dtype=y_buf.dtype, device=y_buf.device)
+    for j in range(mine.shape[1]):
+        out = out + rows[mine[:, j]]
+    return out
+
+
+def _expert_ffn(buf, w_g, w_u, w_d):
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, w_g)) * torch.einsum("ecd,edf->ecf", buf, w_u)
+    return torch.einsum("ecf,efd->ecd", h, w_d)
+
+
+def _gathered_weights(params_loc, fsdp_axis):
+    """This rank's experts' weights, their f dim gathered over the FSDP
+    group when it is sharded."""
+    w_g, w_u, w_d = params_loc["w_gate"], params_loc["w_up"], params_loc["w_down"]
+    if fsdp_axis is not None:
+        w_g = col.gather_cat(w_g, fsdp_axis, 2)
+        w_u = col.gather_cat(w_u, fsdp_axis, 2)
+        w_d = col.gather_cat(w_d, fsdp_axis, 1)
+    return w_g, w_u, w_d
+
+
+def moe_ep_a2a_body(params_loc, cfg, x_loc, *, model_axis, fsdp_axis, n_model: int):
+    """All-to-all expert parallelism: ``x_loc`` (Bl, Tl, d) is this rank's
+    slice of the sequence; it routes its tokens to ALL global experts
+    through a per-source capacity buffer, one exchange over ``model_axis``
+    (the model group) ships each expert's rows to its owner, the local
+    grouped GEMMs run, and the reverse exchange returns the outputs.
+    ``fsdp_axis`` is the FSDP group or None."""
+    bl, tl, d = x_loc.shape
+    xf = x_loc.reshape(bl * tl, d)
+    eids, gates, aux = router_topk(params_loc, cfg, xf)
+    w_g, w_u, w_d = _gathered_weights(params_loc, fsdp_axis)
+    e = cfg.num_experts
+    e_loc = e // n_model
+    cap = capacity_per_expert(bl * tl, cfg)
+    # route MY tokens to ALL experts (e_base=0, e_loc=E), then exchange
+    buf, tok_s, p_idx, keep, e_idx, gate_s = dispatch_local(xf, eids, gates, 0, e, cap)
+    # (E, cap, d) -> (E/n, n·cap, d): rows for MY experts from every rank
+    buf = col.exchange(buf, model_axis).reshape(n_model, e_loc, cap, d)
+    buf = buf.transpose(0, 1).reshape(e_loc, n_model * cap, d)
+    y_buf = _expert_ffn(buf, w_g, w_u, w_d)
+    y_buf = y_buf.reshape(e_loc, n_model, cap, d).transpose(0, 1).contiguous()
+    y_buf = col.exchange(y_buf, model_axis).reshape(e, cap, d)
+    y = combine_local(y_buf, tok_s, p_idx, keep, e_idx, gate_s, bl * tl)
+    aux = col.mean_over(aux, [model_axis])
+    return y.reshape(bl, tl, d), aux
+
+
+def moe_ep_body(params_loc, cfg, x_loc, rank, *, model_axis, fsdp_axis):
+    """Replicated-token expert parallelism: ``x_loc`` (Bl, T, d) whole on
+    every model rank; this rank (``rank``, its index in ``model_axis``, the
+    model group) runs its experts' share of the assignments and the
+    partial outputs are summed over the group."""
+    bl, t, d = x_loc.shape
+    xf = x_loc.reshape(bl * t, d)
+    eids, gates, aux = router_topk(params_loc, cfg, xf)
+    w_g, w_u, w_d = _gathered_weights(params_loc, fsdp_axis)
+    e_loc = w_g.shape[0]
+    cap = capacity_per_expert(bl * t, cfg)
+    buf, tok_s, p_idx, keep, e_idx, gate_s = dispatch_local(
+        xf, eids, gates, int(rank) * e_loc, e_loc, cap)
+    y_buf = _expert_ffn(buf, w_g, w_u, w_d)
+    y = combine_local(y_buf, tok_s, p_idx, keep, e_idx, gate_s, bl * t)
+    y = col.sum_over(y, model_axis)
+    aux = col.mean_over(aux, [model_axis])
+    return y.reshape(bl, t, d), aux
+
+
+def moe_ep(params, cfg, x, *, mesh, data_axes, model_axis: str, fsdp_weights: bool,
+           already_manual=frozenset()):
+    """Expert-parallel MoE over ``mesh`` (a ``DeviceMesh``). ``params``
+    holds this rank's expert pieces, ``x`` (Bl, T, d) its tokens.
+    ``data_axes``: mesh axes the batch is laid over; ``model_axis``: the EP
+    axis. ``fsdp_weights``: expert f-dim sharded over data_axes[-1].
+    ``already_manual``: data axes whose aux mean the caller takes (the
+    reference's axes made manual by an enclosing region).
+
+    Takes the all-to-all body when the sequence and the experts divide the
+    model axis (training, prefill), else the all-reduce body (decode at
+    T == 1 on a model axis > 1), as the reference chooses. ``aux`` is
+    averaged over ``model`` and the data axes not ``already_manual``."""
+    already_manual = frozenset(already_manual)
+    fsdp_name = data_axes[-1] if fsdp_weights else None
+    if fsdp_name is not None and fsdp_name in already_manual:
+        raise ValueError("FSDP expert sharding cannot use an axis that the "
+                         "compressed grad-sync already made manual")
+    model = mesh.get_group(model_axis)
+    n_model = axis_size(mesh, model_axis)
+    fsdp = mesh.get_group(fsdp_name) if fsdp_name is not None else None
+    inner = [mesh.get_group(a) for a in reversed(data_axes) if a not in already_manual]
+    seq_len = x.shape[1]
+    if seq_len % n_model == 0 and cfg.num_experts % n_model == 0:
+        # sequence-sharded dispatch + all_to_all exchange (training/prefill)
+        t = seq_len // n_model
+        r = col.rank(model)
+        y, aux = moe_ep_a2a_body(params, cfg, x[:, r * t:(r + 1) * t], model_axis=model,
+                                 fsdp_axis=fsdp, n_model=n_model)
+        y = col.gather_cat(y, model, 1)  # the whole sequence on every model rank
+    else:
+        # replicated-token + all-reduce combine (decode: T == 1)
+        y, aux = moe_ep_body(params, cfg, x, col.rank(model), model_axis=model,
+                             fsdp_axis=fsdp)
+    if inner:
+        aux = col.mean_over(aux, inner)
+    return y, aux

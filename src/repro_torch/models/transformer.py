@@ -40,8 +40,12 @@ computes the same values without the memory saving.
 holds the block ``tables`` and the ``codec``; ``pos`` is then the per-slot
 (S,) position.
 
-Not ported yet: the expert-parallel MoE over a mesh (ROADMAP Queue 1 item
-11 part B).
+Over a mesh (``ctx["mesh"]``, set by ``dist/step.py:_model_ctx``) an MoE
+config with ``moe_impl="ep"`` runs ``moe.moe_ep`` on the rank's local
+tokens, as the reference does; a mesh whose ``model`` axis is larger than
+1 raises (its tensor parallelism is ROADMAP Queue 1 item 11 part C).
+``abstract_params(cfg)`` is the meta-device params tree, the counterpart of
+``jax.eval_shape(init_params)``: shapes and dtypes, no draw.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.launch.mesh import axis_size
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
@@ -147,9 +152,22 @@ def _ffn(params, cfg, x, ctx):
     """FFN half of an attn block: SwiGLU or routed MoE. Returns (y, aux)."""
     if _uses_moe(cfg):
         if ctx.get("moe_impl", cfg.moe_impl) == "ep" and ctx.get("mesh") is not None:
-            raise NotImplementedError("the expert-parallel MoE over a mesh is not ported "
-                                      "yet: ROADMAP Queue 1 item 11 part B")
-        return moe.moe_dense(params["moe"], cfg, x)
+            mesh = ctx["mesh"]
+            if axis_size(mesh, "model") > 1:
+                raise NotImplementedError(
+                    f"a mesh whose model axis is {axis_size(mesh, 'model')} needs tensor "
+                    "parallelism, which is not ported yet: ROADMAP Queue 1 item 11 part C")
+            return moe.moe_ep(
+                params["moe"],
+                cfg,
+                x,
+                mesh=mesh,
+                data_axes=ctx["data_axes"],
+                model_axis=ctx["model_axis"],
+                fsdp_weights=ctx.get("fsdp_moe", False),
+                already_manual=ctx.get("already_manual", frozenset()),
+            )
+        return moe.moe_dense(params["moe"], cfg, x, ctx.get("token_groups", ()))
     return layers.mlp(params["mlp"], x), _zero(x)
 
 
@@ -272,6 +290,20 @@ def init_block_cache(cfg, block_type, batch, cache_len, dtype, device):
 # ---------------------------------------------------------------------------
 # Model init / embedding
 # ---------------------------------------------------------------------------
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose device is ``meta``: ``init_params`` then only
+    shapes its leaves."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_params(cfg):
+    """The params tree of ``cfg`` on the meta device (shapes, dtypes)."""
+    return init_params(cfg, _MetaGenerator())
 
 
 def init_params(cfg, gen):

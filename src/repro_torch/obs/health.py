@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.utils import tree_any_nan, tree_l2_norm, tree_leaves
 
@@ -47,17 +48,24 @@ def _norm(tree, device) -> torch.Tensor:
     return tree_l2_norm(tree)
 
 
-def compensation_norms(cstates, sstate, bcast, gmom=None) -> dict:
+def compensation_norms(cstates, sstate, bcast, gmom=None, group=None) -> dict:
     """Norms of every compensation-state component, as python floats.
 
     ``cstates`` may be the per-client stacked state (the norm is then
     over the whole stack) or a single client's state; empty-dict fields
     (schemes that don't use them) report 0.0. ``bcast_finite`` is the
-    NaN/Inf check on the broadcast."""
+    NaN/Inf check on the broadcast. With ``group`` (a process group whose
+    ranks each hold rows of the stack, the trainer's sync axis over a mesh)
+    the client-state norms are over every rank's rows: the squares are
+    summed over the group (a collective: every rank calls it)."""
     gmom = {} if gmom is None else gmom
     device = tree_leaves(bcast)[0].device
-    parts = [_norm(x, device) for x in (cstates.u, cstates.v, cstates.m, sstate.momentum,
-                                        gmom, bcast)]
+    client = [_norm(x, device) for x in (cstates.u, cstates.v, cstates.m)]
+    if group is not None:
+        sq = torch.stack(client) ** 2
+        torch.distributed.all_reduce(sq, group=group)
+        client = list(torch.sqrt(sq))
+    parts = client + [_norm(x, device) for x in (sstate.momentum, gmom, bcast)]
     parts.append(tree_any_nan(bcast).to(device=device, dtype=torch.float32))
     u, v, m, sm, gm, b, bad = torch.stack(parts).cpu().tolist()  # the one device read
     return {
@@ -108,15 +116,16 @@ def record_round_health(rec, *, round_idx: int, cstates, sstate, bcast,
                         gmom=None, upload_nnz_mean: float = 0.0,
                         total_params: float = 0.0,
                         target_rate: float = 0.0,
-                        tier: str | None = None) -> dict:
+                        tier: str | None = None, group=None) -> dict:
     """Compute the per-round health block, push it through the recorder
     (gauges + one ``health`` event), and trip an ``anomaly`` event when
     the broadcast carries NaN/Inf. Returns the block.
 
     ``tier`` namespaces the gauges (``health.<tier>.*``) and tags the
     ``health`` event — the hierarchical topology records the aggregator
-    tier's compensation state alongside the leaf tier's default block."""
-    block = compensation_norms(cstates, sstate, bcast, gmom=gmom)
+    tier's compensation state alongside the leaf tier's default block.
+    ``group`` as in ``compensation_norms``."""
+    block = compensation_norms(cstates, sstate, bcast, gmom=gmom, group=group)
     block.update(compression_ratio(upload_nnz_mean, total_params, target_rate))
     prefix = f"health.{tier}." if tier else "health."
     for key, val in block.items():

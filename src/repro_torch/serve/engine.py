@@ -49,6 +49,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as shr
 from repro_torch.dist import step as dstep
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace
@@ -129,24 +130,26 @@ def _pinned(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class ServeEngine:
     """Host-side scheduler over the paged prefill/decode steps, on the
-    device of ``params``."""
+    device of ``params``. Over a ``mesh`` (model axis 1) the pool is laid
+    out by ``dist.sharding.pool_specs`` (this rank's piece: the whole pool)
+    and the steps carry the mesh, so an MoE config's ticks and admissions
+    run the expert-parallel MoE."""
 
     def __init__(self, cfg, params, scfg: ServeConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a KV pool sharded over a mesh needs the dist runtime's sharded half, "
-                "which is not ported yet: ROADMAP Queue 1 item 11 part B")
         self.cfg = cfg
         self.scfg = scfg
         self.params = params
         self.device = tree_leaves(params)[0].device
         self.codec = kvcache.make_kv_codec(scfg.wire, cfg)
-        self.pool = kvcache.init_pool(cfg, self.codec, scfg.num_pages, scfg.page_size,
-                                      device=self.device)
-        self.alloc = kvcache.BlockAllocator(scfg.num_pages)
         self._prefill = dstep.make_paged_prefill_step(cfg, self.codec, mesh,
                                                       prompt_pad=scfg.prompt_pad)
         self._step = dstep.make_paged_serve_step(cfg, self.codec, mesh)
+        self.pool = kvcache.init_pool(cfg, self.codec, scfg.num_pages, scfg.page_size,
+                                      device=self.device)
+        if mesh is not None:
+            self.pool = shr.local_tree(self.pool, shr.named_shardings(
+                mesh, shr.pool_specs(self.pool, mesh)))
+        self.alloc = kvcache.BlockAllocator(scfg.num_pages)
         self._next_rid = 0
         self._pending: list[tuple[int, Request]] = []  # (arrival_tick, req)
 

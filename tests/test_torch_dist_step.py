@@ -1,0 +1,382 @@
+"""The port's steps over a mesh (``repro_torch.dist.step`` with a
+``DeviceMesh`` whose model axis is 1) against the JAX package's
+``make_train_step`` / prefill / decode at the same meshes.
+
+One rank, in process (a gloo world of one rank from a ``file://`` store,
+and JAX's real (1, 1) mesh on its one CPU device):
+- ``gmf_data`` fed JAX's gradient (``tests/torch_train_parity.py``), with
+  ``tests/test_torch_train_step_gmf.py``'s tolerances: the params, the
+  compression state and the broadcast within 1e-5 of each leaf's largest
+  magnitude but at FLIPS boundary flips, the counts within as many;
+- the mesh steps at (1, 1) / (1, 1, 1) bitwise the mesh-less ones
+  (``gmf_pod`` bitwise ``gmf_data``);
+- ``dense`` on a granite smoke with ``moe_impl="ep"`` (each side its own
+  gradient, through the expert-parallel MoE): params within 1e-5;
+- prefill and decode of that config with a mesh: logits and caches within
+  1e-5 (``tests/torch_parity.py``), greedy tokens equal.
+
+Four ranks, spawned (one gloo world of four processes, ``torch.set_num_threads
+(1)``, every check of the module in one spawn, and at the same time the
+JAX package on four faked devices; ``tests/torch_mesh_*.py``): two steps of
+``gmf_data`` and ``dense`` at (4, 1), ``gmf_pod`` at (2, 2, 1) on llama
+and on a ``moe_impl="dense"`` granite (the pod's router density), and
+``dense`` on the ``moe_impl="ep"`` granite at (4, 1), on batches whose -1
+labels fall unevenly across the ranks (15 valid labels on rank 0, 32 on
+the others). Tolerances per shard, as at n = 1 (each side its own
+gradients): every leaf of the params, of each shard's compression state
+and of the broadcast within 1e-5 of its largest magnitude but at FLIPS
+flips a shard, the counts within as many, the loss within 1e-5. Replicated
+state (params, opt slots, broadcast, loss) is bitwise equal on every rank,
+and so are a pod's data ranks' rows. A checkpoint restored onto (4, 1)
+under FSDP's specs gives each rank its slice and gathers back bitwise.
+
+The launcher runs apart: ``launch/train.py --device cpu --mesh-shape 2,1``
+as two processes with a ``torchrun``-style environment (``MASTER_ADDR``
+127.0.0.1 and a free ``MASTER_PORT``): both exit 0 and only rank 0 writes.
+"""
+
+import dataclasses
+import datetime
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import torch.distributed as dist  # noqa: E402
+
+import torch_mesh_cases as cases  # noqa: E402
+import torch_parity as tp_  # noqa: E402
+import torch_train_parity as tr  # noqa: E402
+from repro.configs import granite_moe_1b_a400m as jgranite  # noqa: E402
+from repro.core import CompressionConfig as JComp  # noqa: E402
+from repro.launch.mesh import make_mesh as jmake_mesh  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.checkpoint import save as tsave  # noqa: E402
+from repro_torch.configs import granite_moe_1b_a400m as tgranite  # noqa: E402
+from repro_torch.core import CompressionConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMStream  # noqa: E402
+from repro_torch.dist import sharding as tshr  # noqa: E402
+from repro_torch.dist import step as tstep  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh, make_mesh  # noqa: E402
+from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FLIPS = 4
+REL = 1e-5
+
+
+@pytest.fixture
+def one_rank(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def meshes(shape):
+    axes = cases.axes_of(shape)
+    return jmake_mesh(shape, axes), make_mesh(shape, axes, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# one rank, in process
+# ---------------------------------------------------------------------------
+
+
+def test_one_rank_gmf_data_on_jax_gradients(one_rank, monkeypatch):
+    jst, tst, ((jm, tm),) = tr.one_step("llama3.2-1b", "gmf_data", jax_grads=monkeypatch,
+                                        meshes=meshes((1, 1)))
+    up = abs(int(tm["upload_nnz"][0]) - int(np.asarray(jm["upload_nnz"])[0]))
+    down = abs(int(tm["download_nnz"]) - int(jm["download_nnz"]))
+    assert up <= FLIPS and down <= FLIPS, (up, down)
+    flips = tr.boundary_flips(tst.params, jst.params)
+    layout = tr.FlatLayout.of(tst.params)
+    for field in ("u", "v", "m"):
+        flips = max(flips, tr.boundary_flips(layout.unflatten(getattr(tst.cstate, field)),
+                                             getattr(jst.cstate, field)))
+    flips = max(flips, tr.boundary_flips(layout.unflatten(tst.gbar), jst.gbar))
+    assert flips <= FLIPS, flips
+
+
+def run_port(cfg, sync, mesh, steps=2):
+    tcfg = tr.TTrain(learning_rate=0.05, total_steps=10, grad_sync=sync, lr_schedule="cosine",
+                     warmup_steps=1)
+    ccfg = CompressionConfig(scheme="dgcwgmf", rate=0.1)
+    state = tstep.init_train_state(cfg, tcfg, ccfg,
+                                   ttr.init_params(cfg, torch.Generator().manual_seed(0)), mesh)
+    fn = tstep.make_train_step(cfg, tcfg, ccfg, mesh)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=16, batch_size=4, seed=0)
+    out = []
+    for _, b in zip(range(steps), stream, strict=False):
+        state, m = fn(state, {k: torch.from_numpy(v).long() for k, v in b.items()})
+        out.append(m)
+    return [state, out]
+
+
+def bitwise(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb, strict=True):
+        assert (torch.equal(x, y) if torch.is_tensor(x) else x == y), (x, y)
+
+
+@pytest.mark.parametrize("sync, shape, twin", [
+    ("gmf_data", (1, 1), "gmf_data"), ("dense", (1, 1), "dense"),
+    ("gmf_pod", (1, 1, 1), "gmf_data")])
+def test_one_rank_mesh_steps_are_the_meshless_steps_bitwise(one_rank, sync, shape, twin):
+    """On one CPU thread: with several, the CPU's backward is not bitwise
+    repeatable from run to run, mesh or none (the card's is)."""
+    cfg = tconfigs.get_smoke("llama3.2-1b")
+    mesh = make_mesh(shape, cases.axes_of(shape), "cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        bitwise(run_port(cfg, sync, mesh), run_port(cfg, twin, None))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_one_rank_dense_ep_against_jax(one_rank):
+    """The dense step through the expert-parallel MoE at (1, 1): each
+    package its own gradient; params and loss within 1e-5."""
+    jcfg, tcfg = tp_.configs(jgranite, tgranite, "float32", moe_impl="ep")
+    jp, tp = tp_.params(jcfg)
+    jm, tm = meshes((1, 1))
+    jt, tt = tr.train_configs("dense")
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from repro.dist import sharding as jshr
+    from repro.dist import step as jstep
+
+    jb, tb = tp_.prompts(jcfg, 4, 16, seed=3)
+    labels = np.roll(np.asarray(jb["tokens"]), -1, axis=1)
+    labels[0, :9] = -1
+    jb["labels"], tb["labels"] = jax.numpy.asarray(labels), torch.from_numpy(labels).long()
+    jst = jstep.init_train_state(jcfg, jt, JComp(), jp, jm)
+    jst, jmet = jax.jit(jstep.make_train_step(jcfg, jt, JComp(), jm))(
+        jst, jax.device_put(jb, jax.tree_util.tree_map(
+            lambda s: NamedSharding(jm, s), jshr.train_batch_specs(jcfg, jm),
+            is_leaf=lambda x: isinstance(x, PartitionSpec))))
+    tst = tstep.init_train_state(tcfg, tt, CompressionConfig(), tp, tm)
+    calls = []
+    real = ttr.moe.moe_ep
+    ttr.moe.moe_ep = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        tst, tmet = tstep.make_train_step(tcfg, tt, CompressionConfig(), tm)(tst, tb)
+    finally:
+        ttr.moe.moe_ep = real
+    assert len(calls) == tcfg.num_layers
+    assert abs(float(tmet["loss"]) - float(jmet["loss"])) <= REL * abs(float(jmet["loss"]))
+    assert max(tr.leaf_errors(tst.params, jst.params)) <= REL
+
+
+def test_one_rank_prefill_and_decode_with_a_mesh(one_rank):
+    jcfg, tcfg = tp_.configs(jgranite, tgranite, "float32", moe_impl="ep")
+    jp, tp = tp_.params(jcfg)
+    jb, tb = tp_.prompts(jcfg, 2, 20, seed=1)
+    tp_.check_prefill_decode(jcfg, tcfg, jp, tp, jb, tb, "float32", prompt_len=20, gen=4,
+                             cache_len=24, meshes=meshes((1, 1)))
+
+
+def test_one_rank_engine_with_a_mesh(one_rank):
+    """``ServeEngine(..., mesh=...)`` at (1, 1): the pool laid out by
+    ``pool_specs`` (the whole pool), the tokens the mesh-less engine's; an
+    EP config's admissions and ticks run ``moe_ep``."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    scfg = ServeConfig(page_size=8, pages_per_slot=4, prompt_pad=16, max_new_tokens=4)
+    prompts = [np.arange(3 + i, dtype=np.int32) % 50 for i in range(3)]
+    for cfg in (tconfigs.get_smoke("llama3.2-1b"),
+                dataclasses.replace(tconfigs.get_smoke("granite-moe-1b-a400m"), moe_impl="ep",
+                                    capacity_factor=8.0)):
+        params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+        runs = []
+        for m in (None, mesh):
+            eng = ServeEngine(cfg, params, scfg, mesh=m)
+            for p in prompts:
+                eng.submit(p)
+            runs.append([c.tokens.tolist() for c in eng.run()[0]])
+        assert runs[0] == runs[1], cfg.name
+
+
+# ---------------------------------------------------------------------------
+# four ranks, spawned
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    import torch_mesh_ranks as ranks
+
+    work = tmp_path_factory.mktemp("world4")
+    inputs = {}
+    for arch in cases.ARCHS:
+        cfg = tconfigs.get_smoke(arch)
+        params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+        for i, x in enumerate(tree_leaves(params)):
+            inputs[f"params/{arch}/{i}"] = x.numpy()
+        if arch == cases.ARCHS[0]:
+            tsave(str(work / "ck"), params, step=1)
+        stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=cases.SEQ,
+                                   batch_size=cases.BATCH, seed=0)
+        for t, b in zip(range(cases.STEPS), stream, strict=False):
+            inputs[f"batch/{arch}/{t}/tokens"] = b["tokens"]
+            inputs[f"batch/{arch}/{t}/labels"] = cases.uneven_labels(b["labels"])
+    np.savez(work / "inputs.npz", **inputs)
+    jres, rres = ranks.spawn("train", work, work / "inputs.npz")
+    return jres, rres, inputs
+
+
+def within(got, want, rel=REL):
+    """(max relative error, entries past ``rel`` of the largest |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(np.abs(want).max(), 1e-30)
+    return np.abs(got - want).max() / scale, int((np.abs(got - want) > rel * scale).sum())
+
+
+@pytest.mark.parametrize("name", list(cases.TRAIN))
+def test_four_ranks_agree_with_jax(world4, name):
+    jres, rres, _ = world4
+    _, _, shape, sync = cases.TRAIN[name]
+    r0 = rres[0]
+    n_leaves = len([k for k in r0 if k.startswith(f"{name}/params/")])
+    assert n_leaves > 0
+    flips = sum(within(r0[f"{name}/params/{i}"], jres[f"{name}/params/{i}"])[1]
+                for i in range(n_leaves))
+    n = 1
+    if sync != "dense":
+        axis = "data" if sync == "gmf_data" else "pod"
+        n = shape[cases.axes_of(shape).index(axis)]
+        # shard c's row: the rank at (c, 0) under gmf_pod, rank c under gmf_data
+        owners = [c * (cases.WORLD // n) for c in range(n)]
+        for f in ("u", "v", "m"):
+            got = np.concatenate([rres[r][f"{name}/{f}"] for r in owners])
+            flips = max(flips, within(got, jres[f"{name}/{f}"])[1])
+        flips = max(flips, within(r0[f"{name}/gbar"], jres[f"{name}/gbar"])[1])
+        for t in range(cases.STEPS):
+            up = np.abs(r0[f"{name}/upload_nnz/{t}"].astype(np.int64)
+                        - jres[f"{name}/upload_nnz/{t}"].astype(np.int64))
+            assert r0[f"{name}/upload_nnz/{t}"].shape == (n,)
+            assert up.max() <= FLIPS, (name, t, up)
+            assert abs(int(r0[f"{name}/download_nnz/{t}"])
+                       - int(jres[f"{name}/download_nnz/{t}"])) <= FLIPS * n
+    assert flips <= FLIPS * n, (name, flips)
+    for t in range(cases.STEPS):
+        got, want = float(r0[f"{name}/loss/{t}"]), float(jres[f"{name}/loss/{t}"])
+        assert abs(got - want) <= REL * abs(want), (name, t, got, want)
+
+
+@pytest.mark.parametrize("name", list(cases.TRAIN))
+def test_four_ranks_replicated_state_is_bitwise(world4, name):
+    _, rres, _ = world4
+    _, _, shape, sync = cases.TRAIN[name]
+    keys = [k for k in rres[0] if k.startswith(f"{name}/") and
+            any(k.startswith(f"{name}/{f}") for f in ("params/", "opt/", "gbar", "loss/",
+                                                       "upload_nnz/", "download_nnz/"))]
+    assert keys
+    for r in range(1, cases.WORLD):
+        for k in keys:
+            assert np.array_equal(rres[r][k], rres[0][k]), (name, r, k)
+    if sync == "gmf_pod":  # a pod's data ranks run the same compression on the same row
+        for r in range(0, cases.WORLD, 2):
+            for f in ("u", "v", "m"):
+                assert np.array_equal(rres[r][f"{name}/{f}"], rres[r + 1][f"{name}/{f}"])
+    elif sync == "gmf_data":  # each data rank is its own client
+        assert not np.array_equal(rres[0][f"{name}/v"], rres[1][f"{name}/v"])
+
+
+def test_four_ranks_uneven_labels(world4):
+    """The batches' -1 labels fall unevenly (rank 0 holds 15 valid labels,
+    the others 32), so a mean of the ranks' means is another number than
+    the reference's loss over the global (dense) or pod (gmf_pod) count,
+    which the four-rank loss matches (``test_four_ranks_agree_with_jax``)."""
+    _, rres, inputs = world4
+    valid = [int(rres[r]["dense/valid/0"]) for r in range(cases.WORLD)]
+    assert valid == [15, 32, 32, 32]
+    labels = inputs[f"batch/{cases.ARCHS[0]}/0/labels"]
+    assert int((labels >= 0).sum()) == sum(valid)
+
+
+def test_four_ranks_restore_onto_a_mesh(world4):
+    """``restore(..., shardings=...)`` onto (4, 1) under FSDP's specs: each
+    rank's leaf is its data-axis slice of the saved one, and the pieces
+    gather back to the whole tree, bitwise."""
+    _, rres, inputs = world4
+    arch = cases.ARCHS[0]
+    cfg = tconfigs.get_smoke(arch)
+    like = ttr.abstract_params(cfg)
+    specs = tree_leaves(tshr.param_specs(like, fsdp=True, mesh=AbstractMesh((4, 1), (
+        "data", "model"))))
+    assert any("data" in tuple(s) for s in specs)
+    for i, spec in enumerate(specs):
+        whole = inputs[f"params/{arch}/{i}"]
+        for r in range(cases.WORLD):
+            assert np.array_equal(rres[r][f"restore/full/{i}"], whole), (i, r)
+            want = whole
+            if "data" in tuple(spec):
+                d = tuple(spec).index("data")
+                want = np.split(whole, cases.WORLD, axis=d)[r]
+            assert np.array_equal(rres[r][f"restore/local/{i}"], want), (i, r)
+
+
+# ---------------------------------------------------------------------------
+# the launcher over two ranks
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_launcher_over_two_ranks(tmp_path):
+    args = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--mesh-shape", "2,1",
+            "--grad-sync", "gmf_data", "--steps", "8", "--batch", "8", "--seq-len", "64",
+            "--log-every", "4", "--metrics-out", "m.json", "--checkpoint", "ck", "--obs",
+            "--obs-dir", "obs"]
+    port = str(free_port())
+    procs = []
+    for r in range(2):
+        cwd = tmp_path / f"r{r}"
+        cwd.mkdir()
+        env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1",
+               "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}
+        procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+                                      env=env, cwd=cwd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    logs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            logs.append(out)
+            errs = err
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs) + errs[-3000:]
+    assert "mesh={'data': 2, 'model': 1}" in logs[0] and "(improved)" in logs[0]
+    assert logs[1].strip() == ""  # rank 1 prints nothing
+    assert sorted(os.listdir(tmp_path / "r1")) == []
+    assert {"m.json", "ck.npz", "ck.meta", "obs"} <= set(os.listdir(tmp_path / "r0"))
+    history = json.loads((tmp_path / "r0" / "m.json").read_text())
+    assert len(history) == 8 and len(history[0]["upload_nnz"]) == 2
+    events = [json.loads(ln) for ln in (tmp_path / "r0" / "obs" / "events.jsonl").read_text()
+              .splitlines()]
+    health = [e["data"] for e in events if e["kind"] == "health"]
+    assert len(health) == 8 and all(e["residual_u_norm"] > 0 for e in health)

@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: it imports neither jax, nor the JAX
 package, nor msgpack (the checkpoint sidecar is encoded by hand), and its
 entry points refuse a CUDA device that is not there. Every public name of
-a ported reference module (the serving tier's ``serve/`` among them)
-exists in the port or is listed in ``UNPORTED`` with the ROADMAP item that
-ports it: the dist runtime's sharded half (item 11 part B)."""
+a ported reference module (the serving tier's ``serve/``, the mesh's
+``launch/mesh.py`` and ``dist/sharding.py`` among them) exists in the port
+or is listed in ``UNPORTED`` with the reason it is not there."""
 
 import ast
 import os
@@ -37,7 +37,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.obs.events, repro_torch.obs.export, repro_torch.obs.report, "
             "repro_torch.obs.trace, repro_torch.obs.health, repro_torch.models.moe, "
             "repro_torch.models.ssm, repro_torch.models.rglru, repro_torch.serve, "
-            "repro_torch.serve.cache, repro_torch.serve.engine\n"
+            "repro_torch.serve.cache, repro_torch.serve.engine, repro_torch.launch.mesh, "
+            "repro_torch.dist.sharding\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.') or m == 'msgpack')\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -173,22 +174,15 @@ def test_ported_fl_options_construct(kw):
 
 
 # Public names of a ported reference module that the port does not have:
-# (module path, name) -> why, with the ROADMAP item that ports it. What is
-# left of the dist runtime is its sharded half (item 11 part B: the mesh,
-# the sharding specs and the expert-parallel MoE).
-ITEM11B = "ROADMAP Queue 1 item 11 part B (the mesh)"
+# (module path, name) -> why.
 PALLAS = "a Pallas tiling constant: the CUDA kernels tile otherwise (ROADMAP Queue 2)"
 UNPORTED = {
     "core/sparsify.py": {
         "global_topk_masks": "removed on purpose with the flat state: global top-k is "
                              "topk_mask over a client's whole flat row",
         "global_topk_masks_dynamic": "replaced by topk_mask_dynamic over the whole flat row"},
-    "dist/__init__.py": {n: ITEM11B for n in ("sharding", "train_state_specs")},
-    "dist/step.py": {"train_state_specs": ITEM11B},
     "kernels/flash_attention.py": {"NEG_INF": PALLAS},
     "kernels/gmf_compress.py": {"BLOCK_ROWS": PALLAS, "LANES": PALLAS, "BLOCK": PALLAS},
-    "models/moe.py": {n: ITEM11B for n in (
-        "dispatch_local", "combine_local", "moe_ep_a2a_body", "moe_ep_body", "moe_ep")},
 }
 
 

@@ -126,12 +126,18 @@ def test_moe_prefill_then_decode_equals_forward():
 
 def test_expert_parallel_over_a_mesh_is_not_ported():
     """``moe_impl="ep"`` without a mesh takes the dense path, as the
-    reference does; with one it raises, naming the item that ports it."""
+    reference does; the forward over a mesh whose model axis is over 1
+    raises, naming the item that ports its tensor parallelism (ROADMAP
+    Queue 1 item 11 part C). ``moe_ep`` itself runs at any model axis
+    (``tests/test_torch_moe_ep.py``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+
     cfg = dataclasses.replace(tgranite.smoke(), moe_impl="ep")
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     with torch.no_grad():
         logits, aux, _ = ttr.forward(cfg, params, batch)
         assert bool(torch.isfinite(logits).all()) and float(aux) > 0
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ttr.forward(cfg, params, batch, ctx={"mesh": object()})
+        with pytest.raises(NotImplementedError, match="item 11 part C"):
+            ttr.forward(cfg, params, batch,
+                        ctx={"mesh": AbstractMesh((1, 2), ("data", "model"))})

@@ -135,9 +135,14 @@ def test_engine_builds_its_state_where_its_params_are(small):
 
 
 def test_engine_refuses_a_mesh(small):
+    """A mesh whose model axis is over 1 raises, naming ROADMAP Queue 1 item
+    11 part C (the pool over KV heads); at model axis 1 the engine runs
+    (``tests/test_torch_dist_step.py``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+
     _, cfg, _, params = small
-    with pytest.raises(NotImplementedError, match="item 11 part B"):
-        ServeEngine(cfg, params, ServeConfig(), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11 part C"):
+        ServeEngine(cfg, params, ServeConfig(), mesh=AbstractMesh((1, 2), ("data", "model")))
 
 
 def test_engine_refuses_bad_requests_as_jax_does(small):

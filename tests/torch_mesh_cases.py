@@ -1,0 +1,42 @@
+"""The cases the four-rank mesh tests run, shared by the port's ranks
+(``tests/torch_mesh_ranks.py``) and the JAX package's run of the same
+cases on four faked CPU devices (``tests/torch_mesh_jax.py``). Plain data:
+this module imports nothing."""
+
+WORLD = 4
+STEPS = 2  # steps a train case takes (the second runs the global momentum)
+BATCH, SEQ = 8, 16
+LR = 0.05
+RATE = 0.1
+
+# name -> (arch's smoke config, its overrides, mesh shape, grad_sync)
+TRAIN = {
+    "gmf_data": ("llama3.2-1b", {}, (4, 1), "gmf_data"),
+    "dense": ("llama3.2-1b", {}, (4, 1), "dense"),
+    "gmf_pod": ("llama3.2-1b", {}, (2, 2, 1), "gmf_pod"),
+    "gmf_pod_moe": ("granite-moe-1b-a400m", {"moe_impl": "dense"}, (2, 2, 1), "gmf_pod"),
+    "dense_ep": ("granite-moe-1b-a400m", {"moe_impl": "ep"}, (4, 1), "dense"),
+}
+ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m")
+
+# the expert-parallel MoE at (data 2, model 2): a small MoE config (the
+# reference's dist_check one), generous capacity (nothing drops) and a
+# tight one (assignments drop)
+MOE = dict(name="m", family="moe", num_layers=1, d_model=32, num_heads=2, num_kv_heads=2,
+           d_ff=48, vocab_size=10, num_experts=4, experts_per_token=2)
+MOE_CAPACITY = {"generous": 8.0, "tight": 1.0}
+MOE_MESH = (2, 2)
+MOE_X = {"a2a": (4, 8, 32), "psum": (4, 1, 32)}  # T divides the model axis, T = 1
+
+
+def axes_of(shape):
+    return ("pod", "data", "model")[-len(shape):]
+
+
+def uneven_labels(labels):
+    """-1 on most of the first two rows' labels: the valid counts differ
+    across ranks (and across a pod's data ranks)."""
+    labels = labels.copy()
+    labels[0, :12] = -1
+    labels[1, :5] = -1
+    return labels

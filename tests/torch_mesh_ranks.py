@@ -1,0 +1,158 @@
+"""The port's side of the four-rank mesh tests: one rank of a gloo world
+(``file://`` store, no port opened) running the cases of
+``tests/torch_mesh_cases.py`` on its local pieces, results to an ``.npz``.
+Imports torch and the port only. Run as a subprocess a rank:
+
+    python tests/torch_mesh_ranks.py train|moe RANK WORLD INIT INPUTS.npz OUT.npz
+"""
+
+import dataclasses
+import datetime
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+import torch_mesh_cases as cases  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint import restore  # noqa: E402
+from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: E402
+from repro_torch.core import CompressionConfig  # noqa: E402
+from repro_torch.dist import sharding as shr  # noqa: E402
+from repro_torch.dist import step as dstep  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_unflatten  # noqa: E402
+
+
+def whole_params(inp, cfg, arch):
+    like = transformer.abstract_params(cfg)
+    return tree_unflatten(like, [torch.from_numpy(inp[f"params/{arch}/{i}"].copy())
+                                 for i in range(len(tree_leaves(like)))])
+
+
+def train(inp, out, ckpt):
+    for name, (arch, over, shape, sync) in cases.TRAIN.items():
+        cfg = dataclasses.replace(configs.get_smoke(arch), **over)
+        mesh = make_mesh(shape, cases.axes_of(shape), "cpu")
+        params = whole_params(inp, cfg, arch)
+        tcfg = TrainConfig(learning_rate=cases.LR, total_steps=10, grad_sync=sync,
+                           lr_schedule="cosine", warmup_steps=1)
+        ccfg = CompressionConfig(scheme="dgcwgmf", rate=cases.RATE)
+        state = dstep.init_train_state(cfg, tcfg, ccfg, params, mesh)
+        step = dstep.make_train_step(cfg, tcfg, ccfg, mesh)
+        b_sh = shr.named_shardings(mesh, dstep.step_batch_specs(cfg, tcfg, mesh))
+        for t in range(cases.STEPS):
+            batch = {k: torch.from_numpy(inp[f"batch/{arch}/{t}/{k}"].copy()).long()
+                     for k in ("tokens", "labels")}
+            state, m = step(state, shr.local_tree(batch, b_sh))
+            out[f"{name}/loss/{t}"] = m["loss"].numpy()
+            out[f"{name}/valid/{t}"] = np.asarray(
+                int((shr.local_tree(batch, b_sh)["labels"] >= 0).sum()))
+            if sync != "dense":
+                out[f"{name}/upload_nnz/{t}"] = m["upload_nnz"].numpy()
+                out[f"{name}/download_nnz/{t}"] = m["download_nnz"].numpy()
+        for i, x in enumerate(tree_leaves(state.params)):
+            out[f"{name}/params/{i}"] = x.numpy()
+        for i, x in enumerate(tree_leaves(state.opt)):
+            out[f"{name}/opt/{i}"] = x.numpy()
+        if sync != "dense":
+            for f in ("u", "v", "m"):
+                out[f"{name}/{f}"] = getattr(state.cstate, f).numpy()
+            out[f"{name}/gbar"] = state.gbar.numpy()
+    # a checkpoint restored onto (4, 1), its leaves cut over data (FSDP's specs)
+    arch = cases.ARCHS[0]
+    cfg = configs.get_smoke(arch)
+    mesh = make_mesh((4, 1), ("data", "model"), "cpu")
+    like = whole_params(inp, cfg, arch)
+    sh = shr.named_shardings(mesh, shr.param_specs(like, fsdp=True, mesh=mesh))
+    local = restore(ckpt, like, shardings=sh)
+    for i, x in enumerate(tree_leaves(local)):
+        out[f"restore/local/{i}"] = x.numpy()
+    for i, x in enumerate(tree_leaves(shr.full_tree(local, sh))):
+        out[f"restore/full/{i}"] = x.numpy()
+
+
+def moe_ep(inp, out):
+    mesh = make_mesh(cases.MOE_MESH, ("data", "model"), "cpu")
+    d, m = mesh.get_coordinate()
+    nd, nm = cases.MOE_MESH
+    for cap_name, cap in cases.MOE_CAPACITY.items():
+        cfg = ModelConfig(**cases.MOE, capacity_factor=cap)
+        whole = {k: torch.from_numpy(inp[f"moe/{k}"].copy())
+                 for k in ("router", "w_gate", "w_up", "w_down")}
+        e_loc, f_loc = cfg.num_experts // nm, cfg.d_ff // nd
+        mine = {"router": whole["router"]}
+        for k in ("w_gate", "w_up", "w_down"):
+            mine[k] = whole[k][m * e_loc:(m + 1) * e_loc]
+        fsdp_mine = dict(mine, w_gate=mine["w_gate"][:, :, d * f_loc:(d + 1) * f_loc],
+                         w_up=mine["w_up"][:, :, d * f_loc:(d + 1) * f_loc],
+                         w_down=mine["w_down"][:, d * f_loc:(d + 1) * f_loc])
+        for path in cases.MOE_X:
+            x = torch.from_numpy(inp[f"x/{path}"].copy())
+            b = x.shape[0] // nd
+            for fsdp, p in ((False, mine), (True, fsdp_mine)):
+                with torch.no_grad():
+                    y, aux = moe.moe_ep(p, cfg, x[d * b:(d + 1) * b], mesh=mesh,
+                                        data_axes=("data",), model_axis="model",
+                                        fsdp_weights=fsdp)
+                out[f"{cap_name}/{path}/{int(fsdp)}/y"] = y.numpy()
+                out[f"{cap_name}/{path}/{int(fsdp)}/aux"] = aux.numpy()
+
+
+if __name__ == "__main__":
+    what, rank, world, init, inputs, dest = sys.argv[1:7]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=int(rank), world_size=int(world),
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        inp = np.load(inputs)
+        res: dict = {}
+        if what == "train":
+            train(inp, res, os.path.join(os.path.dirname(inputs), "ck"))
+        else:
+            moe_ep(inp, res)
+        np.savez(dest, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(what: str, workdir, inputs, timeout: float = 300.0):
+    """Run ``what`` in a gloo world of ``cases.WORLD`` rank processes and,
+    at the same time, the JAX package's run of it on four faked devices,
+    each with its own timeout. Returns (JAX results, [rank results]); a
+    process that fails raises with its output."""
+    import subprocess
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    workdir = Path(workdir)
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"), OMP_NUM_THREADS="1")
+    init = f"file://{workdir / 'store'}"
+    jax_out = workdir / "jax.npz"
+    procs = [subprocess.Popen([sys.executable, str(here / "torch_mesh_jax.py"), what,
+                               str(inputs), str(jax_out)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen([sys.executable, str(here / "torch_mesh_ranks.py"), what, str(r),
+                                str(cases.WORLD), init, str(inputs),
+                                str(workdir / f"rank{r}.npz")], env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for r in range(cases.WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("\n".join(f"--- process {i} (rc {p.returncode}):\n{log[-4000:]}"
+                                     for i, (p, log) in enumerate(zip(procs, logs, strict=True))))
+    return (dict(np.load(jax_out)),
+            [dict(np.load(workdir / f"rank{r}.npz")) for r in range(cases.WORLD)])

@@ -76,13 +76,16 @@ def check_forward(jcfg, tcfg, jp, tp, jb, tb, dtype):
     return got
 
 
-def check_prefill_decode(jcfg, tcfg, jp, tp, jb, tb, dtype, *, prompt_len, gen, cache_len):
+def check_prefill_decode(jcfg, tcfg, jp, tp, jb, tb, dtype, *, prompt_len, gen, cache_len,
+                         meshes=(None, None)):
     """The serving steps: prefill logits and cache, then ``gen`` greedy
-    decode steps (logits, tokens, the final cache)."""
-    jprefill = jax.jit(jstep.make_prefill_step(jcfg, cache_len=cache_len))
-    jserve = jax.jit(jstep.make_serve_step(jcfg))
-    tprefill = tstep.make_prefill_step(tcfg, cache_len=cache_len)
-    tserve = tstep.make_serve_step(tcfg)
+    decode steps (logits, tokens, the final cache). ``meshes`` (JAX mesh,
+    port mesh) builds both packages' steps over a mesh."""
+    jmesh, tmesh = meshes
+    jprefill = jax.jit(jstep.make_prefill_step(jcfg, jmesh, cache_len=cache_len))
+    jserve = jax.jit(jstep.make_serve_step(jcfg, jmesh))
+    tprefill = tstep.make_prefill_step(tcfg, tmesh, cache_len=cache_len)
+    tserve = tstep.make_serve_step(tcfg, tmesh)
 
     jlast, jcache = jprefill(jp, jb)
     tlast, tcache = tprefill(tp, tb)

@@ -194,7 +194,7 @@ def train_configs(sync, **extra):
 
 
 def one_step(arch, sync, *, dtype="float32", scheme="dgcwgmf", use_kernels=False,
-             jax_grads=None):
+             jax_grads=None, meshes=None):
     """One step of ``make_train_step`` in both packages on the same batch ->
     (JAX state, port state, [(JAX metrics, port metrics)]). With
     ``jax_grads`` (a pytest monkeypatch) both steps take JAX's gradient at
@@ -202,7 +202,9 @@ def one_step(arch, sync, *, dtype="float32", scheme="dgcwgmf", use_kernels=False
     gradient is exactly G (the sum of params times G, leaf by leaf), and
     the port's step is fed G, so the compression, the server step and the
     update are compared on equal inputs (the metrics' loss is then that
-    stand-in's)."""
+    stand-in's). ``meshes`` (JAX mesh, port mesh) runs both steps over a
+    mesh: JAX's state and batch laid out by its specs, the port's rank
+    taking its local pieces (one rank: the whole)."""
     import contextlib
 
     from repro_torch.data.pipeline import SyntheticLMStream
@@ -236,10 +238,28 @@ def one_step(arch, sync, *, dtype="float32", scheme="dgcwgmf", use_kernels=False
         jax_grads.setattr(tstep, "_value_and_grad",
                           lambda f, p, batch: (real(f, p, batch)[0], tg))
         eager = jax.disable_jit()
-    jst = jstep.init_train_state(jcfg, jt, jc, jp)
-    tst = tstep.init_train_state(tcfg, tt, tc, from_jax_params(np_params, layout="transformer"))
-    tfn = tstep.make_train_step(tcfg, tt, tc)
+    jmesh, tmesh = meshes or (None, None)
+    jst = jstep.init_train_state(jcfg, jt, jc, jp, jmesh)
+    tst = tstep.init_train_state(tcfg, tt, tc, from_jax_params(np_params, layout="transformer"),
+                                 tmesh)
+    tb = to_torch_batch(b)
+    if jmesh is not None:
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        from repro.dist import sharding as jshr
+        from repro_torch.dist import sharding as tshr
+
+        def put(tree, specs):
+            return jax.device_put(tree, jax.tree_util.tree_map(
+                lambda s: NamedSharding(jmesh, s), specs,
+                is_leaf=lambda x: isinstance(x, PartitionSpec)))
+
+        jst = put(jst, jstep.train_state_specs(jcfg, jt, jc, jp, jmesh))
+        jb = put(jb, jshr.train_batch_specs(jcfg, jmesh))
+        tb = tshr.local_tree(tb, tshr.named_shardings(
+            tmesh, tstep.step_batch_specs(tcfg, tt, tmesh)))
+    tfn = tstep.make_train_step(tcfg, tt, tc, tmesh)
     with eager:
-        jst, jm = jax.jit(jstep.make_train_step(jcfg, jt, jc))(jst, jb)
-    tst, tm = tfn(tst, to_torch_batch(b))
+        jst, jm = jax.jit(jstep.make_train_step(jcfg, jt, jc, jmesh))(jst, jb)
+    tst, tm = tfn(tst, tb)
     return jst, tst, [(jm, tm)]
