@@ -526,6 +526,11 @@ def hold_kernels(gk, ref, dev):
     return worst
 
 
+def max_abs(a, b) -> float:
+    """The largest |a - b| (float64), 0 for empty tensors."""
+    return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+
 def same(worst, name, got, want, what):
     """Fail unless ``got`` is bitwise ``want``; track the largest difference."""
     check(got.shape == want.shape, f"{name}: {what} shape {tuple(got.shape)}")
@@ -3973,6 +3978,585 @@ def mesh_phase(rt, dev, card, served):
     return inst, k4
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the model axis (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+TP_DIR = ROOT / "build" / "tp"  # phase 18's stores and the workers' results (ignored by git)
+# (b): llama3.2-1b at full width, 8 of 16 layers, bf16, batch 8 x 256, 3 steps
+TP_TRAIN = dict(layers=8, batch=8, seq_len=256, steps=3)
+# (c): llama3.2-1b at full width, 2 layers, float32, batch 4, prompt 256, 8 tokens
+TP_SERVE = dict(layers=2, batch=4, prompt_len=256, gen=8)
+TP_TRAIN_TOL, TP_SERVE_TOL = 1e-2, 1e-4  # phase 14's bf16 tolerance; phase 6's float32 one
+# (b)'s gmf_data against the mesh-less run, a step: the upload counts may
+# differ by TP_NNZ_FLIPS entries (bf16 gradients that differ in their last
+# bit move tied scores across a threshold), and the change of the params
+# (final minus initial, bf16: an update near half a unit in the last place
+# rounds either way) by TP_DELTA_TOL relative L2. On an H100 a sound run
+# read at most 33,188 and 0.108; with the norms' all-reduce dropped from
+# the group mode 193,547 and 0.110 (the group select over the two ranks
+# catches that one); with the histograms' dropped over 75 million and at
+# least 0.367 (PERF.md)
+TP_NNZ_FLIPS, TP_DELTA_TOL = 100_000, 0.2
+# (b)'s group select over the two ranks: leaf -> (whole shape, the dim cut
+# over the ranks or None), [TP_SELECT_ROWS, *shape] stacks; "a" and "e" are
+# cut along columns (a rank's piece strided in the leaf's order), "d" is
+# whole on each rank but spans several tiles (a split segment after the
+# cut ones), "b" is one tile
+TP_SELECT = {"a": ((512, 512), 1), "b": ((4096,), None), "c": ((256, 512), 0),
+             "d": ((200_000,), None), "e": ((64, 8), 1)}
+TP_SELECT_ROWS = 3
+
+
+def group_table(rt, layout, dev):
+    """The group mode's plan of ``layout`` with every segment counted as cut
+    over the group: at a group of one each takes the tiles, the sums and the
+    scans the group mode gives a cut segment."""
+    gk = rt.gk
+    plan = gk.plan_select(layout.sizes, gk.select_tile(layout.sizes))
+    return gk.select_table(plan, dev, group=[True] * layout.num_leaves)
+
+
+def hold_group_one(rt, label, layout, v, m, keep, w, tau, group, dev, timing=False,
+                   plain=True):
+    """``gmf_select``'s group mode over a one-rank NCCL ``group``, both modes,
+    against the single launch on the same inputs: thresholds, inverse norms,
+    the |z| mask and its keep counts bitwise; with ``plain``, against its
+    plain version too (thresholds bitwise ``torch.topk``'s per segment on the
+    z of its own scalars, the |z| threshold and mask the plain version's).
+    With ``timing`` both launches are timed (CUDA events around the wrapper
+    call, host in). Returns the times and the largest absolute difference
+    from the single launch (``max_abs_err``)."""
+    gk = rt.gk
+    offs, one, grp = layout.offsets_dev, layout.select_plan(), group_table(rt, layout, dev)
+    kw = dict(offsets=offs, keep=keep, w=w, tau=tau, eps=EPS)
+    single = gk.gmf_select_flat(v, m, plan=one, **kw)
+    grouped = gk.gmf_select_flat(v, m, plan=grp, group=group, **kw)
+    err = 0.0
+    for what, a, b in zip(("inv_nv", "inv_nm", "thr"), grouped, single, strict=True):
+        err = max(err, max_abs(a, b))
+        check(torch.equal(a, b), f"(a) group mode over {label}: {what} differs from the single "
+                                 f"launch's")
+    thr, mask = gk.topk_abs_select_flat(v, offsets=offs, plan=grp, keep=keep, group=group)
+    thr1, mask1 = gk.topk_abs_select_flat(v, offsets=offs, plan=one, keep=keep)
+    err = max(err, max_abs(thr, thr1), max_abs(mask, mask1))
+    check(torch.equal(thr, thr1) and torch.equal(mask, mask1),
+          f"(a) group mode's |z| mode over {label}: threshold or mask differs")
+    kept = [int(torch.count_nonzero(seg)) for seg in layout.segments(mask)]
+    check(kept == [int(torch.count_nonzero(seg)) for seg in layout.segments(mask1)],
+          f"(a) group mode's |z| mode over {label}: keep counts differ")
+    if plain:  # the plain version: torch.topk per segment, on the group mode's own scalars
+        z = rt.ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(grouped[0]),
+                                    inv_norm_m=layout.expand(grouped[1]), tau=tau)
+        table = keep if keep.dim() == 2 else keep.expand(v.shape[0], -1)
+        check(torch.equal(grouped[2], topk_per_segment(z, layout, table)),
+              f"(a) group mode over {label}: thresholds differ from torch.topk's")
+        p_thr, p_mask = rt.sparsify.segment_topk_mask_keep(v, layout, table)
+        check(torch.equal(thr, p_thr) and torch.equal(mask, p_mask),
+              f"(a) group mode's |z| mode over {label}: differs from its plain version")
+    del grouped, single, mask, mask1
+    out = {"max_abs_err": err}
+    if timing:
+        out |= {"ms": timed_ms(lambda: gk.gmf_select_flat(v, m, plan=grp, group=group, **kw),
+                               reps=10, warmup=2),
+                "single_ms": timed_ms(lambda: gk.gmf_select_flat(v, m, plan=one, **kw),
+                                      reps=10, warmup=2),
+                "abs_ms": timed_ms(lambda: gk.topk_abs_select_flat(
+                    v, offsets=offs, plan=grp, keep=keep, group=group), reps=10, warmup=2),
+                "abs_single_ms": timed_ms(lambda: gk.topk_abs_select_flat(
+                    v, offsets=offs, plan=one, keep=keep), reps=10, warmup=2)}
+    print(f"  (a) group mode at a group of one over {label}: {grp.n_split} segments cut over "
+          f"{grp.n_tiles} tiles; bitwise the single launch in both modes (thresholds, inverse "
+          f"norms, |z| mask, keep counts)" + (" and its plain version" if plain else "")
+          + (f"; ms group {out['ms']:.4f} vs single {out['single_ms']:.4f}, |z| group "
+             f"{out['abs_ms']:.4f} vs single {out['abs_single_ms']:.4f}" if timing else ""),
+          flush=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def group_one_phase(rt, dev, bw, peak, resnet_params):
+    """(a) in a one-rank world (NCCL for the card's tensors): the group mode
+    over llama3.2-1b's bf16 row, a ResNet-56 round's float32 stacks (20
+    clients) and ``hold_select_tiles``' tie layouts. Returns the llama row's
+    times with its bound and plain version's time."""
+    from repro_torch.models import transformer
+
+    gk, flat = rt.gk, rt.flat
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    store = TP_DIR / "store_one"
+    store.unlink(missing_ok=True)
+    torch.distributed.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                                         rank=0, world_size=1)
+    try:
+        group = torch.distributed.group.WORLD
+        cfg = rt.configs.get_config(LLAMA)
+        sizes = [x.numel() for x in rt.utils.tree_leaves(transformer.abstract_params(cfg))]
+        layout = flat.FlatLayout.of_sizes(sizes, dev)
+        n = layout.total
+        gen = torch.Generator(device=dev).manual_seed(23)
+        v, m = (torch.randn(n, generator=gen, device=dev).mul_(16).round_().div_(16)
+                .to(BF16).reshape(1, n) for _ in range(2))
+        w, tau = torch.ones(1, device=dev), torch.full((1,), 0.3, device=dev)
+        times = hold_group_one(rt, f"llama3.2-1b's bf16 row [1, {n}]", layout, v, m,
+                               layout.keep(RATE)[1], w, tau, group, dev, timing=True,
+                               plain=False)
+        times["plain_ms"] = timed_ms(lambda: rt.ref.gmf_select(v, m, layout, RATE, w=w, tau=tau,
+                                                                eps=EPS), reps=1, warmup=0)
+        bound_bytes, bound_ops = 4 * n / bw * 1e3, 19 * n / peak * 1e3
+        times.update(bound_ms=max(bound_bytes, bound_ops),
+                     bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                     at=f"llama3.2-1b's row [1, {n}], every segment cut (a group of one)")
+        del v, m
+        torch.cuda.empty_cache()
+        rlayout = flat.FlatLayout.of(resnet_params)
+        rng = np.random.default_rng(31)
+        _, v, m = kernel_inputs(rng, 20, rlayout.total, dev)
+        w = torch.ones(20, device=dev)
+        tau = torch.linspace(0.0, 1.0, 20, device=dev)
+        times["resnet56"] = hold_group_one(rt, "a ResNet-56 round's f32 stacks [20, "
+                                               f"{rlayout.total}]", rlayout, v, m,
+                                           rlayout.keep(RATE)[1], w, tau, group, dev,
+                                           timing=True)
+        errs = [times["max_abs_err"], times["resnet56"]["max_abs_err"]]
+        for label, tl, _ in tile_layouts(rt, dev):
+            v, m, keep = tied_across_borders(rt, tl, 4, dev)
+            w = torch.tensor([1.0, 0.5, 2.0, 1.0], device=dev)
+            tau = torch.tensor([0.0, 0.3, 1.0, 0.6], device=dev)
+            errs.append(hold_group_one(rt, label, tl, v, m, keep, w, tau, group, dev)[
+                "max_abs_err"])
+        times["max_abs_err"] = max(errs)
+    finally:
+        torch.distributed.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return times
+
+
+def tp_probe(dev):
+    """Whether gloo takes the card's tensors across the two processes: an
+    all_reduce (sum, and max) of each dtype the port sums, and an
+    all_gather. Returns {what: "ok" or the error}."""
+    import torch.distributed as dist
+
+    out = {}
+    r = dist.get_rank()
+    for dtype in (torch.float32, BF16, torch.int32, torch.int64, torch.float64):
+        for op in ("SUM", "MAX"):
+            try:
+                x = torch.full((3,), r + 1, dtype=dtype, device=dev)
+                dist.all_reduce(x, op=getattr(dist.ReduceOp, op))
+                want = 3 if op == "SUM" else 2
+                out[f"all_reduce {op} {dtype}"] = ("ok" if x.tolist() == [want] * 3
+                                                   else f"wrong: {x.tolist()}")
+            except Exception as e:  # noqa: BLE001 - recorded and reported, not swallowed
+                out[f"all_reduce {op} {dtype}"] = f"{type(e).__name__}: {e}"[:200]
+    try:
+        parts = [torch.empty(2, device=dev) for _ in range(2)]
+        dist.all_gather(parts, torch.full((2,), float(r), device=dev))
+        out["all_gather float32"] = "ok" if [p.tolist() for p in parts] == [[0.0] * 2, [1.0] * 2] \
+            else "wrong"
+    except Exception as e:  # noqa: BLE001 - the port sums into a zero buffer there instead
+        out["all_gather float32"] = f"{type(e).__name__}: {e}"[:200]
+    return out
+
+
+def tp_group_select(rt, group, dev):
+    """(b) ``gmf_select``'s group mode over the real two-rank ``group``, each
+    rank its pieces of TP_SELECT's leaves, TP_SELECT_ROWS rows (the cut
+    segments' scratch indexed split-major), in float32 and bf16: against
+    the plain group select (``fusion.segment_norms`` summed over the group,
+    the cut segments' scores all-gathered before ``torch.topk``) and the
+    single launch over the whole leaves, each rank comparing its pieces.
+    The fused mode on integers in [-6, 6] (every sum of squares exact in
+    float32 and float64, so the inverse norms are bitwise too), the |z|
+    mode on normal draws rounded to 1/16. Returns the record: the largest
+    absolute difference, whether each comparison is bitwise, the keep counts
+    and the masks' counts over the group."""
+    import torch.distributed as dist
+
+    gk, flat = rt.gk, rt.flat
+    r, n = dist.get_rank(group), dist.get_world_size(group)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rows = TP_SELECT_ROWS
+
+    def draw(ints):
+        out = {}
+        for k, (shape, _) in sorted(TP_SELECT.items()):
+            if ints:
+                out[k] = torch.randint(-6, 7, (rows, *shape), generator=gen, device=dev).float()
+            else:
+                out[k] = torch.randn((rows, *shape), generator=gen, device=dev).mul_(16).round_() \
+                    .div_(16)
+        return out
+
+    def piece(tree):
+        return {k: x if TP_SELECT[k][1] is None else
+                x.chunk(n, dim=TP_SELECT[k][1] + 1)[r].contiguous() for k, x in tree.items()}
+
+    w = torch.tensor([1.0, 0.5, 2.0], device=dev)
+    tau = torch.tensor([0.0, 0.3, 1.0], device=dev)
+    rec = {"equal": {}, "max_abs_err": 0.0}
+
+    def held(what, a, b):
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_abs(a, b))
+        rec["equal"][what] = bool(a.shape == b.shape and torch.equal(a, b))
+
+    for dtype in (torch.float32, BF16):
+        tag = "bf16" if dtype == BF16 else "f32"
+        v, m, z = ({k: x.to(dtype) for k, x in draw(ints).items()} for ints in (1, 1, 0))
+        whole = flat.FlatLayout.of({k: x[0] for k, x in v.items()})
+        small = flat.FlatLayout.of({k: x[0] for k, x in piece(v).items()})
+        lay = small.over(group, whole.sizes)
+        plan = lay.select_plan(group=True)
+        rec[f"{tag}/plan"] = [plan.n_group, plan.n_split, plan.n_tiles]
+        rec[f"{tag}/cut"] = list(lay.cut_flags)
+        keep = lay.keep(RATE)[1]
+        held(f"{tag} keep counts (from the whole sizes)", keep, whole.keep(RATE)[1])
+        vc, mc, zc = (small.flatten(piece(x)) for x in (v, m, z))
+        vw, mw, zw = (whole.flatten(x) for x in (v, m, z))
+        got = gk.gmf_select_flat(vc, mc, offsets=lay.offsets_dev, plan=plan, keep=keep, w=w,
+                                 tau=tau, eps=EPS, group=group)
+        plain = rt.ref.gmf_select(vc, mc, lay, RATE, w=w, tau=tau, eps=EPS)
+        single = gk.gmf_select_flat(vw, mw, offsets=whole.offsets_dev, plan=whole.select_plan(),
+                                    keep=whole.keep(RATE)[1], w=w, tau=tau, eps=EPS)
+        for name, a, b, c in zip(("inv_nv", "inv_nm", "thr"), got, plain, single, strict=True):
+            held(f"{tag} {name} vs the plain group select", a, b)
+            held(f"{tag} {name} vs the single launch over the whole leaves", a, c)
+        # the K1 mask pass on the rank's rows with the group's scalars, its
+        # count over the group against the whole leaves'
+        zero = torch.zeros_like(vc)
+        mask = gk.gmf_compress_flat(zero, vc, mc, offsets=lay.offsets_dev, inv_norm_v=got[0],
+                                    inv_norm_m=got[1], tau=tau, threshold=got[2])[3]
+        mask_w = gk.gmf_compress_flat(torch.zeros_like(vw), vw, mw, offsets=whole.offsets_dev,
+                                      inv_norm_v=single[0], inv_norm_m=single[1], tau=tau,
+                                      threshold=single[2])[3]
+        held(f"{tag} mask vs the whole leaves'", mask,
+             small.flatten(piece(whole.unflatten(mask_w))))
+        rec[f"{tag}/nnz"] = [lay.nnz(mask).tolist(), whole.nnz(mask_w).tolist()]
+        held(f"{tag} nnz over the group", lay.nnz(mask), whole.nnz(mask_w))
+        thr, amask = gk.topk_abs_select_flat(zc, offsets=lay.offsets_dev, plan=plan, keep=keep,
+                                             group=group)
+        p_thr, p_mask = rt.sparsify.segment_topk_mask(zc, lay, RATE)
+        s_thr, s_mask = gk.topk_abs_select_flat(zw, offsets=whole.offsets_dev,
+                                                plan=whole.select_plan(), keep=whole.keep(RATE)[1])
+        held(f"{tag} |z| thr vs the plain group select", thr, p_thr)
+        held(f"{tag} |z| mask vs the plain group select", amask, p_mask)
+        held(f"{tag} |z| thr vs the single launch over the whole leaves", thr, s_thr)
+        held(f"{tag} |z| mask vs the whole leaves'", amask,
+             small.flatten(piece(whole.unflatten(s_mask))))
+        held(f"{tag} |z| nnz over the group", lay.nnz(amask), whole.nnz(s_mask))
+    torch.cuda.synchronize()
+    return rec
+
+
+def tp_train_worker(rt, rank, mesh, sh_of, dev):
+    """(b) on this rank: gmf_data then dense, TP_TRAIN's steps each over the
+    (1, 2) mesh, then the same without a mesh in this process, one rank
+    after the other (two mesh-less runs at once would not fit beside the
+    main process on the card); each rank compares its pieces. Returns the
+    records."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.dist import sharding as shr
+    from repro_torch.models import transformer
+
+    gk, k4 = rt.gk, rt.k4
+    cfg = dataclasses.replace(rt.configs.get_config(LLAMA), num_layers=TP_TRAIN["layers"])
+    out = {}
+    for sync in ("gmf_data", "dense"):
+        tcfg = TrainConfig(learning_rate=3e-3, total_steps=TP_TRAIN["steps"], grad_sync=sync,
+                           lr_schedule="cosine", warmup_steps=1)
+        ccfg = rt.core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3, use_kernels=True)
+        runs = {}
+        for tag, m in (("tp", mesh), ("one", None)):
+            if m is None and rank == 1:  # rank 0's mesh-less run first
+                torch.distributed.barrier()
+            params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            sh = sh_of(params)
+            if m is not None:
+                params = shr.local_tree(params, sh)
+            state = rt.dstep.init_train_state(cfg, tcfg, ccfg, params, m)
+            init = [x.clone() for x in rt.utils.tree_leaves(
+                params if m is not None else shr.local_tree(params, sh))]
+            del params
+            step = rt.dstep.make_train_step(cfg, tcfg, ccfg, m)
+            stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=TP_TRAIN["seq_len"],
+                                       batch_size=TP_TRAIN["batch"], seed=0)
+            gk.reset_launches()
+            k4.reset_launches()
+            recs, ms = [], []
+            for _, b in zip(range(TP_TRAIN["steps"]), stream, strict=False):
+                batch = to_tensors(b, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                loss = float(met["loss"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                recs.append({"loss": loss, "upload_nnz": met["upload_nnz"].tolist()})
+            torch.cuda.synchronize()
+            final = state.params if m is not None else shr.local_tree(state.params, sh)
+            delta = [x.float() - y.float() for x, y in zip(rt.utils.tree_leaves(final), init,
+                                                          strict=True)]
+            del init
+            runs[tag] = dict(recs=recs, ms=ms, params=final, delta=delta,
+                             total=int(met["total_params"]),
+                             inst={f"{k[0]}[{k[1]}]": n for k, n in gk.INSTANCES.items()},
+                             sums=dict(gk.GROUP_SUMS), k4=dict(k4.LAUNCHES))
+            del state, step
+            torch.cuda.empty_cache()
+            if m is None and rank == 0:
+                torch.distributed.barrier()
+        errs = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+                for a, b in zip(rt.utils.tree_leaves(runs["tp"]["params"]),
+                                rt.utils.tree_leaves(runs["one"]["params"]), strict=True)]
+        # the change of the params: each leaf's, and all leaves' together
+        d_tp, d_one = runs["tp"]["delta"], runs["one"]["delta"]
+        delta_errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                      for a, b in zip(d_tp, d_one, strict=True)]
+        delta_all = math.sqrt(sum(float((a - b).norm()) ** 2 for a, b in zip(d_tp, d_one,
+                                                                             strict=True))
+                              / max(sum(float(b.norm()) ** 2 for b in d_one), 1e-60))
+        cut = [a.numel() != b.numel() for a, b in zip(
+            rt.utils.tree_leaves(runs["tp"]["params"]),
+            rt.utils.tree_leaves(transformer.abstract_params(cfg)), strict=True)]
+        out[sync] = {tag: {k: v for k, v in run.items() if k not in ("params", "delta")}
+                     for tag, run in runs.items()}
+        out[sync].update(param_rel_l2=max(errs), delta_rel_l2=delta_all,
+                         delta_rel_l2_leaves=delta_errs, cut_leaves=sum(cut), leaves=len(cut),
+                         exact_k=sum(rt.sparsify.num_keep(n, RATE)
+                                     for n in rt.dstep.full_sizes(cfg)),
+                         local_params=sum(x.numel() for x in rt.utils.tree_leaves(
+                             runs["tp"]["params"])))
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_worker(rt, rank, mesh, sh_of, dev):
+    """(c) on this rank: ``run_fixed`` over the (1, 2) mesh and without one,
+    float32, TP_SERVE's shape; K4's launches in the mesh run's prefill."""
+    from repro_torch.dist import sharding as shr
+
+    k4 = rt.k4
+    cfg = dataclasses.replace(rt.configs.get_config(LLAMA), num_layers=TP_SERVE["layers"],
+                              dtype="float32", param_dtype="float32")
+    args = rt.serve.parser().parse_args([
+        "--arch", LLAMA, "--batch", str(TP_SERVE["batch"]), "--prompt-len",
+        str(TP_SERVE["prompt_len"]), "--gen", str(TP_SERVE["gen"])])
+    whole = rt.serve.init_params(cfg, args.seed, dev)
+    local = shr.local_tree(whole, sh_of(whole))
+    k4.reset_launches()
+    tp = rt.serve.run_fixed(cfg, local, args, dev, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = dict(k4.LAUNCHES)
+    one = rt.serve.run_fixed(cfg, whole, args, dev)
+    a, b = tp.last_logits.double(), one.last_logits.double()
+    return dict(rel_l2=float((a - b).norm() / b.norm()), tokens_equal=torch.equal(tp.tokens,
+                                                                                   one.tokens),
+                tokens=tp.tokens[:, :8].tolist(), k4=launches, summary=tp.summary,
+                summary_one=one.summary)
+
+
+def tp_worker(rank: int, init: str, dest: str) -> None:
+    """One of phase 18's two processes on the one card: a gloo world of two
+    over ``init`` (the card's tensors cross it), the mesh (data 1, model 2),
+    the probe, then (b) (the group select over the two ranks, then the
+    training runs) and (c) where gloo takes the card's tensors; the
+    records to ``dest`` (JSON)."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+
+    import repro_torch.configs as configs
+    import repro_torch.core as core
+    import repro_torch.utils as utils
+    from repro_torch.core import sparsify
+    from repro_torch.dist import sharding as shr
+    from repro_torch.dist import step as dstep
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import gmf_compress as gk
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils import flat
+
+    rt = argparse.Namespace(core=core, utils=utils, gk=gk, k4=k4, configs=configs, dstep=dstep,
+                            serve=serve, sparsify=sparsify, ref=ref, flat=flat)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                                         timeout=datetime.timedelta(seconds=600))
+    out = {"rank": rank}
+    try:
+        out["probe"] = tp_probe(dev)
+        if all(v == "ok" for k, v in out["probe"].items() if k.startswith("all_reduce")):
+            mesh = make_mesh((1, 2), ("data", "model"))
+
+            def sh_of(params):
+                return shr.named_shardings(mesh, shr.param_specs(params, fsdp=False, mesh=mesh))
+
+            out["select"] = tp_group_select(rt, mesh.get_group("model"), dev)
+            t0 = time.perf_counter()
+            out["train"] = tp_train_worker(rt, rank, mesh, sh_of, dev)
+            out["train_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["serve"] = tp_serve_worker(rt, rank, mesh, sh_of, dev)
+            out["serve_s"] = time.perf_counter() - t0
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(dest).write_text(json.dumps(out))
+
+
+def tp_pair_phase(rt, card):
+    """(b) and (c): two processes on the one card (``chip_smoke.py
+    --tp-worker``), started together, waited for with a time limit and
+    killed past it. Checks their records; returns (rank 0's records, the
+    two ranks' compression launches by instance in (b)'s gmf_data run)."""
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    store = TP_DIR / "store_two"
+    store.unlink(missing_ok=True)
+    dests = [TP_DIR / f"rank{r}.json" for r in range(2)]
+    for d in dests:
+        d.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker", str(r),
+                               "--tp-init", f"file://{store}", "--tp-out", str(dests[r])],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    check(all(p.returncode == 0 for p in procs),
+          "phase 18 workers failed:\n" + "\n".join(f"--- rank {r} (rc {p.returncode}):\n"
+                                                   f"{log[-3000:]}" for r, (p, log) in
+                                                   enumerate(zip(procs, logs, strict=True))))
+    res = [json.loads(d.read_text()) for d in dests]
+    print(f"  gloo on the card's tensors, two processes: {json.dumps(res[0]['probe'])}",
+          flush=True)
+    if "train" not in res[0]:
+        print("  (b) and (c) left out: gloo refuses an all_reduce of the card's tensors (above); "
+              "a model axis over 1 has run only on gloo CPU ranks", flush=True)
+        return res[0], {}
+    steps = TP_TRAIN["steps"]
+    # the readings first, so that a failing run shows them all
+    for r, rec in enumerate(res):
+        sel = rec["select"]
+        print(f"  (b) gmf_select's group mode over the two ranks, rank {r}: plan (cut, split, "
+              f"tiles) f32 {sel['f32/plan']} bf16 {sel['bf16/plan']}, {TP_SELECT_ROWS} rows; "
+              f"counts over the group (group, whole leaves) {sel['f32/nnz']}; largest difference "
+              f"{sel['max_abs_err']:.3e}; not bitwise: "
+              f"{[k for k, ok in sel['equal'].items() if not ok] or 'none'}", flush=True)
+    layout_k = res[0]["train"]["gmf_data"]
+    print(f"  (b) llama3.2-1b, {TP_TRAIN['layers']} of 16 layers, bf16, batch "
+          f"{TP_TRAIN['batch']} x {TP_TRAIN['seq_len']}, mesh (1, 2) over gloo, two processes on "
+          f"one card ({card}): {layout_k['cut_leaves']} of {layout_k['leaves']} leaves cut, "
+          f"{layout_k['local_params']} params a rank", flush=True)
+    for sync in ("gmf_data", "dense"):
+        for r, rec in enumerate(res):
+            tr = rec["train"][sync]
+            t, o = tr["tp"], tr["one"]
+            print(f"    {sync} rank {r}: losses {[x['loss'] for x in t['recs']]} (no mesh "
+                  f"{[x['loss'] for x in o['recs']]}), params within "
+                  f"{tr['param_rel_l2']:.3e} relative L2, their change within "
+                  f"{tr['delta_rel_l2']:.3e} (worst leaf {max(tr['delta_rel_l2_leaves']):.3e}); "
+                  f"upload nnz {[x['upload_nnz'] for x in t['recs']]} (no mesh "
+                  f"{[x['upload_nnz'] for x in o['recs']]}; exact-k sum {tr.get('exact_k')}); "
+                  f"ms/step {[round(x, 3) for x in t['ms']]}"
+                  f" (no mesh {[round(x, 3) for x in o['ms']]}; reported only: two processes share "
+                  f"the card); launches {json.dumps(t['inst'])}, group all-reduces "
+                  f"{json.dumps(t['sums'])}, K4 {t['k4']['flash_attention']}", flush=True)
+    for r, rec in enumerate(res):
+        sv = rec["serve"]
+        print(f"  (c) run_fixed at (1, 2), llama3.2-1b {TP_SERVE['layers']} layers float32, batch "
+              f"{TP_SERVE['batch']}, prompt {TP_SERVE['prompt_len']}, {TP_SERVE['gen']} tokens, "
+              f"rank {r}: logits within {sv['rel_l2']:.3e} relative L2 of the one-rank run, "
+              f"tokens equal {sv['tokens_equal']}; K4 {json.dumps(sv['k4'])} (16 q and 4 kv heads "
+              f"a rank); prefill_ms {sv['summary']['prefill_ms']} vs "
+              f"{sv['summary_one']['prefill_ms']}, ms_per_step {sv['summary']['ms_per_step']} vs "
+              f"{sv['summary_one']['ms_per_step']} (reported only)", flush=True)
+    inst_sum = {}
+    for r, rec in enumerate(res):
+        sel = rec["select"]
+        bad = [k for k, ok in sel["equal"].items() if not ok]
+        check(not bad, f"(b) group select over the two ranks, rank {r}: not bitwise in {bad}")
+        check(sel["f32/cut"] == [TP_SELECT[k][1] is not None for k in sorted(TP_SELECT)],
+              f"(b) group select: cut flags {sel['f32/cut']}")
+        tr = rec["train"]
+        for sync in ("gmf_data", "dense"):
+            t, o = tr[sync]["tp"], tr[sync]["one"]
+            for a, b in zip(t["recs"], o["recs"], strict=True):
+                check(abs(a["loss"] - b["loss"]) <= TP_TRAIN_TOL * abs(b["loss"]),
+                      f"(b) {sync} rank {r}: loss {a['loss']} vs {b['loss']} without a mesh")
+                if sync == "gmf_data":
+                    flips = max(abs(x - y) for x, y in zip(a["upload_nnz"], b["upload_nnz"],
+                                                           strict=True))
+                    check(flips <= TP_NNZ_FLIPS,
+                          f"(b) gmf_data rank {r}: upload nnz {a['upload_nnz']} vs "
+                          f"{b['upload_nnz']} without a mesh ({flips} > {TP_NNZ_FLIPS})")
+            check(tr[sync]["param_rel_l2"] <= TP_TRAIN_TOL,
+                  f"(b) {sync} rank {r}: params {tr[sync]['param_rel_l2']:.3e} relative L2 from "
+                  f"the mesh-less run's")
+            check(tr[sync]["delta_rel_l2"] <= TP_DELTA_TOL,
+                  f"(b) {sync} rank {r}: the params' change {tr[sync]['delta_rel_l2']:.3e} "
+                  f"relative L2 from the mesh-less run's")
+            check(t["total"] == o["total"], f"(b) {sync}: total_params {t['total']} vs "
+                                            f"{o['total']}")
+            check(tr[sync]["cut_leaves"] > 0, f"(b) {sync} rank {r}: no leaf cut")
+            check(sum(t["k4"].values()) == 0, f"(b) {sync}: K4 in training {t['k4']}")
+        g = tr["gmf_data"]["tp"]
+        for x in g["recs"]:
+            check(min(x["upload_nnz"]) >= tr["gmf_data"]["exact_k"],
+                  f"(b) gmf_data rank {r}: upload nnz {x['upload_nnz']} < the exact-k sum "
+                  f"{tr['gmf_data']['exact_k']}")
+        want = {"gmf_select[group:bf16,bf16]": steps, "gmf_compress[bf16,bf16]": steps,
+                "momentum_correction[bf16,bf16->bf16]": steps}
+        check(g["inst"] == want, f"(b) gmf_data rank {r}: launches {g['inst']}, expected {want}")
+        check(g["sums"] == {"group:bf16,bf16": 4 * steps},
+              f"(b) gmf_data rank {r}: the group's all-reduces {g['sums']}")
+        check(tr["gmf_data"]["one"]["inst"].get("gmf_select[bf16,bf16]") == steps,
+              f"(b) the mesh-less run's launches {tr['gmf_data']['one']['inst']}")
+        check(not tr["dense"]["tp"]["inst"], f"(b) dense launched {tr['dense']['tp']['inst']}")
+        for k, n in g["inst"].items():
+            inst_sum[k] = inst_sum.get(k, 0) + n
+        sv = rec["serve"]
+        check(sv["rel_l2"] <= TP_SERVE_TOL and sv["tokens_equal"],
+              f"(c) rank {r}: logits {sv['rel_l2']:.3e} relative L2 from the one-rank run's, "
+              f"tokens equal {sv['tokens_equal']}")
+        check(sv["k4"]["flash_attention_cc"] == TP_SERVE["layers"],
+              f"(c) rank {r}: K4 launches {sv['k4']}")
+    print(f"  (b)/(c) workers: train {res[0]['train_s']:.1f} s, serve {res[0]['serve_s']:.1f} s",
+          flush=True)
+    rec = dict(res[0], select_max_abs_err=max(x["select"]["max_abs_err"] for x in res))
+    return rec, inst_sum
+
+
+def model_axis_phase(rt, dev, card, bw, peak, resnet_params):
+    """Phase 18: (a) in a one-rank NCCL world, then (b) and (c) in two
+    processes. Returns ((a)'s times, rank 0's records, (b)'s launches by
+    instance over both ranks)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = group_one_phase(rt, dev, bw, peak, resnet_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"  this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB; "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card", flush=True)
+    rec, inst = tp_pair_phase(rt, card)
+    return times, rec, inst
+
+
 T_START = time.perf_counter()
 
 
@@ -3983,13 +4567,19 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="run only the build and kernel phases")
+    ap.add_argument("--only", choices=("kernels", "model-axis"), default=None,
+                    help="run only the build and kernel phases, or the build and phase 18")
+    ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also break down where a ResNet-56 and a Shakespeare round's, "
                          "each serving run's, a dense training step's and the serving "
                          "engine's time goes (torch.profiler; phases 4, 5, 9, 13, 14 and 16)")
     args = ap.parse_args()
+    if args.tp_worker is not None:  # one of phase 18's two processes
+        tp_worker(args.tp_worker, args.tp_init, args.tp_out)
+        return
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
         fail(f"{SRC / 'repro_torch'} is missing: run this script from a checkout of the repo")
@@ -4047,6 +4637,16 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if args.only == "model-axis":
+        phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
+              "processes on the card over gloo)")
+        model_axis_phase(rt, dev, card, bw, peak, _resnet56_params(dev))
+        phase("results")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+
     phase("phase 2: kernels vs plain versions")
     resnet_params = _resnet56_params(dev)
     lstm_layout = flat.FlatLayout.of(_lstm_params(dev))
@@ -4101,6 +4701,7 @@ def main() -> None:
     by_path = {}  # the compression kernels' launches in each path's run
     bf16_by_path = {}  # the training paths' launches by kernel instance
     served_k4 = {}  # phase 13's K4 launches by config
+    tp_times = {}  # phase 18 (a)'s times of gmf_select's group mode
     k4_tc_by_path = {}  # the tensor-core K4's launches in phase 5's and phase 16's runs
     if args.only != "kernels":
         phase("phase 3: ResNet-56 FL path, 20 clients, batch 64")
@@ -4179,6 +4780,14 @@ def main() -> None:
         by_path["llama_mesh"] = f32_launches(mesh_inst)
         bf16_by_path["llama_mesh"] = mesh_inst
         print(f"  phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
+        phase("phase 18: the model axis: gmf_select's group mode at a group of one, then "
+              "llama3.2-1b over the mesh (1, 2) in two processes on the card (gloo)")
+        t18 = time.perf_counter()
+        tp_times, tp_rec, tp_inst = model_axis_phase(rt, dev, card, bw, peak, resnet_params)
+        tp_times["max_abs_err"] = max(tp_times["max_abs_err"],
+                                      tp_rec.get("select_max_abs_err", 0.0))
+        bf16_by_path["llama_tp"] = {tuple(k[:-1].split("[", 1)): n for k, n in tp_inst.items()}
+        print(f"  phase 18 in {time.perf_counter() - t18:.1f} s", flush=True)
         launches["flash_attention_tc"] = sum(k4_tc_by_path.values())
         for counts in by_path.values():
             for name, n in counts.items():
@@ -4221,6 +4830,25 @@ def main() -> None:
         if row_name == "gmf_select_bf16":
             rows[-1].update(plan=plan_of(llama_lay),
                             at_abs_mode=bf16_times["gmf_select_abs_bf16"])
+    # gmf_select's group mode: its launches in phase 18 (b)'s gmf_data run
+    # (both ranks), held bitwise against the single launch at a group of one
+    # in (a) and over the two ranks in (b) (and there against its plain
+    # version), its largest difference from both; timed over llama3.2-1b's
+    # bf16 row in phase 18 (a).
+    if tp_times:
+        rows.append({"name": "gmf_select_group", "id": "K1", "route": "cuda",
+                     "source": PORT_SOURCE, "replaces": replaces["gmf_select"],
+                     "instance": "group:bf16,bf16",
+                     "launches": bf16_by_path.get("llama_tp", {}).get(
+                         ("gmf_select", "group:bf16,bf16"), 0),
+                     "launches_in": "phase 18 (b): llama3.2-1b gmf_data at mesh (1, 2), both "
+                                    "ranks", "max_abs_err": tp_times["max_abs_err"],
+                     **{k: tp_times[k] for k in ("ms", "bound_ms", "bound_by", "at")},
+                     "plain_ms": tp_times["plain_ms"], "library_ms": None,
+                     "single_launch_ms": tp_times["single_ms"],
+                     "abs_mode": {"ms": tp_times["abs_ms"],
+                                  "single_launch_ms": tp_times["abs_single_ms"]},
+                     "resnet56_round": tp_times["resnet56"]})
     # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.

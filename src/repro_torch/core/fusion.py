@@ -16,6 +16,7 @@ each leaf.
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 from repro_torch.utils.device import scalar
 
@@ -52,8 +53,17 @@ def gmf_score(v: torch.Tensor, m: torch.Tensor, tau, eps: float = 1e-16) -> torc
 
 def segment_norms(x: torch.Tensor, layout) -> torch.Tensor:
     """Per-client L2 norm of every leaf segment of a flat ``[k, N]`` stack,
-    in float32 -> ``[k, L]``."""
-    return torch.stack([row_l2_norm(seg) for seg in layout.segments(x.float())], dim=1)
+    in float32 -> ``[k, L]``. A segment cut over the layout's model group
+    (``FlatLayout.over``) sums its squares over the group first."""
+    if not layout.cut:
+        return torch.stack([row_l2_norm(seg) for seg in layout.segments(x.float())], dim=1)
+    sq = torch.stack([torch.sum(torch.square(seg), dim=1)
+                      for seg in layout.segments(x.float())], dim=1)
+    idx = [i for i, cut in enumerate(layout.cut_flags) if cut]
+    part = sq[:, idx].contiguous()
+    torch.distributed.all_reduce(part, group=layout.group)
+    sq[:, idx] = part
+    return torch.sqrt(sq)
 
 
 def segment_l2_normalize(x: torch.Tensor, layout, eps: float = 1e-16) -> torch.Tensor:

@@ -65,6 +65,11 @@ def _gather(parts):
     """Per-group results -> one tuple per field, unused fields kept ``{}``."""
     return parts[0] if isinstance(parts[0], dict) and not parts[0] else tuple(parts)
 
+
+# The wires that act elementwise (a cast), and so run on a leaf's piece.
+_ELEMENTWISE_WIRES = ("float32", "float16", "bfloat16")
+
+
 # Presets of the reference not ported yet -> the ROADMAP item that ports them.
 NOT_PORTED_PRESETS: dict[str, str] = {}
 
@@ -287,13 +292,15 @@ class Scheme:
             return self._grouped_client(state, grad, gbar_prev, round_idx, local_steps,
                                         mean_steps, tau_override, rates, wire_levels,
                                         client_ids, layout)
+        if layout.cut:
+            self.check_model_axis(rates)
         if self.is_sketch:
             return self._sketch_client(state, grad, layout)
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
                        local_steps=local_steps, mean_steps=mean_steps,
                        tau_override=tau_override, layout=layout, client_ids=client_ids)
         ops = stages.elementwise_ops(cfg)
-        total = layout.total
+        total = layout.full_total
 
         m, extra = self.fusion.pre(cfg, state.m, gbar_prev)
         value, u, v = self.compensator.accumulate(cfg, ops, state.u, state.v, grad, extra)
@@ -305,7 +312,7 @@ class Scheme:
                 and self.selector.name == "topk"
                 and self.compensator.uses_u and self.compensator.uses_v):
             g_out, u, v, m, masks = fused(cfg, u, v, m, ctx)
-            nnz = tree_nnz(masks, client_axis=True)
+            nnz = layout.nnz(masks)
         elif self.selector.dense:
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, None)
             nnz = torch.full((grad.shape[0],), total, dtype=torch.int64, device=grad.device)
@@ -316,7 +323,7 @@ class Scheme:
                 ref = value
             masks = self.selector.select(cfg, ref, round_idx, layout, rates=rates)
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, masks)
-            nnz = tree_nnz(masks, client_axis=True)
+            nnz = layout.nnz(masks)
 
         if not self.rotation.identity:
             # rotation densifies: the padded rotated leaves cross the wire
@@ -326,6 +333,26 @@ class Scheme:
         g_out, new_state = self._encode_payload(cfg, g_out, ClientState(u=u, v=v, m=m),
                                                 layout, wire_levels, ctx)
         return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
+
+    def check_model_axis(self, rates=None) -> None:
+        """Raise unless every stage acts elementwise or per leaf, so that it
+        runs on the rank's pieces of leaves cut over a model group: the
+        stages that cut or key a leaf by flat coordinate, whose local piece
+        is strided in the leaf's order, wait for ROADMAP item 11 part C2."""
+        cfg = self.cfg
+        across = [name for name, bad in (
+            ("the sketch selector", self.is_sketch),
+            ("global top-k (per_tensor=False)", not cfg.per_tensor),
+            (f"the {cfg.selector} threshold estimator", cfg.selector != "exact"),
+            ("the randomk selector", self.selector.name == "randomk"),
+            (f"the {self.wire.name} wire", self.wire.name not in _ELEMENTWISE_WIRES),
+            (f"the {self.rotation.name} rotation", not self.rotation.identity),
+            ("adaptive rate control", self.rate_adaptive or rates is not None)) if bad]
+        if across:
+            raise NotImplementedError(
+                f"scheme {self.name!r}: {', '.join(across)} over leaves cut across a model axis "
+                f"is not ported yet (it cuts or keys a leaf by flat coordinate): ROADMAP Queue 1 "
+                f"item 11 part C2")
 
     def check_grouped(self) -> None:
         """Raise unless every stage works leaf by leaf (a tree of mixed
@@ -357,7 +384,7 @@ class Scheme:
         payload = tuple(o[0] for o in outs)
         new_state = ClientState(*(_gather([o[1][f] for o in outs]) for f in range(3)))
         nnz = sum(o[2].upload_nnz for o in outs)
-        return payload, new_state, CompressInfo(upload_nnz=nnz, total_params=layout.total)
+        return payload, new_state, CompressInfo(upload_nnz=nnz, total_params=layout.full_total)
 
     def _encode_payload(self, cfg, g_out, state: ClientState, layout, wire_levels, ctx):
         """Wire-encode the payload stack: rotation forward, the wire round
@@ -404,7 +431,7 @@ class Scheme:
                                           g_sum[i], num_clients, layout=sub, lr=lr)
                     for i, sub in enumerate(layout.groups)]
             info = AggregateInfo(download_nnz=sum(o[2].download_nnz for o in outs),
-                                 total_params=layout.total,
+                                 total_params=layout.full_total,
                                  union_nnz=sum(o[2].union_nnz for o in outs))
             return (tuple(o[0] for o in outs),
                     ServerState(*(_gather([o[1][f] for o in outs]) for f in range(2))), info)
@@ -419,8 +446,8 @@ class Scheme:
                 bcast, new_momentum = self.fusion.server(cfg, server_state.momentum, gbar)
             else:
                 bcast, new_momentum = gbar, server_state.momentum
-            union_nnz = tree_nnz(bcast)
-        total = bcast.numel()
+            union_nnz = tree_nnz(bcast) if layout is None else layout.nnz(bcast)
+        total = bcast.numel() if layout is None else layout.full_total
         if self.downlink.uses_residual and layout is None:
             raise ValueError(f"the {self.downlink.name} downlink needs the params' layout: "
                              f"server_aggregate(..., layout=...)")

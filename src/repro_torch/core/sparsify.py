@@ -36,6 +36,7 @@ import math
 from typing import Literal
 
 import torch
+import torch.distributed
 
 Selector = Literal["exact", "sampled"]  # the threshold estimators
 _SAMPLE_TARGET = 16384
@@ -95,16 +96,32 @@ def topk_mask(z: torch.Tensor, rate: float, selector: str = "exact") -> torch.Te
     return (za >= _bcast(thr, za)).float()
 
 
+def whole_segment(seg: torch.Tensor, layout, i: int) -> torch.Tensor:
+    """Segment ``i`` of every row of a score stack as the whole leaf's
+    scores: the ranks' pieces gathered over the layout's model group where
+    the segment is cut (in rank order; a threshold does not depend on the
+    order), else the segment itself."""
+    if not layout.cut_flags[i]:
+        return seg
+    parts = [torch.empty_like(seg, memory_format=torch.contiguous_format)
+             for _ in range(torch.distributed.get_world_size(layout.group))]
+    torch.distributed.all_gather(parts, seg.contiguous(), group=layout.group)
+    return torch.cat(parts, dim=1)
+
+
 def segment_thresholds(za: torch.Tensor, layout, rate: float,
                        selector: str = "exact") -> torch.Tensor:
     """The threshold of every (client, leaf) segment of a flat ``[k, N]``
-    score stack -> ``[k, L]``: the exact k_i-th largest of the segment, or
-    the sampled estimate from a strided sample of the leaf in its shape."""
+    score stack -> ``[k, L]``: the exact k_i-th largest of the segment (of
+    the whole leaf where it is cut over the layout's model group, the plain
+    version of ``gmf_select``'s group mode), or the sampled estimate from a
+    strided sample of the leaf in its shape."""
     out = []
     keep, _ = layout.keep(rate)
-    for seg, shape, k_i in zip(layout.segments(za), layout.shapes, keep, strict=True):
+    for i, (seg, shape, k_i) in enumerate(zip(layout.segments(za), layout.shapes, keep,
+                                              strict=True)):
         if selector == "exact":
-            out.append(exact_threshold(seg, k_i))
+            out.append(exact_threshold(whole_segment(seg, layout, i), k_i))
         elif selector == "sampled":
             sample = strided_sample_nd(seg.reshape(seg.shape[0], *shape))
             out.append(exact_threshold(sample, num_keep(sample.shape[1], rate)))

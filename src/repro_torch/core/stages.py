@@ -726,7 +726,7 @@ class TopKDownlink(Downlink):
         # the payload ships through the scheme's wire codec; with masks in
         # {0, 1}, r·(1−mk) + (r·mk − wire(r·mk)) is r − wire(r·mk)
         out_w = wire.roundtrip(r * masks, layout)
-        return out_w, r - out_w, torch.count_nonzero(masks)
+        return out_w, r - out_w, layout.nnz(masks)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Train, prefill and decode steps: the port of the reference's
-``dist/step.py``, on one device or over a mesh (``launch/mesh.py``) whose
-``model`` axis is 1.
+``dist/step.py``, on one device or over a mesh (``launch/mesh.py``).
 
 Without a mesh the steps run on the device the params lie on, as the
 reference runs them without one (``_num_shards`` is 1). Over a mesh every
@@ -25,9 +24,24 @@ The metrics follow the reference: ``loss`` is the mean over shards (the
 global loss under dense sync), ``upload_nnz`` the exact int64 ``[n]``
 vector gathered in shard order. As in the reference, the expert-parallel
 MoE (``moe_ep``) runs only under dense sync and in serving; the gmf modes
-run ``moe_dense``. A mesh whose ``model`` axis is larger than 1 raises
-``NotImplementedError`` (tensor parallelism, and FSDP over ``data`` for
-the >40 B archs: ROADMAP Queue 1 item 11 part C).
+run ``moe_dense``.
+
+Tensor parallelism: on a mesh whose ``model`` axis is m > 1 every rank
+holds its pieces of the params by the reference's ``_TP_RULES``
+(``sharding.local_tree`` of ``param_specs``) and the batch lies over the
+data axes only, so the ranks of a model group hold the same rows and the
+same loss. The forward is the reference's function with the model group
+in its ctx (``models/transformer.py``); the loss is vocabulary-parallel
+where the logits are cut (the max, the sum of exponentials and the
+target's logit each combined over ``model``). Each rank's flat
+compression row holds its pieces of the leaves; its ``FlatLayout`` is
+``over`` the model group, so the keep counts come from the whole leaves'
+sizes, a cut segment's norms and threshold are the whole leaf's
+(``gmf_select``'s group mode), and ``upload_nnz`` / ``total_params``
+count the whole model. Stages that cut or key a leaf by flat coordinate
+raise (``Scheme.check_model_axis``), and so do FSDP over a data axis > 1,
+the expert-parallel MoE inside a step and the engine at model > 1
+(ROADMAP Queue 1 item 11 part C2).
 
 Training: the gmf modes make each shard one GMF client whose gradient runs
 through ``Scheme.client_compress`` and ``server_aggregate`` with its own
@@ -46,8 +60,11 @@ FL engines' names (``round.client_grads``, ``round.client_compress``,
 Serving: the fixed-batch prefill and decode steps, and the paged ones of
 the continuous-batching engine (``serve/engine.py``), run under
 ``torch.no_grad``; the decode steps and the paged prefill write into the
-cache or pool they are given. Over a mesh they take the rank's batch and
-cache (whole at model axis 1) and carry the EP keys in their ctx.
+cache or pool they are given. Over a mesh they take the rank's batch,
+params and cache (the cache's kv heads the rank's where they divide the
+model axis, ``kv_entry_spec``) and carry the model group and the EP keys
+in their ctx; the logits come back whole. The paged steps refuse a model
+axis over 1 (ROADMAP Queue 1 item 11 part C2).
 """
 
 from __future__ import annotations
@@ -91,19 +108,33 @@ class TrainState(NamedTuple):
 
 
 def _check_mesh(cfg, mesh) -> None:
-    """Refuse what needs the model axis: a ``model`` axis > 1 (tensor
-    parallelism) and, for the >40 B archs, a ``data`` axis > 1 (FSDP)."""
+    """Refuse FSDP: the >40 B archs on a ``data`` axis > 1."""
     if mesh is None:
         return
-    m = axis_size(mesh, shr.MODEL_AXIS)
-    if m > 1:
-        raise NotImplementedError(
-            f"a mesh whose model axis is {m} needs tensor parallelism, which is not ported "
-            "yet: ROADMAP Queue 1 item 11 part C")
     if cfg is not None and needs_fsdp(cfg) and axis_size(mesh, "data") > 1:
         raise NotImplementedError(
             f"{cfg.name} shards its params over data (FSDP) on a data axis of "
-            f"{axis_size(mesh, 'data')}, which is not ported yet: ROADMAP Queue 1 item 11 part C")
+            f"{axis_size(mesh, 'data')}, which is not ported yet: ROADMAP Queue 1 item 11 "
+            "part C2")
+
+
+def model_group(mesh):
+    """The mesh's model group when its model axis is over 1 (tensor
+    parallelism), else None."""
+    if mesh is None or axis_size(mesh, shr.MODEL_AXIS) == 1:
+        return None
+    return mesh.get_group(shr.MODEL_AXIS)
+
+
+def full_sizes(cfg) -> tuple[int, ...]:
+    """The whole leaves' sizes of ``cfg``'s params, in ``tree_leaves``
+    order (a meta-device shape pass)."""
+    return tuple(x.numel() for x in tree_leaves(transformer.abstract_params(cfg)))
+
+
+def _cut_leaves(params, sizes) -> tuple[bool, ...]:
+    """Which of the rank's leaves are pieces (their size not the whole's)."""
+    return tuple(x.numel() != n for x, n in zip(tree_leaves(params), sizes, strict=True))
 
 
 def _sync_axis(grad_sync: str) -> str | None:
@@ -188,6 +219,27 @@ def make_loss_fn(cfg, mesh=None):
     return _share_loss_fn(cfg, _model_ctx(cfg, mesh), [])
 
 
+def _nll(cfg, logits, labels, tp):
+    """Per-position float32 NLL of ``labels`` (clamped at 0) under
+    ``logits``: ``log_softmax`` and a gather, or, where ``tp`` cuts the
+    vocabulary (the rank's columns), the vocabulary-parallel form: the max,
+    the sum of exponentials and the target's logit each combined over the
+    group (the max without a gradient, which it does not change)."""
+    safe = torch.clamp(labels, min=0)
+    if tp is None or logits.shape[-1] == cfg.vocab_size:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, safe[..., None])[..., 0]
+    lf = logits.float()
+    v_loc = lf.shape[-1]
+    shifted = lf - col.max_over(lf.detach().amax(dim=-1), tp)[..., None]
+    sumexp = col.reduce_from(torch.exp(shifted).sum(dim=-1), tp)
+    local = safe - col.rank(tp) * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    tgt = torch.gather(shifted, -1, torch.where(hit, local, 0)[..., None])[..., 0]
+    tgt = col.reduce_from(torch.where(hit, tgt, torch.zeros((), device=tgt.device)), tp)
+    return torch.log(sumexp) - tgt
+
+
 def _share_loss_fn(cfg, ctx, groups):
     """This rank's share of the loss of a batch laid over ``groups``: its
     NLL over the valid-label count summed over the groups, and its share of
@@ -200,13 +252,12 @@ def _share_loss_fn(cfg, ctx, groups):
     if groups:
         ctx = dict(ctx, token_groups=tuple(groups))
     ep = ctx.get("moe_impl") == "ep"
+    tp = ctx.get("tp")
 
     def loss_fn(params, batch):
         logits, aux, _ = transformer.forward(cfg, params, batch, ctx=ctx)
         labels = batch["labels"]
-        logp = F.log_softmax(logits.float(), dim=-1)
-        safe = torch.clamp(labels, min=0)
-        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        nll = _nll(cfg, logits, labels, tp)
         valid = (labels >= 0).float()
         count = torch.sum(valid)
         for g in groups:
@@ -219,17 +270,21 @@ def _share_loss_fn(cfg, ctx, groups):
     return loss_fn
 
 
-def _model_ctx(cfg, mesh, **extra) -> dict:
+def _model_ctx(cfg, mesh, *, ep: bool = True, **extra) -> dict:
     """Forward-pass ctx: the hybrid family's attention window, and over a
-    mesh the plumbing of the expert-parallel MoE, as the reference sets
-    them."""
+    mesh the model group (tensor parallelism at a model axis over 1) and,
+    with ``ep``, the plumbing of the expert-parallel MoE, as the reference
+    sets them."""
     _check_mesh(cfg, mesh)
     ctx = dict(extra)
     if cfg.family == "hybrid":
         # ring caches + masks sized to the local-attention window, matching
         # transformer.init_block_cache
         ctx["window"] = cfg.local_attn_window
-    if mesh is not None and cfg.num_experts > 0 and cfg.moe_impl == "ep":
+    tp = model_group(mesh)
+    if tp is not None:
+        ctx["tp"] = tp
+    if ep and mesh is not None and cfg.num_experts > 0 and cfg.moe_impl == "ep":
         ctx.update(mesh=mesh, data_axes=shr.dp_axes(mesh), model_axis=shr.MODEL_AXIS,
                    moe_impl="ep", fsdp_moe=needs_fsdp(cfg))
     return ctx
@@ -247,7 +302,8 @@ def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
     ``gmf_data``, its pod's under ``gmf_pod``) in the params' dtypes, its
     server state and a zero ``gbar`` (``{}`` unless the scheme keeps the
     global momentum). Params, opt slots, ``gbar`` and the server state are
-    replicated: every rank passes the same params."""
+    every rank's own: every rank passes its pieces of the params
+    (``sharding.local_tree``; the whole at a model axis of 1)."""
     _num_shards(tcfg.grad_sync, mesh)
     _check_mesh(cfg, mesh)
     opt = sgd.init(params, momentum=tcfg.momentum)
@@ -266,10 +322,10 @@ def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
 def train_state_specs(cfg, tcfg, ccfg, params, mesh) -> TrainState:
     """Spec tree mirroring ``init_train_state``: per-leaf specs for the
     params, the opt slots, ``gbar`` and the server state, the reference's
-    (``gbar`` and the server state are held flat, replicated: at model axis
-    1 these specs name no axis of size > 1 but FSDP's); ``P(axis)`` for each
-    flat ``[n, N]`` compression stack (a tuple of them for a tree of mixed
-    dtypes)."""
+    (the port holds ``gbar`` and the server state flat, each rank its pieces
+    of the leaves as those specs cut them); ``P(axis)`` for each flat
+    ``[n, N]`` compression stack of the rank's pieces (a tuple of them for a
+    tree of mixed dtypes)."""
     pspec = shr.param_specs(params, fsdp=needs_fsdp(cfg), mesh=mesh)
     axis = _sync_axis(tcfg.grad_sync)
     if tcfg.grad_sync == "dense":
@@ -323,15 +379,18 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
     n = _num_shards(sync, mesh)
     _check_mesh(cfg, mesh)
     loss_groups, sync_group = _step_groups(sync, mesh)
+    tp = model_group(mesh)
+    sizes = full_sizes(cfg) if tp is not None else None
     # the compressed modes run dense experts, as the reference's vmap over
     # shards does; EP only under dense sync
-    loss_fn = _share_loss_fn(cfg, _model_ctx(cfg, mesh if sync == "dense" else None),
-                             loss_groups)
+    loss_fn = _share_loss_fn(cfg, _model_ctx(cfg, mesh, ep=sync == "dense"), loss_groups)
 
     def _apply(params, opt, update, step):
         lr = sgd.lr_at(step, tcfg)
+        cut = _cut_leaves(params, sizes) if tp is not None else None
         return sgd.apply_updates(params, update, opt, lr=lr, momentum=tcfg.momentum,
-                                 weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+                                 weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
+                                 group=tp, cut=cut)
 
     if sync == "dense":
 
@@ -343,7 +402,8 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                     loss = _psum_(loss, loss_groups)
             with torch.no_grad(), trace.annotate_scope("round.apply_update"):
                 params, opt = _apply(state.params, state.opt, grads, state.step)
-            total = torch.tensor(tree_size(state.params), dtype=torch.int64)
+            total = torch.tensor(sum(sizes) if sizes else tree_size(state.params),
+                                 dtype=torch.int64)
             metrics = {"loss": loss, "upload_nnz": total, "download_nnz": total,
                        "total_params": total}
             return state._replace(params=params, opt=opt, step=state.step + 1), metrics
@@ -357,9 +417,13 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
             "update, so optimiser weight_decay/grad_clip would apply to the "
             "lr-scaled update (1/lr times too strong) — set them to 0 for "
             "this scheme")
+    if tp is not None:
+        scheme.check_model_axis()
 
     def step_fn(state: TrainState, batch):
         layout = FlatLayout.of(state.params)
+        if tp is not None:
+            layout = layout.over(tp, sizes)
         with trace.annotate_scope("round.client_grads"):
             (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
         with torch.no_grad():
@@ -384,9 +448,9 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
             update = layout.unflatten(gbar)
             with trace.annotate_scope("round.apply_update"):
                 if scheme.owns_lr:
-                    # FetchSGD: lr already entered the sketch-space error
-                    # feedback — the broadcast is the finished update, applied
-                    # un-scaled
+                    # FetchSGD (never over a model axis): lr already entered the
+                    # sketch-space error feedback — the broadcast is the
+                    # finished update, applied un-scaled
                     params, opt = sgd.apply_updates(state.params, update, state.opt, lr=1.0,
                                                     momentum=tcfg.momentum)
                 else:
@@ -424,9 +488,18 @@ def make_prefill_step(cfg, mesh=None, *, cache_len: int):
     @torch.no_grad()
     def prefill(params, batch):
         logits, _, cache = transformer.forward(cfg, params, batch, ctx=ctx)
-        return logits[..., -1, :].float(), cache
+        return _whole_logits(cfg, logits[..., -1, :].float(), ctx), cache
 
     return prefill
+
+
+def _whole_logits(cfg, logits, ctx):
+    """Logits over the whole vocabulary: gathered over the model group
+    where it cuts them (the rank's columns)."""
+    tp = ctx.get("tp")
+    if tp is None or logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return col.gather_from(logits, tp, -1)
 
 
 def make_serve_step(cfg, mesh=None):
@@ -438,6 +511,7 @@ def make_serve_step(cfg, mesh=None):
     @torch.no_grad()
     def serve(params, cache, tokens, pos):
         logits, cache = transformer.decode_step(cfg, params, cache, tokens, pos, ctx=ctx)
+        logits = _whole_logits(cfg, logits, ctx)
         return torch.argmax(logits, dim=-1), logits, cache
 
     return serve
@@ -446,6 +520,15 @@ def make_serve_step(cfg, mesh=None):
 # ---------------------------------------------------------------------------
 # Serving: paged (continuous-batching) variants
 # ---------------------------------------------------------------------------
+
+
+def _check_paged(mesh) -> None:
+    """Refuse the paged steps at a model axis over 1: the pool cut over kv
+    heads (``sharding.pool_specs``) is ROADMAP Queue 1 item 11 part C2."""
+    if mesh is not None and axis_size(mesh, shr.MODEL_AXIS) > 1:
+        raise NotImplementedError(
+            f"the paged KV pool over a model axis of {axis_size(mesh, shr.MODEL_AXIS)} (its kv "
+            "heads cut by sharding.pool_specs) is not ported yet: ROADMAP Queue 1 item 11 part C2")
 
 
 def make_paged_prefill_step(cfg, codec, mesh=None, *, prompt_pad: int):
@@ -463,6 +546,7 @@ def make_paged_prefill_step(cfg, codec, mesh=None, *, prompt_pad: int):
     owns and stays masked until decode overwrites it). ``last_index`` is
     made on the device by a fill, so the step copies nothing from the host.
     """
+    _check_paged(mesh)
     ctx_base = _model_ctx(cfg, mesh, want_cache=True, cache_len=prompt_pad, last_only=True)
 
     def write_one(pe, ke, ve, phys):
@@ -501,6 +585,7 @@ def make_paged_serve_step(cfg, codec, mesh=None):
     that is never read back: completion is length bookkeeping on the host,
     so the decode loop reads nothing back from the device.
     """
+    _check_paged(mesh)
     ctx = _model_ctx(cfg, mesh)
 
     @torch.no_grad()

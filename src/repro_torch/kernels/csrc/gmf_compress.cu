@@ -1011,6 +1011,170 @@ int launch_select(const SelArgs& g, const SelPlan& plan, unsigned* bar, cudaStre
   return err ? (int)err : (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gmf_select's group mode: a segment cut over a group of ranks
+// ---------------------------------------------------------------------------
+//
+// The select's phases as launches of their own, so that between them the
+// caller can sum over the group what a cut segment's ranks hold apart: the
+// float64 sums of v^2 and m^2 (before the score), then each radix pass's
+// histogram (before its scan). The plan puts the cut segments first among
+// the split ones, and the group mode indexes the split segments' scratch
+// split-major (rs = s * rows + row), so the cut segments' sums and
+// histograms are one contiguous prefix of each buffer. The steps:
+//   0  the local leaves whole (as in the single launch); the split leaves'
+//      tiles: the norms' float64 partials (fused) or pass 0's counts (|z|)
+//   1  (fused) each split segment's partials summed in tile order -> gsum
+//   2  pass p's counts over the split leaves' tiles into their histograms
+//   3  pass p's scan of each split segment's histogram (zeroed again); the
+//      threshold after pass 2, the inverse norms after pass 0 (fused)
+//   4  (|z|) the mask over the split leaves' tiles
+// Each segment's sums are taken in the single launch's order and its
+// histograms are integers, so at a group of one the results are bitwise the
+// single launch's.
+
+template <class S, class M>
+__device__ void group_partial(int64_t tile, int64_t row, const SelArgs& g, const SelPlan& plan,
+                              SelShared& sh) {
+  const Tile tl(plan, tile, row, g.n, g.vec);
+  double sv = 0.0, sm = 0.0;
+  sum_squares<S, M>(g.v, g.m, tl.sp, sv, sm);
+  sv = block_sum(sv, sh.red);
+  sm = block_sum(sm, sh.red);
+  if (threadIdx.x == 0) {
+    double* out = g.partials + 2 * (row * plan.n_tiles + tile);
+    out[0] = sv;
+    out[1] = sm;
+  }
+}
+
+template <bool ABS, class S, class M>
+__device__ void group_count(int p, int64_t tile, int64_t row, const SelArgs& g,
+                            const SelPlan& plan, const double* gsum, SelShared& sh) {
+  const Tile tl(plan, tile, row, g.n, g.vec);
+  const int64_t rs = tl.s * g.rows + row;
+  Scores<ABS, S, M> sc{g.v, g.m, 0.0f, 0.0f, 0.0f};
+  if (!ABS) {
+    sc.t = g.tau[row];
+    sc.a = inv_norm(g.w[row], gsum[2 * rs], g.eps);
+    sc.b = inv_norm(1.0f, gsum[2 * rs + 1], g.eps);
+  }
+  const unsigned prefix = p == 0 ? 0u : g.state[4 * rs];
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads) sh.hist[j] = 0u;
+  __syncthreads();
+  count_span(sh.hist, sc, tl.sp, prefix, p);
+  __syncthreads();
+  unsigned* hist = g.hist + rs * kBins;
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads)
+    if (sh.hist[j]) atomicAdd(hist + j, sh.hist[j]);
+}
+
+template <bool ABS, class S, class M>
+__global__ void __launch_bounds__(kSelThreads)
+group_first_kernel(const SelArgs g, const SelPlan plan) {
+  __shared__ SelShared sh;
+  const int64_t rows = g.rows, locals = plan.n_local * rows, it = blockIdx.x;
+  if (it < locals) {
+    select_local<ABS, S, M>(it / rows, it % rows, g, plan, sh);
+  } else if (ABS) {
+    group_count<ABS, S, M>(0, (it - locals) / rows, (it - locals) % rows, g, plan, nullptr, sh);
+  } else {
+    group_partial<S, M>((it - locals) / rows, (it - locals) % rows, g, plan, sh);
+  }
+}
+
+__global__ void __launch_bounds__(kSelThreads)
+group_norm_sum_kernel(const SelArgs g, const SelPlan plan, double* gsum) {
+  __shared__ SelShared sh;
+  const int64_t rs = blockIdx.x, s = rs / g.rows, row = rs % g.rows;
+  const double* part = g.partials + 2 * row * plan.n_tiles;
+  double sv = 0.0, sm = 0.0;
+  for (long long i = plan.first[s] + threadIdx.x; i < plan.first[s + 1]; i += kSelThreads) {
+    sv = __dadd_rn(sv, part[2 * i]);
+    sm = __dadd_rn(sm, part[2 * i + 1]);
+  }
+  sv = block_sum(sv, sh.red);
+  sm = block_sum(sm, sh.red);
+  if (threadIdx.x == 0) {
+    gsum[2 * rs] = sv;
+    gsum[2 * rs + 1] = sm;
+  }
+}
+
+template <bool ABS, class S, class M>
+__global__ void __launch_bounds__(kSelThreads)
+group_count_kernel(int p, const SelArgs g, const SelPlan plan, const double* gsum) {
+  __shared__ SelShared sh;
+  group_count<ABS, S, M>(p, blockIdx.x / g.rows, blockIdx.x % g.rows, g, plan, gsum, sh);
+}
+
+template <bool ABS>
+__global__ void __launch_bounds__(kSelThreads)
+group_scan_kernel(int p, const SelArgs g, const SelPlan plan, const double* gsum) {
+  __shared__ SelShared sh;
+  const int64_t rs = blockIdx.x, s = rs / g.rows, row = rs % g.rows;
+  const int leaf = (int)plan.tiles[5 * plan.first[s] + 1];
+  const int64_t seg = row * g.leaves + leaf;
+  unsigned* st = g.state + 4 * rs;
+  unsigned prefix = p == 0 ? 0u : st[0];
+  unsigned rank = p == 0 ? (unsigned)g.keep[row * g.keep_stride + leaf] : st[1];
+  unsigned* hist = g.hist + rs * kBins;
+  unsigned c[kBinsPerThread];
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    c[j] = hist[own_bin(j)];
+    hist[own_bin(j)] = 0u;
+  }
+  prefix |= scan_bins(c, rank, sh.warps) << pass_shift(p);
+  if (threadIdx.x == 0) {
+    st[0] = prefix;
+    st[1] = rank;
+    if (p == 2) g.thr[seg] = __uint_as_float(prefix);
+    if (!ABS && p == 0) {
+      g.inv_nv[seg] = inv_norm(g.w[row], gsum[2 * rs], g.eps);
+      g.inv_nm[seg] = inv_norm(1.0f, gsum[2 * rs + 1], g.eps);
+    }
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(kSelThreads)
+group_mask_kernel(const SelArgs g, const SelPlan plan) {
+  mask_tile<S>(blockIdx.x / g.rows, blockIdx.x % g.rows, g, plan);
+}
+
+// One step of the group mode on the stream (a step with nothing to do
+// launches nothing).
+template <bool ABS, class S, class M>
+int launch_group_step(int step, int p, const SelArgs& g, const SelPlan& plan, double* gsum,
+                      cudaStream_t st) {
+  const long long rows = g.rows;
+  const unsigned splits = (unsigned)(plan.n_split * rows), tiles = (unsigned)(plan.n_tiles * rows);
+  if (p < 0 || p > 2) return (int)cudaErrorInvalidValue;
+  switch (step) {
+    case 0: {
+      const long long items = ((long long)plan.n_local + plan.n_tiles) * rows;
+      if (items) group_first_kernel<ABS, S, M><<<(unsigned)items, kSelThreads, 0, st>>>(g, plan);
+      break;
+    }
+    case 1:
+      if (!ABS && splits) group_norm_sum_kernel<<<splits, kSelThreads, 0, st>>>(g, plan, gsum);
+      break;
+    case 2:
+      if (tiles) group_count_kernel<ABS, S, M><<<tiles, kSelThreads, 0, st>>>(p, g, plan, gsum);
+      break;
+    case 3:
+      if (splits) group_scan_kernel<ABS><<<splits, kSelThreads, 0, st>>>(p, g, plan, gsum);
+      break;
+    case 4:
+      if (ABS && tiles) group_mask_kernel<S><<<tiles, kSelThreads, 0, st>>>(g, plan);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 int blocks_for(int64_t total, int vec) {
   const int64_t work = vec ? (total + 3) / 4 : total;
   int64_t b = (work + kThreads - 1) / kThreads;
@@ -1154,6 +1318,50 @@ int gmf_select_abs(const void* z, const long long* plan, int n_local, int n_spli
   return with_type(z_dtype, [&](auto zv) {
     using Z = decltype(zv);
     return launch_select<true, Z, Z>(g, p, bar, st);
+  });
+}
+
+// One step (0-4, pass p for steps 2 and 3) of gmf_select's group mode
+// (see launch_group_step), its arguments gmf_select's and gsum, the split
+// segments' float64 sums of v^2 and m^2 [n_split][rows][2]. hist and state
+// are indexed split-major in this mode.
+int gmf_select_group(int step, int p, const void* v, const void* m, const long long* plan,
+                     int n_local, int n_split, int n_tiles, const long long* keep,
+                     int keep_stride, const float* w, const float* tau, float eps, int leaves,
+                     long long rows, long long n, int vec, float* inv_nv, float* inv_nm,
+                     float* thr, double* partials, double* gsum, unsigned* hist,
+                     unsigned* state, int s, int m_dtype, void* stream) {
+  if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(s) ||
+      !known(m_dtype))
+    return (int)cudaErrorInvalidValue;
+  const SelPlan pl(plan, n_local, n_split, n_tiles);
+  const SelArgs g{v,     m,     keep, w, tau,          inv_nv, inv_nm, thr, nullptr, partials,
+                  hist,  state, n,    rows, eps, keep_stride, leaves, vec};
+  cudaStream_t st = (cudaStream_t)stream;
+  return with_type(s, [&](auto sv) {
+    using S = decltype(sv);
+    return with_type(m_dtype, [&](auto mv) {
+      using M = decltype(mv);
+      return launch_group_step<false, S, M>(step, p, g, pl, gsum, st);
+    });
+  });
+}
+
+// gmf_select_abs's group mode, one step as for gmf_select_group.
+int gmf_select_abs_group(int step, int p, const void* z, const long long* plan, int n_local,
+                         int n_split, int n_tiles, const long long* keep, int keep_stride,
+                         int leaves, long long rows, long long n, int vec, float* thr,
+                         float* mask, unsigned* hist, unsigned* state, int z_dtype,
+                         void* stream) {
+  if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(z_dtype))
+    return (int)cudaErrorInvalidValue;
+  const SelPlan pl(plan, n_local, n_split, n_tiles);
+  const SelArgs g{z,    nullptr, keep, nullptr, nullptr,     nullptr, nullptr, thr, mask, nullptr,
+                  hist, state,   n,    rows,    0.0f,        keep_stride, leaves, vec};
+  cudaStream_t st = (cudaStream_t)stream;
+  return with_type(z_dtype, [&](auto zv) {
+    using Z = decltype(zv);
+    return launch_group_step<true, Z, Z>(step, p, g, pl, nullptr, st);
   });
 }
 

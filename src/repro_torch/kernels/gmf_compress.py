@@ -34,6 +34,17 @@ wrapper call counts as one ``gmf_select`` launch in ``INSTANCES``, in
 either mode, whatever the number of CUDA kernels it issues. K3 (``apply_mask_flat``) takes any
 stack, the flat one included.
 
+``gmf_select``'s group mode (a plan made with ``select_table(...,
+group=...)``) selects a layout whose segments are cut over a process group
+of ranks (tensor parallelism's model group): the same phases as separate
+launches on the stream, and between them one ``all_reduce`` over the group
+of the cut segments' float64 norm sums, then of each radix pass's integer
+histograms; nothing is read back to the host. Integer histograms sum
+exactly in any order, so each threshold is the k-th largest of the whole
+leaf. At a group of one (or ``group=None``) it is bitwise the single
+launch; its calls count as ``gmf_select`` launches of a ``group:``
+instance.
+
 K2 (``momentum_correction_tree``) is one multi-tensor launch over every
 leaf of a tree: ``plan_momentum`` cuts the leaves into launches of at most
 the table's capacity and gives each leaf its first block,
@@ -64,6 +75,9 @@ KERNEL_NAMES = ("gmf_select", "gmf_compress", "momentum_correction", "apply_mask
 # reset_launches(), e.g. ("momentum_correction", "bf16,bf16->bf16"): the
 # evidence that a run went through the kernels, and which instances it took.
 INSTANCES: dict[tuple[str, str], int] = {}
+# The group mode's all-reduces over its group by instance since the last
+# reset_launches() (counted apart: they are collectives, not launches).
+GROUP_SUMS: dict[str, int] = {}
 
 
 class _Launches(Mapping):
@@ -91,6 +105,7 @@ _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def reset_launches() -> None:
     INSTANCES.clear()
+    GROUP_SUMS.clear()
 
 
 def instance(*dtypes, out=None) -> str:
@@ -115,6 +130,10 @@ SIGNATURES = {
     "gmf_select_abs": ([_P, _P, _I32, _I32, _I32, _P, _I32, _I32, _I64, _I64, _I32, _P, _P, _P,
                         _P, _I32, _P], _I32),
     "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _I32, _I32, _P], _I32),
+    "gmf_select_group": ([_I32, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P, _P, _F32, _I32,
+                          _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P], _I32),
+    "gmf_select_abs_group": ([_I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I32, _I32, _I64, _I64,
+                              _I32, _P, _P, _P, _P, _I32, _P], _I32),
 }
 
 
@@ -209,23 +228,31 @@ class SelectTable(NamedTuple):
     split leaves; each split leaf's first tile (``n_split + 1``); and the
     split leaves' tiles ``[n_tiles, 5]`` as (split index, leaf, first
     column, length, tiles of the leaf), the columns a row's. ``scratch``
-    caches the split leaves' scratch per (rows, stream)."""
+    caches the split leaves' scratch per (rows, stream). ``n_group`` is
+    None but in a group mode's table, where it counts the segments cut over
+    the group: the first ``n_group`` split leaves."""
     table: torch.Tensor
     n_local: int
     n_split: int
     n_tiles: int
     plan: SelectPlan
     scratch: dict
+    n_group: int | None = None
 
 
-def select_table(plan: SelectPlan, device) -> SelectTable:
-    """``plan``'s device table, for ``FlatLayout.select_plan`` to make once."""
+def select_table(plan: SelectPlan, device, group=None) -> SelectTable:
+    """``plan``'s device table, for ``FlatLayout.select_plan`` to make once.
+    ``group`` (a bool a leaf) makes the group mode's table: the flagged
+    leaves are split ones whatever their tile count, and come first."""
     counts = np.diff(plan.first)
     sizes = np.add.reduceat(plan.blocks[:, 2], plan.first[:-1]) if counts.size else counts
     offsets = np.cumsum(sizes) - sizes
-    local = np.flatnonzero(counts == 1)
+    cut = np.zeros(counts.size, bool) if group is None else np.asarray(group, bool)
+    if cut.shape != counts.shape:
+        raise ValueError(f"group flags for {cut.size} leaves, the plan has {counts.size}")
+    local = np.flatnonzero((counts == 1) & ~cut)
     local = local[np.argsort(-sizes[local], kind="stable")]
-    split = np.flatnonzero(counts > 1)
+    split = np.concatenate([np.flatnonzero(cut), np.flatnonzero((counts > 1) & ~cut)])
     tiles = np.zeros((int(counts[split].sum()), 5), np.int64)
     if split.size:
         blocks = np.concatenate([plan.blocks[plan.first[i]:plan.first[i + 1]] for i in split])
@@ -238,7 +265,7 @@ def select_table(plan: SelectPlan, device) -> SelectTable:
     local = np.stack([local, offsets[local], sizes[local]], axis=1)
     host = np.concatenate([local.reshape(-1), split, first, tiles.reshape(-1)]).astype(np.int64)
     return SelectTable(torch.from_numpy(host).to(device), len(local), int(split.size),
-                       len(tiles), plan, {})
+                       len(tiles), plan, {}, None if group is None else int(cut.sum()))
 
 
 def _check_stack(name: str, *xs: torch.Tensor) -> None:
@@ -467,7 +494,9 @@ def _select_scratch(plan: SelectTable, rows: int, device, stream: int):
     key = (rows, stream)
     if key not in plan.scratch:
         hist = rows * plan.n_split * 2048
-        part = torch.empty(rows * plan.n_tiles * 2, dtype=torch.float64, device=device)
+        # the tiles' partials, then (group mode) the split segments' sums
+        part = torch.empty(rows * (plan.n_tiles + plan.n_split) * 2, dtype=torch.float64,
+                           device=device)
         buf = torch.zeros(hist + rows * plan.n_split * 4 + 2, dtype=torch.int32, device=device)
         plan.scratch[key] = (part.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * hist,
                              (part, buf))
@@ -487,7 +516,51 @@ def _launch_select(fn, plan: SelectTable, device, rows: int, make_args, *, inst:
         raise
 
 
-def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float):
+def _group_select(fn, plan: SelectTable, device, rows: int, group, fused: bool, make_args, *,
+                  inst: str) -> None:
+    """The group mode's steps (``csrc/gmf_compress.cu``: ``launch_group_step``)
+    on the current stream, ``fn(step, pass, *make_args(partials, sums,
+    histograms, states), stream)``; between them the cut segments' sums and
+    each pass's histograms are all-reduced over ``group`` (None: a group of
+    one, nothing to sum). Counted as one ``gmf_select`` launch."""
+    import torch.distributed as dist
+
+    stream = _stream(device)
+    part, hist, state, (part_t, buf) = _select_scratch(plan, rows, device, stream)
+    sums = part + 8 * rows * plan.n_tiles * 2
+    args = make_args(part, sums, hist, state)
+    summed = group is not None and plan.n_group > 0
+
+    def total(x) -> None:  # the cut segments' part of a scratch buffer, summed
+        dist.all_reduce(x, group=group)
+        GROUP_SUMS[inst] = GROUP_SUMS.get(inst, 0) + 1
+
+    def step(i: int, p: int = 0) -> None:
+        err = fn(i, p, *args, stream)
+        if err != 0:
+            plan.scratch.pop((rows, stream), None)
+            raise RuntimeError(f"gmf_select (group mode, step {i}, pass {p}): CUDA launch failed "
+                               f"with cudaError_t {err}")
+
+    with torch.cuda.device(device):
+        step(0)
+        if fused:
+            step(1)
+            if summed:
+                off = rows * plan.n_tiles * 2
+                total(part_t[off:off + rows * plan.n_group * 2])
+        for p in range(3):
+            if fused or p > 0:
+                step(2, p)
+            if summed:
+                total(buf[:rows * plan.n_group * 2048])
+            step(3, p)
+        if not fused:
+            step(4)
+    INSTANCES["gmf_select", inst] = INSTANCES.get(("gmf_select", inst), 0) + 1
+
+
+def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float, group=None):
     """Per (row, leaf) segment of the flat ``[rows, N]`` stacks v and m
     (each float32 or bfloat16, read as float32): inv_nv = w / (‖V‖ + eps),
     inv_nm = 1 / (‖M‖ + eps), and the exact
@@ -498,7 +571,8 @@ def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float):
     are ``[rows]`` float32. A segment of at most one tile is one block; a
     larger one is split over its tiles, in one launch on the current stream
     (no host read, no synchronisation), counted as one ``gmf_select``
-    launch. Returns
+    launch. A group mode's plan takes the group mode over ``group`` (the
+    module docstring). Returns
     (inv_nv, inv_nm, thr), ``[rows, L]`` float32 each."""
     _check_stack("gmf_select", v, m)
     leaves = _segments("gmf_select", v, offsets)
@@ -507,6 +581,16 @@ def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float):
     stride = _keep_stride("gmf_select", keep, v, leaves)
     _check_rows("gmf_select", (rows,), v, w, tau)
     inv_nv, inv_nm, thr = torch.empty(3, rows, leaves, dtype=torch.float32, device=v.device)
+    if plan.n_group is not None:
+        _group_select(library().gmf_select_group, plan, v.device, rows, group, True,
+                      lambda p, g, h, s: (
+                          v.data_ptr(), m.data_ptr(), plan.table.data_ptr(), plan.n_local,
+                          plan.n_split, plan.n_tiles, keep.data_ptr(), stride, w.data_ptr(),
+                          tau.data_ptr(), float(eps), leaves, rows, v.shape[1], _vec(v, m),
+                          inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr(), p, g, h, s,
+                          DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype]),
+                      inst="group:" + instance(v.dtype, m.dtype))
+        return inv_nv, inv_nm, thr
     _launch_select(library().gmf_select, plan, v.device, rows, lambda p, h, s: (
         v.data_ptr(), m.data_ptr(), plan.table.data_ptr(), plan.n_local,
         plan.n_split, plan.n_tiles, keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
@@ -516,7 +600,7 @@ def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float):
     return inv_nv, inv_nm, thr
 
 
-def topk_abs_select_flat(z, *, offsets, plan, keep):
+def topk_abs_select_flat(z, *, offsets, plan, keep, group=None):
     """The exact k_i-th largest |z| of every (row, leaf) segment of the flat
     ``[rows, N]`` stack z and the mask |z| >= thr: ``gmf_select``'s kernel
     in its |z| mode (``plan`` and ``keep`` as there; one launch counted).
@@ -528,6 +612,15 @@ def topk_abs_select_flat(z, *, offsets, plan, keep):
     rows = z.shape[0]
     out = torch.empty(z.numel() + rows * leaves, dtype=torch.float32, device=z.device)
     mask, thr = out[:z.numel()].view(z.shape), out[z.numel():].view(rows, leaves)
+    if plan.n_group is not None:
+        _group_select(library().gmf_select_abs_group, plan, z.device, rows, group, False,
+                      lambda p, g, h, s: (
+                          z.data_ptr(), plan.table.data_ptr(), plan.n_local, plan.n_split,
+                          plan.n_tiles, keep.data_ptr(), stride, leaves, rows, z.shape[1],
+                          _vec(z, mask), thr.data_ptr(), mask.data_ptr(), h, s,
+                          DTYPE_CODES[z.dtype]),
+                      inst="group:abs:" + instance(z.dtype))
+        return thr, mask
     _launch_select(library().gmf_select_abs, plan, z.device, rows, lambda p, h, s: (
         z.data_ptr(), plan.table.data_ptr(), plan.n_local, plan.n_split,
         plan.n_tiles, keep.data_ptr(), stride, leaves, rows, z.shape[1], _vec(z, mask),

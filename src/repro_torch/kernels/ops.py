@@ -12,7 +12,11 @@ tree of one leaf.
 ``gmf_select``, ``topk_abs_select`` and ``gmf_compress`` take the flat
 ``[k, N]`` stacks and their ``FlatLayout`` (``utils/flat.py``): one launch
 each over all clients and leaves on the card, a loop over the leaves'
-views on the CPU.
+views on the CPU. A layout whose segments are cut over a model group
+(``FlatLayout.over``) takes ``gmf_select``'s group mode on the card (its
+phases as launches, the cut segments' norm sums and histograms all-reduced
+over the group between them) and, on the CPU, the plain version's
+all-gather of the cut segments' scores.
 """
 
 from __future__ import annotations
@@ -81,8 +85,8 @@ def gmf_select(v, m, layout, rate=None, *, keep=None, w, tau, eps):
     int64 ``[k, L]`` table (adaptive rates)."""
     table = _keep(layout, rate, keep)
     if _on_card(v):
-        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, plan=layout.select_plan(),
-                                  keep=table, w=w, tau=tau, eps=eps)
+        return _k.gmf_select_flat(v, m, offsets=layout.offsets_dev, plan=_plan(layout),
+                                  keep=table, w=w, tau=tau, eps=eps, group=layout.group)
     return ref.gmf_select(v, m, layout, rate, keep=keep, w=w, tau=tau, eps=eps)
 
 
@@ -92,11 +96,17 @@ def topk_abs_select(z, layout, rate=None, *, keep=None):
     ``gmf_select``."""
     table = _keep(layout, rate, keep)
     if _on_card(z):
-        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, plan=layout.select_plan(),
-                                       keep=table)
+        return _k.topk_abs_select_flat(z, offsets=layout.offsets_dev, plan=_plan(layout),
+                                       keep=table, group=layout.group)
     if keep is None:
         return sparsify.segment_topk_mask(z, layout, rate)
     return sparsify.segment_topk_mask_keep(z, layout, keep)
+
+
+def _plan(layout):
+    """The select plan of ``layout``: the group mode's where a segment is
+    cut over a model group."""
+    return layout.select_plan(group=layout.cut)
 
 
 def _keep(layout, rate, keep):

@@ -3,12 +3,14 @@ reference's ``launch/mesh.py``.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the
 reference's axis names (``pod``, ``data``, ``model``; ``clients`` for the
-FL shard engine), built by ``init_device_mesh`` over a world that is
+FL shard engine) over ranks 0 … prod(shape) − 1 of a world that is
 already initialised: one process per rank (``torchrun``, or
 ``init_process_group`` with a ``file://`` store), NCCL for ``cuda`` and
-gloo for ``cpu``. Building one is a collective: every rank calls it. The
-device type comes from the caller: ``cuda`` by default, ``cpu`` must be
-asked for.
+gloo for ``cpu``. A world larger than the mesh keeps its first ranks, as
+``jax.make_mesh`` keeps the first devices; the others hold no coordinate
+(``in_mesh``) and take no part in what runs over the mesh. Building one is
+a collective: every rank of the world calls it. The device type comes from
+the caller: ``cuda`` by default, ``cpu`` must be asked for.
 
 ``AbstractMesh`` holds axis names and sizes only, the counterpart of
 ``jax.sharding.AbstractMesh``: the sharding specs (``dist/sharding.py``)
@@ -54,18 +56,26 @@ def _world() -> int:
 
 
 def make_mesh(shape, axes, device_type: str = "cuda"):
-    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the whole world,
-    whose size must be the shape's product."""
-    from torch.distributed.device_mesh import init_device_mesh
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over ranks 0 …
+    prod(shape) − 1 of the world, which must hold at least that many."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     world = _world()
     if world < math.prod(shape):
         raise ValueError(f"Number of devices {world} must be >= the product of mesh_shape "
                          f"{shape}")
-    if world != math.prod(shape):
-        raise ValueError(f"a mesh spans the whole world: {world} ranks for mesh_shape {shape}")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    return DeviceMesh(device_type, torch.arange(math.prod(shape)).view(shape),
+                      mesh_dim_names=axes)
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this rank holds a coordinate of ``mesh`` (a world larger
+    than the mesh leaves its last ranks out)."""
+    return mesh.get_coordinate() is not None
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
@@ -82,9 +92,9 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
 
 
 def make_client_mesh(num_shards: int = 0, device_type: str = "cuda"):
-    """1-D mesh laying FL clients out over the ranks (axis name
-    ``clients``). ``num_shards=0`` uses every rank; the shard engine takes
-    the mesh's group (``FLSimulator(..., group=mesh)``)."""
+    """1-D mesh laying FL clients out over the first ``num_shards`` ranks
+    (axis name ``clients``). ``num_shards=0`` uses every rank; the shard
+    engine takes the mesh's group (``FLSimulator(..., group=mesh)``)."""
     world = _world()
     n = num_shards or world
     if n > world:

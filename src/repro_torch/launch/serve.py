@@ -114,8 +114,11 @@ def decode(serve, params, cache, tok, pos, steps: int):
 
 def run_fixed(cfg, params, args, device, mesh=None) -> FixedRun:
     """Fixed-batch prefill + decode on ``device`` (where ``params`` lie);
-    over ``mesh`` (a one-rank mesh whose model axis is 1) the steps carry
-    the mesh, so an MoE config runs the expert-parallel MoE."""
+    over ``mesh`` (its data axes of size 1: every rank serves the whole
+    batch) the steps carry the mesh: ``params`` are the rank's pieces and a
+    model axis over 1 runs the forward tensor-parallel (the logits gathered
+    whole), and an MoE config runs the expert-parallel MoE at a model axis
+    of 1."""
     b = args.batch
     cache_len = args.cache_len or (args.prompt_len + args.gen)
     batch = prompt_batch(cfg, args.seed, b, args.prompt_len, device)

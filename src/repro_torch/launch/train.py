@@ -28,12 +28,14 @@ A process started by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in its environment) joins
 that world (NCCL on ``cuda``, gloo on ``cpu``; rank r takes ``cuda:r``)
 and ``--backend dist`` trains over a mesh: ``--mesh-shape`` with the
-reference's axes (``("pod", "data", "model")[-len(shape):]``), else (n, 1)
-for n ranks (the reference's (n // 2, 2) for an even n needs the model
-axis: ROADMAP Queue 1 item 11 part C, as does any model axis > 1). Rank 0
-prints, writes ``--metrics-out``, the checkpoint (the params gathered) and
-the telemetry; every rank returns the same exit code. A single process
-with no world trains on its one device, without a mesh.
+reference's axes (``("pod", "data", "model")[-len(shape):]``), else the
+reference's (n // 2, 2) for an even n ranks and (n, 1) for an odd one. A
+model axis over 1 cuts the params over it (tensor parallelism, the
+reference's ``_TP_RULES``). A mesh smaller than the world runs on its
+first ranks; the others wait for its result. Rank 0 prints, writes
+``--metrics-out``, the checkpoint (the params gathered) and the telemetry;
+every rank returns rank 0's exit code. A single process with no world
+trains on its one device, without a mesh.
 """
 
 from __future__ import annotations
@@ -57,10 +59,10 @@ from repro_torch.core.stages import get_stage
 from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
 from repro_torch.dist import sharding as shr
 from repro_torch.dist import step as dstep
-from repro_torch.launch.mesh import make_mesh, mesh_axes
+from repro_torch.launch.mesh import in_mesh, make_mesh, mesh_axes
 from repro_torch.models import transformer
 from repro_torch.topo import TOPOLOGIES
-from repro_torch.utils import resolve_device, tree_size
+from repro_torch.utils import resolve_device
 
 
 def parse_stage_overrides(spec: str) -> dict:
@@ -92,20 +94,18 @@ def parse_stage_overrides(spec: str) -> dict:
 
 def build_mesh(args, device_type: str = "cuda"):
     """None without a world (the one device). In a world of n ranks:
-    ``--mesh-shape``'s mesh, with the reference's axes, else (n, 1). A
-    model axis > 1 raises (ROADMAP Queue 1 item 11 part C)."""
+    ``--mesh-shape``'s mesh, with the reference's axes, else the
+    reference's (n // 2, 2) on an even n and (n, 1) on an odd one."""
     shape = tuple(int(x) for x in args.mesh_shape.split(",")) if args.mesh_shape else None
-    if shape is not None and len(shape) >= 2 and shape[-1] > 1:
-        raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: a model axis of {shape[-1]} "
-                                  f"needs tensor parallelism, which is not ported yet: ROADMAP "
-                                  f"Queue 1 item 11 part C")
     if not dist.is_initialized():
         if shape is not None:
             raise SystemExit("--mesh-shape needs a torch.distributed world: start one process "
                              "per rank (torchrun --nproc-per-node N -m repro_torch.launch.train)")
         return None
     if shape is None:
-        return make_mesh((dist.get_world_size(), 1), ("data", "model"), device_type)
+        n = dist.get_world_size()
+        model = 2 if n % 2 == 0 else 1
+        return make_mesh((n // model, model), ("data", "model"), device_type)
     return make_mesh(shape, ("pod", "data", "model")[-len(shape):], device_type)
 
 
@@ -326,8 +326,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=0,
                     help="fl: shard backend group size (0 = the whole group)")
     ap.add_argument("--mesh-shape", default=None,
-                    help="e.g. 2,4,1 (pod, data, model) or 4,1 (data, model) over a "
-                         "torchrun world; the model axis must be 1 (item 11 part C)")
+                    help="e.g. 2,4,1 (pod, data, model) or 4,2 (data, model) over a "
+                         "torchrun world (default: (n // 2, 2) on an even n ranks, else "
+                         "(n, 1))")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--checkpoint", default=None)
@@ -409,6 +410,18 @@ def run_dist(args, ccfg, cfg, scheme, device=None):
     mesh = build_mesh(args, device.type)
     if args.grad_sync == "gmf_pod" and (mesh is None or "pod" not in mesh_axes(mesh)):
         raise SystemExit("--grad-sync gmf_pod needs a pod axis (--mesh-shape 2,x,y)")
+    if mesh is None or in_mesh(mesh):
+        code = _train(args, ccfg, cfg, scheme, device, mesh)
+    else:
+        code = None  # a rank past the mesh takes no part: it waits for the mesh's result
+    if dist.is_initialized():  # every rank returns rank 0's exit code
+        box = [code]
+        dist.broadcast_object_list(box, src=0)
+        code = box[0]
+    return code
+
+
+def _train(args, ccfg, cfg, scheme, device, mesh):
     say = print if _rank0() else (lambda *a, **k: None)
     where = (f"mesh={dict(zip(mesh_axes(mesh), mesh.shape, strict=True))}" if mesh is not None
              else f"device={device}")
@@ -418,6 +431,9 @@ def run_dist(args, ccfg, cfg, scheme, device=None):
                        grad_sync=args.grad_sync, lr_schedule="cosine",
                        warmup_steps=max(1, args.steps // 20))
     params = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    if mesh is not None:  # this rank's pieces (the whole at a model axis of 1)
+        params = shr.local_tree(params, shr.named_shardings(mesh, shr.param_specs(
+            params, fsdp=dstep.needs_fsdp(cfg), mesh=mesh)))
     state = dstep.init_train_state(cfg, tcfg, ccfg, params, mesh)
     del params
     stream = SyntheticLMStream(
@@ -432,7 +448,7 @@ def run_dist(args, ccfg, cfg, scheme, device=None):
     # wire accounting from the scheme's wire stage; dense sync ships fp32
     cost = CostModel() if args.grad_sync == "dense" else scheme.cost_model()
     history = []
-    total_static = float(tree_size(state.params))
+    total_static = float(sum(dstep.full_sizes(cfg)))  # the whole model's
     rec_obs = obs.get()
     first_s = 0.0
     steady_ms = []
@@ -496,7 +512,7 @@ def run_dist(args, ccfg, cfg, scheme, device=None):
         params = state.params
         if mesh is not None:  # the whole params (a collective)
             params = shr.full_tree(params, shr.named_shardings(mesh, shr.param_specs(
-                params, fsdp=dstep.needs_fsdp(cfg), mesh=mesh)))
+                transformer.abstract_params(cfg), fsdp=dstep.needs_fsdp(cfg), mesh=mesh)))
         if _rank0():
             save_ckpt(args.checkpoint, params, step=args.steps)
             print(f"checkpoint -> {args.checkpoint}.npz")

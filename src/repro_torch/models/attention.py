@@ -35,6 +35,16 @@ step moves no cache and reads no position back to the host. The serving
 engine's paged decode (``paged_decode_attention``) writes each slot's token
 into its page of the pool in place and gathers the slot's pages in logical
 order: plain torch, as the reference's is plain ``jnp`` (no Pallas kernel).
+
+Tensor parallelism (``tp``, the model group, whose size m cuts ``wq``,
+``wk``, ``wv`` by columns and ``wo`` by rows where their dims divide it):
+when the kv heads divide m (and so the q heads: H is a multiple of KV),
+each rank projects, rotates and attends its own H/m q and KV/m kv heads
+(K4 at those heads on the card; the group size H/KV is unchanged) and its
+slice of the output enters ``wo``'s rows, summed over the group. Otherwise
+a cut falls inside a head: the split projections are gathered, every rank
+runs every head, and ``wo`` takes its row slice of the whole output. The
+ring cache holds the heads the rank attends (``kv_entry_spec``).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.models import layers
+from repro_torch.utils import collectives as col
 from repro_torch.utils import scalar
 
 NEG_INF = -1e30
@@ -64,17 +75,55 @@ def init_attention(gen, cfg, d_model=None):
     return p
 
 
-def _project_qkv(params, cfg, x):
+def local_heads(params, cfg, tp) -> bool:
+    """Whether each rank of the model group ``tp`` attends its own heads:
+    the rank's ``wk`` is cut on kv-head boundaries (the kv heads divide the
+    group, and then the q heads do too). A cut is read from the leaf's
+    shape, as everywhere in the port."""
+    n = params["wk"].shape[-1]
+    return tp is not None and n != cfg.kv_dim and n % cfg.head_dim == 0
+
+
+def _project_qkv(params, cfg, x, tp=None):
+    """q (B, T, H', D), k and v (B, T, KV', D): every head, or under
+    ``local_heads`` the rank's H/m and KV/m."""
     b, t, _ = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    if tp is None:
+        q = x @ params["wq"]
+        k = x @ params["wk"]
+        v = x @ params["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    else:
+        local = local_heads(params, cfg, tp)
+        xin = col.copy_to(x, tp)
+        out = []
+        for w, bias, full in (("wq", "bq", cfg.q_dim), ("wk", "bk", cfg.kv_dim),
+                              ("wv", "bv", cfg.kv_dim)):
+            split = params[w].shape[-1] != full
+            y = (xin if split else x) @ params[w]
+            if split and not local:
+                y = col.gather_from(y, tp, -1)
+            if cfg.qkv_bias:
+                y = y + (col.slice_to(params[bias], tp, -1) if local else params[bias])
+            out.append(y)
+        q, k, v = out
+    q = q.reshape(b, t, -1, cfg.head_dim)
+    k = k.reshape(b, t, -1, cfg.head_dim)
+    v = v.reshape(b, t, -1, cfg.head_dim)
     return q, k, v
+
+
+def _out_proj(params, cfg, out, tp=None):
+    """``out`` (..., heads · D) through ``wo``: whole, or under ``tp`` the
+    rank's rows (its slice of a whole ``out``, or its own heads), summed
+    over the group."""
+    wo = params["wo"]
+    if tp is None or wo.shape[-2] == cfg.q_dim:
+        return out @ wo
+    if out.shape[-1] == cfg.q_dim:
+        out = col.slice_to(out, tp, -1)
+    return col.reduce_from(out @ wo, tp)
 
 
 def _positions(cfg, b, t, positions, device):
@@ -193,10 +242,11 @@ def resolve_impl(impl: str, cfg, q, k, v, window: int) -> str:
 
 
 def attention(params, cfg, x, *, positions=None, mrope_positions=None,
-              window: int | None = None, impl: str = "auto"):
-    """Full-sequence self-attention (training / prefill). Returns (out, (k, v))."""
+              window: int | None = None, impl: str = "auto", tp=None):
+    """Full-sequence self-attention (training / prefill). Returns (out, (k, v));
+    ``tp`` as in the module docstring."""
     b, t, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
+    q, k, v = _project_qkv(params, cfg, x, tp)
     positions = _positions(cfg, b, t, positions, x.device)
     q, k = _rope_q_k(cfg, q, k, positions, mrope_positions)
     window = cfg.sliding_window if window is None else window
@@ -214,8 +264,7 @@ def attention(params, cfg, x, *, positions=None, mrope_positions=None,
         out = k4.flash_attention(q, k, v, causal=True)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    out = out.reshape(b, t, cfg.q_dim) @ params["wo"]
-    return out, (k, v)
+    return _out_proj(params, cfg, out.reshape(b, t, -1), tp), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -283,16 +332,17 @@ def paged_decode_attention(params, cfg, entry, x_t, pos, *, tables, codec,
 
 
 def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None,
-                     mrope_positions=None):
+                     mrope_positions=None, tp=None):
     """One-token decode. x_t: (B, d_model); pos: the new token's absolute
     position, a Python int or a 0-dim integer tensor (on x_t's device, so
     no host sync). The cache is a ring buffer of length ``cache_len``; the
     new K/V are written into ``cache`` in place. M-RoPE (the vlm family)
     takes ``mrope_positions`` (3, B, 1), by default ``pos`` on all three
-    axes. Returns (out (B, d_model), cache)."""
+    axes; ``tp`` as in the module docstring (the cache holds the heads the
+    rank attends). Returns (out (B, d_model), cache)."""
     b = x_t.shape[0]
     window = cfg.sliding_window if window is None else window
-    q, k, v = _project_qkv(params, cfg, x_t[:, None, :])
+    q, k, v = _project_qkv(params, cfg, x_t[:, None, :], tp)
     pos = scalar(pos, x_t.device, torch.int64)
     if pos.dim() != 0:
         raise ValueError(f"decode position must be a scalar, got shape {tuple(pos.shape)}")
@@ -307,7 +357,8 @@ def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None,
     k_cache.index_copy_(1, slot.reshape(1), k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot.reshape(1), v.to(v_cache.dtype))
 
-    kv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    kv = k.shape[2]
+    g = q.shape[2] // kv
     qg = q.reshape(b, 1, kv, g, cfg.head_dim)
     scale = cfg.head_dim**-0.5
     scores = torch.einsum("btkgd,bskd->bkgts", qg, k_cache).float() * scale
@@ -325,5 +376,4 @@ def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None,
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v_cache)
-    out = out.reshape(b, cfg.q_dim) @ params["wo"]
-    return out, cache
+    return _out_proj(params, cfg, out.reshape(b, -1), tp), cache

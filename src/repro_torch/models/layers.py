@@ -11,6 +11,12 @@ Conventions, as in the reference:
 Init draws from an explicit ``torch.Generator``, on the generator's device.
 It cannot reproduce ``jax.random``'s draws, so the parity tests convert
 JAX-initialised params (``utils.convert``) instead.
+
+Tensor parallelism (``tp``, the model axis's process group, passed where a
+leaf is cut over it by the reference's ``_TP_RULES``): the SwiGLU MLP's
+``gate``/``up`` are column-parallel and ``down`` row-parallel; the
+embedding table and the unembedding are cut over the vocabulary. The
+operators are ``utils.collectives``' (``copy_to``, ``reduce_from``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils import collectives as col
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -74,9 +82,12 @@ def init_mlp(gen, d_model, d_ff, dtype):
     }
 
 
-def mlp(params, x):
+def mlp(params, x, tp=None):
+    """SwiGLU; with ``tp`` the rank's columns of ``gate``/``up`` and rows of
+    ``down``, the partial outputs summed over the group."""
+    x = col.copy_to(x, tp)
     h = F.silu(x @ params["gate"]) * (x @ params["up"])
-    return h @ params["down"]
+    return col.reduce_from(h @ params["down"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -88,16 +99,33 @@ def init_embedding(gen, vocab, d_model, dtype):
     return {"table": truncated_normal_init(gen, (vocab, d_model), 1.0, dtype)}
 
 
-def embed(params, tokens):
-    return params["table"][tokens]
+def embed(params, tokens, tp=None):
+    """Rows of the table; with ``tp`` the table is the rank's range of the
+    vocabulary: each rank looks up the ids in its range, zeros elsewhere,
+    and the one nonzero term is summed over the group (exact)."""
+    if tp is None:
+        return params["table"][tokens]
+    return col.reduce_from(embed_local(params["table"], tokens, tp), tp)
+
+
+def embed_local(table, tokens, tp):
+    """The rows of the ids in this rank's vocabulary range (``table`` its
+    (V/m, d) piece), zeros for the others."""
+    v_loc = table.shape[0]
+    local = tokens - col.rank(tp) * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    rows = table[torch.where(hit, local, 0)]
+    return torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
 
 
 def init_unembed(gen, d_model, vocab, dtype):
     return {"kernel": dense_init(gen, d_model, vocab, dtype)}
 
 
-def unembed(params, x):
-    return x @ params["kernel"]
+def unembed(params, x, tp=None):
+    """Logits; with ``tp`` the rank's vocabulary columns (left split)."""
+    return col.copy_to(x, tp) @ params["kernel"]
 
 
 # ---------------------------------------------------------------------------

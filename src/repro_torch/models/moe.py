@@ -20,6 +20,12 @@ the group's expert density (one sum of an ``[E]`` vector a layer, no
 gradient) and this rank's share of the mean router probability, so the
 ranks' aux terms add up to the reference's aux over the group's tokens.
 
+Under tensor parallelism (``tp``, the model group, whose size cuts the
+experts' E dim by the reference's rules) the router stays replicated, so
+every rank routes alike; each rank walks its own experts with its columns
+of the combine table and the float32 partial outputs are summed over the
+group.
+
 ``moe_ep`` is the expert-parallel path over a mesh (``launch/mesh.py``):
 capacity-limited routed dispatch (``dispatch_local``: sort, positions,
 a fixed ``(E_loc, capacity, d)`` buffer; assignments past an expert's
@@ -108,9 +114,10 @@ def group_size(cfg, tokens: int) -> int:
     return max(1, min(cfg.num_experts, GROUP_ELEMENTS // max(per_expert, 1)))
 
 
-def moe_dense(params, cfg, x, groups=()):
+def moe_dense(params, cfg, x, groups=(), tp=None):
     """All experts on all tokens, combined by the gates. x: (B, T, d).
-    Returns (y (B, T, d), aux); ``groups`` as in ``router_topk``."""
+    Returns (y (B, T, d), aux); ``groups`` as in ``router_topk``; with
+    ``tp`` the expert weights are the rank's E/m experts."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
     eids, gates, aux = router_topk(params, cfg, xf, groups)
@@ -118,14 +125,19 @@ def moe_dense(params, cfg, x, groups=()):
     # (BT, E): each token's gate on the experts it chose, 0 elsewhere. The
     # chosen experts are distinct, so each entry sums one gate and zeros.
     combine = (_one_hot(eids, e).to(gates.dtype) * gates[..., None]).sum(dim=-2)
+    if tp is not None:  # this rank's experts: their columns, and x into them
+        combine = col.slice_to(combine, tp, 1)
+        xf = col.copy_to(xf, tp)
+    e_loc = params["w_gate"].shape[0]
     y = None
     step = group_size(cfg, b * t)
-    for e0 in range(0, e, step):
-        sl = slice(e0, min(e0 + step, e))
+    for e0 in range(0, e_loc, step):
+        sl = slice(e0, min(e0 + step, e_loc))
         h = F.silu(xf @ params["w_gate"][sl]) * (xf @ params["w_up"][sl])  # (g, BT, f)
         out = h @ params["w_down"][sl]  # (g, BT, d)
         part = torch.einsum("gbd,bg->bd", out, combine[:, sl]).float()
         y = part if y is None else y + part
+    y = col.reduce_from(y, tp)
     return y.to(x.dtype).reshape(b, t, d), aux
 
 

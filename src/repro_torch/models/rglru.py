@@ -19,6 +19,13 @@ orders, so they agree to float32 rounding, not bitwise. The scan is
 in place when no gradient is asked and out of place when one is, with
 the same bits either way. Decode is the exact single-step update on a
 (B, width) state.
+
+Under tensor parallelism (``tp``, the model group, whose size cuts the
+lru width when it divides it) the gates and the scan are per channel:
+``gate_proj``/``rec_proj`` are column-parallel, each rank takes its
+channels' slice of the replicated ``conv``, ``w_a``, ``b_a``, ``w_x``,
+``b_x`` and ``lam`` and scans its own channels, ``out_proj`` is
+row-parallel, and the decode cache holds the rank's channels.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.utils import collectives as col
 
 _C = 8.0
 
@@ -110,8 +118,24 @@ def _scan_out_of_place(a, b, h0):
     return b
 
 
-def rglru_block_forward(params, cfg, x, h0=None):
+_CHANNEL_LEAVES = ("w_a", "b_a", "w_x", "b_x", "lam")
+
+
+def _local(params, tp):
+    """``params`` with the per-channel leaves cut to this rank's channels
+    (``tp`` None: as they are)."""
+    if tp is None:
+        return params
+    cut = lambda a: col.slice_to(a, tp, -1)  # noqa: E731
+    out = dict(params, conv={k: cut(a) for k, a in params["conv"].items()})
+    out.update({k: cut(params[k]) for k in _CHANNEL_LEAVES})
+    return out
+
+
+def rglru_block_forward(params, cfg, x, h0=None, tp=None):
     """x: (B, T, d_model) → (y (B, T, d_model), (h_T, conv_tail))."""
+    params = _local(params, tp)
+    x = col.copy_to(x, tp)
     gate = F.gelu(x @ params["gate_proj"], approximate="tanh")
     rec_in = x @ params["rec_proj"]
     w = params["conv"]["kernel"].shape[0]
@@ -121,7 +145,7 @@ def rglru_block_forward(params, cfg, x, h0=None):
     u = layers.causal_conv1d(params["conv"], rec_in)
     a, b = _gates(params, u)
     h = rglru_scan(a, b, h0)
-    y = (h.to(x.dtype) * gate) @ params["out_proj"]
+    y = col.reduce_from((h.to(x.dtype) * gate) @ params["out_proj"], tp)
     return y, (h[:, -1], conv_tail)
 
 
@@ -133,12 +157,14 @@ def init_rglru_cache(cfg, batch, dtype, device):
     }
 
 
-def rglru_decode_step(params, cfg, cache, x_t):
+def rglru_decode_step(params, cfg, cache, x_t, tp=None):
     """One-token step. x_t: (B, d_model). Returns (y (B, d_model), new cache)."""
+    params = _local(params, tp)
+    x_t = col.copy_to(x_t, tp)
     gate = F.gelu(x_t @ params["gate_proj"], approximate="tanh")
     new_conv, u = layers.causal_conv1d_step(params["conv"], cache["conv"],
                                             x_t @ params["rec_proj"])
     a, b = _gates(params, u)
     h = a * cache["state"] + b
-    y = (h.to(x_t.dtype) * gate) @ params["out_proj"]
+    y = col.reduce_from((h.to(x_t.dtype) * gate) @ params["out_proj"], tp)
     return y, {"state": h, "conv": new_conv}

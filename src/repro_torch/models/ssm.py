@@ -14,6 +14,12 @@ operands (C, B, x) with float32 ones (the decays), which JAX promotes to
 float32, so the port casts those operands up before each product; the
 chunk states entering the off-diagonal term are cast down to x's dtype
 first, as the reference casts them.
+
+Under tensor parallelism (``tp``, the model group) ``in_proj``'s columns
+are cut wherever its width divides the group, which does not fall on the
+[z | x | B | C | dt] parts: its output is gathered, every rank runs the
+whole SSD, and ``out_proj`` is row-parallel (the rank's slice of y into
+its rows, summed over the group). The decode cache is whole on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.utils import collectives as col
 
 
 def dims(cfg):
@@ -45,6 +52,21 @@ def init_ssm(gen, cfg, dtype=None):
         "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
         "out_proj": layers.dense_init(gen, d_in, cfg.d_model, dtype),
     }
+
+
+def _in_proj(params, cfg, x, tp):
+    """x @ in_proj, gathered whole where ``tp`` cuts its columns."""
+    d_in, nh, g, n, _ = dims(cfg)
+    if tp is None or params["in_proj"].shape[-1] == 2 * d_in + 2 * g * n + nh:
+        return x @ params["in_proj"]
+    return col.gather_from(col.copy_to(x, tp) @ params["in_proj"], tp, -1)
+
+
+def _out_proj(params, cfg, y, tp):
+    """y @ out_proj, row-parallel where ``tp`` cuts its rows."""
+    if tp is None or params["out_proj"].shape[-2] == dims(cfg)[0]:
+        return y @ params["out_proj"]
+    return col.reduce_from(col.slice_to(y, tp, -1) @ params["out_proj"], tp)
 
 
 def _split_proj(cfg, zxbcdt):
@@ -115,7 +137,7 @@ def ssd_chunked(x, a, bmat, cmat, chunk, initial_state=None):
     return y.to(x.dtype), carry
 
 
-def ssm_forward(params, cfg, x, initial_state=None):
+def ssm_forward(params, cfg, x, initial_state=None, tp=None):
     """Full-sequence Mamba-2 mixer. x: (B, T, d_model) → (B, T, d_model).
 
     Returns (y, (final_state, conv_tail)) — the pieces a decode cache needs.
@@ -124,7 +146,7 @@ def ssm_forward(params, cfg, x, initial_state=None):
     """
     d_in, nh, g, n, conv_dim = dims(cfg)
     bsz, t, _ = x.shape
-    z, xb, bmat, cmat, dt = _split_proj(cfg, x @ params["in_proj"])
+    z, xb, bmat, cmat, dt = _split_proj(cfg, _in_proj(params, cfg, x, tp))
     conv_in = torch.cat([xb, bmat, cmat], dim=-1)
     # Exact conv tail for decode handoff: last (W-1) conv inputs, left-padded.
     w = cfg.conv_width
@@ -142,16 +164,16 @@ def ssm_forward(params, cfg, x, initial_state=None):
     if pad:
         # dt=0 ⇒ decay=1 and zero input: padded steps are identity updates.
         dt, xb, bmat, cmat = (F.pad(y, (0, 0, 0, pad)) for y in (dt, xb, bmat, cmat))
-    tp = t + pad
-    xh = xb.reshape(bsz, tp, nh, cfg.ssm_headdim)
-    bm = bmat.reshape(bsz, tp, g, n)
-    cm = cmat.reshape(bsz, tp, g, n)
+    t_pad = t + pad
+    xh = xb.reshape(bsz, t_pad, nh, cfg.ssm_headdim)
+    bm = bmat.reshape(bsz, t_pad, g, n)
+    cm = cmat.reshape(bsz, t_pad, g, n)
 
     y, final_state = ssd_chunked(xh * dt[..., None].to(xh.dtype), dt * a_neg, bm, cm, chunk,
                                  initial_state)
     y = y + xh * params["D"][None, None, :, None].to(xh.dtype)
     y = y[:, :t].reshape(bsz, t, d_in) * F.silu(z)
-    return y @ params["out_proj"], (final_state, conv_tail)
+    return _out_proj(params, cfg, y, tp), (final_state, conv_tail)
 
 
 def init_ssm_cache(cfg, batch, dtype, device):
@@ -163,11 +185,11 @@ def init_ssm_cache(cfg, batch, dtype, device):
     }
 
 
-def ssm_decode_step(params, cfg, cache, x_t):
+def ssm_decode_step(params, cfg, cache, x_t, tp=None):
     """One-token recurrence. x_t: (B, d_model) → (y (B, d_model), new cache)."""
     d_in, nh, g, n, conv_dim = dims(cfg)
     bsz = x_t.shape[0]
-    z, xb, bmat, cmat, dt = _split_proj(cfg, x_t @ params["in_proj"])
+    z, xb, bmat, cmat, dt = _split_proj(cfg, _in_proj(params, cfg, x_t, tp))
     conv_in = torch.cat([xb, bmat, cmat], dim=-1)  # (B, conv_dim)
     new_conv, conv_out = layers.causal_conv1d_step(params["conv"], cache["conv"], conv_in)
     conv_out = F.silu(conv_out)
@@ -184,4 +206,4 @@ def ssm_decode_step(params, cfg, cache, x_t):
     h = cache["state"] * da[..., None, None] + (dt[..., None] * xh)[..., None] * bm[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", h, cm) + xh * params["D"][None, :, None]
     y = y.reshape(bsz, d_in).to(x_t.dtype) * F.silu(z)
-    return y @ params["out_proj"], {"state": h, "conv": new_conv}
+    return _out_proj(params, cfg, y, tp), {"state": h, "conv": new_conv}

@@ -42,8 +42,20 @@ holds the block ``tables`` and the ``codec``; ``pos`` is then the per-slot
 
 Over a mesh (``ctx["mesh"]``, set by ``dist/step.py:_model_ctx``) an MoE
 config with ``moe_impl="ep"`` runs ``moe.moe_ep`` on the rank's local
-tokens, as the reference does; a mesh whose ``model`` axis is larger than
-1 raises (its tensor parallelism is ROADMAP Queue 1 item 11 part C).
+tokens, as the reference does; inside the forward at a ``model`` axis
+larger than 1 it raises (ROADMAP Queue 1 item 11 part C2).
+
+Tensor parallelism: ``ctx["tp"]`` (the mesh's model group, set by
+``_model_ctx`` when the model axis is over 1) with params that are the
+rank's pieces by the reference's ``_TP_RULES`` (``dist/sharding.py``;
+``local_tree``). Each module uses a leaf whole where its dim does not
+divide the group and its piece where it does: column-parallel products on
+the replicated activation (``collectives.copy_to``), row-parallel ones
+summed over the group (``reduce_from``), a vocabulary-parallel embedding
+(one nonzero term a token, exact). The logits stay cut over the
+vocabulary where the vocabulary divides the group: ``forward`` and
+``decode_step`` return the rank's columns, which the loss takes as they
+are and the serving steps gather (``dist/step.py``).
 ``abstract_params(cfg)`` is the meta-device params tree, the counterpart of
 ``jax.eval_shape(init_params)``: shapes and dtypes, no draw.
 """
@@ -58,6 +70,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.launch.mesh import axis_size
 from repro_torch.models import attention, layers, moe, rglru, ssm
+from repro_torch.utils import collectives as col
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 # ---------------------------------------------------------------------------
@@ -148,6 +161,22 @@ def init_block(gen, cfg, block_type):
     raise ValueError(block_type)
 
 
+def tp_over(ctx, leaf, whole: int, dim: int = -1):
+    """The model group of ``ctx`` when ``leaf``'s ``dim`` is cut over it
+    (shorter than the model's ``whole``), else None. A cut is read from the
+    leaf's shape, as everywhere in the port (the specs decide which leaves
+    are cut)."""
+    tp = ctx.get("tp")
+    return tp if tp is not None and leaf.shape[dim] != whole else None
+
+
+def _vocab_tp(cfg, params, ctx):
+    """The model group when the vocabulary is cut over it (the embedding
+    table's vocabulary dim: audio's tables are (K, V, d)), else None."""
+    return tp_over(ctx, params["embed"]["table"], cfg.vocab_size,
+                   1 if cfg.family == "audio" else 0)
+
+
 def _ffn(params, cfg, x, ctx):
     """FFN half of an attn block: SwiGLU or routed MoE. Returns (y, aux)."""
     if _uses_moe(cfg):
@@ -155,8 +184,9 @@ def _ffn(params, cfg, x, ctx):
             mesh = ctx["mesh"]
             if axis_size(mesh, "model") > 1:
                 raise NotImplementedError(
-                    f"a mesh whose model axis is {axis_size(mesh, 'model')} needs tensor "
-                    "parallelism, which is not ported yet: ROADMAP Queue 1 item 11 part C")
+                    f"the expert-parallel MoE inside the forward on a mesh whose model axis is "
+                    f"{axis_size(mesh, 'model')} is not ported yet: ROADMAP Queue 1 item 11 "
+                    "part C2 (moe_impl='dense' runs there)")
             return moe.moe_ep(
                 params["moe"],
                 cfg,
@@ -167,8 +197,10 @@ def _ffn(params, cfg, x, ctx):
                 fsdp_weights=ctx.get("fsdp_moe", False),
                 already_manual=ctx.get("already_manual", frozenset()),
             )
-        return moe.moe_dense(params["moe"], cfg, x, ctx.get("token_groups", ()))
-    return layers.mlp(params["mlp"], x), _zero(x)
+        return moe.moe_dense(params["moe"], cfg, x, ctx.get("token_groups", ()),
+                             tp=tp_over(ctx, params["moe"]["w_gate"], cfg.num_experts, 0))
+    tp = tp_over(ctx, params["mlp"]["gate"], cfg.d_ff)
+    return layers.mlp(params["mlp"], x, tp), _zero(x)
 
 
 def block_forward(params, cfg, block_type, x, ctx):
@@ -185,6 +217,7 @@ def block_forward(params, cfg, block_type, x, ctx):
             mrope_positions=ctx.get("mrope_positions"),
             window=window,
             impl=ctx.get("attn_impl", "auto"),
+            tp=ctx.get("tp"),
         )
         x = x + h
         y, aux = _ffn(params, cfg, layers.rmsnorm(params["norm2"], x, eps), ctx)
@@ -193,14 +226,16 @@ def block_forward(params, cfg, block_type, x, ctx):
         return x, aux, cache
     if block_type == "rec":
         y, (h_last, conv_tail) = rglru.rglru_block_forward(
-            params["rec"], cfg, layers.rmsnorm(params["norm1"], x, eps))
+            params["rec"], cfg, layers.rmsnorm(params["norm1"], x, eps),
+            tp=tp_over(ctx, params["rec"]["gate_proj"], cfg.lru_width or cfg.d_model))
         x = x + y
-        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x, eps))
+        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x, eps),
+                           tp_over(ctx, params["mlp"]["gate"], cfg.d_ff))
         cache = {"state": h_last, "conv": conv_tail} if want_cache else {}
         return x, _zero(x), cache
     if block_type == "ssm":
         y, (final_state, conv_tail) = ssm.ssm_forward(
-            params["ssm"], cfg, layers.rmsnorm(params["norm1"], x, eps))
+            params["ssm"], cfg, layers.rmsnorm(params["norm1"], x, eps), tp=ctx.get("tp"))
         cache = {"state": final_state, "conv": conv_tail} if want_cache else {}
         return x + y, _zero(x), cache
     raise ValueError(block_type)
@@ -256,20 +291,25 @@ def block_decode(params, cfg, block_type, cache, x_t, pos, ctx):
                 pos,
                 window=window,
                 mrope_positions=ctx.get("mrope_positions"),
+                tp=ctx.get("tp"),
             )
         x_t = x_t + h
         y, _ = _ffn(params, cfg, layers.rmsnorm(params["norm2"], x_t, eps)[:, None, :], ctx)
         return x_t + y[:, 0, :], cache
     if block_type == "rec":
         y, new = rglru.rglru_decode_step(params["rec"], cfg, cache,
-                                         layers.rmsnorm(params["norm1"], x_t, eps))
+                                         layers.rmsnorm(params["norm1"], x_t, eps),
+                                         tp=tp_over(ctx, params["rec"]["gate_proj"],
+                                                    cfg.lru_width or cfg.d_model))
         _write(cache, new)
         x_t = x_t + y
-        x_t = x_t + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x_t, eps))
+        x_t = x_t + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x_t, eps),
+                               tp_over(ctx, params["mlp"]["gate"], cfg.d_ff))
         return x_t, cache
     if block_type == "ssm":
         y, new = ssm.ssm_decode_step(params["ssm"], cfg, cache,
-                                     layers.rmsnorm(params["norm1"], x_t, eps))
+                                     layers.rmsnorm(params["norm1"], x_t, eps),
+                                     tp=ctx.get("tp"))
         _write(cache, new)
         return x_t + y, cache
     raise ValueError(block_type)
@@ -331,20 +371,27 @@ def init_params(cfg, gen):
     }
 
 
-def _embed_codebooks(cfg, params, tokens):
-    """Audio: one table per codebook, summed. tokens: (B, K, ...)."""
+def _embed_codebooks(cfg, params, tokens, tp=None):
+    """Audio: one table per codebook, summed in codebook order. tokens:
+    (B, K, ...). With ``tp`` (the vocabulary cut over it) the K lookups are
+    summed over the group in one stack, then over the codebooks."""
     table = params["embed"]["table"]  # (K, V, d)
-    return sum(table[k][tokens[:, k]] for k in range(cfg.num_codebooks))
+    if tp is None:
+        return sum(table[k][tokens[:, k]] for k in range(cfg.num_codebooks))
+    parts = col.reduce_from(torch.stack([layers.embed_local(table[k], tokens[:, k], tp)
+                                         for k in range(cfg.num_codebooks)]), tp)
+    return sum(parts[k] for k in range(cfg.num_codebooks))
 
 
-def embed_inputs(cfg, params, batch):
-    """Returns (x (B,T,d), ctx-extras dict)."""
+def embed_inputs(cfg, params, batch, tp=None):
+    """Returns (x (B,T,d), ctx-extras dict); ``tp`` the model group when
+    the vocabulary is cut over it."""
     dtype = layers.dtype_of(cfg.dtype)
     extras = {}
     if cfg.family == "audio":
-        return _embed_codebooks(cfg, params, batch["tokens"]).to(dtype), extras  # (B, K, T)
+        return _embed_codebooks(cfg, params, batch["tokens"], tp).to(dtype), extras  # (B, K, T)
     if cfg.family == "vlm":
-        tok_emb = layers.embed(params["embed"], batch["tokens"])  # (B, Tt, d)
+        tok_emb = layers.embed(params["embed"], batch["tokens"], tp)  # (B, Tt, d)
         patches = batch["patch_embeds"].to(tok_emb.dtype)  # (B, P, d)
         x = torch.cat([patches, tok_emb], dim=1)
         if "mrope_positions" in batch:
@@ -353,10 +400,12 @@ def embed_inputs(cfg, params, batch):
             b, t = x.shape[0], x.shape[1]
             extras["mrope_positions"] = torch.arange(t, device=x.device).expand(3, b, t)
         return x.to(dtype), extras
-    return layers.embed(params["embed"], batch["tokens"]).to(dtype), extras
+    return layers.embed(params["embed"], batch["tokens"], tp).to(dtype), extras
 
 
-def unembed_logits(cfg, params, x):
+def unembed_logits(cfg, params, x, tp=None):
+    """Logits; with ``tp`` (the vocabulary cut over it) the rank's columns."""
+    x = col.copy_to(x, tp)
     if cfg.family == "audio":
         return torch.einsum("btd,kdv->bktv", x, params["unembed"]["kernel"])
     if cfg.tie_embeddings:
@@ -401,7 +450,8 @@ def forward(cfg, params, batch, *, ctx=None):
     positions, window, last_only, last_index.
     """
     ctx = dict(ctx or {})
-    x, extras = embed_inputs(cfg, params, batch)
+    vocab_tp = _vocab_tp(cfg, params, ctx)
+    x, extras = embed_inputs(cfg, params, batch, vocab_tp)
     ctx.update(extras)
     pattern, n_groups, tail = pattern_info(cfg)
     want_cache = ctx.get("want_cache", False)
@@ -439,7 +489,7 @@ def forward(cfg, params, batch, *, ctx=None):
             x = torch.take_along_dim(x, idx, dim=1)
         else:
             x = x[:, -1:, :]
-    logits = unembed_logits(cfg, params, x)
+    logits = unembed_logits(cfg, params, x, vocab_tp)
     cache = {"groups": group_caches, "tail": tuple(tail_caches)} if want_cache else None
     return logits, aux, cache
 
@@ -468,10 +518,11 @@ def decode_step(cfg, params, cache, tokens, pos, *, ctx=None):
     per-slot (B,) positions). The cache is updated in place.
     Returns (logits (B, V) or (B, K, V), cache)."""
     ctx = dict(ctx or {})
+    vocab_tp = _vocab_tp(cfg, params, ctx)
     if cfg.family == "audio":
-        x = _embed_codebooks(cfg, params, tokens)
+        x = _embed_codebooks(cfg, params, tokens, vocab_tp)
     else:
-        x = layers.embed(params["embed"], tokens)
+        x = layers.embed(params["embed"], tokens, vocab_tp)
     x = x.to(layers.dtype_of(cfg.dtype))
     pattern, n_groups, tail = pattern_info(cfg)
     for i in range(n_groups):
@@ -482,5 +533,6 @@ def decode_step(cfg, params, cache, tokens, pos, *, ctx=None):
         x, _ = block_decode(tp, cfg, bt, tc, x, pos, ctx)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.family == "audio":
-        return torch.einsum("bd,kdv->bkv", x, params["unembed"]["kernel"]), cache
-    return unembed_logits(cfg, params, x), cache
+        return torch.einsum("bd,kdv->bkv", col.copy_to(x, vocab_tp),
+                            params["unembed"]["kernel"]), cache
+    return unembed_logits(cfg, params, x, vocab_tp), cache

@@ -10,6 +10,10 @@ Dtypes are the reference's: the learning rate is a float32 value (``lr_at``
 computes it in float32, op for op), the step is taken in float32 and cast
 back to each param's dtype, and the Python coefficients round to the dtype
 of the array they scale, as JAX's weakly typed scalars do.
+
+Under tensor parallelism (``group``, the model group, and ``cut``, which
+leaves are the rank's pieces) the clip's global norm sums the cut leaves'
+squares over the group and counts the replicated ones once.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.utils import tree_l2_norm, tree_map, tree_zeros_like, weak
+from repro_torch.utils import tree_l2_norm, tree_leaves, tree_map, tree_zeros_like, weak
 
 
 class SGDState(NamedTuple):
@@ -41,9 +46,11 @@ def apply_updates(
     weight_decay: float = 0.0,
     grad_clip: float = 0.0,
     nesterov: bool = False,
+    group=None,
+    cut=None,
 ):
     if grad_clip > 0.0:
-        norm = tree_l2_norm(grads)
+        norm = global_norm(grads, group, cut)
         scale = torch.clamp(grad_clip / (norm + 1e-12), max=1.0)
         grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
     if weight_decay > 0.0:
@@ -63,6 +70,20 @@ def apply_updates(
     lr = float(lr)
     params = tree_map(lambda w, u: (w.float() - lr * u.float()).to(w.dtype), params, update)
     return params, state
+
+
+def global_norm(grads, group=None, cut=None) -> torch.Tensor:
+    """The L2 norm of the whole gradient (float32 device scalar): the
+    leaves' own, or with ``group`` the cut leaves' squares (``cut`` a bool
+    a leaf) summed over the group beside the replicated ones'."""
+    if group is None or not any(cut):
+        return tree_l2_norm(grads)
+    leaves = tree_leaves(grads)
+    squares = [torch.sum(torch.square(x.float())) for x in leaves]
+    part = sum(q for q, c in zip(squares, cut, strict=True) if c).reshape(1)
+    dist.all_reduce(part, group=group)
+    rest = [q for q, c in zip(squares, cut, strict=True) if not c]
+    return torch.sqrt(part[0] + sum(rest)) if rest else torch.sqrt(part[0])
 
 
 def lr_at(step, cfg) -> float:

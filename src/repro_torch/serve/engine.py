@@ -133,7 +133,8 @@ class ServeEngine:
     device of ``params``. Over a ``mesh`` (model axis 1) the pool is laid
     out by ``dist.sharding.pool_specs`` (this rank's piece: the whole pool)
     and the steps carry the mesh, so an MoE config's ticks and admissions
-    run the expert-parallel MoE."""
+    run the expert-parallel MoE. A model axis over 1 raises (the pool over
+    kv heads: ROADMAP Queue 1 item 11 part C2)."""
 
     def __init__(self, cfg, params, scfg: ServeConfig, mesh=None):
         self.cfg = cfg

@@ -8,6 +8,14 @@ gradient is the sum of the ranks' gradients: so the backward of a sum
 over ranks is a sum over ranks of the upstream gradients, the backward of
 an exchange is the reverse exchange, and the backward of a gather is each
 rank's slice of the summed gradients. A group of one rank changes no bit.
+
+Tensor parallelism over a model group has the other convention, Megatron's:
+every rank of the group holds the same loss, a replicated activation's
+gradient is the same on every rank, and a feature-split one's is the
+rank's slice. Its four operators (``copy_to``, ``reduce_from``,
+``gather_from``, ``slice_to``) are each other's transposes; on a group of
+one they return their input itself, forward and backward, with no copy and
+no collective.
 """
 
 from __future__ import annotations
@@ -22,6 +30,14 @@ def size(group) -> int:
 
 def rank(group) -> int:
     return dist.get_rank(group)
+
+
+def _all_gather(x, group, dim):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 class _SumOver(torch.autograd.Function):
@@ -75,10 +91,7 @@ class _GatherCat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+        return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, grad):
@@ -89,3 +102,102 @@ class _GatherCat(torch.autograd.Function):
 def gather_cat(x, group, dim: int):
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     return _GatherCat.apply(x, group, dim)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (Megatron's operators over a model group)
+# ---------------------------------------------------------------------------
+
+
+def _alone(group) -> bool:
+    return group is None or size(group) == 1
+
+
+def _all_reduce(x, group):
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+
+
+def _own(x, group, dim):
+    return x.chunk(size(group), dim=dim)[rank(group)].contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own(grad, ctx.group, ctx.dim), None, None
+
+
+class _SliceTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.group, ctx.dim), None, None
+
+
+def copy_to(x, group):
+    """A replicated activation entering a column-parallel product: ``x``
+    itself forward, its gradient all-reduced over ``group`` backward."""
+    return x if _alone(group) else _CopyTo.apply(x, group)
+
+
+def reduce_from(x, group):
+    """The sum over ``group`` of the ranks' partial results (a row-parallel
+    product): all-reduced forward, the gradient as it is backward."""
+    return x if _alone(group) else _ReduceFrom.apply(x, group)
+
+
+def gather_from(x, group, dim: int):
+    """A feature-split activation made whole: every rank's piece
+    concatenated along ``dim`` in rank order forward, the rank's own slice
+    of the gradient backward."""
+    return x if _alone(group) else _GatherFrom.apply(x, group, dim)
+
+
+def slice_to(x, group, dim: int):
+    """This rank's slice along ``dim`` of a replicated tensor (an
+    activation or a replicated leaf read per channel): the slice forward,
+    the ranks' slices of the gradient gathered backward."""
+    return x if _alone(group) else _SliceTo.apply(x, group, dim)
+
+
+def max_over(x, group):
+    """The elementwise maximum over ``group``, a new tensor, no gradient."""
+    if _alone(group):
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out

@@ -29,13 +29,24 @@ model with float32 routers or gates) has a ``GroupedLayout``: one
 ``FlatLayout`` per dtype, each over that dtype's leaves in
 ``tree_leaves`` order, and every flat quantity is a tuple of one stack per
 group. ``FlatLayout.of`` returns whichever the tree needs.
+
+Under tensor parallelism a rank's tree holds its pieces of leaves cut over
+the mesh's model group: ``layout.over(group, full_sizes)`` is the layout
+of those pieces that also knows each segment's whole size (``full_sizes``)
+and whether it is cut (``cut_flags``). Its keep counts come from the whole
+sizes; a cut segment's norms are summed over the group and its threshold
+is that of the whole leaf (``gmf_select``'s group mode on the card, an
+all-gather and ``torch.topk`` on the CPU); ``nnz`` counts a cut segment's
+entries over the group and a replicated one's once.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -59,6 +70,7 @@ class FlatLayout:
     """Leaf shapes, sizes and offsets of one tree structure on one device."""
 
     groups = None  # one dtype: the stacks are tensors, not tuples
+    group = None   # the model group a segment may be cut over (``over``)
 
     def __init__(self, tree, device):
         self.device = torch.device(device)
@@ -79,6 +91,50 @@ class FlatLayout:
         self._blocks: dict[int, tuple[int, torch.Tensor]] = {}
         self._positions: tuple[torch.Tensor, torch.Tensor] | None = None
         self._select = None
+        self._select_group = None
+        self.full_sizes = self.sizes
+        self.full_total = self.total
+        self.cut_flags = (False,) * self.num_leaves
+        self._over: dict = {}
+
+    def over(self, group, full_sizes) -> FlatLayout:
+        """This layout as the rank's pieces of leaves whose whole sizes are
+        ``full_sizes``, a segment cut over ``group`` where its size differs
+        (made once per group and sizes). A group of one, or no segment cut,
+        gives this layout itself."""
+        full_sizes = tuple(int(n) for n in full_sizes)
+        if len(full_sizes) != self.num_leaves:
+            raise ValueError(f"{len(full_sizes)} whole sizes for {self.num_leaves} leaves")
+        cut = tuple(f != n for f, n in zip(full_sizes, self.sizes, strict=True))
+        if group is None or dist.get_world_size(group) == 1 or not any(cut):
+            return self
+        key = (group, full_sizes)  # the group itself: its id is not reused while held
+        if key not in self._over:
+            out = copy.copy(self)
+            out.group, out.full_sizes, out.cut_flags = group, full_sizes, cut
+            out.full_total = sum(full_sizes)
+            out._keep, out._select_group, out._over = {}, None, {}
+            self._over[key] = out
+        return self._over[key]
+
+    @property
+    def cut(self) -> bool:
+        """Whether a segment is cut over a group of more than one rank."""
+        return self.group is not None
+
+    def nnz(self, x: torch.Tensor) -> torch.Tensor:
+        """Nonzero entries along the last axis of ``x`` ([..., N]) in the
+        whole leaves: a cut segment's summed over the group, a replicated
+        one's counted once. int64, no host sync."""
+        n = torch.count_nonzero(x, dim=-1)
+        if not self.cut:
+            return n
+        whole = [torch.count_nonzero(seg, dim=-1) for seg, cut in
+                 zip(self.segments(x), self.cut_flags, strict=True) if not cut]
+        rep = sum(whole) if whole else torch.zeros_like(n)
+        part = (n - rep).contiguous()
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
+        return part + rep
 
     @staticmethod
     def of(tree) -> FlatLayout | GroupedLayout:
@@ -115,12 +171,13 @@ class FlatLayout:
         return self._positions
 
     def keep(self, rate: float) -> tuple[tuple[int, ...], torch.Tensor]:
-        """Per-leaf keep counts ``num_keep(n_i, rate)``: on the host and as an
-        int64 ``[L]`` device tensor, each made once per rate."""
+        """Per-leaf keep counts ``num_keep(n_i, rate)`` of the whole leaves'
+        sizes: on the host and as an int64 ``[L]`` device tensor, each made
+        once per rate."""
         from repro_torch.core.sparsify import num_keep
 
         if rate not in self._keep:
-            host = tuple(num_keep(n, rate) for n in self.sizes)
+            host = tuple(num_keep(n, rate) for n in self.full_sizes)
             self._keep[rate] = host, torch.tensor(host, dtype=torch.int64, device=self.device)
         return self._keep[rate]
 
@@ -138,15 +195,21 @@ class FlatLayout:
             self._blocks[block] = starts[-1], self.positions()[1] // block + self.expand(first)
         return self._blocks[block]
 
-    def select_plan(self):
+    def select_plan(self, group: bool = False):
         """``gmf_select``'s plan of this layout's leaves in tiles of
         ``select_tile(sizes)`` elements, with its table on the device: made
-        and copied once (``kernels.gmf_compress.plan_select``)."""
+        and copied once (``kernels.gmf_compress.plan_select``). ``group``:
+        the group mode's plan, every cut segment among the split ones,
+        first."""
         from repro_torch.kernels import gmf_compress as gk
 
+        plan = lambda: gk.plan_select(self.sizes, gk.select_tile(self.sizes))  # noqa: E731
+        if group:
+            if self._select_group is None:
+                self._select_group = gk.select_table(plan(), self.device, group=self.cut_flags)
+            return self._select_group
         if self._select is None:
-            self._select = gk.select_table(gk.plan_select(self.sizes, gk.select_tile(self.sizes)),
-                                           self.device)
+            self._select = gk.select_table(plan(), self.device)
         return self._select
 
     def flatten(self, tree) -> torch.Tensor:
@@ -202,7 +265,24 @@ class GroupedLayout:
         self.shapes = tuple(tuple(x.shape) for x in leaves)
         self.sizes = tuple(math.prod(s) for s in self.shapes)
         self.total = sum(self.sizes)
+        self.full_total = self.total
         self.num_leaves = len(leaves)
+        self._over: dict = {}
+
+    def over(self, group, full_sizes) -> GroupedLayout:
+        """``FlatLayout.over`` for each dtype group (``full_sizes`` of every
+        leaf, in ``tree_leaves`` order)."""
+        full_sizes = tuple(int(n) for n in full_sizes)
+        subs = tuple(g.over(group, [full_sizes[i] for i in idx])
+                     for g, idx in zip(self.groups, self.index, strict=True))
+        if all(a is b for a, b in zip(subs, self.groups, strict=True)):
+            return self
+        key = (group, full_sizes)
+        if key not in self._over:
+            out = copy.copy(self)
+            out.groups, out.full_total, out._over = subs, sum(full_sizes), {}
+            self._over[key] = out
+        return self._over[key]
 
     def flatten(self, tree) -> tuple:
         """A tree of ``[*lead, *shape_i]`` leaves -> one ``[*lead, N_g]``

@@ -1,6 +1,6 @@
 """The port's steps over a mesh (``repro_torch.dist.step`` with a
-``DeviceMesh`` whose model axis is 1) against the JAX package's
-``make_train_step`` / prefill / decode at the same meshes.
+``DeviceMesh``) against the JAX package's ``make_train_step`` / prefill /
+decode at the same meshes.
 
 One rank, in process (a gloo world of one rank from a ``file://`` store,
 and JAX's real (1, 1) mesh on its one CPU device):
@@ -22,17 +22,29 @@ JAX package on four faked devices; ``tests/torch_mesh_*.py``): two steps of
 and on a ``moe_impl="dense"`` granite (the pod's router density), and
 ``dense`` on the ``moe_impl="ep"`` granite at (4, 1), on batches whose -1
 labels fall unevenly across the ranks (15 valid labels on rank 0, 32 on
-the others). Tolerances per shard, as at n = 1 (each side its own
+the others). Meshes smaller than the world run on its first ranks, the
+others sitting out (ROADMAP F6): ``gmf_data`` at (2, 1) and ``dense`` at
+(1, 1), with JAX's meshes on the first devices, and a client mesh of 2.
+Tensor parallelism at a model axis of 2 (ROADMAP item 11 part C1):
+``gmf_data`` at (2, 2) and ``gmf_pod`` at (2, 1, 2) on llama, ``dense``
+on yi-34b at (2, 2) (its q and kv cuts fall mid-head) and ``gmf_data`` on
+a ``moe_impl="dense"`` granite at (2, 2) (experts cut, its vocabulary of
+515 whole); the params and compression rows are gathered whole for the
+comparison. Tolerances per shard, as at n = 1 (each side its own
 gradients): every leaf of the params, of each shard's compression state
 and of the broadcast within 1e-5 of its largest magnitude but at FLIPS
 flips a shard, the counts within as many, the loss within 1e-5. Replicated
-state (params, opt slots, broadcast, loss) is bitwise equal on every rank,
-and so are a pod's data ranks' rows. A checkpoint restored onto (4, 1)
-under FSDP's specs gives each rank its slice and gathers back bitwise.
+state (params, opt slots, broadcast, loss) is bitwise equal on every rank
+of a mesh, and so are a pod's data ranks' rows and a model group's. A
+checkpoint restored onto (4, 1) under FSDP's specs gives each rank its
+slice and gathers back bitwise.
 
 The launcher runs apart: ``launch/train.py --device cpu --mesh-shape 2,1``
 as two processes with a ``torchrun``-style environment (``MASTER_ADDR``
 127.0.0.1 and a free ``MASTER_PORT``): both exit 0 and only rank 0 writes.
+Then three worlds of four processes at once: ``--mesh-shape 2,2``, no
+``--mesh-shape`` (the reference's (n // 2, 2)) and ``--mesh-shape 2,1``
+(ranks 2 and 3 wait for the mesh's result): every rank exits 0.
 """
 
 import dataclasses
@@ -58,6 +70,7 @@ from repro.configs import granite_moe_1b_a400m as jgranite  # noqa: E402
 from repro.core import CompressionConfig as JComp  # noqa: E402
 from repro.launch.mesh import make_mesh as jmake_mesh  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.checkpoint import restore as trestore  # noqa: E402
 from repro_torch.checkpoint import save as tsave  # noqa: E402
 from repro_torch.configs import granite_moe_1b_a400m as tgranite  # noqa: E402
 from repro_torch.core import CompressionConfig  # noqa: E402
@@ -246,23 +259,29 @@ def within(got, want, rel=REL):
     return np.abs(got - want).max() / scale, int((np.abs(got - want) > rel * scale).sum())
 
 
+def owners(shape, sync):
+    """(shards, the first rank of each shard's row)."""
+    axis = "data" if sync == "gmf_data" else "pod"
+    n = shape[cases.axes_of(shape).index(axis)]
+    return n, [c * (cases.members(shape) // n) for c in range(n)]
+
+
 @pytest.mark.parametrize("name", list(cases.TRAIN))
 def test_four_ranks_agree_with_jax(world4, name):
     jres, rres, _ = world4
     _, _, shape, sync = cases.TRAIN[name]
     r0 = rres[0]
+    # JAX's mesh takes the first devices, the port's the first ranks
+    assert jres[f"{name}/devices"].tolist() == list(range(cases.members(shape)))
     n_leaves = len([k for k in r0 if k.startswith(f"{name}/params/")])
     assert n_leaves > 0
     flips = sum(within(r0[f"{name}/params/{i}"], jres[f"{name}/params/{i}"])[1]
                 for i in range(n_leaves))
     n = 1
     if sync != "dense":
-        axis = "data" if sync == "gmf_data" else "pod"
-        n = shape[cases.axes_of(shape).index(axis)]
-        # shard c's row: the rank at (c, 0) under gmf_pod, rank c under gmf_data
-        owners = [c * (cases.WORLD // n) for c in range(n)]
+        n, first = owners(shape, sync)
         for f in ("u", "v", "m"):
-            got = np.concatenate([rres[r][f"{name}/{f}"] for r in owners])
+            got = np.concatenate([rres[r][f"{name}/{f}"] for r in first])
             flips = max(flips, within(got, jres[f"{name}/{f}"])[1])
         flips = max(flips, within(r0[f"{name}/gbar"], jres[f"{name}/gbar"])[1])
         for t in range(cases.STEPS):
@@ -280,21 +299,43 @@ def test_four_ranks_agree_with_jax(world4, name):
 
 @pytest.mark.parametrize("name", list(cases.TRAIN))
 def test_four_ranks_replicated_state_is_bitwise(world4, name):
+    """Every rank of the mesh holds the same whole params (the replicated
+    leaves bitwise, the cut ones gathered), broadcast, loss and counts; the
+    ranks past the mesh hold nothing of it."""
     _, rres, _ = world4
     _, _, shape, sync = cases.TRAIN[name]
     keys = [k for k in rres[0] if k.startswith(f"{name}/") and
             any(k.startswith(f"{name}/{f}") for f in ("params/", "opt/", "gbar", "loss/",
                                                        "upload_nnz/", "download_nnz/"))]
     assert keys
-    for r in range(1, cases.WORLD):
+    inside = cases.members(shape)
+    for r in range(1, inside):
         for k in keys:
             assert np.array_equal(rres[r][k], rres[0][k]), (name, r, k)
-    if sync == "gmf_pod":  # a pod's data ranks run the same compression on the same row
-        for r in range(0, cases.WORLD, 2):
+    for r in range(inside, cases.WORLD):
+        assert not any(k.startswith(f"{name}/") for k in rres[r]), (name, r)
+    if sync == "dense":
+        return
+    n, first = owners(shape, sync)
+    for c, r0 in enumerate(first):  # a shard's ranks (a pod's data ranks, a model
+        for r in range(r0, r0 + inside // n):  # group) hold one row
             for f in ("u", "v", "m"):
-                assert np.array_equal(rres[r][f"{name}/{f}"], rres[r + 1][f"{name}/{f}"])
-    elif sync == "gmf_data":  # each data rank is its own client
-        assert not np.array_equal(rres[0][f"{name}/v"], rres[1][f"{name}/v"])
+                assert np.array_equal(rres[r][f"{name}/{f}"], rres[r0][f"{name}/{f}"]), (c, r)
+    if sync == "gmf_data" and n > 1:  # each data shard is its own client
+        assert not np.array_equal(rres[first[0]][f"{name}/v"], rres[first[1]][f"{name}/v"])
+
+
+def test_four_ranks_client_mesh_of_two(world4):
+    """``make_client_mesh(2)`` in a world of 4 holds ranks 0 and 1, as the
+    reference's holds devices 0 and 1; the others sit out (ROADMAP F6)."""
+    jres, rres, _ = world4
+    assert jres["client_mesh/devices"].tolist() == [0, 1]
+    for r in range(cases.WORLD):
+        if r < cases.CLIENT_MESH:
+            assert rres[r]["client_mesh/coord"].tolist() == [r]
+            assert rres[r]["client_mesh/sum"].tolist() == [3.0]
+        else:
+            assert "client_mesh/coord" not in rres[r]
 
 
 def test_four_ranks_uneven_labels(world4):
@@ -329,6 +370,25 @@ def test_four_ranks_restore_onto_a_mesh(world4):
                 d = tuple(spec).index("data")
                 want = np.split(whole, cases.WORLD, axis=d)[r]
             assert np.array_equal(rres[r][f"restore/local/{i}"], want), (i, r)
+
+
+def test_four_ranks_restore_at_model_two(world4):
+    """``restore(..., shardings=...)`` onto (2, 2) under the tensor-parallel
+    specs: each rank's leaf is its model-axis slice of the saved one (rank r
+    at model coordinate r % 2), whole where the spec names no axis."""
+    _, rres, inputs = world4
+    arch = cases.ARCHS[0]
+    like = ttr.abstract_params(tconfigs.get_smoke(arch))
+    specs = tree_leaves(tshr.param_specs(like, fsdp=False, mesh=AbstractMesh((2, 2), (
+        "data", "model"))))
+    assert any("model" in tuple(s) for s in specs)
+    for i, spec in enumerate(specs):
+        whole = inputs[f"params/{arch}/{i}"]
+        for r in range(cases.WORLD):
+            want = whole
+            if "model" in tuple(spec):
+                want = np.split(whole, 2, axis=tuple(spec).index("model"))[r % 2]
+            assert np.array_equal(rres[r][f"restore22/local/{i}"], want), (i, r)
 
 
 # ---------------------------------------------------------------------------
@@ -380,3 +440,54 @@ def test_launcher_over_two_ranks(tmp_path):
               .splitlines()]
     health = [e["data"] for e in events if e["kind"] == "health"]
     assert len(health) == 8 and all(e["residual_u_norm"] > 0 for e in health)
+
+
+# world name -> the --mesh-shape flags and the mesh rank 0 prints
+WORLDS4 = {"2x2": (["--mesh-shape", "2,2", "--checkpoint", "ck"],
+                   "mesh={'data': 2, 'model': 2}"),
+           "default": ([], "mesh={'data': 2, 'model': 2}"),
+           "2x1": (["--mesh-shape", "2,1"], "mesh={'data': 2, 'model': 1}")}
+
+
+@pytest.fixture(scope="module")
+def launched4(tmp_path_factory):
+    """The three worlds of four launcher processes, all started at once."""
+    base = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--grad-sync", "gmf_data",
+            "--steps", "8", "--batch", "8", "--seq-len", "64", "--log-every", "4"]
+    procs, works = {}, {}
+    for name, (flags, _) in WORLDS4.items():
+        port = str(free_port())
+        work = works[name] = tmp_path_factory.mktemp(f"launch_{name}")
+        procs[name] = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *base, *flags],
+            env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1",
+                 "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "4",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port},
+            cwd=work, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(4)]
+    out = {}
+    try:
+        for name, ps in procs.items():
+            out[name] = ([(p.communicate(timeout=240)[0], p.returncode) for p in ps],
+                         works[name])
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return out
+
+
+@pytest.mark.parametrize("name", list(WORLDS4))
+def test_launcher_over_four_ranks(launched4, name):
+    """Every rank of the world exits 0 (rank 0's code); rank 0 trains over
+    the mesh it prints, the loss improving."""
+    runs, work = launched4[name]
+    assert [rc for _, rc in runs] == [0] * 4, "\n".join(log[-2000:] for log, _ in runs)
+    assert WORLDS4[name][1] in runs[0][0] and "(improved)" in runs[0][0], runs[0][0][-2000:]
+    if "--checkpoint" in WORLDS4[name][0]:  # saved at model 2: the whole params, gathered
+        like = ttr.abstract_params(tconfigs.get_smoke("llama3.2-1b"))
+        back = trestore(str(work / "ck"), like)
+        assert [tuple(x.shape) for x in tree_leaves(back)] == [
+            tuple(x.shape) for x in tree_leaves(like)]

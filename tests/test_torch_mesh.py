@@ -10,8 +10,9 @@ production (2, 16, 16). Every spec is equal entry for entry (``tuple(P)``),
 but the flat compression stacks: the port's ``[n, N]`` stack is ``P(axis)``,
 and each of the reference's per-leaf stacked specs must lead with that
 axis and name, past it, only axes of size 1 on a mesh whose model axis is
-1 (but FSDP's data axis for the >40 B archs; the port's steps refuse a
-model axis > 1 and FSDP over a data axis > 1, ROADMAP item 11 part C).
+1 (but FSDP's data axis for the >40 B archs). The port's steps take a
+model axis > 1 (each rank's row holds its pieces of the leaves) and refuse
+FSDP over a data axis > 1 (ROADMAP item 11 part C2).
 
 The meshes themselves are built in a one-rank gloo world (``file://``
 store in the test's temporary directory, no port opened), where the FL
@@ -139,9 +140,11 @@ def test_specs_equal_the_reference(arch, shape):
                         for a in (e if isinstance(e, tuple) else (e,))]
                 if sizes["model"] == 1 and not fsdp_data:
                     assert all(sizes[a] == 1 for a in rest), (sync, field, spec)
-        if sizes["model"] > 1 or fsdp_data:  # the port refuses what needs part C
-            with pytest.raises(NotImplementedError, match="item 11 part C"):
+        if fsdp_data:  # the port refuses FSDP (part C2); a model axis runs (part C1)
+            with pytest.raises(NotImplementedError, match="item 11 part C2"):
                 tstep.make_train_step(tcfg, tt, TComp(scheme="dgcwgmf"), mesh=tm)
+        else:
+            tstep._check_mesh(tcfg, tm)
 
 
 def test_grouped_layout_stacks_one_spec_a_group():
@@ -192,7 +195,8 @@ def test_meshes_in_a_one_rank_world(world):
     m3 = tmesh.make_mesh((1, 1, 1), ("pod", "data", "model"), "cpu")
     assert tmesh.has_pod_axis(m3) and not tmesh.has_pod_axis(m)
     assert dist.get_world_size(m3.get_group("pod")) == 1
-    # the reference's message for a mesh larger than the world
+    # the reference's message for a mesh larger than the world (a smaller
+    # one takes the first ranks: tests/test_torch_dist_step.py)
     with pytest.raises(ValueError, match=r"Number of devices 1 must be >= the product of "
                                          r"mesh_shape \(2, 1\)"):
         tmesh.make_mesh((2, 1), ("data", "model"), "cpu")

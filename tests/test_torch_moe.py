@@ -126,10 +126,11 @@ def test_moe_prefill_then_decode_equals_forward():
 
 def test_expert_parallel_over_a_mesh_is_not_ported():
     """``moe_impl="ep"`` without a mesh takes the dense path, as the
-    reference does; the forward over a mesh whose model axis is over 1
-    raises, naming the item that ports its tensor parallelism (ROADMAP
-    Queue 1 item 11 part C). ``moe_ep`` itself runs at any model axis
-    (``tests/test_torch_moe_ep.py``)."""
+    reference does; the expert-parallel MoE inside the forward over a mesh
+    whose model axis is over 1 still raises, naming the item that ports it
+    (ROADMAP Queue 1 item 11 part C2; ``moe_impl="dense"`` runs there:
+    ``tests/test_torch_dist_step.py``). ``moe_ep`` itself runs at any model
+    axis (``tests/test_torch_moe_ep.py``)."""
     from repro_torch.launch.mesh import AbstractMesh
 
     cfg = dataclasses.replace(tgranite.smoke(), moe_impl="ep")
@@ -138,6 +139,6 @@ def test_expert_parallel_over_a_mesh_is_not_ported():
     with torch.no_grad():
         logits, aux, _ = ttr.forward(cfg, params, batch)
         assert bool(torch.isfinite(logits).all()) and float(aux) > 0
-        with pytest.raises(NotImplementedError, match="item 11 part C"):
+        with pytest.raises(NotImplementedError, match="item 11 part C2"):
             ttr.forward(cfg, params, batch,
                         ctx={"mesh": AbstractMesh((1, 2), ("data", "model"))})

@@ -141,16 +141,18 @@ def test_one_rank_moe_ep_gradients_are_dense_dispatch_gradients(one_rank):
 
 
 def test_a_model_axis_over_one_raises_in_the_forward_only():
-    """The forward over a mesh whose model axis is 2 raises (its tensor
-    parallelism is ROADMAP Queue 1 item 11 part C); ``moe_ep`` itself runs
-    there (the spawned test)."""
+    """The expert-parallel MoE inside the forward over a mesh whose model
+    axis is 2 still raises (ROADMAP Queue 1 item 11 part C2; the forward's
+    tensor parallelism with ``moe_impl="dense"`` runs:
+    ``tests/test_torch_dist_step.py``); ``moe_ep`` itself runs there (the
+    spawned test)."""
     from repro_torch import configs as tconfigs
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models import transformer as ttr
 
     cfg = dataclasses.replace(tconfigs.get_smoke("granite-moe-1b-a400m"), moe_impl="ep")
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 11 part C"):
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 11 part C2"):
         ttr.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
                     ctx={"mesh": AbstractMesh((2, 2), ("data", "model"))})
 

@@ -320,7 +320,7 @@ def test_adaptive_card_path_launches_k2_select_k3_once(monkeypatch):
             return plain(*args, **kw)
         return run
 
-    def select_abs(z, *, offsets, plan, keep):
+    def select_abs(z, *, offsets, plan, keep, group):
         tables.append(keep)
         return tsp.segment_topk_mask_keep(z, LAYOUT, keep)
 

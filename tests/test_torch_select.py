@@ -356,11 +356,11 @@ def test_card_path_is_one_call_per_kernel_and_no_loop_over_leaves(monkeypatch, s
     monkeypatch.setattr(FlatLayout, "segments", count_walks)
     monkeypatch.setattr(ops, "_on_card", lambda x: True)
     monkeypatch.setattr(gk, "gmf_select_flat", kernel(
-        "gmf_select", lambda v, m, *, offsets, plan, keep, **kw:
+        "gmf_select", lambda v, m, *, offsets, plan, keep, group, **kw:
         ref.gmf_select(v, m, layout, rate_of(keep), **kw)))
     monkeypatch.setattr(gk, "topk_abs_select_flat", kernel(
-        "gmf_select", lambda z, *, offsets, plan, keep: tsp.segment_topk_mask(z, layout,
-                                                                              rate_of(keep))))
+        "gmf_select", lambda z, *, offsets, plan, keep, group: tsp.segment_topk_mask(
+            z, layout, rate_of(keep))))
     monkeypatch.setattr(gk, "gmf_compress_flat", kernel(
         "gmf_compress", lambda u, v, m, *, offsets, **kw:
         ref.gmf_compress_segments(u, v, m, layout=layout, **kw)))

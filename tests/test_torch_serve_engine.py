@@ -136,12 +136,12 @@ def test_engine_builds_its_state_where_its_params_are(small):
 
 def test_engine_refuses_a_mesh(small):
     """A mesh whose model axis is over 1 raises, naming ROADMAP Queue 1 item
-    11 part C (the pool over KV heads); at model axis 1 the engine runs
+    11 part C2 (the pool over KV heads); at model axis 1 the engine runs
     (``tests/test_torch_dist_step.py``)."""
     from repro_torch.launch.mesh import AbstractMesh
 
     _, cfg, _, params = small
-    with pytest.raises(NotImplementedError, match="item 11 part C"):
+    with pytest.raises(NotImplementedError, match="item 11 part C2"):
         ServeEngine(cfg, params, ServeConfig(), mesh=AbstractMesh((1, 2), ("data", "model")))
 
 

@@ -1,0 +1,276 @@
+"""Tensor parallelism over the mesh's ``model`` axis (ROADMAP item 11 part
+C1): the port over a two-rank gloo world at (data 1, model 2) against the
+JAX package's one-device run and the port's own one-rank run on the same
+inputs, and ``gmf_select``'s group mode. The four-rank cases against JAX
+are in ``tests/test_torch_dist_step.py``.
+
+Two ranks, spawned once for the module (``tests/torch_tp_ranks.py``, one
+CPU thread a rank), while this process runs the JAX side:
+- the families the four-rank JAX cases leave out (mamba2, recurrentgemma,
+  musicgen-large, qwen2-vl, qwen2.5-3b at smoke size), on the same params
+  (numpy leaves) and numpy-seeded batches in both packages: the loss, every
+  gradient (the rank's pieces against the same pieces of the whole
+  gradient), one prefill and 4 greedy decode steps, each within 1e-5
+  (relative to the largest magnitude, or relative L2 for logits) of JAX's
+  one-device run on the same inputs (JAX computes the unsharded function
+  at any mesh), the tokens equal; the port's one-rank run is held to the
+  same as a second witness;
+- the plain group select (norms summed over the group, the cut segments'
+  scores all-gathered before ``torch.topk``) against the one-rank select on
+  the whole leaves: keep counts from the whole sizes, thresholds and norms
+  bitwise (integer-valued v and m, whose sums of squares are exact in any
+  order), masks and counts equal, in both modes, with ties spanning both
+  ranks; the fused dgcwgmf compression's payload and counts through
+  ``Scheme.client_compress``;
+- a dense step with the optimiser's global-norm clip, momentum and weight
+  decay: the whole params within 1e-5.
+
+In process: a CPU emulation of the group mode's histograms (each rank's
+tiles counted, the ranks' histograms summed, the kernel's scan from the
+top) gives the whole leaf's k-th largest bit for bit; the group plan puts
+the cut segments first; the stages that cut or key a leaf by flat
+coordinate refuse a model axis, naming item 11 part C2.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import test_torch_select as sel  # noqa: E402
+import torch_tp_ranks as ranks  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
+from repro.dist import step as jstep  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core import CompressionConfig, resolve  # noqa: E402
+from repro_torch.kernels import gmf_compress as gk  # noqa: E402
+from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
+
+REL = 1e-5
+
+
+def jax_inputs():
+    """Each arch's params (the port's init from seed 0, as numpy leaves, as
+    the four-rank cases make them) and batch."""
+    inp = {}
+    for arch in ranks.ARCHS:
+        cfg = tconfigs.get_smoke(arch)
+        whole = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+        for i, x in enumerate(tree_leaves(whole)):
+            inp[f"{arch}/param/{i}"] = x.numpy()
+        for k, x in ranks.batch_of(cfg, 1).items():
+            inp[f"{arch}/batch/{k}"] = x
+    return inp
+
+
+def jax_side(inp):
+    """JAX's one-device loss, gradients, prefill and greedy decode of each
+    arch on ``inp``, under the ranks' keys with the tag ``jax``."""
+    out = {}
+    for arch in ranks.ARCHS:
+        cfg = jconfigs.get_smoke(arch)
+        like = jax.eval_shape(lambda cfg=cfg: jtr.init_params(cfg, jax.random.PRNGKey(0)))
+        n = len(jax.tree_util.tree_leaves(like))
+        jp = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(like),
+                                          [jnp.asarray(inp[f"{arch}/param/{i}"]) for i in range(n)])
+        batch = {k[len(arch) + 7:]: jnp.asarray(v) for k, v in inp.items()
+                 if k.startswith(f"{arch}/batch/")}
+        (loss, _), grads = jax.jit(jax.value_and_grad(jstep.make_loss_fn(cfg), has_aux=True))(
+            jp, batch)
+        out[f"{arch}/jax/loss"] = np.asarray(loss)
+        for i, g in enumerate(jax.tree_util.tree_leaves(grads)):
+            out[f"{arch}/jax/grad/{i}"] = np.asarray(g)
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        logits, cache = jax.jit(jstep.make_prefill_step(
+            cfg, cache_len=ranks.SEQ + ranks.DECODE))(jp, prompt)
+        out[f"{arch}/jax/prefill"] = np.asarray(logits)
+        serve = jax.jit(jstep.make_serve_step(cfg))
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        for t in range(ranks.DECODE):
+            tok, logits, cache = serve(jp, cache, tok,
+                                       jnp.asarray(ranks.decode_pos(cfg) + t, jnp.int32))
+            out[f"{arch}/jax/decode/{t}"] = np.asarray(logits)
+            out[f"{arch}/jax/token/{t}"] = np.asarray(tok)
+    return out
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    """The two ranks' results, each with JAX's (run here while they run)."""
+    workdir = tmp_path_factory.mktemp("tp2")
+    inp = jax_inputs()
+    procs = ranks.spawn(workdir, inp)
+    try:
+        want = jax_side(inp)
+    finally:
+        res = ranks.results(workdir, procs)
+    return [dict(r, **want) for r in res]
+
+
+def rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def max_rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def cut_like(whole, piece, r):
+    """Rank ``r``'s piece of the whole array ``whole``, cut along the one
+    dim where the shapes differ (``piece``'s shape says which)."""
+    dims = [d for d, (a, b) in enumerate(zip(whole.shape, piece.shape, strict=True)) if a != b]
+    if not dims:
+        return whole
+    (d,) = dims
+    return np.split(whole, whole.shape[d] // piece.shape[d], axis=d)[r]
+
+
+@pytest.mark.parametrize("arch", ranks.ARCHS)
+def test_two_ranks_match_one_rank(world2, arch):
+    """The mesh run against JAX's one-device run and the port's one-rank run."""
+    for r, res in enumerate(world2):
+        assert res[f"{arch}/cut"].any(), (arch, "no leaf cut over the model axis")
+        n = len([k for k in res if k.startswith(f"{arch}/one/grad/")])
+        assert n == len(res[f"{arch}/cut"])
+        assert n == len([k for k in res if k.startswith(f"{arch}/jax/grad/")])
+        loss = float(res[f"{arch}/tp/loss"])
+        for ref in ("jax", "one"):
+            want = float(res[f"{arch}/{ref}/loss"])
+            assert abs(loss - want) <= REL * abs(want), (arch, r, ref, loss, want)
+            for i in range(n):
+                got = res[f"{arch}/tp/grad/{i}"]
+                err = max_rel(got, cut_like(res[f"{arch}/{ref}/grad/{i}"], got, r))
+                assert err <= REL, (arch, r, ref, i, err)
+            err = rel_l2(res[f"{arch}/tp/prefill"], res[f"{arch}/{ref}/prefill"])
+            assert err <= REL, (arch, r, ref, err)
+            for t in range(ranks.DECODE):
+                err = rel_l2(res[f"{arch}/tp/decode/{t}"], res[f"{arch}/{ref}/decode/{t}"])
+                assert err <= REL, (arch, r, ref, t, err)
+                assert np.array_equal(res[f"{arch}/tp/token/{t}"], res[f"{arch}/{ref}/token/{t}"])
+
+
+@pytest.mark.parametrize("rate", ranks.RATES)
+def test_group_select_is_the_whole_leaves_select(world2, rate):
+    for res in world2:
+        assert res["select/cut"].tolist() == [v[1] is not None for v in ranks.SELECT.values()]
+        keep = res[f"select/{rate}/keep"]
+        assert keep[0].tolist() == keep[1].tolist()  # from the whole sizes
+        assert keep[0].tolist() == [math.ceil(rate * math.prod(s)) for s, _ in
+                                    ranks.SELECT.values()]
+        for name in ("inv_nv", "inv_nm", "thr", "abs_thr"):
+            got, want = res[f"select/{rate}/{name}"]
+            assert np.array_equal(got.view(np.int32), want.view(np.int32)), (rate, name)
+        for name in ("mask", "nnz", "abs_mask", "abs_nnz"):
+            got, want = res[f"select/{rate}/{name}"]
+            assert np.array_equal(got, want), (rate, name)
+        # ties span both ranks: some cut segment's kept entries lie on each
+        assert res[f"select/{rate}/abs_nnz"][0].min() > 0
+
+
+def test_group_select_through_the_scheme(world2):
+    for res in world2:
+        got, want = res["scheme/payload"]
+        assert np.array_equal(got, want)
+        got, want = res["scheme/nnz"]
+        assert np.array_equal(got, want) and got.min() > 0
+        assert res["scheme/total"].tolist() == [sum(math.prod(s) for s, _ in
+                                                    ranks.SELECT.values())] * 2
+
+
+def test_clipped_dense_step_matches_one_rank(world2):
+    for res in world2:
+        n = len([k for k in res if k.startswith("clip/one/") and k[9:].isdigit()])
+        assert n > 0
+        for i in range(n):
+            assert max_rel(res[f"clip/tp/{i}"], res[f"clip/one/{i}"]) <= REL, i
+        assert int(res["clip/tp/total"]) == int(res["clip/one/total"])
+
+
+# ---------------------------------------------------------------------------
+# the group mode, emulated
+# ---------------------------------------------------------------------------
+
+
+def group_kth_largest(pieces, k: int, tile: int) -> torch.Tensor:
+    """The k-th largest of a leaf whose ranks hold ``pieces`` (non-negative
+    float32 scores) as the group mode finds it: in each pass every rank
+    counts its own tiles' candidates into its histogram, the histograms are
+    summed over the ranks (the all-reduce), and each rank scans the sum
+    from the top (``scan_bins``)."""
+    bits = [p.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF for p in pieces]
+    prefix, pmask, rank = 0, 0, k
+    for shift, width in ((21, 11), (10, 11), (0, 10)):
+        dmask = (1 << width) - 1
+        hist = torch.zeros(2048, dtype=torch.int64)
+        for b in bits:
+            plan = gk.plan_select([b.numel()], tile)
+            for _, start, length in plan.blocks.tolist():
+                part = b[start:start + length]
+                cand = part[(part & pmask) == prefix]
+                hist += torch.bincount((cand >> shift) & dmask, minlength=2048)
+        digit, rank = sel.scan_from_top(hist, rank)
+        prefix |= digit << shift
+        pmask |= dmask << shift
+    return torch.tensor([prefix], dtype=torch.int64).to(torch.int32).view(torch.float32)[0]
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "equal", "tiny"])
+@pytest.mark.parametrize("ranks_, tile", [(2, 4096), (2, 1000), (4, 1000)])
+def test_group_mode_histograms_give_the_whole_leafs_threshold(kind, ranks_, tile):
+    """A 12,000-element leaf cut along its columns (each rank's piece
+    strided in the leaf's order) over 2 or 4 ranks, each piece in one or
+    many tiles."""
+    z = sel._scores(12_000, kind, seed=3).reshape(100, 120)
+    pieces = list(z.chunk(ranks_, dim=1))
+    for k in sorted({1, 1200, 6000, 12_000}):
+        got = group_kth_largest(pieces, k, tile)
+        want = torch.topk(z.reshape(-1), k).values[-1]
+        assert got.view(torch.int32) == want.view(torch.int32), (kind, ranks_, tile, k)
+
+
+def test_group_plan_puts_cut_segments_first():
+    """``select_table(..., group=)``: the cut leaves are split leaves
+    whatever their tile count, first among them, the rest as in the
+    single launch's plan."""
+    sizes = [70_000, 50, 3, 90_000, 8]
+    plan = gk.plan_select(sizes, 65_536)
+    one = gk.select_table(plan, "cpu")
+    grp = gk.select_table(plan, "cpu", group=[False, True, False, True, False])
+    assert one.n_group is None and (one.n_local, one.n_split) == (3, 2)
+    assert grp.n_group == 2 and (grp.n_local, grp.n_split) == (2, 3)
+    host = grp.table.numpy()
+    local = host[:3 * grp.n_local].reshape(-1, 3)
+    split = host[3 * grp.n_local:3 * grp.n_local + grp.n_split]
+    assert local[:, 0].tolist() == [4, 2] and split.tolist() == [1, 3, 0]
+    tiles = host[3 * grp.n_local + 2 * grp.n_split + 1:].reshape(-1, 5)
+    assert len(tiles) == grp.n_tiles == 1 + 2 + 2
+    assert tiles[:, 0].tolist() == [0, 1, 1, 2, 2] and tiles[:, 1].tolist() == [1, 3, 3, 0, 0]
+
+
+ALLOWED = [dict(scheme=s) for s in ("dgc", "gmc", "dgcwgm", "dgcwgmf")] + [
+    dict(scheme="dgcwgmf", use_kernels=True), dict(scheme="dgcwgmf", downlink_stage="topk"),
+    dict(scheme="dgc", wire_dtype="float16"), dict(scheme="dgcwgmf", wire_dtype="bfloat16")]
+REFUSED = [dict(scheme="dgcwgmf", selector="sampled"), dict(scheme="dgc", per_tensor=False),
+           dict(scheme="randomk"), dict(scheme="fetchsgd"), dict(scheme="dgc", wire_stage="int8"),
+           dict(scheme="dgc", wire_stage="probquant"),
+           dict(scheme="dgc", rotation_stage="hadamard"), dict(scheme="adaptive_dgcwgmf")]
+
+
+@pytest.mark.parametrize("kw", ALLOWED + REFUSED, ids=lambda kw: ",".join(
+    f"{k}={v}" for k, v in kw.items()))
+def test_stages_over_a_model_axis(kw):
+    scheme = resolve(CompressionConfig(**kw))
+    if kw in ALLOWED:
+        scheme.check_model_axis()
+    else:
+        with pytest.raises(NotImplementedError, match="item 11 part C2"):
+            scheme.check_model_axis()

@@ -158,16 +158,18 @@ def test_fetchsgd_owns_lr_and_refuses_decay_and_clip():
 
 
 def test_trainer_refuses_a_mesh_and_unknown_sync():
-    """A mesh whose model axis is over 1 raises, naming the item that ports
-    its tensor parallelism (ROADMAP Queue 1 item 11 part C; the data axes
-    run: ``tests/test_torch_dist_step.py``), and so does an unknown sync."""
+    """FSDP (a >40 B arch on a data axis over 1) raises, naming the item that
+    ports it (ROADMAP Queue 1 item 11 part C2; a model axis over 1 runs:
+    ``tests/test_torch_dist_step.py``, ``tests/test_torch_tp.py``), and so
+    does an unknown sync."""
+    from repro_torch import configs as tconfigs
     from repro_torch.launch.mesh import AbstractMesh
 
     _, tcfg = tr.configs("llama3.2-1b")
     _, tt = tr.train_configs("gmf_data")
-    with pytest.raises(NotImplementedError, match="item 11 part C"):
-        tstep.make_train_step(tcfg, tt, CompressionConfig(),
-                              mesh=AbstractMesh((1, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="item 11 part C2"):
+        tstep.make_train_step(tconfigs.get_config("qwen2-vl-72b"), tt, CompressionConfig(),
+                              mesh=AbstractMesh((2, 2), ("data", "model")))
     _, bad = tr.train_configs("allreduce")
     with pytest.raises(ValueError, match="grad_sync"):
         tstep.make_train_step(tcfg, bad, CompressionConfig())
@@ -248,14 +250,13 @@ def test_launch_train_smoke_lowers_the_loss_on_the_cpu(backend, tmp_path):
 
 
 def test_launch_train_refuses_a_mesh_and_a_missing_card():
-    """``--mesh-shape`` with a model axis over 1 raises, naming ROADMAP
-    Queue 1 item 11 part C (a model axis of 1 runs over a torchrun world:
-    ``tests/test_torch_dist_step.py``); without a card the default device
-    raises."""
+    """``--mesh-shape`` without a torchrun world raises (a model axis over 1
+    runs in one: ``tests/test_torch_dist_step.py``); without a card the
+    default device raises."""
     from repro_torch.launch import train
 
     ns = train.parser().parse_args(["--arch", "llama3.2-1b", "--mesh-shape", "2,2"])
-    with pytest.raises(NotImplementedError, match="item 11 part C"):
+    with pytest.raises(SystemExit, match="needs a torch.distributed world"):
         train.build_mesh(ns)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

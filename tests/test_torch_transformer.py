@@ -147,20 +147,21 @@ def test_init_cache_matches_reference():
 ])
 def test_unported_families_raise(family, kw):
     """Every family initialises and runs on one device, and over a mesh
-    whose model axis is 1; serving it over a mesh whose model axis is over
-    1 (and the moe family's expert-parallel FFN there) raises, naming the
-    item that ports tensor parallelism (ROADMAP Queue 1 item 11 part C).
-    (The name is older than the families' port and kept, so the test's
-    history stays one.)"""
+    whose model axis is 1. Over a mesh whose model axis is over 1 its
+    fixed-batch serving runs (tensor parallelism: ``tests/test_torch_tp.py``),
+    while the paged steps (the engine's pool over kv heads) and the moe
+    family's expert-parallel FFN there still raise, naming the item that
+    ports them (ROADMAP Queue 1 item 11 part C2). (The name is older than
+    the families' port and kept, so the test's history stays one.)"""
     from repro_torch.launch.mesh import AbstractMesh
 
     mesh = AbstractMesh((1, 2), ("data", "model"))
     cfg = dataclasses.replace(tllama.smoke(), family=family, **kw)
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 11 part C"):
-        tstep.make_prefill_step(cfg, mesh=mesh, cache_len=8)
+    with pytest.raises(NotImplementedError, match="item 11 part C2"):
+        tstep.make_paged_prefill_step(cfg, None, mesh, prompt_pad=8)
     if family == "moe":
         cfg = dataclasses.replace(cfg, moe_impl="ep")
-        with pytest.raises(NotImplementedError, match="item 11 part C"):
+        with pytest.raises(NotImplementedError, match="item 11 part C2"):
             ttr.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
                         ctx={"mesh": mesh})

@@ -9,15 +9,26 @@ BATCH, SEQ = 8, 16
 LR = 0.05
 RATE = 0.1
 
-# name -> (arch's smoke config, its overrides, mesh shape, grad_sync)
+# name -> (arch's smoke config, its overrides, mesh shape, grad_sync). A mesh
+# smaller than the world runs on its first ranks (the others sit out, as
+# jax.make_mesh takes the first devices); a model axis of 2 cuts the params
+# by the reference's _TP_RULES (yi-34b's smoke cuts wq and wk mid-head;
+# granite-moe's experts are cut and its vocabulary of 515 stays whole).
 TRAIN = {
     "gmf_data": ("llama3.2-1b", {}, (4, 1), "gmf_data"),
     "dense": ("llama3.2-1b", {}, (4, 1), "dense"),
     "gmf_pod": ("llama3.2-1b", {}, (2, 2, 1), "gmf_pod"),
     "gmf_pod_moe": ("granite-moe-1b-a400m", {"moe_impl": "dense"}, (2, 2, 1), "gmf_pod"),
     "dense_ep": ("granite-moe-1b-a400m", {"moe_impl": "ep"}, (4, 1), "dense"),
+    "gmf_data_2x1": ("llama3.2-1b", {}, (2, 1), "gmf_data"),
+    "dense_1x1": ("llama3.2-1b", {}, (1, 1), "dense"),
+    "tp_gmf_data": ("llama3.2-1b", {}, (2, 2), "gmf_data"),
+    "tp_gmf_pod": ("llama3.2-1b", {}, (2, 1, 2), "gmf_pod"),
+    "tp_dense_yi": ("yi-34b", {}, (2, 2), "dense"),
+    "tp_gmf_data_moe": ("granite-moe-1b-a400m", {"moe_impl": "dense"}, (2, 2), "gmf_data"),
 }
-ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m")
+ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "yi-34b")
+CLIENT_MESH = 2  # the client mesh of the first ranks
 
 # the expert-parallel MoE at (data 2, model 2): a small MoE config (the
 # reference's dist_check one), generous capacity (nothing drops) and a
@@ -31,6 +42,14 @@ MOE_X = {"a2a": (4, 8, 32), "psum": (4, 1, 32)}  # T divides the model axis, T =
 
 def axes_of(shape):
     return ("pod", "data", "model")[-len(shape):]
+
+
+def members(shape) -> int:
+    """The ranks a mesh of ``shape`` holds: the first ones of the world."""
+    n = 1
+    for s in shape:
+        n *= s
+    return n
 
 
 def uneven_labels(labels):

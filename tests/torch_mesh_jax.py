@@ -26,7 +26,7 @@ from repro.configs.base import ModelConfig, TrainConfig  # noqa: E402
 from repro.core import CompressionConfig  # noqa: E402
 from repro.dist import sharding as shr  # noqa: E402
 from repro.dist import step as dstep  # noqa: E402
-from repro.launch.mesh import make_mesh  # noqa: E402
+from repro.launch.mesh import make_client_mesh, make_mesh  # noqa: E402
 from repro.models import moe, transformer  # noqa: E402
 
 
@@ -70,6 +70,9 @@ def train(inp, out):
                 out[f"{name}/{f}"] = flat_rows(getattr(state.cstate, f), n)
             out[f"{name}/gbar"] = flat_rows(jax.tree_util.tree_map(lambda x: x[None],
                                                                    state.gbar), 1)[0]
+        out[f"{name}/devices"] = np.asarray([d.id for d in mesh.devices.flat])
+    out["client_mesh/devices"] = np.asarray([d.id for d in make_client_mesh(
+        cases.CLIENT_MESH).devices.flat])
 
 
 def moe_ep(inp, out):

@@ -24,9 +24,22 @@ from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: E402
 from repro_torch.core import CompressionConfig  # noqa: E402
 from repro_torch.dist import sharding as shr  # noqa: E402
 from repro_torch.dist import step as dstep  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import in_mesh, make_client_mesh, make_mesh  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.utils.flat import FlatLayout  # noqa: E402
+
+
+def whole_rows(row, params, whole, mesh):
+    """A rank's flat ``[1, N]`` row of its pieces ``params`` of the leaves
+    ``whole`` as the row of the whole leaves (its model group's pieces
+    gathered)."""
+    local = FlatLayout.of(params).unflatten(row)
+    specs = [shr.P(None, *tuple(s))
+             for s in tree_leaves(shr.param_specs(whole, fsdp=False, mesh=mesh))]
+    leaves = [shr.full_tree(x, shr.NamedSharding(mesh, s))
+              for x, s in zip(tree_leaves(local), specs, strict=True)]
+    return np.concatenate([x.reshape(1, -1).numpy() for x in leaves], axis=1)
 
 
 def whole_params(inp, cfg, arch):
@@ -39,7 +52,11 @@ def train(inp, out, ckpt):
     for name, (arch, over, shape, sync) in cases.TRAIN.items():
         cfg = dataclasses.replace(configs.get_smoke(arch), **over)
         mesh = make_mesh(shape, cases.axes_of(shape), "cpu")
-        params = whole_params(inp, cfg, arch)
+        if not in_mesh(mesh):  # a rank past the mesh takes no part
+            continue
+        whole = whole_params(inp, cfg, arch)
+        p_sh = shr.named_shardings(mesh, shr.param_specs(whole, fsdp=False, mesh=mesh))
+        params = shr.local_tree(whole, p_sh)
         tcfg = TrainConfig(learning_rate=cases.LR, total_steps=10, grad_sync=sync,
                            lr_schedule="cosine", warmup_steps=1)
         ccfg = CompressionConfig(scheme="dgcwgmf", rate=cases.RATE)
@@ -56,14 +73,21 @@ def train(inp, out, ckpt):
             if sync != "dense":
                 out[f"{name}/upload_nnz/{t}"] = m["upload_nnz"].numpy()
                 out[f"{name}/download_nnz/{t}"] = m["download_nnz"].numpy()
-        for i, x in enumerate(tree_leaves(state.params)):
+        for i, x in enumerate(tree_leaves(shr.full_tree(state.params, p_sh))):
             out[f"{name}/params/{i}"] = x.numpy()
         for i, x in enumerate(tree_leaves(state.opt)):
             out[f"{name}/opt/{i}"] = x.numpy()
         if sync != "dense":
             for f in ("u", "v", "m"):
-                out[f"{name}/{f}"] = getattr(state.cstate, f).numpy()
-            out[f"{name}/gbar"] = state.gbar.numpy()
+                out[f"{name}/{f}"] = whole_rows(getattr(state.cstate, f), params, whole, mesh)
+            out[f"{name}/gbar"] = whole_rows(state.gbar[None], params, whole, mesh)[0]
+    # the client mesh of the first ranks: its coordinates and a sum over it
+    cm = make_client_mesh(cases.CLIENT_MESH, "cpu")
+    if in_mesh(cm):
+        x = torch.tensor([dist.get_rank() + 1.0])
+        dist.all_reduce(x, group=cm.get_group("clients"))
+        out["client_mesh/coord"] = np.asarray(cm.get_coordinate())
+        out["client_mesh/sum"] = x.numpy()
     # a checkpoint restored onto (4, 1), its leaves cut over data (FSDP's specs)
     arch = cases.ARCHS[0]
     cfg = configs.get_smoke(arch)
@@ -75,6 +99,11 @@ def train(inp, out, ckpt):
         out[f"restore/local/{i}"] = x.numpy()
     for i, x in enumerate(tree_leaves(shr.full_tree(local, sh))):
         out[f"restore/full/{i}"] = x.numpy()
+    # and onto (2, 2) by the tensor-parallel specs: each rank its model piece
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    sh = shr.named_shardings(mesh, shr.param_specs(like, fsdp=False, mesh=mesh))
+    for i, x in enumerate(tree_leaves(restore(ckpt, like, shardings=sh))):
+        out[f"restore22/local/{i}"] = x.numpy()
 
 
 def moe_ep(inp, out):

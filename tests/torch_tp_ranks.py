@@ -1,0 +1,258 @@
+"""One rank of the two-rank tensor-parallel tests: a gloo world of two
+processes (``file://`` store, no port opened) over the mesh (data 1,
+model 2), each rank holding its pieces of the params by the reference's
+``_TP_RULES``. Every check runs the port twice on the same inputs, over
+the mesh and whole on the rank (no mesh), and writes both to an ``.npz``
+for ``tests/test_torch_tp.py`` to compare, which also holds the mesh's run
+against the JAX package's on the same params and batches (``INPUTS.npz``,
+written by the test: params as numpy leaves and numpy-seeded batches).
+Imports torch and the port only. Run as a subprocess a rank:
+
+    python tests/torch_tp_ranks.py RANK INIT INPUTS.npz OUT.npz
+"""
+
+import datetime
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core import CompressionConfig, resolve  # noqa: E402
+from repro_torch.core.state import ClientState  # noqa: E402
+from repro_torch.dist import sharding as shr  # noqa: E402
+from repro_torch.dist import step as dstep  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.utils.convert import from_jax_params  # noqa: E402
+from repro_torch.utils.flat import FlatLayout  # noqa: E402
+
+WORLD = 2
+# the families the four-rank JAX cases do not cover, at smoke size
+ARCHS = ("mamba2-780m", "recurrentgemma-9b", "musicgen-large", "qwen2-vl-72b", "qwen2.5-3b")
+BATCH, SEQ, DECODE = 2, 16, 4
+# the group select's tree: leaf -> (whole shape, the dim cut over the two
+# ranks or None); "a" and "c" are cut so that a rank's piece is strided in
+# the leaf's flat order
+SELECT = {"a": ((64, 32), 1), "b": ((40,), None), "c": ((8, 128), 0), "d": ((5,), None),
+          "e": ((96,), 0)}
+ROWS = 3
+RATES = (0.1, 0.37)
+
+
+def batch_of(cfg, seed):
+    """A numpy-seeded batch as numpy arrays: tokens (B, T), audio (B, K, T);
+    vlm adds patch embeddings (B, P, d) and -1 labels over the patches."""
+    rng = np.random.default_rng(seed)
+    shape = (BATCH, cfg.num_codebooks, SEQ) if cfg.family == "audio" else (BATCH, SEQ)
+    tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, -1)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(size=(BATCH, cfg.num_patches, cfg.d_model)).astype(
+            np.float32)
+        batch["labels"] = np.concatenate([np.full((BATCH, cfg.num_patches), -1, np.int32),
+                                          batch["labels"]], axis=1)
+    return batch
+
+
+def decode_pos(cfg) -> int:
+    """The first decode step's position: after the prompt (and the patches)."""
+    return SEQ + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+def families(mesh, inp, out):
+    """Loss, gradients, a prefill and DECODE greedy steps of each arch over
+    the mesh and whole (the gradients' whole side cut to the rank's pieces),
+    from the params and the batch in ``inp``."""
+    for arch in ARCHS:
+        cfg = configs.get_smoke(arch)
+        like = transformer.abstract_params(cfg)
+        n = len(tree_leaves(like))
+        whole = from_jax_params(tree_unflatten(like, [inp[f"{arch}/param/{i}"] for i in range(n)]),
+                                layout="transformer")
+        sh = shr.named_shardings(mesh, shr.param_specs(whole, fsdp=False, mesh=mesh))
+        local = shr.local_tree(whole, sh)
+        out[f"{arch}/cut"] = np.asarray([a.numel() != b.numel() for a, b in zip(
+            tree_leaves(local), tree_leaves(whole), strict=True)])
+        batch = {k[len(arch) + 7:]: torch.from_numpy(v).long() if v.dtype == np.int32
+                 else torch.from_numpy(v) for k, v in inp.items()
+                 if k.startswith(f"{arch}/batch/")}
+        for tag, params, m in (("tp", local, mesh), ("one", whole, None)):
+            (loss, _), grads = dstep._value_and_grad(dstep.make_loss_fn(cfg, m), params, batch)
+            if m is None:
+                grads = shr.local_tree(grads, sh)
+            out[f"{arch}/{tag}/loss"] = loss.numpy()
+            for i, g in enumerate(tree_leaves(grads)):
+                out[f"{arch}/{tag}/grad/{i}"] = g.numpy()
+            prompt = {k: v for k, v in batch.items() if k != "labels"}
+            logits, cache = dstep.make_prefill_step(cfg, m, cache_len=SEQ + DECODE)(params,
+                                                                                     prompt)
+            out[f"{arch}/{tag}/prefill"] = logits.numpy()
+            serve = dstep.make_serve_step(cfg, m)
+            tok = torch.argmax(logits, dim=-1)
+            pos = torch.tensor(decode_pos(cfg))
+            for t in range(DECODE):
+                tok, logits, cache = serve(params, cache, tok, pos + t)
+                out[f"{arch}/{tag}/decode/{t}"] = logits.numpy()
+                out[f"{arch}/{tag}/token/{t}"] = tok.numpy()
+
+
+def clipped(mesh, out):
+    """One dense step of llama with the optimiser's global-norm clip (and
+    momentum and weight decay) over the mesh and whole: the whole params
+    after it."""
+    from repro_torch.configs.base import TrainConfig
+
+    cfg = configs.get_smoke("llama3.2-1b")
+    whole = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    sh = shr.named_shardings(mesh, shr.param_specs(whole, fsdp=False, mesh=mesh))
+    tcfg = TrainConfig(learning_rate=0.05, total_steps=4, grad_sync="dense", grad_clip=0.5,
+                       momentum=0.9, weight_decay=0.01)
+    batch = {k: torch.from_numpy(v).long() for k, v in batch_of(cfg, 2).items()}
+    ccfg = CompressionConfig()
+    for tag, params, m in (("tp", shr.local_tree(whole, sh), mesh), ("one", whole, None)):
+        state = dstep.init_train_state(cfg, tcfg, ccfg, params, m)
+        step = dstep.make_train_step(cfg, tcfg, ccfg, m)
+        for _ in range(2):
+            state, met = step(state, batch)
+        final = shr.full_tree(state.params, sh) if m is not None else state.params
+        for i, x in enumerate(tree_leaves(final)):
+            out[f"clip/{tag}/{i}"] = x.numpy()
+        out[f"clip/{tag}/total"] = met["total_params"].numpy()
+
+
+def pieces(whole, r):
+    """Rank ``r``'s pieces of the SELECT leaves ([ROWS, *shape] each)."""
+    out = {}
+    for k, (_, dim) in SELECT.items():
+        x = whole[k]
+        out[k] = x if dim is None else x.chunk(WORLD, dim=dim + 1)[r].contiguous()
+    return out
+
+
+def select(group, out):
+    """The plain group select over the model group against the one-rank
+    select on the whole leaves: both modes, keep counts from the whole
+    sizes, integer-valued v and m (their norms exact in any summation
+    order) with ties spanning both ranks, and the fused compression's
+    payload and counts through ``Scheme.client_compress``."""
+    r = dist.get_rank(group)
+    rng = np.random.default_rng(5)
+    whole_shapes = {k: (ROWS, *s) for k, (s, _) in SELECT.items()}
+
+    def draw():
+        return {k: torch.from_numpy(rng.integers(-6, 7, size=s).astype(np.float32))
+                for k, s in whole_shapes.items()}
+
+    v, m, u = draw(), draw(), draw()
+    big = FlatLayout.of({k: x[0] for k, x in v.items()})
+    small = FlatLayout.of({k: x[0] for k, x in pieces(v, r).items()})
+    lay = small.over(group, big.sizes)
+    out["select/cut"] = np.asarray(lay.cut_flags)
+    flat = lambda tree, layout: layout.flatten(tree)  # noqa: E731
+    cut_flat = lambda tree: flat(pieces(tree, r), small)  # noqa: E731
+    w = torch.ones(ROWS)
+    tau = torch.full((ROWS,), 0.4)
+    for rate in RATES:
+        out[f"select/{rate}/keep"] = np.asarray([lay.keep(rate)[0], big.keep(rate)[0]])
+        got = ops.gmf_select(cut_flat(v), cut_flat(m), lay, rate, w=w, tau=tau, eps=1e-16)
+        want = ops.gmf_select(flat(v, big), flat(m, big), big, rate, w=w, tau=tau, eps=1e-16)
+        for name, a, b in zip(("inv_nv", "inv_nm", "thr"), got, want, strict=True):
+            out[f"select/{rate}/{name}"] = np.stack([a.numpy(), b.numpy()])
+        g_loc = ops.gmf_compress(cut_flat(u), cut_flat(v), cut_flat(m), layout=lay,
+                                 inv_norm_v=got[0], inv_norm_m=got[1], tau=tau,
+                                 threshold=got[2])
+        g_all = ops.gmf_compress(flat(u, big), flat(v, big), flat(m, big), layout=big,
+                                 inv_norm_v=want[0], inv_norm_m=want[1], tau=tau,
+                                 threshold=want[2])
+        mask_whole = big.unflatten(g_all[3])
+        out[f"select/{rate}/mask"] = np.stack([g_loc[3].numpy(),
+                                               cut_flat(mask_whole).numpy()])
+        out[f"select/{rate}/nnz"] = np.stack([lay.nnz(g_loc[3]).numpy(),
+                                              big.nnz(g_all[3]).numpy()])
+        # |z| mode on ties (quarter steps), as the staged path and the downlink use it
+        z = {k: x * 0.25 for k, x in draw().items()}
+        thr, mask = ops.topk_abs_select(cut_flat(z), lay, rate)
+        thr_w, mask_w = ops.topk_abs_select(flat(z, big), big, rate)
+        out[f"select/{rate}/abs_thr"] = np.stack([thr.numpy(), thr_w.numpy()])
+        out[f"select/{rate}/abs_mask"] = np.stack([mask.numpy(),
+                                                   cut_flat(big.unflatten(mask_w)).numpy()])
+        out[f"select/{rate}/abs_nnz"] = np.stack([lay.nnz(mask).numpy(),
+                                                  big.nnz(mask_w).numpy()])
+    # the fused compression of dgcwgmf through the scheme, each rank its pieces
+    # of a row
+    scheme = resolve(CompressionConfig(scheme="dgcwgmf", rate=RATES[0], tau=0.4,
+                                       use_kernels=True))
+    # (u and m zero and an integer broadcast: the updated v and m are
+    # integers, their norms exact)
+    runs = []
+    grad, gbar = draw(), draw()
+    zero = {k: torch.zeros_like(x) for k, x in u.items()}
+    for layout, cut in ((lay, cut_flat), (big, lambda t: flat(t, big))):
+        state = ClientState(u=cut(zero), v=cut(v), m=cut(zero))
+        g, _, info = scheme.client_compress(state, cut(grad), cut(gbar)[0], 0, layout=layout)
+        runs.append((g, info))
+    out["scheme/payload"] = np.stack([runs[0][0].numpy(),
+                                      cut_flat(big.unflatten(runs[1][0])).numpy()])
+    out["scheme/nnz"] = np.stack([runs[0][1].upload_nnz.numpy(),
+                                  runs[1][1].upload_nnz.numpy()])
+    out["scheme/total"] = np.asarray([runs[0][1].total_params, runs[1][1].total_params])
+
+
+if __name__ == "__main__":
+    rank, init, inputs, dest = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, WORLD), ("data", "model"), "cpu")
+        res: dict = {}
+        select(mesh.get_group("model"), res)
+        clipped(mesh, res)
+        families(mesh, dict(np.load(inputs)), res)
+        np.savez(dest, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(workdir, inputs: dict):
+    """Start the two ranks on ``inputs`` (written to ``workdir``); returns
+    their processes, for ``results``."""
+    import subprocess
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    workdir = Path(workdir)
+    np.savez(workdir / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"), OMP_NUM_THREADS="1")
+    init = f"file://{workdir / 'store'}"
+    return [subprocess.Popen([sys.executable, str(here / "torch_tp_ranks.py"), str(r), init,
+                              str(workdir / "inputs.npz"), str(workdir / f"rank{r}.npz")],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(WORLD)]
+
+
+def results(workdir, procs, timeout: float = 300.0):
+    """Wait for the ranks ``spawn`` started; returns their results. A rank
+    that fails raises with its output."""
+    from pathlib import Path
+
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("\n".join(f"--- rank {i} (rc {p.returncode}):\n{log[-4000:]}"
+                                     for i, (p, log) in enumerate(zip(procs, logs, strict=True))))
+    return [dict(np.load(Path(workdir) / f"rank{r}.npz")) for r in range(WORLD)]
