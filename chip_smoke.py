@@ -334,6 +334,38 @@ each kernel launching once per dtype group.
     and ms_per_step beside phase 13's dense dispatch (reported, not gated);
     then phase 6's granite check (smoke widths, 2 layers, float32) through
     ``moe_ep`` on both the card and the CPU, within 1e-4 relative L2.
+18. **The model axis** (tensor parallelism, ``--only model-axis``): (a)
+    ``gmf_select``'s group mode at a group of one (one-rank NCCL) bitwise
+    the single launch, timed beside it; (b)-(c) two processes on the card
+    over gloo (``--tp-worker``) at mesh (1, 2): the group select over the
+    two ranks bitwise, llama3.2-1b at 8 layers trained gmf_data and dense
+    against the mesh-less run, served at 2 layers in float32 against the
+    one-rank run.
+19. **FSDP, EP at model 2, the engine at model 2** (``--only fsdp``; FSDP
+    forced: ``dist.step._FSDP_PARAM_THRESHOLD`` 0 in the two processes for
+    the FSDP runs, the depth-cut configs falling under 40e9 params). The
+    one-rank witnesses in this process (kimi-k2 served without a mesh;
+    llama3.2-1b's engine in float32, float32 and int8 codecs), then two
+    processes over gloo (``--fsdp-worker``; FSDP needs a data axis over 1,
+    so no one-rank mesh runs it): (b) the group select over the data group
+    with a leaf only rank 0 owns, bitwise the single launch and the plain
+    group select; qwen2-vl-72b (full width, 2 of 80 layers, remat: each
+    layer gathered inside its checkpoint and again in the backward) dense
+    at (2, 1) and llama3.2-1b (8 of 16 layers) gmf_pod at (1, 2, 1), two
+    steps each, against the mesh-less runs (losses and each rank's param
+    pieces within 1e-2, the params' change within ``FSDP_DELTA_TOL`` of the
+    mesh-less run's at its worst leaf, upload nnz within
+    ``FSDP_NNZ_FLIPS`` and at least the exact-k sum, the group mode's
+    launches and all-reduces); the group mode over the pod's data group
+    timed; (c) granite-moe at its published config (EP) trained at (1, 2)
+    (72 ``moe_ep`` calls, the same checks, the change within
+    ``EP_DELTA_TOL``) and kimi-k2 (1 of 61 layers,
+    1 × 256, 8 tokens) served at (1, 2): tokens equal to the one-rank
+    run's, one tensor-core K4 launch a rank at D 112, the dropped
+    assignments printed, logits within 1e-2 where nothing drops; (d)
+    llama3.2-1b's engine at (1, 2), phase 16's slots, pages and 8
+    requests: tokens equal to the one-rank engine's, tokens/s beside it.
+    Every process's peak memory is printed.
 
 Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
 ran one block a segment; the ``kernels`` line holds only this run's
@@ -4150,19 +4182,23 @@ def tp_probe(dev):
                                                    else f"wrong: {x.tolist()}")
             except Exception as e:  # noqa: BLE001 - recorded and reported, not swallowed
                 out[f"all_reduce {op} {dtype}"] = f"{type(e).__name__}: {e}"[:200]
-    try:
-        parts = [torch.empty(2, device=dev) for _ in range(2)]
-        dist.all_gather(parts, torch.full((2,), float(r), device=dev))
-        out["all_gather float32"] = "ok" if [p.tolist() for p in parts] == [[0.0] * 2, [1.0] * 2] \
-            else "wrong"
-    except Exception as e:  # noqa: BLE001 - the port sums into a zero buffer there instead
-        out["all_gather float32"] = f"{type(e).__name__}: {e}"[:200]
+    for dtype in (torch.float32, BF16):  # FSDP gathers bf16 params (phase 19)
+        try:
+            parts = [torch.empty(2, dtype=dtype, device=dev) for _ in range(2)]
+            dist.all_gather(parts, torch.full((2,), float(r), dtype=dtype, device=dev))
+            out[f"all_gather {dtype}"] = ("ok" if [p.tolist() for p in parts] ==
+                                          [[0.0] * 2, [1.0] * 2] else "wrong")
+        except Exception as e:  # noqa: BLE001 - recorded and reported, not swallowed
+            out[f"all_gather {dtype}"] = f"{type(e).__name__}: {e}"[:200]
     return out
 
 
-def tp_group_select(rt, group, dev):
+def tp_group_select(rt, group, dev, leaves=None):
     """(b) ``gmf_select``'s group mode over the real two-rank ``group``, each
-    rank its pieces of TP_SELECT's leaves, TP_SELECT_ROWS rows (the cut
+    rank its pieces of ``leaves``' (TP_SELECT's by default; a leaf marked
+    ``"shared"`` is held alike by both ranks, cut as a whole of twice its
+    size whose piece only rank 0 owns, as FSDP's pod group holds a leaf cut
+    over one of its axes alone), TP_SELECT_ROWS rows (the cut
     segments' scratch indexed split-major), in float32 and bf16: against
     the plain group select (``fusion.segment_norms`` summed over the group,
     the cut segments' scores all-gathered before ``torch.topk``) and the
@@ -4175,13 +4211,15 @@ def tp_group_select(rt, group, dev):
     import torch.distributed as dist
 
     gk, flat = rt.gk, rt.flat
+    leaves = TP_SELECT if leaves is None else leaves
     r, n = dist.get_rank(group), dist.get_world_size(group)
     gen = torch.Generator(device=dev).manual_seed(41)
     rows = TP_SELECT_ROWS
+    shared = {k for k, (_, d) in leaves.items() if d == "shared"}
 
     def draw(ints):
         out = {}
-        for k, (shape, _) in sorted(TP_SELECT.items()):
+        for k, (shape, _) in sorted(leaves.items()):
             if ints:
                 out[k] = torch.randint(-6, 7, (rows, *shape), generator=gen, device=dev).float()
             else:
@@ -4190,8 +4228,8 @@ def tp_group_select(rt, group, dev):
         return out
 
     def piece(tree):
-        return {k: x if TP_SELECT[k][1] is None else
-                x.chunk(n, dim=TP_SELECT[k][1] + 1)[r].contiguous() for k, x in tree.items()}
+        return {k: x if leaves[k][1] in (None, "shared") else
+                x.chunk(n, dim=leaves[k][1] + 1)[r].contiguous() for k, x in tree.items()}
 
     w = torch.tensor([1.0, 0.5, 2.0], device=dev)
     tau = torch.tensor([0.0, 0.3, 1.0], device=dev)
@@ -4206,19 +4244,24 @@ def tp_group_select(rt, group, dev):
         v, m, z = ({k: x.to(dtype) for k, x in draw(ints).items()} for ints in (1, 1, 0))
         whole = flat.FlatLayout.of({k: x[0] for k, x in v.items()})
         small = flat.FlatLayout.of({k: x[0] for k, x in piece(v).items()})
-        lay = small.over(group, whole.sizes)
+        names = sorted(leaves)
+        lay = small.over(group, [s * (n if k in shared else 1) for k, s in
+                                 zip(names, whole.sizes, strict=True)],
+                         [k not in shared or r == 0 for k in names])
         plan = lay.select_plan(group=True)
         rec[f"{tag}/plan"] = [plan.n_group, plan.n_split, plan.n_tiles]
         rec[f"{tag}/cut"] = list(lay.cut_flags)
+        rec[f"{tag}/owners"] = list(lay.owner_flags)
         keep = lay.keep(RATE)[1]
-        held(f"{tag} keep counts (from the whole sizes)", keep, whole.keep(RATE)[1])
+        if not shared:
+            held(f"{tag} keep counts (from the whole sizes)", keep, whole.keep(RATE)[1])
         vc, mc, zc = (small.flatten(piece(x)) for x in (v, m, z))
         vw, mw, zw = (whole.flatten(x) for x in (v, m, z))
         got = gk.gmf_select_flat(vc, mc, offsets=lay.offsets_dev, plan=plan, keep=keep, w=w,
                                  tau=tau, eps=EPS, group=group)
         plain = rt.ref.gmf_select(vc, mc, lay, RATE, w=w, tau=tau, eps=EPS)
         single = gk.gmf_select_flat(vw, mw, offsets=whole.offsets_dev, plan=whole.select_plan(),
-                                    keep=whole.keep(RATE)[1], w=w, tau=tau, eps=EPS)
+                                    keep=keep, w=w, tau=tau, eps=EPS)
         for name, a, b, c in zip(("inv_nv", "inv_nm", "thr"), got, plain, single, strict=True):
             held(f"{tag} {name} vs the plain group select", a, b)
             held(f"{tag} {name} vs the single launch over the whole leaves", a, c)
@@ -4238,7 +4281,7 @@ def tp_group_select(rt, group, dev):
                                              group=group)
         p_thr, p_mask = rt.sparsify.segment_topk_mask(zc, lay, RATE)
         s_thr, s_mask = gk.topk_abs_select_flat(zw, offsets=whole.offsets_dev,
-                                                plan=whole.select_plan(), keep=whole.keep(RATE)[1])
+                                                plan=whole.select_plan(), keep=keep)
         held(f"{tag} |z| thr vs the plain group select", thr, p_thr)
         held(f"{tag} |z| mask vs the plain group select", amask, p_mask)
         held(f"{tag} |z| thr vs the single launch over the whole leaves", thr, s_thr)
@@ -4557,6 +4600,643 @@ def model_axis_phase(rt, dev, card, bw, peak, resnet_params):
     return times, rec, inst
 
 
+# ---------------------------------------------------------------------------
+# phase 19: FSDP over data, the expert-parallel MoE at model 2, the engine at
+# model 2 (ROADMAP item 11 part C2a)
+# ---------------------------------------------------------------------------
+
+FSDP_DIR = ROOT / "build" / "fsdp"  # phase 19's stores and the workers' records (ignored by git)
+QWEN, KIMI = "qwen2-vl-72b", "kimi-k2-1t-a32b"
+# the depth-cut configs FSDP runs on, at full width (FSDP forced: they fall
+# under dist.step's 40e9 threshold, so this script sets it to 0 in its own
+# processes). qwen2-vl-72b at 2 of 80 layers (4.25 B params, 8.5 GB in
+# bf16) under dense; llama3.2-1b at 8 of 16 layers under the gmf modes: a
+# gmf step holds ~13 param-sized arrays (params, the gradient row, U, V, M
+# old and new, gbar, the payload and mask), ~110 GB at qwen2-vl's 2 layers
+# on one rank, ~64 GB a process over two (PERF.md)
+FSDP_LAYERS = {QWEN: 2, LLAMA: 8}
+# (b)'s steps, two at least so that a loss after an update is compared:
+# over gloo a qwen2-vl step takes 17-23 s (~17 GB through host memory), a
+# llama one ~4 s (PERF.md)
+PAIR_STEPS = {QWEN: 2, LLAMA: 2}
+FSDP_TOL = 1e-2  # phase 14's bf16 tolerance: losses, and the params (relative L2)
+# (b) and (c)'s params' change (final minus initial) against the mesh-less
+# run's, relative L2, at the worst leaf that the mesh-less run changed: the
+# params alone move by about a bf16 unit in the last place a step and
+# cannot tell a wrong gradient from a sound one. On an H100 a sound run
+# read at most 0.172 under FSDP (llama gmf_pod; qwen2-vl dense 0.079) and
+# 0.530 under EP (granite: moe_ep drops assignments that the mesh-less
+# run's dense dispatch keeps, another function); with the gathers'
+# reduce-scatter replaced by the rank's own slice at least 0.868, with the
+# update skipped 1.0 (PERF.md)
+FSDP_DELTA_TOL, EP_DELTA_TOL = 0.5, 0.8
+# (b)'s gmf_pod against the mesh-less run, a step: the upload counts may
+# differ by FSDP_NNZ_FLIPS entries (bf16 gradient pieces summed over the
+# data ranks in another order move tied scores across a threshold). Set
+# between a sound run and one with the once-counting dropped (PERF.md)
+FSDP_NNZ_FLIPS = 500_000
+# (b)'s group select over the data group: TP_SELECT's leaves and "s", held
+# alike by both ranks (a piece only rank 0 owns)
+FSDP_SELECT = {**TP_SELECT, "s": ((256, 512), "shared")}
+EP_STEPS = 3  # (c) granite-moe at its published config, dense sync
+KIMI_SERVE = dict(layers=1, batch=1, prompt_len=256, gen=8)  # (c), phase 13's kimi shape
+EP_SERVE_TOL = 1e-2  # bf16 logits, relative L2, where nothing drops
+# (c)'s second kimi run: a capacity at which no assignment drops (E / k: an
+# expert's buffer holds every token a rank sends), so that moe_ep computes
+# dense dispatch's function; at the published capacity it drops ~9 % and
+# is another function (ROADMAP S12)
+KIMI_NO_DROP = 384 / 8
+ENGINE_MESH_WIRES = ("float32", "int8")  # (d), llama3.2-1b in float32 (as phase 18 (c))
+
+
+def fsdp_witnesses(rt, dev, card):
+    """The one-rank runs (c) and (d) are held against, in this process before
+    the pair starts (never beside it): kimi-k2 at KIMI_SERVE through
+    ``run_fixed`` without a mesh (dense dispatch: the reference's function,
+    nothing dropped), and llama3.2-1b's engine (phase 16's slots, pages and
+    eight requests) with each of ENGINE_MESH_WIRES. Returns the records;
+    kimi's logits go to FSDP_DIR."""
+    import gc
+
+    out = {}
+    cfg = dataclasses.replace(rt.configs.get_config(KIMI), num_layers=KIMI_SERVE["layers"])
+    args = kimi_args(rt)
+    params = rt.serve.init_params(cfg, args.seed, dev)
+    run = rt.serve.run_fixed(cfg, params, args, dev)
+    torch.cuda.synchronize()
+    torch.save(run.last_logits.cpu(), FSDP_DIR / "kimi_one.pt")
+    out["kimi"] = dict(tokens=run.tokens.tolist(), summary=run.summary)
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = engine_f32(rt)
+    params = rt.serve.init_params(cfg, 0, dev)
+    prompts = engine_prompts(rt, cfg)
+    for wire in ENGINE_MESH_WIRES:
+        eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire))
+        for i, p in enumerate(prompts):
+            eng.submit(p, arrival_tick=i * ENGINE["stagger"])
+        comps, metrics = eng.run()
+        out[f"engine/{wire}"] = dict(tokens=[c.tokens.tolist() for c in comps],
+                                     tokens_per_s=metrics["tokens_per_s"])
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  witnesses ({card}): {KIMI} one rank, dense dispatch, tokens "
+          f"{out['kimi']['tokens']}; llama3.2-1b's engine one rank, tokens/s "
+          f"{ {w: round(out[f'engine/{w}']['tokens_per_s'], 3) for w in ENGINE_MESH_WIRES} }",
+          flush=True)
+    return out
+
+
+def engine_f32(rt):
+    """(d)'s config: llama3.2-1b at full size in float32, where the model
+    axis's sums in another order move logits by ~1e-6 (phase 18 (c)), not
+    by bf16's ~1e-2 that flips greedy tokens."""
+    return dataclasses.replace(rt.configs.get_config(LLAMA), dtype="float32",
+                               param_dtype="float32")
+
+
+def kimi_args(rt):
+    return rt.serve.parser().parse_args([
+        "--arch", KIMI, "--batch", str(KIMI_SERVE["batch"]), "--prompt-len",
+        str(KIMI_SERVE["prompt_len"]), "--gen", str(KIMI_SERVE["gen"])])
+
+
+def pieces_of(rt, whole, mesh, fsdp):
+    """This rank's pieces of ``whole`` by the specs (FSDP's with ``fsdp``),
+    copied so that the whole can be freed, and the specs."""
+    from repro_torch.dist import sharding as shr
+
+    specs = shr.param_specs(whole, fsdp=fsdp, mesh=mesh)
+    return rt.utils.tree_map(lambda x, sp: piece_of(x, sp, mesh).clone(
+        memory_format=torch.contiguous_format), whole, specs), specs
+
+
+def piece_of(x, spec, mesh):
+    """This rank's piece of the whole leaf ``x`` by ``spec``: a view, no
+    copy and no collective (``sharding.local_tree`` builds DTensors,
+    whose copies and functional collectives this script keeps off the card
+    in two gloo processes)."""
+    from repro_torch.launch.mesh import axis_size
+
+    names = list(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate(), strict=True))
+    for d, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None and axis_size(mesh, a) > 1:
+                x = x.chunk(axis_size(mesh, a), dim=d)[coord[a]]
+    return x
+
+
+def one_at_a_time(rank, fn):
+    """``fn()`` on rank 0, then on rank 1 (the other waits): two whole
+    models at once would not fit beside each other on the card."""
+    out = None
+    for r in range(2):
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    return out
+
+
+def pair_train(rt, rank, cfg, sync, mesh, dev, twin, steps, fsdp):
+    """A training run over ``mesh`` (each rank its pieces, FSDP's with
+    ``fsdp``), its whole params gathered to the host, then rank 0's
+    mesh-less run of ``twin`` on the same params and batches, and the
+    comparison. Returns the record (rank 0's comparison)."""
+    import gc
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.dist import sharding as shr
+    from repro_torch.models import moe, transformer
+
+    def run(m):
+        tcfg = TrainConfig(learning_rate=3e-3, total_steps=steps + 1,
+                           grad_sync=sync if m is not None else twin, lr_schedule="cosine",
+                           warmup_steps=1)
+        ccfg = rt.core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3, use_kernels=True)
+        whole = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        specs = None
+        if m is not None:
+            params, specs = pieces_of(rt, whole, m, fsdp)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            params = whole
+        if m is not None:  # this rank's pieces before the steps, for the params' change
+            init = [x.to("cpu") for x in rt.utils.tree_leaves(params)]
+        state = rt.dstep.init_train_state(cfg, tcfg, ccfg, params, m)
+        del params
+        step = rt.dstep.make_train_step(cfg, tcfg, ccfg, m)
+        b_sh = (shr.named_shardings(m, rt.dstep.step_batch_specs(cfg, tcfg, m))
+                if m is not None else None)
+        stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                                   batch_size=TRAIN["batch"], seed=0,
+                                   num_patches=cfg.num_patches, d_model=cfg.d_model)
+        rt.gk.reset_launches()
+        calls = []
+        real = counting(moe, "moe_ep", calls, lambda out: 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        recs, ms = [], []
+        try:
+            for _, b in zip(range(steps), stream, strict=False):
+                batch = to_tensors(b, dev)
+                if b_sh is not None:
+                    batch = shr.local_tree(batch, b_sh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                rec = {"loss": float(met["loss"])}
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if sync != "dense":
+                    rec["upload_nnz"] = met["upload_nnz"].tolist()
+                recs.append(rec)
+        finally:
+            moe.moe_ep = real
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        final = [x.to("cpu") for x in rt.utils.tree_leaves(state.params)]
+        if m is not None:
+            final = (final, init)
+        inst = {f"{k[0]}[{k[1]}]": n for k, n in rt.gk.INSTANCES.items()}
+        sums = dict(rt.gk.GROUP_SUMS)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(recs=recs, ms=ms, peak_gib=peak, inst=inst, sums=sums, moe_ep=len(calls),
+                    total=int(met["total_params"])), final
+
+    rt.gk.GROUP_SUMS.clear()
+    meshed, (final, init) = run(mesh)
+    torch.distributed.barrier()
+    less, want = one_at_a_time(rank, lambda: run(None))  # the mesh-less run, a rank at a time
+    specs = rt.utils.tree_leaves(shr.param_specs(transformer.abstract_params(cfg), fsdp=fsdp,
+                                                 mesh=mesh))
+    errs, moved, off = [], [], []
+    for a, w, x0, sp in zip(final, want, init, specs, strict=True):
+        b = piece_of(w, sp, mesh).float()
+        diff = float((a.float() - b).norm())
+        errs.append(diff / float(b.norm().clamp_min(1e-30)))
+        moved.append(float((b - x0.float()).norm()))  # the mesh-less run's change
+        off.append(diff)
+    del final, want, init
+    gc.collect()
+    # the params' change against the mesh-less run's: at the worst leaf the
+    # mesh-less run changed, and over all leaves
+    delta = [d / c for d, c in zip(off, moved, strict=True) if c > 0]
+    return {"mesh": meshed, "less": less, "param_rel_l2": max(errs), "leaves": len(errs),
+            "delta_rel_l2": max(delta), "delta_all": math.sqrt(sum(d * d for d in off))
+            / max(math.sqrt(sum(c * c for c in moved)), 1e-30), "moved": len(delta),
+            "exact_k": sum(rt.sparsify.num_keep(n, RATE) for n in rt.dstep.full_sizes(cfg)),
+            "cut_data": sum(d is not None for d in rt.utils.tree_leaves(
+                shr.fsdp_dims(transformer.abstract_params(cfg), mesh))) if fsdp else 0}
+
+
+def pair_kimi(rt, rank, mesh, dev):
+    """(c) kimi-k2 at KIMI_SERVE served over (1, 2) through ``run_fixed``: the
+    rank's pieces (the whole drawn one rank at a time and cut), K4's
+    launches, the dropped (token, expert) assignments of a prefill, tokens
+    and logits (the logits to FSDP_DIR)."""
+    import gc
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(rt.configs.get_config(KIMI), num_layers=KIMI_SERVE["layers"])
+    args = kimi_args(rt)
+
+    def draw():  # the pieces through host memory: the whole and a copy would not fit
+        from repro_torch.dist import sharding as shr
+
+        whole = rt.serve.init_params(cfg, args.seed, dev)
+        host = rt.utils.tree_map(lambda x, sp: piece_of(x, sp, mesh).to("cpu"), whole,
+                                 shr.param_specs(whole, fsdp=False, mesh=mesh))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rt.utils.tree_map(lambda x: x.to(dev), host)
+
+    params = one_at_a_time(rank, draw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rt.k4.reset_launches()
+    calls = []
+    real = counting(moe, "moe_ep", calls, lambda out: 1)
+    try:
+        run = rt.serve.run_fixed(cfg, params, args, dev, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_ep = real
+    k4 = dict(rt.k4.LAUNCHES)
+    dropped = []
+    real = counting(moe, "dispatch_local", dropped,
+                    lambda out: (out[3].numel(), int(out[3].numel() - out[3].sum())))
+    try:
+        prefill = rt.dstep.make_prefill_step(cfg, mesh, cache_len=args.prompt_len + args.gen)
+        prefill(params, rt.serve.prompt_batch(cfg, args.seed, args.batch, args.prompt_len, dev))
+        torch.cuda.synchronize()
+    finally:
+        moe.dispatch_local = real
+    # again where nothing drops: dense dispatch's function (a prefill's
+    # drops counted: its all-to-all body routes every assignment, so each
+    # one not kept is a drop)
+    whole = dataclasses.replace(cfg, capacity_factor=KIMI_NO_DROP)
+    again = rt.serve.run_fixed(whole, params, args, dev, mesh=mesh)
+    dropped_whole = []
+    real = counting(moe, "dispatch_local", dropped_whole,
+                    lambda out: int(out[3].numel() - out[3].sum()))
+    try:
+        rt.dstep.make_prefill_step(whole, mesh, cache_len=args.prompt_len + args.gen)(
+            params, rt.serve.prompt_batch(cfg, args.seed, args.batch, args.prompt_len, dev))
+        torch.cuda.synchronize()
+    finally:
+        moe.dispatch_local = real
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.save(run.last_logits.cpu(), FSDP_DIR / f"kimi_rank{rank}.pt")
+    torch.save(again.last_logits.cpu(), FSDP_DIR / f"kimi_rank{rank}_no_drop.pt")
+    out = dict(tokens=run.tokens.tolist(), summary=run.summary, k4=k4, moe_ep=len(calls),
+               assignments=sum(n for n, _ in dropped), dropped=sum(d for _, d in dropped),
+               no_drop_tokens=again.tokens.tolist(), no_drop_dropped=sum(dropped_whole),
+               peak_gib=peak, local_params=sum(x.numel() for x in rt.utils.tree_leaves(params)))
+    del params, run, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pair_engine(rt, mesh, dev):
+    """(d) llama3.2-1b's engine over (1, 2): the rank's pieces of the params
+    and of the pool, phase 16's slots, pages and eight requests, each of
+    ENGINE_MESH_WIRES. Returns tokens, tokens/s and the pool's kv heads."""
+    import gc
+
+    cfg = engine_f32(rt)
+    params, _ = pieces_of(rt, rt.serve.init_params(cfg, 0, dev), mesh, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = engine_prompts(rt, cfg)
+    out = {}
+    for wire in ENGINE_MESH_WIRES:
+        rt.k4.reset_launches()
+        eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire), mesh=mesh)
+        for i, p in enumerate(prompts):
+            eng.submit(p, arrival_tick=i * ENGINE["stagger"])
+        comps, metrics = eng.run()
+        torch.cuda.synchronize()
+        out[wire] = dict(tokens=[c.tokens.tolist() for c in comps],
+                         tokens_per_s=metrics["tokens_per_s"], k4=dict(rt.k4.LAUNCHES),
+                         kv_heads=int(eng.pool["groups"][0]["k"].shape[-2]),
+                         scale_heads=(int(eng.pool["groups"][0]["k_scale"].shape[-1])
+                                      if "k_scale" in eng.pool["groups"][0] else None))
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_group_pod(rt, mesh, dev):
+    """(b) ``gmf_select``'s group mode over the pod's data group of the
+    gmf_pod run (llama3.2-1b at FSDP_LAYERS, FSDP's pieces, bf16 rows of
+    the rank's pieces, the fused mode at RATE), timed (CUDA events around
+    the wrapper call, host and the two processes' gloo all-reduces in)
+    beside the single launch over the same row taken whole on the rank,
+    and its bytes bound (v and m read once)."""
+    from repro_torch.dist import sharding as shr
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(rt.configs.get_config(LLAMA), num_layers=FSDP_LAYERS[LLAMA])
+    whole = transformer.abstract_params(cfg)
+    specs = shr.param_specs(whole, fsdp=True, mesh=mesh)
+    pieces = rt.utils.tree_map(lambda x, sp: torch.empty(piece_of(x, sp, mesh).shape,
+                                                          dtype=x.dtype, device=dev),
+                               whole, specs)
+    axes = ("data", "model")
+    layout = rt.flat.FlatLayout.of(pieces).over(
+        rt.dstep.mesh_group(mesh, axes), rt.dstep.full_sizes(cfg),
+        shr.owner_flags(specs, mesh, axes))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    v, m = (torch.randn((1, layout.total), generator=gen, device=dev).to(BF16) for _ in range(2))
+    w, tau = torch.ones(1, device=dev), torch.full((1,), 0.3, device=dev)
+    ms = timed_ms(lambda: rt.ops.gmf_select(v, m, layout, RATE, w=w, tau=tau, eps=EPS),
+                  reps=5, warmup=2)
+    one = rt.flat.FlatLayout.of(pieces)
+    single = timed_ms(lambda: rt.ops.gmf_select(v, m, one, RATE, w=w, tau=tau, eps=EPS),
+                      reps=5, warmup=2)
+    bw = card_rates(torch.cuda.get_device_name(0))[0]
+    return dict(ms=ms, single_ms=single, elements=layout.total,
+                bound_ms=4 * layout.total / bw * 1e3, plan=[
+                    layout.select_plan(group=True).n_group,
+                    layout.select_plan(group=True).n_split,
+                    layout.select_plan(group=True).n_tiles])
+
+
+def fsdp_worker(rank: int, init: str, dest: str) -> None:
+    """One of phase 19's two processes on the one card: a gloo world of two
+    over ``init`` (the card's tensors cross it), then (b) the group select
+    over the data group and the two FSDP runs (FSDP forced for them: the
+    threshold at 0 in this process), (c) granite-moe's training and
+    kimi-k2's serving at model 2, (d) the engine at model 2; the records to
+    ``dest`` (JSON)."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import faulthandler
+
+    import repro_torch.configs as configs
+    import repro_torch.core as core
+    import repro_torch.serve as serving
+    import repro_torch.utils as utils
+    from repro_torch.core import sparsify
+    from repro_torch.dist import step as dstep
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import gmf_compress as gk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils import flat
+
+    rt = argparse.Namespace(core=core, utils=utils, gk=gk, k4=k4, configs=configs, dstep=dstep,
+                            serve=serve, sparsify=sparsify, ref=ref, flat=flat, serving=serving,
+                            ops=ops)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    faulthandler.enable()  # a crash prints where it happened
+    torch.distributed.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                                         timeout=datetime.timedelta(seconds=900))
+    out = {"rank": rank}
+
+    def stage(name):
+        print(f"rank {rank}: {name} at {time.perf_counter() - T_START:.1f} s", flush=True)
+
+    try:
+        out["probe"] = tp_probe(dev)
+        m21 = make_mesh((2, 1), ("data", "model"))
+        m121 = make_mesh((1, 2, 1), ("pod", "data", "model"))
+        m12 = make_mesh((1, 2), ("data", "model"))
+        t0 = time.perf_counter()
+        stage("(b) the group select")
+        out["select"] = tp_group_select(rt, m21.get_group("data"), dev, FSDP_SELECT)
+        qwen = dataclasses.replace(configs.get_config(QWEN), num_layers=FSDP_LAYERS[QWEN])
+        llama = dataclasses.replace(configs.get_config(LLAMA), num_layers=FSDP_LAYERS[LLAMA])
+        dstep._FSDP_PARAM_THRESHOLD = 0  # FSDP forced: the depth-cut configs fall under 40e9
+        try:
+            stage("(b) qwen2-vl dense")
+            out["dense"] = pair_train(rt, rank, qwen, "dense", m21, dev, "dense",
+                                      PAIR_STEPS[QWEN], True)
+            stage("(b) llama gmf_pod")
+            out["gmf_pod"] = pair_train(rt, rank, llama, "gmf_pod", m121, dev, "gmf_data",
+                                        PAIR_STEPS[LLAMA], True)
+            stage("(b) the group mode over the pod's data group, timed")
+            out["group_pod"] = time_group_pod(rt, m121, dev)
+        finally:
+            dstep._FSDP_PARAM_THRESHOLD = 40e9
+        out["b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stage("(c) granite-moe")
+        granite = configs.get_config(GRANITE)
+        out["ep_train"] = pair_train(rt, rank, granite, "dense", m12, dev, "dense", EP_STEPS,
+                                     False)
+        stage("(c) kimi-k2")
+        out["kimi"] = pair_kimi(rt, rank, m12, dev)
+        out["c_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stage("(d) the engine")
+        out["engine"] = pair_engine(rt, m12, dev)
+        out["d_s"] = time.perf_counter() - t0
+        stage("done")
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(dest).write_text(json.dumps(out))
+
+
+def fsdp_pair_phase(rt, card, wit):
+    """(b)-(d): two processes on the one card (``chip_smoke.py
+    --fsdp-worker``), started together, waited for with a time limit and
+    killed past it. Prints the readings, then checks them. Returns rank
+    0's records."""
+    FSDP_DIR.mkdir(parents=True, exist_ok=True)
+    store = FSDP_DIR / "store_two"
+    store.unlink(missing_ok=True)
+    dests = [FSDP_DIR / f"rank{r}.json" for r in range(2)]
+    for d in dests:
+        d.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--fsdp-worker",
+                               str(r), "--tp-init", f"file://{store}", "--tp-out", str(dests[r])],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    check(all(p.returncode == 0 for p in procs),
+          "phase 19 workers failed:\n" + "\n".join(f"--- rank {r} (rc {p.returncode}):\n"
+                                                   f"{log[-3000:]}" for r, (p, log) in
+                                                   enumerate(zip(procs, logs, strict=True))))
+    res = [json.loads(d.read_text()) for d in dests]
+    print(f"  gloo on the card's tensors, two processes: {json.dumps(res[0]['probe'])}",
+          flush=True)
+    fsdp_pair_report(rt, card, wit, res)
+    return res[0]
+
+
+def fsdp_pair_report(rt, card, wit, res):
+    """(b)-(d)'s readings, then their checks, from the two ranks' records."""
+    for r, rec in enumerate(res):  # the readings first, so that a failing run shows them all
+        sel = rec["select"]
+        print(f"  (b) gmf_select's group mode over the data group, rank {r}: plan (cut, split, "
+              f"tiles) f32 {sel['f32/plan']} bf16 {sel['bf16/plan']}, owners {sel['f32/owners']};"
+              f" counts over the group (group, whole leaves) {sel['f32/nnz']}; largest "
+              f"difference {sel['max_abs_err']:.3e}; not bitwise: "
+              f"{[k for k, ok in sel['equal'].items() if not ok] or 'none'}", flush=True)
+    for key, arch, mesh in (("dense", QWEN, "(2, 1)"), ("gmf_pod", LLAMA, "(1, 2, 1)"),
+                            ("ep_train", GRANITE, "(1, 2)")):
+        rec = res[0][key]
+        t, o = rec["mesh"], rec["less"]
+        print(f"  ({'c' if key == 'ep_train' else 'b'}) {arch} "
+              f"({FSDP_LAYERS.get(arch, 'all')} layers), {key} at {mesh}, two processes over gloo"
+              f" ({card}): {rec['cut_data']} of {rec['leaves']} leaves cut over data; losses "
+              f"{[x['loss'] for x in t['recs']]} (no mesh {[x['loss'] for x in o['recs']]}), "
+              f"params within {[round(x[key]['param_rel_l2'], 9) for x in res]} relative L2 "
+              f"(worst leaf, each rank's pieces); the params' change within "
+              f"{[round(x[key]['delta_rel_l2'], 6) for x in res]} of the mesh-less run's "
+              f"(worst of the {[x[key]['moved'] for x in res]} leaves it changed; all leaves "
+              f"{[round(x[key]['delta_all'], 6) for x in res]})"
+              + (f"; upload nnz {[x['upload_nnz'] for x in t['recs']]} (no mesh "
+                 f"{[x['upload_nnz'] for x in o['recs']]}; exact-k sum {rec['exact_k']})"
+                 if key == "gmf_pod" else "")
+              + f"; ms/step {[round(x, 3) for x in t['ms']]} (no mesh "
+              f"{[round(x, 3) for x in o['ms']]}; reported only: gloo through host memory); "
+              f"peak GiB a process {[round(x[key]['mesh']['peak_gib'], 3) for x in res]} (no mesh "
+              f"{round(o['peak_gib'], 3)}); launches {json.dumps(t['inst'])}, group all-reduces "
+              f"{json.dumps(t['sums'])}, moe_ep {t['moe_ep']}", flush=True)
+    one = torch.load(FSDP_DIR / "kimi_one.pt").double()
+    kimi_err, kimi_whole = [], []
+    for r, rec in enumerate(res):
+        k = rec["kimi"]
+        for sink, tag in ((kimi_err, ""), (kimi_whole, "_no_drop")):
+            got = torch.load(FSDP_DIR / f"kimi_rank{r}{tag}.pt").double()
+            sink.append(float((got - one).norm() / one.norm()))
+        print(f"  (c) {KIMI}, {KIMI_SERVE['layers']} of 61 layers, served at (1, 2), rank {r} "
+              f"({card}): tokens {k['tokens']} (one rank, dense dispatch: "
+              f"{wit['kimi']['tokens']}); logits within {kimi_err[-1]:.3e} relative L2 at the "
+              f"published capacity, {kimi_whole[-1]:.3e} where nothing drops (capacity factor "
+              f"{KIMI_NO_DROP}: {k['no_drop_dropped']} dropped, tokens {k['no_drop_tokens']}); K4 "
+              f"{json.dumps(k['k4'])} (D 112, 32 q and 4 kv heads a rank); moe_ep {k['moe_ep']};"
+              f" dropped {k['dropped']} of {k['assignments']} (token, expert) assignments in a "
+              f"prefill; prefill_ms {k['summary']['prefill_ms']} vs "
+              f"{wit['kimi']['summary']['prefill_ms']}, ms_per_step "
+              f"{k['summary']['ms_per_step']} vs {wit['kimi']['summary']['ms_per_step']}; peak "
+              f"{k['peak_gib']:.3f} GiB, {k['local_params']} params a rank", flush=True)
+    for wire in ENGINE_MESH_WIRES:
+        e = res[0]["engine"][wire]
+        differ = sum(a != b for x, y in zip(e["tokens"], wit[f"engine/{wire}"]["tokens"],
+                                            strict=True) for a, b in zip(x, y, strict=True))
+        print(f"  (d) llama3.2-1b (float32)'s engine at (1, 2), {wire} codec ({card}): "
+              f"{differ} of {sum(len(x) for x in e['tokens'])} tokens differ from one rank's; "
+              f"tokens/s "
+              f"{e['tokens_per_s']} (one rank {wit[f'engine/{wire}']['tokens_per_s']}; these "
+              f"times measure gloo); kv heads a rank {e['kv_heads']} (scales "
+              f"{e['scale_heads']}); K4 {json.dumps(e['k4'])}", flush=True)
+    for r, rec in enumerate(res):
+        g = rec["group_pod"]
+        print(f"  (b) gmf_select's group mode over the pod's data group, llama3.2-1b "
+              f"({FSDP_LAYERS[LLAMA]} layers) gmf_pod's bf16 row of {g['elements']} elements a "
+              f"rank, rank {r} ({card}): plan (cut, split, tiles) {g['plan']}; {g['ms']:.4f} ms "
+              f"(gloo's all-reduces in) vs the single launch over the rank's row "
+              f"{g['single_ms']:.4f}; bound {g['bound_ms']:.4f} ms (bytes)", flush=True)
+    print(f"  (b) {res[0]['b_s']:.1f} s, (c) {res[0]['c_s']:.1f} s, (d) {res[0]['d_s']:.1f} s; "
+          f"peak GiB a process {[round(x['peak_gib'], 3) for x in res]}", flush=True)
+    # the checks
+    for r, rec in enumerate(res):
+        sel = rec["select"]
+        bad = [k for k, ok in sel["equal"].items() if not ok]
+        check(not bad, f"(b) group select over the data group, rank {r}: not bitwise in {bad}")
+        check(sel["f32/owners"] == [k != "s" or r == 0 for k in sorted(FSDP_SELECT)],
+              f"(b) group select, rank {r}: owners {sel['f32/owners']}")
+        e = rec["engine"]
+        for wire in ENGINE_MESH_WIRES:
+            check(e[wire]["tokens"] == wit[f"engine/{wire}"]["tokens"],
+                  f"(d) rank {r}, {wire}: the engine's tokens at (1, 2) differ from one rank's")
+            check(e[wire]["kv_heads"] == 4, f"(d) rank {r}: {e[wire]['kv_heads']} kv heads a rank")
+            check(e[wire]["k4"]["flash_attention"] == 16 * len(ENGINE["lengths"]),
+                  f"(d) rank {r}, {wire}: K4 launches {e[wire]['k4']}")
+        k = rec["kimi"]
+        check(k["tokens"] == wit["kimi"]["tokens"],
+              f"(c) kimi rank {r}: tokens {k['tokens']} vs one rank's {wit['kimi']['tokens']}")
+        check(k["no_drop_dropped"] == 0 and k["no_drop_tokens"] == wit["kimi"]["tokens"]
+              and kimi_whole[r] <= EP_SERVE_TOL,
+              f"(c) kimi rank {r}, nothing dropped: {k['no_drop_dropped']} dropped, tokens "
+              f"{k['no_drop_tokens']}, logits {kimi_whole[r]:.3e} relative L2 from one rank's")
+        check(k["k4"].get("flash_attention_tc") == KIMI_SERVE["layers"] and k["moe_ep"] > 0,
+              f"(c) kimi rank {r}: K4 {k['k4']}, moe_ep {k['moe_ep']}")
+    for key in ("dense", "gmf_pod", "ep_train"):
+        rec = res[0][key]
+        t, o = rec["mesh"], rec["less"]
+        for a, b in zip(t["recs"], o["recs"], strict=True):
+            check(abs(a["loss"] - b["loss"]) <= FSDP_TOL * abs(b["loss"]),
+                  f"({key}) loss {a['loss']} vs {b['loss']} without a mesh")
+        for r, x in enumerate(res):
+            check(x[key]["param_rel_l2"] <= FSDP_TOL,
+                  f"({key}) rank {r}: params {x[key]['param_rel_l2']:.3e} relative L2 from the "
+                  f"mesh-less run's")
+            tol = EP_DELTA_TOL if key == "ep_train" else FSDP_DELTA_TOL
+            check(x[key]["delta_rel_l2"] <= tol,
+                  f"({key}) rank {r}: the params' change {x[key]['delta_rel_l2']:.3e} relative "
+                  f"L2 from the mesh-less run's at its worst leaf (> {tol})")
+        check(t["total"] == o["total"], f"({key}) total_params {t['total']} vs {o['total']}")
+        if key != "ep_train":
+            check(rec["cut_data"] > 0, f"({key}) no leaf cut over data")
+    g = res[0]["gmf_pod"]
+    for a, b in zip(g["mesh"]["recs"], g["less"]["recs"], strict=True):
+        flips = max(abs(x - y) for x, y in zip(a["upload_nnz"], b["upload_nnz"], strict=True))
+        check(min(a["upload_nnz"]) >= g["exact_k"],
+              f"(b) gmf_pod: upload nnz {a['upload_nnz']} < the exact-k sum {g['exact_k']}")
+        check(flips <= FSDP_NNZ_FLIPS, f"(b) gmf_pod: upload nnz {a['upload_nnz']} vs "
+                                       f"{b['upload_nnz']} without a mesh ({flips} > "
+                                       f"{FSDP_NNZ_FLIPS})")
+    n = PAIR_STEPS[LLAMA]
+    want = {"gmf_select[group:bf16,bf16]": n, "gmf_compress[bf16,bf16]": n,
+            "momentum_correction[bf16,bf16->bf16]": n}
+    for r, rec in enumerate(res):
+        check(rec["gmf_pod"]["mesh"]["inst"] == want,
+              f"(b) gmf_pod rank {r}: launches {rec['gmf_pod']['mesh']['inst']}, expected {want}")
+        check(not rec["dense"]["mesh"]["inst"], f"(b) dense launched {rec['dense']['mesh']['inst']}")
+        check(rec["ep_train"]["mesh"]["moe_ep"] == EP_STEPS * rt.configs.get_config(
+            GRANITE).num_layers, f"(c) granite rank {r}: moe_ep {rec['ep_train']['mesh']['moe_ep']}")
+
+
+def fsdp_phase(rt, dev, card):
+    """Phase 19: the witnesses of (c) and (d) in this process, then (b)-(d)
+    in two processes. (FSDP runs only on a data axis over 1, so a one-rank
+    mesh runs phase 17's steps: the pair is where FSDP runs.)"""
+    import gc
+
+    FSDP_DIR.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wit = fsdp_witnesses(rt, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"  this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB; "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card", flush=True)
+    return fsdp_pair_phase(rt, card, wit)
+
+
 T_START = time.perf_counter()
 
 
@@ -4567,9 +5247,11 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "model-axis"), default=None,
-                    help="run only the build and kernel phases, or the build and phase 18")
+    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp"), default=None,
+                    help="run only the build and kernel phases, or the build and phase 18, or "
+                         "the build and phase 19")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fsdp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
@@ -4579,6 +5261,9 @@ def main() -> None:
     args = ap.parse_args()
     if args.tp_worker is not None:  # one of phase 18's two processes
         tp_worker(args.tp_worker, args.tp_init, args.tp_out)
+        return
+    if args.fsdp_worker is not None:  # one of phase 19's two processes
+        fsdp_worker(args.fsdp_worker, args.tp_init, args.tp_out)
         return
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -4637,10 +5322,15 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if args.only == "model-axis":
-        phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
-              "processes on the card over gloo)")
-        model_axis_phase(rt, dev, card, bw, peak, _resnet56_params(dev))
+    if args.only in ("model-axis", "fsdp"):
+        if args.only == "model-axis":
+            phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
+                  "processes on the card over gloo)")
+            model_axis_phase(rt, dev, card, bw, peak, _resnet56_params(dev))
+        else:
+            phase("phase 19: FSDP over data, the expert-parallel MoE and the engine at model 2 "
+                  "(two processes on the card over gloo)")
+            fsdp_phase(rt, dev, card)
         phase("results")
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4702,6 +5392,7 @@ def main() -> None:
     bf16_by_path = {}  # the training paths' launches by kernel instance
     served_k4 = {}  # phase 13's K4 launches by config
     tp_times = {}  # phase 18 (a)'s times of gmf_select's group mode
+    fsdp_rec = {}  # phase 19's records (rank 0's)
     k4_tc_by_path = {}  # the tensor-core K4's launches in phase 5's and phase 16's runs
     if args.only != "kernels":
         phase("phase 3: ResNet-56 FL path, 20 clients, batch 64")
@@ -4788,6 +5479,15 @@ def main() -> None:
                                       tp_rec.get("select_max_abs_err", 0.0))
         bf16_by_path["llama_tp"] = {tuple(k[:-1].split("[", 1)): n for k, n in tp_inst.items()}
         print(f"  phase 18 in {time.perf_counter() - t18:.1f} s", flush=True)
+        phase("phase 19: FSDP over data (qwen2-vl-72b, llama3.2-1b), the expert-parallel MoE "
+              "at model 2 (granite-moe, kimi-k2) and the engine at model 2 (llama3.2-1b)")
+        t19 = time.perf_counter()
+        fsdp_rec = fsdp_phase(rt, dev, card)
+        bf16_by_path["llama_fsdp"] = {
+            tuple(k[:-1].split("[", 1)): n
+            for k, n in fsdp_rec["gmf_pod"]["mesh"]["inst"].items()}
+        k4_tc_by_path["kimi_ep_model2"] = fsdp_rec["kimi"]["k4"].get("flash_attention_tc", 0)
+        print(f"  phase 19 in {time.perf_counter() - t19:.1f} s", flush=True)
         launches["flash_attention_tc"] = sum(k4_tc_by_path.values())
         for counts in by_path.values():
             for name, n in counts.items():
@@ -4839,13 +5539,20 @@ def main() -> None:
         rows.append({"name": "gmf_select_group", "id": "K1", "route": "cuda",
                      "source": PORT_SOURCE, "replaces": replaces["gmf_select"],
                      "instance": "group:bf16,bf16",
-                     "launches": bf16_by_path.get("llama_tp", {}).get(
-                         ("gmf_select", "group:bf16,bf16"), 0),
+                     "launches": sum(bf16_by_path.get(p, {}).get(
+                         ("gmf_select", "group:bf16,bf16"), 0) for p in ("llama_tp",
+                                                                         "llama_fsdp")),
+                     "launches_by_path": {p: bf16_by_path.get(p, {}).get(
+                         ("gmf_select", "group:bf16,bf16"), 0) for p in ("llama_tp",
+                                                                         "llama_fsdp")},
                      "launches_in": "phase 18 (b): llama3.2-1b gmf_data at mesh (1, 2), both "
-                                    "ranks", "max_abs_err": tp_times["max_abs_err"],
+                                    "ranks; phase 19 (b): llama3.2-1b (8 layers) gmf_pod at "
+                                    "(1, 2, 1) under FSDP, rank 0",
+                     "max_abs_err": tp_times["max_abs_err"],
                      **{k: tp_times[k] for k in ("ms", "bound_ms", "bound_by", "at")},
                      "plain_ms": tp_times["plain_ms"], "library_ms": None,
                      "single_launch_ms": tp_times["single_ms"],
+                     "over_a_data_group": fsdp_rec.get("group_pod"),
                      "abs_mode": {"ms": tp_times["abs_ms"],
                                   "single_launch_ms": tp_times["abs_single_ms"]},
                      "resnet56_round": tp_times["resnet56"]})

@@ -53,14 +53,17 @@ def gmf_score(v: torch.Tensor, m: torch.Tensor, tau, eps: float = 1e-16) -> torc
 
 def segment_norms(x: torch.Tensor, layout) -> torch.Tensor:
     """Per-client L2 norm of every leaf segment of a flat ``[k, N]`` stack,
-    in float32 -> ``[k, L]``. A segment cut over the layout's model group
-    (``FlatLayout.over``) sums its squares over the group first."""
+    in float32 -> ``[k, L]``. A segment cut over the layout's group
+    (``FlatLayout.over``) sums its squares over the group first, a piece
+    this rank does not own counting zero."""
     if not layout.cut:
         return torch.stack([row_l2_norm(seg) for seg in layout.segments(x.float())], dim=1)
     sq = torch.stack([torch.sum(torch.square(seg), dim=1)
                       for seg in layout.segments(x.float())], dim=1)
     idx = [i for i, cut in enumerate(layout.cut_flags) if cut]
     part = sq[:, idx].contiguous()
+    if layout.shared:
+        part = part * layout.owner_mask()
     torch.distributed.all_reduce(part, group=layout.group)
     sq[:, idx] = part
     return torch.sqrt(sq)

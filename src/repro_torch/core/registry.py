@@ -338,7 +338,7 @@ class Scheme:
         """Raise unless every stage acts elementwise or per leaf, so that it
         runs on the rank's pieces of leaves cut over a model group: the
         stages that cut or key a leaf by flat coordinate, whose local piece
-        is strided in the leaf's order, wait for ROADMAP item 11 part C2."""
+        is strided in the leaf's order, wait for ROADMAP item 11 part C2b."""
         cfg = self.cfg
         across = [name for name, bad in (
             ("the sketch selector", self.is_sketch),
@@ -352,7 +352,7 @@ class Scheme:
             raise NotImplementedError(
                 f"scheme {self.name!r}: {', '.join(across)} over leaves cut across a model axis "
                 f"is not ported yet (it cuts or keys a leaf by flat coordinate): ROADMAP Queue 1 "
-                f"item 11 part C2")
+                f"item 11 part C2b")
 
     def check_grouped(self) -> None:
         """Raise unless every stage works leaf by leaf (a tree of mixed

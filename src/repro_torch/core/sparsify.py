@@ -98,14 +98,20 @@ def topk_mask(z: torch.Tensor, rate: float, selector: str = "exact") -> torch.Te
 
 def whole_segment(seg: torch.Tensor, layout, i: int) -> torch.Tensor:
     """Segment ``i`` of every row of a score stack as the whole leaf's
-    scores: the ranks' pieces gathered over the layout's model group where
-    the segment is cut (in rank order; a threshold does not depend on the
-    order), else the segment itself."""
+    scores: the ranks' pieces gathered over the layout's group where the
+    segment is cut (in rank order; a threshold does not depend on the
+    order), the pieces of the ranks that do not own theirs left out, else
+    the segment itself."""
     if not layout.cut_flags[i]:
         return seg
-    parts = [torch.empty_like(seg, memory_format=torch.contiguous_format)
-             for _ in range(torch.distributed.get_world_size(layout.group))]
+    size = torch.distributed.get_world_size(layout.group)
+    parts = [torch.empty_like(seg, memory_format=torch.contiguous_format) for _ in range(size)]
     torch.distributed.all_gather(parts, seg.contiguous(), group=layout.group)
+    if layout.shared_flags[i]:
+        own = torch.tensor([float(layout.owner_flags[i])], device=seg.device)
+        owners = [torch.empty_like(own) for _ in range(size)]
+        torch.distributed.all_gather(owners, own, group=layout.group)
+        parts = [p for p, o in zip(parts, owners, strict=True) if o.item()]
     return torch.cat(parts, dim=1)
 
 

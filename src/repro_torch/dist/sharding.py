@@ -180,6 +180,46 @@ def param_specs(params, *, fsdp: bool, mesh) -> dict:
         lambda names, leaf: _spec_for_leaf(names, tuple(leaf.shape), mesh, fsdp=fsdp), params)
 
 
+def spec_axes(spec: P) -> frozenset:
+    """The mesh axes a spec cuts its tensor over."""
+    out = set()
+    for e in spec:
+        if isinstance(e, tuple):
+            out.update(e)
+        elif e is not None:
+            out.add(e)
+    return frozenset(out)
+
+
+def fsdp_dims(params, mesh) -> dict:
+    """Tree mirroring a params tree: each leaf's dim cut over ``data`` by
+    FSDP's specs, counted from the right (it is the same in a stacked leaf
+    and in one layer of it), or None for a leaf FSDP leaves whole over
+    ``data`` (1-D, replicated by name, a dim that does not divide)."""
+    def dim(names, leaf):
+        spec = _spec_for_leaf(names, tuple(leaf.shape), mesh, fsdp=True)
+        hits = [d for d, e in enumerate(spec) if e == "data"]
+        return hits[0] - leaf.dim() if hits else None
+
+    return _map_named(dim, params)
+
+
+def owner_flags(specs, mesh, axes, distinct=()) -> tuple[bool, ...]:
+    """Per leaf of a spec tree (``tree_leaves`` order): whether this rank's
+    piece counts in a sum over the mesh ``axes``, so that a piece several
+    ranks hold alike counts once. It counts where the rank's coordinate is
+    0 on every one of ``axes`` that the leaf is not cut over; ``distinct``
+    names axes whose ranks hold different values (clients), which every
+    rank counts."""
+    from repro_torch.utils import tree_leaves
+
+    names = mesh_axes(mesh)
+    coord = dict(zip(names, mesh.get_coordinate(), strict=True))
+    free = [a for a in axes if a in names and a not in distinct]
+    return tuple(all(coord[a] == 0 for a in free if a not in spec_axes(s))
+                 for s in tree_leaves(specs))
+
+
 def strip_axes(spec: P, axes) -> P:
     """Drop the named mesh axes from a spec (for stacking per-shard state
     whose leading axis already occupies them)."""

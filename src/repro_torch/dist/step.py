@@ -39,9 +39,39 @@ compression row holds its pieces of the leaves; its ``FlatLayout`` is
 sizes, a cut segment's norms and threshold are the whole leaf's
 (``gmf_select``'s group mode), and ``upload_nnz`` / ``total_params``
 count the whole model. Stages that cut or key a leaf by flat coordinate
-raise (``Scheme.check_model_axis``), and so do FSDP over a data axis > 1,
-the expert-parallel MoE inside a step and the engine at model > 1
-(ROADMAP Queue 1 item 11 part C2).
+raise (``Scheme.check_model_axis``, ROADMAP Queue 1 item 11 part C2b).
+The expert-parallel MoE runs inside the forward at any model axis (the
+tokens replicated over the model group, ``moe.moe_ep(..., tp=...)``).
+
+FSDP: the >40 B archs (``needs_fsdp``) on a ``data`` axis over 1 hold
+their params cut over ``data`` too (``param_specs(..., fsdp=True)``), the
+optimiser slots with them, and the forward gathers a layer's pieces just
+before the layer runs (``transformer.FsdpCtx``, ``_model_ctx``). The
+gather's backward is each mode's:
+
+- ``dense``: a reduce-scatter (``collectives.gather_cat``): each rank's
+  gradient piece is its slice of the data ranks' summed shares, then
+  summed over ``pod``; the leaves FSDP leaves whole are summed over the
+  data axes as before.
+- ``gmf_data``: each data rank is one client and needs its own whole
+  gradient, so the gather's backward writes it whole to a sink the step
+  reads (``collectives.fsdp_gather`` with a sink): the client's row,
+  its U, V and M, the server state and ``gbar`` are whole over ``data``
+  and cut over ``model`` as without FSDP (``train_state_specs`` strips
+  ``data``), and each rank applies its data slice of the update to its
+  pieces.
+- ``gmf_pod``: a pod's gradient is reduce-scattered over ``data`` (the
+  leaves FSDP leaves whole are all-reduced), so the rank's row, its state
+  and ``gbar`` hold pieces of leaves cut over the pod's data × model ranks:
+  the ``FlatLayout`` is ``over`` that group, with owner flags
+  (``sharding.owner_flags``) so that a piece several of its ranks hold
+  alike (a leaf cut over ``model`` alone, or over neither) counts once in
+  the norms, thresholds, histograms and counts.
+
+The clip's global norm sums over the data × model ranks with the same
+once-counting. The >40 B archs at smoke size, or cut in depth, fall under
+the 40e9 threshold: a test or a smoke run that wants FSDP there sets
+``_FSDP_PARAM_THRESHOLD`` to 0 in its own process.
 
 Training: the gmf modes make each shard one GMF client whose gradient runs
 through ``Scheme.client_compress`` and ``server_aggregate`` with its own
@@ -61,10 +91,10 @@ Serving: the fixed-batch prefill and decode steps, and the paged ones of
 the continuous-batching engine (``serve/engine.py``), run under
 ``torch.no_grad``; the decode steps and the paged prefill write into the
 cache or pool they are given. Over a mesh they take the rank's batch,
-params and cache (the cache's kv heads the rank's where they divide the
-model axis, ``kv_entry_spec``) and carry the model group and the EP keys
-in their ctx; the logits come back whole. The paged steps refuse a model
-axis over 1 (ROADMAP Queue 1 item 11 part C2).
+params and cache or pool (the kv heads the rank's where they divide the
+model axis: ``kv_entry_spec``, ``pool_specs``, with the int8 codec's
+scales cut alike) and carry the model group, FSDP's gathers and the EP
+keys in their ctx; the logits come back whole.
 """
 
 from __future__ import annotations
@@ -77,6 +107,7 @@ import torch.nn.functional as F
 import torch.distributed as dist
 
 from repro_torch.core import resolve
+from repro_torch.obs.health import NormSpan
 from repro_torch.core.state import ClientState, ServerState
 from repro_torch.dist import sharding as shr
 from repro_torch.launch.mesh import axis_size, mesh_axes
@@ -107,15 +138,53 @@ class TrainState(NamedTuple):
     step: int
 
 
-def _check_mesh(cfg, mesh) -> None:
-    """Refuse FSDP: the >40 B archs on a ``data`` axis > 1."""
-    if mesh is None:
-        return
-    if cfg is not None and needs_fsdp(cfg) and axis_size(mesh, "data") > 1:
-        raise NotImplementedError(
-            f"{cfg.name} shards its params over data (FSDP) on a data axis of "
-            f"{axis_size(mesh, 'data')}, which is not ported yet: ROADMAP Queue 1 item 11 "
-            "part C2")
+def fsdp_active(cfg, mesh) -> bool:
+    """Whether ``cfg``'s params are cut over ``mesh``'s data axis (FSDP):
+    ``needs_fsdp`` on a data axis over 1."""
+    return mesh is not None and needs_fsdp(cfg) and axis_size(mesh, "data") > 1
+
+
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _without_experts(dims):
+    """FSDP's dims with the expert leaves left whole: ``moe_ep`` gathers
+    them itself."""
+    if isinstance(dims, dict):
+        return {k: (None if k in _EXPERTS and "router" in dims else _without_experts(v))
+                for k, v in dims.items()}
+    if isinstance(dims, tuple):
+        return tuple(_without_experts(v) for v in dims)
+    return dims
+
+
+def _fsdp_ctx(cfg, mesh, ep: bool = False):
+    """FSDP's forward ctx (``transformer.FsdpCtx``) for ``cfg`` over
+    ``mesh``, or None; ``ep``: the expert-parallel MoE runs, and gathers its
+    experts itself."""
+    if not fsdp_active(cfg, mesh):
+        return None
+    dims = shr.fsdp_dims(transformer.abstract_params(cfg), mesh)
+    return transformer.FsdpCtx(mesh.get_group("data"), _without_experts(dims) if ep else dims)
+
+
+_GROUPS: dict = {}
+
+
+def mesh_group(mesh, axes):
+    """The process group over ``mesh``'s axes among ``axes`` whose size is
+    over 1: None for none, the axis's own group for one, else their
+    flattened group, made once per mesh (a collective of the mesh's
+    ranks)."""
+    names = tuple(a for a in mesh_axes(mesh) if a in axes and axis_size(mesh, a) > 1)
+    if not names:
+        return None
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    key = (id(mesh), names)
+    if key not in _GROUPS:  # the mesh is held beside its group, so its id stays its own
+        _GROUPS[key] = (mesh, mesh[names]._flatten().get_group())
+    return _GROUPS[key][1]
 
 
 def model_group(mesh):
@@ -245,7 +314,8 @@ def _share_loss_fn(cfg, ctx, groups):
     NLL over the valid-label count summed over the groups, and its share of
     the router aux (the groups' density and this rank's mean probability
     under dense dispatch; 1/n of the groups' mean under EP). The ranks'
-    shares add up to the reference's loss of the whole batch."""
+    shares add up to the reference's loss of the whole batch. ``sink`` (a
+    dict) takes each FSDP gather's gradient whole (``gmf_data``)."""
     n = 1
     for g in groups:
         n *= col.size(g)
@@ -254,8 +324,9 @@ def _share_loss_fn(cfg, ctx, groups):
     ep = ctx.get("moe_impl") == "ep"
     tp = ctx.get("tp")
 
-    def loss_fn(params, batch):
-        logits, aux, _ = transformer.forward(cfg, params, batch, ctx=ctx)
+    def loss_fn(params, batch, sink=None):
+        call = ctx if sink is None else dict(ctx, fsdp=ctx["fsdp"]._replace(sink=sink))
+        logits, aux, _ = transformer.forward(cfg, params, batch, ctx=call)
         labels = batch["labels"]
         nll = _nll(cfg, logits, labels, tp)
         valid = (labels >= 0).float()
@@ -272,10 +343,9 @@ def _share_loss_fn(cfg, ctx, groups):
 
 def _model_ctx(cfg, mesh, *, ep: bool = True, **extra) -> dict:
     """Forward-pass ctx: the hybrid family's attention window, and over a
-    mesh the model group (tensor parallelism at a model axis over 1) and,
-    with ``ep``, the plumbing of the expert-parallel MoE, as the reference
-    sets them."""
-    _check_mesh(cfg, mesh)
+    mesh the model group (tensor parallelism at a model axis over 1), FSDP's
+    gathers and, with ``ep``, the plumbing of the expert-parallel MoE, as
+    the reference sets them."""
     ctx = dict(extra)
     if cfg.family == "hybrid":
         # ring caches + masks sized to the local-attention window, matching
@@ -284,15 +354,68 @@ def _model_ctx(cfg, mesh, *, ep: bool = True, **extra) -> dict:
     tp = model_group(mesh)
     if tp is not None:
         ctx["tp"] = tp
-    if ep and mesh is not None and cfg.num_experts > 0 and cfg.moe_impl == "ep":
+    ep = ep and mesh is not None and cfg.num_experts > 0 and cfg.moe_impl == "ep"
+    if ep:
         ctx.update(mesh=mesh, data_axes=shr.dp_axes(mesh), model_axis=shr.MODEL_AXIS,
                    moe_impl="ep", fsdp_moe=needs_fsdp(cfg))
+    fs = _fsdp_ctx(cfg, mesh, ep)
+    if fs is not None:
+        ctx["fsdp"] = fs
     return ctx
 
 
 # ---------------------------------------------------------------------------
 # Train state and step
 # ---------------------------------------------------------------------------
+
+
+def _own_whole(grad_sync: str, cfg, mesh) -> bool:
+    """Whether each client's state is whole over ``data`` while its params
+    are cut over it: ``gmf_data`` under FSDP."""
+    return grad_sync == "gmf_data" and fsdp_active(cfg, mesh)
+
+
+def _client_like(params, cfg, mesh):
+    """A tree shaped as the client state's leaves under ``gmf_data`` with
+    FSDP: each leaf cut over ``data`` as the whole over ``data`` (expanded
+    zeros, no memory), the others the params themselves."""
+    n = axis_size(mesh, "data")
+    dims = tree_leaves(shr.fsdp_dims(transformer.abstract_params(cfg), mesh))
+    out = []
+    for x, d in zip(tree_leaves(params), dims, strict=True):
+        if d is None:
+            out.append(x)
+            continue
+        shape = list(x.shape)
+        shape[d] *= n
+        out.append(torch.zeros((), dtype=x.dtype, device=x.device).expand(shape))
+    return tree_unflatten(params, out)
+
+
+def _data_pieces(tree, dims, mesh):
+    """This rank's data slices (views) of ``tree``'s leaves that FSDP cuts
+    (``dims``: each leaf's dim cut over data, or None)."""
+    n, r = axis_size(mesh, "data"), mesh.get_local_rank("data")
+    out = [x if d is None else x.chunk(n, dim=d)[r]
+           for x, d in zip(tree_leaves(tree), dims, strict=True)]
+    return tree_unflatten(tree, out)
+
+
+def _over_data(flat, src, dst, dims, mesh, whole: bool):
+    """A flat quantity of the leaves of layout ``src`` as one of ``dst``'s:
+    each leaf FSDP cuts (``dims``) gathered whole over ``data``
+    (``whole``) or cut to this rank's piece. ``{}`` (a field the scheme
+    does not use) stays."""
+    if not isinstance(flat, (torch.Tensor, tuple)):
+        return flat
+    tree = src.unflatten(flat)
+    if whole:
+        group = mesh.get_group("data")
+        tree = tree_unflatten(tree, [x if d is None else col.gather_cat(x, group, d)
+                                     for x, d in zip(tree_leaves(tree), dims, strict=True)])
+    else:
+        tree = _data_pieces(tree, dims, mesh)
+    return dst.flatten(tree)
 
 
 def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
@@ -303,9 +426,10 @@ def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
     server state and a zero ``gbar`` (``{}`` unless the scheme keeps the
     global momentum). Params, opt slots, ``gbar`` and the server state are
     every rank's own: every rank passes its pieces of the params
-    (``sharding.local_tree``; the whole at a model axis of 1)."""
+    (``sharding.local_tree``; the whole at a mesh of one rank). Under
+    ``gmf_data`` with FSDP the client state is whole over ``data``, the
+    server state and ``gbar`` cut like the params (``train_state_specs``)."""
     _num_shards(tcfg.grad_sync, mesh)
-    _check_mesh(cfg, mesh)
     opt = sgd.init(params, momentum=tcfg.momentum)
     if tcfg.grad_sync == "dense":
         cstate: Any = ClientState(u={}, v={}, m={})
@@ -314,6 +438,8 @@ def init_train_state(cfg, tcfg, ccfg, params, mesh=None) -> TrainState:
     else:
         scheme = resolve(ccfg)
         client, sstate = scheme.init_states(params)
+        if _own_whole(tcfg.grad_sync, cfg, mesh):
+            client = scheme.init_states(_client_like(params, cfg, mesh))[0]
         cstate = tree_map(lambda x: x.unsqueeze(0).contiguous(), client)
         gbar = FlatLayout.of(params).zeros() if scheme.uses_m else {}
     return TrainState(params=params, opt=opt, cstate=cstate, sstate=sstate, gbar=gbar, step=0)
@@ -325,7 +451,8 @@ def train_state_specs(cfg, tcfg, ccfg, params, mesh) -> TrainState:
     (the port holds ``gbar`` and the server state flat, each rank its pieces
     of the leaves as those specs cut them); ``P(axis)`` for each flat
     ``[n, N]`` compression stack of the rank's pieces (a tuple of them for a
-    tree of mixed dtypes)."""
+    tree of mixed dtypes; under ``gmf_data`` with FSDP a row of pieces cut
+    over ``model`` alone, as the reference strips the sync axis)."""
     pspec = shr.param_specs(params, fsdp=needs_fsdp(cfg), mesh=mesh)
     axis = _sync_axis(tcfg.grad_sync)
     if tcfg.grad_sync == "dense":
@@ -357,14 +484,87 @@ def train_state_specs(cfg, tcfg, ccfg, params, mesh) -> TrainState:
     )
 
 
-def _value_and_grad(loss_fn, params, batch):
+def _value_and_grad(loss_fn, params, batch, own=None):
     """((loss, aux), grads) by plain autograd, the grads in the params'
-    tree and dtypes."""
+    tree and dtypes. ``own`` (FSDP's dim of each leaf, or None, in
+    ``tree_leaves`` order) takes each FSDP leaf's gradient whole over
+    ``data`` from the sink its gathers' backward writes (``gmf_data``): a
+    stacked leaf's is its layers' stacked."""
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
     with torch.enable_grad():
-        loss, aux = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-    return (loss.detach(), aux.detach()), tree_unflatten(params, list(grads))
+        if own is None:
+            loss, aux = loss_fn(live, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            return (loss.detach(), aux.detach()), tree_unflatten(params, list(grads))
+        sink: dict = {}
+        loss, aux = loss_fn(live, batch, sink)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    out = []
+    for x, g, d in zip(leaves, got, own, strict=True):
+        if d is None:
+            out.append(torch.zeros_like(x) if g is None else g)
+        elif (id(x), None) in sink:
+            out.append(sink[(id(x), None)])
+        else:
+            out.append(torch.stack([sink[(id(x), i)] for i in range(x.shape[0])]))
+    return (loss.detach(), aux.detach()), tree_unflatten(params, out)
+
+
+def _psum_tree(grads, groups, cut_groups, gathered):
+    """Each gradient leaf summed in place over ``groups``, or over
+    ``cut_groups`` (``groups`` without FSDP's data group) for the leaves
+    ``gathered`` flags: their gathers' backward summed them over ``data``."""
+    out = [_psum_(g, cut_groups if cut else groups)
+           for g, cut in zip(tree_leaves(grads), gathered, strict=True)]
+    return tree_unflatten(grads, out)
+
+
+def health_spans(cfg, tcfg, mesh, params) -> dict | None:
+    """How the trainer's flat compression state lies over ``mesh``, for
+    ``obs.health.compensation_norms`` to report the whole model's norms (the
+    reference's, of global arrays): every segment's squares summed over
+    the mesh's ranks, each piece once. The client rows are distinct over
+    the sync axis (each shard a client), the server state and ``gbar``
+    replicated over it; a piece several ranks hold alike (a leaf whole over
+    ``data``, or over ``model``) counts on the rank whose coordinate is 0
+    there (``sharding.owner_flags``). None without a mesh, under dense
+    sync, or at a mesh of one rank. ``params`` are the rank's pieces."""
+    if mesh is None or tcfg.grad_sync == "dense":
+        return None
+    axes = shr.DATA_AXES + (shr.MODEL_AXIS,)
+    group = mesh_group(mesh, axes)
+    if group is None:
+        return None
+    sync = _sync_axis(tcfg.grad_sync)
+    own = _own_whole(tcfg.grad_sync, cfg, mesh)
+    abstract = transformer.abstract_params(cfg)
+    fsdp = fsdp_active(cfg, mesh)
+    spans = {}
+    # (the client rows under gmf_data with FSDP: whole over data)
+    for name, like, cut_data, distinct in (
+            ("client", _client_like(params, cfg, mesh) if own else params, fsdp and not own,
+             (sync,)),
+            ("server", params, fsdp, ())):
+        layout = FlatLayout.of(like)
+        order = ([i for idx in layout.index for i in idx] if isinstance(layout, GroupedLayout)
+                 else list(range(layout.num_leaves)))
+        flags = shr.owner_flags(shr.param_specs(abstract, fsdp=cut_data, mesh=mesh), mesh, axes,
+                                distinct)
+        spans[name] = NormSpan(_segments_of(layout), group, (True,) * len(order),
+                               tuple(flags[i] for i in order))
+    return spans
+
+
+def _segments_of(layout):
+    """A flat field's per-leaf segments (every dtype group's, in order)."""
+    def segments(field):
+        if isinstance(layout, GroupedLayout):
+            return [seg for g, x in zip(layout.groups, field, strict=True)
+                    for seg in g.segments(x)]
+        return layout.segments(field)
+
+    return segments
 
 
 def make_train_step(cfg, tcfg, ccfg, mesh=None):
@@ -377,20 +577,37 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
     turns into MB (``core.accounting.CostModel``)."""
     sync = tcfg.grad_sync
     n = _num_shards(sync, mesh)
-    _check_mesh(cfg, mesh)
     loss_groups, sync_group = _step_groups(sync, mesh)
     tp = model_group(mesh)
-    sizes = full_sizes(cfg) if tp is not None else None
+    fsdp = fsdp_active(cfg, mesh)
+    sizes = full_sizes(cfg) if tp is not None or fsdp else None
     # the compressed modes run dense experts, as the reference's vmap over
     # shards does; EP only under dense sync
-    loss_fn = _share_loss_fn(cfg, _model_ctx(cfg, mesh, ep=sync == "dense"), loss_groups)
+    ctx = _model_ctx(cfg, mesh, ep=sync == "dense")
+    loss_fn = _share_loss_fn(cfg, ctx, loss_groups)
+    # each leaf's dim the forward gathers over data under FSDP (its gradient
+    # summed or taken whole there; under EP moe_ep gathers the experts by
+    # the same dims), and the groups the others' gradients are summed over
+    abstract = transformer.abstract_params(cfg)
+    dims = (tree_leaves(shr.fsdp_dims(abstract, mesh)) if fsdp
+            else [None] * len(tree_leaves(abstract)))
+    gathered = tuple(d is not None for d in dims)
+    cut_groups = _groups(mesh, ("pod",)) if sync == "dense" and fsdp else []
+    if fsdp:
+        # the clip's group: the data x model ranks, a piece several of them
+        # hold alike counted once
+        clip_group = mesh_group(mesh, ("data", shr.MODEL_AXIS))
+        clip_owner = shr.owner_flags(shr.param_specs(abstract, fsdp=True, mesh=mesh),
+                                     mesh, ("data", shr.MODEL_AXIS))
+    own = _own_whole(sync, cfg, mesh)
 
     def _apply(params, opt, update, step):
         lr = sgd.lr_at(step, tcfg)
-        cut = _cut_leaves(params, sizes) if tp is not None else None
+        cut = _cut_leaves(params, sizes) if sizes is not None else None
+        group, owner = (clip_group, clip_owner) if fsdp else (tp, None)
         return sgd.apply_updates(params, update, opt, lr=lr, momentum=tcfg.momentum,
                                  weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
-                                 group=tp, cut=cut)
+                                 group=group, cut=cut, owner=owner)
 
     if sync == "dense":
 
@@ -398,7 +615,7 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
             with trace.annotate_scope("round.client_grads"):
                 (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
                 if loss_groups:  # the ranks' shares add up to the global loss
-                    grads = tree_map(lambda g: _psum_(g, loss_groups), grads)
+                    grads = _psum_tree(grads, loss_groups, cut_groups, gathered)
                     loss = _psum_(loss, loss_groups)
             with torch.no_grad(), trace.annotate_scope("round.apply_update"):
                 params, opt = _apply(state.params, state.opt, grads, state.step)
@@ -417,24 +634,44 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
             "update, so optimiser weight_decay/grad_clip would apply to the "
             "lr-scaled update (1/lr times too strong) — set them to 0 for "
             "this scheme")
-    if tp is not None:
+    if tp is not None or (fsdp and not own):
         scheme.check_model_axis()
+    # the group a row's segments are cut over: a pod's data x model ranks
+    # where FSDP cuts the state over data (gmf_pod), else the model group
+    if fsdp and not own:
+        row_group = mesh_group(mesh, ("data", shr.MODEL_AXIS))
+        row_owner = clip_owner
+    else:
+        row_group, row_owner = tp, None
 
     def step_fn(state: TrainState, batch):
-        layout = FlatLayout.of(state.params)
-        if tp is not None:
-            layout = layout.over(tp, sizes)
         with trace.annotate_scope("round.client_grads"):
-            (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
+            if own:  # each client's whole gradient from FSDP's gathers
+                (loss, _), grads = _value_and_grad(loss_fn, state.params, batch, dims)
+            else:
+                (loss, _), grads = _value_and_grad(loss_fn, state.params, batch)
         with torch.no_grad():
             with trace.annotate_scope("round.client_compress"):
+                # gmf_data: the client's whole gradient; else the rank's pieces
+                layout = FlatLayout.of(grads)
+                if row_group is not None:
+                    layout = layout.over(row_group, sizes, row_owner)
+                gbar_in, sstate_in = state.gbar, state.sstate
+                if own:  # the broadcast and the server state whole over data
+                    pieces = FlatLayout.of(state.params)
+                    gbar_in = _over_data(gbar_in, pieces, layout, dims, mesh, True)
+                    sstate_in = ServerState(*(_over_data(f, pieces, layout, dims, mesh, True)
+                                              for f in sstate_in))
+                if loss_groups and fsdp:  # gmf_pod: the pod's gradient, reduce-scattered
+                    grads = _psum_tree(grads, loss_groups, cut_groups, gathered)
                 # this shard's [1, N] row per dtype group
                 flat = layout.flatten(tree_map(lambda g: g.unsqueeze(0), grads))
                 del grads
                 if loss_groups:  # gmf_pod: the pod's gradient and loss
-                    flat = tree_map(lambda g: _psum_(g, loss_groups), flat)
+                    if not fsdp:
+                        flat = tree_map(lambda g: _psum_(g, loss_groups), flat)
                     loss = _psum_(loss, loss_groups)
-                G, cstate, infos = scheme.client_compress(state.cstate, flat, state.gbar,
+                G, cstate, infos = scheme.client_compress(state.cstate, flat, gbar_in,
                                                           state.step, layout=layout)
                 del flat
             with trace.annotate_scope("round.server_aggregate"):
@@ -443,9 +680,14 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                 if sync_group is not None:  # the one cross-shard collective
                     g_sum = tree_map(lambda x: _psum_(x, [sync_group]), g_sum)
                 lr = sgd.lr_at(state.step, tcfg)
-                gbar, sstate, ainfo = scheme.server_aggregate(state.sstate, g_sum, float(n),
+                gbar, sstate, ainfo = scheme.server_aggregate(sstate_in, g_sum, float(n),
                                                               layout=layout, lr=lr)
             update = layout.unflatten(gbar)
+            if own:  # this rank's data slice of the whole update, and of the state kept
+                update = _data_pieces(update, dims, mesh)
+                gbar = _over_data(gbar, layout, pieces, dims, mesh, False)
+                sstate = ServerState(*(_over_data(f, layout, pieces, dims, mesh, False)
+                                       for f in sstate))
             with trace.annotate_scope("round.apply_update"):
                 if scheme.owns_lr:
                     # FetchSGD (never over a model axis): lr already entered the
@@ -522,15 +764,6 @@ def make_serve_step(cfg, mesh=None):
 # ---------------------------------------------------------------------------
 
 
-def _check_paged(mesh) -> None:
-    """Refuse the paged steps at a model axis over 1: the pool cut over kv
-    heads (``sharding.pool_specs``) is ROADMAP Queue 1 item 11 part C2."""
-    if mesh is not None and axis_size(mesh, shr.MODEL_AXIS) > 1:
-        raise NotImplementedError(
-            f"the paged KV pool over a model axis of {axis_size(mesh, shr.MODEL_AXIS)} (its kv "
-            "heads cut by sharding.pool_specs) is not ported yet: ROADMAP Queue 1 item 11 part C2")
-
-
 def make_paged_prefill_step(cfg, codec, mesh=None, *, prompt_pad: int):
     """``prefill(params, tokens, pool, table_row, length) ->
     (next_token, last_logits, pool)``: admit one request into a slot.
@@ -545,8 +778,10 @@ def make_paged_prefill_step(cfg, codec, mesh=None, *, prompt_pad: int):
     ``codec.write_pages`` (junk K/V beyond ``length`` lands in pages the slot
     owns and stays masked until decode overwrites it). ``last_index`` is
     made on the device by a fill, so the step copies nothing from the host.
+    Over a mesh whose model axis is over 1 the pool holds the rank's kv
+    heads where they divide the axis (``sharding.pool_specs``) and the
+    logits come back whole.
     """
-    _check_paged(mesh)
     ctx_base = _model_ctx(cfg, mesh, want_cache=True, cache_len=prompt_pad, last_only=True)
 
     def write_one(pe, ke, ve, phys):
@@ -561,7 +796,7 @@ def make_paged_prefill_step(cfg, codec, mesh=None, *, prompt_pad: int):
         ctx = dict(ctx_base)
         ctx["last_index"] = scalar(length, tokens.device, torch.int64).reshape(1) - 1
         logits, _, kv = transformer.forward(cfg, params, {"tokens": tokens}, ctx=ctx)
-        last = logits[:, 0].float()  # (1, V)
+        last = _whole_logits(cfg, logits[:, 0].float(), ctx)  # (1, V)
         for pe, ce in zip(pool["groups"], kv["groups"], strict=True):
             for i in range(ce["k"].shape[0]):  # the stacked layers of the group
                 write_one({key: a[i] for key, a in pe.items()}, ce["k"][i], ce["v"][i],
@@ -583,15 +818,17 @@ def make_paged_serve_step(cfg, codec, mesh=None):
     slot i's token at position ``lengths[i]`` and attends over positions up
     to it. Inactive slots (length 0, table row all scratch) compute garbage
     that is never read back: completion is length bookkeeping on the host,
-    so the decode loop reads nothing back from the device.
+    so the decode loop reads nothing back from the device. Over a model
+    axis the attention runs on the rank's heads (its pool's) and the logits
+    come back whole.
     """
-    _check_paged(mesh)
     ctx = _model_ctx(cfg, mesh)
 
     @torch.no_grad()
     def serve(params, pool, tables, lengths, tokens):
         c = dict(ctx, paged={"tables": tables, "codec": codec})
         logits, pool = transformer.decode_step(cfg, params, pool, tokens, lengths, ctx=c)
+        logits = _whole_logits(cfg, logits, c)
         return torch.argmax(logits, dim=-1), logits, pool
 
     return serve

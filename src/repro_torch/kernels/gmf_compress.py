@@ -230,7 +230,11 @@ class SelectTable(NamedTuple):
     column, length, tiles of the leaf), the columns a row's. ``scratch``
     caches the split leaves' scratch per (rows, stream). ``n_group`` is
     None but in a group mode's table, where it counts the segments cut over
-    the group: the first ``n_group`` split leaves."""
+    the group: the first ``n_group`` split leaves. ``owners`` is None, or,
+    where some cut segment's piece is another rank's to count, its factor
+    on each cut segment's sums and histograms before they are summed over
+    the group: ``[n_group, 1]`` float64 and int32 device tensors of 1 (this
+    rank owns its piece) and 0."""
     table: torch.Tensor
     n_local: int
     n_split: int
@@ -238,12 +242,15 @@ class SelectTable(NamedTuple):
     plan: SelectPlan
     scratch: dict
     n_group: int | None = None
+    owners: tuple | None = None
 
 
-def select_table(plan: SelectPlan, device, group=None) -> SelectTable:
+def select_table(plan: SelectPlan, device, group=None, owners=None) -> SelectTable:
     """``plan``'s device table, for ``FlatLayout.select_plan`` to make once.
     ``group`` (a bool a leaf) makes the group mode's table: the flagged
-    leaves are split ones whatever their tile count, and come first."""
+    leaves are split ones whatever their tile count, and come first;
+    ``owners`` (a bool a leaf, default all) whether this rank's piece of a
+    flagged leaf counts in the group's sums."""
     counts = np.diff(plan.first)
     sizes = np.add.reduceat(plan.blocks[:, 2], plan.first[:-1]) if counts.size else counts
     offsets = np.cumsum(sizes) - sizes
@@ -264,8 +271,13 @@ def select_table(plan: SelectPlan, device, group=None) -> SelectTable:
     first = np.concatenate([[0], np.cumsum(counts[split])])
     local = np.stack([local, offsets[local], sizes[local]], axis=1)
     host = np.concatenate([local.reshape(-1), split, first, tiles.reshape(-1)]).astype(np.int64)
+    own = None
+    if group is not None and owners is not None and not np.asarray(owners, bool)[cut].all():
+        flags = np.asarray(owners, bool)[cut].reshape(-1, 1)
+        own = (torch.from_numpy(flags.astype(np.float64)).to(device),
+               torch.from_numpy(flags.astype(np.int32)).to(device))
     return SelectTable(torch.from_numpy(host).to(device), len(local), int(split.size),
-                       len(tiles), plan, {}, None if group is None else int(cut.sum()))
+                       len(tiles), plan, {}, None if group is None else int(cut.sum()), own)
 
 
 def _check_stack(name: str, *xs: torch.Tensor) -> None:
@@ -522,7 +534,8 @@ def _group_select(fn, plan: SelectTable, device, rows: int, group, fused: bool, 
     on the current stream, ``fn(step, pass, *make_args(partials, sums,
     histograms, states), stream)``; between them the cut segments' sums and
     each pass's histograms are all-reduced over ``group`` (None: a group of
-    one, nothing to sum). Counted as one ``gmf_select`` launch."""
+    one, nothing to sum), a segment whose piece this rank does not own
+    (``plan.owners``) zeroed first. Counted as one ``gmf_select`` launch."""
     import torch.distributed as dist
 
     stream = _stream(device)
@@ -531,7 +544,9 @@ def _group_select(fn, plan: SelectTable, device, rows: int, group, fused: bool, 
     args = make_args(part, sums, hist, state)
     summed = group is not None and plan.n_group > 0
 
-    def total(x) -> None:  # the cut segments' part of a scratch buffer, summed
+    def total(x, own) -> None:  # the cut segments' part of a scratch buffer, summed
+        if plan.owners is not None:  # [n_group, rows, ...]: the pieces others own count 0
+            x.view(plan.n_group, -1).mul_(own)
         dist.all_reduce(x, group=group)
         GROUP_SUMS[inst] = GROUP_SUMS.get(inst, 0) + 1
 
@@ -548,12 +563,12 @@ def _group_select(fn, plan: SelectTable, device, rows: int, group, fused: bool, 
             step(1)
             if summed:
                 off = rows * plan.n_tiles * 2
-                total(part_t[off:off + rows * plan.n_group * 2])
+                total(part_t[off:off + rows * plan.n_group * 2], plan.owners and plan.owners[0])
         for p in range(3):
             if fused or p > 0:
                 step(2, p)
             if summed:
-                total(buf[:rows * plan.n_group * 2048])
+                total(buf[:rows * plan.n_group * 2048], plan.owners and plan.owners[1])
             step(3, p)
         if not fused:
             step(4)

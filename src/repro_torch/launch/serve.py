@@ -21,6 +21,17 @@ the prompts come from the same seed through another stream. On the GPU
 the prefill's attention runs the K4 CUDA kernel (``models/attention.py``)
 in every family that has attention.
 
+A process started by ``torchrun`` joins that world (NCCL on ``cuda``,
+gloo on ``cpu``) and serves over a mesh, ``--mesh-shape`` (the
+reference's axes) or the reference's (n // 2, 2): its data axes of size 1
+(every rank serves every request), its model axis cutting the params by
+the reference's ``_TP_RULES`` and, in engine mode, the paged pool's kv
+heads (``sharding.pool_specs``). Every rank computes the same tokens; rank
+0 prints.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch llama3.2-1b \
+        --mode engine --mesh-shape 1,2 --requests 8 --prompt-len 2048 --gen 32
+
 The last stdout line is the JSON summary with the reference's keys. The
 timed prefill and the timed decode loop each hold no host sync and end in
 one ``torch.cuda.synchronize()``: the position advances on the device and
@@ -42,20 +53,23 @@ event file fails ``python -m repro.obs.report --strict``; this one passes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch import configs
+from repro_torch.dist import sharding as shr
 from repro_torch.dist import step as dstep
 from repro_torch.models import transformer
 from repro_torch.serve import ServeConfig, ServeEngine
-from repro_torch.utils import resolve_device
 
 
 class FixedRun(NamedTuple):
@@ -117,8 +131,7 @@ def run_fixed(cfg, params, args, device, mesh=None) -> FixedRun:
     over ``mesh`` (its data axes of size 1: every rank serves the whole
     batch) the steps carry the mesh: ``params`` are the rank's pieces and a
     model axis over 1 runs the forward tensor-parallel (the logits gathered
-    whole), and an MoE config runs the expert-parallel MoE at a model axis
-    of 1."""
+    whole), and an MoE config runs the expert-parallel MoE."""
     b = args.batch
     cache_len = args.cache_len or (args.prompt_len + args.gen)
     batch = prompt_batch(cfg, args.seed, b, args.prompt_len, device)
@@ -162,9 +175,10 @@ def run_fixed(cfg, params, args, device, mesh=None) -> FixedRun:
     return FixedRun(summary, gen, last_logits)
 
 
-def run_engine(cfg, params, args) -> dict:
+def run_engine(cfg, params, args, mesh=None) -> dict:
     """Continuous-batching engine over the paged cache, on the device of
-    ``params``; returns the reference's summary."""
+    ``params`` (over ``mesh``: the rank's pieces, ``ServeEngine``); returns
+    the reference's summary."""
     scfg = ServeConfig(
         max_slots=args.max_slots,
         page_size=args.page_size,
@@ -177,12 +191,12 @@ def run_engine(cfg, params, args) -> dict:
         # One short run first (the prefill and decode shapes are the timed
         # run's), so the timed run measures serving, not the kernels' build
         # and the libraries' first calls.
-        warm = ServeEngine(cfg, params, scfg)
+        warm = ServeEngine(cfg, params, scfg, mesh=mesh)
         warm.submit(np.zeros((min(4, scfg.prompt_pad),), np.int32), max_new_tokens=2)
         warm.run()
         del warm
 
-    eng = ServeEngine(cfg, params, scfg)
+    eng = ServeEngine(cfg, params, scfg, mesh=mesh)
     prompts = prompt_batch(cfg, args.seed, args.requests, args.prompt_len, "cpu")["tokens"]
     prompts = prompts.numpy().astype(np.int32)
     for i in range(args.requests):
@@ -247,6 +261,8 @@ def parser() -> argparse.ArgumentParser:
                     help="print tokens as generated (adds a device read per token)")
     ap.add_argument("--warmup", action="store_true",
                     help="engine mode: one short untimed run first")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="over a torchrun world: the mesh, e.g. 1,2 (data axes of size 1)")
     ap.add_argument("--obs", action="store_true",
                     help="enable the repro_torch.obs telemetry spine (JSONL events "
                          "+ metrics.prom/summary.json under --obs-dir)")
@@ -258,16 +274,32 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
-    device = resolve_device(args.device)
+    from repro_torch.launch.train import build_mesh, join_world
+
+    device = join_world(args.device)
+    mesh = build_mesh(args, device.type)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     params = init_params(cfg, args.seed, device)
+    if mesh is not None:
+        if any(mesh.shape[mesh.mesh_dim_names.index(a)] > 1 for a in shr.dp_axes(mesh)):
+            raise SystemExit(f"--mesh-shape {args.mesh_shape}: serving takes data axes of size 1 "
+                             f"(every rank serves every request)")
+        params = shr.local_tree(params, shr.named_shardings(mesh, shr.param_specs(
+            params, fsdp=dstep.needs_fsdp(cfg), mesh=mesh)))
+    if dist.is_initialized() and dist.get_rank() != 0:  # rank 0 prints
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _serve(args, cfg, params, device, mesh, argv)
+    return _serve(args, cfg, params, device, mesh, argv)
+
+
+def _serve(args, cfg, params, device, mesh, argv):
     if args.obs:
         obs.configure(args.obs_dir)
         obs.get().event("run_start", run=f"serve-{args.arch}", argv=argv, backend="serve",
                         mode=args.mode, wire=args.wire)
     try:
         if args.mode == "engine":
-            summary = run_engine(cfg, params, args)
+            summary = run_engine(cfg, params, args, mesh)
             obs.get().event("serve_summary",
                             requests=summary["requests"],
                             tokens_per_s=summary["tokens_per_s"],
@@ -275,7 +307,7 @@ def main(argv=None):
                             peak_pages=summary["peak_pages"],
                             page_pool_occupancy=summary["page_pool_occupancy"])
         else:
-            summary = run_fixed(cfg, params, args, device).summary
+            summary = run_fixed(cfg, params, args, device, mesh).summary
             obs.get().event("serve_summary", requests=args.batch,
                             tokens_per_s=summary["tokens_per_s"])
             obs.get().event("summary", **summary)

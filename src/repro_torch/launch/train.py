@@ -31,7 +31,10 @@ and ``--backend dist`` trains over a mesh: ``--mesh-shape`` with the
 reference's axes (``("pod", "data", "model")[-len(shape):]``), else the
 reference's (n // 2, 2) for an even n ranks and (n, 1) for an odd one. A
 model axis over 1 cuts the params over it (tensor parallelism, the
-reference's ``_TP_RULES``). A mesh smaller than the world runs on its
+reference's ``_TP_RULES``), and the >40 B archs (qwen2-vl-72b,
+command-r-plus-104b, kimi-k2-1t-a32b) cut them over ``data`` too on a
+data axis over 1 (FSDP, ``dist.step``). With ``--obs`` the health block's
+norms are the whole model's over the mesh. A mesh smaller than the world runs on its
 first ranks; the others wait for its result. Rank 0 prints, writes
 ``--metrics-out``, the checkpoint (the params gathered) and the telemetry;
 every rank returns rank 0's exit code. A single process with no world
@@ -444,7 +447,9 @@ def _train(args, ccfg, cfg, scheme, device, mesh):
     step_fn = dstep.make_train_step(cfg, tcfg, ccfg, mesh)
     b_sh = (shr.named_shardings(mesh, dstep.step_batch_specs(cfg, tcfg, mesh))
             if mesh is not None else None)
-    health_group = dstep.sync_group(args.grad_sync, mesh)
+    # the health block's norms: the whole model's over the mesh (every rank's
+    # rows and pieces, each piece once)
+    health_spans = dstep.health_spans(cfg, tcfg, mesh, state.params) if args.obs else None
     # wire accounting from the scheme's wire stage; dense sync ships fp32
     cost = CostModel() if args.grad_sync == "dense" else scheme.cost_model()
     history = []
@@ -495,7 +500,7 @@ def _train(args, ccfg, cfg, scheme, device, mesh):
                 sstate=state.sstate, bcast=state.gbar,
                 upload_nnz_mean=up_nnz, total_params=total_static,
                 target_rate=0.0 if args.grad_sync == "dense" else ccfg.rate,
-                group=health_group)
+                spans=health_spans)
         if step % args.log_every == 0 or step == args.steps - 1:
             extra = (f" up/shard={rec['upload_mb_per_shard']:.2f}MB "
                      f"bcast={rec['broadcast_mb']:.2f}MB vs dense={rec['dense_mb']:.2f}MB"

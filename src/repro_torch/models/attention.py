@@ -279,7 +279,7 @@ def init_kv_cache(cfg, batch, cache_len, dtype, device):
 
 
 def paged_decode_attention(params, cfg, entry, x_t, pos, *, tables, codec,
-                           window: int | None = None):
+                           window: int | None = None, tp=None):
     """One-token decode against a block-allocated paged KV pool.
 
     ``entry`` is one layer's pool entry (``codec``-owned dict: ``k``/``v``
@@ -296,11 +296,14 @@ def paged_decode_attention(params, cfg, entry, x_t, pos, *, tables, codec,
     pages hold exactly the ring cache's bytes, masked positions are exact
     zeros of the softmax, and the step is bitwise the fixed-batch one at the
     same extent (P·page_size keys). The new token's K/V are written into
-    ``entry`` in place. Returns (out (S, d_model), entry).
+    ``entry`` in place. ``tp`` as in ``decode_attention``: the pool holds
+    the kv heads the rank attends (its own where they divide the model
+    group, ``sharding.pool_specs``; every one where the projections are
+    gathered). Returns (out (S, d_model), entry).
     """
     b = x_t.shape[0]
     window = cfg.sliding_window if window is None else window
-    q, k, v = _project_qkv(params, cfg, x_t[:, None, :])
+    q, k, v = _project_qkv(params, cfg, x_t[:, None, :], tp)
     pos = torch.as_tensor(pos, device=x_t.device)
     pos_b = pos[:, None]  # (S, 1): per-slot absolute positions
     q, k = _rope_q_k(cfg, q, k, pos_b)
@@ -313,7 +316,8 @@ def paged_decode_attention(params, cfg, entry, x_t, pos, *, tables, codec,
     # (S, L, KV, D) with L = pages_per_slot · page_size, logical order
     k_all, v_all = codec.gather(entry, tables)
 
-    kv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    kv = k.shape[2]
+    g = q.shape[2] // kv
     qg = q.reshape(b, 1, kv, g, cfg.head_dim)
     scale = cfg.head_dim**-0.5
     scores = torch.einsum("btkgd,bskd->bkgts", qg, k_all).float() * scale
@@ -327,8 +331,7 @@ def paged_decode_attention(params, cfg, entry, x_t, pos, *, tables, codec,
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v_all)
-    out = out.reshape(b, cfg.q_dim) @ params["wo"]
-    return out, entry
+    return _out_proj(params, cfg, out.reshape(b, -1), tp), entry
 
 
 def decode_attention(params, cfg, cache, x_t, pos, *, window: int | None = None,

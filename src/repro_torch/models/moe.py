@@ -36,7 +36,18 @@ and f over the last data axis when ``fsdp_weights``). The all-to-all body
 cuts the sequence over ``model``, routes its tokens to every expert and
 exchanges the buffers (``all_to_all_single``, twice); the other body keeps
 the tokens whole and sums the ranks' partial outputs (``all_reduce``).
-Both return x's shape, whole on every model rank. ``combine_local`` adds
+Both return x's shape, whole on every model rank. Inside a forward under
+tensor parallelism (``tp``, the model group: the tokens reach the MoE
+replicated over it and every rank holds the same loss, Megatron's
+convention) the all-to-all body takes its slice of the sequence with
+``slice_to`` and the output is put back whole with ``gather_from``; the
+other body takes the tokens through ``copy_to`` and sums the ranks'
+partial outputs with ``reduce_from``; the router enters through
+``copy_to`` (each rank routes its own tokens, or weighs its own experts'
+gates), and the model ranks' auxes are averaged with ``reduce_from``. So
+the gradient of the replicated tokens and of the router comes back
+summed over the group once, as the transpose of the reference's
+``shard_map`` gives it. ``combine_local`` adds
 a token's k rows in the order the reference's scatter adds them (the
 sorted-expert order of ``dispatch_local``), with no atomics, so its bits
 do not depend on the schedule.
@@ -221,13 +232,24 @@ def _gathered_weights(params_loc, fsdp_axis):
     return w_g, w_u, w_d
 
 
-def moe_ep_a2a_body(params_loc, cfg, x_loc, *, model_axis, fsdp_axis, n_model: int):
+def _model_mean(aux, group, shared: bool):
+    """``aux`` averaged over the model group: its gradient summed over the
+    ranks (their shares of one loss), or, with ``shared`` (every rank holds
+    the same loss), passed to each rank as it is."""
+    if not shared:
+        return col.mean_over(aux, [group])
+    return col.reduce_from(aux, group) / col.size(group)
+
+
+def moe_ep_a2a_body(params_loc, cfg, x_loc, *, model_axis, fsdp_axis, n_model: int,
+                    shared: bool = False):
     """All-to-all expert parallelism: ``x_loc`` (Bl, Tl, d) is this rank's
     slice of the sequence; it routes its tokens to ALL global experts
     through a per-source capacity buffer, one exchange over ``model_axis``
     (the model group) ships each expert's rows to its owner, the local
     grouped GEMMs run, and the reverse exchange returns the outputs.
-    ``fsdp_axis`` is the FSDP group or None."""
+    ``fsdp_axis`` is the FSDP group or None; ``shared`` as in
+    ``_model_mean``."""
     bl, tl, d = x_loc.shape
     xf = x_loc.reshape(bl * tl, d)
     eids, gates, aux = router_topk(params_loc, cfg, xf)
@@ -244,15 +266,16 @@ def moe_ep_a2a_body(params_loc, cfg, x_loc, *, model_axis, fsdp_axis, n_model: i
     y_buf = y_buf.reshape(e_loc, n_model, cap, d).transpose(0, 1).contiguous()
     y_buf = col.exchange(y_buf, model_axis).reshape(e, cap, d)
     y = combine_local(y_buf, tok_s, p_idx, keep, e_idx, gate_s, bl * tl)
-    aux = col.mean_over(aux, [model_axis])
+    aux = _model_mean(aux, model_axis, shared)
     return y.reshape(bl, tl, d), aux
 
 
-def moe_ep_body(params_loc, cfg, x_loc, rank, *, model_axis, fsdp_axis):
+def moe_ep_body(params_loc, cfg, x_loc, rank, *, model_axis, fsdp_axis, shared: bool = False):
     """Replicated-token expert parallelism: ``x_loc`` (Bl, T, d) whole on
     every model rank; this rank (``rank``, its index in ``model_axis``, the
     model group) runs its experts' share of the assignments and the
-    partial outputs are summed over the group."""
+    partial outputs are summed over the group (``shared``: with
+    ``reduce_from``, and ``_model_mean``)."""
     bl, t, d = x_loc.shape
     xf = x_loc.reshape(bl * t, d)
     eids, gates, aux = router_topk(params_loc, cfg, xf)
@@ -263,13 +286,13 @@ def moe_ep_body(params_loc, cfg, x_loc, rank, *, model_axis, fsdp_axis):
         xf, eids, gates, int(rank) * e_loc, e_loc, cap)
     y_buf = _expert_ffn(buf, w_g, w_u, w_d)
     y = combine_local(y_buf, tok_s, p_idx, keep, e_idx, gate_s, bl * t)
-    y = col.sum_over(y, model_axis)
-    aux = col.mean_over(aux, [model_axis])
+    y = col.reduce_from(y, model_axis) if shared else col.sum_over(y, model_axis)
+    aux = _model_mean(aux, model_axis, shared)
     return y.reshape(bl, t, d), aux
 
 
 def moe_ep(params, cfg, x, *, mesh, data_axes, model_axis: str, fsdp_weights: bool,
-           already_manual=frozenset()):
+           already_manual=frozenset(), tp=None):
     """Expert-parallel MoE over ``mesh`` (a ``DeviceMesh``). ``params``
     holds this rank's expert pieces, ``x`` (Bl, T, d) its tokens.
     ``data_axes``: mesh axes the batch is laid over; ``model_axis``: the EP
@@ -280,7 +303,10 @@ def moe_ep(params, cfg, x, *, mesh, data_axes, model_axis: str, fsdp_weights: bo
     Takes the all-to-all body when the sequence and the experts divide the
     model axis (training, prefill), else the all-reduce body (decode at
     T == 1 on a model axis > 1), as the reference chooses. ``aux`` is
-    averaged over ``model`` and the data axes not ``already_manual``."""
+    averaged over ``model`` and the data axes not ``already_manual``.
+    ``tp`` (the model group, inside a forward under tensor parallelism):
+    ``x`` is replicated over it under Megatron's convention (the module
+    docstring)."""
     already_manual = frozenset(already_manual)
     fsdp_name = data_axes[-1] if fsdp_weights else None
     if fsdp_name is not None and fsdp_name in already_manual:
@@ -291,17 +317,22 @@ def moe_ep(params, cfg, x, *, mesh, data_axes, model_axis: str, fsdp_weights: bo
     fsdp = mesh.get_group(fsdp_name) if fsdp_name is not None else None
     inner = [mesh.get_group(a) for a in reversed(data_axes) if a not in already_manual]
     seq_len = x.shape[1]
+    shared = tp is not None and n_model > 1
+    if shared:  # the router replicated over the model group: its gradient summed once
+        params = dict(params, router=col.copy_to(params["router"], model))
     if seq_len % n_model == 0 and cfg.num_experts % n_model == 0:
         # sequence-sharded dispatch + all_to_all exchange (training/prefill)
         t = seq_len // n_model
         r = col.rank(model)
-        y, aux = moe_ep_a2a_body(params, cfg, x[:, r * t:(r + 1) * t], model_axis=model,
-                                 fsdp_axis=fsdp, n_model=n_model)
-        y = col.gather_cat(y, model, 1)  # the whole sequence on every model rank
+        x_loc = col.slice_to(x, model, 1) if shared else x[:, r * t:(r + 1) * t]
+        y, aux = moe_ep_a2a_body(params, cfg, x_loc, model_axis=model, fsdp_axis=fsdp,
+                                 n_model=n_model, shared=shared)
+        # the whole sequence on every model rank
+        y = col.gather_from(y, model, 1) if shared else col.gather_cat(y, model, 1)
     else:
         # replicated-token + all-reduce combine (decode: T == 1)
-        y, aux = moe_ep_body(params, cfg, x, col.rank(model), model_axis=model,
-                             fsdp_axis=fsdp)
+        y, aux = moe_ep_body(params, cfg, col.copy_to(x, model) if shared else x,
+                             col.rank(model), model_axis=model, fsdp_axis=fsdp, shared=shared)
     if inner:
         aux = col.mean_over(aux, inner)
     return y, aux

@@ -42,8 +42,20 @@ holds the block ``tables`` and the ``codec``; ``pos`` is then the per-slot
 
 Over a mesh (``ctx["mesh"]``, set by ``dist/step.py:_model_ctx``) an MoE
 config with ``moe_impl="ep"`` runs ``moe.moe_ep`` on the rank's local
-tokens, as the reference does; inside the forward at a ``model`` axis
-larger than 1 it raises (ROADMAP Queue 1 item 11 part C2).
+tokens, as the reference does; at a ``model`` axis over 1 the tokens
+reach it replicated over the model group (``moe_ep(..., tp=...)``).
+
+FSDP: ``ctx["fsdp"]`` (an ``FsdpCtx``, set by ``_model_ctx`` for the
+>40 B archs on a ``data`` axis over 1) holds the data group and each
+leaf's dim cut over it. A layer's pieces are gathered just before the
+layer runs, the embedding before the lookup and the unembedding before
+the logits (``collectives.fsdp_gather``); the blocks see the leaves as
+tensor parallelism alone would cut them. Under ``cfg.remat`` the gather
+runs inside the layer group's checkpoint, so the backward gathers the
+group again and a training step holds one group's whole leaves at a time,
+as the reference's checkpointed scan does; without remat autograd keeps
+each gathered leaf for the backward, as it keeps the activations. The expert leaves are left to
+``moe_ep`` where it runs, which gathers them itself.
 
 Tensor parallelism: ``ctx["tp"]`` (the mesh's model group, set by
 ``_model_ctx`` when the model axis is over 1) with params that are the
@@ -63,12 +75,12 @@ are and the serving steps gather (``dist/step.py``).
 from __future__ import annotations
 
 import functools
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch.launch.mesh import axis_size
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.utils import collectives as col
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
@@ -121,6 +133,61 @@ def _write(cache, new):
     be a view into the stacked group cache)."""
     for key, val in new.items():
         cache[key].copy_(val)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a layer's pieces gathered at its use
+# ---------------------------------------------------------------------------
+
+
+class FsdpCtx(NamedTuple):
+    """FSDP in a forward: ``group`` the data group the pieces are cut over,
+    ``dims`` a tree mirroring the params (each leaf's dim cut over the
+    group, counted from the right, or None), ``sink`` None (the ranks'
+    gradients are shares of one loss) or a dict (each rank its own client:
+    ``collectives.fsdp_gather``, keyed by (id of the param leaf, layer))."""
+
+    group: Any
+    dims: Any
+    sink: dict | None = None
+
+
+def _whole(tree, dims, fs, i=None):
+    """``tree``'s leaves (layer ``i`` of each stacked leaf, or the leaves
+    themselves) with their FSDP pieces gathered over ``fs.group``."""
+    out = {}
+    for k, a in tree.items():
+        d = dims.get(k) if dims is not None else None
+        if isinstance(a, dict):
+            out[k] = _whole(a, d, fs, i)
+            continue
+        x = a if i is None else a[i]
+        if d is not None:
+            x = col.fsdp_gather(x, fs.group, d, fs.sink, (id(a), i))
+        out[k] = x
+    return out
+
+
+def _edge(params, name, fs):
+    """``params[name]`` (the embedding or the unembedding), gathered under
+    FSDP."""
+    if fs is None or not params[name]:
+        return params[name]
+    return _whole(params[name], fs.dims[name], fs)
+
+
+def _layer(params, p_idx, i, fs):
+    """Layer ``i`` of pattern position ``p_idx``: views of the stacked
+    leaves, gathered under FSDP."""
+    if fs is None:
+        return _group(params["layers"][p_idx], i)
+    return _whole(params["layers"][p_idx], fs.dims["layers"][p_idx], fs, i)
+
+
+def _tail(params, t, fs):
+    if fs is None:
+        return params["tail"][t]
+    return _whole(params["tail"][t], fs.dims["tail"][t], fs)
 
 
 # ---------------------------------------------------------------------------
@@ -181,21 +248,16 @@ def _ffn(params, cfg, x, ctx):
     """FFN half of an attn block: SwiGLU or routed MoE. Returns (y, aux)."""
     if _uses_moe(cfg):
         if ctx.get("moe_impl", cfg.moe_impl) == "ep" and ctx.get("mesh") is not None:
-            mesh = ctx["mesh"]
-            if axis_size(mesh, "model") > 1:
-                raise NotImplementedError(
-                    f"the expert-parallel MoE inside the forward on a mesh whose model axis is "
-                    f"{axis_size(mesh, 'model')} is not ported yet: ROADMAP Queue 1 item 11 "
-                    "part C2 (moe_impl='dense' runs there)")
             return moe.moe_ep(
                 params["moe"],
                 cfg,
                 x,
-                mesh=mesh,
+                mesh=ctx["mesh"],
                 data_axes=ctx["data_axes"],
                 model_axis=ctx["model_axis"],
                 fsdp_weights=ctx.get("fsdp_moe", False),
                 already_manual=ctx.get("already_manual", frozenset()),
+                tp=ctx.get("tp"),
             )
         return moe.moe_dense(params["moe"], cfg, x, ctx.get("token_groups", ()),
                              tp=tp_over(ctx, params["moe"]["w_gate"], cfg.num_experts, 0))
@@ -281,6 +343,7 @@ def block_decode(params, cfg, block_type, cache, x_t, pos, ctx):
                 tables=paged["tables"],
                 codec=paged["codec"],
                 window=window,
+                tp=ctx.get("tp"),
             )
         else:
             h, cache = attention.decode_attention(
@@ -434,11 +497,13 @@ def _remat_context(cfg):
     return _ckpt.noop_context_fn
 
 
-def _group_body(params, cfg, pattern, i, x, ctx):
-    """Layer group ``i``'s blocks in pattern order -> (x, summed aux)."""
+def _group_body(params, i, cfg, pattern, x, ctx):
+    """Layer group ``i``'s blocks in pattern order -> (x, summed aux). The
+    group's leaves are taken (FSDP: gathered) here, inside the checkpoint,
+    so remat gathers them again for the backward instead of keeping them."""
     aux = _zero(x)
     for p_idx, bt in enumerate(pattern):
-        x, a, _ = block_forward(_group(params["layers"][p_idx], i), cfg, bt, x, ctx)
+        x, a, _ = block_forward(_layer(params, p_idx, i, ctx.get("fsdp")), cfg, bt, x, ctx)
         aux = aux + a
     return x, aux
 
@@ -450,8 +515,10 @@ def forward(cfg, params, batch, *, ctx=None):
     positions, window, last_only, last_index.
     """
     ctx = dict(ctx or {})
-    vocab_tp = _vocab_tp(cfg, params, ctx)
-    x, extras = embed_inputs(cfg, params, batch, vocab_tp)
+    fs = ctx.get("fsdp")
+    edges = dict(params, embed=_edge(params, "embed", fs))
+    vocab_tp = _vocab_tp(cfg, edges, ctx)
+    x, extras = embed_inputs(cfg, edges, batch, vocab_tp)
     ctx.update(extras)
     pattern, n_groups, tail = pattern_info(cfg)
     want_cache = ctx.get("want_cache", False)
@@ -461,19 +528,19 @@ def forward(cfg, params, batch, *, ctx=None):
     remat = cfg.remat and not want_cache and layers.remat_active(x)
     for i in range(n_groups):
         if remat:
-            x, a = _ckpt.checkpoint(_group_body, params, cfg, pattern, i, x, ctx,
+            x, a = _ckpt.checkpoint(_group_body, params, i, cfg, pattern, x, ctx,
                                     use_reentrant=False, context_fn=_remat_context(cfg))
             aux = aux + a
             continue
         for p_idx, bt in enumerate(pattern):
-            x, a, c = block_forward(_group(params["layers"][p_idx], i), cfg, bt, x, ctx)
+            x, a, c = block_forward(_layer(params, p_idx, i, fs), cfg, bt, x, ctx)
             aux = aux + a
             per_pos[p_idx].append(c)
     group_caches = tuple(_stack(cs) if want_cache else {} for cs in per_pos) \
         if n_groups > 0 else ()
     tail_caches = []
-    for tp, bt in zip(params["tail"], tail, strict=True):
-        x, a, c = block_forward(tp, cfg, bt, x, ctx)
+    for t, bt in enumerate(tail):
+        x, a, c = block_forward(_tail(params, t, fs), cfg, bt, x, ctx)
         aux = aux + a
         tail_caches.append(c)
 
@@ -489,7 +556,8 @@ def forward(cfg, params, batch, *, ctx=None):
             x = torch.take_along_dim(x, idx, dim=1)
         else:
             x = x[:, -1:, :]
-    logits = unembed_logits(cfg, params, x, vocab_tp)
+    edges["unembed"] = _edge(params, "unembed", fs)
+    logits = unembed_logits(cfg, edges, x, vocab_tp)
     cache = {"groups": group_caches, "tail": tuple(tail_caches)} if want_cache else None
     return logits, aux, cache
 
@@ -518,21 +586,24 @@ def decode_step(cfg, params, cache, tokens, pos, *, ctx=None):
     per-slot (B,) positions). The cache is updated in place.
     Returns (logits (B, V) or (B, K, V), cache)."""
     ctx = dict(ctx or {})
-    vocab_tp = _vocab_tp(cfg, params, ctx)
+    fs = ctx.get("fsdp")
+    edges = dict(params, embed=_edge(params, "embed", fs))
+    vocab_tp = _vocab_tp(cfg, edges, ctx)
     if cfg.family == "audio":
-        x = _embed_codebooks(cfg, params, tokens, vocab_tp)
+        x = _embed_codebooks(cfg, edges, tokens, vocab_tp)
     else:
-        x = layers.embed(params["embed"], tokens, vocab_tp)
+        x = layers.embed(edges["embed"], tokens, vocab_tp)
     x = x.to(layers.dtype_of(cfg.dtype))
     pattern, n_groups, tail = pattern_info(cfg)
     for i in range(n_groups):
         for p_idx, bt in enumerate(pattern):
-            x, _ = block_decode(_group(params["layers"][p_idx], i), cfg, bt,
+            x, _ = block_decode(_layer(params, p_idx, i, fs), cfg, bt,
                                 _group(cache["groups"][p_idx], i), x, pos, ctx)
-    for tp, bt, tc in zip(params["tail"], tail, cache["tail"], strict=True):
-        x, _ = block_decode(tp, cfg, bt, tc, x, pos, ctx)
+    for t, (bt, tc) in enumerate(zip(tail, cache["tail"], strict=True)):
+        x, _ = block_decode(_tail(params, t, fs), cfg, bt, tc, x, pos, ctx)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    edges["unembed"] = _edge(params, "unembed", fs)
     if cfg.family == "audio":
         return torch.einsum("bd,kdv->bkv", col.copy_to(x, vocab_tp),
-                            params["unembed"]["kernel"]), cache
-    return unembed_logits(cfg, params, x, vocab_tp), cache
+                            edges["unembed"]["kernel"]), cache
+    return unembed_logits(cfg, edges, x, vocab_tp), cache

@@ -30,43 +30,73 @@ copied to the host with one device read; callers only invoke it when
 telemetry is enabled. The norms are float32 sums in another order than
 XLA's, so they agree with the JAX package's within float32 rounding,
 not bitwise.
+
+Over a mesh each rank holds rows of the stacks (its clients) and pieces of
+the leaves (tensor parallelism, FSDP). The reference's norms are of its
+global arrays, the whole model's. ``spans`` (``dist.step.health_spans``)
+says how each field lies over the ranks: its segments, the group they are
+summed over and, per segment, whether it is cut and whether this rank's
+piece counts (owner flags: a piece several ranks hold alike counts once).
+The norm is then ``optim.sgd.global_norm`` of the segments: the same
+once-counting as the optimiser's clip.
 """
 
 from __future__ import annotations
 
+from typing import Any, Callable, NamedTuple
+
 import numpy as np
 import torch
-import torch.distributed
+import torch.distributed as dist
 
+from repro_torch.optim.sgd import global_norm
 from repro_torch.utils import tree_any_nan, tree_l2_norm, tree_leaves
 
 
-def _norm(tree, device) -> torch.Tensor:
-    """Global L2 norm of a state field (0.0 for an empty one), on ``device``."""
+class NormSpan(NamedTuple):
+    """How a flat state field lies over ranks: ``segments(field)`` its
+    per-leaf segments, the ``group`` their squares are summed over, and per
+    segment whether it is ``cut`` (summed over the group) and whether this
+    rank's piece counts (``owner``)."""
+
+    segments: Callable
+    group: Any
+    cut: tuple
+    owner: tuple
+
+
+def _norm(tree, device, span=None) -> torch.Tensor:
+    """Global L2 norm of a state field (0.0 for an empty one), on ``device``:
+    of the whole field over the ranks under ``span`` (a collective)."""
     if not tree_leaves(tree):
         return torch.zeros((), dtype=torch.float32, device=device)
-    return tree_l2_norm(tree)
+    if span is None:
+        return tree_l2_norm(tree)
+    return global_norm(span.segments(tree), span.group, span.cut, span.owner)
 
 
-def compensation_norms(cstates, sstate, bcast, gmom=None, group=None) -> dict:
+def compensation_norms(cstates, sstate, bcast, gmom=None, spans=None) -> dict:
     """Norms of every compensation-state component, as python floats.
 
     ``cstates`` may be the per-client stacked state (the norm is then
     over the whole stack) or a single client's state; empty-dict fields
-    (schemes that don't use them) report 0.0. ``bcast_finite`` is the
-    NaN/Inf check on the broadcast. With ``group`` (a process group whose
-    ranks each hold rows of the stack, the trainer's sync axis over a mesh)
-    the client-state norms are over every rank's rows: the squares are
-    summed over the group (a collective: every rank calls it)."""
+    (schemes that don't use them) report 0.0. ``broadcast_finite`` is the
+    NaN/Inf check on the broadcast. With ``spans`` (``{"client": NormSpan,
+    "server": NormSpan}``, the trainer's state over a mesh) the client
+    state's norms and the server momentum's and the broadcast's are the
+    whole model's over every rank's rows and pieces, and ``broadcast_finite``
+    is False on every rank where any rank's piece of the broadcast is not
+    finite (collectives: every rank calls it)."""
     gmom = {} if gmom is None else gmom
+    spans = spans or {}
     device = tree_leaves(bcast)[0].device
-    client = [_norm(x, device) for x in (cstates.u, cstates.v, cstates.m)]
-    if group is not None:
-        sq = torch.stack(client) ** 2
-        torch.distributed.all_reduce(sq, group=group)
-        client = list(torch.sqrt(sq))
-    parts = client + [_norm(x, device) for x in (sstate.momentum, gmom, bcast)]
-    parts.append(tree_any_nan(bcast).to(device=device, dtype=torch.float32))
+    client = [_norm(x, device, spans.get("client")) for x in (cstates.u, cstates.v, cstates.m)]
+    server = [_norm(x, device, spans.get("server")) for x in (sstate.momentum, bcast)]
+    parts = client + [server[0], _norm(gmom, device), server[1]]
+    bad = tree_any_nan(bcast).to(device=device, dtype=torch.float32).reshape(1)
+    if "server" in spans:  # a NaN in any rank's piece of the broadcast
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=spans["server"].group)
+    parts.append(bad[0])
     u, v, m, sm, gm, b, bad = torch.stack(parts).cpu().tolist()  # the one device read
     return {
         "residual_u_norm": float(u),
@@ -116,7 +146,7 @@ def record_round_health(rec, *, round_idx: int, cstates, sstate, bcast,
                         gmom=None, upload_nnz_mean: float = 0.0,
                         total_params: float = 0.0,
                         target_rate: float = 0.0,
-                        tier: str | None = None, group=None) -> dict:
+                        tier: str | None = None, spans=None) -> dict:
     """Compute the per-round health block, push it through the recorder
     (gauges + one ``health`` event), and trip an ``anomaly`` event when
     the broadcast carries NaN/Inf. Returns the block.
@@ -124,8 +154,8 @@ def record_round_health(rec, *, round_idx: int, cstates, sstate, bcast,
     ``tier`` namespaces the gauges (``health.<tier>.*``) and tags the
     ``health`` event — the hierarchical topology records the aggregator
     tier's compensation state alongside the leaf tier's default block.
-    ``group`` as in ``compensation_norms``."""
-    block = compensation_norms(cstates, sstate, bcast, gmom=gmom, group=group)
+    ``spans`` as in ``compensation_norms``."""
+    block = compensation_norms(cstates, sstate, bcast, gmom=gmom, spans=spans)
     block.update(compression_ratio(upload_nnz_mean, total_params, target_rate))
     prefix = f"health.{tier}." if tier else "health."
     for key, val in block.items():

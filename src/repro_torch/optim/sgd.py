@@ -11,9 +11,11 @@ computes it in float32, op for op), the step is taken in float32 and cast
 back to each param's dtype, and the Python coefficients round to the dtype
 of the array they scale, as JAX's weakly typed scalars do.
 
-Under tensor parallelism (``group``, the model group, and ``cut``, which
-leaves are the rank's pieces) the clip's global norm sums the cut leaves'
-squares over the group and counts the replicated ones once.
+Under tensor parallelism or FSDP (``group``, the ranks the leaves are cut
+over, ``cut``, which leaves are the rank's pieces, and ``owner``, whether
+this rank's piece of a cut leaf counts: False where another rank of the
+group holds the same piece) the clip's global norm sums the cut leaves'
+squares over the group and counts the whole ones once.
 """
 
 from __future__ import annotations
@@ -48,9 +50,10 @@ def apply_updates(
     nesterov: bool = False,
     group=None,
     cut=None,
+    owner=None,
 ):
     if grad_clip > 0.0:
-        norm = global_norm(grads, group, cut)
+        norm = global_norm(grads, group, cut, owner)
         scale = torch.clamp(grad_clip / (norm + 1e-12), max=1.0)
         grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
     if weight_decay > 0.0:
@@ -72,15 +75,18 @@ def apply_updates(
     return params, state
 
 
-def global_norm(grads, group=None, cut=None) -> torch.Tensor:
+def global_norm(grads, group=None, cut=None, owner=None) -> torch.Tensor:
     """The L2 norm of the whole gradient (float32 device scalar): the
     leaves' own, or with ``group`` the cut leaves' squares (``cut`` a bool
-    a leaf) summed over the group beside the replicated ones'."""
+    a leaf) summed over the group beside the whole ones'; a cut leaf whose
+    ``owner`` flag is False (another rank's piece to count) adds zero."""
     if group is None or not any(cut):
         return tree_l2_norm(grads)
     leaves = tree_leaves(grads)
+    owner = (True,) * len(leaves) if owner is None else owner
     squares = [torch.sum(torch.square(x.float())) for x in leaves]
-    part = sum(q for q, c in zip(squares, cut, strict=True) if c).reshape(1)
+    part = sum(q if o else torch.zeros_like(q)
+               for q, c, o in zip(squares, cut, owner, strict=True) if c).reshape(1)
     dist.all_reduce(part, group=group)
     rest = [q for q, c in zip(squares, cut, strict=True) if not c]
     return torch.sqrt(part[0] + sum(rest)) if rest else torch.sqrt(part[0])

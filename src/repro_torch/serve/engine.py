@@ -130,11 +130,15 @@ def _pinned(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class ServeEngine:
     """Host-side scheduler over the paged prefill/decode steps, on the
-    device of ``params``. Over a ``mesh`` (model axis 1) the pool is laid
-    out by ``dist.sharding.pool_specs`` (this rank's piece: the whole pool)
-    and the steps carry the mesh, so an MoE config's ticks and admissions
-    run the expert-parallel MoE. A model axis over 1 raises (the pool over
-    kv heads: ROADMAP Queue 1 item 11 part C2)."""
+    device of ``params``. Over a ``mesh`` the pool is laid out by
+    ``dist.sharding.pool_specs`` (this rank's piece: its kv heads, and the
+    int8 codec's scales with them, where they divide the model axis; else
+    the whole pool) and the steps carry the mesh: ``params`` are the rank's
+    pieces (``sharding.local_tree`` of ``param_specs``), the attention runs
+    on the rank's heads, the logits come back whole, and an MoE config's
+    ticks and admissions run the expert-parallel MoE. The tables,
+    positions and tokens are the same on every rank: every rank submits the
+    same requests, and a tick reads nothing more from the device."""
 
     def __init__(self, cfg, params, scfg: ServeConfig, mesh=None):
         self.cfg = cfg

@@ -104,6 +104,35 @@ def gather_cat(x, group, dim: int):
     return _GatherCat.apply(x, group, dim)
 
 
+class _ClientGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, sink, key):
+        ctx.sink, ctx.key = sink, key
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        sink, key = ctx.sink, ctx.key
+        sink[key] = grad if key not in sink else sink[key] + grad
+        return None, None, None, None, None
+
+
+def fsdp_gather(x, group, dim: int, sink=None, key=None):
+    """A param's FSDP pieces made whole along ``dim`` (every rank's piece in
+    rank order), just before a layer uses it. Without ``sink`` it is
+    ``gather_cat``: the backward sums the ranks' gradients and gives each
+    rank its slice (a reduce-scatter), the gradient of the ranks' summed
+    shares of one loss (dense sync, and a pod's data ranks under gmf_pod).
+    With ``sink`` (a dict) each rank is its own client and needs its own
+    whole gradient: the backward writes it to ``sink[key]`` (summed over
+    the uses of one key), takes no collective and gives ``x`` none. Both
+    are plain autograd nodes, so a checkpoint that recomputes the forward
+    gathers again instead of keeping the whole leaf."""
+    if sink is None:
+        return gather_cat(x, group, dim)
+    return _ClientGather.apply(x, group, dim, sink, key)
+
+
 # ---------------------------------------------------------------------------
 # Tensor parallelism (Megatron's operators over a model group)
 # ---------------------------------------------------------------------------

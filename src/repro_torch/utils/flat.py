@@ -30,14 +30,20 @@ model with float32 routers or gates) has a ``GroupedLayout``: one
 ``tree_leaves`` order, and every flat quantity is a tuple of one stack per
 group. ``FlatLayout.of`` returns whichever the tree needs.
 
-Under tensor parallelism a rank's tree holds its pieces of leaves cut over
-the mesh's model group: ``layout.over(group, full_sizes)`` is the layout
+Under tensor parallelism, and FSDP, a rank's tree holds its pieces of
+leaves cut over a group of ranks (the mesh's model group, or a pod's data
+× model ranks): ``layout.over(group, full_sizes, owners)`` is the layout
 of those pieces that also knows each segment's whole size (``full_sizes``)
 and whether it is cut (``cut_flags``). Its keep counts come from the whole
 sizes; a cut segment's norms are summed over the group and its threshold
 is that of the whole leaf (``gmf_select``'s group mode on the card, an
 all-gather and ``torch.topk`` on the CPU); ``nnz`` counts a cut segment's
-entries over the group and a replicated one's once.
+entries over the group and a whole one's once. A segment cut over only
+some of the group's axes (a leaf FSDP leaves whole, cut over the model
+axis alone) is held alike by several ranks of the group (``shared_flags``,
+the same on every rank): only one of them owns it (``owner_flags``, this
+rank's), and the others' pieces count zero in every sum and are left out
+of every gather over the group, so it counts once.
 """
 
 from __future__ import annotations
@@ -95,27 +101,58 @@ class FlatLayout:
         self.full_sizes = self.sizes
         self.full_total = self.total
         self.cut_flags = (False,) * self.num_leaves
+        self.owner_flags = (True,) * self.num_leaves
+        self.shared_flags = (False,) * self.num_leaves
+        self._owner_mask = None
         self._over: dict = {}
 
-    def over(self, group, full_sizes) -> FlatLayout:
+    def over(self, group, full_sizes, owners=None) -> FlatLayout:
         """This layout as the rank's pieces of leaves whose whole sizes are
         ``full_sizes``, a segment cut over ``group`` where its size differs
-        (made once per group and sizes). A group of one, or no segment cut,
-        gives this layout itself."""
+        (made once per group, sizes and owners). ``owners`` (a bool a leaf,
+        default all) says which cut segments this rank's piece counts for:
+        False where another rank of the group holds the same piece (a
+        segment some rank does not own is ``shared``: the ranks agree on
+        that in one all-reduce when the layout is made, a collective of the
+        group). A group of one, or no segment cut, gives this layout
+        itself."""
         full_sizes = tuple(int(n) for n in full_sizes)
         if len(full_sizes) != self.num_leaves:
             raise ValueError(f"{len(full_sizes)} whole sizes for {self.num_leaves} leaves")
         cut = tuple(f != n for f, n in zip(full_sizes, self.sizes, strict=True))
         if group is None or dist.get_world_size(group) == 1 or not any(cut):
             return self
-        key = (group, full_sizes)  # the group itself: its id is not reused while held
+        owners = (True,) * self.num_leaves if owners is None else tuple(bool(o) for o in owners)
+        if len(owners) != self.num_leaves:
+            raise ValueError(f"{len(owners)} owner flags for {self.num_leaves} leaves")
+        key = (group, full_sizes, owners)  # the group itself: its id is not reused while held
         if key not in self._over:
             out = copy.copy(self)
             out.group, out.full_sizes, out.cut_flags = group, full_sizes, cut
+            out.owner_flags = tuple(o or not c for o, c in zip(owners, cut, strict=True))
+            others = torch.tensor([int(not o) for o in out.owner_flags], dtype=torch.int64,
+                                  device=self.device)
+            dist.all_reduce(others, group=group)  # ranks that do not own their piece
+            out.shared_flags = tuple(bool(x) for x in others.tolist())
             out.full_total = sum(full_sizes)
-            out._keep, out._select_group, out._over = {}, None, {}
+            out._keep, out._select_group, out._over, out._owner_mask = {}, None, {}, None
             self._over[key] = out
         return self._over[key]
+
+    @property
+    def shared(self) -> bool:
+        """Whether some cut segment is held alike by several ranks of the
+        group (the same on every rank)."""
+        return any(self.shared_flags)
+
+    def owner_mask(self) -> torch.Tensor:
+        """The owner flags of the cut segments, in leaf order, as a float32
+        device tensor (made once): the factor of their sums over the group."""
+        if self._owner_mask is None:
+            self._owner_mask = torch.tensor(
+                [float(o) for o, c in zip(self.owner_flags, self.cut_flags, strict=True) if c],
+                dtype=torch.float32, device=self.device)
+        return self._owner_mask
 
     @property
     def cut(self) -> bool:
@@ -129,10 +166,16 @@ class FlatLayout:
         n = torch.count_nonzero(x, dim=-1)
         if not self.cut:
             return n
+        segs = self.segments(x)
         whole = [torch.count_nonzero(seg, dim=-1) for seg, cut in
-                 zip(self.segments(x), self.cut_flags, strict=True) if not cut]
+                 zip(segs, self.cut_flags, strict=True) if not cut]
         rep = sum(whole) if whole else torch.zeros_like(n)
-        part = (n - rep).contiguous()
+        if self.shared:  # the cut segments this rank owns
+            own = [torch.count_nonzero(seg, dim=-1) for seg, cut, o in
+                   zip(segs, self.cut_flags, self.owner_flags, strict=True) if cut and o]
+            part = (sum(own) if own else torch.zeros_like(n)).contiguous()
+        else:
+            part = (n - rep).contiguous()
         dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
         return part + rep
 
@@ -206,7 +249,8 @@ class FlatLayout:
         plan = lambda: gk.plan_select(self.sizes, gk.select_tile(self.sizes))  # noqa: E731
         if group:
             if self._select_group is None:
-                self._select_group = gk.select_table(plan(), self.device, group=self.cut_flags)
+                self._select_group = gk.select_table(plan(), self.device, group=self.cut_flags,
+                                                     owners=self.owner_flags)
             return self._select_group
         if self._select is None:
             self._select = gk.select_table(plan(), self.device)
@@ -269,15 +313,16 @@ class GroupedLayout:
         self.num_leaves = len(leaves)
         self._over: dict = {}
 
-    def over(self, group, full_sizes) -> GroupedLayout:
-        """``FlatLayout.over`` for each dtype group (``full_sizes`` of every
-        leaf, in ``tree_leaves`` order)."""
+    def over(self, group, full_sizes, owners=None) -> GroupedLayout:
+        """``FlatLayout.over`` for each dtype group (``full_sizes`` and
+        ``owners`` of every leaf, in ``tree_leaves`` order)."""
         full_sizes = tuple(int(n) for n in full_sizes)
-        subs = tuple(g.over(group, [full_sizes[i] for i in idx])
+        owners = (True,) * self.num_leaves if owners is None else tuple(bool(o) for o in owners)
+        subs = tuple(g.over(group, [full_sizes[i] for i in idx], [owners[i] for i in idx])
                      for g, idx in zip(self.groups, self.index, strict=True))
         if all(a is b for a, b in zip(subs, self.groups, strict=True)):
             return self
-        key = (group, full_sizes)
+        key = (group, full_sizes, owners)
         if key not in self._over:
             out = copy.copy(self)
             out.groups, out.full_total, out._over = subs, sum(full_sizes), {}

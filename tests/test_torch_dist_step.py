@@ -38,13 +38,28 @@ state (params, opt slots, broadcast, loss) is bitwise equal on every rank
 of a mesh, and so are a pod's data ranks' rows and a model group's. A
 checkpoint restored onto (4, 1) under FSDP's specs gives each rank its
 slice and gathers back bitwise.
+FSDP over ``data`` (ROADMAP item 11 part C2a; the smoke configs fall under
+the 40e9 threshold, so both sides set ``_FSDP_PARAM_THRESHOLD`` to 0 for
+these cases only): ``dense`` on qwen2-vl at (2, 2) (its batches carry
+patch embeddings), ``gmf_data`` on command-r at (2, 2) (each data rank's
+client state whole over data), ``gmf_pod`` on llama at (1, 2, 2) (the
+pod's rows cut over its data x model ranks) and (2, 2, 1), and ``dense`` on
+a ``moe_impl="ep"`` kimi-k2 at (2, 2): FSDP, tensor parallelism and the
+expert-parallel MoE together; and the expert-parallel MoE at model 2
+without FSDP (granite, ``dense``). The params, rows and broadcast are
+gathered whole for the comparison. The trainer's health norms (ROADMAP F7)
+over ``gmf_data`` at (2, 2) and the FSDP gmf cases equal the reference's
+norms of the whole state within 1e-6 relative; the data-axis-only sums
+they replaced do not.
 
 The launcher runs apart: ``launch/train.py --device cpu --mesh-shape 2,1``
 as two processes with a ``torchrun``-style environment (``MASTER_ADDR``
 127.0.0.1 and a free ``MASTER_PORT``): both exit 0 and only rank 0 writes.
 Then three worlds of four processes at once: ``--mesh-shape 2,2``, no
 ``--mesh-shape`` (the reference's (n // 2, 2)) and ``--mesh-shape 2,1``
-(ranks 2 and 3 wait for the mesh's result): every rank exits 0.
+(ranks 2 and 3 wait for the mesh's result): every rank exits 0. Beside
+them, ``launch/serve.py --mode engine --mesh-shape 1,2`` as two processes:
+the engine over a model axis, rank 0's tokens those of one process.
 """
 
 import dataclasses
@@ -66,6 +81,7 @@ import torch.distributed as dist  # noqa: E402
 import torch_mesh_cases as cases  # noqa: E402
 import torch_parity as tp_  # noqa: E402
 import torch_train_parity as tr  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
 from repro.configs import granite_moe_1b_a400m as jgranite  # noqa: E402
 from repro.core import CompressionConfig as JComp  # noqa: E402
 from repro.launch.mesh import make_mesh as jmake_mesh  # noqa: E402
@@ -242,9 +258,11 @@ def world4(tmp_path_factory):
         if arch == cases.ARCHS[0]:
             tsave(str(work / "ck"), params, step=1)
         stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=cases.SEQ,
-                                   batch_size=cases.BATCH, seed=0)
+                                   batch_size=cases.BATCH, seed=0, num_patches=cfg.num_patches,
+                                   d_model=cfg.d_model)
         for t, b in zip(range(cases.STEPS), stream, strict=False):
-            inputs[f"batch/{arch}/{t}/tokens"] = b["tokens"]
+            for k, x in b.items():
+                inputs[f"batch/{arch}/{t}/{k}"] = x
             inputs[f"batch/{arch}/{t}/labels"] = cases.uneven_labels(b["labels"])
     np.savez(work / "inputs.npz", **inputs)
     jres, rres = ranks.spawn("train", work, work / "inputs.npz")
@@ -323,6 +341,54 @@ def test_four_ranks_replicated_state_is_bitwise(world4, name):
                 assert np.array_equal(rres[r][f"{name}/{f}"], rres[r0][f"{name}/{f}"]), (c, r)
     if sync == "gmf_data" and n > 1:  # each data shard is its own client
         assert not np.array_equal(rres[first[0]][f"{name}/v"], rres[first[1]][f"{name}/v"])
+
+
+def _jax_tree(row, arch, cfg):
+    """A flat ``[n, N]`` row stack (or an ``[N]`` vector) of ``arch``'s
+    whole leaves as the JAX package's tree of ``[n, *shape]`` leaves."""
+    from repro.models import transformer as jtr
+
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch), **cfg)
+    like = jax.eval_shape(lambda: jtr.init_params(jcfg, jax.random.PRNGKey(0)))
+    leaves, lead, start = [], row.shape[:-1], 0
+    for x in jax.tree_util.tree_leaves(like):
+        n = int(np.prod(x.shape))
+        leaves.append(jax.numpy.asarray(row[..., start:start + n].reshape(*lead, *x.shape)))
+        start += n
+    assert start == row.shape[-1]
+    return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(like), leaves)
+
+
+@pytest.mark.parametrize("name", cases.HEALTH)
+def test_four_ranks_health_norms_are_the_whole_models(world4, name):
+    """ROADMAP F7: the trainer's ``--obs`` health norms over a mesh are the
+    reference's (``repro.obs.health.compensation_norms`` of its global
+    arrays: here of the port's state gathered whole), within 1e-6
+    relative, on every rank, and ``broadcast_finite`` is False on every
+    rank when one rank's piece of the broadcast holds a NaN; the sums they
+    replaced (the client norms' squares over the sync axis alone, the
+    broadcast's the rank's pieces') were not."""
+    from repro.core.state import ClientState, ServerState
+    from repro.obs import health as jhealth
+
+    _, rres, _ = world4
+    arch, over, shape, sync = cases.TRAIN[name]
+    n, first = owners(shape, sync)
+    rows = {f: np.concatenate([rres[r][f"{name}/{f}"] for r in first]) for f in ("u", "v", "m")}
+    cstate = ClientState(**{f: _jax_tree(rows[f], arch, over) for f in rows})
+    want = jhealth.compensation_norms(cstate, ServerState(momentum={}, residual={}),
+                                      _jax_tree(rres[0][f"{name}/gbar"], arch, over))
+    keys = ("residual_u_norm", "residual_v_norm", "momentum_m_norm", "server_momentum_norm",
+            "broadcast_norm")
+    want = np.asarray([want[k] for k in keys])
+    assert (want[[0, 1, 2, 4]] > 0).all()
+    for r in range(cases.members(shape)):
+        got = rres[r][f"{name}/health/new"]
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), (r, got, want)
+        # a NaN planted on rank 1's piece of the broadcast trips every rank
+        assert rres[r][f"{name}/health/finite"].tolist() == [True, False], r
+    old = rres[0][f"{name}/health/old"]
+    assert np.abs(old - want).max() > 1e-3 * np.abs(want).max(), (old, want)
 
 
 def test_four_ranks_client_mesh_of_two(world4):
@@ -449,22 +515,32 @@ WORLDS4 = {"2x2": (["--mesh-shape", "2,2", "--checkpoint", "ck"],
            "2x1": (["--mesh-shape", "2,1"], "mesh={'data': 2, 'model': 1}")}
 
 
+# the serving engine over a model axis: two launcher processes at (1, 2)
+SERVE_ENGINE = ["-m", "repro_torch.launch.serve", "--arch", "llama3.2-1b", "--smoke", "--device",
+                "cpu", "--mode", "engine", "--requests", "4", "--prompt-len", "32", "--gen", "6",
+                "--wire", "int8"]
+
+
 @pytest.fixture(scope="module")
 def launched4(tmp_path_factory):
-    """The three worlds of four launcher processes, all started at once."""
+    """The three worlds of four launcher processes and the serving world of
+    two (``SERVE_ENGINE`` at ``--mesh-shape 1,2``), all started at once."""
     base = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--grad-sync", "gmf_data",
             "--steps", "8", "--batch", "8", "--seq-len", "64", "--log-every", "4"]
     procs, works = {}, {}
-    for name, (flags, _) in WORLDS4.items():
+    worlds = {name: (["-m", "repro_torch.launch.train", *base, *flags], 4)
+              for name, (flags, _) in WORLDS4.items()}
+    worlds["serve"] = ([*SERVE_ENGINE, "--mesh-shape", "1,2"], 2)
+    for name, (argv, world) in worlds.items():
         port = str(free_port())
         work = works[name] = tmp_path_factory.mktemp(f"launch_{name}")
         procs[name] = [subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train", *base, *flags],
+            [sys.executable, *argv],
             env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1",
-                 "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "4",
+                 "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
                  "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port},
             cwd=work, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(4)]
+            for r in range(world)]
     out = {}
     try:
         for name, ps in procs.items():
@@ -491,3 +567,25 @@ def test_launcher_over_four_ranks(launched4, name):
         back = trestore(str(work / "ck"), like)
         assert [tuple(x.shape) for x in tree_leaves(back)] == [
             tuple(x.shape) for x in tree_leaves(like)]
+
+
+def test_serve_engine_over_a_model_axis(launched4):
+    """``launch/serve.py --mode engine --mesh-shape 1,2`` over two
+    torchrun-style processes (ROADMAP item 11 part C2a): both exit 0, rank
+    0 prints the reference's summary and the same tokens as one process
+    without a world; rank 1 prints nothing."""
+    runs, _ = launched4["serve"]
+    assert [rc for _, rc in runs] == [0, 0], "\n".join(log[-2000:] for log, _ in runs)
+    one = subprocess.run([sys.executable, *SERVE_ENGINE], env={
+        "PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=240)
+    assert one.returncode == 0, one.stderr[-2000:]
+
+    def tokens(log):
+        return [ln for ln in log.splitlines() if ln.lstrip().startswith("req ")]
+
+    assert tokens(runs[0][0]) == tokens(one.stdout) and tokens(one.stdout)
+    summary = json.loads(runs[0][0].strip().splitlines()[-1])
+    assert summary["mode"] == "engine" and summary["generated_tokens"] == 24
+    assert not [ln for ln in runs[1][0].splitlines() if ln.strip() and "[W" not in ln
+                and "socket" not in ln]

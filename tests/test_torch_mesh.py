@@ -11,8 +11,9 @@ but the flat compression stacks: the port's ``[n, N]`` stack is ``P(axis)``,
 and each of the reference's per-leaf stacked specs must lead with that
 axis and name, past it, only axes of size 1 on a mesh whose model axis is
 1 (but FSDP's data axis for the >40 B archs). The port's steps take a
-model axis > 1 (each rank's row holds its pieces of the leaves) and refuse
-FSDP over a data axis > 1 (ROADMAP item 11 part C2).
+model axis > 1 (each rank's row holds its pieces of the leaves) and FSDP
+over a data axis > 1 (ROADMAP item 11 part C2a): the specs hold where FSDP
+is on, and which leaves the forward gathers over ``data``.
 
 The meshes themselves are built in a one-rank gloo world (``file://``
 store in the test's temporary directory, no port opened), where the FL
@@ -140,11 +141,13 @@ def test_specs_equal_the_reference(arch, shape):
                         for a in (e if isinstance(e, tuple) else (e,))]
                 if sizes["model"] == 1 and not fsdp_data:
                     assert all(sizes[a] == 1 for a in rest), (sync, field, spec)
-        if fsdp_data:  # the port refuses FSDP (part C2); a model axis runs (part C1)
-            with pytest.raises(NotImplementedError, match="item 11 part C2"):
-                tstep.make_train_step(tcfg, tt, TComp(scheme="dgcwgmf"), mesh=tm)
-        else:
-            tstep._check_mesh(tcfg, tm)
+        # FSDP (part C2a): the leaves whose specs name data are the ones the
+        # forward gathers over it, and only where FSDP is on
+        assert tstep.fsdp_active(tcfg, tm) == fsdp_data
+        gathered = [d is not None for d in tree_leaves(tshr.fsdp_dims(tp, tm))]
+        named = ["data" in tshr.spec_axes(s)
+                 for s in tree_leaves(tshr.param_specs(tp, fsdp=True, mesh=tm))]
+        assert gathered == named, (sync, gathered, named)
 
 
 def test_grouped_layout_stacks_one_spec_a_group():
@@ -224,17 +227,22 @@ def test_shard_engine_takes_a_client_mesh(world):
 
 
 def test_health_norms_over_a_group(world):
-    """The trainer's health block over a mesh sums the client-state norms'
-    squares over the sync group: at one rank, the norms of the rank's rows
-    (float32 roundings apart)."""
+    """The trainer's health block over a mesh sums every segment's squares
+    over the group its spans name (``obs.health.NormSpan``; the whole
+    model's norms at any mesh, ROADMAP F7, in
+    ``tests/test_torch_dist_step.py``): at one rank, the norms of the
+    rank's rows and broadcast (float32 roundings apart)."""
     from repro_torch.core.state import ClientState, ServerState
-    from repro_torch.obs.health import compensation_norms
+    from repro_torch.obs.health import NormSpan, compensation_norms
+    from repro_torch.utils.flat import FlatLayout
 
     rng = np.random.default_rng(0)
     rows = [torch.from_numpy(rng.normal(size=(1, 50)).astype(np.float32)) for _ in range(3)]
     cst, sst, bcast = ClientState(*rows), ServerState(momentum={}, residual={}), rows[0][0]
     want = compensation_norms(cst, sst, bcast)
-    got = compensation_norms(cst, sst, bcast, group=dist.group.WORLD)
+    layout = FlatLayout.of_sizes([20, 30], "cpu")
+    span = NormSpan(layout.segments, dist.group.WORLD, (True, True), (True, True))
+    got = compensation_norms(cst, sst, bcast, spans={"client": span, "server": span})
     assert got.keys() == want.keys()
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-6), k
@@ -255,3 +263,63 @@ def test_named_shardings_place_and_cut_leaves(world):
     assert all(torch.equal(local[k], tree[k]) for k in tree)
     back = tshr.full_tree(local, sh)
     assert all(torch.equal(back[k], tree[k]) for k in tree)
+
+
+@pytest.mark.parametrize("own", [False, True], ids=["summed", "client"])
+def test_fsdp_gathers_one_layer_group_at_a_time_under_remat(world, own):
+    """Under ``cfg.remat`` a layer group's FSDP gather runs inside its
+    checkpoint: once the forward is done, no group's gathered leaf is still
+    alive (only the embedding's and the unembedding's, taken outside the
+    groups), the backward gathers every group again, and the gradients
+    (the pieces', or the sink's under ``gmf_data``) are the forward's
+    without FSDP, bitwise, at a data group of one rank."""
+    import weakref
+
+    from repro_torch.utils import collectives as col
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(tconfigs.get_smoke("llama3.2-1b"), num_layers=3, remat=True)
+    params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    m = tmesh.make_mesh((1, 1), ("data", "model"), "cpu")
+    dims = tshr.fsdp_dims(ttr.abstract_params(cfg), m)
+    fs = ttr.FsdpCtx(m.get_group("data"), dims, {} if own else None)
+
+    def grads(ctx):
+        live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        logits, _, _ = ttr.forward(cfg, live, {"tokens": tokens}, ctx=ctx)
+        return logits, live
+
+    want_logits, live = grads({})
+    want = torch.autograd.grad(want_logits.float().square().sum(), tree_leaves(live))
+
+    made = []
+    real = col._all_gather
+
+    def tracked(x, group, dim):
+        out = real(x, group, dim)
+        made.append(weakref.ref(out))
+        return out
+
+    col._all_gather = tracked
+    try:
+        logits, live = grads({"fsdp": fs})
+        alive = sum(r() is not None for r in made)
+        n_forward = len(made)
+        leaves = tree_leaves(live)
+        got = torch.autograd.grad(logits.float().square().sum(), leaves, allow_unused=True)
+    finally:
+        col._all_gather = real
+    n_layer = sum(d is not None for d in tree_leaves(dims["layers"]))
+    n_edge = sum(d is not None for k in ("embed", "unembed") for d in tree_leaves(dims[k]))
+    assert n_layer > 0 and n_forward == cfg.num_layers * n_layer + n_edge
+    assert alive <= n_edge, (alive, n_edge)
+    assert len(made) == n_forward + cfg.num_layers * n_layer  # remat gathers again
+    assert torch.equal(logits, want_logits)
+    for x, g, w, d in zip(leaves, got, want, tree_leaves(dims), strict=True):
+        if own and d is not None:
+            g = fs.sink.get((id(x), None))
+            if g is None:
+                g = torch.stack([fs.sink[(id(x), i)] for i in range(x.shape[0])])
+        assert torch.equal(g, w)

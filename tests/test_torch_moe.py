@@ -126,11 +126,12 @@ def test_moe_prefill_then_decode_equals_forward():
 
 def test_expert_parallel_over_a_mesh_is_not_ported():
     """``moe_impl="ep"`` without a mesh takes the dense path, as the
-    reference does; the expert-parallel MoE inside the forward over a mesh
-    whose model axis is over 1 still raises, naming the item that ports it
-    (ROADMAP Queue 1 item 11 part C2; ``moe_impl="dense"`` runs there:
-    ``tests/test_torch_dist_step.py``). ``moe_ep`` itself runs at any model
-    axis (``tests/test_torch_moe_ep.py``)."""
+    reference does; inside the forward over a mesh whose model axis is over
+    1 the FFN takes ``moe_ep`` with the forward's model group, the tokens
+    replicated over it (ROADMAP item 11 part C2a; the name is older than
+    the port and kept). ``moe_ep`` under that group is held against JAX's
+    gradients in ``tests/test_torch_moe_ep.py``, and inside the four-rank
+    train steps in ``tests/test_torch_dist_step.py``."""
     from repro_torch.launch.mesh import AbstractMesh
 
     cfg = dataclasses.replace(tgranite.smoke(), moe_impl="ep")
@@ -139,6 +140,15 @@ def test_expert_parallel_over_a_mesh_is_not_ported():
     with torch.no_grad():
         logits, aux, _ = ttr.forward(cfg, params, batch)
         assert bool(torch.isfinite(logits).all()) and float(aux) > 0
-        with pytest.raises(NotImplementedError, match="item 11 part C2"):
-            ttr.forward(cfg, params, batch,
-                        ctx={"mesh": AbstractMesh((1, 2), ("data", "model"))})
+    mesh, group = AbstractMesh((1, 2), ("data", "model")), object()
+    calls = []
+    real = ttr.moe.moe_ep
+    ttr.moe.moe_ep = lambda p, c, x, **kw: calls.append((x.shape, kw)) or (x, aux)
+    try:
+        layer = {"moe": {k: v[0] for k, v in params["layers"][0]["moe"].items()}}
+        ttr._ffn(layer, cfg, torch.zeros(1, 4, cfg.d_model),
+                 {"mesh": mesh, "tp": group, "data_axes": ("data",), "model_axis": "model"})
+    finally:
+        ttr.moe.moe_ep = real
+    (shape, kw), = calls
+    assert shape == (1, 4, cfg.d_model) and kw["tp"] is group and kw["mesh"] is mesh

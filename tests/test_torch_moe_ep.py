@@ -18,7 +18,11 @@ against the JAX package's.
   their f dim over ``data`` (FSDP): y within 1e-5 of JAX's and, at a
   generous capacity, of ``moe_dense``; aux within 1e-6 of JAX's; the two
   model ranks of a data row hold the same y bitwise, and FSDP's y is the
-  unsharded one's bitwise.
+  unsharded one's bitwise. In the same world, ``moe_ep(..., tp=...)`` as
+  a forward under tensor parallelism runs it (the tokens replicated over
+  the model group): y and the gradients of the tokens, the router and the
+  rank's experts within 1e-5 of ``jax.grad`` through the reference's
+  ``shard_map``, on both bodies, with and without FSDP.
 """
 
 import dataclasses
@@ -140,21 +144,6 @@ def test_one_rank_moe_ep_gradients_are_dense_dispatch_gradients(one_rank):
         assert rel_err(got, want) <= REL
 
 
-def test_a_model_axis_over_one_raises_in_the_forward_only():
-    """The expert-parallel MoE inside the forward over a mesh whose model
-    axis is 2 still raises (ROADMAP Queue 1 item 11 part C2; the forward's
-    tensor parallelism with ``moe_impl="dense"`` runs:
-    ``tests/test_torch_dist_step.py``); ``moe_ep`` itself runs there (the
-    spawned test)."""
-    from repro_torch import configs as tconfigs
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.models import transformer as ttr
-
-    cfg = dataclasses.replace(tconfigs.get_smoke("granite-moe-1b-a400m"), moe_impl="ep")
-    params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 11 part C2"):
-        ttr.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                    ctx={"mesh": AbstractMesh((2, 2), ("data", "model"))})
 
 
 @pytest.fixture(scope="module")
@@ -165,6 +154,9 @@ def world4(tmp_path_factory):
     p, xs = moe_inputs()
     inputs = {f"moe/{k}": v.numpy() for k, v in p.items()}
     inputs.update({f"x/{path}": x for path, x in xs.items()})
+    rng = np.random.default_rng(4)
+    inputs.update({f"w/{path}": rng.normal(size=x.shape).astype(np.float32)
+                   for path, x in xs.items()})
     np.savez(work / "inputs.npz", **inputs)
     jres, rres = ranks.spawn("moe", work, work / "inputs.npz")
     return jres, rres, p, xs
@@ -191,3 +183,40 @@ def test_four_ranks_moe_ep_against_jax(world4, cap_name, path, fsdp):
         assert rel_err(y, yd.numpy()) <= REL, key
     else:  # the tight capacity drops assignments: another function than the dense one
         assert rel_err(y, yd.numpy()) > 1e-2, key
+
+
+def test_a_model_axis_over_one_raises_in_the_forward_only(world4):
+    """The expert-parallel MoE inside the forward at a model axis of 2
+    (ROADMAP item 11 part C2a; the name is older than the port and kept):
+    ``moe_ep(..., tp=model group)`` on tokens replicated over the model
+    group, every model rank holding the same loss (sum(y · w) + 0.1 · aux),
+    on both bodies, the experts whole on their rank or cut over ``data``:
+    y within 1e-5 of JAX's, and the gradients of the tokens, the router and
+    the rank's experts within 1e-5 of ``jax.grad`` through the reference's
+    ``shard_map`` (each replicated input's gradient summed over the model
+    group once). The four-rank train cases run it inside the step."""
+    for path in cases.MOE_X:
+        for fsdp in (0, 1):
+            _hold_tp_grads(world4, path, fsdp)
+
+
+def _hold_tp_grads(world4, path, fsdp):
+    jres, rres, _, _ = world4
+    key = f"tp/{path}/{fsdp}"
+    nd, nm = cases.MOE_MESH
+    e_loc = cases.MOE["num_experts"] // nm
+    f_loc = cases.MOE["d_ff"] // nd
+    y = np.concatenate([rres[d * nm][f"{key}/y"] for d in range(nd)])
+    assert rel_err(y, jres[f"generous/{path}/{fsdp}/y"]) <= REL
+    dx = np.concatenate([rres[d * nm][f"{key}/dx"] for d in range(nd)])
+    assert rel_err(dx, jres[f"{key}/dx"]) <= REL
+    for r in range(cases.WORLD):
+        d, m = divmod(r, nm)
+        assert np.array_equal(rres[r][f"{key}/dx"], rres[d * nm][f"{key}/dx"]), r
+        assert rel_err(rres[r][f"{key}/drouter"], jres[f"{key}/drouter"]) <= REL, r
+        for k in ("w_gate", "w_up", "w_down"):
+            want = jres[f"{key}/d{k}"][m * e_loc:(m + 1) * e_loc]
+            if fsdp:
+                cut = 2 if k != "w_down" else 1
+                want = np.split(want, nd, axis=cut)[d]
+            assert rel_err(rres[r][f"{key}/d{k}"], want) <= REL, (r, k)

@@ -8,6 +8,8 @@ Greedy tokens compare exactly; float32 throughout, where the port's and
 JAX's logits are within 1e-5 of each other (``test_torch_serve_paged.py``).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,7 @@ from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import granite_moe_1b_a400m as tgranite
 from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as ttr
 from repro_torch.serve import ServeConfig, ServeEngine
 from torch_serve_parity import fixed_reference, prompts, small_configs
 
@@ -135,14 +138,27 @@ def test_engine_builds_its_state_where_its_params_are(small):
 
 
 def test_engine_refuses_a_mesh(small):
-    """A mesh whose model axis is over 1 raises, naming ROADMAP Queue 1 item
-    11 part C2 (the pool over KV heads); at model axis 1 the engine runs
-    (``tests/test_torch_dist_step.py``)."""
+    """The engine over a mesh whose model axis is over 1 (ROADMAP item 11
+    part C2a; the name is older than the port and kept) lays out its pool
+    by ``pool_specs``: with the int8 codec, each rank's kv heads where they
+    divide the model axis and the scales cut with them; with kv heads that
+    do not divide it, the pool whole. Its tokens at (1, 2) equal the
+    one-rank engine's for float32 and int8 (``tests/test_torch_tp.py``);
+    at model axis 1 the engine runs in ``tests/test_torch_dist_step.py``."""
+    from repro_torch.dist import sharding as tshr
     from repro_torch.launch.mesh import AbstractMesh
 
     _, cfg, _, params = small
-    with pytest.raises(NotImplementedError, match="item 11 part C2"):
-        ServeEngine(cfg, params, ServeConfig(), mesh=AbstractMesh((1, 2), ("data", "model")))
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    for kv, cut in ((cfg.num_kv_heads, cfg.num_kv_heads % 2 == 0), (1, False)):
+        c = dataclasses.replace(cfg, num_kv_heads=kv)
+        eng = ServeEngine(c, ttr.init_params(c, torch.Generator().manual_seed(0)),
+                          ServeConfig(prompt_pad=16, wire="int8"))
+        specs = tshr.pool_specs(eng.pool, mesh)
+        entry, spec = eng.pool["groups"][0], specs["groups"][0]
+        assert tuple(spec["k"]) == ((None, None, None, "model") if cut else ())
+        assert tuple(spec["k_scale"]) == ((None, None, None, "model") if cut else ())
+        assert entry["k"].shape[-2] == kv and entry["k_scale"].shape[-1] == kv
 
 
 def test_engine_refuses_bad_requests_as_jax_does(small):

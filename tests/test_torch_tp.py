@@ -23,13 +23,18 @@ CPU thread a rank), while this process runs the JAX side:
   ranks; the fused dgcwgmf compression's payload and counts through
   ``Scheme.client_compress``;
 - a dense step with the optimiser's global-norm clip, momentum and weight
-  decay: the whole params within 1e-5.
+  decay: the whole params within 1e-5;
+- the continuous-batching engine at (1, 2) (ROADMAP item 11 part C2a), each
+  rank its pieces of the params and of the paged pool, with the float32
+  and the int8 codecs, on llama's smoke (its 2 kv heads one a rank) and
+  yi-34b's (one kv head: the pool whole, the projections gathered): every
+  request's tokens equal to the one-rank engine's.
 
 In process: a CPU emulation of the group mode's histograms (each rank's
 tiles counted, the ranks' histograms summed, the kernel's scan from the
 top) gives the whole leaf's k-th largest bit for bit; the group plan puts
 the cut segments first; the stages that cut or key a leaf by flat
-coordinate refuse a model axis, naming item 11 part C2.
+coordinate refuse a model axis, naming item 11 part C2b.
 """
 
 import math
@@ -195,6 +200,18 @@ def test_clipped_dense_step_matches_one_rank(world2):
         assert int(res["clip/tp/total"]) == int(res["clip/one/total"])
 
 
+@pytest.mark.parametrize("wire", ranks.ENGINE_WIRES)
+@pytest.mark.parametrize("arch", ranks.ENGINE_ARCHS)
+def test_engine_at_model_two_is_the_one_rank_engine(world2, arch, wire):
+    kv = tconfigs.get_smoke(arch).num_kv_heads
+    for res in world2:
+        got, want = res[f"engine/{arch}/{wire}/tp"], res[f"engine/{arch}/{wire}/one"]
+        assert got.size == want.size > 0 and np.array_equal(got, want), (arch, wire)
+        assert int(res[f"engine/{arch}/{wire}/tp/kv"]) == (kv // 2 if kv % 2 == 0 else kv)
+    assert np.array_equal(world2[0][f"engine/{arch}/{wire}/tp"],
+                          world2[1][f"engine/{arch}/{wire}/tp"])
+
+
 # ---------------------------------------------------------------------------
 # the group mode, emulated
 # ---------------------------------------------------------------------------
@@ -272,5 +289,5 @@ def test_stages_over_a_model_axis(kw):
     if kw in ALLOWED:
         scheme.check_model_axis()
     else:
-        with pytest.raises(NotImplementedError, match="item 11 part C2"):
+        with pytest.raises(NotImplementedError, match="item 11 part C2b"):
             scheme.check_model_axis()

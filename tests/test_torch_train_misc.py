@@ -158,18 +158,23 @@ def test_fetchsgd_owns_lr_and_refuses_decay_and_clip():
 
 
 def test_trainer_refuses_a_mesh_and_unknown_sync():
-    """FSDP (a >40 B arch on a data axis over 1) raises, naming the item that
-    ports it (ROADMAP Queue 1 item 11 part C2; a model axis over 1 runs:
-    ``tests/test_torch_dist_step.py``, ``tests/test_torch_tp.py``), and so
-    does an unknown sync."""
+    """FSDP (a >40 B arch on a data axis over 1) runs (ROADMAP item 11 part
+    C2a; the name is older than the port and kept): the >40 B archs cut
+    their params over ``data`` on a data axis over 1 and only there, by the
+    40e9 threshold (FSDP's steps against JAX: ``tests/test_torch_dist_step.py``);
+    an unknown sync raises."""
     from repro_torch import configs as tconfigs
     from repro_torch.launch.mesh import AbstractMesh
 
     _, tcfg = tr.configs("llama3.2-1b")
-    _, tt = tr.train_configs("gmf_data")
-    with pytest.raises(NotImplementedError, match="item 11 part C2"):
-        tstep.make_train_step(tconfigs.get_config("qwen2-vl-72b"), tt, CompressionConfig(),
-                              mesh=AbstractMesh((2, 2), ("data", "model")))
+    for arch in ("qwen2-vl-72b", "command-r-plus-104b", "kimi-k2-1t-a32b"):
+        big = tconfigs.get_config(arch)
+        assert tstep.fsdp_active(big, AbstractMesh((2, 2), ("data", "model")))
+        assert not tstep.fsdp_active(big, AbstractMesh((1, 2), ("data", "model")))
+        assert not tstep.fsdp_active(tconfigs.get_smoke(arch),
+                                     AbstractMesh((2, 2), ("data", "model")))
+    assert not tstep.fsdp_active(tconfigs.get_config("yi-34b"),
+                                 AbstractMesh((2, 2), ("data", "model")))
     _, bad = tr.train_configs("allreduce")
     with pytest.raises(ValueError, match="grad_sync"):
         tstep.make_train_step(tcfg, bad, CompressionConfig())

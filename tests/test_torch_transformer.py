@@ -148,20 +148,33 @@ def test_init_cache_matches_reference():
 def test_unported_families_raise(family, kw):
     """Every family initialises and runs on one device, and over a mesh
     whose model axis is 1. Over a mesh whose model axis is over 1 its
-    fixed-batch serving runs (tensor parallelism: ``tests/test_torch_tp.py``),
-    while the paged steps (the engine's pool over kv heads) and the moe
-    family's expert-parallel FFN there still raise, naming the item that
-    ports them (ROADMAP Queue 1 item 11 part C2). (The name is older than
-    the families' port and kept, so the test's history stays one.)"""
+    fixed-batch serving runs (tensor parallelism: ``tests/test_torch_tp.py``)
+    and so do the paged steps (the engine at (1, 2), same file; ROADMAP item
+    11 part C2a): here, the pool of a family that has one (the int8 codec's)
+    laid over a model axis of 2 holds each rank's kv heads where they
+    divide it, the scales cut with them, and whole elsewhere; the moe
+    family's expert-parallel FFN is held in ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_moe_ep.py``. (The name is older than the families'
+    port and kept, so the test's history stays one.)"""
+    from repro_torch.dist import sharding as tshr
     from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.serve import cache as tcache
 
     mesh = AbstractMesh((1, 2), ("data", "model"))
     cfg = dataclasses.replace(tllama.smoke(), family=family, **kw)
-    params = ttr.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 11 part C2"):
-        tstep.make_paged_prefill_step(cfg, None, mesh, prompt_pad=8)
-    if family == "moe":
-        cfg = dataclasses.replace(cfg, moe_impl="ep")
-        with pytest.raises(NotImplementedError, match="item 11 part C2"):
-            ttr.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                        ctx={"mesh": mesh})
+    assert tree_leaves(ttr.init_params(cfg, torch.Generator().manual_seed(0)))
+    for kv in (cfg.num_kv_heads, 1):
+        c = dataclasses.replace(cfg, num_kv_heads=kv)
+        try:
+            pool = tcache.init_pool(c, tcache.make_kv_codec("int8", c), 9, 8, device="meta")
+        except ValueError:  # a family without a KV pool: the engine refuses it
+            assert family in ("ssm", "hybrid", "audio", "vlm"), family
+            return
+        specs = tshr.pool_specs(pool, mesh)
+        cut = "model" if kv % 2 == 0 else None
+        for entry, spec in zip(pool["groups"] + pool["tail"], specs["groups"] + specs["tail"],
+                               strict=True):
+            for name, leaf in entry.items():
+                dim = leaf.dim() - (2 if name in ("k", "v") else 1)
+                entries = tuple(spec[name]) + (None,) * (leaf.dim() - len(spec[name]))
+                assert entries[dim] == cut, (family, kv, name, spec[name])

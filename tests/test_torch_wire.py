@@ -17,7 +17,7 @@ the flat state (``repro_torch.utils.flat``).
   gradient is exact elementwise float32 (``c + p``): the ledger equal round
   by round (so the nnz too) and params within 1e-6 of each leaf's largest
   magnitude: the jitted JAX round contracts w − lr·g into a fused
-  multiply-add (ROADMAP Queue 4) and the port does not, and ``dgcwgmf_dl``'s
+  multiply-add (ROADMAP Queue 3) and the port does not, and ``dgcwgmf_dl``'s
   GMF norms are sums taken in another order.
 """
 

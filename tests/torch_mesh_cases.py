@@ -6,6 +6,7 @@ this module imports nothing."""
 WORLD = 4
 STEPS = 2  # steps a train case takes (the second runs the global momentum)
 BATCH, SEQ = 8, 16
+BATCH_KEYS = ("tokens", "labels", "patch_embeds")  # the VLM's batch adds patch embeddings
 LR = 0.05
 RATE = 0.1
 
@@ -26,8 +27,27 @@ TRAIN = {
     "tp_gmf_pod": ("llama3.2-1b", {}, (2, 1, 2), "gmf_pod"),
     "tp_dense_yi": ("yi-34b", {}, (2, 2), "dense"),
     "tp_gmf_data_moe": ("granite-moe-1b-a400m", {"moe_impl": "dense"}, (2, 2), "gmf_data"),
+    # FSDP over data (ROADMAP item 11 part C2a), forced at smoke size (FSDP);
+    # remat as the published configs set it, so the gathers run inside the
+    # layers' checkpoints and again in the backward
+    "fsdp_dense_vlm": ("qwen2-vl-72b", {"remat": True}, (2, 2), "dense"),
+    "fsdp_gmf_data": ("command-r-plus-104b", {"remat": True}, (2, 2), "gmf_data"),
+    # (granite's vocabulary of 515 leaves its embedding cut over data alone:
+    # a piece the pod's two model ranks hold alike, counted once)
+    "fsdp_gmf_pod_122": ("granite-moe-1b-a400m", {"moe_impl": "dense"}, (1, 2, 2), "gmf_pod"),
+    "fsdp_gmf_pod_221": ("llama3.2-1b", {}, (2, 2, 1), "gmf_pod"),
+    # FSDP x TP x EP, and the expert-parallel MoE at model 2 without FSDP
+    "fsdp_dense_ep": ("kimi-k2-1t-a32b", {"moe_impl": "ep", "remat": True}, (2, 2), "dense"),
+    "tp_dense_ep": ("granite-moe-1b-a400m", {"moe_impl": "ep"}, (2, 2), "dense"),
 }
-ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "yi-34b")
+ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "yi-34b", "qwen2-vl-72b", "command-r-plus-104b",
+         "kimi-k2-1t-a32b")
+# the cases that run FSDP: the smoke configs fall under needs_fsdp's 40e9
+# params, so both sides set dist.step._FSDP_PARAM_THRESHOLD to 0 for them
+FSDP = frozenset(k for k in TRAIN if k.startswith("fsdp_"))
+# the cases whose health norms (the trainer's --obs block) are held against
+# the reference's norms of the whole state (ROADMAP F7)
+HEALTH = ("tp_gmf_data", "fsdp_gmf_data", "fsdp_gmf_pod_122", "fsdp_gmf_pod_221")
 CLIENT_MESH = 2  # the client mesh of the first ranks
 
 # the expert-parallel MoE at (data 2, model 2): a small MoE config (the
@@ -38,6 +58,10 @@ MOE = dict(name="m", family="moe", num_layers=1, d_model=32, num_heads=2, num_kv
 MOE_CAPACITY = {"generous": 8.0, "tight": 1.0}
 MOE_MESH = (2, 2)
 MOE_X = {"a2a": (4, 8, 32), "psum": (4, 1, 32)}  # T divides the model axis, T = 1
+# moe_ep inside a forward under tensor parallelism (the tokens replicated over
+# the model group): the loss sum(y * MOE_W) + MOE_AUX * aux, its gradients
+# against JAX's through the shard_map, at the generous capacity
+MOE_AUX = 0.1
 
 
 def axes_of(shape):

@@ -2,9 +2,11 @@
 ``tests/torch_mesh_cases.py`` on four faked CPU devices, from the inputs
 the test wrote (params, batches, MoE weights and tokens as numpy), results
 to an ``.npz``. Run as a subprocess (``XLA_FLAGS`` must be set before jax
-starts):
+starts); ``PART`` of ``PARTS`` takes every PARTS-th train case from the
+PART-th, so that several processes share the cases (each JAX process
+compiles on one thread):
 
-    python tests/torch_mesh_jax.py train|moe INPUTS.npz OUT.npz
+    python tests/torch_mesh_jax.py train|moe INPUTS.npz OUT.npz [PART PARTS]
 """
 
 import os
@@ -41,8 +43,12 @@ def flat_rows(tree, n):
                            for x in jax.tree_util.tree_leaves(tree)], axis=1)
 
 
-def train(inp, out):
-    for name, (arch, over, shape, sync) in cases.TRAIN.items():
+def train(inp, out, part=0, parts=1):
+    for i, (name, (arch, over, shape, sync)) in enumerate(cases.TRAIN.items()):
+        if i % parts != part:
+            continue
+        # FSDP's cases: the smoke configs fall under the 40e9 threshold
+        dstep._FSDP_PARAM_THRESHOLD = 0 if name in cases.FSDP else 40e9
         cfg = dataclasses.replace(configs.get_smoke(arch), **over)
         like = jax.eval_shape(lambda cfg=cfg: transformer.init_params(cfg, jax.random.PRNGKey(0)))
         leaves = [jnp.asarray(inp[f"params/{arch}/{i}"])
@@ -56,7 +62,8 @@ def train(inp, out):
         state = put(mesh, state, dstep.train_state_specs(cfg, tcfg, ccfg, params, mesh))
         step = jax.jit(dstep.make_train_step(cfg, tcfg, ccfg, mesh))
         for t in range(cases.STEPS):
-            batch = {k: jnp.asarray(inp[f"batch/{arch}/{t}/{k}"]) for k in ("tokens", "labels")}
+            batch = {k: jnp.asarray(inp[f"batch/{arch}/{t}/{k}"]) for k in cases.BATCH_KEYS
+                     if f"batch/{arch}/{t}/{k}" in inp}
             state, m = step(state, put(mesh, batch, shr.train_batch_specs(cfg, mesh)))
             out[f"{name}/loss/{t}"] = np.asarray(m["loss"])
             if sync != "dense":
@@ -71,8 +78,10 @@ def train(inp, out):
             out[f"{name}/gbar"] = flat_rows(jax.tree_util.tree_map(lambda x: x[None],
                                                                    state.gbar), 1)[0]
         out[f"{name}/devices"] = np.asarray([d.id for d in mesh.devices.flat])
-    out["client_mesh/devices"] = np.asarray([d.id for d in make_client_mesh(
-        cases.CLIENT_MESH).devices.flat])
+        dstep._FSDP_PARAM_THRESHOLD = 40e9
+    if part == 0:
+        out["client_mesh/devices"] = np.asarray([d.id for d in make_client_mesh(
+            cases.CLIENT_MESH).devices.flat])
 
 
 def moe_ep(inp, out):
@@ -88,6 +97,19 @@ def moe_ep(inp, out):
                     fsdp_weights=fsdp))(p, x)
                 out[f"{cap_name}/{path}/{int(fsdp)}/y"] = np.asarray(y)
                 out[f"{cap_name}/{path}/{int(fsdp)}/aux"] = np.asarray(aux)
+                if cap_name == "generous":
+                    w = jnp.asarray(inp[f"w/{path}"])
+
+                    def loss(p, x, cfg=cfg, fsdp=fsdp, w=w):
+                        y, aux = moe.moe_ep(p, cfg, x, mesh=mesh, data_axes=("data",),
+                                            model_axis="model", fsdp_weights=fsdp)
+                        return jnp.sum(y * w) + cases.MOE_AUX * aux
+
+                    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, x)
+                    key = f"tp/{path}/{int(fsdp)}"
+                    out[f"{key}/dx"] = np.asarray(gx)
+                    for k in sorted(gp):
+                        out[f"{key}/d{k}"] = np.asarray(gp[k])
 
 
 if __name__ == "__main__":
@@ -95,6 +117,9 @@ if __name__ == "__main__":
     assert jax.device_count() == 4
     inp = np.load(inputs)
     res: dict = {}
-    {"train": train, "moe": moe_ep}[what](inp, res)
+    if what == "train":
+        train(inp, res, *(int(x) for x in sys.argv[4:6]))
+    else:
+        moe_ep(inp, res)
     np.savez(dest, **res)
     print("OK", what, len(res))

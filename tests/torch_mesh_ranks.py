@@ -18,7 +18,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 import torch_mesh_cases as cases  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, obs  # noqa: E402
 from repro_torch.checkpoint import restore  # noqa: E402
 from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: E402
 from repro_torch.core import CompressionConfig  # noqa: E402
@@ -26,17 +26,19 @@ from repro_torch.dist import sharding as shr  # noqa: E402
 from repro_torch.dist import step as dstep  # noqa: E402
 from repro_torch.launch.mesh import in_mesh, make_client_mesh, make_mesh  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
-from repro_torch.utils import tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 from repro_torch.utils.flat import FlatLayout  # noqa: E402
 
 
-def whole_rows(row, params, whole, mesh):
-    """A rank's flat ``[1, N]`` row of its pieces ``params`` of the leaves
-    ``whole`` as the row of the whole leaves (its model group's pieces
-    gathered)."""
-    local = FlatLayout.of(params).unflatten(row)
+def whole_rows(row, whole, mesh, fsdp=False):
+    """A rank's flat ``[1, N]`` row of its pieces of the leaves ``whole``
+    (cut by the tensor-parallel specs, and over data too under ``fsdp``) as
+    the row of the whole leaves (the pieces gathered)."""
     specs = [shr.P(None, *tuple(s))
-             for s in tree_leaves(shr.param_specs(whole, fsdp=False, mesh=mesh))]
+             for s in tree_leaves(shr.param_specs(whole, fsdp=fsdp, mesh=mesh))]
+    pieces = shr.local_tree(whole, shr.named_shardings(mesh, shr.param_specs(
+        whole, fsdp=fsdp, mesh=mesh)))
+    local = FlatLayout.of(pieces).unflatten(row)
     leaves = [shr.full_tree(x, shr.NamedSharding(mesh, s))
               for x, s in zip(tree_leaves(local), specs, strict=True)]
     return np.concatenate([x.reshape(1, -1).numpy() for x in leaves], axis=1)
@@ -48,14 +50,44 @@ def whole_params(inp, cfg, arch):
                                  for i in range(len(tree_leaves(like)))])
 
 
+def health(state, cfg, tcfg, mesh, out, name):
+    """The trainer's health norms (``obs.health.compensation_norms`` over
+    ``dist.step.health_spans``), and as they were summed before ROADMAP F7's
+    repair: the client norms' squares over the sync group alone, the
+    server's and the broadcast's the rank's own."""
+    spans = dstep.health_spans(cfg, tcfg, mesh, state.params)
+    new = obs.health.compensation_norms(state.cstate, state.sstate, state.gbar, spans=spans)
+    old = obs.health.compensation_norms(state.cstate, state.sstate, state.gbar)
+    sq = torch.tensor([old[k] ** 2 for k in ("residual_u_norm", "residual_v_norm",
+                                             "momentum_m_norm")])
+    dist.all_reduce(sq, group=dstep.sync_group(tcfg.grad_sync, mesh))
+    old.update(zip(("residual_u_norm", "residual_v_norm", "momentum_m_norm"),
+                   torch.sqrt(sq).tolist()))
+    for tag, block in (("new", new), ("old", old)):
+        out[f"{name}/health/{tag}"] = np.asarray([block[k] for k in HEALTH_KEYS])
+    # a NaN on rank 1's piece of the broadcast alone
+    poisoned = tree_map(lambda x: x.clone(), state.gbar)
+    if dist.get_rank() == 1:
+        tree_leaves(poisoned)[0].view(-1)[0] = float("nan")
+    block = obs.health.compensation_norms(state.cstate, state.sstate, poisoned, spans=spans)
+    out[f"{name}/health/finite"] = np.asarray([new["broadcast_finite"],
+                                               block["broadcast_finite"]])
+
+
+HEALTH_KEYS = ("residual_u_norm", "residual_v_norm", "momentum_m_norm", "server_momentum_norm",
+               "broadcast_norm")
+
+
 def train(inp, out, ckpt):
     for name, (arch, over, shape, sync) in cases.TRAIN.items():
         cfg = dataclasses.replace(configs.get_smoke(arch), **over)
         mesh = make_mesh(shape, cases.axes_of(shape), "cpu")
         if not in_mesh(mesh):  # a rank past the mesh takes no part
             continue
+        fsdp = name in cases.FSDP
+        dstep._FSDP_PARAM_THRESHOLD = 0 if fsdp else 40e9
         whole = whole_params(inp, cfg, arch)
-        p_sh = shr.named_shardings(mesh, shr.param_specs(whole, fsdp=False, mesh=mesh))
+        p_sh = shr.named_shardings(mesh, shr.param_specs(whole, fsdp=fsdp, mesh=mesh))
         params = shr.local_tree(whole, p_sh)
         tcfg = TrainConfig(learning_rate=cases.LR, total_steps=10, grad_sync=sync,
                            lr_schedule="cosine", warmup_steps=1)
@@ -64,8 +96,9 @@ def train(inp, out, ckpt):
         step = dstep.make_train_step(cfg, tcfg, ccfg, mesh)
         b_sh = shr.named_shardings(mesh, dstep.step_batch_specs(cfg, tcfg, mesh))
         for t in range(cases.STEPS):
-            batch = {k: torch.from_numpy(inp[f"batch/{arch}/{t}/{k}"].copy()).long()
-                     for k in ("tokens", "labels")}
+            batch = {k: torch.from_numpy(inp[f"batch/{arch}/{t}/{k}"].copy())
+                     for k in cases.BATCH_KEYS if f"batch/{arch}/{t}/{k}" in inp}
+            batch = {k: x.long() if k != "patch_embeds" else x for k, x in batch.items()}
             state, m = step(state, shr.local_tree(batch, b_sh))
             out[f"{name}/loss/{t}"] = m["loss"].numpy()
             out[f"{name}/valid/{t}"] = np.asarray(
@@ -78,9 +111,14 @@ def train(inp, out, ckpt):
         for i, x in enumerate(tree_leaves(state.opt)):
             out[f"{name}/opt/{i}"] = x.numpy()
         if sync != "dense":
+            # the rows hold pieces cut over data too under gmf_pod's FSDP
+            rows_fsdp = fsdp and sync == "gmf_pod"
             for f in ("u", "v", "m"):
-                out[f"{name}/{f}"] = whole_rows(getattr(state.cstate, f), params, whole, mesh)
-            out[f"{name}/gbar"] = whole_rows(state.gbar[None], params, whole, mesh)[0]
+                out[f"{name}/{f}"] = whole_rows(getattr(state.cstate, f), whole, mesh, rows_fsdp)
+            out[f"{name}/gbar"] = whole_rows(state.gbar[None], whole, mesh, fsdp)[0]
+            if name in cases.HEALTH:
+                health(state, cfg, tcfg, mesh, out, name)
+        dstep._FSDP_PARAM_THRESHOLD = 40e9
     # the client mesh of the first ranks: its coordinates and a sum over it
     cm = make_client_mesh(cases.CLIENT_MESH, "cpu")
     if in_mesh(cm):
@@ -131,6 +169,33 @@ def moe_ep(inp, out):
                                         fsdp_weights=fsdp)
                 out[f"{cap_name}/{path}/{int(fsdp)}/y"] = y.numpy()
                 out[f"{cap_name}/{path}/{int(fsdp)}/aux"] = aux.numpy()
+                if cap_name == "generous":
+                    moe_ep_grads(inp, out, cfg, mesh, p, x[d * b:(d + 1) * b], d * b, path,
+                                 fsdp)
+
+
+def moe_ep_grads(inp, out, cfg, mesh, p, x, row0, path, fsdp):
+    """``moe_ep(..., tp=model group)`` as a forward under tensor parallelism
+    runs it: every model rank holds the same loss, each data rank its share
+    (its rows, and the aux over the data ranks' count). The gradients of x
+    (the rank's rows), of the router and of the rank's experts, the last
+    two summed over the data ranks (the dense step's sum; FSDP's gather sums
+    its pieces itself)."""
+    model, data = mesh.get_group("model"), mesh.get_group("data")
+    live = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    xl = x.detach().clone().requires_grad_(True)
+    w = torch.from_numpy(inp[f"w/{path}"][row0:row0 + x.shape[0]].copy())
+    y, aux = moe.moe_ep(live, cfg, xl, mesh=mesh, data_axes=("data",), model_axis="model",
+                        fsdp_weights=fsdp, tp=model)
+    loss = torch.sum(y * w) + cases.MOE_AUX / dist.get_world_size(data) * aux
+    grads = torch.autograd.grad(loss, [xl] + [live[k] for k in sorted(live)])
+    key = f"tp/{path}/{int(fsdp)}"
+    out[f"{key}/y"] = y.detach().numpy()
+    out[f"{key}/dx"] = grads[0].numpy()
+    for k, g in zip(sorted(live), grads[1:], strict=True):
+        if k == "router" or not fsdp:
+            dist.all_reduce(g, group=data)
+        out[f"{key}/d{k}"] = g.numpy()
 
 
 if __name__ == "__main__":
@@ -150,11 +215,15 @@ if __name__ == "__main__":
         dist.destroy_process_group()
 
 
+JAX_PARTS = {"train": 3, "moe": 1}  # JAX processes a world's cases are shared over
+
+
 def spawn(what: str, workdir, inputs, timeout: float = 300.0):
     """Run ``what`` in a gloo world of ``cases.WORLD`` rank processes and,
-    at the same time, the JAX package's run of it on four faked devices,
-    each with its own timeout. Returns (JAX results, [rank results]); a
-    process that fails raises with its output."""
+    at the same time, the JAX package's run of it on four faked devices
+    (its cases shared over ``JAX_PARTS[what]`` processes), each with its
+    own timeout. Returns (JAX results, [rank results]); a process that
+    fails raises with its output."""
     import subprocess
     from pathlib import Path
 
@@ -162,10 +231,12 @@ def spawn(what: str, workdir, inputs, timeout: float = 300.0):
     workdir = Path(workdir)
     env = dict(os.environ, PYTHONPATH=str(here.parent / "src"), OMP_NUM_THREADS="1")
     init = f"file://{workdir / 'store'}"
-    jax_out = workdir / "jax.npz"
+    parts = JAX_PARTS[what]
+    jax_outs = [workdir / f"jax{i}.npz" for i in range(parts)]
     procs = [subprocess.Popen([sys.executable, str(here / "torch_mesh_jax.py"), what,
-                               str(inputs), str(jax_out)], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)]
+                               str(inputs), str(jax_outs[i]), str(i), str(parts)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(parts)]
     procs += [subprocess.Popen([sys.executable, str(here / "torch_mesh_ranks.py"), what, str(r),
                                 str(cases.WORLD), init, str(inputs),
                                 str(workdir / f"rank{r}.npz")], env=env,
@@ -183,5 +254,7 @@ def spawn(what: str, workdir, inputs, timeout: float = 300.0):
     if any(p.returncode != 0 for p in procs):
         raise RuntimeError("\n".join(f"--- process {i} (rc {p.returncode}):\n{log[-4000:]}"
                                      for i, (p, log) in enumerate(zip(procs, logs, strict=True))))
-    return (dict(np.load(jax_out)),
-            [dict(np.load(workdir / f"rank{r}.npz")) for r in range(cases.WORLD)])
+    jres: dict = {}
+    for out in jax_outs:
+        jres.update(np.load(out))
+    return jres, [dict(np.load(workdir / f"rank{r}.npz")) for r in range(cases.WORLD)]

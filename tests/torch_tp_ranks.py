@@ -44,6 +44,10 @@ SELECT = {"a": ((64, 32), 1), "b": ((40,), None), "c": ((8, 128), 0), "d": ((5,)
           "e": ((96,), 0)}
 ROWS = 3
 RATES = (0.1, 0.37)
+# the engine at (1, 2): llama's smoke cuts its 2 kv heads one a rank, yi-34b's
+# keeps its one kv head whole (the projections gathered); both codecs
+ENGINE_ARCHS = ("llama3.2-1b", "yi-34b")
+ENGINE_WIRES = ("float32", "int8")
 
 
 def batch_of(cfg, seed):
@@ -125,6 +129,32 @@ def clipped(mesh, out):
         for i, x in enumerate(tree_leaves(final)):
             out[f"clip/{tag}/{i}"] = x.numpy()
         out[f"clip/{tag}/total"] = met["total_params"].numpy()
+
+
+def engine(mesh, out):
+    """The continuous-batching engine over the mesh (each rank its pieces of
+    the params and of the pool) and the one-rank engine on the whole params:
+    every request's tokens, and the kv heads a rank's pool holds."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    shape = dict(max_slots=2, page_size=8, pages_per_slot=4, prompt_pad=16, max_new_tokens=4)
+    prompts = [np.arange(3 + 2 * i, dtype=np.int32) * (i + 5) % 97 for i in range(3)]
+    for arch in ENGINE_ARCHS:
+        cfg = configs.get_smoke(arch)
+        whole = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+        local = shr.local_tree(whole, shr.named_shardings(
+            mesh, shr.param_specs(whole, fsdp=False, mesh=mesh)))
+        for wire in ENGINE_WIRES:
+            sc = ServeConfig(**shape, wire=wire)
+            for tag, params, m in (("tp", local, mesh), ("one", whole, None)):
+                eng = ServeEngine(cfg, params, sc, mesh=m)
+                for i, p in enumerate(prompts):
+                    eng.submit(p, arrival_tick=i)
+                done, _ = eng.run()
+                out[f"engine/{arch}/{wire}/{tag}"] = np.concatenate(
+                    [np.asarray(c.tokens).reshape(-1) for c in done])
+                out[f"engine/{arch}/{wire}/{tag}/kv"] = np.asarray(
+                    eng.pool["groups"][0]["k"].shape[-2])
 
 
 def pieces(whole, r):
@@ -215,6 +245,7 @@ if __name__ == "__main__":
         res: dict = {}
         select(mesh.get_group("model"), res)
         clipped(mesh, res)
+        engine(mesh, res)
         families(mesh, dict(np.load(inputs)), res)
         np.savez(dest, **res)
     finally:
