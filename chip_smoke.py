@@ -366,6 +366,19 @@ each kernel launching once per dtype group.
     llama3.2-1b's engine at (1, 2), phase 16's slots, pages and 8
     requests: tokens equal to the one-rank engine's, tokens/s beside it.
     Every process's peak memory is printed.
+20. **Every compression stage over leaves cut across the model axis**
+    (``--only stages-cut``; two processes over gloo, ``--stages-worker``,
+    at mesh (1, 2)): (a) each configuration whose stages cut or key a
+    leaf by flat coordinate, and the top-k downlink's global, sampled,
+    int8 and probquant variants, through ``client_compress`` and
+    ``server_aggregate`` on each rank's pieces of TP_SELECT's leaves
+    (the layout ``over`` the model group with each piece's box), bitwise
+    the whole leaves' run (the sketch within STAGES_SKETCH_REL); (b)
+    llama3.2-1b at its published widths, 2 of 16 layers, bf16, two steps
+    of each of STAGES_CUT (the eight configurations at (1, 2); sampled
+    dgcwgmf and the int8 wire under gmf_pod FSDP at (1, 2, 1)) against
+    rank 0's mesh-less run: losses within TP_TRAIN_TOL, the params'
+    change within TP_DELTA_TOL, K1-K3's launches a step as counted.
 
 Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
 ran one block a segment; the ``kernels`` line holds only this run's
@@ -5237,6 +5250,387 @@ def fsdp_phase(rt, dev, card):
     return fsdp_pair_phase(rt, card, wit)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: every compression stage over leaves cut across the model axis
+# (ROADMAP item 11 part C2b)
+# ---------------------------------------------------------------------------
+
+PHASE20 = ("phase 20: every compression stage over leaves cut across the model axis: the "
+           "stage-level check, then llama3.2-1b (2 layers) under the eight configurations at "
+           "(1, 2) and two under FSDP at (1, 2, 1), two processes on the card (gloo)")
+# the paths whose runs launch gmf_select's group mode (the kernel table's row)
+GROUP_PATHS = ("llama_tp", "llama_fsdp", "llama_stages_cut")
+STAGES_DIR = ROOT / "build" / "stages"  # phase 20's store and the workers' records (ignored)
+# (b)'s runs: llama3.2-1b at its published widths, 2 of 16 layers (646,981,632
+# params), bf16, batch 2 x 128, 2 steps a configuration over the mesh and
+# without one
+STAGES_TRAIN = dict(layers=2, batch=2, seq_len=128, steps=2)
+# the fused GMF path's launches a step (gmf_select, the K1 mask pass, K2); the
+# staged top-k path's (K2, gmf_select's |z| mode, K3)
+_FUSED = {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1}
+_STAGED = {"momentum_correction": 1, "gmf_select": 1, "apply_mask": 1}
+# name -> (CompressionConfig keywords, grad_sync, mesh shape, the compression
+# kernels' launches a step). Global top-k selects by a radix select in torch
+# ops (K2 and K3 still launch); random-k and FetchSGD's sketch launch none of
+# K1-K3 (error feedback and the sketch are torch ops)
+STAGES_CUT = {
+    "sampled": (dict(scheme="dgcwgmf", selector="sampled"), "gmf_data", (1, 2), _FUSED),
+    "global": (dict(scheme="dgc", per_tensor=False), "gmf_data", (1, 2),
+               {"momentum_correction": 1, "apply_mask": 1}),
+    "randomk": (dict(scheme="randomk"), "gmf_data", (1, 2), {}),
+    "fetchsgd": (dict(scheme="fetchsgd"), "gmf_data", (1, 2), {}),
+    "int8": (dict(scheme="dgc", wire_stage="int8"), "gmf_data", (1, 2), _STAGED),
+    "probquant": (dict(scheme="dgc", wire_stage="probquant"), "gmf_data", (1, 2), _STAGED),
+    "hadamard": (dict(scheme="dgc", rotation_stage="hadamard"), "gmf_data", (1, 2), _STAGED),
+    "adaptive": (dict(scheme="adaptive_dgcwgmf"), "gmf_data", (1, 2), _FUSED),
+    "fsdp_sampled": (dict(scheme="dgcwgmf", selector="sampled"), "gmf_pod", (1, 2, 1), _FUSED),
+    "fsdp_int8": (dict(scheme="dgcwgmf", wire_stage="int8"), "gmf_pod", (1, 2, 1), _FUSED),
+}
+# (a)'s stage-level check: the configurations whose stages cut or key a leaf
+# by flat coordinate, and the top-k downlink's global, sampled, int8 and
+# probquant variants, on TP_SELECT's leaves (TP_SELECT_ROWS rows)
+STAGES_CHECK = {name: kw for name, (kw, *_) in STAGES_CUT.items() if not name.startswith("fsdp")}
+STAGES_CHECK |= {"dl_global": dict(scheme="dgcwgmf_dl", per_tensor=False),
+                 "dl_sampled": dict(scheme="dgcwgmf_dl", selector="sampled"),
+                 "dl_int8": dict(scheme="dgcwgmf_dl", wire_stage="int8"),
+                 "dl_probquant": dict(scheme="dgcwgmf_dl", wire_stage="probquant")}
+# the sketch over two ranks sums its buckets in another order (atomics on
+# the card): its payload and error within this of their largest magnitude
+STAGES_SKETCH_REL = 1e-5
+
+
+def stages_check(rt, group, dev):
+    """(a) on this rank: each of STAGES_CHECK through ``client_compress`` and
+    ``server_aggregate`` on the rank's pieces of TP_SELECT's leaves (the
+    layout ``over`` the model group with each piece's box) and on the whole
+    leaves (no group), on the same rows: which outputs are bitwise the
+    whole run's pieces (the sketch's payload and error within
+    STAGES_SKETCH_REL, its hitters bitwise on the whole run's summed
+    sketch). Integer-valued inputs in [-6, 6] under GMF (every norm exact in
+    any order), normal draws elsewhere. Returns {name: {output: bool}} and
+    the largest relative difference of the sketch."""
+    import torch.distributed as dist
+
+    from repro_torch.core.state import ClientState, ServerState
+    from repro_torch.utils.flat import Box
+
+    r, n = dist.get_rank(group), dist.get_world_size(group)
+    names = sorted(TP_SELECT)
+    whole_lay = rt.flat.FlatLayout.of({k: torch.zeros(TP_SELECT[k][0], device=dev) for k in names})
+    boxes = [Box(s, tuple(r * (e // n) if j == d else 0 for j, e in enumerate(s)))
+             for s, d in (TP_SELECT[k] for k in names)]
+
+    # the pieces in their own shapes (the sampled estimator reads them)
+    small = rt.flat.FlatLayout.of({k: torch.zeros(
+        [e // n if j == d else e for j, e in enumerate(TP_SELECT[k][0])], device=dev)
+        for k, d in ((k, TP_SELECT[k][1]) for k in names)})
+
+    def piece(x):  # [rows, N] of the whole leaves -> the rank's pieces
+        return small.flatten({k: t if TP_SELECT[k][1] is None else
+                              t.chunk(n, dim=TP_SELECT[k][1] + 1)[r]
+                              for k, t in whole_lay.unflatten(x).items()})
+
+    lay = small.over(group, whole_lay.sizes, None, boxes)
+    out, worst = {}, 0.0
+    rows = TP_SELECT_ROWS
+    for name, kw in STAGES_CHECK.items():
+        cfg = rt.core.CompressionConfig(rate=RATE, downlink_rate=RATE, tau=0.3, **kw)
+        scheme = rt.core.resolve(cfg)
+        gen = torch.Generator(device=dev).manual_seed(43)
+        ints = scheme.fusion.name == "gmf"
+
+        def draw():
+            if ints:
+                return torch.randint(-6, 7, (rows, whole_lay.total), generator=gen,
+                                     device=dev).float()
+            return torch.randn((rows, whole_lay.total), generator=gen, device=dev)
+
+        u, v, m, res, smom, grad, gbar = (draw() for _ in range(7))
+        extra = dict(client_ids=torch.tensor([3, 8, 1], device=dev))
+        if name == "adaptive":
+            extra.update(rates=torch.tensor([0.05, 0.2, 0.5], device=dev),
+                         wire_levels=torch.tensor([0, 1, 0], device=dev))
+        zero_sk = lambda: torch.zeros(cfg.sketch_rows, cfg.sketch_cols, device=dev)  # noqa: E731
+
+        def run(layout, cut, g_sum=None):
+            st = ClientState(u=cut(u) if scheme.uses_u else {}, v=cut(v) if scheme.uses_v else {},
+                             m=cut(m) if scheme.uses_m else {})
+            g, new, info = scheme.client_compress(st, cut(grad), cut(gbar)[0], 2, layout=layout,
+                                                  **extra)
+            sst = ServerState(momentum=({"s_mom": zero_sk(), "s_err": zero_sk()}
+                                        if scheme.is_sketch else cut(smom)[0]
+                                        if scheme.server_momentum else {}),
+                              residual=cut(res)[0] if scheme.downlink_residual else {})
+            bc, sst, ainfo = scheme.server_aggregate(sst, g.sum(0) if g_sum is None else g_sum,
+                                                     3.0, layout=layout, lr=0.05)
+            return g, new, info, bc, sst, ainfo
+
+        got, want = run(lay, piece), run(whole_lay, lambda x: x)
+        held = {}
+
+        def same(what, a, b):
+            held[what] = bool(a.shape == b.shape and torch.equal(a, b))
+
+        if scheme.is_sketch:
+            err = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+            held["payload (within the tolerance)"] = err <= STAGES_SKETCH_REL
+            worst = max(worst, err)
+            got = run(lay, piece, want[0].sum(0))  # the server on the whole run's sketch
+            se = got[4].momentum["s_err"] - want[4].momentum["s_err"]
+            err = float(se.abs().max() / want[4].momentum["s_err"].abs().max())
+            held["s_err (within the tolerance)"] = err <= STAGES_SKETCH_REL
+            worst = max(worst, err)
+        else:
+            same("payload", got[0], piece(want[0]))
+        for f in ("u", "v", "m"):
+            if isinstance(getattr(got[1], f), torch.Tensor):
+                same(f, getattr(got[1], f), piece(getattr(want[1], f)))
+        same("upload_nnz", got[2].upload_nnz, want[2].upload_nnz)
+        same("bcast", got[3], piece(want[3][None])[0])
+        if scheme.downlink_residual:
+            same("residual", got[4].residual, piece(want[4].residual[None])[0])
+        same("download_nnz", got[5].download_nnz, want[5].download_nnz)
+        held["total_params"] = got[2].total_params == want[2].total_params == whole_lay.total
+        out[name] = held
+    torch.cuda.synchronize()
+    return out, worst
+
+
+def stages_train(rt, rank, name, dev):
+    """(b) one configuration of STAGES_CUT: STAGES_TRAIN's steps over its mesh
+    (each rank its pieces, FSDP's under gmf_pod), then rank 0's mesh-less run
+    of gmf_data on the same params and batches (rank 1 waits). Returns the
+    record: losses and counts of both runs, the compression kernels'
+    launches by instance, and on rank 0 its pieces' params and their change
+    against the mesh-less run's (relative L2 over all leaves)."""
+    import gc
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.dist import sharding as shr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    kw, sync, shape, _ = STAGES_CUT[name]
+    cfg = dataclasses.replace(rt.configs.get_config(LLAMA), num_layers=STAGES_TRAIN["layers"])
+    mesh = make_mesh(shape, ("pod", "data", "model")[-len(shape):])
+    fsdp = sync == "gmf_pod"
+    steps = STAGES_TRAIN["steps"]
+
+    def run(m):
+        tcfg = TrainConfig(learning_rate=3e-3, total_steps=steps + 1,
+                           grad_sync=sync if m is not None else "gmf_data",
+                           lr_schedule="cosine", warmup_steps=1)
+        ccfg = rt.core.CompressionConfig(rate=RATE, tau=0.3, use_kernels=True, **kw)
+        params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        if m is not None:
+            params = pieces_of(rt, params, m, fsdp)[0]
+        init = [x.clone() for x in rt.utils.tree_leaves(params)]
+        state = rt.dstep.init_train_state(cfg, tcfg, ccfg, params, m)
+        del params
+        step = rt.dstep.make_train_step(cfg, tcfg, ccfg, m)
+        b_sh = (shr.named_shardings(m, rt.dstep.step_batch_specs(cfg, tcfg, m))
+                if m is not None else None)
+        stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=STAGES_TRAIN["seq_len"],
+                                   batch_size=STAGES_TRAIN["batch"], seed=0)
+        rt.gk.reset_launches()
+        recs, ms = [], []
+        for _, b in zip(range(steps), stream, strict=False):
+            batch = to_tensors(b, dev)
+            if b_sh is not None:
+                batch = shr.local_tree(batch, b_sh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            recs.append({"loss": float(met["loss"]), "upload_nnz": met["upload_nnz"].tolist()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        final = rt.utils.tree_leaves(state.params)
+        if m is None:  # rank 0's pieces of the mesh-less run's params
+            specs = rt.utils.tree_leaves(shr.param_specs(transformer.abstract_params(cfg),
+                                                         fsdp=fsdp, mesh=mesh))
+            final = [piece_of(x, sp, mesh) for x, sp in zip(final, specs, strict=True)]
+            init = [piece_of(x, sp, mesh) for x, sp in zip(init, specs, strict=True)]
+        delta = [a.float() - b.float() for a, b in zip(final, init, strict=True)]
+        rec = dict(recs=recs, ms=ms, total=int(met["total_params"]),
+                   inst={f"{k[0]}[{k[1]}]": c for k, c in rt.gk.INSTANCES.items()},
+                   launches=dict(rt.gk.LAUNCHES))
+        out = (rec, [x.clone() for x in final], delta)
+        del state, step, init, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    dstep = rt.dstep
+    dstep._FSDP_PARAM_THRESHOLD = 0 if fsdp else 40e9  # FSDP forced: 2 layers fall under 40e9
+    try:
+        meshed, m_final, m_delta = run(mesh)
+    finally:
+        dstep._FSDP_PARAM_THRESHOLD = 40e9
+    torch.distributed.barrier()
+    out = {"mesh": meshed, "cut_leaves": sum(
+        a.numel() != b.numel() for a, b in zip(m_final, rt.utils.tree_leaves(
+            transformer.abstract_params(cfg)), strict=True))}
+    if rank == 0:
+        less, l_final, l_delta = run(None)
+        out["less"] = less
+        out["param_rel_l2"] = max(float((a.float() - b.float()).norm() / b.float().norm()
+                                        .clamp_min(1e-30)) for a, b in zip(m_final, l_final,
+                                                                           strict=True))
+        off = sum(float((a - b).norm()) ** 2 for a, b in zip(m_delta, l_delta, strict=True))
+        moved = sum(float(b.norm()) ** 2 for b in l_delta)
+        out["delta_rel_l2"] = math.sqrt(off / max(moved, 1e-60))
+        del l_final, l_delta
+    del m_final, m_delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def stages_worker(rank: int, init: str, dest: str) -> None:
+    """One of phase 20's two processes on the one card: a gloo world of two
+    over ``init`` (the card's tensors cross it), (a) the stage-level check
+    over the model group of the mesh (1, 2), then (b) each configuration's
+    training runs; the records to ``dest`` (JSON)."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import faulthandler
+
+    import repro_torch.configs as configs
+    import repro_torch.core as core
+    import repro_torch.utils as utils
+    from repro_torch.core import sparsify
+    from repro_torch.dist import step as dstep
+    from repro_torch.kernels import gmf_compress as gk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils import flat
+
+    rt = argparse.Namespace(core=core, utils=utils, gk=gk, configs=configs, dstep=dstep,
+                            sparsify=sparsify, flat=flat)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    faulthandler.enable()
+    torch.distributed.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                                         timeout=datetime.timedelta(seconds=600))
+    out = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        group = make_mesh((1, 2), ("data", "model")).get_group("model")
+        out["check"], out["sketch_rel"] = stages_check(rt, group, dev)
+        out["check_s"] = time.perf_counter() - t0
+        out["train"] = {}
+        for name in STAGES_CUT:
+            t0 = time.perf_counter()
+            out["train"][name] = stages_train(rt, rank, name, dev)
+            out["train"][name]["s"] = time.perf_counter() - t0
+            print(f"rank {rank}: {name} in {out['train'][name]['s']:.1f} s", flush=True)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(dest).write_text(json.dumps(out))
+
+
+def stages_cut_phase(rt, card):
+    """Phase 20: two processes on the one card (``chip_smoke.py
+    --stages-worker``), started together, waited for with a time limit and
+    killed past it; prints the readings, then checks them. Returns (rank
+    0's records, the compression kernels' launches by (kernel, instance)
+    over both ranks' mesh runs and rank 0's mesh-less runs)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    STAGES_DIR.mkdir(parents=True, exist_ok=True)
+    store = STAGES_DIR / "store_two"
+    store.unlink(missing_ok=True)
+    dests = [STAGES_DIR / f"rank{r}.json" for r in range(2)]
+    for d in dests:
+        d.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--stages-worker",
+                               str(r), "--tp-init", f"file://{store}", "--tp-out", str(dests[r])],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    check(all(p.returncode == 0 for p in procs),
+          "phase 20 workers failed:\n" + "\n".join(f"--- rank {r} (rc {p.returncode}):\n"
+                                                   f"{log[-3000:]}" for r, (p, log) in
+                                                   enumerate(zip(procs, logs, strict=True))))
+    res = [json.loads(d.read_text()) for d in dests]
+    return res[0], stages_report(res, card)
+
+
+def stages_report(res, card):
+    """Phase 20's readings, then their checks, from the two ranks' records.
+    Returns the compression kernels' launches by (kernel, instance) over
+    both ranks' mesh runs and rank 0's mesh-less runs."""
+    steps = STAGES_TRAIN["steps"]
+    for r, rec in enumerate(res):  # the readings first, so that a failing run shows them all
+        bad = {n: [k for k, ok in h.items() if not ok] for n, h in rec["check"].items()}
+        print(f"  (a) rank {r}: {len(rec['check'])} configurations on TP_SELECT's leaves over "
+              f"the two ranks against the whole leaves in {rec['check_s']:.1f} s; not bitwise: "
+              f"{ {n: b for n, b in bad.items() if b} or 'none'}; the sketch within "
+              f"{rec['sketch_rel']:.3e} of its largest magnitude", flush=True)
+    print(f"  (b) llama3.2-1b, {STAGES_TRAIN['layers']} of 16 layers, bf16, batch "
+          f"{STAGES_TRAIN['batch']} x {STAGES_TRAIN['seq_len']}, {steps} steps a configuration, "
+          f"two processes on one card over gloo ({card}):", flush=True)
+    r0 = res[0]["train"]
+    for name, tr in r0.items():
+        t, o = tr["mesh"], tr["less"]
+        print(f"    {name} at {STAGES_CUT[name][2]} ({STAGES_CUT[name][1]}): losses "
+              f"{[x['loss'] for x in t['recs']]} (no mesh {[x['loss'] for x in o['recs']]}); "
+              f"params within {tr['param_rel_l2']:.3e}, their change within "
+              f"{tr['delta_rel_l2']:.3e} relative L2 (rank 0's pieces); upload nnz "
+              f"{[x['upload_nnz'] for x in t['recs']]} (no mesh "
+              f"{[x['upload_nnz'] for x in o['recs']]}); ms/step {[round(x, 1) for x in t['ms']]}"
+              f" (no mesh {[round(x, 1) for x in o['ms']]}; reported only); launches "
+              f"{json.dumps(t['inst'])} (no mesh {json.dumps(o['inst'])}); {tr['s']:.1f} s",
+              flush=True)
+    print(f"  phase 20 workers' peak GiB: {[round(x['peak_gib'], 2) for x in res]}", flush=True)
+    inst = {}
+    for r, rec in enumerate(res):
+        bad = {n: [k for k, ok in h.items() if not ok] for n, h in rec["check"].items()}
+        check(not any(bad.values()), f"(a) rank {r}: not the whole leaves' pieces: {bad}")
+        check(set(rec["check"]) == set(STAGES_CHECK), f"(a) rank {r}: ran {list(rec['check'])}")
+        for name, tr in rec["train"].items():
+            want = {k: steps * n for k, n in STAGES_CUT[name][3].items()}
+            got = {k: n for k, n in tr["mesh"]["launches"].items() if n}
+            check(got == want, f"(b) {name} rank {r}: launches {got}, expected {want}")
+            check(tr["cut_leaves"] > 0, f"(b) {name} rank {r}: no leaf cut")
+            for k, n in tr["mesh"]["inst"].items():
+                key = tuple(k[:-1].split("[", 1))
+                inst[key] = inst.get(key, 0) + n
+    for name, tr in r0.items():
+        t, o = tr["mesh"], tr["less"]
+        for a, b in zip(t["recs"], o["recs"], strict=True):
+            check(abs(a["loss"] - b["loss"]) <= TP_TRAIN_TOL * abs(b["loss"]),
+                  f"(b) {name}: loss {a['loss']} vs {b['loss']} without a mesh")
+        check(tr["delta_rel_l2"] <= TP_DELTA_TOL,
+              f"(b) {name}: the params' change {tr['delta_rel_l2']:.3e} relative L2 from the "
+              f"mesh-less run's")
+        check(t["total"] == o["total"], f"(b) {name}: total_params {t['total']} vs {o['total']}")
+        want = {k: steps * n for k, n in STAGES_CUT[name][3].items()}
+        got = {k: n for k, n in o["launches"].items() if n}
+        check(got == want, f"(b) {name}: the mesh-less run's launches {got}, expected {want}")
+        for k, n in o["inst"].items():
+            key = tuple(k[:-1].split("[", 1))
+            inst[key] = inst.get(key, 0) + n
+    return inst
+
+
 T_START = time.perf_counter()
 
 
@@ -5247,11 +5641,13 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp"), default=None,
-                    help="run only the build and kernel phases, or the build and phase 18, or "
-                         "the build and phase 19")
+    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp", "stages-cut"),
+                    default=None,
+                    help="run only the build and kernel phases, or the build and phase 18, "
+                         "19 or 20")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--stages-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
@@ -5259,11 +5655,20 @@ def main() -> None:
                          "each serving run's, a dense training step's and the serving "
                          "engine's time goes (torch.profiler; phases 4, 5, 9, 13, 14 and 16)")
     args = ap.parse_args()
+    # Before CUDA starts. Phase 15 peaks at 71.2 GiB run alone; after the
+    # earlier phases it ran out of memory with 8.8 GiB reserved by the
+    # caching allocator but unallocated (free blocks in segments that live
+    # blocks keep), even after empty_cache. Expandable segments map memory
+    # in pages that empty_cache and reuse can take back one by one.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if args.tp_worker is not None:  # one of phase 18's two processes
         tp_worker(args.tp_worker, args.tp_init, args.tp_out)
         return
     if args.fsdp_worker is not None:  # one of phase 19's two processes
         fsdp_worker(args.fsdp_worker, args.tp_init, args.tp_out)
+        return
+    if args.stages_worker is not None:  # one of phase 20's two processes
+        stages_worker(args.stages_worker, args.tp_init, args.tp_out)
         return
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -5322,15 +5727,20 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if args.only in ("model-axis", "fsdp"):
+    if args.only in ("model-axis", "fsdp", "stages-cut"):
         if args.only == "model-axis":
             phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
                   "processes on the card over gloo)")
             model_axis_phase(rt, dev, card, bw, peak, _resnet56_params(dev))
-        else:
+        elif args.only == "fsdp":
             phase("phase 19: FSDP over data, the expert-parallel MoE and the engine at model 2 "
                   "(two processes on the card over gloo)")
             fsdp_phase(rt, dev, card)
+        else:
+            phase(PHASE20)
+            t20 = time.perf_counter()
+            stages_cut_phase(rt, card)
+            print(f"  phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
         phase("results")
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5488,6 +5898,10 @@ def main() -> None:
             for k, n in fsdp_rec["gmf_pod"]["mesh"]["inst"].items()}
         k4_tc_by_path["kimi_ep_model2"] = fsdp_rec["kimi"]["k4"].get("flash_attention_tc", 0)
         print(f"  phase 19 in {time.perf_counter() - t19:.1f} s", flush=True)
+        phase(PHASE20)
+        t20 = time.perf_counter()
+        _, bf16_by_path["llama_stages_cut"] = stages_cut_phase(rt, card)
+        print(f"  phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
         launches["flash_attention_tc"] = sum(k4_tc_by_path.values())
         for counts in by_path.values():
             for name, n in counts.items():
@@ -5540,14 +5954,16 @@ def main() -> None:
                      "source": PORT_SOURCE, "replaces": replaces["gmf_select"],
                      "instance": "group:bf16,bf16",
                      "launches": sum(bf16_by_path.get(p, {}).get(
-                         ("gmf_select", "group:bf16,bf16"), 0) for p in ("llama_tp",
-                                                                         "llama_fsdp")),
+                         ("gmf_select", "group:bf16,bf16"), 0) for p in GROUP_PATHS),
                      "launches_by_path": {p: bf16_by_path.get(p, {}).get(
-                         ("gmf_select", "group:bf16,bf16"), 0) for p in ("llama_tp",
-                                                                         "llama_fsdp")},
+                         ("gmf_select", "group:bf16,bf16"), 0) for p in GROUP_PATHS},
                      "launches_in": "phase 18 (b): llama3.2-1b gmf_data at mesh (1, 2), both "
                                     "ranks; phase 19 (b): llama3.2-1b (8 layers) gmf_pod at "
-                                    "(1, 2, 1) under FSDP, rank 0",
+                                    "(1, 2, 1) under FSDP, rank 0; phase 20 (b): llama3.2-1b "
+                                    "(2 layers), the fused configurations at (1, 2) and "
+                                    "(1, 2, 1), both ranks",
+                     "abs_mode_launches": sum(bf16_by_path.get(p, {}).get(
+                         ("gmf_select", "group:abs:bf16"), 0) for p in GROUP_PATHS),
                      "max_abs_err": tp_times["max_abs_err"],
                      **{k: tp_times[k] for k in ("ms", "bound_ms", "bound_by", "at")},
                      "plain_ms": tp_times["plain_ms"], "library_ms": None,

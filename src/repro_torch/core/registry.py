@@ -66,10 +66,6 @@ def _gather(parts):
     return parts[0] if isinstance(parts[0], dict) and not parts[0] else tuple(parts)
 
 
-# The wires that act elementwise (a cast), and so run on a leaf's piece.
-_ELEMENTWISE_WIRES = ("float32", "float16", "bfloat16")
-
-
 # Presets of the reference not ported yet -> the ROADMAP item that ports them.
 NOT_PORTED_PRESETS: dict[str, str] = {}
 
@@ -292,8 +288,6 @@ class Scheme:
             return self._grouped_client(state, grad, gbar_prev, round_idx, local_steps,
                                         mean_steps, tau_override, rates, wire_levels,
                                         client_ids, layout)
-        if layout.cut:
-            self.check_model_axis(rates)
         if self.is_sketch:
             return self._sketch_client(state, grad, layout)
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
@@ -328,31 +322,11 @@ class Scheme:
         if not self.rotation.identity:
             # rotation densifies: the padded rotated leaves cross the wire
             nnz = torch.full((grad.shape[0],), sum(self.rotation.wire_size(n)
-                                                   for n in layout.sizes),
+                                                   for n in layout.full_sizes),
                              dtype=torch.int64, device=grad.device)
         g_out, new_state = self._encode_payload(cfg, g_out, ClientState(u=u, v=v, m=m),
                                                 layout, wire_levels, ctx)
         return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
-
-    def check_model_axis(self, rates=None) -> None:
-        """Raise unless every stage acts elementwise or per leaf, so that it
-        runs on the rank's pieces of leaves cut over a model group: the
-        stages that cut or key a leaf by flat coordinate, whose local piece
-        is strided in the leaf's order, wait for ROADMAP item 11 part C2b."""
-        cfg = self.cfg
-        across = [name for name, bad in (
-            ("the sketch selector", self.is_sketch),
-            ("global top-k (per_tensor=False)", not cfg.per_tensor),
-            (f"the {cfg.selector} threshold estimator", cfg.selector != "exact"),
-            ("the randomk selector", self.selector.name == "randomk"),
-            (f"the {self.wire.name} wire", self.wire.name not in _ELEMENTWISE_WIRES),
-            (f"the {self.rotation.name} rotation", not self.rotation.identity),
-            ("adaptive rate control", self.rate_adaptive or rates is not None)) if bad]
-        if across:
-            raise NotImplementedError(
-                f"scheme {self.name!r}: {', '.join(across)} over leaves cut across a model axis "
-                f"is not ported yet (it cuts or keys a leaf by flat coordinate): ROADMAP Queue 1 "
-                f"item 11 part C2b")
 
     def check_grouped(self) -> None:
         """Raise unless every stage works leaf by leaf (a tree of mixed
@@ -396,26 +370,41 @@ class Scheme:
         ``encode``."""
         if self.rotation.identity and wire_levels is None:
             return self.wire.encode(cfg, g_out, state, layout, ctx)
-        y, wire_layout = self.rotation.forward(cfg, g_out, ctx.round_idx, layout)
-        y_wire = self.wire.roundtrip_ctx(cfg, y, wire_layout, ctx)
-        if wire_levels is not None:
-            y_wire = torch.where(rows(wire_levels, y) > 0, roundtrip_q8_segments(y, wire_layout),
-                                 y_wire)
-        g_wire = self.rotation.inverse(cfg, y_wire, ctx.round_idx, layout)
+
+        def through(y, wire_layout):
+            y_wire = self.wire.roundtrip_ctx(cfg, y, wire_layout, ctx)
+            if wire_levels is None:
+                return y_wire
+            return torch.where(rows(wire_levels, y) > 0, roundtrip_q8_segments(y, wire_layout),
+                               y_wire)
+
+        if self.rotation.by_leaf(layout):
+            g_wire = self.rotation.roundtrip_by_leaf(cfg, g_out, ctx.round_idx, layout, through)
+        else:
+            y, wire_layout = self.rotation.forward(cfg, g_out, ctx.round_idx, layout)
+            g_wire = self.rotation.inverse(cfg, through(y, wire_layout), ctx.round_idx, layout)
+        # the rotation works in float32; its inverse lands in the payload's
+        # dtype, as the reference's ``astype(like.dtype)`` does
+        g_wire = g_wire.to(g_out.dtype)
         return g_wire, ClientState(u=state.u, v=stages.fold_residual(state.v, g_out, g_wire),
                                    m=state.m)
 
     def _sketch_client(self, state: ClientState, grad, layout):
         """FetchSGD's upload: each client's count sketch of its whole
         gradient, ``[k, rows·cols]``, through the wire; rows·cols values a
-        client."""
+        client. Over a layout cut across a group each rank sketches its
+        entries by their whole-tree indices and the partial sketches are
+        summed over the group (``count_sketch.sketch_pieces``)."""
         cfg = self.cfg
         size = cfg.sketch_rows * cfg.sketch_cols
-        payload = count_sketch.sketch(grad, cfg.sketch_rows, cfg.sketch_cols).reshape(-1, size)
-        payload, state = self.wire.encode(cfg, payload, state,
+        if count_sketch.by_pieces(layout, cfg.sketch_rows):
+            payload = count_sketch.sketch_pieces(grad, layout, cfg.sketch_rows, cfg.sketch_cols)
+        else:
+            payload = count_sketch.sketch(grad, cfg.sketch_rows, cfg.sketch_cols)
+        payload, state = self.wire.encode(cfg, payload.reshape(-1, size), state,
                                           FlatLayout.of_sizes([size], grad.device))
         nnz = torch.full((grad.shape[0],), size, dtype=torch.int64, device=grad.device)
-        return payload, state, CompressInfo(upload_nnz=nnz, total_params=layout.total)
+        return payload, state, CompressInfo(upload_nnz=nnz, total_params=layout.full_total)
 
     def server_aggregate(self, server_state: ServerState, g_sum, num_clients, *, layout=None,
                          lr=None):
@@ -460,7 +449,9 @@ class Scheme:
         """FetchSGD's server: the averaged sketch into the sketch-space
         momentum, ``lr`` times that into the sketch-space error, the top
         k = max(1, ⌊sketch_k_frac·N⌋) heavy hitters of the error out as the
-        ``[N]`` broadcast and their sketch taken back off the error."""
+        ``[N]`` broadcast and their sketch taken back off the error. N is
+        the whole model's size: over a layout cut across a group each rank
+        broadcasts its piece of the hitters (``count_sketch.hitters_pieces``)."""
         cfg = self.cfg
         if lr is None or layout is None:
             raise ValueError("the fetchsgd scheme folds lr into the server-side sketch error "
@@ -468,13 +459,17 @@ class Scheme:
                              "server_aggregate(..., layout=..., lr=...) (the round engine "
                              "does)")
         n_rows, n_cols = cfg.sketch_rows, cfg.sketch_cols
-        n = layout.total
+        n = layout.full_total
         k = max(1, int(cfg.sketch_k_frac * n))
         s_agg = g_sum.reshape(n_rows, n_cols) / scalar(num_clients, g_sum.device, g_sum.dtype)
         s_mom = cfg.sketch_momentum * server_state.momentum["s_mom"] + s_agg
         s_err = server_state.momentum["s_err"] + lr * s_mom
-        _, _, delta = count_sketch.heavy_hitters(s_err, n, k)
-        s_err = s_err - count_sketch.sketch(delta, n_rows, n_cols)
+        if count_sketch.by_pieces(layout, n_rows):  # each rank its piece of the update
+            delta = count_sketch.hitters_pieces(s_err, layout, k)
+            s_err = s_err - count_sketch.sketch_pieces(delta[None], layout, n_rows, n_cols)[0]
+        else:
+            _, _, delta = count_sketch.heavy_hitters(s_err, n, k)
+            s_err = s_err - count_sketch.sketch(delta, n_rows, n_cols)
         return (delta, {"s_mom": s_mom, "s_err": s_err},
                 torch.full((), k, dtype=torch.int64, device=g_sum.device))
 

@@ -17,11 +17,26 @@ sums each bucket one slot at a time, in ascending coordinate order: the
 order of JAX's scatter-add on the CPU, with no atomics, so a sketch is
 bitwise the same on every run and device (CUDA's atomic ``index_add_``
 would sum in a varying order).
+
+Those tables hold several int64 ``[rows, n]`` arrays: tens of GB at a
+language model's size. A layout cut over a group (each rank holding
+pieces of leaves, ``FlatLayout.over`` with boxes), or one past
+``TABLE_LIMIT`` table entries, takes the ``*_pieces`` path instead: each
+segment's columns and signs hashed from its entries' whole-tree indices
+(``FlatLayout.tree_index``) in chunks, never held. ``sketch_pieces`` sums
+the entries that count on this rank into each bucket with ``index_add_``
+(on the CPU in ascending index order, so an uncut layout's sketch is the
+table path's bit for bit; on the card in the atomics' order) and all-reduces
+the partial sketches over the group. ``hitters_pieces`` un-sketches the
+rank's own entries and takes the whole model's top k by a radix select
+over the group (``sparsify.group_kth_largest``), ties to the lower whole
+index as ``heavy_hitters``' stable sort takes them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 from repro_torch.utils.draws import M32, mul32
 
@@ -29,6 +44,10 @@ _PRIME = 2_654_435_761  # Knuth's multiplicative constant
 
 # (n, rows, cols, device) -> the layout's column, sign and bucket tables
 _TABLES: dict = {}
+# rows · n past which a sketch hashes its entries chunk by chunk (the tables'
+# int64 [rows, n] arrays would pass 1 GiB each)
+TABLE_LIMIT = 1 << 27
+_CHUNK = 1 << 24  # entries hashed at once on the pieces path
 
 
 def _hash(idx: torch.Tensor, seed: int, mod: int) -> torch.Tensor:
@@ -107,3 +126,80 @@ def heavy_hitters(s: torch.Tensor, n: int, k: int):
     vals = est[idxs]
     dense = torch.zeros(n, dtype=torch.float32, device=s.device).index_copy_(0, idxs, vals)
     return vals, idxs, dense
+
+
+def by_pieces(layout, rows: int) -> bool:
+    """Whether ``layout``'s sketches take the ``*_pieces`` path: its leaves
+    are cut over a group, or the tables would pass ``TABLE_LIMIT``."""
+    return layout.cut or rows * layout.full_total > TABLE_LIMIT
+
+
+def _chunks(layout, segs):
+    """(segment i's chunk of a stack, the chunk's whole-tree indices) over
+    the segments that count on this rank, ``_CHUNK`` entries at a time."""
+    for i, (seg, counted) in enumerate(zip(segs, layout.counted, strict=True)):
+        if not counted:
+            continue
+        idx = layout.tree_index(i)
+        for a in range(0, idx.shape[0], _CHUNK):
+            yield seg[..., a:a + _CHUNK], idx[a:a + _CHUNK]
+
+
+def sketch_pieces(x: torch.Tensor, layout, rows: int, cols: int) -> torch.Tensor:
+    """``sketch`` of each row of a flat ``[k, N]`` stack of ``layout``, as
+    the sketch of the whole tree's rows -> ``[k, rows, cols]``: the entries
+    that count on this rank hashed by their whole-tree indices and summed
+    into their buckets, the partial sketches summed over the group."""
+    out = torch.zeros(x.shape[0], rows, cols, dtype=torch.float32, device=x.device)
+    for chunk, idx in _chunks(layout, layout.segments(x)):
+        for r in range(rows):
+            out[:, r].index_add_(1, _hash(idx, r, cols), chunk.float() * _sign(idx, r))
+    if layout.cut:
+        torch.distributed.all_reduce(out, group=layout.group)
+    return out
+
+
+def unsketch_pieces(s: torch.Tensor, layout) -> torch.Tensor:
+    """``unsketch`` at the rank's entries of ``layout`` (each hashed by its
+    whole-tree index) -> ``[N]``, the rank's piece of the whole tree's
+    estimate."""
+    rows, cols = s.shape
+    out = []
+    for i in range(layout.num_leaves):
+        idx = layout.tree_index(i)
+        for a in range(0, idx.shape[0], _CHUNK):
+            at = idx[a:a + _CHUNK]
+            est = torch.stack([s[r].float()[_hash(at, r, cols)] * _sign(at, r)
+                               for r in range(rows)])
+            ordered = torch.sort(est, dim=0).values
+            out.append((ordered[(rows - 1) // 2] + ordered[rows // 2]) * 0.5)
+    return torch.cat(out) if out else s.new_zeros(0)
+
+
+def hitters_pieces(s: torch.Tensor, layout, k: int) -> torch.Tensor:
+    """``heavy_hitters``' dense ``[N]`` at the rank's entries of ``layout``:
+    the whole tree's k largest estimates by magnitude (those above the k-th
+    largest magnitude T, then those equal to T with the lowest whole-tree
+    indices), found by radix selects over the group, no estimate
+    gathered."""
+    from repro_torch.core.sparsify import counted_columns, group_kth_largest
+
+    group = layout.group if layout.cut else None
+    est = unsketch_pieces(s, layout)
+    mag = torch.abs(est)[None]
+    one = lambda n: torch.full((1,), n, dtype=torch.int64, device=est.device)  # noqa: E731
+    thr = group_kth_largest(counted_columns(mag, layout).contiguous().view(torch.int32), one(k),
+                            31, group).to(torch.int32).view(torch.float32)
+    above = torch.count_nonzero(counted_columns(mag > thr, layout)).reshape(1)
+    if group is not None:
+        torch.distributed.all_reduce(above, group=group)
+    # the ties at T: the (k - above) lowest whole-tree indices among them, as
+    # the largest keys 2^B - index (the others' key 0)
+    bits = max(1, (layout.full_total - 1).bit_length())
+    index = torch.cat([layout.tree_index(i) for i in range(layout.num_leaves)])[None]
+    tied = mag == thr
+    keys = torch.where(tied, (1 << bits) - index, 0)
+    last = (1 << bits) - group_kth_largest(counted_columns(keys, layout), one(k) - above,
+                                           bits + 1, group)
+    keep = (mag > thr) | (tied & (index <= last))
+    return torch.where(keep, est[None], 0.0)[0]

@@ -28,6 +28,16 @@ layout's leaves, ``keep_table``), and ``dynamic_threshold`` is the k-th
 largest of each row by a descending sort, the plain version of the
 kernel's per-row keep table. The k-th largest value of a multiset is
 unique, so for equal k both are bitwise ``torch.topk``'s.
+
+Over a layout of pieces cut across a mesh axis (``FlatLayout.over`` with
+boxes) every selection is the whole leaves' and gives the rank's piece of
+the mesh-less mask: the sampled estimator takes the points of the whole
+leaf's strided sample that lie in the rank's box (``segment_sample``) and
+gathers them over the group (``whole_sample``); global top-k finds the
+exact k-th largest of the whole row by a radix select over the float32
+bit patterns (``group_kth_largest``: a few passes of bin counts of the
+entries that count on this rank, all-reduced between passes), gathering
+no row.
 """
 
 from __future__ import annotations
@@ -63,29 +73,139 @@ def sampled_threshold(z_rows: torch.Tensor, rate: float) -> torch.Tensor:
     return exact_threshold(sample, num_keep(sample.shape[1], rate))
 
 
-def strided_sample_nd(z: torch.Tensor, target: int = _SAMPLE_TARGET) -> torch.Tensor:
-    """About ``target`` elements per client row, strided over each
-    per-client dimension in turn (the reference's ``strided_sample_nd``
-    applied to every row) -> ``[k, s]``."""
-    shape = z.shape[1:]
-    total = math.prod(shape)
-    stride_budget = max(1, total // target)
+def _sample_strides(shape, target: int = _SAMPLE_TARGET) -> list[int]:
+    """The strided sample's stride on each dim of a leaf of ``shape``."""
+    stride_budget = max(1, math.prod(shape) // target)
     strides = []
     for d in shape:
         s = min(d, stride_budget)
         strides.append(s)
         stride_budget = max(1, stride_budget // s)
+    return strides
+
+
+def strided_sample_nd(z: torch.Tensor, target: int = _SAMPLE_TARGET) -> torch.Tensor:
+    """About ``target`` elements per client row, strided over each
+    per-client dimension in turn (the reference's ``strided_sample_nd``
+    applied to every row) -> ``[k, s]``."""
+    strides = _sample_strides(z.shape[1:], target)
     sample = z[(slice(None),) + tuple(slice(None, None, s) for s in strides)]
     return sample.reshape(z.shape[0], -1)
+
+
+def segment_sample(seg: torch.Tensor, layout, i: int) -> torch.Tensor:
+    """The points of leaf ``i``'s strided sample (of the whole leaf, in its
+    shape) that segment ``i`` of a ``[k, N]`` stack holds -> ``[k, c]``: the
+    whole sample where the segment is not cut, else the points inside the
+    rank's box (whole coordinates that are multiples of the strides)."""
+    x = seg.reshape(seg.shape[0], *layout.shapes[i])
+    if not layout.cut_flags[i]:
+        return strided_sample_nd(x)
+    box = layout.boxes[i]
+    if box is None:
+        raise ValueError("a cut leaf's sample needs the pieces' boxes: FlatLayout.over(..., "
+                         "boxes=...)")
+    at = tuple(slice((-a) % s, None, s) for a, s in zip(box.start, _sample_strides(box.shape)))
+    return x[(slice(None),) + at].reshape(seg.shape[0], -1)
+
+
+def whole_sample(sample: torch.Tensor, layout, i: int) -> tuple[torch.Tensor, int]:
+    """Leaf ``i``'s whole strided sample of float32 scores from each rank's
+    ``segment_sample`` of it -> (``[k, s]``, the sample's size c): where the
+    leaf is cut, every rank's points gathered over the group (a collective)
+    and padded to the same width with -inf (s ≥ c; a rank that does not own
+    its piece sends padding alone), so the k-th largest for k ≤ c is the
+    whole sample's; else the sample itself (s = c)."""
+    if not layout.cut_flags[i]:
+        return sample, sample.shape[1]
+    box, shape = layout.boxes[i], layout.shapes[i]
+    strides = _sample_strides(box.shape)
+    width = math.prod(-(-e // s) for e, s in zip(shape, strides))
+    count = math.prod(-(-n // s) for n, s in zip(box.shape, strides))
+    padded = sample.new_full((sample.shape[0], width), float("-inf"))
+    if layout.owner_flags[i]:
+        padded[:, :sample.shape[1]] = sample
+    parts = [torch.empty_like(padded) for _ in range(torch.distributed.get_world_size(
+        layout.group))]
+    torch.distributed.all_gather(parts, padded, group=layout.group)
+    return torch.cat(parts, dim=1), count
+
+
+def _radix_passes(bits: int, width: int = 11) -> tuple[tuple[int, int], ...]:
+    """(shift, width) of each digit of a ``bits``-bit key, the top first."""
+    out, top = [], bits
+    while top > 0:
+        w = min(width, top)
+        out.append((top - w, w))
+        top -= w
+    return tuple(out)
+
+
+def group_kth_largest(keys: torch.Tensor, rank: torch.Tensor, bits: int,
+                      group=None) -> torch.Tensor:
+    """The ``rank[r]``-th largest of row r of ``keys`` (non-negative
+    integers below 2^bits, ``[rows, n]``) over every rank of ``group`` (each
+    rank's keys the entries that count there) -> int64 ``[rows]``. A radix
+    select: each pass counts the candidates' next digit (one ``bincount``
+    over the rows), sums the counts over the group (an all-reduce, none
+    without a group) and finds the digit from the top where the rank falls.
+    Exact, and no host sync."""
+    rows = keys.shape[0]
+    dev = keys.device
+    prefix = torch.zeros(rows, dtype=torch.int64, device=dev)
+    rank = rank.to(device=dev, dtype=torch.int64).reshape(rows)
+    base = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    for shift, width in _radix_passes(bits):
+        bins = 1 << width
+        top = shift + width
+        cand = (keys >> top) == (prefix >> top)[:, None]
+        slot = torch.where(cand, ((keys >> shift) & (bins - 1)).to(torch.int64) + base * bins,
+                           rows * bins)
+        hist = torch.bincount(slot.reshape(-1), minlength=rows * bins + 1)[:-1]
+        del cand, slot
+        if group is not None:
+            torch.distributed.all_reduce(hist, group=group)
+        desc = hist.view(rows, bins).flip(-1)
+        cum = torch.cumsum(desc, dim=1)
+        j = torch.searchsorted(cum, rank[:, None]).clamp_max(bins - 1)
+        rank = rank - (torch.gather(cum, 1, j) - torch.gather(desc, 1, j))[:, 0]
+        prefix = prefix | ((bins - 1 - j[:, 0]) << shift)
+    return prefix
+
+
+def counted_columns(x: torch.Tensor, layout) -> torch.Tensor:
+    """The columns of a ``[k, N]`` stack that count on this rank in a sum
+    over the layout's group (``FlatLayout.counted``), one ``[k, n']`` copy;
+    the stack itself on a layout that is not cut."""
+    if not layout.cut:
+        return x
+    segs = [seg for seg, c in zip(layout.segments(x), layout.counted, strict=True) if c]
+    return torch.cat(segs, dim=1) if segs else x[:, :0]
+
+
+def global_threshold(za: torch.Tensor, layout, keep: torch.Tensor) -> torch.Tensor:
+    """The ``keep[r]``-th largest of each whole row of a ``[k, N]`` float32
+    stack of non-negative scores whose segments are cut over the layout's
+    group -> ``[k]``: a radix select over the float32 bit patterns (whose
+    integer order is the values' order), no row gathered."""
+    bits = counted_columns(za, layout).contiguous().view(torch.int32)
+    thr = group_kth_largest(bits, keep, 31, layout.group)
+    return thr.to(torch.int32).view(torch.float32)
 
 
 def _bcast(thr: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return thr.reshape((thr.shape[0],) + (1,) * (like.dim() - 1))
 
 
-def topk_mask(z: torch.Tensor, rate: float, selector: str = "exact") -> torch.Tensor:
-    """{0,1} float32 mask keeping ~``rate`` of each client's largest ``|z|``."""
+def topk_mask(z: torch.Tensor, rate: float, selector: str = "exact", layout=None) -> torch.Tensor:
+    """{0,1} float32 mask keeping ~``rate`` of each client's largest ``|z|``.
+    A flat ``[k, N]`` stack of a ``layout`` cut over a group selects over
+    the whole rows (exact selector)."""
     za = torch.abs(z).float()
+    if layout is not None and layout.cut and selector == "exact":
+        keep = torch.full((za.shape[0],), num_keep(layout.full_total, rate), dtype=torch.int64,
+                          device=za.device)
+        return (za >= global_threshold(za, layout, keep)[:, None]).float()
     if selector == "exact":
         thr = exact_threshold(za.reshape(za.shape[0], -1), num_keep(za[0].numel(), rate))
     elif selector == "sampled":
@@ -121,16 +241,15 @@ def segment_thresholds(za: torch.Tensor, layout, rate: float,
     score stack -> ``[k, L]``: the exact k_i-th largest of the segment (of
     the whole leaf where it is cut over the layout's model group, the plain
     version of ``gmf_select``'s group mode), or the sampled estimate from a
-    strided sample of the leaf in its shape."""
+    strided sample of the (whole) leaf in its shape."""
     out = []
     keep, _ = layout.keep(rate)
-    for i, (seg, shape, k_i) in enumerate(zip(layout.segments(za), layout.shapes, keep,
-                                              strict=True)):
+    for i, (seg, k_i) in enumerate(zip(layout.segments(za), keep, strict=True)):
         if selector == "exact":
             out.append(exact_threshold(whole_segment(seg, layout, i), k_i))
         elif selector == "sampled":
-            sample = strided_sample_nd(seg.reshape(seg.shape[0], *shape))
-            out.append(exact_threshold(sample, num_keep(sample.shape[1], rate)))
+            sample, count = whole_sample(segment_sample(seg, layout, i), layout, i)
+            out.append(exact_threshold(sample, num_keep(count, rate)))
         else:
             raise ValueError(f"unknown selector {selector!r}")
     return torch.stack(out, dim=1)
@@ -158,8 +277,9 @@ def num_keep_dynamic(n, rate) -> torch.Tensor:
 
 def keep_table(layout, rates: torch.Tensor) -> torch.Tensor:
     """Every (client, leaf) segment's keep count at the clients' rates
-    ``[k]`` -> int64 ``[k, L]`` on the rates' device."""
-    return num_keep_dynamic(layout.sizes_dev.to(rates.device)[None, :], rates[:, None])
+    ``[k]`` (of the whole leaves' sizes) -> int64 ``[k, L]`` on the rates'
+    device."""
+    return num_keep_dynamic(layout.full_sizes_dev.to(rates.device)[None, :], rates[:, None])
 
 
 def dynamic_threshold(z_rows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -172,9 +292,9 @@ def dynamic_threshold(z_rows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def segment_keep_thresholds(za: torch.Tensor, layout, keep: torch.Tensor) -> torch.Tensor:
     """The ``keep[r, i]``-th largest of every (client, leaf) segment of a
-    flat ``[k, N]`` score stack -> ``[k, L]``: the plain version of the
-    kernel's per-row keep table."""
-    return torch.stack([dynamic_threshold(seg, keep[:, i])
+    flat ``[k, N]`` score stack (of the whole leaf where it is cut) -> ``[k,
+    L]``: the plain version of the kernel's per-row keep table."""
+    return torch.stack([dynamic_threshold(whole_segment(seg, layout, i), keep[:, i])
                         for i, seg in enumerate(layout.segments(za))], dim=1)
 
 
@@ -198,15 +318,19 @@ def segment_topk_mask_dynamic(z: torch.Tensor, layout, rates: torch.Tensor,
         raise ValueError(f"unknown selector {selector!r}")
     za = torch.abs(z).float()
     thr = []
-    for seg, shape in zip(layout.segments(za), layout.shapes, strict=True):
-        sample = strided_sample_nd(seg.reshape(seg.shape[0], *shape))
-        thr.append(dynamic_threshold(sample, num_keep_dynamic(sample.shape[1], rates)))
+    for i, seg in enumerate(layout.segments(za)):
+        sample, count = whole_sample(segment_sample(seg, layout, i), layout, i)
+        thr.append(dynamic_threshold(sample, num_keep_dynamic(count, rates)))
     return (za >= layout.expand(torch.stack(thr, dim=1))).float()
 
 
-def topk_mask_dynamic(z: torch.Tensor, rates: torch.Tensor) -> torch.Tensor:
+def topk_mask_dynamic(z: torch.Tensor, rates: torch.Tensor, layout=None) -> torch.Tensor:
     """One exact threshold per client over its whole row at its own rate
-    (global top-k, ``per_tensor=False``) -> the {0,1} mask."""
+    (global top-k, ``per_tensor=False``) -> the {0,1} mask; over the whole
+    rows where the ``[k, N]`` stack's layout is cut over a group."""
     za = torch.abs(z).float().reshape(z.shape[0], -1)
-    thr = dynamic_threshold(za, num_keep_dynamic(za.shape[1], rates))
+    if layout is not None and layout.cut:
+        thr = global_threshold(za, layout, num_keep_dynamic(layout.full_total, rates))
+    else:
+        thr = dynamic_threshold(za, num_keep_dynamic(za.shape[1], rates))
     return (za >= thr[:, None]).float().reshape(z.shape)

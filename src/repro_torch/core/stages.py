@@ -170,7 +170,7 @@ class TopKSelector(Selector):
         if rates is not None:
             return self._select_dynamic(cfg, scores, layout, rates)
         if not cfg.per_tensor:  # one exact threshold per client over all leaves
-            return sparsify.topk_mask(scores, cfg.rate, "exact")
+            return sparsify.topk_mask(scores, cfg.rate, "exact", layout)
         if cfg.selector == "exact":
             from repro_torch.kernels import ops
 
@@ -184,7 +184,7 @@ class TopKSelector(Selector):
         |z| mode with the per-row table on the card; global top-k and the
         sampled selector sort per row, as the reference does."""
         if not cfg.per_tensor:
-            return sparsify.topk_mask_dynamic(scores, rates)
+            return sparsify.topk_mask_dynamic(scores, rates, layout)
         if cfg.selector == "exact":
             from repro_torch.kernels import ops
 
@@ -407,16 +407,18 @@ class GlobalMomentumFusion(Fusion):
     @staticmethod
     def _sampled_thresholds(cfg, v, m, inv_nv, inv_nm, tau, layout):
         """DGC's sampled estimate of every segment's threshold: the score of
-        a strided sample of the leaf (in its shape) -> ``[k, L]``."""
+        a strided sample of the (whole) leaf in its shape -> ``[k, L]``; a
+        cut leaf's points scored where they lie and gathered over the
+        group."""
         from repro_torch.kernels import ref
 
         out = []
-        for i, (vs, ms, shape) in enumerate(zip(layout.segments(v), layout.segments(m),
-                                                layout.shapes, strict=True)):
-            sample = lambda x: sparsify.strided_sample_nd(x.reshape(x.shape[0], *shape))
-            zs = ref.gmf_fusion_score(sample(vs), sample(ms), inv_norm_v=inv_nv[:, i],
-                                      inv_norm_m=inv_nm[:, i], tau=tau)
-            out.append(sparsify.exact_threshold(zs, sparsify.num_keep(zs.shape[1], cfg.rate)))
+        for i, (vs, ms) in enumerate(zip(layout.segments(v), layout.segments(m), strict=True)):
+            zs = ref.gmf_fusion_score(sparsify.segment_sample(vs, layout, i),
+                                      sparsify.segment_sample(ms, layout, i),
+                                      inv_norm_v=inv_nv[:, i], inv_norm_m=inv_nm[:, i], tau=tau)
+            zs, count = sparsify.whole_sample(zs, layout, i)
+            out.append(sparsify.exact_threshold(zs, sparsify.num_keep(count, cfg.rate)))
         return torch.stack(out, dim=1)
 
 
@@ -573,6 +575,11 @@ class Rotation:
     def wire_size(self, n: int) -> int:
         return n
 
+    def by_leaf(self, layout) -> bool:
+        """Whether ``layout``'s payloads rotate one whole leaf at a time
+        (``roundtrip_by_leaf``) instead of through ``forward``/``inverse``."""
+        return False
+
 
 @register("rotation", "none")
 class NoRotation(Rotation):
@@ -623,6 +630,10 @@ class HadamardRotation(Rotation):
                    "rotation_seed/round/leaf); orthonormal, so R⁻¹ = "
                    "D·H/√m and norms are preserved")
 
+    # Padded entries past which a layout rotates one leaf at a time: the
+    # grouped plan holds four int64 index tensors of about that size.
+    PLAN_LIMIT = 1 << 27
+
     def __init__(self):
         self._plans: dict = {}
 
@@ -632,6 +643,41 @@ class HadamardRotation(Rotation):
 
     def wire_size(self, n: int) -> int:
         return self._padded(n)
+
+    def by_leaf(self, layout) -> bool:
+        """Leaves cut over a group (the transform mixes the whole padded
+        leaf), and layouts too large for the grouped plan, rotate one whole
+        leaf at a time."""
+        return layout.cut or sum(map(self._padded, layout.full_sizes)) > self.PLAN_LIMIT
+
+    def roundtrip_by_leaf(self, cfg, x, round_idx, layout, wire):
+        """``inverse(wire(forward(x)))`` one whole leaf at a time: each leaf
+        of the ``[k, N]`` stack gathered whole in its flat order where it is
+        cut (``FlatLayout.whole_leaf``), padded, rotated with its diagonal
+        (keyed by the whole index), sent through ``wire(y, leaf_layout)`` as
+        leaf i of the rotated layout (``FlatLayout.leaf``, made anew so that
+        its index tensors are dropped with it), rotated back, and the rank's
+        piece kept. The same float32 operations in the same order as the
+        grouped path, so the same bits; one whole leaf is held at a time."""
+        rotated = FlatLayout.of_sizes([self._padded(n) for n in layout.full_sizes],
+                                      layout.device)
+        k = x.shape[0]
+        out = []
+        for i, seg in enumerate(layout.segments(x)):
+            whole = layout.whole_leaf(seg.float(), i)
+            n, m = whole.shape[1], rotated.sizes[i]
+            leaf = FlatLayout([torch.empty((m,), device="meta")], layout.device)
+            leaf.leaf_ids = (i,)
+            d = draws.rademacher(draws.element_hashes(
+                leaf, draws.leaf_keys(leaf, cfg.rotation_seed, int(round_idx))))
+            sqrt_m = torch.sqrt(scalar(float(m), x.device))
+            z = d * torch.cat([whole, whole.new_zeros(k, m - n)], dim=1)
+            del whole
+            y = wire(_fwht(z) / sqrt_m, leaf)
+            back = d * _fwht(y) / sqrt_m
+            out.append(layout.piece(back[:, :n], i))
+            del z, y, back
+        return torch.cat(out, dim=1)
 
     def plan(self, layout):
         """(the rotated layout, its groups by padded length), once per layout."""
@@ -713,7 +759,7 @@ class TopKDownlink(Downlink):
         r = residual + bcast
         rows = r[None]
         if not cfg.per_tensor:
-            masks = sparsify.topk_mask(rows, cfg.downlink_rate, "exact")
+            masks = sparsify.topk_mask(rows, cfg.downlink_rate, "exact", layout)
         elif cfg.selector == "exact":  # one gmf_select launch in its |z| mode
             from repro_torch.kernels import ops
 

@@ -41,7 +41,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.launch.mesh import axis_size, mesh_axes
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils.flat import Box
 
 MODEL_AXIS = "model"
 DATA_AXES = ("pod", "data")  # data-parallel axes, outermost first
@@ -211,13 +212,31 @@ def owner_flags(specs, mesh, axes, distinct=()) -> tuple[bool, ...]:
     0 on every one of ``axes`` that the leaf is not cut over; ``distinct``
     names axes whose ranks hold different values (clients), which every
     rank counts."""
-    from repro_torch.utils import tree_leaves
-
     names = mesh_axes(mesh)
     coord = dict(zip(names, mesh.get_coordinate(), strict=True))
     free = [a for a in axes if a in names and a not in distinct]
     return tuple(all(coord[a] == 0 for a in free if a not in spec_axes(s))
                  for s in tree_leaves(specs))
+
+
+def boxes(like, specs, mesh) -> tuple:
+    """Per leaf of ``like`` (whole leaves; meta-device ones will do) and its
+    spec tree, in ``tree_leaves`` order: this rank's piece's place in the
+    whole leaf, a ``utils.flat.Box`` (the whole shape and the piece's first
+    index on each dim), as ``local_tree`` cuts it. A dim cut over several
+    axes takes them in the entry's order, the first outermost."""
+    coord = dict(zip(mesh_axes(mesh), mesh.get_coordinate(), strict=True))
+    out = []
+    for x, spec in zip(tree_leaves(like), tree_leaves(specs), strict=True):
+        start = []
+        for d, n in enumerate(x.shape):
+            entry = spec[d] if d < len(spec) else None
+            index, count = 0, 1
+            for a in (entry if isinstance(entry, tuple) else (entry,)) if entry else ():
+                index, count = index * axis_size(mesh, a) + coord[a], count * axis_size(mesh, a)
+            start.append(index * (n // count))
+        out.append(Box(tuple(x.shape), tuple(start)))
+    return tuple(out)
 
 
 def strip_axes(spec: P, axes) -> P:

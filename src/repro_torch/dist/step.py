@@ -38,8 +38,11 @@ compression row holds its pieces of the leaves; its ``FlatLayout`` is
 ``over`` the model group, so the keep counts come from the whole leaves'
 sizes, a cut segment's norms and threshold are the whole leaf's
 (``gmf_select``'s group mode), and ``upload_nnz`` / ``total_params``
-count the whole model. Stages that cut or key a leaf by flat coordinate
-raise (``Scheme.check_model_axis``, ROADMAP Queue 1 item 11 part C2b).
+count the whole model. The stages that cut or key a leaf by flat
+coordinate (the sampled estimator, global top-k, random-k, FetchSGD's
+sketch, the int8 and probquant wires, the Hadamard rotation) read each
+piece's place in its whole leaf from the layout's boxes
+(``sharding.boxes``) and give the rank's piece of the mesh-less result.
 The expert-parallel MoE runs inside the forward at any model axis (the
 tokens replicated over the model group, ``moe.moe_ep(..., tp=...)``).
 
@@ -634,8 +637,6 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
             "update, so optimiser weight_decay/grad_clip would apply to the "
             "lr-scaled update (1/lr times too strong) — set them to 0 for "
             "this scheme")
-    if tp is not None or (fsdp and not own):
-        scheme.check_model_axis()
     # the group a row's segments are cut over: a pod's data x model ranks
     # where FSDP cuts the state over data (gmf_pod), else the model group
     if fsdp and not own:
@@ -643,6 +644,9 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
         row_owner = clip_owner
     else:
         row_group, row_owner = tp, None
+    # each of the row's pieces' place in its whole leaf
+    row_boxes = (shr.boxes(abstract, shr.param_specs(abstract, fsdp=fsdp and not own, mesh=mesh),
+                           mesh) if row_group is not None else None)
 
     def step_fn(state: TrainState, batch):
         with trace.annotate_scope("round.client_grads"):
@@ -655,7 +659,7 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                 # gmf_data: the client's whole gradient; else the rank's pieces
                 layout = FlatLayout.of(grads)
                 if row_group is not None:
-                    layout = layout.over(row_group, sizes, row_owner)
+                    layout = layout.over(row_group, sizes, row_owner, row_boxes)
                 gbar_in, sstate_in = state.gbar, state.sstate
                 if own:  # the broadcast and the server state whole over data
                     pieces = FlatLayout.of(state.params)
@@ -690,9 +694,9 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                                        for f in sstate))
             with trace.annotate_scope("round.apply_update"):
                 if scheme.owns_lr:
-                    # FetchSGD (never over a model axis): lr already entered the
-                    # sketch-space error feedback — the broadcast is the
-                    # finished update, applied un-scaled
+                    # FetchSGD: lr already entered the sketch-space error
+                    # feedback — the broadcast (the rank's pieces of it over a
+                    # mesh) is the finished update, applied un-scaled
                     params, opt = sgd.apply_updates(state.params, update, state.opt, lr=1.0,
                                                     momentum=tcfg.momentum)
                 else:

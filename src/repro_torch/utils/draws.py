@@ -61,18 +61,31 @@ def key(seed: int, *counters: int) -> int:
 
 def leaf_keys(layout, seed: int, *counters: int, clients: torch.Tensor | None = None):
     """The key of every leaf i of ``layout``, seed → counters → i, as int64
-    ``[L]`` on the layout's device; with ``clients`` (int ``[k]`` ids on
-    that device) folded last, ``[k, L]``."""
-    keys = to_device(np.asarray([key(seed, *counters, i) for i in range(layout.num_leaves)],
+    ``[L]`` on the layout's device (i the leaf's number, ``leaf_ids``: its
+    place in the tree a one-leaf layout was cut from); with ``clients``
+    (int ``[k]`` ids on that device) folded last, ``[k, L]``."""
+    keys = to_device(np.asarray([key(seed, *counters, i) for i in layout.leaf_ids],
                                 np.int64), layout.device)
     if clients is not None:
         keys = fold(keys[None, :], clients.to(torch.int64)[:, None])
     return keys
 
 
+# Columns past which a layout's draws are made segment by segment (the
+# cached positions are two int64 [N] tensors).
+SEGMENT_LIMIT = 1 << 27
+
+
 def element_hashes(layout, keys: torch.Tensor) -> torch.Tensor:
     """Every column's hash: its leaf's key (``[..., L]``) folded with its
-    index in the leaf -> int64 ``[..., N]``."""
+    index in the leaf -> int64 ``[..., N]``. On a layout of pieces cut over
+    a group (``FlatLayout.over`` with boxes) the index is the whole leaf's,
+    so each piece draws its entries' bits of the whole leaf's draws. That,
+    and a layout past ``SEGMENT_LIMIT`` columns, is made segment by
+    segment, holding no ``[N]`` index tensor (the same bits)."""
+    if layout.cut or layout.total > SEGMENT_LIMIT:
+        return torch.cat([fold(keys[..., i:i + 1], layout.whole_index(i))
+                          for i in range(layout.num_leaves)], dim=-1)
     return fold(layout.expand(keys), layout.positions()[1])
 
 

@@ -44,12 +44,28 @@ axis alone) is held alike by several ranks of the group (``shared_flags``,
 the same on every rank): only one of them owns it (``owner_flags``, this
 rank's), and the others' pieces count zero in every sum and are left out
 of every gather over the group, so it counts once.
+
+The stages that cut or key a leaf by its flat coordinate (the sampled
+estimator, global top-k, random-k, the sketch, the int8 and probquant
+wires, the Hadamard rotation) need to know where a piece lies in its
+whole leaf: ``over(..., boxes)`` takes each piece's ``Box`` (the whole
+leaf's shape and the piece's first index on each dim,
+``dist.sharding.boxes``), and the layout then gives whole coordinates:
+``whole_index(i)`` (each entry's index within its whole leaf, made per
+segment so that no ``[N]`` index tensor need be held), ``positions``,
+``blocks`` (blocks of the whole leaves, numbered over the whole leaves)
+and ``tree_index(i)`` (the index in the whole tree's flat order).
+``counted`` says which segments count on this rank in a sum over the
+group (a cut piece its owner's, a whole leaf the group's first rank's);
+``whole_leaf`` / ``piece`` gather a cut segment whole in its flat order
+and cut the rank's piece back out.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -59,6 +75,15 @@ from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 # One layout per (structure, device), built at first use.
 _LAYOUTS: dict = {}
+
+
+class Box(NamedTuple):
+    """A piece's place in its whole leaf: the whole leaf's shape and the
+    piece's first index on each dim (the piece's own shape gives its
+    extent)."""
+
+    shape: tuple[int, ...]
+    start: tuple[int, ...]
 
 
 def _signature(tree):
@@ -99,23 +124,28 @@ class FlatLayout:
         self._select = None
         self._select_group = None
         self.full_sizes = self.sizes
+        self.full_sizes_dev = self.sizes_dev
         self.full_total = self.total
         self.cut_flags = (False,) * self.num_leaves
         self.owner_flags = (True,) * self.num_leaves
         self.shared_flags = (False,) * self.num_leaves
+        self.boxes = None
+        self.leaf_ids = tuple(range(self.num_leaves))  # the leaves' numbers in the draws' keys
         self._owner_mask = None
         self._over: dict = {}
+        self._places = None
 
-    def over(self, group, full_sizes, owners=None) -> FlatLayout:
+    def over(self, group, full_sizes, owners=None, boxes=None) -> FlatLayout:
         """This layout as the rank's pieces of leaves whose whole sizes are
         ``full_sizes``, a segment cut over ``group`` where its size differs
-        (made once per group, sizes and owners). ``owners`` (a bool a leaf,
-        default all) says which cut segments this rank's piece counts for:
-        False where another rank of the group holds the same piece (a
+        (made once per group, sizes, owners and boxes). ``owners`` (a bool a
+        leaf, default all) says which cut segments this rank's piece counts
+        for: False where another rank of the group holds the same piece (a
         segment some rank does not own is ``shared``: the ranks agree on
         that in one all-reduce when the layout is made, a collective of the
-        group). A group of one, or no segment cut, gives this layout
-        itself."""
+        group). ``boxes`` (a ``Box`` a leaf) places each piece in its whole
+        leaf, for the stages that cut or key a leaf by flat coordinate. A
+        group of one, or no segment cut, gives this layout itself."""
         full_sizes = tuple(int(n) for n in full_sizes)
         if len(full_sizes) != self.num_leaves:
             raise ValueError(f"{len(full_sizes)} whole sizes for {self.num_leaves} leaves")
@@ -125,19 +155,34 @@ class FlatLayout:
         owners = (True,) * self.num_leaves if owners is None else tuple(bool(o) for o in owners)
         if len(owners) != self.num_leaves:
             raise ValueError(f"{len(owners)} owner flags for {self.num_leaves} leaves")
-        key = (group, full_sizes, owners)  # the group itself: its id is not reused while held
+        if boxes is not None:
+            boxes = tuple(Box(tuple(b.shape), tuple(b.start)) for b in boxes)
+            self._check_boxes(boxes, full_sizes)
+        # the group itself: its id is not reused while held
+        key = (group, full_sizes, owners, boxes)
         if key not in self._over:
             out = copy.copy(self)
-            out.group, out.full_sizes, out.cut_flags = group, full_sizes, cut
+            out.group, out.full_sizes, out.cut_flags, out.boxes = group, full_sizes, cut, boxes
             out.owner_flags = tuple(o or not c for o, c in zip(owners, cut, strict=True))
             others = torch.tensor([int(not o) for o in out.owner_flags], dtype=torch.int64,
                                   device=self.device)
             dist.all_reduce(others, group=group)  # ranks that do not own their piece
             out.shared_flags = tuple(bool(x) for x in others.tolist())
             out.full_total = sum(full_sizes)
+            out.full_sizes_dev = torch.tensor(full_sizes, dtype=torch.int64, device=self.device)
             out._keep, out._select_group, out._over, out._owner_mask = {}, None, {}, None
+            out._blocks, out._positions, out._places = {}, None, None
             self._over[key] = out
         return self._over[key]
+
+    def _check_boxes(self, boxes, full_sizes) -> None:
+        if len(boxes) != self.num_leaves:
+            raise ValueError(f"{len(boxes)} boxes for {self.num_leaves} leaves")
+        for i, (box, full, shape) in enumerate(zip(boxes, full_sizes, self.shapes, strict=True)):
+            if (math.prod(box.shape) != full or len(box.shape) != len(shape)
+                    or len(box.start) != len(shape)
+                    or any(a < 0 or a + e > n for a, e, n in zip(box.start, shape, box.shape))):
+                raise ValueError(f"leaf {i}: a piece of shape {shape} does not lie in {box}")
 
     @property
     def shared(self) -> bool:
@@ -203,15 +248,54 @@ class FlatLayout:
         return _LAYOUTS[key]
 
     def positions(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Every column's leaf and its index within that leaf: two int64
-        ``[N]`` tensors on the device, made once."""
+        """Every column's leaf and its index within that leaf (the whole
+        leaf, on a cut layout): two int64 ``[N]`` tensors on the device,
+        made once."""
         if self._positions is None:
             leaf = self.expand(torch.arange(self.num_leaves, dtype=torch.int64,
                                             device=self.device))
-            pos = torch.arange(self.total, dtype=torch.int64, device=self.device) - self.expand(
-                self.offsets_dev[:-1])
+            if self.cut:
+                pos = torch.cat([self.whole_index(i) for i in range(self.num_leaves)])
+            else:
+                pos = torch.arange(self.total, dtype=torch.int64,
+                                   device=self.device) - self.expand(self.offsets_dev[:-1])
             self._positions = leaf, pos
         return self._positions
+
+    def whole_index(self, i: int) -> torch.Tensor:
+        """Each entry of segment ``i``'s index within its whole leaf, int64
+        ``[n_i]`` on the device (made anew: no ``[N]`` tensor is held)."""
+        if self.boxes is None:
+            if self.cut_flags[i]:
+                raise ValueError("the whole-leaf coordinates of a cut segment need the pieces' "
+                                 "boxes: FlatLayout.over(..., boxes=...)")
+            return torch.arange(self.sizes[i], dtype=torch.int64, device=self.device)
+        box, shape = self.boxes[i], self.shapes[i]
+        nd = len(shape)
+        idx = torch.zeros((), dtype=torch.int64, device=self.device)
+        stride = 1
+        for d in reversed(range(nd)):
+            ar = torch.arange(box.start[d], box.start[d] + shape[d], dtype=torch.int64,
+                              device=self.device) * stride
+            idx = idx + ar.view([1] * d + [shape[d]] + [1] * (nd - 1 - d))
+            stride *= box.shape[d]
+        return idx.reshape(-1)
+
+    def tree_index(self, i: int) -> torch.Tensor:
+        """Each entry of segment ``i``'s index in the whole tree's flat order
+        (the whole leaves one after the other), int64 ``[n_i]``."""
+        return self.whole_index(i) + sum(self.full_sizes[:i])
+
+    @property
+    def counted(self) -> tuple[bool, ...]:
+        """Per leaf, whether this rank's segment counts in a sum over the
+        group: a cut piece where the rank owns it, a whole leaf (held alike
+        by every rank of the group) on the group's first rank alone."""
+        if not self.cut:
+            return (True,) * self.num_leaves
+        first = dist.get_rank(self.group) == 0
+        return tuple(o if c else first
+                     for c, o in zip(self.cut_flags, self.owner_flags, strict=True))
 
     def keep(self, rate: float) -> tuple[tuple[int, ...], torch.Tensor]:
         """Per-leaf keep counts ``num_keep(n_i, rate)`` of the whole leaves'
@@ -228,15 +312,67 @@ class FlatLayout:
         """Each leaf cut into ``block``-element blocks from its own offset
         (the last one short): (blocks a row, int64 ``[N]`` block index of
         every column), made on the device once per block length. Leaf i's
-        blocks are numbered after those of leaves 0..i-1."""
+        blocks are numbered after those of leaves 0..i-1. On a cut layout
+        these are the whole leaves' blocks, a block of a cut leaf possibly
+        straddling ranks (``cut_blocks``)."""
         if block not in self._blocks:
-            counts = [-(-n // block) for n in self.sizes]
+            counts = [-(-n // block) for n in self.full_sizes]
             starts = [0]
             for c in counts:
                 starts.append(starts[-1] + c)
-            first = torch.tensor(starts[:-1], dtype=torch.int64, device=self.device)
-            self._blocks[block] = starts[-1], self.positions()[1] // block + self.expand(first)
-        return self._blocks[block]
+            # segment by segment: no [N] positions are held for it
+            idx = torch.cat([self.whole_index(i) // block + starts[i]
+                             for i in range(self.num_leaves)])
+            cut = None
+            if self.cut:
+                cut = torch.cat([torch.arange(starts[i], starts[i + 1], dtype=torch.int64)
+                                 for i, c in enumerate(self.cut_flags) if c]).to(self.device)
+            self._blocks[block] = starts[-1], idx, cut
+        return self._blocks[block][:2]
+
+    def cut_blocks(self, block: int) -> torch.Tensor:
+        """The block numbers (``blocks``) of the cut leaves, int64 on the
+        device: the blocks whose entries several ranks hold."""
+        self.blocks(block)
+        return self._blocks[block][2]
+
+    def whole_leaf(self, seg: torch.Tensor, i: int) -> torch.Tensor:
+        """Segment ``i`` of a ``[k, n_i]`` stack as its whole leaf, ``[k,
+        full_i]`` in the leaf's flat order: the owners' pieces gathered over
+        the group and put in their boxes where the segment is cut (a
+        collective of the group), else the segment itself."""
+        if not self.cut_flags[i]:
+            return seg
+        if self._places is None:  # every rank's boxes and owner flags, gathered once
+            nd = max(len(s) for s in self.shapes)
+            mine = torch.zeros(self.num_leaves, nd + 1, dtype=torch.int64)
+            for j, (box, own) in enumerate(zip(self.boxes, self.owner_flags, strict=True)):
+                mine[j, :len(box.start)] = torch.tensor(box.start, dtype=torch.int64)
+                mine[j, nd] = int(own)
+            mine = mine.to(self.device)
+            parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(self.group))]
+            dist.all_gather(parts, mine, group=self.group)
+            self._places = [p.tolist() for p in parts]
+        k, shape = seg.shape[0], self.shapes[i]
+        parts = [torch.empty_like(seg, memory_format=torch.contiguous_format)
+                 for _ in self._places]
+        dist.all_gather(parts, seg.contiguous(), group=self.group)
+        whole = seg.new_empty((k, *self.boxes[i].shape))
+        for part, place in zip(parts, self._places, strict=True):
+            if place[i][-1]:
+                at = tuple(slice(a, a + e) for a, e in zip(place[i], shape))
+                whole[(slice(None),) + at] = part.view(k, *shape)
+        return whole.reshape(k, -1)
+
+    def piece(self, whole: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's piece ``[k, n_i]`` of leaf ``i``'s whole ``[k, full_i]``
+        (the inverse of ``whole_leaf``)."""
+        if not self.cut_flags[i]:
+            return whole
+        box, shape = self.boxes[i], self.shapes[i]
+        at = tuple(slice(a, a + e) for a, e in zip(box.start, shape))
+        return whole.reshape(whole.shape[0], *box.shape)[(slice(None),) + at].reshape(
+            whole.shape[0], -1)
 
     def select_plan(self, group: bool = False):
         """``gmf_select``'s plan of this layout's leaves in tiles of
@@ -313,16 +449,18 @@ class GroupedLayout:
         self.num_leaves = len(leaves)
         self._over: dict = {}
 
-    def over(self, group, full_sizes, owners=None) -> GroupedLayout:
-        """``FlatLayout.over`` for each dtype group (``full_sizes`` and
-        ``owners`` of every leaf, in ``tree_leaves`` order)."""
+    def over(self, group, full_sizes, owners=None, boxes=None) -> GroupedLayout:
+        """``FlatLayout.over`` for each dtype group (``full_sizes``,
+        ``owners`` and ``boxes`` of every leaf, in ``tree_leaves`` order)."""
         full_sizes = tuple(int(n) for n in full_sizes)
         owners = (True,) * self.num_leaves if owners is None else tuple(bool(o) for o in owners)
-        subs = tuple(g.over(group, [full_sizes[i] for i in idx], [owners[i] for i in idx])
+        boxes = None if boxes is None else tuple(boxes)
+        subs = tuple(g.over(group, [full_sizes[i] for i in idx], [owners[i] for i in idx],
+                            None if boxes is None else [boxes[i] for i in idx])
                      for g, idx in zip(self.groups, self.index, strict=True))
         if all(a is b for a, b in zip(subs, self.groups, strict=True)):
             return self
-        key = (group, full_sizes, owners)
+        key = (group, full_sizes, owners, boxes)
         if key not in self._over:
             out = copy.copy(self)
             out.groups, out.full_total, out._over = subs, sum(full_sizes), {}

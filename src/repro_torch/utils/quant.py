@@ -15,7 +15,9 @@ The JAX wire quantises each leaf of the payload tree on its own, in flat
 ``roundtrip_q8_segments`` does the same on a flat ``[..., N]`` stack
 (``utils/flat.py``): blocks start at each leaf's offset in each row, and
 each block's max is one ``scatter_reduce("amax")``, which is
-order-free and so deterministic.
+order-free and so deterministic. Over a layout of pieces cut across a
+mesh axis the blocks are the whole leaves' 256-entry blocks, their maxima
+taken over the group.
 
 ``roundtrip_ternary_blocks`` / ``roundtrip_ternary_segments`` are the
 probabilistic sibling (the ``probquant`` wire): the same blocks, each
@@ -29,6 +31,7 @@ passes JAX's.
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 from repro_torch.utils.device import scalar
 
@@ -72,11 +75,20 @@ def roundtrip_q8_blocks(x: torch.Tensor, block: int = WIRE_BLOCK) -> torch.Tenso
 
 def _segment_block_amax(xf: torch.Tensor, layout, block: int) -> torch.Tensor:
     """Each element's block max magnitude, for ``[rows, N]`` rows of
-    ``layout`` cut into ``block``-entry blocks from each leaf's start."""
+    ``layout`` cut into ``block``-entry blocks from each leaf's start. On a
+    layout of pieces cut over a group the blocks are the whole leaves'
+    (``FlatLayout.blocks``): a cut leaf's block maxima are each rank's
+    partial maxima, all-reduced with MAX over the group (idempotent, so a
+    piece several ranks hold alike needs no once-counting)."""
     nblocks, idx = layout.blocks(block)
     rows = xf.shape[0]
     amax = torch.zeros(rows, nblocks, dtype=torch.float32, device=xf.device).scatter_reduce_(
         1, idx.expand(rows, -1), torch.abs(xf), "amax")
+    if layout.cut:
+        cols = layout.cut_blocks(block)
+        part = amax[:, cols].contiguous()
+        torch.distributed.all_reduce(part, op=torch.distributed.ReduceOp.MAX, group=layout.group)
+        amax[:, cols] = part
     return amax.index_select(1, idx)
 
 

@@ -52,6 +52,18 @@ over ``gmf_data`` at (2, 2) and the FSDP gmf cases equal the reference's
 norms of the whole state within 1e-6 relative; the data-axis-only sums
 they replaced do not.
 
+The compression stages that cut or key a leaf by flat coordinate over the
+model axis (ROADMAP item 11 part C2b; ``cases.SCHEMES``): ``gmf_data`` on
+llama at (2, 2) under sampled dgcwgmf, dgc's global top-k, dgc with the
+int8 wire, fetchsgd and adaptive_dgcwgmf (at its nominal rate: the mesh
+step threads no rates), and the int8 wire under ``gmf_pod`` FSDP at (1, 2,
+2), with the same tolerances but two: the JAX witness of the sampled case
+runs at (2, 1) (``cases.JAX_SHAPE``: its (2, 2) program's gradient noise
+moves one entry across a sample point's score, which the second step then
+carries everywhere; JAX computes the same function at any mesh), and the
+int8 cases allow ``cases.WIRE_FLIPS`` rounding flips a shard (an entry
+within the gradient noise of a half step rounds to the next step).
+
 The launcher runs apart: ``launch/train.py --device cpu --mesh-shape 2,1``
 as two processes with a ``torchrun``-style environment (``MASTER_ADDR``
 127.0.0.1 and a free ``MASTER_PORT``): both exit 0 and only rank 0 writes.
@@ -288,9 +300,11 @@ def owners(shape, sync):
 def test_four_ranks_agree_with_jax(world4, name):
     jres, rres, _ = world4
     _, _, shape, sync = cases.TRAIN[name]
+    flips_ = cases.WIRE_FLIPS.get(name, FLIPS)
     r0 = rres[0]
     # JAX's mesh takes the first devices, the port's the first ranks
-    assert jres[f"{name}/devices"].tolist() == list(range(cases.members(shape)))
+    assert jres[f"{name}/devices"].tolist() == list(range(cases.members(
+        cases.JAX_SHAPE.get(name, shape))))
     n_leaves = len([k for k in r0 if k.startswith(f"{name}/params/")])
     assert n_leaves > 0
     flips = sum(within(r0[f"{name}/params/{i}"], jres[f"{name}/params/{i}"])[1]
@@ -298,10 +312,13 @@ def test_four_ranks_agree_with_jax(world4, name):
     n = 1
     if sync != "dense":
         n, first = owners(shape, sync)
-        for f in ("u", "v", "m"):
+        fields = [f for f in ("u", "v", "m", "gbar") if f"{name}/{f}" in jres]
+        assert fields == [f for f in ("u", "v", "m", "gbar") if f"{name}/{f}" in r0]
+        for f in fields[:-1] if "gbar" in fields else fields:
             got = np.concatenate([rres[r][f"{name}/{f}"] for r in first])
             flips = max(flips, within(got, jres[f"{name}/{f}"])[1])
-        flips = max(flips, within(r0[f"{name}/gbar"], jres[f"{name}/gbar"])[1])
+        if "gbar" in fields:
+            flips = max(flips, within(r0[f"{name}/gbar"], jres[f"{name}/gbar"])[1])
         for t in range(cases.STEPS):
             up = np.abs(r0[f"{name}/upload_nnz/{t}"].astype(np.int64)
                         - jres[f"{name}/upload_nnz/{t}"].astype(np.int64))
@@ -309,7 +326,7 @@ def test_four_ranks_agree_with_jax(world4, name):
             assert up.max() <= FLIPS, (name, t, up)
             assert abs(int(r0[f"{name}/download_nnz/{t}"])
                        - int(jres[f"{name}/download_nnz/{t}"])) <= FLIPS * n
-    assert flips <= FLIPS * n, (name, flips)
+    assert flips <= flips_ * n, (name, flips)
     for t in range(cases.STEPS):
         got, want = float(r0[f"{name}/loss/{t}"]), float(jres[f"{name}/loss/{t}"])
         assert abs(got - want) <= REL * abs(want), (name, t, got, want)
@@ -335,11 +352,12 @@ def test_four_ranks_replicated_state_is_bitwise(world4, name):
     if sync == "dense":
         return
     n, first = owners(shape, sync)
+    fields = [f for f in ("u", "v", "m") if f"{name}/{f}" in rres[0]]
     for c, r0 in enumerate(first):  # a shard's ranks (a pod's data ranks, a model
         for r in range(r0, r0 + inside // n):  # group) hold one row
-            for f in ("u", "v", "m"):
+            for f in fields:
                 assert np.array_equal(rres[r][f"{name}/{f}"], rres[r0][f"{name}/{f}"]), (c, r)
-    if sync == "gmf_data" and n > 1:  # each data shard is its own client
+    if sync == "gmf_data" and n > 1 and "v" in fields:  # each data shard is its own client
         assert not np.array_equal(rres[first[0]][f"{name}/v"], rres[first[1]][f"{name}/v"])
 
 

@@ -30,11 +30,26 @@ CPU thread a rank), while this process runs the JAX side:
   yi-34b's (one kv head: the pool whole, the projections gathered): every
   request's tokens equal to the one-rank engine's.
 
+- every compression stage over leaves cut across the model axis (ROADMAP
+  item 11 part C2b): each composition (``ranks.STAGE_CASES``: the ones
+  that acted elementwise or per leaf before, the sampled estimator, global
+  top-k, random-k, FetchSGD, the int8 and probquant wires, the Hadamard
+  rotation, adaptive rates with per-client rates and wire levels, the
+  top-k downlink's variants) through ``client_compress`` and
+  ``server_aggregate`` on the rank's pieces (the layout ``over`` the group
+  with each piece's box) against the one-rank run on the whole leaves:
+  payloads, U/V/M, broadcasts, residuals, server momentum and every count
+  bitwise, but the sketch, whose buckets sum in another order over the
+  ranks (within SKETCH_REL of its largest magnitude; 2.9e-7 measured), its
+  hitters bitwise on the same summed sketch (and on a tie-heavy sketch,
+  ties spanning both ranks, to the lower whole index); and the piece-local version
+  (the pieces taken for whole leaves: local indices, blocks, samples and
+  top-k) differs on the same inputs.
+
 In process: a CPU emulation of the group mode's histograms (each rank's
 tiles counted, the ranks' histograms summed, the kernel's scan from the
 top) gives the whole leaf's k-th largest bit for bit; the group plan puts
-the cut segments first; the stages that cut or key a leaf by flat
-coordinate refuse a model axis, naming item 11 part C2b.
+the cut segments first.
 """
 
 import math
@@ -58,6 +73,7 @@ from repro_torch.models import transformer as ttr  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
 REL = 1e-5
+SKETCH_REL = 1e-5  # the sketch over two ranks, of its largest magnitude
 
 
 def jax_inputs():
@@ -273,21 +289,64 @@ def test_group_plan_puts_cut_segments_first():
     assert tiles[:, 0].tolist() == [0, 1, 1, 2, 2] and tiles[:, 1].tolist() == [1, 3, 3, 0, 0]
 
 
-ALLOWED = [dict(scheme=s) for s in ("dgc", "gmc", "dgcwgm", "dgcwgmf")] + [
-    dict(scheme="dgcwgmf", use_kernels=True), dict(scheme="dgcwgmf", downlink_stage="topk"),
-    dict(scheme="dgc", wire_dtype="float16"), dict(scheme="dgcwgmf", wire_dtype="bfloat16")]
-REFUSED = [dict(scheme="dgcwgmf", selector="sampled"), dict(scheme="dgc", per_tensor=False),
-           dict(scheme="randomk"), dict(scheme="fetchsgd"), dict(scheme="dgc", wire_stage="int8"),
-           dict(scheme="dgc", wire_stage="probquant"),
-           dict(scheme="dgc", rotation_stage="hadamard"), dict(scheme="adaptive_dgcwgmf")]
+def _bits(x):
+    return x.view(np.int32) if x.dtype == np.float32 else x
 
 
-@pytest.mark.parametrize("kw", ALLOWED + REFUSED, ids=lambda kw: ",".join(
-    f"{k}={v}" for k, v in kw.items()))
-def test_stages_over_a_model_axis(kw):
-    scheme = resolve(CompressionConfig(**kw))
-    if kw in ALLOWED:
-        scheme.check_model_axis()
-    else:
-        with pytest.raises(NotImplementedError, match="item 11 part C2b"):
-            scheme.check_model_axis()
+def check_stage(world2, name):
+    """``STAGE_CASES[name]`` over the two ranks against the one-rank run on
+    the whole leaves; returns whether its piece-local version differed on
+    every rank."""
+    differs = []
+    sketch = resolve(CompressionConfig(**ranks.STAGE_CASES[name])).is_sketch
+    for r, res in enumerate(world2):
+        key = f"stage/{name}"
+        assert res[f"{key}/cut"].tolist() == [ranks.STAGES[k][1] is not None
+                                              for k in sorted(ranks.STAGES)]
+        held = [k for k in res if k.startswith(key + "/") and "local" not in k
+                and k.rsplit("/", 1)[1] not in ("cut", "total")]
+        assert {f"{key}/payload", f"{key}/bcast", f"{key}/upload_nnz"} <= set(held)
+        for k in held:
+            got, want = res[k]
+            assert got.shape == want.shape, (r, k, got.shape, want.shape)
+            if sketch and k.rsplit("/", 1)[1] in ("payload", "s_err"):
+                err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+                assert err <= SKETCH_REL, (r, k, err)
+            else:
+                assert np.array_equal(_bits(got), _bits(want)), (r, k)
+        n = sum(math.prod(s) for s, _ in ranks.STAGES.values())
+        assert res[f"{key}/total"].tolist() == [n] * 4, (r, res[f"{key}/total"])
+        assert res[f"{key}/upload_nnz"][0].min() > 0
+        loc, pay = res[f"{key}/local_payload"], res[f"{key}/payload"][0]
+        lbc, bc = res[f"{key}/local_bcast"], res[f"{key}/bcast"][0]
+        differs.append(not (loc.shape == pay.shape and np.array_equal(loc, pay)
+                            and np.array_equal(lbc, bc)))
+    return all(differs)
+
+
+@pytest.mark.parametrize("name", [k for k in ranks.STAGE_CASES if "=" not in k])
+def test_cut_stage_paths_are_the_whole_leaves(world2, name):
+    """The cut stages' other paths (fused sampled, adaptive rates through
+    the sampled and global selectors, the downlink's variants)."""
+    assert check_stage(world2, name), (name, "the piece-local version gives the same")
+
+
+@pytest.mark.parametrize("k", ranks.HITTER_KS)
+def test_cut_hitters_break_ties_by_whole_index(world2, k):
+    """FetchSGD's hitters over the two ranks take the whole model's, ties
+    (which span both ranks) to the lower whole-tree index."""
+    for res in world2:
+        got, want = res[f"hitters/{k}"]
+        assert np.array_equal(_bits(got), _bits(want)), k
+    assert sum(np.count_nonzero(res[f"hitters/{k}"][1]) for res in world2) > 0
+
+
+@pytest.mark.parametrize("kw", ranks.ALLOWED + ranks.REFUSED, ids=ranks.kw_id)
+def test_stages_over_a_model_axis(world2, kw):
+    """Every composition runs over the model group and gives the rank's
+    piece of the one-rank run on the whole leaves; for the eight that cut or
+    key a leaf by flat coordinate (once refused), the piece-local version
+    differs."""
+    differs = check_stage(world2, ranks.kw_id(kw))
+    if kw in ranks.REFUSED:
+        assert differs, (kw, "the piece-local version gives the same")

@@ -39,7 +39,49 @@ TRAIN = {
     # FSDP x TP x EP, and the expert-parallel MoE at model 2 without FSDP
     "fsdp_dense_ep": ("kimi-k2-1t-a32b", {"moe_impl": "ep", "remat": True}, (2, 2), "dense"),
     "tp_dense_ep": ("granite-moe-1b-a400m", {"moe_impl": "ep"}, (2, 2), "dense"),
+    # the stages that cut or key a leaf by flat coordinate over the model axis
+    # (ROADMAP item 11 part C2b; the schemes in SCHEMES), and the int8 wire over
+    # gmf_pod's data x model rows under FSDP
+    "tp_sampled": ("llama3.2-1b", {}, (2, 2), "gmf_data"),
+    "tp_global": ("llama3.2-1b", {}, (2, 2), "gmf_data"),
+    "tp_int8": ("llama3.2-1b", {}, (2, 2), "gmf_data"),
+    "tp_fetchsgd": ("llama3.2-1b", {}, (2, 2), "gmf_data"),
+    "tp_adaptive": ("llama3.2-1b", {}, (2, 2), "gmf_data"),
+    "fsdp_gmf_pod_122_int8": ("llama3.2-1b", {}, (1, 2, 2), "gmf_pod"),
 }
+# each train case's compression config (CompressionConfig keywords, the same
+# in both packages): dgcwgmf at RATE unless named here
+SCHEMES = {
+    "tp_sampled": dict(scheme="dgcwgmf", selector="sampled"),
+    "tp_global": dict(scheme="dgc", per_tensor=False),
+    "tp_int8": dict(scheme="dgc", wire_stage="int8"),
+    "tp_fetchsgd": dict(scheme="fetchsgd"),
+    "tp_adaptive": dict(scheme="adaptive_dgcwgmf"),
+    "fsdp_gmf_pod_122_int8": dict(scheme="dgcwgmf", wire_stage="int8"),
+}
+
+
+# the mesh the JAX side runs a case at, where it is not the case's own: the
+# sampled threshold is one sample point's score, and under JAX's (2, 2)
+# program (its gradients summed in another order over the model axis) an
+# entry of the whole leaf within that noise of it crosses it at step 0,
+# which the second step's gradient then carries everywhere. JAX computes
+# the same (unsharded) function at any mesh: at (2, 1) the same two clients.
+JAX_SHAPE = {"tp_sampled": (2, 1)}
+
+
+# boundary flips a shard the comparison allows (FLIPS in the test) where a
+# case's own differs: the int8 wire rounds x / scale to the nearest step, and
+# an entry within the two sides' gradient noise (~1e-6) of a half step rounds
+# the other way, moving by a whole step (scale = block max / 127) in the
+# payload, V's residual and the params. Measured 15 (v, (2, 2), both shards)
+# and 11 ((1, 2, 2)) on the CPU.
+WIRE_FLIPS = {"tp_int8": 32, "fsdp_gmf_pod_122_int8": 32}
+
+
+def scheme_of(name: str) -> dict:
+    """The CompressionConfig keywords of train case ``name``."""
+    return dict(rate=RATE, **SCHEMES.get(name, {"scheme": "dgcwgmf"}))
 ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "yi-34b", "qwen2-vl-72b", "command-r-plus-104b",
          "kimi-k2-1t-a32b")
 # the cases that run FSDP: the smoke configs fall under needs_fsdp's 40e9

@@ -54,10 +54,11 @@ def train(inp, out, part=0, parts=1):
         leaves = [jnp.asarray(inp[f"params/{arch}/{i}"])
                   for i in range(len(jax.tree_util.tree_leaves(like)))]
         params = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(like), leaves)
+        shape = cases.JAX_SHAPE.get(name, shape)
         mesh = make_mesh(shape, cases.axes_of(shape))
         tcfg = TrainConfig(learning_rate=cases.LR, total_steps=10, grad_sync=sync,
                            lr_schedule="cosine", warmup_steps=1)
-        ccfg = CompressionConfig(scheme="dgcwgmf", rate=cases.RATE)
+        ccfg = CompressionConfig(**cases.scheme_of(name))
         state = dstep.init_train_state(cfg, tcfg, ccfg, params, mesh)
         state = put(mesh, state, dstep.train_state_specs(cfg, tcfg, ccfg, params, mesh))
         step = jax.jit(dstep.make_train_step(cfg, tcfg, ccfg, mesh))
@@ -73,10 +74,12 @@ def train(inp, out, part=0, parts=1):
             out[f"{name}/params/{i}"] = np.asarray(x)
         if sync != "dense":
             n = shape[cases.axes_of(shape).index("data" if sync == "gmf_data" else "pod")]
-            for f in ("u", "v", "m"):
-                out[f"{name}/{f}"] = flat_rows(getattr(state.cstate, f), n)
-            out[f"{name}/gbar"] = flat_rows(jax.tree_util.tree_map(lambda x: x[None],
-                                                                   state.gbar), 1)[0]
+            for f in ("u", "v", "m"):  # the fields the scheme keeps
+                if jax.tree_util.tree_leaves(getattr(state.cstate, f)):
+                    out[f"{name}/{f}"] = flat_rows(getattr(state.cstate, f), n)
+            if jax.tree_util.tree_leaves(state.gbar):
+                out[f"{name}/gbar"] = flat_rows(jax.tree_util.tree_map(lambda x: x[None],
+                                                                       state.gbar), 1)[0]
         out[f"{name}/devices"] = np.asarray([d.id for d in mesh.devices.flat])
         dstep._FSDP_PARAM_THRESHOLD = 40e9
     if part == 0:

@@ -91,7 +91,7 @@ def train(inp, out, ckpt):
         params = shr.local_tree(whole, p_sh)
         tcfg = TrainConfig(learning_rate=cases.LR, total_steps=10, grad_sync=sync,
                            lr_schedule="cosine", warmup_steps=1)
-        ccfg = CompressionConfig(scheme="dgcwgmf", rate=cases.RATE)
+        ccfg = CompressionConfig(**cases.scheme_of(name))
         state = dstep.init_train_state(cfg, tcfg, ccfg, params, mesh)
         step = dstep.make_train_step(cfg, tcfg, ccfg, mesh)
         b_sh = shr.named_shardings(mesh, dstep.step_batch_specs(cfg, tcfg, mesh))
@@ -113,9 +113,12 @@ def train(inp, out, ckpt):
         if sync != "dense":
             # the rows hold pieces cut over data too under gmf_pod's FSDP
             rows_fsdp = fsdp and sync == "gmf_pod"
-            for f in ("u", "v", "m"):
-                out[f"{name}/{f}"] = whole_rows(getattr(state.cstate, f), whole, mesh, rows_fsdp)
-            out[f"{name}/gbar"] = whole_rows(state.gbar[None], whole, mesh, fsdp)[0]
+            for f in ("u", "v", "m"):  # the fields the scheme keeps
+                if isinstance(getattr(state.cstate, f), torch.Tensor):
+                    out[f"{name}/{f}"] = whole_rows(getattr(state.cstate, f), whole, mesh,
+                                                    rows_fsdp)
+            if isinstance(state.gbar, torch.Tensor):
+                out[f"{name}/gbar"] = whole_rows(state.gbar[None], whole, mesh, fsdp)[0]
             if name in cases.HEALTH:
                 health(state, cfg, tcfg, mesh, out, name)
         dstep._FSDP_PARAM_THRESHOLD = 40e9

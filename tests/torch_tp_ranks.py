@@ -44,6 +44,42 @@ SELECT = {"a": ((64, 32), 1), "b": ((40,), None), "c": ((8, 128), 0), "d": ((5,)
           "e": ((96,), 0)}
 ROWS = 3
 RATES = (0.1, 0.37)
+# the compression stages' tree (ROADMAP item 11 part C2b): "a"'s sample
+# strides (2, 1, 1) fall across its cut (rank 1's piece starts at row 3),
+# "c" and "f" are cut along columns (a rank's piece strided in the leaf's
+# flat order, each 256-entry block of the whole leaf straddling both ranks)
+STAGES = {"a": ((6, 7, 1000), 0), "b": ((40,), None), "c": ((96, 500), 1), "d": ((300,), 0),
+          "e": ((5,), None), "f": ((20, 900), 1)}
+# the compositions test_torch_tp.py's test_stages_over_a_model_axis names:
+# those that acted elementwise or per leaf before ROADMAP item 11 part C2b,
+# and the eight that cut or key a leaf by flat coordinate
+ALLOWED = [dict(scheme=s) for s in ("dgc", "gmc", "dgcwgm", "dgcwgmf")] + [
+    dict(scheme="dgcwgmf", use_kernels=True), dict(scheme="dgcwgmf", downlink_stage="topk"),
+    dict(scheme="dgc", wire_dtype="float16"), dict(scheme="dgcwgmf", wire_dtype="bfloat16")]
+REFUSED = [dict(scheme="dgcwgmf", selector="sampled"), dict(scheme="dgc", per_tensor=False),
+           dict(scheme="randomk"), dict(scheme="fetchsgd"), dict(scheme="dgc", wire_stage="int8"),
+           dict(scheme="dgc", wire_stage="probquant"),
+           dict(scheme="dgc", rotation_stage="hadamard"), dict(scheme="adaptive_dgcwgmf")]
+
+
+def kw_id(kw) -> str:
+    return ",".join(f"{k}={v}" for k, v in kw.items())
+
+
+# every composition above, and the cut stages' other paths (the fused
+# sampled estimator, adaptive rates with the sampled and global selectors,
+# the top-k downlink's global, sampled, int8 and probquant variants), by name;
+# the adaptive ones run with per-client rates and wire levels
+STAGE_CASES = {kw_id(kw): kw for kw in ALLOWED + REFUSED} | {
+    "sampled_fused": dict(scheme="dgcwgmf", selector="sampled", use_kernels=True),
+    "adaptive_sampled": dict(scheme="adaptive_dgcwgmf", selector="sampled"),
+    "adaptive_global": dict(scheme="adaptive_dgcwgmf", per_tensor=False),
+    "dl_global": dict(scheme="dgcwgmf_dl", per_tensor=False),
+    "dl_sampled": dict(scheme="dgcwgmf_dl", selector="sampled"),
+    "dl_int8": dict(scheme="dgcwgmf_dl", wire_stage="int8"),
+    "dl_probquant": dict(scheme="dgcwgmf_dl", wire_stage="probquant"),
+}
+ADAPTIVE = (kw_id(dict(scheme="adaptive_dgcwgmf")), "adaptive_sampled", "adaptive_global")
 # the engine at (1, 2): llama's smoke cuts its 2 kv heads one a rank, yi-34b's
 # keeps its one kv head whole (the projections gathered); both codecs
 ENGINE_ARCHS = ("llama3.2-1b", "yi-34b")
@@ -157,10 +193,10 @@ def engine(mesh, out):
                     eng.pool["groups"][0]["k"].shape[-2])
 
 
-def pieces(whole, r):
-    """Rank ``r``'s pieces of the SELECT leaves ([ROWS, *shape] each)."""
+def pieces(whole, r, leaves=SELECT):
+    """Rank ``r``'s pieces of ``leaves``' ([rows, *shape] each)."""
     out = {}
-    for k, (_, dim) in SELECT.items():
+    for k, (_, dim) in leaves.items():
         x = whole[k]
         out[k] = x if dim is None else x.chunk(WORLD, dim=dim + 1)[r].contiguous()
     return out
@@ -235,6 +271,128 @@ def select(group, out):
     out["scheme/total"] = np.asarray([runs[0][1].total_params, runs[1][1].total_params])
 
 
+def stage_case(group, name, out):
+    """One configuration of STAGE_CASES through ``client_compress`` and
+    ``server_aggregate`` on the rank's pieces over the model group (the
+    layout ``over`` it with each piece's box), on the whole leaves (no
+    group), and on the pieces taken for whole leaves (the piece-local
+    version: local indices, blocks, samples and top-k): each output of the
+    first two as the rank's pieces, and the third's payload and broadcast.
+    Integer-valued inputs in [-6, 6] under GMF, so that every norm is exact
+    in any summation order, normal draws elsewhere (where the piece-local
+    top-k threshold of integers would be the whole row's: 6); the sketch
+    sums its buckets in another order over the ranks, so its server side
+    also runs on the whole run's summed sketch, whose hitters are then the
+    whole's bit for bit."""
+    from repro_torch.core.state import ServerState
+    from repro_torch.utils.flat import Box
+
+    r = dist.get_rank(group)
+    rng = np.random.default_rng(11)
+    shapes = {k: (ROWS, *s) for k, (s, _) in STAGES.items()}
+
+    cfg = CompressionConfig(rate=0.1, downlink_rate=0.1, **STAGE_CASES[name])
+    scheme = resolve(cfg)
+    ints = scheme.fusion.name == "gmf"
+
+    def draw():
+        return {k: torch.from_numpy((rng.integers(-6, 7, size=s) if ints else
+                                     rng.normal(size=s)).astype(np.float32))
+                for k, s in shapes.items()}
+
+    big = FlatLayout.of({k: torch.zeros(s) for k, (s, _) in STAGES.items()})
+    small = FlatLayout.of({k: x[0] for k, x in pieces(draw(), r, STAGES).items()})
+    boxes = [Box(s, tuple(r * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
+             for _, (s, d) in sorted(STAGES.items())]
+    lay = small.over(group, big.sizes, None, boxes)
+    u, v, m, res, smom, grad, gbar = (draw() for _ in range(7))
+    kw = dict(client_ids=torch.tensor([3, 8, 1]))
+    if name in ADAPTIVE:
+        kw.update(rates=torch.tensor([0.05, 0.2, 0.5]), wire_levels=torch.tensor([0, 1, 0]))
+    whole_flat = lambda t: big.flatten(t)  # noqa: E731
+    cut_flat = lambda t: small.flatten(pieces(t, r, STAGES))  # noqa: E731
+    to_piece = lambda x: small.flatten(pieces(big.unflatten(x), r, STAGES))  # noqa: E731
+    sketch_zero = {"s_mom": torch.zeros(cfg.sketch_rows, cfg.sketch_cols),
+                   "s_err": torch.zeros(cfg.sketch_rows, cfg.sketch_cols)}
+
+    def run(layout, flat, g_sum=None):
+        st = ClientState(u=flat(u) if scheme.uses_u else {}, v=flat(v) if scheme.uses_v else {},
+                         m=flat(m) if scheme.uses_m else {})
+        g, new, info = scheme.client_compress(st, flat(grad), flat(gbar)[0], 2, layout=layout,
+                                              **kw)
+        sst = ServerState(momentum=(sketch_zero if scheme.is_sketch else flat(smom)[0]
+                                    if scheme.server_momentum else {}),
+                          residual=flat(res)[0] if scheme.downlink_residual else {})
+        bc, sst, ainfo = scheme.server_aggregate(sst, g.sum(0) if g_sum is None else g_sum, 3.0,
+                                                 layout=layout, lr=0.05)
+        return g, new, info, bc, sst, ainfo
+
+    got, want = run(lay, cut_flat), run(big, whole_flat)
+    local = run(small, cut_flat)
+    key = f"stage/{name}"
+    out[f"{key}/cut"] = np.asarray(lay.cut_flags)
+    piece = (lambda x: x) if scheme.is_sketch else to_piece
+    out[f"{key}/payload"] = np.stack([got[0].numpy(), piece(want[0]).numpy()])
+    out[f"{key}/local_payload"] = local[0].numpy()
+    for f in ("u", "v", "m"):
+        a, b = getattr(got[1], f), getattr(want[1], f)
+        if isinstance(a, torch.Tensor):
+            out[f"{key}/{f}"] = np.stack([a.numpy(), to_piece(b).numpy()])
+    out[f"{key}/upload_nnz"] = np.stack([got[2].upload_nnz.numpy(), want[2].upload_nnz.numpy()])
+    out[f"{key}/total"] = np.asarray([got[2].total_params, want[2].total_params,
+                                      got[5].total_params, want[5].total_params])
+    if scheme.is_sketch:  # the server on the whole run's summed sketch
+        got = run(lay, cut_flat, want[0].sum(0))
+        out[f"{key}/s_err"] = np.stack([got[4].momentum["s_err"].numpy(),
+                                        want[4].momentum["s_err"].numpy()])
+    out[f"{key}/bcast"] = np.stack([got[3].numpy(), to_piece(want[3][None])[0].numpy()])
+    out[f"{key}/local_bcast"] = local[3].numpy()
+    if scheme.downlink_residual:
+        out[f"{key}/residual"] = np.stack([got[4].residual.numpy(),
+                                           to_piece(want[4].residual[None])[0].numpy()])
+    if scheme.server_momentum:
+        out[f"{key}/momentum"] = np.stack([got[4].momentum.numpy(),
+                                           to_piece(want[4].momentum[None])[0].numpy()])
+    out[f"{key}/download_nnz"] = np.asarray([int(got[5].download_nnz),
+                                             int(want[5].download_nnz)])
+    out[f"{key}/union_nnz"] = np.asarray([int(got[5].union_nnz), int(want[5].union_nnz)])
+
+
+HITTER_KS = (1, 9, 5_000, 60_000)
+
+
+def cut_hitters(group, out):
+    """FetchSGD's heavy hitters over the two ranks on a tie-heavy sketch (8
+    columns, values rounded to halves, so most estimates tie and the k-th
+    largest magnitude's ties span both ranks and whole leaves): the rank's
+    piece of the dense update (``hitters_pieces`` over STAGES' layout with
+    boxes) and the whole model's (``heavy_hitters``, ties to the lower
+    index) cut to the rank's pieces."""
+    from repro_torch.core import sketch
+    from repro_torch.utils.flat import Box
+
+    r = dist.get_rank(group)
+    big = FlatLayout.of({k: torch.zeros(s) for k, (s, _) in STAGES.items()})
+    small = FlatLayout.of({k: torch.zeros([n // WORLD if j == d else n for j, n in enumerate(s)])
+                           for k, (s, d) in STAGES.items()})
+    boxes = [Box(s, tuple(r * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
+             for _, (s, d) in sorted(STAGES.items())]
+    lay = small.over(group, big.sizes, None, boxes)
+    rng = np.random.default_rng(13)
+    s = torch.from_numpy((np.round(rng.normal(size=(5, 8)) * 2) / 2).astype(np.float32))
+    for k in HITTER_KS:
+        want = sketch.heavy_hitters(s, big.total, k)[2]
+        out[f"hitters/{k}"] = np.stack([
+            sketch.hitters_pieces(s, lay, k).numpy(),
+            small.flatten(pieces(big.unflatten(want[None]), r, STAGES))[0].numpy()])
+
+
+def stage_cases(group, out):
+    for name in STAGE_CASES:
+        stage_case(group, name, out)
+    cut_hitters(group, out)
+
+
 if __name__ == "__main__":
     rank, init, inputs, dest = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
     torch.set_num_threads(1)
@@ -244,6 +402,7 @@ if __name__ == "__main__":
         mesh = make_mesh((1, WORLD), ("data", "model"), "cpu")
         res: dict = {}
         select(mesh.get_group("model"), res)
+        stage_cases(mesh.get_group("model"), res)
         clipped(mesh, res)
         engine(mesh, res)
         families(mesh, dict(np.load(inputs)), res)
