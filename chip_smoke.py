@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase (what CI on a GPU runs)
     python3 chip_smoke.py --only kernels   # build + hold the kernels only
+    python3 chip_smoke.py --only dryrun    # build + phase 21 (the dry run) only
     python3 chip_smoke.py --profile        # + where a ResNet-56 and a Shakespeare
                                            #   round's, each serving run's and a dense
                                            #   training step's time goes
@@ -379,6 +380,21 @@ each kernel launching once per dtype group.
     dgcwgmf and the int8 wire under gmf_pod FSDP at (1, 2, 1)) against
     rank 0's mesh-less run: losses within TP_TRAIN_TOL, the params'
     change within TP_DELTA_TOL, K1-K3's launches a step as counted.
+21. **The dry run** (``--only dryrun``; ``launch/dryrun.py``, a fake-tensor
+    pass: nothing of a step runs on the card). Started together: (a) in a
+    process of its own, llama3.2-1b as phase 14 trains it (bf16, 8 x 256,
+    gmf_data, fused dgcwgmf, mesh-less): ``max_memory_allocated`` over step
+    2 and the live bytes of its inputs against the fake pass of the same
+    step, the arguments equal and the reckoned peak within
+    DRYRUN_CALIB_TOL of the measured; (b) two processes over gloo at (1, 2)
+    (``--dryrun-worker``) tallying the first gmf_data step of llama3.2-1b
+    (2 layers, fused: the group mode's all-reduces in) with
+    ``obs.collectives.CollectiveTally``, equal kind by kind to the fake
+    pass's in a fake world of two; (c) ``python -m repro_torch.launch.dryrun``
+    at ``--shape train_4k`` and ``--shape prefill_32k --mesh multi``, each
+    exit 0, their record lines printed; and, meanwhile in this process, (d)
+    each kernel's fake outputs (shapes, dtypes) against its real launch's
+    in float32 and bf16.
 
 Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
 ran one block a segment; the ``kernels`` line holds only this run's
@@ -4260,7 +4276,7 @@ def tp_group_select(rt, group, dev, leaves=None):
         names = sorted(leaves)
         lay = small.over(group, [s * (n if k in shared else 1) for k, s in
                                  zip(names, whole.sizes, strict=True)],
-                         [k not in shared or r == 0 for k in names])
+                         [([k not in shared or q == 0 for k in names], None) for q in range(n)])
         plan = lay.select_plan(group=True)
         rec[f"{tag}/plan"] = [plan.n_group, plan.n_split, plan.n_tiles]
         rec[f"{tag}/cut"] = list(lay.cut_flags)
@@ -4970,7 +4986,7 @@ def time_group_pod(rt, mesh, dev):
     axes = ("data", "model")
     layout = rt.flat.FlatLayout.of(pieces).over(
         rt.dstep.mesh_group(mesh, axes), rt.dstep.full_sizes(cfg),
-        shr.owner_flags(specs, mesh, axes))
+        shr.places(whole, specs, mesh, axes, owners=True))
     gen = torch.Generator(device=dev).manual_seed(7)
     v, m = (torch.randn((1, layout.total), generator=gen, device=dev).to(BF16) for _ in range(2))
     w, tau = torch.ones(1, device=dev), torch.full((1,), 0.3, device=dev)
@@ -5317,8 +5333,8 @@ def stages_check(rt, group, dev):
     r, n = dist.get_rank(group), dist.get_world_size(group)
     names = sorted(TP_SELECT)
     whole_lay = rt.flat.FlatLayout.of({k: torch.zeros(TP_SELECT[k][0], device=dev) for k in names})
-    boxes = [Box(s, tuple(r * (e // n) if j == d else 0 for j, e in enumerate(s)))
-             for s, d in (TP_SELECT[k] for k in names)]
+    places = [(None, [Box(s, tuple(q * (e // n) if j == d else 0 for j, e in enumerate(s)))
+                      for s, d in (TP_SELECT[k] for k in names)]) for q in range(n)]
 
     # the pieces in their own shapes (the sampled estimator reads them)
     small = rt.flat.FlatLayout.of({k: torch.zeros(
@@ -5330,7 +5346,7 @@ def stages_check(rt, group, dev):
                               t.chunk(n, dim=TP_SELECT[k][1] + 1)[r]
                               for k, t in whole_lay.unflatten(x).items()})
 
-    lay = small.over(group, whole_lay.sizes, None, boxes)
+    lay = small.over(group, whole_lay.sizes, places)
     out, worst = {}, 0.0
     rows = TP_SELECT_ROWS
     for name, kw in STAGES_CHECK.items():
@@ -5631,6 +5647,264 @@ def stages_report(res, card):
     return inst
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run (launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "dryrun" / "phase21"  # stores and records (ignored by git)
+DRYRUN_CALIB = dict(batch=8, seq_len=256)  # (a): phase 14's step
+DRYRUN_CALIB_TOL = 0.10  # (a): the reckoned peak within 10 % of the measured one
+DRYRUN_TALLY_LAYERS = 2  # (b): llama3.2-1b's depth at (1, 2)
+DRYRUN_CLI = (("--arch", LLAMA, "--shape", "train_4k"),
+              ("--arch", LLAMA, "--shape", "prefill_32k", "--mesh", "multi"))
+PHASE21 = ("phase 21: the dry run (launch/dryrun.py): the reckoned peak against the card's, the "
+           "collective tally at (1, 2) against the fake pass's, the CLI, the fake kernels")
+
+
+def dryrun_train_cfgs(rt, sync="gmf_data"):
+    from repro_torch.configs.base import TrainConfig
+
+    tcfg = TrainConfig(learning_rate=3e-3, total_steps=10, grad_sync=sync)
+    ccfg = rt.core.CompressionConfig(scheme="dgcwgmf", rate=RATE, tau=0.3, use_kernels=True)
+    return tcfg, ccfg
+
+
+def dryrun_calib_worker(dest: str) -> None:
+    """(a), a process of its own: llama3.2-1b at its published size as phase
+    14 trains it (bf16, batch 8 x 256, gmf_data, fused dgcwgmf at rate 0.1,
+    mesh-less) for two steps on the card; over step 2 (after
+    ``reset_peak_memory_stats``) ``max_memory_allocated`` and the live bytes
+    of its inputs; then the fake-tensor pass of the same step. The records
+    to ``dest`` (JSON)."""
+    sys.path.insert(0, str(SRC))
+    import repro_torch.core as core
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.dist import step as dstep
+    from repro_torch.kernels import gmf_compress as gk
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    rt = argparse.Namespace(core=core)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = configs.get_config(LLAMA)
+    tcfg, ccfg = dryrun_train_cfgs(rt)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = dstep.init_train_state(cfg, tcfg, ccfg, params, None)
+    del params
+    step = dstep.make_train_step(cfg, tcfg, ccfg, None)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=DRYRUN_CALIB["seq_len"],
+                               batch_size=DRYRUN_CALIB["batch"], seed=0)
+    state, _ = step(state, to_tensors(next(stream), dev))
+    batch = to_tensors(next(stream), dev)
+    torch.cuda.synchronize()
+    args = dryrun.storage_bytes((state, batch))
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gk.reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    real_launches = dict(gk.LAUNCHES)
+    loss = float(m["loss"])
+    batch_meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    del state, m, batch
+    t0 = time.perf_counter()
+    got = dryrun.trace_train(cfg, tcfg, ccfg, None, batch_meta)
+    out = {"measured": {"argument_bytes": args, "peak_bytes": peak,
+                        "allocated_before_bytes": before, "launches": real_launches,
+                        "loss": loss},
+           "reckoned": {**got["memory"], "kernels": got["kernels"], "cost": got["cost"],
+                        "trace_s": time.perf_counter() - t0}}
+    Path(dest).write_text(json.dumps(out))
+
+
+def dryrun_tally_worker(rank: int, init: str, dest: str) -> None:
+    """(b), one of three processes: rank 0 or 1 of a gloo world of two over
+    ``init`` (the card's tensors cross it) tallying the first gmf_data step
+    of llama3.2-1b (``DRYRUN_TALLY_LAYERS`` layers, bf16, fused dgcwgmf) at
+    the mesh (1, 2); or (rank -1) rank 0's fake-tensor pass of the same
+    step in a fake world of two. The tally to ``dest`` (JSON)."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+
+    import repro_torch.core as core
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLMStream, to_tensors
+    from repro_torch.dist import sharding as shr
+    from repro_torch.dist import step as dstep
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.obs.collectives import CollectiveTally
+
+    rt = argparse.Namespace(core=core)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = dataclasses.replace(configs.get_config(LLAMA), num_layers=DRYRUN_TALLY_LAYERS)
+    tcfg, ccfg = dryrun_train_cfgs(rt)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=DRYRUN_CALIB["seq_len"],
+                               batch_size=DRYRUN_CALIB["batch"], seed=0)
+    batch = to_tensors(next(stream), dev)
+    if rank < 0:
+        meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+        with dryrun.fake_world(2):
+            got = dryrun.trace_train(cfg, tcfg, ccfg, make_mesh((1, 2), ("data", "model")), meta)
+        out = {"counts": got["collective_counts"],
+               "bytes": {k: int(v) for k, v in got["collectives"].items()
+                         if k not in ("num_collectives", "total_bytes")},
+               "kernels": got["kernels"]}
+        Path(dest).write_text(json.dumps(out))
+        return
+    torch.distributed.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                                         timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        params = shr.local_tree(params, shr.named_shardings(
+            mesh, shr.param_specs(params, fsdp=False, mesh=mesh)))
+        state = dstep.init_train_state(cfg, tcfg, ccfg, params, mesh)
+        del params
+        step = dstep.make_train_step(cfg, tcfg, ccfg, mesh)
+        batch = shr.local_tree(batch, shr.named_shardings(
+            mesh, dstep.step_batch_specs(cfg, tcfg, mesh)))
+        with CollectiveTally() as tally:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        out = {"counts": tally.counts, "bytes": tally.bytes, "loss": float(m["loss"])}
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(dest).write_text(json.dumps(out))
+
+
+def dryrun_kernel_calls(rt, dev, dtype):
+    """Every kernel wrapper once on ``dev`` (the card, or fake tensors on
+    it): {kernel: outputs}."""
+    gen = torch.Generator().manual_seed(5)
+    tree = {"a": torch.zeros(3, 700, device=dev), "b": torch.zeros(5000, device=dev)}
+    lay = rt.flat.FlatLayout.of(tree)
+    x = torch.randn(3, lay.total, generator=gen).to(dev, dtype)
+    mask = (torch.rand(3, lay.total, generator=gen) > 0.5).float().to(dev)
+    w, tau = torch.ones(3, device=dev), torch.full((3,), 0.3, device=dev)
+    sel = rt.ops.gmf_select(x, x, lay, RATE, w=w, tau=tau, eps=EPS)
+    out = {"momentum_correction": rt.ops.momentum_correction(x, x, x, 0.9),
+           "apply_mask": rt.ops.apply_mask_update(x, x, mask),
+           "gmf_select": sel,
+           "gmf_compress": rt.ops.gmf_compress(x, x, x, layout=lay, inv_norm_v=sel[0],
+                                               inv_norm_m=sel[1], tau=tau, threshold=sel[2]),
+           "topk_abs_select": rt.ops.topk_abs_select(x, lay, RATE)}
+    for d in (64, 128) if dtype == BF16 else (64,):  # the tensor-core / CUDA-core kernels
+        q = torch.randn(2, 128, 4, d, generator=gen).to(dev, dtype)
+        k = torch.randn(2, 128, 2, d, generator=gen).to(dev, dtype)
+        out[f"flash_attention_{rt.k4.kernel_for(dtype, d)}_d{d}"] = rt.k4.flash_attention(q, k, k)
+    return out
+
+
+def dryrun_kernel_shapes(rt, dev):
+    """(d): each kernel's fake outputs against its real launch's on the card,
+    shapes and dtypes, in float32 and bf16 -> {kernel/dtype: equal}."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+
+    def described(outs):
+        return {name: [(tuple(t.shape), t.dtype) for t in
+                       (out if isinstance(out, (tuple, list)) else (out,))]
+                for name, out in outs.items()}
+
+    res = {}
+    for dtype in (torch.float32, BF16):
+        real = described(dryrun_kernel_calls(rt, dev, dtype))
+        with dryrun.fresh_caches(), FakeTensorMode():
+            fake = described(dryrun_kernel_calls(rt, dev, dtype))
+        for name in real:
+            res[f"{name}/{str(dtype).replace('torch.', '')}"] = real[name] == fake[name]
+    torch.cuda.synchronize()
+    return res
+
+
+def dryrun_phase(rt, dev, card):
+    """Phase 21: (a) the calibration, (b) the tally's three processes and (c)
+    the CLI's two, all started together; (d) in this process meanwhile.
+    Checks and prints each."""
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    store = DRYRUN_DIR / "store"
+    store.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    me = [sys.executable, str(ROOT / "chip_smoke.py")]
+    calib = DRYRUN_DIR / "calib.json"
+    tallies = [DRYRUN_DIR / f"tally{r}.json" for r in (0, 1, -1)]
+    for f in (calib, *tallies):
+        f.unlink(missing_ok=True)
+    jobs = {"calib": me + ["--dryrun-worker", "calib", "--tp-out", str(calib)]}
+    for r, dest in zip((0, 1, -1), tallies, strict=True):
+        jobs[f"tally{r}"] = me + ["--dryrun-worker", str(r), "--tp-init", f"file://{store}",
+                                  "--tp-out", str(dest)]
+    for i, cli in enumerate(DRYRUN_CLI):
+        jobs[f"cli{i}"] = [sys.executable, "-m", "repro_torch.launch.dryrun", *cli,
+                           "--out", str(DRYRUN_DIR / "records")]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True) for k, cmd in jobs.items()}
+    try:
+        shapes = dryrun_kernel_shapes(rt, dev)
+        logs = {k: p.communicate(timeout=240)[0] for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    for k, p in procs.items():
+        check(p.returncode == 0, f"phase 21 {k} failed (rc {p.returncode}):\n{logs[k][-3000:]}")
+    # (a) the calibration
+    cal = json.loads(calib.read_text())
+    meas, reck = cal["measured"], cal["reckoned"]
+    ratio = reck["peak_bytes_per_chip"] / meas["peak_bytes"]
+    print(f"  (a) llama3.2-1b, bf16, batch {DRYRUN_CALIB['batch']} x {DRYRUN_CALIB['seq_len']}, "
+          f"gmf_data, fused dgcwgmf, mesh-less, step 2 ({card}): measured peak "
+          f"{meas['peak_bytes']} B (max_memory_allocated; {meas['allocated_before_bytes']} B "
+          f"allocated before the step), arguments {meas['argument_bytes']} B; reckoned by the "
+          f"fake pass: peak {reck['peak_bytes_per_chip']} B, arguments "
+          f"{reck['argument_bytes_per_chip']} B, temp {reck['temp_bytes_per_chip']} B; "
+          f"reckoned / measured peak {ratio:.4f}; launches real {meas['launches']}, fake "
+          f"{reck['kernels']}; fake pass {reck['trace_s']:.1f} s", flush=True)
+    check(reck["argument_bytes_per_chip"] == meas["argument_bytes"],
+          f"phase 21 (a): reckoned arguments {reck['argument_bytes_per_chip']} B != measured "
+          f"{meas['argument_bytes']} B")
+    check(abs(ratio - 1.0) <= DRYRUN_CALIB_TOL,
+          f"phase 21 (a): reckoned peak / measured peak = {ratio:.4f}, not within "
+          f"{DRYRUN_CALIB_TOL:.0%}")
+    # (b) the tally
+    real = [json.loads(t.read_text()) for t in tallies[:2]]
+    fake = json.loads(tallies[2].read_text())
+    print(f"  (b) the first gmf_data step of llama3.2-1b ({DRYRUN_TALLY_LAYERS} layers, bf16, "
+          f"fused) at (1, 2), two processes over gloo on the card: tally rank 0 "
+          f"{json.dumps({'counts': real[0]['counts'], 'bytes': real[0]['bytes']})}, rank 1 "
+          f"{json.dumps({'counts': real[1]['counts'], 'bytes': real[1]['bytes']})}; the fake "
+          f"pass's {json.dumps({'counts': fake['counts'], 'bytes': fake['bytes']})} (fake "
+          f"launches {fake['kernels']})", flush=True)
+    for r, rec in enumerate(real):
+        check(rec["counts"] == fake["counts"] and rec["bytes"] == fake["bytes"],
+              f"phase 21 (b): rank {r}'s tally {rec['counts']} {rec['bytes']} != the fake "
+              f"pass's {fake['counts']} {fake['bytes']}")
+    # (c) the CLI
+    for i, cli in enumerate(DRYRUN_CLI):
+        lines = [ln for ln in logs[f"cli{i}"].splitlines()
+                 if ln.startswith(("torch ", "===", "    ", "done;"))]
+        print(f"  (c) python -m repro_torch.launch.dryrun {' '.join(cli)}: exit 0\n    "
+              + "\n    ".join(lines), flush=True)
+    # (d) the fake kernels
+    print(f"  (d) the fake kernels' outputs (shapes, dtypes) against the launches': "
+          f"{json.dumps(shapes)}", flush=True)
+    check(all(shapes.values()), f"phase 21 (d): {[k for k, ok in shapes.items() if not ok]}")
+    print(f"  phase 21's processes in {wall:.1f} s", flush=True)
+    return {"ratio": ratio, "calib": cal, "tally": fake}
+
+
 T_START = time.perf_counter()
 
 
@@ -5641,13 +5915,14 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp", "stages-cut"),
+    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp", "stages-cut", "dryrun"),
                     default=None,
                     help="run only the build and kernel phases, or the build and phase 18, "
-                         "19 or 20")
+                         "19, 20 or 21")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--stages-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
@@ -5669,6 +5944,12 @@ def main() -> None:
         return
     if args.stages_worker is not None:  # one of phase 20's two processes
         stages_worker(args.stages_worker, args.tp_init, args.tp_out)
+        return
+    if args.dryrun_worker is not None:  # one of phase 21's processes
+        if args.dryrun_worker == "calib":
+            dryrun_calib_worker(args.tp_out)
+        else:
+            dryrun_tally_worker(int(args.dryrun_worker), args.tp_init, args.tp_out)
         return
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
                for f in ("gmf_compress.cu", "flash_attention.cu", "flash_attention_sm90.cu")):
@@ -5727,8 +6008,11 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if args.only in ("model-axis", "fsdp", "stages-cut"):
-        if args.only == "model-axis":
+    if args.only in ("model-axis", "fsdp", "stages-cut", "dryrun"):
+        if args.only == "dryrun":
+            phase(PHASE21)
+            dryrun_phase(rt, dev, card)
+        elif args.only == "model-axis":
             phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
                   "processes on the card over gloo)")
             model_axis_phase(rt, dev, card, bw, peak, _resnet56_params(dev))
@@ -5902,6 +6186,9 @@ def main() -> None:
         t20 = time.perf_counter()
         _, bf16_by_path["llama_stages_cut"] = stages_cut_phase(rt, card)
         print(f"  phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
+        phase(PHASE21)
+        torch.cuda.empty_cache()
+        dryrun_phase(rt, dev, card)
         launches["flash_attention_tc"] = sum(k4_tc_by_path.values())
         for counts in by_path.values():
             for name, n in counts.items():

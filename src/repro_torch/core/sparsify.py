@@ -101,10 +101,10 @@ def segment_sample(seg: torch.Tensor, layout, i: int) -> torch.Tensor:
     x = seg.reshape(seg.shape[0], *layout.shapes[i])
     if not layout.cut_flags[i]:
         return strided_sample_nd(x)
-    box = layout.boxes[i]
+    box = None if layout.boxes is None else layout.boxes[i]
     if box is None:
         raise ValueError("a cut leaf's sample needs the pieces' boxes: FlatLayout.over(..., "
-                         "boxes=...)")
+                         "places=...)")
     at = tuple(slice((-a) % s, None, s) for a, s in zip(box.start, _sample_strides(box.shape)))
     return x[(slice(None),) + at].reshape(seg.shape[0], -1)
 
@@ -146,10 +146,12 @@ def group_kth_largest(keys: torch.Tensor, rank: torch.Tensor, bits: int,
     """The ``rank[r]``-th largest of row r of ``keys`` (non-negative
     integers below 2^bits, ``[rows, n]``) over every rank of ``group`` (each
     rank's keys the entries that count there) -> int64 ``[rows]``. A radix
-    select: each pass counts the candidates' next digit (one ``bincount``
+    select: each pass counts the candidates' next digit (one count
     over the rows), sums the counts over the group (an all-reduce, none
     without a group) and finds the digit from the top where the rank falls.
-    Exact, and no host sync."""
+    Exact, and no host sync; the counts go into a zeros tensor of a fixed
+    size (``index_add_``), so the select also runs on tensors whose values
+    are not known (a shape pass)."""
     rows = keys.shape[0]
     dev = keys.device
     prefix = torch.zeros(rows, dtype=torch.int64, device=dev)
@@ -161,7 +163,9 @@ def group_kth_largest(keys: torch.Tensor, rank: torch.Tensor, bits: int,
         cand = (keys >> top) == (prefix >> top)[:, None]
         slot = torch.where(cand, ((keys >> shift) & (bins - 1)).to(torch.int64) + base * bins,
                            rows * bins)
-        hist = torch.bincount(slot.reshape(-1), minlength=rows * bins + 1)[:-1]
+        one = torch.ones((), dtype=torch.int64, device=dev).expand(slot.numel())
+        hist = torch.zeros(rows * bins + 1, dtype=torch.int64, device=dev).index_add_(
+            0, slot.reshape(-1), one)[:-1]
         del cand, slot
         if group is not None:
             torch.distributed.all_reduce(hist, group=group)
@@ -227,11 +231,8 @@ def whole_segment(seg: torch.Tensor, layout, i: int) -> torch.Tensor:
     size = torch.distributed.get_world_size(layout.group)
     parts = [torch.empty_like(seg, memory_format=torch.contiguous_format) for _ in range(size)]
     torch.distributed.all_gather(parts, seg.contiguous(), group=layout.group)
-    if layout.shared_flags[i]:
-        own = torch.tensor([float(layout.owner_flags[i])], device=seg.device)
-        owners = [torch.empty_like(own) for _ in range(size)]
-        torch.distributed.all_gather(owners, own, group=layout.group)
-        parts = [p for p, o in zip(parts, owners, strict=True) if o.item()]
+    if layout.shared_flags[i]:  # every rank's owner flag, from the layout's places
+        parts = [p for p, (owners, _) in zip(parts, layout.places, strict=True) if owners[i]]
     return torch.cat(parts, dim=1)
 
 

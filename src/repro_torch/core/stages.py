@@ -50,6 +50,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import fusion as fusion_math
@@ -685,18 +686,21 @@ class HadamardRotation(Rotation):
             sizes = [self._padded(n) for n in layout.sizes]
             rotated = FlatLayout.of_sizes(sizes, layout.device)
             groups = []
+            dev = layout.device
+            # the index columns on the host (numpy, from the layout's sizes
+            # and offsets), then moved to the device: nothing read back
+            on_dev = lambda a: torch.as_tensor(a, dtype=torch.int64).to(dev)  # noqa: E731
             for m in sorted(set(sizes)):
                 leaves = [i for i, s in enumerate(sizes) if s == m]
-                pos = torch.arange(m)[None, :]
-                n = torch.tensor([layout.sizes[i] for i in leaves])[:, None]
-                start = torch.tensor([layout.offsets[i] for i in leaves])[:, None]
-                src = torch.where(pos < n, start + pos, layout.total).reshape(-1)
-                dst = (torch.tensor([rotated.offsets[i] for i in leaves])[:, None]
+                pos = np.arange(m, dtype=np.int64)[None, :]
+                n = np.array([layout.sizes[i] for i in leaves], dtype=np.int64)[:, None]
+                start = np.array([layout.offsets[i] for i in leaves], dtype=np.int64)[:, None]
+                src = np.where(pos < n, start + pos, layout.total).reshape(-1)
+                dst = (np.array([rotated.offsets[i] for i in leaves], dtype=np.int64)[:, None]
                        + pos).reshape(-1)
-                real = torch.nonzero(src < layout.total)[:, 0]
-                dev = layout.device
-                groups.append(_HadamardGroup(m, src.to(dev), dst.to(dev), real.to(dev),
-                                             src[real].to(dev),
+                real = np.flatnonzero(src < layout.total)
+                groups.append(_HadamardGroup(m, on_dev(src), on_dev(dst), on_dev(real),
+                                             on_dev(src[real]),
                                              torch.sqrt(scalar(float(m), dev))))
             self._plans[layout] = rotated, tuple(groups)
         return self._plans[layout]

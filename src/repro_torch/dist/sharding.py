@@ -205,27 +205,35 @@ def fsdp_dims(params, mesh) -> dict:
     return _map_named(dim, params)
 
 
-def owner_flags(specs, mesh, axes, distinct=()) -> tuple[bool, ...]:
+def _coord(mesh, coord=None) -> dict:
+    """A rank's coordinate by axis name: ``coord`` (a dict), or this rank's."""
+    if coord is not None:
+        return dict(coord)
+    return dict(zip(mesh_axes(mesh), mesh.get_coordinate(), strict=True))
+
+
+def owner_flags(specs, mesh, axes, distinct=(), coord=None) -> tuple[bool, ...]:
     """Per leaf of a spec tree (``tree_leaves`` order): whether this rank's
     piece counts in a sum over the mesh ``axes``, so that a piece several
     ranks hold alike counts once. It counts where the rank's coordinate is
     0 on every one of ``axes`` that the leaf is not cut over; ``distinct``
     names axes whose ranks hold different values (clients), which every
-    rank counts."""
+    rank counts. ``coord`` (axis name -> index) asks it of another rank."""
     names = mesh_axes(mesh)
-    coord = dict(zip(names, mesh.get_coordinate(), strict=True))
+    coord = _coord(mesh, coord)
     free = [a for a in axes if a in names and a not in distinct]
     return tuple(all(coord[a] == 0 for a in free if a not in spec_axes(s))
                  for s in tree_leaves(specs))
 
 
-def boxes(like, specs, mesh) -> tuple:
+def boxes(like, specs, mesh, coord=None) -> tuple:
     """Per leaf of ``like`` (whole leaves; meta-device ones will do) and its
     spec tree, in ``tree_leaves`` order: this rank's piece's place in the
     whole leaf, a ``utils.flat.Box`` (the whole shape and the piece's first
     index on each dim), as ``local_tree`` cuts it. A dim cut over several
-    axes takes them in the entry's order, the first outermost."""
-    coord = dict(zip(mesh_axes(mesh), mesh.get_coordinate(), strict=True))
+    axes takes them in the entry's order, the first outermost. ``coord``
+    (axis name -> index) asks it of another rank."""
+    coord = _coord(mesh, coord)
     out = []
     for x, spec in zip(tree_leaves(like), tree_leaves(specs), strict=True):
         start = []
@@ -237,6 +245,31 @@ def boxes(like, specs, mesh) -> tuple:
             start.append(index * (n // count))
         out.append(Box(tuple(x.shape), tuple(start)))
     return tuple(out)
+
+
+def group_coords(mesh, axes) -> list[dict]:
+    """The coordinates of the ranks of this rank's group over the mesh's
+    ``axes`` of size over 1 (``dist.step.mesh_group``'s group), in the
+    group's rank order: row-major over those axes in the mesh's order, the
+    other axes at this rank's coordinate."""
+    names = [a for a in mesh_axes(mesh) if a in axes and axis_size(mesh, a) > 1]
+    base = _coord(mesh)
+    out = [base]
+    for a in names:
+        out = [dict(c, **{a: i}) for c in out for i in range(axis_size(mesh, a))]
+    return out
+
+
+def places(like, specs, mesh, axes, *, owners: bool = False) -> tuple:
+    """How every rank of the group over ``axes`` (``group_coords``) holds
+    its pieces of ``like``'s leaves cut by ``specs``: one ``(owners,
+    boxes)`` per rank in the group's rank order, ``owners`` its
+    ``owner_flags`` over ``axes`` (None unless asked for) and ``boxes`` its
+    ``boxes``: what ``utils.flat.FlatLayout.over`` takes, from the specs
+    alone (no collective)."""
+    return tuple((owner_flags(specs, mesh, axes, coord=c) if owners else None,
+                  boxes(like, specs, mesh, coord=c))
+                 for c in group_coords(mesh, axes))
 
 
 def strip_axes(spec: P, axes) -> P:

@@ -640,13 +640,14 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
     # the group a row's segments are cut over: a pod's data x model ranks
     # where FSDP cuts the state over data (gmf_pod), else the model group
     if fsdp and not own:
-        row_group = mesh_group(mesh, ("data", shr.MODEL_AXIS))
-        row_owner = clip_owner
+        row_axes, row_group = ("data", shr.MODEL_AXIS), mesh_group(mesh, ("data", shr.MODEL_AXIS))
     else:
-        row_group, row_owner = tp, None
-    # each of the row's pieces' place in its whole leaf
-    row_boxes = (shr.boxes(abstract, shr.param_specs(abstract, fsdp=fsdp and not own, mesh=mesh),
-                           mesh) if row_group is not None else None)
+        row_axes, row_group = (shr.MODEL_AXIS,), tp
+    # every rank of the row's group: its owner flags (where FSDP cuts the
+    # state over data) and its pieces' places in their whole leaves
+    row_places = (shr.places(abstract, shr.param_specs(abstract, fsdp=fsdp and not own, mesh=mesh),
+                             mesh, row_axes, owners=fsdp and not own)
+                  if row_group is not None else None)
 
     def step_fn(state: TrainState, batch):
         with trace.annotate_scope("round.client_grads"):
@@ -659,7 +660,7 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                 # gmf_data: the client's whole gradient; else the rank's pieces
                 layout = FlatLayout.of(grads)
                 if row_group is not None:
-                    layout = layout.over(row_group, sizes, row_owner, row_boxes)
+                    layout = layout.over(row_group, sizes, row_places)
                 gbar_in, sstate_in = state.gbar, state.sstate
                 if own:  # the broadcast and the server state whole over data
                     pieces = FlatLayout.of(state.params)
@@ -679,7 +680,9 @@ def make_train_step(cfg, tcfg, ccfg, mesh=None):
                                                           state.step, layout=layout)
                 del flat
             with trace.annotate_scope("round.server_aggregate"):
-                g_sum = tree_map(lambda x: torch.sum(x, dim=0), G)
+                # the rank's one row is its own sum (a sum of one value rounds
+                # back to it), where torch's bf16 sum would hold a float32 row
+                g_sum = tree_map(lambda x: x[0] if x.shape[0] == 1 else torch.sum(x, dim=0), G)
                 del G
                 if sync_group is not None:  # the one cross-shard collective
                     g_sum = tree_map(lambda x: _psum_(x, [sync_group]), g_sum)

@@ -196,12 +196,13 @@ class VmapEngine(RoundEngine):
 def check_group_backend(backend: str, device_type: str) -> None:
     """Raise unless a process group of ``backend`` can carry the
     collectives of tensors on ``device_type``: NCCL for ``cuda``, gloo for
-    ``cpu``."""
+    ``cpu``; a fake one (``launch/dryrun.py``'s, which moves nothing) for
+    either."""
     want = GROUP_BACKENDS.get(device_type)
     if want is None:
         raise ValueError(f"the shard backend runs on {tuple(GROUP_BACKENDS)}, "
                          f"not {device_type!r}")
-    if str(backend).lower() != want:
+    if str(backend).lower() not in (want, "fake"):
         raise ValueError(f"the shard backend on {device_type!r} needs a {want!r} process "
                          f"group, got {backend!r}")
 

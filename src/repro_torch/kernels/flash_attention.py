@@ -41,6 +41,7 @@ import functools
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import BASE_FLAGS, bind, build_library
@@ -62,6 +63,7 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_cc":
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        FAKE_LAUNCHES[name] = 0
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
@@ -74,12 +76,12 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "cc"
 
 
-def tma_layout_error(x: torch.Tensor) -> str | None:
+def tma_layout_error(x: torch.Tensor, *, storage: bool = True) -> str | None:
     """Why the tensor-core kernel's TMA maps cannot take ``x`` (a 4-D view
     whose last dim is contiguous), or None: its storage must start 16-byte
-    aligned, and every stride of a dim longer than 1 be a multiple of 16
-    bytes."""
-    if x.data_ptr() % 16:
+    aligned (checked unless ``storage`` is False: the strides alone), and
+    every stride of a dim longer than 1 be a multiple of 16 bytes."""
+    if storage and x.data_ptr() % 16:
         return f"storage at {x.data_ptr():#x} is not 16-byte aligned"
     for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
         if size > 1 and (stride * x.element_size()) % 16:
@@ -122,7 +124,9 @@ def library_tc() -> ctypes.CDLL:
 
 def _launch_bthd(q, k, v, o, causal: bool) -> None:
     """Launch the kernel ``kernel_for`` names over (B, T, H, D) views: q and
-    o (B, T, H, D), k and v (B, S, KV, D), any strides whose last one is 1."""
+    o (B, T, H, D), k and v (B, S, KV, D), any strides whose last one is 1.
+    The checks that read only shapes, strides and dtypes run here; the
+    launch (and the storage's alignment) is the operator ``_flash_op``."""
     name = "flash_attention"
     for x in (q, k, v, o):
         if not x.is_cuda or x.device != q.device:
@@ -130,7 +134,7 @@ def _launch_bthd(q, k, v, o, causal: bool) -> None:
                              f"{x.device} beside {q.device}")
         if x.dtype != q.dtype:
             raise TypeError(f"{name}: q, k, v must share a dtype, got {x.dtype} and {q.dtype}")
-        if x.stride(-1) != 1 or any(s % 4 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        if x.stride(-1) != 1 or any(s % 4 for s in x.stride()[:-1]):
             raise ValueError(f"{name}: the head dim must be contiguous, with the other "
                              f"strides multiples of 4 and 16-byte aligned storage")
     if q.dtype not in _DTYPES:
@@ -150,9 +154,34 @@ def _launch_bthd(q, k, v, o, causal: bool) -> None:
         raise ValueError(f"{name}: B*H = {b * h} exceeds the grid's 65535")
     if t == 0:
         return
-    kernel = kernel_for(q.dtype, d)
-    if kernel == "tc":
+    if kernel_for(q.dtype, d) == "tc":
         for what, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+            why = tma_layout_error(x, storage=False)
+            if why is not None:
+                raise ValueError(f"{name}: the tensor-core kernel (bf16, D {d}) cannot take "
+                                 f"{what}: {why}")
+    _flash_op(q, k, v, o, causal)
+
+
+# Launches traced by shape (the fake implementation, ``launch/dryrun.py``)
+# since the last reset_launches(), as LAUNCHES counts the real ones.
+FAKE_LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_cc": 0}
+
+
+@torch.library.custom_op("repro_torch::flash_fwd_", mutates_args=("o",), device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              causal: bool) -> None:
+    """K4's launch over checked (B, T, H, D) / (B, S, KV, D) views, writing
+    o: the operator's CUDA implementation."""
+    name = "flash_attention"
+    b, t, h, d = q.shape
+    _, s, kv, _ = k.shape
+    kernel = kernel_for(q.dtype, d)
+    for what, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the head dim must be contiguous, with the other "
+                             f"strides multiples of 4 and 16-byte aligned storage")
+        if kernel == "tc":
             why = tma_layout_error(x)
             if why is not None:
                 raise ValueError(f"{name}: the tensor-core kernel (bf16, D {d}) cannot take "
@@ -175,6 +204,21 @@ def _launch_bthd(q, k, v, o, causal: bool) -> None:
                            f"cudaError_t {err}")
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}_{kernel}"] += 1
+
+
+@_flash_op.register_fake
+def _(q, k, v, o, causal):
+    FAKE_LAUNCHES["flash_attention"] += 1
+    FAKE_LAUNCHES[f"flash_attention_{kernel_for(q.dtype, q.shape[-1])}"] += 1
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd_)
+def _flash_flops(q_shape, k_shape, v_shape, o_shape, causal, *args, out_shape=None, **kwargs):
+    """K4's multiply-adds as FlopCounterMode counts a matmul: QKᵀ and PV,
+    2·T·S·D each per head, half of them under the causal mask."""
+    b, t, h, d = q_shape
+    flops = 4 * b * h * t * k_shape[1] * d
+    return flops // 2 if causal else flops
 
 
 def _forward_only(q, k, v) -> None:

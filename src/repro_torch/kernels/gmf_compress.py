@@ -106,6 +106,7 @@ _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def reset_launches() -> None:
     INSTANCES.clear()
     GROUP_SUMS.clear()
+    FAKE_LAUNCHES.clear()
 
 
 def instance(*dtypes, out=None) -> str:
@@ -274,9 +275,9 @@ def select_table(plan: SelectPlan, device, group=None, owners=None) -> SelectTab
     own = None
     if group is not None and owners is not None and not np.asarray(owners, bool)[cut].all():
         flags = np.asarray(owners, bool)[cut].reshape(-1, 1)
-        own = (torch.from_numpy(flags.astype(np.float64)).to(device),
-               torch.from_numpy(flags.astype(np.int32)).to(device))
-    return SelectTable(torch.from_numpy(host).to(device), len(local), int(split.size),
+        own = (torch.as_tensor(flags.astype(np.float64)).to(device),
+               torch.as_tensor(flags.astype(np.int32)).to(device))
+    return SelectTable(torch.as_tensor(host).to(device), len(local), int(split.size),
                        len(tiles), plan, {}, None if group is None else int(cut.sum()), own)
 
 
@@ -358,7 +359,9 @@ def _vec(*xs: torch.Tensor) -> int:
 def _stream(device) -> int:
     """The current stream of ``device`` as the raw handle the kernels take
     (torch's own getter: a Stream object costs more host time than a short
-    launch)."""
+    launch); 0 where torch has no CUDA runtime (tensors traced by shape)."""
+    if not torch.cuda.is_available():
+        return 0
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
@@ -374,6 +377,156 @@ def _launch(name: str, fn, device, *args, inst: str = "", stream: int | None = N
     INSTANCES[name, inst] = INSTANCES.get((name, inst), 0) + 1
 
 
+# ---------------------------------------------------------------------------
+# The launches as torch operators
+# ---------------------------------------------------------------------------
+#
+# Each launch is a ``torch.library.custom_op`` with a CUDA implementation
+# (the ctypes call above) and a fake one (``register_fake``): the
+# counterpart of a Pallas call's ``out_shape``. The wrappers allocate every
+# output and scratch buffer with torch before the launch and the operator
+# writes them (``mutates_args``), so a pass over fake tensors
+# (``torch._subclasses.FakeTensorMode``, ``launch/dryrun.py``) allocates
+# what the card allocates, issues the same collectives between launches,
+# and launches nothing: the fake implementation only counts the launch in
+# ``FAKE_LAUNCHES``. A CPU tensor has no implementation and raises.
+
+# Launches traced by shape (fake implementations) per kernel since the last
+# reset_launches(); never counted in INSTANCES / LAUNCHES.
+FAKE_LAUNCHES: dict[str, int] = {}
+
+
+def _fake(name: str) -> None:
+    FAKE_LAUNCHES[name] = FAKE_LAUNCHES.get(name, 0) + 1
+
+
+def _op(name: str, mutates: tuple, kernel: str):
+    """``fn`` as the CUDA implementation of the operator ``repro_torch::name``
+    that writes ``mutates``, with a fake implementation that counts one
+    ``kernel`` launch."""
+    def deco(fn):
+        op = torch.library.custom_op(f"repro_torch::{name}", mutates_args=mutates,
+                                     device_types="cuda")(fn)
+
+        @op.register_fake
+        def _(*args, **kwargs):
+            _fake(kernel)
+
+        return op
+
+    return deco
+
+
+@_op("momentum_multi_", ("flat_u", "flat_v"), "momentum_correction")
+def _momentum_op(us: list[torch.Tensor], vs: list[torch.Tensor], gs: list[torch.Tensor],
+                 flat_u: torch.Tensor, flat_v: torch.Tensor, alpha: float) -> None:
+    table = momentum_table(us, vs, gs, *momentum_limits(), out_dtype=flat_u.dtype,
+                           out=(flat_u, flat_v))
+    launch_momentum(table, alpha, flat_u.device)
+
+
+@_op("apply_mask_", ("go", "uo", "vo"), "apply_mask")
+def _mask_op(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, go: torch.Tensor,
+             uo: torch.Tensor, vo: torch.Tensor) -> None:
+    o = go.dtype
+    _launch("apply_mask", library().gmf_apply_mask, u.device,
+            u.data_ptr(), v.data_ptr(), mask.data_ptr(), go.data_ptr(), uo.data_ptr(),
+            vo.data_ptr(), u.numel(), _vec(u, v, mask, go, uo, vo),
+            DTYPE_CODES[v.dtype], DTYPE_CODES[mask.dtype], DTYPE_CODES[o],
+            inst=instance(v.dtype, mask.dtype, out=o))
+
+
+@_op("gmf_compress_", ("go", "uo", "vo", "mo"), "gmf_compress")
+def _compress_op(u: torch.Tensor, v: torch.Tensor, m: torch.Tensor, inv_norm_v: torch.Tensor,
+                 inv_norm_m: torch.Tensor, threshold: torch.Tensor, tau: torch.Tensor,
+                 offsets: torch.Tensor, go: torch.Tensor, uo: torch.Tensor, vo: torch.Tensor,
+                 mo: torch.Tensor) -> None:
+    leaves = offsets.numel() - 1
+    _launch("gmf_compress", library().gmf_compress, u.device,
+            u.data_ptr(), v.data_ptr(), m.data_ptr(), inv_norm_v.data_ptr(),
+            inv_norm_m.data_ptr(), threshold.data_ptr(), tau.data_ptr(), offsets.data_ptr(),
+            leaves, u.shape[1], go.data_ptr(), uo.data_ptr(), vo.data_ptr(), mo.data_ptr(),
+            u.numel(), _vec(u, v, m, go, uo, vo, mo), DTYPE_CODES[v.dtype],
+            DTYPE_CODES[m.dtype], inst=instance(v.dtype, m.dtype))
+
+
+def _scratch_ptrs(part: torch.Tensor, buf: torch.Tensor, rows: int, n_split: int):
+    """The select scratch's addresses: the partials, the histograms and the
+    segment states (after the histograms in the int32 buffer)."""
+    return part.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * rows * n_split * 2048
+
+
+@_op("gmf_select_", ("inv_nv", "inv_nm", "thr", "part", "buf"), "gmf_select")
+def _select_op(v: torch.Tensor, m: torch.Tensor, table: torch.Tensor, keep: torch.Tensor,
+               w: torch.Tensor, tau: torch.Tensor, inv_nv: torch.Tensor, inv_nm: torch.Tensor,
+               thr: torch.Tensor, part: torch.Tensor, buf: torch.Tensor, n_local: int,
+               n_split: int, n_tiles: int, stride: int, eps: float) -> None:
+    rows, leaves = thr.shape
+    p, h, st = _scratch_ptrs(part, buf, rows, n_split)
+    _launch("gmf_select", library().gmf_select, v.device,
+            v.data_ptr(), m.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
+            keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(), float(eps), leaves, rows,
+            v.shape[1], _vec(v, m), inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr(), p, h,
+            st, DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype], inst=instance(v.dtype, m.dtype))
+
+
+@_op("gmf_select_abs_", ("thr", "mask", "part", "buf"), "gmf_select")
+def _select_abs_op(z: torch.Tensor, table: torch.Tensor, keep: torch.Tensor, thr: torch.Tensor,
+                   mask: torch.Tensor, part: torch.Tensor, buf: torch.Tensor, n_local: int,
+                   n_split: int, n_tiles: int, stride: int) -> None:
+    rows, leaves = thr.shape
+    _, h, st = _scratch_ptrs(part, buf, rows, n_split)
+    _launch("gmf_select", library().gmf_select_abs, z.device,
+            z.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles, keep.data_ptr(), stride,
+            leaves, rows, z.shape[1], _vec(z, mask), thr.data_ptr(), mask.data_ptr(), h, st,
+            DTYPE_CODES[z.dtype], inst="abs:" + instance(z.dtype))
+
+
+def _group_launched(err: int, step: int, pas: int, inst: str) -> None:
+    """Raise for a failed group-mode step; count a select's launch at its
+    first step."""
+    if err != 0:
+        raise RuntimeError(f"gmf_select (group mode, step {step}, pass {pas}): CUDA launch "
+                           f"failed with cudaError_t {err}")
+    if step == 0:
+        INSTANCES["gmf_select", inst] = INSTANCES.get(("gmf_select", inst), 0) + 1
+
+
+# The group mode's steps, one launch each: the steps of one select count as
+# one gmf_select launch; the fake counts each step.
+@_op("gmf_select_group_", ("inv_nv", "inv_nm", "thr", "part", "buf"), "gmf_select_step")
+def _select_group_op(step: int, pas: int, v: torch.Tensor, m: torch.Tensor,
+                     table: torch.Tensor, keep: torch.Tensor, w: torch.Tensor,
+                     tau: torch.Tensor, inv_nv: torch.Tensor, inv_nm: torch.Tensor,
+                     thr: torch.Tensor, part: torch.Tensor, buf: torch.Tensor, n_local: int,
+                     n_split: int, n_tiles: int, stride: int, eps: float) -> None:
+    rows, leaves = thr.shape
+    p, h, st = _scratch_ptrs(part, buf, rows, n_split)
+    sums = p + 8 * rows * n_tiles * 2
+    with torch.cuda.device(v.device):
+        err = library().gmf_select_group(
+            step, pas, v.data_ptr(), m.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
+            keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(), float(eps), leaves, rows,
+            v.shape[1], _vec(v, m), inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr(), p,
+            sums, h, st, DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype], _stream(v.device))
+    _group_launched(err, step, pas, "group:" + instance(v.dtype, m.dtype))
+
+
+@_op("gmf_select_abs_group_", ("thr", "mask", "part", "buf"), "gmf_select_step")
+def _select_abs_group_op(step: int, pas: int, z: torch.Tensor, table: torch.Tensor,
+                         keep: torch.Tensor, thr: torch.Tensor, mask: torch.Tensor,
+                         part: torch.Tensor, buf: torch.Tensor, n_local: int, n_split: int,
+                         n_tiles: int, stride: int) -> None:
+    rows, leaves = thr.shape
+    _, h, st = _scratch_ptrs(part, buf, rows, n_split)
+    with torch.cuda.device(z.device):
+        err = library().gmf_select_abs_group(
+            step, pas, z.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
+            keep.data_ptr(), stride, leaves, rows, z.shape[1], _vec(z, mask), thr.data_ptr(),
+            mask.data_ptr(), h, st, DTYPE_CODES[z.dtype], _stream(z.device))
+    _group_launched(err, step, pas, "group:abs:" + instance(z.dtype))
+
+
 class MomentumTable(NamedTuple):
     uo: list        # u' leaves: views into one flat buffer, leaf after leaf
     vo: list        # v' leaves, likewise
@@ -382,17 +535,10 @@ class MomentumTable(NamedTuple):
     dtypes: tuple = (torch.float32, torch.float32, torch.float32)  # S, G, O
 
 
-def momentum_table(us, vs, gs, capacity: int, chunk: int, out_dtype=None) -> MomentumTable:
-    """The host half of K2 over lists of leaves, on any device: checks one
-    device, contiguity, matching shapes and the dtypes (u and v of one
-    type S, g of one type G, each float32 or bfloat16); allocates u' and
-    v' of ``out_dtype`` (default jnp's promotion of S and G) as views into
-    one flat buffer each; and packs each launch of ``plan_momentum`` into
-    the int64 table the C entry point reads. The alignment flag is 1 where
-    all five pointers of a leaf are aligned to a quad of their type
-    (16 bytes for float32). The host work is a pass over the leaves per
-    step and numpy columns, with no allocation per leaf but the output
-    views."""
+def _momentum_dtype(us, vs, gs, out_dtype=None):
+    """K2's checks of its leaves (one device, contiguity, matching shapes,
+    u and v of one type S and g of one type G, each float32 or bfloat16)
+    -> the outputs' dtype (jnp's promotion of S and G, or ``out_dtype``)."""
     name = "momentum_correction"
     if not (len(us) == len(vs) == len(gs)):
         raise ValueError(f"{name}: {len(us)}, {len(vs)}, {len(gs)} leaves")
@@ -406,10 +552,29 @@ def momentum_table(us, vs, gs, capacity: int, chunk: int, out_dtype=None) -> Mom
     shapes = [u.shape for u in us]
     if shapes != [v.shape for v in vs] or shapes != [g.shape for g in gs]:
         raise ValueError(f"{name}: u, v and g leaves differ in shape")
-    o_dtype = _out_dtype(name, s_dtype, g_dtype, out_dtype)
+    return _out_dtype(name, s_dtype, g_dtype, out_dtype)
+
+
+def momentum_table(us, vs, gs, capacity: int, chunk: int, out_dtype=None,
+                   out=None) -> MomentumTable:
+    """The host half of K2 over lists of leaves, on any device: checks the
+    leaves (``_momentum_dtype``); allocates u' and v' of ``out_dtype``
+    (default jnp's promotion of S and G) as views into one flat buffer each
+    (or takes the two flat buffers ``out``); and packs each launch of
+    ``plan_momentum`` into the int64 table the C entry point reads. The
+    alignment flag is 1 where all five pointers of a leaf are aligned to a
+    quad of their type (16 bytes for float32). The host work is a pass over
+    the leaves per step and numpy columns, with no allocation per leaf but
+    the output views."""
+    o_dtype = _momentum_dtype(us, vs, gs, out_dtype)
+    device = us[0].device
+    s_dtype, g_dtype = us[0].dtype, gs[0].dtype
     sizes = [u.numel() for u in us]
-    flat_u = torch.empty(sum(sizes), dtype=o_dtype, device=device)
-    flat_v = torch.empty_like(flat_u)
+    if out is None:
+        flat_u = torch.empty(sum(sizes), dtype=o_dtype, device=device)
+        flat_v = torch.empty_like(flat_u)
+    else:
+        flat_u, flat_v = out
     uo, vo = _unflatten(flat_u, us), _unflatten(flat_v, us)
     table = np.empty((len(us), 8), dtype=np.int64)
     for col, xs in enumerate((us, vs, gs)):
@@ -449,15 +614,18 @@ def launch_momentum(table: MomentumTable, alpha: float, device) -> None:
 def momentum_correction_tree(us, vs, gs, alpha: float, out_dtype=None):
     """U <- alpha*U + g ; V <- V + U over lists of leaves on one cuda
     device (``momentum_table`` says what it takes), one launch per table's
-    capacity of leaves. Returns (u' list, v' list)."""
+    capacity of leaves. Returns (u' list, v' list): views into one flat
+    buffer each."""
     if not us:
         return [], []
     device = us[0].device
     if device.type != "cuda":
         raise ValueError(f"momentum_correction: the kernel takes cuda tensors, got {device}")
-    table = momentum_table(us, vs, gs, *momentum_limits(), out_dtype=out_dtype)
-    launch_momentum(table, alpha, device)
-    return table.uo, table.vo
+    o_dtype = _momentum_dtype(us, vs, gs, out_dtype)
+    flat_u = torch.empty(sum(u.numel() for u in us), dtype=o_dtype, device=device)
+    flat_v = torch.empty_like(flat_u)
+    _momentum_op(list(us), list(vs), list(gs), flat_u, flat_v, float(alpha))
+    return _unflatten(flat_u, us), _unflatten(flat_v, us)
 
 
 def momentum_correction_flat(u, v, g, alpha: float, out_dtype=None):
@@ -477,11 +645,7 @@ def apply_mask_flat(u, v, mask, out_dtype=None):
     o = _out_dtype("apply_mask", v.dtype, mask.dtype, out_dtype)
     go, uo, vo = (torch.empty(v.shape, dtype=o, device=v.device) for _ in range(3))
     if u.numel():
-        _launch("apply_mask", library().gmf_apply_mask, u.device,
-                u.data_ptr(), v.data_ptr(), mask.data_ptr(), go.data_ptr(), uo.data_ptr(),
-                vo.data_ptr(), u.numel(), _vec(u, v, mask, go, uo, vo),
-                DTYPE_CODES[v.dtype], DTYPE_CODES[mask.dtype], DTYPE_CODES[o],
-                inst=instance(v.dtype, mask.dtype, out=o))
+        _mask_op(u, v, mask, go, uo, vo)
     return go, uo, vo
 
 
@@ -497,51 +661,47 @@ def _select_plan(name: str, plan: SelectTable, x: torch.Tensor, leaves: int) -> 
 
 def _select_scratch(plan: SelectTable, rows: int, device, stream: int):
     """The split leaves' scratch for ``rows`` rows on ``stream``, made once
-    and kept on the plan: the float64 tile partials (the norms) and one
-    int32 buffer of the ``[rows, n_split, 2048]`` histograms, the ``[rows,
-    n_split, 4]`` segment states and the grid barrier's two words, made
-    zero. Every select leaves the histograms and the counts zero again, so
-    calls on one stream can share them; a call whose launch failed drops
-    them."""
+    and kept on the plan: the float64 tile partials (the norms; in the
+    group mode followed by the split segments' sums) and one int32 buffer
+    of the ``[rows, n_split, 2048]`` histograms, the ``[rows, n_split, 4]``
+    segment states and the grid barrier's two words, made zero. Every
+    select leaves the histograms and the counts zero again, so calls on one
+    stream can share them; a call whose launch failed drops them. Returns
+    (partials, buffer)."""
     key = (rows, stream)
     if key not in plan.scratch:
         hist = rows * plan.n_split * 2048
-        # the tiles' partials, then (group mode) the split segments' sums
         part = torch.empty(rows * (plan.n_tiles + plan.n_split) * 2, dtype=torch.float64,
                            device=device)
         buf = torch.zeros(hist + rows * plan.n_split * 4 + 2, dtype=torch.int32, device=device)
-        plan.scratch[key] = (part.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * hist,
-                             (part, buf))
+        plan.scratch[key] = (part, buf)
     return plan.scratch[key]
 
 
-def _launch_select(fn, plan: SelectTable, device, rows: int, make_args, *, inst: str) -> None:
-    """A select's launches, its arguments made by ``make_args(partials,
-    histograms, states)`` from the scratch's addresses."""
+def _select_launch(op, plan: SelectTable, rows: int, device, *args) -> None:
+    """One select launch ``op(*args, partials, buffer, ...)`` on the plan's
+    scratch; a launch that failed drops the scratch."""
     stream = _stream(device)
-    part, hist, state, _ = _select_scratch(plan, rows, device, stream)
+    part, buf = _select_scratch(plan, rows, device, stream)
     try:
-        _launch("gmf_select", fn, device, *make_args(part, hist, state), inst=inst,
-                stream=stream)
+        op(*args, part, buf)
     except RuntimeError:
         plan.scratch.pop((rows, stream), None)
         raise
 
 
-def _group_select(fn, plan: SelectTable, device, rows: int, group, fused: bool, make_args, *,
+def _group_select(op, plan: SelectTable, device, rows: int, group, fused: bool, head, tail, *,
                   inst: str) -> None:
     """The group mode's steps (``csrc/gmf_compress.cu``: ``launch_group_step``)
-    on the current stream, ``fn(step, pass, *make_args(partials, sums,
-    histograms, states), stream)``; between them the cut segments' sums and
-    each pass's histograms are all-reduced over ``group`` (None: a group of
-    one, nothing to sum), a segment whose piece this rank does not own
-    (``plan.owners``) zeroed first. Counted as one ``gmf_select`` launch."""
+    on the current stream, ``op(step, pass, *head, partials, buffer, *tail)``;
+    between them the cut segments' sums and each pass's histograms are
+    all-reduced over ``group`` (None: a group of one, nothing to sum), a
+    segment whose piece this rank does not own (``plan.owners``) zeroed
+    first. Counted as one ``gmf_select`` launch."""
     import torch.distributed as dist
 
     stream = _stream(device)
-    part, hist, state, (part_t, buf) = _select_scratch(plan, rows, device, stream)
-    sums = part + 8 * rows * plan.n_tiles * 2
-    args = make_args(part, sums, hist, state)
+    part_t, buf = _select_scratch(plan, rows, device, stream)
     summed = group is not None and plan.n_group > 0
 
     def total(x, own) -> None:  # the cut segments' part of a scratch buffer, summed
@@ -551,28 +711,26 @@ def _group_select(fn, plan: SelectTable, device, rows: int, group, fused: bool, 
         GROUP_SUMS[inst] = GROUP_SUMS.get(inst, 0) + 1
 
     def step(i: int, p: int = 0) -> None:
-        err = fn(i, p, *args, stream)
-        if err != 0:
+        try:
+            op(i, p, *head, part_t, buf, *tail)
+        except RuntimeError:
             plan.scratch.pop((rows, stream), None)
-            raise RuntimeError(f"gmf_select (group mode, step {i}, pass {p}): CUDA launch failed "
-                               f"with cudaError_t {err}")
+            raise
 
-    with torch.cuda.device(device):
-        step(0)
-        if fused:
-            step(1)
-            if summed:
-                off = rows * plan.n_tiles * 2
-                total(part_t[off:off + rows * plan.n_group * 2], plan.owners and plan.owners[0])
-        for p in range(3):
-            if fused or p > 0:
-                step(2, p)
-            if summed:
-                total(buf[:rows * plan.n_group * 2048], plan.owners and plan.owners[1])
-            step(3, p)
-        if not fused:
-            step(4)
-    INSTANCES["gmf_select", inst] = INSTANCES.get(("gmf_select", inst), 0) + 1
+    step(0)
+    if fused:
+        step(1)
+        if summed:
+            off = rows * plan.n_tiles * 2
+            total(part_t[off:off + rows * plan.n_group * 2], plan.owners and plan.owners[0])
+    for p in range(3):
+        if fused or p > 0:
+            step(2, p)
+        if summed:
+            total(buf[:rows * plan.n_group * 2048], plan.owners and plan.owners[1])
+        step(3, p)
+    if not fused:
+        step(4)
 
 
 def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float, group=None):
@@ -596,22 +754,15 @@ def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float, group=None
     stride = _keep_stride("gmf_select", keep, v, leaves)
     _check_rows("gmf_select", (rows,), v, w, tau)
     inv_nv, inv_nm, thr = torch.empty(3, rows, leaves, dtype=torch.float32, device=v.device)
+    sizes = (plan.n_local, plan.n_split, plan.n_tiles, stride, float(eps))
     if plan.n_group is not None:
-        _group_select(library().gmf_select_group, plan, v.device, rows, group, True,
-                      lambda p, g, h, s: (
-                          v.data_ptr(), m.data_ptr(), plan.table.data_ptr(), plan.n_local,
-                          plan.n_split, plan.n_tiles, keep.data_ptr(), stride, w.data_ptr(),
-                          tau.data_ptr(), float(eps), leaves, rows, v.shape[1], _vec(v, m),
-                          inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr(), p, g, h, s,
-                          DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype]),
+        _group_select(_select_group_op, plan, v.device, rows, group, True,
+                      (v, m, plan.table, keep, w, tau, inv_nv, inv_nm, thr), sizes,
                       inst="group:" + instance(v.dtype, m.dtype))
         return inv_nv, inv_nm, thr
-    _launch_select(library().gmf_select, plan, v.device, rows, lambda p, h, s: (
-        v.data_ptr(), m.data_ptr(), plan.table.data_ptr(), plan.n_local,
-        plan.n_split, plan.n_tiles, keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
-        float(eps), leaves, rows, v.shape[1], _vec(v, m), inv_nv.data_ptr(), inv_nm.data_ptr(),
-        thr.data_ptr(), p, h, s, DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype]),
-        inst=instance(v.dtype, m.dtype))
+    _select_launch(lambda part, buf: _select_op(v, m, plan.table, keep, w, tau, inv_nv, inv_nm,
+                                                thr, part, buf, *sizes),
+                   plan, rows, v.device)
     return inv_nv, inv_nm, thr
 
 
@@ -627,20 +778,15 @@ def topk_abs_select_flat(z, *, offsets, plan, keep, group=None):
     rows = z.shape[0]
     out = torch.empty(z.numel() + rows * leaves, dtype=torch.float32, device=z.device)
     mask, thr = out[:z.numel()].view(z.shape), out[z.numel():].view(rows, leaves)
+    sizes = (plan.n_local, plan.n_split, plan.n_tiles, stride)
     if plan.n_group is not None:
-        _group_select(library().gmf_select_abs_group, plan, z.device, rows, group, False,
-                      lambda p, g, h, s: (
-                          z.data_ptr(), plan.table.data_ptr(), plan.n_local, plan.n_split,
-                          plan.n_tiles, keep.data_ptr(), stride, leaves, rows, z.shape[1],
-                          _vec(z, mask), thr.data_ptr(), mask.data_ptr(), h, s,
-                          DTYPE_CODES[z.dtype]),
+        _group_select(_select_abs_group_op, plan, z.device, rows, group, False,
+                      (z, plan.table, keep, thr, mask), sizes,
                       inst="group:abs:" + instance(z.dtype))
         return thr, mask
-    _launch_select(library().gmf_select_abs, plan, z.device, rows, lambda p, h, s: (
-        z.data_ptr(), plan.table.data_ptr(), plan.n_local, plan.n_split,
-        plan.n_tiles, keep.data_ptr(), stride, leaves, rows, z.shape[1], _vec(z, mask),
-        thr.data_ptr(), mask.data_ptr(), h, s, DTYPE_CODES[z.dtype]),
-        inst="abs:" + instance(z.dtype))
+    _select_launch(lambda part, buf: _select_abs_op(z, plan.table, keep, thr, mask, part, buf,
+                                                    *sizes),
+                   plan, rows, z.device)
     return thr, mask
 
 
@@ -658,10 +804,5 @@ def gmf_compress_flat(u, v, m, *, offsets, inv_norm_v, inv_norm_m, tau, threshol
     _check_rows("gmf_compress", (rows,), u, tau)
     go, uo, vo, mo = (torch.empty_like(v) for _ in range(4))
     if u.numel():
-        _launch("gmf_compress", library().gmf_compress, u.device,
-                u.data_ptr(), v.data_ptr(), m.data_ptr(), inv_norm_v.data_ptr(),
-                inv_norm_m.data_ptr(), threshold.data_ptr(), tau.data_ptr(), offsets.data_ptr(),
-                leaves, u.shape[1], go.data_ptr(), uo.data_ptr(), vo.data_ptr(), mo.data_ptr(),
-                u.numel(), _vec(u, v, m, go, uo, vo, mo), DTYPE_CODES[v.dtype],
-                DTYPE_CODES[m.dtype], inst=instance(v.dtype, m.dtype))
+        _compress_op(u, v, m, inv_norm_v, inv_norm_m, threshold, tau, offsets, go, uo, vo, mo)
     return go, uo, vo, mo

@@ -162,8 +162,8 @@ def apply_mrope(x, positions_thw, theta, sections):
         raise ValueError(f"mrope sections {tuple(sections)} do not sum to head_dim/2 = {half}")
     freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
     # Per frequency channel, the positional axis that drives it.
-    sec_ids = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                      torch.tensor(sections, device=x.device))
+    sec_ids = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                           device=x.device)
     pos_sel = torch.movedim(positions_thw[sec_ids], 0, -1)  # (..., T, half)
     angles = pos_sel.float() * freqs
     cos = torch.cos(angles)[..., None, :]

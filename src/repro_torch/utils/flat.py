@@ -32,7 +32,7 @@ group. ``FlatLayout.of`` returns whichever the tree needs.
 
 Under tensor parallelism, and FSDP, a rank's tree holds its pieces of
 leaves cut over a group of ranks (the mesh's model group, or a pod's data
-× model ranks): ``layout.over(group, full_sizes, owners)`` is the layout
+× model ranks): ``layout.over(group, full_sizes, places)`` is the layout
 of those pieces that also knows each segment's whole size (``full_sizes``)
 and whether it is cut (``cut_flags``). Its keep counts come from the whole
 sizes; a cut segment's norms are summed over the group and its threshold
@@ -43,13 +43,15 @@ some of the group's axes (a leaf FSDP leaves whole, cut over the model
 axis alone) is held alike by several ranks of the group (``shared_flags``,
 the same on every rank): only one of them owns it (``owner_flags``, this
 rank's), and the others' pieces count zero in every sum and are left out
-of every gather over the group, so it counts once.
+of every gather over the group, so it counts once. ``places`` holds every
+rank's owner flags (and boxes, below), which the specs and the mesh give
+on the host (``dist.sharding.places``): making a layout is no collective.
 
 The stages that cut or key a leaf by its flat coordinate (the sampled
 estimator, global top-k, random-k, the sketch, the int8 and probquant
 wires, the Hadamard rotation) need to know where a piece lies in its
-whole leaf: ``over(..., boxes)`` takes each piece's ``Box`` (the whole
-leaf's shape and the piece's first index on each dim,
+whole leaf: ``over(..., places)`` takes each rank's pieces' ``Box`` (the
+whole leaf's shape and the piece's first index on each dim,
 ``dist.sharding.boxes``), and the layout then gives whole coordinates:
 ``whole_index(i)`` (each entry's index within its whole leaf, made per
 segment so that no ``[N]`` index tensor need be held), ``positions``,
@@ -75,6 +77,20 @@ from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 # One layout per (structure, device), built at first use.
 _LAYOUTS: dict = {}
+
+
+# The columns a count of nonzeros takes at once: torch's count_nonzero holds a
+# bool and an int64 copy of what it counts (9 bytes an element, 13.5 GB over
+# llama3.2-1b's row), so a longer row is counted a slice at a time.
+COUNT_SLICE = 1 << 26
+
+
+def count_nonzero(x: torch.Tensor) -> torch.Tensor:
+    """Nonzero entries along the last axis of ``x``, int64 ``[...]``, counted
+    in slices of at most ``COUNT_SLICE`` columns (no host sync)."""
+    if x.shape[-1] <= COUNT_SLICE:
+        return torch.count_nonzero(x, dim=-1)
+    return sum(torch.count_nonzero(part, dim=-1) for part in x.split(COUNT_SLICE, dim=-1))
 
 
 class Box(NamedTuple):
@@ -130,48 +146,59 @@ class FlatLayout:
         self.owner_flags = (True,) * self.num_leaves
         self.shared_flags = (False,) * self.num_leaves
         self.boxes = None
+        self.places = None  # every rank of the group's (owners, boxes), ``over``
         self.leaf_ids = tuple(range(self.num_leaves))  # the leaves' numbers in the draws' keys
         self._owner_mask = None
         self._over: dict = {}
-        self._places = None
 
-    def over(self, group, full_sizes, owners=None, boxes=None) -> FlatLayout:
+    def over(self, group, full_sizes, places=None) -> FlatLayout:
         """This layout as the rank's pieces of leaves whose whole sizes are
         ``full_sizes``, a segment cut over ``group`` where its size differs
-        (made once per group, sizes, owners and boxes). ``owners`` (a bool a
-        leaf, default all) says which cut segments this rank's piece counts
-        for: False where another rank of the group holds the same piece (a
-        segment some rank does not own is ``shared``: the ranks agree on
-        that in one all-reduce when the layout is made, a collective of the
-        group). ``boxes`` (a ``Box`` a leaf) places each piece in its whole
-        leaf, for the stages that cut or key a leaf by flat coordinate. A
-        group of one, or no segment cut, gives this layout itself."""
+        (made once per group, sizes and places). ``places`` says how every
+        rank of the group holds its pieces: one ``(owners, boxes)`` per rank,
+        in the group's rank order (``dist.sharding.places``; None: every
+        rank owns its pieces, and none is placed). ``owners`` (a bool a leaf,
+        or None for all) says which cut segments a rank's piece counts for:
+        False where another rank of the group holds the same piece (a
+        segment some rank does not own is ``shared``). ``boxes`` (a ``Box``
+        a leaf, or None) place a rank's pieces in their whole leaves, for the
+        stages that cut or key a leaf by flat coordinate. All of it is known
+        on the host, so making the layout issues no collective. A group of
+        one, or no segment cut, gives this layout itself."""
         full_sizes = tuple(int(n) for n in full_sizes)
         if len(full_sizes) != self.num_leaves:
             raise ValueError(f"{len(full_sizes)} whole sizes for {self.num_leaves} leaves")
         cut = tuple(f != n for f, n in zip(full_sizes, self.sizes, strict=True))
         if group is None or dist.get_world_size(group) == 1 or not any(cut):
             return self
-        owners = (True,) * self.num_leaves if owners is None else tuple(bool(o) for o in owners)
-        if len(owners) != self.num_leaves:
-            raise ValueError(f"{len(owners)} owner flags for {self.num_leaves} leaves")
-        if boxes is not None:
-            boxes = tuple(Box(tuple(b.shape), tuple(b.start)) for b in boxes)
-            self._check_boxes(boxes, full_sizes)
+        size = dist.get_world_size(group)
+        places = ((None, None),) * size if places is None else tuple(places)
+        if len(places) != size:
+            raise ValueError(f"{len(places)} places for a group of {size} ranks")
+        norm = []
+        for owners, boxes in places:
+            owners = (True,) * self.num_leaves if owners is None else tuple(bool(o)
+                                                                           for o in owners)
+            if len(owners) != self.num_leaves:
+                raise ValueError(f"{len(owners)} owner flags for {self.num_leaves} leaves")
+            if boxes is not None:
+                boxes = tuple(Box(tuple(b.shape), tuple(b.start)) for b in boxes)
+                self._check_boxes(boxes, full_sizes)
+            norm.append((tuple(o or not c for o, c in zip(owners, cut, strict=True)), boxes))
+        places = tuple(norm)
         # the group itself: its id is not reused while held
-        key = (group, full_sizes, owners, boxes)
+        key = (group, full_sizes, places)
         if key not in self._over:
             out = copy.copy(self)
-            out.group, out.full_sizes, out.cut_flags, out.boxes = group, full_sizes, cut, boxes
-            out.owner_flags = tuple(o or not c for o, c in zip(owners, cut, strict=True))
-            others = torch.tensor([int(not o) for o in out.owner_flags], dtype=torch.int64,
-                                  device=self.device)
-            dist.all_reduce(others, group=group)  # ranks that do not own their piece
-            out.shared_flags = tuple(bool(x) for x in others.tolist())
+            out.group, out.full_sizes, out.cut_flags, out.places = group, full_sizes, cut, places
+            out.owner_flags, out.boxes = places[dist.get_rank(group)]
+            # a segment some rank of the group does not own
+            out.shared_flags = tuple(not all(p[0][i] for p in places)
+                                     for i in range(self.num_leaves))
             out.full_total = sum(full_sizes)
             out.full_sizes_dev = torch.tensor(full_sizes, dtype=torch.int64, device=self.device)
             out._keep, out._select_group, out._over, out._owner_mask = {}, None, {}, None
-            out._blocks, out._positions, out._places = {}, None, None
+            out._blocks, out._positions = {}, None
             self._over[key] = out
         return self._over[key]
 
@@ -208,15 +235,15 @@ class FlatLayout:
         """Nonzero entries along the last axis of ``x`` ([..., N]) in the
         whole leaves: a cut segment's summed over the group, a replicated
         one's counted once. int64, no host sync."""
-        n = torch.count_nonzero(x, dim=-1)
+        n = count_nonzero(x)
         if not self.cut:
             return n
         segs = self.segments(x)
-        whole = [torch.count_nonzero(seg, dim=-1) for seg, cut in
+        whole = [count_nonzero(seg) for seg, cut in
                  zip(segs, self.cut_flags, strict=True) if not cut]
         rep = sum(whole) if whole else torch.zeros_like(n)
         if self.shared:  # the cut segments this rank owns
-            own = [torch.count_nonzero(seg, dim=-1) for seg, cut, o in
+            own = [count_nonzero(seg) for seg, cut, o in
                    zip(segs, self.cut_flags, self.owner_flags, strict=True) if cut and o]
             part = (sum(own) if own else torch.zeros_like(n)).contiguous()
         else:
@@ -268,7 +295,7 @@ class FlatLayout:
         if self.boxes is None:
             if self.cut_flags[i]:
                 raise ValueError("the whole-leaf coordinates of a cut segment need the pieces' "
-                                 "boxes: FlatLayout.over(..., boxes=...)")
+                                 "boxes: FlatLayout.over(..., places=...)")
             return torch.arange(self.sizes[i], dtype=torch.int64, device=self.device)
         box, shape = self.boxes[i], self.shapes[i]
         nd = len(shape)
@@ -343,24 +370,17 @@ class FlatLayout:
         collective of the group), else the segment itself."""
         if not self.cut_flags[i]:
             return seg
-        if self._places is None:  # every rank's boxes and owner flags, gathered once
-            nd = max(len(s) for s in self.shapes)
-            mine = torch.zeros(self.num_leaves, nd + 1, dtype=torch.int64)
-            for j, (box, own) in enumerate(zip(self.boxes, self.owner_flags, strict=True)):
-                mine[j, :len(box.start)] = torch.tensor(box.start, dtype=torch.int64)
-                mine[j, nd] = int(own)
-            mine = mine.to(self.device)
-            parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(self.group))]
-            dist.all_gather(parts, mine, group=self.group)
-            self._places = [p.tolist() for p in parts]
+        if any(b is None for _, b in self.places):
+            raise ValueError("gathering a cut leaf whole needs every rank's boxes: "
+                             "FlatLayout.over(..., places=...)")
         k, shape = seg.shape[0], self.shapes[i]
         parts = [torch.empty_like(seg, memory_format=torch.contiguous_format)
-                 for _ in self._places]
+                 for _ in self.places]
         dist.all_gather(parts, seg.contiguous(), group=self.group)
         whole = seg.new_empty((k, *self.boxes[i].shape))
-        for part, place in zip(parts, self._places, strict=True):
-            if place[i][-1]:
-                at = tuple(slice(a, a + e) for a, e in zip(place[i], shape))
+        for part, (owners, boxes) in zip(parts, self.places, strict=True):
+            if owners[i]:
+                at = tuple(slice(a, a + e) for a, e in zip(boxes[i].start, shape))
                 whole[(slice(None),) + at] = part.view(k, *shape)
         return whole.reshape(k, -1)
 
@@ -449,18 +469,23 @@ class GroupedLayout:
         self.num_leaves = len(leaves)
         self._over: dict = {}
 
-    def over(self, group, full_sizes, owners=None, boxes=None) -> GroupedLayout:
-        """``FlatLayout.over`` for each dtype group (``full_sizes``,
-        ``owners`` and ``boxes`` of every leaf, in ``tree_leaves`` order)."""
+    def over(self, group, full_sizes, places=None) -> GroupedLayout:
+        """``FlatLayout.over`` for each dtype group (``full_sizes`` and each
+        rank's owners and boxes of every leaf, in ``tree_leaves`` order)."""
         full_sizes = tuple(int(n) for n in full_sizes)
-        owners = (True,) * self.num_leaves if owners is None else tuple(bool(o) for o in owners)
-        boxes = None if boxes is None else tuple(boxes)
-        subs = tuple(g.over(group, [full_sizes[i] for i in idx], [owners[i] for i in idx],
-                            None if boxes is None else [boxes[i] for i in idx])
+        places = None if places is None else tuple(
+            (None if o is None else tuple(o), None if b is None else tuple(b)) for o, b in places)
+
+        def sub(idx):
+            return None if places is None else tuple(
+                (None if o is None else [o[i] for i in idx],
+                 None if b is None else [b[i] for i in idx]) for o, b in places)
+
+        subs = tuple(g.over(group, [full_sizes[i] for i in idx], sub(idx))
                      for g, idx in zip(self.groups, self.index, strict=True))
         if all(a is b for a, b in zip(subs, self.groups, strict=True)):
             return self
-        key = (group, full_sizes, owners, boxes)
+        key = (group, full_sizes, places)
         if key not in self._over:
             out = copy.copy(self)
             out.groups, out.full_total, out._over = subs, sum(full_sizes), {}

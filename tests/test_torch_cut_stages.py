@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import CompressionConfig, resolve  # noqa: E402

@@ -87,6 +87,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 jax = pytest.importorskip("jax")
 import torch.distributed as dist  # noqa: E402
 
@@ -407,6 +408,62 @@ def test_four_ranks_health_norms_are_the_whole_models(world4, name):
         assert rres[r][f"{name}/health/finite"].tolist() == [True, False], r
     old = rres[0][f"{name}/health/old"]
     assert np.abs(old - want).max() > 1e-3 * np.abs(want).max(), (old, want)
+
+
+_TALLY: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _tally_spawn(tmp_path_factory):
+    """Start the fake-tensor pass of each ``cases.TALLY`` case's first step
+    (``tests/torch_dryrun_passes.py --tally``) with the module: it runs
+    while the ranks do."""
+    from repro_torch.launch import dryrun
+
+    out = tmp_path_factory.mktemp("tally") / "tally.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **dryrun.tracer_env())
+    _TALLY["out"] = out
+    script = str(ROOT / "tests" / "torch_dryrun_passes.py")
+    _TALLY["proc"] = subprocess.Popen([sys.executable, script, "--tally", str(out)], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    yield
+    if _TALLY["proc"].poll() is None:
+        _TALLY["proc"].kill()
+        _TALLY["proc"].wait()
+
+
+@pytest.fixture(scope="module")
+def fake_tally():
+    """The fake pass's collective tally of each ``cases.TALLY`` case."""
+    proc = _TALLY["proc"]
+    log = proc.communicate(timeout=300)[0]
+    assert proc.returncode == 0, log[-6000:]
+    return json.loads(Path(_TALLY["out"]).read_text())
+
+
+@pytest.mark.parametrize("name", cases.TALLY)
+def test_four_ranks_tally_equals_the_fake_pass(world4, fake_tally, name):
+    """``obs.collectives.CollectiveTally`` of a real first step over gloo at
+    (2, 2) on every rank: kind by kind, in counts and result bytes, the
+    fake-tensor pass's of the same configuration on rank 0 of a fake world
+    of four (the CPU's path: the plain versions' collectives)."""
+    _, rres, _ = world4
+    want = fake_tally[name]
+    for r in range(cases.WORLD):
+        got = json.loads(str(rres[r][f"{name}/tally"]))
+        assert got == want, (name, r, got, want)
+    assert want["counts"].get("all-reduce", 0) > 0
+
+
+@pytest.mark.parametrize("name", cases.PLACES)
+def test_four_ranks_static_places_equal_the_collectives(world4, name):
+    """The owner flags, shared flags and every rank's boxes that the step's
+    row layouts take from the specs on the host are what the ranks' old
+    collectives (the not-owner flags all-reduced, the boxes and owner flags
+    all-gathered over the row's group) give."""
+    _, rres, _ = world4
+    for r in range(cases.WORLD):
+        assert rres[r][f"{name}/places"].item() is True, (name, r)
 
 
 def test_four_ranks_client_mesh_of_two(world4):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import gmf_compress as gk

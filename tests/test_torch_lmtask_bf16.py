@@ -18,6 +18,7 @@ two bfloat16 roundings of JAX's: 2**-7 of each leaf's largest magnitude.
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 jax = pytest.importorskip("jax")
 
 import torch_train_parity as tr

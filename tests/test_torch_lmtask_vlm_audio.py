@@ -15,6 +15,7 @@ every round, and the params within 1e-5 of each leaf's largest magnitude
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 jax = pytest.importorskip("jax")
 
 import torch_train_parity as tr

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 jax = pytest.importorskip("jax")
 import torch.distributed as dist  # noqa: E402
 from jax.sharding import AbstractMesh as JMesh  # noqa: E402

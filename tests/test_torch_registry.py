@@ -11,6 +11,7 @@ clears ``resolve``'s cache afterwards."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 
 from repro_torch.core import (
     CompressionConfig,

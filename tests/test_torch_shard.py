@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread: its docstring)
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.core import CompressionConfig  # noqa: E402

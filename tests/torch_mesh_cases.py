@@ -78,6 +78,14 @@ JAX_SHAPE = {"tp_sampled": (2, 1)}
 # and 11 ((1, 2, 2)) on the CPU.
 WIRE_FLIPS = {"tp_int8": 32, "fsdp_gmf_pod_122_int8": 32}
 
+# the train cases whose first step's collectives each rank tallies
+# (repro_torch.obs.collectives), held against the fake-tensor pass of the
+# same configuration (repro_torch.launch.dryrun.trace_train); and those whose
+# row layout's owner flags and places, which the specs give on the host, are
+# held against what the old collectives over the row's group give
+TALLY = ("tp_gmf_data", "tp_dense_yi")
+PLACES = ("tp_gmf_data", "tp_sampled", "fsdp_gmf_pod_122")
+
 
 def scheme_of(name: str) -> dict:
     """The CompressionConfig keywords of train case ``name``."""

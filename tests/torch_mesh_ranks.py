@@ -8,6 +8,7 @@ Imports torch and the port only. Run as a subprocess a rank:
 
 import dataclasses
 import datetime
+import json
 import os
 import sys
 
@@ -26,6 +27,7 @@ from repro_torch.dist import sharding as shr  # noqa: E402
 from repro_torch.dist import step as dstep  # noqa: E402
 from repro_torch.launch.mesh import in_mesh, make_client_mesh, make_mesh  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.obs.collectives import CollectiveTally  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 from repro_torch.utils.flat import FlatLayout  # noqa: E402
 
@@ -78,6 +80,34 @@ HEALTH_KEYS = ("residual_u_norm", "residual_v_norm", "momentum_m_norm", "server_
                "broadcast_norm")
 
 
+def places_match(params) -> bool:
+    """Whether each cut layout over this rank's pieces (the step's rows,
+    made ``over`` its group with the places the specs give) holds the
+    shared flags and every rank's boxes and owner flags that the group's
+    collectives give: the not-owner flags all-reduced, each rank's boxes'
+    starts and owner flags all-gathered."""
+    base = FlatLayout.of(params)
+    lays = [g for lay in base._over.values()
+            for g in (lay.groups if lay.groups is not None else (lay,)) if g.cut]
+    ok = bool(lays)
+    for lay in lays:
+        others = torch.tensor([int(not o) for o in lay.owner_flags], dtype=torch.int64)
+        dist.all_reduce(others, group=lay.group)
+        ok &= tuple(bool(x) for x in others.tolist()) == lay.shared_flags
+        nd = max(len(s) for s in lay.shapes)
+        mine = torch.zeros(lay.num_leaves, nd + 1, dtype=torch.int64)
+        for j, (box, own) in enumerate(zip(lay.boxes, lay.owner_flags, strict=True)):
+            mine[j, :len(box.start)] = torch.tensor(box.start, dtype=torch.int64)
+            mine[j, nd] = int(own)
+        parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(lay.group))]
+        dist.all_gather(parts, mine, group=lay.group)
+        for part, (owners, boxes) in zip(parts, lay.places, strict=True):
+            ok &= [row[-1] for row in part.tolist()] == [int(o) for o in owners]
+            ok &= [row[:len(b.start)] for row, b in zip(part.tolist(), boxes, strict=True)] \
+                == [list(b.start) for b in boxes]
+    return ok
+
+
 def train(inp, out, ckpt):
     for name, (arch, over, shape, sync) in cases.TRAIN.items():
         cfg = dataclasses.replace(configs.get_smoke(arch), **over)
@@ -99,7 +129,15 @@ def train(inp, out, ckpt):
             batch = {k: torch.from_numpy(inp[f"batch/{arch}/{t}/{k}"].copy())
                      for k in cases.BATCH_KEYS if f"batch/{arch}/{t}/{k}" in inp}
             batch = {k: x.long() if k != "patch_embeds" else x for k, x in batch.items()}
-            state, m = step(state, shr.local_tree(batch, b_sh))
+            if t == 0 and name in cases.TALLY:
+                with CollectiveTally() as tally:
+                    state, m = step(state, shr.local_tree(batch, b_sh))
+                out[f"{name}/tally"] = np.asarray(json.dumps(
+                    {"counts": tally.counts, "bytes": tally.bytes}))
+            else:
+                state, m = step(state, shr.local_tree(batch, b_sh))
+            if t == 0 and name in cases.PLACES:
+                out[f"{name}/places"] = np.asarray(places_match(state.params))
             out[f"{name}/loss/{t}"] = m["loss"].numpy()
             out[f"{name}/valid/{t}"] = np.asarray(
                 int((shr.local_tree(batch, b_sh)["labels"] >= 0).sum()))

@@ -302,9 +302,10 @@ def stage_case(group, name, out):
 
     big = FlatLayout.of({k: torch.zeros(s) for k, (s, _) in STAGES.items()})
     small = FlatLayout.of({k: x[0] for k, x in pieces(draw(), r, STAGES).items()})
-    boxes = [Box(s, tuple(r * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
-             for _, (s, d) in sorted(STAGES.items())]
-    lay = small.over(group, big.sizes, None, boxes)
+    # every rank's pieces' boxes, in rank order
+    places = [(None, [Box(s, tuple(q * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
+                      for _, (s, d) in sorted(STAGES.items())]) for q in range(WORLD)]
+    lay = small.over(group, big.sizes, places)
     u, v, m, res, smom, grad, gbar = (draw() for _ in range(7))
     kw = dict(client_ids=torch.tensor([3, 8, 1]))
     if name in ADAPTIVE:
@@ -375,9 +376,10 @@ def cut_hitters(group, out):
     big = FlatLayout.of({k: torch.zeros(s) for k, (s, _) in STAGES.items()})
     small = FlatLayout.of({k: torch.zeros([n // WORLD if j == d else n for j, n in enumerate(s)])
                            for k, (s, d) in STAGES.items()})
-    boxes = [Box(s, tuple(r * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
-             for _, (s, d) in sorted(STAGES.items())]
-    lay = small.over(group, big.sizes, None, boxes)
+    # every rank's pieces' boxes, in rank order
+    places = [(None, [Box(s, tuple(q * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
+                      for _, (s, d) in sorted(STAGES.items())]) for q in range(WORLD)]
+    lay = small.over(group, big.sizes, places)
     rng = np.random.default_rng(13)
     s = torch.from_numpy((np.round(rng.normal(size=(5, 8)) * 2) / 2).astype(np.float32))
     for k in HITTER_KS:
