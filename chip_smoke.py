@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase (what CI on a GPU runs)
     python3 chip_smoke.py --only kernels   # build + hold the kernels only
     python3 chip_smoke.py --only dryrun    # build + phase 21 (the dry run) only
+    python3 chip_smoke.py --only analysis  # build + phase 22 (static analysis) only
     python3 chip_smoke.py --profile        # + where a ResNet-56 and a Shakespeare
                                            #   round's, each serving run's and a dense
                                            #   training step's time goes
@@ -318,10 +319,12 @@ each kernel launching once per dtype group.
     ``torchrun``-style environment (``RANK`` 0, ``WORLD_SIZE`` 1,
     ``MASTER_ADDR`` 127.0.0.1, a free ``MASTER_PORT``) exits 0 and prints
     its mesh; ``--mesh-shape 2,1`` there exits nonzero with the reference's
-    message. Then one world of one rank from a ``file://`` store in
-    ``build/mesh`` (NCCL for the card's tensors, gloo for the CPU's), torn
-    down at the end: (a) gmf_data at mesh (1, 1) on llama3.2-1b at full
-    size with phase 14's settings (bf16, batch 8 × 256, lr 3e-3 cosine,
+    message (both processes at once; phase 18's two processes start with
+    them and run beside this phase). Then one world of one rank from a
+    ``file://`` store in ``build/mesh`` (NCCL for the card's tensors, gloo
+    for the CPU's), torn down at the end: (a) gmf_data at mesh (1, 1) on
+    llama3.2-1b at its widths, 2 of 16 layers, with phase 14's settings
+    (bf16, batch 8 × 256, lr 3e-3 cosine,
     fused dgcwgmf at rate 0.1, seed 0), 4 steps, bitwise the mesh-less run
     (params, opt, u/v/m, server state, ``gbar``, each step's loss and
     counts), one ``gmf_select``, K1 mask pass and K2 a step, ms/step of both
@@ -339,7 +342,7 @@ each kernel launching once per dtype group.
     ``gmf_select``'s group mode at a group of one (one-rank NCCL) bitwise
     the single launch, timed beside it; (b)-(c) two processes on the card
     over gloo (``--tp-worker``) at mesh (1, 2): the group select over the
-    two ranks bitwise, llama3.2-1b at 8 layers trained gmf_data and dense
+    two ranks bitwise, llama3.2-1b at 2 layers trained gmf_data and dense
     against the mesh-less run, served at 2 layers in float32 against the
     one-rank run.
 19. **FSDP, EP at model 2, the engine at model 2** (``--only fsdp``; FSDP
@@ -350,22 +353,24 @@ each kernel launching once per dtype group.
     processes over gloo (``--fsdp-worker``; FSDP needs a data axis over 1,
     so no one-rank mesh runs it): (b) the group select over the data group
     with a leaf only rank 0 owns, bitwise the single launch and the plain
-    group select; qwen2-vl-72b (full width, 2 of 80 layers, remat: each
+    group select; qwen2-vl-72b (full width, 1 of 80 layers, remat: each
     layer gathered inside its checkpoint and again in the backward) dense
-    at (2, 1) and llama3.2-1b (8 of 16 layers) gmf_pod at (1, 2, 1), two
+    at (2, 1) and llama3.2-1b (2 of 16 layers) gmf_pod at (1, 2, 1), two
     steps each, against the mesh-less runs (losses and each rank's param
     pieces within 1e-2, the params' change within ``FSDP_DELTA_TOL`` of the
     mesh-less run's at its worst leaf, upload nnz within
     ``FSDP_NNZ_FLIPS`` and at least the exact-k sum, the group mode's
     launches and all-reduces); the group mode over the pod's data group
-    timed; (c) granite-moe at its published config (EP) trained at (1, 2)
-    (72 ``moe_ep`` calls, the same checks, the change within
+    timed; (c) granite-moe at its published widths, 12 of 24 layers (EP),
+    trained at (1, 2) (24 ``moe_ep`` calls in two steps, the same checks,
+    the change within
     ``EP_DELTA_TOL``) and kimi-k2 (1 of 61 layers,
     1 × 256, 8 tokens) served at (1, 2): tokens equal to the one-rank
     run's, one tensor-core K4 launch a rank at D 112, the dropped
     assignments printed, logits within 1e-2 where nothing drops; (d)
     llama3.2-1b's engine at (1, 2), phase 16's slots, pages and 8
-    requests: tokens equal to the one-rank engine's, tokens/s beside it.
+    requests of ``ENGINE_MESH_GEN`` tokens: tokens equal to the one-rank
+    engine's, tokens/s beside it.
     Every process's peak memory is printed.
 20. **Every compression stage over leaves cut across the model axis**
     (``--only stages-cut``; two processes over gloo, ``--stages-worker``,
@@ -395,6 +400,17 @@ each kernel launching once per dtype group.
     exit 0, their record lines printed; and, meanwhile in this process, (d)
     each kernel's fake outputs (shapes, dtypes) against its real launch's
     in float32 and bf16.
+22. **Static analysis** (``--only analysis``; ``repro_torch.analysis``; in
+    the whole script it runs while phase 19's two processes run): (a)
+    ``python -m repro_torch.analysis --all`` in a process of its own (the
+    lints, the contracts and the audit on fake CUDA tensors), exit 0, its
+    finding counts printed; meanwhile in this process (b) round 1 of phase
+    3's dgcwgmf path (ResNet-56, 20 clients, batch 64, ``use_kernels``)
+    audited on the card by ``jaxpr_audit.audit_round`` and as its fake pass
+    (``fake_twin``): host reads, host-to-device copies, collectives and
+    the K1–K3 launches equal, no finding; (c) ``contracts.check_all`` at
+    ResNet-56's params on the card's tensors and on fake ones: the same
+    findings, none.
 
 Timing: ``gmf_select`` (its printed line beside its PR 21 time, when it
 ran one block a segment; the ``kernels`` line holds only this run's
@@ -1660,7 +1676,7 @@ def shakespeare_phase(rt, dev):
               f"Shakespeare {label}: round 0 twice gave nnz {nnz_a} / {nnz_b}")
         for key in a:
             check(torch.equal(a[key], b[key]), f"Shakespeare {label}: round 0 twice differs "
-                  f"in {key} (max abs {(a[key] - b[key]).abs().max().item():.3e})")
+                  f"in {key} (max abs {(a[key] - b[key]).abs().max().item():.3e})")  # repro-noqa: REP004 (the phase's clock; a check's message)
         print(f"  {label}: launches {counts}; upload nnz per client (round 0) "
               f"{hist[0]['upload_nnz']}; ms/round {ms} (round 0 first); ledger "
               f"{json.dumps(sim_summary(hist))}; flat client state ({fields}) {state_mb:.1f} MB; "
@@ -3471,11 +3487,11 @@ POOL_BUDGET = 8 * 2**30  # the capacity line: slots an 8 GiB pool holds
 ENGINE_RANGES = ("serve.admit", "serve.decode", "serve.finish")  # the engine's host ranges
 
 
-def engine_config(rt, wire):
+def engine_config(rt, wire, gen=ENGINE["gen"]):
     return rt.serving.ServeConfig(
         max_slots=ENGINE["max_slots"], page_size=ENGINE["page_size"],
         pages_per_slot=ENGINE["pages_per_slot"], prompt_pad=ENGINE["prompt_pad"],
-        max_new_tokens=ENGINE["gen"], wire=wire)
+        max_new_tokens=gen, wire=wire)
 
 
 def engine_prompts(rt, cfg):
@@ -3758,6 +3774,9 @@ def engine_phase(rt, dev, card, profile=False):
 
 MESH_DIR = ROOT / "build" / "mesh"  # phase 17's store and metrics (ignored by git)
 MESH_STEPS = 4  # (a)'s steps; (b)'s runs take MESH_STEPS // 2
+# (a) and (b)'s depth: llama3.2-1b at its published widths, 2 of 16 layers
+# (each run's whole state is copied to the host for the bitwise comparison)
+MESH_LAYERS = 2
 GRANITE = "granite-moe-1b-a400m"
 
 
@@ -3832,7 +3851,7 @@ def mesh_training(rt, dev, card, mesh2, mesh3):
     both; (b) dense at (1, 1) bitwise dense without a mesh and gmf_pod at
     (1, 1, 1) bitwise gmf_data at (1, 1), 2 steps each. Returns the mesh
     runs' launches by instance."""
-    cfg = rt.configs.get_config(LLAMA)
+    cfg = dataclasses.replace(rt.configs.get_config(LLAMA), num_layers=MESH_LAYERS)
     fused = {("gmf_select", "bf16,bf16"): 1, ("gmf_compress", "bf16,bf16"): 1,
              ("momentum_correction", "bf16,bf16->bf16"): 1}
     less, less_recs, less_ms, less_inst, _ = mesh_train_run(rt, cfg, dev, "gmf_data", None,
@@ -3974,30 +3993,42 @@ def mesh_entry_point(card):
             LLAMA, "--grad-sync", "gmf_data", "--steps", "4", "--log-every", "1",
             "--use-kernels"]
     out = {}
-    for shape, ok in (("1,1", True), ("2,1", False)):
+    procs = {}
+    t0 = time.perf_counter()
+    for shape, ok in (("1,1", True), ("2,1", False)):  # both at once
         env = dict(os.environ, PYTHONPATH=str(SRC), RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
-        t0 = time.perf_counter()
         extra = ["--metrics-out", str(MESH_DIR / "entry.json")] if ok else []
-        proc = subprocess.run([*base, "--mesh-shape", shape, *extra], env=env, cwd=ROOT,
-                              capture_output=True, text=True, timeout=300, check=False)
-        wall = time.perf_counter() - t0
+        procs[shape] = subprocess.Popen([*base, "--mesh-shape", shape, *extra], env=env,
+                                        cwd=ROOT, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+    logs = {}
+    try:
+        for shape, p in procs.items():
+            logs[shape] = p.communicate(timeout=300)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for shape, ok in (("1,1", True), ("2,1", False)):
+        rc, (stdout, stderr) = procs[shape].returncode, logs[shape]
         if ok:
-            check(proc.returncode == 0 and "mesh={'data': 1, 'model': 1}" in proc.stdout,
-                  f"(d) --mesh-shape 1,1 exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                  f"{proc.stderr[-3000:]}")
+            check(rc == 0 and "mesh={'data': 1, 'model': 1}" in stdout,
+                  f"(d) --mesh-shape 1,1 exited {rc}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
             hist = json.loads((MESH_DIR / "entry.json").read_text())
             out[shape] = [round(h["step_ms"], 3) for h in hist]
-            print(f"  (d) launch.train --mesh-shape 1,1 ({card}): exit 0 in {wall:.1f} s; "
-                  f"{[ln for ln in proc.stdout.splitlines() if 'mesh=' in ln][0]}; step ms "
+            print(f"  (d) launch.train --mesh-shape 1,1 ({card}): exit 0; "
+                  f"{[ln for ln in stdout.splitlines() if 'mesh=' in ln][0]}; step ms "
                   f"{out[shape]} (step 0 first use)", flush=True)
         else:
             msg = "Number of devices 1 must be >= the product of mesh_shape (2, 1)"
-            check(proc.returncode != 0 and msg in proc.stderr,
-                  f"(d) --mesh-shape 2,1 on one rank exited {proc.returncode}:\n"
-                  f"{proc.stderr[-3000:]}")
-            print(f"  (d) --mesh-shape 2,1 on one rank: exit {proc.returncode} with the "
-                  f"reference's message ({msg!r}) in {wall:.1f} s", flush=True)
+            check(rc != 0 and msg in stderr,
+                  f"(d) --mesh-shape 2,1 on one rank exited {rc}:\n{stderr[-3000:]}")
+            print(f"  (d) --mesh-shape 2,1 on one rank: exit {rc} with the reference's "
+                  f"message ({msg!r})", flush=True)
+    print(f"  (d) both entry points in {wall:.1f} s", flush=True)
     return out
 
 
@@ -4044,8 +4075,8 @@ def mesh_phase(rt, dev, card, served):
 # ---------------------------------------------------------------------------
 
 TP_DIR = ROOT / "build" / "tp"  # phase 18's stores and the workers' results (ignored by git)
-# (b): llama3.2-1b at full width, 8 of 16 layers, bf16, batch 8 x 256, 3 steps
-TP_TRAIN = dict(layers=8, batch=8, seq_len=256, steps=3)
+# (b): llama3.2-1b at full width, 2 of 16 layers, bf16, batch 8 x 256, 2 steps
+TP_TRAIN = dict(layers=2, batch=8, seq_len=256, steps=2)
 # (c): llama3.2-1b at full width, 2 layers, float32, batch 4, prompt 256, 8 tokens
 TP_SERVE = dict(layers=2, batch=4, prompt_len=256, gen=8)
 TP_TRAIN_TOL, TP_SERVE_TOL = 1e-2, 1e-4  # phase 14's bf16 tolerance; phase 6's float32 one
@@ -4481,11 +4512,10 @@ def tp_worker(rank: int, init: str, dest: str) -> None:
     Path(dest).write_text(json.dumps(out))
 
 
-def tp_pair_phase(rt, card):
-    """(b) and (c): two processes on the one card (``chip_smoke.py
-    --tp-worker``), started together, waited for with a time limit and
-    killed past it. Checks their records; returns (rank 0's records, the
-    two ranks' compression launches by instance in (b)'s gmf_data run)."""
+def tp_pair_start():
+    """(b) and (c)'s two processes on the one card (``chip_smoke.py
+    --tp-worker``), started together -> (processes, their records' paths,
+    the store)."""
     TP_DIR.mkdir(parents=True, exist_ok=True)
     store = TP_DIR / "store_two"
     store.unlink(missing_ok=True)
@@ -4497,16 +4527,32 @@ def tp_pair_phase(rt, card):
                                "--tp-init", f"file://{store}", "--tp-out", str(dests[r])],
                               env=env, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return procs, dests, store
+
+
+def tp_pair_stop(pair) -> None:
+    """Kill what is left of the pair and remove its store."""
+    procs, _, store = pair
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    store.unlink(missing_ok=True)
+
+
+def tp_pair_phase(rt, card, pair=None):
+    """(b) and (c): the two processes (``tp_pair_start``; started here unless
+    ``pair`` was started before), waited for with a time limit and killed
+    past it. Checks their records; returns (rank 0's records, the two
+    ranks' compression launches by instance in (b)'s gmf_data run)."""
+    pair = tp_pair_start() if pair is None else pair
+    procs, dests, _ = pair
     logs = []
     try:
         for p in procs:
             logs.append(p.communicate(timeout=900)[0])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        store.unlink(missing_ok=True)
+        tp_pair_stop(pair)
     check(all(p.returncode == 0 for p in procs),
           "phase 18 workers failed:\n" + "\n".join(f"--- rank {r} (rc {p.returncode}):\n"
                                                    f"{log[-3000:]}" for r, (p, log) in
@@ -4611,10 +4657,11 @@ def tp_pair_phase(rt, card):
     return rec, inst_sum
 
 
-def model_axis_phase(rt, dev, card, bw, peak, resnet_params):
+def model_axis_phase(rt, dev, card, bw, peak, resnet_params, pair=None):
     """Phase 18: (a) in a one-rank NCCL world, then (b) and (c) in two
-    processes. Returns ((a)'s times, rank 0's records, (b)'s launches by
-    instance over both ranks)."""
+    processes (``pair``, where they started before: in the whole script
+    they run beside phase 17 and (a)). Returns ((a)'s times, rank 0's
+    records, (b)'s launches by instance over both ranks)."""
     import gc
 
     gc.collect()
@@ -4625,7 +4672,7 @@ def model_axis_phase(rt, dev, card, bw, peak, resnet_params):
     free, total = torch.cuda.mem_get_info(dev)
     print(f"  this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB; "
           f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card", flush=True)
-    rec, inst = tp_pair_phase(rt, card)
+    rec, inst = tp_pair_phase(rt, card, pair)
     return times, rec, inst
 
 
@@ -4638,15 +4685,17 @@ FSDP_DIR = ROOT / "build" / "fsdp"  # phase 19's stores and the workers' records
 QWEN, KIMI = "qwen2-vl-72b", "kimi-k2-1t-a32b"
 # the depth-cut configs FSDP runs on, at full width (FSDP forced: they fall
 # under dist.step's 40e9 threshold, so this script sets it to 0 in its own
-# processes). qwen2-vl-72b at 2 of 80 layers (4.25 B params, 8.5 GB in
-# bf16) under dense; llama3.2-1b at 8 of 16 layers under the gmf modes: a
+# processes). qwen2-vl-72b at 1 of 80 layers (3.4 B params, most of them
+# the embedding and the unembedding, 6.8 GB in bf16) under dense;
+# llama3.2-1b at 2 of 16 layers (phase 20's depth) under the gmf modes: a
 # gmf step holds ~13 param-sized arrays (params, the gradient row, U, V, M
 # old and new, gbar, the payload and mask), ~110 GB at qwen2-vl's 2 layers
-# on one rank, ~64 GB a process over two (PERF.md)
-FSDP_LAYERS = {QWEN: 2, LLAMA: 8}
+# on one rank (PERF.md). Phase 19 ran qwen2-vl at 2 and llama at 8 layers
+# until the whole script had to fit half its time limit (PERF.md)
+FSDP_LAYERS = {QWEN: 1, LLAMA: 2}
 # (b)'s steps, two at least so that a loss after an update is compared:
-# over gloo a qwen2-vl step takes 17-23 s (~17 GB through host memory), a
-# llama one ~4 s (PERF.md)
+# over gloo a qwen2-vl step took 17-23 s at 2 layers (~17 GB through host
+# memory), a llama one ~4 s at 8 layers (PERF.md)
 PAIR_STEPS = {QWEN: 2, LLAMA: 2}
 FSDP_TOL = 1e-2  # phase 14's bf16 tolerance: losses, and the params (relative L2)
 # (b) and (c)'s params' change (final minus initial) against the mesh-less
@@ -4667,7 +4716,8 @@ FSDP_NNZ_FLIPS = 500_000
 # (b)'s group select over the data group: TP_SELECT's leaves and "s", held
 # alike by both ranks (a piece only rank 0 owns)
 FSDP_SELECT = {**TP_SELECT, "s": ((256, 512), "shared")}
-EP_STEPS = 3  # (c) granite-moe at its published config, dense sync
+EP_STEPS = 2  # (c) granite-moe at its published widths, dense sync
+EP_LAYERS = 12  # (c) granite-moe's depth, 12 of 24 layers (phases 13 and 17 serve it so)
 KIMI_SERVE = dict(layers=1, batch=1, prompt_len=256, gen=8)  # (c), phase 13's kimi shape
 EP_SERVE_TOL = 1e-2  # bf16 logits, relative L2, where nothing drops
 # (c)'s second kimi run: a capacity at which no assignment drops (E / k: an
@@ -4676,6 +4726,9 @@ EP_SERVE_TOL = 1e-2  # bf16 logits, relative L2, where nothing drops
 # is another function (ROADMAP S12)
 KIMI_NO_DROP = 384 / 8
 ENGINE_MESH_WIRES = ("float32", "int8")  # (d), llama3.2-1b in float32 (as phase 18 (c))
+# (d)'s tokens a request (phase 16 generates ENGINE["gen"]): over gloo a
+# decode tick at (1, 2) takes ~0.4 s, a tick a token
+ENGINE_MESH_GEN = 8
 
 
 def fsdp_witnesses(rt, dev, card):
@@ -4702,7 +4755,7 @@ def fsdp_witnesses(rt, dev, card):
     params = rt.serve.init_params(cfg, 0, dev)
     prompts = engine_prompts(rt, cfg)
     for wire in ENGINE_MESH_WIRES:
-        eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire))
+        eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire, ENGINE_MESH_GEN))
         for i, p in enumerate(prompts):
             eng.submit(p, arrival_tick=i * ENGINE["stagger"])
         comps, metrics = eng.run()
@@ -4771,11 +4824,26 @@ def one_at_a_time(rank, fn):
     return out
 
 
+def diff_norms(a, b, x0, dev, chunk=1 << 26):
+    """||a − b||, ||b|| and ||b − x0|| of three host tensors of one shape,
+    taken on ``dev`` in float32 a chunk of ``chunk`` elements at a time (the
+    host's float32 arithmetic over a model's pieces took longer than the
+    copies), summed in float64."""
+    a, b, x0 = (t.reshape(-1) for t in (a, b, x0))
+    sums = [0.0, 0.0, 0.0]
+    for i in range(0, b.numel(), chunk):
+        aa, bb, xx = (t[i:i + chunk].to(dev).float() for t in (a, b, x0))
+        for j, t in enumerate((aa - bb, bb, bb - xx)):
+            sums[j] += float(torch.linalg.vector_norm(t)) ** 2
+    return tuple(math.sqrt(x) for x in sums)
+
+
 def pair_train(rt, rank, cfg, sync, mesh, dev, twin, steps, fsdp):
     """A training run over ``mesh`` (each rank its pieces, FSDP's with
-    ``fsdp``), its whole params gathered to the host, then rank 0's
-    mesh-less run of ``twin`` on the same params and batches, and the
-    comparison. Returns the record (rank 0's comparison)."""
+    ``fsdp``), then the mesh-less run of ``twin`` on the same params and
+    batches (a rank at a time; the params go to the host in between), and
+    each rank's comparison of its pieces with the mesh-less run's. Returns
+    the record."""
     import gc
 
     from repro_torch.configs.base import TrainConfig
@@ -4848,10 +4916,9 @@ def pair_train(rt, rank, cfg, sync, mesh, dev, twin, steps, fsdp):
                                                  mesh=mesh))
     errs, moved, off = [], [], []
     for a, w, x0, sp in zip(final, want, init, specs, strict=True):
-        b = piece_of(w, sp, mesh).float()
-        diff = float((a.float() - b).norm())
-        errs.append(diff / float(b.norm().clamp_min(1e-30)))
-        moved.append(float((b - x0.float()).norm()))  # the mesh-less run's change
+        diff, norm, change = diff_norms(a, piece_of(w, sp, mesh), x0, dev)
+        errs.append(diff / max(norm, 1e-30))
+        moved.append(change)  # the mesh-less run's change
         off.append(diff)
     del final, want, init
     gc.collect()
@@ -4950,7 +5017,8 @@ def pair_engine(rt, mesh, dev):
     out = {}
     for wire in ENGINE_MESH_WIRES:
         rt.k4.reset_launches()
-        eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire), mesh=mesh)
+        eng = rt.serving.ServeEngine(cfg, params, engine_config(rt, wire, ENGINE_MESH_GEN),
+                                     mesh=mesh)
         for i, p in enumerate(prompts):
             eng.submit(p, arrival_tick=i * ENGINE["stagger"])
         comps, metrics = eng.run()
@@ -5067,7 +5135,7 @@ def fsdp_worker(rank: int, init: str, dest: str) -> None:
         out["b_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         stage("(c) granite-moe")
-        granite = configs.get_config(GRANITE)
+        granite = dataclasses.replace(configs.get_config(GRANITE), num_layers=EP_LAYERS)
         out["ep_train"] = pair_train(rt, rank, granite, "dense", m12, dev, "dense", EP_STEPS,
                                      False)
         stage("(c) kimi-k2")
@@ -5085,11 +5153,11 @@ def fsdp_worker(rank: int, init: str, dest: str) -> None:
     Path(dest).write_text(json.dumps(out))
 
 
-def fsdp_pair_phase(rt, card, wit):
+def fsdp_pair_phase(rt, card, wit, beside=None):
     """(b)-(d): two processes on the one card (``chip_smoke.py
     --fsdp-worker``), started together, waited for with a time limit and
-    killed past it. Prints the readings, then checks them. Returns rank
-    0's records."""
+    killed past it, ``beside()`` running here meanwhile. Prints the
+    readings, then checks them. Returns rank 0's records."""
     FSDP_DIR.mkdir(parents=True, exist_ok=True)
     store = FSDP_DIR / "store_two"
     store.unlink(missing_ok=True)
@@ -5103,6 +5171,8 @@ def fsdp_pair_phase(rt, card, wit):
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
     logs = []
     try:
+        if beside is not None:
+            beside()
         for p in procs:
             logs.append(p.communicate(timeout=900)[0])
     finally:
@@ -5118,6 +5188,9 @@ def fsdp_pair_phase(rt, card, wit):
     res = [json.loads(d.read_text()) for d in dests]
     print(f"  gloo on the card's tensors, two processes: {json.dumps(res[0]['probe'])}",
           flush=True)
+    print("  the workers' stages (seconds since each process started): " + "; ".join(
+        ln.split(": ", 1)[1] for ln in logs[0].splitlines()
+        if ln.startswith("rank 0: ") and ln.endswith(" s")), flush=True)
     fsdp_pair_report(rt, card, wit, res)
     return res[0]
 
@@ -5136,7 +5209,8 @@ def fsdp_pair_report(rt, card, wit, res):
         rec = res[0][key]
         t, o = rec["mesh"], rec["less"]
         print(f"  ({'c' if key == 'ep_train' else 'b'}) {arch} "
-              f"({FSDP_LAYERS.get(arch, 'all')} layers), {key} at {mesh}, two processes over gloo"
+              f"({ {**FSDP_LAYERS, GRANITE: EP_LAYERS}[arch]} layers), {key} at {mesh}, two "
+              f"processes over gloo"
               f" ({card}): {rec['cut_data']} of {rec['leaves']} leaves cut over data; losses "
               f"{[x['loss'] for x in t['recs']]} (no mesh {[x['loss'] for x in o['recs']]}), "
               f"params within {[round(x[key]['param_rel_l2'], 9) for x in res]} relative L2 "
@@ -5244,14 +5318,16 @@ def fsdp_pair_report(rt, card, wit, res):
         check(rec["gmf_pod"]["mesh"]["inst"] == want,
               f"(b) gmf_pod rank {r}: launches {rec['gmf_pod']['mesh']['inst']}, expected {want}")
         check(not rec["dense"]["mesh"]["inst"], f"(b) dense launched {rec['dense']['mesh']['inst']}")
-        check(rec["ep_train"]["mesh"]["moe_ep"] == EP_STEPS * rt.configs.get_config(
-            GRANITE).num_layers, f"(c) granite rank {r}: moe_ep {rec['ep_train']['mesh']['moe_ep']}")
+        check(rec["ep_train"]["mesh"]["moe_ep"] == EP_STEPS * EP_LAYERS,
+              f"(c) granite rank {r}: moe_ep {rec['ep_train']['mesh']['moe_ep']}")
 
 
-def fsdp_phase(rt, dev, card):
+def fsdp_phase(rt, dev, card, beside=None):
     """Phase 19: the witnesses of (c) and (d) in this process, then (b)-(d)
-    in two processes. (FSDP runs only on a data axis over 1, so a one-rank
-    mesh runs phase 17's steps: the pair is where FSDP runs.)"""
+    in two processes, ``beside()`` running in this process meanwhile (the
+    pair is bound by gloo's copies through host memory and holds ~40 GiB of
+    the card). (FSDP runs only on a data axis over 1, so a one-rank mesh
+    runs phase 17's steps: the pair is where FSDP runs.)"""
     import gc
 
     FSDP_DIR.mkdir(parents=True, exist_ok=True)
@@ -5263,7 +5339,7 @@ def fsdp_phase(rt, dev, card):
     free, total = torch.cuda.mem_get_info(dev)
     print(f"  this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB; "
           f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card", flush=True)
-    return fsdp_pair_phase(rt, card, wit)
+    return fsdp_pair_phase(rt, card, wit, beside)
 
 
 # ---------------------------------------------------------------------------
@@ -5905,6 +5981,99 @@ def dryrun_phase(rt, dev, card):
     return {"ratio": ratio, "calib": cal, "tally": fake}
 
 
+PHASE22 = ("phase 22: static analysis (repro_torch.analysis): the CLI's --all, a ResNet-56 "
+           "round audited on the card against its fake pass, the contracts at ResNet-56's "
+           "params on the card against fake tensors")
+
+
+def analysis_audit(rt, dev, card):
+    """(b) Round 1 of phase 3's dgcwgmf path (ResNet-56, 20 clients, batch 64,
+    use_kernels) audited on the card (``jaxpr_audit.audit_round`` over the
+    engine's ``round_fn`` after round 0 built the layout's caches) and the
+    same round's fake pass (``fake_twin``, fake CUDA tensors of the same
+    shapes): host reads, host-to-device copies, collectives and kernel
+    launches equal."""
+    from repro_torch.analysis import jaxpr_audit as ja
+
+    task = rt.fl.CifarTask(num_clients=20, depth=56,
+                           data=rt.synthetic.SynthCIFAR(num_train=20000), device=dev)
+    comp = rt.core.CompressionConfig(scheme="dgcwgmf", rate=0.1, tau=0.6, use_kernels=True)
+    fl = rt.fl.FLConfig(num_clients=20, rounds=1, batch_size=64, learning_rate=0.1)
+    sim = rt.fl.FLSimulator(fl, comp, task.init_fn, task.loss_fn, device=dev)
+    provide = task.batch_provider(64)
+    sim.run(provide)  # round 0
+    ids = sim._sample_ids(1)
+    batches = provide(1, ids, sim._rng)
+    args = (sim.params, sim.cstates, sim.sstate, sim.gbar_prev, rt.utils.to_device(ids, dev),
+            batches, 1, sim._lr_at(1), None)
+    torch.cuda.synchronize()
+    real = ja.audit_round(sim.engine.round_fn, args, where="jaxpr:resnet56_dgcwgmf")
+    torch.cuda.synchronize()
+    with ja.fake_tensors():
+        twin, fake_args = ja.fake_twin(sim.engine, args)
+        fake = ja.audit_two_rounds(twin, fake_args, where="jaxpr:resnet56_dgcwgmf")
+    runs = {}
+    for label, a in (("card", real), ("fake", fake)):
+        runs[label] = {"host_reads": a.host_reads, "transfers": a.transfers,
+                       "collectives": ja.collective_counts(a.tally), "kernels": a.kernels,
+                       "findings": [f.format() for f in a.findings]}
+    print(f"  (b) ResNet-56 dgcwgmf round 1 (20 clients, batch 64, use_kernels) audited on the "
+          f"card ({card}) and as its fake pass: {json.dumps(runs)}", flush=True)
+    for key in ("host_reads", "transfers", "collectives", "kernels"):
+        same_count = len(runs["card"][key]) == len(runs["fake"][key])
+        check(same_count if key in ("host_reads", "transfers")
+              else runs["card"][key] == runs["fake"][key],
+              f"phase 22 (b): the card's {key} {runs['card'][key]} against the fake pass's "
+              f"{runs['fake'][key]}")
+    check(real.kernels == {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1},
+          f"phase 22 (b): the round's launches {real.kernels}")
+    check(not real.findings and not fake.findings,
+          f"phase 22 (b): findings {runs['card']['findings']} / {runs['fake']['findings']}")
+    return runs
+
+
+def analysis_contracts(rt, dev, card):
+    """(c) ``contracts.check_all`` at ResNet-56's params on the card's tensors
+    and on fake ones of the same shapes: the same findings (none)."""
+    from repro_torch.analysis import contracts
+
+    params = _resnet56_params(dev)
+    t0 = time.perf_counter()
+    real = contracts.check_all(params=params, fake=False)
+    torch.cuda.synchronize()
+    t_real = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fake = contracts.check_all(params=params)
+    t_fake = time.perf_counter() - t0
+    pairs = [sorted((f.rule, f.path) for f in found) for found in (real, fake)]
+    print(f"  (c) check_all at ResNet-56's params ({card}): on the card {pairs[0]} in "
+          f"{t_real:.1f} s, on fake tensors {pairs[1]} in {t_fake:.1f} s", flush=True)
+    check(pairs[0] == pairs[1] == [], f"phase 22 (c): {[f.format() for f in real + fake]}")
+
+
+def analysis_phase(rt, dev, card):
+    """Phase 22: (a) ``python -m repro_torch.analysis --all`` in a process of
+    its own, while (b) and (c) run in this one."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.analysis", "--all"], env=env,
+                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    try:
+        analysis_audit(rt, dev, card)
+        analysis_contracts(rt, dev, card)
+        log = cli.communicate(timeout=300)[0]
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    check(cli.returncode == 0, f"phase 22 (a): python -m repro_torch.analysis --all exited "
+                               f"{cli.returncode}:\n{log[-3000:]}")
+    print(f"  (a) python -m repro_torch.analysis --all: exit 0, "
+          f"{log.strip().splitlines()[-1]}", flush=True)
+    print(f"  phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 T_START = time.perf_counter()
 
 
@@ -5915,10 +6084,11 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp", "stages-cut", "dryrun"),
+    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp", "stages-cut", "dryrun",
+                                       "analysis"),
                     default=None,
                     help="run only the build and kernel phases, or the build and phase 18, "
-                         "19, 20 or 21")
+                         "19, 20, 21 or 22")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--stages-worker", type=int, default=None, help=argparse.SUPPRESS)
@@ -6008,10 +6178,13 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if args.only in ("model-axis", "fsdp", "stages-cut", "dryrun"):
+    if args.only in ("model-axis", "fsdp", "stages-cut", "dryrun", "analysis"):
         if args.only == "dryrun":
             phase(PHASE21)
             dryrun_phase(rt, dev, card)
+        elif args.only == "analysis":
+            phase(PHASE22)
+            analysis_phase(rt, dev, card)
         elif args.only == "model-axis":
             phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
                   "processes on the card over gloo)")
@@ -6157,18 +6330,23 @@ def main() -> None:
         phase("phase 16: serving llama3.2-1b through the continuous-batching engine (paged KV "
               "pool, 4 slots, page 16, 130 pages a slot), 8 requests, the four codecs")
         _, k4_tc_by_path["serve_engine"] = engine_phase(rt, dev, card, args.profile)
-        phase("phase 17: the mesh's data axes over a one-rank NCCL world: llama3.2-1b "
-              "gmf_data, dense and gmf_pod bitwise the mesh-less steps, granite-moe through "
-              "moe_ep, launch.train --mesh-shape")
+        phase("phase 17: the mesh's data axes over a one-rank NCCL world: llama3.2-1b (2 "
+              "layers) gmf_data, dense and gmf_pod bitwise the mesh-less steps, granite-moe "
+              "through moe_ep, launch.train --mesh-shape")
         t17 = time.perf_counter()
-        mesh_inst, k4_tc_by_path["mesh_ep_serve"] = mesh_phase(rt, dev, card, served)
-        by_path["llama_mesh"] = f32_launches(mesh_inst)
-        bf16_by_path["llama_mesh"] = mesh_inst
-        print(f"  phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
-        phase("phase 18: the model axis: gmf_select's group mode at a group of one, then "
-              "llama3.2-1b over the mesh (1, 2) in two processes on the card (gloo)")
-        t18 = time.perf_counter()
-        tp_times, tp_rec, tp_inst = model_axis_phase(rt, dev, card, bw, peak, resnet_params)
+        tp_pair = tp_pair_start()  # phase 18's two processes, beside phase 17 and 18 (a)
+        try:
+            mesh_inst, k4_tc_by_path["mesh_ep_serve"] = mesh_phase(rt, dev, card, served)
+            by_path["llama_mesh"] = f32_launches(mesh_inst)
+            bf16_by_path["llama_mesh"] = mesh_inst
+            print(f"  phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
+            phase("phase 18: the model axis: gmf_select's group mode at a group of one, then "
+                  "llama3.2-1b over the mesh (1, 2) in two processes on the card (gloo)")
+            t18 = time.perf_counter()
+            tp_times, tp_rec, tp_inst = model_axis_phase(rt, dev, card, bw, peak, resnet_params,
+                                                         tp_pair)
+        finally:
+            tp_pair_stop(tp_pair)
         tp_times["max_abs_err"] = max(tp_times["max_abs_err"],
                                       tp_rec.get("select_max_abs_err", 0.0))
         bf16_by_path["llama_tp"] = {tuple(k[:-1].split("[", 1)): n for k, n in tp_inst.items()}
@@ -6176,7 +6354,12 @@ def main() -> None:
         phase("phase 19: FSDP over data (qwen2-vl-72b, llama3.2-1b), the expert-parallel MoE "
               "at model 2 (granite-moe, kimi-k2) and the engine at model 2 (llama3.2-1b)")
         t19 = time.perf_counter()
-        fsdp_rec = fsdp_phase(rt, dev, card)
+
+        def analysis():  # phase 22 beside phase 19's pair
+            phase(PHASE22)
+            analysis_phase(rt, dev, card)
+
+        fsdp_rec = fsdp_phase(rt, dev, card, analysis)
         bf16_by_path["llama_fsdp"] = {
             tuple(k[:-1].split("[", 1)): n
             for k, n in fsdp_rec["gmf_pod"]["mesh"]["inst"].items()}
@@ -6245,7 +6428,7 @@ def main() -> None:
                      "launches_by_path": {p: bf16_by_path.get(p, {}).get(
                          ("gmf_select", "group:bf16,bf16"), 0) for p in GROUP_PATHS},
                      "launches_in": "phase 18 (b): llama3.2-1b gmf_data at mesh (1, 2), both "
-                                    "ranks; phase 19 (b): llama3.2-1b (8 layers) gmf_pod at "
+                                    "ranks; phase 19 (b): llama3.2-1b (2 layers) gmf_pod at "
                                     "(1, 2, 1) under FSDP, rank 0; phase 20 (b): llama3.2-1b "
                                     "(2 layers), the fused configurations at (1, 2) and "
                                     "(1, 2, 1), both ranks",

@@ -35,6 +35,7 @@ index as ``heavy_hitters``' stable sort takes them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed
 
@@ -65,6 +66,19 @@ def _sign(idx: torch.Tensor, seed: int) -> torch.Tensor:
     return torch.where(((h >> 15) & 1) == 1, 1.0, -1.0).to(torch.float32)
 
 
+def _depth(n: int, rows: int, cols: int) -> int:
+    """The deepest bucket of the tables of ``n`` entries: the hashes of
+    ``_hash`` on the host (numpy int64, the same integer operations), a
+    chunk of entries at a time, so the table's shape is known without a read
+    of the device."""
+    counts = np.zeros((rows, cols), np.int64)
+    for lo in range(0, n, _CHUNK):
+        idx = np.arange(lo, min(n, lo + _CHUNK), dtype=np.int64)
+        for r in range(rows):
+            counts[r] += np.bincount(_hash(idx, r, cols), minlength=cols)
+    return int(counts.max())
+
+
 def _tables(n: int, rows: int, cols: int, device):
     """(columns [rows, n], signs [rows, n], bucket index table [rows, B, cols]
     (n marks an empty slot), the signs in the same table)."""
@@ -77,7 +91,7 @@ def _tables(n: int, rows: int, cols: int, device):
         col_sorted = torch.gather(col, 1, order)
         counts = torch.zeros(rows, cols, dtype=torch.int64, device=device).scatter_add_(
             1, col, torch.ones_like(col))
-        depth = int(counts.max())
+        depth = _depth(n, rows, cols)
         starts = torch.cumsum(counts, dim=1) - counts
         slot = idx[None, :] - torch.gather(starts, 1, col_sorted)
         at = (torch.arange(rows, device=device)[:, None] * depth + slot) * cols + col_sorted

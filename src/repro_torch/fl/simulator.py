@@ -242,7 +242,7 @@ class FLSimulator:
                 # copy, exact for counts below 2**53.
                 parts = [up_nnz, down_nnz.reshape(1), union_nnz.reshape(1)]
                 parts += [x for x in (rates, levels) if x is not None]
-                host = torch.cat([x.double() for x in parts]).cpu()
+                host = torch.cat([x.double() for x in parts]).cpu()  # repro-noqa: REP004 (the round's one read: the span and round_ms end at the counts' arrival)
             wall_ms = (time.perf_counter() - t0) * 1e3
             k = len(ids)
             host = host.numpy()
@@ -374,7 +374,7 @@ class FLSimulator:
                 for ap in applies:
                     self.ledger.record_download(ap.down_nnz, self.total_params, ap.num)
                     self.ledger.record_staleness(ap.gaps)
-                    obs.event("flush", round=t, staleness_gaps=[int(g) for g in ap.gaps],
+                    obs.event("flush", round=t, staleness_gaps=[int(g) for g in ap.gaps],  # repro-noqa: REP004 (ap.gaps is a host array)
                               down_nnz=ap.down_nnz, union_nnz=ap.union_nnz,
                               up_nnz_mean=ap.up_nnz_mean, num=ap.num)
                     if fl.adaptive_tau:  # per flush: the buffer's mean upload vs its union

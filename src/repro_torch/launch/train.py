@@ -467,7 +467,7 @@ def _train(args, ccfg, cfg, scheme, device, mesh):
         state, metrics = step_fn(state, batch)
         # the step's one read: it waits for the step's work, so step_ms is
         # compute, not enqueue time
-        rec = {"step": step, "loss": float(metrics["loss"])}  # repro-noqa: REP004
+        rec = {"step": step, "loss": float(metrics["loss"])}  # repro-noqa: REP004 (the step's one read: step_ms waits for its work)
         step_ms = (time.perf_counter() - t_step) * 1e3
         if step == 0:
             first_s = step_ms / 1e3
@@ -480,7 +480,7 @@ def _train(args, ccfg, cfg, scheme, device, mesh):
         if args.grad_sync != "dense":
             total = total_static
             # the counts' read lands after step_ms is measured
-            shard_nnz = metrics["upload_nnz"].cpu().numpy().astype(np.float64)
+            shard_nnz = metrics["upload_nnz"].cpu().numpy().astype(np.float64)  # repro-noqa: REP004 (post-step_ms)
             down_nnz = float(metrics["download_nnz"])  # repro-noqa: REP004 (post-step_ms)
             up_nnz = float(shard_nnz.mean())
             up = float(cost.upload_payload_bytes(up_nnz, total))
@@ -489,7 +489,7 @@ def _train(args, ccfg, cfg, scheme, device, mesh):
             down_bytes = down
             rec.update(upload_mb_per_shard=up / 1e6, broadcast_mb=down / 1e6,
                        dense_mb=total * 4 / 1e6,
-                       upload_nnz=[int(x) for x in shard_nnz], download_nnz=int(down_nnz))
+                       upload_nnz=[int(x) for x in shard_nnz], download_nnz=int(down_nnz))  # repro-noqa: REP004 (host values)
         history.append(rec)
         if args.obs:  # every rank: the health block's norms span the ranks' rows
             rec_obs.event("round", round=step, wall_ms=step_ms,

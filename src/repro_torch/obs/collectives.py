@@ -15,7 +15,11 @@ them from the partitioned HLO: ``all-reduce``, ``all-gather``,
 point; a pair counts once, at the receiver), each collective counting its
 *result* buffer on this rank (a ring's 2(n−1)/n factor is left to the
 reader). ``summary()`` is the same dict: bytes by kind, ``num_collectives``
-and ``total_bytes``; ``counts`` holds the number of each kind. A broadcast
+and ``total_bytes``; ``counts`` holds the number of each kind, and
+``calls`` each collective in issue order as ``(kind, operand dtype, reduce
+op)`` (the op ``"sum"``, ``"max"``, …, or None for a collective that
+reduces nothing), which ``analysis.jaxpr_audit`` reads for a
+half-precision SUM. A broadcast
 counts as a ``collective-permute`` of the root's buffer (the reference
 has no broadcast kind); barriers count nothing.
 
@@ -65,6 +69,29 @@ _OPS = {
 }
 
 
+def _first_tensor(x):
+    """The first tensor in ``x`` (a tensor, or nested lists of them)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    for y in x if isinstance(x, (list, tuple)) else ():
+        t = _first_tensor(y)
+        if t is not None:
+            return t
+    return None
+
+
+def _reduce_op(func, args) -> str | None:
+    """The reduce op of a collective's call: ``"sum"``, ``"max"``, …; None
+    where the op takes none."""
+    names = [a.name for a in func._schema.arguments]
+    if "reduce_op" not in names:
+        return None
+    op = args[names.index("reduce_op")]
+    if isinstance(op, str):  # the functional collectives name it
+        return op.lower()
+    return torch.distributed.ReduceOp.RedOpType(op._get_method("op")()).name.lower()
+
+
 def _bytes(x) -> int:
     """The bytes of the tensors in ``x`` (a tensor, or nested lists of them)."""
     if isinstance(x, torch.Tensor):
@@ -77,13 +104,15 @@ def _bytes(x) -> int:
 class CollectiveTally(TorchDispatchMode):
     """``with CollectiveTally() as tally: ...`` counts the collectives the
     block issues on this rank: ``tally.counts`` (kind -> number) and
-    ``tally.bytes`` (kind -> result bytes); ``summary()`` as the reference's
+    ``tally.bytes`` (kind -> result bytes), ``tally.calls`` (each one's
+    kind, operand dtype and reduce op); ``summary()`` as the reference's
     ``parse_collective_bytes``."""
 
     def __init__(self):
         super().__init__()
         self.counts: dict[str, int] = {}
         self.bytes: dict[str, int] = {}
+        self.calls: list[tuple[str, str, str | None]] = []
         self._threads = None
 
     def __enter__(self):
@@ -104,6 +133,9 @@ class CollectiveTally(TorchDispatchMode):
             result = args[0] if where == "first" else out
             self.counts[kind] = self.counts.get(kind, 0) + 1
             self.bytes[kind] = self.bytes.get(kind, 0) + _bytes(result)
+            operand = _first_tensor(args[0])
+            dtype = str(operand.dtype).removeprefix("torch.") if operand is not None else ""
+            self.calls.append((kind, dtype, _reduce_op(func, args)))
         return out
 
     def summary(self) -> dict:

@@ -41,7 +41,7 @@ def apply_updates(
     count = state.count + 1
     # a step counter, not a size: bias correction needs b**t only, far below
     # 2^24 steps
-    cf = np.float32(count)  # repro-noqa: REP003
+    cf = np.float32(count)  # repro-noqa: REP003 (a step counter, far below 2^24)
     mu = tree_map(lambda m, g: weak(b1, m.dtype) * m + weak(1 - b1, m.dtype) * g.to(m.dtype),
                   state.mu, grads)
     nu = tree_map(lambda v, g: weak(b2, v.dtype) * v

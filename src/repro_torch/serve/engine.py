@@ -255,7 +255,7 @@ class ServeEngine:
                             "admit_tick": tick, "admit_time": time.perf_counter(),
                             "wait_ticks": wait}
                 if on_token is not None:
-                    on_token(req.rid, int(t0[0]))
+                    on_token(req.rid, int(t0[0]))  # repro-noqa: REP004 (streaming: on_token takes each token as it comes)
                 if len(slots[i]["gen"]) >= req.max_new_tokens:
                     finish(i, slots[i])
 
@@ -280,7 +280,7 @@ class ServeEngine:
                     continue
                 st["gen"].append(next_tok[i])
                 if on_token is not None:
-                    on_token(st["req"].rid, int(next_tok[i]))
+                    on_token(st["req"].rid, int(next_tok[i]))  # repro-noqa: REP004 (streaming: on_token takes each token as it comes)
                 if len(st["gen"]) >= st["req"].max_new_tokens:
                     finish(i, st)
             tick += 1

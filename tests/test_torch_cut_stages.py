@@ -201,7 +201,7 @@ def test_draws_by_segment_are_the_cached_draws(monkeypatch):
     keys = draws.leaf_keys(layout, 29, 4, clients=torch.tensor([0, 7, 3]))
     want = draws.element_hashes(layout, keys)
     monkeypatch.setattr(draws, "SEGMENT_LIMIT", 0)
-    assert torch.equal(draws.element_hashes(layout, keys), want)
+    assert torch.equal(draws.element_hashes(layout, keys), want)  # repro-noqa: REP001 (the same draws two ways)
     assert want.shape == (3, layout.total)
 
 

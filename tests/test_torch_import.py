@@ -39,7 +39,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.obs.trace, repro_torch.obs.health, repro_torch.models.moe, "
             "repro_torch.models.ssm, repro_torch.models.rglru, repro_torch.serve, "
             "repro_torch.serve.cache, repro_torch.serve.engine, repro_torch.launch.mesh, "
-            "repro_torch.dist.sharding\n"
+            "repro_torch.dist.sharding, repro_torch.analysis, repro_torch.analysis.lints, "
+            "repro_torch.analysis.contracts, repro_torch.analysis.jaxpr_audit\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.') or m == 'msgpack')\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -184,6 +185,17 @@ UNPORTED = {
         "global_topk_masks_dynamic": "replaced by topk_mask_dynamic over the whole flat row"},
     "kernels/flash_attention.py": {"NEG_INF": PALLAS},
     "kernels/gmf_compress.py": {"BLOCK_ROWS": PALLAS, "LANES": PALLAS, "BLOCK": PALLAS},
+    "analysis/jaxpr_audit.py": {
+        "COLLECTIVE_RE": "parses XLA's HLO text; the port counts collectives by dispatch: "
+                         "CollectiveTally (obs/collectives.py)",
+        "SHAPE_RE": "parses XLA's HLO text; the port reads each collective's operand: "
+                    "CollectiveTally.calls",
+        "parse_collective_bytes": "parses XLA's HLO text; its counterpart is "
+                                  "CollectiveTally.summary() (obs/collectives.py)",
+        "iter_eqns": "walks a jaxpr; torch has none: HostTraffic and CollectiveTally see "
+                     "every op the round fn dispatches",
+        "audit_jaxpr": "audits a jaxpr; its counterpart is audit_round (a dispatch mode over "
+                       "the round fn)"},
 }
 
 

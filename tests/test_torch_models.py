@@ -118,6 +118,6 @@ def test_convert_round_trip_and_init_layout(model):
     assert sorted(flatten_dotted(own)) == sorted(flatten_dotted(tp))
     for a, b in zip(tree_leaves(own), tree_leaves(tp), strict=True):
         assert a.shape == b.shape and a.dtype == b.dtype
-    again = tres.init_resnet(torch.Generator().manual_seed(0), depth=depth)
+    again = tres.init_resnet(torch.Generator().manual_seed(0), depth=depth)  # repro-noqa: REP001 (the same init twice)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(own), tree_leaves(again),
                                                   strict=True))

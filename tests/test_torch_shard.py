@@ -14,12 +14,19 @@ Tolerances:
   largest magnitude (the two ranks' partial sums are added in another
   order than vmap's single sum, one float32 rounding a round).
 
+The two ranks also run the pinned ``shard_dgcwgmf`` round of
+``repro_torch.analysis.jaxpr_audit`` at two ranks under
+``CollectiveTally``: its collectives (kinds, result bytes, operand dtypes
+and reduce ops) equal those of the same round on fake tensors in a fake
+world of two ranks, the analysis's collective gate.
+
 Process groups start from a ``file://`` store in the test's temporary
 directory (no port is opened), and the spawned ranks have their own
 timeout.
 """
 
 import datetime
+import json
 import os
 import subprocess
 import sys
@@ -165,12 +172,26 @@ def rank_main(rank: int, world: int, init: str, out: str) -> None:
             run("star", "shard", clients_per_round=3)
         except ValueError as e:
             saved["error"] = np.asarray(str(e))
+        saved["tally"] = np.asarray(json.dumps(pinned_tally(fake=False)))
         np.savez(out, **saved)
     finally:
         dist.destroy_process_group()
 
 
-def test_two_ranks_agree_with_vmap(tmp_path):
+def pinned_tally(fake: bool) -> dict:
+    """The collectives of the analysis's pinned ``shard_dgcwgmf`` round at two
+    ranks: over the caller's world on CPU tensors, or (``fake``) on fake ones
+    in a fake world of two."""
+    from repro_torch.analysis import jaxpr_audit
+
+    tally = jaxpr_audit.audit_pinned("shard_dgcwgmf", device="cpu", world=2, fake=fake).tally
+    return {"counts": tally.counts, "bytes": tally.bytes, "calls": [list(c) for c in tally.calls]}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The two spawned ranks' saved runs."""
+    tmp_path = tmp_path_factory.mktemp("two_ranks")
     init = f"file://{tmp_path / 'store'}"
     code = ("import sys; sys.path[:0] = sys.argv[5:7]; import test_torch_shard as t; "
             "t.rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])")
@@ -189,7 +210,11 @@ def test_two_ranks_agree_with_vmap(tmp_path):
                 p.kill()
                 p.wait()
     assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
-    r0, r1 = (np.load(tmp_path / f"rank{r}.npz") for r in range(2))
+    return [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+
+
+def test_two_ranks_agree_with_vmap(two_ranks):
+    r0, r1 = two_ranks
     assert sorted(r0.files) == sorted(r1.files)
     for key in r0.files:
         assert np.array_equal(r0[key], r1[key]), key
@@ -203,3 +228,12 @@ def test_two_ranks_agree_with_vmap(tmp_path):
             else:
                 scale = max(float(np.abs(w).max()), 1e-30)
                 assert np.abs(got - w).max() <= 1e-6 * scale, f"{name}/{key}"
+
+
+def test_fake_world_tally_is_the_gloo_worlds(two_ranks):
+    if dist.is_initialized():
+        pytest.fail("a process group leaked from another test")
+    gloo = json.loads(str(two_ranks[0]["tally"]))
+    assert gloo == json.loads(str(two_ranks[1]["tally"]))
+    assert pinned_tally(fake=True) == gloo
+    assert gloo["counts"] == {"all-reduce": 1, "all-gather": 4}

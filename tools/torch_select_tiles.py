@@ -165,8 +165,8 @@ def main() -> None:
         del params
         cases += [("llama3.2-1b bf16 row, fused", llama, 1, torch.bfloat16, "fused"),
                   ("llama3.2-1b bf16 row, |z|", llama, 1, torch.bfloat16, "abs")]
-    res56 = layout_of(resnet.init_resnet(torch.Generator().manual_seed(0), depth=56, device=dev))
-    shakes = layout_of(lstm.init_lstm(torch.Generator().manual_seed(0), vocab=VOCAB, device=dev))
+    res56 = layout_of(resnet.init_resnet(torch.Generator().manual_seed(0), depth=56, device=dev))  # repro-noqa: REP001 (only the sizes are used)
+    shakes = layout_of(lstm.init_lstm(torch.Generator().manual_seed(0), vocab=VOCAB, device=dev))  # repro-noqa: REP001 (only the sizes are used)
     cases += [("ResNet-56 round (20 clients), fused", res56, 20, torch.float32, "fused"),
               ("Shakespeare round (10 clients), |z|, per-row keep table", shakes, 10,
                torch.float32, "abs_rows"),
