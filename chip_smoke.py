@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase (what CI on a GPU runs)
     python3 chip_smoke.py --only kernels   # build + hold the kernels only
+    python3 chip_smoke.py --only mixed-tree  # build + phase 11b (a tree of mixed dtypes)
     python3 chip_smoke.py --only dryrun    # build + phase 21 (the dry run) only
     python3 chip_smoke.py --only analysis  # build + phase 22 (static analysis) only
     python3 chip_smoke.py --profile        # + where a ResNet-56 and a Shakespeare
@@ -191,6 +192,28 @@ Phases, in order; any failure exits nonzero:
    schedule on both, broadcasts within phase 4's 1e-2 relative L2. Each
    engine's ms per round (tick) after round 0 is printed beside the card's
    name and power limit.
+11b. **A tree of mixed dtypes through every cross-leaf stage and engine**
+   (ROADMAP item 15): granite-moe-1b-a400m at its published widths, 2 of
+   24 layers, bf16 beside its float32 routers (two dtype groups). First
+   global top-k's select over the groups' ``[2, N_g]`` scores, the radix
+   select against ``torch.topk`` over their concatenation, the same
+   masks, each timed. (a) Global top-k (dgc; and dgcwgmf_dl's uplink and
+   downlink), random-k, FetchSGD (and its server), the probquant wire
+   (dgcwgmf, fused), the Hadamard rotation with int8 (dgc) and adaptive
+   rates (per tensor, with an int8 drop; and global) through
+   ``client_compress`` on 2 clients: each kernel one launch per dtype
+   group, then the same call on the plain versions bitwise (FetchSGD's
+   payload and sketch error within 1e-5: atomics; ``gmf_select``'s
+   inverse norms within 1e-6 relative of the plain sums', its thresholds
+   bitwise on its own norms, as phase 2 holds it), ms a call. (b) LMTask
+   (8 clients, 4 a round, batch 2, sequence 128) through the async engine
+   (phase 11's stragglers, buffer 4, 4 ticks) under global top-k (dgc),
+   the ring (1 hop), the hierarchy (2 groups, hier_dgcwgmf) and a one-rank
+   NCCL shard under dgcwgmf, 2 rounds each: every compression call (and
+   the tier's) held against the plain versions on the same gradients,
+   each kernel's launches (one per dtype group a call), the params moved
+   and finite, ms a tick or round after the first with the holds' time
+   taken out, beside the card's name and power limit.
 12. **Telemetry** (``repro_torch.obs``). Phase 10's task: (1) 3 rounds of
    ``dgcwgmf`` (τ 0.6, fused) with telemetry off, then 3 with it on into
    ``build/obs/resnet56``, from the same seed under cuDNN's deterministic
@@ -449,6 +472,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3142,8 +3166,8 @@ def hold_mixed_tree(rt, dev):
     per group a call. Returns the largest differences."""
     from repro_torch.models import transformer
 
-    core, flat, ops = rt.core, rt.flat, rt.ops
-    cfg = dataclasses.replace(rt.configs.get_config("granite-moe-1b-a400m"), num_layers=2)
+    core, flat = rt.core, rt.flat
+    cfg = dataclasses.replace(rt.configs.get_config(GRANITE), num_layers=2)
     params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
     layout = flat.FlatLayout.of(params)
     check(layout.groups is not None and len(layout.groups) == 2,
@@ -3154,8 +3178,7 @@ def hold_mixed_tree(rt, dev):
              "apply_mask": 0.0}
 
     def stacks():  # normal, rounded to 1/16, [k, N_g] in each group's dtype
-        return tuple(torch.randn(k, g.total, generator=gen, device=dev).mul_(16).round_()
-                     .div_(16).to(g.dtype) for g in layout.groups)
+        return mixed_stacks(layout, k, gen, dev)
 
     grad = stacks()
     for label, kw, want_counts in (
@@ -3173,14 +3196,8 @@ def hold_mixed_tree(rt, dev):
         counts = dict(rt.gk.LAUNCHES)
         check(counts == want_counts, f"mixed tree, {label}: launches {counts}, expected "
                                      f"{want_counts} (one per dtype group)")
-        saved = ops._on_card, ops.momentum_correction
-        ops._on_card = lambda x: False  # every wrapper takes its plain version
-        ops.momentum_correction = lambda u, v, g, alpha, state_dtype=False: \
-            rt.ref.momentum_correction(u, v, g, float(alpha), state_dtype)
-        try:
+        with plain_versions(rt):
             want = scheme.client_compress(state, grad, gbar, 1, layout=layout)
-        finally:
-            ops._on_card, ops.momentum_correction = saved
         pairs = [(got[0], want[0], "payload")] + [
             (getattr(got[1], f), getattr(want[1], f), f) for f in ("u", "v", "m")]
         for a_t, b_t, what in pairs:
@@ -3194,6 +3211,402 @@ def hold_mixed_tree(rt, dev):
               f"elements, {k} clients): bitwise, launches {counts}, nnz "
               f"{got[2].upload_nnz.tolist()}", flush=True)
     return worst
+
+
+@contextlib.contextmanager
+def plain_versions(rt, selects=None, worst=None):
+    """Inside, every kernel wrapper takes its plain version (``kernels.ops``
+    told that no tensor is on the card): the same call, no launch. With
+    ``selects`` (the results of the kernels' ``gmf_select`` calls, in
+    order, from ``recorded_selects``), each plain ``gmf_select`` is held as
+    phase 2 holds it and then takes the kernel's scalars: the inverse norms
+    within 1e-6 relative of the plain sums' (the kernel sums in another
+    order), the thresholds bitwise the plain exact select's on the z of
+    the kernel's own norms; so the rest of the call is held bitwise."""
+    ops = rt.ops
+    saved = ops._on_card, ops.momentum_correction, ops.gmf_select
+    ops._on_card = lambda x: False
+    ops.momentum_correction = lambda u, v, g, alpha, state_dtype=False: \
+        rt.ref.momentum_correction(u, v, g, float(alpha), state_dtype)
+    if selects is not None:
+        ops.gmf_select = lambda *a, **k: held_select(rt, selects.pop(0), worst, *a, **k)
+    try:
+        yield
+    finally:
+        ops._on_card, ops.momentum_correction, ops.gmf_select = saved
+    check(not selects, f"{len(selects or ())} gmf_select calls of the kernels' run not made "
+                       f"again by the plain run")
+
+
+@contextlib.contextmanager
+def recorded_selects(rt, sink):
+    """Inside, every ``ops.gmf_select`` result goes into ``sink`` too."""
+    inner = rt.ops.gmf_select
+
+    def record(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        sink.append(out)
+        return out
+
+    rt.ops.gmf_select = record
+    try:
+        yield sink
+    finally:
+        rt.ops.gmf_select = inner
+
+
+def held_select(rt, kernel_out, worst, v, m, layout, rate=None, *, keep=None, w, tau, eps):
+    """The plain ``gmf_select`` held against the kernel's result on the same
+    inputs (phase 2's hold): returns the kernel's scalars."""
+    from repro_torch.core import fusion
+
+    inv_nv, inv_nm, thr = kernel_out
+    p_nv = fusion.rows(w, v) / (fusion.segment_norms(v, layout) + eps)
+    p_nm = 1.0 / (fusion.segment_norms(m, layout) + eps)
+    for a, b, what in ((inv_nv, p_nv, "inv_nv"), (inv_nm, p_nm, "inv_nm")):
+        rel = ((a - b).abs() / b.abs()).max().item()
+        worst["norm_rel"] = max(worst.get("norm_rel", 0.0), rel)
+        check(rel <= 1e-6, f"gmf_select: {what} {rel:.3e} relative from the plain sums'")
+    z = rt.ref.gmf_fusion_score(v, m, inv_norm_v=layout.expand(inv_nv),
+                                inv_norm_m=layout.expand(inv_nm), tau=tau)
+    want = (rt.sparsify.segment_thresholds(z, layout, rate) if keep is None
+            else rt.sparsify.segment_keep_thresholds(z, layout, keep))
+    same(worst, "mixed", thr, want, "gmf_select's thresholds on its own norms")
+    return inv_nv, inv_nm, thr
+
+
+def mixed_stacks(layout, k, gen, dev):
+    """Normal draws rounded to 1/16, one ``[k, N_g]`` stack per dtype group
+    in the group's dtype (exact in bf16)."""
+    return tuple(torch.randn(k, g.total, generator=gen, device=dev).mul_(16).round_()
+                 .div_(16).to(g.dtype) for g in layout.groups)
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: a tree of mixed dtypes through every stage and engine
+# ---------------------------------------------------------------------------
+
+# The stages that work across leaves or key their draws by leaf (ROADMAP item
+# 15), through client_compress over granite-moe's two dtype groups: each
+# kernel's launches a call per group, and whether the server step runs too.
+MIXED_STAGES = {
+    "global top-k (dgc)": (dict(scheme="dgc", per_tensor=False, use_kernels=True),
+                           {"momentum_correction": 1, "apply_mask": 1}, False),
+    "global top-k up and down (dgcwgmf_dl)": (
+        dict(scheme="dgcwgmf_dl", per_tensor=False, tau=0.3),
+        {"momentum_correction": 1, "apply_mask": 1}, True),
+    "random-k": (dict(scheme="randomk"), {}, False),
+    "FetchSGD": (dict(scheme="fetchsgd"), {}, True),
+    "probquant wire (dgcwgmf, fused)": (
+        dict(scheme="dgcwgmf", wire_dtype="probquant", tau=0.3, use_kernels=True),
+        {"gmf_select": 1, "gmf_compress": 1, "momentum_correction": 1}, False),
+    "Hadamard + int8 (dgc)": (dict(scheme="dgc", rotation_stage="hadamard", wire_dtype="int8"),
+                              {"momentum_correction": 1, "gmf_select": 1, "apply_mask": 1},
+                              False),
+    "adaptive rates (dgcwgmf)": (dict(scheme="adaptive_dgcwgmf", tau=0.3,
+                                      rate_wire_threshold=0.5),
+                                 {"momentum_correction": 1, "gmf_select": 1, "apply_mask": 1},
+                                 False),
+    "adaptive rates, global top-k": (dict(scheme="adaptive_dgcwgmf", per_tensor=False, tau=0.3),
+                                     {"momentum_correction": 1, "apply_mask": 1}, False),
+}
+MIXED_SKETCH_REL = 1e-5  # the sketch's atomics, of its largest magnitude (phase 20's)
+MIXED_RATES = (0.05, 0.3)  # the adaptive cases' per-client rates (int8 for the second)
+
+
+def groups_of(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def hold_groups(worst, got, want, what, rel=None):
+    """Each dtype group's tensor of ``got`` bitwise ``want`` (within ``rel``
+    of its largest magnitude where given), dtypes equal."""
+    for i, (a, b) in enumerate(zip(groups_of(got), groups_of(want), strict=True)):
+        check(a.dtype == b.dtype, f"{what} group {i}: dtype {a.dtype} vs {b.dtype}")
+        if rel is None:
+            same(worst, "mixed", a, b, f"{what} group {i}")
+        else:
+            err = max_abs(a, b) / max(b.abs().max().item(), 1e-30)
+            check(err <= rel, f"{what} group {i}: {err:.3e} of its largest magnitude > {rel}")
+
+
+def hold_compress(worst, got, want, what, sketch=False):
+    """A ``client_compress`` result against the plain version's."""
+    hold_groups(worst, got[0], want[0], f"{what}: payload", MIXED_SKETCH_REL if sketch else None)
+    for f in ("u", "v", "m"):
+        a, b = getattr(got[1], f), getattr(want[1], f)
+        if isinstance(a, (tuple, torch.Tensor)):
+            hold_groups(worst, a, b, f"{what}: {f}")
+    check(torch.equal(got[2].upload_nnz, want[2].upload_nnz),
+          f"{what}: upload nnz {got[2].upload_nnz} vs {want[2].upload_nnz}")
+
+
+def hold_mixed_stages(rt, dev):
+    """(a) Each stage of ``MIXED_STAGES`` through ``client_compress`` (and
+    the server step where it has one) over granite-moe at its published
+    widths, 2 of 24 layers, bf16 beside its float32 routers, 2 clients: the
+    launches (each kernel once per dtype group), then the same call on the
+    plain versions, bitwise (FetchSGD's payload and sketch error within
+    MIXED_SKETCH_REL: its buckets sum with atomics; its server on the
+    card's summed sketch, hitters bitwise). Returns (the largest
+    differences, each call's ms)."""
+    from repro_torch.models import transformer
+    from repro_torch.utils import tree_map
+
+    core = rt.core
+    cfg = dataclasses.replace(rt.configs.get_config(GRANITE), num_layers=2)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    layout = rt.flat.FlatLayout.of(params)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    k = 2
+    worst, ms = {"mixed": 0.0}, {}
+    grad = mixed_stacks(layout, k, gen, dev)
+    for label, (kw, per_group, server) in MIXED_STAGES.items():
+        scheme = core.resolve(core.CompressionConfig(rate=RATE, **kw))
+        fields = (scheme.uses_u, scheme.uses_v, scheme.uses_m)
+        state = core.ClientState(*(mixed_stacks(layout, k, gen, dev) if used else {}
+                                   for used in fields))
+        gbar = tuple(x[0].clone() for x in mixed_stacks(layout, k, gen, dev))
+        extra = dict(client_ids=torch.arange(k, device=dev) + 5)
+        if scheme.rate_adaptive:
+            extra.update(rates=torch.tensor(MIXED_RATES, device=dev),
+                         wire_levels=torch.tensor([0, 1], dtype=torch.int32, device=dev))
+        call = lambda: scheme.client_compress(state, grad, gbar, 1, layout=layout,  # noqa: E731
+                                              **extra)
+        t0 = time.perf_counter()
+        rt.gk.reset_launches()
+        with recorded_selects(rt, []) as selects:
+            got = call()
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in rt.gk.LAUNCHES.items() if c}
+        want_counts = {n: 2 * c for n, c in per_group.items()}
+        check(counts == want_counts, f"mixed tree, {label}: launches {counts}, expected "
+                                     f"{want_counts} (one per dtype group)")
+        with plain_versions(rt, selects, worst):
+            want = call()
+        hold_compress(worst, got, want, f"mixed tree, {label}", sketch=scheme.is_sketch)
+        ms[label] = timed_ms(call, reps=2, warmup=0)
+        line = (f"  held {label} over granite-moe's mixed tree ({k} clients): launches "
+                f"{counts}, nnz {got[2].upload_nnz.tolist()}, {ms[label]:.3f} ms a call")
+        if server:
+            sst = core.ServerState(
+                momentum=({"s_mom": torch.zeros(scheme.cfg.sketch_rows, scheme.cfg.sketch_cols,
+                                                device=dev),
+                           "s_err": torch.zeros(scheme.cfg.sketch_rows, scheme.cfg.sketch_cols,
+                                                device=dev)}
+                          if scheme.is_sketch else {}),
+                residual=layout.zeros() if scheme.downlink_residual else {})
+            g_sum = tree_map(lambda x: x.sum(0), got[0])
+            srv = lambda: scheme.server_aggregate(sst, g_sum, float(k),  # noqa: E731
+                                                  layout=layout, lr=0.1)
+            rt.gk.reset_launches()
+            b_got = srv()
+            with plain_versions(rt):
+                b_want = srv()
+            hold_groups(worst, b_got[0], b_want[0], f"mixed tree, {label}: broadcast")
+            if scheme.is_sketch:  # the hitters in each group's dtype, the error within rel
+                check([x.dtype for x in b_got[0]] == list(layout.dtypes),
+                      f"mixed tree, {label}: broadcast dtypes {[x.dtype for x in b_got[0]]}")
+                hold_groups(worst, b_got[1].momentum["s_err"], b_want[1].momentum["s_err"],
+                            f"mixed tree, {label}: sketch error", MIXED_SKETCH_REL)
+            else:
+                hold_groups(worst, b_got[1].residual, b_want[1].residual,
+                            f"mixed tree, {label}: residual")
+            check(int(b_got[2].download_nnz) == int(b_want[2].download_nnz) > 0,
+                  f"mixed tree, {label}: download nnz {b_got[2].download_nnz}")
+            line += f"; server bitwise, download nnz {int(b_got[2].download_nnz)}"
+        print(line + " (bitwise the plain versions" +
+              (", sketch within 1e-5" if scheme.is_sketch else "") +
+              f"; {time.perf_counter() - t0:.1f} s)", flush=True)
+        del got, want, state
+    return worst, ms
+
+
+# (b) the engines on LMTask at granite-moe's published widths (2 of 24 layers):
+# 8 clients, 4 a round or tick, batch 2, sequence 128
+MIXED_LM = dict(layers=2, clients=8, per_round=4, batch=2, seq_len=128)
+MIXED_ENGINES = {  # label -> (CompressionConfig fields, rounds, FLConfig fields, launches
+    #                            of each kernel a round or tick, both groups)
+    "async, stragglers, buffer 4, global top-k (dgc)": (
+        dict(scheme="dgc", per_tensor=False, use_kernels=True), 4,
+        dict(backend="async", buffer_size=4, **STRAGGLERS),
+        {"momentum_correction": 2, "apply_mask": 2}),
+    "ring, 1 hop (dgcwgmf)": (ENGINE_DGCWGMF, 2, dict(topology="ring", ring_hops=1),
+                              {"gmf_select": 4, "gmf_compress": 4, "momentum_correction": 4}),
+    "hierarchical, 2 groups (hier_dgcwgmf)": (
+        {**ENGINE_DGCWGMF, "scheme": "hier_dgcwgmf", "tier_rate": 0.1}, 2,
+        dict(topology="hierarchical", groups=2),
+        {"gmf_select": 4, "gmf_compress": 4, "momentum_correction": 4}),
+    "shard, one-rank NCCL (dgcwgmf)": (ENGINE_DGCWGMF, 2, dict(backend="shard"),
+                                       {"gmf_select": 2, "gmf_compress": 2,
+                                        "momentum_correction": 2}),
+}
+
+
+def holding(rt, sim, worst, holds):
+    """Wrap ``sim``'s compression calls (the engine's ``_compress_stack``;
+    under the hierarchy the tier's ``client_compress`` too): each result
+    held against the same call on the plain versions right after it, on
+    the same inputs (the gradients the engine computed). ``holds`` gets
+    (round, seconds) of each hold. Returns the undo."""
+    eng = sim.engine
+
+    def wrap(fn, what):
+        def call(*args, **kwargs):
+            with recorded_selects(rt, []) as selects:
+                out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with plain_versions(rt, selects, worst):
+                want = fn(*args, **kwargs)
+            hold_compress(worst, out, want, f"{what}, round {len(sim.history)}")
+            del want
+            torch.cuda.synchronize()
+            holds.append((len(sim.history), time.perf_counter() - t0))
+            return out
+
+        return call
+
+    eng._compress_stack = wrap(eng._compress_stack, "the leaves' compression")
+    tier = getattr(eng, "tier_scheme", None)
+    if tier is None:
+        return lambda: None
+    # the tier's scheme behind a stand-in: its own calls (one per dtype group)
+    # stay unwrapped, so a tier call is held once
+    eng.tier_scheme = argparse.Namespace(
+        **{name: getattr(tier, name) for name in ("is_sketch", "wire", "init_states")},
+        client_compress=wrap(tier.client_compress, "the tier's compression"))
+
+    def undo():
+        eng.tier_scheme = tier
+
+    return undo
+
+
+def mixed_engines(rt, dev, card):
+    """(b) ``MIXED_ENGINES`` on LMTask at granite-moe's published widths:
+    every compression call held bitwise against the plain versions on the
+    same gradients, each kernel's launches (once per dtype group a call),
+    the upload counts, the params moved and finite. Returns (f32 launches,
+    instances, the largest differences, ms a round or tick after round 0
+    with the holds' time taken out)."""
+    fl = rt.fl
+    cfg = dataclasses.replace(rt.configs.get_config(GRANITE), num_layers=MIXED_LM["layers"])
+    worst, ms, inst = {"mixed": 0.0}, {}, {}
+    store = ROOT / "build" / "dist_store"
+    for label, (kw, rounds, fl_kw, per_round) in MIXED_ENGINES.items():
+        task = fl.LMTask(cfg, num_clients=MIXED_LM["clients"], batch_size=MIXED_LM["batch"],
+                         seq_len=MIXED_LM["seq_len"], device=dev)
+        comp = rt.core.CompressionConfig(rate=RATE, **kw)
+        flc = fl.FLConfig(num_clients=MIXED_LM["clients"], clients_per_round=MIXED_LM["per_round"],
+                          rounds=rounds, batch_size=MIXED_LM["batch"], learning_rate=0.1,
+                          **fl_kw)
+        shard = fl_kw.get("backend") == "shard"
+        if shard:
+            store.parent.mkdir(parents=True, exist_ok=True)
+            store.unlink(missing_ok=True)
+            torch.distributed.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                                                 world_size=1)
+        holds = []
+        try:
+            sim = fl.FLSimulator(flc, comp, task.init_fn, task.loss_fn, device=dev)
+            check(sim.layout.groups is not None, f"{label}: granite-moe is not a mixed tree")
+            before = [x.clone() for x in rt.utils.tree_leaves(sim.params)]
+            undo = holding(rt, sim, worst, holds)
+            rt.gk.reset_launches()
+            try:
+                hist = sim.run(task.batch_provider)
+            finally:
+                undo()
+            torch.cuda.synchronize()
+        finally:
+            if shard:
+                torch.distributed.destroy_process_group()
+                store.unlink(missing_ok=True)
+        counts = {n: c for n, c in rt.gk.LAUNCHES.items() if c}
+        for key, n in rt.gk.INSTANCES.items():
+            inst[key] = inst.get(key, 0) + n
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: rounds * c for n, c in per_round.items()}
+        check(counts == want, f"{label}: launches {counts}, expected {want} (once per dtype "
+                              f"group a compression call)")
+        calls = rounds * (2 if "ring" in label or "hierarchical" in label else 1)
+        check(len(holds) == calls, f"{label}: {len(holds)} compression calls held, {calls} "
+                                   f"expected")
+        leaves = rt.utils.tree_leaves(sim.params)
+        check(all(bool(torch.isfinite(x).all()) for x in leaves)
+              and any(not torch.equal(a, b) for a, b in zip(leaves, before, strict=True)),
+              f"{label}: the params did not move, or are not finite")
+        held = {r: sum(s for q, s in holds if q == r) for r in range(rounds)}
+        ms[label] = [rec["round_ms"] - 1e3 * held[t] for t, rec in enumerate(hist)][1:]
+        ups = [n for rec in hist for n in rec.get("upload_nnz", [])]
+        print(f"  {label}: {rounds} {'ticks' if 'async' in label else 'rounds'}, launches "
+              f"{counts}, {len(holds)} compression calls bitwise the plain versions (holds "
+              f"{sum(s for _, s in holds):.1f} s); upload nnz min "
+              f"{min(ups) if ups else 'n/a'}; ledger {json.dumps(sim.ledger.summary())}; "
+              f"ms a {'tick' if 'async' in label else 'round'} after the first, holds out "
+              f"({card}): {[round(x, 3) for x in ms[label]]}; peak so far {peak} B", flush=True)
+        del sim, task, before, leaves
+        gc.collect()  # the held wrappers close over the engine: a cycle
+        torch.cuda.empty_cache()
+    return f32_launches(inst), inst, worst, ms
+
+
+def time_global_select(rt, dev, card, k=2):
+    """Global top-k's select over granite-moe's two dtype groups (``[k,
+    N_g]`` float32 scores each): the radix select over the groups' keys
+    (``sparsify.group_kth_largest``, the path of groups cut over ranks)
+    against ``torch.topk`` over their concatenation (the path of
+    ``sparsify.grouped_topk_masks`` here): the same masks, each timed.
+    Returns (radix ms, topk ms)."""
+    from repro_torch.models import transformer
+
+    sp = rt.sparsify
+    cfg = dataclasses.replace(rt.configs.get_config(GRANITE), num_layers=2)
+    layout = rt.flat.FlatLayout.of(transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1)))
+    z = tuple(x.float().abs() for x in mixed_stacks(layout, k, torch.Generator(device=dev)
+                                                    .manual_seed(16), dev))
+
+    keep = torch.full((k,), sp.num_keep(layout.full_total, RATE), dtype=torch.int64,
+                      device=dev)
+
+    def by_radix():
+        thr = sp.group_kth_largest([x.view(torch.int32) for x in z], keep, 31).to(
+            torch.int32).view(torch.float32)
+        return tuple((x >= thr[:, None]).float() for x in z)
+
+    got = []
+    radix = timed_ms(lambda: got.append(by_radix()), reps=1, warmup=0)  # one call: ~1 s
+    want = sp.grouped_topk_masks(z, layout, RATE)
+    for a, b in zip(got[0], want, strict=True):
+        check(torch.equal(a, b), "global top-k: the radix select's masks differ from topk's")
+    topk = timed_ms(lambda: sp.grouped_topk_masks(z, layout, RATE), reps=2, warmup=0)
+    print(f"  global top-k's select over [{k}, {layout.full_total}] ({card}): radix select "
+          f"over the groups' keys {radix:.3f} ms, torch.topk over their concatenation "
+          f"{topk:.3f} ms; the same masks", flush=True)
+    return radix, topk
+
+
+def mixed_tree_phase(rt, dev, card):
+    """Phase 11b (ROADMAP item 15): granite-moe at its published widths, 2
+    of 24 layers, bf16 beside its float32 routers, through (a) every stage
+    that works across leaves or keys its draws by leaf and (b) the async,
+    ring, hierarchical and one-rank shard engines. Returns (f32 launches of
+    (b), its instances, the largest differences, the ms)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    time_global_select(rt, dev, card)
+    worst, stage_ms = hold_mixed_stages(rt, dev)
+    print(f"  (a) in {time.perf_counter() - t0:.1f} s, peak {torch.cuda.max_memory_allocated()} "
+          f"B allocated; ms a call ({card}): {json.dumps(stage_ms)}", flush=True)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches, inst, engine_worst, engine_ms = mixed_engines(rt, dev, card)
+    print(f"  (b) in {time.perf_counter() - t1:.1f} s, peak {torch.cuda.max_memory_allocated()} "
+          f"B allocated; phase 11b in {time.perf_counter() - t0:.1f} s", flush=True)
+    worst["mixed"] = max(worst["mixed"], engine_worst["mixed"])
+    return launches, inst, worst, {"stages": stage_ms, "engines": engine_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -6075,6 +6488,9 @@ def analysis_phase(rt, dev, card):
 
 
 T_START = time.perf_counter()
+PHASE11B = ("phase 11b: granite-moe's mixed tree (bf16 beside float32 routers, published "
+            "widths, 2 of 24 layers) through every cross-leaf stage and the async, ring, "
+            "hierarchical and shard engines")
 
 
 def phase(title: str) -> None:
@@ -6084,11 +6500,11 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "model-axis", "fsdp", "stages-cut", "dryrun",
-                                       "analysis"),
+    ap.add_argument("--only", choices=("kernels", "mixed-tree", "model-axis", "fsdp",
+                                       "stages-cut", "dryrun", "analysis"),
                     default=None,
-                    help="run only the build and kernel phases, or the build and phase 18, "
-                         "19, 20, 21 or 22")
+                    help="run only the build and kernel phases, or the build and phase 11b, "
+                         "18, 19, 20, 21 or 22")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--stages-worker", type=int, default=None, help=argparse.SUPPRESS)
@@ -6178,8 +6594,11 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if args.only in ("model-axis", "fsdp", "stages-cut", "dryrun", "analysis"):
-        if args.only == "dryrun":
+    if args.only in ("mixed-tree", "model-axis", "fsdp", "stages-cut", "dryrun", "analysis"):
+        if args.only == "mixed-tree":
+            phase(PHASE11B)
+            mixed_tree_phase(rt, dev, card)
+        elif args.only == "dryrun":
             phase(PHASE21)
             dryrun_phase(rt, dev, card)
         elif args.only == "analysis":
@@ -6304,6 +6723,11 @@ def main() -> None:
         by_path["resnet56_engines"], engine_ms = engines_phase(rt, task, dev)
         print(f"  ms/round (ms/tick) after round 0 ({card}): {json.dumps(engine_ms)}",
               flush=True)
+        phase(PHASE11B)
+        mixed = mixed_tree_phase(rt, dev, card)
+        by_path["granite_mixed"], bf16_by_path["granite_mixed"] = mixed[0], mixed[1]
+        for key in ("gmf_select", "gmf_compress", "momentum_correction", "apply_mask"):
+            bf16_worst[key] = max(bf16_worst.get(key, 0.0), mixed[2]["mixed"])
         phase("phase 12: telemetry (repro_torch.obs) on the card")
         by_path["resnet56_obs"] = obs_phase(rt, task, card, bw)
         del task

@@ -24,11 +24,15 @@ takes the ``[k, N]`` state and gradient stacks of k clients
 reference compresses one client's tree and is vmapped). A tree of mixed
 dtypes (``GroupedLayout``) runs the same steps once per dtype group, with
 every flat quantity a tuple of one stack per group; the counts add up
-over the groups. Each group holds whole leaves, so this is the
-reference's per-leaf computation for every stage that works leaf by
-leaf; the stages that work across leaves or key draws by leaf index
-(global top-k, random-k, the sketch, the stochastic wire, the rotation,
-adaptive rates) raise on such a tree (ROADMAP Queue 1 item 15).
+over the groups. Each group holds whole leaves, each keyed and indexed by
+its place in the whole tree (``FlatLayout.leaf_ids``, ``tree_index``), so
+this is the reference's per-leaf computation for every stage that works
+leaf by leaf, random-k, the stochastic wire, the rotation and per-client
+rates among them. The stages that work across leaves work across the
+groups: global top-k (uplink and downlink) takes one threshold over
+every group's scores, and FetchSGD sends one sketch of the whole tree,
+keeps one sketch-space momentum and error at the server and un-sketches
+its heavy hitters into each group in the group's dtype.
 """
 
 from __future__ import annotations
@@ -236,11 +240,16 @@ class Scheme:
 
     def apply_staleness(self, payloads, gaps, gmom=None):
         """Weigh a ``[B, W]`` buffer of payloads (W is N, or rows·cols under
-        a sketch) by their ``[B]`` gaps, a device tensor; ``gmom`` is the
-        server-held global momentum, flat ``[N]``. The ``none`` policy
-        returns the buffer itself (bitwise), which pins the async engine
-        to the synchronous ones at zero delay."""
-        return self.staleness.combine(self.cfg, payloads, gaps, {} if gmom is None else gmom)
+        a sketch; one ``[B, N_g]`` buffer per dtype group of a tree of mixed
+        dtypes) by their ``[B]`` gaps, a device tensor; ``gmom`` is the
+        server-held global momentum, flat ``[N]`` (a tuple per group). The
+        ``none`` policy returns the buffer itself (bitwise), which pins the
+        async engine to the synchronous ones at zero delay."""
+        gmom = {} if gmom is None else gmom
+        if isinstance(payloads, tuple):
+            return tuple(self.staleness.combine(self.cfg, b, gaps, _group(gmom, i))
+                         for i, b in enumerate(payloads))
+        return self.staleness.combine(self.cfg, payloads, gaps, gmom)
 
     def init_states(self, params) -> tuple[ClientState, ServerState]:
         """One client's zero state (flat ``[N]`` fields, no client axis) and
@@ -284,12 +293,12 @@ class Scheme:
         (``[k, N]``; ``[k, rows·cols]`` under a sketch), the new state stack
         and a ``CompressInfo`` whose ``upload_nnz`` is ``[k]``."""
         cfg = self.cfg
+        if self.is_sketch:
+            return self._sketch_client(state, grad, layout)
         if isinstance(layout, GroupedLayout):
             return self._grouped_client(state, grad, gbar_prev, round_idx, local_steps,
                                         mean_steps, tau_override, rates, wire_levels,
                                         client_ids, layout)
-        if self.is_sketch:
-            return self._sketch_client(state, grad, layout)
         ctx = StageCtx(round_idx=round_idx, gbar_prev=gbar_prev,
                        local_steps=local_steps, mean_steps=mean_steps,
                        tau_override=tau_override, layout=layout, client_ids=client_ids)
@@ -319,46 +328,69 @@ class Scheme:
             g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, masks)
             nnz = layout.nnz(masks)
 
-        if not self.rotation.identity:
-            # rotation densifies: the padded rotated leaves cross the wire
-            nnz = torch.full((grad.shape[0],), sum(self.rotation.wire_size(n)
-                                                   for n in layout.full_sizes),
-                             dtype=torch.int64, device=grad.device)
-        g_out, new_state = self._encode_payload(cfg, g_out, ClientState(u=u, v=v, m=m),
-                                                layout, wire_levels, ctx)
-        return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=total)
+        return self._finish(cfg, g_out, ClientState(u=u, v=v, m=m), nnz, layout, wire_levels,
+                            ctx)
 
-    def check_grouped(self) -> None:
-        """Raise unless every stage works leaf by leaf (a tree of mixed
-        dtypes runs each dtype group on its own)."""
-        cfg = self.cfg
-        across = [name for name, bad in (
-            ("the sketch selector", self.is_sketch),
-            ("global top-k (per_tensor=False)", not cfg.per_tensor),
-            ("the randomk selector", self.selector.name == "randomk"),
-            (f"the stochastic {self.wire.name} wire", self.wire.stochastic),
-            (f"the {self.rotation.name} rotation", not self.rotation.identity),
-            ("adaptive rate control", self.rate_adaptive)) if bad]
-        if across:
-            raise NotImplementedError(
-                f"scheme {self.name!r}: {', '.join(across)} on a tree of mixed dtypes is not "
-                f"ported yet (it works across leaves or keys draws by leaf): ROADMAP "
-                f"Queue 1 item 15")
+    def _finish(self, cfg, g_out, state: ClientState, nnz, layout, wire_levels, ctx):
+        """The wire step of a ``[k, N]`` payload stack of ``layout`` and its
+        ``CompressInfo`` (the rotation densifies: the padded rotated leaves
+        cross the wire)."""
+        if not self.rotation.identity:
+            nnz = torch.full((g_out.shape[0],), sum(self.rotation.wire_size(n)
+                                                    for n in layout.full_sizes),
+                             dtype=torch.int64, device=g_out.device)
+        g_out, new_state = self._encode_payload(cfg, g_out, state, layout, wire_levels, ctx)
+        return g_out, new_state, CompressInfo(upload_nnz=nnz, total_params=layout.full_total)
 
     def _grouped_client(self, state, grad, gbar_prev, round_idx, local_steps, mean_steps,
                         tau_override, rates, wire_levels, client_ids, layout):
-        """``client_compress`` once per dtype group of a ``GroupedLayout``:
+        """``client_compress`` over the dtype groups of a ``GroupedLayout``:
         payloads and state fields come back as tuples, the upload counts
-        summed over the groups."""
-        self.check_grouped()
-        outs = [self.client_compress(
-            ClientState(*(_group(f, i) for f in state)), grad[i], _group(gbar_prev, i),
-            round_idx, local_steps, mean_steps, tau_override, rates, wire_levels, client_ids,
-            layout=sub) for i, sub in enumerate(layout.groups)]
+        summed over the groups. Each group holds whole leaves keyed by their
+        tree places (``FlatLayout.leaf_ids``), so every stage that works leaf
+        by leaf runs each group on its own; global top-k scores each group
+        and selects once over the whole tree (``grouped_topk_masks``)."""
+        cfg = self.cfg
+        if self.selector.name == "topk" and not cfg.per_tensor:
+            outs = self._grouped_across(state, grad, gbar_prev, round_idx, local_steps,
+                                        mean_steps, tau_override, rates, wire_levels,
+                                        client_ids, layout)
+        else:
+            outs = [self.client_compress(
+                ClientState(*(_group(f, i) for f in state)), grad[i], _group(gbar_prev, i),
+                round_idx, local_steps, mean_steps, tau_override, rates, wire_levels,
+                client_ids, layout=sub) for i, sub in enumerate(layout.groups)]
         payload = tuple(o[0] for o in outs)
         new_state = ClientState(*(_gather([o[1][f] for o in outs]) for f in range(3)))
         nnz = sum(o[2].upload_nnz for o in outs)
         return payload, new_state, CompressInfo(upload_nnz=nnz, total_params=layout.full_total)
+
+    def _grouped_across(self, state, grad, gbar_prev, round_idx, local_steps, mean_steps,
+                        tau_override, rates, wire_levels, client_ids, layout):
+        """Global top-k over a ``GroupedLayout``: each group accumulated and
+        scored, one selection over every group's scores, then each group's
+        extract and wire -> one (payload, state, info) per group."""
+        cfg = self.cfg
+        ops = stages.elementwise_ops(cfg)
+        ctxs, accs, refs = [], [], []
+        for i, sub in enumerate(layout.groups):
+            ctx = StageCtx(round_idx=round_idx, gbar_prev=_group(gbar_prev, i),
+                           local_steps=local_steps, mean_steps=mean_steps,
+                           tau_override=tau_override, layout=sub, client_ids=client_ids)
+            st = ClientState(*(_group(f, i) for f in state))
+            m, extra = self.fusion.pre(cfg, st.m, ctx.gbar_prev)
+            value, u, v = self.compensator.accumulate(cfg, ops, st.u, st.v, grad[i], extra)
+            ref, m = self.fusion.scores(cfg, value, m, ctx)
+            ctxs.append(ctx)
+            accs.append((value, u, v, m))
+            refs.append(ref)
+        masks = self.selector.select(cfg, tuple(refs), round_idx, layout, rates=rates)
+        outs = []
+        for ctx, (value, u, v, m), mk in zip(ctxs, accs, masks, strict=True):
+            g_out, u, v = self.compensator.extract(cfg, ops, u, v, value, mk)
+            outs.append(self._finish(cfg, g_out, ClientState(u=u, v=v, m=m), ctx.layout.nnz(mk),
+                                     ctx.layout, wire_levels, ctx))
+        return outs
 
     def _encode_payload(self, cfg, g_out, state: ClientState, layout, wire_levels, ctx):
         """Wire-encode the payload stack: rotation forward, the wire round
@@ -394,7 +426,9 @@ class Scheme:
         gradient, ``[k, rows·cols]``, through the wire; rows·cols values a
         client. Over a layout cut across a group each rank sketches its
         entries by their whole-tree indices and the partial sketches are
-        summed over the group (``count_sketch.sketch_pieces``)."""
+        summed over the group (``count_sketch.sketch_pieces``); a tree of
+        mixed dtypes sends one sketch of the whole tree, its groups'
+        entries hashed by their whole-tree indices."""
         cfg = self.cfg
         size = cfg.sketch_rows * cfg.sketch_cols
         if count_sketch.by_pieces(layout, cfg.sketch_rows):
@@ -402,8 +436,8 @@ class Scheme:
         else:
             payload = count_sketch.sketch(grad, cfg.sketch_rows, cfg.sketch_cols)
         payload, state = self.wire.encode(cfg, payload.reshape(-1, size), state,
-                                          FlatLayout.of_sizes([size], grad.device))
-        nnz = torch.full((grad.shape[0],), size, dtype=torch.int64, device=grad.device)
+                                          FlatLayout.of_sizes([size], payload.device))
+        nnz = torch.full((payload.shape[0],), size, dtype=torch.int64, device=payload.device)
         return payload, state, CompressInfo(upload_nnz=nnz, total_params=layout.full_total)
 
     def server_aggregate(self, server_state: ServerState, g_sum, num_clients, *, layout=None,
@@ -414,19 +448,14 @@ class Scheme:
         (``owns_lr``) needs ``layout`` (for N) and ``lr``, which enters its
         sketch-space error feedback."""
         cfg = self.cfg
-        if isinstance(layout, GroupedLayout):
-            self.check_grouped()
-            outs = [self.server_aggregate(ServerState(*(_group(f, i) for f in server_state)),
-                                          g_sum[i], num_clients, layout=sub, lr=lr)
-                    for i, sub in enumerate(layout.groups)]
-            info = AggregateInfo(download_nnz=sum(o[2].download_nnz for o in outs),
-                                 total_params=layout.full_total,
-                                 union_nnz=sum(o[2].union_nnz for o in outs))
-            return (tuple(o[0] for o in outs),
-                    ServerState(*(_gather([o[1][f] for o in outs]) for f in range(2))), info)
         if self.is_sketch:
             bcast, new_momentum, union_nnz = self._sketch_server(
                 server_state, g_sum, num_clients, layout=layout, lr=lr)
+        elif isinstance(layout, GroupedLayout):  # each dtype group's [N_g] on its own
+            outs = [self._server_mean(_group(server_state.momentum, i), g_sum[i], num_clients,
+                                      sub) for i, sub in enumerate(layout.groups)]
+            bcast, new_momentum = tuple(o[0] for o in outs), _gather([o[1] for o in outs])
+            union_nnz = sum(o[2] for o in outs)
         else:
             # A divisor on the device: CUDA divides by a Python scalar as a
             # multiplication by its reciprocal, one rounding off x / n.
@@ -444,6 +473,16 @@ class Scheme:
             cfg, self.wire, server_state.residual, bcast, union_nnz, layout)
         info = AggregateInfo(download_nnz=down_nnz, total_params=total, union_nnz=union_nnz)
         return bcast, ServerState(momentum=new_momentum, residual=residual), info
+
+    def _server_mean(self, momentum, g_sum, num_clients, layout):
+        """One dtype group's mean payload through the server fusion ->
+        (broadcast, momentum, union nnz)."""
+        gbar = g_sum / scalar(num_clients, g_sum.device, g_sum.dtype)
+        if self.server_momentum:
+            bcast, momentum = self.fusion.server(self.cfg, momentum, gbar)
+        else:
+            bcast = gbar
+        return bcast, momentum, layout.nnz(bcast)
 
     def _sketch_server(self, server_state: ServerState, g_sum, num_clients, *, layout, lr):
         """FetchSGD's server: the averaged sketch into the sketch-space
@@ -466,7 +505,11 @@ class Scheme:
         s_err = server_state.momentum["s_err"] + lr * s_mom
         if count_sketch.by_pieces(layout, n_rows):  # each rank its piece of the update
             delta = count_sketch.hitters_pieces(s_err, layout, k)
-            s_err = s_err - count_sketch.sketch_pieces(delta[None], layout, n_rows, n_cols)[0]
+            rows = delta[None] if layout.groups is None else tuple(d[None] for d in delta)
+            s_err = s_err - count_sketch.sketch_pieces(rows, layout, n_rows, n_cols)[0]
+            if layout.groups is not None:  # each group's hitters in its dtype
+                delta = tuple(d.to(sub.dtype) for d, sub in zip(delta, layout.groups,
+                                                                strict=True))
         else:
             _, _, delta = count_sketch.heavy_hitters(s_err, n, k)
             s_err = s_err - count_sketch.sketch(delta, n_rows, n_cols)

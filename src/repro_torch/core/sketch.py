@@ -30,7 +30,11 @@ table path's bit for bit; on the card in the atomics' order) and all-reduces
 the partial sketches over the group. ``hitters_pieces`` un-sketches the
 rank's own entries and takes the whole model's top k by a radix select
 over the group (``sparsify.group_kth_largest``), ties to the lower whole
-index as ``heavy_hitters``' stable sort takes them.
+index as ``heavy_hitters``' stable sort takes them. A tree of mixed dtypes
+(``GroupedLayout``) always takes the pieces path: one sketch of the whole
+tree, each group's entries hashed by their whole-tree indices, summed in
+tree order (so on the CPU it is the float32 tree's sketch, bit for bit),
+and its hitters come back per group.
 """
 
 from __future__ import annotations
@@ -144,28 +148,51 @@ def heavy_hitters(s: torch.Tensor, n: int, k: int):
 
 def by_pieces(layout, rows: int) -> bool:
     """Whether ``layout``'s sketches take the ``*_pieces`` path: its leaves
-    are cut over a group, or the tables would pass ``TABLE_LIMIT``."""
-    return layout.cut or rows * layout.full_total > TABLE_LIMIT
+    are cut over a group, or the tables would pass ``TABLE_LIMIT``, or it
+    is a tree of mixed dtypes (``GroupedLayout``, whose entries hash by
+    their whole-tree indices across its groups)."""
+    return layout.groups is not None or layout.cut or rows * layout.full_total > TABLE_LIMIT
 
 
-def _chunks(layout, segs):
-    """(segment i's chunk of a stack, the chunk's whole-tree indices) over
-    the segments that count on this rank, ``_CHUNK`` entries at a time."""
-    for i, (seg, counted) in enumerate(zip(segs, layout.counted, strict=True)):
-        if not counted:
-            continue
-        idx = layout.tree_index(i)
+def _leaves(layout, x):
+    """(the layout of leaf j's group, its place there, its segment of
+    ``x``) for every leaf j in tree order that counts on this rank: ``x``
+    one ``[..., N]`` stack of a ``FlatLayout``, or one per dtype group of a
+    ``GroupedLayout`` (a group whose leaves are not cut, in a tree whose
+    others are, counts on the group of ranks' first rank)."""
+    if layout.groups is None:
+        for i, (seg, counted) in enumerate(zip(layout.segments(x), layout.counted,
+                                               strict=True)):
+            if counted:
+                yield layout, i, seg
+        return
+    segs = [sub.segments(xg) for sub, xg in zip(layout.groups, x, strict=True)]
+    first = layout.group is None or torch.distributed.get_rank(layout.group) == 0
+    for g, p in layout.where:
+        sub = layout.groups[g]
+        if sub.counted[p] if sub.cut else first:
+            yield sub, p, segs[g][p]
+
+
+def _chunks(layout, x):
+    """(a chunk of leaf j's segment of ``x``, the chunk's whole-tree
+    indices) over the leaves that count on this rank, in tree order,
+    ``_CHUNK`` entries at a time."""
+    for sub, i, seg in _leaves(layout, x):
+        idx = sub.tree_index(i)
         for a in range(0, idx.shape[0], _CHUNK):
             yield seg[..., a:a + _CHUNK], idx[a:a + _CHUNK]
 
 
-def sketch_pieces(x: torch.Tensor, layout, rows: int, cols: int) -> torch.Tensor:
-    """``sketch`` of each row of a flat ``[k, N]`` stack of ``layout``, as
-    the sketch of the whole tree's rows -> ``[k, rows, cols]``: the entries
-    that count on this rank hashed by their whole-tree indices and summed
-    into their buckets, the partial sketches summed over the group."""
-    out = torch.zeros(x.shape[0], rows, cols, dtype=torch.float32, device=x.device)
-    for chunk, idx in _chunks(layout, layout.segments(x)):
+def sketch_pieces(x, layout, rows: int, cols: int) -> torch.Tensor:
+    """``sketch`` of each row of a flat ``[k, N]`` stack of ``layout`` (one
+    stack per dtype group of a ``GroupedLayout``), as the sketch of the
+    whole tree's float32 rows -> ``[k, rows, cols]``: the entries that count
+    on this rank hashed by their whole-tree indices and summed into their
+    buckets in tree order, the partial sketches summed over the group."""
+    first = x if isinstance(x, torch.Tensor) else x[0]
+    out = torch.zeros(first.shape[0], rows, cols, dtype=torch.float32, device=first.device)
+    for chunk, idx in _chunks(layout, x):
         for r in range(rows):
             out[:, r].index_add_(1, _hash(idx, r, cols), chunk.float() * _sign(idx, r))
     if layout.cut:
@@ -190,30 +217,38 @@ def unsketch_pieces(s: torch.Tensor, layout) -> torch.Tensor:
     return torch.cat(out) if out else s.new_zeros(0)
 
 
-def hitters_pieces(s: torch.Tensor, layout, k: int) -> torch.Tensor:
-    """``heavy_hitters``' dense ``[N]`` at the rank's entries of ``layout``:
-    the whole tree's k largest estimates by magnitude (those above the k-th
+def hitters_pieces(s: torch.Tensor, layout, k: int):
+    """``heavy_hitters``' dense ``[N]`` at the rank's entries of ``layout``
+    (float32; one ``[N_g]`` per dtype group of a ``GroupedLayout``): the
+    whole tree's k largest estimates by magnitude (those above the k-th
     largest magnitude T, then those equal to T with the lowest whole-tree
     indices), found by radix selects over the group, no estimate
     gathered."""
-    from repro_torch.core.sparsify import counted_columns, group_kth_largest
+    from repro_torch.core.sparsify import group_kth_largest, tree_counted
 
+    subs = (layout,) if layout.groups is None else layout.groups
     group = layout.group if layout.cut else None
-    est = unsketch_pieces(s, layout)
-    mag = torch.abs(est)[None]
-    one = lambda n: torch.full((1,), n, dtype=torch.int64, device=est.device)  # noqa: E731
-    thr = group_kth_largest(counted_columns(mag, layout).contiguous().view(torch.int32), one(k),
+    counted = lambda x, sub: tree_counted(x, sub, group)  # noqa: E731
+    est = [unsketch_pieces(s, sub) for sub in subs]
+    mag = [torch.abs(e)[None] for e in est]
+    one = lambda n: torch.full((1,), n, dtype=torch.int64, device=s.device)  # noqa: E731
+    thr = group_kth_largest([counted(m, sub).contiguous().view(torch.int32)
+                             for m, sub in zip(mag, subs, strict=True)], one(k),
                             31, group).to(torch.int32).view(torch.float32)
-    above = torch.count_nonzero(counted_columns(mag > thr, layout)).reshape(1)
+    above = sum(torch.count_nonzero(counted(m > thr, sub))
+                for m, sub in zip(mag, subs, strict=True)).reshape(1)
     if group is not None:
         torch.distributed.all_reduce(above, group=group)
     # the ties at T: the (k - above) lowest whole-tree indices among them, as
     # the largest keys 2^B - index (the others' key 0)
     bits = max(1, (layout.full_total - 1).bit_length())
-    index = torch.cat([layout.tree_index(i) for i in range(layout.num_leaves)])[None]
-    tied = mag == thr
-    keys = torch.where(tied, (1 << bits) - index, 0)
-    last = (1 << bits) - group_kth_largest(counted_columns(keys, layout), one(k) - above,
-                                           bits + 1, group)
-    keep = (mag > thr) | (tied & (index <= last))
-    return torch.where(keep, est[None], 0.0)[0]
+    index = [torch.cat([sub.tree_index(i) for i in range(sub.num_leaves)])[None]
+             for sub in subs]
+    tied = [m == thr for m in mag]
+    keys = [torch.where(t, (1 << bits) - i, 0) for t, i in zip(tied, index, strict=True)]
+    last = (1 << bits) - group_kth_largest([counted(x, sub) for x, sub in
+                                            zip(keys, subs, strict=True)],
+                                           one(k) - above, bits + 1, group)
+    out = tuple(torch.where((m > thr) | (t & (i <= last)), e[None], 0.0)[0]
+                for m, t, i, e in zip(mag, tied, index, est, strict=True))
+    return out[0] if layout.groups is None else out

@@ -37,7 +37,9 @@ gathers them over the group (``whole_sample``); global top-k finds the
 exact k-th largest of the whole row by a radix select over the float32
 bit patterns (``group_kth_largest``: a few passes of bin counts of the
 entries that count on this rank, all-reduced between passes), gathering
-no row.
+no row. A tree of mixed dtypes (``GroupedLayout``) selects over its dtype
+groups' stacks at once (``grouped_topk_masks``): over their concatenation,
+or by the same radix select where they are cut over a group of ranks.
 """
 
 from __future__ import annotations
@@ -141,32 +143,35 @@ def _radix_passes(bits: int, width: int = 11) -> tuple[tuple[int, int], ...]:
     return tuple(out)
 
 
-def group_kth_largest(keys: torch.Tensor, rank: torch.Tensor, bits: int,
-                      group=None) -> torch.Tensor:
+def group_kth_largest(keys, rank: torch.Tensor, bits: int, group=None) -> torch.Tensor:
     """The ``rank[r]``-th largest of row r of ``keys`` (non-negative
-    integers below 2^bits, ``[rows, n]``) over every rank of ``group`` (each
-    rank's keys the entries that count there) -> int64 ``[rows]``. A radix
-    select: each pass counts the candidates' next digit (one count
-    over the rows), sums the counts over the group (an all-reduce, none
-    without a group) and finds the digit from the top where the rank falls.
-    Exact, and no host sync; the counts go into a zeros tensor of a fixed
-    size (``index_add_``), so the select also runs on tensors whose values
-    are not known (a shape pass)."""
-    rows = keys.shape[0]
-    dev = keys.device
+    integers below 2^bits, ``[rows, n]``, or a sequence of such stacks whose
+    rows run on one another: a tree's dtype groups) over every rank of
+    ``group`` (each rank's keys the entries that count there) -> int64
+    ``[rows]``. A radix select: each pass counts the candidates' next digit
+    (one count over the rows of each stack), sums the counts over the group
+    (an all-reduce, none without a group) and finds the digit from the top
+    where the rank falls. Exact, and no host sync; the counts go into a
+    zeros tensor of a fixed size (``index_add_``), so the select also runs
+    on tensors whose values are not known (a shape pass)."""
+    parts = [keys] if isinstance(keys, torch.Tensor) else list(keys)
+    rows = parts[0].shape[0]
+    dev = parts[0].device
     prefix = torch.zeros(rows, dtype=torch.int64, device=dev)
     rank = rank.to(device=dev, dtype=torch.int64).reshape(rows)
     base = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
     for shift, width in _radix_passes(bits):
         bins = 1 << width
         top = shift + width
-        cand = (keys >> top) == (prefix >> top)[:, None]
-        slot = torch.where(cand, ((keys >> shift) & (bins - 1)).to(torch.int64) + base * bins,
-                           rows * bins)
-        one = torch.ones((), dtype=torch.int64, device=dev).expand(slot.numel())
-        hist = torch.zeros(rows * bins + 1, dtype=torch.int64, device=dev).index_add_(
-            0, slot.reshape(-1), one)[:-1]
-        del cand, slot
+        hist = torch.zeros(rows * bins + 1, dtype=torch.int64, device=dev)
+        for part in parts:
+            cand = (part >> top) == (prefix >> top)[:, None]
+            slot = torch.where(cand, ((part >> shift) & (bins - 1)).to(torch.int64) + base * bins,
+                               rows * bins)
+            one = torch.ones((), dtype=torch.int64, device=dev).expand(slot.numel())
+            hist.index_add_(0, slot.reshape(-1), one)
+            del cand, slot
+        hist = hist[:-1]
         if group is not None:
             torch.distributed.all_reduce(hist, group=group)
         desc = hist.view(rows, bins).flip(-1)
@@ -195,6 +200,49 @@ def global_threshold(za: torch.Tensor, layout, keep: torch.Tensor) -> torch.Tens
     bits = counted_columns(za, layout).contiguous().view(torch.int32)
     thr = group_kth_largest(bits, keep, 31, layout.group)
     return thr.to(torch.int32).view(torch.float32)
+
+
+def tree_counted(x: torch.Tensor, sub, group) -> torch.Tensor:
+    """The columns of dtype group ``sub``'s ``[k, N_g]`` stack that count on
+    this rank in a sum over ``group``, the group its tree's cut segments
+    lie over (None: none is cut): ``counted_columns`` where the group's
+    own segments are cut; else the whole stack, on the group's first rank
+    alone where other groups' segments are cut (every rank holds it
+    alike)."""
+    if sub.cut:
+        return counted_columns(x, sub)
+    if group is not None and torch.distributed.get_rank(group) != 0:
+        return x[:, :0]
+    return x
+
+
+def grouped_topk_masks(scores, layout, rate: float | None = None,
+                       rates: torch.Tensor | None = None) -> tuple:
+    """Global top-k over a tree of mixed dtypes (``GroupedLayout``): one
+    threshold a row over every group's float32 ``|scores|`` (``[k, N_g]``
+    each), the ``num_keep(N, rate)``-th largest of the whole tree's N
+    entries (or each row's at its rate of ``rates``, the dynamic path), as
+    the reference concatenates the leaves -> one float32 {0,1} mask per
+    group. The groups' rows concatenated and selected as a one-group
+    layout's are (``torch.topk``, or the dynamic path's sort); over a
+    layout cut across a group of ranks, a radix select over the groups' bit
+    patterns with the bin counts summed over it, no row concatenated or
+    gathered."""
+    za = [torch.abs(z).float() for z in scores]
+    rows, dev = za[0].shape[0], za[0].device
+    n, group = layout.full_total, layout.group
+    if group is None:
+        cat = torch.cat(za, dim=1)
+        thr = (exact_threshold(cat, num_keep(n, rate)) if rates is None
+               else dynamic_threshold(cat, num_keep_dynamic(n, rates)))
+        del cat
+    else:
+        keep = (torch.full((rows,), num_keep(n, rate), dtype=torch.int64, device=dev)
+                if rates is None else num_keep_dynamic(n, rates))
+        keys = [tree_counted(z, sub, group).contiguous().view(torch.int32)
+                for z, sub in zip(za, layout.groups, strict=True)]
+        thr = group_kth_largest(keys, keep, 31, group).to(torch.int32).view(torch.float32)
+    return tuple((z >= thr[:, None]).float() for z in za)
 
 
 def _bcast(thr: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -168,6 +168,11 @@ class TopKSelector(Selector):
                    "or global via cfg.per_tensor")
 
     def select(self, cfg, scores, round_idx, layout, rates=None):
+        if layout.groups is not None:  # a tree of mixed dtypes: one score stack a group
+            if cfg.per_tensor:
+                return tuple(self.select(cfg, z, round_idx, sub, rates)
+                             for z, sub in zip(scores, layout.groups, strict=True))
+            return sparsify.grouped_topk_masks(scores, layout, cfg.rate, rates)
         if rates is not None:
             return self._select_dynamic(cfg, scores, layout, rates)
         if not cfg.per_tensor:  # one exact threshold per client over all leaves
@@ -668,7 +673,7 @@ class HadamardRotation(Rotation):
             whole = layout.whole_leaf(seg.float(), i)
             n, m = whole.shape[1], rotated.sizes[i]
             leaf = FlatLayout([torch.empty((m,), device="meta")], layout.device)
-            leaf.leaf_ids = (i,)
+            leaf.leaf_ids = (layout.leaf_ids[i],)
             d = draws.rademacher(draws.element_hashes(
                 leaf, draws.leaf_keys(leaf, cfg.rotation_seed, int(round_idx))))
             sqrt_m = torch.sqrt(scalar(float(m), x.device))
@@ -706,10 +711,11 @@ class HadamardRotation(Rotation):
         return self._plans[layout]
 
     def diagonal(self, cfg, round_idx, layout) -> torch.Tensor:
-        """D over the rotated layout: float32 ±1 ``[M]``."""
+        """D over the rotated layout: float32 ±1 ``[M]``, each padded leaf
+        keyed by its leaf's number in the tree (``layout.leaf_ids``)."""
         rotated, _ = self.plan(layout)
         return draws.rademacher(draws.element_hashes(
-            rotated, draws.leaf_keys(rotated, cfg.rotation_seed, int(round_idx))))
+            rotated, draws.leaf_keys(layout, cfg.rotation_seed, int(round_idx))))
 
     def forward(self, cfg, x, round_idx, layout):
         rotated, groups = self.plan(layout)
@@ -760,19 +766,36 @@ class TopKDownlink(Downlink):
 
     def apply(self, cfg, wire, residual, bcast, nnz, layout):
         # the residual holds everything the clients have not seen yet
+        if layout.groups is not None:  # a tree of mixed dtypes: one [N_g] a group
+            r = tuple(res + b for res, b in zip(residual, bcast, strict=True))
+            if cfg.per_tensor:
+                masks = [self._masks(cfg, x[None], sub)[0]
+                         for x, sub in zip(r, layout.groups, strict=True)]
+            else:  # one threshold over the whole tree's broadcast
+                masks = [mk[0] for mk in sparsify.grouped_topk_masks(
+                    [x[None] for x in r], layout, cfg.downlink_rate)]
+            outs = [self._send(wire, x, mk, sub)
+                    for x, mk, sub in zip(r, masks, layout.groups, strict=True)]
+            return (tuple(o[0] for o in outs), tuple(o[1] for o in outs),
+                    sum(o[2] for o in outs))
         r = residual + bcast
-        rows = r[None]
+        return self._send(wire, r, self._masks(cfg, r[None], layout)[0], layout)
+
+    @staticmethod
+    def _masks(cfg, rows, layout):
         if not cfg.per_tensor:
-            masks = sparsify.topk_mask(rows, cfg.downlink_rate, "exact", layout)
-        elif cfg.selector == "exact":  # one gmf_select launch in its |z| mode
+            return sparsify.topk_mask(rows, cfg.downlink_rate, "exact", layout)
+        if cfg.selector == "exact":  # one gmf_select launch in its |z| mode
             from repro_torch.kernels import ops
 
-            masks = ops.topk_abs_select(rows, layout, cfg.downlink_rate)[1]
-        else:
-            masks = sparsify.segment_topk_mask(rows, layout, cfg.downlink_rate, cfg.selector)[1]
+            return ops.topk_abs_select(rows, layout, cfg.downlink_rate)[1]
+        return sparsify.segment_topk_mask(rows, layout, cfg.downlink_rate, cfg.selector)[1]
+
+    @staticmethod
+    def _send(wire, r, masks, layout):
         # the accumulated broadcast is mostly exact zeros; a zero threshold
         # would select them all (|0| >= 0), so zeros never transmit
-        masks = masks[0] * (r != 0.0).float()
+        masks = masks * (r != 0.0).float()
         # the payload ships through the scheme's wire codec; with masks in
         # {0, 1}, r·(1−mk) + (r·mk − wire(r·mk)) is r − wire(r·mk)
         out_w = wire.roundtrip(r * masks, layout)

@@ -25,6 +25,11 @@ tau). Every backend and topology runs the same ``_client_update`` /
 ``TopologyEngine`` (``repro_torch.topo``), over a ``vmap`` or ``shard`` leaf
 backend; ``ring(0)`` and ``hierarchical(1)`` are the star, bitwise.
 
+Every backend and topology takes a model of mixed leaf dtypes (a bfloat16
+model's float32 routers, ``GroupedLayout``): each flat stack is then a
+tuple of one stack per dtype group, and every sum, gather, hop and record
+goes group by group, the counts summed over the groups.
+
 Round function signature of the star engines (the JAX package's, eager
 here):
 
@@ -281,7 +286,7 @@ class ShardMapEngine(RoundEngine):
                 params, gather_client_states(cstates, ids), sh.local(batches), gbar_prev,
                 round_idx, tau_now, ids if self.thread_client_ids else None, sh.local(rates),
                 sh.local(wire_levels))
-            g_sum = sh.sum(torch.sum(G, dim=0))
+            g_sum = tree_map(lambda x: sh.sum(torch.sum(x, dim=0)), G)
             cstates = scatter_client_states(cstates, client_idx, sh.gather(new_states))
             params, sstate, bcast, ainfo = self._server_update(params, sstate, g_sum, lr)
             return (params, cstates, sstate, bcast, sh.gather(infos.upload_nnz),
@@ -374,19 +379,19 @@ class TopologyEngine(RoundEngine):
                 st_p, g_p, ids_p = sampled, grads, client_idx
             else:
                 take = lambda x, p=p: x.index_select(0, self._positions[p])
-                st_p, g_p, ids_p = tree_map(take, sampled), take(grads), take(client_idx)
+                st_p, g_p, ids_p = tree_map(take, sampled), tree_map(take, grads), take(client_idx)
             st_p, g_p, add_after = inject_incoming(self.scheme, st_p, g_p, incoming)
             with trace.annotate_scope(f"topo.ring_hop{p}"):
                 G_p, new_p, infos_p = self._compress_stack(
                     st_p, g_p, gbar_prev, round_idx, tau_now,
                     ids_p if self.thread_client_ids else None)
-            incoming = G_p + incoming if add_after else G_p
+            incoming = tree_map(torch.add, G_p, incoming) if add_after else G_p
             stacks.append(new_p)
             if p < hops:
                 peer_nnz.append(infos_p.upload_nnz)
         cstates = scatter_client_states(cstates, client_idx, interleave_position_stacks(stacks))
-        params, sstate, bcast, ainfo = self._server_update(params, sstate,
-                                                           torch.sum(incoming, dim=0), lr)
+        params, sstate, bcast, ainfo = self._server_update(
+            params, sstate, tree_map(lambda x: torch.sum(x, dim=0), incoming), lr)
         peer = (torch.cat(peer_nnz) if peer_nnz
                 else infos_p.upload_nnz.new_zeros((0,)))
         return (params, cstates, sstate, bcast, infos_p.upload_nnz, peer,
@@ -416,8 +421,8 @@ class TopologyEngine(RoundEngine):
                 self.tier_cstates, gsum, gbar_prev, round_idx,
                 client_ids=self._tier_ids if self.tier_scheme.wire.stochastic else None,
                 layout=self.layout)
-        params, sstate, bcast, ainfo = self._server_update(params, sstate,
-                                                           torch.sum(T, dim=0), lr)
+        params, sstate, bcast, ainfo = self._server_update(
+            params, sstate, tree_map(lambda x: torch.sum(x, dim=0), T), lr)
         return (params, cstates, sstate, bcast, tier_infos.upload_nnz, leaf_nnz,
                 ainfo.download_nnz, ainfo.union_nnz)
 
@@ -485,17 +490,20 @@ class AsyncBufferedEngine(RoundEngine):
     dispatches, buffers and flushes the synchronous cohort in order, so
     params, states, broadcast and ledger are the vmap engine's, bitwise.
 
-    The queue holds one record per payload, each one flat row, on the
-    payloads' device: a row at 50 % density or more whole, a sparser row as
-    its nonzero values and their int32 indices, found for the whole
-    dispatch stack by one sort. Values are stored in float16 or bfloat16
-    under those wires when the wire's rounding is the payload's last step
-    (no rotation, no adaptive wire levels), so the narrowing is exact, and
-    in float32 otherwise: the decoded buffer is the
-    dense one, bitwise (``encode_queue = False`` keeps dense rows, the
-    reference the tests compare against). A dispatch reads the device once
-    (upload nnz, each row's nonzero count and the wire levels) and a tick's
-    flushes once more (their broadcast counts)."""
+    The queue holds one record per payload, each one flat row (one per
+    dtype group of a tree of mixed dtypes), on the payloads' device: a row
+    at 50 % density or more whole, a sparser row as its nonzero values and
+    their int32 indices, found for the whole dispatch stack by one sort.
+    Values are stored in float16 or bfloat16 under those wires when the
+    wire's rounding is the payload's last step (no rotation, no adaptive
+    wire levels), so the narrowing is exact, and in the payload's own dtype
+    otherwise; a flush decodes each row into a zero row of its payload's
+    dtype, as the reference decodes a leaf into its own dtype: the decoded
+    buffer is the dense one, bitwise (``encode_queue = False`` keeps dense
+    rows, the reference the tests compare against). A dispatch reads the
+    device once (upload nnz, each row's nonzero count and the wire levels)
+    and a tick's flushes once more (their broadcast counts). The server-held
+    global momentum is one ``[N_g]`` per group of such a tree."""
 
     name = "async"
 
@@ -517,9 +525,11 @@ class AsyncBufferedEngine(RoundEngine):
         # A 16-bit wire leaves 16-bit values only when nothing follows its
         # rounding: a rotation's inverse, or an int8 drop under adaptive
         # wire levels, leaves float32 values, which are stored as such.
+        # Otherwise values are stored in the payload's own dtype (a bfloat16
+        # group's payload is bfloat16): None.
         narrow = self.scheme.rotation.identity and not self.use_levels
         self._store_dtype = {"float16": torch.float16, "bfloat16": torch.bfloat16}.get(
-            self.scheme.wire.name if narrow else "", torch.float32)
+            self.scheme.wire.name if narrow else "")
 
     def _build(self):
         @torch.no_grad()
@@ -538,12 +548,13 @@ class AsyncBufferedEngine(RoundEngine):
     def _apply(self, params, sstate, buf, gaps, lr):
         buf = self.scheme.apply_staleness(buf, gaps, self._gmom)
         params, sstate, bcast, ainfo = self._server_update(
-            params, sstate, torch.sum(buf, dim=0), lr, num_contributors=self.buffer_size)
+            params, sstate, tree_map(lambda x: torch.sum(x, dim=0), buf), lr,
+            num_contributors=self.buffer_size)
         if self.scheme.staleness_momentum:
             # on the broadcast's scale: gmf_damp adds M to payloads raw, and
             # the unnormalised form (~1/(1−β) larger) destabilises flushes
             beta = self.comp.beta
-            self._gmom = beta * self._gmom + (1.0 - beta) * bcast
+            self._gmom = tree_map(lambda mm, b: beta * mm + (1.0 - beta) * b, self._gmom, bcast)
         return params, sstate, bcast, ainfo
 
     # -- the queue's records -------------------------------------------
@@ -552,17 +563,18 @@ class AsyncBufferedEngine(RoundEngine):
         """Records of the dispatch stack ``G``'s rows ``rows``, exact: whole
         rows at 50 % density or more, else (int32 indices, values)."""
         width = G.shape[1]
+        store = self._store_dtype or G.dtype
         records, sparse = {}, []
         for i in rows:
             if 2 * nonzero[i] >= width:
-                records[i] = ("dense", G[i].to(self._store_dtype, copy=True))
+                records[i] = ("dense", G[i].to(store, copy=True))
             else:
                 sparse.append(i)
         if sparse:
             # each row's nonzero columns first, in ascending order
             c = int(max(nonzero[i] for i in sparse))
             cols = torch.argsort((G == 0).to(torch.uint8), dim=1, stable=True)[:, :c]
-            vals = torch.gather(G, 1, cols).to(self._store_dtype)
+            vals = torch.gather(G, 1, cols).to(store)
             cols = cols.to(torch.int32)
             for i in sparse:
                 n = int(nonzero[i])
@@ -571,7 +583,7 @@ class AsyncBufferedEngine(RoundEngine):
 
     @staticmethod
     def _decode(rec, out):
-        """Write a record into ``out``, a zero float32 row."""
+        """Write a record into ``out``, a zero row of the payload's dtype."""
         if rec[0] == "dense":
             out.copy_(rec[1])
         else:
@@ -600,19 +612,25 @@ class AsyncBufferedEngine(RoundEngine):
                                                t, tau_now, rates, wire_levels)
         delays = self.availability.sample_delays(self._rng, k)
         drops = self.availability.sample_dropout(self._rng, k)
-        parts = [up_nnz, torch.count_nonzero(G, dim=1)]
+        # one payload stack, or one per dtype group of a tree of mixed dtypes
+        stacks = G if isinstance(G, tuple) else (G,)
+        parts = [up_nnz, *(torch.count_nonzero(x, dim=1) for x in stacks)]
         if wire_levels is not None:
             parts.append(wire_levels)
         host = torch.cat([x.double() for x in parts]).cpu().numpy()  # the dispatch's one read
-        up_host, nonzero = host[:k], host[k:2 * k].astype(np.int64)
+        up_host = host[:k]
+        nonzero = [host[(j + 1) * k:(j + 2) * k].astype(np.int64) for j in range(len(stacks))]
         base_vb = float(self.scheme.wire.value_bytes)
-        vb_host = (np.where(host[2 * k:] > 0, 1.0, base_vb) if wire_levels is not None
+        vb_host = (np.where(host[-k:] > 0, 1.0, base_vb) if wire_levels is not None
                    else np.full(k, base_vb))
         sent = [i for i in range(k) if not drops[i]]
         if self.encode_queue:
-            payloads = self._encode(G, nonzero, sent)
+            enc = [self._encode(x, nz, sent) for x, nz in zip(stacks, nonzero, strict=True)]
         else:
-            payloads = {i: ("dense", G[i]) for i in sent}
+            enc = [{i: ("dense", x[i]) for i in sent} for x in stacks]
+        # a record per payload: one per group of a tree of mixed dtypes
+        payloads = {i: tuple(e[i] for e in enc) if isinstance(G, tuple) else enc[0][i]
+                    for i in sent}
         for i in sent:
             self._inflight.append({"arrival": t + int(delays[i]), "dispatch": t,
                                    "seq": self._seq, "payload": payloads[i],
@@ -633,13 +651,18 @@ class AsyncBufferedEngine(RoundEngine):
             chunk = self._pending[:self.buffer_size]
             self._pending = self._pending[self.buffer_size:]
             with trace.span("tick/flush"):
-                buf = torch.zeros(self.buffer_size, G.shape[1], dtype=torch.float32,
-                                  device=G.device)
-                for row, r in zip(buf, chunk, strict=True):
-                    self._decode(r["payload"], row)
+                # decoded in the payloads' dtypes, as the reference decodes a
+                # leaf into its own dtype
+                bufs = [x.new_zeros((self.buffer_size, x.shape[1])) for x in stacks]
+                for b, r in enumerate(chunk):
+                    recs = r["payload"] if isinstance(G, tuple) else (r["payload"],)
+                    for buf_g, rec in zip(bufs, recs, strict=True):
+                        self._decode(rec, buf_g[b])
+                buf = tuple(bufs) if isinstance(G, tuple) else bufs[0]
                 gaps = np.asarray([t - r["dispatch"] for r in chunk], np.float64)
+                dev = up_nnz.device
                 params, sstate, bcast, ainfo = self._apply(
-                    params, sstate, buf, to_device(gaps.astype(np.float32), G.device), lr)
+                    params, sstate, buf, to_device(gaps.astype(np.float32), dev), lr)
             gbar_prev = bcast
             flushes.append((ainfo, gaps, float(np.mean([r["nnz"] for r in chunk]))))
         applies = []
@@ -671,11 +694,6 @@ def make_engine(fl_cfg, comp_cfg, loss_fn, sampled_per_round, layout, *,
     backend, topology = fl_cfg.backend, fl_cfg.topology
     if topology not in TOPOLOGIES:
         raise ValueError(f"unknown topology {topology!r}; choose from {TOPOLOGIES}")
-    if layout.groups is not None and (backend != "vmap" or topology != "star"):
-        raise NotImplementedError(
-            f"a model of mixed leaf dtypes ({', '.join(map(str, layout.dtypes))}) runs on "
-            f"the vmap star engine only; backend={backend!r}, topology={topology!r} is not "
-            f"ported for it yet: ROADMAP Queue 1 item 15")
     if topology != "star":
         if backend == "async":
             raise ValueError("the async buffered engine is star-only; use backend='vmap' "

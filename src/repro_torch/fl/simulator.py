@@ -155,8 +155,14 @@ class FLSimulator:
     def _signal(self, ids: torch.Tensor) -> torch.Tensor:
         """Each sampled client's EF-residual mass over the global delta
         norm, ``‖V_k‖ / (‖Ĝ_prev‖ + eps)``, float32 ``[k]`` (zeros for
-        schemes without V: a flat signal)."""
+        schemes without V: a flat signal); over the whole tree, every dtype
+        group's squares summed in float32, as the reference sums its
+        leaves'."""
         v = self.cstates.v
+        if isinstance(v, tuple):  # a tree of mixed dtypes: float32 sums over its groups
+            vsq = sum(torch.sum(torch.square(x.index_select(0, ids).float()), dim=1) for x in v)
+            gsq = sum(torch.sum(torch.square(x.float())) for x in self.gbar_prev)
+            return torch.sqrt(vsq) / (torch.sqrt(gsq) + self.comp.eps)
         if not isinstance(v, torch.Tensor):
             return torch.zeros(ids.shape[0], dtype=torch.float32, device=self.device)
         vsq = torch.sum(torch.square(v.index_select(0, ids)), dim=1)

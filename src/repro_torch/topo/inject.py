@@ -13,16 +13,21 @@ receiving client's own state:
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.utils import tree_map
+
 
 def inject_incoming(scheme, states, grads, incoming):
     """Thread ``incoming`` (the predecessor's accumulated ``[S, W]`` payload
     stack, or None at the first position) into one hop's flat ``[S, N]``
-    states and gradients. Returns ``(states, grads, add_after)``; with
+    states and gradients (one stack per dtype group of a tree of mixed
+    dtypes, each added to its own). Returns ``(states, grads, add_after)``; with
     ``add_after`` the caller adds ``incoming`` to the compressed payload."""
     if incoming is None:
         return states, grads, False
     if scheme.is_sketch:
         return states, grads, True
     if scheme.uses_v:
-        return states._replace(v=states.v + incoming), grads, False
-    return states, grads + incoming, False
+        return states._replace(v=tree_map(torch.add, states.v, incoming)), grads, False
+    return states, tree_map(torch.add, grads, incoming), False

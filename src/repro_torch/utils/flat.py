@@ -28,7 +28,12 @@ bfloat16 ones. A tree whose leaves have more than one dtype (a bfloat16
 model with float32 routers or gates) has a ``GroupedLayout``: one
 ``FlatLayout`` per dtype, each over that dtype's leaves in
 ``tree_leaves`` order, and every flat quantity is a tuple of one stack per
-group. ``FlatLayout.of`` returns whichever the tree needs.
+group. ``FlatLayout.of`` returns whichever the tree needs. Each group's
+layout knows its leaves' places in the whole tree: ``leaf_ids`` (their
+numbers, which key the draws) and ``tree_sizes`` (every leaf's size, so
+that ``tree_index`` is the index in the whole tree's flat order), and so
+does each group's layout cut over a group of ranks
+(``GroupedLayout.over``); ``where`` gives every leaf's (group, place).
 
 Under tensor parallelism, and FSDP, a rank's tree holds its pieces of
 leaves cut over a group of ranks (the mesh's model group, or a pod's data
@@ -147,11 +152,15 @@ class FlatLayout:
         self.shared_flags = (False,) * self.num_leaves
         self.boxes = None
         self.places = None  # every rank of the group's (owners, boxes), ``over``
-        self.leaf_ids = tuple(range(self.num_leaves))  # the leaves' numbers in the draws' keys
+        # each leaf's number in the whole tree (the draws' keys), and the whole
+        # tree's leaf sizes where this layout holds one dtype group of it
+        # (``GroupedLayout``; None: the layout's own ``full_sizes``)
+        self.leaf_ids = tuple(range(self.num_leaves))
+        self.tree_sizes = None
         self._owner_mask = None
         self._over: dict = {}
 
-    def over(self, group, full_sizes, places=None) -> FlatLayout:
+    def over(self, group, full_sizes, places=None, tree_sizes=None) -> FlatLayout:
         """This layout as the rank's pieces of leaves whose whole sizes are
         ``full_sizes``, a segment cut over ``group`` where its size differs
         (made once per group, sizes and places). ``places`` says how every
@@ -164,13 +173,23 @@ class FlatLayout:
         a leaf, or None) place a rank's pieces in their whole leaves, for the
         stages that cut or key a leaf by flat coordinate. All of it is known
         on the host, so making the layout issues no collective. A group of
-        one, or no segment cut, gives this layout itself."""
+        one, or no segment cut, gives this layout itself. ``tree_sizes``:
+        the whole tree's leaf sizes where this layout is one dtype group of
+        it (``GroupedLayout.over``)."""
         full_sizes = tuple(int(n) for n in full_sizes)
         if len(full_sizes) != self.num_leaves:
             raise ValueError(f"{len(full_sizes)} whole sizes for {self.num_leaves} leaves")
         cut = tuple(f != n for f, n in zip(full_sizes, self.sizes, strict=True))
+        tree_sizes = None if tree_sizes is None else tuple(int(n) for n in tree_sizes)
         if group is None or dist.get_world_size(group) == 1 or not any(cut):
-            return self
+            if tree_sizes is None or tree_sizes == self.tree_sizes:
+                return self
+            # a group none of whose leaves is cut, in a tree whose others are
+            if tree_sizes not in self._over:
+                out = copy.copy(self)
+                out.tree_sizes, out._over = tree_sizes, {}
+                self._over[tree_sizes] = out
+            return self._over[tree_sizes]
         size = dist.get_world_size(group)
         places = ((None, None),) * size if places is None else tuple(places)
         if len(places) != size:
@@ -187,10 +206,12 @@ class FlatLayout:
             norm.append((tuple(o or not c for o, c in zip(owners, cut, strict=True)), boxes))
         places = tuple(norm)
         # the group itself: its id is not reused while held
-        key = (group, full_sizes, places)
+        key = (group, full_sizes, places, tree_sizes)
         if key not in self._over:
             out = copy.copy(self)
             out.group, out.full_sizes, out.cut_flags, out.places = group, full_sizes, cut, places
+            if tree_sizes is not None:
+                out.tree_sizes = tree_sizes
             out.owner_flags, out.boxes = places[dist.get_rank(group)]
             # a segment some rank of the group does not own
             out.shared_flags = tuple(not all(p[0][i] for p in places)
@@ -310,8 +331,10 @@ class FlatLayout:
 
     def tree_index(self, i: int) -> torch.Tensor:
         """Each entry of segment ``i``'s index in the whole tree's flat order
-        (the whole leaves one after the other), int64 ``[n_i]``."""
-        return self.whole_index(i) + sum(self.full_sizes[:i])
+        (the whole leaves one after the other, every dtype group's where
+        this layout holds one group of a tree), int64 ``[n_i]``."""
+        sizes = self.full_sizes if self.tree_sizes is None else self.tree_sizes
+        return self.whole_index(i) + sum(sizes[:self.leaf_ids[i]])
 
     @property
     def counted(self) -> tuple[bool, ...]:
@@ -460,18 +483,36 @@ class GroupedLayout:
         self.dtypes = tuple(dict.fromkeys(x.dtype for x in leaves))
         self.index = tuple(tuple(i for i, x in enumerate(leaves) if x.dtype == d)
                            for d in self.dtypes)
-        self.groups = tuple(FlatLayout([leaves[i] for i in idx], device)
-                            for idx in self.index)
         self.shapes = tuple(tuple(x.shape) for x in leaves)
         self.sizes = tuple(math.prod(s) for s in self.shapes)
+        groups = []
+        for idx in self.index:  # each group keyed and indexed by its leaves' tree places
+            g = FlatLayout([leaves[i] for i in idx], device)
+            g.leaf_ids, g.tree_sizes = idx, self.sizes
+            groups.append(g)
+        self.groups = tuple(groups)
+        # every leaf's (group, place in its group), in tree_leaves order
+        place = {i: (g, p) for g, idx in enumerate(self.index) for p, i in enumerate(idx)}
+        self.where = tuple(place[i] for i in range(len(leaves)))
         self.total = sum(self.sizes)
         self.full_total = self.total
         self.num_leaves = len(leaves)
         self._over: dict = {}
 
+    @property
+    def cut(self) -> bool:
+        """Whether a group's segment is cut over a group of ranks."""
+        return any(g.cut for g in self.groups)
+
+    @property
+    def group(self):
+        """The process group the cut segments lie over (None if none is cut)."""
+        return next((g.group for g in self.groups if g.cut), None)
+
     def over(self, group, full_sizes, places=None) -> GroupedLayout:
         """``FlatLayout.over`` for each dtype group (``full_sizes`` and each
-        rank's owners and boxes of every leaf, in ``tree_leaves`` order)."""
+        rank's owners and boxes of every leaf, in ``tree_leaves`` order);
+        each group's cut layout keeps its leaves' tree places."""
         full_sizes = tuple(int(n) for n in full_sizes)
         places = None if places is None else tuple(
             (None if o is None else tuple(o), None if b is None else tuple(b)) for o, b in places)
@@ -481,7 +522,7 @@ class GroupedLayout:
                 (None if o is None else [o[i] for i in idx],
                  None if b is None else [b[i] for i in idx]) for o, b in places)
 
-        subs = tuple(g.over(group, [full_sizes[i] for i in idx], sub(idx))
+        subs = tuple(g.over(group, [full_sizes[i] for i in idx], sub(idx), tree_sizes=full_sizes)
                      for g, idx in zip(self.groups, self.index, strict=True))
         if all(a is b for a, b in zip(subs, self.groups, strict=True)):
             return self

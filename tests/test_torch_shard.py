@@ -12,7 +12,10 @@ Tolerances:
   (the all_reduce hands both the same sum); against the vmap run the
   upload nnz and ledger bytes exact, params within 1e-6 of each leaf's
   largest magnitude (the two ranks' partial sums are added in another
-  order than vmap's single sum, one float32 rounding a round).
+  order than vmap's single sum, one float32 rounding a round); the same
+  on a tree of mixed dtypes (``MixedTiny``: a bfloat16 weight, ROADMAP
+  item 15) on the star under dgcwgmf and global top-k, the ring and the
+  hierarchy.
 
 The two ranks also run the pinned ``shard_dgcwgmf`` round of
 ``repro_torch.analysis.jaxpr_audit`` at two ranks under
@@ -74,9 +77,34 @@ class Tiny:
         return lambda t, ids, rng: (self.x[torch.as_tensor(ids)], self.y[torch.as_tensor(ids)])
 
 
+class MixedTiny(Tiny):
+    """Tiny with a bfloat16 weight beside the float32 bias: a tree of mixed
+    dtypes (two dtype groups, ROADMAP item 15)."""
+
+    def init_fn(self, gen):
+        return {"w": torch.from_numpy(self.w.copy()).to(torch.bfloat16), "b": torch.zeros(D_OUT)}
+
+    @staticmethod
+    def loss_fn(params, batch):
+        x, y = batch
+        logp = torch.log_softmax(x @ params["w"].float() + params["b"], dim=-1)
+        return -torch.mean(torch.gather(logp, -1, y[..., None]))
+
+
+# the mixed tree's runs: the star under dgcwgmf and global top-k, the ring
+# and the hierarchy
+MIXED_RUNS = {
+    "mixed_star": (dict(), dict(scheme="dgcwgmf")),
+    "mixed_global": (dict(), dict(scheme="dgc", per_tensor=False)),
+    "mixed_ring": (dict(topology="ring", ring_hops=1, sync_every=2), dict(scheme="dgc")),
+    "mixed_hierarchical": (dict(topology="hierarchical", groups=2),
+                           dict(scheme="hier_dgcwgmf")),
+}
+
+
 def run(name, backend, clients_per_round=8, rounds=4, group=None):
-    fl_kw, comp_kw = RUNS[name]
-    task = Tiny()
+    fl_kw, comp_kw = RUNS[name] if name in RUNS else MIXED_RUNS[name]
+    task = Tiny() if name in RUNS else MixedTiny()
     fl = FLConfig(num_clients=8, rounds=rounds, clients_per_round=clients_per_round,
                   batch_size=16, learning_rate=0.5, seed=0, backend=backend, **fl_kw)
     sim = FLSimulator(fl, CompressionConfig(rate=0.25, tau=0.4, **comp_kw), task.init_fn,
@@ -86,7 +114,10 @@ def run(name, backend, clients_per_round=8, rounds=4, group=None):
 
 
 def state(sim):
-    """Everything a run leaves, as named numpy arrays."""
+    """Everything a run leaves, as named numpy arrays (a tree of mixed
+    dtypes: float32 copies, one array per dtype group)."""
+    if isinstance(sim.gbar_prev, tuple):
+        return mixed_state(sim)
     out = {f"params/{k}": v.numpy() for k, v in sim.params.items()}
     for name, x in zip("uvm", sim.cstates, strict=True):
         if torch.is_tensor(x):
@@ -98,6 +129,21 @@ def state(sim):
     out["ledger"] = np.asarray([sim.ledger.upload_bytes, sim.ledger.download_bytes,
                                 sim.ledger.peer_bytes])
     if "upload_nnz" in sim.history[0]:  # the star's per-client counts, gathered
+        out["upload_nnz"] = np.asarray([rec["upload_nnz"] for rec in sim.history])
+    return out
+
+
+def mixed_state(sim):
+    out = {f"params/{k}": v.float().numpy() for k, v in sim.params.items()}
+    fields = [(f"client/{n}", x) for n, x in zip("uvm", sim.cstates, strict=True)]
+    fields += [(f"server/{n}", x) for n, x in zip(("momentum", "residual"), sim.sstate,
+                                                  strict=True)]
+    for name, x in fields + [("gbar_prev", sim.gbar_prev)]:
+        if isinstance(x, tuple):
+            out.update({f"{name}/{i}": g.float().numpy() for i, g in enumerate(x)})
+    out["ledger"] = np.asarray([sim.ledger.upload_bytes, sim.ledger.download_bytes,
+                                sim.ledger.peer_bytes])
+    if "upload_nnz" in sim.history[0]:
         out["upload_nnz"] = np.asarray([rec["upload_nnz"] for rec in sim.history])
     return out
 
@@ -160,13 +206,14 @@ def test_group_backend_fits_the_device(backend, device, ok):
 
 
 def rank_main(rank: int, world: int, init: str, out: str) -> None:
-    """One rank of the spawned group: every run of ``RUNS`` on the shard
-    backend, saved to ``out``, and the cohort-divisibility error."""
+    """One rank of the spawned group: every run of ``RUNS`` and
+    ``MIXED_RUNS`` on the shard backend, saved to ``out``, and the
+    cohort-divisibility error."""
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=60))
     try:
         saved = {}
-        for name in RUNS:
+        for name in [*RUNS, *MIXED_RUNS]:
             saved.update({f"{name}/{k}": v for k, v in state(run(name, "shard")).items()})
         try:
             run("star", "shard", clients_per_round=3)
@@ -237,3 +284,24 @@ def test_fake_world_tally_is_the_gloo_worlds(two_ranks):
     assert gloo == json.loads(str(two_ranks[1]["tally"]))
     assert pinned_tally(fake=True) == gloo
     assert gloo["counts"] == {"all-reduce": 1, "all-gather": 4}
+
+
+@pytest.mark.parametrize("name", list(MIXED_RUNS))
+def test_two_ranks_agree_with_vmap_on_a_mixed_tree(two_ranks, name):
+    """A bfloat16 weight beside a float32 bias (two dtype groups, each state
+    a tuple of stacks) over two ranks: both ranks the same bits, against the
+    vmap run the upload nnz and ledger bytes exact, every array within 1e-6
+    of its largest magnitude (as the float32 runs: no bfloat16 rounding of
+    the two ranks' sum falls on the other side here)."""
+    r0, r1 = two_ranks
+    want = state(run(name, "vmap"))
+    assert any(k.endswith("/1") for k in want)  # the second dtype group
+    for key, w in want.items():
+        got = r0[f"{name}/{key}"]
+        assert np.array_equal(got, r1[f"{name}/{key}"]), f"{name}/{key}"
+        if key in ("ledger", "upload_nnz"):
+            assert np.array_equal(got, w), f"{name}/{key}"
+        else:
+            tol = 1e-6
+            scale = max(float(np.abs(w).max()), 1e-30)
+            assert np.abs(got - w).max() <= tol * scale, f"{name}/{key}"

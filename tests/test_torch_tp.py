@@ -351,3 +351,46 @@ def test_stages_over_a_model_axis(world2, kw):
     differs = check_stage(world2, ranks.kw_id(kw))
     if kw in ranks.REFUSED:
         assert differs, (kw, "the piece-local version gives the same")
+
+
+@pytest.mark.parametrize("name", list(ranks.MIXED_CASES))
+def test_mixed_dtype_stages_over_a_model_axis(world2, name):
+    """The stages that work across leaves or key draws by leaf, on a tree of
+    three dtype groups (bfloat16 and float32 with cut and whole leaves, a
+    float16 group of one whole leaf) cut over the model axis: the rank's
+    pieces of the one-rank run on the whole leaves, bitwise (the sketch
+    within SKETCH_REL, its server bitwise on the same summed sketch)."""
+    sketch = resolve(CompressionConfig(**ranks.MIXED_CASES[name])).is_sketch
+    key = f"mixed/{name}"
+    for r, res in enumerate(world2):
+        cut, indexed = res[f"{key}/groups"]
+        assert cut.tolist() == [True, True, False]  # bf16, f32; the f16 group whole
+        assert indexed.all()  # every group's tree_index over the whole tree's sizes
+        dts = res[f"{key}/bcast_dtypes"].tolist()
+        assert dts[:3] == dts[3:], (r, dts)
+        held = [k for k in res if k.startswith(key + "/")
+                and k.rsplit("/", 1)[1] not in ("groups", "bcast_dtypes")]
+        assert {f"{key}/payload", f"{key}/bcast", f"{key}/upload_nnz"} <= set(held)
+        for k in held:
+            got, want = res[k]
+            assert got.shape == want.shape, (r, k, got.shape, want.shape)
+            if sketch and k.rsplit("/", 1)[1] in ("payload", "s_err"):
+                err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+                assert err <= SKETCH_REL, (r, k, err)
+            else:
+                assert np.array_equal(_bits(got), _bits(want)), (r, k)
+        assert res[f"{key}/upload_nnz"][0].min() > 0
+
+
+def test_mixed_dtype_gmf_step_over_a_model_axis(world2):
+    """granite-moe's gmf_data step in bfloat16 (float32 routers) under global
+    top-k at (1, 2), fed the same gradient as the mesh-less step: the whole
+    params after it bitwise, the upload and download counts equal."""
+    for res in world2:
+        assert set(res["mixed_step/dtypes"].tolist()) == {"torch.bfloat16", "torch.float32"}
+        assert res["mixed_step/cut"].any()
+        for i in range(len(res["mixed_step/dtypes"])):
+            got, want = res[f"mixed_step/tp/{i}"], res[f"mixed_step/one/{i}"]
+            assert np.array_equal(_bits(got), _bits(want)), i
+        assert res["mixed_step/tp/counts"].tolist() == res["mixed_step/one/counts"].tolist()
+        assert res["mixed_step/one/counts"].min() > 0

@@ -359,6 +359,154 @@ def stage_case(group, name, out):
     out[f"{key}/union_nnz"] = np.asarray([int(got[5].union_nnz), int(want[5].union_nnz)])
 
 
+# STAGES' leaves in three dtypes (a tree of mixed dtypes, ROADMAP item 15):
+# the bfloat16 and float32 groups hold cut and whole leaves, the float16
+# group one whole leaf (a group none of whose leaves is cut)
+MIXED_DTYPES = {"a": torch.bfloat16, "b": torch.float32, "c": torch.float32,
+                "d": torch.bfloat16, "e": torch.float16, "f": torch.float32}
+# the stages that work across leaves or key their draws by leaf, over it
+MIXED_CASES = {
+    "global_dgc": dict(scheme="dgc", per_tensor=False),
+    "global_dgcwgmf": dict(scheme="dgcwgmf", per_tensor=False),
+    "randomk": dict(scheme="randomk"),
+    "fetchsgd": dict(scheme="fetchsgd"),
+    "probquant": dict(scheme="dgc", wire_stage="probquant"),
+    "hadamard": dict(scheme="dgc", rotation_stage="hadamard"),
+    "adaptive_global": dict(scheme="adaptive_dgcwgmf", per_tensor=False),
+    "dl_global": dict(scheme="dgcwgmf_dl", per_tensor=False),
+}
+
+
+def _tree_np(layout, x):
+    """A flat quantity of ``layout`` (one stack per dtype group of a
+    ``GroupedLayout``) as one float32 numpy stack in tree order."""
+    if not isinstance(x, tuple):
+        return x.float().numpy()
+    segs = [sub.segments(g) for sub, g in zip(layout.groups, x, strict=True)]
+    return torch.cat([segs[g][p].float() for g, p in layout.where], dim=-1).numpy()
+
+
+def mixed_stage_case(group, name, out):
+    """``MIXED_CASES[name]`` through ``client_compress`` and
+    ``server_aggregate`` on STAGES' leaves in MIXED_DTYPES: the rank's pieces
+    over the model group (each dtype group's layout ``over`` it, the whole
+    tree's sizes beside it) and the whole leaves (no group), each output in
+    tree order as the rank's pieces. Integer-valued inputs in [-6, 6] under
+    GMF (norms exact in any order), normal draws elsewhere; the sketch's
+    server also runs on the whole run's summed sketch."""
+    from repro_torch.core.state import ServerState
+    from repro_torch.utils import tree_map
+    from repro_torch.utils.flat import Box
+
+    r = dist.get_rank(group)
+    rng = np.random.default_rng(17)
+    shapes = {k: (ROWS, *s) for k, (s, _) in STAGES.items()}
+    cfg = CompressionConfig(rate=0.1, downlink_rate=0.1, **MIXED_CASES[name])
+    scheme = resolve(cfg)
+    ints = scheme.fusion.name == "gmf"
+
+    def draw():
+        return {k: torch.from_numpy((rng.integers(-6, 7, size=s) if ints else
+                                     rng.normal(size=s)).astype(np.float32)).to(MIXED_DTYPES[k])
+                for k, s in shapes.items()}
+
+    big = FlatLayout.of({k: torch.zeros(s, dtype=MIXED_DTYPES[k])
+                         for k, (s, _) in STAGES.items()})
+    small = FlatLayout.of({k: x[0] for k, x in pieces(draw(), r, STAGES).items()})
+    places = [(None, [Box(s, tuple(q * (n // WORLD) if j == d else 0 for j, n in enumerate(s)))
+                      for _, (s, d) in sorted(STAGES.items())]) for q in range(WORLD)]
+    lay = small.over(group, big.sizes, places)
+    u, v, m, res, smom, grad, gbar = (draw() for _ in range(7))
+    kw = dict(client_ids=torch.tensor([3, 8, 1]))
+    if scheme.rate_adaptive:
+        kw.update(rates=torch.tensor([0.05, 0.2, 0.5]), wire_levels=torch.tensor([0, 1, 0]))
+    whole_flat = lambda t: big.flatten(t)  # noqa: E731
+    cut_flat = lambda t: small.flatten(pieces(t, r, STAGES))  # noqa: E731
+    to_piece = lambda x: small.flatten(pieces(big.unflatten(x), r, STAGES))  # noqa: E731
+    first = lambda x: tree_map(lambda y: y[0], x)  # noqa: E731
+    sketch_zero = {"s_mom": torch.zeros(cfg.sketch_rows, cfg.sketch_cols),
+                   "s_err": torch.zeros(cfg.sketch_rows, cfg.sketch_cols)}
+
+    def run(layout, flat, g_sum=None):
+        st = ClientState(u=flat(u) if scheme.uses_u else {}, v=flat(v) if scheme.uses_v else {},
+                         m=flat(m) if scheme.uses_m else {})
+        g, new, info = scheme.client_compress(st, flat(grad), first(flat(gbar)), 2,
+                                              layout=layout, **kw)
+        sst = ServerState(momentum=(sketch_zero if scheme.is_sketch else first(flat(smom))
+                                    if scheme.server_momentum else {}),
+                          residual=first(flat(res)) if scheme.downlink_residual else {})
+        if g_sum is None:
+            g_sum = tree_map(lambda x: x.sum(0), g)
+        bc, sst, ainfo = scheme.server_aggregate(sst, g_sum, 3.0, layout=layout, lr=0.05)
+        return g, new, info, bc, sst, ainfo
+
+    got, want = run(lay, cut_flat), run(big, whole_flat)
+    key = f"mixed/{name}"
+    out[f"{key}/groups"] = np.asarray([[sub.cut for sub in lay.groups],
+                                       [sub.tree_sizes == big.sizes for sub in lay.groups]])
+    piece = (lambda x: x) if scheme.is_sketch else to_piece
+    out[f"{key}/payload"] = np.stack([_tree_np(lay, got[0]), _tree_np(lay, piece(want[0]))])
+    for f in ("u", "v", "m"):
+        a, b = getattr(got[1], f), getattr(want[1], f)
+        if isinstance(a, tuple):
+            out[f"{key}/{f}"] = np.stack([_tree_np(lay, a), _tree_np(lay, to_piece(b))])
+    out[f"{key}/upload_nnz"] = np.stack([got[2].upload_nnz.numpy(), want[2].upload_nnz.numpy()])
+    if scheme.is_sketch:  # the server on the whole run's summed sketch
+        got = run(lay, cut_flat, want[0].sum(0))
+        out[f"{key}/s_err"] = np.stack([got[4].momentum["s_err"].numpy(),
+                                        want[4].momentum["s_err"].numpy()])
+    lift = lambda x: tree_map(lambda y: y[None], x)  # noqa: E731
+    out[f"{key}/bcast"] = np.stack([_tree_np(lay, lift(got[3]))[0],
+                                    _tree_np(lay, to_piece(lift(want[3])))[0]])
+    out[f"{key}/bcast_dtypes"] = np.asarray([str(x.dtype) for x in got[3]] +
+                                            [str(x.dtype) for x in want[3]])
+    if scheme.downlink_residual:
+        out[f"{key}/residual"] = np.stack([_tree_np(lay, lift(got[4].residual))[0],
+                                           _tree_np(lay, to_piece(lift(want[4].residual)))[0]])
+    out[f"{key}/download_nnz"] = np.asarray([int(got[5].download_nnz),
+                                             int(want[5].download_nnz)])
+    out[f"{key}/union_nnz"] = np.asarray([int(got[5].union_nnz), int(want[5].union_nnz)])
+
+
+def mixed_step(mesh, out):
+    """One gmf_data step of granite-moe (smoke, bfloat16 beside its float32
+    routers: two dtype groups) under global top-k at (1, 2) and whole, both
+    fed the same numpy-seeded gradient (the mesh run its pieces of it): the
+    whole params after it, and the upload and download counts."""
+    import dataclasses
+
+    from repro_torch.configs.base import TrainConfig
+
+    cfg = dataclasses.replace(configs.get_smoke("granite-moe-1b-a400m"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    whole = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    sh = shr.named_shardings(mesh, shr.param_specs(whole, fsdp=False, mesh=mesh))
+    rng = np.random.default_rng(19)
+    grad = tree_unflatten(whole, [torch.from_numpy(rng.normal(size=x.shape).astype(
+        np.float32)).to(x.dtype) for x in tree_leaves(whole)])
+    tcfg = TrainConfig(learning_rate=0.05, total_steps=4, grad_sync="gmf_data")
+    ccfg = CompressionConfig(scheme="dgc", rate=0.1, per_tensor=False)
+    batch = {k: torch.from_numpy(v).long() for k, v in batch_of(cfg, 3).items()}
+    real = dstep._value_and_grad
+    zero = torch.zeros(())
+    try:
+        for tag, params, m, g in (("tp", shr.local_tree(whole, sh), mesh,
+                                   shr.local_tree(grad, sh)), ("one", whole, None, grad)):
+            dstep._value_and_grad = lambda f, p, b, own=None, g=g: ((zero, zero), g)
+            state = dstep.init_train_state(cfg, tcfg, ccfg, params, m)
+            state, met = dstep.make_train_step(cfg, tcfg, ccfg, m)(state, batch)
+            final = shr.full_tree(state.params, sh) if m is not None else state.params
+            for i, x in enumerate(tree_leaves(final)):
+                out[f"mixed_step/{tag}/{i}"] = x.float().numpy()
+            out[f"mixed_step/{tag}/counts"] = np.asarray(
+                [int(met["upload_nnz"].sum()), int(met["download_nnz"])])
+        out["mixed_step/dtypes"] = np.asarray([str(x.dtype) for x in tree_leaves(whole)])
+        out["mixed_step/cut"] = np.asarray([a.numel() != b.numel() for a, b in zip(
+            tree_leaves(shr.local_tree(whole, sh)), tree_leaves(whole), strict=True)])
+    finally:
+        dstep._value_and_grad = real
+
+
 HITTER_KS = (1, 9, 5_000, 60_000)
 
 
@@ -392,6 +540,8 @@ def cut_hitters(group, out):
 def stage_cases(group, out):
     for name in STAGE_CASES:
         stage_case(group, name, out)
+    for name in MIXED_CASES:
+        mixed_stage_case(group, name, out)
     cut_hitters(group, out)
 
 
@@ -406,6 +556,7 @@ if __name__ == "__main__":
         select(mesh.get_group("model"), res)
         stage_cases(mesh.get_group("model"), res)
         clipped(mesh, res)
+        mixed_step(mesh, res)
         engine(mesh, res)
         families(mesh, dict(np.load(inputs)), res)
         np.savez(dest, **res)

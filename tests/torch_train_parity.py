@@ -105,51 +105,62 @@ def jax_dtypes(x):
     return sorted({str(t.dtype) for t in jax.tree_util.tree_leaves(x)})
 
 
-def run_lmtask(arch, *, dtype="float32", jax_grads=None, jit_grads=True):
+def feed_jax_grads(monkeypatch, jit_grads=True):
+    """Feed the port's round engines JAX's client gradients: JAX's
+    ``RoundEngine._grads`` stashes each call's result (jitted unless
+    ``jit_grads=False``) and the port's pops them in call order, so the
+    JAX run must go first, eagerly, inside the context this returns."""
+    from repro.fl import engine as jengine
+    from repro_torch.fl import engine as tengine
+
+    stash = []
+    real = jengine.RoundEngine._grads
+    jitted = {}
+
+    def keep(self, params, batches):
+        if jit_grads:
+            fn = jitted.setdefault(id(self), jax.jit(lambda p, b: real(self, p, b)))
+            with jax.disable_jit(False):
+                g = fn(params, batches)
+        else:
+            g = real(self, params, batches)
+        stash.append(jax.tree_util.tree_map(np.asarray, g))
+        return g
+
+    monkeypatch.setattr(jengine.RoundEngine, "_grads", keep)
+    monkeypatch.setattr(tengine.RoundEngine, "_grads", lambda self, params, batches:
+                        from_jax_params(stash.pop(0), layout="transformer"))
+    return jax.disable_jit()
+
+
+def run_lmtask(arch, *, dtype="float32", jax_grads=None, jit_grads=True, fl_kw=None,
+               comp_kw=None, port_fl_kw=None, group=None):
     """Two FL rounds of dgcwgmf (rate 0.1, 4 clients, 2 a round, batch 2,
     sequence 16, lr 0.1) through ``LMTask`` in both packages -> (JAX sim,
     port sim, JAX task, port task). With ``jax_grads`` (a pytest monkeypatch)
     JAX runs its rounds eagerly (its client gradients jitted, unless
     ``jit_grads=False``) and the port's engine is fed JAX's client
     gradients, round by round, so that everything after the gradient is
-    compared on equal inputs."""
+    compared on equal inputs. ``fl_kw`` / ``comp_kw`` replace or add
+    ``FLConfig`` / ``CompressionConfig`` fields on both sides (a backend, a
+    topology, a scheme), ``port_fl_kw`` on the port's alone (its shard
+    backend at one rank, which is JAX's vmap); ``group`` is the port's
+    process group."""
     import contextlib
 
-    if jax_grads is not None:
-        from repro.fl import engine as jengine
-        from repro_torch.fl import engine as tengine
-
-        stash = []
-        real = jengine.RoundEngine._grads
-        jitted = {}
-
-        def keep(self, params, batches):
-            if jit_grads:
-                fn = jitted.setdefault(id(self), jax.jit(lambda p, b: real(self, p, b)))
-                with jax.disable_jit(False):
-                    g = fn(params, batches)
-            else:
-                g = real(self, params, batches)
-            stash.append(jax.tree_util.tree_map(np.asarray, g))
-            return g
-
-        jax_grads.setattr(jengine.RoundEngine, "_grads", keep)
-        jax_grads.setattr(tengine.RoundEngine, "_grads", lambda self, params, batches:
-                          from_jax_params(stash.pop(0), layout="transformer"))
-        eager = jax.disable_jit()
-    else:
-        eager = contextlib.nullcontext()
+    eager = (feed_jax_grads(jax_grads, jit_grads) if jax_grads is not None
+             else contextlib.nullcontext())
     jcfg, tcfg = configs(arch, dtype)
     jp, np_params = jax_params(jcfg)
-    fl = dict(num_clients=4, rounds=2, clients_per_round=2, batch_size=2, learning_rate=0.1,
-              seed=0)
-    comp = dict(scheme="dgcwgmf", rate=0.1)
-    jtask = JTask(jcfg, num_clients=4, batch_size=2, seq_len=16)
-    ttask = TTask(tcfg, num_clients=4, batch_size=2, seq_len=16, device="cpu")
+    fl = {**dict(num_clients=4, rounds=2, clients_per_round=2, batch_size=2, learning_rate=0.1,
+                 seed=0), **(fl_kw or {})}
+    comp = {**dict(scheme="dgcwgmf", rate=0.1), **(comp_kw or {})}
+    jtask = JTask(jcfg, num_clients=fl["num_clients"], batch_size=2, seq_len=16)
+    ttask = TTask(tcfg, num_clients=fl["num_clients"], batch_size=2, seq_len=16, device="cpu")
     jsim = JSim(JFL(**fl), JComp(**comp), lambda key: jp, jtask.loss_fn)
-    tsim = TSim(TFL(**fl), TComp(**comp),
+    tsim = TSim(TFL(**{**fl, **(port_fl_kw or {})}), TComp(**comp),
                 lambda gen: from_jax_params(np_params, layout="transformer"), ttask.loss_fn,
-                device="cpu")
+                device="cpu", group=group)
     with eager:
         jsim.run(jtask.batch_provider)
     tsim.run(ttask.batch_provider)
@@ -194,7 +205,7 @@ def train_configs(sync, **extra):
 
 
 def one_step(arch, sync, *, dtype="float32", scheme="dgcwgmf", use_kernels=False,
-             jax_grads=None, meshes=None):
+             jax_grads=None, meshes=None, comp_kw=None):
     """One step of ``make_train_step`` in both packages on the same batch ->
     (JAX state, port state, [(JAX metrics, port metrics)]). With
     ``jax_grads`` (a pytest monkeypatch) both steps take JAX's gradient at
@@ -204,7 +215,8 @@ def one_step(arch, sync, *, dtype="float32", scheme="dgcwgmf", use_kernels=False
     update are compared on equal inputs (the metrics' loss is then that
     stand-in's). ``meshes`` (JAX mesh, port mesh) runs both steps over a
     mesh: JAX's state and batch laid out by its specs, the port's rank
-    taking its local pieces (one rank: the whole)."""
+    taking its local pieces (one rank: the whole). ``comp_kw``: more
+    ``CompressionConfig`` fields, the same on both sides."""
     import contextlib
 
     from repro_torch.data.pipeline import SyntheticLMStream
@@ -212,8 +224,8 @@ def one_step(arch, sync, *, dtype="float32", scheme="dgcwgmf", use_kernels=False
     jcfg, tcfg = configs(arch, dtype)
     jp, np_params = jax_params(jcfg)
     jt, tt = train_configs(sync)
-    jc = JComp(scheme=scheme, rate=0.1, use_kernels=use_kernels)
-    tc = TComp(scheme=scheme, rate=0.1, use_kernels=use_kernels)
+    jc = JComp(scheme=scheme, rate=0.1, use_kernels=use_kernels, **(comp_kw or {}))
+    tc = TComp(scheme=scheme, rate=0.1, use_kernels=use_kernels, **(comp_kw or {}))
     stream = SyntheticLMStream(vocab_size=jcfg.vocab_size, seq_len=16, batch_size=4, seed=0,
                                num_codebooks=jcfg.num_codebooks, num_patches=jcfg.num_patches,
                                d_model=jcfg.d_model)
