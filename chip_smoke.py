@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase (what CI on a GPU runs)
     python3 chip_smoke.py --only kernels   # build + hold the kernels only
     python3 chip_smoke.py --only mixed-tree  # build + phase 11b (a tree of mixed dtypes)
+    python3 chip_smoke.py --only group-mode  # build + phase 18 (a) (gmf_select's group mode)
     python3 chip_smoke.py --only dryrun    # build + phase 21 (the dry run) only
     python3 chip_smoke.py --only analysis  # build + phase 22 (static analysis) only
     python3 chip_smoke.py --profile        # + where a ResNet-56 and a Shakespeare
@@ -362,8 +363,17 @@ each kernel launching once per dtype group.
     then phase 6's granite check (smoke widths, 2 layers, float32) through
     ``moe_ep`` on both the card and the CPU, within 1e-4 relative L2.
 18. **The model axis** (tensor parallelism, ``--only model-axis``): (a)
-    ``gmf_select``'s group mode at a group of one (one-rank NCCL) bitwise
-    the single launch, timed beside it; (b)-(c) two processes on the card
+    (``--only group-mode``) ``gmf_select``'s group mode at a group of one
+    (one-rank NCCL), both modes, over llama3.2-1b's bf16 row, a ResNet-56
+    round, the tie layouts and three inputs built for its full reads (every
+    score tied, the candidate slots overflowed, the sample misled): bitwise
+    the single launch (and its plain version but on llama's row), its
+    launches (6 fused, 5 |z|) and all-reduces (4, 3) a call counted, how
+    many segments and tiles counted their candidates or read in full (the
+    kernel's count against the rule's) and the bytes an element that
+    implies printed, the built inputs each reading some tile in full in
+    both modes; llama's row and ResNet-56 timed beside the single launch,
+    and the group mode's device time alone; (b)-(c) two processes on the card
     over gloo (``--tp-worker``) at mesh (1, 2): the group select over the
     two ranks bitwise, llama3.2-1b at 2 layers trained gmf_data and dense
     against the mesh-less run, served at 2 layers in float32 against the
@@ -1285,7 +1295,43 @@ def time_k4(k4, ref, bw, peak, bf16_peak, dev):
     tc = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
               bound_by="operations" if bound_ops >= bound_bytes else "bytes",
               library_ms=library_ms, at=f"B {b} T {t} H {h} KV {kv} D {d} bf16 causal")
-    return {"tc": tc, "cc": time_k4_cc(k4, ref, bw, peak, dev)}
+    cc = time_k4_cc(k4, ref, bw, peak, dev)
+    cc["bf16"] = time_k4_cc_bf16(k4, ref, bw, bf16_peak, dev)
+    return {"tc": tc, "cc": cc}
+
+
+def time_k4_cc_bf16(k4, ref, bw, bf16_peak, dev):
+    """The CUDA-core K4's bf16 instances at D 16 and 32 (the head dims
+    ``kernel_for`` sends there in bf16; the smoke configs' D 32) at phase
+    6's prefill shape otherwise (B 2, T 256, H 32, KV 8, causal), each
+    beside its plain version, SDPA (a yardstick) and its bound (operations
+    at the bf16 peak, or bytes). Returns {D: numbers}."""
+    b, t, h, kv = 2, 256, 32, 8
+    rng = np.random.default_rng(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for d in (16, 32):
+        q, k, v = (torch.tensor(rng.normal(size=(b, t, n, d)).astype(np.float32),
+                                device=dev).to(BF16) for n in (h, kv, kv))
+        check(k4.kernel_for(q.dtype, d) == "cc", f"bf16 K4 at D {d} is not on the CUDA cores")
+        err, rel = check_k4(k4.flash_attention(q, k, v), ref.flash_attention(q, k, v),
+                            f"bf16 at D {d} (cc kernel)")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = timed_ms(lambda: k4.flash_attention(q, k, v))
+        plain_ms = timed_ms(lambda: ref.flash_attention(q, k, v))
+        library_ms = timed_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        flops = 4 * b * h * d * (t * (t + 1) // 2)
+        nbytes = 2 * (2 * b * t * h * d + 2 * b * t * kv * d)
+        bound_ops, bound_bytes = flops / bf16_peak * 1e3, nbytes / bw * 1e3
+        out[d] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_ops, bound_bytes),
+                      bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                      library_ms=library_ms, max_abs_err=err, rel_l2=rel,
+                      at=f"B {b} T {t} H {h} KV {kv} D {d} bf16 causal")
+        print(f"  K4 at B {b} T {t} H {h} KV {kv} D {d} bf16 causal: CUDA-core kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{out[d]['bound_ms']:.4f} ms ({out[d]['bound_by']}); vs plain max abs "
+              f"{err:.3e}, relative L2 {rel:.3e}", flush=True)
+    return out
 
 
 def time_k4_cc(k4, ref, bw, peak, dev):
@@ -2943,6 +2989,7 @@ BF16_KERNELS = [
     ("K1", "gmf_compress", "bf16,bf16", 14, 10, "gmf_compress_bf16"),
     ("K2", "momentum_correction", "bf16,bf16->bf16", 10, 3, "momentum_correction_bf16"),
     ("K3", "apply_mask", "bf16,f32->f32", 20, 4, "apply_mask_bf16_to_f32"),
+    ("K3", "apply_mask", "bf16,bf16->bf16", 12, 4, "apply_mask_bf16"),
 ]
 LLAMA = "llama3.2-1b"
 LLAMA_PARAMS = 1_498_482_688
@@ -3129,6 +3176,15 @@ def hold_bf16_big_row(rt, layout, bw, peak, dev):
         same(worst, "apply_mask", a, b, f"{what} over the llama3.2-1b row")
     del got, want
     timing("K3", "apply_mask", "bf16,f32->f32", 20, 4, "apply_mask_bf16_to_f32",
+           lambda: gk.apply_mask_flat(u, v, mask), lambda: ref.apply_mask_update_leaf(u, v, mask))
+    mask = mask.to(BF16)  # the fused paths' instance: every operand bf16
+    got = gk.apply_mask_flat(u, v, mask)
+    want = ref.apply_mask_update_leaf(u, v, mask)
+    for what, a, b in zip(("G", "U", "V"), got, want, strict=True):
+        check(a.dtype == BF16, f"K3 over the llama row: {what} is {a.dtype}")
+        same(worst, "apply_mask", a, b, f"{what} (bf16 mask) over the llama3.2-1b row")
+    del got, want
+    timing("K3", "apply_mask", "bf16,bf16->bf16", 12, 4, "apply_mask_bf16",
            lambda: gk.apply_mask_flat(u, v, mask), lambda: ref.apply_mask_update_leaf(u, v, mask))
     del mask
     torch.cuda.empty_cache()
@@ -4522,6 +4578,95 @@ def group_table(rt, layout, dev):
     return gk.select_table(plan, dev, group=[True] * layout.num_leaves)
 
 
+# gmf_select's group mode: its launches a call where every segment is split
+# (the first, (fused) the sample, three radix passes, the last) and its
+# all-reduces a call over a group (GROUP_SUMS)
+GROUP_STEPS = {"fused": 6, "abs": 5}
+GROUP_ALL_REDUCES = {"fused": 4, "abs": 3}
+
+
+def group_record(gk, plan, rows, dev, elt: int, fused: bool) -> dict:
+    """The last group-mode call's paths over ``plan``
+    (``gk.group_select_paths``; the kernel's own count of full-read tiles
+    held against the rule's) and the bytes an element they imply: two full
+    reads of ``elt`` bytes an element (fused: the norms and pass 0; |z|:
+    pass 0 and the mask's read, beside the mask's 4-byte write), the tiles
+    read in full again in passes 1 and 2, the samples, and 4 bytes a
+    candidate written in pass 0 and read in each of passes 1 and 2."""
+    rec = gk.group_select_paths(plan, rows, dev)
+    check(rec["full_tiles"] == rec["full_tiles_by_rule"],
+          f"the group mode read {rec['full_tiles']} tiles in full, its brackets and counts give "
+          f"{rec['full_tiles_by_rule']}")
+    n = rec["elements"]
+    moved = (2 * n * elt + 2 * rec["full_elements"] * elt + rec["sampled"] * elt
+             + 4 * rec["kept"] + 8 * rec["counted"] + (0 if fused else 4 * n))
+    rec.update(bytes_per_element=moved / n, candidate_share=rec["kept"] / n)
+    return rec
+
+
+def paths_words(rec) -> str:
+    return (f"{rec['segments'] - rec['full_segments']} of {rec['segments']} segments counted "
+            f"their candidates alone in passes 1-2, {rec['full_tiles']} of the tiles read in "
+            f"full ({rec['missed_tiles']} by a missed bracket, {rec['overflowed_tiles']} "
+            f"overflowed); candidates {100 * rec['candidate_share']:.2f} % of the elements, "
+            f"{rec['bytes_per_element']:.3f} bytes an element moved")
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """ms of the host's clock a call of ``fn`` takes to issue its work
+    (``calls`` calls in a row after a warm-up, no synchronize between)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """ms a call of ``fn`` from CUDA events around ``calls`` calls in a row
+    after a warm-up: the device's time where it, not the host, is behind."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def group_steps_ms(gk, op_name, call, reps: int = 5) -> dict:
+    """Each group-mode step's device ms (median over ``reps`` calls, after
+    a warm-up): CUDA events around each of ``call()``'s launches of the
+    module's ``op_name`` operator, called with no group (no all-reduce
+    between the steps). Keyed "step/pass"."""
+    real, marks = getattr(gk, op_name), []
+
+    def timed(step, p, *a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(step, p, *a)
+        end.record()
+        marks.append((f"{step}/{p}", start, end))
+
+    call()
+    setattr(gk, op_name, timed)
+    try:
+        for _ in range(reps):
+            call()
+    finally:
+        setattr(gk, op_name, real)
+    torch.cuda.synchronize()
+    by = {}
+    for key, start, end in marks:
+        by.setdefault(key, []).append(start.elapsed_time(end))
+    return {k: statistics.median(x) for k, x in by.items()}
+
+
 def hold_group_one(rt, label, layout, v, m, keep, w, tau, group, dev, timing=False,
                    plain=True):
     """``gmf_select``'s group mode over a one-rank NCCL ``group``, both modes,
@@ -4529,20 +4674,43 @@ def hold_group_one(rt, label, layout, v, m, keep, w, tau, group, dev, timing=Fal
     the |z| mask and its keep counts bitwise; with ``plain``, against its
     plain version too (thresholds bitwise ``torch.topk``'s per segment on the
     z of its own scalars, the |z| threshold and mask the plain version's).
-    With ``timing`` both launches are timed (CUDA events around the wrapper
-    call, host in). Returns the times and the largest absolute difference
-    from the single launch (``max_abs_err``)."""
+    Each mode's steps (``GROUP_STEPS``) and all-reduces a call are counted
+    and its paths read back (``group_record``). With ``timing`` both
+    launches are timed (CUDA events around the wrapper call, host in), and
+    the group mode's device time alone (``device_ms`` over calls with no
+    group: no all-reduce between the steps). Returns the times, the paths
+    and the largest absolute difference from the single launch
+    (``max_abs_err``)."""
     gk = rt.gk
     offs, one, grp = layout.offsets_dev, layout.select_plan(), group_table(rt, layout, dev)
+    rows = v.shape[0]
     kw = dict(offsets=offs, keep=keep, w=w, tau=tau, eps=EPS)
     single = gk.gmf_select_flat(v, m, plan=one, **kw)
-    grouped = gk.gmf_select_flat(v, m, plan=grp, group=group, **kw)
+    steps, sums = [], sum(gk.GROUP_SUMS.values())
+    real = counting(gk, "_select_group_op", steps, lambda _: 1)
+    try:
+        grouped = gk.gmf_select_flat(v, m, plan=grp, group=group, **kw)
+    finally:
+        gk._select_group_op = real
+    counts = {"fused": (len(steps), sum(gk.GROUP_SUMS.values()) - sums)}
+    out = {"paths": group_record(gk, grp, rows, dev, v.element_size() + m.element_size(), True)}
     err = 0.0
     for what, a, b in zip(("inv_nv", "inv_nm", "thr"), grouped, single, strict=True):
         err = max(err, max_abs(a, b))
         check(torch.equal(a, b), f"(a) group mode over {label}: {what} differs from the single "
                                  f"launch's")
-    thr, mask = gk.topk_abs_select_flat(v, offsets=offs, plan=grp, keep=keep, group=group)
+    steps, sums = [], sum(gk.GROUP_SUMS.values())
+    real = counting(gk, "_select_abs_group_op", steps, lambda _: 1)
+    try:
+        thr, mask = gk.topk_abs_select_flat(v, offsets=offs, plan=grp, keep=keep, group=group)
+    finally:
+        gk._select_abs_group_op = real
+    counts["abs"] = (len(steps), sum(gk.GROUP_SUMS.values()) - sums)
+    out["abs_paths"] = group_record(gk, grp, rows, dev, v.element_size(), False)
+    for mode, (n_steps, n_sums) in counts.items():
+        check(n_steps == GROUP_STEPS[mode] and n_sums == GROUP_ALL_REDUCES[mode],
+              f"(a) group mode's {mode} mode over {label}: {n_steps} launches and {n_sums} "
+              f"all-reduces a call, expected {GROUP_STEPS[mode]} and {GROUP_ALL_REDUCES[mode]}")
     thr1, mask1 = gk.topk_abs_select_flat(v, offsets=offs, plan=one, keep=keep)
     err = max(err, max_abs(thr, thr1), max_abs(mask, mask1))
     check(torch.equal(thr, thr1) and torch.equal(mask, mask1),
@@ -4560,31 +4728,73 @@ def hold_group_one(rt, label, layout, v, m, keep, w, tau, group, dev, timing=Fal
         check(torch.equal(thr, p_thr) and torch.equal(mask, p_mask),
               f"(a) group mode's |z| mode over {label}: differs from its plain version")
     del grouped, single, mask, mask1
-    out = {"max_abs_err": err}
+    out["max_abs_err"] = err
     if timing:
-        out |= {"ms": timed_ms(lambda: gk.gmf_select_flat(v, m, plan=grp, group=group, **kw),
-                               reps=10, warmup=2),
+        fused = lambda g: gk.gmf_select_flat(v, m, plan=grp, group=g, **kw)  # noqa: E731
+        absz = lambda g: gk.topk_abs_select_flat(  # noqa: E731
+            v, offsets=offs, plan=grp, keep=keep, group=g)
+        out |= {"ms": timed_ms(lambda: fused(group), reps=10, warmup=2),
                 "single_ms": timed_ms(lambda: gk.gmf_select_flat(v, m, plan=one, **kw),
                                       reps=10, warmup=2),
-                "abs_ms": timed_ms(lambda: gk.topk_abs_select_flat(
-                    v, offsets=offs, plan=grp, keep=keep, group=group), reps=10, warmup=2),
+                "abs_ms": timed_ms(lambda: absz(group), reps=10, warmup=2),
                 "abs_single_ms": timed_ms(lambda: gk.topk_abs_select_flat(
-                    v, offsets=offs, plan=one, keep=keep), reps=10, warmup=2)}
+                    v, offsets=offs, plan=one, keep=keep), reps=10, warmup=2),
+                "device_ms": device_ms(lambda: fused(None)),
+                "abs_device_ms": device_ms(lambda: absz(None)),
+                "host_ms": host_ms(lambda: fused(None)),
+                "group_host_ms": host_ms(lambda: fused(group)),
+                "steps_ms": group_steps_ms(gk, "_select_group_op", lambda: fused(None)),
+                "abs_steps_ms": group_steps_ms(gk, "_select_abs_group_op", lambda: absz(None))}
     print(f"  (a) group mode at a group of one over {label}: {grp.n_split} segments cut over "
           f"{grp.n_tiles} tiles; bitwise the single launch in both modes (thresholds, inverse "
           f"norms, |z| mask, keep counts)" + (" and its plain version" if plain else "")
-          + (f"; ms group {out['ms']:.4f} vs single {out['single_ms']:.4f}, |z| group "
-             f"{out['abs_ms']:.4f} vs single {out['abs_single_ms']:.4f}" if timing else ""),
-          flush=True)
+          + f"; {GROUP_STEPS['fused']} / {GROUP_STEPS['abs']} launches and "
+            f"{GROUP_ALL_REDUCES['fused']} / {GROUP_ALL_REDUCES['abs']} all-reduces a call"
+          + (f"; ms group {out['ms']:.4f} (device {out['device_ms']:.4f}) vs single "
+             f"{out['single_ms']:.4f}, |z| group {out['abs_ms']:.4f} (device "
+             f"{out['abs_device_ms']:.4f}) vs single {out['abs_single_ms']:.4f}"
+             if timing else "")
+          + f"\n      fused: {paths_words(out['paths'])}\n      |z|: "
+            f"{paths_words(out['abs_paths'])}"
+          + (f"\n      device ms a step (step/pass), fused {json.dumps(out['steps_ms'])}, |z| "
+             f"{json.dumps(out['abs_steps_ms'])}; host ms to issue a fused call "
+             f"{out['host_ms']:.4f}, with the group's all-reduces {out['group_host_ms']:.4f}"
+             if timing else ""), flush=True)
     torch.cuda.synchronize()
     return out
+
+
+def full_read_inputs(rt, dev, rows=2):
+    """Inputs built for the group mode's full reads in passes 1 and 2: a
+    layout of 131,072 (8 times the sample: the sample reads every eighth
+    element), 70,000 and 4,096 elements, float32 v = m ``[rows, N]``, and
+    (label, v, must): every score tied (every tile overflows its slots);
+    the capacity exceeded (5 % of the magnitudes in [2, 64), 30 % in [1,
+    1.001), the rest in [0.01, 0.5), signs at random: the k-th largest's bin
+    holds 30 % of each tile); the sample misled (normal draws, but 1e-3 at
+    the first leaf's sampled places: its bracket misses). Returns the
+    layout and the cases."""
+    gk = rt.gk
+    layout = rt.flat.FlatLayout.of_sizes([8 * gk.GROUP_SAMPLE, 70_000, 4096], dev)
+    rng = np.random.default_rng(29)
+    shape = (rows, layout.total)
+    u = rng.random(shape)
+    cap = np.where(u < 0.05, rng.uniform(2.0, 64.0, shape),
+                   np.where(u < 0.35, rng.uniform(1.0, 1.001, shape),
+                            rng.uniform(0.01, 0.5, shape))) * rng.choice([-1.0, 1.0], shape)
+    misled = rng.normal(size=shape)
+    misled[:, 0:8 * gk.GROUP_SAMPLE:8] = 1e-3
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    return layout, [("every score tied", torch.full(shape, 0.5, device=dev)),
+                    ("the capacity exceeded", as_t(cap)), ("the sample misled", as_t(misled))]
 
 
 def group_one_phase(rt, dev, bw, peak, resnet_params):
     """(a) in a one-rank world (NCCL for the card's tensors): the group mode
     over llama3.2-1b's bf16 row, a ResNet-56 round's float32 stacks (20
-    clients) and ``hold_select_tiles``' tie layouts. Returns the llama row's
-    times with its bound and plain version's time."""
+    clients), ``hold_select_tiles``' tie layouts and ``full_read_inputs``
+    (each of which must read some tile in full in both modes). Returns the
+    llama row's times with its bound and plain version's time."""
     from repro_torch.models import transformer
 
     gk, flat = rt.gk, rt.flat
@@ -4630,6 +4840,17 @@ def group_one_phase(rt, dev, bw, peak, resnet_params):
             tau = torch.tensor([0.0, 0.3, 1.0, 0.6], device=dev)
             errs.append(hold_group_one(rt, label, tl, v, m, keep, w, tau, group, dev)[
                 "max_abs_err"])
+        flayout, cases = full_read_inputs(rt, dev)
+        w, tau = torch.ones(2, device=dev), torch.tensor([0.3, 0.6], device=dev)
+        times["full_read_inputs"] = {}
+        for label, x in cases:
+            rec = hold_group_one(rt, f"{label} ({list(flayout.sizes)})", flayout, x, x,
+                                 flayout.keep(RATE)[1], w, tau, group, dev)
+            errs.append(rec["max_abs_err"])
+            for mode in ("paths", "abs_paths"):
+                check(rec[mode]["full_tiles"] > 0,
+                      f"(a) {label}: the group mode's {mode} read no tile in full")
+            times["full_read_inputs"][label] = {k: rec[k] for k in ("paths", "abs_paths")}
         times["max_abs_err"] = max(errs)
     finally:
         torch.distributed.destroy_process_group()
@@ -5552,6 +5773,8 @@ def fsdp_worker(rank: int, init: str, dest: str) -> None:
         out["ep_train"] = pair_train(rt, rank, granite, "dense", m12, dev, "dense", EP_STEPS,
                                      False)
         stage("(c) kimi-k2")
+        gc.collect()  # the whole layer is drawn on the card beside the other rank's pieces
+        torch.cuda.empty_cache()
         out["kimi"] = pair_kimi(rt, rank, m12, dev)
         out["c_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -5586,6 +5809,8 @@ def fsdp_pair_phase(rt, card, wit, beside=None):
     try:
         if beside is not None:
             beside()
+            gc.collect()  # what beside() leaves cached would crowd the workers' kimi-k2
+            torch.cuda.empty_cache()
         for p in procs:
             logs.append(p.communicate(timeout=900)[0])
     finally:
@@ -6500,11 +6725,11 @@ def phase(title: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "mixed-tree", "model-axis", "fsdp",
-                                       "stages-cut", "dryrun", "analysis"),
+    ap.add_argument("--only", choices=("kernels", "mixed-tree", "group-mode", "model-axis",
+                                       "fsdp", "stages-cut", "dryrun", "analysis"),
                     default=None,
                     help="run only the build and kernel phases, or the build and phase 11b, "
-                         "18, 19, 20, 21 or 22")
+                         "18 (a), 18, 19, 20, 21 or 22")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--stages-worker", type=int, default=None, help=argparse.SUPPRESS)
@@ -6594,7 +6819,8 @@ def main() -> None:
     print(f"  flash_fwd_sm90 by head dim: {json.dumps(tc_ptxas)}", flush=True)
     print(f"  built all three in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if args.only in ("mixed-tree", "model-axis", "fsdp", "stages-cut", "dryrun", "analysis"):
+    if args.only in ("mixed-tree", "group-mode", "model-axis", "fsdp", "stages-cut", "dryrun",
+                     "analysis"):
         if args.only == "mixed-tree":
             phase(PHASE11B)
             mixed_tree_phase(rt, dev, card)
@@ -6604,6 +6830,10 @@ def main() -> None:
         elif args.only == "analysis":
             phase(PHASE22)
             analysis_phase(rt, dev, card)
+        elif args.only == "group-mode":
+            phase("phase 18 (a): gmf_select's group mode at a group of one")
+            times = group_one_phase(rt, dev, bw, peak, _resnet56_params(dev))
+            print(json.dumps({"group_mode": times}), flush=True)
         elif args.only == "model-axis":
             phase("phase 18: the model axis (gmf_select's group mode at a group of one; two "
                   "processes on the card over gloo)")
@@ -6862,10 +7092,15 @@ def main() -> None:
                      **{k: tp_times[k] for k in ("ms", "bound_ms", "bound_by", "at")},
                      "plain_ms": tp_times["plain_ms"], "library_ms": None,
                      "single_launch_ms": tp_times["single_ms"],
+                     "device_ms": tp_times["device_ms"], "paths": tp_times["paths"],
+                     "launches_a_call": GROUP_STEPS, "all_reduces_a_call": GROUP_ALL_REDUCES,
                      "over_a_data_group": fsdp_rec.get("group_pod"),
                      "abs_mode": {"ms": tp_times["abs_ms"],
-                                  "single_launch_ms": tp_times["abs_single_ms"]},
-                     "resnet56_round": tp_times["resnet56"]})
+                                  "single_launch_ms": tp_times["abs_single_ms"],
+                                  "device_ms": tp_times["abs_device_ms"],
+                                  "paths": tp_times["abs_paths"]},
+                     "resnet56_round": tp_times["resnet56"],
+                     "full_read_inputs": tp_times["full_read_inputs"]})
     # K4's tensor-core kernel launches in the bf16 serving run (phase 5); its
     # CUDA-core kernel serves float32 and D 16/32, and its launches and times
     # are those of phase 6's float32 prefill.

@@ -743,6 +743,7 @@ struct SelShared {
   unsigned warps[kSelWarps + 2];
   double red[kSelWarps + 1];
   int last;
+  unsigned cands;  // the group mode's candidates appended by this block
 };
 
 // Local leaf i of the plan in row `row`: a segment of at most one tile,
@@ -809,16 +810,16 @@ struct Tile {
 };
 
 // Called by every thread of a tile block after its writes for a split leaf
-// of `tiles` tiles in this row (segment rs): true in the one block that finishes the leaf's tiles last in
-// this launch, which then sees every other tile's writes (each thread fences
-// before thread 0 takes a ticket; the ticket count is reset for the next
-// launch). The segment-wide step that follows runs in that block, so no
-// launch of its own is needed between the passes.
-__device__ bool last_tile(const SelArgs& g, int64_t rs, unsigned tiles, SelShared& sh) {
+// of `tiles` tiles in this row, `done` its segment's ticket count: true in
+// the one block that finishes the leaf's tiles last in this launch, which
+// then sees every other tile's writes (each thread fences before thread 0
+// takes a ticket; the ticket count is reset for the next launch). The
+// segment-wide step that follows runs in that block, so no launch of its
+// own is needed between the passes.
+__device__ bool last_tile(unsigned* done, unsigned tiles, SelShared& sh) {
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned* done = g.state + 4 * rs + 2;
     sh.last = atomicAdd(done, 1u) == tiles - 1;
     if (sh.last) *done = 0u;
   }
@@ -845,7 +846,7 @@ __device__ void norm_tile(int64_t tile, int64_t row, const SelArgs& g, const Sel
     out[1] = sm;
   }
   const int64_t rs = row * plan.n_split + tl.s;
-  if (!last_tile(g, rs, tl.count, sh)) return;
+  if (!last_tile(g.state + 4 * rs + 2, tl.count, sh)) return;
   const double* part = g.partials + 2 * row * plan.n_tiles;
   sv = sm = 0.0;
   for (long long i = plan.first[tl.s] + threadIdx.x; i < plan.first[tl.s + 1];
@@ -888,7 +889,7 @@ __device__ void count_tile(int p, int64_t tile, int64_t row, const SelArgs& g,
   unsigned* hist = g.hist + rs * kBins;
   for (int j = threadIdx.x; j < kBins; j += kSelThreads)
     if (sh.hist[j]) atomicAdd(hist + j, sh.hist[j]);
-  if (!last_tile(g, rs, tl.count, sh)) return;
+  if (!last_tile(g.state + 4 * rs + 2, tl.count, sh)) return;
   unsigned rank = p == 0 ? (unsigned)g.keep[row * g.keep_stride + tl.leaf] : __ldcg(st + 1);
   unsigned c[kBinsPerThread];
 #pragma unroll
@@ -1015,27 +1016,98 @@ int launch_select(const SelArgs& g, const SelPlan& plan, unsigned* bar, cudaStre
 // gmf_select's group mode: a segment cut over a group of ranks
 // ---------------------------------------------------------------------------
 //
-// The select's phases as launches of their own, so that between them the
+// The select's steps as launches of their own, so that between them the
 // caller can sum over the group what a cut segment's ranks hold apart: the
 // float64 sums of v^2 and m^2 (before the score), then each radix pass's
-// histogram (before its scan). The plan puts the cut segments first among
-// the split ones, and the group mode indexes the split segments' scratch
-// split-major (rs = s * rows + row), so the cut segments' sums and
-// histograms are one contiguous prefix of each buffer. The steps:
-//   0  the local leaves whole (as in the single launch); the split leaves'
-//      tiles: the norms' float64 partials (fused) or pass 0's counts (|z|)
-//   1  (fused) each split segment's partials summed in tile order -> gsum
-//   2  pass p's counts over the split leaves' tiles into their histograms
-//   3  pass p's scan of each split segment's histogram (zeroed again); the
-//      threshold after pass 2, the inverse norms after pass 0 (fused)
-//   4  (|z|) the mask over the split leaves' tiles
+// histogram (before the next pass reads it). The plan puts the cut segments
+// first among the split ones, and the group mode indexes the split
+// segments' scratch split-major (rs = s * rows + row), so the cut segments'
+// sums and histograms are one contiguous prefix of each buffer.
+//
+// Reading v and m (or z) once for the norms and once for each radix pass
+// would be four reads, 7.2 ms over llama3.2-1b's bf16 row against the 1.8 ms
+// bound of one. Here a call reads them twice in full, and passes 1 and 2
+// read a small share of the scores kept aside in pass 0:
+//   0  the local leaves whole (as in the single launch); (fused) the split
+//      leaves' tiles' float64 partials, which the last tile of each segment
+//      sums in tile order into gsum (the single launch's order); (|z|)
+//      step 1's blocks
+//   1  the sample (fused: after the norms' sums): one block a split segment
+//      zeroes the segment's histograms and draws kSample scores of this
+//      rank's piece at a fixed stride. From their top digits it takes a
+//      bracket [lo, hi] of pass 0's 2,048 bins: the bins of the sample's
+//      ranks k * S / whole -+ (4 standard deviations + 1), whole the
+//      segment's size over the group -- with high probability the bin of
+//      the k-th largest, one bin, or two where it lies near an edge
+//   2  radix pass p over the split leaves' tiles into the pass's own
+//      histogram. Pass 0 reads each tile in full (a block a tile) and also
+//      appends the bits of each score whose top digit lies in the bracket
+//      to the tile's candidate slots: a counter in shared memory, one
+//      atomic a warp, room for a quarter of the tile (the plan's; past it
+//      the tile has overflowed: the count goes on, the slots do not).
+//      Passes 1 and 2 run a block a run of tiles (mostly of one segment,
+//      whose counts it sums in shared memory) and scan the previous pass's
+//      histogram, summed over the group, once a segment in every block (so
+//      no scan launch): where the digit found, d0, lies in this rank's
+//      bracket and the tile did not overflow, its slots hold every score of
+//      the tile whose top digit is d0, and the pass counts them alone; else
+//      it reads the tile in full, as the single launch does. The choice is
+//      made per tile and rank on the device (the counter sits in shared
+//      memory, and a tile that overflows costs only its own reread); both
+//      give the same counts
+//   3  (fused) each split segment's threshold and inverse norms; (|z|) the
+//      mask over the split leaves' tiles, each block scanning pass 2's
+//      histogram itself
 // Each segment's sums are taken in the single launch's order and its
-// histograms are integers, so at a group of one the results are bitwise the
-// single launch's.
+// histograms are integers, whatever path a tile took, so at a group of one
+// the results are bitwise the single launch's. A fused call is 6 launches,
+// a |z| one 5. Where the bracket holds, a fused call moves 2 reads of v and
+// m plus about 12 bytes a candidate (a write and two reads of 4).
 
+constexpr int kSample = 16384;  // scores a segment's sample draws at most
+
+// A split segment's words of state in the group mode: its bracket, the
+// norms' ticket count, the prefix and rank after passes 0 and 1 (written by
+// the segment's first tile), and the tiles that read in full in pass 1.
+enum : int { kLo, kHi, kTicket, kPrefix0, kRank0, kPrefix1, kRank1, kFullTiles, kStateWords };
+
+// The group mode's plan and scratch beside SelArgs.
+struct GroupArgs {
+  const long long* whole;  // [n_split]: each split leaf's size over the group
+  const long long* slots;  // [n_tiles + 1]: each tile's first candidate slot in a row
+  double* gsum;            // [n_split][rows][2]: the segments' sums of v^2 and m^2
+  unsigned* hist;          // [3][n_split][rows][kBins]: each radix pass's histograms
+  unsigned* state;         // [n_split][rows][kStateWords]
+  unsigned* counts;        // [n_tiles][rows]: the candidates each tile appended
+  unsigned* cand;          // tile t of row r: cap_t slots at rows * slots[t] + r * cap_t
+};
+
+__device__ __forceinline__ unsigned* tile_slots(const GroupArgs& gr, int64_t tile, int64_t row,
+                                                int64_t rows, unsigned& cap) {
+  const long long a = gr.slots[tile], b = gr.slots[tile + 1];
+  cap = (unsigned)(b - a);
+  return gr.cand + rows * a + row * (b - a);
+}
+
+// A segment's scores: the fusion score under the norms summed over the
+// group, or |z|.
+template <bool ABS, class S, class M>
+__device__ __forceinline__ Scores<ABS, S, M> group_scores(const SelArgs& g, const GroupArgs& gr,
+                                                          int64_t rs, int64_t row) {
+  Scores<ABS, S, M> sc{g.v, g.m, 0.0f, 0.0f, 0.0f};
+  if (!ABS) {
+    sc.t = g.tau[row];
+    sc.a = inv_norm(g.w[row], gr.gsum[2 * rs], g.eps);
+    sc.b = inv_norm(1.0f, gr.gsum[2 * rs + 1], g.eps);
+  }
+  return sc;
+}
+
+// Step 0's norms over a split leaf's tile: its float64 partials; the last
+// tile of the segment sums the segment's in tile order into gsum.
 template <class S, class M>
-__device__ void group_partial(int64_t tile, int64_t row, const SelArgs& g, const SelPlan& plan,
-                              SelShared& sh) {
+__device__ void group_norm_tile(int64_t tile, int64_t row, const SelArgs& g, const GroupArgs& gr,
+                                const SelPlan& plan, SelShared& sh) {
   const Tile tl(plan, tile, row, g.n, g.vec);
   double sv = 0.0, sm = 0.0;
   sum_squares<S, M>(g.v, g.m, tl.sp, sv, sm);
@@ -1046,128 +1118,432 @@ __device__ void group_partial(int64_t tile, int64_t row, const SelArgs& g, const
     out[0] = sv;
     out[1] = sm;
   }
+  const int64_t rs = tl.s * g.rows + row;
+  if (!last_tile(gr.state + kStateWords * rs + kTicket, tl.count, sh)) return;
+  const double* part = g.partials + 2 * row * plan.n_tiles;
+  sv = sm = 0.0;
+  for (long long i = plan.first[tl.s] + threadIdx.x; i < plan.first[tl.s + 1];
+       i += kSelThreads) {
+    sv = __dadd_rn(sv, __ldcg(part + 2 * i));
+    sm = __dadd_rn(sm, __ldcg(part + 2 * i + 1));
+  }
+  sv = block_sum(sv, sh.red);
+  sm = block_sum(sm, sh.red);
+  if (threadIdx.x == 0) {
+    gr.gsum[2 * rs] = sv;
+    gr.gsum[2 * rs + 1] = sm;
+  }
 }
 
+// The ranks of the sample of ns scores whose bins bound the bracket: k * ns
+// / whole -+ (4 standard deviations of that count + 1), within [1, ns].
+__device__ __forceinline__ void sample_ranks(long long k, long long whole, unsigned ns,
+                                             unsigned& lo, unsigned& hi) {
+  double q = whole > 0 ? __ddiv_rn((double)k, (double)whole) : 1.0;
+  q = q < 0.0 ? 0.0 : q > 1.0 ? 1.0 : q;
+  const double r = __dmul_rn(q, (double)ns);
+  const double sd = __dsqrt_rn(__dmul_rn(__dmul_rn((double)ns, q), __dsub_rn(1.0, q)));
+  const double d = __dadd_rn(__dmul_rn(4.0, sd), 1.0);
+  const double a = floor(__dsub_rn(r, d)), b = ceil(__dadd_rn(r, d));
+  lo = a < 1.0 ? 1u : (unsigned)a;
+  hi = b > (double)ns ? ns : (unsigned)b;
+}
+
+// Step 1 over split segment rs: its three histograms and its count of
+// full-read tiles zeroed, the sample's histogram of top digits, the bracket.
 template <bool ABS, class S, class M>
-__device__ void group_count(int p, int64_t tile, int64_t row, const SelArgs& g,
-                            const SelPlan& plan, const double* gsum, SelShared& sh) {
+__device__ void group_sample(int64_t rs, const SelArgs& g, const GroupArgs& gr,
+                             const SelPlan& plan, SelShared& sh) {
+  const int64_t s = rs / g.rows, row = rs % g.rows;
+  const long long t0 = plan.first[s], t1 = plan.first[s + 1];
+  const int leaf = (int)plan.tiles[5 * t0 + 1];
+  const long long c0 = plan.tiles[5 * t0 + 2];
+  const long long len = plan.tiles[5 * (t1 - 1) + 2] + plan.tiles[5 * (t1 - 1) + 3] - c0;
+  const int64_t pass = (int64_t)plan.n_split * g.rows * kBins;
+  unsigned* hist = gr.hist + rs * kBins;
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads) {
+    sh.hist[j] = 0u;
+    hist[j] = 0u;
+    hist[pass + j] = 0u;
+    hist[2 * pass + j] = 0u;
+  }
+  unsigned* st = gr.state + kStateWords * rs;
+  if (threadIdx.x == 0) st[kFullTiles] = 0u;
+  __syncthreads();
+  const Scores<ABS, S, M> sc = group_scores<ABS, S, M>(g, gr, rs, row);
+  const unsigned ns = (unsigned)(len < kSample ? len : kSample);
+  const int64_t e0 = row * g.n + c0;
+  constexpr int kLoads = 8;  // the sample's loads in flight together, a thread
+  for (unsigned j0 = threadIdx.x; j0 < ns; j0 += kSelThreads * kLoads) {
+    unsigned b[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const unsigned j = j0 + u * kSelThreads;
+      b[u] = j < ns ? sc.one(e0 + (long long)j * len / ns) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (j0 + u * kSelThreads < ns) atomicAdd(&sh.hist[b[u] >> pass_shift(0)], 1u);
+  }
+  __syncthreads();
+  unsigned lo, hi;
+  sample_ranks(g.keep[row * g.keep_stride + leaf], gr.whole[s], ns, lo, hi);
+  unsigned c[kBinsPerThread];
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) c[j] = sh.hist[own_bin(j)];
+  const unsigned top = scan_bins(c, lo, sh.warps);
+  const unsigned bottom = scan_bins(c, hi, sh.warps);
+  if (threadIdx.x == 0) {
+    st[kLo] = bottom;
+    st[kHi] = top;
+  }
+}
+
+// Whether a score's top digit lies in [lo, lo + width].
+__device__ __forceinline__ bool in_bracket(unsigned bits, unsigned lo, unsigned width) {
+  return (bits >> pass_shift(0)) - lo <= width;
+}
+
+// Appends the scores of a warp's lanes whose top digit lies in the bracket
+// to the tile's cap slots, in ballot order (every lane of the warp calls it,
+// with its N scores and which of them are valid): one ballot a score, one
+// shared atomic for the warp's run of slots, each hit written at its
+// lane's place among the ballot's hits, so a ballot's hits are written to
+// neighbouring slots. Past cap the count goes on, the slots do not.
+template <int N>
+__device__ __forceinline__ void append_hits(const unsigned (&bits)[N], const bool (&ok)[N],
+                                            unsigned lo, unsigned width, unsigned* slots,
+                                            unsigned cap, unsigned* cands) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned hit[N], total = 0u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hit[i] = __ballot_sync(0xffffffffu, ok[i] && in_bracket(bits[i], lo, width));
+    total += __popc(hit[i]);
+  }
+  if (!total) return;
+  unsigned at = 0u;
+  if (lane == 0) at = atomicAdd(cands, total);
+  at = __shfl_sync(0xffffffffu, at, 0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (hit[i] >> lane & 1u) {
+      const unsigned slot = at + __popc(hit[i] & below);
+      if (slot < cap) slots[slot] = bits[i];
+    }
+    at += __popc(hit[i]);
+  }
+}
+
+// Quads a thread loads in pass 0 before it counts and appends them.
+constexpr int kAppendUnroll = 2;
+
+// Pass 0 over [e0, e1): every score counted into hist by its top digit, and
+// those whose digit lies in [lo, lo + width] appended to the tile's cap
+// slots (append_hits). The loops' trip counts are the same in every lane of
+// a warp, as the ballots need.
+template <class Sc>
+__device__ void count_append_span(unsigned* hist, const Sc& sc, const Span& sp, unsigned lo,
+                                  unsigned width, unsigned* slots, unsigned cap,
+                                  unsigned* cands) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int shift = pass_shift(0);
+  constexpr int N = 4 * kAppendUnroll;
+  for (int64_t q0 = sp.qa + warp * 32; q0 < sp.qb; q0 += kSelThreads * kAppendUnroll) {
+    unsigned b[N];
+    bool ok[N];
+#pragma unroll
+    for (int u = 0; u < kAppendUnroll; ++u) {
+      const int64_t q = q0 + u * kSelThreads + lane;
+      const bool in = q < sp.qb;
+      const uint4 r = in ? sc.quad(q) : make_uint4(0u, 0u, 0u, 0u);
+      b[4 * u] = r.x;
+      b[4 * u + 1] = r.y;
+      b[4 * u + 2] = r.z;
+      b[4 * u + 3] = r.w;
+      ok[4 * u] = ok[4 * u + 1] = ok[4 * u + 2] = ok[4 * u + 3] = in;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (ok[i]) atomicAdd(&hist[b[i] >> shift], 1u);
+    append_hits<N>(b, ok, lo, width, slots, cap, cands);
+  }
+  // the scalar head and tail: one score a lane
+  const int64_t ends[2][2] = {{sp.e0, sp.head}, {sp.tail, sp.e1}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    for (int64_t j0 = ends[h][0] + warp * 32; j0 < ends[h][1]; j0 += kSelThreads) {
+      const int64_t j = j0 + lane;
+      const bool ok[1] = {j < ends[h][1]};
+      const unsigned b[1] = {ok[0] ? sc.one(j) : 0u};
+      if (ok[0]) atomicAdd(&hist[b[0] >> shift], 1u);
+      append_hits<1>(b, ok, lo, width, slots, cap, cands);
+    }
+  }
+}
+
+// Pass p's count of a tile's n candidates (16-byte aligned slots).
+__device__ void count_slots(unsigned* hist, const unsigned* slots, unsigned n, unsigned prefix,
+                            int p) {
+  const unsigned pmask = pass_pmask(p), dmask = pass_dmask(p);
+  const int shift = pass_shift(p);
+  const unsigned nq = n / 4;
+  for (unsigned q = threadIdx.x; q < nq; q += kSelThreads) {
+    const uint4 r = reinterpret_cast<const uint4*>(slots)[q];
+    count_one(hist, true, r.x, prefix, pmask, shift, dmask);
+    count_one(hist, true, r.y, prefix, pmask, shift, dmask);
+    count_one(hist, true, r.z, prefix, pmask, shift, dmask);
+    count_one(hist, true, r.w, prefix, pmask, shift, dmask);
+  }
+  for (unsigned j = 4 * nq + threadIdx.x; j < n; j += kSelThreads)
+    count_one(hist, true, slots[j], prefix, pmask, shift, dmask);
+}
+
+// The digit pass p - 1 (1 or 2) found in segment rs, from its histogram
+// summed over the group: returns the prefix of the digits found so far and
+// sets rank to the rank inside it. The segment's first tile keeps both in the
+// state for the next step.
+__device__ unsigned group_digits(int p, int64_t rs, int64_t row, int leaf, bool first,
+                                 const SelArgs& g, const GroupArgs& gr, const SelPlan& plan,
+                                 unsigned& rank, SelShared& sh) {
+  unsigned* st = gr.state + kStateWords * rs;
+  unsigned prefix = p == 1 ? 0u : st[kPrefix0];
+  rank = p == 1 ? (unsigned)g.keep[row * g.keep_stride + leaf] : st[kRank0];
+  const unsigned* h = gr.hist + ((p - 1) * (int64_t)plan.n_split * g.rows + rs) * kBins;
+  unsigned c[kBinsPerThread];
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) c[j] = h[own_bin(j)];
+  prefix |= scan_bins(c, rank, sh.warps) << pass_shift(p - 1);
+  if (first && threadIdx.x == 0) {
+    st[p == 1 ? kPrefix0 : kPrefix1] = prefix;
+    st[p == 1 ? kRank0 : kRank1] = rank;
+  }
+  return prefix;
+}
+
+// Adds the shared histogram's nonzero bins to split segment rs's histogram
+// of pass p and zeroes them.
+__device__ void flush_hist(int p, int64_t rs, const SelArgs& g, const GroupArgs& gr,
+                           const SelPlan& plan, SelShared& sh) {
+  __syncthreads();
+  unsigned* hist = gr.hist + (p * (int64_t)plan.n_split * g.rows + rs) * kBins;
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads)
+    if (sh.hist[j]) {
+      atomicAdd(hist + j, sh.hist[j]);
+      sh.hist[j] = 0u;
+    }
+  __syncthreads();
+}
+
+// Step 2, radix pass 0 over a split leaf's tile into its segment's
+// histogram of the pass, in full, with the candidates' appends.
+template <bool ABS, class S, class M>
+__device__ void group_pass0(int64_t tile, int64_t row, const SelArgs& g, const GroupArgs& gr,
+                            const SelPlan& plan, SelShared& sh) {
   const Tile tl(plan, tile, row, g.n, g.vec);
   const int64_t rs = tl.s * g.rows + row;
-  Scores<ABS, S, M> sc{g.v, g.m, 0.0f, 0.0f, 0.0f};
-  if (!ABS) {
-    sc.t = g.tau[row];
-    sc.a = inv_norm(g.w[row], gsum[2 * rs], g.eps);
-    sc.b = inv_norm(1.0f, gsum[2 * rs + 1], g.eps);
-  }
-  const unsigned prefix = p == 0 ? 0u : g.state[4 * rs];
+  const unsigned* st = gr.state + kStateWords * rs;
+  unsigned cap;
+  unsigned* slots = tile_slots(gr, tile, row, g.rows, cap);
+  const Scores<ABS, S, M> sc = group_scores<ABS, S, M>(g, gr, rs, row);
+  const unsigned lo = st[kLo], width = st[kHi] - lo;
   for (int j = threadIdx.x; j < kBins; j += kSelThreads) sh.hist[j] = 0u;
+  if (threadIdx.x == 0) sh.cands = 0u;
   __syncthreads();
-  count_span(sh.hist, sc, tl.sp, prefix, p);
-  __syncthreads();
-  unsigned* hist = g.hist + rs * kBins;
-  for (int j = threadIdx.x; j < kBins; j += kSelThreads)
-    if (sh.hist[j]) atomicAdd(hist + j, sh.hist[j]);
+  count_append_span(sh.hist, sc, tl.sp, lo, width, slots, cap, &sh.cands);
+  flush_hist(0, rs, g, gr, plan, sh);
+  if (threadIdx.x == 0) gr.counts[tile * g.rows + row] = sh.cands;
+}
+
+// Step 2, radix pass p (1 or 2) over the items [i0, i1) of the split
+// leaves' tiles (item i: tile i % n_tiles of row i / n_tiles, so a block's
+// items are mostly the tiles of one segment): each block scans the previous
+// pass's histogram once a segment, and sums its tiles' counts of a segment
+// in shared memory, added to the pass's histogram of the segment when it
+// leaves it. A tile counts its candidates, or reads in full.
+template <bool ABS, class S, class M>
+__device__ void group_pass(int p, int64_t i0, int64_t i1, const SelArgs& g, const GroupArgs& gr,
+                           const SelPlan& plan, SelShared& sh) {
+  for (int j = threadIdx.x; j < kBins; j += kSelThreads) sh.hist[j] = 0u;
+  int64_t cur = -1;  // the segment whose counts the shared histogram holds
+  Scores<ABS, S, M> sc{g.v, g.m, 0.0f, 0.0f, 0.0f};
+  unsigned* st = nullptr;
+  unsigned lo = 0u, width = 0u, prefix = 0u, rank = 0u;
+  for (int64_t it = i0; it < i1; ++it) {
+    const int64_t row = it / plan.n_tiles, tile = it % plan.n_tiles;
+    const Tile tl(plan, tile, row, g.n, g.vec);
+    const int64_t rs = tl.s * g.rows + row;
+    if (rs != cur) {
+      if (cur >= 0) flush_hist(p, cur, g, gr, plan, sh);
+      cur = rs;
+      st = gr.state + kStateWords * rs;
+      sc = group_scores<ABS, S, M>(g, gr, rs, row);
+      lo = st[kLo];
+      width = st[kHi] - lo;
+      prefix = group_digits(p, rs, row, tl.leaf, tile == plan.first[tl.s], g, gr, plan, rank, sh);
+    }
+    unsigned cap;
+    const unsigned* slots = tile_slots(gr, tile, row, g.rows, cap);
+    const unsigned n = gr.counts[tile * g.rows + row];
+    if (!in_bracket(prefix, lo, width) || n > cap) {
+      if (p == 1 && threadIdx.x == 0) atomicAdd(st + kFullTiles, 1u);
+      count_span(sh.hist, sc, tl.sp, prefix, p);
+    } else {
+      count_slots(sh.hist, slots, n, prefix, p);
+    }
+  }
+  if (cur >= 0) flush_hist(p, cur, g, gr, plan, sh);
+}
+
+// |z| mode's float32 mask |z| >= thr over [e0, e1), kSelUnroll quads a
+// thread in flight together.
+template <class S>
+__device__ void group_write_mask(const void* z, float* mask, const Span& sp, float thr) {
+  for (int64_t q0 = sp.qa + threadIdx.x; q0 < sp.qb; q0 += kSelThreads * kSelUnroll) {
+    float4 x[kSelUnroll];
+#pragma unroll
+    for (int u = 0; u < kSelUnroll; ++u) {
+      const int64_t q = q0 + u * kSelThreads;
+      x[u] = q < sp.qb ? Num<S>::get4(z, q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kSelUnroll; ++u) {
+      const int64_t q = q0 + u * kSelThreads;
+      if (q < sp.qb)
+        reinterpret_cast<float4*>(mask)[q] = make_float4(
+            fabsf(x[u].x) >= thr ? 1.0f : 0.0f, fabsf(x[u].y) >= thr ? 1.0f : 0.0f,
+            fabsf(x[u].z) >= thr ? 1.0f : 0.0f, fabsf(x[u].w) >= thr ? 1.0f : 0.0f);
+    }
+  }
+  for (int64_t j = sp.e0 + threadIdx.x; j < sp.head; j += kSelThreads)
+    mask[j] = fabsf(Num<S>::get(z, j)) >= thr ? 1.0f : 0.0f;
+  for (int64_t j = sp.tail + threadIdx.x; j < sp.e1; j += kSelThreads)
+    mask[j] = fabsf(Num<S>::get(z, j)) >= thr ? 1.0f : 0.0f;
+}
+
+// The threshold of split segment rs after pass 2's histogram.
+__device__ float group_threshold(int64_t rs, const SelArgs& g, const GroupArgs& gr,
+                                 const SelPlan& plan, SelShared& sh) {
+  const unsigned* st = gr.state + kStateWords * rs;
+  unsigned rank = st[kRank1];
+  const unsigned* h = gr.hist + (2 * (int64_t)plan.n_split * g.rows + rs) * kBins;
+  unsigned c[kBinsPerThread];
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) c[j] = h[own_bin(j)];
+  return __uint_as_float(st[kPrefix1] | scan_bins(c, rank, sh.warps) << pass_shift(2));
 }
 
 template <bool ABS, class S, class M>
 __global__ void __launch_bounds__(kSelThreads)
-group_first_kernel(const SelArgs g, const SelPlan plan) {
+group_first_kernel(const SelArgs g, const GroupArgs gr, const SelPlan plan) {
   __shared__ SelShared sh;
   const int64_t rows = g.rows, locals = plan.n_local * rows, it = blockIdx.x;
   if (it < locals) {
     select_local<ABS, S, M>(it / rows, it % rows, g, plan, sh);
   } else if (ABS) {
-    group_count<ABS, S, M>(0, (it - locals) / rows, (it - locals) % rows, g, plan, nullptr, sh);
+    group_sample<ABS, S, M>(it - locals, g, gr, plan, sh);
   } else {
-    group_partial<S, M>((it - locals) / rows, (it - locals) % rows, g, plan, sh);
-  }
-}
-
-__global__ void __launch_bounds__(kSelThreads)
-group_norm_sum_kernel(const SelArgs g, const SelPlan plan, double* gsum) {
-  __shared__ SelShared sh;
-  const int64_t rs = blockIdx.x, s = rs / g.rows, row = rs % g.rows;
-  const double* part = g.partials + 2 * row * plan.n_tiles;
-  double sv = 0.0, sm = 0.0;
-  for (long long i = plan.first[s] + threadIdx.x; i < plan.first[s + 1]; i += kSelThreads) {
-    sv = __dadd_rn(sv, part[2 * i]);
-    sm = __dadd_rn(sm, part[2 * i + 1]);
-  }
-  sv = block_sum(sv, sh.red);
-  sm = block_sum(sm, sh.red);
-  if (threadIdx.x == 0) {
-    gsum[2 * rs] = sv;
-    gsum[2 * rs + 1] = sm;
+    group_norm_tile<S, M>((it - locals) / rows, (it - locals) % rows, g, gr, plan, sh);
   }
 }
 
 template <bool ABS, class S, class M>
 __global__ void __launch_bounds__(kSelThreads)
-group_count_kernel(int p, const SelArgs g, const SelPlan plan, const double* gsum) {
+group_sample_kernel(const SelArgs g, const GroupArgs gr, const SelPlan plan) {
   __shared__ SelShared sh;
-  group_count<ABS, S, M>(p, blockIdx.x / g.rows, blockIdx.x % g.rows, g, plan, gsum, sh);
+  group_sample<ABS, S, M>(blockIdx.x, g, gr, plan, sh);
 }
 
-template <bool ABS>
-__global__ void __launch_bounds__(kSelThreads)
-group_scan_kernel(int p, const SelArgs g, const SelPlan plan, const double* gsum) {
+// Radix pass 0 is bound by its instructions (the counts and the appends):
+// six blocks an SM (at most 40 registers a thread) hide more of their
+// latency than the four its registers would otherwise allow.
+template <bool ABS, class S, class M>
+__global__ void __launch_bounds__(kSelThreads, 6)
+group_pass0_kernel(const SelArgs g, const GroupArgs gr, const SelPlan plan) {
   __shared__ SelShared sh;
-  const int64_t rs = blockIdx.x, s = rs / g.rows, row = rs % g.rows;
-  const int leaf = (int)plan.tiles[5 * plan.first[s] + 1];
-  const int64_t seg = row * g.leaves + leaf;
-  unsigned* st = g.state + 4 * rs;
-  unsigned prefix = p == 0 ? 0u : st[0];
-  unsigned rank = p == 0 ? (unsigned)g.keep[row * g.keep_stride + leaf] : st[1];
-  unsigned* hist = g.hist + rs * kBins;
-  unsigned c[kBinsPerThread];
-#pragma unroll
-  for (int j = 0; j < kBinsPerThread; ++j) {
-    c[j] = hist[own_bin(j)];
-    hist[own_bin(j)] = 0u;
-  }
-  prefix |= scan_bins(c, rank, sh.warps) << pass_shift(p);
-  if (threadIdx.x == 0) {
-    st[0] = prefix;
-    st[1] = rank;
-    if (p == 2) g.thr[seg] = __uint_as_float(prefix);
-    if (!ABS && p == 0) {
-      g.inv_nv[seg] = inv_norm(g.w[row], gsum[2 * rs], g.eps);
-      g.inv_nm[seg] = inv_norm(1.0f, gsum[2 * rs + 1], g.eps);
+  group_pass0<ABS, S, M>(blockIdx.x / g.rows, blockIdx.x % g.rows, g, gr, plan, sh);
+}
+
+template <bool ABS, class S, class M>
+__global__ void __launch_bounds__(kSelThreads)
+group_pass_kernel(int p, const SelArgs g, const GroupArgs gr, const SelPlan plan,
+                  long long chunk) {
+  __shared__ SelShared sh;
+  const int64_t items = (int64_t)plan.n_tiles * g.rows, i0 = blockIdx.x * chunk;
+  group_pass<ABS, S, M>(p, i0, i0 + chunk < items ? i0 + chunk : items, g, gr, plan, sh);
+}
+
+// Step 3: (fused) a block a split segment writes its threshold and inverse
+// norms; (|z|) a block a tile writes its mask, the segment's first tile the
+// threshold.
+template <bool ABS, class S>
+__global__ void __launch_bounds__(kSelThreads)
+group_last_kernel(const SelArgs g, const GroupArgs gr, const SelPlan plan) {
+  __shared__ SelShared sh;
+  if constexpr (ABS) {
+    const int64_t tile = blockIdx.x / g.rows, row = blockIdx.x % g.rows;
+    const Tile tl(plan, tile, row, g.n, g.vec);
+    const float thr = group_threshold(tl.s * g.rows + row, g, gr, plan, sh);
+    if (threadIdx.x == 0 && tile == plan.first[tl.s]) g.thr[row * g.leaves + tl.leaf] = thr;
+    group_write_mask<S>(g.v, g.mask, tl.sp, thr);
+  } else {
+    const int64_t rs = blockIdx.x, s = rs / g.rows, row = rs % g.rows;
+    const float thr = group_threshold(rs, g, gr, plan, sh);
+    if (threadIdx.x == 0) {
+      const int64_t seg = row * g.leaves + plan.tiles[5 * plan.first[s] + 1];
+      g.thr[seg] = thr;
+      g.inv_nv[seg] = inv_norm(g.w[row], gr.gsum[2 * rs], g.eps);
+      g.inv_nm[seg] = inv_norm(1.0f, gr.gsum[2 * rs + 1], g.eps);
     }
   }
 }
 
-template <class S>
-__global__ void __launch_bounds__(kSelThreads)
-group_mask_kernel(const SelArgs g, const SelPlan plan) {
-  mask_tile<S>(blockIdx.x / g.rows, blockIdx.x % g.rows, g, plan);
-}
+// Blocks a launch of radix passes 1 and 2 runs for each SM: a few waves,
+// so that a block's items are many tiles of one segment on a long row and
+// the waves still balance.
+constexpr int kChunkBlocksPerSM = 16;
 
 // One step of the group mode on the stream (a step with nothing to do
-// launches nothing).
+// launches nothing): 0 the first launch, 1 (fused) the sample, 2 radix pass
+// p, 3 the last launch.
 template <bool ABS, class S, class M>
-int launch_group_step(int step, int p, const SelArgs& g, const SelPlan& plan, double* gsum,
-                      cudaStream_t st) {
+int launch_group_step(int step, int p, const SelArgs& g, const GroupArgs& gr,
+                      const SelPlan& plan, cudaStream_t st) {
   const long long rows = g.rows;
   const unsigned splits = (unsigned)(plan.n_split * rows), tiles = (unsigned)(plan.n_tiles * rows);
   if (p < 0 || p > 2) return (int)cudaErrorInvalidValue;
+  static int sms[64] = {};  // the SMs of each device, asked once
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err) return (int)err;
+  }
+  const long long most = (long long)sms[dev] * kChunkBlocksPerSM;
+  const long long chunk = (tiles + most - 1) / most;  // items a block
+  const unsigned chunks = (unsigned)(chunk ? (tiles + chunk - 1) / chunk : 0);
   switch (step) {
     case 0: {
-      const long long items = ((long long)plan.n_local + plan.n_tiles) * rows;
-      if (items) group_first_kernel<ABS, S, M><<<(unsigned)items, kSelThreads, 0, st>>>(g, plan);
+      const long long items = ((long long)plan.n_local + (ABS ? plan.n_split : plan.n_tiles)) * rows;
+      if (items)
+        group_first_kernel<ABS, S, M><<<(unsigned)items, kSelThreads, 0, st>>>(g, gr, plan);
       break;
     }
     case 1:
-      if (!ABS && splits) group_norm_sum_kernel<<<splits, kSelThreads, 0, st>>>(g, plan, gsum);
+      if (!ABS && splits) group_sample_kernel<ABS, S, M><<<splits, kSelThreads, 0, st>>>(g, gr, plan);
       break;
     case 2:
-      if (tiles) group_count_kernel<ABS, S, M><<<tiles, kSelThreads, 0, st>>>(p, g, plan, gsum);
+      if (p == 0 && tiles)
+        group_pass0_kernel<ABS, S, M><<<tiles, kSelThreads, 0, st>>>(g, gr, plan);
+      if (p > 0 && chunks)
+        group_pass_kernel<ABS, S, M><<<chunks, kSelThreads, 0, st>>>(p, g, gr, plan, chunk);
       break;
     case 3:
-      if (splits) group_scan_kernel<ABS><<<splits, kSelThreads, 0, st>>>(p, g, plan, gsum);
-      break;
-    case 4:
-      if (ABS && tiles) group_mask_kernel<S><<<tiles, kSelThreads, 0, st>>>(g, plan);
+      if (ABS ? tiles : splits)
+        group_last_kernel<ABS, S><<<ABS ? tiles : splits, kSelThreads, 0, st>>>(g, gr, plan);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -1321,47 +1697,56 @@ int gmf_select_abs(const void* z, const long long* plan, int n_local, int n_spli
   });
 }
 
-// One step (0-4, pass p for steps 2 and 3) of gmf_select's group mode
-// (see launch_group_step), its arguments gmf_select's and gsum, the split
-// segments' float64 sums of v^2 and m^2 [n_split][rows][2]. hist and state
-// are indexed split-major in this mode.
+// One step (0-3, pass p for step 2) of gmf_select's group mode (see
+// launch_group_step), its arguments gmf_select's and the group mode's own:
+// gplan, each split leaf's whole size [n_split] and each tile's first
+// candidate slot in a row [n_tiles + 1] (int64, on the device); gsum, the
+// split segments' float64 sums of v^2 and m^2 [n_split][rows][2]; hist,
+// three passes' histograms [3][n_split][rows][2048]; state [n_split][rows]
+// [8], its ticket counts zero at the first call and left zero; counts
+// [n_tiles][rows] and cand, the candidate slots.
 int gmf_select_group(int step, int p, const void* v, const void* m, const long long* plan,
-                     int n_local, int n_split, int n_tiles, const long long* keep,
-                     int keep_stride, const float* w, const float* tau, float eps, int leaves,
-                     long long rows, long long n, int vec, float* inv_nv, float* inv_nm,
-                     float* thr, double* partials, double* gsum, unsigned* hist,
-                     unsigned* state, int s, int m_dtype, void* stream) {
+                     int n_local, int n_split, int n_tiles, const long long* gplan,
+                     const long long* keep, int keep_stride, const float* w, const float* tau,
+                     float eps, int leaves, long long rows, long long n, int vec,
+                     float* inv_nv, float* inv_nm, float* thr, double* partials, double* gsum,
+                     unsigned* hist, unsigned* state, unsigned* counts, unsigned* cand, int s,
+                     int m_dtype, void* stream) {
   if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(s) ||
-      !known(m_dtype))
+      !known(m_dtype) || (n_split && !gplan))
     return (int)cudaErrorInvalidValue;
   const SelPlan pl(plan, n_local, n_split, n_tiles);
   const SelArgs g{v,     m,     keep, w, tau,          inv_nv, inv_nm, thr, nullptr, partials,
                   hist,  state, n,    rows, eps, keep_stride, leaves, vec};
+  const GroupArgs gr{gplan, gplan + n_split, gsum, hist, state, counts, cand};
   cudaStream_t st = (cudaStream_t)stream;
   return with_type(s, [&](auto sv) {
     using S = decltype(sv);
     return with_type(m_dtype, [&](auto mv) {
       using M = decltype(mv);
-      return launch_group_step<false, S, M>(step, p, g, pl, gsum, st);
+      return launch_group_step<false, S, M>(step, p, g, gr, pl, st);
     });
   });
 }
 
-// gmf_select_abs's group mode, one step as for gmf_select_group.
+// gmf_select_abs's group mode, one step as for gmf_select_group (step 1
+// has nothing to launch: the sample runs in step 0).
 int gmf_select_abs_group(int step, int p, const void* z, const long long* plan, int n_local,
-                         int n_split, int n_tiles, const long long* keep, int keep_stride,
-                         int leaves, long long rows, long long n, int vec, float* thr,
-                         float* mask, unsigned* hist, unsigned* state, int z_dtype,
-                         void* stream) {
-  if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(z_dtype))
+                         int n_split, int n_tiles, const long long* gplan, const long long* keep,
+                         int keep_stride, int leaves, long long rows, long long n, int vec,
+                         float* thr, float* mask, unsigned* hist, unsigned* state,
+                         unsigned* counts, unsigned* cand, int z_dtype, void* stream) {
+  if (!plan_ok(leaves, rows, n_local, n_split, n_tiles, keep_stride) || !known(z_dtype) ||
+      (n_split && !gplan))
     return (int)cudaErrorInvalidValue;
   const SelPlan pl(plan, n_local, n_split, n_tiles);
   const SelArgs g{z,    nullptr, keep, nullptr, nullptr,     nullptr, nullptr, thr, mask, nullptr,
                   hist, state,   n,    rows,    0.0f,        keep_stride, leaves, vec};
+  const GroupArgs gr{gplan, gplan + n_split, nullptr, hist, state, counts, cand};
   cudaStream_t st = (cudaStream_t)stream;
   return with_type(z_dtype, [&](auto zv) {
     using Z = decltype(zv);
-    return launch_group_step<true, Z, Z>(step, p, g, pl, nullptr, st);
+    return launch_group_step<true, Z, Z>(step, p, g, gr, pl, st);
   });
 }
 

@@ -36,14 +36,17 @@ stack, the flat one included.
 
 ``gmf_select``'s group mode (a plan made with ``select_table(...,
 group=...)``) selects a layout whose segments are cut over a process group
-of ranks (tensor parallelism's model group): the same phases as separate
-launches on the stream, and between them one ``all_reduce`` over the group
-of the cut segments' float64 norm sums, then of each radix pass's integer
-histograms; nothing is read back to the host. Integer histograms sum
-exactly in any order, so each threshold is the k-th largest of the whole
-leaf. At a group of one (or ``group=None``) it is bitwise the single
-launch; its calls count as ``gmf_select`` launches of a ``group:``
-instance.
+of ranks (tensor parallelism's model group): its steps as separate
+launches on the stream (6 fused, 5 in the |z| mode), and between them one
+``all_reduce`` over the group of the cut segments' float64 norm sums, then
+of each radix pass's integer histograms; nothing is read back to the
+host. It reads the stack twice in full: pass 0 keeps aside the scores in
+a bracket that a sample foretells, and passes 1 and 2 count those alone
+where the bracket holds (``csrc/gmf_compress.cu`` says how).
+Integer histograms sum exactly in any order, so each threshold is the
+k-th largest of the whole leaf. At a group of one (or ``group=None``) it
+is bitwise the single launch; its calls count as ``gmf_select`` launches
+of a ``group:`` instance.
 
 K2 (``momentum_correction_tree``) is one multi-tensor launch over every
 leaf of a tree: ``plan_momentum`` cuts the leaves into launches of at most
@@ -131,10 +134,11 @@ SIGNATURES = {
     "gmf_select_abs": ([_P, _P, _I32, _I32, _I32, _P, _I32, _I32, _I64, _I64, _I32, _P, _P, _P,
                         _P, _I32, _P], _I32),
     "gmf_compress": ([_P] * 8 + [_I32, _I64] + [_P] * 4 + [_I64, _I32, _I32, _I32, _P], _I32),
-    "gmf_select_group": ([_I32, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _I32, _P, _P, _F32, _I32,
-                          _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P], _I32),
-    "gmf_select_abs_group": ([_I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I32, _I32, _I64, _I64,
-                              _I32, _P, _P, _P, _P, _I32, _P], _I32),
+    "gmf_select_group": ([_I32, _I32, _P, _P, _P, _I32, _I32, _I32, _P, _P, _I32, _P, _P, _F32,
+                          _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                          _P], _I32),
+    "gmf_select_abs_group": ([_I32, _I32, _P, _P, _I32, _I32, _I32, _P, _P, _I32, _I32, _I64,
+                              _I64, _I32, _P, _P, _P, _P, _P, _P, _I32, _P], _I32),
 }
 
 
@@ -187,6 +191,15 @@ SELECT_SHARE = 16
 SELECT_TILE_MIN, SELECT_TILE_MAX = 16_384, 65_536
 # The rank and the histogram counts are 32-bit unsigned in the kernel.
 SELECT_MAX_SEGMENT = 2**32 - 1
+# The group mode's sample draws at most GROUP_SAMPLE scores of a segment's
+# piece (``csrc/gmf_compress.cu``: kSample); a tile keeps at most 1 /
+# GROUP_CAND_SHARE of its scores as candidates (``candidate_slots``): at a
+# rate of 0.1 a bracket of one or two bins holds up to ~15 % of the scores
+# (14 % of llama3.2-1b's bf16 row in the fused mode, PERF.md), past an
+# eighth.
+GROUP_SAMPLE, GROUP_CAND_SHARE = 16_384, 4
+# The group mode's words of state a split segment (kStateWords).
+GROUP_STATE_WORDS = 8
 
 
 class SelectPlan(NamedTuple):
@@ -235,7 +248,13 @@ class SelectTable(NamedTuple):
     where some cut segment's piece is another rank's to count, its factor
     on each cut segment's sums and histograms before they are summed over
     the group: ``[n_group, 1]`` float64 and int32 device tensors of 1 (this
-    rank owns its piece) and 0."""
+    rank owns its piece) and 0. ``group_plan`` (a group mode's table only)
+    is int64 on the device: each split leaf's whole size over the group
+    ``[n_split]``, then each tile's first candidate slot in a row ``[n_tiles
+    + 1]`` (``candidate_slots``). It follows ``table`` in one buffer, so a
+    group step takes the table alone (``_group_plan_ptr``): each argument of
+    an operator costs host time at every call. ``slots`` is a row's
+    candidate slots."""
     table: torch.Tensor
     n_local: int
     n_split: int
@@ -244,14 +263,26 @@ class SelectTable(NamedTuple):
     scratch: dict
     n_group: int | None = None
     owners: tuple | None = None
+    group_plan: torch.Tensor | None = None
+    slots: int = 0
 
 
-def select_table(plan: SelectPlan, device, group=None, owners=None) -> SelectTable:
+def candidate_slots(lengths) -> np.ndarray:
+    """The group mode's candidate slots of tiles of ``lengths`` elements:
+    a quarter of each (``GROUP_CAND_SHARE``), rounded up to a multiple of
+    4 so that every tile's slots start 16-byte aligned."""
+    caps = -(-np.asarray(lengths, dtype=np.int64) // GROUP_CAND_SHARE)
+    return (caps + 3) // 4 * 4
+
+
+def select_table(plan: SelectPlan, device, group=None, owners=None, whole=None) -> SelectTable:
     """``plan``'s device table, for ``FlatLayout.select_plan`` to make once.
     ``group`` (a bool a leaf) makes the group mode's table: the flagged
     leaves are split ones whatever their tile count, and come first;
     ``owners`` (a bool a leaf, default all) whether this rank's piece of a
-    flagged leaf counts in the group's sums."""
+    flagged leaf counts in the group's sums; ``whole`` (an int a leaf,
+    default the plan's sizes) each leaf's size over the group, which the
+    group mode's sample reads its keep count against."""
     counts = np.diff(plan.first)
     sizes = np.add.reduceat(plan.blocks[:, 2], plan.first[:-1]) if counts.size else counts
     offsets = np.cumsum(sizes) - sizes
@@ -277,8 +308,17 @@ def select_table(plan: SelectPlan, device, group=None, owners=None) -> SelectTab
         flags = np.asarray(owners, bool)[cut].reshape(-1, 1)
         own = (torch.as_tensor(flags.astype(np.float64)).to(device),
                torch.as_tensor(flags.astype(np.int32)).to(device))
-    return SelectTable(torch.as_tensor(host).to(device), len(local), int(split.size),
-                       len(tiles), plan, {}, None if group is None else int(cut.sum()), own)
+    if group is None:
+        return SelectTable(torch.as_tensor(host).to(device), len(local), int(split.size),
+                           len(tiles), plan, {})
+    whole = sizes if whole is None else np.asarray(whole, dtype=np.int64).reshape(-1)
+    if whole.shape != counts.shape:
+        raise ValueError(f"whole sizes for {whole.size} leaves, the plan has {counts.size}")
+    first_slot = np.concatenate([[0], np.cumsum(candidate_slots(tiles[:, 3]))])
+    both = torch.as_tensor(np.concatenate([host, whole[split], first_slot]).astype(np.int64))
+    both = both.to(device)
+    return SelectTable(both[:host.size], len(local), int(split.size), len(tiles), plan, {},
+                       int(cut.sum()), own, both[host.size:], int(first_slot[-1]))
 
 
 def _check_stack(name: str, *xs: torch.Tensor) -> None:
@@ -365,9 +405,19 @@ def _stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def _launch(name: str, fn, device, *args, inst: str = "", stream: int | None = None) -> None:
-    stream = _stream(device) if stream is None else stream
+def _on(device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current, on its current stream."""
+    stream = _stream(device)
     if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
+def _launch(name: str, fn, device, *args, inst: str = "", stream: int | None = None) -> None:
+    if stream is None:
+        err = _on(device, fn, *args)
+    elif device.index == torch.cuda.current_device():
         err = fn(*args, stream)
     else:
         with torch.cuda.device(device):
@@ -492,38 +542,58 @@ def _group_launched(err: int, step: int, pas: int, inst: str) -> None:
         INSTANCES["gmf_select", inst] = INSTANCES.get(("gmf_select", inst), 0) + 1
 
 
+def _group_ptrs(part: torch.Tensor, buf: torch.Tensor, rows: int, n_split: int, n_tiles: int):
+    """The group mode's scratch addresses (``group_scratch``): the tile
+    partials, the split segments' sums, the three passes' histograms, the
+    segment states and the tiles' candidate counts."""
+    hist = 3 * rows * n_split * 2048
+    state = buf.data_ptr() + 4 * hist
+    return (part.data_ptr(), part.data_ptr() + 8 * rows * n_tiles * 2, buf.data_ptr(), state,
+            state + 4 * rows * n_split * GROUP_STATE_WORDS)
+
+
+def _group_plan_ptr(table: torch.Tensor) -> int:
+    """The address of a group table's ``group_plan``, which follows it."""
+    return table.data_ptr() + 8 * table.numel()
+
+
 # The group mode's steps, one launch each: the steps of one select count as
-# one gmf_select launch; the fake counts each step.
-@_op("gmf_select_group_", ("inv_nv", "inv_nm", "thr", "part", "buf"), "gmf_select_step")
+# one gmf_select launch; the fake counts each step. Every step is called
+# six or five times a select, so each takes few arguments (a custom op's
+# host time grows with its argument count): the outputs as the one buffer
+# they are views of, ``sizes`` = (n_local, n_split, n_tiles, keep stride).
+@_op("gmf_select_group_", ("out", "part", "buf", "cand"), "gmf_select_step")
 def _select_group_op(step: int, pas: int, v: torch.Tensor, m: torch.Tensor,
                      table: torch.Tensor, keep: torch.Tensor, w: torch.Tensor,
-                     tau: torch.Tensor, inv_nv: torch.Tensor, inv_nm: torch.Tensor,
-                     thr: torch.Tensor, part: torch.Tensor, buf: torch.Tensor, n_local: int,
-                     n_split: int, n_tiles: int, stride: int, eps: float) -> None:
-    rows, leaves = thr.shape
-    p, h, st = _scratch_ptrs(part, buf, rows, n_split)
-    sums = p + 8 * rows * n_tiles * 2
-    with torch.cuda.device(v.device):
-        err = library().gmf_select_group(
-            step, pas, v.data_ptr(), m.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
-            keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(), float(eps), leaves, rows,
-            v.shape[1], _vec(v, m), inv_nv.data_ptr(), inv_nm.data_ptr(), thr.data_ptr(), p,
-            sums, h, st, DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype], _stream(v.device))
+                     tau: torch.Tensor, out: torch.Tensor, part: torch.Tensor,
+                     buf: torch.Tensor, cand: torch.Tensor, sizes: list[int],
+                     eps: float) -> None:
+    n_local, n_split, n_tiles, stride = sizes
+    _, rows, leaves = out.shape  # inv_nv, inv_nm, thr
+    each = 4 * rows * leaves
+    o = out.data_ptr()
+    err = _on(v.device, library().gmf_select_group,
+              step, pas, v.data_ptr(), m.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
+              _group_plan_ptr(table), keep.data_ptr(), stride, w.data_ptr(), tau.data_ptr(),
+              float(eps), leaves, rows, v.shape[1], _vec(v, m), o, o + each, o + 2 * each,
+              *_group_ptrs(part, buf, rows, n_split, n_tiles), cand.data_ptr(),
+              DTYPE_CODES[v.dtype], DTYPE_CODES[m.dtype])
     _group_launched(err, step, pas, "group:" + instance(v.dtype, m.dtype))
 
 
-@_op("gmf_select_abs_group_", ("thr", "mask", "part", "buf"), "gmf_select_step")
+@_op("gmf_select_abs_group_", ("out", "part", "buf", "cand"), "gmf_select_step")
 def _select_abs_group_op(step: int, pas: int, z: torch.Tensor, table: torch.Tensor,
-                         keep: torch.Tensor, thr: torch.Tensor, mask: torch.Tensor,
-                         part: torch.Tensor, buf: torch.Tensor, n_local: int, n_split: int,
-                         n_tiles: int, stride: int) -> None:
-    rows, leaves = thr.shape
-    _, h, st = _scratch_ptrs(part, buf, rows, n_split)
-    with torch.cuda.device(z.device):
-        err = library().gmf_select_abs_group(
-            step, pas, z.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
-            keep.data_ptr(), stride, leaves, rows, z.shape[1], _vec(z, mask), thr.data_ptr(),
-            mask.data_ptr(), h, st, DTYPE_CODES[z.dtype], _stream(z.device))
+                         keep: torch.Tensor, out: torch.Tensor, part: torch.Tensor,
+                         buf: torch.Tensor, cand: torch.Tensor, sizes: list[int]) -> None:
+    n_local, n_split, n_tiles, stride = sizes
+    rows, n = z.shape
+    leaves = (out.numel() - z.numel()) // rows  # the mask [rows, n], then thr [rows, leaves]
+    _, _, h, st, counts = _group_ptrs(part, buf, rows, n_split, n_tiles)
+    err = _on(z.device, library().gmf_select_abs_group,
+              step, pas, z.data_ptr(), table.data_ptr(), n_local, n_split, n_tiles,
+              _group_plan_ptr(table), keep.data_ptr(), stride, leaves, rows, n, _vec(z, out),
+              out.data_ptr() + 4 * z.numel(), out.data_ptr(), h, st, counts, cand.data_ptr(),
+              DTYPE_CODES[z.dtype])
     _group_launched(err, step, pas, "group:abs:" + instance(z.dtype))
 
 
@@ -659,22 +729,37 @@ def _select_plan(name: str, plan: SelectTable, x: torch.Tensor, leaves: int) -> 
                          f"this stack ({leaves} leaves, {x.shape[1]} elements, on {x.device})")
 
 
+def group_scratch(plan: SelectTable, rows: int) -> dict[str, int]:
+    """The elements of a select's scratch buffers for ``rows`` rows:
+    ``part`` (float64: the tiles' partial sums ``[rows, n_tiles, 2]``, then
+    the split segments' sums ``[n_split, rows, 2]``) and ``buf`` (int32);
+    in the single launch ``buf`` holds the ``[rows, n_split, 2048]``
+    histograms, the ``[rows, n_split, 4]`` segment states and the grid
+    barrier's two words; in the group mode three passes' ``[n_split, rows,
+    2048]`` histograms, the ``[n_split, rows, GROUP_STATE_WORDS]`` states
+    and each tile's candidate count ``[n_tiles, rows]``, and ``cand`` (int32)
+    the candidate slots, ``rows`` times the plan's ``slots``."""
+    part = rows * (plan.n_tiles + plan.n_split) * 2
+    if plan.n_group is None:
+        return {"part": part, "buf": rows * plan.n_split * (2048 + 4) + 2, "cand": 0}
+    return {"part": part,
+            "buf": rows * (plan.n_split * (3 * 2048 + GROUP_STATE_WORDS) + plan.n_tiles),
+            "cand": rows * plan.slots}
+
+
 def _select_scratch(plan: SelectTable, rows: int, device, stream: int):
-    """The split leaves' scratch for ``rows`` rows on ``stream``, made once
-    and kept on the plan: the float64 tile partials (the norms; in the
-    group mode followed by the split segments' sums) and one int32 buffer
-    of the ``[rows, n_split, 2048]`` histograms, the ``[rows, n_split, 4]``
-    segment states and the grid barrier's two words, made zero. Every
-    select leaves the histograms and the counts zero again, so calls on one
-    stream can share them; a call whose launch failed drops them. Returns
-    (partials, buffer)."""
+    """The split leaves' scratch for ``rows`` rows on ``stream``
+    (``group_scratch``), made once and kept on the plan, ``buf`` made zero:
+    every select leaves its ticket and barrier counts zero again (and the
+    single launch its histograms; the group mode zeroes them before a
+    call's first pass), so calls on one stream can share it; a call whose
+    launch failed drops it. Returns (partials, buffer, candidates)."""
     key = (rows, stream)
     if key not in plan.scratch:
-        hist = rows * plan.n_split * 2048
-        part = torch.empty(rows * (plan.n_tiles + plan.n_split) * 2, dtype=torch.float64,
-                           device=device)
-        buf = torch.zeros(hist + rows * plan.n_split * 4 + 2, dtype=torch.int32, device=device)
-        plan.scratch[key] = (part, buf)
+        size = group_scratch(plan, rows)
+        plan.scratch[key] = (torch.empty(size["part"], dtype=torch.float64, device=device),
+                             torch.zeros(size["buf"], dtype=torch.int32, device=device),
+                             torch.empty(size["cand"], dtype=torch.int32, device=device))
     return plan.scratch[key]
 
 
@@ -682,7 +767,7 @@ def _select_launch(op, plan: SelectTable, rows: int, device, *args) -> None:
     """One select launch ``op(*args, partials, buffer, ...)`` on the plan's
     scratch; a launch that failed drops the scratch."""
     stream = _stream(device)
-    part, buf = _select_scratch(plan, rows, device, stream)
+    part, buf, _ = _select_scratch(plan, rows, device, stream)
     try:
         op(*args, part, buf)
     except RuntimeError:
@@ -693,16 +778,19 @@ def _select_launch(op, plan: SelectTable, rows: int, device, *args) -> None:
 def _group_select(op, plan: SelectTable, device, rows: int, group, fused: bool, head, tail, *,
                   inst: str) -> None:
     """The group mode's steps (``csrc/gmf_compress.cu``: ``launch_group_step``)
-    on the current stream, ``op(step, pass, *head, partials, buffer, *tail)``;
-    between them the cut segments' sums and each pass's histograms are
-    all-reduced over ``group`` (None: a group of one, nothing to sum), a
-    segment whose piece this rank does not own (``plan.owners``) zeroed
-    first. Counted as one ``gmf_select`` launch."""
+    on the current stream, ``op(step, pass, *head, partials, buffer,
+    candidates, *tail)``: the first launch, (fused) the sample, the three
+    radix passes, the last launch. Between them the cut segments' sums
+    (fused) and each pass's histograms are all-reduced over ``group``
+    (None: a group of one, nothing to sum), a segment whose piece this rank
+    does not own (``plan.owners``) zeroed first. Counted as one
+    ``gmf_select`` launch."""
     import torch.distributed as dist
 
     stream = _stream(device)
-    part_t, buf = _select_scratch(plan, rows, device, stream)
+    part, buf, cand = _select_scratch(plan, rows, device, stream)
     summed = group is not None and plan.n_group > 0
+    hist = rows * plan.n_split * 2048  # one pass's histograms
 
     def total(x, own) -> None:  # the cut segments' part of a scratch buffer, summed
         if plan.owners is not None:  # [n_group, rows, ...]: the pieces others own count 0
@@ -712,25 +800,61 @@ def _group_select(op, plan: SelectTable, device, rows: int, group, fused: bool, 
 
     def step(i: int, p: int = 0) -> None:
         try:
-            op(i, p, *head, part_t, buf, *tail)
+            op(i, p, *head, part, buf, cand, *tail)
         except RuntimeError:
             plan.scratch.pop((rows, stream), None)
             raise
 
     step(0)
     if fused:
-        step(1)
         if summed:
             off = rows * plan.n_tiles * 2
-            total(part_t[off:off + rows * plan.n_group * 2], plan.owners and plan.owners[0])
+            total(part[off:off + rows * plan.n_group * 2], plan.owners and plan.owners[0])
+        step(1)
     for p in range(3):
-        if fused or p > 0:
-            step(2, p)
+        step(2, p)
         if summed:
-            total(buf[:rows * plan.n_group * 2048], plan.owners and plan.owners[1])
-        step(3, p)
-    if not fused:
-        step(4)
+            total(buf[p * hist:p * hist + rows * plan.n_group * 2048],
+                  plan.owners and plan.owners[1])
+    step(3)
+
+
+def group_select_paths(plan: SelectTable, rows: int, device) -> dict[str, int]:
+    """How the last group-mode select of ``rows`` rows on ``device``'s
+    current stream counted its passes 1 and 2, read back from its scratch
+    (a host read: for a check or a report after the call, never inside a
+    select). Over the split segments of every row (``segments``, their
+    ``elements``): those some tile of which read in full (``full_segments``);
+    the tiles that did, as the kernel counted them (``full_tiles``) and as
+    the rule gives them from the brackets and the counts
+    (``full_tiles_by_rule``: the bracket missed the k-th largest's top digit,
+    ``missed_tiles``, or the tile overflowed its slots, ``overflowed_tiles``)
+    and their ``full_elements``; the scores the samples drew (``sampled``);
+    the candidates kept (``kept``, the slots written in pass 0) and those
+    that each of passes 1 and 2 read (``counted``)."""
+    _, buf, _ = plan.scratch[(rows, _stream(device))]
+    n_split, n_tiles = plan.n_split, plan.n_tiles
+    at = 3 * rows * n_split * 2048
+    state = buf[at:at + rows * n_split * GROUP_STATE_WORDS].view(n_split * rows, -1)
+    state = state.to(torch.int64).cpu() & 0xFFFFFFFF
+    at += rows * n_split * GROUP_STATE_WORDS
+    counts = (buf[at:at + rows * n_tiles].to(torch.int64).cpu() & 0xFFFFFFFF).view(n_tiles, rows)
+    first = plan.group_plan[n_split:].cpu()
+    cap = (first[1:] - first[:-1]).view(n_tiles, 1)
+    tiles = plan.table.cpu()[3 * plan.n_local + 2 * n_split + 1:].view(n_tiles, 5)
+    rs = (tiles[:, 0].view(n_tiles, 1) * rows + torch.arange(rows)).reshape(-1)
+    lo, hi, d0 = state[:, 0], state[:, 1], state[:, 3] >> 21
+    missed = ~((d0 >= lo) & (d0 <= hi))[rs].view(n_tiles, rows)
+    over = counts > cap
+    full = missed | over
+    length = tiles[:, 3].view(n_tiles, 1).expand(n_tiles, rows)
+    seg_len = torch.zeros(n_split, dtype=torch.int64).index_add_(0, tiles[:, 0], tiles[:, 3])
+    return {"segments": n_split * rows, "elements": int(length.sum()),
+            "full_segments": int((state[:, 7] > 0).sum()), "full_tiles": int(state[:, 7].sum()),
+            "full_tiles_by_rule": int(full.sum()), "missed_tiles": int(missed.sum()),
+            "overflowed_tiles": int(over.sum()), "full_elements": int(length[full].sum()),
+            "sampled": rows * int(seg_len.clamp(max=GROUP_SAMPLE).sum()),
+            "kept": int(torch.minimum(counts, cap).sum()), "counted": int(counts[~full].sum())}
 
 
 def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float, group=None):
@@ -753,11 +877,12 @@ def gmf_select_flat(v, m, *, offsets, plan, keep, w, tau, eps: float, group=None
     rows = v.shape[0]
     stride = _keep_stride("gmf_select", keep, v, leaves)
     _check_rows("gmf_select", (rows,), v, w, tau)
-    inv_nv, inv_nm, thr = torch.empty(3, rows, leaves, dtype=torch.float32, device=v.device)
+    out = torch.empty(3, rows, leaves, dtype=torch.float32, device=v.device)
+    inv_nv, inv_nm, thr = out
     sizes = (plan.n_local, plan.n_split, plan.n_tiles, stride, float(eps))
     if plan.n_group is not None:
         _group_select(_select_group_op, plan, v.device, rows, group, True,
-                      (v, m, plan.table, keep, w, tau, inv_nv, inv_nm, thr), sizes,
+                      (v, m, plan.table, keep, w, tau, out), ([*sizes[:4]], sizes[4]),
                       inst="group:" + instance(v.dtype, m.dtype))
         return inv_nv, inv_nm, thr
     _select_launch(lambda part, buf: _select_op(v, m, plan.table, keep, w, tau, inv_nv, inv_nm,
@@ -781,7 +906,7 @@ def topk_abs_select_flat(z, *, offsets, plan, keep, group=None):
     sizes = (plan.n_local, plan.n_split, plan.n_tiles, stride)
     if plan.n_group is not None:
         _group_select(_select_abs_group_op, plan, z.device, rows, group, False,
-                      (z, plan.table, keep, thr, mask), sizes,
+                      (z, plan.table, keep, out), ([*sizes],),
                       inst="group:abs:" + instance(z.dtype))
         return thr, mask
     _select_launch(lambda part, buf: _select_abs_op(z, plan.table, keep, thr, mask, part, buf,

@@ -429,7 +429,8 @@ class FlatLayout:
         if group:
             if self._select_group is None:
                 self._select_group = gk.select_table(plan(), self.device, group=self.cut_flags,
-                                                     owners=self.owner_flags)
+                                                     owners=self.owner_flags,
+                                                     whole=self.full_sizes)
             return self._select_group
         if self._select is None:
             self._select = gk.select_table(plan(), self.device)

@@ -319,6 +319,74 @@ def test_select_plan_is_cached_per_layout_and_tile():
     assert FlatLayout.of_sizes([3, 70_000, 0, 16_384], "cpu").select_plan() is plan
 
 
+@pytest.mark.parametrize("lengths, slots", [
+    ([0, 1, 4, 16, 17, 31, 32, 33, 65_536], [0, 4, 4, 4, 8, 8, 8, 12, 16_384]),
+    ([700, TILE, 1], [176, 256, 4]),
+])
+def test_group_candidate_slots_are_a_quarter_of_each_tile_in_quads(lengths, slots):
+    assert gk.candidate_slots(lengths).tolist() == slots
+
+
+def test_group_table_and_scratch_hold_the_candidates():
+    """The group mode's plan: each split leaf's whole size, each tile's
+    first candidate slot in a row; its scratch for a row count: three
+    passes' histograms, the states, the tiles' counts and ``rows`` times a
+    row's slots, made once per (rows, stream) like the rest. The single
+    launch's table has no candidates."""
+    sizes = [5, 0, 3 * TILE, TILE + 1, TILE, 700]
+    plan = gk.plan_select(sizes, TILE)
+    whole = [5, 0, 6 * TILE, 2 * TILE + 2, TILE, 1400]
+    grp = gk.select_table(plan, "cpu", group=[False, True, True, True, False, True],
+                          whole=whole)
+    assert (grp.n_group, grp.n_local, grp.n_split, grp.n_tiles) == (4, 2, 4, 7)
+    # split leaves 1, 2, 3, 5; tiles 0 | 1024 x 3 | 1024, 1 | 700
+    caps = [0, 256, 256, 256, 256, 4, 176]
+    first = np.concatenate([[0], np.cumsum(caps)]).tolist()
+    assert grp.group_plan.tolist() == [0, 6 * TILE, 2 * TILE + 2, 1400] + first
+    assert grp.slots == sum(caps) == 1204
+    rows = 3
+    assert gk.group_scratch(grp, rows) == {
+        "part": rows * (7 + 4) * 2, "cand": rows * 1204,
+        "buf": rows * (4 * (3 * 2048 + gk.GROUP_STATE_WORDS) + 7)}
+    part, buf, cand = gk._select_scratch(grp, rows, "cpu", 0)
+    assert (part.dtype, buf.dtype, cand.dtype) == (torch.float64, torch.int32, torch.int32)
+    assert cand.numel() == rows * 1204 and not buf.any()
+    assert all(a is b for a, b in zip(gk._select_scratch(grp, rows, "cpu", 0),
+                                      (part, buf, cand), strict=True))
+    assert gk._select_scratch(grp, 2, "cpu", 0)[2].numel() == 2 * 1204
+    assert gk._select_scratch(grp, rows, "cpu", 7)[2] is not cand
+    assert set(grp.scratch) == {(3, 0), (2, 0), (3, 7)}
+    one = gk.select_table(plan, "cpu")
+    assert one.group_plan is None and one.slots == 0
+    assert gk.group_scratch(one, rows) == {"part": rows * (5 + 2) * 2, "cand": 0,
+                                           "buf": rows * 2 * (2048 + 4) + 2}
+    # the whole sizes default to the plan's, and must name every leaf
+    assert gk.select_table(plan, "cpu", group=[True] * 6).group_plan[:6].tolist() == sizes
+    with pytest.raises(ValueError, match="whole sizes"):
+        gk.select_table(plan, "cpu", group=[True] * 6, whole=[1, 2])
+
+
+def test_group_layout_plan_reads_the_whole_sizes():
+    """``FlatLayout.select_plan(group=True)`` hands the layout's whole sizes
+    (``full_sizes``, the leaves' over the group) and cut flags to the
+    table: here those a piece of each leaf over a group of two would have."""
+    from repro_torch.utils.flat import FlatLayout
+
+    layout = FlatLayout.of_sizes([6, 70_000, 9], "cpu")
+    layout.full_sizes, layout.cut_flags = (12, 140_000, 9), (True, True, False)
+    plan = layout.select_plan(group=True)
+    assert (plan.n_group, plan.n_split, plan.n_local) == (2, 2, 1)
+    assert plan.group_plan[:plan.n_split].tolist() == [12, 140_000]
+    assert plan.slots == gk.candidate_slots(plan.plan.blocks[:1 + 5, 2]).sum()
+
+
+def test_group_constants_match_the_kernel():
+    text = (CSRC / "gmf_compress.cu").read_text()
+    assert re.search(r"constexpr int kSample = (\d+);", text).group(1) == str(gk.GROUP_SAMPLE)
+    words = re.search(r"enum : int \{([^}]*)\}", text).group(1).split(",")
+    assert words[-1].strip() == "kStateWords" and len(words) - 1 == gk.GROUP_STATE_WORDS
+
+
 def test_select_wrappers_refuse_a_plan_of_another_layout():
     from repro_torch.utils.flat import FlatLayout
 

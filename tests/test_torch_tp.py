@@ -46,10 +46,13 @@ CPU thread a rank), while this process runs the JAX side:
   (the pieces taken for whole leaves: local indices, blocks, samples and
   top-k) differs on the same inputs.
 
-In process: a CPU emulation of the group mode's histograms (each rank's
-tiles counted, the ranks' histograms summed, the kernel's scan from the
-top) gives the whole leaf's k-th largest bit for bit; the group plan puts
-the cut segments first.
+In process: a CPU emulation of the group mode (each rank's sample and
+bracket, pass 0's counts and kept candidates, the ranks' histograms summed,
+the kernel's scan from the top, each tile's choice between its candidates
+and a full read in passes 1 and 2) gives the whole leaf's k-th largest bit
+for bit, with pieces built to miss the bracket, overflow the candidate
+slots, or miss on one rank alone; the group plan puts the cut segments
+first.
 """
 
 import math
@@ -234,41 +237,131 @@ def test_engine_at_model_two_is_the_one_rank_engine(world2, arch, wire):
 # ---------------------------------------------------------------------------
 
 
-def group_kth_largest(pieces, k: int, tile: int) -> torch.Tensor:
+def sample_ranks(k: int, whole: int, ns: int) -> tuple[int, int]:
+    """``sample_ranks`` of ``csrc/gmf_compress.cu``: the sample's ranks k *
+    ns / whole -+ (4 standard deviations + 1), within [1, ns]."""
+    q = min(max(k / whole if whole > 0 else 1.0, 0.0), 1.0)
+    r = q * ns
+    d = 4.0 * math.sqrt(ns * q * (1.0 - q)) + 1.0
+    return max(1, math.floor(r - d)), min(ns, math.ceil(r + d))
+
+
+def sample_bracket(bits: torch.Tensor, k: int, whole: int) -> tuple[int, int]:
+    """``group_sample``: a piece's bracket [lo, hi] of pass 0's bins, from
+    the top digits of ``GROUP_SAMPLE`` of its score bits at a fixed
+    stride."""
+    n = bits.numel()
+    ns = min(n, gk.GROUP_SAMPLE)
+    hist = torch.bincount(bits[torch.arange(ns, dtype=torch.int64) * n // ns] >> 21,
+                          minlength=2048)
+    r_lo, r_hi = sample_ranks(k, whole, ns)
+    return sel.scan_from_top(hist, r_hi)[0], sel.scan_from_top(hist, r_lo)[0]
+
+
+def group_kth_largest(pieces, k: int, tile: int):
     """The k-th largest of a leaf whose ranks hold ``pieces`` (non-negative
-    float32 scores) as the group mode finds it: in each pass every rank
-    counts its own tiles' candidates into its histogram, the histograms are
-    summed over the ranks (the all-reduce), and each rank scans the sum
-    from the top (``scan_bins``)."""
+    float32 scores) as the group mode finds it. Each rank draws its sample
+    and takes its bracket; in pass 0 it counts every score of its tiles and
+    keeps those whose top digit lies in its bracket as the tile's
+    candidates (at most ``candidate_slots``); the ranks' histograms are
+    summed (the all-reduce) and the next pass scans the sum from the top
+    (``scan_bins``, as each of its blocks does). In passes 1 and 2 a tile
+    counts its candidates where the digit found lies in its rank's bracket
+    and the tile did not overflow, else it reads its scores in full.
+    Returns (the threshold, each rank's path a tile: "candidates", "miss"
+    or "overflow")."""
     bits = [p.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF for p in pieces]
-    prefix, pmask, rank = 0, 0, k
-    for shift, width in ((21, 11), (10, 11), (0, 10)):
+    whole = sum(b.numel() for b in bits)
+    brackets = [sample_bracket(b, k, whole) for b in bits]
+    tiles = []  # per rank: (scores, kept candidates, appended) a tile
+    hist = torch.zeros(2048, dtype=torch.int64)
+    for b, (lo, hi) in zip(bits, brackets, strict=True):
+        plan = gk.plan_select([b.numel()], tile)
+        caps = gk.candidate_slots(plan.blocks[:, 2])
+        own = []
+        for (_, start, length), cap in zip(plan.blocks.tolist(), caps.tolist(), strict=True):
+            part = b[start:start + length]
+            hist += torch.bincount(part >> 21, minlength=2048)
+            hits = part[((part >> 21) >= lo) & ((part >> 21) <= hi)]
+            own.append((part, hits[:cap], hits.numel()))
+        tiles.append(own)
+    d0, rank = sel.scan_from_top(hist, k)
+    prefix, pmask = d0 << 21, 0x7FF << 21
+    paths = [["candidates" if lo <= d0 <= hi and n <= len(kept) else
+              "miss" if not lo <= d0 <= hi else "overflow" for _, kept, n in own]
+             for own, (lo, hi) in zip(tiles, brackets, strict=True)]
+    for shift, width in ((10, 11), (0, 10)):
         dmask = (1 << width) - 1
         hist = torch.zeros(2048, dtype=torch.int64)
-        for b in bits:
-            plan = gk.plan_select([b.numel()], tile)
-            for _, start, length in plan.blocks.tolist():
-                part = b[start:start + length]
-                cand = part[(part & pmask) == prefix]
+        for own, path in zip(tiles, paths, strict=True):
+            for (part, kept, _), how in zip(own, path, strict=True):
+                src = kept if how == "candidates" else part
+                cand = src[(src & pmask) == prefix]
                 hist += torch.bincount((cand >> shift) & dmask, minlength=2048)
         digit, rank = sel.scan_from_top(hist, rank)
         prefix |= digit << shift
         pmask |= dmask << shift
-    return torch.tensor([prefix], dtype=torch.int64).to(torch.int32).view(torch.float32)[0]
+    thr = torch.tensor([prefix], dtype=torch.int64).to(torch.int32).view(torch.float32)[0]
+    return thr, paths
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "equal", "tiny"])
+# Pieces built for the group mode's paths at k = 10 % of the leaf: shares
+# of "large" scores (spread over 20 bins, [2, 64)), of one bin B ([1, 1.2))
+# and of "medium" ones (the four bins under B, [0.55, 0.95)), the rest
+# "small" ([0.01, 0.5)). The ranks but the last take the kind's pieces but
+# the last in turn, the last rank its last piece. The k-th largest lies in B.
+GROUP_PIECES = {
+    # each rank's 10 % falls in the large or the medium scores: every bracket misses
+    "misses": [dict(large=0.14, b=0.04), dict(b=0.04, medium=0.20)] * 2,
+    # each rank's 10 % falls in B, which holds 30 % of each tile: every tile overflows
+    "overflow": [dict(large=0.05, b=0.30)] * 2,
+    # the last rank's 10 % falls in its large scores: it misses, the others hit
+    "one_misses": [dict(large=0.055, b=0.09), dict(large=0.14, b=0.09)],
+}
+
+
+def group_pieces(kind: str, ranks_: int, n: int = 12_000, seed: int = 5):
+    """The pieces of an ``n``-element leaf over ``ranks_`` ranks: the column
+    pieces of ``_scores``' kinds, or a ``GROUP_PIECES`` kind."""
+    if kind not in GROUP_PIECES:
+        return list(sel._scores(n, kind, seed=3).reshape(100, 120).chunk(ranks_, dim=1))
+    rng = np.random.default_rng(seed)
+    shares = GROUP_PIECES[kind]
+    out = []
+    for r in range(ranks_):
+        mix = shares[-1] if r == ranks_ - 1 else shares[r % (len(shares) - 1)]
+        m = n // ranks_
+        counts = {k: int(round(f * m)) for k, f in mix.items()}
+        counts["small"] = m - sum(counts.values())
+        span = {"large": (2.0, 64.0), "b": (1.0, 1.2), "medium": (0.55, 0.95),
+                "small": (0.01, 0.5)}
+        x = np.concatenate([rng.uniform(*span[k], size=c) for k, c in counts.items()])
+        out.append(torch.from_numpy(rng.permutation(x).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "equal", "tiny", *GROUP_PIECES])
 @pytest.mark.parametrize("ranks_, tile", [(2, 4096), (2, 1000), (4, 1000)])
 def test_group_mode_histograms_give_the_whole_leafs_threshold(kind, ranks_, tile):
-    """A 12,000-element leaf cut along its columns (each rank's piece
-    strided in the leaf's order) over 2 or 4 ranks, each piece in one or
-    many tiles."""
-    z = sel._scores(12_000, kind, seed=3).reshape(100, 120)
-    pieces = list(z.chunk(ranks_, dim=1))
+    """A 12,000-element leaf cut over 2 or 4 ranks, each piece in one or
+    many tiles: the column pieces of ``_scores``' kinds (each rank's piece
+    strided in the leaf's order), or pieces built for a path
+    (``GROUP_PIECES``): every bracket missing the k-th largest's top digit,
+    every tile overflowing its candidate slots, one rank missing while the
+    others hit. Whatever path each tile takes, the threshold is bitwise
+    ``torch.topk``'s over the whole leaf."""
+    pieces = group_pieces(kind, ranks_)
+    z = torch.cat([p.reshape(-1) for p in pieces])
     for k in sorted({1, 1200, 6000, 12_000}):
-        got = group_kth_largest(pieces, k, tile)
-        want = torch.topk(z.reshape(-1), k).values[-1]
+        got, paths = group_kth_largest(pieces, k, tile)
+        want = torch.topk(z, k).values[-1]
         assert got.view(torch.int32) == want.view(torch.int32), (kind, ranks_, tile, k)
+        if kind in GROUP_PIECES and k == 1200:
+            want_paths = {"misses": ["miss"] * ranks_, "overflow": ["overflow"] * ranks_,
+                          "one_misses": ["candidates"] * (ranks_ - 1) + ["miss"]}[kind]
+            assert [set(p) for p in paths] == [{w} for w in want_paths], (kind, paths)
+    if kind == "normal":  # the |z| of normal draws: the bracket holds at 10 %
+        assert {"candidates"} == set().union(*group_kth_largest(pieces, 1200, tile)[1])
 
 
 def test_group_plan_puts_cut_segments_first():
